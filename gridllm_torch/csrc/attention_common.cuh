@@ -1,0 +1,273 @@
+// Shared core of the two attention kernels (flash_prefill.cu and
+// ragged_attention.cu): one thread block attends a set of query rows (the
+// G query heads of ONE kv head, for a run of consecutive query tokens) to
+// one or more SEGMENTS of keys, with an online softmax in float32.
+//
+// Design, for the H100 (sm_90a):
+// - The K/V rows of a segment stream through shared memory in tiles of
+//   kTileKeys keys, converted to float32 on load with 16-byte vector reads
+//   (a key row of one kv head is D contiguous values; rows are strided by
+//   KVH*D in both the page pool and the fresh K/V).
+// - Each of the kWarps warps owns RPW query rows, kept in shared memory
+//   pre-scaled by 1/sqrt(D). A warp scores 32 keys at a time, one key per
+//   lane, reusing every K value it reads for its RPW rows (register
+//   blocking: the K reads from shared memory, not the multiply-adds, bound
+//   the inner loop). The softmax statistics are warp reductions; each lane
+//   owns D/32 output columns of every row's accumulator.
+// - Masking uses absolute positions: key at position kp is visible to the
+//   query at qp iff kp <= qp, kp < klimit, and (window <= 0 or
+//   qp - kp < window). Masked scores get probability 0 (the finite -1e30
+//   of the JAX package's kernels only enters the running maximum), and the
+//   output is acc / max(l, 1e-30).
+// - All math runs on the CUDA cores in float32. Tensor cores (mma/wgmma)
+//   and TMA loads are left to a later version; see PERF.md for what this
+//   costs against the card's bound.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace gridllm {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileKeys = 64;
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Read VEC = 16 / sizeof(T) values at a 16-byte aligned address as floats.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* src, float* dst) {
+  constexpr int VEC = 16 / sizeof(T);
+  uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* vals = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) dst[e] = to_f<T>(vals[e]);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Key rows stored contiguously: row r at offset r * stride (elements).
+struct ContigRows {
+  int64_t stride;
+  __device__ __forceinline__ int64_t operator()(int r) const {
+    return static_cast<int64_t>(r) * stride;
+  }
+};
+
+// Key rows of one slot in the page pool [L, P, ps, KVH, D]: absolute
+// position r lives in page table[r / ps], row r % ps. Table entries are
+// clamped into [0, P) so an unmapped (-1) or corrupt entry never reads
+// outside the pool (such rows are masked by the caller's limits anyway).
+struct PagedRows {
+  const int* table;
+  int n_table;
+  int64_t layer_base;  // layer * P * ps (rows)
+  int ps;
+  int num_pages;
+  int64_t row_stride;  // KVH * D (elements)
+  __device__ __forceinline__ int64_t operator()(int r) const {
+    int p = r / ps;
+    int page = p < n_table ? table[p] : 0;
+    page = min(max(page, 0), num_pages - 1);
+    return (layer_base + static_cast<int64_t>(page) * ps + (r - p * ps)) * row_stride;
+  }
+};
+
+// Shared-memory floats the attention block needs.
+template <int D, int RPW>
+constexpr int smem_floats() {
+  return kWarps * RPW * D + kTileKeys * (D + 4) + kTileKeys * D;
+}
+
+template <typename T, int D, int RPW>
+struct AttnBlock {
+  static_assert(D % 32 == 0 && D % (16 / sizeof(T)) == 0, "head_dim");
+  static constexpr int NR = kWarps * RPW;  // rows per pass
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int KS = D + 4;         // padded K row: conflict-free float4 reads
+
+  float* qs;  // [NR][D]
+  float* ks;  // [kTileKeys][KS]
+  float* vs;  // [kTileKeys][D]
+  int warp, lane;
+  float softcap;
+  int window;
+  float m[RPW], l[RPW], acc[RPW][D / 32];
+  int qpos[RPW];
+
+  __device__ AttnBlock(float* smem, float softcap_, int window_)
+      : softcap(softcap_), window(window_) {
+    qs = smem;
+    ks = qs + NR * D;
+    vs = ks + kTileKeys * KS;
+    warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+  }
+
+  // Load rows [row0, row0 + NR) of a row list of `rows_total` rows into
+  // shared memory and reset the softmax state. Row i is query token i / G,
+  // head g = i % G: at qbase + (i / G) * tok_stride + (i % G) * D, at
+  // absolute position qpos0 + i / G.
+  __device__ void load_q(const T* qbase, int64_t tok_stride, int G, int row0,
+                         int rows_total, int qpos0, float scale) {
+    __syncthreads();  // the previous pass's readers of qs are done
+    for (int idx = threadIdx.x; idx < NR * (D / VEC); idx += kThreads) {
+      int row = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
+      int gi = row0 + row;
+      float vals[VEC];
+      if (gi < rows_total) {
+        load_vec<T>(qbase + static_cast<int64_t>(gi / G) * tok_stride + (gi % G) * D + c, vals);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) vals[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qs[row * D + c + e] = vals[e] * scale;
+    }
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      int gi = row0 + warp * RPW + r;
+      qpos[r] = gi < rows_total ? qpos0 + gi / G : -1;
+      m[r] = kNegInf;
+      l[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
+    }
+  }
+
+  // Attend to key rows [r_lo, r_hi) of one segment: row r's K/V start at
+  // kbase/vbase + off(r), its absolute position is pos0 + r, and keys at
+  // positions >= klimit are masked.
+  template <class RowOff>
+  __device__ void segment(const T* kbase, const T* vbase, RowOff off, int r_lo,
+                          int r_hi, int pos0, int klimit) {
+    for (int t0 = r_lo; t0 < r_hi; t0 += kTileKeys) {
+      const int nk = min(kTileKeys, r_hi - t0);
+      __syncthreads();  // previous tile consumed; q rows visible
+      for (int idx = threadIdx.x; idx < kTileKeys * (D / VEC); idx += kThreads) {
+        int j = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
+        float kv[VEC], vv[VEC];
+        if (j < nk) {
+          int64_t o = off(t0 + j) + c;
+          load_vec<T>(kbase + o, kv);
+          load_vec<T>(vbase + o, vv);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          ks[j * KS + c + e] = kv[e];
+          vs[j * D + c + e] = vv[e];
+        }
+      }
+      __syncthreads();
+      tile(nk, pos0 + t0, klimit);
+    }
+  }
+
+  // Score, mask and accumulate the nk keys of the shared-memory tile,
+  // key j at absolute position kpos0 + j.
+  __device__ void tile(int nk, int kpos0, int klimit) {
+    for (int sub = 0; sub < nk; sub += 32) {
+      const int j = sub + lane;
+      const int kp = kpos0 + j;
+      float s[RPW];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) s[r] = 0.f;
+      const float* krow = ks + j * KS;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (warp * RPW + r) * D + d);
+          s[r] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        float x = s[r];
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        const int qp = qpos[r];
+        const bool ok = j < nk && qp >= 0 && kp <= qp && kp < klimit &&
+                        (window <= 0 || qp - kp < window);
+        const float m_new = fmaxf(m[r], warp_max(ok ? x : kNegInf));
+        const float alpha = expf(m[r] - m_new);
+        const float p = ok ? expf(x - m_new) : 0.f;
+        l[r] = l[r] * alpha + warp_sum(p);
+        m[r] = m_new;
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c) acc[r][c] *= alpha;
+        s[r] = p;
+      }
+      const int nsub = min(32, nk - sub);
+      for (int jj = 0; jj < nsub; ++jj) {
+        const float* vrow = vs + (sub + jj) * D;
+        float vv[D / 32];
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c) vv[c] = vrow[lane + 32 * c];
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+          const float p = __shfl_sync(kFull, s[r], jj);
+#pragma unroll
+          for (int c = 0; c < D / 32; ++c) acc[r][c] += p * vv[c];
+        }
+      }
+    }
+  }
+
+  // Write the warp's rows: out = acc / max(l, 1e-30), same row addressing
+  // as load_q.
+  __device__ void store(T* obase, int64_t tok_stride, int G, int row0, int rows_total) {
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int gi = row0 + warp * RPW + r;
+      if (gi >= rows_total) continue;
+      T* o = obase + static_cast<int64_t>(gi / G) * tok_stride + (gi % G) * D;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) o[lane + 32 * c] = from_f<T>(acc[r][c] * inv);
+    }
+  }
+};
+
+// Opt a kernel instance into more than 48 KB of dynamic shared memory
+// (set before every launch: a host-side attribute write, no device work).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace gridllm

@@ -1,0 +1,177 @@
+// ragged_attention: unified paged attention for one ragged token batch —
+// one prefill CHUNK region plus S per-slot GROUPS — in a single launch.
+//
+// Replaces gridllm_tpu/ops/pallas_kernels.py:1168 `ragged_attention`
+// (body `_ragged_attn_kernel`, :821), without its int8 (k_scale/v_scale)
+// and tree-verify (tree_pos/tree_bits) legs, which the Python wrapper
+// refuses. The function:
+// - chunk region: the C queries of one slot at positions chunk_start + i
+//   attend the slot's cached prefix [0, chunk_start) through chunk_row,
+//   then the chunk's own fresh K/V causally, keys at positions
+//   >= chunk_total masked;
+// - group region: slot s's Td queries at positions group_lengths[s] + i
+//   attend its pages [0, group_lengths[s]) through page_table[s] (the pool
+//   lags one step: group_lengths counts the prefix only), then its Td fresh
+//   K/V causally. Td = 1 is decode, Td = K+1 speculative verify (any
+//   Td <= 32).
+// Both regions take a sliding window and a tanh softcap.
+//
+// What bounds it on the H100: decode groups read every cached K/V byte of
+// every slot once per layer for ~2 flops per byte, so they are bound by
+// device-memory bytes; the chunk region at C=1024 is compute bound like
+// flash_prefill. This version streams tiles synchronously through shared
+// memory with float32 CUDA-core math (attention_common.cuh), so decode
+// latency is dominated by load latency with one block per (slot, kv head);
+// split-K over pages and tensor-core chunk tiles are later work.
+//
+// Design: grid ((C / BQ chunk tiles + S group tiles), KVH), the TPU
+// kernel's static tile grid with the sequential grid axis turned into
+// parallel blocks. A block walks its slot's page-table row itself (the
+// pool row of one kv head is D values strided by KVH*D), so no page is
+// gathered into a dense copy. Safety: page numbers are clamped into the
+// pool and the walk stops at min(length, table capacity), so an empty slot
+// (length 0) or an unmapped (-1) entry never reads outside the pool.
+#include "attention_common.cuh"
+
+namespace gridllm {
+
+struct RaggedArgs {
+  const void* k_pool;
+  const void* v_pool;
+  int num_pages, ps, layer;
+  // chunk region
+  const void* q_chunk;
+  const void* k_chunk;
+  const void* v_chunk;
+  void* o_chunk;
+  const int* chunk_row;
+  int n_table_c, C, bq, chunk_start, chunk_total, n_chunk_tiles;
+  // group region
+  const void* q_group;
+  const void* k_group;
+  const void* v_group;
+  void* o_group;
+  const int* page_table;
+  const int* group_lengths;
+  int n_table_g, S, Td;
+  int H, KVH;
+  float scale, softcap;
+  int window;
+};
+
+template <typename T, int D, int RPW>
+__global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a) {
+  extern __shared__ float smem[];
+  const int tile = blockIdx.x, h = blockIdx.y;
+  const int G = a.H / a.KVH;
+  const int64_t row_stride = static_cast<int64_t>(a.KVH) * D;
+  const int64_t tok_stride = static_cast<int64_t>(a.H) * D;
+  const int64_t head_q = static_cast<int64_t>(h) * G * D;
+  const T* k_pool = static_cast<const T*>(a.k_pool) + static_cast<int64_t>(h) * D;
+  const T* v_pool = static_cast<const T*>(a.v_pool) + static_cast<int64_t>(h) * D;
+  const int64_t layer_base = static_cast<int64_t>(a.layer) * a.num_pages * a.ps;
+  constexpr int NR = AttnBlock<T, D, RPW>::NR;
+  AttnBlock<T, D, RPW> blk(smem, a.softcap, a.window);
+
+  if (tile < a.n_chunk_tiles) {
+    const int tok0 = tile * a.bq;
+    const int ntok = min(a.bq, a.C - tok0);
+    const int rows_total = ntok * G;
+    const int64_t qoff = static_cast<int64_t>(tok0) * tok_stride + head_q;
+    const PagedRows pages{a.chunk_row, a.n_table_c, layer_base, a.ps, a.num_pages, row_stride};
+    const int ctx = min(max(a.chunk_start, 0), a.n_table_c * a.ps);
+    const int k_hi = min(tok0 + ntok, a.C);  // causal bound inside the chunk
+    const T* kc = static_cast<const T*>(a.k_chunk) + static_cast<int64_t>(h) * D;
+    const T* vc = static_cast<const T*>(a.v_chunk) + static_cast<int64_t>(h) * D;
+    for (int row0 = 0; row0 < rows_total; row0 += NR) {
+      const int qfirst = a.chunk_start + tok0 + row0 / G;
+      const int p_lo = a.window > 0 ? max(qfirst - a.window + 1, 0) : 0;
+      const int c_lo = a.window > 0 ? max(qfirst - a.window + 1 - a.chunk_start, 0) : 0;
+      blk.load_q(static_cast<const T*>(a.q_chunk) + qoff, tok_stride, G, row0, rows_total,
+                 a.chunk_start + tok0, a.scale);
+      blk.segment(k_pool, v_pool, pages, min(p_lo, ctx), ctx, 0, ctx);
+      blk.segment(kc, vc, ContigRows{row_stride}, min(c_lo, k_hi), k_hi, a.chunk_start,
+                  a.chunk_total);
+      blk.store(static_cast<T*>(a.o_chunk) + qoff, tok_stride, G, row0, rows_total);
+    }
+    return;
+  }
+
+  const int s = tile - a.n_chunk_tiles;
+  const int length = max(a.group_lengths[s], 0);
+  const int rows_total = a.Td * G;
+  const int64_t qoff = static_cast<int64_t>(s) * a.Td * tok_stride + head_q;
+  const PagedRows pages{a.page_table + static_cast<int64_t>(s) * a.n_table_g, a.n_table_g,
+                        layer_base, a.ps, a.num_pages, row_stride};
+  const int ctx = min(length, a.n_table_g * a.ps);
+  const int64_t kvoff = static_cast<int64_t>(s) * a.Td * row_stride;
+  const T* kg = static_cast<const T*>(a.k_group) + kvoff + static_cast<int64_t>(h) * D;
+  const T* vg = static_cast<const T*>(a.v_group) + kvoff + static_cast<int64_t>(h) * D;
+  for (int row0 = 0; row0 < rows_total; row0 += NR) {
+    const int qfirst = length + row0 / G;
+    const int p_lo = a.window > 0 ? max(qfirst - a.window + 1, 0) : 0;
+    blk.load_q(static_cast<const T*>(a.q_group) + qoff, tok_stride, G, row0, rows_total,
+               length, a.scale);
+    blk.segment(k_pool, v_pool, pages, min(p_lo, ctx), ctx, 0, ctx);
+    blk.segment(kg, vg, ContigRows{row_stride}, 0, a.Td, length, length + a.Td);
+    blk.store(static_cast<T*>(a.o_group) + qoff, tok_stride, G, row0, rows_total);
+  }
+}
+
+template <typename T, int D, int RPW>
+cudaError_t launch(const RaggedArgs& a, cudaStream_t stream) {
+  auto kernel = ragged_attention_kernel<T, D, RPW>;
+  const int smem = smem_floats<D, RPW>() * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.n_chunk_tiles + a.S, a.KVH);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t by_rpw(int rpw, const RaggedArgs& a, cudaStream_t s) {
+  switch (rpw) {
+    case 1: return launch<T, D, 1>(a, s);
+    case 2: return launch<T, D, 2>(a, s);
+    case 4: return launch<T, D, 4>(a, s);
+    case 8: return launch<T, D, 8>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t by_dim(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
+  switch (d) {
+    case 64: return by_rpw<T, 64>(rpw, a, s);
+    case 128: return by_rpw<T, 128>(rpw, a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace gridllm
+
+// dtype: 0 = float32, 1 = bfloat16. A region is absent when its query
+// pointer is null (n_chunk_tiles = 0 or S = 0). Returns cudaGetLastError().
+extern "C" int gridllm_ragged_attention(
+    const void* k_pool, const void* v_pool, int num_pages, int ps, int layer,
+    const void* q_chunk, const void* k_chunk, const void* v_chunk, void* o_chunk,
+    const void* chunk_row, int n_table_c, int C, int bq, int chunk_start, int chunk_total,
+    int n_chunk_tiles, const void* q_group, const void* k_group, const void* v_group,
+    void* o_group, const void* page_table, const void* group_lengths, int n_table_g,
+    int S, int Td, int H, int KVH, int D, int rpw, int dtype, float scale, float softcap,
+    int window, void* stream) {
+  gridllm::RaggedArgs a{k_pool, v_pool, num_pages, ps, layer,
+                        q_chunk, k_chunk, v_chunk, o_chunk,
+                        static_cast<const int*>(chunk_row), n_table_c, C, bq,
+                        chunk_start, chunk_total, n_chunk_tiles,
+                        q_group, k_group, v_group, o_group,
+                        static_cast<const int*>(page_table),
+                        static_cast<const int*>(group_lengths), n_table_g, S, Td,
+                        H, KVH, scale, softcap, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) err = gridllm::by_dim<float>(D, rpw, a, s);
+  else if (dtype == 1) err = gridllm::by_dim<__nv_bfloat16>(D, rpw, a, s);
+  return static_cast<int>(err);
+}

@@ -1,0 +1,713 @@
+"""Continuous-batching inference engine on PyTorch.
+
+The counterpart of the JAX package's engine/engine.py for its default
+serving path with speculative decoding off:
+
+- One device state: the paged KV pool shared by `max_slots` concurrent
+  requests, per-slot sampler options, per-slot repeat-penalty windows and
+  token counts. Prompts pad to the smallest prefill bucket.
+- Continuous batching: requests join and leave between decode steps.
+- Decode runs in BLOCKS of `decode_block` steps per dispatch, with up to
+  `pipeline_depth` blocks in flight ahead of the host: each block's tokens
+  are copied to pinned host memory asynchronously and fetched when the
+  host needs them, so host bookkeeping overlaps device work. Host-side
+  finishing (EOS, stop sequences, num_predict) lags the device by up to
+  decode_block × pipeline_depth wasted steps; page-table sentinels drop
+  the writes of finished slots and their fetched tokens are discarded.
+- Admission never synchronizes: the prefill samples the first token on
+  the device; the host first sees it in row 0 of the next block it
+  fetches, matched by a per-slot dispatch-generation tag.
+- Prompts longer than `prefill_chunk`, and prompts whose prefix is in the
+  prefix cache, prefill in page-aligned chunks through `mixed_step`: each
+  chunk runs in ONE ragged attention launch per layer together with one
+  decode token for every running slot.
+
+Unlike the JAX engine, whose device state is immutable, the state tensors
+here are updated in place; every block's token output is a fresh tensor
+copied out before the next block runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+import threading
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from gridllm_torch.engine.tokenizer import DetokState, Tokenizer, get_tokenizer
+from gridllm_torch.models.configs import get_config
+from gridllm_torch.models.llama import Llama
+from gridllm_torch.ops.kvcache import PagedKVCache, PageAllocator
+from gridllm_torch.ops.sampling import (
+    SamplingParams,
+    sample_tokens,
+    window_push,
+    window_set_slot,
+)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model: str
+    checkpoint_path: str | None = None   # not ported yet: random weights only
+    tokenizer: str | None = None         # None/"byte" → ByteTokenizer
+    dtype: str = "bfloat16"
+    quantize: str | None = None          # not ported
+    max_slots: int = 8
+    page_size: int = 64
+    num_pages: int = 1024
+    max_pages_per_slot: int = 128
+    prefill_buckets: tuple[int, ...] = (64, 256, 1024, 4096)
+    mesh: Any = None                     # not ported
+    max_queue: int = 512
+    seed: int | None = None              # engine-level seed for unseeded requests
+    # prompts longer than this prefill in chunks against the cached prefix;
+    # rounded down to a multiple of page_size (page-aligned chunk starts)
+    prefill_chunk: int = 1024
+    decode_block: int = 8                # decode steps per runner dispatch
+    pipeline_depth: int = 2              # blocks in flight ahead of the host
+    admit_per_block: int = 2             # admissions per block while busy
+    repeat_window: int = 256             # width of the repeat-penalty window
+    # prefix cache: completed requests park their full KV pages in a
+    # content-addressed reuse LRU; prefix_cache_pages bounds it (-1 = whole
+    # pool, 0 = off)
+    prefix_cache: bool = True
+    prefix_cache_pages: int = -1
+    spec_decode: bool = False            # not ported
+    draft_model: str | None = None       # not ported
+    kv_host_bytes: int | None = None     # not ported
+    kv_int8: bool | None = None          # not ported
+
+    def check_ported(self) -> None:
+        """Raise for a setting whose feature this package does not have."""
+        unported = {
+            "checkpoint_path": bool(self.checkpoint_path),
+            "quantize": bool(self.quantize),
+            "mesh": self.mesh is not None,
+            "spec_decode": bool(self.spec_decode),
+            "draft_model": bool(self.draft_model),
+            "kv_host_bytes": bool(self.kv_host_bytes),
+            "kv_int8": bool(self.kv_int8),
+        }
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"EngineConfig.{name} is not ported")
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype {self.dtype!r} (have {sorted(_DTYPES)})")
+
+
+@dataclasses.dataclass
+class GenerationRequest:
+    id: str
+    prompt: str | None = None
+    prompt_ids: list[int] | None = None  # pre-tokenized (Ollama `context` path)
+    options: dict[str, Any] = dataclasses.field(default_factory=dict)
+    raw: bool = False                    # skip BOS when prompt_ids is None
+    # called from the engine loop: (text_delta, done, result|None)
+    on_chunk: Callable[[str, bool, "GenerationResult | None"], None] | None = None
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    id: str
+    text: str = ""
+    token_ids: list[int] = dataclasses.field(default_factory=list)
+    context: list[int] = dataclasses.field(default_factory=list)
+    done_reason: str = "stop"
+    prompt_eval_count: int = 0
+    cached_tokens: int = 0               # prompt tokens served from the prefix cache
+    prompt_eval_duration_ns: int = 0     # admission → first host-visible token
+    eval_count: int = 0
+    eval_duration_ns: int = 0
+    load_duration_ns: int = 0
+    total_duration_ns: int = 0
+    retryable: bool = True
+    error: str = ""
+
+
+class _Slot:
+    __slots__ = (
+        "req", "ids", "prompt_len", "generated", "detok", "text", "emitted_len",
+        "num_predict", "stop_seqs", "eos_ids", "capacity", "joined_gen",
+        "cached_tokens", "t_start", "t_prefill_ns", "t_first_decode",
+        "t_last_ingest",
+    )
+
+    def __init__(self, req: GenerationRequest, ids: list[int], capacity: int,
+                 num_predict: int, stop_seqs: list[str], eos_ids: frozenset[int]):
+        self.req = req
+        self.ids = ids                   # prompt ids (grows with generation)
+        self.prompt_len = len(ids)
+        self.generated: list[int] = []
+        self.detok = DetokState()
+        self.text = ""
+        self.emitted_len = 0             # chars of `text` already sent out
+        self.num_predict = num_predict
+        self.stop_seqs = stop_seqs
+        self.eos_ids = eos_ids
+        self.capacity = capacity         # max total tokens this slot may hold
+        self.cached_tokens = 0
+        # dispatch generation of the FIRST block that will see this slot:
+        # its row 0 carries the prefill-sampled token; older blocks predate
+        # the slot and are skipped for it
+        self.joined_gen = 0
+        self.t_start = time.perf_counter_ns()
+        self.t_prefill_ns = 0
+        self.t_first_decode = 0
+        self.t_last_ingest = 0.0
+
+    def holdback(self) -> int:
+        """Chars at the tail of `text` that could still become a stop
+        sequence — not emitted yet."""
+        hold = 0
+        for seq in self.stop_seqs:
+            for k in range(min(len(seq), len(self.text)), 0, -1):
+                if self.text.endswith(seq[:k]):
+                    hold = max(hold, k)
+                    break
+        return hold
+
+
+class InferenceEngine:
+    """Synchronous core driven by step() (tests, sync callers), or the
+    runner thread started by start() (serving)."""
+
+    def __init__(self, config: EngineConfig, device: str | torch.device = "cuda",
+                 params: dict[str, Any] | None = None):
+        """`device`: "cuda" (the default) or "cpu". `params`: a JAX-layout
+        pytree of numpy arrays to serve instead of random weights."""
+        config.check_ported()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("InferenceEngine: CUDA is not available; pass "
+                               "device='cpu' to run on the CPU")
+        self.config = config
+        self.cfg = get_config(config.model)
+        self.tokenizer: Tokenizer = get_tokenizer(config.tokenizer, self.cfg.vocab_size)
+        self.dtype = _DTYPES[config.dtype]
+        self._rng = random.Random(config.seed)
+        self._prefix_cache_cap = (
+            max(config.prefix_cache_pages, -1) if config.prefix_cache else 0)
+        self._lock = threading.Lock()
+        self._alloc_lock = threading.RLock()
+        self._pending: deque[GenerationRequest] = deque()
+        self._slots: dict[int, _Slot] = {}
+        self._free_slots = list(range(config.max_slots - 1, -1, -1))
+        self._gen = 0   # generation counter of dispatched blocks
+        # (gen, host tokens [k+1, S], copy-done event or None, k)
+        self._inflight: deque[tuple[int, torch.Tensor, Any, int]] = deque()
+        self._ctl: deque[tuple[str, str]] = deque()
+        self._work = threading.Condition()
+        self._runner: threading.Thread | None = None
+        self._runner_stop = threading.Event()
+
+        t0 = time.perf_counter_ns()
+        self.model = Llama(self.cfg, dtype=self.dtype, device=self.device)
+        if params is not None:
+            self.model.params_from_jax(params)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            self.model.init_params(gen)
+        self._init_device_state()
+        self.load_duration_ns = time.perf_counter_ns() - t0
+        self.max_context = min(self.cfg.max_seq_len,
+                               config.max_pages_per_slot * config.page_size)
+        # every admissible length maps to a fixed padded shape
+        self._buckets = sorted(
+            {min(b, self.max_context) for b in config.prefill_buckets}
+            | {self.max_context})
+        ps = config.page_size
+        self._chunk_len = max(ps, (min(config.prefill_chunk, self.max_context) // ps) * ps)
+
+    # ---------------------------------------------------------- state setup
+
+    def _init_device_state(self) -> None:
+        c, mc, dev = self.config, self.cfg, self.device
+        self.cache = PagedKVCache.create(
+            mc.num_layers, c.num_pages, c.page_size, mc.num_kv_heads, mc.head_dim_,
+            c.max_slots, c.max_pages_per_slot, dtype=self.dtype, device=dev)
+        self.alloc = PageAllocator(c.num_pages, c.page_size, c.max_pages_per_slot,
+                                   cache_pages=self._prefix_cache_cap)
+        self.sampling = SamplingParams.defaults(c.max_slots, dev)
+        self.counts = torch.zeros((c.max_slots, mc.vocab_size), dtype=torch.int32, device=dev)
+        self.window = torch.zeros((c.max_slots, c.repeat_window), dtype=torch.int32, device=dev)
+        self.wlen = torch.zeros((c.max_slots,), dtype=torch.int32, device=dev)
+        self.tokens = torch.zeros((c.max_slots,), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((c.max_slots,), dtype=torch.bool, device=dev)
+
+    def reset_device_state(self) -> None:
+        """Rebuild the device state after a failed step (slot state is
+        discarded; call abort_all() first). Weights survive."""
+        with self._alloc_lock:
+            self._slots.clear()
+            self._inflight.clear()
+            self._free_slots = list(range(self.config.max_slots - 1, -1, -1))
+            self._init_device_state()
+
+    # ---------------------------------------------------------- device steps
+
+    def _ids_tensor(self, ids: list[int], width: int) -> torch.Tensor:
+        return torch.tensor(ids + [0] * (width - len(ids)), dtype=torch.int32,
+                            device=self.device)
+
+    def _activate(self, slot: int, logits: torch.Tensor) -> None:
+        """Sample a fresh slot's first token from its prompt's last logits
+        and fold it into the device state: tokens[slot], the penalty window,
+        active, and the noise counter (the draw consumed step 0)."""
+        sp, vocab = self.sampling, self.cfg.vocab_size
+        tok = sample_tokens(logits[None], sp.gather(slot), self.counts[slot][None])[0]
+        self.tokens[slot] = tok
+        one = torch.zeros_like(self.active)
+        one[slot] = True
+        window_push(self.window, self.wlen, self.counts, self.tokens, one,
+                    sp.repeat_last_n, vocab)
+        self.active[slot] = True
+        sp.step[slot] += 1
+
+    def _prefill(self, prompt: torch.Tensor, length: int, slot: int,
+                 row: torch.Tensor) -> None:
+        logits, _ = self.model.prefill(prompt, length, self.cache, slot, row)
+        window_set_slot(self.window, self.wlen, self.counts, slot, prompt, 0, length,
+                        self.sampling.repeat_last_n[slot], self.cfg.vocab_size)
+        self._activate(slot, logits)
+
+    def _mixed_chunk(self, chunk: torch.Tensor, start: int, length: int, slot: int,
+                     row: torch.Tensor, is_final: bool) -> torch.Tensor:
+        """One mixed step: the admitting slot's chunk plus a decode token for
+        every slot active at entry. Returns the [2, S] block (row 0 = input
+        tokens, row 1 = this step's decode samples)."""
+        sp, vocab = self.sampling, self.cfg.vocab_size
+        tokens_in = self.tokens.clone()
+        active_in = self.active.clone()
+        chunk_logits, dec_logits, _ = self.model.mixed_step(
+            chunk, start, length, slot, row, tokens_in, self.cache, active_in)
+        window_set_slot(self.window, self.wlen, self.counts, slot, chunk, start, length,
+                        sp.repeat_last_n[slot], vocab)
+        if is_final:  # intermediate chunks' samples are discarded
+            self._activate(slot, chunk_logits)
+        sampled = sample_tokens(dec_logits, sp, self.counts)
+        self.tokens = torch.where(active_in, sampled, self.tokens)
+        window_push(self.window, self.wlen, self.counts, self.tokens, active_in,
+                    sp.repeat_last_n, vocab)
+        sp.step += active_in.to(sp.step.dtype)
+        return torch.stack([tokens_in, self.tokens])
+
+    def _decode_block(self, k: int) -> torch.Tensor:
+        """k decode steps for all slots. Returns [k+1, S] tokens: row 0 is
+        the block's input (a newly admitted slot's prefill sample), rows
+        1..k the block's samples."""
+        sp, vocab = self.sampling, self.cfg.vocab_size
+        rows = [self.tokens.clone()]
+        for _ in range(k):
+            logits, _ = self.model.decode_step(self.tokens, self.cache, self.active)
+            sampled = sample_tokens(logits, sp, self.counts)
+            self.tokens = torch.where(self.active, sampled, self.tokens)
+            window_push(self.window, self.wlen, self.counts, self.tokens, self.active,
+                        sp.repeat_last_n, vocab)
+            sp.step += self.active.to(sp.step.dtype)
+            rows.append(self.tokens)
+        return torch.stack(rows)
+
+    # ------------------------------------------------------------ admission
+
+    def submit(self, req: GenerationRequest) -> None:
+        with self._lock:
+            if len(self._pending) >= self.config.max_queue:
+                raise RuntimeError("engine queue full")
+            self._pending.append(req)
+        with self._work:
+            self._work.notify_all()
+
+    def _tokenize(self, req: GenerationRequest) -> list[int]:
+        if req.prompt_ids is not None:
+            return list(req.prompt_ids)
+        return self.tokenizer.encode(req.prompt or "", add_bos=not req.raw)
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self._buckets[-1]
+
+    def _fail(self, req: GenerationRequest, msg: str, retryable: bool = True) -> None:
+        res = GenerationResult(id=req.id, done_reason="error", error=msg,
+                               retryable=retryable)
+        if req.on_chunk:
+            req.on_chunk("", True, res)
+
+    def _try_admit(self) -> bool:
+        """Admit one pending request into a free slot. Returns True if a
+        request left the queue (caller loops until False)."""
+        with self._lock:
+            if not self._pending or not self._free_slots:
+                return False
+            req = self._pending.popleft()
+        ids = self._tokenize(req)
+        opts = req.options or {}
+        num_ctx = int(opts.get("num_ctx") or 0)
+        eff_ctx = min(num_ctx, self.max_context) if num_ctx > 0 else self.max_context
+        eff_ctx = max(eff_ctx, 2)
+        if len(ids) >= eff_ctx:
+            ids = ids[-(eff_ctx - 1):]  # Ollama truncates from the left
+        num_predict = int(opts.get("num_predict", -1))
+        want = len(ids) + num_predict if num_predict >= 0 else eff_ctx
+        want = min(max(want, len(ids) + 1), eff_ctx)
+        if not self.alloc.fits_slot_cap(want):
+            self._fail(req, f"context {want} exceeds slot capacity")
+            return True
+        slot = self._free_slots[-1]
+        # longest cached prefix first (pins the matched pages), then the rest
+        with self._alloc_lock:
+            cached = self.alloc.match_prefix(slot, ids) if self._prefix_cache_cap else 0
+            if self.alloc.alloc(slot, want) is None:
+                # pool exhausted: unpin, requeue at the front, wait for pages
+                self.alloc.free(slot)
+                with self._lock:
+                    self._pending.appendleft(req)
+                return False
+        self._free_slots.pop()
+        stop = opts.get("stop") or []
+        stop_seqs = [stop] if isinstance(stop, str) else list(stop)
+        st = _Slot(req, ids, want, num_predict, stop_seqs, self.tokenizer.eos_ids)
+        seed = opts.get("seed")
+        if seed is None:
+            seed = self._rng.getrandbits(31)
+        # repeat_last_n: -1 → the request's context size, 0 → disabled
+        rl = int(opts.get("repeat_last_n", 64))
+        if rl < 0:
+            rl = want
+        upd = {
+            "temperature": float(opts.get("temperature", 0.8)),
+            "top_k": int(opts.get("top_k", 40)),
+            "top_p": float(opts.get("top_p", 0.9)),
+            "min_p": float(opts.get("min_p", 0.0)),
+            "repeat_penalty": float(opts.get("repeat_penalty", 1.1)),
+            "repeat_last_n": min(rl, self.config.repeat_window),
+            "seed": int(seed) & 0x7FFFFFFF,
+            "step": 0,
+        }
+        st.cached_tokens = cached
+        t0 = time.perf_counter_ns()
+        self._dispatch_prefill(slot, ids, self.alloc.table_row(slot), upd, cached)
+        st.t_prefill_ns = time.perf_counter_ns() - t0
+        st.joined_gen = self._gen + 1  # first block dispatched after this
+        self._slots[slot] = st
+        return True
+
+    def _dispatch_prefill(self, slot: int, ids: list[int], row_list: list[int],
+                          upd: dict[str, Any], cached: int) -> None:
+        """The device half of admission: sampler row update and prefill.
+        `cached` (page-aligned) prompt tokens already have KV pages in
+        `row_list`: they skip the model and only seed the penalty window."""
+        self.sampling.set_slot(slot, upd)
+        row = torch.tensor(row_list, dtype=torch.int32, device=self.device)
+        if cached or len(ids) > self._chunk_len:
+            c = self._chunk_len
+            rl = self.sampling.repeat_last_n[slot]
+            for s0 in range(0, cached, c):
+                part = ids[s0:min(s0 + c, cached)]
+                window_set_slot(self.window, self.wlen, self.counts, slot,
+                                self._ids_tensor(part, c), s0, len(part), rl,
+                                self.cfg.vocab_size)
+            for s0 in range(cached, len(ids), c):
+                part = ids[s0:s0 + c]
+                self._dispatch_mixed_chunk(self._ids_tensor(part, c), s0, len(part),
+                                           slot, row, s0 + c >= len(ids))
+        else:
+            padded = self._ids_tensor(ids, self._bucket_for(len(ids)))
+            self._prefill(padded, len(ids), slot, row)
+
+    # ------------------------------------------------------------ stepping
+
+    def _enqueue(self, out: torch.Tensor, k: int) -> None:
+        """Start the block's copy to the host and queue it for ingest."""
+        event = None
+        if out.is_cuda:
+            out = out.to("cpu", non_blocking=True)  # pinned, asynchronous
+            event = torch.cuda.Event()
+            event.record()
+        self._inflight.append((self._gen, out, event, k))
+
+    def _dispatch_block(self, k: int) -> None:
+        self._gen += 1
+        self._enqueue(self._decode_block(k), k)
+
+    def _dispatch_mixed_chunk(self, chunk: torch.Tensor, start: int, length: int,
+                              slot: int, row: torch.Tensor, is_final: bool) -> None:
+        self._gen += 1
+        self._enqueue(self._mixed_chunk(chunk, start, length, slot, row, is_final), 1)
+
+    def _fetch_oldest(self) -> None:
+        """Wait for the oldest in-flight block's tokens and ingest them."""
+        gen, host, event, _k = self._inflight.popleft()
+        if event is not None:
+            event.synchronize()
+        self._ingest_block(gen, host.numpy())
+
+    def _ingest_block(self, gen: int, tok_np: np.ndarray) -> None:
+        """Feed one fetched [k+1, S] block through per-token bookkeeping.
+        Row 0 is consumed only by slots whose joined_gen == gen (their
+        prefill sample); slots newer than the block are skipped."""
+        k = tok_np.shape[0] - 1
+        now = time.perf_counter_ns()
+        wall = time.time()
+        for slot, st in list(self._slots.items()):
+            if st.joined_gen > gen:
+                continue
+            first_row = 0 if st.joined_gen == gen else 1
+            if first_row == 0:
+                st.t_prefill_ns = now - st.t_start
+            if not st.t_first_decode:
+                st.t_first_decode = now
+            st.t_last_ingest = wall
+            for r in range(first_row, k + 1):
+                self._ingest(slot, st, int(tok_np[r, slot]))
+                if slot not in self._slots:
+                    break  # finished mid-block; later rows are post-finish junk
+
+    def _ingest(self, slot: int, st: _Slot, tok: int) -> None:
+        """Record one sampled token; emit text; finish the slot if done."""
+        st.generated.append(tok)
+        st.ids.append(tok)
+        done_reason = None
+        if tok in st.eos_ids:
+            st.generated.pop()  # EOS is not part of the visible output
+            st.ids.pop()
+            done_reason = "stop"
+        else:
+            st.text += st.detok.delta(self.tokenizer, st.generated)
+            for s in st.stop_seqs:  # stop sequences: trim at the first match
+                i = st.text.find(s)
+                if i >= 0:
+                    st.text = st.text[:i]
+                    done_reason = "stop"
+                    break
+        if done_reason is None:
+            if 0 <= st.num_predict <= len(st.generated):
+                done_reason = "length"
+            elif st.prompt_len + len(st.generated) >= st.capacity:
+                done_reason = "length"
+        if done_reason is not None:
+            self._finish(slot, st, done_reason)
+            return
+        # emit finalized text only: hold back what may become a stop sequence
+        safe = len(st.text) - st.holdback()
+        if safe > st.emitted_len and st.req.on_chunk:
+            delta = st.text[st.emitted_len:safe]
+            st.emitted_len = safe
+            st.req.on_chunk(delta, False, None)
+
+    def _finish(self, slot: int, st: _Slot, reason: str, error: str = "") -> None:
+        now = time.perf_counter_ns()
+        last_delta = st.text[st.emitted_len:]
+        st.emitted_len = len(st.text)
+        res = GenerationResult(
+            id=st.req.id, error=error, text=st.text, token_ids=list(st.generated),
+            context=list(st.ids), done_reason=reason, prompt_eval_count=st.prompt_len,
+            cached_tokens=st.cached_tokens, prompt_eval_duration_ns=st.t_prefill_ns,
+            eval_count=len(st.generated),
+            eval_duration_ns=(now - st.t_first_decode) if st.t_first_decode else 0,
+            load_duration_ns=self.load_duration_ns, total_duration_ns=now - st.t_start,
+        )
+        self.active[slot] = False
+        # register the full pages of the final context for reuse, minus the
+        # last token (its KV is written only when it is input to a step that
+        # may never have been dispatched); an error finish registers nothing
+        with self._alloc_lock:
+            self.alloc.free(slot, st.ids[:-1] if reason != "error" else None)
+        del self._slots[slot]
+        self._free_slots.append(slot)
+        if st.req.on_chunk:
+            st.req.on_chunk(last_delta, True, res)
+
+    def _drain_ctl(self) -> None:
+        while self._ctl:
+            op, req_id = self._ctl.popleft()
+            for slot, st in list(self._slots.items()):
+                if st.req.id == req_id:
+                    self._finish(slot, st, op)
+                    break
+
+    def step(self) -> bool:
+        """One synchronous iteration: admit what fits, one decode step for
+        all active slots, fetch and ingest (block size 1, no pipelining).
+        Returns False when idle."""
+        self._drain_ctl()
+        while self._try_admit():
+            pass
+        while self._inflight:  # mixed admission steps queued [2, S] blocks
+            self._fetch_oldest()
+        if not self._slots:
+            return bool(self._pending)
+        self._dispatch_block(1)
+        self._fetch_oldest()
+        return True
+
+    # ------------------------------------------------------------- runner
+
+    def start(self) -> None:
+        """Start the engine thread, which owns all device dispatch from then
+        on; submit() and cancel() are the cross-thread entry points."""
+        if self._runner is not None:
+            return
+        self._runner_stop.clear()
+        self._runner = threading.Thread(target=self._run, name=f"engine-{self.cfg.name}",
+                                        daemon=True)
+        self._runner.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._runner_stop.set()
+        with self._work:
+            self._work.notify_all()
+        r = self._runner
+        if r is not None:
+            r.join(timeout)
+            if not r.is_alive():
+                self._runner = None
+
+    @property
+    def running(self) -> bool:
+        return self._runner is not None and self._runner.is_alive()
+
+    def _run(self) -> None:
+        fail_streak = 0
+        while not self._runner_stop.is_set():
+            with self._work:
+                while not (self._pending or self._slots or self._ctl
+                           or self._runner_stop.is_set()):
+                    self._work.wait(timeout=0.5)
+            if self._runner_stop.is_set():
+                break
+            try:
+                self._pump_once()
+                fail_streak = 0
+            except Exception as e:  # noqa: BLE001 — keep serving the others
+                self._inflight.clear()
+                self.abort_all(f"engine failure: {e!r}")
+                self.reset_device_state()
+                fail_streak += 1
+                if fail_streak >= 3:
+                    self.abort_all("engine unrecoverable")
+                    return
+
+    def _pump_once(self) -> None:
+        """One runner iteration: bounded admission, top up the dispatch
+        pipeline, fetch and ingest the oldest in-flight block."""
+        self._drain_ctl()
+        budget = self.config.admit_per_block if self._slots else self.config.max_slots
+        admitted = 0
+        while admitted < budget and self._try_admit():
+            admitted += 1
+        if not self._slots:
+            while self._inflight:
+                self._fetch_oldest()
+            return
+        while len(self._inflight) < max(1, self.config.pipeline_depth):
+            self._dispatch_block(self.config.decode_block)
+        self._fetch_oldest()
+
+    # ---------------------------------------------------------- public API
+
+    def generate(self, req: GenerationRequest) -> GenerationResult:
+        """Submit and wait until THIS request is done: with the runner
+        active just wait, otherwise drive step() inline."""
+        box: list[GenerationResult] = []
+        done_evt = threading.Event()
+        user_cb = req.on_chunk
+
+        def cb(delta: str, done: bool, res: GenerationResult | None):
+            if user_cb:
+                user_cb(delta, done, res)
+            if done and res is not None:
+                box.append(res)
+                done_evt.set()
+
+        req.on_chunk = cb
+        self.submit(req)
+        if self.running:
+            done_evt.wait()
+            return box[0]
+        while not box:
+            if not self.step() and not box:
+                time.sleep(0.001)
+        return box[0]
+
+    def abort_all(self, msg: str) -> int:
+        """Fail every pending and active request."""
+        n = 0
+        with self._lock:
+            pending, self._pending = list(self._pending), deque()
+        for r in pending:
+            self._fail(r, msg)
+            n += 1
+        for slot, st in list(self._slots.items()):
+            self._finish(slot, st, "error", error=msg)
+            n += 1
+        return n
+
+    def cancel(self, req_id: str) -> bool:
+        """Cancel a pending or running request; its on_chunk gets a final
+        done with done_reason 'cancel'. A running slot finishes at the
+        driving thread's next block boundary."""
+        with self._lock:
+            for i, r in enumerate(self._pending):
+                if r.id == req_id:
+                    del self._pending[i]
+                    if r.on_chunk:
+                        r.on_chunk("", True, GenerationResult(id=req_id, done_reason="cancel"))
+                    return True
+        for st in list(self._slots.values()):
+            if st.req.id == req_id:
+                self._ctl.append(("cancel", req_id))
+                if not self.running:
+                    self._drain_ctl()
+                else:
+                    with self._work:
+                        self._work.notify_all()
+                return True
+        return False
+
+    @property
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    def batch_state(self) -> dict[str, Any]:
+        """Point-in-time batch snapshot (read without locks: a torn read is
+        cosmetic, a blocked diagnosis is not)."""
+        now_ns = time.perf_counter_ns()
+        wall = time.time()
+        slots = {
+            str(slot): {
+                "request": st.req.id,
+                "phase": "decode" if st.t_first_decode else "prefill",
+                "promptTokens": st.prompt_len,
+                "generated": len(st.generated),
+                "ageS": round((now_ns - st.t_start) / 1e9, 3),
+                "sinceLastTokenS": (round(wall - st.t_last_ingest, 3)
+                                    if st.t_last_ingest else None),
+            }
+            for slot, st in list(self._slots.items())
+        }
+        return {
+            "model": self.cfg.name,
+            "device": str(self.device),
+            "running": self.running,
+            "slots": slots,
+            "pending": len(self._pending),
+            "inflightBlocks": len(self._inflight),
+            "dispatchGen": self._gen,
+            "freeSlots": len(self._free_slots),
+            "kvPagesFree": self.alloc.free_pages,
+            "kvPagesCached": self.alloc.cached_pages,
+            "prefixCache": {"hits": self.alloc.hits, "misses": self.alloc.misses,
+                            "evictions": self.alloc.evictions,
+                            "cowCopies": self.alloc.cow_copies},
+        }

@@ -1,0 +1,143 @@
+"""Model architecture configs and the name registry.
+
+A copy of the JAX package's ``models/configs.py`` data for the families
+this package serves (llama, qwen2/qwen3 and the tiny test configs):
+Ollama-style model names map to the public HF architecture dimensions.
+The port keeps its own copy so that it imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from gridllm_torch.ops.layers import RopeScaling
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str = "llama"            # llama | qwen2 | qwen3
+    vocab_size: int = 128_256
+    hidden_size: int = 4096
+    intermediate_size: int = 14_336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int | None = None      # None → hidden_size // num_heads
+    rope_theta: float = 500_000.0
+    rope_scaling: RopeScaling | None = None
+    rms_eps: float = 1e-5
+    tie_embeddings: bool = False
+    max_seq_len: int = 8192
+    attn_logit_softcap: float = 0.0
+    sliding_window: int = 0          # 0 → full attention
+    attn_bias: bool = False          # qwen2: bias on q/k/v projections
+    qk_norm: bool = False            # qwen3: per-head RMSNorm on q/k pre-rope
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+
+_LLAMA3_SCALING = RopeScaling(
+    factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+    original_max_position_embeddings=8192,
+)
+
+REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+register(ModelConfig(
+    name="llama3.2:1b", vocab_size=128_256, hidden_size=2048,
+    intermediate_size=8192, num_layers=16, num_heads=32, num_kv_heads=8,
+    head_dim=64, rope_theta=500_000.0, rope_scaling=_LLAMA3_SCALING,
+    tie_embeddings=True, max_seq_len=131_072,
+))
+register(ModelConfig(
+    name="llama3.2:3b", vocab_size=128_256, hidden_size=3072,
+    intermediate_size=8192, num_layers=28, num_heads=24, num_kv_heads=8,
+    head_dim=128, rope_theta=500_000.0, rope_scaling=_LLAMA3_SCALING,
+    tie_embeddings=True, max_seq_len=131_072,
+))
+register(ModelConfig(
+    name="llama3:8b", vocab_size=128_256, hidden_size=4096,
+    intermediate_size=14_336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=500_000.0, max_seq_len=8192,
+))
+register(ModelConfig(
+    name="llama3.1:8b", vocab_size=128_256, hidden_size=4096,
+    intermediate_size=14_336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=500_000.0, rope_scaling=_LLAMA3_SCALING, max_seq_len=131_072,
+))
+register(ModelConfig(
+    name="llama3:70b", vocab_size=128_256, hidden_size=8192,
+    intermediate_size=28_672, num_layers=80, num_heads=64, num_kv_heads=8,
+    rope_theta=500_000.0, max_seq_len=8192,
+))
+register(ModelConfig(
+    name="qwen2.5:0.5b", family="qwen2", vocab_size=151_936, hidden_size=896,
+    intermediate_size=4864, num_layers=24, num_heads=14, num_kv_heads=2,
+    head_dim=64, rope_theta=1_000_000.0, rms_eps=1e-6, tie_embeddings=True,
+    max_seq_len=32_768, attn_bias=True,
+))
+register(ModelConfig(
+    name="qwen2.5:7b", family="qwen2", vocab_size=152_064, hidden_size=3584,
+    intermediate_size=18_944, num_layers=28, num_heads=28, num_kv_heads=4,
+    head_dim=128, rope_theta=1_000_000.0, rms_eps=1e-6,
+    max_seq_len=32_768, attn_bias=True,
+))
+register(ModelConfig(
+    name="qwen3:0.6b", family="qwen3", vocab_size=151_936, hidden_size=1024,
+    intermediate_size=3072, num_layers=28, num_heads=16, num_kv_heads=8,
+    head_dim=128, rope_theta=1_000_000.0, rms_eps=1e-6, tie_embeddings=True,
+    max_seq_len=40_960, qk_norm=True,
+))
+register(ModelConfig(
+    name="qwen3:8b", family="qwen3", vocab_size=151_936, hidden_size=4096,
+    intermediate_size=12_288, num_layers=36, num_heads=32, num_kv_heads=8,
+    head_dim=128, rope_theta=1_000_000.0, rms_eps=1e-6,
+    max_seq_len=40_960, qk_norm=True,
+))
+
+# Tiny configs: architecture-faithful, test-sized.
+register(ModelConfig(
+    name="tiny-llama", vocab_size=256, hidden_size=64, intermediate_size=128,
+    num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+    rope_theta=10_000.0, max_seq_len=256, tie_embeddings=False,
+))
+register(ModelConfig(
+    name="tiny-qwen2", family="qwen2", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=16, rope_theta=10_000.0, rms_eps=1e-6, max_seq_len=256,
+    attn_bias=True,
+))
+register(ModelConfig(
+    name="tiny-qwen3", family="qwen3", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=16, rope_theta=10_000.0, rms_eps=1e-6, max_seq_len=256,
+    qk_norm=True,
+))
+register(ModelConfig(
+    name="tiny-mistral", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=16, rope_theta=10_000.0, max_seq_len=256, sliding_window=8,
+))
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in REGISTRY:
+        return REGISTRY[name]
+    # Ollama-style tag normalization: suffixes live in the TAG, after the
+    # colon — "llama3.2:3b-instruct-fp16" → "llama3.2:3b"
+    if ":" in name:
+        model, tag = name.split(":", 1)
+        base = f"{model}:{tag.split('-')[0]}"
+        if base in REGISTRY:
+            return REGISTRY[base]
+    raise KeyError(f"unknown model: {name!r} (known: {sorted(REGISTRY)})")

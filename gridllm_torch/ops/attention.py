@@ -1,0 +1,296 @@
+"""Attention: causal prefill and unified ragged paged attention.
+
+Public entry points (`attention_prefill`, `ragged_paged_attention`) run the
+hand-written CUDA kernels on CUDA tensors (ops/cuda_kernels.py) and the
+plain PyTorch versions here (`*_ref`) on CPU tensors. The plain versions
+are copies of the JAX package's references (ops/attention.py there) and
+are the numerical oracle the kernels are held to. Softmax is computed in
+float32 whatever the input dtype.
+
+GQA convention: q has H heads, k/v have KVH heads, H % KVH == 0; query head
+h reads kv head h // (H // KVH).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gridllm_torch.ops.kvcache import gather_kv
+
+# masking value of every softmax here and in the kernels: finite in
+# float32, so exp(x - m) underflows to exactly 0 for masked columns
+_NEG_INF = -1e30
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """tanh logit capping, applied BEFORE masking (HF Gemma2 order)."""
+    return cap * torch.tanh(logits / cap) if cap else logits
+
+
+def _masked_softmax_av(logits: torch.Tensor, mask: torch.Tensor,
+                       values: torch.Tensor, cap: float, eq: str) -> torch.Tensor:
+    logits = _softcap(logits, cap)
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    return torch.einsum(eq, probs, values)
+
+
+def attention_prefill_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seq_lens: torch.Tensor,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Causal self-attention over one self-contained prompt bucket.
+
+    q: [B, T, H, D]; k/v: [B, T, KVH, D]; seq_lens: [B] valid tokens
+    (padding keys masked out). `window` > 0 attends only keys at distance
+    < window. Returns [B, T, H, D] in q's dtype."""
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, t, kvh, g, d)
+    logits = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * scale
+    pos = torch.arange(t, device=q.device)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    mask = q_pos >= k_pos
+    if window > 0:
+        mask = mask & (q_pos - k_pos < window)
+    valid = k_pos < seq_lens.to(q.device)[:, None, None, None, None]
+    mask = mask[None, None, None] & valid
+    out = _masked_softmax_av(logits, mask, v.float(), logit_softcap,
+                             "bkgts,bskd->btkgd")
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def paged_attention_decode_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    page_size: int,
+    k_cur: torch.Tensor | None = None,
+    v_cur: torch.Tensor | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """One-token-per-slot decode attention against one layer's pool.
+
+    q: [S, H, D]; k_pages/v_pages: [P, ps, KVH, D]; page_table [S, maxp].
+    Without k_cur/v_cur, lengths counts the current token (already in the
+    pool). With them ([S, KVH, D]), lengths counts the cached prefix only
+    and the current token is overlaid at position lengths[s] (dropped at
+    the capacity edge). Returns [S, H, D]."""
+    s, h, d = q.shape
+    kvh = k_pages.shape[2]
+    g = h // kvh
+    scale = 1.0 / (d ** 0.5)
+    outs = []
+    for i in range(s):
+        ks, vs = gather_kv(k_pages, v_pages, page_table[i], page_size)
+        ks, vs = ks.float(), vs.float()
+        ln = int(lengths[i])
+        total = ln
+        if k_cur is not None:
+            if ln < ks.shape[0]:
+                ks[ln] = k_cur[i].float()
+                vs[ln] = v_cur[i].float()
+            total = ln + 1
+        qf = q[i].float().reshape(kvh, g, d)
+        logits = torch.einsum("kgd,nkd->kgn", qf, ks) * scale
+        k_pos = torch.arange(ks.shape[0], device=q.device)
+        valid = k_pos < total
+        if window > 0:
+            valid = valid & ((total - 1) - k_pos < window)
+        out = _masked_softmax_av(logits, valid[None, None, :], vs,
+                                 logit_softcap, "kgn,nkd->kgd")
+        outs.append(out.reshape(h, d))
+    return torch.stack(outs).to(q.dtype)
+
+
+def _prefix_chunk_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,
+    start: int,
+    total_len: int,
+    page_size: int,
+    k_cur: torch.Tensor | None = None,
+    v_cur: torch.Tensor | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Chunked-prefill attention against one layer's paged prefix.
+
+    q: [1, T, H, D] at absolute positions start + arange(T); table_row
+    [maxp]; total_len = start + valid rows. With k_cur/v_cur ([T, KVH, D])
+    the chunk's fresh K/V are overlaid at positions start + i (rows past
+    the capacity edge are cut). Returns [1, T, H, D]."""
+    _, t, h, d = q.shape
+    kvh = k_pages.shape[-2]
+    g = h // kvh
+    scale = 1.0 / (d ** 0.5)
+    ks, vs = gather_kv(k_pages, v_pages, table_row, page_size)
+    ks, vs = ks.float(), vs.float()
+    if k_cur is not None:
+        n = ks.shape[0]
+        m = max(min(t, n - start), 0)
+        ks[start:start + m] = k_cur[:m].float()
+        vs[start:start + m] = v_cur[:m].float()
+    qf = q.float().reshape(t, kvh, g, d)
+    q_pos = start + torch.arange(t, device=q.device)
+    k_pos = torch.arange(ks.shape[0], device=q.device)
+    dist = q_pos[:, None] - k_pos[None, :]
+    mask = (dist >= 0) & (k_pos[None, :] < total_len)
+    if window > 0:
+        mask = mask & (dist < window)
+    logits = torch.einsum("tkgd,nkd->kgtn", qf, ks) * scale
+    out = _masked_softmax_av(logits, mask[None, None], vs, logit_softcap,
+                             "kgtn,nkd->tkgd")
+    return out.reshape(1, t, h, d).to(q.dtype)
+
+
+def paged_attention_verify_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    page_size: int,
+    k_cur: torch.Tensor,
+    v_cur: torch.Tensor,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Batched multi-token decode attention (S slots × T candidates each)
+    against one layer's pool: candidate i of slot s sits at position
+    lengths[s] + i and attends the prefix plus the candidates before it.
+    q: [S, T, H, D]; k_cur/v_cur: [S, T, KVH, D]. Returns [S, T, H, D]."""
+    s, t = q.shape[:2]
+    outs = [
+        _prefix_chunk_ref(
+            q[i][None], k_pages, v_pages, page_table[i], int(lengths[i]),
+            int(lengths[i]) + t, page_size, k_cur=k_cur[i], v_cur=v_cur[i],
+            logit_softcap=logit_softcap, window=window,
+        )[0]
+        for i in range(s)
+    ]
+    return torch.stack(outs)
+
+
+def _layer_pool(pages: torch.Tensor, layer: int | None) -> torch.Tensor:
+    return pages if pages.dim() == 4 else pages[0 if layer is None else layer]
+
+
+def ragged_paged_attention_ref(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_size: int,
+    q_chunk: torch.Tensor | None = None,
+    chunk_row: torch.Tensor | None = None,
+    chunk_start: int | None = None,
+    chunk_total: int | None = None,
+    k_chunk: torch.Tensor | None = None,
+    v_chunk: torch.Tensor | None = None,
+    q_group: torch.Tensor | None = None,
+    page_table: torch.Tensor | None = None,
+    group_lengths: torch.Tensor | None = None,
+    k_group: torch.Tensor | None = None,
+    v_group: torch.Tensor | None = None,
+    layer: int | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Plain version of the unified ragged launch: the per-region legacy
+    references composed (see `ragged_paged_attention` for the contract)."""
+    kp, vp = _layer_pool(k_pages, layer), _layer_pool(v_pages, layer)
+    out_chunk = out_group = None
+    if q_chunk is not None:
+        out_chunk = _prefix_chunk_ref(
+            q_chunk, kp, vp, chunk_row, int(chunk_start), int(chunk_total),
+            page_size, k_cur=k_chunk, v_cur=v_chunk,
+            logit_softcap=logit_softcap, window=window,
+        )
+    if q_group is not None:
+        if q_group.shape[1] == 1:
+            out_group = paged_attention_decode_ref(
+                q_group[:, 0], kp, vp, page_table, group_lengths, page_size,
+                k_cur=k_group[:, 0], v_cur=v_group[:, 0],
+                logit_softcap=logit_softcap, window=window,
+            )[:, None]
+        else:
+            out_group = paged_attention_verify_ref(
+                q_group, kp, vp, page_table, group_lengths, page_size,
+                k_group, v_group, logit_softcap=logit_softcap, window=window,
+            )
+    return out_chunk, out_group
+
+
+def attention_prefill(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seq_lens: torch.Tensor,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Causal GQA prefill attention (contract of attention_prefill_ref).
+    CUDA tensors run the `flash_prefill` kernel."""
+    from gridllm_torch.ops.cuda_kernels import flash_prefill
+
+    return flash_prefill(q, k, v, seq_lens, softcap=logit_softcap,
+                         window=window)
+
+
+def ragged_paged_attention(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_size: int,
+    q_chunk: torch.Tensor | None = None,
+    chunk_row: torch.Tensor | None = None,
+    chunk_start: int | None = None,
+    chunk_total: int | None = None,
+    k_chunk: torch.Tensor | None = None,
+    v_chunk: torch.Tensor | None = None,
+    q_group: torch.Tensor | None = None,
+    page_table: torch.Tensor | None = None,
+    group_lengths: torch.Tensor | None = None,
+    k_group: torch.Tensor | None = None,
+    v_group: torch.Tensor | None = None,
+    layer: int | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Unified ragged paged attention: one prefill CHUNK region plus S
+    per-slot GROUPS in a single launch.
+
+    - chunk: q_chunk [1, C, H, D] — one slot's prefill chunk at absolute
+      positions chunk_start + i, prefix pages via chunk_row [max_pages],
+      fresh K/V k_chunk/v_chunk [C, KVH, D] merged causally;
+      chunk_total = chunk_start + valid rows.
+    - group: q_group [S, Td, H, D] — Td query tokens per slot (1 = decode)
+      at positions group_lengths[s] + i against page_table[s]; the pool
+      holds the prefix only (group_lengths counts it), the fresh K/V
+      k_group/v_group [S, Td, KVH, D] are merged causally.
+
+    Pools are one layer [P, ps, KVH, D] or the full stack with `layer`
+    selecting. Returns (chunk_out, group_out), each shaped like its q (None
+    when the region is absent). CUDA tensors run the `ragged_attention`
+    kernel.
+    """
+    from gridllm_torch.ops.cuda_kernels import ragged_attention
+
+    return ragged_attention(
+        k_pages, v_pages, page_size,
+        q_chunk=q_chunk, chunk_row=chunk_row, chunk_start=chunk_start,
+        chunk_total=chunk_total, k_chunk=k_chunk, v_chunk=v_chunk,
+        q_group=q_group, page_table=page_table, group_lengths=group_lengths,
+        k_group=k_group, v_group=v_group, layer=layer,
+        softcap=logit_softcap, window=window,
+    )

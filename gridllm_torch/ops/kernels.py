@@ -1,0 +1,79 @@
+"""KERNELS: the port's registry of hand-written CUDA kernels.
+
+Each entry names one kernel of `ops/cuda_kernels.py`, the TPU kernel of the
+JAX package it replaces, its plain PyTorch version (the oracle it is held
+to, on the CPU in the tests and on the card in chip_smoke.py), the
+tolerance of that comparison, the CPU test that owns the differential
+against the JAX package, and the chip_smoke.py phase that runs it on the
+card. Tolerances are the bf16 bound for attention and exact for the KV
+writes (data movement), as in the JAX package's registry; float32 runs
+hold the attention kernels to 1e-3.
+
+Pure data: importable without torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    name: str         # wrapper in ops/cuda_kernels.py
+    source: str       # CUDA source under gridllm_torch/csrc/
+    replaces: str     # TPU kernel: "file:line function"
+    plain: str        # "module:function" plain PyTorch version
+    rtol: float       # bf16 tolerance against the plain version
+    atol: float
+    test: str         # owning CPU differential test
+    smoke_phase: str  # chip_smoke.py phases that run it on the card
+
+
+KERNELS: tuple[KernelSpec, ...] = (
+    KernelSpec(
+        name="flash_prefill",
+        source="gridllm_torch/csrc/flash_prefill.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:129 flash_prefill",
+        plain="attention:attention_prefill_ref",
+        rtol=3e-2, atol=3e-2,
+        test="tests/test_torch_attention.py::test_prefill_ref_matches_flash_kernel",
+        smoke_phase="kernels, timing, serve",
+    ),
+    KernelSpec(
+        name="ragged_attention",
+        source="gridllm_torch/csrc/ragged_attention.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:1168 ragged_attention",
+        plain="attention:ragged_paged_attention_ref",
+        rtol=3e-2, atol=3e-2,
+        test="tests/test_torch_attention.py::test_ragged_ref_matches_ragged_kernel",
+        smoke_phase="kernels, timing, serve",
+    ),
+    KernelSpec(
+        name="paged_write_decode",
+        source="gridllm_torch/csrc/paged_write.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:1404 paged_write_decode",
+        plain="kvcache:write_decode",
+        rtol=0.0, atol=0.0,
+        test="tests/test_torch_kvcache.py::test_write_decode_matches_jax",
+        smoke_phase="kernels, timing, serve",
+    ),
+    KernelSpec(
+        name="paged_write_chunk",
+        source="gridllm_torch/csrc/paged_write.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:1497 paged_write_chunk",
+        plain="kvcache:write_prefill",
+        rtol=0.0, atol=0.0,
+        test="tests/test_torch_kvcache.py::test_write_prefill_matches_jax",
+        smoke_phase="kernels, timing, serve",
+    ),
+)
+
+# float32 tolerance of the attention kernels against their plain versions
+F32_TOL = 1e-3
+
+
+def by_name(name: str) -> KernelSpec:
+    for k in KERNELS:
+        if k.name == name:
+            return k
+    raise KeyError(f"unknown kernel {name!r}")

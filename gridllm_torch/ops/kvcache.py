@@ -1,0 +1,439 @@
+"""Paged KV cache: the device page pool, its plain writes, and the host-side
+page allocator.
+
+Layout, the same as the JAX package's so pools stay wire-compatible:
+  k/v: [num_layers, num_pages, page_size, num_kv_heads, head_dim]
+  page_table: [max_slots, max_pages_per_slot] int32 page ids (-1 = unmapped)
+  lengths: [max_slots] int32 tokens stored per slot
+
+Unlike the JAX package, writes update the pool tensors IN PLACE (torch has
+no buffer donation; an in-place update is what donation bought there).
+Every hazard — an inactive slot, a position past capacity, an unmapped
+table entry — maps to the out-of-bounds sentinel page `num_pages`, and
+sentinel rows are dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    k: torch.Tensor           # [L, P, page_size, KVH, D]
+    v: torch.Tensor           # [L, P, page_size, KVH, D]
+    page_table: torch.Tensor  # [S, max_pages] int32
+    lengths: torch.Tensor     # [S] int32
+    page_size: int = 128
+
+    @staticmethod
+    def create(
+        num_layers: int,
+        num_pages: int,
+        page_size: int,
+        num_kv_heads: int,
+        head_dim: int,
+        max_slots: int,
+        max_pages_per_slot: int,
+        dtype: torch.dtype = torch.bfloat16,
+        device: torch.device | str = "cuda",
+    ) -> "PagedKVCache":
+        shape = (num_layers, num_pages, page_size, num_kv_heads, head_dim)
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            page_table=torch.full((max_slots, max_pages_per_slot), -1,
+                                  dtype=torch.int32, device=device),
+            lengths=torch.zeros((max_slots,), dtype=torch.int32, device=device),
+            page_size=page_size,
+        )
+
+    @property
+    def num_layers(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def max_slots(self) -> int:
+        return self.page_table.shape[0]
+
+    @property
+    def max_context(self) -> int:
+        return self.page_table.shape[1] * self.page_size
+
+
+def _safe_page_idx(
+    lookup: Callable[[torch.Tensor], torch.Tensor],
+    positions: torch.Tensor,
+    valid: torch.Tensor,
+    page_size: int,
+    max_pages: int,
+    num_pages: int,
+) -> torch.Tensor:
+    """Page index for each write position, with every hazard masked to the
+    out-of-bounds sentinel `num_pages`: invalid positions (the caller's
+    `valid` mask), positions past the table's capacity, and unmapped (-1)
+    table entries. `lookup(page_no)` maps in-range page numbers to ids."""
+    in_cap = positions < max_pages * page_size
+    mapped = lookup(torch.clamp(positions // page_size, max=max_pages - 1))
+    sentinel = torch.full_like(mapped, num_pages)
+    return torch.where(valid & in_cap & (mapped >= 0), mapped, sentinel)
+
+
+def _scatter_rows(pages: torch.Tensor, new: torch.Tensor,
+                  page_idx: torch.Tensor, offset: torch.Tensor) -> None:
+    """pages[..., page_idx[i], offset[i]] = new[..., i] in place, dropping
+    rows whose page is the sentinel. `pages` is one layer's pool
+    [P, ps, KVH, D] or the full stack [L, P, ps, KVH, D], with `new` shaped
+    [N, KVH, D] or [L, N, KVH, D] to match."""
+    keep = page_idx < pages.shape[-4]
+    idx, off = page_idx[keep].long(), offset[keep].long()
+    if pages.dim() == 5:
+        pages[:, idx, off] = new[:, keep].to(pages.dtype)
+    else:
+        pages[idx, off] = new[keep].to(pages.dtype)
+
+
+def write_prefill(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    table_row: torch.Tensor,
+    start: int,
+    length: int,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write a prefill chunk for ONE slot into the pool, in place.
+
+    k_pages/v_pages: one layer's pool [P, ps, KVH, D] with k_new/v_new
+    [T, KVH, D], or the full pool [L, P, ps, KVH, D] with [L, T, KVH, D].
+    table_row: [max_pages] page ids for this slot. start: absolute position
+    of row 0; rows at index >= length are dropped (bucket padding). This is
+    the plain version of the `paged_write_chunk` kernel. Returns the pools.
+    """
+    t = torch.arange(k_new.shape[-3], dtype=torch.int32, device=k_new.device)
+    pos = start + t
+    table_row = table_row.to(k_new.device)
+    page_idx = _safe_page_idx(
+        lambda p: table_row[p.long()], pos, t < length, page_size,
+        table_row.shape[0], k_pages.shape[-4],
+    )
+    offset = pos % page_size
+    _scatter_rows(k_pages, k_new, page_idx, offset)
+    _scatter_rows(v_pages, v_new, page_idx, offset)
+    return k_pages, v_pages
+
+
+def write_decode(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    active: torch.Tensor,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one new token per slot into the pool, in place.
+
+    k_pages/v_pages: [P, ps, KVH, D] with k_new/v_new [S, KVH, D], or the
+    full pool [L, P, ps, KVH, D] with [L, S, KVH, D]. positions: [S]
+    absolute write position per slot; active: [S] bool — inactive slots
+    are dropped. The plain version of the `paged_write_decode` kernel.
+    Returns the pools."""
+    s = torch.arange(page_table.shape[0], device=page_table.device)
+    page_idx = _safe_page_idx(
+        lambda p: page_table[s, p.long()], positions, active, page_size,
+        page_table.shape[1], k_pages.shape[-4],
+    )
+    offset = positions % page_size
+    _scatter_rows(k_pages, k_new, page_idx, offset)
+    _scatter_rows(v_pages, v_new, page_idx, offset)
+    return k_pages, v_pages
+
+
+def write_decode_all(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    active: torch.Tensor,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one token per slot across ALL layers at once (once per decode
+    step): k_pages/v_pages [L, P, ps, KVH, D], k_new/v_new [L, S, KVH, D].
+    Runs the `paged_write_decode` kernel on CUDA tensors."""
+    from gridllm_torch.ops.cuda_kernels import paged_write_decode
+
+    return paged_write_decode(k_pages, v_pages, k_new, v_new, page_table,
+                              positions, active, page_size)
+
+
+def write_prefill_all(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    table_row: torch.Tensor,
+    start: int,
+    length: int,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write a prefill chunk for ONE slot across ALL layers at once:
+    k_pages/v_pages [L, P, ps, KVH, D], k_new/v_new [L, T, KVH, D] with
+    T % page_size == 0 and a page-aligned `start`. Runs the
+    `paged_write_chunk` kernel on CUDA tensors, which also writes the
+    padded tail of the last page (never read: attention masks by length).
+    """
+    from gridllm_torch.ops.cuda_kernels import paged_write_chunk
+
+    return paged_write_chunk(k_pages, v_pages, k_new, v_new, table_row,
+                             start, length, page_size)
+
+
+def gather_kv(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Materialize one slot's K/V [max_pages*page_size, KVH, D] from one
+    layer's pool [P, ps, KVH, D] (plain version; the kernels read pages in
+    place instead). Unmapped entries read page 0 — callers mask them."""
+    rows = table_row.clamp(min=0).long()
+    kvh, d = k_pages.shape[-2], k_pages.shape[-1]
+    n = table_row.shape[0] * page_size
+    return k_pages[rows].reshape(n, kvh, d), v_pages[rows].reshape(n, kvh, d)
+
+
+def _page_chain_key(parent: bytes, tokens: list[int]) -> bytes:
+    """Content address of one FULL page given its prefix: the hash chain
+    hash(parent_hash, page_token_ids), byte-identical to the JAX package's
+    so both serve the same cache keys."""
+    h = hashlib.blake2b(parent, digest_size=16)
+    h.update(b" ".join(b"%d" % t for t in tokens))
+    return h.digest()
+
+
+class PageAllocator:
+    """Host-side ref-counted page allocator (plain Python).
+
+    Owns which pages back which slot; the device only sees the resulting
+    int32 tables. Pages holding FULL pages of a completed request's context
+    are content-addressed by a hash chain and, once their refcount drops to
+    zero, parked in an LRU of reusable pages instead of the free list. A new
+    request matches its longest cached prefix page by page and shares those
+    pages; fresh allocations evict from the LRU only when the free list is
+    empty. `cache_pages` bounds the LRU (0 disables caching; negative is
+    unbounded). Same state machine as the JAX package's allocator, so both
+    produce the same page tables from the same operations.
+    """
+
+    def __init__(self, num_pages: int, page_size: int,
+                 max_pages_per_slot: int, cache_pages: int = 0):
+        self.page_size = page_size
+        self.max_pages_per_slot = max_pages_per_slot
+        self.cache_pages = cache_pages
+        self._free: list[int] = list(range(num_pages - 1, -1, -1))
+        self._owned: dict[int, list[int]] = {}
+        self._refs: dict[int, int] = {}           # page → owners (≥ 1)
+        self._key_of: dict[int, bytes] = {}       # page → registered chain key
+        self._page_by_key: dict[bytes, int] = {}  # chain key → page
+        self._lru: OrderedDict[int, None] = OrderedDict()  # ref-0 cached pages
+        # match accounting staged by match_prefix, committed by alloc(): a
+        # pool-exhausted admission retries and must not count twice
+        self._staged_stats: dict[int, tuple[int, int, bool]] = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.cow_copies = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self._lru)
+
+    @property
+    def reclaimable_pages(self) -> int:
+        return len(self._free) + len(self._lru)
+
+    def pages_for(self, num_tokens: int) -> int:
+        return -(-num_tokens // self.page_size)
+
+    def fits_slot_cap(self, num_tokens: int) -> bool:
+        return self.pages_for(num_tokens) <= self.max_pages_per_slot
+
+    def _take_page(self) -> int | None:
+        if self._free:
+            return self._free.pop()
+        if self._lru:  # evict the least-recently-released cached page
+            page, _ = self._lru.popitem(last=False)
+            self._drop_key(page)
+            self.evictions += 1
+            return page
+        return None
+
+    def _drop_key(self, page: int) -> None:
+        key = self._key_of.pop(page, None)
+        if key is not None and self._page_by_key.get(key) == page:
+            del self._page_by_key[key]
+
+    def match_prefix(self, slot: int, token_ids: list[int]) -> int:
+        """Pin the longest cached prefix of `token_ids` to a FRESH slot and
+        return the number of cached TOKENS (a multiple of page_size). The
+        match stops at the last page boundary strictly below the prompt's
+        end: the final token must run through the model for its logits."""
+        if self.cache_pages == 0:
+            return 0
+        owned = self._owned.setdefault(slot, [])
+        if owned:
+            return 0
+        ps = self.page_size
+        max_full = min((len(token_ids) - 1) // ps, self.max_pages_per_slot)
+        key = b""
+        matched = 0
+        cow = False
+        for i in range(max_full):
+            key = _page_chain_key(key, token_ids[i * ps:(i + 1) * ps])
+            page = self._page_by_key.get(key)
+            if page is None:
+                break
+            self._lru.pop(page, None)
+            self._refs[page] = self._refs.get(page, 0) + 1
+            owned.append(page)
+            matched += 1
+        else:
+            # whole cap matched: if the next full page is cached too, the
+            # request rebuilds that page privately (copy-on-write)
+            if (max_full + 1) * ps <= len(token_ids):
+                tail_key = _page_chain_key(
+                    key, token_ids[max_full * ps:(max_full + 1) * ps])
+                cow = tail_key in self._page_by_key
+        self._staged_stats[slot] = (matched, self.pages_for(len(token_ids)), cow)
+        return matched * ps
+
+    def _commit_match_stats(self, slot: int) -> None:
+        staged = self._staged_stats.pop(slot, None)
+        if staged is None:
+            return
+        matched, prompt_pages, cow = staged
+        self.hits += matched
+        self.misses += prompt_pages - matched
+        if cow:
+            self.cow_copies += 1
+
+    def alloc(self, slot: int, num_tokens: int) -> list[int] | None:
+        """Ensure `slot` owns pages for `num_tokens` tokens. Returns the
+        slot's page list, or None when the pool is exhausted."""
+        owned = self._owned.setdefault(slot, [])
+        need = self.pages_for(num_tokens) - len(owned)
+        if need > self.reclaimable_pages:
+            return None
+        if need > self.max_pages_per_slot - len(owned):
+            return None
+        for _ in range(max(0, need)):
+            page = self._take_page()
+            if page is None:  # guarded by the reclaimable check above
+                raise RuntimeError("page pool accounting out of sync")
+            self._refs[page] = 1
+            owned.append(page)
+        self._commit_match_stats(slot)
+        return owned
+
+    def free(self, slot: int, token_ids: list[int] | None = None) -> None:
+        """Release a slot's pages. With `token_ids` (the request's final
+        context, KV fully written), full pages are first registered under
+        their chain keys so later requests can match them."""
+        self._staged_stats.pop(slot, None)
+        owned = self._owned.pop(slot, [])
+        if token_ids is not None and self.cache_pages != 0:
+            n_full = min(len(token_ids) // self.page_size, len(owned))
+            key = b""
+            for i in range(n_full):
+                key = _page_chain_key(
+                    key, token_ids[i * self.page_size:(i + 1) * self.page_size])
+                page = owned[i]
+                if self._page_by_key.get(key) is None and page not in self._key_of:
+                    # first holder of this content wins; duplicates stay
+                    # unregistered and return to the free list
+                    self._page_by_key[key] = page
+                    self._key_of[page] = key
+        for page in owned:
+            self._release_page(page)
+
+    def _release_page(self, page: int) -> None:
+        refs = self._refs.get(page, 1) - 1
+        if refs > 0:
+            self._refs[page] = refs
+            return
+        self._refs.pop(page, None)
+        if page in self._key_of:
+            self._lru[page] = None  # most recently released
+            cap = self.cache_pages
+            while cap > 0 and len(self._lru) > cap:
+                old, _ = self._lru.popitem(last=False)
+                self._drop_key(old)
+                self.evictions += 1
+                self._free.append(old)
+        else:
+            self._free.append(page)
+
+    def evict_cached(self, pages: list[int]) -> int:
+        """Force refcount-0 cached pages back to the free list. Pages still
+        pinned by a live request are left alone. Returns pages dropped."""
+        n = 0
+        for page in pages:
+            if page in self._lru:
+                self._lru.pop(page)
+                self._drop_key(page)
+                self._free.append(page)
+                n += 1
+        return n
+
+    def chain_keys(self, token_ids: list[int],
+                   n_pages: int | None = None) -> list[bytes]:
+        """Chain keys for the first `n_pages` FULL pages of token_ids
+        (default: one page below the prompt's end, as match_prefix caps)."""
+        ps = self.page_size
+        cap = (len(token_ids) - 1) // ps if n_pages is None else n_pages
+        cap = min(cap, len(token_ids) // ps)
+        keys: list[bytes] = []
+        key = b""
+        for i in range(cap):
+            key = _page_chain_key(key, token_ids[i * ps:(i + 1) * ps])
+            keys.append(key)
+        return keys
+
+    def pin_prefix(self, token_ids: list[int]) -> tuple[list[int], int]:
+        """Bump refcounts on the cached pages covering token_ids' longest
+        full-page prefix (no slot involved). Returns (pages, tokens
+        covered); release with unpin_pages."""
+        pages: list[int] = []
+        if self.cache_pages == 0:
+            return pages, 0
+        for key in self.chain_keys(token_ids):
+            page = self._page_by_key.get(key)
+            if page is None:
+                break
+            self._lru.pop(page, None)
+            self._refs[page] = self._refs.get(page, 0) + 1
+            pages.append(page)
+        return pages, len(pages) * self.page_size
+
+    def unpin_pages(self, pages: list[int]) -> None:
+        for page in pages:
+            self._release_page(page)
+
+    def table_row(self, slot: int) -> list[int]:
+        owned = self._owned.get(slot, [])
+        return owned + [-1] * (self.max_pages_per_slot - len(owned))

@@ -1,0 +1,112 @@
+"""Import guard of the PyTorch port: gridllm_torch and chip_smoke.py import
+neither JAX nor anything of gridllm_tpu, and the engine refuses to run on a
+missing GPU instead of carrying on on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "gridllm_tpu")
+
+_GUARDED_IMPORT = """
+import importlib, importlib.abc, importlib.util, pkgutil, sys
+BLOCKED = {blocked!r}
+
+def blocked(name):
+    return name.split(".")[0] in BLOCKED
+
+for name in [m for m in sys.modules if blocked(m)]:
+    del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if blocked(name):
+            raise ImportError("blocked import: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import gridllm_torch
+names = [m.name for m in pkgutil.walk_packages(gridllm_torch.__path__, "gridllm_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not [m for m in sys.modules if blocked(m)], "a blocked module got imported"
+print("IMPORTED", len(names))
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GUARDED_IMPORT.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
+def _port_files() -> list[Path]:
+    return sorted((REPO / "gridllm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, f"{path}:{node.lineno} imports {name}"
+
+
+def test_engine_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(EngineConfig(model="tiny-llama"))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("spec_decode", True), ("quantize", "int8"), ("kv_int8", True),
+    ("kv_host_bytes", 1 << 20), ("draft_model", "tiny-llama"), ("mesh", object()),
+])
+def test_unported_engine_features_raise(field, value):
+    cfg = EngineConfig(model="tiny-llama", dtype="float32", **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        InferenceEngine(cfg, device="cpu")
+
+
+def test_kernel_build_is_content_addressed_and_needs_nvcc(monkeypatch, tmp_path):
+    """Libraries are named by a hash of the sources (an edited kernel never
+    loads a stale build), and building without nvcc raises instead of
+    leaving the package half-working."""
+    from gridllm_torch.ops import _build
+
+    paths = {src: _build._lib_path(src) for src in _build.SOURCES}
+    assert len(set(paths.values())) == len(paths)
+    assert all(p.parent == _build.BUILD_DIR for p in paths.values())
+    assert paths["paged_write.cu"] == _build._lib_path("paged_write.cu")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+
+
+@pytest.mark.parametrize("rows,rpw", [(1, 1), (4, 1), (5, 2), (8, 2), (20, 8), (32, 8), (64, 8)])
+def test_rows_per_warp_covers_the_block(rows, rpw):
+    from gridllm_torch.ops.cuda_kernels import _rows_per_warp
+
+    assert _rows_per_warp(rows) == rpw
