@@ -16,13 +16,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the cache-free forward, to 1e-3.
 5. serve   — llama3:8b (bf16, random weights from seed 0, default engine
              config with speculative decoding off) behind the engine's
-             runner thread: concurrent requests from threads (bucket
-             prefill, a prompt longer than one chunk, a prefix-cache
-             repeat), greedy determinism, finite logits, and every kernel's
-             launch counter > 0 over the run.
+             runner thread: eight concurrent requests from threads (bucket
+             prefill, a prompt longer than one chunk), then a prefix-cache
+             repeat beside a new prompt; greedy determinism, finite logits
+             of the expected shape from every served model call, and every
+             kernel's launch counter > 0 over the run.
+6. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
+             in float32 serves a prompt cold, then again from the prefix
+             cache, and the greedy streams must be identical; then, in
+             bf16, each operation of a replayed prompt row and of a decode
+             row computed both ways (ragged chunk region vs flash_prefill,
+             group region alone vs beside a chunk, norms and projections
+             in 8-, 1024- and 1032-row products), to show where bf16
+             rounding departs between batch contexts.
 Then the kernels line, the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -30,6 +39,7 @@ register report to chiprun_out/ptxas.txt.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -44,7 +54,7 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
-ALL_PHASES = ("build", "kernels", "timing", "model", "serve")
+ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay")
 
 
 def emit(obj: dict) -> None:
@@ -437,6 +447,26 @@ def phase_serve(torch) -> dict:
     load_s = time.perf_counter() - t0
     vocab = engine.cfg.vocab_size
 
+    # every logits tensor the runner computes is checked on the device
+    # (one flag, no sync per step) and its shape recorded
+    finite = torch.ones((), dtype=torch.bool, device=engine.device)
+    logit_shapes: set[tuple[int, ...]] = set()
+
+    def watch(name: str, n_logits: int) -> None:
+        fn = getattr(engine.model, name)
+
+        def watched(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            for logits in out[:n_logits]:
+                logit_shapes.add(tuple(logits.shape))
+                finite.logical_and_(torch.isfinite(logits).all())
+            return out
+
+        setattr(engine.model, name, watched)
+
+    for name, n_logits in (("prefill", 1), ("decode_step", 1), ("mixed_step", 2)):
+        watch(name, n_logits)
+
     def run_batch(prompts: list[tuple[str, int]]) -> tuple[list, float]:
         results: list = [None] * len(prompts)
 
@@ -469,16 +499,17 @@ def phase_serve(torch) -> dict:
     engine.start()
     try:
         ck.reset_launch_counts()
-        short = [_prompt(rng, n) for n in (40, 150, 300, 700)]
+        short = [_prompt(rng, n) for n in (40, 150, 300, 700, 90, 220, 500)]
         long_prompt = _prompt(rng, 1500)   # > prefill_chunk: chunked mixed steps
+        # eight at once: every slot of the engine (max_slots = 8) fills
         batch_a = [(short[0], 32), (short[1], 48), (short[2], 64), (short[3], 40),
-                   (long_prompt, 64)]
+                   (short[4], 56), (short[5], 32), (short[6], 48), (long_prompt, 64)]
         res_a, wall_a = run_batch(batch_a)
         for (text, n), res in zip(batch_a, res_a):
             finished(res, n, f"prompt of {len(text)} bytes")
         # a repeat of the 300-byte prompt hits the prefix cache and replays
         # through the ragged chunk region, next to a new short prompt
-        batch_b = [(short[2], 64), (_prompt(rng, 90), 32)]
+        batch_b = [(short[2], 64), (_prompt(rng, 120), 32)]
         res_b, wall_b = run_batch(batch_b)
         for (text, n), res in zip(batch_b, res_b):
             finished(res, n, f"second-batch prompt of {len(text)} bytes")
@@ -494,18 +525,25 @@ def phase_serve(torch) -> dict:
         for res in solo:
             finished(res, 32, "solo repeat")
         check(solo[0].token_ids == solo[1].token_ids, "serve: greedy repeat differs")
+        # and a new prompt alone, cold then warm from the prefix cache: the
+        # same stream, since no other request shares its steps' products
+        fresh = _prompt(rng, 300)
+        solo_warm = [run_batch([(fresh, 64)])[0][0] for _ in range(2)]
+        for res in solo_warm:
+            finished(res, 64, "solo cold/warm repeat")
+        check(solo_warm[0].cached_tokens == 0 and solo_warm[1].cached_tokens > 0,
+              "serve: the solo repeat did not hit the prefix cache")
+        check(solo_warm[0].token_ids == solo_warm[1].token_ids,
+              "serve: solo warm repeat differs from its cold run")
+        solo += solo_warm
         counts = ck.launch_counts()
     finally:
         engine.stop()
     check(not engine.running, "serve: runner did not stop")
     check(all(n > 0 for n in counts.values()), f"serve: a kernel never launched: {counts}")
-
-    # finite logits of the expected shape through the cache-free path
-    ids = engine.tokenizer.encode(short[0])
-    logits = engine.model.forward(torch.tensor([ids], device=engine.device))
-    torch.cuda.synchronize()
-    check(tuple(logits.shape) == (1, len(ids), vocab), f"serve: logits {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "serve: non-finite logits")
+    want_shapes = {(vocab,), (engine.config.max_slots, vocab)}
+    check(logit_shapes == want_shapes, f"serve: logits of shapes {logit_shapes}")
+    check(bool(finite), "serve: non-finite logits on the served path")
 
     all_res = res_a + res_b
     eos_finishes = sum(r.done_reason == "stop" for r in all_res + solo)
@@ -521,11 +559,110 @@ def phase_serve(torch) -> dict:
                     "cached_tokens": res_b[0].cached_tokens},
         "ttft_ms_median": statistics.median(ttft_ms),
         "ttft_ms": ttft_ms,
-        "warm_repeat_tokens_matching_cold": f"{warm_matching}/{len(res_b[0].token_ids)}",
+        "batched_warm_repeat_tokens_matching_cold":
+            f"{warm_matching}/{len(res_b[0].token_ids)}",
+        "solo_warm_repeat_equals_cold": True,
         "eos_finishes": eos_finishes,
+        "logit_shapes": sorted(logit_shapes),
         "launches": counts,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+
+
+def _replay_rounding(torch) -> dict:
+    """bf16, one operation at a time: (a) a prompt's uncached rows as the
+    warm replay computes them (ragged chunk region, 1032-row mixed-step
+    product) and as the cold run does (flash_prefill, 1024-row bucket);
+    prompt of 301 tokens, 256 of them cached (4 pages). (b) a decoding
+    slot's rows in an 8-row decode-step product and at the tail of a
+    mixed step's 1032-row product, as when another request's chunk is
+    admitted beside it."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.layers import rms_norm
+
+    inp = Inputs(torch, SEED + 2)
+    bf16, t, n, cached = torch.bfloat16, 1024, 301, 256
+    fresh = n - cached
+    q = inp.randn(1, t, H, D, dtype=bf16)
+    k, v = inp.randn(1, t, KVH, D, dtype=bf16), inp.randn(1, t, KVH, D, dtype=bf16)
+    sl = torch.tensor([n], dtype=torch.int32, device="cuda")
+    cold = ck.flash_prefill(q, k, v, sl)[0, cached:n]
+    pages = cached // PS
+    kp = k[:, :cached].reshape(1, pages, PS, KVH, D).contiguous()
+    vp = v[:, :cached].reshape(1, pages, PS, KVH, D).contiguous()
+
+    def chunk(x):  # the prompt's uncached rows at the head of a 1024-row chunk
+        out = torch.zeros((t,) + tuple(x.shape[2:]), dtype=bf16, device="cuda")
+        out[:fresh] = x[0, cached:n]
+        return out
+
+    table = torch.arange(pages, dtype=torch.int32, device="cuda")
+    chunk_kw = dict(q_chunk=chunk(q)[None], chunk_row=table, chunk_start=cached,
+                    chunk_total=n, k_chunk=chunk(k), v_chunk=chunk(v))
+    warm, _ = ck.ragged_attention(kp, vp, PS, **chunk_kw, layer=0)
+    prompt_rows = {"attention": _max_err(warm[0, :fresh], cold)}
+    # a decode step's group region alone, and beside a chunk in one launch
+    group_kw = dict(q_group=inp.randn(S, 1, H, D, dtype=bf16),
+                    page_table=table.repeat(S, 1),
+                    group_lengths=torch.randint(1, cached + 1, (S,), generator=inp.gen,
+                                                device="cuda", dtype=torch.int32),
+                    k_group=inp.randn(S, 1, KVH, D, dtype=bf16),
+                    v_group=inp.randn(S, 1, KVH, D, dtype=bf16))
+    _, alone = ck.ragged_attention(kp, vp, PS, **group_kw, layer=0)
+    _, beside = ck.ragged_attention(kp, vp, PS, **chunk_kw, **group_kw, layer=0)
+    decode_rows = {"attention": _max_err(alone, beside)}
+    for name, e, f in (("wq", 4096, H * D), ("w_gate", 4096, 14336), ("w_down", 14336, 4096)):
+        x = inp.randn(t, e, dtype=bf16)
+        xd = inp.randn(S, e, dtype=bf16)
+        xm = torch.zeros((t + S, e), dtype=bf16, device="cuda")
+        xm[:fresh] = x[cached:n]
+        xm[t:] = xd
+        w = (inp.randn(e, f, dtype=torch.float32) * e ** -0.5).to(bf16)
+        mixed = xm @ w
+        prompt_rows[f"projection_{name}"] = _max_err(mixed[:fresh], (x @ w)[cached:n])
+        decode_rows[f"projection_{name}"] = _max_err(mixed[t:], xd @ w)
+        if name == "wq":  # the norm before it: decode_step's [S, 1, E] rows
+            ones = torch.ones(e, dtype=bf16, device="cuda")
+            prompt_rows["rms_norm"] = _max_err(rms_norm(xm[None], ones)[0, :fresh],
+                                               rms_norm(x[None], ones)[0, cached:n])
+            decode_rows["rms_norm"] = _max_err(rms_norm(xm[None], ones)[0, t:],
+                                               rms_norm(xd[:, None], ones)[:, 0])
+    torch.cuda.synchronize()
+    return {"prompt_rows": fresh, "prompt_max_abs_diff": prompt_rows,
+            "decode_rows": S, "decode_max_abs_diff": decode_rows}
+
+
+def phase_replay(torch) -> dict:
+    """Warm prefix-cache replay against the cold run, in float32."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+
+    gc.collect()   # the serve phase's bf16 engine
+    torch.cuda.empty_cache()
+    prompt = _prompt(random.Random(SEED), 300)
+    engine = InferenceEngine(EngineConfig(model="llama3:8b", dtype="float32",
+                                          spec_decode=False), device="cuda")
+    engine.start()
+    try:
+        runs = [engine.generate(GenerationRequest(
+            id=f"f32-{i}", prompt=prompt, options={"temperature": 0.0, "num_predict": 64}))
+            for i in range(2)]
+    finally:
+        engine.stop()
+    cold, warm = runs
+    for res in runs:
+        check(res.done_reason in ("length", "stop") and res.token_ids,
+              f"replay: {res.id} finished {res.done_reason!r} ({res.error})")
+    check(cold.cached_tokens == 0 and warm.cached_tokens > 0,
+          f"replay: cached tokens {cold.cached_tokens}, {warm.cached_tokens}")
+    check(warm.token_ids == cold.token_ids, "replay: float32 warm stream differs from cold")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "replay", "model": "llama3:8b", "dtype": "float32",
+            "cached_tokens": warm.cached_tokens, "tokens": len(warm.token_ids),
+            "warm_equals_cold": True, "bf16_cold_vs_warm": _replay_rounding(torch)}
 
 
 def card_line() -> str:
@@ -558,8 +695,8 @@ def main() -> int:
         if phase == "build":
             out = phase_build()
         else:
-            out = {"kernels": phase_kernels, "timing": phase_timing,
-                   "model": phase_model, "serve": phase_serve}[phase](torch)
+            out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
+                   "serve": phase_serve, "replay": phase_replay}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out

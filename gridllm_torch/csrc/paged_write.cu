@@ -13,10 +13,12 @@
 // all layers and slots (and one per prefill chunk), with 16-byte vector
 // copies so a warp moves 512 contiguous bytes per instruction.
 //
-// - paged_write_decode: grid (L, S). Block (l, s) copies k_new[l, s] and
-//   v_new[l, s] into pool[l, page_idx[s], offset[s]]; page_idx[s] == P
-//   (the sentinel for an inactive slot, a position past capacity or an
-//   unmapped page) skips the slot.
+// - paged_write_decode: grid (L, S). Block (l, s) looks up its own page in
+//   page_table[s] at positions[s] and copies k_new[l, s] and v_new[l, s]
+//   into pool[l, page, positions[s] % ps]. An inactive slot, a position
+//   past the table's capacity and an unmapped (-1) page skip the slot: the
+//   rule of the plain version's `_safe_page_idx`, applied here so a step
+//   is one launch with no index math before it.
 // - paged_write_chunk: grid (L, T / ps). Block (l, c) copies chunk page c
 //   (ps rows, the padded tail included) into pool[l, dst[c]]; dst[c] == P
 //   skips a page past the valid length or unmapped. The wrapper computes
@@ -38,13 +40,17 @@ __device__ __forceinline__ void copy16(char* dst, const char* src, int64_t bytes
 __global__ void write_decode_kernel(char* __restrict__ k_pool, char* __restrict__ v_pool,
                                     const char* __restrict__ k_new,
                                     const char* __restrict__ v_new,
-                                    const int* __restrict__ page_idx,
-                                    const int* __restrict__ offset, int num_pages,
-                                    int page_size, int num_slots, int64_t row_bytes) {
+                                    const int* __restrict__ page_table,
+                                    const int* __restrict__ positions,
+                                    const bool* __restrict__ active, int num_pages,
+                                    int page_size, int num_slots, int max_pages,
+                                    int64_t row_bytes) {
   const int l = blockIdx.x, s = blockIdx.y;
-  const int page = page_idx[s];
-  const int off = offset[s];
-  if (page < 0 || page >= num_pages || off < 0 || off >= page_size) return;
+  const int pos = positions[s];
+  if (!active[s] || pos < 0 || pos >= max_pages * page_size) return;
+  const int page = page_table[static_cast<int64_t>(s) * max_pages + pos / page_size];
+  if (page < 0 || page >= num_pages) return;
+  const int off = pos % page_size;
   const int64_t dst = ((static_cast<int64_t>(l) * num_pages + page) * page_size + off) * row_bytes;
   const int64_t src = (static_cast<int64_t>(l) * num_slots + s) * row_bytes;
   copy16(k_pool + dst, k_new + src, row_bytes);
@@ -68,19 +74,20 @@ __global__ void write_chunk_kernel(char* __restrict__ k_pool, char* __restrict__
 
 }  // namespace
 
-// Pools [L, P, ps, KVH, D]; k_new/v_new [L, S, KVH, D]; page_idx/offset [S]
-// int32. row_bytes must be a multiple of 16. Returns cudaGetLastError().
+// Pools [L, P, ps, KVH, D]; k_new/v_new [L, S, KVH, D]; page_table
+// [S, max_pages] int32; positions [S] int32; active [S] bool. row_bytes
+// must be a multiple of 16. Returns cudaGetLastError().
 extern "C" int gridllm_paged_write_decode(void* k_pool, void* v_pool, const void* k_new,
-                                          const void* v_new, const void* page_idx,
-                                          const void* offset, int L, int num_pages,
-                                          int page_size, int S, long long row_bytes,
-                                          void* stream) {
+                                          const void* v_new, const void* page_table,
+                                          const void* positions, const void* active, int L,
+                                          int num_pages, int page_size, int S, int max_pages,
+                                          long long row_bytes, void* stream) {
   dim3 grid(L, S);
   write_decode_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<char*>(k_pool), static_cast<char*>(v_pool),
       static_cast<const char*>(k_new), static_cast<const char*>(v_new),
-      static_cast<const int*>(page_idx), static_cast<const int*>(offset), num_pages,
-      page_size, S, row_bytes);
+      static_cast<const int*>(page_table), static_cast<const int*>(positions),
+      static_cast<const bool*>(active), num_pages, page_size, S, max_pages, row_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

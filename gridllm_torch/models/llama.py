@@ -324,10 +324,3 @@ class Llama(nn.Module):
         cache.lengths.copy_(new_lengths)
         cache.page_table[slot] = table_row
         return chunk_logits, dec_logits, cache
-
-
-def params_from_jax(cfg: ModelConfig, np_params: dict[str, Any],
-                    dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cpu") -> Llama:
-    """Build a Llama module holding the weights of a JAX-layout pytree."""
-    return Llama(cfg, dtype=dtype, device=device).params_from_jax(np_params)

@@ -29,7 +29,7 @@ import torch
 
 from gridllm_torch.ops import _build
 from gridllm_torch.ops.attention import attention_prefill_ref, ragged_paged_attention_ref
-from gridllm_torch.ops.kvcache import _safe_page_idx, write_decode, write_prefill
+from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
@@ -51,7 +51,7 @@ def launch_counts() -> dict[str, int]:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES: dict[str, tuple[str, list]] = {
     "gridllm_paged_write_decode": (
-        "paged_write.cu", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
+        "paged_write.cu", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P]),
     "gridllm_paged_write_chunk": (
         "paged_write.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
     "gridllm_flash_prefill": (
@@ -160,16 +160,15 @@ def paged_write_decode(k_pages, v_pages, k_new, v_new, page_table, positions,
     row_bytes = kvh * d * k_pages.element_size()
     if row_bytes % 16:
         raise ValueError(f"{kernel}: row of {row_bytes} bytes is not a multiple of 16")
-    slots = torch.arange(s, device=dev)
-    page_idx = _safe_page_idx(
-        lambda p: page_table[slots, p.long()], positions, active, ps,
-        page_table.shape[1], num_pages,
-    ).to(torch.int32).contiguous()
-    offset = (positions % ps).to(torch.int32).contiguous()
+    page_table = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    positions = positions.to(device=dev, dtype=torch.int32).contiguous()
+    active = active.to(device=dev, dtype=torch.bool).contiguous()
+    if positions.shape != (s,) or active.shape != (s,):
+        raise ValueError(f"{kernel}: positions/active do not match {s} slots")
     if n_layers * s:
         _launch("gridllm_paged_write_decode", kernel, _ptr(k_pages), _ptr(v_pages),
-                _ptr(k_new), _ptr(v_new), _ptr(page_idx), _ptr(offset), n_layers,
-                num_pages, ps, s, row_bytes, _stream(k_pages))
+                _ptr(k_new), _ptr(v_new), _ptr(page_table), _ptr(positions), _ptr(active),
+                n_layers, num_pages, ps, s, page_table.shape[1], row_bytes, _stream(k_pages))
     return k_pages, v_pages
 
 

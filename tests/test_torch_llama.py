@@ -41,7 +41,8 @@ def models(request):
     jcfg, tcfg = _configs(request.param)
     params = JL.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     np_params = jax.tree_util.tree_map(np.asarray, params)
-    return jcfg, params, TL.params_from_jax(tcfg, np_params)
+    model = TL.Llama(tcfg, dtype=torch.float32, device="cpu").params_from_jax(np_params)
+    return jcfg, params, model
 
 
 def test_forward_matches_jax(models):
