@@ -2,25 +2,37 @@
 """Smoke run of gridllm_torch on one NVIDIA GPU (H100).
 
 Phases, each printing one JSON line; any failure exits non-zero:
-1. build   — compile the CUDA kernels of gridllm_torch/csrc/ with nvcc.
+1. build   — compile the CUDA kernels of gridllm_torch/csrc/ with nvcc, one
+             process per source, all at once.
 2. kernels — hold each kernel against its plain PyTorch version on the
              card at llama3:8b widths, bf16 (tolerance 3e-2) and float32
-             (1e-3); the KV writes must match exactly on the valid region.
+             (1e-3); the KV writes (also a verify step's flattened rows)
+             must match exactly on the valid region.
 3. timing  — each kernel at the main path's shapes (CUDA events, warm-up):
              kernel, plain version, one PyTorch library call where one
              exists, and the bound max(bytes / 3.35 TB/s, flops / 989
-             TFLOP/s) computed from this run's inputs.
-4. model   — llama3:8b cut to 2 layers, full width, float32: the paged
-             path through all four kernels (bucket prefill, decode steps,
-             a mixed step admitting a second slot in two chunks) against
-             the cache-free forward, to 1e-3.
-5. serve   — llama3:8b (bf16, random weights from seed 0, default engine
-             config with speculative decoding off) behind the engine's
-             runner thread: eight concurrent requests from threads (bucket
-             prefill, a prompt longer than one chunk), then a prefix-cache
-             repeat beside a new prompt; greedy determinism, finite logits
-             of the expected shape from every served model call, and every
-             kernel's launch counter > 0 over the run.
+             TFLOP/s) computed from this run's inputs; paged_decode and
+             prefix_chunk beside ragged_attention at the same shapes.
+4. model   — llama3:8b cut to 2 layers, full width, float32, against the
+             cache-free forward to 1e-3, in both attention modes: ragged
+             (bucket prefill, decode steps, mixed steps admitting a second
+             slot, verify steps of K+1 = 5) and per-phase (decode steps
+             through paged_decode, a prefill_chunk admission and verify
+             steps through prefix_chunk).
+5. serve   — llama3:8b (bf16, random weights from seed 0) behind the
+             engine's runner thread in four settings, one engine after
+             the other: the default (speculative decoding on, ragged
+             attention on) with eight concurrent requests, a prefix-cache
+             repeat and greedy determinism checks; the same eight requests
+             with spec off (tokens/s of both); then spec on and spec off
+             with the per-phase kernels, a prompt longer than one chunk and
+             a prefix-cache repeat each. Finite logits of the expected
+             shapes from every model call. Each setting's launch counters
+             are set to 0 just before it serves and read just after: every
+             kernel of its path launched, none of another path did, and a
+             verify step launched its attention once per layer (ragged) or
+             once per slot and layer (per-phase). The kernels line reports
+             each kernel's launches from the setting that carries it.
 6. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
              in float32 serves a prompt cold, then again from the prefix
              cache, and the greedy streams must be identical; then, in
@@ -29,9 +41,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              group region alone vs beside a chunk, norms and projections
              in 8-, 1024- and 1032-row products), to show where bf16
              rounding departs between batch contexts.
+7. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
+             accepted gives the same greedy stream with speculative
+             decoding on and off, with ragged attention on and off.
 Then the kernels line, the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -54,7 +69,7 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
-ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay")
+ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec")
 
 
 def emit(obj: dict) -> None:
@@ -171,13 +186,71 @@ def _ragged_cases(inp: Inputs, dtype):
     ]
 
 
+def _decode_cases(inp: Inputs, dtype):
+    """(name, kwargs, rows_to_compare) cases of paged_decode: an empty slot,
+    page straddles, the capacity edge (8192 = MAXP * PS), window, softcap,
+    and the pool holding the current token (no k_cur)."""
+    torch = inp.torch
+    lengths = [0, 1, 63, 64, 65, 700, 1500, MAXP * PS]
+    kp, vp = inp.pools(2, dtype)
+    table = inp.page_table(lengths, extra=1)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    base = dict(q=inp.randn(S, H, D, dtype=dtype), k_pages=kp, v_pages=vp, page_table=table,
+                lengths=lens, page_size=PS, layer=1)
+    cur = dict(k_cur=inp.randn(S, KVH, D, dtype=dtype), v_cur=inp.randn(S, KVH, D, dtype=dtype))
+    every, nonempty = list(range(S)), [i for i, ln in enumerate(lengths) if ln > 0]
+    return [
+        ("merge_cur", {**base, **cur}, every),
+        ("merge_cur_window", {**base, **cur, "window": 100}, every),
+        ("merge_cur_softcap_window", {**base, **cur, "softcap": 30.0, "window": 64}, every),
+        ("in_pool", base, nonempty),   # a length-0 row is unspecified here
+    ]
+
+
+def _chunk_cases(inp: Inputs, dtype):
+    """(name, kwargs, valid_rows) cases of prefix_chunk: a prefill chunk of
+    1024 (page-aligned start, ragged length), the first chunk (start 0),
+    verify width C = 5 at a start that is not page-aligned (device-side
+    start, total = start + C), with window and softcap, an empty slot, and
+    a chunk already in the pool (no k_cur)."""
+    torch = inp.torch
+    kp, vp = inp.pools(2, dtype)
+    table = inp.page_table([4000] * S, extra=1)
+    row = table[2]
+
+    def chunk(c, start, total, fresh=True, row=row):
+        kw = dict(q=inp.randn(1, c, H, D, dtype=dtype), k_pages=kp, v_pages=vp,
+                  table_row=row, start=start, total_len=total, page_size=PS, layer=1)
+        if fresh:
+            kw.update(k_cur=inp.randn(c, KVH, D, dtype=dtype),
+                      v_cur=inp.randn(c, KVH, D, dtype=dtype))
+        return kw
+
+    dev_start = torch.tensor([1029], dtype=torch.int32, device="cuda")
+    empty = torch.full((MAXP,), -1, dtype=torch.int32, device="cuda")
+    return [
+        ("c1024", chunk(1024, 1024, 1024 + 1000), 1000),
+        ("c1024_first", chunk(1024, 0, 1024), 1024),
+        ("c5_verify", chunk(5, dev_start, None), 5),
+        ("c5_window_softcap", {**chunk(5, 1029, 1034), "window": 100, "softcap": 30.0}, 5),
+        ("c5_empty_slot", chunk(5, 0, 5, row=empty), 5),
+        ("c256_window", {**chunk(256, 130, 130 + 256), "window": 300}, 256),
+        ("c64_in_pool", chunk(64, 640, 704, fresh=False), 64),
+    ]
+
+
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
 def phase_kernels(torch) -> dict:
     from gridllm_torch.ops import cuda_kernels as ck
-    from gridllm_torch.ops.attention import attention_prefill_ref, ragged_paged_attention_ref
+    from gridllm_torch.ops.attention import (
+        _prefix_chunk_ref,
+        attention_prefill_ref,
+        paged_attention_decode_ref,
+        ragged_paged_attention_ref,
+    )
     from gridllm_torch.ops.kernels import F32_TOL, by_name
     from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
@@ -223,6 +296,40 @@ def phase_kernels(torch) -> dict:
             if dtype == torch.bfloat16:
                 errs["ragged_attention"] = max(errs["ragged_attention"], err)
         del kw
+        for name, kw, rows in _decode_cases(inp, dtype):
+            kw = dict(kw)
+            cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
+            got = ck.paged_decode(**kw, softcap=cap, window=window)
+            want = paged_attention_decode_ref(
+                kw["q"], kw["k_pages"][1], kw["v_pages"][1], kw["page_table"], kw["lengths"],
+                PS, k_cur=kw.get("k_cur"), v_cur=kw.get("v_cur"), logit_softcap=cap,
+                window=window)
+            torch.cuda.synchronize()
+            err = _max_err(got[rows], want[rows])
+            cases.append({"kernel": "paged_decode", "dtype": dname, "case": name,
+                          "max_abs_err": err})
+            check(err <= tol, f"paged_decode {dname} {name}: err {err} > {tol}")
+            if dtype == torch.bfloat16:
+                errs["paged_decode"] = max(errs["paged_decode"], err)
+        for name, kw, valid in _chunk_cases(inp, dtype):
+            kw = dict(kw)
+            cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
+            got = ck.prefix_chunk(**kw, softcap=cap, window=window)
+            start = int(kw["start"])
+            total = start + kw["q"].shape[1] if kw["total_len"] is None else kw["total_len"]
+            want = _prefix_chunk_ref(
+                kw["q"], kw["k_pages"][1], kw["v_pages"][1], kw["table_row"], start, total,
+                PS, k_cur=kw.get("k_cur"), v_cur=kw.get("v_cur"), logit_softcap=cap,
+                window=window)
+            torch.cuda.synchronize()
+            err = _max_err(got[:, :valid], want[:, :valid])
+            cases.append({"kernel": "prefix_chunk", "dtype": dname, "case": name,
+                          "max_abs_err": err})
+            check(err <= tol, f"prefix_chunk {dname} {name}: err {err} > {tol}")
+            if dtype == torch.bfloat16:
+                errs["prefix_chunk"] = max(errs["prefix_chunk"], err)
+        del kw
+        torch.cuda.empty_cache()
 
         # paged_write_decode: inactive slot, capacity edge, unmapped page
         kp, vp = inp.pools(2, dtype)
@@ -239,6 +346,20 @@ def phase_kernels(torch) -> dict:
         exact = bool(torch.equal(got_k, want_k) and torch.equal(got_v, want_v))
         cases.append({"kernel": "paged_write_decode", "dtype": dname, "exact": exact})
         check(exact, f"paged_write_decode {dname}: pools differ")
+        # a verify step's flattened rows: K+1 = 5 per slot, past-capacity
+        # rows and the inactive slot dropped
+        t = 5
+        kn, vn = inp.randn(2, S * t, KVH, D, dtype=dtype), inp.randn(2, S * t, KVH, D, dtype=dtype)
+        pos = (positions[:, None] + torch.arange(t, device="cuda", dtype=torch.int32)).reshape(-1)
+        want_k, want_v = write_decode(want_k, want_v, kn, vn, table.repeat_interleave(t, 0),
+                                      pos, active.repeat_interleave(t), PS)
+        got_k, got_v = ck.paged_write_decode(got_k, got_v, kn, vn, table, pos, active, PS,
+                                             rows_per_slot=t)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got_k, want_k) and torch.equal(got_v, want_v))
+        cases.append({"kernel": "paged_write_decode", "dtype": dname, "rows_per_slot": t,
+                      "exact": exact})
+        check(exact, f"paged_write_decode {dname} rows_per_slot={t}: pools differ")
         del kp, vp, want_k, want_v, got_k, got_v
 
         # paged_write_chunk: page-aligned start, ragged length; compare all
@@ -271,7 +392,12 @@ def phase_timing(torch) -> dict:
     import torch.nn.functional as F
 
     from gridllm_torch.ops import cuda_kernels as ck
-    from gridllm_torch.ops.attention import attention_prefill_ref, ragged_paged_attention_ref
+    from gridllm_torch.ops.attention import (
+        _prefix_chunk_ref,
+        attention_prefill_ref,
+        paged_attention_decode_ref,
+        ragged_paged_attention_ref,
+    )
     from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
     inp = Inputs(torch, SEED + 1)
@@ -314,14 +440,61 @@ def phase_timing(torch) -> dict:
         "library_ms": None,
         "bound_ms": b, "bound_by": op,
     }
-    # the mixed step's chunk region (C = 1024 after 1024 cached tokens),
-    # reported beside the decode figure
-    ckw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_chunk=inp.randn(1, 1024, H, D, dtype=bf16),
-               chunk_row=table[0], chunk_start=1024, chunk_total=2048,
-               k_chunk=inp.randn(1024, KVH, D, dtype=bf16),
-               v_chunk=inp.randn(1024, KVH, D, dtype=bf16), layer=0)
+    # paged_decode: the same decode step through the per-phase kernel
+    dkw = dict(q=kw["q_group"][:, 0], k_pages=kp, v_pages=vp, page_table=table,
+               lengths=glens, page_size=PS, k_cur=kw["k_group"][:, 0],
+               v_cur=kw["v_group"][:, 0], layer=0)
+    res["paged_decode"] = {
+        "shape": f"decode S={S} context=1024 bf16",
+        "ms": time_ms(torch, lambda: ck.paged_decode(**dkw)),
+        "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
+            dkw["q"], kp[0], vp[0], table, glens, PS, k_cur=dkw["k_cur"],
+            v_cur=dkw["v_cur"]), iters=3),
+        "library_ms": None,
+        "ragged_attention_ms": res["ragged_attention"]["ms"],
+        "bound_ms": b, "bound_by": op,
+    }
+    # a chunk of C = 1024 after 1024 cached tokens: the mixed step's chunk
+    # region of ragged_attention and prefix_chunk at the same shapes
+    c, start = 1024, 1024
+    q_c = inp.randn(1, c, H, D, dtype=bf16)
+    k_c, v_c = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
+    ckw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_chunk=q_c, chunk_row=table[0],
+               chunk_start=start, chunk_total=start + c, k_chunk=k_c, v_chunk=v_c, layer=0)
+    pkw = dict(q=q_c, k_pages=kp, v_pages=vp, table_row=table[0], start=start,
+               total_len=start + c, page_size=PS, k_cur=k_c, v_cur=v_c, layer=0)
+    b, op = bound_ms((2 * q_c.numel() + (start + c) * KVH * D * 2) * 2,
+                     4 * H * D * c * (start + (c + 1) / 2))
     res["ragged_attention"]["chunk_region_ms"] = time_ms(torch, lambda: ck.ragged_attention(**ckw))
-    del kp, vp, kw, ckw
+    res["ragged_attention"]["chunk_region_bound_ms"] = b
+    res["prefix_chunk"] = {
+        "shape": f"chunk C={c} after {start} cached tokens bf16",
+        "ms": time_ms(torch, lambda: ck.prefix_chunk(**pkw)),
+        "plain_ms": time_ms(torch, lambda: _prefix_chunk_ref(
+            q_c, kp[0], vp[0], table[0], start, start + c, PS, k_cur=k_c, v_cur=v_c),
+            iters=3),
+        "library_ms": None,
+        "ragged_attention_ms": res["ragged_attention"]["chunk_region_ms"],
+        "bound_ms": b, "bound_by": op,
+    }
+    # the verify width: C = K+1 = 5 after 1024 cached tokens, one slot,
+    # against ragged_attention's group region with Td = 5 for that slot
+    c, glen = 5, glens[:1]
+    q_v = inp.randn(1, c, H, D, dtype=bf16)
+    k_v, v_v = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
+    vkw = dict(q=q_v, k_pages=kp, v_pages=vp, table_row=table[0], start=glen, total_len=None,
+               page_size=PS, k_cur=k_v, v_cur=v_v, layer=0)
+    gkw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=q_v, page_table=table[:1],
+               group_lengths=glen, k_group=k_v[None], v_group=v_v[None], layer=0)
+    vb, vop = bound_ms((2 * q_v.numel() + (start + c) * KVH * D * 2) * 2,
+                       4 * H * D * c * (start + (c + 1) / 2))
+    res["prefix_chunk"].update({
+        "verify_shape": f"C={c} after {start} cached tokens, one slot, bf16",
+        "verify_ms": time_ms(torch, lambda: ck.prefix_chunk(**vkw)),
+        "verify_ragged_attention_ms": time_ms(torch, lambda: ck.ragged_attention(**gkw)),
+        "verify_bound_ms": vb, "verify_bound_by": vop,
+    })
+    del kp, vp, kw, ckw, dkw, pkw, vkw, gkw
     torch.cuda.empty_cache()
 
     # KV writes on the engine's full pool: 32 layers x 1024 pages x 64 rows
@@ -375,56 +548,95 @@ def phase_timing(torch) -> dict:
 
 
 def phase_model(torch) -> dict:
-    """The model's paged entry points against its cache-free forward."""
+    """The model's paged entry points against its cache-free forward, in
+    both attention modes."""
     import dataclasses
 
     from gridllm_torch.models.configs import get_config
     from gridllm_torch.models.llama import Llama
     from gridllm_torch.ops.kernels import F32_TOL
-    from gridllm_torch.ops.kvcache import PagedKVCache
+    from gridllm_torch.ops.kvcache import PagedKVCache, rollback_to_length
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
     cfg = dataclasses.replace(get_config("llama3:8b"), num_layers=2)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     model = Llama(cfg, dtype=torch.float32, device="cuda").init_params(gen)
-    n = 320
+    n, k1 = 320, 5
     toks = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda",
                          dtype=torch.int32)
     want = model(toks[None])[0]                  # [n, V], flash_prefill
-    cache = PagedKVCache.create(cfg.num_layers, 16, PS, KVH, D, 2, 8, dtype=torch.float32,
+    cache = PagedKVCache.create(cfg.num_layers, 32, PS, KVH, D, 4, 8, dtype=torch.float32,
                                 device="cuda")
-    rows = torch.arange(16, device="cuda", dtype=torch.int32).reshape(2, 8)
-    errs = []
+    rows = torch.arange(32, device="cuda", dtype=torch.int32).reshape(4, 8)
+    errs = {"ragged": [], "per_phase": []}
+    cur = torch.zeros(4, dtype=torch.int32, device="cuda")
 
-    def err(got, pos):
-        errs.append(float((got - want[pos]).abs().max()))
+    def err(mode, got, pos):
+        errs[mode].append(float((got - want[pos]).abs().max()))
 
-    # slot 0: 192-token prompt in the 256 bucket, then decode 192..255
-    p0 = 192
-    logits, _ = model.prefill(torch.cat([toks[:p0], toks[:64] * 0]), p0, cache, 0, rows[0])
-    err(logits, p0 - 1)
-    active = torch.tensor([True, False], device="cuda")
-    cur = torch.zeros(2, dtype=torch.int32, device="cuda")
-    for pos in range(p0, 256):
-        cur[0] = toks[pos]
-        logits, _ = model.decode_step(cur, cache, active)
-        err(logits[0], pos)
-    # slot 1 admits the same sequence in two 64-token chunks while slot 0
-    # keeps decoding (positions 256 and 257) in the same ragged launches
+    def prefill_decode(mode, slot, p0, p1):
+        """`slot` prefills a 192-token prompt in the 256 bucket, then
+        decodes positions p0..p1-1."""
+        logits, _ = model.prefill(torch.cat([toks[:p0], toks[:64] * 0]), p0, cache, slot,
+                                  rows[slot])
+        err(mode, logits, p0 - 1)
+        active = torch.zeros(4, dtype=torch.bool, device="cuda")
+        active[slot] = True
+        for pos in range(p0, p1):
+            cur[slot] = toks[pos]
+            logits, _ = model.decode_step(cur, cache, active)
+            err(mode, logits[slot], pos)
+
+    def verify(mode, slots, steps):
+        """`steps` verify steps of K+1 = 5 true candidates for `slots`, each
+        committed in full."""
+        active = torch.zeros(4, dtype=torch.bool, device="cuda")
+        active[slots] = True
+        for _ in range(steps):
+            lens = cache.lengths.tolist()
+            cand = torch.zeros((4, k1), dtype=torch.int32, device="cuda")
+            for s in slots:
+                cand[s] = toks[lens[s]:lens[s] + k1]
+            logits, _ = model.verify_step(cand, cache, active)
+            for s in slots:
+                for j in range(k1):
+                    err(mode, logits[s, j], lens[s] + j)
+            rollback_to_length(cache, cache.lengths + k1 * active.to(torch.int32))
+
+    # ragged attention: slot 0 decodes 192..255, slot 1 admits the same
+    # sequence in two 64-token chunks beside slot 0's decode rows (mixed
+    # steps, positions 256 and 257), then two verify steps for both
+    prefill_decode("ragged", 0, 192, 256)
+    active = torch.tensor([True, False, False, False], device="cuda")
     for start, pos in ((0, 256), (64, 257)):
         cur[0] = toks[pos]
         chunk_logits, dec_logits, _ = model.mixed_step(
             toks[start:start + 64], start, 64, 1, rows[1], cur, cache, active)
-        err(chunk_logits, start + 63)
-        err(dec_logits[0], pos)
+        err("ragged", chunk_logits, start + 63)
+        err("ragged", dec_logits[0], pos)
+    verify("ragged", [0, 1], 2)
+    # per-phase kernels, a second model over a copy of the weights and the
+    # same cache: slot 2 decodes 192..223 through paged_decode, slot 3
+    # admits in two prefill_chunk calls (prefix_chunk), then two verify
+    # steps for both (prefix_chunk once per slot per layer)
+    ragged = model
+    model = Llama(cfg, dtype=torch.float32, device="cuda", ragged_attention=False)
+    model.load_state_dict(ragged.state_dict())
+    del ragged
+    prefill_decode("per_phase", 2, 192, 224)
+    for start in (0, 64):
+        logits, _ = model.prefill_chunk(toks[start:start + 64], start, 64, cache, 3, rows[3])
+        err("per_phase", logits, start + 63)
+    verify("per_phase", [2, 3], 2)
     torch.cuda.synchronize()
-    worst = max(errs)
-    check(worst <= F32_TOL, f"model: paged path differs from forward by {worst}")
+    worst = {mode: max(e) for mode, e in errs.items()}
+    check(max(worst.values()) <= F32_TOL, f"model: paged path differs from forward by {worst}")
     del model, cache, want
     torch.cuda.empty_cache()
     return {"phase": "model", "config": "llama3:8b, 2 layers, float32",
-            "logit_rows_compared": len(errs), "max_abs_err": worst}
+            "logit_rows_compared": {m: len(e) for m, e in errs.items()},
+            "max_abs_err": worst}
 
 
 def _prompt(rng, n_bytes: int) -> str:
@@ -434,46 +646,42 @@ def _prompt(rng, n_bytes: int) -> str:
     return " ".join(words)[:n_bytes]
 
 
-def phase_serve(torch) -> dict:
-    import random
+class Served:
+    """One engine behind its runner thread, with every logits tensor its
+    model entry points compute checked on the device (one flag, no sync per
+    step) and its shape recorded."""
 
-    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
-    from gridllm_torch.ops import cuda_kernels as ck
+    def __init__(self, torch, engine):
+        self.torch, self.engine = torch, engine
+        self.vocab = engine.cfg.vocab_size
+        self.finite = torch.ones((), dtype=torch.bool, device=engine.device)
+        self.logit_shapes: set[tuple[int, ...]] = set()
+        for name, n_logits in (("prefill", 1), ("prefill_chunk", 1), ("decode_step", 1),
+                               ("verify_step", 1), ("mixed_step", 2)):
+            self._watch(name, n_logits)
 
-    rng = random.Random(SEED)
-    t0 = time.perf_counter()
-    engine = InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False), device="cuda")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    vocab = engine.cfg.vocab_size
-
-    # every logits tensor the runner computes is checked on the device
-    # (one flag, no sync per step) and its shape recorded
-    finite = torch.ones((), dtype=torch.bool, device=engine.device)
-    logit_shapes: set[tuple[int, ...]] = set()
-
-    def watch(name: str, n_logits: int) -> None:
-        fn = getattr(engine.model, name)
+    def _watch(self, name: str, n_logits: int) -> None:
+        fn = getattr(self.engine.model, name)
 
         def watched(*args, **kwargs):
             out = fn(*args, **kwargs)
             for logits in out[:n_logits]:
-                logit_shapes.add(tuple(logits.shape))
-                finite.logical_and_(torch.isfinite(logits).all())
+                self.logit_shapes.add(tuple(logits.shape))
+                self.finite.logical_and_(self.torch.isfinite(logits).all())
             return out
 
-        setattr(engine.model, name, watched)
+        setattr(self.engine.model, name, watched)
 
-    for name, n_logits in (("prefill", 1), ("decode_step", 1), ("mixed_step", 2)):
-        watch(name, n_logits)
+    def run(self, prompts: list[tuple[str, int]]) -> tuple[list, float]:
+        """Greedy requests from one thread each; (results, wall seconds)."""
+        from gridllm_torch.engine import GenerationRequest
 
-    def run_batch(prompts: list[tuple[str, int]]) -> tuple[list, float]:
         results: list = [None] * len(prompts)
 
         def one(i: int, text: str, n: int) -> None:
             opts = {"temperature": 0.0, "num_predict": n}
-            results[i] = engine.generate(GenerationRequest(id=f"r{i}", prompt=text,
-                                                           options=opts))
+            results[i] = self.engine.generate(GenerationRequest(id=f"r{i}", prompt=text,
+                                                                options=opts))
 
         threads = [threading.Thread(target=one, args=(i, p, n))
                    for i, (p, n) in enumerate(prompts)]
@@ -483,9 +691,11 @@ def phase_serve(torch) -> dict:
         for th in threads:
             th.join(timeout=600)
         check(not any(th.is_alive() for th in threads), "serve: a request hung")
+        for (text, n), res in zip(prompts, results):
+            self.finished(res, n, f"prompt of {len(text)} bytes")
         return results, time.perf_counter() - t_start
 
-    def finished(res, n, what):
+    def finished(self, res, n, what):
         # num_predict tokens, or fewer when the model sampled EOS (no stop
         # sequences are set, so "stop" can only mean EOS)
         ok = res is not None and (
@@ -494,78 +704,177 @@ def phase_serve(torch) -> dict:
         check(ok, f"serve: {what} finished {getattr(res, 'done_reason', None)!r} "
                   f"with {getattr(res, 'eval_count', None)} of {n} tokens "
                   f"({getattr(res, 'error', '')})")
-        check(all(0 <= t < vocab for t in res.token_ids), f"serve: {what} token out of range")
+        check(all(0 <= t < self.vocab for t in res.token_ids),
+              f"serve: {what} token out of range")
 
-    engine.start()
-    try:
-        ck.reset_launch_counts()
-        short = [_prompt(rng, n) for n in (40, 150, 300, 700, 90, 220, 500)]
-        long_prompt = _prompt(rng, 1500)   # > prefill_chunk: chunked mixed steps
-        # eight at once: every slot of the engine (max_slots = 8) fills
-        batch_a = [(short[0], 32), (short[1], 48), (short[2], 64), (short[3], 40),
-                   (short[4], 56), (short[5], 32), (short[6], 48), (long_prompt, 64)]
-        res_a, wall_a = run_batch(batch_a)
-        for (text, n), res in zip(batch_a, res_a):
-            finished(res, n, f"prompt of {len(text)} bytes")
-        # a repeat of the 300-byte prompt hits the prefix cache and replays
-        # through the ragged chunk region, next to a new short prompt
-        batch_b = [(short[2], 64), (_prompt(rng, 120), 32)]
-        res_b, wall_b = run_batch(batch_b)
-        for (text, n), res in zip(batch_b, res_b):
-            finished(res, n, f"second-batch prompt of {len(text)} bytes")
-        check(res_b[0].cached_tokens > 0, "serve: the repeat did not hit the prefix cache")
-        warm_matching = 0
-        for a, b in zip(res_a[2].token_ids, res_b[0].token_ids):
-            if a != b:
-                break
-            warm_matching += 1
-        # greedy determinism: the same short prompt twice, each alone on
-        # the engine, takes the same kernels at the same shapes
-        solo = [run_batch([(short[0], 32)])[0][0] for _ in range(2)]
-        for res in solo:
-            finished(res, 32, "solo repeat")
-        check(solo[0].token_ids == solo[1].token_ids, "serve: greedy repeat differs")
-        # and a new prompt alone, cold then warm from the prefix cache: the
-        # same stream, since no other request shares its steps' products
-        fresh = _prompt(rng, 300)
-        solo_warm = [run_batch([(fresh, 64)])[0][0] for _ in range(2)]
-        for res in solo_warm:
-            finished(res, 64, "solo cold/warm repeat")
-        check(solo_warm[0].cached_tokens == 0 and solo_warm[1].cached_tokens > 0,
-              "serve: the solo repeat did not hit the prefix cache")
-        check(solo_warm[0].token_ids == solo_warm[1].token_ids,
-              "serve: solo warm repeat differs from its cold run")
-        solo += solo_warm
-        counts = ck.launch_counts()
-    finally:
-        engine.stop()
-    check(not engine.running, "serve: runner did not stop")
-    check(all(n > 0 for n in counts.values()), f"serve: a kernel never launched: {counts}")
-    want_shapes = {(vocab,), (engine.config.max_slots, vocab)}
-    check(logit_shapes == want_shapes, f"serve: logits of shapes {logit_shapes}")
-    check(bool(finite), "serve: non-finite logits on the served path")
+    def summary(self, batch: list, wall: float, want_shapes: set) -> dict:
+        """Check the logits and sum up one engine setting's run."""
+        check(self.logit_shapes == want_shapes, f"serve: logits of shapes {self.logit_shapes}")
+        check(bool(self.finite), "serve: non-finite logits on the served path")
+        stats = self.engine.batch_state()["specDecode"]
+        tokens = sum(r.eval_count for r in batch)
+        out = {"requests": len(batch), "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall,
+               "ttft_ms_median": statistics.median(r.prompt_eval_duration_ns / 1e6
+                                                   for r in batch),
+               "logit_shapes": sorted(self.logit_shapes)}
+        if stats:
+            out.update(spec_acceptance=stats["accepted"] / max(stats["proposed"], 1),
+                       tokens_per_verify_step=stats["emitted"] / max(stats["steps"], 1),
+                       spec_stats=stats)
+        return out
 
+
+def _free(torch, served: Served) -> None:
+    served.engine.stop()
+    check(not served.engine.running, "serve: runner did not stop")
+    del served.engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the kernels each engine setting's path must launch and must not launch;
+# the counts are set to 0 just before a setting serves and read just after
+_PATHS = {
+    "spec_ragged": ({"flash_prefill", "ragged_attention", "paged_write_decode",
+                     "paged_write_chunk"}, {"paged_decode", "prefix_chunk"}),
+    "plain_ragged": ({"flash_prefill", "ragged_attention", "paged_write_decode",
+                      "paged_write_chunk"}, {"paged_decode", "prefix_chunk"}),
+    "spec_per_phase": ({"flash_prefill", "prefix_chunk", "paged_write_decode",
+                        "paged_write_chunk"}, {"ragged_attention", "paged_decode"}),
+    "plain_per_phase": ({"flash_prefill", "paged_decode", "prefix_chunk",
+                         "paged_write_decode", "paged_write_chunk"}, {"ragged_attention"}),
+}
+# the setting whose launches the kernels line reports for each kernel
+_CARRIER = {"flash_prefill": "spec_ragged", "ragged_attention": "spec_ragged",
+            "paged_write_decode": "spec_ragged", "paged_write_chunk": "spec_ragged",
+            "paged_decode": "plain_per_phase", "prefix_chunk": "spec_per_phase"}
+
+
+def _path_launches(ck, name: str, srv: Served) -> dict:
+    """Check one setting's launch counts against its path; return them."""
+    counts = ck.launch_counts()
+    must, never = _PATHS[name]
+    check(all(counts[k] > 0 for k in must),
+          f"serve {name}: a kernel of its path never launched: {counts}")
+    check(all(counts[k] == 0 for k in never),
+          f"serve {name}: a kernel of another path launched: {counts}")
+    layers, slots = srv.engine.cfg.num_layers, srv.engine.config.max_slots
+    steps = srv.engine.spec_stats["steps"]
+    check((steps > 0) == srv.engine.config.spec_decode, f"serve {name}: {steps} verify steps")
+    # a verify step is one attention launch per layer (ragged) or one per
+    # slot per layer (per-phase)
+    if name == "spec_ragged":
+        check(counts["ragged_attention"] >= layers * steps,
+              f"serve {name}: {counts['ragged_attention']} ragged launches, {steps} verify steps")
+    if name == "spec_per_phase":
+        check(counts["prefix_chunk"] >= layers * slots * steps,
+              f"serve {name}: {counts['prefix_chunk']} prefix_chunk launches, "
+              f"{steps} verify steps")
+    return counts
+
+
+def phase_serve(torch) -> dict:
+    """llama3:8b bf16 in four engine settings, one after the other: the
+    default (spec decode on, ragged attention on), the same requests with
+    spec decode off, then spec on and spec off with the per-phase kernels.
+    Each setting's kernel launches are counted from 0 and held to its path."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    rng = random.Random(SEED)
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    vocab, slots = srv.vocab, srv.engine.config.max_slots
+    k1 = srv.engine.config.spec_k + 1
+    srv.engine.start()
+    short = [_prompt(rng, n) for n in (40, 150, 300, 700, 90, 220, 500)]
+    long_prompt = _prompt(rng, 1500)   # > prefill_chunk: chunked admission
+    # eight at once: every slot of the engine (max_slots = 8) fills
+    batch_a = [(short[0], 32), (short[1], 48), (short[2], 64), (short[3], 40),
+               (short[4], 56), (short[5], 32), (short[6], 48), (long_prompt, 64)]
+    ck.reset_launch_counts()
+    res_a, wall_a = srv.run(batch_a)
+    # a repeat of the 300-byte prompt hits the prefix cache and replays
+    # through the ragged chunk region, next to a new short prompt
+    res_b, wall_b = srv.run([(short[2], 64), (_prompt(rng, 120), 32)])
+    check(res_b[0].cached_tokens > 0, "serve: the repeat did not hit the prefix cache")
+    warm_matching = 0
+    for a, b in zip(res_a[2].token_ids, res_b[0].token_ids):
+        if a != b:
+            break
+        warm_matching += 1
+    # greedy determinism: the same short prompt twice, each alone on the
+    # engine, takes the same kernels at the same shapes
+    solo = [srv.run([(short[0], 32)])[0][0] for _ in range(2)]
+    check(solo[0].token_ids == solo[1].token_ids, "serve: greedy repeat differs")
+    # and a new prompt alone, cold then warm from the prefix cache: the
+    # same stream, since no other request shares its steps' products
+    fresh = _prompt(rng, 300)
+    solo_warm = [srv.run([(fresh, 64)])[0][0] for _ in range(2)]
+    check(solo_warm[0].cached_tokens == 0 and solo_warm[1].cached_tokens > 0,
+          "serve: the solo repeat did not hit the prefix cache")
+    check(solo_warm[0].token_ids == solo_warm[1].token_ids,
+          "serve: solo warm repeat differs from its cold run")
+    solo += solo_warm
     all_res = res_a + res_b
-    eos_finishes = sum(r.done_reason == "stop" for r in all_res + solo)
-    ttft_ms = [r.prompt_eval_duration_ns / 1e6 for r in all_res]
-    tokens_a = sum(r.eval_count for r in res_a)
-    return {
-        "phase": "serve", "model": "llama3:8b", "dtype": "bfloat16",
-        "device": torch.cuda.get_device_name(0), "card": card_line(), "load_s": load_s,
-        "requests": len(all_res) + len(solo),
-        "batch_a": {"requests": len(res_a), "tokens": tokens_a, "wall_s": wall_a,
-                    "tokens_per_s": tokens_a / wall_a},
+    settings = {"spec_ragged": {
+        **srv.summary(res_a, wall_a, {(vocab,), (slots, vocab), (slots, k1, vocab)}),
+        "ttft_ms_median_all": statistics.median(r.prompt_eval_duration_ns / 1e6
+                                                for r in all_res),
         "batch_b": {"requests": len(res_b), "wall_s": wall_b,
                     "cached_tokens": res_b[0].cached_tokens},
-        "ttft_ms_median": statistics.median(ttft_ms),
-        "ttft_ms": ttft_ms,
         "batched_warm_repeat_tokens_matching_cold":
             f"{warm_matching}/{len(res_b[0].token_ids)}",
         "solo_warm_repeat_equals_cold": True,
-        "eos_finishes": eos_finishes,
-        "logit_shapes": sorted(logit_shapes),
-        "launches": counts,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "eos_finishes": sum(r.done_reason == "stop" for r in all_res + solo),
+        "launches": _path_launches(ck, "spec_ragged", srv)}}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _free(torch, srv)
+    n_requests = len(all_res) + len(solo)
+
+    # the same eight requests with speculative decoding off: pipelined
+    # decode blocks, what the default gives up for speculation
+    srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False),
+                                        device="cuda"))
+    srv.engine.start()
+    ck.reset_launch_counts()
+    res, wall = srv.run(batch_a)
+    settings["plain_ragged"] = {**srv.summary(res, wall, {(vocab,), (slots, vocab)}),
+                                "launches": _path_launches(ck, "plain_ragged", srv)}
+    _free(torch, srv)
+    n_requests += len(res)
+    settings["spec_ragged"]["tokens_per_s_over_spec_off"] = (
+        settings["spec_ragged"]["tokens_per_s"] / settings["plain_ragged"]["tokens_per_s"])
+
+    # the per-phase kernels: a prompt longer than one chunk beside a short
+    # one (prefill_chunk twice), then the short one again from the prefix
+    # cache (prefill_chunk), with spec decode on (verify loops of
+    # prefix_chunk) and off (paged_decode)
+    mid = _prompt(rng, 200)
+    for name, spec, shapes in (("spec_per_phase", True, {(vocab,), (slots, k1, vocab)}),
+                               ("plain_per_phase", False, {(vocab,), (slots, vocab)})):
+        srv = Served(torch, InferenceEngine(EngineConfig(
+            model="llama3:8b", spec_decode=spec, ragged_attention=False), device="cuda"))
+        srv.engine.start()
+        ck.reset_launch_counts()
+        res, wall = srv.run([(long_prompt, 64), (mid, 48)])
+        (repeat,), _ = srv.run([(mid, 48)])
+        check(repeat.cached_tokens > 0, f"serve {name}: the repeat missed the prefix cache")
+        settings[name] = {**srv.summary(res, wall, shapes), "repeat_cached_tokens":
+                          repeat.cached_tokens, "launches": _path_launches(ck, name, srv)}
+        _free(torch, srv)
+        n_requests += len(res) + 1
+    return {
+        "phase": "serve", "model": "llama3:8b", "dtype": "bfloat16",
+        "device": torch.cuda.get_device_name(0), "card": card_line(), "load_s": load_s,
+        "requests": n_requests, "settings": settings,
+        "launches": {k: settings[carrier]["launches"][k] for k, carrier in _CARRIER.items()},
+        "launches_from": _CARRIER, "peak_memory_gb": peak_gb,
     }
 
 
@@ -665,6 +974,44 @@ def phase_replay(torch) -> dict:
             "warm_equals_cold": True, "bf16_cold_vs_warm": _replay_rounding(torch)}
 
 
+def phase_spec(torch) -> dict:
+    """Greedy parity in float32: a repetitive prompt whose drafts get
+    accepted gives the same stream with speculative decoding on and off,
+    with ragged attention on and off (four engines, one after the other)."""
+    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+
+    prompt = "the cat sat on the mat and the dog sat on the log. " * 6
+    opts = {"temperature": 0.0, "repeat_penalty": 1.0, "num_predict": 64}
+    runs = {}
+    for spec in (True, False):
+        for ragged in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = InferenceEngine(EngineConfig(model="llama3:8b", dtype="float32",
+                                                  spec_decode=spec, ragged_attention=ragged),
+                                     device="cuda")
+            res = engine.generate(GenerationRequest(id="spec", prompt=prompt,
+                                                    options=dict(opts)))
+            check(res.done_reason in ("length", "stop") and res.token_ids,
+                  f"spec: finished {res.done_reason!r} ({res.error})")
+            name = f"spec_{'on' if spec else 'off'}_ragged_{'on' if ragged else 'off'}"
+            runs[name] = {"tokens": res.token_ids, "proposed": res.spec_proposed,
+                          "accepted": res.spec_accepted,
+                          "verify_steps": engine.spec_stats["steps"]}
+            del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams = {name: r.pop("tokens") for name, r in runs.items()}
+    ref = streams["spec_off_ragged_on"]
+    same = {name: toks == ref for name, toks in streams.items()}
+    check(all(same.values()), f"spec: greedy streams differ: {same}")
+    for name, r in runs.items():
+        check(r["accepted"] > 0 or name.startswith("spec_off"),
+              f"spec: {name} accepted no draft")
+    return {"phase": "spec", "model": "llama3:8b", "dtype": "float32",
+            "tokens": len(ref), "streams_identical": True, "runs": runs}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -696,7 +1043,7 @@ def main() -> int:
             out = phase_build()
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
-                   "serve": phase_serve, "replay": phase_replay}[phase](torch)
+                   "serve": phase_serve, "replay": phase_replay, "spec": phase_spec}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out

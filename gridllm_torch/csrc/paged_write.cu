@@ -13,12 +13,14 @@
 // all layers and slots (and one per prefill chunk), with 16-byte vector
 // copies so a warp moves 512 contiguous bytes per instruction.
 //
-// - paged_write_decode: grid (L, S). Block (l, s) looks up its own page in
-//   page_table[s] at positions[s] and copies k_new[l, s] and v_new[l, s]
-//   into pool[l, page, positions[s] % ps]. An inactive slot, a position
-//   past the table's capacity and an unmapped (-1) page skip the slot: the
-//   rule of the plain version's `_safe_page_idx`, applied here so a step
-//   is one launch with no index math before it.
+// - paged_write_decode: grid (L, N) over N = S * T rows, T rows per slot
+//   (T = 1 for a decode step, K+1 for a speculative verify step's
+//   flattened candidates). Block (l, r) belongs to slot s = r / T, looks up
+//   its own page in page_table[s] at positions[r] and copies k_new[l, r]
+//   and v_new[l, r] into pool[l, page, positions[r] % ps]. An inactive
+//   slot, a position past the table's capacity and an unmapped (-1) page
+//   skip the row: the rule of the plain version's `_safe_page_idx`,
+//   applied here so a step is one launch with no index math before it.
 // - paged_write_chunk: grid (L, T / ps). Block (l, c) copies chunk page c
 //   (ps rows, the padded tail included) into pool[l, dst[c]]; dst[c] == P
 //   skips a page past the valid length or unmapped. The wrapper computes
@@ -43,16 +45,17 @@ __global__ void write_decode_kernel(char* __restrict__ k_pool, char* __restrict_
                                     const int* __restrict__ page_table,
                                     const int* __restrict__ positions,
                                     const bool* __restrict__ active, int num_pages,
-                                    int page_size, int num_slots, int max_pages,
-                                    int64_t row_bytes) {
-  const int l = blockIdx.x, s = blockIdx.y;
-  const int pos = positions[s];
+                                    int page_size, int num_rows, int rows_per_slot,
+                                    int max_pages, int64_t row_bytes) {
+  const int l = blockIdx.x, r = blockIdx.y;
+  const int s = r / rows_per_slot;
+  const int pos = positions[r];
   if (!active[s] || pos < 0 || pos >= max_pages * page_size) return;
   const int page = page_table[static_cast<int64_t>(s) * max_pages + pos / page_size];
   if (page < 0 || page >= num_pages) return;
   const int off = pos % page_size;
   const int64_t dst = ((static_cast<int64_t>(l) * num_pages + page) * page_size + off) * row_bytes;
-  const int64_t src = (static_cast<int64_t>(l) * num_slots + s) * row_bytes;
+  const int64_t src = (static_cast<int64_t>(l) * num_rows + r) * row_bytes;
   copy16(k_pool + dst, k_new + src, row_bytes);
   copy16(v_pool + dst, v_new + src, row_bytes);
 }
@@ -74,20 +77,22 @@ __global__ void write_chunk_kernel(char* __restrict__ k_pool, char* __restrict__
 
 }  // namespace
 
-// Pools [L, P, ps, KVH, D]; k_new/v_new [L, S, KVH, D]; page_table
-// [S, max_pages] int32; positions [S] int32; active [S] bool. row_bytes
-// must be a multiple of 16. Returns cudaGetLastError().
+// Pools [L, P, ps, KVH, D]; k_new/v_new [L, N, KVH, D] with N = S * T;
+// page_table [S, max_pages] int32; positions [N] int32; active [S] bool.
+// row_bytes must be a multiple of 16. Returns cudaGetLastError().
 extern "C" int gridllm_paged_write_decode(void* k_pool, void* v_pool, const void* k_new,
                                           const void* v_new, const void* page_table,
                                           const void* positions, const void* active, int L,
-                                          int num_pages, int page_size, int S, int max_pages,
+                                          int num_pages, int page_size, int N,
+                                          int rows_per_slot, int max_pages,
                                           long long row_bytes, void* stream) {
-  dim3 grid(L, S);
+  dim3 grid(L, N);
   write_decode_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<char*>(k_pool), static_cast<char*>(v_pool),
       static_cast<const char*>(k_new), static_cast<const char*>(v_new),
       static_cast<const int*>(page_table), static_cast<const int*>(positions),
-      static_cast<const bool*>(active), num_pages, page_size, S, max_pages, row_bytes);
+      static_cast<const bool*>(active), num_pages, page_size, N, rows_per_slot, max_pages,
+      row_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine on PyTorch.
 
 The counterpart of the JAX package's engine/engine.py for its default
-serving path with speculative decoding off:
+serving path:
 
 - One device state: the paged KV pool shared by `max_slots` concurrent
   requests, per-slot sampler options, per-slot repeat-penalty windows and
@@ -18,9 +18,20 @@ serving path with speculative decoding off:
   the device; the host first sees it in row 0 of the next block it
   fetches, matched by a per-slot dispatch-generation tag.
 - Prompts longer than `prefill_chunk`, and prompts whose prefix is in the
-  prefix cache, prefill in page-aligned chunks through `mixed_step`: each
-  chunk runs in ONE ragged attention launch per layer together with one
-  decode token for every running slot.
+  prefix cache, prefill in page-aligned chunks. With ragged attention on
+  (the default) each chunk is a `mixed_step`: ONE ragged attention launch
+  per layer together with one decode token for every running slot. With
+  it off (`EngineConfig.ragged_attention=False`, the counterpart of the
+  JAX package's GRIDLLM_RAGGED_ATTN=0) each chunk is a `prefill_chunk`
+  through the per-phase dispatchers, and decode and verify use them too.
+- Speculative decoding (on by default, K = 4, as the JAX package resolves
+  it): each step drafts up to K tokens per slot from its own history
+  (n-gram prompt lookup, ops/spec.py), verifies all of them in ONE batched
+  forward (`verify_step`), keeps the longest accepted prefix plus one
+  corrected token (`spec_accept`) and rolls the lengths back past the
+  rejected rows. Greedy streams are token-identical to spec-off. A verify
+  step is fetched at once: the next step's drafts depend on its tokens, so
+  there is no block pipeline to hide the fetch behind.
 
 Unlike the JAX engine, whose device state is immutable, the state tensors
 here are updated in place; every block's token output is a fresh tensor
@@ -42,13 +53,15 @@ import torch
 from gridllm_torch.engine.tokenizer import DetokState, Tokenizer, get_tokenizer
 from gridllm_torch.models.configs import get_config
 from gridllm_torch.models.llama import Llama
-from gridllm_torch.ops.kvcache import PagedKVCache, PageAllocator
+from gridllm_torch.ops.kvcache import PagedKVCache, PageAllocator, rollback_to_length
 from gridllm_torch.ops.sampling import (
     SamplingParams,
     sample_tokens,
+    spec_accept,
     window_push,
     window_set_slot,
 )
+from gridllm_torch.ops.spec import make_drafter
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -80,8 +93,14 @@ class EngineConfig:
     # pool, 0 = off)
     prefix_cache: bool = True
     prefix_cache_pages: int = -1
-    spec_decode: bool = False            # not ported
+    # speculative decoding (n-gram drafting + batched verify): spec_k is
+    # the drafted tokens verified per step (a [S, K+1] verify block)
+    spec_decode: bool = True
+    spec_k: int = 4
     draft_model: str | None = None       # not ported
+    # attention mode: the unified ragged kernel (True) or the per-phase
+    # dispatchers paged_decode / prefix_chunk (False)
+    ragged_attention: bool = True
     kv_host_bytes: int | None = None     # not ported
     kv_int8: bool | None = None          # not ported
 
@@ -91,7 +110,6 @@ class EngineConfig:
             "checkpoint_path": bool(self.checkpoint_path),
             "quantize": bool(self.quantize),
             "mesh": self.mesh is not None,
-            "spec_decode": bool(self.spec_decode),
             "draft_model": bool(self.draft_model),
             "kv_host_bytes": bool(self.kv_host_bytes),
             "kv_int8": bool(self.kv_int8),
@@ -130,6 +148,10 @@ class GenerationResult:
     total_duration_ns: int = 0
     retryable: bool = True
     error: str = ""
+    # speculative decoding: drafts proposed to and accepted by this
+    # request's verify steps (both 0 with speculation off)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 class _Slot:
@@ -137,7 +159,7 @@ class _Slot:
         "req", "ids", "prompt_len", "generated", "detok", "text", "emitted_len",
         "num_predict", "stop_seqs", "eos_ids", "capacity", "joined_gen",
         "cached_tokens", "t_start", "t_prefill_ns", "t_first_decode",
-        "t_last_ingest",
+        "t_last_ingest", "spec_proposed", "spec_accepted",
     )
 
     def __init__(self, req: GenerationRequest, ids: list[int], capacity: int,
@@ -162,6 +184,8 @@ class _Slot:
         self.t_prefill_ns = 0
         self.t_first_decode = 0
         self.t_last_ingest = 0.0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     def holdback(self) -> int:
         """Chars at the tail of `text` that could still become a stop
@@ -207,9 +231,14 @@ class InferenceEngine:
         self._work = threading.Condition()
         self._runner: threading.Thread | None = None
         self._runner_stop = threading.Event()
+        # speculation depth K (0 = off) and cumulative verify-step totals
+        self._spec_k = max(int(config.spec_k), 0) if config.spec_decode else 0
+        self._drafter = make_drafter() if self._spec_k else None
+        self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0}
 
         t0 = time.perf_counter_ns()
-        self.model = Llama(self.cfg, dtype=self.dtype, device=self.device)
+        self.model = Llama(self.cfg, dtype=self.dtype, device=self.device,
+                           ragged_attention=config.ragged_attention)
         if params is not None:
             self.model.params_from_jax(params)
         else:
@@ -279,6 +308,16 @@ class InferenceEngine:
                         self.sampling.repeat_last_n[slot], self.cfg.vocab_size)
         self._activate(slot, logits)
 
+    def _prefill_chunk(self, chunk: torch.Tensor, start: int, length: int, slot: int,
+                       row: torch.Tensor, is_final: bool) -> None:
+        """One chunk of an admitting slot on its own (ragged attention off);
+        the final chunk samples the slot's first token and activates it."""
+        logits, _ = self.model.prefill_chunk(chunk, start, length, self.cache, slot, row)
+        window_set_slot(self.window, self.wlen, self.counts, slot, chunk, start, length,
+                        self.sampling.repeat_last_n[slot], self.cfg.vocab_size)
+        if is_final:  # intermediate chunks' samples are discarded
+            self._activate(slot, logits)
+
     def _mixed_chunk(self, chunk: torch.Tensor, start: int, length: int, slot: int,
                      row: torch.Tensor, is_final: bool) -> torch.Tensor:
         """One mixed step: the admitting slot's chunk plus a decode token for
@@ -315,6 +354,24 @@ class InferenceEngine:
             sp.step += self.active.to(sp.step.dtype)
             rows.append(self.tokens)
         return torch.stack(rows)
+
+    def _verify_block(self, drafts: torch.Tensor, dlen: torch.Tensor) -> torch.Tensor:
+        """One speculative verify step for all slots: [S, K] drafts (dlen
+        [S] valid per slot) after each slot's committed last token, one
+        batched forward, accept/reject, and the length commit. Returns
+        [K+3, S]: row 0 the block's input tokens (a newly admitted slot's
+        prefill sample), rows 1..K+1 the emitted tokens (valid up to
+        n_emit per slot), and the last row n_emit."""
+        sp, vocab = self.sampling, self.cfg.vocab_size
+        cand = torch.cat([self.tokens[:, None], drafts], dim=1)
+        logits, _ = self.model.verify_step(cand, self.cache, self.active)
+        out, n_emit, last = spec_accept(logits, cand, dlen, sp, self.counts, self.window,
+                                        self.wlen, self.active, vocab)
+        self.tokens = torch.where(self.active, last, self.tokens)
+        # commit the accepted length: the rejected candidate rows roll back
+        rollback_to_length(self.cache, torch.clamp(self.cache.lengths + n_emit,
+                                                   max=self.cache.max_context))
+        return torch.cat([cand[:, :1].T, out, n_emit[None].to(out.dtype)])
 
     # ------------------------------------------------------------ admission
 
@@ -419,8 +476,12 @@ class InferenceEngine:
                                 self.cfg.vocab_size)
             for s0 in range(cached, len(ids), c):
                 part = ids[s0:s0 + c]
-                self._dispatch_mixed_chunk(self._ids_tensor(part, c), s0, len(part),
-                                           slot, row, s0 + c >= len(ids))
+                args = (self._ids_tensor(part, c), s0, len(part), slot, row,
+                        s0 + c >= len(ids))
+                if self.model.ragged_attention:
+                    self._dispatch_mixed_chunk(*args)
+                else:
+                    self._prefill_chunk(*args)
         else:
             padded = self._ids_tensor(ids, self._bucket_for(len(ids)))
             self._prefill(padded, len(ids), slot, row)
@@ -473,6 +534,71 @@ class InferenceEngine:
                 if slot not in self._slots:
                     break  # finished mid-block; later rows are post-finish junk
 
+    def _step_spec(self) -> None:
+        """One speculative iteration: draft per slot from its host-visible
+        history, dispatch the verify step, fetch it and ingest the ragged
+        accept counts. Serial by construction: the next step's drafts
+        depend on this step's tokens."""
+        while self._inflight:
+            # mixed admission blocks first: their tokens must be
+            # host-visible before drafting
+            self._fetch_oldest()
+        k, n_slots = self._spec_k, self.config.max_slots
+        drafts = np.zeros((n_slots, k), np.int32)
+        dlen = np.zeros((n_slots,), np.int32)
+        for slot, st in list(self._slots.items()):
+            if st.joined_gen > self._gen:
+                continue  # first token still device-side: nothing to extend
+            prop = self._drafter.draft(st.ids, k)
+            if prop and st.num_predict >= 0:
+                # never draft past num_predict: the host would discard it
+                prop = prop[:max(st.num_predict - len(st.generated) - 1, 0)]
+            if prop:
+                dlen[slot] = len(prop)
+                drafts[slot, :len(prop)] = prop
+        self._gen += 1
+        out = self._verify_block(torch.from_numpy(drafts).to(self.device),
+                                 torch.from_numpy(dlen).to(self.device))
+        host = out.cpu().numpy()   # the spec path's one fetch per step
+        self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
+
+    def _ingest_spec(self, gen: int, tok_np: np.ndarray, n_emit: np.ndarray,
+                     dlen: np.ndarray) -> None:
+        """Ragged ingest of one verify step: per slot, rows 1..n_emit[slot]
+        of the [K+2, S] block are emitted tokens (row 0 is a just-admitted
+        slot's prefill sample); later rows are rejected drafts and never
+        reach host state. Stops, EOS and num_predict run per token in
+        _ingest, so a stop inside an accepted span truncates exactly as the
+        sequential path would."""
+        now = time.perf_counter_ns()
+        wall = time.time()
+        emitted = proposed = accepted = 0
+        for slot, st in list(self._slots.items()):
+            if st.joined_gen > gen:
+                continue
+            first_row = 0 if st.joined_gen == gen else 1
+            if first_row == 0:
+                st.t_prefill_ns = now - st.t_start
+            if not st.t_first_decode:
+                st.t_first_decode = now
+            st.t_last_ingest = wall
+            n, prop = int(n_emit[slot]), int(dlen[slot])
+            acc = max(n - 1, 0)
+            st.spec_proposed += prop
+            st.spec_accepted += acc
+            proposed += prop
+            accepted += acc
+            for r in range(first_row, min(n, tok_np.shape[0] - 1) + 1):
+                self._ingest(slot, st, int(tok_np[r, slot]))
+                emitted += r >= 1  # row 0 is a prefill sample, not verify output
+                if slot not in self._slots:
+                    break  # finished mid-span; later rows are post-stop junk
+        stats = self.spec_stats
+        stats["steps"] += 1
+        stats["proposed"] += proposed
+        stats["accepted"] += accepted
+        stats["emitted"] += emitted
+
     def _ingest(self, slot: int, st: _Slot, tok: int) -> None:
         """Record one sampled token; emit text; finish the slot if done."""
         st.generated.append(tok)
@@ -516,6 +642,7 @@ class InferenceEngine:
             eval_count=len(st.generated),
             eval_duration_ns=(now - st.t_first_decode) if st.t_first_decode else 0,
             load_duration_ns=self.load_duration_ns, total_duration_ns=now - st.t_start,
+            spec_proposed=st.spec_proposed, spec_accepted=st.spec_accepted,
         )
         self.active[slot] = False
         # register the full pages of the final context for reuse, minus the
@@ -547,6 +674,9 @@ class InferenceEngine:
             self._fetch_oldest()
         if not self._slots:
             return bool(self._pending)
+        if self._spec_k:
+            self._step_spec()
+            return True
         self._dispatch_block(1)
         self._fetch_oldest()
         return True
@@ -609,6 +739,9 @@ class InferenceEngine:
         if not self._slots:
             while self._inflight:
                 self._fetch_oldest()
+            return
+        if self._spec_k:  # one verify step per iteration, fetched at once
+            self._step_spec()
             return
         while len(self._inflight) < max(1, self.config.pipeline_depth):
             self._dispatch_block(self.config.decode_block)
@@ -710,4 +843,6 @@ class InferenceEngine:
             "prefixCache": {"hits": self.alloc.hits, "misses": self.alloc.misses,
                             "evictions": self.alloc.evictions,
                             "cowCopies": self.alloc.cow_copies},
+            "specDecode": ({"k": self._spec_k, "drafter": self._drafter.kind,
+                            **self.spec_stats} if self._spec_k else None),
         }

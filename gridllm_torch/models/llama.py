@@ -10,12 +10,20 @@ Entry points, all taking host scalars for lengths and positions:
 - `prefill`: one slot's whole prompt bucket, writes the paged cache;
 - `prefill_chunk`: one chunk of a slot against its cached prefix;
 - `decode_step`: one token for every slot;
+- `verify_step`: K+1 speculative candidates for every slot, written
+  optimistically with the lengths left as they were;
 - `mixed_step`: one slot's prefill chunk plus one decode token for every
   slot, one ragged attention launch per layer.
 Every paged entry point defers its pool writes to ONE all-layer write after
 the layer loop, as the JAX package does; the pool holds the prefix only
 while the layers run and the fresh K/V are merged inside the attention.
 The cache is updated in place and returned.
+
+Attention mode (`ragged_attention`, the counterpart of the JAX package's
+GRIDLLM_RAGGED_ATTN), fixed when the model is built: on, decode, verify and
+chunks run the unified ragged kernel; off, they run the per-phase
+dispatchers (`paged_attention_decode`, `paged_attention_verify`,
+`attention_prefix_chunk`). `mixed_step` exists only with it on.
 """
 
 from __future__ import annotations
@@ -28,8 +36,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from gridllm_torch.models.configs import ModelConfig
-from gridllm_torch.ops.attention import attention_prefill, ragged_paged_attention
-from gridllm_torch.ops.kvcache import PagedKVCache, write_decode_all, write_prefill_all
+from gridllm_torch.ops.attention import (
+    attention_prefill,
+    attention_prefix_chunk,
+    paged_attention_decode,
+    paged_attention_verify,
+    ragged_paged_attention,
+)
+from gridllm_torch.ops.kvcache import (
+    PagedKVCache,
+    write_decode_all,
+    write_multi_all,
+    write_prefill_all,
+)
 from gridllm_torch.ops.layers import precompute_rope, rms_norm, rope_tables, rotate
 
 
@@ -38,11 +57,12 @@ class Llama(nn.Module):
     under the JAX pytree's names."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", ragged_attention: bool = True):
         super().__init__()
         if cfg.attn_logit_softcap:
             raise NotImplementedError(f"{cfg.name}: attn_logit_softcap")
         self.cfg = cfg
+        self._ragged_attention = ragged_attention
         e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
         h, kvh, d, n = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
 
@@ -72,6 +92,11 @@ class Llama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def ragged_attention(self) -> bool:
+        """The attention mode the model was built with."""
+        return self._ragged_attention
 
     # ------------------------------------------------------------ weights
 
@@ -213,10 +238,12 @@ class Llama(nn.Module):
 
     def _chunk_rows(self, cache: PagedKVCache, tokens: torch.Tensor, start: int,
                     total: int, table_row: torch.Tensor, group=None):
-        """Layer loop of a ragged launch: the chunk rows (one slot's prefill
-        chunk at positions start + i) plus, with `group` = (tokens [S],
-        positions [S]), one decode row per slot. Returns (hidden rows
-        [1, C+S, E], k_new, v_new [L, C+S, KVH, D])."""
+        """Layer loop of a chunk: the chunk rows (one slot's prefill chunk at
+        positions start + i) plus, with `group` = (tokens [S], positions
+        [S]), one decode row per slot, in one ragged launch per layer; with
+        ragged attention off (never with a group), through
+        attention_prefix_chunk.
+        Returns (hidden rows [1, C+S, E], k_new, v_new [L, C+S, KVH, D])."""
         c = tokens.shape[0]
         dev = cache.k.device
         pos = start + torch.arange(c, device=dev, dtype=torch.int32)
@@ -229,9 +256,16 @@ class Llama(nn.Module):
         rope = rope_tables(pos[None], self.inv_freq)
         k_new, v_new = self._kv_buffers(x.shape[1], x)
         ps, window = cache.page_size, self.cfg.sliding_window
+        per_phase = not self.ragged_attention
+        if per_phase:  # start and total as device scalars for every layer's kernel
+            bounds = torch.tensor([start, total], dtype=torch.int32, device=dev)
 
         for li in range(self.cfg.num_layers):
             def attend(q, k, v, li=li):
+                if per_phase:
+                    return attention_prefix_chunk(
+                        q, cache.k, cache.v, table_row, bounds[0:1], bounds[1:2], ps,
+                        k_cur=k[0], v_cur=v[0], layer=li, window=window)
                 kw = {}
                 if group is not None:
                     kw = dict(q_group=q[0, c:][:, None], page_table=cache.page_table,
@@ -279,6 +313,10 @@ class Llama(nn.Module):
 
         for li in range(self.cfg.num_layers):
             def attend(q, k, v, li=li):  # one query row per slot: Td = 1
+                if not self.ragged_attention:
+                    return paged_attention_decode(
+                        q[:, 0], cache.k, cache.v, cache.page_table, positions, ps,
+                        k_cur=k[:, 0], v_cur=v[:, 0], layer=li, window=window)[:, None]
                 _, og = ragged_paged_attention(
                     cache.k, cache.v, ps, q_group=q, page_table=cache.page_table,
                     group_lengths=positions, k_group=k, v_group=v, layer=li,
@@ -295,6 +333,44 @@ class Llama(nn.Module):
         return logits, cache
 
     @torch.no_grad()
+    def verify_step(self, tokens: torch.Tensor, cache: PagedKVCache,
+                    active: torch.Tensor) -> tuple[torch.Tensor, PagedKVCache]:
+        """One speculative-verify forward for ALL slots. tokens: [S, T]
+        candidate blocks (col 0 the committed last token, cols 1.. the
+        drafts), active: [S] bool. Returns (logits [S, T, V] f32, row j the
+        distribution after candidates 0..j; the cache with the candidates'
+        K/V written OPTIMISTICALLY at lengths[s] + j and the lengths left
+        unchanged: the caller commits the accepted length with
+        ops.kvcache.rollback_to_length)."""
+        cfg = self.cfg
+        s, t = tokens.shape
+        base = cache.lengths.clone()
+        positions = base[:, None] + torch.arange(t, device=base.device, dtype=base.dtype)
+        x = self._embed(tokens)                                  # [S, T, E]
+        rope = rope_tables(positions, self.inv_freq)
+        shape = (cfg.num_layers, s, t, cfg.num_kv_heads, cfg.head_dim_)
+        k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
+        v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
+        ps, window = cache.page_size, cfg.sliding_window
+
+        for li in range(cfg.num_layers):
+            def attend(q, k, v, li=li):
+                if not self.ragged_attention:
+                    return paged_attention_verify(
+                        q, cache.k, cache.v, cache.page_table, base, ps, k, v,
+                        layer=li, window=window)
+                _, og = ragged_paged_attention(
+                    cache.k, cache.v, ps, q_group=q, page_table=cache.page_table,
+                    group_lengths=base, k_group=k, v_group=v, layer=li, window=window)
+                return og
+
+            x, k_new[li], v_new[li] = self._block(li, x, rope, attend)
+        logits = self._unembed(x)
+        write_multi_all(cache.k, cache.v, k_new, v_new, cache.page_table, positions,
+                        active, ps)
+        return logits, cache
+
+    @torch.no_grad()
     def mixed_step(self, chunk_tokens: torch.Tensor, chunk_start: int, chunk_len: int,
                    slot: int, table_row: torch.Tensor, tokens: torch.Tensor,
                    cache: PagedKVCache, active: torch.Tensor):
@@ -302,7 +378,9 @@ class Llama(nn.Module):
         admitting slot plus one decode token for every active slot, one
         ragged attention launch per layer. Returns (chunk last-valid-token
         logits [V], decode logits [S, V], cache with the chunk written and
-        active slots advanced by one)."""
+        active slots advanced by one). Needs ragged attention."""
+        if not self.ragged_attention:
+            raise ValueError("mixed_step needs a model built with ragged_attention=True")
         c = chunk_tokens.shape[0]
         positions = cache.lengths.clone()
         total = chunk_start + chunk_len

@@ -1,8 +1,11 @@
-"""Attention: causal prefill and unified ragged paged attention.
+"""Attention: causal prefill, unified ragged paged attention, and the
+per-phase paged dispatchers the model uses with ragged attention off.
 
-Public entry points (`attention_prefill`, `ragged_paged_attention`) run the
-hand-written CUDA kernels on CUDA tensors (ops/cuda_kernels.py) and the
-plain PyTorch versions here (`*_ref`) on CPU tensors. The plain versions
+Public entry points (`attention_prefill`, `ragged_paged_attention`,
+`paged_attention_decode`, `attention_prefix_chunk`,
+`paged_attention_verify`) run the hand-written CUDA kernels on CUDA
+tensors (ops/cuda_kernels.py) and the plain PyTorch versions here
+(`*_ref`) on CPU tensors. The plain versions
 are copies of the JAX package's references (ops/attention.py there) and
 are the numerical oracle the kernels are held to. Softmax is computed in
 float32 whatever the input dtype.
@@ -12,6 +15,8 @@ h reads kv head h // (H // KVH).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -294,3 +299,119 @@ def ragged_paged_attention(
         k_group=k_group, v_group=v_group, layer=layer,
         softcap=logit_softcap, window=window,
     )
+
+
+def _lane_pad_qkv(q: torch.Tensor, k_cur: torch.Tensor | None,
+                  v_cur: torch.Tensor | None, dpool: int):
+    """Pad q and the fresh K/V to a pool whose head dim `dpool` is wider
+    than q's (a lane-padded pool). q is pre-scaled by sqrt(dpool / d) so
+    the kernels' 1/sqrt(dpool) equals 1/sqrt(d); callers slice the output
+    back to d. Exact: padded K lanes meet zero q lanes, padded V lanes give
+    zeros that are sliced away."""
+    pad = (0, dpool - q.shape[-1])
+    scale = torch.tensor(math.sqrt(dpool / q.shape[-1]), dtype=torch.float32)
+    q = torch.nn.functional.pad(q * scale.to(q.dtype), pad)
+    if k_cur is not None:
+        k_cur = torch.nn.functional.pad(k_cur, pad)
+        v_cur = torch.nn.functional.pad(v_cur, pad)
+    return q, k_cur, v_cur
+
+
+def paged_attention_decode(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    page_size: int,
+    k_cur: torch.Tensor | None = None,
+    v_cur: torch.Tensor | None = None,
+    layer: int | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Paged decode attention (contract of paged_attention_decode_ref):
+    q [S, H, D], one query per slot. With k_cur/v_cur [S, KVH, D],
+    `lengths` counts the cached prefix only and the current token's K/V
+    are merged inside the kernel (the model writes all layers' K/V once
+    after the layer loop, so the pool lags one token). Pools are one
+    layer [P, ps, KVH, D] or the full stack with `layer` selecting. A pool
+    whose head dim is wider than q's is lane-padded at this boundary and
+    the output sliced back. CUDA tensors run the `paged_decode` kernel."""
+    from gridllm_torch.ops.cuda_kernels import paged_decode
+
+    d, dpool = q.shape[-1], k_pages.shape[-1]
+    if dpool != d:
+        q, k_cur, v_cur = _lane_pad_qkv(q, k_cur, v_cur, dpool)
+    out = paged_decode(q, k_pages, v_pages, page_table, lengths, page_size,
+                       k_cur=k_cur, v_cur=v_cur, layer=layer,
+                       softcap=logit_softcap, window=window)
+    return out[..., :d] if dpool != d else out
+
+
+def attention_prefix_chunk(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,
+    start,
+    total_len,
+    page_size: int,
+    k_cur: torch.Tensor | None = None,
+    v_cur: torch.Tensor | None = None,
+    layer: int | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Chunked-prefill attention (contract of _prefix_chunk_ref): one chunk
+    q [1, C, H, D] at positions start + i against the slot's paged prefix
+    through table_row [maxp], plus the chunk's fresh K/V k_cur/v_cur
+    [C, KVH, D] when the pool writes are deferred; keys at >= total_len
+    masked. `start`/`total_len` are host ints or one-element int32 tensors
+    on the pool's device (`total_len` None = start + C), so a caller can
+    pass device-side lengths without a host sync. Any C; lane-padded pools
+    as in paged_attention_decode. CUDA tensors run the `prefix_chunk`
+    kernel."""
+    from gridllm_torch.ops.cuda_kernels import prefix_chunk
+
+    d, dpool = q.shape[-1], k_pages.shape[-1]
+    if dpool != d:
+        q, k_cur, v_cur = _lane_pad_qkv(q, k_cur, v_cur, dpool)
+    out = prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size,
+                       k_cur=k_cur, v_cur=v_cur, layer=layer,
+                       softcap=logit_softcap, window=window)
+    return out[..., :d] if dpool != d else out
+
+
+def paged_attention_verify(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    page_size: int,
+    k_cur: torch.Tensor,
+    v_cur: torch.Tensor,
+    layer: int | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+    tree_pos: torch.Tensor | None = None,
+    tree_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Speculative-verify attention (contract of paged_attention_verify_ref):
+    q [S, T, H, D], candidate i of slot s at position lengths[s] + i,
+    attending the slot's prefix plus the candidates before it. One
+    attention_prefix_chunk per slot with start = lengths[s] and total =
+    start + T, each reading its slot's length from the lengths tensor (on
+    the card, no host sync in the loop). Tree verify is not ported and
+    raises."""
+    if tree_pos is not None or tree_mask is not None:
+        raise NotImplementedError("paged_attention_verify: tree verify is not ported")
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    return torch.cat([
+        attention_prefix_chunk(
+            q[i][None], k_pages, v_pages, page_table[i], lengths[i:i + 1], None,
+            page_size, k_cur=k_cur[i], v_cur=v_cur[i], layer=layer,
+            logit_softcap=logit_softcap, window=window)
+        for i in range(q.shape[0])
+    ])

@@ -14,6 +14,8 @@ a run can prove that its main path went through the kernels.
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
 - flash_prefill       :129  → ops.attention.attention_prefill_ref
+- paged_decode        :479  → ops.attention.paged_attention_decode_ref
+- prefix_chunk        :739  → ops.attention._prefix_chunk_ref
 - ragged_attention    :1168 → ops.attention.ragged_paged_attention_ref
 - paged_write_decode  :1404 → ops.kvcache.write_decode
 - paged_write_chunk   :1497 → ops.kvcache.write_prefill
@@ -28,11 +30,19 @@ from typing import Any
 import torch
 
 from gridllm_torch.ops import _build
-from gridllm_torch.ops.attention import attention_prefill_ref, ragged_paged_attention_ref
+from gridllm_torch.ops.attention import (
+    _layer_pool,
+    _prefix_chunk_ref,
+    attention_prefill_ref,
+    paged_attention_decode_ref,
+    ragged_paged_attention_ref,
+)
 from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
+    "paged_decode": 0,
+    "prefix_chunk": 0,
     "ragged_attention": 0,
     "paged_write_decode": 0,
     "paged_write_chunk": 0,
@@ -51,12 +61,23 @@ def launch_counts() -> dict[str, int]:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES: dict[str, tuple[str, list]] = {
     "gridllm_paged_write_decode": (
-        "paged_write.cu", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P]),
+        "paged_write.cu", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P]),
     "gridllm_paged_write_chunk": (
         "paged_write.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
     "gridllm_flash_prefill": (
         "flash_prefill.cu",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+    "gridllm_paged_decode": (
+        "paged_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P,          # q, pools, k/v_cur, out, table, lengths
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # S, n_table, P, ps, layer, H, KVH, D, rpw, dtype
+         _F, _F, _I, _P]),                        # scale, softcap, window, stream
+    "gridllm_prefix_chunk": (
+        "prefix_chunk.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P,      # q, pools, k/v_cur, out, row, start, total
+         _I, _I, _I, _I, _I, _I,                  # n_table, P, ps, layer, C, bq
+         _I, _I, _I, _I, _I,                      # H, KVH, D, rpw, dtype
+         _F, _F, _I, _P]),                        # scale, softcap, window, stream
     "gridllm_ragged_attention": (
         "ragged_attention.cu",
         [_P, _P, _I, _I, _I,                      # pools, P, ps, layer
@@ -135,40 +156,67 @@ def _kv_heads_and_dim(kernel: str, k_pages: torch.Tensor) -> tuple[int, int]:
     return kvh, d
 
 
+def _full_pool(kernel: str, k_pages, v_pages, page_size: int, layer):
+    """Pools as [L, P, ps, KVH, D] plus the layer to read, checked."""
+    if k_pages.dim() == 4:
+        k_pages, v_pages = k_pages[None], v_pages[None]
+    n_layers, _, ps, _, _ = k_pages.shape
+    layer = 0 if layer is None else int(layer)
+    if ps != page_size or not 0 <= layer < n_layers:
+        raise ValueError(f"{kernel}: page size {ps} vs {page_size}, layer {layer}")
+    _check(kernel, "k_pages", k_pages, k_pages.device)
+    _check(kernel, "v_pages", v_pages, k_pages.device, k_pages.shape, k_pages.dtype)
+    return k_pages, v_pages, layer
+
+
+def _gqa(kernel: str, h: int, kvh: int) -> int:
+    if h % kvh or h // kvh > _MAX_ROWS:
+        raise ValueError(f"{kernel}: {h} query heads over {kvh} kv heads")
+    return h // kvh
+
+
 # ---------------------------------------------------------------------------
 # KV writes
 # ---------------------------------------------------------------------------
 
 
 def paged_write_decode(k_pages, v_pages, k_new, v_new, page_table, positions,
-                       active, page_size: int):
+                       active, page_size: int, rows_per_slot: int = 1):
     """`write_decode` on the full pool: k_pages/v_pages [L, P, ps, KVH, D],
-    k_new/v_new [L, S, KVH, D], one row per (layer, slot), in place."""
+    k_new/v_new [L, S * T, KVH, D] and positions [S * T], T =
+    `rows_per_slot` consecutive rows per slot (1 for a decode step, K+1 for
+    a verify step's flattened candidates); page_table [S, maxp], active
+    [S]. In place."""
+    t = int(rows_per_slot)
     if not k_pages.is_cuda:
+        if t != 1:  # the plain version takes one row per table row
+            page_table = page_table.repeat_interleave(t, dim=0)
+            active = active.repeat_interleave(t)
         return write_decode(k_pages, v_pages, k_new, v_new, page_table, positions,
                             active, page_size)
     kernel, dev = "paged_write_decode", k_pages.device
     n_layers, num_pages, ps, kvh, d = k_pages.shape
     s = page_table.shape[0]
-    if ps != page_size:
-        raise ValueError(f"{kernel}: pool page size {ps} != {page_size}")
+    if ps != page_size or t < 1:
+        raise ValueError(f"{kernel}: pool page size {ps} != {page_size} or {t} rows per slot")
     _float_dtype(kernel, k_pages)
     _check(kernel, "k_pages", k_pages, dev)
     _check(kernel, "v_pages", v_pages, dev, k_pages.shape, k_pages.dtype)
-    _check(kernel, "k_new", k_new, dev, (n_layers, s, kvh, d), k_pages.dtype)
-    _check(kernel, "v_new", v_new, dev, (n_layers, s, kvh, d), k_pages.dtype)
+    _check(kernel, "k_new", k_new, dev, (n_layers, s * t, kvh, d), k_pages.dtype)
+    _check(kernel, "v_new", v_new, dev, (n_layers, s * t, kvh, d), k_pages.dtype)
     row_bytes = kvh * d * k_pages.element_size()
     if row_bytes % 16:
         raise ValueError(f"{kernel}: row of {row_bytes} bytes is not a multiple of 16")
     page_table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     positions = positions.to(device=dev, dtype=torch.int32).contiguous()
     active = active.to(device=dev, dtype=torch.bool).contiguous()
-    if positions.shape != (s,) or active.shape != (s,):
-        raise ValueError(f"{kernel}: positions/active do not match {s} slots")
+    if positions.shape != (s * t,) or active.shape != (s,):
+        raise ValueError(f"{kernel}: positions/active do not match {s} slots x {t} rows")
     if n_layers * s:
         _launch("gridllm_paged_write_decode", kernel, _ptr(k_pages), _ptr(v_pages),
                 _ptr(k_new), _ptr(v_new), _ptr(page_table), _ptr(positions), _ptr(active),
-                n_layers, num_pages, ps, s, page_table.shape[1], row_bytes, _stream(k_pages))
+                n_layers, num_pages, ps, s * t, t, page_table.shape[1], row_bytes,
+                _stream(k_pages))
     return k_pages, v_pages
 
 
@@ -225,13 +273,11 @@ def flash_prefill(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
     b, t, h, d = q.shape
     kvh, _ = _kv_heads_and_dim(kernel, k)
     code = _float_dtype(kernel, q)
-    if h % kvh or h // kvh > _MAX_ROWS:
-        raise ValueError(f"{kernel}: {h} query heads over {kvh} kv heads")
+    g = _gqa(kernel, h, kvh)
     _check(kernel, "q", q, dev)
     _check(kernel, "k", k, dev, (b, t, kvh, d), q.dtype)
     _check(kernel, "v", v, dev, (b, t, kvh, d), q.dtype)
     seq_lens = seq_lens.to(device=dev, dtype=torch.int32).contiguous()
-    g = h // kvh
     bq = max(1, _MAX_ROWS // g)
     out = torch.empty_like(q)
     if b * t:
@@ -239,6 +285,98 @@ def flash_prefill(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
                 _ptr(seq_lens), _ptr(out), code, b, t, h, kvh, d, bq,
                 _rows_per_warp(bq * g), d ** -0.5, float(softcap), int(window),
                 _stream(q))
+    return out
+
+
+def paged_decode(q, k_pages, v_pages, page_table, lengths, page_size: int, k_cur=None,
+                 v_cur=None, layer: int | None = None, softcap: float = 0.0,
+                 window: int = 0):
+    """`paged_attention_decode_ref` in one launch: q [S, H, D] against the
+    pool (one layer [P, ps, KVH, D], or the full stack with `layer`
+    selecting), page_table [S, maxp], lengths [S] on the device (the
+    cached prefix when k_cur/v_cur [S, KVH, D] are given, else including
+    the current token) → [S, H, D]."""
+    if not q.is_cuda:
+        return paged_attention_decode_ref(
+            q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
+            lengths, page_size, k_cur=k_cur, v_cur=v_cur, logit_softcap=softcap,
+            window=window)
+    kernel, dev = "paged_decode", q.device
+    k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
+    _, num_pages, ps, kvh, d = k_pages.shape
+    s, h, _ = q.shape
+    code = _float_dtype(kernel, k_pages)
+    _kv_heads_and_dim(kernel, k_pages)
+    g = _gqa(kernel, h, kvh)
+    _check(kernel, "q", q, dev, (s, h, d), k_pages.dtype)
+    if (k_cur is None) != (v_cur is None):
+        raise ValueError(f"{kernel}: k_cur and v_cur go together")
+    if k_cur is not None:
+        _check(kernel, "k_cur", k_cur, dev, (s, kvh, d), k_pages.dtype)
+        _check(kernel, "v_cur", v_cur, dev, (s, kvh, d), k_pages.dtype)
+    page_table = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    if page_table.shape[0] != s or lengths.shape != (s,):
+        raise ValueError(f"{kernel}: page_table/lengths do not match {s} slots")
+    out = torch.empty_like(q)
+    if s:
+        _launch("gridllm_paged_decode", kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages),
+                _ptr(k_cur), _ptr(v_cur), _ptr(out), _ptr(page_table), _ptr(lengths),
+                s, page_table.shape[1], num_pages, ps, layer, h, kvh, d, _rows_per_warp(g),
+                code, d ** -0.5, float(softcap), int(window), _stream(q))
+    return out
+
+
+def _device_scalar(kernel: str, name: str, x, dev: torch.device) -> torch.Tensor:
+    """A host int as a one-element int32 tensor on `dev`, or a one-element
+    int32 tensor already there (read by the kernel, never by the host)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.tensor([int(x)], dtype=torch.int32, device=dev)
+    if x.device != dev or x.dtype != torch.int32 or x.numel() != 1:
+        raise ValueError(f"{kernel}: {name} must be a host int or one int32 on {dev}")
+    return x
+
+
+def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: int,
+                 k_cur=None, v_cur=None, layer: int | None = None, softcap: float = 0.0,
+                 window: int = 0):
+    """`_prefix_chunk_ref` in one launch: q [1, C, H, D] at positions
+    start + i against the pool (one layer, or the full stack with `layer`
+    selecting) through table_row [maxp], plus the chunk's fresh K/V
+    k_cur/v_cur [C, KVH, D] when given. `start` and `total_len` are host
+    ints or one-element int32 tensors on the card, which the kernel reads
+    itself; `total_len` None means start + C. → [1, C, H, D]."""
+    if not q.is_cuda:
+        st = int(start)
+        total = st + q.shape[1] if total_len is None else int(total_len)
+        return _prefix_chunk_ref(
+            q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), table_row, st,
+            total, page_size, k_cur=k_cur, v_cur=v_cur, logit_softcap=softcap,
+            window=window)
+    kernel, dev = "prefix_chunk", q.device
+    k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
+    _, num_pages, ps, kvh, d = k_pages.shape
+    _, c, h, _ = q.shape
+    code = _float_dtype(kernel, k_pages)
+    _kv_heads_and_dim(kernel, k_pages)
+    g = _gqa(kernel, h, kvh)
+    _check(kernel, "q", q, dev, (1, c, h, d), k_pages.dtype)
+    if (k_cur is None) != (v_cur is None):
+        raise ValueError(f"{kernel}: k_cur and v_cur go together")
+    if k_cur is not None:
+        _check(kernel, "k_cur", k_cur, dev, (c, kvh, d), k_pages.dtype)
+        _check(kernel, "v_cur", v_cur, dev, (c, kvh, d), k_pages.dtype)
+    table_row = table_row.to(device=dev, dtype=torch.int32).contiguous()
+    start = _device_scalar(kernel, "start", start, dev)
+    total = None if total_len is None else _device_scalar(kernel, "total_len", total_len, dev)
+    bq = max(1, _MAX_ROWS // g)
+    out = torch.empty_like(q)
+    if c:
+        _launch("gridllm_prefix_chunk", kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages),
+                _ptr(k_cur), _ptr(v_cur), _ptr(out), _ptr(table_row), _ptr(start),
+                _ptr(total), table_row.shape[0], num_pages, ps, layer, c, bq, h, kvh, d,
+                _rows_per_warp(min(bq, c) * g), code, d ** -0.5, float(softcap),
+                int(window), _stream(q))
     return out
 
 
@@ -266,20 +404,12 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
             group_lengths=group_lengths, k_group=k_group, v_group=v_group,
             layer=layer, logit_softcap=softcap, window=window)
     kernel, dev = "ragged_attention", k_pages.device
-    if k_pages.dim() == 4:
-        k_pages, v_pages = k_pages[None], v_pages[None]
-    n_layers, num_pages, ps, kvh, d = k_pages.shape
+    k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
+    _, num_pages, ps, kvh, d = k_pages.shape
     _kv_heads_and_dim(kernel, k_pages)
     code = _float_dtype(kernel, k_pages)
-    layer = 0 if layer is None else int(layer)
-    if ps != page_size or not 0 <= layer < n_layers:
-        raise ValueError(f"{kernel}: page size {ps} vs {page_size}, layer {layer}")
-    _check(kernel, "k_pages", k_pages, dev)
-    _check(kernel, "v_pages", v_pages, dev, k_pages.shape, k_pages.dtype)
-    h = (q_chunk if q_chunk is not None else q_group).shape[-2]
-    if h % kvh or h // kvh > _MAX_ROWS:
-        raise ValueError(f"{kernel}: {h} query heads over {kvh} kv heads")
-    g = h // kvh
+    g = _gqa(kernel, (q_chunk if q_chunk is not None else q_group).shape[-2], kvh)
+    h = g * kvh
     bq = max(1, _MAX_ROWS // g)
     rows = 0
     out_chunk = out_group = None

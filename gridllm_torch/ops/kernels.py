@@ -40,6 +40,24 @@ KERNELS: tuple[KernelSpec, ...] = (
         smoke_phase="kernels, timing, serve",
     ),
     KernelSpec(
+        name="paged_decode",
+        source="gridllm_torch/csrc/paged_decode.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:479 paged_decode",
+        plain="attention:paged_attention_decode_ref",
+        rtol=3e-2, atol=3e-2,
+        test="tests/test_torch_legacy_attention.py::test_decode_matches_jax",
+        smoke_phase="kernels, timing, model, serve",
+    ),
+    KernelSpec(
+        name="prefix_chunk",
+        source="gridllm_torch/csrc/prefix_chunk.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:739 prefix_chunk",
+        plain="attention:_prefix_chunk_ref",
+        rtol=3e-2, atol=3e-2,
+        test="tests/test_torch_legacy_attention.py::test_prefix_chunk_matches_jax",
+        smoke_phase="kernels, timing, model, serve",
+    ),
+    KernelSpec(
         name="ragged_attention",
         source="gridllm_torch/csrc/ragged_attention.cu",
         replaces="gridllm_tpu/ops/pallas_kernels.py:1168 ragged_attention",

@@ -176,6 +176,42 @@ def write_decode_all(
                               positions, active, page_size)
 
 
+def write_multi_all(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    active: torch.Tensor,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write T consecutive tokens per slot across ALL layers at once (the
+    speculative-verify KV write): k_pages/v_pages [L, P, ps, KVH, D],
+    k_new/v_new [L, S, T, KVH, D], positions [S, T], active [S] (inactive
+    slots drop entirely; past-capacity positions and unmapped pages drop
+    as in write_decode_all). The write is optimistic: rejected rows are
+    dropped afterwards by rollback_to_length. The (slot, candidate) pairs
+    flatten to S*T rows of the `paged_write_decode` kernel, T per slot."""
+    from gridllm_torch.ops.cuda_kernels import paged_write_decode
+
+    n_layers, s, t = k_new.shape[:3]
+    k_flat = k_new.reshape(n_layers, s * t, *k_new.shape[3:])
+    v_flat = v_new.reshape(n_layers, s * t, *v_new.shape[3:])
+    return paged_write_decode(k_pages, v_pages, k_flat, v_flat, page_table,
+                              positions.reshape(-1), active, page_size, rows_per_slot=t)
+
+
+def rollback_to_length(cache: PagedKVCache, new_lengths: torch.Tensor) -> PagedKVCache:
+    """Commit each slot's accepted length after a verify step's optimistic
+    write, in place: rows past `new_lengths` become invisible (attention
+    masks keys at >= length) and the next step overwrites them. Pure
+    length bookkeeping: no pool byte moves, so a refcount-shared prefix
+    page (always below the prompt length) is never touched."""
+    cache.lengths.copy_(new_lengths)
+    return cache
+
+
 def write_prefill_all(
     k_pages: torch.Tensor,
     v_pages: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Batched token sampling with per-slot options.
+"""Batched token sampling with per-slot options, and the speculative
+accept/reject over a verify step's candidate block (`spec_accept`).
 
 The Ollama sampler option surface (temperature, top_k, top_p, min_p, seed,
 repeat_penalty over the last repeat_last_n tokens) held as per-slot device
@@ -79,17 +80,27 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def slot_gumbel(seed: torch.Tensor, step: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-slot Gumbel noise [S, k] keyed by (seed, step) — the port's
-    counterpart of the JAX package's `_slot_gumbel` (a counter-based
-    stream, not threefry)."""
+def _counter_uniform(seed: torch.Tensor, step: torch.Tensor, k: int,
+                     stream: int | None = None) -> torch.Tensor:
+    """Per-slot uniforms in (0, 1), float64 [S, k], from a counter hash of
+    (seed, step, index); `stream` derives an independent sub-stream of the
+    same (seed, step), as the JAX package's fold_in does."""
     idx = torch.arange(k, device=seed.device, dtype=torch.int64)
     s = seed.to(torch.int64)[:, None] & _MASK32
     t = step.to(torch.int64)[:, None] & _MASK32
     h = _mix32(s ^ 0x3C6EF372)
     h = _mix32(h ^ t)
+    if stream is not None:
+        h = _mix32(h ^ (0x2545F491 * stream & _MASK32))
     h = _mix32(h ^ idx[None, :])
-    u = (h.double() + 0.5) / 4294967296.0
+    return (h.double() + 0.5) / 4294967296.0
+
+
+def slot_gumbel(seed: torch.Tensor, step: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-slot Gumbel noise [S, k] keyed by (seed, step) — the port's
+    counterpart of the JAX package's `_slot_gumbel` (a counter-based
+    stream, not threefry)."""
+    u = _counter_uniform(seed, step, k)
     return (-torch.log(-torch.log(u))).float()
 
 
@@ -149,6 +160,94 @@ def sample_tokens(
     choice = torch.argmax(noisy, dim=-1)
     sampled = torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
     return torch.where(params.temperature <= 0.0, greedy, sampled)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: batched accept/reject over a candidate block
+# ---------------------------------------------------------------------------
+
+
+def _spec_keys(seed: torch.Tensor, step: torch.Tensor,
+               topk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot (uniform [S], gumbel [S, topk]) for one emitted-token index:
+    two sub-streams of the (seed, step) counter that sample_tokens uses,
+    since the spec path draws twice per emitted token (accept test and
+    fallback sample). Sampled spec-on streams are deterministic per
+    (seed, step) but not equal to spec-off ones; greedy streams are."""
+    u = _counter_uniform(seed, step, 1, stream=1)[:, 0].float()
+    g = -torch.log(-torch.log(_counter_uniform(seed, step, topk, stream=2)))
+    return u, g.float()
+
+
+def spec_accept(
+    logits: torch.Tensor,      # [S, K1, V] f32 verify-forward logits
+    candidates: torch.Tensor,  # [S, K1]: col 0 the committed last token
+    dlen: torch.Tensor,        # [S] i32 valid drafts per slot (0..K1-1)
+    params: SamplingParams,
+    counts: torch.Tensor,      # [S, V] i32 repeat-penalty counts
+    window: torch.Tensor,      # [S, W] i32 repeat-penalty window
+    wlen: torch.Tensor,        # [S] i32
+    active: torch.Tensor,      # [S] bool
+    vocab: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Keep the longest accepted candidate prefix plus one corrected token.
+
+    logits[s, j] is the next-token distribution after candidates[s, :j+1];
+    step j emits one token for every slot still alive:
+    - greedy (temperature <= 0): the argmax of the penalized logits, as the
+      sequential decode path; the slot stays alive iff the next draft
+      equals it, so greedy spec-on streams equal spec-off ones;
+    - sampled: rejection sampling against the n-gram drafter's point-mass
+      proposal: accept the draft with probability p(draft) under the full
+      truncated, penalized, temperature-scaled target; on rejection sample
+      from the target with the draft masked out.
+    The repeat-penalty window and counts advance per emitted token (in
+    place), so position j sees every token emitted before it, and
+    params.step advances by the emitted count.
+
+    Returns (out [K1, S]: row j valid iff j < n_emit[s]; n_emit [S] in
+    [1, K1] for active slots, 0 for inactive; last [S]: the last emitted
+    token, the next step's input)."""
+    s, k1, _ = logits.shape
+    logits = logits.float()
+    greedy_mode = params.temperature <= 0.0
+    # the draft checked at step j is candidates[:, j+1]; the last step
+    # never has one (the bonus token)
+    drafts_next = torch.cat([candidates[:, 1:], torch.zeros_like(candidates[:, :1])], 1)
+    emitted = torch.zeros((s,), dtype=torch.int32, device=logits.device)
+    alive = torch.ones((s,), dtype=torch.bool, device=logits.device)
+    outs = []
+    for j in range(k1):
+        greedy, idx, keep, scaled = _sampler_dists(logits[:, j], params, counts)
+        d = drafts_next[:, j].to(torch.int32)
+        has_draft = j < dlen
+        # sampled path: rejection sampling against the point-mass proposal
+        u, gum = _spec_keys(params.seed, params.step + emitted, idx.shape[-1])
+        neg = torch.full_like(scaled, float("-inf"))
+        probs = torch.softmax(torch.where(keep, scaled, neg), dim=-1)
+        is_d = keep & (idx == d[:, None])
+        p_d = torch.where(is_d, probs, torch.zeros_like(probs)).sum(-1)
+        fb_keep = keep & ~(has_draft[:, None] & is_d)
+        any_fb = fb_keep.any(-1)
+        choice = torch.argmax(torch.where(fb_keep, scaled + gum, neg), dim=-1)
+        fallback = torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
+        # ~any_fb: the draft is the only kept token, so p(draft) = 1 and a
+        # rounding reject would have nothing to fall back on
+        s_acc = has_draft & ((u < p_d) | ~any_fb)
+        s_tok = torch.where(s_acc, d, fallback)
+        # greedy path: the emitted token is the argmax either way
+        g_acc = has_draft & (d == greedy)
+        tok = torch.where(greedy_mode, greedy, s_tok)
+        acc = torch.where(greedy_mode, g_acc, s_acc)
+        emit = alive & active
+        window_push(window, wlen, counts, tok, emit, params.repeat_last_n, vocab)
+        emitted = emitted + emit.to(torch.int32)
+        alive = alive & acc
+        outs.append(torch.where(emit, tok, torch.zeros_like(tok)))
+    out = torch.stack(outs)
+    last = torch.gather(out.T, 1, (emitted - 1).clamp(min=0)[:, None].long())[:, 0]
+    params.step += emitted
+    return out, emitted, last
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,21 @@
 """Where the time goes in the engine's main path on one CUDA card.
 
-Serves llama3:8b (bf16, random weights from seed 0, default engine config)
-and measures, with the runner thread serving 8 greedy streams:
-- decode: tokens/s and wall time per decode step over a steady window,
-  then one profiled window (torch.profiler, CUDA activity): device busy
-  time per step by kernel family, launches per step, and the device's
-  idle share (1 - busy / wall);
-- prefill: one 1024-token bucket prefill and one 1024-token mixed step
-  (chunk after 1024 cached tokens, 8 decode rows), each profiled the same
-  way.
+Serves llama3:8b (bf16, random weights from seed 0) and measures:
+- decode, speculative decoding off: with the runner thread serving 8
+  greedy streams, tokens/s and wall time per decode step over a steady
+  window, then one profiled window (torch.profiler, CUDA activity; the
+  runner's loop body driven from the profiling thread): device busy time
+  per step by kernel family, launches per step, and the device's idle
+  share (1 - busy / wall);
+- single model calls, each profiled the same way: one 1024-token bucket
+  prefill, one 1024-token mixed step (chunk after 1024 cached tokens, 8
+  decode rows), a decode step through paged_decode (a second model over
+  the same weights, built with ragged attention off), and a verify step
+  of K+1 = 5 candidates for 8 slots at 1024 cached tokens in each
+  attention mode;
+- decode with speculative decoding on (the engine's default), on a fresh
+  engine serving the same 8 streams: the same steady and profiled
+  windows, per verify step, with the acceptance rate.
 Prints one JSON line per measurement (the profiler's overhead slows the
 profiled decode window; the steady window is measured without it).
 Usage: python3 -m gridllm_torch.tools.profile_step
@@ -16,17 +23,21 @@ Usage: python3 -m gridllm_torch.tools.profile_step
 
 from __future__ import annotations
 
+import gc
 import json
 import time
 from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+from gridllm_torch.models.llama import Llama
 
 FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
     ("ragged_attention", ("ragged_attention_kernel",)),
+    ("paged_decode", ("paged_decode_kernel",)),
+    ("prefix_chunk", ("prefix_chunk_kernel",)),
     ("flash_prefill", ("flash_prefill_kernel",)),
     ("kv_writes", ("write_decode_kernel", "write_chunk_kernel")),
     ("matmul", ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -40,12 +51,21 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _device_breakdown(prof, steps: int, wall_s: float) -> dict:
-    """Device time per step by kernel family from a profiler run."""
+def _device_breakdown(prof, steps: int, wall_s: float, span: str | None = None) -> dict:
+    """Device time per step by kernel family from a profiler run; with
+    `span`, only the kernels that started inside that record_function
+    range (the measured window, not what ran after it)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    lo, hi = float("-inf"), float("inf")
+    if span is not None:   # the range's host event (it also has a device-side copy)
+        (rng,) = [e.time_range for e in events if e.name == span and e.device_type == cpu]
+        lo, hi = rng.start, rng.end
     fam_us: dict[str, float] = defaultdict(float)
     launches = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.device_time_total > 0:
+    for evt in events:
+        if (evt.device_type == cuda and evt.device_time_total > 0 and evt.name != span
+                and lo <= evt.time_range.start <= hi):
             fam_us[_family(evt.name)] += evt.device_time_total
             launches += 1
     busy_ms = sum(fam_us.values()) / 1e3
@@ -64,6 +84,8 @@ def _generated(engine: InferenceEngine) -> int:
 
 
 def profile_decode(engine: InferenceEngine, n_slots: int) -> list[dict]:
+    spec = engine.batch_state()["specDecode"] is not None
+    label = "decode_spec" if spec else "decode"
     prompt = "the quick brown fox jumps over the lazy dog " * 11   # ~500 tokens
     for i in range(n_slots):
         engine.submit(GenerationRequest(
@@ -73,40 +95,75 @@ def profile_decode(engine: InferenceEngine, n_slots: int) -> list[dict]:
     deadline = time.time() + 300
     while _generated(engine) < 16 * n_slots and time.time() < deadline:
         time.sleep(0.05)
-    t0, g0 = time.perf_counter(), _generated(engine)
-    time.sleep(3.0)
-    t1, g1 = time.perf_counter(), _generated(engine)
-    steps = (g1 - g0) / n_slots
-    steady = {"measure": "decode_steady", "slots": n_slots, "tokens": g1 - g0,
-              "wall_s": t1 - t0, "tokens_per_s": (g1 - g0) / (t1 - t0),
-              "wall_ms_per_step": (t1 - t0) * 1e3 / steps}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        g0, t0 = _generated(engine), time.perf_counter()
-        time.sleep(1.5)
-        g1, t1 = _generated(engine), time.perf_counter()
+
+    def window(seconds: float, pump=None) -> tuple[int, float, float, dict]:
+        """(tokens, steps, wall s, spec totals) over `seconds` of serving:
+        by the runner thread, or with `pump`, by calling it in a loop."""
+        s0, t0 = dict(engine.spec_stats), time.perf_counter()
+        g0 = _generated(engine)
+        if pump is None:
+            time.sleep(seconds)
+        else:
+            while time.perf_counter() - t0 < seconds:
+                pump()
+        g1, t1, s1 = _generated(engine), time.perf_counter(), dict(engine.spec_stats)
+        delta = {k: s1[k] - s0[k] for k in s1}
+        steps = delta["steps"] if spec else (g1 - g0) / n_slots
+        return g1 - g0, max(steps, 1), t1 - t0, delta
+
+    tokens, steps, wall, delta = window(3.0)
+    steady = {"measure": f"{label}_steady", "slots": n_slots, "tokens": tokens,
+              "wall_s": wall, "tokens_per_s": tokens / wall,
+              "wall_ms_per_step": wall * 1e3 / steps}
+    if spec:
+        steady.update(verify_steps=delta["steps"],
+                      acceptance=delta["accepted"] / max(delta["proposed"], 1),
+                      tokens_per_verify_step=delta["emitted"] / max(delta["steps"], 1))
+    # the profiled window runs the runner's loop body on this thread: the
+    # profiler then never races a second thread's launches
     engine.stop()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("measured_window"):
+            tokens, steps, wall, _ = window(1.5, pump=engine._pump_once)
     engine.abort_all("profile done")
-    traced = {"measure": "decode_profiled", "slots": n_slots,
-              **_device_breakdown(prof, max((g1 - g0) / n_slots, 1), t1 - t0)}
+    traced = {"measure": f"{label}_profiled", "slots": n_slots,
+              **_device_breakdown(prof, steps, wall, span="measured_window")}
     return [steady, traced]
 
 
-def profile_prefill(engine: InferenceEngine) -> list[dict]:
+def profile_steps(engine: InferenceEngine) -> list[dict]:
     model, cache, c = engine.model, engine.cache, 1024
-    dev = engine.device
+    dev, s = engine.device, cache.max_slots
+    per_phase = Llama(engine.cfg, dtype=engine.dtype, device=dev, ragged_attention=False)
+    per_phase.load_state_dict(model.state_dict())
+    k1 = engine.config.spec_k + 1
     tokens = torch.randint(0, 32_000, (c,), device=dev, dtype=torch.int32)
     row = torch.arange(128, device=dev, dtype=torch.int32)   # pages 0..127 for slot 0
-    active = torch.zeros(cache.max_slots, dtype=torch.bool, device=dev)
+    active = torch.zeros(s, dtype=torch.bool, device=dev)
     active[1:] = True
-    cache.page_table[1:] = torch.arange(128, 128 * cache.max_slots, device=dev,
-                                        dtype=torch.int32).reshape(-1, 128)
+    cache.page_table.copy_(torch.arange(128 * s, device=dev, dtype=torch.int32).reshape(s, 128))
     cache.lengths[1:] = 1024
-    step_tokens = torch.zeros(cache.max_slots, dtype=torch.int32, device=dev)
+    step_tokens = torch.zeros(s, dtype=torch.int32, device=dev)
+    cand = torch.randint(0, 32_000, (s, k1), device=dev, dtype=torch.int32)
+    all_active = torch.ones(s, dtype=torch.bool, device=dev)
+
+    def at_1024(fn):  # every slot at 1024 cached tokens, lengths restored after
+        def run():
+            cache.lengths.fill_(1024)
+            fn()
+        return run
+
     out = []
     for name, fn in (
         ("prefill_bucket_1024", lambda: model.prefill(tokens, c, cache, 0, row)),
         ("mixed_step_1024_after_1024",
          lambda: model.mixed_step(tokens, 1024, c, 0, row, step_tokens, cache, active)),
+        ("decode_step_per_phase_8x1024", at_1024(lambda: per_phase.decode_step(
+            step_tokens, cache, all_active))),
+        ("verify_step_ragged_8x5_after_1024", at_1024(lambda: model.verify_step(
+            cand, cache, all_active))),
+        ("verify_step_per_phase_8x5_after_1024", at_1024(lambda: per_phase.verify_step(
+            cand, cache, all_active))),
     ):
         fn()                      # warm-up
         torch.cuda.synchronize()
@@ -120,10 +177,20 @@ def profile_prefill(engine: InferenceEngine) -> list[dict]:
 
 
 def main() -> None:
-    engine = InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda")
     dev = {"device": torch.cuda.get_device_name(0), "model": "llama3:8b", "dtype": "bfloat16"}
-    for rec in profile_decode(engine, engine.config.max_slots) + profile_prefill(engine):
-        print(json.dumps({**dev, **rec}), flush=True)
+
+    def emit(recs: list[dict]) -> None:
+        for rec in recs:
+            print(json.dumps({**dev, **rec}), flush=True)
+
+    engine = InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False), device="cuda")
+    emit(profile_decode(engine, engine.config.max_slots))
+    emit(profile_steps(engine))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda")
+    emit(profile_decode(engine, engine.config.max_slots))
 
 
 if __name__ == "__main__":

@@ -34,7 +34,8 @@ GREEDY = {"temperature": 0.0, "num_predict": 10}
 def engines():
     je = JEngine(JConfig(spec_decode=False, prefix_cache=True, **TINY))
     params = jax.tree_util.tree_map(np.asarray, je.params)
-    te = TEngine(TConfig(prefix_cache=True, **TINY), device="cpu", params=params)
+    te = TEngine(TConfig(spec_decode=False, prefix_cache=True, **TINY), device="cpu",
+                 params=params)
     return je, te
 
 
