@@ -44,9 +44,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
              accepted gives the same greedy stream with speculative
              decoding on and off, with ragged attention on and off.
+8. long    — long-context serving, llama3.1:8b: flash_prefill_streamed
+             against its blocked plain version (bf16 at T = 32768 with
+             seq_len 24001 and 32768, float32 at T = 16384, D = 64,
+             window and softcap), the ported kernels at long positions
+             (ragged decode and a 1024-row chunk after a 24k prefix on a
+             512-entry table, paged_write_chunk of 32768 rows into a pool
+             of more than 2^31 elements); attention with q scaled by 4 and
+             held to the row-relative error (LONG_Q_SCALE). Timed beside
+             flash_prefill and SDPA on full buckets of 1024 to 32768
+             tokens; a 2-layer float32 cut against its cache-free forward
+             (a 10000-token prompt in the 16384 bucket, then ragged decode
+             steps; the forward's attention is the blocked plain version);
+             then the engine in bf16
+             serving a 24001-token prompt whole in the 32768 bucket beside
+             a short request (32 flash_prefill_streamed launches), and its
+             warm repeat as one 32768-row mixed-step chunk.
 Then the kernels line, the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,long]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -69,7 +85,7 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
-ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec")
+ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec", "long")
 
 
 def emit(obj: dict) -> None:
@@ -243,6 +259,15 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+def _rel_err(a, b) -> float:
+    """Largest error of one output row (the D values of one token and
+    head) relative to the plain version's row: max ||a - b|| / ||b||."""
+    if not a.numel():
+        return 0.0
+    a, b = a.float(), b.float()
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def phase_kernels(torch) -> dict:
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.attention import (
@@ -255,7 +280,8 @@ def phase_kernels(torch) -> dict:
     from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
     inp = Inputs(torch, SEED)
-    errs = {k: 0.0 for k in ck.LAUNCHES}
+    # flash_prefill_streamed only runs at long shapes: the long phase holds it
+    errs = {k: 0.0 for k in ck.LAUNCHES if k != "flash_prefill_streamed"}
     cases = []
     bf16_tol = by_name("ragged_attention").atol
     check(bf16_tol == by_name("flash_prefill").atol, "attention tolerances differ")
@@ -737,13 +763,20 @@ def _free(torch, served: Served) -> None:
 # the counts are set to 0 just before a setting serves and read just after
 _PATHS = {
     "spec_ragged": ({"flash_prefill", "ragged_attention", "paged_write_decode",
-                     "paged_write_chunk"}, {"paged_decode", "prefix_chunk"}),
+                     "paged_write_chunk"},
+                    {"paged_decode", "prefix_chunk", "flash_prefill_streamed"}),
     "plain_ragged": ({"flash_prefill", "ragged_attention", "paged_write_decode",
-                      "paged_write_chunk"}, {"paged_decode", "prefix_chunk"}),
+                      "paged_write_chunk"},
+                     {"paged_decode", "prefix_chunk", "flash_prefill_streamed"}),
     "spec_per_phase": ({"flash_prefill", "prefix_chunk", "paged_write_decode",
-                        "paged_write_chunk"}, {"ragged_attention", "paged_decode"}),
+                        "paged_write_chunk"},
+                       {"ragged_attention", "paged_decode", "flash_prefill_streamed"}),
     "plain_per_phase": ({"flash_prefill", "paged_decode", "prefix_chunk",
-                         "paged_write_decode", "paged_write_chunk"}, {"ragged_attention"}),
+                         "paged_write_decode", "paged_write_chunk"},
+                        {"ragged_attention", "flash_prefill_streamed"}),
+    "long_spec_ragged": ({"flash_prefill_streamed", "flash_prefill", "ragged_attention",
+                          "paged_write_decode", "paged_write_chunk"},
+                         {"paged_decode", "prefix_chunk"}),
 }
 # the setting whose launches the kernels line reports for each kernel
 _CARRIER = {"flash_prefill": "spec_ragged", "ragged_attention": "spec_ragged",
@@ -764,7 +797,7 @@ def _path_launches(ck, name: str, srv: Served) -> dict:
     check((steps > 0) == srv.engine.config.spec_decode, f"serve {name}: {steps} verify steps")
     # a verify step is one attention launch per layer (ragged) or one per
     # slot per layer (per-phase)
-    if name == "spec_ragged":
+    if name in ("spec_ragged", "long_spec_ragged"):
         check(counts["ragged_attention"] >= layers * steps,
               f"serve {name}: {counts['ragged_attention']} ragged launches, {steps} verify steps")
     if name == "spec_per_phase":
@@ -1012,6 +1045,341 @@ def phase_spec(torch) -> dict:
             "tokens": len(ref), "streams_identical": True, "runs": runs}
 
 
+# llama3.1:8b long-context engine: 512 pages of 64 per slot (32768 tokens),
+# whole prompts up to the 32768 bucket (streamed), a 24001-token prompt
+LONG_ENGINE = dict(model="llama3.1:8b", page_size=64, max_pages_per_slot=512, num_pages=1280,
+                   prefill_buckets=(64, 256, 1024, 4096, 32768), prefill_chunk=32768)
+LONG_T, LONG_LEN, LONG_MAXP = 32768, 24001, 512
+# The long kernel cases scale q by 4 (logits ~ N(0, 16)): each row's
+# softmax is then held by a few keys, so outputs stay O(1) at any length,
+# and a kernel that drops or misplaces keys far back moves the rows whose
+# keys those were by O(1). Unit-normal q would average ~n keys into
+# outputs of std ~1/sqrt(n), under an absolute bf16 tolerance. Each case
+# is held to the row-relative error (`_rel_err`) at the kernel's tolerance.
+LONG_Q_SCALE = 4.0
+
+
+def _streamed_cases(inp: Inputs):
+    """(name, dtype, q/k/v shape args, seq_lens, window, softcap) cases of
+    flash_prefill_streamed, each at a T its routing sends it."""
+    bf16, f32 = inp.torch.bfloat16, inp.torch.float32
+    return [
+        ("llama3.1_t32768_len24001", bf16, (LONG_T, H, KVH, D), [LONG_LEN], 0, 0.0),
+        ("llama3.1_t32768_full", bf16, (LONG_T, H, KVH, D), [LONG_T], 0, 0.0),
+        ("float32_t16384", f32, (16384, H, KVH, D), [16000], 0, 0.0),
+        ("llama3.2_1b_d64_t20480", bf16, (20480, 32, 8, 64), [20000], 0, 0.0),
+        ("window_softcap_bf16", bf16, (20480, H, KVH, D), [20480], 4096, 30.0),
+        ("window_softcap_f32", f32, (8256, H, KVH, D), [8200], 1000, 30.0),
+        ("batch_of_two", bf16, (20480, H, KVH, D), [20480, 9000], 0, 0.0),
+    ]
+
+
+def _long_kernel_cases(torch, inp: Inputs) -> tuple[list, dict]:
+    """The streamed kernel against its blocked plain version, then the
+    ported kernels at long positions against theirs (bf16); attention
+    cases with q scaled by LONG_Q_SCALE, held to the row-relative error."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import (
+        attention_prefill_blocked_ref,
+        prefill_kernel,
+        ragged_paged_attention_ref,
+    )
+    from gridllm_torch.ops.kernels import F32_TOL, by_name
+    from gridllm_torch.ops.kvcache import write_prefill
+
+    cases, errs = [], {}
+    bf16_tol = by_name("flash_prefill_streamed").rtol
+
+    def q_of(*shape, dtype):
+        return inp.randn(*shape, dtype=dtype) * LONG_Q_SCALE   # exact in bf16
+
+    for name, dtype, (t, h, kvh, d), lens, window, cap in _streamed_cases(inp):
+        check(prefill_kernel(t, d, torch.tensor([], dtype=dtype).element_size())
+              == "flash_prefill_streamed", f"long: {name} does not route streamed")
+        b = len(lens)
+        q = q_of(b, t, h, d, dtype=dtype)
+        k, v = inp.randn(b, t, kvh, d, dtype=dtype), inp.randn(b, t, kvh, d, dtype=dtype)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = ck.flash_prefill_streamed(q, k, v, sl, softcap=cap, window=window)
+        want = attention_prefill_blocked_ref(q, k, v, sl, logit_softcap=cap, window=window)
+        torch.cuda.synchronize()
+        err = max(_max_err(got[i, :ln], want[i, :ln]) for i, ln in enumerate(lens))
+        rel = max(_rel_err(got[i, :ln], want[i, :ln]) for i, ln in enumerate(lens))
+        tol = bf16_tol if dtype == torch.bfloat16 else F32_TOL
+        cases.append({"kernel": "flash_prefill_streamed", "case": name, "T": t, "H": h,
+                      "KVH": kvh, "D": d, "seq_lens": lens, "window": window, "softcap": cap,
+                      "dtype": str(dtype).split(".")[-1], "max_rel_err": rel,
+                      "max_abs_err": err, "max_abs_want": float(want.abs().max())})
+        check(rel <= tol, f"flash_prefill_streamed {name}: relative err {rel} > {tol}")
+        if dtype == torch.bfloat16:
+            errs["flash_prefill_streamed"] = max(errs.get("flash_prefill_streamed", 0.0), err)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    # ragged_attention on a 512-entry table: decode (Td = 1) and verify
+    # (Td = 5) groups at 24k-32k cached tokens, then a 1024-row chunk after
+    # a 24000-token prefix
+    bf16 = torch.bfloat16
+    n_pages = S * LONG_MAXP
+    kp = inp.randn(1, n_pages, PS, KVH, D, dtype=bf16)
+    vp = inp.randn(1, n_pages, PS, KVH, D, dtype=bf16)
+    table = torch.randperm(n_pages, generator=inp.gen, device="cuda").to(torch.int32)
+    table = table.reshape(S, LONG_MAXP).contiguous()
+    lengths = [24000, 24001, 26000, 28000, 30000, 31000, 32000, LONG_T - 5]
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for td in (1, 5):
+        kw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=q_of(S, td, H, D, dtype=bf16),
+                  page_table=table, group_lengths=glens,
+                  k_group=inp.randn(S, td, KVH, D, dtype=bf16),
+                  v_group=inp.randn(S, td, KVH, D, dtype=bf16), layer=0)
+        _, og = ck.ragged_attention(**kw)
+        _, wg = ragged_paged_attention_ref(**kw)
+        torch.cuda.synchronize()
+        rel = _rel_err(og, wg)
+        cases.append({"kernel": "ragged_attention", "case": f"group_td{td}_24k_to_32k",
+                      "lengths": lengths, "max_rel_err": rel, "max_abs_err": _max_err(og, wg)})
+        check(rel <= bf16_tol, f"ragged_attention long group Td={td}: relative err {rel}")
+    c, start = 1024, 24000
+    kw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_chunk=q_of(1, c, H, D, dtype=bf16),
+              chunk_row=table[0], chunk_start=start, chunk_total=start + 1000,
+              k_chunk=inp.randn(c, KVH, D, dtype=bf16), v_chunk=inp.randn(c, KVH, D, dtype=bf16),
+              layer=0)
+    oc, _ = ck.ragged_attention(**kw)
+    wc, _ = ragged_paged_attention_ref(**kw)
+    torch.cuda.synchronize()
+    rel = _rel_err(oc[:, :1000], wc[:, :1000])
+    cases.append({"kernel": "ragged_attention", "case": "chunk_1024_after_24000",
+                  "max_rel_err": rel, "max_abs_err": _max_err(oc[:, :1000], wc[:, :1000])})
+    check(rel <= bf16_tol, f"ragged_attention chunk after 24000: relative err {rel}")
+    del kp, vp, kw, oc, wc
+    torch.cuda.empty_cache()
+
+    # paged_write_chunk: 32768 rows of 32 layers into a pool of 32 x 1100
+    # pages (2.3e9 elements per pool); the table puts the chunk's pages
+    # high in the pool, so the last layer's offsets pass 2^31
+    n_layers, n_pool = 32, 1100
+    kp = torch.zeros((n_layers, n_pool, PS, KVH, D), dtype=bf16, device="cuda")
+    vp = torch.zeros_like(kp)
+    check(kp.numel() > 2 ** 31, "long: the write pool is not past 2^31 elements")
+    row = (n_pool - 1 - torch.randperm(LONG_MAXP, generator=inp.gen, device="cuda")).to(torch.int32)
+    length = LONG_T - 40
+    kn = inp.randn(n_layers, LONG_T, KVH, D, dtype=bf16)
+    vn = inp.randn(n_layers, LONG_T, KVH, D, dtype=bf16)
+    ck.paged_write_chunk(kp, vp, kn, vn, row, 0, length, PS)
+    want_k, want_v = write_prefill(torch.zeros_like(kp), torch.zeros_like(vp), kn, vn, row, 0,
+                                   length, PS)
+    torch.cuda.synchronize()
+    # the kernel also writes the padded tail of the last page; the plain
+    # version leaves it: clear it before comparing every other row
+    last = length - 1
+    kp[:, int(row[last // PS]), last % PS + 1:] = 0
+    vp[:, int(row[last // PS]), last % PS + 1:] = 0
+    exact = bool(torch.equal(kp, want_k) and torch.equal(vp, want_v))
+    cases.append({"kernel": "paged_write_chunk", "case": "32768_rows_pool_past_2^31",
+                  "pool_elements": kp.numel(), "exact": exact})
+    check(exact, "paged_write_chunk: 32768 rows into the large pool differ")
+    del kp, vp, kn, vn, want_k, want_v
+    torch.cuda.empty_cache()
+    return cases, errs
+
+
+def _long_timing(torch, inp: Inputs) -> dict:
+    """flash_prefill_streamed beside flash_prefill, SDPA and its plain
+    version, bf16, on full buckets of 1024 to 32768 tokens (where the two
+    kernels cross over on this card; the routing is the JAX package's), and
+    at the serve path's shape (T = 32768, seq_len 24001)."""
+    import torch.nn.functional as F
+
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import attention_prefill_blocked_ref
+
+    bf16, out = torch.bfloat16, {}
+    buckets = [(t, t) for t in (1024, 4096, 8192, 16384, LONG_T)]
+    for t, ln in buckets + [(LONG_T, LONG_LEN)]:
+        q = inp.randn(1, t, H, D, dtype=bf16)
+        k, v = inp.randn(1, t, KVH, D, dtype=bf16), inp.randn(1, t, KVH, D, dtype=bf16)
+        sl = torch.tensor([ln], dtype=torch.int32, device="cuda")
+        b, op = bound_ms((2 * q.numel() + k.numel() + v.numel()) * 2,
+                         4 * H * D * ln * (ln + 1) / 2)
+        rec = {"shape": f"q[1,{t},{H},{D}] seq_len {ln} bf16",
+               "ms": time_ms(torch, lambda: ck.flash_prefill_streamed(q, k, v, sl), iters=10),
+               "plain_ms": time_ms(torch, lambda: attention_prefill_blocked_ref(q, k, v, sl),
+                                   iters=1, warmup=1),
+               "bound_ms": b, "bound_by": op}
+        if ln == t:   # SDPA has no valid length: timed on full buckets only
+            qt, kt, vt = (x[:, :ln].transpose(1, 2) for x in (q, k, v))
+            rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+            rec["flash_prefill_ms"] = time_ms(torch, lambda: ck.flash_prefill(q, k, v, sl),
+                                              iters=10 if t <= 8192 else 2, warmup=1)
+            del qt, kt, vt
+        out[f"T{t}_len{ln}"] = rec
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the kernels line: the serve path's shape, with SDPA on the valid rows
+    main = dict(out[f"T{LONG_T}_len{LONG_LEN}"])
+    q = inp.randn(1, LONG_LEN, H, D, dtype=bf16).transpose(1, 2)
+    k = inp.randn(1, LONG_LEN, KVH, D, dtype=bf16).transpose(1, 2)
+    v = inp.randn(1, LONG_LEN, KVH, D, dtype=bf16).transpose(1, 2)
+    main["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    out["main_path"] = main
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def _long_model(torch) -> dict:
+    """llama3.1:8b cut to 2 layers, full width, float32: a 10000-token
+    prompt prefilled whole in the 16384 bucket (streamed), then 8 ragged
+    decode steps, against the cache-free forward at the same positions,
+    whose attention is the blocked plain version (at 10008 tokens the
+    forward would route to the streamed kernel under test)."""
+    import dataclasses
+    from unittest import mock
+
+    from gridllm_torch.models import llama
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.models.llama import Llama
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import attention_prefill_blocked_ref
+    from gridllm_torch.ops.kernels import F32_TOL
+    from gridllm_torch.ops.kvcache import PagedKVCache
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    cfg = dataclasses.replace(get_config("llama3.1:8b"), num_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    model = Llama(cfg, dtype=torch.float32, device="cuda").init_params(gen)
+    n, steps, bucket = 10000, 8, 16384
+    toks = torch.randint(0, cfg.vocab_size, (n + steps,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    ck.reset_launch_counts()
+    with mock.patch.object(llama, "attention_prefill", attention_prefill_blocked_ref):
+        full = model(toks[None])[0]                 # [n + 8, V]: 5 GB of logits
+    want = full[n - 1:].clone()                     # positions n-1 .. n+7
+    del full
+    torch.cuda.empty_cache()
+    forward_streamed = ck.launch_counts()["flash_prefill_streamed"]
+    cache = PagedKVCache.create(cfg.num_layers, bucket // PS, PS, KVH, D, 1, bucket // PS,
+                                dtype=torch.float32, device="cuda")
+    row = torch.arange(bucket // PS, device="cuda", dtype=torch.int32)
+    padded = torch.cat([toks[:n], torch.zeros(bucket - n, dtype=torch.int32, device="cuda")])
+    ck.reset_launch_counts()
+    logits, _ = model.prefill(padded, n, cache, 0, row)
+    prefill_streamed = ck.launch_counts()["flash_prefill_streamed"]
+    errs = [float((logits - want[0]).abs().max())]
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    for i in range(steps):
+        logits, _ = model.decode_step(toks[n + i:n + i + 1], cache, active)
+        errs.append(float((logits[0] - want[i + 1]).abs().max()))
+    torch.cuda.synchronize()
+    check(forward_streamed == 0 and prefill_streamed == cfg.num_layers,
+          f"long model: streamed launches forward {forward_streamed}, prefill {prefill_streamed}")
+    check(max(errs) <= F32_TOL, f"long model: paged path differs from forward by {max(errs)}")
+    del model, cache, want
+    torch.cuda.empty_cache()
+    return {"config": "llama3.1:8b, 2 layers, float32", "prompt": n, "bucket": bucket,
+            "decode_steps": steps, "logit_rows_compared": len(errs), "max_abs_err": max(errs),
+            "streamed_launches_forward_prefill": [forward_streamed, prefill_streamed]}
+
+
+def _long_serve(torch) -> dict:
+    """llama3.1:8b bf16 serving a 24001-token prompt whole (32768 bucket,
+    flash_prefill_streamed) beside a short request, then its warm repeat
+    (the 24000 cached tokens, then one 32768-row mixed-step chunk). The
+    launch counters start at 0 before the first request."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = random.Random(SEED + 4)
+    long_prompt = _prompt(rng, LONG_LEN - 1)    # + BOS: 24001 tokens
+    short = _prompt(rng, 40)
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(**LONG_ENGINE), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = srv.engine
+    check(engine._chunk_len == LONG_T and LONG_T in engine._buckets, "long: engine config")
+    draft_s: list[float] = []
+    draft = engine._drafter.draft
+
+    def timed_draft(ids, k):
+        t = time.perf_counter()
+        out = draft(ids, k)
+        draft_s.append(time.perf_counter() - t)
+        return out
+
+    engine._drafter.draft = timed_draft
+    vocab, slots, k1 = srv.vocab, engine.config.max_slots, engine.config.spec_k + 1
+    engine.start()
+    ck.reset_launch_counts()
+    n_long, n_short = 32, 32
+    (cold, other), wall = srv.run([(long_prompt, n_long), (short, n_short)])
+    check(cold.prompt_eval_count == LONG_LEN and cold.cached_tokens == 0,
+          f"long: prompt of {cold.prompt_eval_count} tokens, {cold.cached_tokens} cached")
+    cold_launches = ck.launch_counts()
+    check(cold_launches["flash_prefill_streamed"] == engine.cfg.num_layers,
+          f"long: {cold_launches['flash_prefill_streamed']} streamed launches for one prefill")
+    steps_cold = engine.spec_stats["steps"]
+    (warm,), wall_warm = srv.run([(long_prompt, n_long)])
+    check(warm.cached_tokens == (LONG_LEN - 1) // PS * PS,
+          f"long: the warm repeat hit {warm.cached_tokens} cached tokens")
+    launches = _path_launches(ck, "long_spec_ragged", srv)
+    check(launches["flash_prefill_streamed"] == engine.cfg.num_layers,
+          "long: the warm repeat launched the streamed kernel")
+    matching = 0
+    for a, b in zip(cold.token_ids, warm.token_ids):
+        if a != b:
+            break
+        matching += 1
+    summary = srv.summary([cold, other], wall, {(vocab,), (slots, vocab), (slots, k1, vocab)})
+    steps = engine.spec_stats["steps"]
+    decode_s = cold.eval_duration_ns / 1e9
+    out = {
+        "model": "llama3.1:8b", "dtype": "bfloat16", "engine": LONG_ENGINE, "load_s": load_s,
+        "long_prompt_tokens": cold.prompt_eval_count,
+        "long_ttft_ms": cold.prompt_eval_duration_ns / 1e6,
+        "short_ttft_ms": other.prompt_eval_duration_ns / 1e6,
+        "long_decode_tokens_per_s": max(cold.eval_count - 1, 0) / decode_s if decode_s else None,
+        "long_tokens": cold.eval_count, "decode_context_tokens": LONG_LEN + cold.eval_count,
+        "verify_steps": steps, "verify_steps_cold": steps_cold,
+        "drafter_host_ms_per_verify_step": sum(draft_s) * 1e3 / max(steps, 1),
+        "drafter_calls": len(draft_s),
+        "warm_cached_tokens": warm.cached_tokens,
+        "warm_ttft_ms": warm.prompt_eval_duration_ns / 1e6, "warm_wall_s": wall_warm,
+        "warm_tokens_matching_cold": f"{matching}/{len(warm.token_ids)}",
+        "launches_cold": cold_launches, "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **{k: summary[k] for k in ("tokens", "wall_s", "tokens_per_s", "logit_shapes")},
+    }
+    _free(torch, srv)
+    return out
+
+
+def phase_long(torch) -> dict:
+    """Long-context serving on llama3.1:8b: kernel cases, timing, the
+    2-layer float32 cut, then the engine (see the module docstring)."""
+    inp = Inputs(torch, SEED + 5)
+    cases, errs = _long_kernel_cases(torch, inp)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "long_kernel_cases.json").write_text(json.dumps(cases, indent=1))
+    timing = _long_timing(torch, inp)
+    model = _long_model(torch)
+    serve = _long_serve(torch)
+    return {"phase": "long", "card": card_line(), "cases": len(cases),
+            "max_abs_err_bf16": errs, "timing": timing,
+            "kernels": {"flash_prefill_streamed": timing["main_path"]},
+            "model": model, "serve": serve,
+            "launches": {"flash_prefill_streamed": serve["launches"]["flash_prefill_streamed"]}}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1043,7 +1411,8 @@ def main() -> int:
             out = phase_build()
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
-                   "serve": phase_serve, "replay": phase_replay, "spec": phase_spec}[phase](torch)
+                   "serve": phase_serve, "replay": phase_replay, "spec": phase_spec,
+                   "long": phase_long}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -1051,9 +1420,9 @@ def main() -> int:
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: ran {phases} only; no result line", file=sys.stderr)
         return 0
-    timing = results["timing"]["kernels"]
-    errs = results["kernels"]["max_abs_err_bf16"]
-    launches = results["serve"]["launches"]
+    timing = {**results["timing"]["kernels"], **results["long"]["kernels"]}
+    errs = {**results["kernels"]["max_abs_err_bf16"], **results["long"]["max_abs_err_bf16"]}
+    launches = {**results["serve"]["launches"], **results["long"]["launches"]}
     emit({"kernels": [
         {"name": spec.name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "launches": launches[spec.name],

@@ -1,7 +1,8 @@
 """Model architecture configs and the name registry.
 
 A copy of the JAX package's ``models/configs.py`` data for the families
-this package serves (llama, qwen2/qwen3 and the tiny test configs):
+this package serves (llama, qwen2/qwen3, the llama-skeleton mistral
+entries and the tiny test configs):
 Ollama-style model names map to the public HF architecture dimensions.
 The port keeps its own copy so that it imports nothing of the JAX
 package.
@@ -103,6 +104,19 @@ register(ModelConfig(
     intermediate_size=12_288, num_layers=36, num_heads=32, num_kv_heads=8,
     head_dim=128, rope_theta=1_000_000.0, rms_eps=1e-6,
     max_seq_len=40_960, qk_norm=True,
+))
+
+# mistral (llama skeleton; v0.3 dropped the sliding window). Long-context
+# configs: mistral-nemo's explicit head_dim 128 differs from hidden/heads.
+register(ModelConfig(
+    name="mistral:7b", vocab_size=32_768, hidden_size=4096,
+    intermediate_size=14_336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=1_000_000.0, max_seq_len=32_768, rms_eps=1e-5,
+))
+register(ModelConfig(
+    name="mistral-nemo:12b", vocab_size=131_072, hidden_size=5120,
+    intermediate_size=14_336, num_layers=40, num_heads=32, num_kv_heads=8,
+    head_dim=128, rope_theta=1_000_000.0, max_seq_len=131_072, rms_eps=1e-5,
 ))
 
 # Tiny configs: architecture-faithful, test-sized.

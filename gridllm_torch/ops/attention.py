@@ -7,8 +7,12 @@ Public entry points (`attention_prefill`, `ragged_paged_attention`,
 tensors (ops/cuda_kernels.py) and the plain PyTorch versions here
 (`*_ref`) on CPU tensors. The plain versions
 are copies of the JAX package's references (ops/attention.py there) and
-are the numerical oracle the kernels are held to. Softmax is computed in
-float32 whatever the input dtype.
+are the numerical oracle the kernels are held to;
+`attention_prefill_blocked_ref` computes `attention_prefill_ref`'s
+function in bounded memory for long buckets. `attention_prefill` routes a
+bucket to `flash_prefill` or `flash_prefill_streamed` as the JAX package
+does (`prefill_kernel`). Softmax is computed in float32 whatever the
+input dtype.
 
 GQA convention: q has H heads, k/v have KVH heads, H % KVH == 0; query head
 h reads kv head h // (H // KVH).
@@ -25,6 +29,16 @@ from gridllm_torch.ops.kvcache import gather_kv
 # masking value of every softmax here and in the kernels: finite in
 # float32, so exp(x - m) underflows to exactly 0 for masked columns
 _NEG_INF = -1e30
+
+# the JAX package's budget for flash_prefill's resident per-head K+V
+# (`_FLASH_KV_VMEM_CAP` there); buckets past it run the streamed kernel
+_FLASH_KV_VMEM_CAP = 8 * 1024 * 1024
+
+
+def _lane_pad_dim(d: int) -> int:
+    """Head dim rounded up to the TPU's 128-lane tile (`lane_pad_dim` of
+    the JAX package), used only to route prefill as the JAX package does."""
+    return -(-d // 128) * 128
 
 
 def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
@@ -70,6 +84,45 @@ def attention_prefill_ref(
     out = _masked_softmax_av(logits, mask, v.float(), logit_softcap,
                              "bkgts,bskd->btkgd")
     return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def attention_prefill_blocked_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seq_lens: torch.Tensor,
+    logit_softcap: float = 0.0,
+    window: int = 0,
+    block: int = 1024,
+) -> torch.Tensor:
+    """`attention_prefill_ref`'s function, `block` query rows at a time
+    against the keys those rows can see (the causal bound, and with a
+    window the floor of the block's first row), so memory stays bounded at
+    long T: a [B, KVH, G, block, <= T] logits tensor instead of [.., T, T].
+    The plain version of the `flash_prefill_streamed` kernel. Valid rows
+    equal the reference's; a padding row with no visible key averages
+    another key range than the reference (such rows are unspecified)."""
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = 1.0 / (d ** 0.5)
+    valid_len = seq_lens.to(q.device)[:, None, None, None, None]
+    out = torch.empty_like(q)
+    for i0 in range(0, t, block):
+        i1 = min(i0 + block, t)
+        j0 = max(i0 - window + 1, 0) if window > 0 else 0
+        qf = q[:, i0:i1].float().reshape(b, i1 - i0, kvh, g, d)
+        logits = torch.einsum("btkgd,bskd->bkgts", qf, k[:, j0:i1].float()) * scale
+        q_pos = torch.arange(i0, i1, device=q.device)[:, None]
+        k_pos = torch.arange(j0, i1, device=q.device)[None, :]
+        mask = q_pos >= k_pos
+        if window > 0:
+            mask = mask & (q_pos - k_pos < window)
+        mask = mask[None, None, None] & (k_pos < valid_len)
+        blk = _masked_softmax_av(logits, mask, v[:, j0:i1].float(), logit_softcap,
+                                 "bkgts,bskd->btkgd")
+        out[:, i0:i1] = blk.reshape(b, i1 - i0, h, d).to(q.dtype)
+    return out
 
 
 def paged_attention_decode_ref(
@@ -237,6 +290,17 @@ def ragged_paged_attention_ref(
     return out_chunk, out_group
 
 
+def prefill_kernel(t: int, d: int, itemsize: int) -> str:
+    """The prefill kernel for a bucket of `t` tokens at head dim `d`: the
+    JAX package's routing (`_prefill_kernel` there), so both packages pick
+    the same kernel for the same shapes. Its resident kernel pins one kv
+    head's K and V, 2 * T * dp * itemsize bytes with dp the head dim padded
+    to the TPU's 128-lane tile; past the cap the streamed kernel runs (in
+    bf16 past T = 16384, in float32 past T = 8192, for D = 64 and 128)."""
+    kv_bytes = 2 * t * _lane_pad_dim(d) * itemsize
+    return "flash_prefill" if kv_bytes <= _FLASH_KV_VMEM_CAP else "flash_prefill_streamed"
+
+
 def attention_prefill(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -246,11 +310,12 @@ def attention_prefill(
     window: int = 0,
 ) -> torch.Tensor:
     """Causal GQA prefill attention (contract of attention_prefill_ref).
-    CUDA tensors run the `flash_prefill` kernel."""
-    from gridllm_torch.ops.cuda_kernels import flash_prefill
+    CUDA tensors run the `flash_prefill` kernel, or for a bucket past the
+    cap (`prefill_kernel`) the `flash_prefill_streamed` kernel."""
+    from gridllm_torch.ops import cuda_kernels
 
-    return flash_prefill(q, k, v, seq_lens, softcap=logit_softcap,
-                         window=window)
+    kernel = getattr(cuda_kernels, prefill_kernel(q.shape[1], q.shape[3], q.element_size()))
+    return kernel(q, k, v, seq_lens, softcap=logit_softcap, window=window)
 
 
 def ragged_paged_attention(

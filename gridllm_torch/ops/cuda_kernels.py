@@ -14,6 +14,7 @@ a run can prove that its main path went through the kernels.
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
 - flash_prefill       :129  → ops.attention.attention_prefill_ref
+- flash_prefill_streamed :268 → ops.attention.attention_prefill_blocked_ref
 - paged_decode        :479  → ops.attention.paged_attention_decode_ref
 - prefix_chunk        :739  → ops.attention._prefix_chunk_ref
 - ragged_attention    :1168 → ops.attention.ragged_paged_attention_ref
@@ -33,6 +34,7 @@ from gridllm_torch.ops import _build
 from gridllm_torch.ops.attention import (
     _layer_pool,
     _prefix_chunk_ref,
+    attention_prefill_blocked_ref,
     attention_prefill_ref,
     paged_attention_decode_ref,
     ragged_paged_attention_ref,
@@ -41,6 +43,7 @@ from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
+    "flash_prefill_streamed": 0,
     "paged_decode": 0,
     "prefix_chunk": 0,
     "ragged_attention": 0,
@@ -67,6 +70,9 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
     "gridllm_flash_prefill": (
         "flash_prefill.cu",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+    "gridllm_flash_prefill_streamed": (
+        "flash_prefill_streamed.cu",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "gridllm_paged_decode": (
         "paged_decode.cu",
         [_P, _P, _P, _P, _P, _P, _P, _P,          # q, pools, k/v_cur, out, table, lengths
@@ -91,6 +97,7 @@ _fns_lock = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_ROWS = 32  # query rows one block holds: kWarps (4) x RPW (<= 8)
+_STREAMED_ROWS = 128  # flash_prefill_streamed: 8 warps x 16 rows
 
 
 def _fn(name: str):
@@ -285,6 +292,44 @@ def flash_prefill(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
                 _ptr(seq_lens), _ptr(out), code, b, t, h, kvh, d, bq,
                 _rows_per_warp(bq * g), d ** -0.5, float(softcap), int(window),
                 _stream(q))
+    return out
+
+
+def flash_prefill_streamed(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
+    """`attention_prefill_blocked_ref` (the function of
+    `attention_prefill_ref`, in bounded memory): q [B, T, H, D], k/v
+    [B, T, KVH, D], seq_lens [B] → [B, T, H, D] in q's dtype. Rows at
+    positions >= seq_lens[b] are padding: the kernel writes zeros for the
+    query tiles wholly past the length. Shapes, dtypes and the head
+    grouping are checked on every device; the head dim, device, layout and
+    alignment only where the kernel launches."""
+    kernel = "flash_prefill_streamed"
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    g = _gqa(kernel, h, kvh)
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{kernel}: {name} has dtype {x.dtype}, expected {q.dtype}")
+        if tuple(x.shape) != (b, t, kvh, d):
+            raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {(b, t, kvh, d)}")
+    if tuple(seq_lens.shape) != (b,):
+        raise ValueError(f"{kernel}: seq_lens has shape {tuple(seq_lens.shape)}, expected ({b},)")
+    if not q.is_cuda:
+        return attention_prefill_blocked_ref(q, k, v, seq_lens, logit_softcap=softcap,
+                                             window=window)
+    dev = q.device
+    _kv_heads_and_dim(kernel, k)
+    code = _float_dtype(kernel, q)
+    _check(kernel, "q", q, dev)
+    _check(kernel, "k", k, dev, (b, t, kvh, d), q.dtype)
+    _check(kernel, "v", v, dev, (b, t, kvh, d), q.dtype)
+    seq_lens = seq_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b * t:
+        _launch("gridllm_flash_prefill_streamed", kernel, _ptr(q), _ptr(k), _ptr(v),
+                _ptr(seq_lens), _ptr(out), code, b, t, h, kvh, d, _STREAMED_ROWS // g,
+                d ** -0.5, float(softcap), int(window), _stream(q))
     return out
 
 

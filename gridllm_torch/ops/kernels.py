@@ -40,6 +40,15 @@ KERNELS: tuple[KernelSpec, ...] = (
         smoke_phase="kernels, timing, serve",
     ),
     KernelSpec(
+        name="flash_prefill_streamed",
+        source="gridllm_torch/csrc/flash_prefill_streamed.cu",
+        replaces="gridllm_tpu/ops/pallas_kernels.py:268 flash_prefill_streamed",
+        plain="attention:attention_prefill_blocked_ref",
+        rtol=3e-2, atol=3e-2,
+        test="tests/test_torch_long_context.py::test_blocked_ref_matches_jax_streamed_kernel",
+        smoke_phase="long",
+    ),
+    KernelSpec(
         name="paged_decode",
         source="gridllm_torch/csrc/paged_decode.cu",
         replaces="gridllm_tpu/ops/pallas_kernels.py:479 paged_decode",

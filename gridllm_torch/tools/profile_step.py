@@ -15,7 +15,11 @@ Serves llama3:8b (bf16, random weights from seed 0) and measures:
   attention mode;
 - decode with speculative decoding on (the engine's default), on a fresh
   engine serving the same 8 streams: the same steady and profiled
-  windows, per verify step, with the acceptance rate.
+  windows, per verify step, with the acceptance rate;
+- long-context admission on llama3.1:8b (512 pages of 64 per slot, the
+  32768 bucket): one whole 32768-token bucket prefill (flash_prefill_
+  streamed), and the same prompt admitted in 1024-token chunks (32 mixed
+  steps, the default prefill_chunk), each profiled as one window.
 Prints one JSON line per measurement (the profiler's overhead slows the
 profiled decode window; the steady window is measured without it).
 Usage: python3 -m gridllm_torch.tools.profile_step
@@ -38,6 +42,7 @@ FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
     ("ragged_attention", ("ragged_attention_kernel",)),
     ("paged_decode", ("paged_decode_kernel",)),
     ("prefix_chunk", ("prefix_chunk_kernel",)),
+    ("flash_prefill_streamed", ("flash_prefill_streamed_kernel",)),
     ("flash_prefill", ("flash_prefill_kernel",)),
     ("kv_writes", ("write_decode_kernel", "write_chunk_kernel")),
     ("matmul", ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -176,6 +181,42 @@ def profile_steps(engine: InferenceEngine) -> list[dict]:
     return out
 
 
+def profile_long() -> list[dict]:
+    """A 32768-token prompt admitted whole (the 32768 bucket) and in
+    1024-token chunks (mixed steps beside 8 idle decode rows, as the engine
+    admits a prompt longer than the default prefill_chunk)."""
+    engine = InferenceEngine(EngineConfig(
+        model="llama3.1:8b", page_size=64, max_pages_per_slot=512, num_pages=1280,
+        prefill_buckets=(64, 256, 1024, 4096, 32768), prefill_chunk=32768,
+        spec_decode=False), device="cuda")
+    model, cache, dev = engine.model, engine.cache, engine.device
+    t, c, s = 32768, 1024, cache.max_slots
+    tokens = torch.randint(0, 32_000, (t,), device=dev, dtype=torch.int32)
+    row = torch.arange(t // 64, device=dev, dtype=torch.int32)   # pages 0..511 for slot 0
+    idle = torch.zeros(s, dtype=torch.int32, device=dev)
+    inactive = torch.zeros(s, dtype=torch.bool, device=dev)
+
+    def chunks(n: int):
+        for start in range(0, n * c, c):
+            model.mixed_step(tokens[start:start + c], start, c, 0, row, idle, cache, inactive)
+
+    out = []
+    for name, fn, warm in (
+        ("prefill_bucket_32768_llama3.1", lambda: model.prefill(tokens, t, cache, 0, row),
+         lambda: model.prefill(tokens, t, cache, 0, row)),
+        ("prefill_32768_in_1024_chunks_llama3.1", lambda: chunks(t // c), lambda: chunks(1)),
+    ):
+        warm()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out.append({"measure": name, "model": "llama3.1:8b", **_device_breakdown(prof, 1, wall)})
+    return out
+
+
 def main() -> None:
     dev = {"device": torch.cuda.get_device_name(0), "model": "llama3:8b", "dtype": "bfloat16"}
 
@@ -191,6 +232,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     engine = InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda")
     emit(profile_decode(engine, engine.config.max_slots))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(profile_long())
 
 
 if __name__ == "__main__":
