@@ -44,7 +44,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
              accepted gives the same greedy stream with speculative
              decoding on and off, with ragged attention on and off.
-8. long    — long-context serving, llama3.1:8b: flash_prefill_streamed
+8. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
+             int8 leg against its plain version (the pool dequantized
+             through gather_kv) in bf16 and float32 compute, q scaled by 4
+             and held to the row-relative error, per-row scales spanning
+             two decades: decode groups S = 8 at 1024 cached, a Td = 5
+             group, a 1024-row chunk after 1024, a mixed launch, window
+             4096 with softcap 30, D = 64, groups at 24000-32763 cached on
+             a 512-entry table; timed in turns with the fp leg at its
+             shapes; a 2-layer float32 llama3:8b cut with an int8 pool
+             through the kernels against the same steps through the plain
+             versions; then llama3:8b bf16 with kv_int8=True serving the
+             serve phase's eight requests and a warm prefix-cache repeat:
+             every ragged launch through the int8 leg, flash_prefill, and
+             no write kernel (int8 writes are indexed assignments) nor
+             per-phase kernel; pool bytes per page 0.502x bf16's.
+9. long    — long-context serving, llama3.1:8b: flash_prefill_streamed
              against its blocked plain version (bf16 at T = 32768 with
              seq_len 24001 and 32768, float32 at T = 16384, D = 64,
              window and softcap), the ported kernels at long positions
@@ -60,9 +75,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              serving a 24001-token prompt whole in the 32768 bucket beside
              a short request (32 flash_prefill_streamed launches), and its
              warm repeat as one 32768-row mixed-step chunk.
-Then the kernels line, the card's name and power limit, and the result.
+Then the kernels line (the seven kernels and the int8 leg of
+ragged_attention), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,long]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,long]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -85,7 +101,8 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
-ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec", "long")
+ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec", "int8",
+              "long")
 
 
 def emit(obj: dict) -> None:
@@ -807,17 +824,28 @@ def _path_launches(ck, name: str, srv: Served) -> dict:
     return counts
 
 
+def _serve_prompts():
+    """(rng, short prompts, a prompt longer than one chunk, the eight
+    concurrent requests), from SEED."""
+    import random
+
+    rng = random.Random(SEED)
+    short = [_prompt(rng, n) for n in (40, 150, 300, 700, 90, 220, 500)]
+    long_prompt = _prompt(rng, 1500)   # > prefill_chunk: chunked admission
+    # eight at once: every slot of the engine (max_slots = 8) fills
+    batch_a = [(short[0], 32), (short[1], 48), (short[2], 64), (short[3], 40),
+               (short[4], 56), (short[5], 32), (short[6], 48), (long_prompt, 64)]
+    return rng, short, long_prompt, batch_a
+
+
 def phase_serve(torch) -> dict:
     """llama3:8b bf16 in four engine settings, one after the other: the
     default (spec decode on, ragged attention on), the same requests with
     spec decode off, then spec on and spec off with the per-phase kernels.
     Each setting's kernel launches are counted from 0 and held to its path."""
-    import random
-
     from gridllm_torch.engine import EngineConfig, InferenceEngine
     from gridllm_torch.ops import cuda_kernels as ck
 
-    rng = random.Random(SEED)
     t0 = time.perf_counter()
     srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda"))
     torch.cuda.synchronize()
@@ -825,11 +853,7 @@ def phase_serve(torch) -> dict:
     vocab, slots = srv.vocab, srv.engine.config.max_slots
     k1 = srv.engine.config.spec_k + 1
     srv.engine.start()
-    short = [_prompt(rng, n) for n in (40, 150, 300, 700, 90, 220, 500)]
-    long_prompt = _prompt(rng, 1500)   # > prefill_chunk: chunked admission
-    # eight at once: every slot of the engine (max_slots = 8) fills
-    batch_a = [(short[0], 32), (short[1], 48), (short[2], 64), (short[3], 40),
-               (short[4], 56), (short[5], 32), (short[6], 48), (long_prompt, 64)]
+    rng, short, long_prompt, batch_a = _serve_prompts()
     ck.reset_launch_counts()
     res_a, wall_a = srv.run(batch_a)
     # a repeat of the 300-byte prompt hits the prefix cache and replays
@@ -1043,6 +1067,332 @@ def phase_spec(torch) -> dict:
               f"spec: {name} accepted no draft")
     return {"phase": "spec", "model": "llama3:8b", "dtype": "float32",
             "tokens": len(ref), "streams_identical": True, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# int8: the resident int8 KV pool (kv_int8) and ragged_attention's int8 leg
+# ---------------------------------------------------------------------------
+
+
+def _quant_pools(torch, inp: Inputs, n_layers: int, n_pages: int, d: int = D):
+    """An int8 K and V pool ([L, P, PS, KVH, d] values and [L, P, PS]
+    scales) holding the quantization of seeded normal rows, each scaled by
+    10 ** U(-1, 1): the per-row scales span two decades, so a reader that
+    ignores the scale, or takes one per page or another layer's, misses."""
+    from gridllm_torch.ops.kvcache import QuantPages, quantize_kv_rows
+
+    pools = []
+    for _ in range(2):
+        pool = QuantPages.zeros((n_layers, n_pages, PS, KVH, d), "cuda")
+        for li in range(n_layers):
+            x = inp.randn(n_pages * PS, KVH, d, dtype=torch.float32)
+            x *= 10.0 ** (torch.rand((n_pages * PS, 1, 1), generator=inp.gen, device="cuda")
+                          * 2 - 1)
+            q, sc = quantize_kv_rows(x)
+            pool.data[li] = q.reshape(n_pages, PS, KVH, d)
+            pool.scale[li] = sc.reshape(n_pages, PS)
+            del x, q, sc
+        pools.append(pool)
+    return pools
+
+
+def _int8_cases(torch, inp: Inputs, dtype):
+    """(name, pools, kwargs, chunk_valid_rows) cases of the int8 leg, at
+    layer 1 of 2-layer pools, q scaled by LONG_Q_SCALE: decode groups
+    S = 8 at 1024 cached, a Td = 5 group over page straddles and an empty
+    slot, a 1024-row chunk after 1024, one mixed launch (chunk + decode
+    groups), window 4096 with softcap 30, D = 64, and groups at 24000-32763
+    cached tokens on a 512-entry table."""
+    pools = _quant_pools(torch, inp, 2, S * MAXP)
+
+    def q_of(*shape, d=D):
+        return inp.randn(*shape, d, dtype=dtype) * LONG_Q_SCALE
+
+    def group(lengths, td, table=None, d=D):
+        table = inp.page_table(lengths, extra=td) if table is None else table
+        return dict(q_group=q_of(S, td, H, d=d), page_table=table,
+                    group_lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+                    k_group=inp.randn(S, td, KVH, d, dtype=dtype),
+                    v_group=inp.randn(S, td, KVH, d, dtype=dtype))
+
+    def chunk(row, c, start, valid, d=D):
+        return dict(q_chunk=q_of(1, c, H, d=d), chunk_row=row, chunk_start=start,
+                    chunk_total=start + valid, k_chunk=inp.randn(c, KVH, d, dtype=dtype),
+                    v_chunk=inp.randn(c, KVH, d, dtype=dtype))
+
+    straddle = [0, 1, 63, 64, 65, 700, 1500, 4000]
+    deep = [4100, 5000, 6000, 7000, 7500, 8000, 8100, 8186]
+    rows = inp.page_table([MAXP * PS - 1] * S)
+    cases = [
+        ("decode_s8_1024", pools, group([1024] * S, 1), None),
+        ("group_td5", pools, group(straddle, 5), None),
+        ("chunk_1024_after_1024", pools, chunk(rows[2], 1024, 1024, 1000), 1000),
+        ("mixed_chunk_and_decode", pools,
+         {**chunk(rows[2], 1024, 1024, 1024), **group(straddle, 1)}, 1024),
+        ("window4096_softcap30", pools,
+         {**chunk(rows[3], 256, 5120, 256), **group(deep, 1, table=rows), "window": 4096,
+          "softcap": 30.0}, 256),
+    ]
+    d64 = _quant_pools(torch, inp, 2, S * MAXP, d=64)
+    cases.append(("d64_mixed", d64, {**chunk(rows[2], 256, 512, 256, d=64),
+                                     **group(straddle, 5, d=64)}, 256))
+    long_pools = _quant_pools(torch, inp, 2, S * LONG_MAXP)
+    table = torch.randperm(S * LONG_MAXP, generator=inp.gen, device="cuda").to(torch.int32)
+    table = table.reshape(S, LONG_MAXP).contiguous()
+    lengths = [24000, 24001, 26000, 28000, 30000, 31000, 32000, LONG_T - 5]
+    for td in (1, 5):
+        cases.append((f"groups_td{td}_24k_to_32k", long_pools, group(lengths, td, table=table),
+                      None))
+    return cases
+
+
+def _int8_kernel_cases(torch, inp: Inputs) -> tuple[list, float]:
+    """The int8 leg against its plain version in bf16 and float32 compute,
+    each case held to the row-relative error at the kernel's tolerance."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import ragged_paged_attention_ref
+    from gridllm_torch.ops.kernels import F32_TOL, by_name
+
+    cases, worst_abs = [], 0.0
+    for dtype, tol in ((torch.bfloat16, by_name("ragged_attention").rtol),
+                       (torch.float32, F32_TOL)):
+        dname = str(dtype).split(".")[-1]
+        for name, (kp, vp), kw, valid in _int8_cases(torch, inp, dtype):
+            kw = dict(kw)
+            cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
+            oc, og = ck.ragged_attention(kp.data, vp.data, PS, layer=1, softcap=cap,
+                                         window=window, k_scale=kp.scale, v_scale=vp.scale,
+                                         **kw)
+            wc, wg = ragged_paged_attention_ref(kp, vp, PS, layer=1, logit_softcap=cap,
+                                                window=window, **kw)
+            torch.cuda.synchronize()
+            rel = err = 0.0
+            if oc is not None:
+                rel = _rel_err(oc[:, :valid], wc[:, :valid])
+                err = _max_err(oc[:, :valid], wc[:, :valid])
+            if og is not None:
+                rel, err = max(rel, _rel_err(og, wg)), max(err, _max_err(og, wg))
+            cases.append({"kernel": "ragged_attention.int8", "dtype": dname, "case": name,
+                          "max_rel_err": rel, "max_abs_err": err})
+            check(rel <= tol, f"ragged_attention int8 {dname} {name}: relative err {rel} > {tol}")
+            if dtype == torch.bfloat16:
+                worst_abs = max(worst_abs, err)
+            del kw, oc, og, wc, wg
+        torch.cuda.empty_cache()
+    return cases, worst_abs
+
+
+def _int8_timing(torch, inp: Inputs) -> dict:
+    """The int8 leg at the fp leg's timing shapes (bf16 compute), each
+    timed in turns with the fp leg on a bf16 pool (fp, int8, int8, fp)."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import ragged_paged_attention_ref
+
+    bf16 = torch.bfloat16
+    (k8, v8), (kf, vf) = _quant_pools(torch, inp, 1, S * MAXP), inp.pools(1, bf16)
+    lengths = [1024] * S
+    table = inp.page_table(lengths, extra=5)
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    start, c = 1024, 1024
+    shapes = {
+        "decode": dict(q_group=inp.randn(S, 1, H, D, dtype=bf16), page_table=table,
+                       group_lengths=glens, k_group=inp.randn(S, 1, KVH, D, dtype=bf16),
+                       v_group=inp.randn(S, 1, KVH, D, dtype=bf16)),
+        "chunk": dict(q_chunk=inp.randn(1, c, H, D, dtype=bf16), chunk_row=table[0],
+                      chunk_start=start, chunk_total=start + c,
+                      k_chunk=inp.randn(c, KVH, D, dtype=bf16),
+                      v_chunk=inp.randn(c, KVH, D, dtype=bf16)),
+        "verify_td5": dict(q_group=inp.randn(1, 5, H, D, dtype=bf16), page_table=table[:1],
+                           group_lengths=glens[:1], k_group=inp.randn(1, 5, KVH, D, dtype=bf16),
+                           v_group=inp.randn(1, 5, KVH, D, dtype=bf16)),
+    }
+    # bytes: int8 K and V of the cached rows, 4 bytes of scale per row each,
+    # fresh K/V and q/out in bf16; operations: 2 products of 2 flops
+    row8, row16 = KVH * D * 2, KVH * D * 2 * 2
+    work = {
+        "decode": (sum(lengths) * (row8 + 8) + S * row16 + 2 * S * H * D * 2,
+                   4 * H * D * (sum(lengths) + S)),
+        "chunk": (start * (row8 + 8) + c * row16 + 2 * c * H * D * 2,
+                  4 * H * D * c * (start + (c + 1) / 2)),
+        "verify_td5": (start * (row8 + 8) + 5 * row16 + 2 * 5 * H * D * 2,
+                       4 * H * D * 5 * (start + 3)),
+    }
+    out = {}
+    for name, kw in shapes.items():
+        def int8():
+            ck.ragged_attention(k8.data, v8.data, PS, k_scale=k8.scale, v_scale=v8.scale,
+                                layer=0, **kw)
+
+        def fp():
+            ck.ragged_attention(kf, vf, PS, layer=0, **kw)
+
+        runs = {"fp": [time_ms(torch, fp)], "int8": []}
+        runs["int8"] += [time_ms(torch, int8), time_ms(torch, int8)]
+        runs["fp"].append(time_ms(torch, fp))
+        b, op = bound_ms(*work[name])
+        ms, fp_ms = statistics.mean(runs["int8"]), statistics.mean(runs["fp"])
+        out[name] = {"ms": ms, "fp_ms": fp_ms, "int8_over_fp": ms / fp_ms, "runs_ms": runs,
+                     "bound_ms": b, "bound_by": op, "library_ms": None,
+                     "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(
+                         k8, v8, PS, layer=0, **kw), iters=3)}
+    out["decode"]["shape"] = f"decode group S={S} Td=1 context=1024, int8 pool, bf16 q"
+    del k8, v8, kf, vf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_model(torch) -> dict:
+    """llama3:8b cut to 2 layers, full width, float32, with an int8 pool:
+    the same steps (bucket prefill, decode steps, mixed steps admitting a
+    second slot, verify steps of K+1 = 5) through the kernels and through
+    the plain versions on the card, the logits of each step compared."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    from gridllm_torch.models import llama
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import attention_prefill_ref, ragged_paged_attention_ref
+    from gridllm_torch.ops.kernels import F32_TOL
+    from gridllm_torch.ops.kvcache import PagedKVCache, rollback_to_length
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3:8b"), num_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    model = llama.Llama(cfg, dtype=torch.float32, device="cuda").init_params(gen)
+    toks = torch.randint(0, cfg.vocab_size, (320,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    rows = torch.arange(32, device="cuda", dtype=torch.int32).reshape(4, 8)
+
+    def steps(plain: bool) -> list:
+        cache = PagedKVCache.create(cfg.num_layers, 32, PS, KVH, D, 4, 8, device="cuda",
+                                    kv_int8=True)
+        ctx = (mock.patch.multiple(llama, ragged_paged_attention=ragged_paged_attention_ref,
+                                   attention_prefill=attention_prefill_ref)
+               if plain else contextlib.nullcontext())
+        out, cur = [], torch.zeros(4, dtype=torch.int32, device="cuda")
+        one = torch.tensor([True, False, False, False], device="cuda")
+        with ctx:
+            logits, _ = model.prefill(torch.cat([toks[:192], toks[:64] * 0]), 192, cache, 0,
+                                      rows[0])
+            out.append(logits)
+            for pos in range(192, 208):
+                cur[0] = toks[pos]
+                out.append(model.decode_step(cur, cache, one)[0][0])
+            for start, pos in ((0, 208), (64, 209)):
+                cur[0] = toks[pos]
+                chunk_logits, dec_logits, _ = model.mixed_step(
+                    toks[start:start + 64], start, 64, 1, rows[1], cur, cache, one)
+                out += [chunk_logits, dec_logits[0]]
+            both = torch.tensor([True, True, False, False], device="cuda")
+            for _ in range(2):
+                lens = cache.lengths.tolist()
+                cand = torch.zeros((4, 5), dtype=torch.int32, device="cuda")
+                for s in (0, 1):
+                    cand[s] = toks[lens[s]:lens[s] + 5]
+                logits, _ = model.verify_step(cand, cache, both)
+                out.append(logits[:2])
+                rollback_to_length(cache, cache.lengths + 5 * both.to(torch.int32))
+        torch.cuda.synchronize()
+        return out
+
+    ck.reset_launch_counts()
+    kernel_out = steps(plain=False)
+    kernel_counts = ck.launch_counts()
+    ck.reset_launch_counts()
+    plain_out = steps(plain=True)
+    plain_counts = ck.launch_counts()
+    err = max(float((a - b).abs().max()) for a, b in zip(kernel_out, plain_out))
+    check(kernel_counts["ragged_attention.int8"] > 0
+          and kernel_counts["ragged_attention.int8"] == kernel_counts["ragged_attention"],
+          f"int8 model: the kernel path's launches {kernel_counts}")
+    check(not any(plain_counts.values()), f"int8 model: the plain path launched {plain_counts}")
+    check(err <= F32_TOL, f"int8 model: kernel path differs from the plain versions by {err}")
+    del model
+    torch.cuda.empty_cache()
+    return {"config": "llama3:8b, 2 layers, float32, kv_int8", "logit_sets_compared":
+            len(kernel_out), "max_abs_err": err, "kernel_launches": kernel_counts}
+
+
+def _int8_serve(torch) -> dict:
+    """llama3:8b bf16 with kv_int8=True (spec decode and ragged attention
+    on, the defaults) serving the serve phase's eight concurrent requests,
+    then a warm prefix-cache repeat; counts from 0 before the first."""
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.kvcache import QuantPages
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b", kv_int8=True),
+                                        device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = srv.engine
+    check(isinstance(engine.cache.k, QuantPages), "int8 serve: the pool is not int8")
+    vocab, slots, k1 = srv.vocab, engine.config.max_slots, engine.config.spec_k + 1
+    _, short, _, batch_a = _serve_prompts()
+    engine.start()
+    ck.reset_launch_counts()
+    res_a, wall = srv.run(batch_a)
+    (warm,), wall_warm = srv.run([(short[2], 64)])
+    counts = ck.launch_counts()
+    check(warm.cached_tokens > 0, "int8 serve: the repeat missed the prefix cache")
+    layers, steps = engine.cfg.num_layers, engine.spec_stats["steps"]
+    check(counts["ragged_attention.int8"] > 0 and counts["flash_prefill"] > 0,
+          f"int8 serve: a kernel of its path never launched: {counts}")
+    check(counts["ragged_attention.int8"] == counts["ragged_attention"],
+          f"int8 serve: a ragged launch missed the int8 leg: {counts}")
+    check(counts["ragged_attention.int8"] >= layers * steps > 0,
+          f"int8 serve: {counts['ragged_attention.int8']} int8 launches, {steps} verify steps")
+    never = ("paged_write_decode", "paged_write_chunk", "paged_decode", "prefix_chunk",
+             "flash_prefill_streamed")
+    check(all(counts[k] == 0 for k in never),
+          f"int8 serve: a kernel of another path launched: {counts}")
+    matching = 0
+    for a, b in zip(res_a[2].token_ids, warm.token_ids):
+        if a != b:
+            break
+        matching += 1
+    alloc = engine.memory_arrays()["alloc"]
+    bf16_bpp = 2 * layers * PS * KVH * D * 2
+    ratio = alloc["bytesPerPage"] / bf16_bpp
+    check(alloc["kvInt8"] and abs(ratio - 65792 / 131072) < 1e-3,
+          f"int8 serve: {alloc['bytesPerPage']} bytes per page, {ratio} of bf16")
+    out = {
+        **srv.summary(res_a, wall, {(vocab,), (slots, vocab), (slots, k1, vocab)}),
+        "model": "llama3:8b", "dtype": "bfloat16", "kv_int8": True, "load_s": load_s,
+        "warm_cached_tokens": warm.cached_tokens, "warm_wall_s": wall_warm,
+        "warm_ttft_ms": warm.prompt_eval_duration_ns / 1e6,
+        "batched_warm_repeat_tokens_matching_cold": f"{matching}/{len(warm.token_ids)}",
+        "pool_bytes_per_page": alloc["bytesPerPage"], "bf16_pool_bytes_per_page": bf16_bpp,
+        "pool_bytes_over_bf16": ratio, "launches": counts,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    _free(torch, srv)
+    return out
+
+
+def phase_int8(torch) -> dict:
+    """The int8 KV pool: the int8 leg's kernel cases and timing, the
+    2-layer float32 cut through kernels and plain versions, then the
+    engine serving with kv_int8 (see the module docstring)."""
+    inp = Inputs(torch, SEED + 7)
+    cases, worst_abs = _int8_kernel_cases(torch, inp)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "int8_kernel_cases.json").write_text(json.dumps(cases, indent=1))
+    timing = _int8_timing(torch, inp)
+    model = _int8_model(torch)
+    serve = _int8_serve(torch)
+    return {"phase": "int8", "card": card_line(), "cases": len(cases),
+            "max_rel_err": max(c["max_rel_err"] for c in cases),
+            "max_abs_err_bf16": worst_abs, "timing": timing, "model": model, "serve": serve,
+            "launches": serve["launches"]["ragged_attention.int8"]}
 
 
 # llama3.1:8b long-context engine: 512 pages of 64 per slot (32768 tokens),
@@ -1399,7 +1749,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from gridllm_torch.ops.kernels import KERNELS
+    from gridllm_torch.ops.kernels import KERNELS, by_name
 
     t_run = time.perf_counter()
     results: dict[str, dict] = {}
@@ -1412,7 +1762,7 @@ def main() -> int:
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
                    "serve": phase_serve, "replay": phase_replay, "spec": phase_spec,
-                   "long": phase_long}[phase](torch)
+                   "int8": phase_int8, "long": phase_long}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -1423,14 +1773,21 @@ def main() -> int:
     timing = {**results["timing"]["kernels"], **results["long"]["kernels"]}
     errs = {**results["kernels"]["max_abs_err_bf16"], **results["long"]["max_abs_err_bf16"]}
     launches = {**results["serve"]["launches"], **results["long"]["launches"]}
+    int8 = results["int8"]
+    timing["ragged_attention.int8"] = int8["timing"]["decode"]
+    errs["ragged_attention.int8"] = int8["max_abs_err_bf16"]
+    launches["ragged_attention.int8"] = int8["launches"]
+    # the seven kernels, then the int8 leg of ragged_attention (its own
+    # launches, from the int8 serve)
+    rows = [(spec.name, spec) for spec in KERNELS]
+    rows.append(("ragged_attention.int8", by_name("ragged_attention")))
     emit({"kernels": [
-        {"name": spec.name, "route": "cuda", "source": spec.source,
-         "replaces": spec.replaces.split(" ")[0], "launches": launches[spec.name],
-         "max_abs_err": errs[spec.name], "ms": timing[spec.name]["ms"],
-         "plain_ms": timing[spec.name]["plain_ms"], "bound_ms": timing[spec.name]["bound_ms"],
-         "bound_by": timing[spec.name]["bound_by"],
-         "library_ms": timing[spec.name]["library_ms"]}
-        for spec in KERNELS
+        {"name": name, "route": "cuda", "source": spec.source,
+         "replaces": spec.replaces.split(" ")[0], "launches": launches[name],
+         "max_abs_err": errs[name], "ms": timing[name]["ms"],
+         "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
+         "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}
+        for name, spec in rows
     ], "total_seconds": time.perf_counter() - t_run})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

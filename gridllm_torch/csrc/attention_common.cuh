@@ -22,6 +22,10 @@
 // - All math runs on the CUDA cores in float32. Tensor cores (mma/wgmma)
 //   and TMA loads are left to a later version; see PERF.md for what this
 //   costs against the card's bound.
+// - A segment's rows come through a row READER (`KVRows` for rows of the
+//   compute dtype, `QuantPagedRows` for an int8 page pool, which multiplies
+//   each row by its float32 scale right after the load), so the int8 pool
+//   shares the block's tile walk and math with the fp pools.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +49,8 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -96,11 +102,53 @@ struct PagedRows {
   int ps;
   int num_pages;
   int64_t row_stride;  // KVH * D (elements)
-  __device__ __forceinline__ int64_t operator()(int r) const {
+  // The pool row [L * P * ps] of position r: also the index of its scale
+  // in an int8 pool's [L, P, ps] scales.
+  __device__ __forceinline__ int64_t row(int r) const {
     int p = r / ps;
     int page = p < n_table ? table[p] : 0;
     page = min(max(page, 0), num_pages - 1);
-    return (layer_base + static_cast<int64_t>(page) * ps + (r - p * ps)) * row_stride;
+    return layer_base + static_cast<int64_t>(page) * ps + (r - p * ps);
+  }
+  __device__ __forceinline__ int64_t operator()(int r) const { return row(r) * row_stride; }
+};
+
+// Row reader of K/V of element type E: row r's K/V start at k/v + off(r).
+// load() reads VEC values from column c of both as floats.
+template <typename E, class RowOff>
+struct KVRows {
+  static constexpr int VEC = 16 / sizeof(E);
+  const E* k;
+  const E* v;
+  RowOff off;
+  __device__ __forceinline__ void load(int r, int c, float* kv, float* vv) const {
+    const int64_t o = off(r) + c;
+    load_vec<E>(k + o, kv);
+    load_vec<E>(v + o, vv);
+  }
+};
+
+// Row reader of an int8 page pool: one 16-byte load is 16 values of a row,
+// multiplied by the row's float32 scale (k_scale/v_scale [L, P, ps],
+// indexed by the pool row, not by element or page).
+struct QuantPagedRows {
+  static constexpr int VEC = 16;
+  const int8_t* k;
+  const int8_t* v;
+  const float* k_scale;
+  const float* v_scale;
+  PagedRows rows;
+  __device__ __forceinline__ void load(int r, int c, float* kv, float* vv) const {
+    const int64_t row = rows.row(r);
+    const int64_t o = row * rows.row_stride + c;
+    load_vec<int8_t>(k + o, kv);
+    load_vec<int8_t>(v + o, vv);
+    const float ks = k_scale[row], vs = v_scale[row];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      kv[e] *= ks;
+      vv[e] *= vs;
+    }
   }
 };
 
@@ -172,22 +220,28 @@ struct AttnBlock {
   template <class RowOff>
   __device__ void segment(const T* kbase, const T* vbase, RowOff off, int r_lo,
                           int r_hi, int pos0, int klimit) {
+    segment(KVRows<T, RowOff>{kbase, vbase, off}, r_lo, r_hi, pos0, klimit);
+  }
+
+  // The same through a row reader (KVRows or QuantPagedRows).
+  template <class Rows>
+  __device__ void segment(const Rows& src, int r_lo, int r_hi, int pos0, int klimit) {
+    constexpr int SV = Rows::VEC;
+    static_assert(D % SV == 0, "head_dim must hold whole 16-byte loads");
     for (int t0 = r_lo; t0 < r_hi; t0 += kTileKeys) {
       const int nk = min(kTileKeys, r_hi - t0);
       __syncthreads();  // previous tile consumed; q rows visible
-      for (int idx = threadIdx.x; idx < kTileKeys * (D / VEC); idx += kThreads) {
-        int j = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
-        float kv[VEC], vv[VEC];
+      for (int idx = threadIdx.x; idx < kTileKeys * (D / SV); idx += kThreads) {
+        int j = idx / (D / SV), c = (idx % (D / SV)) * SV;
+        float kv[SV], vv[SV];
         if (j < nk) {
-          int64_t o = off(t0 + j) + c;
-          load_vec<T>(kbase + o, kv);
-          load_vec<T>(vbase + o, vv);
+          src.load(t0 + j, c, kv, vv);
         } else {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
+          for (int e = 0; e < SV; ++e) kv[e] = vv[e] = 0.f;
         }
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
+        for (int e = 0; e < SV; ++e) {
           ks[j * KS + c + e] = kv[e];
           vs[j * D + c + e] = vv[e];
         }

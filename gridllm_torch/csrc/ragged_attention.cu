@@ -2,9 +2,9 @@
 // one prefill CHUNK region plus S per-slot GROUPS — in a single launch.
 //
 // Replaces gridllm_tpu/ops/pallas_kernels.py:1168 `ragged_attention`
-// (body `_ragged_attn_kernel`, :821), without its int8 (k_scale/v_scale)
-// and tree-verify (tree_pos/tree_bits) legs, which the Python wrapper
-// refuses. The function:
+// (body `_ragged_attn_kernel`, :821) with its int8 dequant leg
+// (k_scale/v_scale), without its tree-verify leg (tree_pos/tree_bits),
+// which the Python wrapper refuses. The function:
 // - chunk region: the C queries of one slot at positions chunk_start + i
 //   attend the slot's cached prefix [0, chunk_start) through chunk_row,
 //   then the chunk's own fresh K/V causally, keys at positions
@@ -15,6 +15,11 @@
 //   K/V causally. Td = 1 is decode, Td = K+1 speculative verify (any
 //   Td <= 32).
 // Both regions take a sliding window and a tanh softcap.
+// int8 leg (k_scale/v_scale given): the pool holds int8 values and one
+// float32 scale per (layer, page, row); each pool row is multiplied by its
+// scale right after the load (QuantPagedRows), then the math is the fp
+// leg's. The fresh chunk/group K/V stay in the compute dtype, unscaled.
+// It reads half the pool bytes of a bf16 pool plus 4 bytes per row.
 //
 // What bounds it on the H100: decode groups read every cached K/V byte of
 // every slot once per layer for ~2 flops per byte, so they are bound by
@@ -38,6 +43,8 @@ namespace gridllm {
 struct RaggedArgs {
   const void* k_pool;
   const void* v_pool;
+  const float* k_scale;  // int8 pools: [L, P, ps] per-row scales; else null
+  const float* v_scale;
   int num_pages, ps, layer;
   // chunk region
   const void* q_chunk;
@@ -59,7 +66,21 @@ struct RaggedArgs {
   int window;
 };
 
-template <typename T, int D, int RPW>
+// The pool's row reader: rows of the compute dtype, or int8 rows scaled.
+template <typename T>
+__device__ __forceinline__ KVRows<T, PagedRows> pool_rows(const T* k, const T* v, const float*,
+                                                          const float*, PagedRows pages) {
+  return {k, v, pages};
+}
+__device__ __forceinline__ QuantPagedRows pool_rows(const int8_t* k, const int8_t* v,
+                                                    const float* ks, const float* vs,
+                                                    PagedRows pages) {
+  return {k, v, ks, vs, pages};
+}
+
+// T: the compute dtype (q, fresh K/V, output); P: the pool's element type,
+// T itself or int8_t.
+template <typename T, typename P, int D, int RPW>
 __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a) {
   extern __shared__ float smem[];
   const int tile = blockIdx.x, h = blockIdx.y;
@@ -67,8 +88,8 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a
   const int64_t row_stride = static_cast<int64_t>(a.KVH) * D;
   const int64_t tok_stride = static_cast<int64_t>(a.H) * D;
   const int64_t head_q = static_cast<int64_t>(h) * G * D;
-  const T* k_pool = static_cast<const T*>(a.k_pool) + static_cast<int64_t>(h) * D;
-  const T* v_pool = static_cast<const T*>(a.v_pool) + static_cast<int64_t>(h) * D;
+  const P* k_pool = static_cast<const P*>(a.k_pool) + static_cast<int64_t>(h) * D;
+  const P* v_pool = static_cast<const P*>(a.v_pool) + static_cast<int64_t>(h) * D;
   const int64_t layer_base = static_cast<int64_t>(a.layer) * a.num_pages * a.ps;
   constexpr int NR = AttnBlock<T, D, RPW>::NR;
   AttnBlock<T, D, RPW> blk(smem, a.softcap, a.window);
@@ -89,7 +110,8 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a
       const int c_lo = a.window > 0 ? max(qfirst - a.window + 1 - a.chunk_start, 0) : 0;
       blk.load_q(static_cast<const T*>(a.q_chunk) + qoff, tok_stride, G, row0, rows_total,
                  a.chunk_start + tok0, a.scale);
-      blk.segment(k_pool, v_pool, pages, min(p_lo, ctx), ctx, 0, ctx);
+      blk.segment(pool_rows(k_pool, v_pool, a.k_scale, a.v_scale, pages), min(p_lo, ctx), ctx,
+                  0, ctx);
       blk.segment(kc, vc, ContigRows{row_stride}, min(c_lo, k_hi), k_hi, a.chunk_start,
                   a.chunk_total);
       blk.store(static_cast<T*>(a.o_chunk) + qoff, tok_stride, G, row0, rows_total);
@@ -112,15 +134,16 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a
     const int p_lo = a.window > 0 ? max(qfirst - a.window + 1, 0) : 0;
     blk.load_q(static_cast<const T*>(a.q_group) + qoff, tok_stride, G, row0, rows_total,
                length, a.scale);
-    blk.segment(k_pool, v_pool, pages, min(p_lo, ctx), ctx, 0, ctx);
+    blk.segment(pool_rows(k_pool, v_pool, a.k_scale, a.v_scale, pages), min(p_lo, ctx), ctx, 0,
+                ctx);
     blk.segment(kg, vg, ContigRows{row_stride}, 0, a.Td, length, length + a.Td);
     blk.store(static_cast<T*>(a.o_group) + qoff, tok_stride, G, row0, rows_total);
   }
 }
 
-template <typename T, int D, int RPW>
+template <typename T, typename P, int D, int RPW>
 cudaError_t launch(const RaggedArgs& a, cudaStream_t stream) {
-  auto kernel = ragged_attention_kernel<T, D, RPW>;
+  auto kernel = ragged_attention_kernel<T, P, D, RPW>;
   const int smem = smem_floats<D, RPW>() * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -129,39 +152,50 @@ cudaError_t launch(const RaggedArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t by_rpw(int rpw, const RaggedArgs& a, cudaStream_t s) {
   switch (rpw) {
-    case 1: return launch<T, D, 1>(a, s);
-    case 2: return launch<T, D, 2>(a, s);
-    case 4: return launch<T, D, 4>(a, s);
-    case 8: return launch<T, D, 8>(a, s);
+    case 1: return launch<T, P, D, 1>(a, s);
+    case 2: return launch<T, P, D, 2>(a, s);
+    case 4: return launch<T, P, D, 4>(a, s);
+    case 8: return launch<T, P, D, 8>(a, s);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t by_dim(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
   switch (d) {
-    case 64: return by_rpw<T, 64>(rpw, a, s);
-    case 128: return by_rpw<T, 128>(rpw, a, s);
+    case 64: return by_rpw<T, P, 64>(rpw, a, s);
+    case 128: return by_rpw<T, P, 128>(rpw, a, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// the fp pool (P = T) or, with scales, the int8 pool
+template <typename T>
+cudaError_t by_pool(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
+  if (a.k_scale != nullptr) return by_dim<T, int8_t>(d, rpw, a, s);
+  return by_dim<T, T>(d, rpw, a, s);
 }
 
 }  // namespace gridllm
 
-// dtype: 0 = float32, 1 = bfloat16. A region is absent when its query
-// pointer is null (n_chunk_tiles = 0 or S = 0). Returns cudaGetLastError().
+// dtype: the compute dtype, 0 = float32, 1 = bfloat16. k_scale/v_scale:
+// null for a pool of the compute dtype, else the float32 [L, P, ps] scales
+// of an int8 pool. A region is absent when its query pointer is null
+// (n_chunk_tiles = 0 or S = 0). Returns cudaGetLastError().
 extern "C" int gridllm_ragged_attention(
-    const void* k_pool, const void* v_pool, int num_pages, int ps, int layer,
+    const void* k_pool, const void* v_pool, const void* k_scale, const void* v_scale,
+    int num_pages, int ps, int layer,
     const void* q_chunk, const void* k_chunk, const void* v_chunk, void* o_chunk,
     const void* chunk_row, int n_table_c, int C, int bq, int chunk_start, int chunk_total,
     int n_chunk_tiles, const void* q_group, const void* k_group, const void* v_group,
     void* o_group, const void* page_table, const void* group_lengths, int n_table_g,
     int S, int Td, int H, int KVH, int D, int rpw, int dtype, float scale, float softcap,
     int window, void* stream) {
-  gridllm::RaggedArgs a{k_pool, v_pool, num_pages, ps, layer,
+  gridllm::RaggedArgs a{k_pool, v_pool, static_cast<const float*>(k_scale),
+                        static_cast<const float*>(v_scale), num_pages, ps, layer,
                         q_chunk, k_chunk, v_chunk, o_chunk,
                         static_cast<const int*>(chunk_row), n_table_c, C, bq,
                         chunk_start, chunk_total, n_chunk_tiles,
@@ -171,7 +205,7 @@ extern "C" int gridllm_ragged_attention(
                         H, KVH, scale, softcap, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) err = gridllm::by_dim<float>(D, rpw, a, s);
-  else if (dtype == 1) err = gridllm::by_dim<__nv_bfloat16>(D, rpw, a, s);
+  if (dtype == 0) err = gridllm::by_pool<float>(D, rpw, a, s);
+  else if (dtype == 1) err = gridllm::by_pool<__nv_bfloat16>(D, rpw, a, s);
   return static_cast<int>(err);
 }

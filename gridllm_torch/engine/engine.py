@@ -32,6 +32,11 @@ serving path:
   rejected rows. Greedy streams are token-identical to spec-off. A verify
   step is fetched at once: the next step's drafts depend on its tokens, so
   there is no block pipeline to hide the fetch behind.
+- An int8 KV pool (`EngineConfig.kv_int8`, the JAX package's
+  GRIDLLM_KV_INT8; off by default as there): int8 values plus one float32
+  scale per (layer, page, row), about half the bytes of a bf16 pool. Writes
+  quantize each row; decode, verify and mixed steps read the pool through
+  the ragged kernel's int8 leg.
 
 Unlike the JAX engine, whose device state is immutable, the state tensors
 here are updated in place; every block's token output is a fresh tensor
@@ -53,7 +58,12 @@ import torch
 from gridllm_torch.engine.tokenizer import DetokState, Tokenizer, get_tokenizer
 from gridllm_torch.models.configs import get_config
 from gridllm_torch.models.llama import Llama
-from gridllm_torch.ops.kvcache import PagedKVCache, PageAllocator, rollback_to_length
+from gridllm_torch.ops.kvcache import (
+    PagedKVCache,
+    PageAllocator,
+    QuantPages,
+    rollback_to_length,
+)
 from gridllm_torch.ops.sampling import (
     SamplingParams,
     sample_tokens,
@@ -102,7 +112,9 @@ class EngineConfig:
     # dispatchers paged_decode / prefix_chunk (False)
     ragged_attention: bool = True
     kv_host_bytes: int | None = None     # not ported
-    kv_int8: bool | None = None          # not ported
+    # resident int8 KV pool (values + per-row float32 scales); None = off,
+    # the JAX package's env default
+    kv_int8: bool | None = None
 
     def check_ported(self) -> None:
         """Raise for a setting whose feature this package does not have."""
@@ -112,7 +124,6 @@ class EngineConfig:
             "mesh": self.mesh is not None,
             "draft_model": bool(self.draft_model),
             "kv_host_bytes": bool(self.kv_host_bytes),
-            "kv_int8": bool(self.kv_int8),
         }
         for name, on in unported.items():
             if on:
@@ -262,7 +273,8 @@ class InferenceEngine:
         c, mc, dev = self.config, self.cfg, self.device
         self.cache = PagedKVCache.create(
             mc.num_layers, c.num_pages, c.page_size, mc.num_kv_heads, mc.head_dim_,
-            c.max_slots, c.max_pages_per_slot, dtype=self.dtype, device=dev)
+            c.max_slots, c.max_pages_per_slot, dtype=self.dtype, device=dev,
+            kv_int8=bool(c.kv_int8))
         self.alloc = PageAllocator(c.num_pages, c.page_size, c.max_pages_per_slot,
                                    cache_pages=self._prefix_cache_cap)
         self.sampling = SamplingParams.defaults(c.max_slots, dev)
@@ -811,6 +823,48 @@ class InferenceEngine:
     @property
     def free_slot_count(self) -> int:
         return len(self._free_slots)
+
+    def memory_arrays(self) -> dict[str, Any]:
+        """Device buffers and page-pool accounting for a memory probe: the
+        weight and KV-pool tensors by identity, plus JSON-safe allocator
+        numbers (the JAX engine's `memory_arrays`). Reads mutable state
+        without locks, as batch_state() does."""
+        cache, c = self.cache, self.config
+        kv: list[torch.Tensor] = []
+        for pool in (cache.k, cache.v):
+            kv += [pool.data, pool.scale] if isinstance(pool, QuantPages) else [pool]
+        kv_bytes = cache.k.nbytes + cache.v.nbytes
+        bpp = kv_bytes / max(c.num_pages, 1)
+        alloc = self.alloc
+        used = c.num_pages - alloc.free_pages - alloc.cached_pages
+        live_tokens = sum(len(st.ids) for st in list(self._slots.values()))
+        capacity_tokens = used * c.page_size
+        return {
+            "weights": list(self.model.parameters()),
+            "kv": kv + [cache.page_table, cache.lengths],
+            "alloc": {
+                "numPages": c.num_pages,
+                "pageSize": c.page_size,
+                "pagesUsed": used,
+                "pagesCached": alloc.cached_pages,
+                "pagesFree": alloc.free_pages,
+                "bytesPerPage": int(bpp),
+                "usedBytes": int(used * bpp),
+                "cachedBytes": int(alloc.cached_pages * bpp),
+                "freeBytes": int(alloc.free_pages * bpp),
+                # the port's pools are never lane-padded
+                "lanePadOverheadBytes": 0,
+                "kvLayout": "ragged" if self.model.ragged_attention else "legacy",
+                "liveTokens": live_tokens,
+                # capacity reserved at admission not yet holding tokens; a
+                # shared prefix page counts once in pagesUsed but for every
+                # sharer in liveTokens, hence the clamp at 0
+                "fragmentation": (max(0.0, round(1 - live_tokens / capacity_tokens, 4))
+                                  if capacity_tokens else 0.0),
+                "kvInt8": isinstance(cache.k, QuantPages),
+                "hostTier": None,
+            },
+        }
 
     def batch_state(self) -> dict[str, Any]:
         """Point-in-time batch snapshot (read without locks: a torn read is

@@ -16,6 +16,11 @@ input dtype.
 
 GQA convention: q has H heads, k/v have KVH heads, H % KVH == 0; query head
 h reads kv head h // (H // KVH).
+
+Pools may be int8 (`QuantPages`): the plain versions read them through
+`gather_kv`, which dequantizes; `ragged_paged_attention` hands values and
+scales to the kernel's int8 leg; the per-phase dispatchers have no int8
+kernel (nor has the JAX package) and run the plain versions.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import math
 
 import torch
 
-from gridllm_torch.ops.kvcache import gather_kv
+from gridllm_torch.ops.kvcache import QuantPages, gather_kv
 
 # masking value of every softmax here and in the kernels: finite in
 # float32, so exp(x - m) underflows to exactly 0 for masked columns
@@ -242,8 +247,13 @@ def paged_attention_verify_ref(
     return torch.stack(outs)
 
 
-def _layer_pool(pages: torch.Tensor, layer: int | None) -> torch.Tensor:
-    return pages if pages.dim() == 4 else pages[0 if layer is None else layer]
+def _layer_pool(pages, layer: int | None):
+    """One layer's pool: a 4-dim pool as it is, else layer `layer` (0 when
+    None) of the full stack; for an int8 pool, its values and scales."""
+    if pages.dim() == 4:
+        return pages
+    li = 0 if layer is None else layer
+    return pages.layer(li) if isinstance(pages, QuantPages) else pages[li]
 
 
 def ragged_paged_attention_ref(
@@ -350,19 +360,24 @@ def ragged_paged_attention(
       k_group/v_group [S, Td, KVH, D] are merged causally.
 
     Pools are one layer [P, ps, KVH, D] or the full stack with `layer`
-    selecting. Returns (chunk_out, group_out), each shaped like its q (None
-    when the region is absent). CUDA tensors run the `ragged_attention`
-    kernel.
+    selecting, in the compute dtype or int8 (`QuantPages`, whose values
+    and per-row scales go to the kernel's int8 leg). Returns (chunk_out,
+    group_out), each shaped like its q (None when the region is absent).
+    CUDA tensors run the `ragged_attention` kernel.
     """
     from gridllm_torch.ops.cuda_kernels import ragged_attention
 
+    scales = {}
+    if isinstance(k_pages, QuantPages):
+        scales = dict(k_scale=k_pages.scale, v_scale=v_pages.scale)
+        k_pages, v_pages = k_pages.data, v_pages.data
     return ragged_attention(
         k_pages, v_pages, page_size,
         q_chunk=q_chunk, chunk_row=chunk_row, chunk_start=chunk_start,
         chunk_total=chunk_total, k_chunk=k_chunk, v_chunk=v_chunk,
         q_group=q_group, page_table=page_table, group_lengths=group_lengths,
         k_group=k_group, v_group=v_group, layer=layer,
-        softcap=logit_softcap, window=window,
+        softcap=logit_softcap, window=window, **scales,
     )
 
 
@@ -402,9 +417,15 @@ def paged_attention_decode(
     after the layer loop, so the pool lags one token). Pools are one
     layer [P, ps, KVH, D] or the full stack with `layer` selecting. A pool
     whose head dim is wider than q's is lane-padded at this boundary and
-    the output sliced back. CUDA tensors run the `paged_decode` kernel."""
+    the output sliced back. CUDA tensors run the `paged_decode` kernel; an
+    int8 pool runs the plain version (no kernel reads one)."""
     from gridllm_torch.ops.cuda_kernels import paged_decode
 
+    if isinstance(k_pages, QuantPages):
+        return paged_attention_decode_ref(
+            q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
+            lengths, page_size, k_cur=k_cur, v_cur=v_cur, logit_softcap=logit_softcap,
+            window=window)
     d, dpool = q.shape[-1], k_pages.shape[-1]
     if dpool != d:
         q, k_cur, v_cur = _lane_pad_qkv(q, k_cur, v_cur, dpool)
@@ -436,9 +457,16 @@ def attention_prefix_chunk(
     on the pool's device (`total_len` None = start + C), so a caller can
     pass device-side lengths without a host sync. Any C; lane-padded pools
     as in paged_attention_decode. CUDA tensors run the `prefix_chunk`
-    kernel."""
+    kernel; an int8 pool runs the plain version (no kernel reads one)."""
     from gridllm_torch.ops.cuda_kernels import prefix_chunk
 
+    if isinstance(k_pages, QuantPages):
+        st = int(start)
+        total = st + q.shape[1] if total_len is None else int(total_len)
+        return _prefix_chunk_ref(
+            q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), table_row, st,
+            total, page_size, k_cur=k_cur, v_cur=v_cur, logit_softcap=logit_softcap,
+            window=window)
     d, dpool = q.shape[-1], k_pages.shape[-1]
     if dpool != d:
         q, k_cur, v_cur = _lane_pad_qkv(q, k_cur, v_cur, dpool)
@@ -468,10 +496,14 @@ def paged_attention_verify(
     attending the slot's prefix plus the candidates before it. One
     attention_prefix_chunk per slot with start = lengths[s] and total =
     start + T, each reading its slot's length from the lengths tensor (on
-    the card, no host sync in the loop). Tree verify is not ported and
-    raises."""
+    the card, no host sync in the loop). An int8 pool runs the plain
+    version, all slots at once. Tree verify is not ported and raises."""
     if tree_pos is not None or tree_mask is not None:
         raise NotImplementedError("paged_attention_verify: tree verify is not ported")
+    if isinstance(k_pages, QuantPages):
+        return paged_attention_verify_ref(
+            q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
+            lengths, page_size, k_cur, v_cur, logit_softcap=logit_softcap, window=window)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     return torch.cat([
         attention_prefix_chunk(

@@ -9,7 +9,9 @@ and dispatches on where the tensors lie:
   alignment — or raise. There is no fallback from CUDA to the plain path.
 
 `LAUNCHES` counts successful launches per kernel (never the CPU path), so
-a run can prove that its main path went through the kernels.
+a run can prove that its main path went through the kernels; `LEG_LAUNCHES`
+counts, beside them, the launches of one leg of a kernel (the int8 pool
+leg of ragged_attention).
 
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
@@ -39,7 +41,7 @@ from gridllm_torch.ops.attention import (
     paged_attention_decode_ref,
     ragged_paged_attention_ref,
 )
-from gridllm_torch.ops.kvcache import write_decode, write_prefill
+from gridllm_torch.ops.kvcache import QuantPages, write_decode, write_prefill
 
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
@@ -50,15 +52,20 @@ LAUNCHES: dict[str, int] = {
     "paged_write_decode": 0,
     "paged_write_chunk": 0,
 }
+# launches of one leg of a kernel, also counted in LAUNCHES[kernel]
+LEG_LAUNCHES: dict[str, int] = {
+    "ragged_attention.int8": 0,
+}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LEG_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    return {**LAUNCHES, **LEG_LAUNCHES}
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -86,7 +93,7 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
          _F, _F, _I, _P]),                        # scale, softcap, window, stream
     "gridllm_ragged_attention": (
         "ragged_attention.cu",
-        [_P, _P, _I, _I, _I,                      # pools, P, ps, layer
+        [_P, _P, _P, _P, _I, _I, _I,              # pools, scales, P, ps, layer
          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,  # chunk region
          _P, _P, _P, _P, _P, _P, _I, _I, _I,      # group region
          _I, _I, _I, _I, _I, _F, _F, _I, _P]),    # H, KVH, D, rpw, dtype, ...
@@ -112,12 +119,14 @@ def _fn(name: str):
         return fn
 
 
-def _launch(name: str, kernel: str, *args) -> None:
+def _launch(name: str, kernel: str, *args, leg: str | None = None) -> None:
     err = _fn(name)(*args)
     if err != 0:
         msg = _fn("gridllm_error_string")(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
     LAUNCHES[kernel] += 1
+    if leg is not None:
+        LEG_LAUNCHES[f"{kernel}.{leg}"] += 1
 
 
 def _ptr(t: torch.Tensor | None):
@@ -432,16 +441,22 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
                      window: int = 0, k_scale=None, v_scale=None, tree_pos=None,
                      tree_bits=None):
     """`ragged_paged_attention_ref` in one launch (see
-    ops.attention.ragged_paged_attention for the region contract). The
-    int8 pool (k_scale/v_scale) and tree-verify (tree_pos/tree_bits) legs
-    of the TPU kernel are not ported and raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("ragged_attention: int8 KV pools are not ported")
+    ops.attention.ragged_paged_attention for the region contract). With
+    k_scale/v_scale the pools are int8 values and these their float32
+    per-row scales [L, P, ps] (or [P, ps] for one layer): the kernel's int8
+    leg dequantizes each pool row after its load, and the compute dtype is
+    q's. The tree-verify leg (tree_pos/tree_bits) of the TPU kernel is not
+    ported and raises."""
     if tree_pos is not None or tree_bits is not None:
         raise NotImplementedError("ragged_attention: tree verify is not ported")
     if q_chunk is None and q_group is None:
         raise ValueError("ragged_attention: needs a chunk or a group region")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("ragged_attention: k_scale and v_scale go together")
     if not k_pages.is_cuda:
+        if quant:
+            k_pages, v_pages = QuantPages(k_pages, k_scale), QuantPages(v_pages, v_scale)
         return ragged_paged_attention_ref(
             k_pages, v_pages, page_size, q_chunk=q_chunk, chunk_row=chunk_row,
             chunk_start=chunk_start, chunk_total=chunk_total, k_chunk=k_chunk,
@@ -449,11 +464,23 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
             group_lengths=group_lengths, k_group=k_group, v_group=v_group,
             layer=layer, logit_softcap=softcap, window=window)
     kernel, dev = "ragged_attention", k_pages.device
+    some_q = q_chunk if q_chunk is not None else q_group
+    cdtype = some_q.dtype   # the compute dtype: q's, whatever the pool holds
+    code = _float_dtype(kernel, some_q)
     k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
-    _, num_pages, ps, kvh, d = k_pages.shape
+    n_layers, num_pages, ps, kvh, d = k_pages.shape
     _kv_heads_and_dim(kernel, k_pages)
-    code = _float_dtype(kernel, k_pages)
-    g = _gqa(kernel, (q_chunk if q_chunk is not None else q_group).shape[-2], kvh)
+    if quant:
+        if k_pages.dtype != torch.int8:
+            raise TypeError(f"{kernel}: a pool with scales has dtype {k_pages.dtype}, "
+                            "expected torch.int8")
+        if k_scale.dim() == 2:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+        _check(kernel, "k_scale", k_scale, dev, (n_layers, num_pages, ps), torch.float32)
+        _check(kernel, "v_scale", v_scale, dev, (n_layers, num_pages, ps), torch.float32)
+    elif k_pages.dtype != cdtype:
+        raise TypeError(f"{kernel}: k_pages has dtype {k_pages.dtype}, expected {cdtype}")
+    g = _gqa(kernel, some_q.shape[-2], kvh)
     h = g * kvh
     bq = max(1, _MAX_ROWS // g)
     rows = 0
@@ -461,9 +488,9 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
     c = n_tiles = n_table_c = start = total = 0
     if q_chunk is not None:
         c = q_chunk.shape[1]
-        _check(kernel, "q_chunk", q_chunk, dev, (1, c, h, d), k_pages.dtype)
-        _check(kernel, "k_chunk", k_chunk, dev, (c, kvh, d), k_pages.dtype)
-        _check(kernel, "v_chunk", v_chunk, dev, (c, kvh, d), k_pages.dtype)
+        _check(kernel, "q_chunk", q_chunk, dev, (1, c, h, d), cdtype)
+        _check(kernel, "k_chunk", k_chunk, dev, (c, kvh, d), cdtype)
+        _check(kernel, "v_chunk", v_chunk, dev, (c, kvh, d), cdtype)
         chunk_row = chunk_row.to(device=dev, dtype=torch.int32).contiguous()
         n_table_c = chunk_row.shape[0]
         start, total = int(chunk_start), int(chunk_total)
@@ -475,9 +502,9 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
         s, td = q_group.shape[:2]
         if td > 32:
             raise ValueError(f"{kernel}: {td} group tokens per slot (at most 32)")
-        _check(kernel, "q_group", q_group, dev, (s, td, h, d), k_pages.dtype)
-        _check(kernel, "k_group", k_group, dev, (s, td, kvh, d), k_pages.dtype)
-        _check(kernel, "v_group", v_group, dev, (s, td, kvh, d), k_pages.dtype)
+        _check(kernel, "q_group", q_group, dev, (s, td, h, d), cdtype)
+        _check(kernel, "k_group", k_group, dev, (s, td, kvh, d), cdtype)
+        _check(kernel, "v_group", v_group, dev, (s, td, kvh, d), cdtype)
         page_table = page_table.to(device=dev, dtype=torch.int32).contiguous()
         group_lengths = group_lengths.to(device=dev, dtype=torch.int32).contiguous()
         if page_table.shape[0] != s or group_lengths.shape != (s,):
@@ -487,11 +514,11 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
         out_group = torch.empty_like(q_group)
     if n_tiles + s:
         _launch("gridllm_ragged_attention", kernel, _ptr(k_pages), _ptr(v_pages),
-                num_pages, ps, layer,
+                _ptr(k_scale), _ptr(v_scale), num_pages, ps, layer,
                 _ptr(q_chunk), _ptr(k_chunk), _ptr(v_chunk), _ptr(out_chunk),
                 _ptr(chunk_row), n_table_c, c, bq, start, total, n_tiles,
                 _ptr(q_group), _ptr(k_group), _ptr(v_group), _ptr(out_group),
                 _ptr(page_table), _ptr(group_lengths), n_table_g, s, td,
                 h, kvh, d, _rows_per_warp(rows), code, d ** -0.5, float(softcap),
-                int(window), _stream(k_pages))
+                int(window), _stream(k_pages), leg="int8" if quant else None)
     return out_chunk, out_group

@@ -11,6 +11,12 @@ no buffer donation; an in-place update is what donation bought there).
 Every hazard — an inactive slot, a position past capacity, an unmapped
 table entry — maps to the out-of-bounds sentinel page `num_pages`, and
 sentinel rows are dropped.
+
+An int8 pool (`QuantPages`, the engine's `kv_int8`) holds int8 values plus
+one float32 scale per (layer, page, row). The all-layer writes quantize
+each fresh row at the boundary and scatter values and scales with an
+indexed assignment (no write kernel, as in the JAX package); reads
+dequantize (`gather_kv`, and the ragged kernel's int8 leg).
 """
 
 from __future__ import annotations
@@ -24,9 +30,66 @@ import torch
 
 
 @dataclasses.dataclass
+class QuantPages:
+    """An int8 page pool with one float32 symmetric scale per (layer, page,
+    row): a token row [KVH, D] is the quantization granule, so decode and
+    verify writes quantize independently and never re-scale a page. It
+    stands where `PagedKVCache.k`/`.v` would hold a tensor; the model passes
+    it through, the write dispatchers quantize, the reads dequantize."""
+
+    data: torch.Tensor   # int8 [L, P, ps, KVH, D] (or one layer: 4-dim)
+    scale: torch.Tensor  # float32 [L, P, ps]     (or one layer: [P, ps])
+
+    @staticmethod
+    def zeros(shape: tuple[int, ...], device: torch.device | str) -> "QuantPages":
+        """An empty pool: values 0 and scales 1.0, so unwritten rows
+        dequantize to exact zeros."""
+        return QuantPages(torch.zeros(shape, dtype=torch.int8, device=device),
+                          torch.ones(shape[:-2], dtype=torch.float32, device=device))
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.data.shape
+
+    def dim(self) -> int:
+        return self.data.dim()
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.nbytes + self.scale.nbytes
+
+    def layer(self, li: int) -> "QuantPages":
+        """One layer's pool (views, no copy)."""
+        return QuantPages(self.data[li], self.scale[li])
+
+    def take(self, rows: torch.Tensor) -> torch.Tensor:
+        """Dequantized float32 pages gathered along the page axis of a
+        single-layer (4-dim) pool: data[rows] * scale[rows] broadcast over
+        each row's [KVH, D]."""
+        rows = rows.long()
+        return self.data[rows].float() * self.scale[rows][..., None, None]
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization of fresh K/V: x [..., KVH, D] →
+    (int8 values, float32 scales [...]). A row's scale is amax / 127 (an
+    all-zero row keeps 1.0); values are x / scale rounded half to even and
+    clamped to ±127, bit-identical to the JAX package's."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+@dataclasses.dataclass
 class PagedKVCache:
-    k: torch.Tensor           # [L, P, page_size, KVH, D]
-    v: torch.Tensor           # [L, P, page_size, KVH, D]
+    k: torch.Tensor | QuantPages  # [L, P, page_size, KVH, D]
+    v: torch.Tensor | QuantPages  # [L, P, page_size, KVH, D]
     page_table: torch.Tensor  # [S, max_pages] int32
     lengths: torch.Tensor     # [S] int32
     page_size: int = 128
@@ -42,11 +105,20 @@ class PagedKVCache:
         max_pages_per_slot: int,
         dtype: torch.dtype = torch.bfloat16,
         device: torch.device | str = "cuda",
+        kv_int8: bool = False,
     ) -> "PagedKVCache":
+        """An empty pool of `dtype`, or with `kv_int8` an int8 `QuantPages`
+        pool (the compute dtype then stays the model's)."""
         shape = (num_layers, num_pages, page_size, num_kv_heads, head_dim)
+
+        def pool():
+            if kv_int8:
+                return QuantPages.zeros(shape, device)
+            return torch.zeros(shape, dtype=dtype, device=device)
+
         return PagedKVCache(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
+            k=pool(),
+            v=pool(),
             page_table=torch.full((max_slots, max_pages_per_slot), -1,
                                   dtype=torch.int32, device=device),
             lengths=torch.zeros((max_slots,), dtype=torch.int32, device=device),
@@ -98,6 +170,73 @@ def _scatter_rows(pages: torch.Tensor, new: torch.Tensor,
         pages[idx, off] = new[keep].to(pages.dtype)
 
 
+def _scatter_quant(pages: QuantPages, new: torch.Tensor, page_idx: torch.Tensor,
+                   offset: torch.Tensor) -> None:
+    """Quantize rows new [L, N, KVH, D] and write values and scales into
+    the full int8 pool at (page_idx[i], offset[i]) in place, dropping rows
+    whose page is the sentinel. No host sync (a masked select would need
+    one): a dropped row repeats the first kept row's write, an identical
+    duplicate, or, when no row is kept, rewrites pool row 0 with what it
+    holds."""
+    n_layers, num_pages, ps = pages.scale.shape
+    data = pages.data.view(n_layers, num_pages * ps, *pages.data.shape[3:])
+    scale = pages.scale.view(n_layers, num_pages * ps)
+    q, sc = quantize_kv_rows(new)
+    keep = page_idx < num_pages
+    if not keep.numel():
+        return
+    any_keep = keep.any()
+    rows = torch.arange(keep.shape[0], device=keep.device)
+    src = torch.where(keep, rows, torch.argmax(keep.to(torch.uint8)))
+    dst = torch.where(any_keep, page_idx.long()[src] * ps + offset.long()[src], 0)
+    q = torch.where(any_keep, q[:, src], data[:, :1])
+    sc = torch.where(any_keep, sc[:, src], scale[:, :1])
+    data[:, dst] = q
+    scale[:, dst] = sc
+
+
+def _refuse_quant(pages, what: str) -> None:
+    if isinstance(pages, QuantPages):
+        raise TypeError(f"{what}: int8 KV pools are written through the all-layer "
+                        "writes only")
+
+
+def _prefill_dest(table_row: torch.Tensor, start: int, length: int, n_rows: int,
+                  page_size: int, num_pages: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page index, offset) of one slot's rows at start + [0, n_rows); rows
+    at index >= length go to the sentinel."""
+    t = torch.arange(n_rows, dtype=torch.int32, device=device)
+    pos = start + t
+    table_row = table_row.to(device)
+    page_idx = _safe_page_idx(lambda p: table_row[p.long()], pos, t < length, page_size,
+                              table_row.shape[0], num_pages)
+    return page_idx, pos % page_size
+
+
+def _decode_dest(page_table: torch.Tensor, positions: torch.Tensor, active: torch.Tensor,
+                 page_size: int, num_pages: int,
+                 rows_per_slot: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page index, offset) of rows_per_slot rows per slot at `positions`
+    [S * rows_per_slot]; an inactive slot's rows go to the sentinel."""
+    slot_of = torch.arange(page_table.shape[0], device=page_table.device)
+    if rows_per_slot > 1:
+        slot_of = slot_of.repeat_interleave(rows_per_slot)
+        active = active.repeat_interleave(rows_per_slot)
+    page_idx = _safe_page_idx(lambda p: page_table[slot_of, p.long()], positions, active,
+                              page_size, page_table.shape[1], num_pages)
+    return page_idx, positions % page_size
+
+
+def _write_rows(k_pages, v_pages, k_new: torch.Tensor, v_new: torch.Tensor,
+                dest: tuple[torch.Tensor, torch.Tensor]):
+    """Scatter K and V rows to `dest` (page index, offset) in place: an int8
+    pool quantizes them. Returns the pools."""
+    scatter = _scatter_quant if isinstance(k_pages, QuantPages) else _scatter_rows
+    scatter(k_pages, k_new, *dest)
+    scatter(v_pages, v_new, *dest)
+    return k_pages, v_pages
+
+
 def write_prefill(
     k_pages: torch.Tensor,
     v_pages: torch.Tensor,
@@ -115,18 +254,11 @@ def write_prefill(
     table_row: [max_pages] page ids for this slot. start: absolute position
     of row 0; rows at index >= length are dropped (bucket padding). This is
     the plain version of the `paged_write_chunk` kernel. Returns the pools.
+    An int8 pool raises TypeError, as in the JAX package.
     """
-    t = torch.arange(k_new.shape[-3], dtype=torch.int32, device=k_new.device)
-    pos = start + t
-    table_row = table_row.to(k_new.device)
-    page_idx = _safe_page_idx(
-        lambda p: table_row[p.long()], pos, t < length, page_size,
-        table_row.shape[0], k_pages.shape[-4],
-    )
-    offset = pos % page_size
-    _scatter_rows(k_pages, k_new, page_idx, offset)
-    _scatter_rows(v_pages, v_new, page_idx, offset)
-    return k_pages, v_pages
+    _refuse_quant(k_pages, "write_prefill")
+    return _write_rows(k_pages, v_pages, k_new, v_new, _prefill_dest(
+        table_row, start, length, k_new.shape[-3], page_size, k_pages.shape[-4], k_new.device))
 
 
 def write_decode(
@@ -145,16 +277,11 @@ def write_decode(
     full pool [L, P, ps, KVH, D] with [L, S, KVH, D]. positions: [S]
     absolute write position per slot; active: [S] bool — inactive slots
     are dropped. The plain version of the `paged_write_decode` kernel.
-    Returns the pools."""
-    s = torch.arange(page_table.shape[0], device=page_table.device)
-    page_idx = _safe_page_idx(
-        lambda p: page_table[s, p.long()], positions, active, page_size,
-        page_table.shape[1], k_pages.shape[-4],
-    )
-    offset = positions % page_size
-    _scatter_rows(k_pages, k_new, page_idx, offset)
-    _scatter_rows(v_pages, v_new, page_idx, offset)
-    return k_pages, v_pages
+    Returns the pools. An int8 pool raises TypeError, as in the JAX
+    package."""
+    _refuse_quant(k_pages, "write_decode")
+    return _write_rows(k_pages, v_pages, k_new, v_new, _decode_dest(
+        page_table, positions, active, page_size, k_pages.shape[-4]))
 
 
 def write_decode_all(
@@ -169,9 +296,13 @@ def write_decode_all(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write one token per slot across ALL layers at once (once per decode
     step): k_pages/v_pages [L, P, ps, KVH, D], k_new/v_new [L, S, KVH, D].
-    Runs the `paged_write_decode` kernel on CUDA tensors."""
+    Runs the `paged_write_decode` kernel on CUDA tensors; an int8 pool
+    quantizes the rows and scatters values and scales instead."""
     from gridllm_torch.ops.cuda_kernels import paged_write_decode
 
+    if isinstance(k_pages, QuantPages):
+        return _write_rows(k_pages, v_pages, k_new, v_new, _decode_dest(
+            page_table, positions, active, page_size, k_pages.shape[1]))
     return paged_write_decode(k_pages, v_pages, k_new, v_new, page_table,
                               positions, active, page_size)
 
@@ -192,12 +323,17 @@ def write_multi_all(
     slots drop entirely; past-capacity positions and unmapped pages drop
     as in write_decode_all). The write is optimistic: rejected rows are
     dropped afterwards by rollback_to_length. The (slot, candidate) pairs
-    flatten to S*T rows of the `paged_write_decode` kernel, T per slot."""
+    flatten to S*T rows of the `paged_write_decode` kernel, T per slot; an
+    int8 pool quantizes the flattened rows and scatters values and scales."""
     from gridllm_torch.ops.cuda_kernels import paged_write_decode
 
     n_layers, s, t = k_new.shape[:3]
     k_flat = k_new.reshape(n_layers, s * t, *k_new.shape[3:])
     v_flat = v_new.reshape(n_layers, s * t, *v_new.shape[3:])
+    if isinstance(k_pages, QuantPages):
+        return _write_rows(k_pages, v_pages, k_flat, v_flat, _decode_dest(
+            page_table, positions.reshape(-1), active, page_size, k_pages.shape[1],
+            rows_per_slot=t))
     return paged_write_decode(k_pages, v_pages, k_flat, v_flat, page_table,
                               positions.reshape(-1), active, page_size, rows_per_slot=t)
 
@@ -227,9 +363,14 @@ def write_prefill_all(
     T % page_size == 0 and a page-aligned `start`. Runs the
     `paged_write_chunk` kernel on CUDA tensors, which also writes the
     padded tail of the last page (never read: attention masks by length).
+    An int8 pool quantizes rows [0, length) and scatters values and scales.
     """
     from gridllm_torch.ops.cuda_kernels import paged_write_chunk
 
+    if isinstance(k_pages, QuantPages):
+        return _write_rows(k_pages, v_pages, k_new, v_new, _prefill_dest(
+            table_row, start, length, k_new.shape[1], page_size, k_pages.shape[1],
+            k_new.device))
     return paged_write_chunk(k_pages, v_pages, k_new, v_new, table_row,
                              start, length, page_size)
 
@@ -242,10 +383,13 @@ def gather_kv(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Materialize one slot's K/V [max_pages*page_size, KVH, D] from one
     layer's pool [P, ps, KVH, D] (plain version; the kernels read pages in
-    place instead). Unmapped entries read page 0 — callers mask them."""
+    place instead). Unmapped entries read page 0 — callers mask them. An
+    int8 pool dequantizes here: float32 out."""
     rows = table_row.clamp(min=0).long()
     kvh, d = k_pages.shape[-2], k_pages.shape[-1]
     n = table_row.shape[0] * page_size
+    if isinstance(k_pages, QuantPages):
+        return k_pages.take(rows).reshape(n, kvh, d), v_pages.take(rows).reshape(n, kvh, d)
     return k_pages[rows].reshape(n, kvh, d), v_pages[rows].reshape(n, kvh, d)
 
 

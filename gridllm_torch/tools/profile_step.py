@@ -9,13 +9,18 @@ Serves llama3:8b (bf16, random weights from seed 0) and measures:
   share (1 - busy / wall);
 - single model calls, each profiled the same way: one 1024-token bucket
   prefill, one 1024-token mixed step (chunk after 1024 cached tokens, 8
-  decode rows), a decode step through paged_decode (a second model over
-  the same weights, built with ragged attention off), and a verify step
+  decode rows), a decode step of 8 slots at 1024 cached tokens through
+  ragged_attention and through paged_decode (a second model over the
+  same weights, built with ragged attention off), and a verify step
   of K+1 = 5 candidates for 8 slots at 1024 cached tokens in each
   attention mode;
 - decode with speculative decoding on (the engine's default), on a fresh
   engine serving the same 8 streams: the same steady and profiled
   windows, per verify step, with the acceptance rate;
+- the int8 KV pool (`kv_int8=True`, spec decode off): one decode step of
+  8 slots at 1024 cached tokens and one mixed step as above, each one
+  profiled call (the int8 leg of ragged_attention; the int8 writes are
+  indexed assignments, counted under "other");
 - long-context admission on llama3.1:8b (512 pages of 64 per slot, the
   32768 bucket): one whole 32768-token bucket prefill (flash_prefill_
   streamed), and the same prompt admitted in 1024-token chunks (32 mixed
@@ -136,40 +141,45 @@ def profile_decode(engine: InferenceEngine, n_slots: int) -> list[dict]:
     return [steady, traced]
 
 
-def profile_steps(engine: InferenceEngine) -> list[dict]:
-    model, cache, c = engine.model, engine.cache, 1024
-    dev, s = engine.device, cache.max_slots
-    per_phase = Llama(engine.cfg, dtype=engine.dtype, device=dev, ragged_attention=False)
-    per_phase.load_state_dict(model.state_dict())
-    k1 = engine.config.spec_k + 1
-    tokens = torch.randint(0, 32_000, (c,), device=dev, dtype=torch.int32)
-    row = torch.arange(128, device=dev, dtype=torch.int32)   # pages 0..127 for slot 0
-    active = torch.zeros(s, dtype=torch.bool, device=dev)
-    active[1:] = True
-    cache.page_table.copy_(torch.arange(128 * s, device=dev, dtype=torch.int32).reshape(s, 128))
-    cache.lengths[1:] = 1024
-    step_tokens = torch.zeros(s, dtype=torch.int32, device=dev)
-    cand = torch.randint(0, 32_000, (s, k1), device=dev, dtype=torch.int32)
-    all_active = torch.ones(s, dtype=torch.bool, device=dev)
+class _Steps:
+    """Single model calls of an engine at the main path's shapes: slot 0
+    admits a 1024-token chunk (pages 0..127), slots 1.. hold 1024 cached
+    tokens each."""
 
-    def at_1024(fn):  # every slot at 1024 cached tokens, lengths restored after
+    def __init__(self, engine: InferenceEngine):
+        self.model, self.cache, self.c = engine.model, engine.cache, 1024
+        dev, s = engine.device, self.cache.max_slots
+        self.tokens = torch.randint(0, 32_000, (self.c,), device=dev, dtype=torch.int32)
+        self.row = torch.arange(128, device=dev, dtype=torch.int32)
+        self.active = torch.zeros(s, dtype=torch.bool, device=dev)
+        self.active[1:] = True
+        self.cache.page_table.copy_(
+            torch.arange(128 * s, device=dev, dtype=torch.int32).reshape(s, 128))
+        self.cache.lengths[1:] = 1024
+        self.step_tokens = torch.zeros(s, dtype=torch.int32, device=dev)
+        self.cand = torch.randint(0, 32_000, (s, engine.config.spec_k + 1), device=dev,
+                                  dtype=torch.int32)
+        self.all_active = torch.ones(s, dtype=torch.bool, device=dev)
+
+    def at_1024(self, fn):
+        """fn with every slot at 1024 cached tokens (lengths reset first)."""
         def run():
-            cache.lengths.fill_(1024)
+            self.cache.lengths.fill_(1024)
             fn()
         return run
 
+    def prefill(self):
+        self.model.prefill(self.tokens, self.c, self.cache, 0, self.row)
+
+    def mixed(self):
+        self.model.mixed_step(self.tokens, 1024, self.c, 0, self.row, self.step_tokens,
+                              self.cache, self.active)
+
+
+def _profile_calls(calls) -> list[dict]:
+    """Each (name, fn): one warm-up call, then one profiled call."""
     out = []
-    for name, fn in (
-        ("prefill_bucket_1024", lambda: model.prefill(tokens, c, cache, 0, row)),
-        ("mixed_step_1024_after_1024",
-         lambda: model.mixed_step(tokens, 1024, c, 0, row, step_tokens, cache, active)),
-        ("decode_step_per_phase_8x1024", at_1024(lambda: per_phase.decode_step(
-            step_tokens, cache, all_active))),
-        ("verify_step_ragged_8x5_after_1024", at_1024(lambda: model.verify_step(
-            cand, cache, all_active))),
-        ("verify_step_per_phase_8x5_after_1024", at_1024(lambda: per_phase.verify_step(
-            cand, cache, all_active))),
-    ):
+    for name, fn in calls:
         fn()                      # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -179,6 +189,37 @@ def profile_steps(engine: InferenceEngine) -> list[dict]:
             wall = time.perf_counter() - t0
         out.append({"measure": name, **_device_breakdown(prof, 1, wall)})
     return out
+
+
+def profile_steps(engine: InferenceEngine) -> list[dict]:
+    st = _Steps(engine)
+    model, cache = st.model, st.cache
+    per_phase = Llama(engine.cfg, dtype=engine.dtype, device=engine.device,
+                      ragged_attention=False)
+    per_phase.load_state_dict(model.state_dict())
+    return _profile_calls((
+        ("prefill_bucket_1024", st.prefill),
+        ("mixed_step_1024_after_1024", st.mixed),
+        ("decode_step_ragged_8x1024", st.at_1024(lambda: model.decode_step(
+            st.step_tokens, cache, st.all_active))),
+        ("decode_step_per_phase_8x1024", st.at_1024(lambda: per_phase.decode_step(
+            st.step_tokens, cache, st.all_active))),
+        ("verify_step_ragged_8x5_after_1024", st.at_1024(lambda: model.verify_step(
+            st.cand, cache, st.all_active))),
+        ("verify_step_per_phase_8x5_after_1024", st.at_1024(lambda: per_phase.verify_step(
+            st.cand, cache, st.all_active))),
+    ))
+
+
+def profile_int8(engine: InferenceEngine) -> list[dict]:
+    """An int8-pool engine's decode step (8 slots at 1024 cached tokens)
+    and mixed step (1024-row chunk after 1024 cached, 8 decode rows)."""
+    st = _Steps(engine)
+    return [{**rec, "kv_int8": True} for rec in _profile_calls((
+        ("decode_step_int8_8x1024", st.at_1024(lambda: st.model.decode_step(
+            st.step_tokens, st.cache, st.all_active))),
+        ("mixed_step_int8_1024_after_1024", st.mixed),
+    ))]
 
 
 def profile_long() -> list[dict]:
@@ -232,6 +273,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     engine = InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda")
     emit(profile_decode(engine, engine.config.max_slots))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False, kv_int8=True),
+                             device="cuda")
+    emit(profile_int8(engine))
     del engine
     gc.collect()
     torch.cuda.empty_cache()

@@ -78,7 +78,7 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("checkpoint_path", "weights"), ("quantize", "int8"), ("kv_int8", True),
+    ("checkpoint_path", "weights"), ("quantize", "int8"),
     ("kv_host_bytes", 1 << 20), ("draft_model", "tiny-llama"), ("mesh", object()),
 ])
 def test_unported_engine_features_raise(field, value):
