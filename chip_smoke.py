@@ -7,7 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version on the
              card at llama3:8b widths, bf16 (tolerance 3e-2) and float32
              (1e-3); the KV writes (also a verify step's flattened rows)
-             must match exactly on the valid region.
+             must match exactly on the valid region; causal groups wider
+             than 32 tokens (Td = 64 at D = 64, the draft model's
+             catch-up chunk, and Td = 33 at D = 128) on fp and int8
+             pools, held to the row-relative error.
 3. timing  — each kernel at the main path's shapes (CUDA events, warm-up):
              kernel, plain version, one PyTorch library call where one
              exists, and the bound max(bytes / 3.35 TB/s, flops / 989
@@ -75,10 +78,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              serving a 24001-token prompt whole in the 32768 bucket beside
              a short request (32 flash_prefill_streamed launches), and its
              warm repeat as one 32768-row mixed-step chunk.
-Then the kernels line (the seven kernels and the int8 leg of
+10. tree   — draft-model tree speculation: ragged_attention's tree leg
+             against its plain version (ragged_paged_attention_ref with
+             tree_pos/tree_mask), q scaled by 4 and held to the
+             row-relative error, in bf16 and float32 compute, fp and int8
+             pools, D = 128 and 64, trees (4, 2) (the default), (4, 1) (a
+             chain, also held to the causal group), (4, 8) and (16, 16)
+             (32 nodes, bit 31 set), a window of 4096 with softcap 30,
+             slots from 0 to 32,700 cached tokens on a 512-entry table;
+             timed at S = 8, N = 6 after 1,024 cached tokens beside the
+             causal group at Td = 5 and 6, and the draft's Td = 64 group
+             at D = 64; a 2-layer float32 llama3:8b cut on an fp and an
+             int8 pool checking a sibling-rescued tree step and its row
+             compaction (spec_accept_tree, commit_tree_path) against the
+             same tokens one at a time; llama3:8b bf16 with
+             draft_model="llama3.2:1b" serving the serve phase's eight
+             requests and a warm repeat, held to 32 tree launches per
+             verify step, draft launches, and no per-phase kernel; then
+             float32 llama3.2:1b self-drafted greedy streams held to spec
+             off with ragged attention on, off, and with kv_int8.
+Then the kernels line (the seven kernels and the int8 and tree legs of
 ragged_attention), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,long]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,long,tree]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -102,7 +124,7 @@ SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec", "int8",
-              "long")
+              "long", "tree")
 
 
 def emit(obj: dict) -> None:
@@ -272,6 +294,28 @@ def _chunk_cases(inp: Inputs, dtype):
     ]
 
 
+def _wide_group_cases(torch, inp: Inputs, dtype):
+    """(name, pools, kwargs) chain groups wider than 32 tokens: the draft
+    model's Td = 64 catch-up chunk at D = 64 (llama3.2:1b: H = 32,
+    KVH = 8) and Td = 33 at D = 128, each on an fp pool and an int8 pool,
+    at layer 1 of 2, q scaled by LONG_Q_SCALE, slots from 0 to 4000
+    cached tokens."""
+    lengths = [0, 1, 63, 64, 65, 700, 1500, 4000]
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    cases = []
+    for td, d in ((64, 64), (33, D)):
+        table = inp.page_table(lengths, extra=td)
+        kw = dict(q_group=inp.randn(S, td, H, d, dtype=dtype) * LONG_Q_SCALE, page_table=table,
+                  group_lengths=glens, k_group=inp.randn(S, td, KVH, d, dtype=dtype),
+                  v_group=inp.randn(S, td, KVH, d, dtype=dtype))
+        shape = (2, S * MAXP, PS, KVH, d)
+        fp = (inp.randn(*shape, dtype=dtype), inp.randn(*shape, dtype=dtype))
+        cases.append((f"chain_td{td}_d{d}_fp", fp, kw))
+        del fp
+        cases.append((f"chain_td{td}_d{d}_int8", _quant_pools(torch, inp, 2, S * MAXP, d=d), kw))
+    return cases
+
+
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -294,7 +338,7 @@ def phase_kernels(torch) -> dict:
         ragged_paged_attention_ref,
     )
     from gridllm_torch.ops.kernels import F32_TOL, by_name
-    from gridllm_torch.ops.kvcache import write_decode, write_prefill
+    from gridllm_torch.ops.kvcache import QuantPages, write_decode, write_prefill
 
     inp = Inputs(torch, SEED)
     # flash_prefill_streamed only runs at long shapes: the long phase holds it
@@ -339,6 +383,21 @@ def phase_kernels(torch) -> dict:
             if dtype == torch.bfloat16:
                 errs["ragged_attention"] = max(errs["ragged_attention"], err)
         del kw
+        # chain groups of any width (the wrapper once refused Td > 32)
+        for name, (kp, vp), kw in _wide_group_cases(torch, inp, dtype):
+            scales = {}
+            if isinstance(kp, QuantPages):
+                scales = dict(k_scale=kp.scale, v_scale=vp.scale)
+            _, og = ck.ragged_attention(kp.data if scales else kp, vp.data if scales else vp,
+                                        PS, layer=1, **scales, **kw)
+            _, wg = ragged_paged_attention_ref(kp, vp, PS, layer=1, **kw)
+            torch.cuda.synchronize()
+            rel, err = _rel_err(og, wg), _max_err(og, wg)
+            cases.append({"kernel": "ragged_attention", "dtype": dname, "case": name,
+                          "max_rel_err": rel, "max_abs_err": err})
+            check(rel <= tol, f"ragged_attention {dname} {name}: relative err {rel} > {tol}")
+            del kp, vp, kw, og, wg
+        torch.cuda.empty_cache()
         for name, kw, rows in _decode_cases(inp, dtype):
             kw = dict(kw)
             cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
@@ -1730,6 +1789,420 @@ def phase_long(torch) -> dict:
             "launches": {"flash_prefill_streamed": serve["launches"]["flash_prefill_streamed"]}}
 
 
+# ---------------------------------------------------------------------------
+# tree: draft-model tree speculation and ragged_attention's tree leg
+# ---------------------------------------------------------------------------
+
+# llama3.2:1b attention widths: the draft model's ragged launches
+DRAFT_H, DRAFT_KVH, DRAFT_D = 32, 8, 64
+
+
+def _tree_operands(parents):
+    from gridllm_torch.ops.spec import tree_ancestor_bits, tree_ancestor_mask, tree_depths
+
+    return tree_depths(parents), tree_ancestor_mask(parents), tree_ancestor_bits(parents)
+
+
+def _tree_kernel_cases(torch, inp: Inputs) -> tuple[list, float]:
+    """The tree leg against its plain version (ragged_paged_attention_ref
+    with tree_pos/tree_mask), q scaled by LONG_Q_SCALE and held to the
+    row-relative error: bf16 and float32 compute, fp and int8 pools,
+    D = 128 and 64, topologies (4, 2) (the default), (4, 1) (a pure chain,
+    also held to the causal group's output), (4, 8) and (16, 16) (32 nodes,
+    bit 31 set), a window of 4096 with softcap 30; eight slots from 0 to
+    32,700 cached tokens on a 512-entry table."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import ragged_paged_attention_ref
+    from gridllm_torch.ops.kernels import F32_TOL, by_name
+    from gridllm_torch.ops.kvcache import QuantPages
+    from gridllm_torch.ops.spec import tree_topology
+
+    lengths = [0, 5, 63, 64, 1024, 4000, 24000, 32700]
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    table = torch.randperm(S * LONG_MAXP, generator=inp.gen, device="cuda").to(torch.int32)
+    table = table.reshape(S, LONG_MAXP).contiguous()
+    topologies = {"k4_w2": (4, 2), "k4_w1_chain": (4, 1), "k4_w8": (4, 8), "k16_w16": (16, 16)}
+    cases, worst_abs = [], 0.0
+    for d, h, kvh in ((D, H, KVH), (DRAFT_D, DRAFT_H, DRAFT_KVH)):
+        shape = (1, S * LONG_MAXP, PS, kvh, d)
+        for dtype, tol in ((torch.bfloat16, by_name("ragged_attention").rtol),
+                           (torch.float32, F32_TOL)):
+            dname = str(dtype).split(".")[-1]
+            fp = (inp.randn(*shape, dtype=dtype), inp.randn(*shape, dtype=dtype))
+            pools = {"fp": fp}
+            if dtype == torch.bfloat16:   # one int8 pool serves both compute dtypes
+                quant = _quant_pools(torch, inp, 1, S * LONG_MAXP, d=d)
+            pools["int8"] = quant
+            for pool_name, (kp, vp) in pools.items():
+                scales, kd, vd = {}, kp, vp
+                if isinstance(kp, QuantPages):
+                    scales, kd, vd = dict(k_scale=kp.scale, v_scale=vp.scale), kp.data, vp.data
+                for topo, (k, width) in topologies.items():
+                    parents = tree_topology(k, width)
+                    n = len(parents)
+                    depths, anc, bits = _tree_operands(parents)
+                    kw = dict(q_group=inp.randn(S, n, h, d, dtype=dtype) * LONG_Q_SCALE,
+                              page_table=table, group_lengths=glens,
+                              k_group=inp.randn(S, n, kvh, d, dtype=dtype),
+                              v_group=inp.randn(S, n, kvh, d, dtype=dtype))
+                    windows = ((0, 0.0), (4096, 30.0)) if topo == "k4_w2" else ((0, 0.0),)
+                    for window, cap in windows:
+                        _, og = ck.ragged_attention(kd, vd, PS, layer=0, softcap=cap,
+                                                    window=window, tree_pos=depths,
+                                                    tree_bits=bits, **scales, **kw)
+                        _, wg = ragged_paged_attention_ref(
+                            kp, vp, PS, layer=0, logit_softcap=cap, window=window,
+                            tree_pos=depths, tree_mask=anc, **kw)
+                        torch.cuda.synchronize()
+                        rel, err = _rel_err(og, wg), _max_err(og, wg)
+                        case = {"kernel": "ragged_attention.tree", "dtype": dname,
+                                "pool": pool_name, "D": d, "topology": topo, "nodes": n,
+                                "window": window, "softcap": cap, "max_rel_err": rel,
+                                "max_abs_err": err}
+                        name = f"{dname} {pool_name} D={d} {topo} window={window}"
+                        check(rel <= tol,
+                              f"ragged_attention tree {name}: relative err {rel} > {tol}")
+                        if topo == "k4_w1_chain":   # the causal group on the same inputs
+                            _, chain = ck.ragged_attention(kd, vd, PS, layer=0, softcap=cap,
+                                                           window=window, **scales, **kw)
+                            torch.cuda.synchronize()
+                            case["chain_max_abs_diff"] = _max_err(og, chain)
+                            check(_rel_err(og, chain) <= tol,
+                                  f"ragged_attention tree {name}: differs from the causal group")
+                        cases.append(case)
+                        if dtype == torch.bfloat16:
+                            worst_abs = max(worst_abs, err)
+                        del og, wg
+                    del kw
+            del fp, pools, kp, vp, kd, vd
+            torch.cuda.empty_cache()
+        del quant
+        torch.cuda.empty_cache()
+    return cases, worst_abs
+
+
+def _group_work(lengths, n, h, kvh, d, visible, itemsize=2):
+    """(bytes, flops) a group launch needs: every cached K/V row of every
+    slot read once, the fresh K/V, q and the output once; two products of
+    2 flops per (query head, visible key, dim). visible[i]: the fresh
+    columns node i sees."""
+    nbytes = (sum(lengths) * kvh * d * 2 + len(lengths) * n * kvh * d * 2
+              + 2 * len(lengths) * n * h * d) * itemsize
+    keys = sum(ln * n + sum(visible) for ln in lengths)
+    return nbytes, 4 * h * d * keys
+
+
+def _tree_timing(torch, inp: Inputs) -> dict:
+    """bf16 on the fp pool: the tree leg at S = 8, N = 6 (the default
+    topology) after 1,024 cached tokens, beside the causal group at Td = 5
+    and Td = 6 on the same inputs (timed in turns: chain, tree, tree,
+    chain), and the draft model's Td = 64 catch-up group at D = 64."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import ragged_paged_attention_ref
+    from gridllm_torch.ops.spec import tree_topology
+
+    bf16 = torch.bfloat16
+    kp, vp = inp.pools(1, bf16)
+    lengths = [1024] * S
+    table = inp.page_table(lengths, extra=64)
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    parents = tree_topology(4, 2)
+    n = len(parents)
+    depths, anc, bits = _tree_operands(parents)
+    kw = dict(k_pages=kp, v_pages=vp, page_size=PS, page_table=table, group_lengths=glens,
+              q_group=inp.randn(S, n, H, D, dtype=bf16),
+              k_group=inp.randn(S, n, KVH, D, dtype=bf16),
+              v_group=inp.randn(S, n, KVH, D, dtype=bf16), layer=0)
+    kw5 = {**kw, **{k: kw[k][:, :5].contiguous() for k in ("q_group", "k_group", "v_group")}}
+    tree = dict(tree_pos=depths, tree_bits=bits)
+
+    def run_tree():
+        ck.ragged_attention(**kw, **tree)
+
+    def run_chain6():
+        ck.ragged_attention(**kw)
+
+    runs = {"chain_td6": [time_ms(torch, run_chain6)], "tree": []}
+    runs["tree"] += [time_ms(torch, run_tree), time_ms(torch, run_tree)]
+    runs["chain_td6"].append(time_ms(torch, run_chain6))
+    b, op = bound_ms(*_group_work(lengths, n, H, KVH, D, anc.sum(axis=1).tolist()))
+    b6, op6 = bound_ms(*_group_work(lengths, n, H, KVH, D, list(range(1, n + 1))))
+    b5, op5 = bound_ms(*_group_work(lengths, 5, H, KVH, D, list(range(1, 6))))
+    out = {
+        "shape": f"tree group S={S} N={n} (k=4, width 2) context=1024 bf16",
+        "card": card_line(),
+        "ms": statistics.mean(runs["tree"]), "runs_ms": runs,
+        "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(
+            **kw, tree_pos=depths, tree_mask=anc), iters=3),
+        "library_ms": None, "bound_ms": b, "bound_by": op,
+        "chain_td6_ms": statistics.mean(runs["chain_td6"]), "chain_td6_bound_ms": b6,
+        "chain_td5_ms": time_ms(torch, lambda: ck.ragged_attention(**kw5)),
+        "chain_td5_bound_ms": b5, "chain_td5_bound_by": op5,
+    }
+    del kp, vp, kw, kw5
+    torch.cuda.empty_cache()
+    # the draft model's catch-up chunk: Td = 64 at llama3.2:1b widths
+    shape = (1, S * MAXP, PS, DRAFT_KVH, DRAFT_D)
+    kp, vp = inp.randn(*shape, dtype=bf16), inp.randn(*shape, dtype=bf16)
+    td = 64
+    ikw = dict(q_group=inp.randn(S, td, DRAFT_H, DRAFT_D, dtype=bf16), page_table=table,
+               group_lengths=glens, k_group=inp.randn(S, td, DRAFT_KVH, DRAFT_D, dtype=bf16),
+               v_group=inp.randn(S, td, DRAFT_KVH, DRAFT_D, dtype=bf16), layer=0)
+    bi, opi = bound_ms(*_group_work(lengths, td, DRAFT_H, DRAFT_KVH, DRAFT_D,
+                                    list(range(1, td + 1))))
+    out["draft_ingest"] = {
+        "shape": f"chain group S={S} Td={td} context=1024 D={DRAFT_D} bf16",
+        "ms": time_ms(torch, lambda: ck.ragged_attention(kp, vp, PS, **ikw)),
+        "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(kp, vp, PS, **ikw),
+                            iters=3),
+        "library_ms": None, "bound_ms": bi, "bound_by": opi,
+    }
+    del kp, vp, ikw
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_model(torch) -> dict:
+    """llama3:8b cut to 2 layers, full width, float32, on an fp pool and on
+    an int8 pool. After a prompt, a hand-made tree (default topology): a
+    chain head the target does not pick and a sibling that it does. The
+    tree verify through the kernels, spec_accept_tree and commit_tree_path
+    against the same tokens fed one at a time: the accepted nodes' logits
+    within 1e-3 and, on the fp pool, the committed rows within 1e-5; on the
+    int8 pool the moved rows equal the optimistic write bit for bit. Then a
+    second tree whose chain is the greedy continuation, read over the
+    compacted rows. The fp reference is decode steps; the int8 reference is
+    chain verify steps of the accepted tokens, which, as the tree verify,
+    attend a step's own tokens unquantized (a decode step reads the token
+    before it back from the int8 pool, a difference of the int8 format, not
+    of the tree)."""
+    import dataclasses
+
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.models.llama import Llama
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.kernels import F32_TOL
+    from gridllm_torch.ops.kvcache import (
+        PagedKVCache,
+        QuantPages,
+        commit_tree_path,
+        rollback_to_length,
+    )
+    from gridllm_torch.ops.sampling import SamplingParams, spec_accept_tree
+    from gridllm_torch.ops.spec import tree_topology
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3:8b"), num_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    model = Llama(cfg, dtype=torch.float32, device="cuda").init_params(gen)
+    vocab, n0 = cfg.vocab_size, 200
+    prompt = torch.randint(0, vocab, (n0,), generator=gen, device="cuda", dtype=torch.int32)
+    parents = tree_topology(4, 2)
+    depths, anc, _ = _tree_operands(parents)
+    row = torch.arange(8, dtype=torch.int32, device="cuda")
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+
+    def cache_of(kv_int8):
+        cache = PagedKVCache.create(cfg.num_layers, 8, PS, KVH, D, 1, 8, dtype=torch.float32,
+                                    device="cuda", kv_int8=kv_int8)
+        logits, _ = model.prefill(torch.cat([prompt, prompt[:56] * 0]), n0, cache, 0, row)
+        return cache, int(torch.argmax(logits))
+
+    def pool_rows(cache, lo, hi):   # [L, rows, KVH, D] of positions lo..hi-1 (page 3)
+        if isinstance(cache.k, QuantPages):
+            return [cache.k.data[:, 3, lo - 192:hi - 192].clone(),
+                    cache.k.scale[:, 3, lo - 192:hi - 192].clone(),
+                    cache.v.data[:, 3, lo - 192:hi - 192].clone(),
+                    cache.v.scale[:, 3, lo - 192:hi - 192].clone()]
+        return [cache.k[:, 3, lo - 192:hi - 192].clone(), cache.v[:, 3, lo - 192:hi - 192].clone()]
+
+    def accept(logits, cand):
+        sp = SamplingParams.defaults(1, "cuda")
+        sp.temperature.zero_()
+        sp.repeat_penalty.fill_(1.0)
+        valid = torch.ones((1, len(parents)), dtype=torch.bool, device="cuda")
+        return spec_accept_tree(logits, cand, parents, valid, sp,
+                                torch.zeros((1, vocab), dtype=torch.int32, device="cuda"),
+                                torch.zeros((1, 8), dtype=torch.int32, device="cuda"),
+                                torch.zeros(1, dtype=torch.int32, device="cuda"), one, vocab)
+
+    out = {}
+    for pool in ("fp", "int8"):
+        quant = pool == "int8"
+        seq, root = cache_of(quant)
+        toks, seq_logits = [root], []
+        for _ in range(6):   # greedy continuation through decode steps
+            logits, _ = model.decode_step(torch.tensor([toks[-1]], dtype=torch.int32,
+                                                       device="cuda"), seq, one)
+            seq_logits.append(logits[0])
+            toks.append(int(torch.argmax(logits[0])))
+        if quant:   # the accepted tokens as chain verify steps: 2 rows, then 5
+            seq, _ = cache_of(quant)
+            seq_logits = []
+            for chain in (toks[0:2], toks[2:7]):
+                logits, _ = model.verify_step(torch.tensor([chain], dtype=torch.int32,
+                                                           device="cuda"), seq, one)
+                seq_logits += list(logits[0])
+                rollback_to_length(seq, seq.lengths + len(chain))
+        cache, root2 = cache_of(quant)
+        check(root2 == root, "tree model: prefill not deterministic")
+        # tree 1: the chain head misses (pick + 1), the sibling is the pick
+        pick = toks[1]
+        cand = torch.tensor([[root, (pick + 1) % vocab, 11, 12, 13, pick]], dtype=torch.int32,
+                            device="cuda")
+        ck.reset_launch_counts()
+        logits, _ = model.verify_step(cand, cache, one, tree_pos=depths, tree_mask=anc)
+        launches = ck.launch_counts()
+        optimistic = pool_rows(cache, n0 + 5, n0 + 6)
+        emitted, path, n_emit, _ = accept(logits, cand)
+        check(n_emit.tolist() == [2] and path[0, :2].tolist() == [5, 0]
+              and emitted[:2, 0].tolist() == toks[1:3],
+              f"tree model {pool}: accepted {emitted[:, 0].tolist()} path {path.tolist()}")
+        commit_tree_path(cache, path, one)
+        rollback_to_length(cache, cache.lengths + n_emit)
+        errs = [_max_err(logits[0, 0], seq_logits[0]), _max_err(logits[0, 5], seq_logits[1])]
+        moved = pool_rows(cache, n0 + 1, n0 + 2)
+        if quant:
+            check(all(torch.equal(a, b) for a, b in zip(moved, optimistic)),
+                  "tree model int8: the moved row differs from the optimistic write")
+            row_err = None
+        else:
+            row_err = max(_max_err(a, b) for a, b in zip(pool_rows(cache, n0, n0 + 2),
+                                                         pool_rows(seq, n0, n0 + 2)))
+            check(row_err <= 1e-5, f"tree model fp: committed rows differ by {row_err}")
+        # tree 2 over the compacted rows: the chain is the greedy continuation
+        cand = torch.tensor([[toks[2], *toks[3:7], (toks[3] + 7) % vocab]], dtype=torch.int32,
+                            device="cuda")
+        logits, _ = model.verify_step(cand, cache, one, tree_pos=depths, tree_mask=anc)
+        emitted, path, n_emit, _ = accept(logits, cand)
+        check(n_emit.tolist() == [5] and path[0].tolist() == [1, 2, 3, 4, 0, 0],
+              f"tree model {pool}: second step accepted {n_emit.tolist()}, path {path.tolist()}")
+        torch.cuda.synchronize()
+        errs += [_max_err(logits[0, j], seq_logits[2 + j]) for j in range(4)]
+        check(max(errs) <= F32_TOL, f"tree model {pool}: logits differ by {max(errs)}")
+        check(launches["ragged_attention.tree"] == cfg.num_layers,
+              f"tree model {pool}: verify launches {launches}")
+        out[pool] = {"accepted_logit_rows": len(errs), "max_abs_err": max(errs),
+                     "committed_rows_max_abs_err": row_err,
+                     "moved_rows_bit_equal_to_optimistic_write": quant or None,
+                     "verify_launches": launches}
+        del seq, cache, logits
+    del model
+    torch.cuda.empty_cache()
+    return {"config": "llama3:8b, 2 layers, float32", **out}
+
+
+def _tree_serve(torch) -> dict:
+    """llama3:8b bf16 with draft_model="llama3.2:1b" (both random weights
+    from seed 0) behind the runner thread: the serve phase's eight
+    concurrent requests, then a prefix-cache repeat; launch counts from 0
+    just before the first and read just after the last."""
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.spec import DraftModelDrafter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b",
+                                                     draft_model="llama3.2:1b"), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = srv.engine
+    check(isinstance(engine._drafter, DraftModelDrafter), "tree serve: no draft model")
+    vocab, slots = srv.vocab, engine.config.max_slots
+    n = engine.config.spec_k + engine.config.spec_tree_width
+    _, short, _, batch_a = _serve_prompts()
+    engine.start()
+    ck.reset_launch_counts()
+    res, wall = srv.run(batch_a)
+    (warm,), wall_warm = srv.run([(short[2], 64)])
+    counts = ck.launch_counts()
+    check(warm.cached_tokens > 0, "tree serve: the repeat missed the prefix cache")
+    stats = engine.batch_state()["specDecode"]
+    layers, steps = engine.cfg.num_layers, stats["steps"]
+    tree = counts["ragged_attention.tree"]
+    draft = counts["ragged_attention"] - tree
+    check(steps > 0 and tree == layers * steps,
+          f"tree serve: {tree} tree launches for {steps} verify steps of {layers} layers")
+    check(draft > 0, f"tree serve: the draft model launched no ragged attention: {counts}")
+    never = ("paged_decode", "prefix_chunk", "flash_prefill_streamed")
+    check(all(counts[k] == 0 for k in never), f"tree serve: a per-phase kernel launched: {counts}")
+    out = {
+        **srv.summary(res, wall, {(vocab,), (slots, vocab), (slots, n, vocab)}),
+        "model": "llama3:8b", "draft_model": "llama3.2:1b", "dtype": "bfloat16",
+        "tree": f"k={engine.config.spec_k} width={engine.config.spec_tree_width} nodes={n}",
+        "load_s": load_s, "warm_cached_tokens": warm.cached_tokens, "warm_wall_s": wall_warm,
+        "draft_ms_per_verify_step": stats["draft_ns"] / 1e6 / max(steps, 1),
+        "tree_launches": tree, "draft_and_mixed_ragged_launches": draft,
+        "tree_launches_per_verify_step": tree / max(steps, 1), "launches": counts,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    _free(torch, srv)
+    return out
+
+
+def _tree_parity(torch) -> dict:
+    """Float32 greedy streams of llama3.2:1b drafted by itself (identical
+    random weights, so deep accepted paths), each held to spec decode off
+    in the same attention mode and pool: ragged on, ragged off, ragged on
+    with kv_int8. Acceptance must be > 0 in every tree run."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+
+    prompt = _prompt(random.Random(SEED + 9), 300)
+    opts = {"temperature": 0.0, "num_predict": 48}
+    runs = {}
+    for name, extra in (("ragged_on", {}), ("ragged_off", {"ragged_attention": False}),
+                        ("ragged_on_int8", {"kv_int8": True})):
+        streams = {}
+        for spec in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = EngineConfig(model="llama3.2:1b", dtype="float32", spec_decode=spec,
+                               draft_model="llama3.2:1b" if spec else None, **extra)
+            engine = InferenceEngine(cfg, device="cuda")
+            res = engine.generate(GenerationRequest(id=name, prompt=prompt, options=dict(opts)))
+            check(res.done_reason in ("length", "stop") and res.token_ids,
+                  f"tree parity {name}: finished {res.done_reason!r} ({res.error})")
+            streams[spec] = res.token_ids
+            if spec:
+                runs[name] = {"tokens": len(res.token_ids), "proposed": res.spec_proposed,
+                              "accepted": res.spec_accepted,
+                              "verify_steps": engine.spec_stats["steps"],
+                              "acceptance": res.spec_accepted / max(res.spec_proposed, 1)}
+            del engine
+        check(streams[True] == streams[False], f"tree parity {name}: stream differs from spec off")
+        check(runs[name]["accepted"] > 0, f"tree parity {name}: no draft accepted")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": "llama3.2:1b", "draft_model": "llama3.2:1b", "dtype": "float32",
+            "streams_identical_to_spec_off": True, "runs": runs}
+
+
+def phase_tree(torch) -> dict:
+    """Draft-model tree speculation: the tree leg's kernel cases and
+    timing, the 2-layer float32 tree commit check, llama3:8b serving with a
+    llama3.2:1b draft, and float32 self-draft parity (see the module
+    docstring)."""
+    inp = Inputs(torch, SEED + 9)
+    cases, worst_abs = _tree_kernel_cases(torch, inp)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "tree_kernel_cases.json").write_text(json.dumps(cases, indent=1))
+    timing = _tree_timing(torch, inp)
+    model = _tree_model(torch)
+    serve = _tree_serve(torch)
+    parity = _tree_parity(torch)
+    return {"phase": "tree", "card": card_line(), "cases": len(cases),
+            "max_rel_err": max(c["max_rel_err"] for c in cases), "max_abs_err_bf16": worst_abs,
+            "timing": timing, "model": model, "serve": serve, "parity": parity,
+            "launches": serve["tree_launches"]}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1762,7 +2235,7 @@ def main() -> int:
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
                    "serve": phase_serve, "replay": phase_replay, "spec": phase_spec,
-                   "int8": phase_int8, "long": phase_long}[phase](torch)
+                   "int8": phase_int8, "long": phase_long, "tree": phase_tree}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -1777,10 +2250,14 @@ def main() -> int:
     timing["ragged_attention.int8"] = int8["timing"]["decode"]
     errs["ragged_attention.int8"] = int8["max_abs_err_bf16"]
     launches["ragged_attention.int8"] = int8["launches"]
-    # the seven kernels, then the int8 leg of ragged_attention (its own
-    # launches, from the int8 serve)
+    tree = results["tree"]
+    timing["ragged_attention.tree"] = tree["timing"]
+    errs["ragged_attention.tree"] = tree["max_abs_err_bf16"]
+    launches["ragged_attention.tree"] = tree["launches"]
+    # the seven kernels, then the int8 and tree legs of ragged_attention
+    # (their own launches, from the int8 serve and the tree serve)
     rows = [(spec.name, spec) for spec in KERNELS]
-    rows.append(("ragged_attention.int8", by_name("ragged_attention")))
+    rows += [(f"ragged_attention.{leg}", by_name("ragged_attention")) for leg in ("int8", "tree")]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "launches": launches[name],

@@ -15,10 +15,14 @@
 //   the inner loop). The softmax statistics are warp reductions; each lane
 //   owns D/32 output columns of every row's accumulator.
 // - Masking uses absolute positions: key at position kp is visible to the
-//   query at qp iff kp <= qp, kp < klimit, and (window <= 0 or
-//   qp - kp < window). Masked scores get probability 0 (the finite -1e30
-//   of the JAX package's kernels only enters the running maximum), and the
-//   output is acc / max(l, 1e-30).
+//   query at qp iff the segment's key policy says so and (window <= 0 or
+//   qp - kp < window). The causal policy (`CausalKeys`, every segment of
+//   every kernel but one) is kp <= qp and kp < klimit; the tree policy
+//   (`TreeKeys`, the fresh columns of a tree-verify group) gives key j the
+//   logical position pos0 + depth[j] and shows it to row i iff bit j of
+//   row i's ancestor mask is set. Masked scores get probability 0 (the
+//   finite -1e30 of the JAX package's kernels only enters the running
+//   maximum), and the output is acc / max(l, 1e-30).
 // - All math runs on the CUDA cores in float32. Tensor cores (mma/wgmma)
 //   and TMA loads are left to a later version; see PERF.md for what this
 //   costs against the card's bound.
@@ -152,6 +156,33 @@ struct QuantPagedRows {
   }
 };
 
+// Key policy of a causal segment: row r of the segment sits at absolute
+// position pos0 + r and is visible to the query at qp iff kp <= qp and
+// kp < klimit.
+struct CausalKeys {
+  int pos0, klimit;
+  __device__ __forceinline__ int pos(int r) const { return pos0 + r; }
+  __device__ __forceinline__ bool visible(int, int, int qp, int kp) const {
+    return kp <= qp && kp < klimit;
+  }
+};
+
+// Key policy of a tree-verify group's fresh columns (at most 32 nodes):
+// column r is tree node r at logical position pos0 + depth[r], visible to
+// the warp's row `row` iff bit r of that row's ancestor mask bits[row] is
+// set. An ancestor is never deeper than its descendant, so there is no
+// separate causal term; the window applies to the logical distance.
+template <int RPW>
+struct TreeKeys {
+  const int* depth;    // [32] node depths (shared memory)
+  int pos0;
+  unsigned bits[RPW];  // ancestor-or-self mask of each of the warp's rows
+  __device__ __forceinline__ int pos(int r) const { return pos0 + depth[r & 31]; }
+  __device__ __forceinline__ bool visible(int row, int r, int, int) const {
+    return (bits[row] >> r) & 1u;
+  }
+};
+
 // Shared-memory floats the attention block needs.
 template <int D, int RPW>
 constexpr int smem_floats() {
@@ -214,18 +245,35 @@ struct AttnBlock {
     }
   }
 
+  // Tree rows: row token i sits at logical position pos0 + depth[i] (its
+  // storage position stays pos0 + i). Call after load_q.
+  __device__ void tree_qpos(const int* depth, int G, int row0, int rows_total, int pos0) {
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int gi = row0 + warp * RPW + r;
+      qpos[r] = gi < rows_total ? pos0 + depth[gi / G] : -1;
+    }
+  }
+
   // Attend to key rows [r_lo, r_hi) of one segment: row r's K/V start at
   // kbase/vbase + off(r), its absolute position is pos0 + r, and keys at
   // positions >= klimit are masked.
   template <class RowOff>
   __device__ void segment(const T* kbase, const T* vbase, RowOff off, int r_lo,
                           int r_hi, int pos0, int klimit) {
-    segment(KVRows<T, RowOff>{kbase, vbase, off}, r_lo, r_hi, pos0, klimit);
+    segment(KVRows<T, RowOff>{kbase, vbase, off}, r_lo, r_hi, CausalKeys{pos0, klimit});
   }
 
   // The same through a row reader (KVRows or QuantPagedRows).
   template <class Rows>
   __device__ void segment(const Rows& src, int r_lo, int r_hi, int pos0, int klimit) {
+    segment(src, r_lo, r_hi, CausalKeys{pos0, klimit});
+  }
+
+  // The same with a key policy (CausalKeys or TreeKeys) giving each row's
+  // position and visibility.
+  template <class Rows, class Keys>
+  __device__ void segment(const Rows& src, int r_lo, int r_hi, const Keys& keys) {
     constexpr int SV = Rows::VEC;
     static_assert(D % SV == 0, "head_dim must hold whole 16-byte loads");
     for (int t0 = r_lo; t0 < r_hi; t0 += kTileKeys) {
@@ -247,16 +295,17 @@ struct AttnBlock {
         }
       }
       __syncthreads();
-      tile(nk, pos0 + t0, klimit);
+      tile(nk, t0, keys);
     }
   }
 
-  // Score, mask and accumulate the nk keys of the shared-memory tile,
-  // key j at absolute position kpos0 + j.
-  __device__ void tile(int nk, int kpos0, int klimit) {
+  // Score, mask and accumulate the nk keys of the shared-memory tile: key
+  // j is segment row t0 + j, at position keys.pos(t0 + j).
+  template <class Keys>
+  __device__ void tile(int nk, int t0, const Keys& keys) {
     for (int sub = 0; sub < nk; sub += 32) {
       const int j = sub + lane;
-      const int kp = kpos0 + j;
+      const int kp = keys.pos(t0 + j);
       float s[RPW];
 #pragma unroll
       for (int r = 0; r < RPW; ++r) s[r] = 0.f;
@@ -275,7 +324,7 @@ struct AttnBlock {
         float x = s[r];
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         const int qp = qpos[r];
-        const bool ok = j < nk && qp >= 0 && kp <= qp && kp < klimit &&
+        const bool ok = j < nk && qp >= 0 && keys.visible(r, t0 + j, qp, kp) &&
                         (window <= 0 || qp - kp < window);
         const float m_new = fmaxf(m[r], warp_max(ok ? x : kNegInf));
         const float alpha = expf(m[r] - m_new);

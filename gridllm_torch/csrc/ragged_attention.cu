@@ -2,9 +2,9 @@
 // one prefill CHUNK region plus S per-slot GROUPS — in a single launch.
 //
 // Replaces gridllm_tpu/ops/pallas_kernels.py:1168 `ragged_attention`
-// (body `_ragged_attn_kernel`, :821) with its int8 dequant leg
-// (k_scale/v_scale), without its tree-verify leg (tree_pos/tree_bits),
-// which the Python wrapper refuses. The function:
+// (body `_ragged_attn_kernel`, :821) with both of its legs: the int8
+// dequant leg (k_scale/v_scale) and the tree-verify leg
+// (tree_pos/tree_bits), which combine freely. The function:
 // - chunk region: the C queries of one slot at positions chunk_start + i
 //   attend the slot's cached prefix [0, chunk_start) through chunk_row,
 //   then the chunk's own fresh K/V causally, keys at positions
@@ -12,14 +12,24 @@
 // - group region: slot s's Td queries at positions group_lengths[s] + i
 //   attend its pages [0, group_lengths[s]) through page_table[s] (the pool
 //   lags one step: group_lengths counts the prefix only), then its Td fresh
-//   K/V causally. Td = 1 is decode, Td = K+1 speculative verify (any
-//   Td <= 32).
+//   K/V causally. Td = 1 is decode, Td = K+1 speculative verify, Td = 64 a
+//   draft model's catch-up chunk: any Td (the block walks its rows NR at a
+//   time).
 // Both regions take a sliding window and a tanh softcap.
 // int8 leg (k_scale/v_scale given): the pool holds int8 values and one
 // float32 scale per (layer, page, row); each pool row is multiplied by its
 // scale right after the load (QuantPagedRows), then the math is the fp
 // leg's. The fresh chunk/group K/V stay in the compute dtype, unscaled.
 // It reads half the pool bytes of a bf16 pool plus 4 bytes per row.
+// tree leg (tree_n = Td <= 32 nodes): the group's Td tokens are the nodes
+// of a draft token tree in topological order, shared by all slots. Node i
+// is STORED at length + i (its fresh K/V column i) but sits at LOGICAL
+// position length + tree_pos[i]: its query attends the pool at that
+// position, and fresh column j iff bit j of tree_bits[i] (node j is an
+// ancestor of node i, or i itself); the window is measured on logical
+// distance. The topology travels by value in the launch's arguments (the
+// counterpart of the TPU kernel's scalar prefetch: no device buffer, no
+// copy per launch) and is staged in shared memory once per block.
 //
 // What bounds it on the H100: decode groups read every cached K/V byte of
 // every slot once per layer for ~2 flops per byte, so they are bound by
@@ -39,6 +49,8 @@
 #include "attention_common.cuh"
 
 namespace gridllm {
+
+constexpr int kMaxTreeNodes = 32;  // one int32 ancestor bitmask per node
 
 struct RaggedArgs {
   const void* k_pool;
@@ -64,6 +76,10 @@ struct RaggedArgs {
   int H, KVH;
   float scale, softcap;
   int window;
+  // tree leg: tree_n = Td nodes (0 = a causal chain group)
+  int tree_n;
+  int tree_pos[kMaxTreeNodes];   // node depths
+  int tree_bits[kMaxTreeNodes];  // bit j of entry i: node j is on node i's root path
 };
 
 // The pool's row reader: rows of the compute dtype, or int8 rows scaled.
@@ -129,14 +145,38 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a
   const int64_t kvoff = static_cast<int64_t>(s) * a.Td * row_stride;
   const T* kg = static_cast<const T*>(a.k_group) + kvoff + static_cast<int64_t>(h) * D;
   const T* vg = static_cast<const T*>(a.v_group) + kvoff + static_cast<int64_t>(h) * D;
+  const bool tree = a.tree_n > 0;
+  __shared__ int tree_depth[kMaxTreeNodes];
+  __shared__ unsigned tree_bits[kMaxTreeNodes];
+  if (tree && threadIdx.x == 0) {  // published by load_q's barrier
+#pragma unroll
+    for (int i = 0; i < kMaxTreeNodes; ++i) {  // constant indices into the arguments
+      if (i < a.tree_n) {
+        tree_depth[i] = a.tree_pos[i];
+        tree_bits[i] = static_cast<unsigned>(a.tree_bits[i]);
+      }
+    }
+  }
   for (int row0 = 0; row0 < rows_total; row0 += NR) {
-    const int qfirst = length + row0 / G;
+    // a tree row's logical position is length + depth >= length
+    const int qfirst = length + (tree ? 0 : row0 / G);
     const int p_lo = a.window > 0 ? max(qfirst - a.window + 1, 0) : 0;
     blk.load_q(static_cast<const T*>(a.q_group) + qoff, tok_stride, G, row0, rows_total,
                length, a.scale);
+    if (tree) blk.tree_qpos(tree_depth, G, row0, rows_total, length);
     blk.segment(pool_rows(k_pool, v_pool, a.k_scale, a.v_scale, pages), min(p_lo, ctx), ctx, 0,
                 ctx);
-    blk.segment(kg, vg, ContigRows{row_stride}, 0, a.Td, length, length + a.Td);
+    if (tree) {
+      TreeKeys<RPW> keys{tree_depth, length, {}};
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const int gi = row0 + blk.warp * RPW + r;
+        keys.bits[r] = gi < rows_total ? tree_bits[gi / G] : 0u;
+      }
+      blk.segment(KVRows<T, ContigRows>{kg, vg, ContigRows{row_stride}}, 0, a.Td, keys);
+    } else {
+      blk.segment(kg, vg, ContigRows{row_stride}, 0, a.Td, length, length + a.Td);
+    }
     blk.store(static_cast<T*>(a.o_group) + qoff, tok_stride, G, row0, rows_total);
   }
 }
@@ -184,7 +224,10 @@ cudaError_t by_pool(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
 // dtype: the compute dtype, 0 = float32, 1 = bfloat16. k_scale/v_scale:
 // null for a pool of the compute dtype, else the float32 [L, P, ps] scales
 // of an int8 pool. A region is absent when its query pointer is null
-// (n_chunk_tiles = 0 or S = 0). Returns cudaGetLastError().
+// (n_chunk_tiles = 0 or S = 0). tree_n: 0 for a causal group, else Td
+// (<= 32) tree nodes whose depths and ancestor bitmasks are HOST arrays
+// tree_pos/tree_bits of tree_n ints, copied into the launch's arguments.
+// Returns cudaGetLastError().
 extern "C" int gridllm_ragged_attention(
     const void* k_pool, const void* v_pool, const void* k_scale, const void* v_scale,
     int num_pages, int ps, int layer,
@@ -193,7 +236,9 @@ extern "C" int gridllm_ragged_attention(
     int n_chunk_tiles, const void* q_group, const void* k_group, const void* v_group,
     void* o_group, const void* page_table, const void* group_lengths, int n_table_g,
     int S, int Td, int H, int KVH, int D, int rpw, int dtype, float scale, float softcap,
-    int window, void* stream) {
+    int window, int tree_n, const int* tree_pos, const int* tree_bits, void* stream) {
+  if (tree_n < 0 || tree_n > gridllm::kMaxTreeNodes || (tree_n > 0 && tree_n != Td))
+    return static_cast<int>(cudaErrorInvalidValue);
   gridllm::RaggedArgs a{k_pool, v_pool, static_cast<const float*>(k_scale),
                         static_cast<const float*>(v_scale), num_pages, ps, layer,
                         q_chunk, k_chunk, v_chunk, o_chunk,
@@ -202,7 +247,11 @@ extern "C" int gridllm_ragged_attention(
                         q_group, k_group, v_group, o_group,
                         static_cast<const int*>(page_table),
                         static_cast<const int*>(group_lengths), n_table_g, S, Td,
-                        H, KVH, scale, softcap, window};
+                        H, KVH, scale, softcap, window, tree_n, {}, {}};
+  for (int i = 0; i < tree_n; ++i) {
+    a.tree_pos[i] = tree_pos[i];
+    a.tree_bits[i] = tree_bits[i];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) err = gridllm::by_pool<float>(D, rpw, a, s);

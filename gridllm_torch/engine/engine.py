@@ -32,6 +32,15 @@ serving path:
   rejected rows. Greedy streams are token-identical to spec-off. A verify
   step is fetched at once: the next step's drafts depend on its tokens, so
   there is no block pipeline to hide the fetch behind.
+- Draft-model tree speculation (`EngineConfig.draft_model`, the JAX
+  package's GRIDLLM_SPEC_DRAFT_MODEL): a small same-vocabulary model
+  drafts, in one batch over all slots, a static token tree per slot (a
+  depth-K greedy chain plus `spec_tree_width - 1` first-level siblings);
+  one tree-masked verify forward (`verify_step` with the topology) feeds
+  `spec_accept_tree`, and `commit_tree_path` compacts the accepted path's
+  K/V rows before the lengths roll forward. An unknown or incompatible
+  draft model logs a warning and leaves n-gram drafting in place, as in
+  the JAX package.
 - An int8 KV pool (`EngineConfig.kv_int8`, the JAX package's
   GRIDLLM_KV_INT8; off by default as there): int8 values plus one float32
   scale per (layer, page, row), about half the bytes of a bf16 pool. Writes
@@ -46,6 +55,7 @@ copied out before the next block runs.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import random
 import threading
 import time
@@ -62,18 +72,30 @@ from gridllm_torch.ops.kvcache import (
     PagedKVCache,
     PageAllocator,
     QuantPages,
+    commit_tree_path,
     rollback_to_length,
 )
 from gridllm_torch.ops.sampling import (
     SamplingParams,
     sample_tokens,
     spec_accept,
+    spec_accept_tree,
     window_push,
     window_set_slot,
 )
-from gridllm_torch.ops.spec import make_drafter
+from gridllm_torch.ops.spec import (
+    DraftModelDrafter,
+    make_drafter,
+    tree_ancestor_mask,
+    tree_depths,
+    tree_topology,
+)
+
+log = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the families the port's Llama serves (each has verify and decode steps)
+_DRAFT_FAMILIES = ("llama", "qwen2", "qwen3")
 
 
 @dataclasses.dataclass
@@ -107,7 +129,13 @@ class EngineConfig:
     # the drafted tokens verified per step (a [S, K+1] verify block)
     spec_decode: bool = True
     spec_k: int = 4
-    draft_model: str | None = None       # not ported
+    # draft-model tree speculation: the draft model's config name (None =
+    # n-gram drafting), the first-level fan-out of its token tree (1 = a
+    # pure chain) and the tokens per catch-up chunk of its ingest
+    draft_model: str | None = None
+    spec_tree_width: int = 2
+    draft_ingest: int = 64
+    draft_checkpoint: str | None = None  # not ported yet: random draft weights only
     # attention mode: the unified ragged kernel (True) or the per-phase
     # dispatchers paged_decode / prefix_chunk (False)
     ragged_attention: bool = True
@@ -122,7 +150,7 @@ class EngineConfig:
             "checkpoint_path": bool(self.checkpoint_path),
             "quantize": bool(self.quantize),
             "mesh": self.mesh is not None,
-            "draft_model": bool(self.draft_model),
+            "draft_checkpoint": bool(self.draft_checkpoint),
             "kv_host_bytes": bool(self.kv_host_bytes),
         }
         for name, on in unported.items():
@@ -215,9 +243,13 @@ class InferenceEngine:
     runner thread started by start() (serving)."""
 
     def __init__(self, config: EngineConfig, device: str | torch.device = "cuda",
-                 params: dict[str, Any] | None = None):
+                 params: dict[str, Any] | None = None,
+                 draft_params: dict[str, Any] | None = None):
         """`device`: "cuda" (the default) or "cpu". `params`: a JAX-layout
-        pytree of numpy arrays to serve instead of random weights."""
+        pytree of numpy arrays to serve instead of random weights;
+        `draft_params` the same for the draft model (else random weights
+        drawn as the target's are, so a draft model named like the target
+        gets the target's random weights)."""
         config.check_ported()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -244,8 +276,10 @@ class InferenceEngine:
         self._runner_stop = threading.Event()
         # speculation depth K (0 = off) and cumulative verify-step totals
         self._spec_k = max(int(config.spec_k), 0) if config.spec_decode else 0
-        self._drafter = make_drafter() if self._spec_k else None
-        self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0}
+        self._drafter = None
+        self._tree_width = max(int(config.spec_tree_width), 1)
+        self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0,
+                           "draft_ns": 0}
 
         t0 = time.perf_counter_ns()
         self.model = Llama(self.cfg, dtype=self.dtype, device=self.device,
@@ -257,9 +291,14 @@ class InferenceEngine:
             gen.manual_seed(0)
             self.model.init_params(gen)
         self._init_device_state()
-        self.load_duration_ns = time.perf_counter_ns() - t0
         self.max_context = min(self.cfg.max_seq_len,
                                config.max_pages_per_slot * config.page_size)
+        if self._spec_k:
+            self._drafter = self._build_model_drafter(draft_params) or make_drafter()
+        # the draft tree's static topology, its node depths and ancestor mask
+        parents = tree_topology(self._spec_k, self._tree_width)
+        self._tree = (parents, tree_depths(parents), tree_ancestor_mask(parents))
+        self.load_duration_ns = time.perf_counter_ns() - t0
         # every admissible length maps to a fixed padded shape
         self._buckets = sorted(
             {min(b, self.max_context) for b in config.prefill_buckets}
@@ -292,6 +331,44 @@ class InferenceEngine:
             self._inflight.clear()
             self._free_slots = list(range(self.config.max_slots - 1, -1, -1))
             self._init_device_state()
+            if isinstance(self._drafter, DraftModelDrafter):
+                self._drafter.reset()
+
+    def _build_model_drafter(self, draft_params) -> DraftModelDrafter | None:
+        """The draft-model tree drafter, or None when no draft model is
+        configured or the configured one cannot draft for the target (the
+        caller then keeps n-gram drafting, with a warning, as the JAX
+        package does). The draft model runs in the engine's dtype and
+        attention mode with its own fixed-stripe pool: per slot, pages for
+        the engine's max_context plus the draft chain."""
+        name = (self.config.draft_model or "").strip()
+        if not name:
+            return None
+        try:
+            dcfg = get_config(name)
+        except KeyError:
+            log.warning("draft model %r unknown; drafting with n-grams", name)
+            return None
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            log.warning("draft model %r has vocabulary %d, the target %d; drafting with "
+                        "n-grams", name, dcfg.vocab_size, self.cfg.vocab_size)
+            return None
+        if dcfg.family not in _DRAFT_FAMILIES:
+            log.warning("draft model %r: no verify/decode steps for its family %r; "
+                        "drafting with n-grams", name, dcfg.family)
+            return None
+        c = self.config
+        model = Llama(dcfg, dtype=self.dtype, device=self.device,
+                      ragged_attention=c.ragged_attention)
+        if draft_params is not None:
+            model.params_from_jax(draft_params)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            model.init_params(gen)
+        pages = -(-(self.max_context + self._spec_k + 1) // c.page_size)
+        return DraftModelDrafter(model, max_slots=c.max_slots, page_size=c.page_size,
+                                 max_pages_per_slot=pages, ingest_width=c.draft_ingest)
 
     # ---------------------------------------------------------- device steps
 
@@ -381,6 +458,29 @@ class InferenceEngine:
                                         self.wlen, self.active, vocab)
         self.tokens = torch.where(self.active, last, self.tokens)
         # commit the accepted length: the rejected candidate rows roll back
+        rollback_to_length(self.cache, torch.clamp(self.cache.lengths + n_emit,
+                                                   max=self.cache.max_context))
+        return torch.cat([cand[:, :1].T, out, n_emit[None].to(out.dtype)])
+
+    def _verify_tree_block(self, drafts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """One tree verify step for all slots: [S, N-1] drafted node tokens
+        (topological order after each slot's committed last token, the
+        root) and [S, N] node validity, one tree-masked forward, the accept
+        walk, the compaction of each accepted path's K/V rows and the length
+        commit. Returns [N+2, S]: row 0 the input tokens, rows 1..N the
+        emitted tokens (valid up to n_emit per slot), the last row n_emit."""
+        sp, vocab = self.sampling, self.cfg.vocab_size
+        parents, depths, anc = self._tree
+        cand = torch.cat([self.tokens[:, None], drafts], dim=1)
+        logits, _ = self.model.verify_step(cand, self.cache, self.active,
+                                           tree_pos=depths, tree_mask=anc)
+        out, path, n_emit, last = spec_accept_tree(
+            logits, cand, parents, valid, sp, self.counts, self.window, self.wlen,
+            self.active, vocab)
+        self.tokens = torch.where(self.active, last, self.tokens)
+        # the accepted path's rows move down over the optimistic rows, then
+        # the lengths roll forward: rejected branches never reach host state
+        commit_tree_path(self.cache, path, self.active)
         rollback_to_length(self.cache, torch.clamp(self.cache.lengths + n_emit,
                                                    max=self.cache.max_context))
         return torch.cat([cand[:, :1].T, out, n_emit[None].to(out.dtype)])
@@ -556,6 +656,9 @@ class InferenceEngine:
             # host-visible before drafting
             self._fetch_oldest()
         k, n_slots = self._spec_k, self.config.max_slots
+        if isinstance(self._drafter, DraftModelDrafter):
+            self._step_spec_tree(k)
+            return
         drafts = np.zeros((n_slots, k), np.int32)
         dlen = np.zeros((n_slots,), np.int32)
         for slot, st in list(self._slots.items()):
@@ -572,6 +675,51 @@ class InferenceEngine:
         out = self._verify_block(torch.from_numpy(drafts).to(self.device),
                                  torch.from_numpy(dlen).to(self.device))
         host = out.cpu().numpy()   # the spec path's one fetch per step
+        self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
+
+    def _step_spec_tree(self, k: int) -> None:
+        """One draft-model tree iteration: one batched draft pass over every
+        live slot, one tree verify step, its fetch and the ragged ingest.
+        The per-slot budgets are the JAX engine's: no chain past
+        num_predict, and siblings only where a depth-1 chain would fit."""
+        width = self._tree_width
+        n, n_slots = len(self._tree[0]), self.config.max_slots
+        drafts = np.zeros((n_slots, n - 1), np.int32)
+        valid = np.zeros((n_slots, n), bool)
+        dlen = np.zeros((n_slots,), np.int32)
+        todo: dict[int, list[int]] = {}
+        budget: dict[int, int] = {}
+        for slot, st in list(self._slots.items()):
+            if st.joined_gen > self._gen:
+                continue  # first token still device-side: nothing to extend
+            # accepting the whole depth-b chain plus the bonus token lands
+            # exactly on the remaining allowance
+            b = k if st.num_predict < 0 else max(st.num_predict - len(st.generated) - 1, 0)
+            todo[slot] = st.ids
+            budget[slot] = b
+            # every live slot verifies at least its root: a slot the drafter
+            # skips still emits its one corrected token, a plain decode step
+            valid[slot, 0] = True
+        props = self._drafter.draft_batch(todo, k, width) if todo else {}
+        self.spec_stats["draft_ns"] = self._drafter.draft_ns
+        for slot, (chain, alts) in props.items():
+            b = budget[slot]
+            depth = min(len(chain), b)
+            drafts[slot, :depth] = chain[:depth]
+            valid[slot, 1:1 + depth] = True
+            if b >= 1 and k >= 1:
+                # a sibling emits at most itself and a bonus token, the
+                # bound of a depth-1 chain
+                for j, a in enumerate(alts):
+                    drafts[slot, k + j] = a
+                    valid[slot, k + 1 + j] = True
+            # proposed = chain depth, as the chain drafters count it (the
+            # siblings are a second chance, not more proposals)
+            dlen[slot] = depth
+        self._gen += 1
+        out = self._verify_tree_block(torch.from_numpy(drafts).to(self.device),
+                                      torch.from_numpy(valid).to(self.device))
+        host = out.cpu().numpy()   # the one fetch per step
         self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
 
     def _ingest_spec(self, gen: int, tok_np: np.ndarray, n_emit: np.ndarray,
@@ -664,6 +812,9 @@ class InferenceEngine:
             self.alloc.free(slot, st.ids[:-1] if reason != "error" else None)
         del self._slots[slot]
         self._free_slots.append(slot)
+        if isinstance(self._drafter, DraftModelDrafter):
+            # the next request in this slot drafts from scratch
+            self._drafter.reset_slot(slot)
         if st.req.on_chunk:
             st.req.on_chunk(last_delta, True, res)
 
@@ -898,5 +1049,8 @@ class InferenceEngine:
                             "evictions": self.alloc.evictions,
                             "cowCopies": self.alloc.cow_copies},
             "specDecode": ({"k": self._spec_k, "drafter": self._drafter.kind,
+                            "treeWidth": (self._tree_width
+                                          if isinstance(self._drafter, DraftModelDrafter)
+                                          else 1),
                             **self.spec_stats} if self._spec_k else None),
         }

@@ -10,8 +10,9 @@ Entry points, all taking host scalars for lengths and positions:
 - `prefill`: one slot's whole prompt bucket, writes the paged cache;
 - `prefill_chunk`: one chunk of a slot against its cached prefix;
 - `decode_step`: one token for every slot;
-- `verify_step`: K+1 speculative candidates for every slot, written
-  optimistically with the lengths left as they were;
+- `verify_step`: K+1 speculative candidates (a chain, or the nodes of a
+  draft model's token tree) for every slot, written optimistically with
+  the lengths left as they were;
 - `mixed_step`: one slot's prefill chunk plus one decode token for every
   slot, one ragged attention launch per layer.
 Every paged entry point defers its pool writes to ONE all-layer write after
@@ -333,21 +334,37 @@ class Llama(nn.Module):
         return logits, cache
 
     @torch.no_grad()
-    def verify_step(self, tokens: torch.Tensor, cache: PagedKVCache,
-                    active: torch.Tensor) -> tuple[torch.Tensor, PagedKVCache]:
+    def verify_step(self, tokens: torch.Tensor, cache: PagedKVCache, active: torch.Tensor,
+                    tree_pos=None, tree_mask=None) -> tuple[torch.Tensor, PagedKVCache]:
         """One speculative-verify forward for ALL slots. tokens: [S, T]
         candidate blocks (col 0 the committed last token, cols 1.. the
         drafts), active: [S] bool. Returns (logits [S, T, V] f32, row j the
         distribution after candidates 0..j; the cache with the candidates'
         K/V written OPTIMISTICALLY at lengths[s] + j and the lengths left
         unchanged: the caller commits the accepted length with
-        ops.kvcache.rollback_to_length)."""
+        ops.kvcache.rollback_to_length).
+
+        Tree verify: with `tree_pos` ([T] node depths) and `tree_mask`
+        ([T, T] ancestor-or-self), host arrays of one topology for all
+        slots, cols 1.. are the nodes of a token tree. Node j takes rope at
+        its LOGICAL position lengths[s] + tree_pos[j] and attends the prefix
+        plus its ancestors; its K/V are still written at the STORAGE
+        position lengths[s] + j (the caller compacts the accepted path with
+        ops.kvcache.commit_tree_path), and logits row j is the distribution
+        after node j's root path."""
         cfg = self.cfg
         s, t = tokens.shape
         base = cache.lengths.clone()
-        positions = base[:, None] + torch.arange(t, device=base.device, dtype=base.dtype)
+        offsets = torch.arange(t, device=base.device, dtype=base.dtype)
+        storage = base[:, None] + offsets
+        tree = {}
+        logical = storage
+        if tree_pos is not None:
+            tree = dict(tree_pos=tree_pos, tree_mask=tree_mask)
+            logical = base[:, None] + torch.as_tensor(np.asarray(tree_pos), dtype=base.dtype,
+                                                      device=base.device)
         x = self._embed(tokens)                                  # [S, T, E]
-        rope = rope_tables(positions, self.inv_freq)
+        rope = rope_tables(logical, self.inv_freq)
         shape = (cfg.num_layers, s, t, cfg.num_kv_heads, cfg.head_dim_)
         k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
         v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -358,15 +375,16 @@ class Llama(nn.Module):
                 if not self.ragged_attention:
                     return paged_attention_verify(
                         q, cache.k, cache.v, cache.page_table, base, ps, k, v,
-                        layer=li, window=window)
+                        layer=li, window=window, **tree)
                 _, og = ragged_paged_attention(
                     cache.k, cache.v, ps, q_group=q, page_table=cache.page_table,
-                    group_lengths=base, k_group=k, v_group=v, layer=li, window=window)
+                    group_lengths=base, k_group=k, v_group=v, layer=li, window=window,
+                    **tree)
                 return og
 
             x, k_new[li], v_new[li] = self._block(li, x, rope, attend)
         logits = self._unembed(x)
-        write_multi_all(cache.k, cache.v, k_new, v_new, cache.page_table, positions,
+        write_multi_all(cache.k, cache.v, k_new, v_new, cache.page_table, storage,
                         active, ps)
         return logits, cache
 

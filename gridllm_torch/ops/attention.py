@@ -21,12 +21,20 @@ Pools may be int8 (`QuantPages`): the plain versions read them through
 `gather_kv`, which dequantizes; `ragged_paged_attention` hands values and
 scales to the kernel's int8 leg; the per-phase dispatchers have no int8
 kernel (nor has the JAX package) and run the plain versions.
+
+Tree verify (a draft model's token tree, `tree_pos`/`tree_mask`):
+`ragged_paged_attention` packs the ancestor mask into int32 bitmasks for
+the kernel's tree leg (trees of at most 32 nodes; larger ones run the
+plain version, as in the JAX package); `paged_attention_verify` always
+runs the plain version's tree branch, since no per-phase kernel carries an
+ancestor mask, here or in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from gridllm_torch.ops.kvcache import QuantPages, gather_kv
@@ -230,21 +238,72 @@ def paged_attention_verify_ref(
     v_cur: torch.Tensor,
     logit_softcap: float = 0.0,
     window: int = 0,
+    tree_pos: torch.Tensor | None = None,
+    tree_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Batched multi-token decode attention (S slots × T candidates each)
     against one layer's pool: candidate i of slot s sits at position
     lengths[s] + i and attends the prefix plus the candidates before it.
-    q: [S, T, H, D]; k_cur/v_cur: [S, T, KVH, D]. Returns [S, T, H, D]."""
-    s, t = q.shape[:2]
-    outs = [
-        _prefix_chunk_ref(
-            q[i][None], k_pages, v_pages, page_table[i], int(lengths[i]),
-            int(lengths[i]) + t, page_size, k_cur=k_cur[i], v_cur=v_cur[i],
-            logit_softcap=logit_softcap, window=window,
-        )[0]
-        for i in range(s)
-    ]
-    return torch.stack(outs)
+    q: [S, T, H, D]; k_cur/v_cur: [S, T, KVH, D]. Returns [S, T, H, D].
+
+    Tree verify: with `tree_pos` ([T] node depths) and `tree_mask` ([T, T]
+    bool, row i marks node i's ancestors and itself) the T candidates are a
+    token tree shared by all slots. Node i's K/V stay at STORAGE position
+    lengths[s] + i, but its LOGICAL position is lengths[s] + tree_pos[i]:
+    its query attends the whole prefix plus exactly its tree ancestors and
+    itself, with the window measured on logical distance."""
+    if tree_pos is None:
+        s, t = q.shape[:2]
+        outs = [
+            _prefix_chunk_ref(
+                q[i][None], k_pages, v_pages, page_table[i], int(lengths[i]),
+                int(lengths[i]) + t, page_size, k_cur=k_cur[i], v_cur=v_cur[i],
+                logit_softcap=logit_softcap, window=window,
+            )[0]
+            for i in range(s)
+        ]
+        return torch.stack(outs)
+    return torch.stack([
+        _tree_verify_ref(q[i], k_pages, v_pages, page_table[i], int(lengths[i]), page_size,
+                         k_cur[i], v_cur[i], tree_pos, tree_mask, logit_softcap, window)
+        for i in range(q.shape[0])
+    ])
+
+
+def _tree_verify_ref(q, k_pages, v_pages, table_row, start: int, page_size: int, k_cur,
+                     v_cur, tree_pos, tree_mask, logit_softcap: float, window: int):
+    """One slot of the tree branch of paged_attention_verify_ref (the JAX
+    package's `one_slot` tree trace): q [T, H, D] → [T, H, D]."""
+    t, h, d = q.shape
+    kvh = k_pages.shape[-2]
+    g = h // kvh
+    ks, vs = gather_kv(k_pages, v_pages, table_row, page_size)
+    ks, vs = ks.float(), vs.float()
+    n = ks.shape[0]
+    m = max(min(t, n - start), 0)   # candidates past the capacity edge are cut
+    ks[start:start + m] = k_cur[:m].float()
+    vs[start:start + m] = v_cur[:m].float()
+    dev = q.device
+    tree_pos = torch.as_tensor(tree_pos, dtype=torch.int64, device=dev)
+    tree_mask = torch.as_tensor(tree_mask, dtype=torch.bool, device=dev)
+    k_pos = torch.arange(n, device=dev)
+    total = start + t
+    # query node i at logical start + depth[i]; a key in the candidate
+    # region [start, start + T) is node k_pos - start at logical start +
+    # its depth, a prefix key at its own index
+    q_pos = start + tree_pos
+    is_cand = (k_pos >= start) & (k_pos < total)
+    node = torch.clamp(k_pos - start, 0, t - 1)
+    k_log = torch.where(is_cand, start + tree_pos[node], k_pos)
+    dist = q_pos[:, None] - k_log[None, :]
+    mask = torch.where(is_cand[None, :], tree_mask[:, node], dist >= 0)
+    if window > 0:
+        mask = mask & (dist < window)
+    mask = mask & (k_pos[None, :] < total)
+    qf = q.float().reshape(t, kvh, g, d)
+    logits = torch.einsum("tkgd,nkd->kgtn", qf, ks) * (1.0 / (d ** 0.5))
+    out = _masked_softmax_av(logits, mask[None, None], vs, logit_softcap, "kgtn,nkd->tkgd")
+    return out.reshape(t, h, d).to(q.dtype)
 
 
 def _layer_pool(pages, layer: int | None):
@@ -274,9 +333,13 @@ def ragged_paged_attention_ref(
     layer: int | None = None,
     logit_softcap: float = 0.0,
     window: int = 0,
+    tree_pos: torch.Tensor | None = None,
+    tree_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Plain version of the unified ragged launch: the per-region legacy
-    references composed (see `ragged_paged_attention` for the contract)."""
+    references composed (see `ragged_paged_attention` for the contract).
+    A tree (`tree_pos`/`tree_mask`) routes the group region through the
+    tree branch of paged_attention_verify_ref."""
     kp, vp = _layer_pool(k_pages, layer), _layer_pool(v_pages, layer)
     out_chunk = out_group = None
     if q_chunk is not None:
@@ -286,7 +349,13 @@ def ragged_paged_attention_ref(
             logit_softcap=logit_softcap, window=window,
         )
     if q_group is not None:
-        if q_group.shape[1] == 1:
+        if tree_pos is not None:
+            out_group = paged_attention_verify_ref(
+                q_group, kp, vp, page_table, group_lengths, page_size, k_group, v_group,
+                logit_softcap=logit_softcap, window=window, tree_pos=tree_pos,
+                tree_mask=tree_mask,
+            )
+        elif q_group.shape[1] == 1:
             out_group = paged_attention_decode_ref(
                 q_group[:, 0], kp, vp, page_table, group_lengths, page_size,
                 k_cur=k_group[:, 0], v_cur=v_group[:, 0],
@@ -346,6 +415,8 @@ def ragged_paged_attention(
     layer: int | None = None,
     logit_softcap: float = 0.0,
     window: int = 0,
+    tree_pos=None,
+    tree_mask=None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Unified ragged paged attention: one prefill CHUNK region plus S
     per-slot GROUPS in a single launch.
@@ -359,14 +430,33 @@ def ragged_paged_attention(
       holds the prefix only (group_lengths counts it), the fresh K/V
       k_group/v_group [S, Td, KVH, D] are merged causally.
 
+    - tree verify: `tree_pos` ([Td] node depths) and `tree_mask` ([Td, Td]
+      ancestor-or-self), host arrays of a topology shared by all slots,
+      make the group's tokens a token tree (contract of
+      paged_attention_verify_ref's tree branch). The mask is packed into
+      one int32 bitmask per node for the kernel's tree leg; a tree of more
+      than 32 nodes runs the plain version, as in the JAX package.
+
     Pools are one layer [P, ps, KVH, D] or the full stack with `layer`
     selecting, in the compute dtype or int8 (`QuantPages`, whose values
     and per-row scales go to the kernel's int8 leg). Returns (chunk_out,
     group_out), each shaped like its q (None when the region is absent).
     CUDA tensors run the `ragged_attention` kernel.
     """
-    from gridllm_torch.ops.cuda_kernels import ragged_attention
+    from gridllm_torch.ops.cuda_kernels import MAX_TREE_NODES, ragged_attention
 
+    tree = {}
+    if tree_pos is not None and q_group is not None:
+        if q_group.shape[1] > MAX_TREE_NODES:
+            return ragged_paged_attention_ref(
+                k_pages, v_pages, page_size, q_chunk=q_chunk, chunk_row=chunk_row,
+                chunk_start=chunk_start, chunk_total=chunk_total, k_chunk=k_chunk,
+                v_chunk=v_chunk, q_group=q_group, page_table=page_table,
+                group_lengths=group_lengths, k_group=k_group, v_group=v_group,
+                layer=layer, logit_softcap=logit_softcap, window=window,
+                tree_pos=tree_pos, tree_mask=tree_mask)
+        tree = dict(tree_pos=np.asarray(tree_pos, np.int32),
+                    tree_bits=tree_bits_of(tree_mask))
     scales = {}
     if isinstance(k_pages, QuantPages):
         scales = dict(k_scale=k_pages.scale, v_scale=v_pages.scale)
@@ -377,8 +467,18 @@ def ragged_paged_attention(
         chunk_total=chunk_total, k_chunk=k_chunk, v_chunk=v_chunk,
         q_group=q_group, page_table=page_table, group_lengths=group_lengths,
         k_group=k_group, v_group=v_group, layer=layer,
-        softcap=logit_softcap, window=window, **scales,
+        softcap=logit_softcap, window=window, **scales, **tree,
     )
+
+
+def tree_bits_of(tree_mask) -> np.ndarray:
+    """[N, N] ancestor mask → N int32 bitmasks, bit j of entry i set iff
+    node j is on node i's root path (bit 31 is the sign, as the JAX
+    package packs it)."""
+    tm = np.asarray(tree_mask, bool)
+    bits = (tm.astype(np.uint32) << np.arange(tm.shape[1], dtype=np.uint32)).sum(
+        axis=1, dtype=np.uint32)
+    return bits.view(np.int32)
 
 
 def _lane_pad_qkv(q: torch.Tensor, k_cur: torch.Tensor | None,
@@ -488,8 +588,8 @@ def paged_attention_verify(
     layer: int | None = None,
     logit_softcap: float = 0.0,
     window: int = 0,
-    tree_pos: torch.Tensor | None = None,
-    tree_mask: torch.Tensor | None = None,
+    tree_pos=None,
+    tree_mask=None,
 ) -> torch.Tensor:
     """Speculative-verify attention (contract of paged_attention_verify_ref):
     q [S, T, H, D], candidate i of slot s at position lengths[s] + i,
@@ -497,13 +597,17 @@ def paged_attention_verify(
     attention_prefix_chunk per slot with start = lengths[s] and total =
     start + T, each reading its slot's length from the lengths tensor (on
     the card, no host sync in the loop). An int8 pool runs the plain
-    version, all slots at once. Tree verify is not ported and raises."""
-    if tree_pos is not None or tree_mask is not None:
-        raise NotImplementedError("paged_attention_verify: tree verify is not ported")
-    if isinstance(k_pages, QuantPages):
+    version, all slots at once.
+
+    A token tree (`tree_pos`/`tree_mask`) always runs the plain version's
+    tree branch: the per-slot prefix_chunk loop cannot express an ancestor
+    mask, and no per-phase kernel carries one, in this package or the JAX
+    package (the unified ragged kernel's tree leg does)."""
+    if tree_pos is not None or isinstance(k_pages, QuantPages):
         return paged_attention_verify_ref(
             q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
-            lengths, page_size, k_cur, v_cur, logit_softcap=logit_softcap, window=window)
+            lengths, page_size, k_cur, v_cur, logit_softcap=logit_softcap, window=window,
+            tree_pos=tree_pos, tree_mask=tree_mask)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     return torch.cat([
         attention_prefix_chunk(

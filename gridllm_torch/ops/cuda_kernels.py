@@ -11,7 +11,8 @@ and dispatches on where the tensors lie:
 `LAUNCHES` counts successful launches per kernel (never the CPU path), so
 a run can prove that its main path went through the kernels; `LEG_LAUNCHES`
 counts, beside them, the launches of one leg of a kernel (the int8 pool
-leg of ragged_attention).
+leg and the tree-verify leg of ragged_attention; one launch may take
+both).
 
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
@@ -30,6 +31,7 @@ import ctypes
 import threading
 from typing import Any
 
+import numpy as np
 import torch
 
 from gridllm_torch.ops import _build
@@ -55,6 +57,7 @@ LAUNCHES: dict[str, int] = {
 # launches of one leg of a kernel, also counted in LAUNCHES[kernel]
 LEG_LAUNCHES: dict[str, int] = {
     "ragged_attention.int8": 0,
+    "ragged_attention.tree": 0,
 }
 
 
@@ -96,7 +99,8 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         [_P, _P, _P, _P, _I, _I, _I,              # pools, scales, P, ps, layer
          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,  # chunk region
          _P, _P, _P, _P, _P, _P, _I, _I, _I,      # group region
-         _I, _I, _I, _I, _I, _F, _F, _I, _P]),    # H, KVH, D, rpw, dtype, ...
+         _I, _I, _I, _I, _I, _F, _F, _I,          # H, KVH, D, rpw, dtype, ...
+         _I, _P, _P, _P]),                        # tree_n, tree_pos, tree_bits, stream
     "gridllm_error_string": ("paged_write.cu", [_I]),
 }
 _fns: dict[str, Any] = {}
@@ -104,6 +108,7 @@ _fns_lock = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_ROWS = 32  # query rows one block holds: kWarps (4) x RPW (<= 8)
+MAX_TREE_NODES = 32  # the tree leg's int32 ancestor bitmask per node
 _STREAMED_ROWS = 128  # flash_prefill_streamed: 8 warps x 16 rows
 
 
@@ -119,13 +124,13 @@ def _fn(name: str):
         return fn
 
 
-def _launch(name: str, kernel: str, *args, leg: str | None = None) -> None:
+def _launch(name: str, kernel: str, *args, legs: tuple[str, ...] = ()) -> None:
     err = _fn(name)(*args)
     if err != 0:
         msg = _fn("gridllm_error_string")(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
     LAUNCHES[kernel] += 1
-    if leg is not None:
+    for leg in legs:
         LEG_LAUNCHES[f"{kernel}.{leg}"] += 1
 
 
@@ -434,6 +439,32 @@ def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: in
     return out
 
 
+def tree_rows(td: int, tree_pos, tree_bits) -> tuple[int, list[int], list[int]]:
+    """Check a group's tree-verify operands against its Td tokens and
+    return (tree_n, depths, ancestor bitmasks) as host ints: (0, [], [])
+    for a causal group, which may be of any width; a tree has Td <= 32
+    nodes, depths in [0, Td) and node i's own bit set in its mask."""
+    if tree_pos is None and tree_bits is None:
+        return 0, [], []
+    if tree_pos is None or tree_bits is None:
+        raise ValueError("ragged_attention: tree_pos and tree_bits go together")
+    pos = [int(x) for x in np.asarray(tree_pos).reshape(-1)]
+    bits = [int(x) & 0xFFFFFFFF for x in np.asarray(tree_bits, dtype=np.int64).reshape(-1)]
+    if not 0 < td <= MAX_TREE_NODES or len(pos) != td or len(bits) != td:
+        raise ValueError(f"ragged_attention: a tree of {len(pos)} nodes for {td} group "
+                         f"tokens (at most {MAX_TREE_NODES})")
+    if any(not 0 <= p < td for p in pos) or any(not (b >> i) & 1 for i, b in enumerate(bits)):
+        raise ValueError(f"ragged_attention: bad tree depths {pos} or bits {bits}")
+    # each mask as the int32 the kernel reads (bit 31 is the sign)
+    return td, pos, [b - (1 << 32) if b >> 31 else b for b in bits]
+
+
+def tree_mask_from_bits(tree_bits, n: int) -> torch.Tensor:
+    """[n, n] bool ancestor-or-self mask unpacked from n int32 bitmasks."""
+    bits = torch.as_tensor(np.asarray(tree_bits, dtype=np.int64) & 0xFFFFFFFF)
+    return ((bits[:, None] >> torch.arange(n)[None, :]) & 1).bool()
+
+
 def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=None,
                      chunk_start=None, chunk_total=None, k_chunk=None, v_chunk=None,
                      q_group=None, page_table=None, group_lengths=None, k_group=None,
@@ -445,24 +476,32 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
     k_scale/v_scale the pools are int8 values and these their float32
     per-row scales [L, P, ps] (or [P, ps] for one layer): the kernel's int8
     leg dequantizes each pool row after its load, and the compute dtype is
-    q's. The tree-verify leg (tree_pos/tree_bits) of the TPU kernel is not
-    ported and raises."""
-    if tree_pos is not None or tree_bits is not None:
-        raise NotImplementedError("ragged_attention: tree verify is not ported")
+    q's. With tree_pos/tree_bits (host int arrays of Td <= 32 node depths
+    and int32 ancestor bitmasks, as `tree_rows` checks) the group's tokens
+    are a token tree: the kernel's tree leg, counted in
+    LEG_LAUNCHES["ragged_attention.tree"]."""
     if q_chunk is None and q_group is None:
         raise ValueError("ragged_attention: needs a chunk or a group region")
     quant = k_scale is not None
     if quant != (v_scale is not None):
         raise ValueError("ragged_attention: k_scale and v_scale go together")
+    has_tree = tree_pos is not None or tree_bits is not None
+    if has_tree and q_group is None:
+        raise ValueError("ragged_attention: a tree needs a group region")
+    tree_n, t_pos, t_bits = tree_rows(q_group.shape[1] if has_tree else 0, tree_pos, tree_bits)
     if not k_pages.is_cuda:
         if quant:
             k_pages, v_pages = QuantPages(k_pages, k_scale), QuantPages(v_pages, v_scale)
+        tree = {}
+        if tree_n:
+            tree = dict(tree_pos=torch.tensor(t_pos, dtype=torch.int32),
+                        tree_mask=tree_mask_from_bits(t_bits, tree_n))
         return ragged_paged_attention_ref(
             k_pages, v_pages, page_size, q_chunk=q_chunk, chunk_row=chunk_row,
             chunk_start=chunk_start, chunk_total=chunk_total, k_chunk=k_chunk,
             v_chunk=v_chunk, q_group=q_group, page_table=page_table,
             group_lengths=group_lengths, k_group=k_group, v_group=v_group,
-            layer=layer, logit_softcap=softcap, window=window)
+            layer=layer, logit_softcap=softcap, window=window, **tree)
     kernel, dev = "ragged_attention", k_pages.device
     some_q = q_chunk if q_chunk is not None else q_group
     cdtype = some_q.dtype   # the compute dtype: q's, whatever the pool holds
@@ -500,8 +539,6 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
     s = td = n_table_g = 0
     if q_group is not None:
         s, td = q_group.shape[:2]
-        if td > 32:
-            raise ValueError(f"{kernel}: {td} group tokens per slot (at most 32)")
         _check(kernel, "q_group", q_group, dev, (s, td, h, d), cdtype)
         _check(kernel, "k_group", k_group, dev, (s, td, kvh, d), cdtype)
         _check(kernel, "v_group", v_group, dev, (s, td, kvh, d), cdtype)
@@ -512,6 +549,7 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
         n_table_g = page_table.shape[1]
         rows = max(rows, td * g)
         out_group = torch.empty_like(q_group)
+    legs = ("int8",) * quant + ("tree",) * bool(tree_n)
     if n_tiles + s:
         _launch("gridllm_ragged_attention", kernel, _ptr(k_pages), _ptr(v_pages),
                 _ptr(k_scale), _ptr(v_scale), num_pages, ps, layer,
@@ -520,5 +558,6 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
                 _ptr(q_group), _ptr(k_group), _ptr(v_group), _ptr(out_group),
                 _ptr(page_table), _ptr(group_lengths), n_table_g, s, td,
                 h, kvh, d, _rows_per_warp(rows), code, d ** -0.5, float(softcap),
-                int(window), _stream(k_pages), leg="int8" if quant else None)
+                int(window), tree_n, (ctypes.c_int * max(tree_n, 1))(*t_pos),
+                (ctypes.c_int * max(tree_n, 1))(*t_bits), _stream(k_pages), legs=legs)
     return out_chunk, out_group

@@ -27,6 +27,11 @@ class KernelSpec:
     atol: float
     test: str         # owning CPU differential test
     smoke_phase: str  # chip_smoke.py phases that run it on the card
+    # legs beside the kernel's main path, each counted in
+    # cuda_kernels.LEG_LAUNCHES["<name>.<leg>"]: (leg, operands and what
+    # they add, owning CPU differential test); same plain version and
+    # tolerances
+    legs: tuple[tuple[str, str, str], ...] = ()
 
 
 KERNELS: tuple[KernelSpec, ...] = (
@@ -73,7 +78,16 @@ KERNELS: tuple[KernelSpec, ...] = (
         plain="attention:ragged_paged_attention_ref",
         rtol=3e-2, atol=3e-2,
         test="tests/test_torch_attention.py::test_ragged_ref_matches_ragged_kernel",
-        smoke_phase="kernels, timing, serve",
+        smoke_phase="kernels, timing, serve, int8, tree",
+        legs=(
+            ("int8", "k_scale/v_scale: an int8 pool, each row dequantized by its "
+             "float32 scale after the load",
+             "tests/test_torch_kv_int8.py::test_ragged_on_int8_pool_matches_jax"),
+            ("tree", "tree_pos/tree_bits: the group's <= 32 tokens are token-tree "
+             "nodes at logical positions length + depth, fresh columns masked by "
+             "ancestor bitmasks",
+             "tests/test_torch_spec_tree.py::test_tree_attention_matches_jax"),
+        ),
     ),
     KernelSpec(
         name="paged_write_decode",

@@ -348,6 +348,73 @@ def rollback_to_length(cache: PagedKVCache, new_lengths: torch.Tensor) -> PagedK
     return cache
 
 
+def commit_tree_path(cache: PagedKVCache, path: torch.Tensor,
+                     active: torch.Tensor) -> PagedKVCache:
+    """Compact the accepted root-to-leaf path of a tree-verify step into
+    contiguous KV rows, in place.
+
+    A tree verify writes node i's K/V optimistically at storage position
+    lengths + i, but node i's logical position is lengths + depth[i], so a
+    rejected sibling leaves a hole between accepted rows. `path[s, j]`
+    ([S, N]) names the tree node whose row backs committed position
+    lengths[s] + 1 + j (0 = no row: the final corrected or bonus token, or
+    past n_emit; spec_accept_tree's contract). This copies row lengths +
+    path[s, j] over row lengths + 1 + j for every path[s, j] > 0 that moves,
+    on every layer, and leaves lengths alone (the caller rolls them forward
+    with rollback_to_length, as after a chain verify). The JAX package's
+    commit_tree_path, row for row.
+
+    - Every source row is gathered (a copy) before any row is written, so
+      overlapping rows are safe (topological order gives src >= dst).
+    - Rows at or below lengths are never written: destinations start at
+      lengths + 1, strictly past any prefix-cache page a slot shares.
+    - An int8 pool (`QuantPages`) moves the int8 values and the float32
+      scale of each row verbatim: requantizing would recompute the scale.
+    - A row that must not move (inactive slot, no move, a destination past
+      the table's capacity or on an unmapped page) repeats the first moving
+      row's write, an identical duplicate, or, when no row moves, rewrites
+      pool row 0 with what it holds: the JAX package drops such rows, and
+      a masked select would cost a host sync."""
+    s, n = path.shape
+    ps = cache.page_size
+    table = cache.page_table
+    max_pages = table.shape[1]
+    dev = path.device
+    j = torch.arange(n, device=dev)[None, :]
+    path = path.to(torch.int64)
+    lengths = cache.lengths.to(torch.int64)[:, None]
+    do = (active.to(dev)[:, None] & (path > 0) & (path != j + 1)).reshape(-1)
+    src_pos = (lengths + path).reshape(-1)
+    dst_pos = (lengths + 1 + j).reshape(-1)
+    slot_of = torch.arange(s, device=dev).repeat_interleave(n)
+    num_pages = cache.k.shape[1]
+    # sources: clamped into the table and the pool (a hazardous read is
+    # junk that no kept row writes)
+    src_page = table[slot_of, torch.clamp(src_pos // ps, 0, max_pages - 1)].long()
+    src = torch.clamp(src_page, 0, num_pages - 1) * ps + src_pos % ps
+    dst_page = _safe_page_idx(lambda p: table[slot_of, p.long()], dst_pos, do, ps,
+                              max_pages, num_pages).long()
+    keep = dst_page < num_pages
+    any_keep = keep.any()
+    first = torch.argmax(keep.to(torch.uint8))
+    rows = torch.where(keep, torch.arange(keep.shape[0], device=dev), first)
+    dst = torch.where(any_keep, dst_page[rows] * ps + dst_pos[rows] % ps, 0)
+    src = torch.where(any_keep, src[rows], 0)
+
+    def move(pages):
+        if isinstance(pages, QuantPages):
+            for t in (pages.data, pages.scale):
+                flat = t.view(t.shape[0], num_pages * ps, *t.shape[3:])
+                flat[:, dst] = flat[:, src]
+            return
+        flat = pages.view(pages.shape[0], num_pages * ps, *pages.shape[3:])
+        flat[:, dst] = flat[:, src]
+
+    move(cache.k)
+    move(cache.v)
+    return cache
+
+
 def write_prefill_all(
     k_pages: torch.Tensor,
     v_pages: torch.Tensor,

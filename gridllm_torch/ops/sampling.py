@@ -1,5 +1,6 @@
 """Batched token sampling with per-slot options, and the speculative
-accept/reject over a verify step's candidate block (`spec_accept`).
+accept/reject over a verify step's candidate block (`spec_accept`) or a
+draft model's token tree (`spec_accept_tree`).
 
 The Ollama sampler option surface (temperature, top_k, top_p, min_p, seed,
 repeat_penalty over the last repeat_last_n tokens) held as per-slot device
@@ -248,6 +249,110 @@ def spec_accept(
     last = torch.gather(out.T, 1, (emitted - 1).clamp(min=0)[:, None].long())[:, 0]
     params.step += emitted
     return out, emitted, last
+
+
+def _spec_tree_keys(seed: torch.Tensor, step: torch.Tensor, topk: int,
+                    rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot (uniform [S, rounds], gumbel [S, topk]) for one emitted-token
+    index of the tree accept walk: one uniform per candidate child round
+    (each sibling needs its own accept test) and the residual fallback's
+    Gumbel noise. Sub-streams 3 and 4 of the (seed, step) counter, disjoint
+    from spec_accept's streams 1 and 2, as the JAX package folds its tree
+    draws apart from its chain draws."""
+    u = _counter_uniform(seed, step, rounds, stream=3).float()
+    g = -torch.log(-torch.log(_counter_uniform(seed, step, topk, stream=4)))
+    return u, g.float()
+
+
+def spec_accept_tree(
+    logits: torch.Tensor,       # [S, N, V] f32 tree-verify logits
+    node_tokens: torch.Tensor,  # [S, N]: col 0 the committed root token
+    parents,                    # [N] host ints, topological (parents[i] < i)
+    node_valid: torch.Tensor,   # [S, N] bool live nodes (root always; ancestor-closed)
+    params: SamplingParams,
+    counts: torch.Tensor,       # [S, V] i32 repeat-penalty counts
+    window: torch.Tensor,       # [S, W] i32 repeat-penalty window
+    wlen: torch.Tensor,         # [S] i32
+    active: torch.Tensor,       # [S] bool
+    vocab: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk the accepted root-to-leaf path of a static-topology draft tree
+    (the JAX package's spec_accept_tree).
+
+    logits[s, i] is the next-token distribution after node i's root path
+    (the tree-masked verify forward). Each of N steps tests the current
+    node's valid children in node order:
+    - greedy (temperature <= 0): emit the argmax of the penalized logits
+      at the current node, as sequential decode does, and descend into the
+      first child carrying it; greedy streams equal spec-off ones;
+    - sampled: multi-round rejection. Child c with token x is accepted with
+      probability residual(x), where the residual starts as the full
+      truncated, penalized, temperature-scaled target and each rejected
+      sibling's token is removed and the rest renormalized; if every child
+      rejects, sample the final residual.
+    A step with no accepted child emits its corrected or bonus token and
+    ends the walk. The repeat-penalty window and counts advance per emitted
+    token (in place) and params.step by the emitted count. The walk is
+    tensor code on the logits' device: no host sync inside it.
+
+    Returns (out [N, S]: row j valid iff j < n_emit[s]; path [S, N]:
+    path[s, j] is the tree node whose optimistically written row backs
+    committed position lengths[s] + 1 + j, 0 for a corrected or bonus token
+    or past n_emit; n_emit [S]; last [S], the last emitted token)."""
+    s, n, _ = logits.shape
+    parents = [int(p) for p in parents]
+    if len(parents) != n:
+        raise ValueError(f"spec_accept_tree: {len(parents)} parents for {n} nodes")
+    logits = logits.float()
+    dev = logits.device
+    greedy_mode = params.temperature <= 0.0
+    rows = torch.arange(s, device=dev)
+    emitted = torch.zeros((s,), dtype=torch.int32, device=dev)
+    alive = torch.ones((s,), dtype=torch.bool, device=dev)
+    cur = torch.zeros((s,), dtype=torch.int64, device=dev)
+    node_tokens = node_tokens.to(torch.int32)
+    outs, paths = [], []
+    for _ in range(n):
+        greedy, idx, keep, scaled = _sampler_dists(logits[rows, cur], params, counts)
+        u, gum = _spec_tree_keys(params.seed, params.step + emitted, idx.shape[-1],
+                                 max(n - 1, 1))
+        neg = torch.full_like(scaled, float("-inf"))
+        probs = torch.softmax(torch.where(keep, scaled, neg), dim=-1)
+        zero = torch.zeros_like(probs)
+        fb_keep = keep
+        acc_node = torch.full((s,), -1, dtype=torch.int64, device=dev)
+        for c in range(1, n):
+            tok_c = node_tokens[:, c]
+            considered = node_valid[:, c] & (cur == parents[c]) & (acc_node < 0)
+            is_tok = fb_keep & (idx == tok_c[:, None])
+            num = torch.where(is_tok, probs, zero).sum(-1)
+            den = torch.where(fb_keep, probs, zero).sum(-1)
+            p_c = num / den.clamp(min=1e-30)
+            # forced: this child's token is the only kept mass left, so a
+            # rounding reject would leave an empty residual
+            forced = ~(fb_keep & (idx != tok_c[:, None])).any(-1)
+            s_acc = considered & ((u[:, c - 1] < p_c) | forced)
+            g_acc = considered & (tok_c == greedy)
+            acc = torch.where(greedy_mode, g_acc, s_acc)
+            acc_node = torch.where(acc, c, acc_node)
+            rejected = considered & ~acc & ~greedy_mode
+            fb_keep = fb_keep & ~(rejected[:, None] & (idx == tok_c[:, None]))
+        has = acc_node >= 0
+        acc_tok = torch.gather(node_tokens, 1, acc_node.clamp(min=0)[:, None])[:, 0]
+        choice = torch.argmax(torch.where(fb_keep, scaled + gum, neg), dim=-1)
+        fallback = torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
+        tok = torch.where(greedy_mode, greedy, torch.where(has, acc_tok, fallback))
+        emit = alive & active
+        window_push(window, wlen, counts, tok, emit, params.repeat_last_n, vocab)
+        emitted = emitted + emit.to(torch.int32)
+        cur = torch.where(has & emit, acc_node, cur)
+        alive = alive & has
+        outs.append(torch.where(emit, tok, torch.zeros_like(tok)))
+        paths.append(torch.where(emit & has, acc_node, 0).to(torch.int32))
+    out = torch.stack(outs)
+    last = torch.gather(out.T, 1, (emitted - 1).clamp(min=0)[:, None].long())[:, 0]
+    params.step += emitted
+    return out, torch.stack(paths, dim=1), emitted, last
 
 
 # ---------------------------------------------------------------------------

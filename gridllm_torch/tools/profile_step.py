@@ -21,6 +21,12 @@ Serves llama3:8b (bf16, random weights from seed 0) and measures:
   8 slots at 1024 cached tokens and one mixed step as above, each one
   profiled call (the int8 leg of ragged_attention; the int8 writes are
   indexed assignments, counted under "other");
+- draft-model tree speculation (`draft_model="llama3.2:1b"`, the default
+  tree of K = 4 and width 2, N = 6 nodes): one tree verify step of 8 slots
+  at 1024 cached tokens, the draft pass (a catch-up chunk and K - 1 draft
+  decode steps) and the target's tree verify each profiled as a span, by
+  kernel family; the target's ragged launches are the tree leg
+  ("ragged_attention.tree");
 - long-context admission on llama3.1:8b (512 pages of 64 per slot, the
   32768 bucket): one whole 32768-token bucket prefill (flash_prefill_
   streamed), and the same prompt admitted in 1024-token chunks (32 mixed
@@ -222,6 +228,55 @@ def profile_int8(engine: InferenceEngine) -> list[dict]:
     ))]
 
 
+def profile_tree(engine: InferenceEngine) -> list[dict]:
+    """One tree verify step of a draft-model engine: every slot at 1024
+    cached tokens in the target's pool and in the draft's, one new token
+    per slot to catch up (an accepted draft and its correction), then the
+    draft pass and the target's tree verify, each its own profiled span
+    (the draft pass ends in its host fetch; the verify span synchronizes)."""
+    st = _Steps(engine)
+    drafter, dev = engine._drafter, engine.device
+    k, width = engine.config.spec_k, engine.config.spec_tree_width
+    n, s = len(engine._tree[0]), engine.config.max_slots
+    engine.active.fill_(True)
+    engine.sampling.temperature.zero_()
+    ids = {slot: torch.randint(0, 32_000, (1024,)).tolist() for slot in range(s)}
+    drafter.draft_batch(ids, k, width)   # the draft pool catches up on 1024 tokens
+
+    def step():
+        props = drafter.draft_batch(ids, k, width)
+        drafts = torch.zeros((s, n - 1), dtype=torch.int32)
+        for slot, (chain, alts) in props.items():
+            drafts[slot] = torch.tensor(chain + alts, dtype=torch.int32)
+            ids[slot] += [chain[0], (chain[1] + 1) % 32_000]   # one accepted, one correction
+        return drafts.to(dev), torch.ones((s, n), dtype=torch.bool, device=dev)
+
+    def verify(drafts, valid):
+        st.cache.lengths.fill_(1024)
+        engine._verify_tree_block(drafts, valid)
+        torch.cuda.synchronize()
+
+    verify(*step())   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("draft"):
+            drafts, valid = step()
+        t1 = time.perf_counter()
+        with record_function("target"):
+            verify(drafts, valid)
+        t2 = time.perf_counter()
+    draft = _device_breakdown(prof, 1, t1 - t0, span="draft")
+    target = _device_breakdown(prof, 1, t2 - t1, span="target")
+    fams = target["device_ms_per_step_by_family"]
+    fams["ragged_attention.tree"] = fams.pop("ragged_attention", 0.0)
+    return [{"measure": f"tree_verify_step_{s}x{n}_after_1024", "draft_model": "llama3.2:1b",
+             "tree": f"k={k} width={width}", "wall_ms": (t2 - t0) * 1e3,
+             "device_busy_ms": draft["device_busy_ms_per_step"]
+             + target["device_busy_ms_per_step"],
+             "draft": draft, "target": target}]
+
+
 def profile_long() -> list[dict]:
     """A 32768-token prompt admitted whole (the 32768 bucket) and in
     1024-token chunks (mixed steps beside 8 idle decode rows, as the engine
@@ -273,6 +328,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     engine = InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda")
     emit(profile_decode(engine, engine.config.max_slots))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model="llama3:8b", draft_model="llama3.2:1b"),
+                             device="cuda")
+    emit(profile_tree(engine))
     del engine
     gc.collect()
     torch.cuda.empty_cache()

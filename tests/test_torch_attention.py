@@ -119,12 +119,12 @@ def test_ragged_ref_matches_ragged_kernel(regions, td, softcap, window):
 
 
 def test_ragged_wrapper_refuses_unported_legs():
-    """Only the tree-verify leg is unported; the int8 leg's scales must come
-    in pairs."""
+    """Every leg is ported; the int8 leg's scales and the tree leg's
+    operands must come in pairs."""
     rng = np.random.default_rng(0)
     inp = _ragged_inputs(rng, 1)
     g = {k: _t(v) for k, v in inp["group"].items()}
     with pytest.raises(ValueError, match="k_scale and v_scale"):
         TK.ragged_attention(_t(inp["kp"]), _t(inp["vp"]), 8, k_scale=torch.ones(1), **g)
-    with pytest.raises(NotImplementedError, match="tree"):
+    with pytest.raises(ValueError, match="tree_pos and tree_bits"):
         TK.ragged_attention(_t(inp["kp"]), _t(inp["vp"]), 8, tree_bits=torch.ones(1), **g)

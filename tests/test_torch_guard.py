@@ -79,7 +79,7 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("checkpoint_path", "weights"), ("quantize", "int8"),
-    ("kv_host_bytes", 1 << 20), ("draft_model", "tiny-llama"), ("mesh", object()),
+    ("kv_host_bytes", 1 << 20), ("draft_checkpoint", "weights"), ("mesh", object()),
 ])
 def test_unported_engine_features_raise(field, value):
     cfg = EngineConfig(model="tiny-llama", dtype="float32", **{field: value})

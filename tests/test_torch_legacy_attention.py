@@ -214,11 +214,20 @@ def test_verify_matches_jax(window):
 
 
 def test_verify_refuses_tree():
-    x = torch.zeros((1, 2, H, 16))
-    with pytest.raises(NotImplementedError, match="tree"):
-        TA.paged_attention_verify(x, torch.zeros((L, 4, PS, KVH, 16)),
-                                  torch.zeros((L, 4, PS, KVH, 16)),
-                                  torch.zeros((1, 2), dtype=torch.int32),
-                                  torch.zeros((1,), dtype=torch.int32), PS,
-                                  torch.zeros((1, 2, KVH, 16)), torch.zeros((1, 2, KVH, 16)),
-                                  tree_pos=torch.arange(2))
+    """The per-phase verify never routes a token tree through the
+    prefix_chunk loop (it cannot express an ancestor mask): a tree runs the
+    plain version's tree branch, as in the JAX package."""
+    rng = np.random.default_rng(9)
+    kp = _t(rng.normal(size=(L, 4, PS, KVH, 16)).astype(np.float32))
+    vp = _t(rng.normal(size=(L, 4, PS, KVH, 16)).astype(np.float32))
+    q = _t(rng.normal(size=(1, 3, H, 16)).astype(np.float32))
+    kc = _t(rng.normal(size=(1, 3, KVH, 16)).astype(np.float32))
+    vc = _t(rng.normal(size=(1, 3, KVH, 16)).astype(np.float32))
+    table, lengths = torch.tensor([[2, 0]], dtype=torch.int32), torch.tensor([5], dtype=torch.int32)
+    tree = dict(tree_pos=np.asarray([0, 1, 1]),
+                tree_mask=np.asarray([[1, 0, 0], [1, 1, 0], [1, 0, 1]], bool))
+    got = TA.paged_attention_verify(q, kp, vp, table, lengths, PS, kc, vc, layer=1, **tree)
+    want = TA.paged_attention_verify_ref(q, kp[1], vp[1], table, lengths, PS, kc, vc, **tree)
+    assert torch.equal(got, want)
+    chain = TA.paged_attention_verify_ref(q, kp[1], vp[1], table, lengths, PS, kc, vc)
+    assert torch.equal(got[:, :2], chain[:, :2]) and not torch.equal(got[:, 2], chain[:, 2])
