@@ -10,7 +10,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              must match exactly on the valid region; causal groups wider
              than 32 tokens (Td = 64 at D = 64, the draft model's
              catch-up chunk, and Td = 33 at D = 128) on fp and int8
-             pools, held to the row-relative error.
+             pools, held to the row-relative error; both prefill wrappers
+             (one kernel, csrc/flash_prefill.cu) at the edges of its tile
+             plan (PREFILL_CASES: head groupings G = 2, 7 and 8, D = 64,
+             T not a multiple of the 128-key tile, seq_len inside a tile
+             and at its edge, a window across tiles with softcap), q
+             scaled by 4 and held to the row-relative error.
 3. timing  — each kernel at the main path's shapes (CUDA events, warm-up):
              kernel, plain version, one PyTorch library call where one
              exists, and the bound max(bytes / 3.35 TB/s, flops / 989
@@ -26,7 +31,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              engine's runner thread in four settings, one engine after
              the other: the default (speculative decoding on, ragged
              attention on) with eight concurrent requests, a prefix-cache
-             repeat and greedy determinism checks; the same eight requests
+             repeat and greedy determinism checks, and a solo prompt's
+             last-token logits from its cold bucket prefill held to the
+             cache-free forward with the plain attention and to its warm
+             chunk-region admission (row-relative error,
+             SERVE_WARM_COLD_REL); the same eight requests
              with spec off (tokens/s of both); then spec on and spec off
              with the per-phase kernels, a prompt longer than one chunk and
              a prefix-cache repeat each. Finite logits of the expected
@@ -62,12 +71,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              every ragged launch through the int8 leg, flash_prefill, and
              no write kernel (int8 writes are indexed assignments) nor
              per-phase kernel; pool bytes per page 0.502x bf16's.
-9. long    — long-context serving, llama3.1:8b: flash_prefill_streamed
+9. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
+             the engine's defaults and its runner thread live serving
+             eight concurrent requests inside an InferenceEngine.profile()
+             capture (torch.profiler, CPU and CUDA activity), then eight
+             more across PROFILER_MID_FLIGHT captures opened and closed
+             mid-decode, then a capture the engine did not start, which
+             must be refused; faulthandler on. Fails if a child dies by a
+             signal or fails a check.
+10. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
              against its blocked plain version (bf16 at T = 32768 with
              seq_len 24001 and 32768, float32 at T = 16384, D = 64,
-             window and softcap), the ported kernels at long positions
-             (ragged decode and a 1024-row chunk after a 24k prefix on a
-             512-entry table, paged_write_chunk of 32768 rows into a pool
+             window and softcap, G = 7 at T = 20000), the ported kernels
+             at long positions (ragged decode and a 1024-row chunk after a
+             24k prefix on a 512-entry table, paged_write_chunk of 32768
+             rows into a pool
              of more than 2^31 elements); attention with q scaled by 4 and
              held to the row-relative error (LONG_Q_SCALE). Timed beside
              flash_prefill and SDPA on full buckets of 1024 to 32768
@@ -78,7 +96,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              serving a 24001-token prompt whole in the 32768 bucket beside
              a short request (32 flash_prefill_streamed launches), and its
              warm repeat as one 32768-row mixed-step chunk.
-10. tree   — draft-model tree speculation: ragged_attention's tree leg
+11. tree   — draft-model tree speculation: ragged_attention's tree leg
              against its plain version (ragged_paged_attention_ref with
              tree_pos/tree_mask), q scaled by 4 and held to the
              row-relative error, in bf16 and float32 compute, fp and int8
@@ -100,7 +118,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 Then the kernels line (the seven kernels and the int8 and tree legs of
 ragged_attention), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,long,tree]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,profiler,long,tree]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -124,7 +142,7 @@ SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec", "int8",
-              "long", "tree")
+              "profiler", "long", "tree")
 
 
 def emit(obj: dict) -> None:
@@ -329,6 +347,22 @@ def _rel_err(a, b) -> float:
     return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max())
 
 
+# The prefill kernel (csrc/flash_prefill.cu, both prefill wrappers) at the
+# edges of its tile plan: (name, (T, H, KVH, D), seq_lens, window, softcap).
+# Head groupings G = 2 (qwen3:0.6b), 7 at D = 128 (qwen2.5:7b), 7 at D = 64
+# (qwen2.5:0.5b) and 8 (llama3:70b); T not a multiple of the 128-key tile;
+# seq_len inside a tile and exactly at a tile edge; a window across tile
+# edges with softcap.
+PREFILL_CASES = (
+    ("qwen3_0.6b_g2_t1000", (1000, 16, 8, 128), [1000], 0, 0.0),
+    ("qwen2.5_7b_g7_len_at_tile_edge", (700, 28, 4, 128), [640], 0, 0.0),
+    ("qwen2.5_0.5b_g7_d64_len_inside_tile", (900, 14, 2, 64), [777], 0, 0.0),
+    ("llama3_70b_g8_batch_of_two", (520, 64, 8, 128), [520, 300], 0, 0.0),
+    ("window_across_tiles_softcap", (1100, H, KVH, D), [1100], 200, 30.0),
+    ("t129_len128", (129, H, KVH, D), [128], 0, 0.0),
+)
+
+
 def phase_kernels(torch) -> dict:
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.attention import (
@@ -341,8 +375,7 @@ def phase_kernels(torch) -> dict:
     from gridllm_torch.ops.kvcache import QuantPages, write_decode, write_prefill
 
     inp = Inputs(torch, SEED)
-    # flash_prefill_streamed only runs at long shapes: the long phase holds it
-    errs = {k: 0.0 for k in ck.LAUNCHES if k != "flash_prefill_streamed"}
+    errs = {k: 0.0 for k in ck.LAUNCHES}
     cases = []
     bf16_tol = by_name("ragged_attention").atol
     check(bf16_tol == by_name("flash_prefill").atol, "attention tolerances differ")
@@ -366,6 +399,26 @@ def phase_kernels(torch) -> dict:
             check(err <= tol, f"flash_prefill {dname} T={t}: err {err} > {tol}")
             if dtype == torch.bfloat16:
                 errs["flash_prefill"] = max(errs["flash_prefill"], err)
+        # both prefill wrappers at the edges of the tile plan, q x 4, held to
+        # the row-relative error
+        for name, (t, h, kvh, d), lens, window, cap in PREFILL_CASES:
+            b = len(lens)
+            q = inp.randn(b, t, h, d, dtype=dtype) * LONG_Q_SCALE
+            k, v = inp.randn(b, t, kvh, d, dtype=dtype), inp.randn(b, t, kvh, d, dtype=dtype)
+            sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            want = attention_prefill_ref(q, k, v, sl, logit_softcap=cap, window=window)
+            for kernel in ("flash_prefill", "flash_prefill_streamed"):
+                got = getattr(ck, kernel)(q, k, v, sl, softcap=cap, window=window)
+                torch.cuda.synchronize()
+                rel = max(_rel_err(got[i, :ln], want[i, :ln]) for i, ln in enumerate(lens))
+                err = max(_max_err(got[i, :ln], want[i, :ln]) for i, ln in enumerate(lens))
+                cases.append({"kernel": kernel, "dtype": dname, "case": name, "T": t, "H": h,
+                              "KVH": kvh, "D": d, "seq_lens": lens, "window": window,
+                              "softcap": cap, "max_rel_err": rel, "max_abs_err": err})
+                check(rel <= tol, f"{kernel} {dname} {name}: relative err {rel} > {tol}")
+                if dtype == torch.bfloat16:
+                    errs[kernel] = max(errs[kernel], err)
+            del q, k, v, got, want
         for name, kw, valid in _ragged_cases(inp, dtype):
             kw = dict(kw)
             cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
@@ -517,6 +570,8 @@ def phase_timing(torch) -> dict:
     res["flash_prefill"] = {
         "shape": f"q[1,{t},{H},{D}] bf16",
         "ms": time_ms(torch, lambda: ck.flash_prefill(q, k, v, sl)),
+        "flash_prefill_streamed_ms": time_ms(torch, lambda: ck.flash_prefill_streamed(
+            q, k, v, sl)),
         "plain_ms": time_ms(torch, lambda: attention_prefill_ref(q, k, v, sl), iters=5),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
@@ -751,13 +806,16 @@ def _prompt(rng, n_bytes: int) -> str:
 class Served:
     """One engine behind its runner thread, with every logits tensor its
     model entry points compute checked on the device (one flag, no sync per
-    step) and its shape recorded."""
+    step) and its shape recorded. While `admissions` is a list, each
+    admission's last-prompt-token logits are appended to it as (entry
+    point, float32 copy, the prompt's tokens for a bucket prefill)."""
 
     def __init__(self, torch, engine):
         self.torch, self.engine = torch, engine
         self.vocab = engine.cfg.vocab_size
         self.finite = torch.ones((), dtype=torch.bool, device=engine.device)
         self.logit_shapes: set[tuple[int, ...]] = set()
+        self.admissions: list | None = None
         for name, n_logits in (("prefill", 1), ("prefill_chunk", 1), ("decode_step", 1),
                                ("verify_step", 1), ("mixed_step", 2)):
             self._watch(name, n_logits)
@@ -770,6 +828,9 @@ class Served:
             for logits in out[:n_logits]:
                 self.logit_shapes.add(tuple(logits.shape))
                 self.finite.logical_and_(self.torch.isfinite(logits).all())
+            if self.admissions is not None and name in ADMISSIONS:
+                tokens = args[0][:args[1]].clone() if name == "prefill" else None
+                self.admissions.append((name, out[0].float().clone(), tokens))
             return out
 
         setattr(self.engine.model, name, watched)
@@ -825,6 +886,20 @@ class Served:
                        tokens_per_verify_step=stats["emitted"] / max(stats["steps"], 1),
                        spec_stats=stats)
         return out
+
+
+# the model entry points whose first output is an admitted prompt's
+# last-token logits [V]
+ADMISSIONS = ("prefill", "prefill_chunk", "mixed_step")
+# a solo prompt's last-token logits from its cold bucket prefill (bf16,
+# flash_prefill) against the cache-free forward of its tokens with the plain
+# attention, and against its warm admission from the prefix cache (the
+# uncached rows in the ragged chunk region; the cached rows are the cold
+# run's, so this one sees only the uncached rows): row-relative error. On
+# an H100, bf16 rounding of the routes through 32 layers of random weights
+# departs by 0.016-0.017; a prefill kernel whose diagonal tiles skip the
+# causal mask departs from the plain forward by 0.96 (PERF.md, PR 6).
+SERVE_WARM_COLD_REL = 0.1
 
 
 def _free(torch, served: Served) -> None:
@@ -902,8 +977,12 @@ def phase_serve(torch) -> dict:
     default (spec decode on, ragged attention on), the same requests with
     spec decode off, then spec on and spec off with the per-phase kernels.
     Each setting's kernel launches are counted from 0 and held to its path."""
+    from unittest import mock
+
     from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.models import llama
     from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import attention_prefill_ref
 
     t0 = time.perf_counter()
     srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda"))
@@ -919,23 +998,54 @@ def phase_serve(torch) -> dict:
     # through the ragged chunk region, next to a new short prompt
     res_b, wall_b = srv.run([(short[2], 64), (_prompt(rng, 120), 32)])
     check(res_b[0].cached_tokens > 0, "serve: the repeat did not hit the prefix cache")
-    warm_matching = 0
-    for a, b in zip(res_a[2].token_ids, res_b[0].token_ids):
-        if a != b:
-            break
-        warm_matching += 1
+
+    def matching(cold, warm) -> str:   # tokens equal up to the first that differs
+        n = 0
+        for a, b in zip(cold.token_ids, warm.token_ids):
+            if a != b:
+                break
+            n += 1
+        return f"{n}/{len(warm.token_ids)}"
     # greedy determinism: the same short prompt twice, each alone on the
     # engine, takes the same kernels at the same shapes
     solo = [srv.run([(short[0], 32)])[0][0] for _ in range(2)]
     check(solo[0].token_ids == solo[1].token_ids, "serve: greedy repeat differs")
-    # and a new prompt alone, cold then warm from the prefix cache: the
-    # same stream, since no other request shares its steps' products
+    # and a new prompt alone, cold, then warm from the prefix cache twice.
+    # The two warm runs replay the same cached rows through the same
+    # kernels at the same shapes and must give the same stream. The cold
+    # run attends the prompt in the bucket prefill's bf16 tensor-core
+    # kernel, the warm runs its uncached rows in the chunk region's
+    # float32 CUDA-core math, so bf16 rounding departs between their
+    # streams. Their first logits are held to each other, and the cold
+    # ones to the cache-free forward with the plain attention, within
+    # SERVE_WARM_COLD_REL; the replay phase holds the warm stream to the
+    # cold one in float32
     fresh = _prompt(rng, 300)
-    solo_warm = [srv.run([(fresh, 64)])[0][0] for _ in range(2)]
-    check(solo_warm[0].cached_tokens == 0 and solo_warm[1].cached_tokens > 0,
-          "serve: the solo repeat did not hit the prefix cache")
-    check(solo_warm[0].token_ids == solo_warm[1].token_ids,
-          "serve: solo warm repeat differs from its cold run")
+    solo_warm, admitted = [], []
+    for _ in range(3):
+        srv.admissions = []
+        solo_warm.append(srv.run([(fresh, 64)])[0][0])
+        admitted.append(srv.admissions)
+    srv.admissions = None
+    check(solo_warm[0].cached_tokens == 0
+          and solo_warm[1].cached_tokens == solo_warm[2].cached_tokens > 0,
+          "serve: the solo repeats did not hit the prefix cache")
+    check(solo_warm[1].token_ids == solo_warm[2].token_ids,
+          "serve: solo warm repeat differs from the warm run before it")
+    routes = [[name for name, *_ in a] for a in admitted]
+    check(routes == [["prefill"], ["mixed_step"], ["mixed_step"]],
+          f"serve: solo admissions took {routes}")
+    (_, cold_logits, ids), (_, warm_logits, _), (_, warm2_logits, _) = (a[0] for a in admitted)
+    with mock.patch.object(llama, "attention_prefill", attention_prefill_ref), \
+            torch.no_grad():   # the runner is idle: nothing else calls the model
+        plain_logits = srv.engine.model.forward(ids[None])[0, -1].float()
+    rel = {"cold_vs_plain_forward": _rel_err(cold_logits, plain_logits),
+           "warm_vs_cold": _rel_err(warm_logits, cold_logits)}
+    check(torch.equal(warm_logits, warm2_logits),
+          "serve: solo warm admission logits differ from the warm run before it")
+    check(max(rel.values()) <= SERVE_WARM_COLD_REL,
+          f"serve: solo admission logits depart (row-relative) {rel} > {SERVE_WARM_COLD_REL}")
+    top_cold, top_warm = (x.topk(10).indices.tolist() for x in (cold_logits, warm_logits))
     solo += solo_warm
     all_res = res_a + res_b
     settings = {"spec_ragged": {
@@ -944,9 +1054,12 @@ def phase_serve(torch) -> dict:
                                                 for r in all_res),
         "batch_b": {"requests": len(res_b), "wall_s": wall_b,
                     "cached_tokens": res_b[0].cached_tokens},
-        "batched_warm_repeat_tokens_matching_cold":
-            f"{warm_matching}/{len(res_b[0].token_ids)}",
-        "solo_warm_repeat_equals_cold": True,
+        "batched_warm_repeat_tokens_matching_cold": matching(res_a[2], res_b[0]),
+        "solo_warm_repeat_tokens_matching_cold": matching(solo_warm[0], solo_warm[1]),
+        "solo_warm_repeats_equal": True,
+        "solo_admission_logits": {**rel, "limit": SERVE_WARM_COLD_REL,
+                                     "top1_equal": top_cold[0] == top_warm[0],
+                                     "top10_shared": len(set(top_cold) & set(top_warm))},
         "eos_finishes": sum(r.done_reason == "stop" for r in all_res + solo),
         "launches": _path_launches(ck, "spec_ragged", srv)}}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1454,6 +1567,111 @@ def phase_int8(torch) -> dict:
             "launches": serve["launches"]["ragged_attention.int8"]}
 
 
+# ---------------------------------------------------------------------------
+# profiler: the engine's runner thread live under torch.profiler
+# ---------------------------------------------------------------------------
+
+PROFILER_RUNS = 3
+PROFILER_MID_FLIGHT = 4   # captures opened and closed while a batch decodes
+
+
+def _profiler_child(torch) -> dict:
+    """One child of the profiler phase: llama3:8b bf16 with the engine's
+    defaults (n-gram speculation on), its runner thread live, serves eight
+    concurrent requests inside one capture of InferenceEngine.profile()
+    (a torch.profiler.profile with CPU and CUDA activity, started and
+    stopped on the runner thread between steps), then eight more while
+    PROFILER_MID_FLIGHT captures open and close mid-decode; then, with the
+    runner idle, a torch.profiler capture that the engine did not start
+    must be refused: the request fails with an error naming profile().
+    faulthandler prints every thread's Python stack if the process dies
+    by a signal."""
+    import faulthandler
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    faulthandler.enable(all_threads=True)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def kernels(prof) -> int:
+        # read off the raw results: building the Python event list of a
+        # capture of ~200k kernels takes minutes
+        return sum(e.device_type() == cuda for e in prof.profiler.kineto_results.events())
+
+    seconds = {}
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda"))
+    engine = srv.engine
+    engine.start()
+    _, _, _, batch = _serve_prompts()
+    seconds["load"] = time.perf_counter() - t0
+    with engine.profile(activities=activities) as prof:   # 16 tokens each: a short trace
+        srv.run([(p, 16) for p, _ in batch])
+    seconds["batch_in_one_capture"] = time.perf_counter() - t0 - seconds["load"]
+    traced = [kernels(prof)]
+    t1 = time.perf_counter()
+    box: list = []
+    th = threading.Thread(target=lambda: box.append(srv.run([(p, 160) for p, _ in batch])))
+    th.start()
+    deadline = time.time() + 300
+    mid_flight = []
+    for _ in range(PROFILER_MID_FLIGHT):
+        while (sum(s["generated"] for s in engine.batch_state()["slots"].values()) < 8
+               and time.time() < deadline and th.is_alive()):
+            time.sleep(0.01)
+        with engine.profile(activities=activities) as prof:
+            time.sleep(0.3)
+        traced.append(kernels(prof))
+        mid_flight.append(len(engine.batch_state()["slots"]))
+    th.join(timeout=600)
+    seconds["batch_across_captures"] = time.perf_counter() - t1
+    check(not th.is_alive() and box, "profiler: the second batch did not finish")
+    check(all(n > 0 for n in traced), f"profiler: device kernels traced per capture {traced}")
+    check(min(mid_flight) > 0, f"profiler: slots decoding at each capture's end {mid_flight}")
+    check(bool(srv.finite), "profiler: non-finite logits")
+    from gridllm_torch.engine import GenerationRequest
+
+    with profile(activities=activities):
+        refused = engine.generate(GenerationRequest(id="foreign", prompt=batch[0][0],
+                                                    options={"num_predict": 8}))
+    check(refused.done_reason == "error" and "InferenceEngine.profile()" in refused.error,
+          f"profiler: a foreign capture was not refused: {refused.done_reason!r} "
+          f"{refused.error!r}")
+    out = {"requests": 2 * len(batch) + 1, "device_kernels_traced": traced,
+           "slots_decoding_at_capture_ends": mid_flight,
+           "verify_steps": engine.spec_stats["steps"], "foreign_capture_refused": True,
+           "seconds": seconds}
+    _free(torch, srv)
+    return out
+
+
+def phase_profiler(torch) -> dict:
+    """PROFILER_RUNS children, each `chip_smoke.py --profiler-child`: the
+    phase fails if a child dies by a signal or fails its checks. Each
+    child's output goes to chiprun_out/profiler_child_<i>.txt."""
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    runs = []
+    for i in range(PROFILER_RUNS):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--profiler-child"], capture_output=True, text=True,
+                              timeout=600, cwd=str(REPO))
+        (out_dir / f"profiler_child_{i}.txt").write_text(
+            f"rc={proc.returncode}\n== stdout\n{proc.stdout}\n== stderr\n{proc.stderr}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        res = json.loads(lines[-1]) if lines else {}
+        runs.append({"rc": proc.returncode, "seconds": time.perf_counter() - t0, **res})
+        check(proc.returncode >= 0, f"profiler: child {i} died by signal {-proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        check(proc.returncode == 0 and res.get("ok"),
+              f"profiler: child {i} failed (rc {proc.returncode}): {proc.stderr[-3000:]}")
+    return {"phase": "profiler", "runs": runs}
+
+
 # llama3.1:8b long-context engine: 512 pages of 64 per slot (32768 tokens),
 # whole prompts up to the 32768 bucket (streamed), a 24001-token prompt
 LONG_ENGINE = dict(model="llama3.1:8b", page_size=64, max_pages_per_slot=512, num_pages=1280,
@@ -1480,6 +1698,7 @@ def _streamed_cases(inp: Inputs):
         ("window_softcap_bf16", bf16, (20480, H, KVH, D), [20480], 4096, 30.0),
         ("window_softcap_f32", f32, (8256, H, KVH, D), [8200], 1000, 30.0),
         ("batch_of_two", bf16, (20480, H, KVH, D), [20480, 9000], 0, 0.0),
+        ("qwen2.5_7b_g7_t20000", bf16, (20000, 28, 4, D), [19999], 0, 0.0),
     ]
 
 
@@ -2214,7 +2433,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--profiler-child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    phases = args.phases.split(",")
 
     import torch
 
@@ -2222,6 +2443,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.profiler_child:
+        emit({"ok": True, **_profiler_child(torch)})
+        return 0
     from gridllm_torch.ops.kernels import KERNELS, by_name
 
     t_run = time.perf_counter()
@@ -2235,7 +2459,8 @@ def main() -> int:
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
                    "serve": phase_serve, "replay": phase_replay, "spec": phase_spec,
-                   "int8": phase_int8, "long": phase_long, "tree": phase_tree}[phase](torch)
+                   "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
+                   "tree": phase_tree}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out

@@ -1,112 +1,851 @@
-// flash_prefill: causal GQA attention over one contiguous prompt bucket.
+// flash_prefill: causal GQA attention over one prompt bucket, for both
+// prefill kernels of the JAX package, on Hopper's tensor cores.
 //
 // Replaces gridllm_tpu/ops/pallas_kernels.py:129 `flash_prefill` (body
-// `_flash_prefill_kernel`, :63). Same function: q [B, T, H, D] against
-// k/v [B, T, KVH, D], keys at positions >= seq_lens[b] masked, causal, an
-// optional sliding window and tanh softcap (applied before the mask),
-// float32 online softmax, output acc / max(l, 1e-30) in q's dtype.
+// `_flash_prefill_kernel`, :63; K/V resident in VMEM) and :268
+// `flash_prefill_streamed` (body `_flash_prefill_stream_kernel`, :190; K/V
+// streamed tile by tile). The two compute one function, and the TPU's split
+// between them (what fits in VMEM) means nothing on this card, so both
+// wrappers of ops/cuda_kernels.py launch this kernel: q [B, T, H, D]
+// against k/v [B, T, KVH, D], keys at positions >= seq_lens[b] masked,
+// causal, an optional sliding window and tanh softcap (applied before the
+// mask), float32 online softmax, output acc / max(l, 1e-30) in q's dtype.
+// Rows at positions >= seq_lens[b] are padding, unspecified by the
+// contract: a query tile wholly past the valid length writes zeros and does
+// no work.
 //
-// What bounds it on the H100: the work is 4*T*T*H*D/2 flops against
-// (T*H*D + 2*T*KVH*D + T*H*D) * itemsize bytes, so at prompt buckets of
-// 256 and up it is compute bound (about T/2 flops per byte at D=128, far
-// above the card's ~295 flops/byte bf16 ridge). This version runs the dot
-// products on the CUDA cores in float32 (see attention_common.cuh), so it
-// sits well below the tensor-core bound; wgmma tiles are a later PR.
+// What bounds it on the H100: operations. A bucket of T tokens costs
+// 4*T*T*H*D/2 flops against (2*T*H*D + 2*T*KVH*D) * itemsize bytes; at
+// T = 32768 that is 8.8 TFLOP (8.9 ms at 989 TFLOP/s) against 0.6 GB
+// (0.2 ms at 3.35 TB/s). Only wgmma reaches the card's tensor rate.
 //
-// Design: one block per (q tile, kv head, batch). The q tile stacks the G
-// query heads of the kv head over BQ consecutive tokens (G*BQ <= 32 rows,
-// the TPU kernel's row stacking), so each K/V tile read from device memory
-// serves all G heads. Keys stream through shared memory only over the
-// range a tile can see: below the causal bound min(last query + 1,
-// seq_len) and, with a window, above the first query's window start.
-#include "attention_common.cuh"
+// The tile plan (which query tokens and heads a block holds, which K/V
+// tiles it loads, which of them need the per-element mask, which tiles
+// write zeros, the issue order) is `prefill_tile_plan` in
+// ops/cuda_kernels.py, the same index math in Python, tested on the CPU
+// (tests/test_torch_prefill_plan.py).
+//
+// bf16 (the serving dtype), `prefill_wgmma_kernel`:
+// - One block per (query tile, kv head, batch), three warpgroups: one
+//   producer, whose single thread issues TMA loads (setmaxnreg lowers its
+//   registers), and two consumer warpgroups (setmaxnreg raises theirs). The
+//   query tile stacks the G query heads of the kv head over bq = 128 / G
+//   tokens, row r = token tok0 + r / G, head h * G + r % G: each consumer
+//   owns one m64 row slab, and every K/V tile in shared memory serves 128
+//   rows. When G does not divide 128 (qwen2.5: G = 7, 126 rows) the spare
+//   rows are zeroed once, so stale shared memory cannot put NaN in a row.
+// - TMA loads Q once and K/V tiles of kBK = 128 keys through a ring of
+//   stages, each with a full and an empty mbarrier, in the 128-byte swizzle
+//   that wgmma descriptors read. A swizzled row is at most 128 bytes, so a
+//   D = 128 row is two 64-column blocks. The tensor maps are encoded on the
+//   host at each launch and passed as __grid_constant__ parameters; keys
+//   and queries past T are zero-filled by TMA.
+// - S = Q K^T: wgmma m64n128k16 with both operands in shared memory.
+//   Softmax in registers with exp2f on logits prescaled by scale*log2(e);
+//   P rounded to bf16 in registers is wgmma's register A operand for
+//   O += P V (m64n64k16 per 64-column block, V as an MN-major B).
+// - Masks only where needed: a K/V tile runs the per-element compare only
+//   if it crosses the diagonal, the length edge or the window edge for some
+//   row of the query tile; tiles outside the window or past min(last query
+//   + 1, seq_len) are never loaded. Softcap is a template flag.
+// - Query tiles are issued heaviest first (the last tokens see the most
+//   keys), and the blocks in flight at once share one kv head, whose K/V
+//   (16 MB at T = 32768) stay in the 50 MB L2.
+//
+// float32 (the parity checks only), `prefill_split_kernel`: mma.sync
+// m16n8k16 on bf16 operands, each float32 operand split into bf16 hi + lo
+// and each product hi*hi + hi*lo + lo*hi (about 16 mantissa bits, far
+// inside the 1e-3 float32 tolerance; tf32 would give 10), K/V through a
+// cp.async double buffer, 8 warps of 16 rows over the same 128-row query
+// tile.
+//
+// Offsets into q, k, v and out are 64-bit.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
 
 namespace gridllm {
+namespace {
 
-template <typename T, int D, int RPW>
-__global__ void __launch_bounds__(kThreads)
-    flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const int* __restrict__ seq_lens,
-                         T* __restrict__ out, int t_len, int H, int KVH, int bq,
-                         float scale, float softcap, int window) {
-  extern __shared__ float smem[];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = H / KVH;
-  const int tok0 = qt * bq;
-  const int ntok = min(bq, t_len - tok0);
-  const int rows_total = ntok * G;
-  const int seq_len = seq_lens[b];
-  const int64_t tok_stride = static_cast<int64_t>(H) * D;
-  const int64_t qoff = (static_cast<int64_t>(b) * t_len + tok0) * tok_stride +
-                       static_cast<int64_t>(h) * G * D;
-  const int64_t kvoff = static_cast<int64_t>(b) * t_len * KVH * D + static_cast<int64_t>(h) * D;
-  const int k_hi = min(tok0 + ntok, seq_len);
+constexpr int kRows = 128;  // query rows per block
+constexpr int kBK = 128;    // keys per K/V tile (bf16 kernel)
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-  AttnBlock<T, D, RPW> blk(smem, softcap, window);
-  for (int row0 = 0; row0 < rows_total; row0 += AttnBlock<T, D, RPW>::NR) {
-    const int qfirst = tok0 + row0 / G;
-    const int k_lo = window > 0 ? max(qfirst - window + 1, 0) : 0;
-    blk.load_q(q + qoff, tok_stride, G, row0, rows_total, tok0, scale);
-    blk.segment(k + kvoff, v + kvoff, ContigRows{static_cast<int64_t>(KVH) * D}, k_lo,
-                k_hi, 0, seq_len);
-    blk.store(out + qoff, tok_stride, G, row0, rows_total);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low 16 bits
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// A query tile wholly past the valid length: zeros in its rows, no work.
+template <typename T, int D>
+__device__ __forceinline__ void write_zeros(T* ob, int rows, int G, int64_t tok_stride,
+                                            int nthreads) {
+  for (int idx = threadIdx.x; idx < rows * (D / 2); idx += nthreads) {
+    const int r = idx / (D / 2), c = (idx % (D / 2)) * 2;
+    store2(ob + static_cast<int64_t>(r / G) * tok_stride + (r % G) * D + c, 0.f, 0.f);
   }
 }
 
-template <typename T, int D, int RPW>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* seq_lens,
-                   void* out, int B, int t_len, int H, int KVH, int bq, float scale,
-                   float softcap, int window, cudaStream_t stream) {
-  auto kernel = flash_prefill_kernel<T, D, RPW>;
-  const int smem = smem_floats<D, RPW>() * sizeof(float);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;                       // m64 row slabs
+constexpr int kWgThreads = 128 * (1 + kConsumers);  // producer + consumers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int D>
+struct Smem {
+  static constexpr int kBlocks = D / 64;             // 64-column (128-byte) blocks
+  static constexpr int kQBlock = kRows * 128;        // bytes of one Q column block
+  static constexpr int kKVBlock = kBK * 128;         // bytes of one K or V column block
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kStageBytes = 2 * kBlocks * kKVBlock;  // K blocks, then V blocks
+  static constexpr int kQBytes = kBlocks * kQBlock;
+  static constexpr int kBarOff = kQBytes + kStages * kStageBytes;
+  // + the barriers (q, then full and empty per stage) + 1024 to align the base
+  static constexpr int kBytes = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the phase of the given parity to complete. A phase that never
+// completes (a load that never lands) traps after ~2^34 cycles instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) asm volatile("trap;\n");
+  }
+}
+
+// One TMA box of a 4-D map {D, heads, T, B} into shared memory; completion
+// counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int head, int tok, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(tok), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`
+// (1024-byte aligned, or offset along K inside one 128-byte row): start
+// address, leading and stride byte offsets in 16-byte units, swizzle mode
+// 1 (128B). A K-major operand steps 8 rows of 128 bytes by the stride
+// offset; an MN-major operand of 64 columns (one swizzle row) steps 8 K
+// rows by one of the two offsets and never uses the other, so both are
+// 1024 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accesses of wgmma registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A * B, m64n128k16: A (64 x 16) and B (16 x 128) from shared memory, both
+// K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A * B, m64n64k16: A (64 x 16) from registers, B (16 x 64) from
+// shared memory, MN-major (transposed); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+// Logits of one K/V tile in the log2 domain (scale*log2(e), softcap), the
+// per-element mask only when kMask, the online-softmax update of the row
+// statistics and of O, and P as bf16 wgmma A fragments. Thread layout of
+// the m64n128 accumulator: s[i] is row r0 (i % 4 < 2) or r0 + 8, key
+// 8 * (i / 4) + 2 * quad + (i & 1) of the tile.
+template <bool kMask, bool kCap, int NB>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[kBK / 16][4],
+                                             float (&o)[NB][32], float& m0, float& m1,
+                                             float& l0, float& l1, float scale, float softcap,
+                                             int kt0, int quad, int qp0, int qp1, int seq_len,
+                                             int window) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = kCap ? softcap * tanhf(s[i] * scale / softcap) * kLog2e : s[i] * (scale * kLog2e);
+    if (kMask) {
+      const int kp = kt0 + (i / 4) * 8 + quad * 2 + (i & 1);
+      const int qp = (i & 2) ? qp1 : qp0;
+      const bool ok = kp <= qp && kp < seq_len && (window <= 0 || qp - kp < window);
+      x = ok ? x : kNegInf;
+    }
+    s[i] = x;
+    if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  l0 *= al0;
+  l1 *= al1;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[b][i] *= (i & 2) ? al1 : al0;
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j) {  // keys 16j .. 16j + 15: s[8j .. 8j + 7]
+    float e[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float x = s[8 * j + u];
+      float pe = exp2f(x - ((u & 2) ? m1 : m0));
+      if (kMask) pe = x > 0.5f * kNegInf ? pe : 0.f;  // a row with no visible key yet
+      e[u] = pe;
+      if (u & 2) l1 += pe; else l0 += pe;
+    }
+    p[j][0] = pack_bf16(e[0], e[1]);  // row r0,     keys 16j + 2 quad (+1)
+    p[j][1] = pack_bf16(e[2], e[3]);  // row r0 + 8, the same keys
+    p[j][2] = pack_bf16(e[4], e[5]);  // row r0,     keys 16j + 8 + 2 quad (+1)
+    p[j][3] = pack_bf16(e[6], e[7]);  // row r0 + 8
+  }
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    prefill_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
+                         int t_len, int H, int KVH, int bq, float scale, float softcap,
+                         int window) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-byte aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base, kv_s = base + L::kQBytes;
+  const uint32_t bar_q = base + L::kBarOff;
+  auto full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + L::kStages + s); };
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = H / KVH;
+  const int tok0 = qt * bq;
+  const int ntok = min(bq, t_len - tok0);
+  const int rows = ntok * G;
+  const int seq_len = seq_lens[b];
+  const int64_t tok_stride = static_cast<int64_t>(H) * D;
+  __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * t_len + tok0) * tok_stride +
+                      static_cast<int64_t>(h) * G * D;
+  if (tok0 >= seq_len) {  // padding rows only
+    write_zeros<__nv_bfloat16, D>(ob, rows, G, tok_stride, kWgThreads);
+    return;
+  }
+  // keys this tile can see: [k_lo, k_hi), in tiles from k_lo's tile up
+  const int tok_last = tok0 + ntok - 1;
+  const int k_hi = min(tok_last + 1, seq_len);
+  const int k_lo = window > 0 ? max(tok0 - window + 1, 0) : 0;
+  const int kt_first = k_lo / kBK * kBK;
+  const int n_tiles = (k_hi - kt_first + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring of K/V stages filled
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::kBlocks * 128 * G * bq);
+      for (int cb = 0; cb < L::kBlocks; ++cb)
+        tma_load(q_s + cb * L::kQBlock, &q_map, bar_q, cb * 64, h * G, tok0, b);
+      int stage = 0, phase = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int kt0 = kt_first + i * kBK;
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), L::kStageBytes);
+        const uint32_t st = kv_s + stage * L::kStageBytes;
+        for (int cb = 0; cb < L::kBlocks; ++cb) {
+          tma_load(st + cb * L::kKVBlock, &k_map, full(stage), cb * 64, h, kt0, b);
+          tma_load(st + (L::kBlocks + cb) * L::kKVBlock, &v_map, full(stage), cb * 64, h, kt0, b);
+        }
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int slab = c * 64;  // this warpgroup's first row
+    const int r0 = slab + warp * 16 + lane / 4, r1 = r0 + 8;
+    // the spare rows past G * bq (G not dividing 128) hold zeros
+    const int spare0 = max(G * bq, slab), n_spare = slab + 64 - spare0;
+    if (n_spare > 0) {
+      for (int idx = t; idx < L::kBlocks * n_spare * 8; idx += 128) {
+        const int cb = idx / (n_spare * 8), r = spare0 + (idx / 8) % n_spare, ch = idx % 8;
+        *reinterpret_cast<uint4*>(smem + cb * L::kQBlock + r * 128 + ch * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+
+    const int qp0 = r0 < rows ? tok0 + r0 / G : -1;
+    const int qp1 = r1 < rows ? tok0 + r1 / G : -1;
+    const bool live = slab < rows;
+    const int w_first = tok0 + slab / G;  // this warpgroup's tokens
+    const int w_last = tok0 + min(slab + 63, rows - 1) / G;
+    float o[L::kBlocks][32];
+#pragma unroll
+    for (int cb = 0; cb < L::kBlocks; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+    }
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    mbar_wait(bar_q, 0);
+    int stage = 0, phase = 0;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int kt0 = kt_first + i * kBK;
+      mbar_wait(full(stage), phase);
+      const bool skip = !live || kt0 > w_last ||
+                        (window > 0 && kt0 + kBK - 1 < w_first - window + 1);
+      if (!skip) {
+        const uint32_t st = kv_s + stage * L::kStageBytes;
+        float s[64];
+#pragma unroll
+        for (int j = 0; j < 64; ++j) s[j] = 0.f;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {  // column block kk / 4, 32 bytes per step
+          const uint32_t col = (kk % 4) * 32;
+          wgmma_ss_n128(s, desc_sw128(q_s + (kk / 4) * L::kQBlock + slab * 128 + col),
+                        desc_sw128(st + (kk / 4) * L::kKVBlock + col), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        // the tile plan: the per-element mask only where a row of the
+        // query tile misses a key of this tile (diagonal, length, window)
+        const bool masked = kt0 + kBK - 1 > tok0 || kt0 + kBK > seq_len ||
+                            (window > 0 && tok_last - kt0 >= window);
+        uint32_t p[kBK / 16][4];
+        if (masked)
+          softmax_tile<true, kCap>(s, p, o, m0, m1, l0, l1, scale, softcap, kt0, quad, qp0, qp1,
+                                   seq_len, window);
+        else
+          softmax_tile<false, kCap>(s, p, o, m0, m1, l0, l1, scale, softcap, kt0, quad, qp0,
+                                    qp1, seq_len, window);
+#pragma unroll
+        for (int cb = 0; cb < L::kBlocks; ++cb) fence_regs(o[cb]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kBK / 16; ++j) {  // 16 keys: two 8-row groups of V
+#pragma unroll
+          for (int cb = 0; cb < L::kBlocks; ++cb)
+            wgmma_rs_n64(o[cb], p[j],
+                         desc_sw128(st + (L::kBlocks + cb) * L::kKVBlock + j * 16 * 128), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int cb = 0; cb < L::kBlocks; ++cb) fence_regs(o[cb]);
+      }
+      if (lane == 0) mbar_arrive(empty(stage));  // this warp is done with the stage
+      if (++stage == L::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // row sums over the quad, normalise, store the tile's rows
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (r >= rows) continue;
+      const float inv = half ? inv1 : inv0;
+      __nv_bfloat16* orow = ob + static_cast<int64_t>(r / G) * tok_stride + (r % G) * D + quad * 2;
+#pragma unroll
+      for (int cb = 0; cb < L::kBlocks; ++cb) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          store2(orow + cb * 64 + n * 8, o[cb][4 * n + 2 * half] * inv,
+                 o[cb][4 * n + 2 * half + 1] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: mma.sync on split bf16 operands
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitWarps = 8;
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kSplitBK = 64;  // keys per tile
+
+// Shared-memory row stride in elements: 8 elements of padding make the
+// fragment loads below conflict-free.
+template <int D>
+__host__ __device__ constexpr int split_ld() { return D + 8; }
+
+template <int D>
+constexpr int split_smem_bytes() {
+  return (kRows + 4 * kSplitBK) * split_ld<D>() * static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A pair of float32 values as a bf16x2 mma operand register (hi) and the
+// rounding remainder (lo), so that hi + lo carries ~16 bits.
+struct Pair {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Pair split2(float a, float b) {
+  const __nv_bfloat16 ha = __float2bfloat16_rn(a), hb = __float2bfloat16_rn(b);
+  const float ra = a - __bfloat162float(ha), rb = b - __bfloat162float(hb);
+  __nv_bfloat162 h;
+  h.x = ha;
+  h.y = hb;
+  return {*reinterpret_cast<uint32_t*>(&h), pack_bf16(ra, rb)};
+}
+
+// Two adjacent elements p[0], p[1]; two elements one row apart p[0], p[stride].
+__device__ __forceinline__ Pair load_pair(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  return split2(v.x, v.y);
+}
+__device__ __forceinline__ Pair load_col_pair(const float* p, int stride) {
+  return split2(p[0], p[stride]);
+}
+
+// c += a * b: m16n8k16, A row-major (4 regs), B column-major (2 regs).
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += A * B as hi*hi + hi*lo + lo*hi.
+__device__ __forceinline__ void mma_split(float (&c)[4], const Pair (&a)[4], const Pair (&b)[2]) {
+  mma(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+  mma(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma(c, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+    prefill_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ seq_lens,
+                         float* __restrict__ out, int t_len, int H, int KVH, int bq,
+                         float scale, float softcap, int window) {
+  constexpr int LD = split_ld<D>();
+  constexpr int CH = D / 4;  // 16-byte copies per row
+  extern __shared__ __align__(16) unsigned char smem_split[];
+  float* qs = reinterpret_cast<float*>(smem_split);  // [kRows][LD]
+  float* ks = qs + kRows * LD;                       // [2][kSplitBK][LD]
+  float* vs = ks + 2 * kSplitBK * LD;                // [2][kSplitBK][LD]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = H / KVH;
+  const int tok0 = qt * bq;
+  const int ntok = min(bq, t_len - tok0);
+  const int rows = ntok * G;
+  const int seq_len = seq_lens[b];
+  const int64_t tok_stride = static_cast<int64_t>(H) * D;
+  const int64_t kv_stride = static_cast<int64_t>(KVH) * D;
+  const int64_t qoff = (static_cast<int64_t>(b) * t_len + tok0) * tok_stride +
+                       static_cast<int64_t>(h) * G * D;
+  const float* kb = k + static_cast<int64_t>(b) * t_len * kv_stride + static_cast<int64_t>(h) * D;
+  const float* vb = v + static_cast<int64_t>(b) * t_len * kv_stride + static_cast<int64_t>(h) * D;
+
+  if (tok0 >= seq_len) {  // padding rows only
+    write_zeros<float, D>(out + qoff, rows, G, tok_stride, kSplitThreads);
+    return;
+  }
+  const int k_hi = min(tok0 + ntok, seq_len);
+  const int k_lo = window > 0 ? max(tok0 - window + 1, 0) : 0;
+  const int kt_first = (k_lo / kSplitBK) * kSplitBK;
+  const int n_tiles = (k_hi - kt_first + kSplitBK - 1) / kSplitBK;
+
+  auto load_kv = [&](int stage, int kt0) {
+    float* kd = ks + stage * kSplitBK * LD;
+    float* vd = vs + stage * kSplitBK * LD;
+    for (int idx = threadIdx.x; idx < kSplitBK * CH; idx += kSplitThreads) {
+      const int r = idx / CH, c = (idx % CH) * 4;
+      const int key = kt0 + r;
+      const bool ok = key < k_hi;
+      const int64_t src = static_cast<int64_t>(ok ? key : 0) * kv_stride + c;
+      cp_async16(kd + r * LD + c, kb + src, ok);
+      cp_async16(vd + r * LD + c, vb + src, ok);
+    }
+  };
+
+  // query rows (zeros past the tile) and the first K/V tile: one group
+  for (int idx = threadIdx.x; idx < kRows * CH; idx += kSplitThreads) {
+    const int r = idx / CH, c = (idx % CH) * 4;
+    const bool ok = r < rows;
+    const int64_t src = ok ? static_cast<int64_t>(r / G) * tok_stride + (r % G) * D + c : 0;
+    cp_async16(qs + r * LD + c, q + qoff + src, ok);
+  }
+  load_kv(0, kt_first);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tid = lane % 4;
+  const int wr0 = warp * 16;  // first row of this warp
+  const bool warp_live = wr0 < rows;
+  const int ra = wr0 + g, rb = wr0 + g + 8;  // the lane's two rows
+  const int qpos_a = ra < rows ? tok0 + ra / G : -1;
+  const int qpos_b = rb < rows ? tok0 + rb / G : -1;
+  const int w_first = tok0 + wr0 / G;  // the warp's token range
+  const int w_last = tok0 + (min(wr0 + 15, rows - 1)) / G;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int kt0 = kt_first + i * kSplitBK;
+    if (i + 1 < n_tiles) {
+      load_kv((i + 1) & 1, kt0 + kSplitBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool skip = !warp_live || kt0 > w_last ||
+                      (window > 0 && kt0 + kSplitBK - 1 < w_first - window + 1);
+    if (!skip) {
+      const float* kt = ks + (i & 1) * kSplitBK * LD;
+      const float* vt = vs + (i & 1) * kSplitBK * LD;
+      // S = Q K^T for the warp's 16 rows x 64 keys
+      float s[kSplitBK / 8][4];
+#pragma unroll
+      for (int n = 0; n < kSplitBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const float* qa = qs + ra * LD + kk * 16 + tid * 2;
+        const float* qb = qs + rb * LD + kk * 16 + tid * 2;
+        const Pair a[4] = {load_pair(qa), load_pair(qb), load_pair(qa + 8), load_pair(qb + 8)};
+#pragma unroll
+        for (int n = 0; n < kSplitBK / 8; ++n) {
+          const float* kr = kt + (n * 8 + g) * LD + kk * 16 + tid * 2;
+          const Pair bb[2] = {load_pair(kr), load_pair(kr + 8)};
+          mma_split(s[n], a, bb);
+        }
+      }
+      // scale, softcap, mask; online softmax over the tile
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kSplitBK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = e < 2 ? qpos_a : qpos_b;
+          const int kp = kt0 + n * 8 + tid * 2 + (e & 1);
+          float x = s[n][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          const bool ok = qp >= 0 && kp <= qp && kp < seq_len && (window <= 0 || qp - kp < window);
+          x = ok ? x : kNegInf;
+          s[n][e] = x;
+          if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float al_a = __expf(m_a - mn_a), al_b = __expf(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      l_a *= al_a;
+      l_b *= al_b;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= al_a;
+        o[n][1] *= al_a;
+        o[n][2] *= al_b;
+        o[n][3] *= al_b;
+      }
+#pragma unroll
+      for (int n = 0; n < kSplitBK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[n][e];
+          const float p = x > 0.5f * kNegInf ? __expf(x - (e < 2 ? m_a : m_b)) : 0.f;
+          s[n][e] = p;
+          if (e < 2) l_a += p; else l_b += p;
+        }
+      }
+      // O += P V, P as the A operand (16 keys per k-step)
+#pragma unroll
+      for (int j = 0; j < kSplitBK / 16; ++j) {
+        const Pair a[4] = {split2(s[2 * j][0], s[2 * j][1]), split2(s[2 * j][2], s[2 * j][3]),
+                           split2(s[2 * j + 1][0], s[2 * j + 1][1]),
+                           split2(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const float* vr = vt + (j * 16 + tid * 2) * LD + n * 8 + g;
+          const Pair bb[2] = {load_col_pair(vr, LD), load_col_pair(vr + 8 * LD, LD)};
+          mma_split(o[n], a, bb);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for the load two tiles ahead
+  }
+
+  // row sums over the quad, normalise, store the valid rows
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  float* oa = out + qoff + static_cast<int64_t>(ra / G) * tok_stride + (ra % G) * D + tid * 2;
+  float* obp = out + qoff + static_cast<int64_t>(rb / G) * tok_stride + (rb % G) * D + tid * 2;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (qpos_a >= 0) store2(oa + n * 8, o[n][0] * inv_a, o[n][1] * inv_a);
+    if (qpos_b >= 0) store2(obp + n * 8, o[n][2] * inv_b, o[n][3] * inv_b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps and launches
+// ---------------------------------------------------------------------------
+
+// Codes the entry point returns beside cudaError_t values.
+constexpr int kErrNoEncoder = -1;  // cuTensorMapEncodeTiled not found in the driver
+constexpr int kErrTensorMap = -2;  // the driver refused a tensor map
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's encoder, from the libcuda.so.1 that the CUDA runtime loaded
+// (no link-time dependency on the driver library).
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 [B, T, heads, D] as a 4-D map {D, heads, T, B} read in
+// boxes of {64, box_heads, box_t, 1}, 128-byte swizzled, zeros outside.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int t_len, int heads, int D,
+           int box_heads, int box_t) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(t_len), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * t_len};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_t), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <int D, bool kCap>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* seq_lens, void* out,
+                 int B, int t_len, int H, int KVH, int bq, float scale, float softcap,
+                 int window, cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  CUtensorMap qm, km, vm;
+  int err = encode(fn, &qm, q, B, t_len, H, D, H / KVH, bq);
+  if (err == 0) err = encode(fn, &km, k, B, t_len, KVH, D, 1, kBK);
+  if (err == 0) err = encode(fn, &vm, v, B, t_len, KVH, D, 1, kBK);
+  if (err != 0) return err;
+  auto kernel = prefill_wgmma_kernel<D, kCap>;
+  constexpr int smem = Smem<D>::kBytes;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
   dim3 grid((t_len + bq - 1) / bq, KVH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(seq_lens), static_cast<T*>(out), t_len, H, KVH, bq, scale,
+  kernel<<<grid, kWgThreads, smem, stream>>>(qm, km, vm, static_cast<const int*>(seq_lens),
+                                             static_cast<__nv_bfloat16*>(out), t_len, H, KVH,
+                                             bq, scale, softcap, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_split(const void* q, const void* k, const void* v, const void* seq_lens, void* out,
+                 int B, int t_len, int H, int KVH, int bq, float scale, float softcap,
+                 int window, cudaStream_t stream) {
+  auto kernel = prefill_split_kernel<D>;
+  constexpr int smem = split_smem_bytes<D>();
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((t_len + bq - 1) / bq, KVH, B);
+  kernel<<<grid, kSplitThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(seq_lens), static_cast<float*>(out), t_len, H, KVH, bq, scale,
       softcap, window);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_rpw(int rpw, const void* q, const void* k, const void* v,
-                   const void* seq_lens, void* out, int B, int t_len, int H, int KVH,
-                   int bq, float scale, float softcap, int window, cudaStream_t s) {
-  switch (rpw) {
-    case 1: return launch<T, D, 1>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap, window, s);
-    case 2: return launch<T, D, 2>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap, window, s);
-    case 4: return launch<T, D, 4>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap, window, s);
-    case 8: return launch<T, D, 8>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap, window, s);
-  }
-  return cudaErrorInvalidValue;
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, const void* seq_lens,
+           void* out, int B, int t_len, int H, int KVH, int bq, float scale, float softcap,
+           int window, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_split<D>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap,
+                           window, s);
+  if (softcap > 0.f)
+    return launch_wgmma<D, true>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap,
+                                 window, s);
+  return launch_wgmma<D, false>(q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap,
+                                window, s);
 }
 
-template <typename T>
-cudaError_t by_dim(int d, int rpw, const void* q, const void* k, const void* v,
-                   const void* seq_lens, void* out, int B, int t_len, int H, int KVH,
-                   int bq, float scale, float softcap, int window, cudaStream_t s) {
-  switch (d) {
-    case 64: return by_rpw<T, 64>(rpw, q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap, window, s);
-    case 128: return by_rpw<T, 128>(rpw, q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale, softcap, window, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
+}  // namespace
 }  // namespace gridllm
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16; bq * (H / KVH) <= 128 query rows per
+// block. Returns cudaGetLastError() of the launch, or -1 when the driver
+// has no cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
 extern "C" int gridllm_flash_prefill(const void* q, const void* k, const void* v,
-                                     const void* seq_lens, void* out, int dtype, int B,
-                                     int t_len, int H, int KVH, int D, int bq, int rpw,
-                                     float scale, float softcap, int window, void* stream) {
+                                     const void* seq_lens, void* out, int dtype, int B, int t_len,
+                                     int H, int KVH, int D, int bq, float scale, float softcap,
+                                     int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = gridllm::by_dim<float>(D, rpw, q, k, v, seq_lens, out, B, t_len, H, KVH, bq,
-                                 scale, softcap, window, s);
-  else if (dtype == 1)
-    err = gridllm::by_dim<__nv_bfloat16>(D, rpw, q, k, v, seq_lens, out, B, t_len, H,
-                                         KVH, bq, scale, softcap, window, s);
-  return static_cast<int>(err);
+  if (bq < 1 || H % KVH || bq * (H / KVH) > gridllm::kRows || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64:
+      return gridllm::launch<64>(dtype, q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale,
+                                 softcap, window, s);
+    case 128:
+      return gridllm::launch<128>(dtype, q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale,
+                                  softcap, window, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

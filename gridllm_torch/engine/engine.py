@@ -47,6 +47,12 @@ serving path:
   quantize each row; decode, verify and mixed steps read the pool through
   the ragged kernel's int8 leg.
 
+- Profiling a serving engine (the JAX engine's `jax.profiler` capture):
+  `profile()` is a torch.profiler capture that starts and stops on the
+  engine's runner thread while every runner thread of the process waits
+  between two steps (`_ProfileGate`); runners refuse to serve under a
+  capture that no engine's `profile()` started (see `profile`).
+
 Unlike the JAX engine, whose device state is immutable, the state tensors
 here are updated in place; every block's token output is a fresh tensor
 copied out before the next block runs.
@@ -54,13 +60,14 @@ copied out before the next block runs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import random
 import threading
 import time
 from collections import deque
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -96,6 +103,58 @@ log = logging.getLogger(__name__)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the families the port's Llama serves (each has verify and decode steps)
 _DRAFT_FAMILIES = ("llama", "qwen2", "qwen3")
+
+_FOREIGN_CAPTURE = (
+    "InferenceEngine: a torch.profiler capture that InferenceEngine.profile() "
+    "did not start is active; the runner thread does not serve under it (CUPTI "
+    "can crash when a capture starts or stops while another thread launches "
+    "kernels): capture through InferenceEngine.profile()")
+
+
+class _ProfileGate:
+    """Process-wide gate between the engines' runner threads and
+    InferenceEngine.profile(). A runner holds it shared for each of its
+    steps; a capture's start or stop holds it alone (the thread that does it
+    may be inside its own step), so no runner of the process launches
+    kernels while CUPTI turns tracing on or off. `owner` is the engine whose
+    profile() capture is active (one at a time: torch runs one profiler)."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._stepping: set[int] = set()   # runner threads inside a step
+        self._switching = False
+        self.owner: InferenceEngine | None = None
+        self.claim = threading.Lock()      # held from a capture's start to its stop
+
+    @contextlib.contextmanager
+    def step(self) -> Iterator[None]:
+        me = threading.get_ident()
+        with self._cv:
+            self._cv.wait_for(lambda: not self._switching)
+            self._stepping.add(me)
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._stepping.discard(me)
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def switch(self) -> Iterator[None]:
+        me = threading.get_ident()
+        with self._cv:
+            self._cv.wait_for(lambda: not self._switching)
+            self._switching = True
+            self._cv.wait_for(lambda: self._stepping <= {me})
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._switching = False
+                self._cv.notify_all()
+
+
+_GATE = _ProfileGate()
 
 
 @dataclasses.dataclass
@@ -270,7 +329,9 @@ class InferenceEngine:
         self._gen = 0   # generation counter of dispatched blocks
         # (gen, host tokens [k+1, S], copy-done event or None, k)
         self._inflight: deque[tuple[int, torch.Tensor, Any, int]] = deque()
-        self._ctl: deque[tuple[str, str]] = deque()
+        # ("cancel", req_id), or ("call", (fn, done, errors)): a call made
+        # between two steps (profile()'s start and stop)
+        self._ctl: deque[tuple[str, Any]] = deque()
         self._work = threading.Condition()
         self._runner: threading.Thread | None = None
         self._runner_stop = threading.Event()
@@ -821,6 +882,14 @@ class InferenceEngine:
     def _drain_ctl(self) -> None:
         while self._ctl:
             op, req_id = self._ctl.popleft()
+            if op == "call":
+                fn, done, err = req_id
+                try:
+                    fn()
+                except Exception as e:  # noqa: BLE001 — raised in the caller
+                    err.append(e)
+                done.set()
+                continue
             for slot, st in list(self._slots.items()):
                 if st.req.id == req_id:
                     self._finish(slot, st, op)
@@ -848,9 +917,12 @@ class InferenceEngine:
 
     def start(self) -> None:
         """Start the engine thread, which owns all device dispatch from then
-        on; submit() and cancel() are the cross-thread entry points."""
+        on; submit() and cancel() are the cross-thread entry points. Refuses
+        while a profiler capture that profile() did not start is active."""
         if self._runner is not None:
             return
+        if self._foreign_capture():
+            raise RuntimeError(_FOREIGN_CAPTURE)
         self._runner_stop.clear()
         self._runner = threading.Thread(target=self._run, name=f"engine-{self.cfg.name}",
                                         daemon=True)
@@ -879,17 +951,112 @@ class InferenceEngine:
                     self._work.wait(timeout=0.5)
             if self._runner_stop.is_set():
                 break
+            with _GATE.step():
+                refuse = self._foreign_capture()
+                if refuse:
+                    # refuse to serve under it: a CUPTI thread can crash when
+                    # a capture starts or stops while this thread launches
+                    # kernels. A profile() start queued meanwhile fails here.
+                    self._drain_ctl()
+                    if self._pending or self._slots:
+                        self._inflight.clear()
+                        self.abort_all(_FOREIGN_CAPTURE)
+                        self.reset_device_state()
+                else:
+                    try:
+                        self._pump_once()
+                        fail_streak = 0
+                    except Exception as e:  # noqa: BLE001 — keep serving the others
+                        self._inflight.clear()
+                        self.abort_all(f"engine failure: {e!r}")
+                        self.reset_device_state()
+                        fail_streak += 1
+                        if fail_streak >= 3:
+                            self.abort_all("engine unrecoverable")
+                            return
+            if refuse:
+                self._runner_stop.wait(0.05)
+
+    @staticmethod
+    def _foreign_capture() -> bool:
+        """A torch profiler is active that no engine's profile() started."""
+        return _GATE.owner is None and torch.autograd.profiler._is_profiler_enabled
+
+    def _between_steps(self, fn: Callable[[], None]) -> None:
+        """Run fn between two steps of this engine's runner thread (on this
+        thread when no runner is live), with every runner of the process
+        held between its steps and this engine's device idle, and wait for
+        it; fn's exception is raised here."""
+        def call():
+            with _GATE.switch():
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                fn()
+
+        runner = self._runner
+        if runner is None or not runner.is_alive():
+            call()
+            return
+        entry = ("call", (call, threading.Event(), []))
+        _, (_, done, err) = entry
+        with self._work:
+            self._ctl.append(entry)
+            self._work.notify_all()
+        while not done.wait(0.5):
+            if runner.is_alive():
+                continue
+            with self._work:
+                queued = entry in self._ctl
+                if queued:   # never run it at a later start()
+                    self._ctl.remove(entry)
+            if queued:   # the runner stopped before it: run it here
+                call()
+                return
+            if not done.is_set():
+                raise RuntimeError("InferenceEngine: the runner thread stopped")
+        if err:
+            raise err[0]
+
+    @contextlib.contextmanager
+    def profile(self, **kwargs) -> Iterator[torch.profiler.profile]:
+        """A torch.profiler capture (`torch.profiler.profile(**kwargs)`) of
+        the process while this engine serves, its runner thread live. The
+        capture starts and stops on this engine's runner thread between two
+        of its steps, with this engine's device idle and every runner thread
+        of the process (other engines' too) held between its steps: a CUPTI
+        thread segfaulted (a bad free) when a capture started or stopped on
+        one thread while another launched kernels. Other engines keep
+        serving under the capture. One capture at a time in the process: a
+        second profile() raises.
+
+        Runners refuse to serve under a torch.profiler capture that no
+        engine's profile() started: each sees it at the start of its next
+        step, fails its requests and waits for the capture to end. Such a
+        capture started or stopped while a runner is inside a step can
+        still crash; so can one started while a thread that drives step()
+        itself, which the gate does not hold, launches kernels."""
+        if not _GATE.claim.acquire(blocking=False):
+            raise RuntimeError("InferenceEngine.profile(): another capture is active")
+        try:
+            prof = torch.profiler.profile(**kwargs)
+
+            def begin():
+                if torch.autograd.profiler._is_profiler_enabled:
+                    raise RuntimeError(_FOREIGN_CAPTURE)
+                prof.start()
+                _GATE.owner = self
+
+            def end():
+                _GATE.owner = None
+                prof.stop()
+
+            self._between_steps(begin)
             try:
-                self._pump_once()
-                fail_streak = 0
-            except Exception as e:  # noqa: BLE001 — keep serving the others
-                self._inflight.clear()
-                self.abort_all(f"engine failure: {e!r}")
-                self.reset_device_state()
-                fail_streak += 1
-                if fail_streak >= 3:
-                    self.abort_all("engine unrecoverable")
-                    return
+                yield prof
+            finally:
+                self._between_steps(end)
+        finally:
+            _GATE.claim.release()
 
     def _pump_once(self) -> None:
         """One runner iteration: bounded admission, top up the dispatch

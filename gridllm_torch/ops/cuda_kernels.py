@@ -18,6 +18,8 @@ Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
 - flash_prefill       :129  → ops.attention.attention_prefill_ref
 - flash_prefill_streamed :268 → ops.attention.attention_prefill_blocked_ref
+  (both wrappers launch the one kernel of csrc/flash_prefill.cu, whose
+  tile plan `prefill_tile_plan` gives in Python)
 - paged_decode        :479  → ops.attention.paged_attention_decode_ref
 - prefix_chunk        :739  → ops.attention._prefix_chunk_ref
 - ragged_attention    :1168 → ops.attention.ragged_paged_attention_ref
@@ -28,6 +30,7 @@ Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Any
 
@@ -79,9 +82,6 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         "paged_write.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
     "gridllm_flash_prefill": (
         "flash_prefill.cu",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
-    "gridllm_flash_prefill_streamed": (
-        "flash_prefill_streamed.cu",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "gridllm_paged_decode": (
         "paged_decode.cu",
@@ -109,7 +109,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_ROWS = 32  # query rows one block holds: kWarps (4) x RPW (<= 8)
 MAX_TREE_NODES = 32  # the tree leg's int32 ancestor bitmask per node
-_STREAMED_ROWS = 128  # flash_prefill_streamed: 8 warps x 16 rows
+PREFILL_ROWS = 128  # flash_prefill.cu: query rows per block, two m64 slabs
+PREFILL_BK = 128    # flash_prefill.cu: keys per K/V tile (bf16)
+# codes of flash_prefill.cu's entry point beside cudaError_t values
+_PREFILL_ERRORS = {-1: "cuTensorMapEncodeTiled not found in libcuda.so.1",
+                   -2: "the driver refused a TMA tensor map"}
 
 
 def _fn(name: str):
@@ -127,7 +131,7 @@ def _fn(name: str):
 def _launch(name: str, kernel: str, *args, legs: tuple[str, ...] = ()) -> None:
     err = _fn(name)(*args)
     if err != 0:
-        msg = _fn("gridllm_error_string")(err).decode()
+        msg = _PREFILL_ERRORS.get(err) or _fn("gridllm_error_string")(err).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
     LAUNCHES[kernel] += 1
     for leg in legs:
@@ -284,6 +288,68 @@ def paged_write_chunk(k_pages, v_pages, k_new, v_new, table_row, start: int,
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class QueryTile:
+    """One block of the flash_prefill kernel (one kv head of one sequence)."""
+    qt: int                     # query tile index (blockIdx.x = n_tiles - 1 - qt)
+    tok0: int                   # first query token
+    ntok: int                   # query tokens held (<= bq; fewer at the end of T)
+    zero_write: bool            # wholly past seq_len: zeros, no loads, no math
+    kv_tiles: tuple[tuple[int, bool], ...]   # (first key, needs the per-element mask)
+    rows: tuple[tuple[int, int], ...]        # row r -> (token, head within the group)
+
+
+def prefill_tile_plan(t_len: int, seq_len: int, g: int, window: int = 0,
+                      bk: int = PREFILL_BK, n_rows: int = PREFILL_ROWS) -> list[QueryTile]:
+    """The tile plan of csrc/flash_prefill.cu for one sequence and kv head,
+    in the order the blocks are issued (heaviest first: the last query
+    tokens see the most keys).
+
+    A block holds bq = n_rows // g query tokens, row r = token tok0 + r // g,
+    query head r % g of the group (rows past g * bq are spare, zeroed). It
+    loads the K/V tiles of bk keys that hold the keys its rows can see:
+    from the tile of max(tok0 - window + 1, 0) (0 without a window) up to
+    min(last token + 1, seq_len), never past. A tile needs the per-element
+    mask unless every row of the block sees every key of it: keys at most
+    tok0, all below seq_len, and (with a window) the last token within the
+    window of the tile's first key. A query tile that starts at or past
+    seq_len writes zeros."""
+    bq = n_rows // g
+    n_tiles = -(-t_len // bq)
+    plan = []
+    for qt in range(n_tiles - 1, -1, -1):
+        tok0 = qt * bq
+        ntok = min(bq, t_len - tok0)
+        rows = tuple((tok0 + r // g, r % g) for r in range(ntok * g))
+        if tok0 >= seq_len:
+            plan.append(QueryTile(qt, tok0, ntok, True, (), rows))
+            continue
+        tok_last = tok0 + ntok - 1
+        k_hi = min(tok_last + 1, seq_len)
+        k_lo = max(tok0 - window + 1, 0) if window > 0 else 0
+        tiles = tuple(
+            (kt0, kt0 + bk - 1 > tok0 or kt0 + bk > seq_len
+             or (window > 0 and tok_last - kt0 >= window))
+            for kt0 in range(k_lo // bk * bk, k_hi, bk))
+        plan.append(QueryTile(qt, tok0, ntok, False, tiles, rows))
+    return plan
+
+
+def _prefill_launch(kernel: str, q, k, v, seq_lens, softcap: float, window: int):
+    """Launch csrc/flash_prefill.cu for either wrapper, counted under
+    `kernel`; the operands are checked by the caller."""
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    seq_lens = seq_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b * t:
+        _launch("gridllm_flash_prefill", kernel, _ptr(q), _ptr(k), _ptr(v), _ptr(seq_lens),
+                _ptr(out), _float_dtype(kernel, q), b, t, h, kvh, d,
+                PREFILL_ROWS // (h // kvh), d ** -0.5, float(softcap), int(window),
+                _stream(q))
+    return out
+
+
 def flash_prefill(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
     """`attention_prefill_ref`: q [B, T, H, D], k/v [B, T, KVH, D],
     seq_lens [B] → [B, T, H, D] in q's dtype."""
@@ -293,20 +359,12 @@ def flash_prefill(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
     kernel, dev = "flash_prefill", q.device
     b, t, h, d = q.shape
     kvh, _ = _kv_heads_and_dim(kernel, k)
-    code = _float_dtype(kernel, q)
-    g = _gqa(kernel, h, kvh)
+    _float_dtype(kernel, q)
+    _gqa(kernel, h, kvh)
     _check(kernel, "q", q, dev)
     _check(kernel, "k", k, dev, (b, t, kvh, d), q.dtype)
     _check(kernel, "v", v, dev, (b, t, kvh, d), q.dtype)
-    seq_lens = seq_lens.to(device=dev, dtype=torch.int32).contiguous()
-    bq = max(1, _MAX_ROWS // g)
-    out = torch.empty_like(q)
-    if b * t:
-        _launch("gridllm_flash_prefill", kernel, _ptr(q), _ptr(k), _ptr(v),
-                _ptr(seq_lens), _ptr(out), code, b, t, h, kvh, d, bq,
-                _rows_per_warp(bq * g), d ** -0.5, float(softcap), int(window),
-                _stream(q))
-    return out
+    return _prefill_launch(kernel, q, k, v, seq_lens, softcap, window)
 
 
 def flash_prefill_streamed(q, k, v, seq_lens, softcap: float = 0.0, window: int = 0):
@@ -320,7 +378,7 @@ def flash_prefill_streamed(q, k, v, seq_lens, softcap: float = 0.0, window: int 
     kernel = "flash_prefill_streamed"
     b, t, h, d = q.shape
     kvh = k.shape[2]
-    g = _gqa(kernel, h, kvh)
+    _gqa(kernel, h, kvh)
     for name, x in (("k", k), ("v", v)):
         if x.dtype != q.dtype:
             raise TypeError(f"{kernel}: {name} has dtype {x.dtype}, expected {q.dtype}")
@@ -334,17 +392,11 @@ def flash_prefill_streamed(q, k, v, seq_lens, softcap: float = 0.0, window: int 
                                              window=window)
     dev = q.device
     _kv_heads_and_dim(kernel, k)
-    code = _float_dtype(kernel, q)
+    _float_dtype(kernel, q)
     _check(kernel, "q", q, dev)
     _check(kernel, "k", k, dev, (b, t, kvh, d), q.dtype)
     _check(kernel, "v", v, dev, (b, t, kvh, d), q.dtype)
-    seq_lens = seq_lens.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    if b * t:
-        _launch("gridllm_flash_prefill_streamed", kernel, _ptr(q), _ptr(k), _ptr(v),
-                _ptr(seq_lens), _ptr(out), code, b, t, h, kvh, d, _STREAMED_ROWS // g,
-                d ** -0.5, float(softcap), int(window), _stream(q))
-    return out
+    return _prefill_launch(kernel, q, k, v, seq_lens, softcap, window)
 
 
 def paged_decode(q, k_pages, v_pages, page_table, lengths, page_size: int, k_cur=None,

@@ -42,16 +42,16 @@ KERNELS: tuple[KernelSpec, ...] = (
         plain="attention:attention_prefill_ref",
         rtol=3e-2, atol=3e-2,
         test="tests/test_torch_attention.py::test_prefill_ref_matches_flash_kernel",
-        smoke_phase="kernels, timing, serve",
+        smoke_phase="kernels, timing, model, serve, long",
     ),
     KernelSpec(
         name="flash_prefill_streamed",
-        source="gridllm_torch/csrc/flash_prefill_streamed.cu",
+        source="gridllm_torch/csrc/flash_prefill.cu",
         replaces="gridllm_tpu/ops/pallas_kernels.py:268 flash_prefill_streamed",
         plain="attention:attention_prefill_blocked_ref",
         rtol=3e-2, atol=3e-2,
         test="tests/test_torch_long_context.py::test_blocked_ref_matches_jax_streamed_kernel",
-        smoke_phase="long",
+        smoke_phase="kernels, timing, long",
     ),
     KernelSpec(
         name="paged_decode",

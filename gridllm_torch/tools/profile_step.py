@@ -3,10 +3,11 @@
 Serves llama3:8b (bf16, random weights from seed 0) and measures:
 - decode, speculative decoding off: with the runner thread serving 8
   greedy streams, tokens/s and wall time per decode step over a steady
-  window, then one profiled window (torch.profiler, CUDA activity; the
-  runner's loop body driven from the profiling thread): device busy time
-  per step by kernel family, launches per step, and the device's idle
-  share (1 - busy / wall);
+  window, then one profiled window of the same serving
+  (`InferenceEngine.profile`, CPU and CUDA activity; steps counted as KV
+  write kernels, wall as the span of the traced kernels): device busy
+  time per step by kernel family, launches per step, and the device's
+  idle share (1 - busy / wall);
 - single model calls, each profiled the same way: one 1024-token bucket
   prefill, one 1024-token mixed step (chunk after 1024 cached tokens, 8
   decode rows), a decode step of 8 slots at 1024 cached tokens through
@@ -28,9 +29,11 @@ Serves llama3:8b (bf16, random weights from seed 0) and measures:
   kernel family; the target's ragged launches are the tree leg
   ("ragged_attention.tree");
 - long-context admission on llama3.1:8b (512 pages of 64 per slot, the
-  32768 bucket): one whole 32768-token bucket prefill (flash_prefill_
-  streamed), and the same prompt admitted in 1024-token chunks (32 mixed
-  steps, the default prefill_chunk), each profiled as one window.
+  32768 bucket): one whole 32768-token bucket prefill (the
+  flash_prefill_streamed wrapper; both prefill wrappers launch the kernel
+  of csrc/flash_prefill.cu, reported as the "flash_prefill" family), and
+  the same prompt admitted in 1024-token chunks (32 mixed steps, the
+  default prefill_chunk), each profiled as one window.
 Prints one JSON line per measurement (the profiler's overhead slows the
 profiled decode window; the steady window is measured without it).
 Usage: python3 -m gridllm_torch.tools.profile_step
@@ -53,8 +56,8 @@ FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
     ("ragged_attention", ("ragged_attention_kernel",)),
     ("paged_decode", ("paged_decode_kernel",)),
     ("prefix_chunk", ("prefix_chunk_kernel",)),
-    ("flash_prefill_streamed", ("flash_prefill_streamed_kernel",)),
-    ("flash_prefill", ("flash_prefill_kernel",)),
+    # csrc/flash_prefill.cu, launched by both prefill wrappers
+    ("flash_prefill", ("prefill_wgmma_kernel", "prefill_split_kernel")),
     ("kv_writes", ("write_decode_kernel", "write_chunk_kernel")),
     ("matmul", ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
@@ -67,10 +70,15 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _device_breakdown(prof, steps: int, wall_s: float, span: str | None = None) -> dict:
+def _device_breakdown(prof, steps: float | None = None, wall_s: float | None = None,
+                      span: str | None = None) -> dict:
     """Device time per step by kernel family from a profiler run; with
     `span`, only the kernels that started inside that record_function
-    range (the measured window, not what ran after it)."""
+    range (the measured window, not what ran after it). Without `steps`
+    and `wall_s` both come from the trace itself: one KV write kernel per
+    decode or verify step, and the span from the first kernel's start to
+    the last one's end (a capture of a serving runner, whose edges hold
+    in-flight blocks that no host count of tokens matches)."""
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     events = prof.events()
     lo, hi = float("-inf"), float("inf")
@@ -78,18 +86,22 @@ def _device_breakdown(prof, steps: int, wall_s: float, span: str | None = None) 
         (rng,) = [e.time_range for e in events if e.name == span and e.device_type == cpu]
         lo, hi = rng.start, rng.end
     fam_us: dict[str, float] = defaultdict(float)
-    launches = 0
+    launches, writes, first, last = 0, 0, float("inf"), float("-inf")
     for evt in events:
         if (evt.device_type == cuda and evt.device_time_total > 0 and evt.name != span
                 and lo <= evt.time_range.start <= hi):
             fam_us[_family(evt.name)] += evt.device_time_total
             launches += 1
+            writes += "write_decode_kernel" in evt.name
+            first, last = min(first, evt.time_range.start), max(last, evt.time_range.end)
+    if steps is None:
+        steps, wall_s = max(writes, 1), max(last - first, 0.0) / 1e6
     busy_ms = sum(fam_us.values()) / 1e3
     return {
         "steps": steps,
         "wall_ms_per_step": wall_s * 1e3 / steps,
         "device_busy_ms_per_step": busy_ms / steps,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
+        "device_idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)) if wall_s else None,
         "kernel_launches_per_step": launches / steps,
         "device_ms_per_step_by_family": {k: v / 1e3 / steps for k, v in sorted(fam_us.items())},
     }
@@ -112,16 +124,12 @@ def profile_decode(engine: InferenceEngine, n_slots: int) -> list[dict]:
     while _generated(engine) < 16 * n_slots and time.time() < deadline:
         time.sleep(0.05)
 
-    def window(seconds: float, pump=None) -> tuple[int, float, float, dict]:
-        """(tokens, steps, wall s, spec totals) over `seconds` of serving:
-        by the runner thread, or with `pump`, by calling it in a loop."""
+    def window(seconds: float) -> tuple[int, float, float, dict]:
+        """(tokens, steps, wall s, spec totals) over `seconds` of serving
+        by the runner thread."""
         s0, t0 = dict(engine.spec_stats), time.perf_counter()
         g0 = _generated(engine)
-        if pump is None:
-            time.sleep(seconds)
-        else:
-            while time.perf_counter() - t0 < seconds:
-                pump()
+        time.sleep(seconds)
         g1, t1, s1 = _generated(engine), time.perf_counter(), dict(engine.spec_stats)
         delta = {k: s1[k] - s0[k] for k in s1}
         steps = delta["steps"] if spec else (g1 - g0) / n_slots
@@ -135,15 +143,14 @@ def profile_decode(engine: InferenceEngine, n_slots: int) -> list[dict]:
         steady.update(verify_steps=delta["steps"],
                       acceptance=delta["accepted"] / max(delta["proposed"], 1),
                       tokens_per_verify_step=delta["emitted"] / max(delta["steps"], 1))
-    # the profiled window runs the runner's loop body on this thread: the
-    # profiler then never races a second thread's launches
+    # the runner keeps serving: the engine starts and stops the capture on
+    # the runner thread between two steps; steps and wall come from the
+    # capture's own kernels
+    with engine.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(1.5)
     engine.stop()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("measured_window"):
-            tokens, steps, wall, _ = window(1.5, pump=engine._pump_once)
     engine.abort_all("profile done")
-    traced = {"measure": f"{label}_profiled", "slots": n_slots,
-              **_device_breakdown(prof, steps, wall, span="measured_window")}
+    traced = {"measure": f"{label}_profiled", "slots": n_slots, **_device_breakdown(prof)}
     return [steady, traced]
 
 

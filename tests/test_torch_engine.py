@@ -136,3 +136,120 @@ def test_cancel_pending_and_abort(engines):
     te.submit(TRequest(id="c2", prompt="abort me", options=dict(GREEDY),
                        on_chunk=lambda d, fin, r: fin and seen.append(r)))
     assert te.abort_all("test abort") == 1 and seen[1].done_reason == "error"
+
+
+def _serve(engine, prompts, tag):
+    """Submit all prompts to a live runner and wait; results in order."""
+    done, events = {}, [threading.Event() for _ in prompts]
+
+    def cb(i):
+        def f(_delta, fin, r):
+            if fin:
+                done[i] = r
+                events[i].set()
+        return f
+
+    for i, p in enumerate(prompts):
+        engine.submit(TRequest(id=f"{tag}{i}", prompt=p, options=dict(GREEDY), on_chunk=cb(i)))
+    assert all(e.wait(60) for e in events)
+    return [done[i] for i in range(len(prompts))]
+
+
+def test_runner_serves_under_engine_profile_and_refuses_other_captures(engines):
+    """With the runner thread live, InferenceEngine.profile() captures the
+    engine's serving (it starts and stops the torch profiler on the runner
+    thread, between steps) and the greedy streams equal the unprofiled
+    ones; a torch.profiler capture that the engine did not start is
+    refused: requests fail with an error naming profile(), start() raises,
+    and serving resumes once the capture ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _je, te = engines
+    prompts = ["profiled one", LONG + " profiled", "profiled three"]
+    want = _batch(te, TRequest, prompts, GREEDY)
+    te.start()
+    try:
+        with te.profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = _serve(te, prompts, "p")
+        assert [r.token_ids for r in got] == [r.token_ids for r in want]
+        assert any(e.name.startswith("aten::") for e in prof.events())
+        with profile(activities=[ProfilerActivity.CPU]):
+            refused = _serve(te, prompts, "f")
+        assert all(r.done_reason == "error" and "InferenceEngine.profile()" in r.error
+                   for r in refused)
+        assert [r.token_ids for r in _serve(te, prompts, "a")] == [r.token_ids for r in want]
+    finally:
+        te.stop()
+    assert not te.running
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(RuntimeError, match=r"InferenceEngine\.profile\(\)"):
+            te.start()
+    assert not te.running
+
+
+def test_profile_is_process_wide(engines):
+    """Two engines in one process, both runners live: under one engine's
+    profile() capture the other keeps serving, unrefused, with the
+    unprofiled streams; a second profile() while the first is open raises,
+    and the next one, after the first has closed, opens."""
+    from torch.profiler import ProfilerActivity
+
+    je, te = engines
+    other = TEngine(TConfig(spec_decode=False, prefix_cache=True, **TINY), device="cpu",
+                    params=jax.tree_util.tree_map(np.asarray, je.params))
+    prompts = ["other one", LONG + " other", "other three"]
+    want = _batch(te, TRequest, prompts, GREEDY)
+    te.start()
+    other.start()
+    try:
+        with te.profile(activities=[ProfilerActivity.CPU]):
+            got = _serve(other, prompts, "o")
+            with pytest.raises(RuntimeError, match="another capture"):
+                with other.profile(activities=[ProfilerActivity.CPU]):
+                    pass
+        assert [r.token_ids for r in got] == [r.token_ids for r in want]
+        with other.profile(activities=[ProfilerActivity.CPU]):   # the claim was released
+            assert [r.token_ids for r in _serve(te, prompts, "t")] == \
+                [r.token_ids for r in want]
+    finally:
+        te.stop()
+        other.stop()
+    assert not (te.running or other.running)
+
+
+def test_profile_gate_holds_steps_while_a_capture_switches():
+    """_ProfileGate: a capture's switch waits for every other thread's step
+    to end (not for the switching thread's own), and a step that starts
+    during the switch waits for it to end."""
+    from gridllm_torch.engine.engine import _ProfileGate
+
+    gate = _ProfileGate()
+    in_step, leave_step, switched, stepped = (threading.Event() for _ in range(4))
+
+    def runner():
+        with gate.step():
+            in_step.set()
+            leave_step.wait(10)
+
+    def switcher():
+        with gate.step(), gate.switch():   # a runner switching inside its own step
+            switched.set()
+            assert not stepped.wait(0.2)   # a new step waits for the switch
+
+    def late_step():
+        with gate.step():
+            stepped.set()
+
+    threads = [threading.Thread(target=runner)]
+    threads[0].start()
+    assert in_step.wait(10)
+    threads.append(threading.Thread(target=switcher))
+    threads[1].start()
+    assert not switched.wait(0.2)   # the runner is still inside its step
+    leave_step.set()
+    assert switched.wait(10)
+    threads.append(threading.Thread(target=late_step))
+    threads[2].start()
+    for th in threads:
+        th.join(10)
+    assert stepped.is_set() and not any(th.is_alive() for th in threads)
