@@ -15,12 +15,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              plan (PREFILL_CASES: head groupings G = 2, 7 and 8, D = 64,
              T not a multiple of the 128-key tile, seq_len inside a tile
              and at its edge, a window across tiles with softcap), q
-             scaled by 4 and held to the row-relative error.
+             scaled by 4 and held to the row-relative error;
+             ragged_attention at the edges of its chunk kernel's tile
+             plan and of its group split (_ragged_cases: chunk starts
+             of 48, 64 and 192, G = 7 at D = 64 and 128, page size 16,
+             a chunk after 16,384 cached tokens beside eight groups, one
+             slot at 24,000, on shuffled tables with -1 entries).
 3. timing  — each kernel at the main path's shapes (CUDA events, warm-up):
              kernel, plain version, one PyTorch library call where one
              exists, and the bound max(bytes / 3.35 TB/s, flops / 989
              TFLOP/s) computed from this run's inputs; paged_decode and
-             prefix_chunk beside ragged_attention at the same shapes.
+             prefix_chunk beside ragged_attention at the same shapes;
+             ragged_attention's chunk region after 1,024 and 16,384
+             cached tokens and its decode group at 8 x 1,024 and
+             1 x 24,000, each also as profiler device time and beside SDPA
+             on K/V gathered beforehand (a yardstick without paging), the
+             decode group's first call under
+             torch.cuda.set_sync_debug_mode("error"); paged_write_decode
+             and index_put_ in three turns.
 4. model   — llama3:8b cut to 2 layers, full width, float32, against the
              cache-free forward to 1e-3, in both attention modes: ragged
              (bucket prefill, decode steps, mixed steps admitting a second
@@ -115,8 +127,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              verify step, draft launches, and no per-phase kernel; then
              float32 llama3.2:1b self-drafted greedy streams held to spec
              off with ragged attention on, off, and with kv_int8.
-Then the kernels line (the seven kernels and the int8 and tree legs of
-ragged_attention), the card's name and power limit, and the result.
+Then the kernels line (the seven kernels, ragged_attention's chunk
+kernel, and its int8 and tree legs), the card's name and power limit,
+and the result.
 
 Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,profiler,long,tree]
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
@@ -169,6 +182,25 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: the summed durations of the CUDA kernels
+    that `iters` calls launched (torch.profiler), over iters. time_ms
+    times back-to-back calls, so it reads the host's time instead when a
+    wrapper takes longer on the host than its kernels on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.device_time_total for e in prof.events() if e.device_type == cuda)
+    return us / 1e3 / iters
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -227,7 +259,16 @@ def phase_build() -> dict:
 
 
 def _ragged_cases(inp: Inputs, dtype):
-    """(name, kwargs, chunk_valid_rows) cases of ragged_attention."""
+    """(name, kwargs, chunk_valid_rows, relative) cases of ragged_attention:
+    llama3:8b widths on a shuffled page table whose entries past each
+    slot's pages are -1 (an empty slot, page straddles, window, softcap, a
+    mixed launch), then the edges of the chunk kernel's tile plan and of
+    the group split (relative: q scaled by LONG_Q_SCALE, held to the
+    row-relative error): chunk starts of 64, 48 and 192 (page-aligned, not
+    multiples of the 128-key tile), head groupings G = 7 at D = 64
+    (qwen2.5:0.5b) and D = 128 (qwen2.5:7b) with window and softcap, page
+    size 16 (eight boxes per tile), a chunk after 16,384 cached tokens
+    beside eight decode groups, and one slot at ~24k cached tokens."""
     torch = inp.torch
     lengths = [0, 1, 63, 64, 65, 700, 1500, 4000]   # straddles + an empty slot
     kp, vp = inp.pools(2, dtype)
@@ -247,16 +288,66 @@ def _ragged_cases(inp: Inputs, dtype):
                     v_chunk=inp.randn(c, KVH, D, dtype=dtype))
 
     base = dict(k_pages=kp, v_pages=vp, page_size=PS, layer=1)
-    return [
-        ("chunk_only", {**base, **chunk(256, 128, 200)}, 200),
-        ("group_td1", {**base, **group(1)}, None),
-        ("chunk_and_group", {**base, **chunk(1024, 448, 1000), **group(1)}, 1000),
-        ("group_td5", {**base, **group(5)}, None),
-        ("group_window", {**base, **group(1), "window": 100}, None),
+    cases = [
+        ("chunk_only", {**base, **chunk(256, 128, 200)}, 200, False),
+        ("group_td1", {**base, **group(1)}, None, False),
+        ("chunk_and_group", {**base, **chunk(1024, 448, 1000), **group(1)}, 1000, False),
+        ("group_td5", {**base, **group(5)}, None, False),
+        ("group_window", {**base, **group(1), "window": 100}, None, False),
         ("chunk_window_softcap", {**base, **chunk(256, 1216, 256), "window": 300,
-                                  "softcap": 30.0}, 256),
-        ("group_softcap", {**base, **group(5), "softcap": 30.0}, None),
+                                  "softcap": 30.0}, 256, False),
+        ("group_softcap", {**base, **group(5), "softcap": 30.0}, None, False),
     ]
+
+    def q4(*shape):
+        return inp.randn(*shape, dtype=dtype) * LONG_Q_SCALE
+
+    def edge_chunk(name, h, kvh, d, ps, c, start, valid, n_pool, window=0, cap=0.0):
+        """One chunk on a pool of its own: a shuffled table row, -1 past
+        the chunk's pages."""
+        n_table = -(-(start + c) // ps) + 3
+        row = torch.randperm(n_pool, generator=inp.gen, device="cuda")[:n_table].to(torch.int32)
+        row[-(-(start + c) // ps):] = -1
+        pool = (2, n_pool, ps, kvh, d)
+        kw = dict(k_pages=inp.randn(*pool, dtype=dtype), v_pages=inp.randn(*pool, dtype=dtype),
+                  page_size=ps, layer=1, q_chunk=q4(1, c, h, d), chunk_row=row,
+                  chunk_start=start, chunk_total=start + valid,
+                  k_chunk=inp.randn(c, kvh, d, dtype=dtype),
+                  v_chunk=inp.randn(c, kvh, d, dtype=dtype), window=window, softcap=cap)
+        return (name, kw, valid, True)
+
+    cases += [
+        edge_chunk("chunk_start64_g7_d64", 14, 2, 64, PS, 300, 64, 290, 64),
+        edge_chunk("chunk_start192_g7_window_softcap", 28, 4, D, PS, 256, 192, 256, 64,
+                   window=200, cap=30.0),
+        edge_chunk("chunk_ps16_start48", H, KVH, D, 16, 200, 48, 180, 64),
+    ]
+    # a chunk after 16,384 cached tokens beside eight decode groups, then
+    # one slot at ~24k cached tokens (the group split over many spans)
+    n_pool, maxp = 1024, 400
+    kp, vp = (inp.randn(1, n_pool, PS, KVH, D, dtype=dtype) for _ in range(2))
+    table = torch.randperm(n_pool, generator=inp.gen, device="cuda").to(torch.int32)
+    table = table[:2 * maxp].reshape(2, maxp).contiguous()
+    table[0, -(-(16384 + 1024) // PS):] = -1
+    table[1, -(-24001 // PS):] = -1
+    long = dict(k_pages=kp, v_pages=vp, page_size=PS, layer=0)
+    glens = torch.tensor([16384 + 1024 - 1, 700, 0, 65, 5000, 12000, 16000, 9000],
+                         dtype=torch.int32, device="cuda")
+    cases += [
+        ("chunk_after_16384_with_groups",
+         {**long, "q_chunk": q4(1, 1024, H, D), "chunk_row": table[0], "chunk_start": 16384,
+          "chunk_total": 16384 + 1000, "k_chunk": inp.randn(1024, KVH, D, dtype=dtype),
+          "v_chunk": inp.randn(1024, KVH, D, dtype=dtype), "q_group": q4(S, 1, H, D),
+          "page_table": table[0:1].expand(S, maxp).contiguous(), "group_lengths": glens,
+          "k_group": inp.randn(S, 1, KVH, D, dtype=dtype),
+          "v_group": inp.randn(S, 1, KVH, D, dtype=dtype)}, 1000, True),
+        ("group_one_slot_24000",
+         {**long, "q_group": q4(1, 1, H, D), "page_table": table[1:2],
+          "group_lengths": torch.tensor([24000], dtype=torch.int32, device="cuda"),
+          "k_group": inp.randn(1, 1, KVH, D, dtype=dtype),
+          "v_group": inp.randn(1, 1, KVH, D, dtype=dtype)}, None, True),
+    ]
+    return cases
 
 
 def _decode_cases(inp: Inputs, dtype):
@@ -375,7 +466,7 @@ def phase_kernels(torch) -> dict:
     from gridllm_torch.ops.kvcache import QuantPages, write_decode, write_prefill
 
     inp = Inputs(torch, SEED)
-    errs = {k: 0.0 for k in ck.LAUNCHES}
+    errs = {k: 0.0 for k in [*ck.LAUNCHES, "ragged_attention.chunk"]}
     cases = []
     bf16_tol = by_name("ragged_attention").atol
     check(bf16_tol == by_name("flash_prefill").atol, "attention tolerances differ")
@@ -419,22 +510,29 @@ def phase_kernels(torch) -> dict:
                 if dtype == torch.bfloat16:
                     errs[kernel] = max(errs[kernel], err)
             del q, k, v, got, want
-        for name, kw, valid in _ragged_cases(inp, dtype):
+        for name, kw, valid, relative in _ragged_cases(inp, dtype):
             kw = dict(kw)
             cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
             oc, og = ck.ragged_attention(**kw, softcap=cap, window=window)
             wc, wg = ragged_paged_attention_ref(**kw, logit_softcap=cap, window=window)
             torch.cuda.synchronize()
-            err = 0.0
+            pairs = [(o, w) for o, w in ((oc, wc), (og, wg)) if o is not None]
             if oc is not None:
-                err = max(err, _max_err(oc[:, :valid], wc[:, :valid]))
-            if og is not None:
-                err = max(err, _max_err(og, wg))
+                pairs[0] = (oc[:, :valid], wc[:, :valid])
+            err = max(_max_err(o, w) for o, w in pairs)
+            rel = max(_rel_err(o, w) for o, w in pairs)
             cases.append({"kernel": "ragged_attention", "dtype": dname, "case": name,
-                          "max_abs_err": err})
-            check(err <= tol, f"ragged_attention {dname} {name}: err {err} > {tol}")
+                          "max_abs_err": err, "max_rel_err": rel, "held_to": (
+                              "max_rel_err" if relative else "max_abs_err")})
+            got = rel if relative else err
+            check(got <= tol, f"ragged_attention {dname} {name}: "
+                  f"{'relative ' if relative else ''}err {got} > {tol}")
             if dtype == torch.bfloat16:
                 errs["ragged_attention"] = max(errs["ragged_attention"], err)
+                if oc is not None:   # the chunk region: the tensor-core kernel in bf16
+                    errs["ragged_attention.chunk"] = max(errs["ragged_attention.chunk"],
+                                                         _max_err(*pairs[0]))
+            del oc, og, wc, wg, pairs
         del kw
         # chain groups of any width (the wrapper once refused Td > 32)
         for name, (kp, vp), kw in _wide_group_cases(torch, inp, dtype):
@@ -543,16 +641,208 @@ def phase_kernels(torch) -> dict:
     return {"phase": "kernels", "cases": len(cases), "max_abs_err_bf16": errs}
 
 
-def phase_timing(torch) -> dict:
+def _n_splits(ck, s: int, n_table: int, dev) -> int | None:
+    """Spans per (slot, kv head) of a decode group at llama3:8b widths;
+    None for a tree whose kernels have no split (timing an older checkout's
+    package through these helpers)."""
+    if not hasattr(ck, "ragged_split_count"):
+        return None
+    return ck.ragged_split_count(s, KVH, n_table, H // KVH, D, ck._sm_count(dev), PS)
+
+
+def _ragged_host_us(torch, inp: Inputs, calls: int = 500) -> float:
+    """The ragged_attention wrapper's host time per call, in microseconds:
+    back-to-back decode-group calls of one slot at 64 cached tokens (its
+    kernel far shorter than the host's work), on the host's clock up to a
+    synchronize."""
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    bf16 = torch.bfloat16
+    kp, vp = (inp.randn(1, 4, PS, KVH, D, dtype=bf16) for _ in range(2))
+    kw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=inp.randn(1, 1, H, D, dtype=bf16),
+              page_table=torch.arange(4, dtype=torch.int32, device="cuda")[None],
+              group_lengths=torch.tensor([64], dtype=torch.int32, device="cuda"),
+              k_group=inp.randn(1, 1, KVH, D, dtype=bf16),
+              v_group=inp.randn(1, 1, KVH, D, dtype=bf16), layer=0)
+    for _ in range(20):
+        ck.ragged_attention(**kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        ck.ragged_attention(**kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _ragged_timing(torch, inp: Inputs) -> dict:
+    """ragged_attention at the main path's shapes (bf16, llama3:8b widths,
+    a shuffled page table): the decode group of 8 slots at 1,024 cached
+    tokens (the kernels line's row) and of one slot at 24,000; the chunk
+    region (C = 1,024) after 1,024 and after 16,384 cached tokens;
+    paged_decode and prefix_chunk at the same shapes, and the verify width
+    (one slot, Td = 5 after 1,024). Each with its bound and, as a yardstick
+    only, SDPA on K/V gathered beforehand into one dense tensor (no paging:
+    not a library call for the same function). The decode group's first
+    call runs under torch.cuda.set_sync_debug_mode("error"): the wrapper
+    makes no host sync."""
     import torch.nn.functional as F
 
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.attention import (
         _prefix_chunk_ref,
-        attention_prefill_ref,
         paged_attention_decode_ref,
         ragged_paged_attention_ref,
     )
+    from gridllm_torch.ops.kvcache import gather_kv
+
+    bf16 = torch.bfloat16
+    n_pool, maxp = 1024, 400   # 64 MB of pool per layer and K/V; 25,600 tokens per row
+    kp, vp = (inp.randn(1, n_pool, PS, KVH, D, dtype=bf16) for _ in range(2))
+    perm = torch.randperm(n_pool, generator=inp.gen, device="cuda").to(torch.int32)
+    res = {}
+
+    def group_kw(lengths, table):
+        s = len(lengths)
+        return dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=inp.randn(s, 1, H, D, dtype=bf16),
+                    page_table=table, group_lengths=torch.tensor(lengths, dtype=torch.int32,
+                                                                 device="cuda"),
+                    k_group=inp.randn(s, 1, KVH, D, dtype=bf16),
+                    v_group=inp.randn(s, 1, KVH, D, dtype=bf16), layer=0)
+
+    def group_bound(lengths):
+        keys = sum(lengths) + len(lengths)
+        return bound_ms(keys * KVH * D * 2 * 2 + 2 * len(lengths) * H * D * 2, 4 * H * D * keys)
+
+    def sdpa_group(kw):
+        """SDPA of each slot's decode query over its K/V gathered into one
+        dense [S, KVH, length + 1, D] (every slot of one length)."""
+        s, length = kw["q_group"].shape[0], int(kw["group_lengths"][0])
+        ks, vs = [], []
+        for i in range(s):
+            k, v = gather_kv(kp[0], vp[0], kw["page_table"][i], PS)
+            ks.append(torch.cat([k[:length], kw["k_group"][i]]))
+            vs.append(torch.cat([v[:length], kw["v_group"][i]]))
+        k, v = torch.stack(ks).transpose(1, 2), torch.stack(vs).transpose(1, 2)
+        q = kw["q_group"].transpose(1, 2)
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
+
+    # decode group, 8 slots x 1,024 cached tokens (128-page table rows)
+    table8 = perm[:S * MAXP].reshape(S, MAXP).contiguous()
+    kw = group_kw([1024] * S, table8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.ragged_attention(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b, op = group_bound([1024] * S)
+    res["ragged_attention"] = {
+        "shape": f"decode group S={S} Td=1 context=1024 bf16", "no_host_sync": True,
+        "n_splits": _n_splits(ck, S, MAXP, kp.device),
+        "ms": time_ms(torch, lambda: ck.ragged_attention(**kw)),
+        "device_ms": device_ms(torch, lambda: ck.ragged_attention(**kw)),
+        "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(**kw), iters=3),
+        "library_ms": None, "sdpa_gathered_ms": sdpa_group(kw),
+        "bound_ms": b, "bound_by": op,
+    }
+    dkw = dict(q=kw["q_group"][:, 0], k_pages=kp, v_pages=vp, page_table=table8,
+               lengths=kw["group_lengths"], page_size=PS, k_cur=kw["k_group"][:, 0],
+               v_cur=kw["v_group"][:, 0], layer=0)
+    res["paged_decode"] = {
+        "shape": f"decode S={S} context=1024 bf16",
+        "ms": time_ms(torch, lambda: ck.paged_decode(**dkw)),
+        "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
+            dkw["q"], kp[0], vp[0], table8, dkw["lengths"], PS, k_cur=dkw["k_cur"],
+            v_cur=dkw["v_cur"]), iters=3),
+        "library_ms": None,
+        "ragged_attention_ms": res["ragged_attention"]["ms"],
+        "bound_ms": b, "bound_by": op,
+    }
+    # one slot at 24,000 cached tokens (a 400-page table row)
+    kw24 = group_kw([24000], perm[:maxp][None].contiguous())
+    b, op = group_bound([24000])
+    res["ragged_attention"]["one_slot_24000"] = {
+        "n_splits": _n_splits(ck, 1, maxp, kp.device),
+        "ms": time_ms(torch, lambda: ck.ragged_attention(**kw24)),
+        "device_ms": device_ms(torch, lambda: ck.ragged_attention(**kw24)),
+        "sdpa_gathered_ms": sdpa_group(kw24), "bound_ms": b, "bound_by": op,
+    }
+
+    # the chunk region, C = 1,024 after 1,024 and after 16,384 cached tokens
+    c = 1024
+    for start in (1024, 16384):
+        row = perm[:maxp].clone()
+        row[-(-(start + c) // PS):] = -1
+        q_c = inp.randn(1, c, H, D, dtype=bf16)
+        k_c, v_c = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
+        ckw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_chunk=q_c, chunk_row=row,
+                   chunk_start=start, chunk_total=start + c, k_chunk=k_c, v_chunk=v_c, layer=0)
+        b, op = bound_ms((2 * q_c.numel() + (start + c) * KVH * D * 2) * 2,
+                         4 * H * D * c * (start + (c + 1) / 2))
+        k_all, v_all = gather_kv(kp[0], vp[0], row, PS)
+        k_all = torch.cat([k_all[:start], k_c])[None].transpose(1, 2)
+        v_all = torch.cat([v_all[:start], v_c])[None].transpose(1, 2)
+        mask = (torch.arange(start + c, device="cuda")[None, :]
+                <= start + torch.arange(c, device="cuda")[:, None])
+        qt = q_c.transpose(1, 2)
+        entry = {"ms": time_ms(torch, lambda: ck.ragged_attention(**ckw)),
+                 "device_ms": device_ms(torch, lambda: ck.ragged_attention(**ckw)),
+                 "sdpa_gathered_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                     qt, k_all, v_all, attn_mask=mask, enable_gqa=True)),
+                 "bound_ms": b, "bound_by": op}
+        if start == 1024:
+            entry["plain_ms"] = time_ms(torch, lambda: ragged_paged_attention_ref(**ckw), iters=3)
+            pkw = dict(q=q_c, k_pages=kp, v_pages=vp, table_row=row, start=start,
+                       total_len=start + c, page_size=PS, k_cur=k_c, v_cur=v_c, layer=0)
+            res["prefix_chunk"] = {
+                "shape": f"chunk C={c} after {start} cached tokens bf16",
+                "ms": time_ms(torch, lambda: ck.prefix_chunk(**pkw)),
+                "plain_ms": time_ms(torch, lambda: _prefix_chunk_ref(
+                    q_c, kp[0], vp[0], row, start, start + c, PS, k_cur=k_c, v_cur=v_c),
+                    iters=3),
+                "library_ms": None, "ragged_attention_ms": entry["ms"],
+                "bound_ms": b, "bound_by": op,
+            }
+        res["ragged_attention"][f"chunk_1024_after_{start}"] = entry
+        del k_all, v_all, mask, ckw
+    # the verify width: C = K+1 = 5 after 1024 cached tokens, one slot,
+    # against ragged_attention's group region with Td = 5 for that slot
+    c, start, glen = 5, 1024, kw["group_lengths"][:1]
+    q_v = inp.randn(1, c, H, D, dtype=bf16)
+    k_v, v_v = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
+    vkw = dict(q=q_v, k_pages=kp, v_pages=vp, table_row=table8[0], start=glen, total_len=None,
+               page_size=PS, k_cur=k_v, v_cur=v_v, layer=0)
+    gkw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=q_v, page_table=table8[:1],
+               group_lengths=glen, k_group=k_v[None], v_group=v_v[None], layer=0)
+    vb, vop = bound_ms((2 * q_v.numel() + (start + c) * KVH * D * 2) * 2,
+                       4 * H * D * c * (start + (c + 1) / 2))
+    res["prefix_chunk"].update({
+        "verify_shape": f"C={c} after {start} cached tokens, one slot, bf16",
+        "verify_ms": time_ms(torch, lambda: ck.prefix_chunk(**vkw)),
+        "verify_ragged_attention_ms": time_ms(torch, lambda: ck.ragged_attention(**gkw)),
+        "verify_ragged_attention_device_ms": device_ms(torch, lambda: ck.ragged_attention(**gkw)),
+        "verify_bound_ms": vb, "verify_bound_by": vop,
+    })
+    # the kernels line's row of the chunk kernel
+    chunk = res["ragged_attention"]["chunk_1024_after_1024"]
+    res["ragged_attention.chunk"] = {
+        "shape": "chunk region C=1024 after 1024 cached tokens bf16", "ms": chunk["ms"],
+        "device_ms": chunk["device_ms"],
+        "plain_ms": chunk["plain_ms"], "library_ms": None,
+        "sdpa_gathered_ms": chunk["sdpa_gathered_ms"], "bound_ms": chunk["bound_ms"],
+        "bound_by": chunk["bound_by"]}
+    res["ragged_attention"]["chunk_region_ms"] = chunk["ms"]
+    res["ragged_attention"]["host_us_per_call"] = _ragged_host_us(torch, inp)
+    res["ragged_attention"]["chunk_region_bound_ms"] = chunk["bound_ms"]
+    del kp, vp
+    return res
+
+
+def phase_timing(torch) -> dict:
+    import torch.nn.functional as F
+
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import attention_prefill_ref
     from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
     inp = Inputs(torch, SEED + 1)
@@ -579,79 +869,7 @@ def phase_timing(torch) -> dict:
     }
     del q, k, v, qt, kt, vt
 
-    # ragged_attention: a decode step's group region, 8 slots at 1024
-    # cached tokens each (Td = 1)
-    kp, vp = inp.pools(1, bf16)
-    lengths = [1024] * S
-    table = inp.page_table(lengths, extra=1)
-    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    kw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=inp.randn(S, 1, H, D, dtype=bf16),
-              page_table=table, group_lengths=glens, k_group=inp.randn(S, 1, KVH, D, dtype=bf16),
-              v_group=inp.randn(S, 1, KVH, D, dtype=bf16), layer=0)
-    keys = sum(lengths) + S
-    b, op = bound_ms(keys * KVH * D * 2 * 2 + 2 * S * H * D * 2, 4 * H * D * keys)
-    res["ragged_attention"] = {
-        "shape": f"decode group S={S} Td=1 context=1024 bf16",
-        "ms": time_ms(torch, lambda: ck.ragged_attention(**kw)),
-        "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(**kw), iters=3),
-        "library_ms": None,
-        "bound_ms": b, "bound_by": op,
-    }
-    # paged_decode: the same decode step through the per-phase kernel
-    dkw = dict(q=kw["q_group"][:, 0], k_pages=kp, v_pages=vp, page_table=table,
-               lengths=glens, page_size=PS, k_cur=kw["k_group"][:, 0],
-               v_cur=kw["v_group"][:, 0], layer=0)
-    res["paged_decode"] = {
-        "shape": f"decode S={S} context=1024 bf16",
-        "ms": time_ms(torch, lambda: ck.paged_decode(**dkw)),
-        "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
-            dkw["q"], kp[0], vp[0], table, glens, PS, k_cur=dkw["k_cur"],
-            v_cur=dkw["v_cur"]), iters=3),
-        "library_ms": None,
-        "ragged_attention_ms": res["ragged_attention"]["ms"],
-        "bound_ms": b, "bound_by": op,
-    }
-    # a chunk of C = 1024 after 1024 cached tokens: the mixed step's chunk
-    # region of ragged_attention and prefix_chunk at the same shapes
-    c, start = 1024, 1024
-    q_c = inp.randn(1, c, H, D, dtype=bf16)
-    k_c, v_c = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
-    ckw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_chunk=q_c, chunk_row=table[0],
-               chunk_start=start, chunk_total=start + c, k_chunk=k_c, v_chunk=v_c, layer=0)
-    pkw = dict(q=q_c, k_pages=kp, v_pages=vp, table_row=table[0], start=start,
-               total_len=start + c, page_size=PS, k_cur=k_c, v_cur=v_c, layer=0)
-    b, op = bound_ms((2 * q_c.numel() + (start + c) * KVH * D * 2) * 2,
-                     4 * H * D * c * (start + (c + 1) / 2))
-    res["ragged_attention"]["chunk_region_ms"] = time_ms(torch, lambda: ck.ragged_attention(**ckw))
-    res["ragged_attention"]["chunk_region_bound_ms"] = b
-    res["prefix_chunk"] = {
-        "shape": f"chunk C={c} after {start} cached tokens bf16",
-        "ms": time_ms(torch, lambda: ck.prefix_chunk(**pkw)),
-        "plain_ms": time_ms(torch, lambda: _prefix_chunk_ref(
-            q_c, kp[0], vp[0], table[0], start, start + c, PS, k_cur=k_c, v_cur=v_c),
-            iters=3),
-        "library_ms": None,
-        "ragged_attention_ms": res["ragged_attention"]["chunk_region_ms"],
-        "bound_ms": b, "bound_by": op,
-    }
-    # the verify width: C = K+1 = 5 after 1024 cached tokens, one slot,
-    # against ragged_attention's group region with Td = 5 for that slot
-    c, glen = 5, glens[:1]
-    q_v = inp.randn(1, c, H, D, dtype=bf16)
-    k_v, v_v = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
-    vkw = dict(q=q_v, k_pages=kp, v_pages=vp, table_row=table[0], start=glen, total_len=None,
-               page_size=PS, k_cur=k_v, v_cur=v_v, layer=0)
-    gkw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=q_v, page_table=table[:1],
-               group_lengths=glen, k_group=k_v[None], v_group=v_v[None], layer=0)
-    vb, vop = bound_ms((2 * q_v.numel() + (start + c) * KVH * D * 2) * 2,
-                       4 * H * D * c * (start + (c + 1) / 2))
-    res["prefix_chunk"].update({
-        "verify_shape": f"C={c} after {start} cached tokens, one slot, bf16",
-        "verify_ms": time_ms(torch, lambda: ck.prefix_chunk(**vkw)),
-        "verify_ragged_attention_ms": time_ms(torch, lambda: ck.ragged_attention(**gkw)),
-        "verify_bound_ms": vb, "verify_bound_by": vop,
-    })
-    del kp, vp, kw, ckw, dkw, pkw, vkw, gkw
+    res.update(_ragged_timing(torch, inp))
     torch.cuda.empty_cache()
 
     # KV writes on the engine's full pool: 32 layers x 1024 pages x 64 rows
@@ -671,14 +889,22 @@ def phase_timing(torch) -> dict:
         kp[:, pidx, off] = kn
         vp[:, pidx, off] = vn
 
+    def kernel_decode():
+        ck.paged_write_decode(kp, vp, kn, vn, table, positions, active, PS)
+
+    # the kernel and index_put_ in turns (kernel, library) x 3, CUDA events
+    # around the calls only
+    turns = [(time_ms(torch, kernel_decode), time_ms(torch, lib_decode)) for _ in range(3)]
     b, op = bound_ms(2 * 2 * n_layers * S * row_bytes, 0)
     res["paged_write_decode"] = {
         "shape": f"pool[{n_layers},{S * MAXP},{PS},{KVH},{D}] S={S} bf16",
-        "ms": time_ms(torch, lambda: ck.paged_write_decode(kp, vp, kn, vn, table, positions,
-                                                           active, PS)),
+        "ms": statistics.median(t for t, _ in turns),
         "plain_ms": time_ms(torch, lambda: write_decode(kp, vp, kn, vn, table, positions,
                                                         active, PS)),
-        "library_ms": time_ms(torch, lib_decode),
+        "library_ms": statistics.median(t for _, t in turns),
+        "turns_ms": [t for t, _ in turns], "turns_library_ms": [t for _, t in turns],
+        "device_ms": device_ms(torch, kernel_decode),
+        "library_device_ms": device_ms(torch, lib_decode),
         "bound_ms": b, "bound_by": op,
     }
     t = 1024
@@ -912,25 +1138,31 @@ def _free(torch, served: Served) -> None:
 
 # the kernels each engine setting's path must launch and must not launch;
 # the counts are set to 0 just before a setting serves and read just after
+# ragged_attention's regions: the chunk region on the tensor cores and the
+# groups launch in every ragged setting (a prompt longer than one chunk, a
+# prefix-cache repeat); the CUDA-core chunk route never does in bf16
+_RAGGED = {"ragged_attention", "ragged_attention.chunk", "ragged_attention.group"}
 _PATHS = {
-    "spec_ragged": ({"flash_prefill", "ragged_attention", "paged_write_decode",
-                     "paged_write_chunk"},
-                    {"paged_decode", "prefix_chunk", "flash_prefill_streamed"}),
-    "plain_ragged": ({"flash_prefill", "ragged_attention", "paged_write_decode",
-                      "paged_write_chunk"},
-                     {"paged_decode", "prefix_chunk", "flash_prefill_streamed"}),
+    "spec_ragged": ({"flash_prefill", "paged_write_decode", "paged_write_chunk"} | _RAGGED,
+                    {"paged_decode", "prefix_chunk", "flash_prefill_streamed",
+                     "ragged_attention.chunk_cores"}),
+    "plain_ragged": ({"flash_prefill", "paged_write_decode", "paged_write_chunk"} | _RAGGED,
+                     {"paged_decode", "prefix_chunk", "flash_prefill_streamed",
+                      "ragged_attention.chunk_cores"}),
     "spec_per_phase": ({"flash_prefill", "prefix_chunk", "paged_write_decode",
                         "paged_write_chunk"},
-                       {"ragged_attention", "paged_decode", "flash_prefill_streamed"}),
+                       {"paged_decode", "flash_prefill_streamed",
+                        "ragged_attention.chunk_cores"} | _RAGGED),
     "plain_per_phase": ({"flash_prefill", "paged_decode", "prefix_chunk",
                          "paged_write_decode", "paged_write_chunk"},
-                        {"ragged_attention", "flash_prefill_streamed"}),
-    "long_spec_ragged": ({"flash_prefill_streamed", "flash_prefill", "ragged_attention",
-                          "paged_write_decode", "paged_write_chunk"},
-                         {"paged_decode", "prefix_chunk"}),
+                        {"flash_prefill_streamed", "ragged_attention.chunk_cores"} | _RAGGED),
+    "long_spec_ragged": ({"flash_prefill_streamed", "flash_prefill", "paged_write_decode",
+                          "paged_write_chunk"} | _RAGGED,
+                         {"paged_decode", "prefix_chunk", "ragged_attention.chunk_cores"}),
 }
 # the setting whose launches the kernels line reports for each kernel
 _CARRIER = {"flash_prefill": "spec_ragged", "ragged_attention": "spec_ragged",
+            "ragged_attention.chunk": "spec_ragged",
             "paged_write_decode": "spec_ragged", "paged_write_chunk": "spec_ragged",
             "paged_decode": "plain_per_phase", "prefix_chunk": "spec_per_phase"}
 
@@ -1404,6 +1636,7 @@ def _int8_timing(torch, inp: Inputs) -> dict:
         b, op = bound_ms(*work[name])
         ms, fp_ms = statistics.mean(runs["int8"]), statistics.mean(runs["fp"])
         out[name] = {"ms": ms, "fp_ms": fp_ms, "int8_over_fp": ms / fp_ms, "runs_ms": runs,
+                     "device_ms": device_ms(torch, int8), "fp_device_ms": device_ms(torch, fp),
                      "bound_ms": b, "bound_by": op, "library_ms": None,
                      "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(
                          k8, v8, PS, layer=0, **kw), iters=3)}
@@ -2156,6 +2389,7 @@ def _tree_timing(torch, inp: Inputs) -> dict:
         "library_ms": None, "bound_ms": b, "bound_by": op,
         "chain_td6_ms": statistics.mean(runs["chain_td6"]), "chain_td6_bound_ms": b6,
         "chain_td5_ms": time_ms(torch, lambda: ck.ragged_attention(**kw5)),
+        "device_ms": device_ms(torch, run_tree), "chain_td6_device_ms": device_ms(torch, run_chain6),
         "chain_td5_bound_ms": b5, "chain_td5_bound_by": op5,
     }
     del kp, vp, kw, kw5
@@ -2172,6 +2406,7 @@ def _tree_timing(torch, inp: Inputs) -> dict:
     out["draft_ingest"] = {
         "shape": f"chain group S={S} Td={td} context=1024 D={DRAFT_D} bf16",
         "ms": time_ms(torch, lambda: ck.ragged_attention(kp, vp, PS, **ikw)),
+        "device_ms": device_ms(torch, lambda: ck.ragged_attention(kp, vp, PS, **ikw)),
         "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(kp, vp, PS, **ikw),
                             iters=3),
         "library_ms": None, "bound_ms": bi, "bound_by": opi,
@@ -2479,10 +2714,12 @@ def main() -> int:
     timing["ragged_attention.tree"] = tree["timing"]
     errs["ragged_attention.tree"] = tree["max_abs_err_bf16"]
     launches["ragged_attention.tree"] = tree["launches"]
-    # the seven kernels, then the int8 and tree legs of ragged_attention
-    # (their own launches, from the int8 serve and the tree serve)
+    # the seven kernels, ragged_attention's chunk kernel (csrc/ragged_attention.cu's
+    # ragged_chunk_kernel, launched by the ragged_attention wrapper), then the
+    # int8 and tree legs (their own launches, from the int8 serve and the tree serve)
     rows = [(spec.name, spec) for spec in KERNELS]
-    rows += [(f"ragged_attention.{leg}", by_name("ragged_attention")) for leg in ("int8", "tree")]
+    rows += [(f"ragged_attention.{leg}", by_name("ragged_attention"))
+             for leg in ("chunk", "int8", "tree")]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "launches": launches[name],

@@ -8,7 +8,12 @@
 // - The K/V rows of a segment stream through shared memory in tiles of
 //   kTileKeys keys, converted to float32 on load with 16-byte vector reads
 //   (a key row of one kv head is D contiguous values; rows are strided by
-//   KVH*D in both the page pool and the fresh K/V).
+//   KVH*D in both the page pool and the fresh K/V). Each thread issues a
+//   batch of up to 8 such reads of K and of V (and their page-table reads)
+//   before it converts and stores any of them, so a tile costs about one
+//   trip to device memory, not one per read; where a tile is one batch
+//   and registers allow, the next tile's batch is issued before this
+//   tile's math.
 // - Each of the kWarps warps owns RPW query rows, kept in shared memory
 //   pre-scaled by 1/sqrt(D). A warp scores 32 keys at a time, one key per
 //   lane, reusing every K value it reads for its RPW rows (register
@@ -24,9 +29,9 @@
 //   row i's ancestor mask is set. Masked scores get probability 0 (the
 //   finite -1e30 of the JAX package's kernels only enters the running
 //   maximum), and the output is acc / max(l, 1e-30).
-// - All math runs on the CUDA cores in float32. Tensor cores (mma/wgmma)
-//   and TMA loads are left to a later version; see PERF.md for what this
-//   costs against the card's bound.
+// - All math runs on the CUDA cores in float32 (the tensor-core kernels
+//   build on hopper_common.cuh instead); see PERF.md for what this costs
+//   against the card's bound.
 // - A segment's rows come through a row READER (`KVRows` for rows of the
 //   compute dtype, `QuantPagedRows` for an int8 page pool, which multiplies
 //   each row by its float32 scale right after the load), so the int8 pool
@@ -66,14 +71,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Read VEC = 16 / sizeof(T) values at a 16-byte aligned address as floats.
+// VEC = 16 / sizeof(T) values of a 16-byte read as floats.
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* src, float* dst) {
+__device__ __forceinline__ void unpack_vec(const uint4& raw, float* dst) {
   constexpr int VEC = 16 / sizeof(T);
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
   const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int e = 0; e < VEC; ++e) dst[e] = to_f<T>(vals[e]);
+}
+
+// Read VEC = 16 / sizeof(T) values at a 16-byte aligned address as floats.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* src, float* dst) {
+  unpack_vec<T>(*reinterpret_cast<const uint4*>(src), dst);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -119,17 +129,26 @@ struct PagedRows {
 };
 
 // Row reader of K/V of element type E: row r's K/V start at k/v + off(r).
-// load() reads VEC values from column c of both as floats.
+// fetch() reads VEC values from column c of both (16 bytes each) into a
+// Raw; unpack() turns a Raw into floats. A tile's fetches are issued
+// together, before any unpack.
 template <typename E, class RowOff>
 struct KVRows {
   static constexpr int VEC = 16 / sizeof(E);
+  struct Raw {
+    uint4 k, v;
+  };
   const E* k;
   const E* v;
   RowOff off;
-  __device__ __forceinline__ void load(int r, int c, float* kv, float* vv) const {
+  __device__ __forceinline__ void fetch(int r, int c, Raw& raw) const {
     const int64_t o = off(r) + c;
-    load_vec<E>(k + o, kv);
-    load_vec<E>(v + o, vv);
+    raw.k = *reinterpret_cast<const uint4*>(k + o);
+    raw.v = *reinterpret_cast<const uint4*>(v + o);
+  }
+  __device__ __forceinline__ void unpack(const Raw& raw, float* kv, float* vv) const {
+    unpack_vec<E>(raw.k, kv);
+    unpack_vec<E>(raw.v, vv);
   }
 };
 
@@ -138,21 +157,30 @@ struct KVRows {
 // indexed by the pool row, not by element or page).
 struct QuantPagedRows {
   static constexpr int VEC = 16;
+  struct Raw {
+    uint4 k, v;
+    float ks, vs;
+  };
   const int8_t* k;
   const int8_t* v;
   const float* k_scale;
   const float* v_scale;
   PagedRows rows;
-  __device__ __forceinline__ void load(int r, int c, float* kv, float* vv) const {
+  __device__ __forceinline__ void fetch(int r, int c, Raw& raw) const {
     const int64_t row = rows.row(r);
     const int64_t o = row * rows.row_stride + c;
-    load_vec<int8_t>(k + o, kv);
-    load_vec<int8_t>(v + o, vv);
-    const float ks = k_scale[row], vs = v_scale[row];
+    raw.k = *reinterpret_cast<const uint4*>(k + o);
+    raw.v = *reinterpret_cast<const uint4*>(v + o);
+    raw.ks = k_scale[row];
+    raw.vs = v_scale[row];
+  }
+  __device__ __forceinline__ void unpack(const Raw& raw, float* kv, float* vv) const {
+    unpack_vec<int8_t>(raw.k, kv);
+    unpack_vec<int8_t>(raw.v, vv);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      kv[e] *= ks;
-      vv[e] *= vs;
+      kv[e] *= raw.ks;
+      vv[e] *= raw.vs;
     }
   }
 };
@@ -276,26 +304,65 @@ struct AttnBlock {
   template <class Rows, class Keys>
   __device__ void segment(const Rows& src, int r_lo, int r_hi, const Keys& keys) {
     constexpr int SV = Rows::VEC;
+    constexpr int CPR = D / SV;                     // 16-byte reads per row
+    constexpr int PER = kTileKeys * CPR / kThreads;  // reads of K (and V) per thread
+    constexpr int BATCH = PER < 8 ? PER : 8;         // issued before any is used
+    // With one batch per tile and registers to spare (the held reads and
+    // the accumulators within 68 registers: decode rows, D = 64, the int8
+    // pool at up to 4 rows per warp), the next tile's reads are issued
+    // before this tile's math, so they are in flight while it runs; at 8
+    // rows per warp and D = 128 holding them spilled and measured slower.
+    constexpr bool kPrefetch =
+        PER == BATCH && RPW * (D / 32) + PER * int(sizeof(typename Rows::Raw)) / 4 <= 68;
     static_assert(D % SV == 0, "head_dim must hold whole 16-byte loads");
+    static_assert(PER * kThreads == kTileKeys * CPR && PER % BATCH == 0, "tile shape");
+    typename Rows::Raw raw[BATCH];
+    auto fetch = [&](int t0, int nk, int b0) {  // rows past nk read row nk - 1
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int idx = threadIdx.x + (b0 + i) * kThreads;
+        src.fetch(t0 + min(idx / CPR, nk - 1), (idx % CPR) * SV, raw[i]);
+      }
+    };
+    auto store = [&](int nk, int b0) {  // rows past nk as zeros
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int idx = threadIdx.x + (b0 + i) * kThreads;
+        const int j = idx / CPR, c = (idx % CPR) * SV;
+        float kv[SV], vv[SV];
+        src.unpack(raw[i], kv, vv);
+        const bool live = j < nk;
+#pragma unroll
+        for (int e = 0; e < SV; e += 4) {  // 16-byte stores (rows are 16-byte aligned)
+          *reinterpret_cast<float4*>(ks + j * KS + c + e) =
+              live ? make_float4(kv[e], kv[e + 1], kv[e + 2], kv[e + 3])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(vs + j * D + c + e) =
+              live ? make_float4(vv[e], vv[e + 1], vv[e + 2], vv[e + 3])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    };
+    if constexpr (kPrefetch) {
+      if (r_lo < r_hi) fetch(r_lo, min(kTileKeys, r_hi - r_lo), 0);
+    }
     for (int t0 = r_lo; t0 < r_hi; t0 += kTileKeys) {
       const int nk = min(kTileKeys, r_hi - t0);
       __syncthreads();  // previous tile consumed; q rows visible
-      for (int idx = threadIdx.x; idx < kTileKeys * (D / SV); idx += kThreads) {
-        int j = idx / (D / SV), c = (idx % (D / SV)) * SV;
-        float kv[SV], vv[SV];
-        if (j < nk) {
-          src.load(t0 + j, c, kv, vv);
-        } else {
+      if constexpr (kPrefetch) {
+        store(nk, 0);
+      } else {
 #pragma unroll
-          for (int e = 0; e < SV; ++e) kv[e] = vv[e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < SV; ++e) {
-          ks[j * KS + c + e] = kv[e];
-          vs[j * D + c + e] = vv[e];
+        for (int b0 = 0; b0 < PER; b0 += BATCH) {
+          fetch(t0, nk, b0);
+          store(nk, b0);
         }
       }
       __syncthreads();
+      const int t1 = t0 + kTileKeys;
+      if constexpr (kPrefetch) {
+        if (t1 < r_hi) fetch(t1, min(kTileKeys, r_hi - t1), 0);
+      }
       tile(nk, t0, keys);
     }
   }

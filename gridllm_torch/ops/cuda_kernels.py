@@ -10,9 +10,12 @@ and dispatches on where the tensors lie:
 
 `LAUNCHES` counts successful launches per kernel (never the CPU path), so
 a run can prove that its main path went through the kernels; `LEG_LAUNCHES`
-counts, beside them, the launches of one leg of a kernel (the int8 pool
-leg and the tree-verify leg of ragged_attention; one launch may take
-both).
+counts, beside them, the launches of one leg of a kernel: for
+ragged_attention the int8 pool leg and the tree-verify leg (one launch may
+take both), and its regions: "chunk" (the chunk region on the tensor
+cores, a launch of its own), "chunk_cores" (the chunk region on the CUDA
+cores, for float32 q or an int8 pool) and "group" (the group region, split
+over pages).
 
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
@@ -23,6 +26,8 @@ Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 - paged_decode        :479  → ops.attention.paged_attention_decode_ref
 - prefix_chunk        :739  → ops.attention._prefix_chunk_ref
 - ragged_attention    :1168 → ops.attention.ragged_paged_attention_ref
+  (index math of its two kernels in Python: `ragged_chunk_tile_plan`,
+  `ragged_split_count`, `ragged_split_plan`, `ragged_split_merge_ref`)
 - paged_write_decode  :1404 → ops.kvcache.write_decode
 - paged_write_chunk   :1497 → ops.kvcache.write_prefill
 """
@@ -61,6 +66,9 @@ LAUNCHES: dict[str, int] = {
 LEG_LAUNCHES: dict[str, int] = {
     "ragged_attention.int8": 0,
     "ragged_attention.tree": 0,
+    "ragged_attention.chunk": 0,
+    "ragged_attention.chunk_cores": 0,
+    "ragged_attention.group": 0,
 }
 
 
@@ -99,8 +107,16 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
         [_P, _P, _P, _P, _I, _I, _I,              # pools, scales, P, ps, layer
          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,  # chunk region
          _P, _P, _P, _P, _P, _P, _I, _I, _I,      # group region
+         _I, _P, _P, _P,                          # n_splits, partials, counters
          _I, _I, _I, _I, _I, _F, _F, _I,          # H, KVH, D, rpw, dtype, ...
          _I, _P, _P, _P]),                        # tree_n, tree_pos, tree_bits, stream
+    "gridllm_ragged_pool_map": ("ragged_attention.cu", [_P, _LL, _I, _I, _I, _I, _P]),
+    "gridllm_ragged_chunk": (
+        "ragged_attention.cu",
+        [_P, _P, _P, _P, _P, _P, _P,              # pool maps, q, k/v_chunk, out, row
+         _I, _I, _I, _I, _I, _I,                  # n_table, P, L * P, ps, box_rows, layer
+         _I, _I, _I, _I, _I, _I, _I,              # C, bq, start, total, H, KVH, D
+         _F, _F, _I, _P]),                        # scale, softcap, window, stream
     "gridllm_error_string": ("paged_write.cu", [_I]),
 }
 _fns: dict[str, Any] = {}
@@ -109,9 +125,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_ROWS = 32  # query rows one block holds: kWarps (4) x RPW (<= 8)
 MAX_TREE_NODES = 32  # the tree leg's int32 ancestor bitmask per node
-PREFILL_ROWS = 128  # flash_prefill.cu: query rows per block, two m64 slabs
-PREFILL_BK = 128    # flash_prefill.cu: keys per K/V tile (bf16)
-# codes of flash_prefill.cu's entry point beside cudaError_t values
+PREFILL_ROWS = 128  # hopper_common.cuh: query rows per block, two m64 slabs
+PREFILL_BK = 128    # hopper_common.cuh: keys per K/V tile (bf16)
+# codes of the TMA kernels' entry points beside cudaError_t values
 _PREFILL_ERRORS = {-1: "cuTensorMapEncodeTiled not found in libcuda.so.1",
                    -2: "the driver refused a TMA tensor map"}
 
@@ -130,12 +146,16 @@ def _fn(name: str):
 
 def _launch(name: str, kernel: str, *args, legs: tuple[str, ...] = ()) -> None:
     err = _fn(name)(*args)
-    if err != 0:
-        msg = _PREFILL_ERRORS.get(err) or _fn("gridllm_error_string")(err).decode()
-        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
+    _raise_on(err, kernel)
     LAUNCHES[kernel] += 1
     for leg in legs:
         LEG_LAUNCHES[f"{kernel}.{leg}"] += 1
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        msg = _PREFILL_ERRORS.get(err) or _fn("gridllm_error_string")(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
 
 
 def _ptr(t: torch.Tensor | None):
@@ -517,13 +537,294 @@ def tree_mask_from_bits(tree_bits, n: int) -> torch.Tensor:
     return ((bits[:, None] >> torch.arange(n)[None, :]) & 1).bool()
 
 
+# ---------------------------------------------------------------------------
+# ragged_attention: the index math of its two kernels
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkTile:
+    """One block of csrc/ragged_attention.cu's chunk kernel (one kv head)."""
+    qt: int                     # query tile index (blockIdx.x = n_tiles - 1 - qt)
+    tok0: int                   # first chunk token of the tile
+    ntok: int                   # chunk tokens held (<= bq; fewer at the end of C)
+    zero_write: bool            # wholly past chunk_total: zeros, no loads, no math
+    # prefix tiles: (first key's absolute position, needs the per-element
+    # mask, TMA boxes (first position, page coordinate layer * P + page, or
+    # None for a box past the prefix that TMA fills with zeros))
+    prefix_tiles: tuple[tuple[int, bool, tuple[tuple[int, int | None], ...]], ...]
+    # fresh tiles: (first key's row of k_chunk, needs the per-element mask)
+    fresh_tiles: tuple[tuple[int, bool], ...]
+    rows: tuple[tuple[int, int], ...]        # row r -> (chunk token, head within the group)
+
+
+def chunk_box_rows(page_size: int, bk: int = PREFILL_BK) -> int:
+    """Pool rows per TMA box of the chunk kernel: gcd(ps, 128), which must
+    hold whole 8-row swizzle atoms (ps a multiple of 8)."""
+    return int(np.gcd(page_size, bk))
+
+
+def chunk_on_tensor_cores(q_dtype: torch.dtype, pool_dtype: torch.dtype, page_size: int) -> bool:
+    """The chunk region's route, by input type: the wgmma + TMA kernel for
+    a bf16 q on a bf16 pool whose page size holds whole 8-row boxes; the
+    CUDA-core kernel ("chunk_cores") for float32 q, an int8 pool, or
+    another page size."""
+    return (q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16
+            and chunk_box_rows(page_size) % 8 == 0)
+
+
+def ragged_chunk_tile_plan(c: int, chunk_start: int, chunk_total: int, n_table: int,
+                           page_size: int, g: int, window: int = 0, chunk_row=None,
+                           layer: int = 0, num_pages: int | None = None,
+                           bk: int = PREFILL_BK, n_rows: int = PREFILL_ROWS) -> list[ChunkTile]:
+    """The tile plan of csrc/ragged_attention.cu's chunk kernel for one kv
+    head, in the order the blocks are issued (heaviest first).
+
+    A block holds bq = n_rows // g chunk tokens, row r = token tok0 + r // g,
+    query head r % g, at absolute position chunk_start + token. It walks
+    the slot's cached prefix [0, ctx), ctx = min(chunk_start, n_table * ps),
+    in tiles of bk keys aligned to absolute positions, from the tile of
+    max(first position - window + 1, 0) (0 without a window); each tile is
+    bk / box_rows TMA boxes (`chunk_box_rows`) at page coordinate
+    layer * num_pages + clamp(chunk_row[pos // ps], 0, num_pages - 1), a box
+    past ctx read as zeros. Then the chunk's fresh keys in tiles of bk rows
+    aligned to the chunk, from the tile of max(first position - window + 1
+    - chunk_start, 0) up to min(last position + 1, chunk_total) -
+    chunk_start. A tile needs the per-element mask unless every row of the
+    block sees every key of it: keys at most the first position, below the
+    tile's limit (ctx for prefix tiles, chunk_total for fresh ones), and
+    (with a window) the last position within the window of the tile's first
+    key. A query tile that starts at or past chunk_total writes zeros."""
+    bq = n_rows // g
+    ps = page_size
+    box = chunk_box_rows(ps, bk)
+    n_qt = -(-c // bq)
+    ctx = min(max(chunk_start, 0), n_table * ps)
+    row = None if chunk_row is None else [int(x) for x in np.asarray(chunk_row).reshape(-1)]
+
+    def masked(kt0, q_first, q_last, limit):
+        return (kt0 + bk - 1 > q_first or kt0 + bk > limit
+                or (window > 0 and q_last - kt0 >= window))
+
+    def page_coord(pos):
+        if pos >= ctx or row is None:
+            return None
+        return layer * num_pages + min(max(row[pos // ps], 0), num_pages - 1)
+
+    plan = []
+    for qt in range(n_qt - 1, -1, -1):
+        tok0 = qt * bq
+        ntok = min(bq, c - tok0)
+        rows = tuple((tok0 + r // g, r % g) for r in range(ntok * g))
+        q_first, q_last = chunk_start + tok0, chunk_start + tok0 + ntok - 1
+        if q_first >= chunk_total:
+            plan.append(ChunkTile(qt, tok0, ntok, True, (), (), rows))
+            continue
+        p_lo = max(q_first - window + 1, 0) if window > 0 else 0
+        prefix = tuple(
+            (kt0, masked(kt0, q_first, q_last, ctx),
+             tuple((pos, page_coord(pos)) for pos in range(kt0, kt0 + bk, box)))
+            for kt0 in range(p_lo // bk * bk, ctx, bk)) if p_lo < ctx else ()
+        c_hi = min(q_last + 1, chunk_total) - chunk_start
+        c_lo = max(q_first - window + 1 - chunk_start, 0) if window > 0 else 0
+        fresh = tuple((j0, masked(chunk_start + j0, q_first, q_last, chunk_total))
+                      for j0 in range(c_lo // bk * bk, c_hi, bk))
+        plan.append(ChunkTile(qt, tok0, ntok, False, prefix, fresh, rows))
+    return plan
+
+
+SPLIT_BLOCKS_PER_SM = 2        # target blocks of a group launch per SM
+SPLIT_MAX_SPAN_KEYS = 2048     # the table's capacity in spans of at most this many keys
+SPLIT_SCRATCH_BYTES = 64 << 20  # cap on the float32 partials of one launch
+
+
+def ragged_split_count(s: int, kvh: int, n_table: int, rows: int, d: int, n_sms: int,
+                       page_size: int = 64) -> int:
+    """Spans per (slot, kv head) of a group launch, from host shapes only
+    (never the lengths, which live on the device): enough blocks to give
+    each SM SPLIT_BLOCKS_PER_SM, and enough that a slot at the table's
+    capacity (n_table * page_size keys) walks at most SPLIT_MAX_SPAN_KEYS
+    keys per block; at most one span per table page, and partials of at
+    most SPLIT_SCRATCH_BYTES."""
+    if s * kvh == 0:
+        return 1
+    n = max(-(-(SPLIT_BLOCKS_PER_SM * n_sms) // (s * kvh)),
+            -(-(n_table * page_size) // SPLIT_MAX_SPAN_KEYS))
+    per_span = s * kvh * rows * (d + 2) * 4
+    return max(1, min(n, n_table, SPLIT_SCRATCH_BYTES // max(per_span, 1)))
+
+
+def ragged_split_plan(lengths, n_table: int, page_size: int,
+                      n_splits: int) -> list[list[tuple[int, int, bool]]]:
+    """Per slot, per span: (first, end) pool rows [p0, p1) the span's block
+    walks, and whether it also attends the Td fresh K/V (span 0 only). The
+    slot's ctx = min(length, n_table * ps) cached rows are cut into
+    n_splits spans of span_pages = ceil(ceil(ctx / ps) / n_splits) whole
+    pages; a span past ctx walks nothing (p0 == p1) and writes an empty
+    partial, except span 0, which always attends the fresh K/V. The kernel
+    computes the same from the length it reads on the device."""
+    ps = page_size
+    plan = []
+    for ln in lengths:
+        ctx = min(max(int(ln), 0), n_table * ps)
+        span_pages = -(-(-(-ctx // ps)) // n_splits)
+        spans = []
+        for i in range(n_splits):
+            p0 = min(i * span_pages * ps, ctx)
+            spans.append((p0, min(p0 + span_pages * ps, ctx), i == 0))
+        plan.append(spans)
+    return plan
+
+
+def _span_partial(q, ks, vs, vis, scale: float, softcap: float):
+    """One span's partial softmax state in float32, the kernel's way:
+    q [R, D], keys ks/vs [N, D], vis [R, N] → (m [R],
+    l [R], acc [R, D]) with m the running max of the visible logits (-1e30
+    when none), l = sum e^(x - m), acc = sum e^(x - m) v."""
+    x = (q @ ks.T) * scale
+    if softcap > 0.0:
+        x = softcap * torch.tanh(x / softcap)
+    x = torch.where(vis, x, torch.full_like(x, -1e30))
+    m = x.amax(dim=-1) if x.shape[-1] else torch.full((q.shape[0],), -1e30)
+    p = torch.where(vis, torch.exp(x - m[:, None]), torch.zeros_like(x))
+    return m, p.sum(-1), p @ vs
+
+
+def ragged_split_merge_ref(k_pages, v_pages, page_size: int, q_group, page_table,
+                           group_lengths, k_group, v_group, n_splits: int,
+                           layer: int | None = None, softcap: float = 0.0, window: int = 0,
+                           tree_pos=None, tree_mask=None) -> torch.Tensor:
+    """The group region computed span by span (`ragged_split_plan`) and
+    merged as csrc/ragged_attention.cu's last block merges the partials:
+    M = max m_i over spans with l_i > 0, out = sum e^(m_i - M) acc_i /
+    max(sum e^(m_i - M) l_i, 1e-30). Pools one layer [P, ps, KVH, D] or the
+    full stack with `layer`, fp or int8 (`QuantPages`, dequantized by
+    gather_kv); a tree by tree_pos [Td] / tree_mask [Td, Td]. Float32 math;
+    → [S, Td, H, D] in q's dtype."""
+    from gridllm_torch.ops.kvcache import gather_kv
+
+    kp, vp = _layer_pool(k_pages, layer), _layer_pool(v_pages, layer)
+    s, td, h, d = q_group.shape
+    kvh = kp.shape[-2]
+    g = h // kvh
+    n_table = page_table.shape[1]
+    scale = d ** -0.5
+    plan = ragged_split_plan(group_lengths.tolist(), n_table, page_size, n_splits)
+    depth = torch.arange(td) if tree_pos is None else torch.as_tensor(
+        np.asarray(tree_pos), dtype=torch.int64)
+    out = torch.empty(s, td, h, d, dtype=torch.float32)
+    for si in range(s):
+        length = max(int(group_lengths[si]), 0)
+        ks, vs = gather_kv(kp, vp, page_table[si], page_size)
+        ks, vs = ks.float(), vs.float()
+        q_pos = length + depth                          # logical query positions
+        parts = []
+        for p0, p1, fresh in plan[si]:
+            k_pos = torch.arange(p0, p1)
+            pool_vis = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                pool_vis &= (q_pos[:, None] - k_pos[None, :]) < window
+            f_pos = length + depth if fresh else torch.zeros(0, dtype=torch.int64)
+            if fresh:
+                if tree_mask is None:
+                    f_vis = f_pos[None, :] <= q_pos[:, None]
+                else:
+                    f_vis = torch.as_tensor(np.asarray(tree_mask), dtype=torch.bool).clone()
+                if window > 0:
+                    f_vis &= (q_pos[:, None] - f_pos[None, :]) < window
+            else:
+                f_vis = torch.zeros(td, 0, dtype=torch.bool)
+            vis = torch.cat([pool_vis, f_vis], dim=1)
+            parts_h = []
+            for kh in range(kvh):
+                keys = torch.cat([ks[p0:p1, kh], k_group[si, :len(f_pos), kh].float()])
+                vals = torch.cat([vs[p0:p1, kh], v_group[si, :len(f_pos), kh].float()])
+                q = q_group[si, :, kh * g:(kh + 1) * g].float().reshape(td * g, d)
+                parts_h.append(_span_partial(q, keys, vals, vis.repeat_interleave(g, dim=0),
+                                             scale, softcap))
+            parts.append(parts_h)
+        for kh in range(kvh):
+            ms = torch.stack([parts[i][kh][0] for i in range(n_splits)])
+            ls = torch.stack([parts[i][kh][1] for i in range(n_splits)])
+            accs = torch.stack([parts[i][kh][2] for i in range(n_splits)])
+            live = ls > 0
+            mx = torch.where(live, ms, torch.full_like(ms, -1e30)).amax(dim=0)
+            w = torch.where(live, torch.exp(ms - mx), torch.zeros_like(ms))
+            o = (w[..., None] * accs).sum(0) / (w * ls).sum(0).clamp_min(1e-30)[:, None]
+            out[si, :, kh * g:(kh + 1) * g] = o.reshape(td, g, d)
+    return out.to(q_group.dtype)
+
+
+_sm_counts: dict[int, int] = {}
+_scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+_split_cache: dict[tuple, tuple[int, int | None, int | None, int | None]] = {}
+_pool_maps: dict[tuple, ctypes.Array] = {}
+_MAP_BYTES = 128  # sizeof(CUtensorMap)
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _split_args(dev: torch.device, stream: int, s: int, kvh: int, n_table: int, rows: int,
+                d: int, page_size: int) -> tuple[int, int | None, int | None, int | None]:
+    """(n_splits, part_ml, part_acc, counters) of a group launch, the last
+    three as addresses (None without a split), kept per launch shape so a
+    step's launches do no work for them on the host. The float32 partials
+    and int32 counters live in one buffer each per (device, stream), grown
+    as needed: launches on one stream run in order, and each leaves its
+    counters at zero for the next."""
+    key = (dev, stream, s, kvh, n_table, rows, d, page_size)
+    args = _split_cache.get(key)
+    if args is not None:
+        return args
+    n = ragged_split_count(s, kvh, n_table, rows, d, _sm_count(dev), page_size)
+    if n == 1:
+        args = (1, None, None, None)
+    else:
+        need = s * kvh * n * rows * (d + 2)
+        part, counters = _scratch.get((dev, stream), (None, None))
+        if part is None or part.numel() < need or counters.numel() < s * kvh:
+            part = torch.empty(max(need, 0 if part is None else part.numel()),
+                               dtype=torch.float32, device=dev)
+            counters = torch.zeros(max(s * kvh, 0 if counters is None else counters.numel()),
+                                   dtype=torch.int32, device=dev)
+            _scratch[(dev, stream)] = (part, counters)
+            # addresses kept for this stream point into the old buffers
+            for stale in [k for k in _split_cache if k[:2] == (dev, stream)]:
+                del _split_cache[stale]
+        base = part.data_ptr()
+        args = (n, base, base + s * kvh * n * rows * 2 * 4, counters.data_ptr())
+    _split_cache[key] = args
+    return args
+
+
+def _pool_map(pool: torch.Tensor, ps: int, kvh: int, d: int, box_rows: int) -> ctypes.Array:
+    """The chunk kernel's TMA map of one bf16 pool [L, P, ps, KVH, D], encoded
+    once per (address, shape) and kept: the map holds nothing else."""
+    pool_pages = pool.shape[0] * pool.shape[1]
+    key = (pool.device, pool.data_ptr(), pool_pages, ps, kvh, d, box_rows)
+    m = _pool_maps.get(key)
+    if m is None:
+        m = (ctypes.c_byte * _MAP_BYTES)()
+        _raise_on(_fn("gridllm_ragged_pool_map")(pool.data_ptr(), pool_pages, ps, kvh, d,
+                                                 box_rows, m), "ragged_attention")
+        if len(_pool_maps) >= 64:
+            _pool_maps.clear()
+        _pool_maps[key] = m
+    return m
+
+
 def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=None,
                      chunk_start=None, chunk_total=None, k_chunk=None, v_chunk=None,
                      q_group=None, page_table=None, group_lengths=None, k_group=None,
                      v_group=None, layer: int | None = None, softcap: float = 0.0,
                      window: int = 0, k_scale=None, v_scale=None, tree_pos=None,
                      tree_bits=None):
-    """`ragged_paged_attention_ref` in one launch (see
+    """`ragged_paged_attention_ref` on the card (see
     ops.attention.ragged_paged_attention for the region contract). With
     k_scale/v_scale the pools are int8 values and these their float32
     per-row scales [L, P, ps] (or [P, ps] for one layer): the kernel's int8
@@ -531,7 +832,15 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
     q's. With tree_pos/tree_bits (host int arrays of Td <= 32 node depths
     and int32 ancestor bitmasks, as `tree_rows` checks) the group's tokens
     are a token tree: the kernel's tree leg, counted in
-    LEG_LAUNCHES["ragged_attention.tree"]."""
+    LEG_LAUNCHES["ragged_attention.tree"].
+
+    Launches: the chunk region of a bf16 q on a bf16 pool runs the wgmma +
+    TMA chunk kernel ("chunk"); every other chunk region, and the group
+    region, run the CUDA-core kernel, one launch for both ("chunk_cores",
+    "group"). A call with one region launches once; a mixed step on the
+    tensor-core route twice, on one stream. The group region is split over
+    pages into `ragged_split_count` spans, from host shapes only: the
+    wrapper never reads a device value (no host sync)."""
     if q_chunk is None and q_group is None:
         raise ValueError("ragged_attention: needs a chunk or a group region")
     quant = k_scale is not None
@@ -573,10 +882,13 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
         raise TypeError(f"{kernel}: k_pages has dtype {k_pages.dtype}, expected {cdtype}")
     g = _gqa(kernel, some_q.shape[-2], kvh)
     h = g * kvh
+    scale, cap, win = d ** -0.5, float(softcap), int(window)
+    stream = _stream(k_pages)
     bq = max(1, _MAX_ROWS // g)
     rows = 0
     out_chunk = out_group = None
     c = n_tiles = n_table_c = start = total = 0
+    on_cores = q_chunk is not None and not chunk_on_tensor_cores(cdtype, k_pages.dtype, ps)
     if q_chunk is not None:
         c = q_chunk.shape[1]
         _check(kernel, "q_chunk", q_chunk, dev, (1, c, h, d), cdtype)
@@ -585,10 +897,19 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
         chunk_row = chunk_row.to(device=dev, dtype=torch.int32).contiguous()
         n_table_c = chunk_row.shape[0]
         start, total = int(chunk_start), int(chunk_total)
-        n_tiles = -(-c // bq)
-        rows = bq * g
         out_chunk = torch.empty_like(q_chunk)
+        if on_cores:
+            n_tiles = -(-c // bq)
+            rows = bq * g
+        elif c:
+            box = chunk_box_rows(ps)
+            maps = [_pool_map(p, ps, kvh, d, box) for p in (k_pages, v_pages)]
+            _launch("gridllm_ragged_chunk", kernel, *maps, _ptr(q_chunk), _ptr(k_chunk),
+                    _ptr(v_chunk), _ptr(out_chunk), _ptr(chunk_row), n_table_c, num_pages,
+                    n_layers * num_pages, ps, box, layer, c, PREFILL_ROWS // g, start, total,
+                    h, kvh, d, scale, cap, win, stream, legs=("chunk",))
     s = td = n_table_g = 0
+    n_splits, part_ml, part_acc, counters = 1, None, None, None
     if q_group is not None:
         s, td = q_group.shape[:2]
         _check(kernel, "q_group", q_group, dev, (s, td, h, d), cdtype)
@@ -601,7 +922,11 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
         n_table_g = page_table.shape[1]
         rows = max(rows, td * g)
         out_group = torch.empty_like(q_group)
-    legs = ("int8",) * quant + ("tree",) * bool(tree_n)
+        if s:
+            n_splits, part_ml, part_acc, counters = _split_args(dev, stream, s, kvh, n_table_g,
+                                                                td * g, d, ps)
+    legs = (("int8",) * quant + ("tree",) * bool(tree_n) + ("chunk_cores",) * bool(n_tiles)
+            + ("group",) * bool(s))
     if n_tiles + s:
         _launch("gridllm_ragged_attention", kernel, _ptr(k_pages), _ptr(v_pages),
                 _ptr(k_scale), _ptr(v_scale), num_pages, ps, layer,
@@ -609,7 +934,8 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
                 _ptr(chunk_row), n_table_c, c, bq, start, total, n_tiles,
                 _ptr(q_group), _ptr(k_group), _ptr(v_group), _ptr(out_group),
                 _ptr(page_table), _ptr(group_lengths), n_table_g, s, td,
-                h, kvh, d, _rows_per_warp(rows), code, d ** -0.5, float(softcap),
-                int(window), tree_n, (ctypes.c_int * max(tree_n, 1))(*t_pos),
-                (ctypes.c_int * max(tree_n, 1))(*t_bits), _stream(k_pages), legs=legs)
+                n_splits, part_ml, part_acc, counters,
+                h, kvh, d, _rows_per_warp(rows), code, scale, cap, win,
+                tree_n, (ctypes.c_int * max(tree_n, 1))(*t_pos),
+                (ctypes.c_int * max(tree_n, 1))(*t_bits), stream, legs=legs)
     return out_chunk, out_group

@@ -87,6 +87,15 @@ KERNELS: tuple[KernelSpec, ...] = (
              "nodes at logical positions length + depth, fresh columns masked by "
              "ancestor bitmasks",
              "tests/test_torch_spec_tree.py::test_tree_attention_matches_jax"),
+            # the regions, each a route of its own on the card
+            ("chunk", "the chunk region of a bf16 q on a bf16 pool: ragged_chunk_kernel "
+             "(wgmma + TMA), a launch of its own",
+             "tests/test_torch_ragged_plan.py::test_chunk_plan_walk_matches_jax_ref"),
+            ("chunk_cores", "the chunk region of a float32 q or an int8 pool, on the CUDA "
+             "cores in ragged_attention_kernel beside the groups",
+             "tests/test_torch_attention.py::test_ragged_ref_matches_ragged_kernel"),
+            ("group", "the group region, split over pages, partials merged in the launch",
+             "tests/test_torch_ragged_plan.py::test_split_merge_ref_matches_jax_ref"),
         ),
     ),
     KernelSpec(

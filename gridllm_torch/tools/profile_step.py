@@ -53,6 +53,9 @@ from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngin
 from gridllm_torch.models.llama import Llama
 
 FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
+    # csrc/ragged_attention.cu: the chunk region on the tensor cores apart
+    # from the groups (and the CUDA-core chunk route)
+    ("ragged_attention.chunk", ("ragged_chunk_kernel",)),
     ("ragged_attention", ("ragged_attention_kernel",)),
     ("paged_decode", ("paged_decode_kernel",)),
     ("prefix_chunk", ("prefix_chunk_kernel",)),

@@ -253,3 +253,25 @@ def test_profile_gate_holds_steps_while_a_capture_switches():
     for th in threads:
         th.join(10)
     assert stepped.is_set() and not any(th.is_alive() for th in threads)
+
+
+@pytest.mark.parametrize("name", ["tiny-qwen2", "tiny-qwen3", "tiny-mistral"])
+def test_model_branches_stream_like_jax_with_chunked_admission(name):
+    """tiny-qwen2 (q/k/v bias), tiny-qwen3 (q/k norm) and tiny-mistral
+    (sliding window of 8) with their norm, bias and q/k-norm weights moved
+    off their init: ragged attention on (both engines' default), a prompt
+    longer than the prefill chunk admitted in chunks beside two decoding
+    streams (mixed steps), greedy streams identical to the JAX engine's."""
+    import jax.numpy as jnp
+
+    from tests.test_torch_llama import moved_params
+
+    cfg = dict(TINY, model=name)
+    _, _, np_params = moved_params(name)
+    je = JEngine(JConfig(spec_decode=False, prefix_cache=True, **cfg))
+    je.params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    te = TEngine(TConfig(spec_decode=False, prefix_cache=True, **cfg), device="cpu",
+                 params=np_params)
+    assert te.model.ragged_attention
+    got = _same(je, te, ["hello", LONG, "xyz"])
+    assert got[1].prompt_eval_count > TINY["prefill_chunk"]

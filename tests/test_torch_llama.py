@@ -135,3 +135,66 @@ def test_init_params_scales():
     assert torch.all(m.layers["attn_norm"] == 1) and torch.all(m.final_norm == 1)
     assert abs(float(m.embed.std()) - 0.02) < 2e-3
     assert abs(float(m.layers["wq"].std()) - cfg.hidden_size ** -0.5) < 0.02
+
+
+# ---------------------------------------------------------------------------
+# the model branches the ragged chunk path must keep right
+# ---------------------------------------------------------------------------
+
+BRANCH_MODELS = ("tiny-qwen2", "tiny-qwen3", "tiny-mistral")
+
+
+def moved_params(name: str, seed: int = 3):
+    """(JAX config, JAX params, numpy params) of `name` at float32, with
+    every norm weight, q/k/v bias and q/k-norm weight moved off its init
+    value, so a branch that ignores one of them shows in the logits."""
+    jcfg = JCFG.get_config(name)
+    np_params = jax.tree_util.tree_map(
+        np.array, JL.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32))
+    rng = np.random.default_rng(seed)
+    layers = np_params["layers"]
+    for key in ("attn_norm", "mlp_norm", "q_norm", "k_norm", "bq", "bk", "bv"):
+        if key in layers:
+            layers[key] = (layers[key] + rng.normal(scale=0.3, size=layers[key].shape)
+                           ).astype(np.float32)
+    np_params["final_norm"] = (np_params["final_norm"] + rng.normal(
+        scale=0.3, size=np_params["final_norm"].shape)).astype(np.float32)
+    return jcfg, jax.tree_util.tree_map(jnp.asarray, np_params), np_params
+
+
+@pytest.mark.parametrize("name", BRANCH_MODELS)
+def test_model_branches_forward_and_decode_match_jax(name):
+    """tiny-qwen2 (q/k/v bias), tiny-qwen3 (q/k norm) and tiny-mistral
+    (sliding window of 8): the cache-free forward, then a 20-token bucket
+    prefill and 12 greedy decode steps through the ragged group region,
+    logits against the JAX package's at every step."""
+    jcfg, params, np_params = moved_params(name)
+    tcfg = TCFG.get_config(name)
+    assert (tcfg.attn_bias, tcfg.qk_norm, tcfg.sliding_window) == (
+        jcfg.attn_bias, jcfg.qk_norm, jcfg.sliding_window)
+    model = TL.Llama(tcfg, dtype=torch.float32, device="cpu").params_from_jax(np_params)
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, jcfg.vocab_size, size=(2, 20)).astype(np.int32)
+    want = np.asarray(JL.forward(params, jcfg, jnp.asarray(tokens)))
+    np.testing.assert_allclose(model(torch.from_numpy(tokens)).numpy(), want, **TOL)
+
+    L, P, ps, S, maxp = jcfg.num_layers, 16, 8, 2, 6
+    kvh, d = jcfg.num_kv_heads, jcfg.head_dim_
+    jc = JCache.create(L, P, ps, kvh, d, S, maxp, dtype=jnp.float32)
+    tc = TCache.create(L, P, ps, kvh, d, S, maxp, dtype=torch.float32, device="cpu")
+    row = np.full(maxp, -1, np.int32)
+    row[:5] = [6, 2, 11, 0, 9]
+    padded = np.concatenate([tokens[0], np.zeros(12, np.int32)])   # the 32 bucket
+    jl, jc = JL.prefill(params, jcfg, jnp.asarray(padded), jnp.int32(20), jc, jnp.int32(0),
+                        jnp.asarray(row))
+    tl, tc = model.prefill(torch.from_numpy(padded), 20, tc, 0, torch.from_numpy(row))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    active = np.asarray([True, False])
+    cur = np.zeros(S, np.int32)
+    cur[0] = int(np.argmax(np.asarray(jl)))
+    for _ in range(12):
+        jl, jc = JL.decode_step(params, jcfg, jnp.asarray(cur), jc, jnp.asarray(active))
+        tl, tc = model.decode_step(torch.from_numpy(cur), tc, torch.from_numpy(active))
+        np.testing.assert_allclose(tl.numpy()[0], np.asarray(jl)[0], **TOL)
+        cur = np.array(jnp.argmax(jl, axis=-1), np.int32)
+    np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
