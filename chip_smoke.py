@@ -15,7 +15,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              plan (PREFILL_CASES: head groupings G = 2, 7 and 8, D = 64,
              T not a multiple of the 128-key tile, seq_len inside a tile
              and at its edge, a window across tiles with softcap), q
-             scaled by 4 and held to the row-relative error;
+             scaled by 4 and held to the row-relative error; the
+             per-phase routes (csrc/per_phase_attention.cu): paged_decode
+             in both modes (_decode_cases), prefix_chunk's chunk
+             (_chunk_cases: the tensor-core route in bf16, the CUDA-core
+             route in float32, each held to its leg counter) and the
+             verify over slots (_verify_cases: S = 8 x T = 5, lengths 0
+             to the capacity, window with softcap), then their long cases
+             (_per_phase_long_cases: 0 to 25,600 cached tokens, a chunk
+             after 16,384; q x 4, row-relative error within LONG_REL_TOL
+             in bf16);
              ragged_attention at the edges of its chunk kernel's tile
              plan and of its group split (_ragged_cases: chunk starts
              of 48, 64 and 192, G = 7 at D = 64 and 128, page size 16,
@@ -24,8 +33,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. timing  — each kernel at the main path's shapes (CUDA events, warm-up):
              kernel, plain version, one PyTorch library call where one
              exists, and the bound max(bytes / 3.35 TB/s, flops / 989
-             TFLOP/s) computed from this run's inputs; paged_decode and
-             prefix_chunk beside ragged_attention at the same shapes;
+             TFLOP/s) computed from this run's inputs; the per-phase
+             routes (_per_phase_timing: paged_decode at 8 x 1,024 and
+             1 x 24,000, the verify attention of one layer at 8 x 5 after
+             1,024, prefix_chunk's chunk after 1,024 and 16,384, each as
+             events and device time, the first call of each under
+             torch.cuda.set_sync_debug_mode("error"));
              ragged_attention's chunk region after 1,024 and 16,384
              cached tokens and its decode group at 8 x 1,024 and
              1 x 24,000, each also as profiler device time and beside SDPA
@@ -54,9 +67,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              shapes from every model call. Each setting's launch counters
              are set to 0 just before it serves and read just after: every
              kernel of its path launched, none of another path did, and a
-             verify step launched its attention once per layer (ragged) or
-             once per slot and layer (per-phase). The kernels line reports
-             each kernel's launches from the setting that carries it.
+             verify step launched its attention once per layer, all slots
+             in one launch (ragged_attention, or per-phase exactly
+             layers x verify steps prefix_chunk.slots launches). The
+             kernels line reports each kernel's launches from the setting
+             that carries it.
 6. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
              in float32 serves a prompt cold, then again from the prefix
              cache, and the greedy streams must be identical; then, in
@@ -128,10 +143,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              float32 llama3.2:1b self-drafted greedy streams held to spec
              off with ragged attention on, off, and with kv_int8.
 Then the kernels line (the seven kernels, ragged_attention's chunk
-kernel, and its int8 and tree legs), the card's name and power limit,
-and the result.
+kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
+routes), the card's name and power limit, and the result.
 
 Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,profiler,long,tree]
+       python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps]
+(--turns: the per-phase timing rows, with `steps` the single-call profile
+of tools/profile_step.py, of another checkout of the port and of this one
+in turns on one card; no result line.)
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -203,6 +222,17 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return us / 1e3 / iters
 
 
+def _no_host_sync(torch, fn) -> None:
+    """Call fn under torch.cuda.set_sync_debug_mode("error"): a host sync
+    in it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations")
@@ -267,7 +297,8 @@ def _ragged_cases(inp: Inputs, dtype):
     row-relative error): chunk starts of 64, 48 and 192 (page-aligned, not
     multiples of the 128-key tile), head groupings G = 7 at D = 64
     (qwen2.5:0.5b) and D = 128 (qwen2.5:7b) with window and softcap, page
-    size 16 (eight boxes per tile), a chunk after 16,384 cached tokens
+    size 16 (eight boxes per tile), a chunk whose table ends inside it
+    (rows past the capacity cut), a chunk after 16,384 cached tokens
     beside eight decode groups, and one slot at ~24k cached tokens."""
     torch = inp.torch
     lengths = [0, 1, 63, 64, 65, 700, 1500, 4000]   # straddles + an empty slot
@@ -302,12 +333,15 @@ def _ragged_cases(inp: Inputs, dtype):
     def q4(*shape):
         return inp.randn(*shape, dtype=dtype) * LONG_Q_SCALE
 
-    def edge_chunk(name, h, kvh, d, ps, c, start, valid, n_pool, window=0, cap=0.0):
+    def edge_chunk(name, h, kvh, d, ps, c, start, valid, n_pool, window=0, cap=0.0,
+                   table_pages=None):
         """One chunk on a pool of its own: a shuffled table row, -1 past
-        the chunk's pages."""
-        n_table = -(-(start + c) // ps) + 3
+        the chunk's pages; or a row of `table_pages` pages, all mapped,
+        that ends inside the chunk (its rows past the capacity cut)."""
+        n_table = table_pages or -(-(start + c) // ps) + 3
         row = torch.randperm(n_pool, generator=inp.gen, device="cuda")[:n_table].to(torch.int32)
-        row[-(-(start + c) // ps):] = -1
+        if table_pages is None:
+            row[-(-(start + c) // ps):] = -1
         pool = (2, n_pool, ps, kvh, d)
         kw = dict(k_pages=inp.randn(*pool, dtype=dtype), v_pages=inp.randn(*pool, dtype=dtype),
                   page_size=ps, layer=1, q_chunk=q4(1, c, h, d), chunk_row=row,
@@ -321,6 +355,7 @@ def _ragged_cases(inp: Inputs, dtype):
         edge_chunk("chunk_start192_g7_window_softcap", 28, 4, D, PS, 256, 192, 256, 64,
                    window=200, cap=30.0),
         edge_chunk("chunk_ps16_start48", H, KVH, D, 16, 200, 48, 180, 64),
+        edge_chunk("chunk_past_capacity", H, KVH, D, PS, 128, 192, 128, 64, table_pages=4),
     ]
     # a chunk after 16,384 cached tokens beside eight decode groups, then
     # one slot at ~24k cached tokens (the group split over many spans)
@@ -376,7 +411,8 @@ def _chunk_cases(inp: Inputs, dtype):
     1024 (page-aligned start, ragged length), the first chunk (start 0),
     verify width C = 5 at a start that is not page-aligned (device-side
     start, total = start + C), with window and softcap, an empty slot, and
-    a chunk already in the pool (no k_cur)."""
+    a chunk already in the pool (no k_cur), and a chunk whose last 64 rows
+    pass the table's capacity (their fresh K/V cut)."""
     torch = inp.torch
     kp, vp = inp.pools(2, dtype)
     table = inp.page_table([4000] * S, extra=1)
@@ -400,7 +436,150 @@ def _chunk_cases(inp: Inputs, dtype):
         ("c5_empty_slot", chunk(5, 0, 5, row=empty), 5),
         ("c256_window", {**chunk(256, 130, 130 + 256), "window": 300}, 256),
         ("c64_in_pool", chunk(64, 640, 704, fresh=False), 64),
+        ("c128_past_capacity", chunk(128, MAXP * PS - 64, MAXP * PS + 64,
+                                     row=inp.page_table([MAXP * PS] * S)[0]), 128),
     ]
+
+
+# prefix_chunk's routes with rows of their own in the kernels line
+_PER_PHASE_LEGS = ("prefix_chunk.slots", "prefix_chunk.chunk")
+LONG_REL_TOL = 5e-3   # bf16 row-relative bound of the per-phase long cases at q x 4
+
+
+def _verify_cases(inp: Inputs, dtype):
+    """(name, kwargs) cases of prefix_chunk_slots, the per-phase verify:
+    S = 8 slots x T = 5 candidates at lengths from 0 to the capacity (a
+    slot whose last three candidates pass it, a full slot) on a shuffled
+    table with -1 past each slot's pages; window with softcap."""
+    torch = inp.torch
+    t = 5
+    lengths = [0, 1, 63, 64, 700, 1500, MAXP * PS - 2, MAXP * PS]
+    kp, vp = inp.pools(2, dtype)
+    base = dict(q=inp.randn(S, t, H, D, dtype=dtype), k_pages=kp, v_pages=vp,
+                page_table=inp.page_table(lengths, extra=t),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"), page_size=PS,
+                k_cur=inp.randn(S, t, KVH, D, dtype=dtype),
+                v_cur=inp.randn(S, t, KVH, D, dtype=dtype), layer=1)
+    return [("verify", base),
+            ("verify_window_softcap", {**base, "window": 100, "softcap": 30.0})]
+
+
+def _per_phase_long_cases(inp: Inputs, dtype):
+    """(name, wrapper, kwargs, rows) cases of the per-phase routes at long
+    positions, q scaled by LONG_Q_SCALE (row-relative error): on a
+    400-entry table (25,600 tokens), paged_decode of eight slots from 0 to
+    24,000 cached tokens and at the capacity in both modes, the verify over
+    the same slots (T = 5), and a 1,024-row chunk after 16,384 cached
+    tokens with fresh K/V (valid 1,000 rows) and in the pool."""
+    torch = inp.torch
+    n_pool, maxp = 1024, 400
+    kp, vp = (inp.randn(1, n_pool, PS, KVH, D, dtype=dtype) for _ in range(2))
+    row = torch.randperm(n_pool, generator=inp.gen, device="cuda")[:maxp].to(torch.int32)
+    table = row[None].expand(S, maxp).contiguous()
+    lengths = [24000, 16384 + 1023, 0, 65, 5000, 12000, maxp * PS - 2, maxp * PS]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    nonempty = [i for i, ln in enumerate(lengths) if ln > 0]
+    base = dict(k_pages=kp, v_pages=vp, page_size=PS, layer=0)
+
+    def q4(*shape):
+        return inp.randn(*shape, dtype=dtype) * LONG_Q_SCALE
+
+    dec = dict(base, q=q4(S, H, D), page_table=table, lengths=lens)
+    cur = dict(k_cur=inp.randn(S, KVH, D, dtype=dtype), v_cur=inp.randn(S, KVH, D, dtype=dtype))
+    ver = dict(base, q=q4(S, 5, H, D), page_table=table, lengths=lens,
+               k_cur=inp.randn(S, 5, KVH, D, dtype=dtype),
+               v_cur=inp.randn(S, 5, KVH, D, dtype=dtype))
+    start = torch.tensor([16384, 16384 + 1000], dtype=torch.int32, device="cuda")
+    chunk = dict(base, q=q4(1, 1024, H, D), table_row=row, start=start[0:1],
+                 total_len=start[1:2])
+    fresh = dict(k_cur=inp.randn(1024, KVH, D, dtype=dtype),
+                 v_cur=inp.randn(1024, KVH, D, dtype=dtype))
+    every = list(range(S))
+    return [
+        ("decode_merge_cur_0_to_25600", "paged_decode", {**dec, **cur}, every),
+        ("decode_in_pool_0_to_25600", "paged_decode", dec, nonempty),
+        ("verify_0_to_25600", "prefix_chunk_slots", ver, every),
+        ("chunk_1024_after_16384", "prefix_chunk", {**chunk, **fresh}, 1000),
+        ("chunk_1024_in_pool_after_16384", "prefix_chunk", chunk, 1000),
+    ]
+
+
+def _per_phase_plain(torch, wrapper: str, kw: dict):
+    """The plain version of one per-phase wrapper call (the pool's layer
+    selected as the wrapper selects it)."""
+    from gridllm_torch.ops.attention import (
+        _prefix_chunk_ref,
+        paged_attention_decode_ref,
+        paged_attention_verify_ref,
+    )
+
+    kw = dict(kw)
+    layer = kw.pop("layer")
+    kp, vp = kw.pop("k_pages")[layer], kw.pop("v_pages")[layer]
+    cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
+    opts = dict(logit_softcap=cap, window=window)
+    if wrapper == "paged_decode":
+        return paged_attention_decode_ref(kw["q"], kp, vp, kw["page_table"], kw["lengths"], PS,
+                                          k_cur=kw.get("k_cur"), v_cur=kw.get("v_cur"), **opts)
+    if wrapper == "prefix_chunk_slots":
+        return paged_attention_verify_ref(kw["q"], kp, vp, kw["page_table"], kw["lengths"], PS,
+                                          kw["k_cur"], kw["v_cur"], **opts)
+    start = int(kw["start"])   # the plain version takes host ints
+    total = start + kw["q"].shape[1] if kw["total_len"] is None else int(kw["total_len"])
+    return _prefix_chunk_ref(kw["q"], kp, vp, kw["table_row"], start, total, PS,
+                             k_cur=kw.get("k_cur"), v_cur=kw.get("v_cur"), **opts)
+
+
+def _per_phase_kernel_cases(torch, inp: Inputs, dtype, tol: float, cases: list,
+                            errs: dict) -> None:
+    """paged_decode (_decode_cases), prefix_chunk (_chunk_cases: the
+    tensor-core route in bf16, the CUDA-core route in float32, each held to
+    its leg counter), the verify over slots (_verify_cases) against their
+    plain versions, max abs error within `tol`; then _per_phase_long_cases
+    held to the row-relative error (LONG_REL_TOL in bf16)."""
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    dname = str(dtype).split(".")[-1]
+    bf16 = dtype == torch.bfloat16
+    chunk_leg = "prefix_chunk.chunk" if bf16 else "prefix_chunk.chunk_cores"
+    runs = ([(name, "paged_decode", kw, rows, False)
+             for name, kw, rows in _decode_cases(inp, dtype)]
+            + [(name, "prefix_chunk", kw, valid, False)
+               for name, kw, valid in _chunk_cases(inp, dtype)]
+            + [(name, "prefix_chunk_slots", kw, None, False)
+               for name, kw in _verify_cases(inp, dtype)]
+            + [(*case, True) for case in _per_phase_long_cases(inp, dtype)])
+    for name, wrapper, kw, rows, relative in runs:
+        kw = dict(kw)
+        cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
+        legs0 = dict(ck.LEG_LAUNCHES)
+        got = getattr(ck, wrapper)(**kw, softcap=cap, window=window)
+        want = _per_phase_plain(torch, wrapper, {**kw, "softcap": cap, "window": window})
+        torch.cuda.synchronize()
+        if wrapper == "paged_decode":
+            got, want = got[rows], want[rows]
+        elif wrapper == "prefix_chunk":
+            got, want = got[:, :rows], want[:, :rows]
+        leg = "prefix_chunk.slots" if wrapper == "prefix_chunk_slots" else (
+            chunk_leg if wrapper == "prefix_chunk" else None)
+        if leg is not None:
+            check(ck.LEG_LAUNCHES[leg] == legs0[leg] + 1,
+                  f"{wrapper} {dname} {name}: did not take the {leg} route")
+        err, rel = _max_err(got, want), _rel_err(got, want)
+        bound = (LONG_REL_TOL if bf16 else tol) if relative else tol
+        cases.append({"kernel": wrapper, "dtype": dname, "case": name, "route": leg,
+                      "max_abs_err": err, "max_rel_err": rel,
+                      "held_to": "max_rel_err" if relative else "max_abs_err", "bound": bound})
+        check((rel if relative else err) <= bound, f"{wrapper} {dname} {name}: "
+              f"{'relative ' if relative else ''}err {rel if relative else err} > {bound}")
+        if bf16:
+            kernel = "prefix_chunk" if wrapper == "prefix_chunk_slots" else wrapper
+            for key in {kernel, leg} - {None}:
+                errs[key] = max(errs[key], err)
+        del got, want, kw
+    del runs
+    torch.cuda.empty_cache()
+
 
 
 def _wide_group_cases(torch, inp: Inputs, dtype):
@@ -456,17 +635,12 @@ PREFILL_CASES = (
 
 def phase_kernels(torch) -> dict:
     from gridllm_torch.ops import cuda_kernels as ck
-    from gridllm_torch.ops.attention import (
-        _prefix_chunk_ref,
-        attention_prefill_ref,
-        paged_attention_decode_ref,
-        ragged_paged_attention_ref,
-    )
+    from gridllm_torch.ops.attention import attention_prefill_ref, ragged_paged_attention_ref
     from gridllm_torch.ops.kernels import F32_TOL, by_name
     from gridllm_torch.ops.kvcache import QuantPages, write_decode, write_prefill
 
     inp = Inputs(torch, SEED)
-    errs = {k: 0.0 for k in [*ck.LAUNCHES, "ragged_attention.chunk"]}
+    errs = {k: 0.0 for k in [*ck.LAUNCHES, "ragged_attention.chunk", *_PER_PHASE_LEGS]}
     cases = []
     bf16_tol = by_name("ragged_attention").atol
     check(bf16_tol == by_name("flash_prefill").atol, "attention tolerances differ")
@@ -510,6 +684,7 @@ def phase_kernels(torch) -> dict:
                 if dtype == torch.bfloat16:
                     errs[kernel] = max(errs[kernel], err)
             del q, k, v, got, want
+        _per_phase_kernel_cases(torch, inp, dtype, tol, cases, errs)
         for name, kw, valid, relative in _ragged_cases(inp, dtype):
             kw = dict(kw)
             cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
@@ -549,41 +724,6 @@ def phase_kernels(torch) -> dict:
             check(rel <= tol, f"ragged_attention {dname} {name}: relative err {rel} > {tol}")
             del kp, vp, kw, og, wg
         torch.cuda.empty_cache()
-        for name, kw, rows in _decode_cases(inp, dtype):
-            kw = dict(kw)
-            cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
-            got = ck.paged_decode(**kw, softcap=cap, window=window)
-            want = paged_attention_decode_ref(
-                kw["q"], kw["k_pages"][1], kw["v_pages"][1], kw["page_table"], kw["lengths"],
-                PS, k_cur=kw.get("k_cur"), v_cur=kw.get("v_cur"), logit_softcap=cap,
-                window=window)
-            torch.cuda.synchronize()
-            err = _max_err(got[rows], want[rows])
-            cases.append({"kernel": "paged_decode", "dtype": dname, "case": name,
-                          "max_abs_err": err})
-            check(err <= tol, f"paged_decode {dname} {name}: err {err} > {tol}")
-            if dtype == torch.bfloat16:
-                errs["paged_decode"] = max(errs["paged_decode"], err)
-        for name, kw, valid in _chunk_cases(inp, dtype):
-            kw = dict(kw)
-            cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
-            got = ck.prefix_chunk(**kw, softcap=cap, window=window)
-            start = int(kw["start"])
-            total = start + kw["q"].shape[1] if kw["total_len"] is None else kw["total_len"]
-            want = _prefix_chunk_ref(
-                kw["q"], kw["k_pages"][1], kw["v_pages"][1], kw["table_row"], start, total,
-                PS, k_cur=kw.get("k_cur"), v_cur=kw.get("v_cur"), logit_softcap=cap,
-                window=window)
-            torch.cuda.synchronize()
-            err = _max_err(got[:, :valid], want[:, :valid])
-            cases.append({"kernel": "prefix_chunk", "dtype": dname, "case": name,
-                          "max_abs_err": err})
-            check(err <= tol, f"prefix_chunk {dname} {name}: err {err} > {tol}")
-            if dtype == torch.bfloat16:
-                errs["prefix_chunk"] = max(errs["prefix_chunk"], err)
-        del kw
-        torch.cuda.empty_cache()
-
         # paged_write_decode: inactive slot, capacity edge, unmapped page
         kp, vp = inp.pools(2, dtype)
         positions = torch.tensor([0, 63, 64, 700, 8191, 8192, 100, 5000],
@@ -678,9 +818,9 @@ def _ragged_timing(torch, inp: Inputs) -> dict:
     """ragged_attention at the main path's shapes (bf16, llama3:8b widths,
     a shuffled page table): the decode group of 8 slots at 1,024 cached
     tokens (the kernels line's row) and of one slot at 24,000; the chunk
-    region (C = 1,024) after 1,024 and after 16,384 cached tokens;
-    paged_decode and prefix_chunk at the same shapes, and the verify width
-    (one slot, Td = 5 after 1,024). Each with its bound and, as a yardstick
+    region (C = 1,024) after 1,024 and after 16,384 cached tokens; the
+    verify width (one slot, Td = 5 after 1,024). Each with its bound and,
+    as a yardstick
     only, SDPA on K/V gathered beforehand into one dense tensor (no paging:
     not a library call for the same function). The decode group's first
     call runs under torch.cuda.set_sync_debug_mode("error"): the wrapper
@@ -688,11 +828,7 @@ def _ragged_timing(torch, inp: Inputs) -> dict:
     import torch.nn.functional as F
 
     from gridllm_torch.ops import cuda_kernels as ck
-    from gridllm_torch.ops.attention import (
-        _prefix_chunk_ref,
-        paged_attention_decode_ref,
-        ragged_paged_attention_ref,
-    )
+    from gridllm_torch.ops.attention import ragged_paged_attention_ref
     from gridllm_torch.ops.kvcache import gather_kv
 
     bf16 = torch.bfloat16
@@ -729,12 +865,7 @@ def _ragged_timing(torch, inp: Inputs) -> dict:
     # decode group, 8 slots x 1,024 cached tokens (128-page table rows)
     table8 = perm[:S * MAXP].reshape(S, MAXP).contiguous()
     kw = group_kw([1024] * S, table8)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        ck.ragged_attention(**kw)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    _no_host_sync(torch, lambda: ck.ragged_attention(**kw))
     b, op = group_bound([1024] * S)
     res["ragged_attention"] = {
         "shape": f"decode group S={S} Td=1 context=1024 bf16", "no_host_sync": True,
@@ -743,19 +874,6 @@ def _ragged_timing(torch, inp: Inputs) -> dict:
         "device_ms": device_ms(torch, lambda: ck.ragged_attention(**kw)),
         "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(**kw), iters=3),
         "library_ms": None, "sdpa_gathered_ms": sdpa_group(kw),
-        "bound_ms": b, "bound_by": op,
-    }
-    dkw = dict(q=kw["q_group"][:, 0], k_pages=kp, v_pages=vp, page_table=table8,
-               lengths=kw["group_lengths"], page_size=PS, k_cur=kw["k_group"][:, 0],
-               v_cur=kw["v_group"][:, 0], layer=0)
-    res["paged_decode"] = {
-        "shape": f"decode S={S} context=1024 bf16",
-        "ms": time_ms(torch, lambda: ck.paged_decode(**dkw)),
-        "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
-            dkw["q"], kp[0], vp[0], table8, dkw["lengths"], PS, k_cur=dkw["k_cur"],
-            v_cur=dkw["v_cur"]), iters=3),
-        "library_ms": None,
-        "ragged_attention_ms": res["ragged_attention"]["ms"],
         "bound_ms": b, "bound_by": op,
     }
     # one slot at 24,000 cached tokens (a 400-page table row)
@@ -792,37 +910,20 @@ def _ragged_timing(torch, inp: Inputs) -> dict:
                  "bound_ms": b, "bound_by": op}
         if start == 1024:
             entry["plain_ms"] = time_ms(torch, lambda: ragged_paged_attention_ref(**ckw), iters=3)
-            pkw = dict(q=q_c, k_pages=kp, v_pages=vp, table_row=row, start=start,
-                       total_len=start + c, page_size=PS, k_cur=k_c, v_cur=v_c, layer=0)
-            res["prefix_chunk"] = {
-                "shape": f"chunk C={c} after {start} cached tokens bf16",
-                "ms": time_ms(torch, lambda: ck.prefix_chunk(**pkw)),
-                "plain_ms": time_ms(torch, lambda: _prefix_chunk_ref(
-                    q_c, kp[0], vp[0], row, start, start + c, PS, k_cur=k_c, v_cur=v_c),
-                    iters=3),
-                "library_ms": None, "ragged_attention_ms": entry["ms"],
-                "bound_ms": b, "bound_by": op,
-            }
         res["ragged_attention"][f"chunk_1024_after_{start}"] = entry
         del k_all, v_all, mask, ckw
-    # the verify width: C = K+1 = 5 after 1024 cached tokens, one slot,
-    # against ragged_attention's group region with Td = 5 for that slot
-    c, start, glen = 5, 1024, kw["group_lengths"][:1]
-    q_v = inp.randn(1, c, H, D, dtype=bf16)
-    k_v, v_v = inp.randn(c, KVH, D, dtype=bf16), inp.randn(c, KVH, D, dtype=bf16)
-    vkw = dict(q=q_v, k_pages=kp, v_pages=vp, table_row=table8[0], start=glen, total_len=None,
-               page_size=PS, k_cur=k_v, v_cur=v_v, layer=0)
-    gkw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=q_v, page_table=table8[:1],
-               group_lengths=glen, k_group=k_v[None], v_group=v_v[None], layer=0)
-    vb, vop = bound_ms((2 * q_v.numel() + (start + c) * KVH * D * 2) * 2,
-                       4 * H * D * c * (start + (c + 1) / 2))
-    res["prefix_chunk"].update({
-        "verify_shape": f"C={c} after {start} cached tokens, one slot, bf16",
-        "verify_ms": time_ms(torch, lambda: ck.prefix_chunk(**vkw)),
-        "verify_ragged_attention_ms": time_ms(torch, lambda: ck.ragged_attention(**gkw)),
-        "verify_ragged_attention_device_ms": device_ms(torch, lambda: ck.ragged_attention(**gkw)),
-        "verify_bound_ms": vb, "verify_bound_by": vop,
-    })
+    # the verify width: Td = K+1 = 5 after 1024 cached tokens, one slot
+    c, glen = 5, kw["group_lengths"][:1]
+    gkw = dict(k_pages=kp, v_pages=vp, page_size=PS, q_group=inp.randn(1, c, H, D, dtype=bf16),
+               page_table=table8[:1], group_lengths=glen,
+               k_group=inp.randn(1, c, KVH, D, dtype=bf16),
+               v_group=inp.randn(1, c, KVH, D, dtype=bf16), layer=0)
+    vb, vop = bound_ms(*_group_work([1024], c, H, KVH, D, list(range(1, c + 1))))
+    res["ragged_attention"]["verify_td5_one_slot"] = {
+        "ms": time_ms(torch, lambda: ck.ragged_attention(**gkw)),
+        "device_ms": device_ms(torch, lambda: ck.ragged_attention(**gkw)),
+        "bound_ms": vb, "bound_by": vop,
+    }
     # the kernels line's row of the chunk kernel
     chunk = res["ragged_attention"]["chunk_1024_after_1024"]
     res["ragged_attention.chunk"] = {
@@ -835,6 +936,103 @@ def _ragged_timing(torch, inp: Inputs) -> dict:
     res["ragged_attention"]["host_us_per_call"] = _ragged_host_us(torch, inp)
     res["ragged_attention"]["chunk_region_bound_ms"] = chunk["bound_ms"]
     del kp, vp
+    return res
+
+
+def _per_phase_timing(torch, inp: Inputs) -> dict:
+    """The per-phase routes at the main path's shapes (bf16, llama3:8b
+    widths, a shuffled page table, the rows of PERF.md's prediction table),
+    through wrappers that every tree of the port has, so an older
+    checkout's kernels can be timed by the same code (`--turns`):
+    paged_decode of 8 slots at 1,024 cached tokens and of one slot at
+    24,000; the verify attention of one layer, 8 slots x K+1 = 5 after
+    1,024 (ops.attention.paged_attention_verify: one prefix_chunk launch
+    for all slots here, one per slot before); prefix_chunk's chunk of
+    1,024 after 1,024 and after 16,384 cached tokens, start and total as
+    device scalars (as the model passes them). Each row: `ms` (CUDA events
+    over back-to-back calls: the host's time where a wrapper outlasts its
+    kernel), `device_ms` (the profiler's kernel time) and the bound; the
+    plain version at the first shape of each wrapper. The first call of
+    each runs under torch.cuda.set_sync_debug_mode("error")."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import (
+        _prefix_chunk_ref,
+        paged_attention_decode_ref,
+        paged_attention_verify,
+        paged_attention_verify_ref,
+    )
+
+    bf16 = torch.bfloat16
+    n_pool, maxp = 1024, 400
+    kp, vp = (inp.randn(1, n_pool, PS, KVH, D, dtype=bf16) for _ in range(2))
+    perm = torch.randperm(n_pool, generator=inp.gen, device="cuda").to(torch.int32)
+    table8 = perm[:S * MAXP].reshape(S, MAXP).contiguous()
+    lens8 = torch.full((S,), 1024, dtype=torch.int32, device="cuda")
+    res = {}
+
+    def row(fn, nbytes, flops, **extra):
+        b, op = bound_ms(nbytes, flops)
+        return {**extra, "ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn),
+                "bound_ms": b, "bound_by": op, "library_ms": None}
+
+    def decode_kw(lengths, table):
+        s = len(lengths)
+        return dict(q=inp.randn(s, H, D, dtype=bf16), k_pages=kp, v_pages=vp, page_table=table,
+                    lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+                    page_size=PS, k_cur=inp.randn(s, KVH, D, dtype=bf16),
+                    v_cur=inp.randn(s, KVH, D, dtype=bf16), layer=0)
+
+    dkw = decode_kw([1024] * S, table8)
+    _no_host_sync(torch, lambda: ck.paged_decode(**dkw))
+    res["paged_decode"] = row(
+        lambda: ck.paged_decode(**dkw), *_group_work([1024] * S, 1, H, KVH, D, [1]),
+        shape=f"decode S={S} context=1024 bf16", no_host_sync=True,
+        plain_ms=time_ms(torch, lambda: paged_attention_decode_ref(
+            dkw["q"], kp[0], vp[0], table8, dkw["lengths"], PS, k_cur=dkw["k_cur"],
+            v_cur=dkw["v_cur"]), iters=3))
+    dkw24 = decode_kw([24000], perm[:maxp][None].contiguous())
+    res["paged_decode"]["one_slot_24000"] = row(
+        lambda: ck.paged_decode(**dkw24), *_group_work([24000], 1, H, KVH, D, [1]))
+
+    t = 5
+    vkw = dict(q=inp.randn(S, t, H, D, dtype=bf16), k_pages=kp, v_pages=vp, page_table=table8,
+               lengths=lens8, page_size=PS, k_cur=inp.randn(S, t, KVH, D, dtype=bf16),
+               v_cur=inp.randn(S, t, KVH, D, dtype=bf16), layer=0)
+    _no_host_sync(torch, lambda: paged_attention_verify(**vkw))
+    res["prefix_chunk.slots"] = row(
+        lambda: paged_attention_verify(**vkw),
+        *_group_work([1024] * S, t, H, KVH, D, list(range(1, t + 1))),
+        shape=f"verify attention of one layer, S={S} x T={t} after 1024 cached tokens bf16",
+        no_host_sync=True,
+        plain_ms=time_ms(torch, lambda: paged_attention_verify_ref(
+            vkw["q"], kp[0], vp[0], table8, lens8, PS, vkw["k_cur"], vkw["v_cur"]), iters=3))
+
+    c = 1024
+    for start in (1024, 16384):
+        chunk_row = perm[:maxp].clone()
+        chunk_row[-(-(start + c) // PS):] = -1
+        bounds = torch.tensor([start, start + c], dtype=torch.int32, device="cuda")
+        pkw = dict(q=inp.randn(1, c, H, D, dtype=bf16), k_pages=kp, v_pages=vp,
+                   table_row=chunk_row, start=bounds[0:1], total_len=bounds[1:2], page_size=PS,
+                   k_cur=inp.randn(c, KVH, D, dtype=bf16),
+                   v_cur=inp.randn(c, KVH, D, dtype=bf16), layer=0)
+        work = ((2 * c * H * D + (start + c) * KVH * D * 2) * 2,
+                4 * H * D * c * (start + (c + 1) / 2))
+        if start == 1024:
+            _no_host_sync(torch, lambda: ck.prefix_chunk(**pkw))
+            res["prefix_chunk"] = row(
+                lambda: ck.prefix_chunk(**pkw), *work, no_host_sync=True,
+                shape=f"chunk C={c} after {start} cached tokens bf16",
+                plain_ms=time_ms(torch, lambda: _prefix_chunk_ref(
+                    pkw["q"], kp[0], vp[0], chunk_row, start, start + c, PS,
+                    k_cur=pkw["k_cur"], v_cur=pkw["v_cur"]), iters=3))
+        else:
+            res["prefix_chunk"][f"after_{start}"] = row(lambda: ck.prefix_chunk(**pkw), *work)
+    # the kernels line's row of the tensor-core chunk route: the same call
+    res["prefix_chunk.chunk"] = {k: v for k, v in res["prefix_chunk"].items()
+                                 if not k.startswith("after_")}
+    del kp, vp
+    torch.cuda.empty_cache()
     return res
 
 
@@ -871,6 +1069,7 @@ def phase_timing(torch) -> dict:
 
     res.update(_ragged_timing(torch, inp))
     torch.cuda.empty_cache()
+    res.update(_per_phase_timing(torch, inp))
 
     # KV writes on the engine's full pool: 32 layers x 1024 pages x 64 rows
     n_layers = 32
@@ -1002,7 +1201,7 @@ def phase_model(torch) -> dict:
     # per-phase kernels, a second model over a copy of the weights and the
     # same cache: slot 2 decodes 192..223 through paged_decode, slot 3
     # admits in two prefill_chunk calls (prefix_chunk), then two verify
-    # steps for both (prefix_chunk once per slot per layer)
+    # steps for both (prefix_chunk once per layer for both slots)
     ragged = model
     model = Llama(cfg, dtype=torch.float32, device="cuda", ragged_attention=False)
     model.load_state_dict(ragged.state_dict())
@@ -1149,13 +1348,16 @@ _PATHS = {
     "plain_ragged": ({"flash_prefill", "paged_write_decode", "paged_write_chunk"} | _RAGGED,
                      {"paged_decode", "prefix_chunk", "flash_prefill_streamed",
                       "ragged_attention.chunk_cores"}),
-    "spec_per_phase": ({"flash_prefill", "prefix_chunk", "paged_write_decode",
-                        "paged_write_chunk"},
-                       {"paged_decode", "flash_prefill_streamed",
+    # prefix_chunk's routes: every chunk on the tensor cores in bf16, the
+    # verify steps all slots in one launch
+    "spec_per_phase": ({"flash_prefill", "prefix_chunk", "prefix_chunk.chunk",
+                        "prefix_chunk.slots", "paged_write_decode", "paged_write_chunk"},
+                       {"paged_decode", "flash_prefill_streamed", "prefix_chunk.chunk_cores",
                         "ragged_attention.chunk_cores"} | _RAGGED),
-    "plain_per_phase": ({"flash_prefill", "paged_decode", "prefix_chunk",
+    "plain_per_phase": ({"flash_prefill", "paged_decode", "prefix_chunk", "prefix_chunk.chunk",
                          "paged_write_decode", "paged_write_chunk"},
-                        {"flash_prefill_streamed", "ragged_attention.chunk_cores"} | _RAGGED),
+                        {"flash_prefill_streamed", "prefix_chunk.chunk_cores",
+                         "prefix_chunk.slots", "ragged_attention.chunk_cores"} | _RAGGED),
     "long_spec_ragged": ({"flash_prefill_streamed", "flash_prefill", "paged_write_decode",
                           "paged_write_chunk"} | _RAGGED,
                          {"paged_decode", "prefix_chunk", "ragged_attention.chunk_cores"}),
@@ -1164,7 +1366,8 @@ _PATHS = {
 _CARRIER = {"flash_prefill": "spec_ragged", "ragged_attention": "spec_ragged",
             "ragged_attention.chunk": "spec_ragged",
             "paged_write_decode": "spec_ragged", "paged_write_chunk": "spec_ragged",
-            "paged_decode": "plain_per_phase", "prefix_chunk": "spec_per_phase"}
+            "paged_decode": "plain_per_phase", "prefix_chunk": "spec_per_phase",
+            "prefix_chunk.slots": "spec_per_phase", "prefix_chunk.chunk": "spec_per_phase"}
 
 
 def _path_launches(ck, name: str, srv: Served) -> dict:
@@ -1178,15 +1381,15 @@ def _path_launches(ck, name: str, srv: Served) -> dict:
     layers, slots = srv.engine.cfg.num_layers, srv.engine.config.max_slots
     steps = srv.engine.spec_stats["steps"]
     check((steps > 0) == srv.engine.config.spec_decode, f"serve {name}: {steps} verify steps")
-    # a verify step is one attention launch per layer (ragged) or one per
-    # slot per layer (per-phase)
+    # a verify step is one attention launch per layer, all slots in it
+    # (ragged_attention, or prefix_chunk's slots route per-phase)
     if name in ("spec_ragged", "long_spec_ragged"):
         check(counts["ragged_attention"] >= layers * steps,
               f"serve {name}: {counts['ragged_attention']} ragged launches, {steps} verify steps")
     if name == "spec_per_phase":
-        check(counts["prefix_chunk"] >= layers * slots * steps,
-              f"serve {name}: {counts['prefix_chunk']} prefix_chunk launches, "
-              f"{steps} verify steps")
+        check(counts["prefix_chunk.slots"] == layers * steps,
+              f"serve {name}: {counts['prefix_chunk.slots']} prefix_chunk.slots launches, "
+              f"{steps} verify steps of {layers} layers ({slots} slots)")
     return counts
 
 
@@ -1314,8 +1517,8 @@ def phase_serve(torch) -> dict:
 
     # the per-phase kernels: a prompt longer than one chunk beside a short
     # one (prefill_chunk twice), then the short one again from the prefix
-    # cache (prefill_chunk), with spec decode on (verify loops of
-    # prefix_chunk) and off (paged_decode)
+    # cache (prefill_chunk), with spec decode on (verify steps of one
+    # prefix_chunk launch per layer) and off (paged_decode)
     mid = _prompt(rng, 200)
     for name, spec, shapes in (("spec_per_phase", True, {(vocab,), (slots, k1, vocab)}),
                                ("plain_per_phase", False, {(vocab,), (slots, vocab)})):
@@ -2657,6 +2860,52 @@ def phase_tree(torch) -> dict:
             "launches": serve["tree_launches"]}
 
 
+TURN_PARTS = ("kernels", "steps")
+
+
+def _turn_child(torch, parts: str) -> dict:
+    """One turn of --turns, run in the tree under test (its package first
+    on sys.path, its own build/): `kernels`, this file's
+    _per_phase_timing through that tree's wrappers; `steps`, that tree's
+    tools.profile_step.profile_steps on a llama3:8b engine (spec off)."""
+    from gridllm_torch.ops import _build
+
+    report = _build.build_all()
+    res = {"tree": str(Path.cwd()), "build_s": {k: r["seconds"] for k, r in report.items()}}
+    for part in parts.split(","):
+        check(part in TURN_PARTS, f"turns: unknown part {part!r}")
+        if part == "kernels":
+            res["kernels"] = _per_phase_timing(torch, Inputs(torch, SEED + 1))
+        else:
+            from gridllm_torch.engine import EngineConfig, InferenceEngine
+            from gridllm_torch.tools.profile_step import profile_steps
+
+            engine = InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False),
+                                     device="cuda")
+            res["steps"] = profile_steps(engine)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    return res
+
+
+def _turns(tree: Path, parts: str) -> dict:
+    """`parts` (TURN_PARTS) of another checkout of the port (`tree`) and of
+    this one, in turns tree, this, this, tree, each turn a process of its
+    own on the same card; each turn's output in chiprun_out/turn_<i>.txt."""
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    turns = []
+    for i, t in enumerate((tree, REPO, REPO, tree)):
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--turn-child", parts],
+                              cwd=t, capture_output=True, text=True, timeout=1500)
+        (out / f"turn_{i}.txt").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0, f"turn {i} in {t} failed: {proc.stderr[-3000:]}")
+        turns.append({"turn": i, "which": "other" if t == tree else "this",
+                      **json.loads(proc.stdout.strip().splitlines()[-1])})
+    return {"phase": "turns", "card": card_line(), "turns": turns}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2668,7 +2917,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--turns", metavar="TREE",
+                    help="instead of the phases: time TREE (another checkout of the port) "
+                         "and this tree in turns (TREE, this, this, TREE); see --turn-parts")
+    ap.add_argument("--turn-parts", default="kernels",
+                    help="comma-separated subset of " + ",".join(TURN_PARTS))
     ap.add_argument("--profiler-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--turn-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2677,9 +2932,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.turn_child:   # the tree under test is the working directory
+        sys.path.insert(0, str(Path.cwd()))
+        emit({"ok": True, **_turn_child(torch, args.turn_child)})
+        return 0
     sys.path.insert(0, str(REPO))
     if args.profiler_child:
         emit({"ok": True, **_profiler_child(torch)})
+        return 0
+    if args.turns:
+        emit(_turns(Path(args.turns).resolve(), args.turn_parts))
+        print("chip_smoke: ran --turns only; no result line", file=sys.stderr)
         return 0
     from gridllm_torch.ops.kernels import KERNELS, by_name
 
@@ -2716,10 +2979,13 @@ def main() -> int:
     launches["ragged_attention.tree"] = tree["launches"]
     # the seven kernels, ragged_attention's chunk kernel (csrc/ragged_attention.cu's
     # ragged_chunk_kernel, launched by the ragged_attention wrapper), then the
-    # int8 and tree legs (their own launches, from the int8 serve and the tree serve)
+    # int8 and tree legs (their own launches, from the int8 serve and the tree
+    # serve), then prefix_chunk's routes (csrc/per_phase_attention.cu): the
+    # verify over slots and the tensor-core chunk
     rows = [(spec.name, spec) for spec in KERNELS]
     rows += [(f"ragged_attention.{leg}", by_name("ragged_attention"))
              for leg in ("chunk", "int8", "tree")]
+    rows += [(leg, by_name("prefix_chunk")) for leg in _PER_PHASE_LEGS]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "launches": launches[name],

@@ -1,8 +1,8 @@
-// Shared core of the CUDA-core attention kernels (ragged_attention.cu,
-// paged_decode.cu and prefix_chunk.cu): one thread block attends a set of
-// query rows (the G query heads of ONE kv head, for a run of consecutive
-// query tokens) to one or more SEGMENTS of keys, with an online softmax
-// in float32.
+// Shared core of the CUDA-core attention kernels (attention_bodies.cuh's
+// `ragged_body`, behind ragged_attention.cu and per_phase_attention.cu):
+// one thread block attends a set of query rows (the G query heads of ONE
+// kv head, for a run of consecutive query tokens) to one or more SEGMENTS
+// of keys, with an online softmax in float32.
 //
 // Design, for the H100 (sm_90a):
 // - The K/V rows of a segment stream through shared memory in tiles of

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels: flash_prefill.cu's prefill kernel and ragged_attention.cu's
-// chunk-region kernel. Each PTX form is one small wrapper:
+// kernels: flash_prefill.cu's prefill kernel and the chunk body of
+// attention_bodies.cuh (ragged_attention.cu's and per_phase_attention.cu's
+// chunk kernels). Each PTX form is one small wrapper:
 // - mbarriers (init, expect_tx, arrive, a parity wait that traps after
 //   ~2^34 cycles instead of hanging the card);
 // - TMA 4-D tile loads into shared memory, completion counted in bytes on

@@ -8,13 +8,13 @@
 // - chunk region: the C queries of one slot at positions chunk_start + i
 //   attend the slot's cached prefix [0, chunk_start) through chunk_row,
 //   then the chunk's own fresh K/V causally, keys at positions
-//   >= chunk_total masked;
+//   >= min(chunk_total, table capacity) masked;
 // - group region: slot s's Td queries at positions group_lengths[s] + i
 //   attend its pages [0, group_lengths[s]) through page_table[s] (the pool
 //   lags one step: group_lengths counts the prefix only), then its Td fresh
-//   K/V causally. Td = 1 is decode, Td = K+1 speculative verify, Td = 64 a
-//   draft model's catch-up chunk: any Td (the block walks its rows NR at a
-//   time).
+//   K/V causally, a fresh row at or past the table's capacity cut. Td = 1
+//   is decode, Td = K+1 speculative verify, Td = 64 a draft model's
+//   catch-up chunk: any Td (the block walks its rows NR at a time).
 // Both regions take a sliding window and a tanh softcap.
 // int8 leg (k_scale/v_scale given): the pool holds int8 values and one
 // float32 scale per (layer, page, row); each pool row is multiplied by its
@@ -30,551 +30,48 @@
 // counterpart of the TPU kernel's scalar prefetch) and is staged in shared
 // memory once per block.
 //
-// What bounds it on the H100: decode groups read every cached K/V byte of
-// every slot once per layer for ~2 flops per byte, so they are bound by
-// device-memory bytes; the chunk region at C = 1024 is bound by operations
-// like flash_prefill. Two kernels, each shaped for one of those bounds:
-//
-// `ragged_chunk_kernel` (the chunk region; bf16 q, bf16 pool, D 64 or 128)
-// is flash_prefill's Hopper kernel (hopper_common.cuh) walking two key
-// segments: one producer warpgroup whose single thread issues TMA loads,
-// two consumer warpgroups of 64 query rows each, S = Q K^T and O += P V on
-// wgmma, float32 online softmax. The query tile stacks the G query heads of
-// one kv head over bq = 128 / G chunk tokens (spare rows zeroed when G does
-// not divide 128). It walks the slot's cached prefix [0, chunk_start) in
-// 128-key tiles aligned to absolute positions, each tile 128 / box_rows TMA
-// boxes of box_rows = gcd(ps, 128) pool rows from a map over the pool
-// viewed as {D, KVH, ps, L * P}, at page coordinate layer * P +
-// chunk_row[p] (the block stages its table row in shared memory, clamped
-// into the pool as PagedRows clamps it; a box past the prefix is loaded
-// from outside the map, which TMA fills with zeros); then the chunk's own
-// k_chunk/v_chunk from a second map, in 128-key tiles aligned to the
-// chunk, at absolute positions chunk_start + j. The per-element mask runs
-// only on tiles that need it (the prefix edge, the fresh segment's
-// diagonal, the chunk_total edge, the window edge); tiles wholly outside
-// the window are never loaded; a query tile wholly past chunk_total
-// writes zeros (padding rows). Its plan is `ragged_chunk_tile_plan` in
-// ops/cuda_kernels.py, tested on the CPU.
-//
-// `ragged_attention_kernel` (CUDA cores, float32 math through
-// attention_common.cuh's AttnBlock): every group, and the chunk region for
-// float32 q or an int8 pool (an explicit route by input type, counted
-// apart by the wrapper). Groups are split over pages (split-K): one block
-// per (slot, kv head, span), the slot's cached pages cut into n_splits
-// spans of equal whole-page counts, read from the slot's length on the
-// device (n_splits itself comes from host shapes only). Span 0, which
-// exists whatever the length, also attends the Td fresh K/V (causally, or
-// by tree_bits). With n_splits > 1 each block writes its rows' partial
-// softmax state (m, l, acc; float32) to scratch, and the last block to
-// arrive for a (slot, kv head), counted by an atomic, merges the spans and
-// writes the output in the same launch, then resets the counter for the
-// next launch. A span past the slot's length writes an empty partial
-// (l = 0). The split plan is `ragged_split_count` / `ragged_split_plan`,
-// and the merge `ragged_split_merge_ref`, in ops/cuda_kernels.py.
-//
-// Safety: page numbers are clamped into the pool and walks stop at
-// min(length, table capacity), so an empty slot (length 0) or an unmapped
-// (-1) entry never reads outside the pool.
-#include "attention_common.cuh"
-#include "hopper_common.cuh"
-
-#include <algorithm>
-#include <cstring>
+// The bodies of both kernels live in attention_bodies.cuh (shared with
+// per_phase_attention.cu's paged_decode and prefix_chunk); this file holds
+// their entry points for the ragged launch:
+// - `ragged_chunk_kernel`: the chunk region for bf16 q on a bf16 pool
+//   (wgmma + TMA, `chunk::chunk_body`), a launch of its own;
+// - `ragged_attention_kernel`: every group, split over pages, and the
+//   chunk region for float32 q or an int8 pool (CUDA cores,
+//   `ragged_body`; an explicit route by input type, counted apart by the
+//   wrapper).
+#include "attention_bodies.cuh"
 
 namespace gridllm {
 
-constexpr int kMaxTreeNodes = 32;  // one int32 ancestor bitmask per node
-
-struct RaggedArgs {
-  const void* k_pool;
-  const void* v_pool;
-  const float* k_scale;  // int8 pools: [L, P, ps] per-row scales; else null
-  const float* v_scale;
-  int num_pages, ps, layer;
-  // chunk region (CUDA-core route)
-  const void* q_chunk;
-  const void* k_chunk;
-  const void* v_chunk;
-  void* o_chunk;
-  const int* chunk_row;
-  int n_table_c, C, bq, chunk_start, chunk_total, n_chunk_tiles;
-  // group region
-  const void* q_group;
-  const void* k_group;
-  const void* v_group;
-  void* o_group;
-  const int* page_table;
-  const int* group_lengths;
-  int n_table_g, S, Td;
-  // split-K: n_splits spans per (slot, kv head); with n_splits > 1 the
-  // partials [S, KVH, n_splits, Td * G] of (m, l) and of acc [.., D], and
-  // one arrival counter per (slot, kv head), all zero between launches
-  int n_splits;
-  float* part_ml;
-  float* part_acc;
-  int* counters;
-  int H, KVH;
-  float scale, softcap;
-  int window;
-  // tree leg: tree_n = Td nodes (0 = a causal chain group)
-  int tree_n;
-  int tree_pos[kMaxTreeNodes];   // node depths
-  int tree_bits[kMaxTreeNodes];  // bit j of entry i: node j is on node i's root path
-};
-
-// The pool's row reader: rows of the compute dtype, or int8 rows scaled.
-template <typename T>
-__device__ __forceinline__ KVRows<T, PagedRows> pool_rows(const T* k, const T* v, const float*,
-                                                          const float*, PagedRows pages) {
-  return {k, v, pages};
-}
-__device__ __forceinline__ QuantPagedRows pool_rows(const int8_t* k, const int8_t* v,
-                                                    const float* ks, const float* vs,
-                                                    PagedRows pages) {
-  return {k, v, ks, vs, pages};
-}
-
-// The warp's rows of one pass as partials: (m, l) and acc per row.
-template <typename Blk, int D, int RPW>
-__device__ __forceinline__ void store_partial(const Blk& blk, float* ml, float* acc, int row0,
-                                              int rows_total) {
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int gi = row0 + blk.warp * RPW + r;
-    if (gi >= rows_total) continue;
-    if (blk.lane == 0) {
-      ml[2 * gi] = blk.m[r];
-      ml[2 * gi + 1] = blk.l[r];
-    }
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[static_cast<int64_t>(gi) * D + blk.lane + 32 * c] = blk.acc[r][c];
-  }
-}
-
-// The last block of a (slot, kv head) merges its n spans: per row,
-// M = max m_i over spans with l_i > 0, out = sum e^(m_i - M) acc_i /
-// max(sum e^(m_i - M) l_i, 1e-30). One warp per row; lane u holds the
-// weights of spans u, u + 32, ..., so the span reads of a row are issued
-// together. Partials of other blocks are read past L1 (__ldcg).
-template <typename T, int D>
-__device__ void merge_spans(const float* ml, const float* acc, int n, int rows_total,
-                            T* obase, int64_t tok_stride, int G) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float2* st = reinterpret_cast<const float2*>(ml);
-  for (int gi = warp; gi < rows_total; gi += kWarps) {
-    float mx = kNegInf;
-    for (int i = lane; i < n; i += 32) {
-      const float2 p = __ldcg(st + static_cast<int64_t>(i) * rows_total + gi);
-      if (p.y > 0.f) mx = fmaxf(mx, p.x);
-    }
-    mx = warp_max(mx);
-    float l = 0.f, o[D / 32];
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) o[c] = 0.f;
-    for (int i0 = 0; i0 < n; i0 += 32) {
-      float w = 0.f;
-      if (i0 + lane < n) {
-        const float2 p = __ldcg(st + static_cast<int64_t>(i0 + lane) * rows_total + gi);
-        w = p.y > 0.f ? expf(p.x - mx) : 0.f;
-        l += w * p.y;
-      }
-      const int cnt = min(32, n - i0);
-#pragma unroll 4
-      for (int u = 0; u < cnt; ++u) {
-        const float wu = __shfl_sync(kFull, w, u);
-        if (wu != 0.f) {  // the same for the whole warp
-          const float* a = acc + (static_cast<int64_t>(i0 + u) * rows_total + gi) * D;
-#pragma unroll
-          for (int c = 0; c < D / 32; ++c) o[c] += wu * __ldcg(a + lane + 32 * c);
-        }
-      }
-    }
-    const float inv = 1.f / fmaxf(warp_sum(l), 1e-30f);
-    T* out = obase + static_cast<int64_t>(gi / G) * tok_stride + (gi % G) * D;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) out[lane + 32 * c] = from_f<T>(o[c] * inv);
-  }
-}
-
-// T: the compute dtype (q, fresh K/V, output); P: the pool's element type,
-// T itself or int8_t.
 template <typename T, typename P, int D, int RPW>
 __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a) {
-  extern __shared__ float smem[];
-  const int tile = blockIdx.x, h = blockIdx.y;
-  const int G = a.H / a.KVH;
-  const int64_t row_stride = static_cast<int64_t>(a.KVH) * D;
-  const int64_t tok_stride = static_cast<int64_t>(a.H) * D;
-  const int64_t head_q = static_cast<int64_t>(h) * G * D;
-  const P* k_pool = static_cast<const P*>(a.k_pool) + static_cast<int64_t>(h) * D;
-  const P* v_pool = static_cast<const P*>(a.v_pool) + static_cast<int64_t>(h) * D;
-  const int64_t layer_base = static_cast<int64_t>(a.layer) * a.num_pages * a.ps;
-  constexpr int NR = AttnBlock<T, D, RPW>::NR;
-  AttnBlock<T, D, RPW> blk(smem, a.softcap, a.window);
-
-  if (tile < a.n_chunk_tiles) {
-    const int tok0 = tile * a.bq;
-    const int ntok = min(a.bq, a.C - tok0);
-    const int rows_total = ntok * G;
-    const int64_t qoff = static_cast<int64_t>(tok0) * tok_stride + head_q;
-    const PagedRows pages{a.chunk_row, a.n_table_c, layer_base, a.ps, a.num_pages, row_stride};
-    const int ctx = min(max(a.chunk_start, 0), a.n_table_c * a.ps);
-    const int k_hi = min(tok0 + ntok, a.C);  // causal bound inside the chunk
-    const T* kc = static_cast<const T*>(a.k_chunk) + static_cast<int64_t>(h) * D;
-    const T* vc = static_cast<const T*>(a.v_chunk) + static_cast<int64_t>(h) * D;
-    for (int row0 = 0; row0 < rows_total; row0 += NR) {
-      const int qfirst = a.chunk_start + tok0 + row0 / G;
-      const int p_lo = a.window > 0 ? max(qfirst - a.window + 1, 0) : 0;
-      const int c_lo = a.window > 0 ? max(qfirst - a.window + 1 - a.chunk_start, 0) : 0;
-      blk.load_q(static_cast<const T*>(a.q_chunk) + qoff, tok_stride, G, row0, rows_total,
-                 a.chunk_start + tok0, a.scale);
-      blk.segment(pool_rows(k_pool, v_pool, a.k_scale, a.v_scale, pages), min(p_lo, ctx), ctx,
-                  0, ctx);
-      blk.segment(kc, vc, ContigRows{row_stride}, min(c_lo, k_hi), k_hi, a.chunk_start,
-                  a.chunk_total);
-      blk.store(static_cast<T*>(a.o_chunk) + qoff, tok_stride, G, row0, rows_total);
-    }
-    return;
-  }
-
-  const int gidx = tile - a.n_chunk_tiles;
-  const int s = gidx / a.n_splits, span = gidx % a.n_splits;
-  const int length = max(a.group_lengths[s], 0);
-  const int rows_total = a.Td * G;
-  const int64_t qoff = static_cast<int64_t>(s) * a.Td * tok_stride + head_q;
-  const PagedRows pages{a.page_table + static_cast<int64_t>(s) * a.n_table_g, a.n_table_g,
-                        layer_base, a.ps, a.num_pages, row_stride};
-  const int ctx = min(length, a.n_table_g * a.ps);
-  // this span's pool rows [p0, p1): the slot's pages in n_splits spans of
-  // span_pages whole pages each
-  const int span_pages = ((ctx + a.ps - 1) / a.ps + a.n_splits - 1) / a.n_splits;
-  const int p0 = min(span * span_pages * a.ps, ctx);
-  const int p1 = min(p0 + span_pages * a.ps, ctx);
-  const bool split = a.n_splits > 1;
-  const int64_t part_row0 =
-      (static_cast<int64_t>(s * a.KVH + h) * a.n_splits + span) * rows_total;
-  float* part_ml = split ? a.part_ml + 2 * part_row0 : nullptr;
-  float* part_acc = split ? a.part_acc + part_row0 * D : nullptr;
-
-  if (span > 0 && p0 >= p1) {  // past the slot's length: an empty partial
-    for (int gi = threadIdx.x; gi < rows_total; gi += kThreads) {
-      part_ml[2 * gi] = kNegInf;
-      part_ml[2 * gi + 1] = 0.f;
-    }
-  } else {
-    const int64_t kvoff = static_cast<int64_t>(s) * a.Td * row_stride;
-    const T* kg = static_cast<const T*>(a.k_group) + kvoff + static_cast<int64_t>(h) * D;
-    const T* vg = static_cast<const T*>(a.v_group) + kvoff + static_cast<int64_t>(h) * D;
-    const bool tree = a.tree_n > 0;
-    __shared__ int tree_depth[kMaxTreeNodes];
-    __shared__ unsigned tree_bits[kMaxTreeNodes];
-    if (tree && threadIdx.x == 0) {  // published by load_q's barrier
-#pragma unroll
-      for (int i = 0; i < kMaxTreeNodes; ++i) {  // constant indices into the arguments
-        if (i < a.tree_n) {
-          tree_depth[i] = a.tree_pos[i];
-          tree_bits[i] = static_cast<unsigned>(a.tree_bits[i]);
-        }
-      }
-    }
-    for (int row0 = 0; row0 < rows_total; row0 += NR) {
-      // a tree row's logical position is length + depth >= length
-      const int qfirst = length + (tree ? 0 : row0 / G);
-      const int p_lo = a.window > 0 ? max(qfirst - a.window + 1, 0) : 0;
-      blk.load_q(static_cast<const T*>(a.q_group) + qoff, tok_stride, G, row0, rows_total,
-                 length, a.scale);
-      if (tree) blk.tree_qpos(tree_depth, G, row0, rows_total, length);
-      blk.segment(pool_rows(k_pool, v_pool, a.k_scale, a.v_scale, pages),
-                  max(p0, min(p_lo, p1)), p1, 0, ctx);
-      if (span == 0) {  // the fresh K/V
-        if (tree) {
-          TreeKeys<RPW> keys{tree_depth, length, {}};
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            const int gi = row0 + blk.warp * RPW + r;
-            keys.bits[r] = gi < rows_total ? tree_bits[gi / G] : 0u;
-          }
-          blk.segment(KVRows<T, ContigRows>{kg, vg, ContigRows{row_stride}}, 0, a.Td, keys);
-        } else {
-          blk.segment(kg, vg, ContigRows{row_stride}, 0, a.Td, length, length + a.Td);
-        }
-      }
-      if (split)
-        store_partial<AttnBlock<T, D, RPW>, D, RPW>(blk, part_ml, part_acc, row0, rows_total);
-      else
-        blk.store(static_cast<T*>(a.o_group) + qoff, tok_stride, G, row0, rows_total);
-    }
-  }
-  if (!split) return;
-
-  // arrive; the last of the n_splits blocks merges (release: every
-  // thread's partials fenced before the count; acquire: fence after it)
-  __shared__ int is_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* counter = a.counters + s * a.KVH + h;
-    is_last = atomicAdd(counter, 1) == a.n_splits - 1;
-    if (is_last) *counter = 0;  // every span has arrived: ready for the next launch
-  }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  const int64_t base_row = static_cast<int64_t>(s * a.KVH + h) * a.n_splits * rows_total;
-  merge_spans<T, D>(a.part_ml + 2 * base_row, a.part_acc + base_row * D, a.n_splits, rows_total,
-                    static_cast<T*>(a.o_group) + qoff, tok_stride, G);
+  ragged_body<T, P, D, RPW>(a);
 }
 
-template <typename T, typename P, int D, int RPW>
-cudaError_t launch(const RaggedArgs& a, cudaStream_t stream) {
-  auto kernel = ragged_attention_kernel<T, P, D, RPW>;
-  const int smem = smem_floats<D, RPW>() * sizeof(float);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.n_chunk_tiles + a.S * a.n_splits, a.KVH);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, typename P, int D>
-cudaError_t by_rpw(int rpw, const RaggedArgs& a, cudaStream_t s) {
-  switch (rpw) {
-    case 1: return launch<T, P, D, 1>(a, s);
-    case 2: return launch<T, P, D, 2>(a, s);
-    case 4: return launch<T, P, D, 4>(a, s);
-    case 8: return launch<T, P, D, 8>(a, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, typename P>
-cudaError_t by_dim(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
-  switch (d) {
-    case 64: return by_rpw<T, P, 64>(rpw, a, s);
-    case 128: return by_rpw<T, P, 128>(rpw, a, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// the fp pool (P = T) or, with scales, the int8 pool
-template <typename T>
-cudaError_t by_pool(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
-  if (a.k_scale != nullptr) return by_dim<T, int8_t>(d, rpw, a, s);
-  return by_dim<T, T>(d, rpw, a, s);
-}
-
-// ---------------------------------------------------------------------------
-// the chunk region on wgmma + TMA (bf16)
-// ---------------------------------------------------------------------------
-
-namespace chunk {
-
-using namespace hopper;
-
-struct ChunkArgs {
-  const int* chunk_row;      // [n_table] pages of the slot
-  __nv_bfloat16* out;        // [1, C, H, D]
-  int n_table, num_pages, pool_pages, ps, box_rows, layer;  // pool_pages = L * P
-  int C, bq, chunk_start, chunk_total, H, KVH;
-  float scale, softcap;
-  int window;
-};
-
-// Dynamic shared memory: the Smem<D> layout, then the table row's pages
-// that hold the prefix (clamped into the pool).
-template <int D>
-__host__ __device__ constexpr int table_offset() { return Smem<D>::kBarOff + 128; }
-template <int D>
-int smem_bytes(const ChunkArgs& a) {
-  const int ctx = std::min(std::max(a.chunk_start, 0), a.n_table * a.ps);
-  return Smem<D>::kBytes + 128 + 4 * ((ctx + a.ps - 1) / a.ps);
-}
-
-template <int D, bool kCap>
-__global__ void __launch_bounds__(kWgThreads, 1)
+template <int D, bool kCap, bool kDev, bool kFresh>
+__global__ void __launch_bounds__(hopper::kWgThreads, 1)
     ragged_chunk_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap kp_map,
                         const __grid_constant__ CUtensorMap vp_map,
                         const __grid_constant__ CUtensorMap kc_map,
-                        const __grid_constant__ CUtensorMap vc_map, const ChunkArgs a) {
-  using L = Smem<D>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-byte aligned
-  unsigned char* smem = smem_raw + (base - raw);
-  int* table = reinterpret_cast<int*>(smem + table_offset<D>());
-  const uint32_t q_s = base, kv_s = base + L::kQBytes;
-  const uint32_t bar_q = base + L::kBarOff;
-  auto full = [&](int s) { return bar_q + 8u * (1 + s); };
-  auto empty = [&](int s) { return bar_q + 8u * (1 + L::kStages + s); };
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y;
-  const int G = a.H / a.KVH;
-  const int tok0 = qt * a.bq;
-  const int ntok = min(a.bq, a.C - tok0);
-  const int rows = ntok * G;
-  const int cs = a.chunk_start;
-  const int64_t tok_stride = static_cast<int64_t>(a.H) * D;
-  __nv_bfloat16* ob = a.out + static_cast<int64_t>(tok0) * tok_stride +
-                      static_cast<int64_t>(h) * G * D;
-  const int q_first = cs + tok0, q_last = cs + tok0 + ntok - 1;  // absolute positions
-  if (q_first >= a.chunk_total) {  // padding rows only
-    write_zeros<__nv_bfloat16, D>(ob, rows, G, tok_stride, kWgThreads);
-    return;
-  }
-  // the tile plan (ragged_chunk_tile_plan): prefix keys [p_lo, ctx) in
-  // 128-key tiles aligned to absolute positions, then fresh keys
-  // [c_lo, c_hi) of the chunk in tiles aligned to the chunk
-  const int ctx = min(max(cs, 0), a.n_table * a.ps);
-  const int p_lo = a.window > 0 ? max(q_first - a.window + 1, 0) : 0;
-  const int pt_first = p_lo / kBK * kBK;
-  const int n_ptiles = p_lo < ctx ? (ctx - pt_first + kBK - 1) / kBK : 0;
-  const int c_hi = min(q_last + 1, a.chunk_total) - cs;
-  const int c_lo = a.window > 0 ? max(q_first - a.window + 1 - cs, 0) : 0;
-  const int ft_first = c_lo / kBK * kBK;
-  const int n_tiles = n_ptiles + (c_hi - ft_first + kBK - 1) / kBK;
-  // first key (absolute) and key limit of tile i
-  auto tile_key = [&](int i) { return i < n_ptiles ? pt_first + i * kBK : cs + ft_first + (i - n_ptiles) * kBK; };
-
-  const int n_pages_ctx = (ctx + a.ps - 1) / a.ps;
-  for (int p = threadIdx.x; p < n_pages_ctx; p += kWgThreads)  // clamped as PagedRows
-    table[p] = min(max(a.chunk_row[p], 0), a.num_pages - 1);
-  if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumers * 4);  // one arrival per consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    // producer: one thread keeps the ring of K/V stages filled
-    setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, L::kBlocks * 128 * G * a.bq);
-      for (int cb = 0; cb < L::kBlocks; ++cb)
-        tma_load(q_s + cb * L::kQBlock, &q_map, bar_q, cb * 64, h * G, tok0, 0);
-      const int boxes = kBK / a.box_rows, box_bytes = a.box_rows * 128;
-      const int page0 = a.layer * a.num_pages;
-      int stage = 0, phase = 0;
-      for (int i = 0; i < n_tiles; ++i) {
-        const int kt0 = tile_key(i);
-        mbar_wait(empty(stage), phase ^ 1);
-        mbar_expect_tx(full(stage), L::kStageBytes);
-        const uint32_t st = kv_s + stage * L::kStageBytes;
-        if (i < n_ptiles) {
-          for (int b = 0; b < boxes; ++b) {
-            // a box past the prefix reads from outside the map: zeros
-            const int pos = kt0 + b * a.box_rows;
-            const bool in = pos < ctx;
-            const int pg = in ? page0 + table[pos / a.ps] : a.pool_pages;
-            const int row = in ? pos % a.ps : 0;
-            for (int cb = 0; cb < L::kBlocks; ++cb) {
-              tma_load(st + cb * L::kKVBlock + b * box_bytes, &kp_map, full(stage), cb * 64, h,
-                       row, pg);
-              tma_load(st + (L::kBlocks + cb) * L::kKVBlock + b * box_bytes, &vp_map,
-                       full(stage), cb * 64, h, row, pg);
-            }
-          }
-        } else {
-          for (int cb = 0; cb < L::kBlocks; ++cb) {
-            tma_load(st + cb * L::kKVBlock, &kc_map, full(stage), cb * 64, h, kt0 - cs, 0);
-            tma_load(st + (L::kBlocks + cb) * L::kKVBlock, &vc_map, full(stage), cb * 64, h,
-                     kt0 - cs, 0);
-          }
-        }
-        if (++stage == L::kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-  } else {
-    setmaxnreg_inc<kConsumerRegs>();
-    const int c = wg - 1, t = threadIdx.x % 128;
-    const int warp = t / 32, lane = t % 32, quad = lane % 4;
-    const int slab = c * 64;  // this warpgroup's first row
-    const int r0 = slab + warp * 16 + lane / 4, r1 = r0 + 8;
-    // the spare rows past G * bq (G not dividing 128) hold zeros
-    zero_spare_rows<D>(smem, slab, max(G * a.bq, slab), t);
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-
-    const int qp0 = r0 < rows ? q_first + r0 / G : -1;
-    const int qp1 = r1 < rows ? q_first + r1 / G : -1;
-    const bool live = slab < rows;
-    const int w_first = q_first + slab / G;  // this warpgroup's positions
-    const int w_last = q_first + min(slab + 63, rows - 1) / G;
-    float o[L::kBlocks][32];
-#pragma unroll
-    for (int cb = 0; cb < L::kBlocks; ++cb) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
-    }
-    float m0 = hopper::kNegInf, m1 = hopper::kNegInf, l0 = 0.f, l1 = 0.f;
-    mbar_wait(bar_q, 0);
-    int stage = 0, phase = 0;
-    for (int i = 0; i < n_tiles; ++i) {
-      const int kt0 = tile_key(i);
-      const int limit = i < n_ptiles ? ctx : a.chunk_total;
-      mbar_wait(full(stage), phase);
-      const bool skip = !live || kt0 > w_last ||
-                        (a.window > 0 && kt0 + kBK - 1 < w_first - a.window + 1);
-      if (!skip) {
-        const uint32_t st = kv_s + stage * L::kStageBytes;
-        float s[64];
-        qk_tile<D>(s, q_s, st, slab);
-        // the per-element mask only where a row of the query tile misses
-        // a key of this tile: the fresh diagonal, the prefix or
-        // chunk_total edge, the window edge
-        const bool masked = kt0 + kBK - 1 > q_first || kt0 + kBK > limit ||
-                            (a.window > 0 && q_last - kt0 >= a.window);
-        uint32_t p[kBK / 16][4];
-        if (masked)
-          softmax_tile<true, kCap>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0, quad, qp0,
-                                   qp1, limit, a.window);
-        else
-          softmax_tile<false, kCap>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0, quad, qp0,
-                                    qp1, limit, a.window);
-        pv_tile<D>(o, p, st + L::kBlocks * L::kKVBlock);
-      }
-      if (lane == 0) mbar_arrive(empty(stage));  // this warp is done with the stage
-      if (++stage == L::kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    store_rows<D>(ob, o, l0, l1, r0, r1, rows, G, tok_stride, quad);
-  }
+                        const __grid_constant__ CUtensorMap vc_map, const chunk::ChunkArgs a) {
+  chunk::chunk_body<D, kCap, kDev, kFresh>(q_map, kp_map, vp_map, kc_map, vc_map, a);
 }
 
-template <int D, bool kCap>
-int launch(const CUtensorMap* kp_map, const CUtensorMap* vp_map, const void* q, const void* kc,
-           const void* vc, const ChunkArgs& a, cudaStream_t stream) {
-  CUtensorMap qm, kcm, vcm;
-  const int64_t row = static_cast<int64_t>(D) * 2;
-  const int G = a.H / a.KVH;
-  // q [1, C, H, D] in boxes {64, G, bq}; k/v_chunk [C, KVH, D] in {64, 1, 128}
-  int err = encode_bf16_4d(&qm, q, D, a.H, a.C, 1, row, row * a.H, row * a.H * a.C, G, a.bq);
-  if (err == 0)
-    err = encode_bf16_4d(&kcm, kc, D, a.KVH, a.C, 1, row, row * a.KVH, row * a.KVH * a.C, 1, kBK);
-  if (err == 0)
-    err = encode_bf16_4d(&vcm, vc, D, a.KVH, a.C, 1, row, row * a.KVH, row * a.KVH * a.C, 1, kBK);
-  if (err != 0) return err;
-  auto kernel = ragged_chunk_kernel<D, kCap>;
-  const int smem = smem_bytes<D>(a);
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((a.C + a.bq - 1) / a.bq, a.KVH);
-  kernel<<<grid, kWgThreads, smem, stream>>>(qm, *kp_map, *vp_map, kcm, vcm, a);
-  return cudaGetLastError();
+struct RaggedEntry {
+  template <typename T, typename P, int D, int RPW>
+  static auto kernel() { return ragged_attention_kernel<T, P, D, RPW>; }
+  template <int D, bool kCap, bool kDev, bool kFresh>
+  static auto chunk_kernel() { return ragged_chunk_kernel<D, kCap, kDev, kFresh>; }
+};
+
+// the fp pool (P = T) or, with scales, the int8 pool
+template <typename T>
+cudaError_t by_pool(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
+  if (a.k_scale != nullptr) return by_dim<RaggedEntry, T, int8_t>(d, rpw, a, s);
+  return by_dim<RaggedEntry, T, T>(d, rpw, a, s);
 }
 
-}  // namespace chunk
 }  // namespace gridllm
 
 // dtype: the compute dtype, 0 = float32, 1 = bfloat16. k_scale/v_scale:
@@ -603,8 +100,9 @@ extern "C" int gridllm_ragged_attention(
   gridllm::RaggedArgs a{k_pool, v_pool, static_cast<const float*>(k_scale),
                         static_cast<const float*>(v_scale), num_pages, ps, layer,
                         q_chunk, k_chunk, v_chunk, o_chunk,
-                        static_cast<const int*>(chunk_row), n_table_c, C, bq,
-                        chunk_start, chunk_total, n_chunk_tiles,
+                        static_cast<const int*>(chunk_row),
+                        {nullptr, nullptr, chunk_start, chunk_total},
+                        n_table_c, C, bq, n_chunk_tiles,
                         q_group, k_group, v_group, o_group,
                         static_cast<const int*>(page_table),
                         static_cast<const int*>(group_lengths), n_table_g, S, Td,
@@ -647,28 +145,11 @@ extern "C" int gridllm_ragged_chunk(const void* kp_map, const void* vp_map, cons
                                     int pool_pages, int ps, int box_rows, int layer, int C,
                                     int bq, int chunk_start, int chunk_total, int H, int KVH,
                                     int D, float scale, float softcap, int window, void* stream) {
-  using gridllm::hopper::kBK;
-  if (H % KVH || bq < 1 || bq * (H / KVH) > gridllm::hopper::kRows || box_rows < 8 ||
-      box_rows % 8 || kBK % box_rows || ps % box_rows)
-    return static_cast<int>(cudaErrorInvalidValue);
   const gridllm::chunk::ChunkArgs a{static_cast<const int*>(chunk_row),
                                     static_cast<__nv_bfloat16*>(out),
                                     n_table, num_pages, pool_pages, ps, box_rows, layer, C, bq,
-                                    chunk_start, chunk_total, H, KVH, scale, softcap, window};
-  CUtensorMap kpm, vpm;  // 64-byte aligned copies of the caller's maps
-  memcpy(&kpm, kp_map, sizeof(CUtensorMap));
-  memcpy(&vpm, vp_map, sizeof(CUtensorMap));
-  const CUtensorMap* km = &kpm;
-  const CUtensorMap* vm = &vpm;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool cap = softcap > 0.f;
-  switch (D) {
-    case 64:
-      return cap ? gridllm::chunk::launch<64, true>(km, vm, q_chunk, k_chunk, v_chunk, a, s)
-                 : gridllm::chunk::launch<64, false>(km, vm, q_chunk, k_chunk, v_chunk, a, s);
-    case 128:
-      return cap ? gridllm::chunk::launch<128, true>(km, vm, q_chunk, k_chunk, v_chunk, a, s)
-                 : gridllm::chunk::launch<128, false>(km, vm, q_chunk, k_chunk, v_chunk, a, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                                    H, KVH, {nullptr, nullptr, chunk_start, chunk_total},
+                                    std::min(chunk_total, n_table * ps), scale, softcap, window};
+  return gridllm::chunk::run<gridllm::RaggedEntry, false, true>(kp_map, vp_map, q_chunk, k_chunk, v_chunk, a,
+                                                   D, static_cast<cudaStream_t>(stream));
 }

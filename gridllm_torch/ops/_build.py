@@ -21,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("paged_write.cu", "flash_prefill.cu", "ragged_attention.cu", "paged_decode.cu",
-           "prefix_chunk.cu")
+SOURCES = ("paged_write.cu", "flash_prefill.cu", "ragged_attention.cu",
+           "per_phase_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

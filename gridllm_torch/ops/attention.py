@@ -593,26 +593,27 @@ def paged_attention_verify(
 ) -> torch.Tensor:
     """Speculative-verify attention (contract of paged_attention_verify_ref):
     q [S, T, H, D], candidate i of slot s at position lengths[s] + i,
-    attending the slot's prefix plus the candidates before it. One
-    attention_prefix_chunk per slot with start = lengths[s] and total =
-    start + T, each reading its slot's length from the lengths tensor (on
-    the card, no host sync in the loop). An int8 pool runs the plain
-    version, all slots at once.
+    attending the slot's prefix plus the candidates before it. CUDA tensors
+    run the `prefix_chunk` kernel once for all slots
+    (`cuda_kernels.prefix_chunk_slots`, reading each slot's length from the
+    lengths tensor on the card: no host sync), where the JAX package loops
+    prefix_chunk over slots; lane-padded pools as in paged_attention_decode.
+    An int8 pool runs the plain version, all slots at once.
 
     A token tree (`tree_pos`/`tree_mask`) always runs the plain version's
-    tree branch: the per-slot prefix_chunk loop cannot express an ancestor
-    mask, and no per-phase kernel carries one, in this package or the JAX
-    package (the unified ragged kernel's tree leg does)."""
+    tree branch: no per-phase kernel carries an ancestor mask, in this
+    package or the JAX package (the unified ragged kernel's tree leg
+    does)."""
+    from gridllm_torch.ops.cuda_kernels import prefix_chunk_slots
+
     if tree_pos is not None or isinstance(k_pages, QuantPages):
         return paged_attention_verify_ref(
             q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
             lengths, page_size, k_cur, v_cur, logit_softcap=logit_softcap, window=window,
             tree_pos=tree_pos, tree_mask=tree_mask)
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    return torch.cat([
-        attention_prefix_chunk(
-            q[i][None], k_pages, v_pages, page_table[i], lengths[i:i + 1], None,
-            page_size, k_cur=k_cur[i], v_cur=v_cur[i], layer=layer,
-            logit_softcap=logit_softcap, window=window)
-        for i in range(q.shape[0])
-    ])
+    d, dpool = q.shape[-1], k_pages.shape[-1]
+    if dpool != d:
+        q, k_cur, v_cur = _lane_pad_qkv(q, k_cur, v_cur, dpool)
+    out = prefix_chunk_slots(q, k_pages, v_pages, page_table, lengths, page_size, k_cur, v_cur,
+                             layer=layer, softcap=logit_softcap, window=window)
+    return out[..., :d] if dpool != d else out

@@ -15,7 +15,8 @@ ragged_attention the int8 pool leg and the tree-verify leg (one launch may
 take both), and its regions: "chunk" (the chunk region on the tensor
 cores, a launch of its own), "chunk_cores" (the chunk region on the CUDA
 cores, for float32 q or an int8 pool) and "group" (the group region, split
-over pages).
+over pages); for prefix_chunk its routes: "chunk" (tensor cores),
+"chunk_cores" and "slots" (the per-phase verify, all slots in one launch).
 
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
@@ -24,10 +25,13 @@ Kernels (gridllm_torch/csrc/), the TPU kernels they replace
   (both wrappers launch the one kernel of csrc/flash_prefill.cu, whose
   tile plan `prefill_tile_plan` gives in Python)
 - paged_decode        :479  → ops.attention.paged_attention_decode_ref
-- prefix_chunk        :739  → ops.attention._prefix_chunk_ref
+- prefix_chunk        :739  → ops.attention._prefix_chunk_ref (one chunk),
+  ops.attention.paged_attention_verify_ref (`prefix_chunk_slots`)
 - ragged_attention    :1168 → ops.attention.ragged_paged_attention_ref
-  (index math of its two kernels in Python: `ragged_chunk_tile_plan`,
-  `ragged_split_count`, `ragged_split_plan`, `ragged_split_merge_ref`)
+  (index math of its two kernel bodies in Python, which paged_decode and
+  prefix_chunk launch too (csrc/attention_bodies.cuh):
+  `ragged_chunk_tile_plan`, `ragged_split_count`, `ragged_split_plan`,
+  `ragged_split_merge_ref`)
 - paged_write_decode  :1404 → ops.kvcache.write_decode
 - paged_write_chunk   :1497 → ops.kvcache.write_prefill
 """
@@ -49,6 +53,7 @@ from gridllm_torch.ops.attention import (
     attention_prefill_blocked_ref,
     attention_prefill_ref,
     paged_attention_decode_ref,
+    paged_attention_verify_ref,
     ragged_paged_attention_ref,
 )
 from gridllm_torch.ops.kvcache import QuantPages, write_decode, write_prefill
@@ -69,6 +74,9 @@ LEG_LAUNCHES: dict[str, int] = {
     "ragged_attention.chunk": 0,
     "ragged_attention.chunk_cores": 0,
     "ragged_attention.group": 0,
+    "prefix_chunk.chunk": 0,
+    "prefix_chunk.chunk_cores": 0,
+    "prefix_chunk.slots": 0,
 }
 
 
@@ -83,6 +91,10 @@ def launch_counts() -> dict[str, int]:
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_GROUPS_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P,       # q, pools, k/v_cur, out, table, lengths
+                _I, _I, _I, _I, _I, _I,               # S, Td, n_table, P, ps, layer
+                _I, _P, _P, _P,                       # n_splits, partials, counters
+                _I, _I, _I, _I, _I, _F, _F, _I, _P]   # H, KVH, D, rpw, dtype, ..., stream
 _SIGNATURES: dict[str, tuple[str, list]] = {
     "gridllm_paged_write_decode": (
         "paged_write.cu", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P]),
@@ -91,16 +103,19 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
     "gridllm_flash_prefill": (
         "flash_prefill.cu",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
-    "gridllm_paged_decode": (
-        "paged_decode.cu",
-        [_P, _P, _P, _P, _P, _P, _P, _P,          # q, pools, k/v_cur, out, table, lengths
-         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # S, n_table, P, ps, layer, H, KVH, D, rpw, dtype
-         _F, _F, _I, _P]),                        # scale, softcap, window, stream
+    "gridllm_paged_decode": ("per_phase_attention.cu", _GROUPS_ARGS),
+    "gridllm_prefix_chunk_slots": ("per_phase_attention.cu", _GROUPS_ARGS),
     "gridllm_prefix_chunk": (
-        "prefix_chunk.cu",
+        "per_phase_attention.cu",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P,      # q, pools, k/v_cur, out, row, start, total
          _I, _I, _I, _I, _I, _I,                  # n_table, P, ps, layer, C, bq
          _I, _I, _I, _I, _I,                      # H, KVH, D, rpw, dtype
+         _F, _F, _I, _P]),                        # scale, softcap, window, stream
+    "gridllm_prefix_chunk_wgmma": (
+        "per_phase_attention.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P,      # pool maps, q, k/v_cur, out, row, start, total
+         _I, _I, _I, _I, _I, _I,                  # n_table, P, L * P, ps, box_rows, layer
+         _I, _I, _I, _I, _I,                      # C, bq, H, KVH, D
          _F, _F, _I, _P]),                        # scale, softcap, window, stream
     "gridllm_ragged_attention": (
         "ragged_attention.cu",
@@ -419,6 +434,42 @@ def flash_prefill_streamed(q, k, v, seq_lens, softcap: float = 0.0, window: int 
     return _prefill_launch(kernel, q, k, v, seq_lens, softcap, window)
 
 
+def _groups(kernel: str, fn: str, q, k_pages, v_pages, page_table, lengths, page_size: int,
+            k_new, v_new, layer, softcap: float, window: int, legs: tuple[str, ...] = ()):
+    """One launch of the group body through a per-phase entry point `fn`
+    (csrc/per_phase_attention.cu) on CUDA tensors: q [S, Td, H, D], fresh
+    K/V k_new/v_new [S, Td, KVH, D] or None, split over pages into
+    `ragged_split_count` spans from host shapes (the scratch of
+    `_split_args`, shared with ragged_attention's groups); no host sync."""
+    dev = q.device
+    k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
+    _, num_pages, ps, kvh, d = k_pages.shape
+    s, td, h, _ = q.shape
+    code = _float_dtype(kernel, k_pages)
+    _kv_heads_and_dim(kernel, k_pages)
+    g = _gqa(kernel, h, kvh)
+    _check(kernel, "q", q, dev, (s, td, h, d), k_pages.dtype)
+    if (k_new is None) != (v_new is None):
+        raise ValueError(f"{kernel}: k_cur and v_cur go together")
+    if k_new is not None:
+        _check(kernel, "k_cur", k_new, dev, (s, td, kvh, d), k_pages.dtype)
+        _check(kernel, "v_cur", v_new, dev, (s, td, kvh, d), k_pages.dtype)
+    page_table = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    if page_table.shape[0] != s or lengths.shape != (s,):
+        raise ValueError(f"{kernel}: page_table/lengths do not match {s} slots")
+    out = torch.empty_like(q)
+    if s * td:
+        stream = _stream(q)
+        n_table = page_table.shape[1]
+        split = _split_args(dev, stream, s, kvh, n_table, td * g, d, ps)
+        _launch(fn, kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_new), _ptr(v_new),
+                _ptr(out), _ptr(page_table), _ptr(lengths), s, td, n_table, num_pages, ps,
+                layer, *split, h, kvh, d, _rows_per_warp(td * g), code, d ** -0.5,
+                float(softcap), int(window), stream, legs=legs)
+    return out
+
+
 def paged_decode(q, k_pages, v_pages, page_table, lengths, page_size: int, k_cur=None,
                  v_cur=None, layer: int | None = None, softcap: float = 0.0,
                  window: int = 0):
@@ -426,41 +477,22 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, page_size: int, k_cur
     pool (one layer [P, ps, KVH, D], or the full stack with `layer`
     selecting), page_table [S, maxp], lengths [S] on the device (the
     cached prefix when k_cur/v_cur [S, KVH, D] are given, else including
-    the current token) → [S, H, D]."""
+    the current token) → [S, H, D]. On the card: the group body at Td = 1,
+    split over pages (`_groups`)."""
     if not q.is_cuda:
         return paged_attention_decode_ref(
             q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
             lengths, page_size, k_cur=k_cur, v_cur=v_cur, logit_softcap=softcap,
             window=window)
-    kernel, dev = "paged_decode", q.device
-    k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
-    _, num_pages, ps, kvh, d = k_pages.shape
-    s, h, _ = q.shape
-    code = _float_dtype(kernel, k_pages)
-    _kv_heads_and_dim(kernel, k_pages)
-    g = _gqa(kernel, h, kvh)
-    _check(kernel, "q", q, dev, (s, h, d), k_pages.dtype)
-    if (k_cur is None) != (v_cur is None):
-        raise ValueError(f"{kernel}: k_cur and v_cur go together")
-    if k_cur is not None:
-        _check(kernel, "k_cur", k_cur, dev, (s, kvh, d), k_pages.dtype)
-        _check(kernel, "v_cur", v_cur, dev, (s, kvh, d), k_pages.dtype)
-    page_table = page_table.to(device=dev, dtype=torch.int32).contiguous()
-    lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
-    if page_table.shape[0] != s or lengths.shape != (s,):
-        raise ValueError(f"{kernel}: page_table/lengths do not match {s} slots")
-    out = torch.empty_like(q)
-    if s:
-        _launch("gridllm_paged_decode", kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages),
-                _ptr(k_cur), _ptr(v_cur), _ptr(out), _ptr(page_table), _ptr(lengths),
-                s, page_table.shape[1], num_pages, ps, layer, h, kvh, d, _rows_per_warp(g),
-                code, d ** -0.5, float(softcap), int(window), _stream(q))
-    return out
+    cur = (None, None) if k_cur is None else (k_cur[:, None], v_cur[:, None])
+    return _groups("paged_decode", "gridllm_paged_decode", q[:, None], k_pages, v_pages,
+                   page_table, lengths, page_size, *cur, layer, softcap, window)[:, 0]
 
 
 def _device_scalar(kernel: str, name: str, x, dev: torch.device) -> torch.Tensor:
-    """A host int as a one-element int32 tensor on `dev`, or a one-element
-    int32 tensor already there (read by the kernel, never by the host)."""
+    """A chunk bound as the kernels take it: a host int as a one-element
+    int32 tensor on `dev`, or a one-element int32 tensor already there
+    (read by the kernel, never by the host)."""
     if not isinstance(x, torch.Tensor):
         return torch.tensor([int(x)], dtype=torch.int32, device=dev)
     if x.device != dev or x.dtype != torch.int32 or x.numel() != 1:
@@ -474,9 +506,16 @@ def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: in
     """`_prefix_chunk_ref` in one launch: q [1, C, H, D] at positions
     start + i against the pool (one layer, or the full stack with `layer`
     selecting) through table_row [maxp], plus the chunk's fresh K/V
-    k_cur/v_cur [C, KVH, D] when given. `start` and `total_len` are host
-    ints or one-element int32 tensors on the card, which the kernel reads
-    itself; `total_len` None means start + C. → [1, C, H, D]."""
+    k_cur/v_cur [C, KVH, D] when given. `start` and `total_len` are
+    one-element int32 tensors on the card, which the kernel reads itself,
+    or host ints, copied there first; `total_len` None means start + C.
+    → [1, C, H, D].
+
+    Routes, by input type (`chunk_on_tensor_cores`): a bf16 q on a bf16
+    pool whose pages hold whole 8-row boxes runs the wgmma + TMA chunk
+    body ("chunk"), any other input the CUDA-core chunk region
+    ("chunk_cores"); both in csrc/per_phase_attention.cu, the grid from
+    host shapes (C, KVH), no host sync."""
     if not q.is_cuda:
         st = int(start)
         total = st + q.shape[1] if total_len is None else int(total_len)
@@ -486,7 +525,7 @@ def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: in
             window=window)
     kernel, dev = "prefix_chunk", q.device
     k_pages, v_pages, layer = _full_pool(kernel, k_pages, v_pages, page_size, layer)
-    _, num_pages, ps, kvh, d = k_pages.shape
+    n_layers, num_pages, ps, kvh, d = k_pages.shape
     _, c, h, _ = q.shape
     code = _float_dtype(kernel, k_pages)
     _kv_heads_and_dim(kernel, k_pages)
@@ -500,15 +539,45 @@ def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: in
     table_row = table_row.to(device=dev, dtype=torch.int32).contiguous()
     start = _device_scalar(kernel, "start", start, dev)
     total = None if total_len is None else _device_scalar(kernel, "total_len", total_len, dev)
-    bq = max(1, _MAX_ROWS // g)
     out = torch.empty_like(q)
-    if c:
+    if not c:
+        return out
+    stream = _stream(q)
+    chunk = (_ptr(q), _ptr(k_cur), _ptr(v_cur), _ptr(out), _ptr(table_row), _ptr(start),
+             _ptr(total), table_row.shape[0], num_pages)
+    if chunk_on_tensor_cores(q.dtype, k_pages.dtype, ps):
+        box = chunk_box_rows(ps)
+        maps = [_pool_map(p, ps, kvh, d, box, kernel) for p in (k_pages, v_pages)]
+        _launch("gridllm_prefix_chunk_wgmma", kernel, *maps, *chunk, n_layers * num_pages,
+                ps, box, layer, c, PREFILL_ROWS // g, h, kvh, d, d ** -0.5, float(softcap),
+                int(window), stream, legs=("chunk",))
+    else:
+        bq = max(1, _MAX_ROWS // g)
         _launch("gridllm_prefix_chunk", kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages),
-                _ptr(k_cur), _ptr(v_cur), _ptr(out), _ptr(table_row), _ptr(start),
-                _ptr(total), table_row.shape[0], num_pages, ps, layer, c, bq, h, kvh, d,
-                _rows_per_warp(min(bq, c) * g), code, d ** -0.5, float(softcap),
-                int(window), _stream(q))
+                *chunk[1:], ps, layer, c, bq, h, kvh, d, _rows_per_warp(min(bq, c) * g), code,
+                d ** -0.5, float(softcap), int(window), stream, legs=("chunk_cores",))
     return out
+
+
+def prefix_chunk_slots(q, k_pages, v_pages, page_table, lengths, page_size: int, k_cur,
+                       v_cur, layer: int | None = None, softcap: float = 0.0,
+                       window: int = 0):
+    """`paged_attention_verify_ref` (a chain, no tree) in one launch for
+    all slots: q [S, T, H, D], candidate i of slot s at position
+    lengths[s] + i attending the slot's pages [0, lengths[s]) plus the
+    candidates before it, k_cur/v_cur [S, T, KVH, D], page_table [S, maxp],
+    lengths [S] on the device → [S, T, H, D]. On the card: the group body
+    at Td = T, split over pages (`_groups`), counted as a prefix_chunk
+    launch and in LEG_LAUNCHES["prefix_chunk.slots"]."""
+    if not q.is_cuda:
+        return paged_attention_verify_ref(
+            q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
+            lengths, page_size, k_cur, v_cur, logit_softcap=softcap, window=window)
+    if k_cur is None or v_cur is None:
+        raise ValueError("prefix_chunk: the verify over slots needs k_cur and v_cur")
+    return _groups("prefix_chunk", "gridllm_prefix_chunk_slots", q, k_pages, v_pages,
+                   page_table, lengths, page_size, k_cur, v_cur, layer, softcap, window,
+                   legs=("slots",))
 
 
 def tree_rows(td: int, tree_pos, tree_bits) -> tuple[int, list[int], list[int]]:
@@ -575,31 +644,37 @@ def chunk_on_tensor_cores(q_dtype: torch.dtype, pool_dtype: torch.dtype, page_si
 
 def ragged_chunk_tile_plan(c: int, chunk_start: int, chunk_total: int, n_table: int,
                            page_size: int, g: int, window: int = 0, chunk_row=None,
-                           layer: int = 0, num_pages: int | None = None,
+                           layer: int = 0, num_pages: int | None = None, fresh: bool = True,
                            bk: int = PREFILL_BK, n_rows: int = PREFILL_ROWS) -> list[ChunkTile]:
-    """The tile plan of csrc/ragged_attention.cu's chunk kernel for one kv
-    head, in the order the blocks are issued (heaviest first).
+    """The tile plan of the chunk body (csrc/attention_bodies.cuh, launched
+    by ragged_attention's and prefix_chunk's chunk kernels) for one kv head,
+    in the order the blocks are issued (heaviest first).
 
     A block holds bq = n_rows // g chunk tokens, row r = token tok0 + r // g,
     query head r % g, at absolute position chunk_start + token. It walks
-    the slot's cached prefix [0, ctx), ctx = min(chunk_start, n_table * ps),
-    in tiles of bk keys aligned to absolute positions, from the tile of
-    max(first position - window + 1, 0) (0 without a window); each tile is
-    bk / box_rows TMA boxes (`chunk_box_rows`) at page coordinate
-    layer * num_pages + clamp(chunk_row[pos // ps], 0, num_pages - 1), a box
-    past ctx read as zeros. Then the chunk's fresh keys in tiles of bk rows
+    the slot's pool keys [0, ctx), ctx = min(chunk_start, n_table * ps) (with
+    `fresh` False, the chunk already in the pool: min(chunk_total, n_table *
+    ps)), up to its last position, in tiles of bk keys aligned to absolute
+    positions, from the tile of max(first position - window + 1, 0) (0
+    without a window); each tile is bk / box_rows TMA boxes
+    (`chunk_box_rows`) at page coordinate layer * num_pages +
+    clamp(chunk_row[pos // ps], 0, num_pages - 1), a box past ctx read as
+    zeros. Then, with `fresh`, the chunk's fresh keys in tiles of bk rows
     aligned to the chunk, from the tile of max(first position - window + 1
-    - chunk_start, 0) up to min(last position + 1, chunk_total) -
-    chunk_start. A tile needs the per-element mask unless every row of the
-    block sees every key of it: keys at most the first position, below the
-    tile's limit (ctx for prefix tiles, chunk_total for fresh ones), and
+    - chunk_start, 0) up to min(last position + 1, f_limit) - chunk_start,
+    f_limit = min(chunk_total, n_table * ps) (fresh rows at or past the
+    capacity are cut). A tile needs the per-element mask unless every row
+    of the block sees every key of it: keys at most the first position,
+    below the tile's limit (ctx for pool tiles, f_limit for fresh ones), and
     (with a window) the last position within the window of the tile's first
     key. A query tile that starts at or past chunk_total writes zeros."""
     bq = n_rows // g
     ps = page_size
     box = chunk_box_rows(ps, bk)
     n_qt = -(-c // bq)
-    ctx = min(max(chunk_start, 0), n_table * ps)
+    cap = n_table * ps
+    ctx = min(max(chunk_start if fresh else chunk_total, 0), cap)
+    f_limit = min(chunk_total, cap)
     row = None if chunk_row is None else [int(x) for x in np.asarray(chunk_row).reshape(-1)]
 
     def masked(kt0, q_first, q_last, limit):
@@ -621,15 +696,16 @@ def ragged_chunk_tile_plan(c: int, chunk_start: int, chunk_total: int, n_table: 
             plan.append(ChunkTile(qt, tok0, ntok, True, (), (), rows))
             continue
         p_lo = max(q_first - window + 1, 0) if window > 0 else 0
+        p_hi = min(ctx, q_last + 1)
         prefix = tuple(
             (kt0, masked(kt0, q_first, q_last, ctx),
              tuple((pos, page_coord(pos)) for pos in range(kt0, kt0 + bk, box)))
-            for kt0 in range(p_lo // bk * bk, ctx, bk)) if p_lo < ctx else ()
-        c_hi = min(q_last + 1, chunk_total) - chunk_start
+            for kt0 in range(p_lo // bk * bk, p_hi, bk)) if p_lo < p_hi else ()
+        c_hi = min(q_last + 1, f_limit) - chunk_start
         c_lo = max(q_first - window + 1 - chunk_start, 0) if window > 0 else 0
-        fresh = tuple((j0, masked(chunk_start + j0, q_first, q_last, chunk_total))
-                      for j0 in range(c_lo // bk * bk, c_hi, bk))
-        plan.append(ChunkTile(qt, tok0, ntok, False, prefix, fresh, rows))
+        fresh_tiles = tuple((j0, masked(chunk_start + j0, q_first, q_last, f_limit))
+                            for j0 in range(c_lo // bk * bk, c_hi, bk)) if fresh else ()
+        plan.append(ChunkTile(qt, tok0, ntok, False, prefix, fresh_tiles, rows))
     return plan
 
 
@@ -657,12 +733,13 @@ def ragged_split_count(s: int, kvh: int, n_table: int, rows: int, d: int, n_sms:
 def ragged_split_plan(lengths, n_table: int, page_size: int,
                       n_splits: int) -> list[list[tuple[int, int, bool]]]:
     """Per slot, per span: (first, end) pool rows [p0, p1) the span's block
-    walks, and whether it also attends the Td fresh K/V (span 0 only). The
-    slot's ctx = min(length, n_table * ps) cached rows are cut into
-    n_splits spans of span_pages = ceil(ceil(ctx / ps) / n_splits) whole
-    pages; a span past ctx walks nothing (p0 == p1) and writes an empty
-    partial, except span 0, which always attends the fresh K/V. The kernel
-    computes the same from the length it reads on the device."""
+    walks, and whether it also attends the fresh K/V (span 0 only, when a
+    group has them). The slot's ctx = min(length, n_table * ps) cached rows
+    are cut into n_splits spans of span_pages = ceil(ceil(ctx / ps) /
+    n_splits) whole pages; a span past ctx walks nothing (p0 == p1) and
+    writes an empty partial, except span 0, which always attends the fresh
+    K/V. The kernel computes the same from the length it reads on the
+    device."""
     ps = page_size
     plan = []
     for ln in lengths:
@@ -694,13 +771,17 @@ def ragged_split_merge_ref(k_pages, v_pages, page_size: int, q_group, page_table
                            group_lengths, k_group, v_group, n_splits: int,
                            layer: int | None = None, softcap: float = 0.0, window: int = 0,
                            tree_pos=None, tree_mask=None) -> torch.Tensor:
-    """The group region computed span by span (`ragged_split_plan`) and
-    merged as csrc/ragged_attention.cu's last block merges the partials:
+    """The group body computed span by span (`ragged_split_plan`) and
+    merged as csrc/attention_bodies.cuh's last block merges the partials:
     M = max m_i over spans with l_i > 0, out = sum e^(m_i - M) acc_i /
     max(sum e^(m_i - M) l_i, 1e-30). Pools one layer [P, ps, KVH, D] or the
     full stack with `layer`, fp or int8 (`QuantPages`, dequantized by
-    gather_kv); a tree by tree_pos [Td] / tree_mask [Td, Td]. Float32 math;
-    → [S, Td, H, D] in q's dtype."""
+    gather_kv); a tree by tree_pos [Td] / tree_mask [Td, Td]. The body's two
+    policies: with fresh K/V k_group/v_group [S, Td, KVH, D] query i sits at
+    length + i and fresh row i is cut at the table's capacity (length + i
+    >= n_table * ps); with k_group/v_group None (paged_decode with the
+    current token in the pool) the query sits at length - 1 and attends the
+    pool alone. Float32 math; → [S, Td, H, D] in q's dtype."""
     from gridllm_torch.ops.kvcache import gather_kv
 
     kp, vp = _layer_pool(k_pages, layer), _layer_pool(v_pages, layer)
@@ -708,7 +789,9 @@ def ragged_split_merge_ref(k_pages, v_pages, page_size: int, q_group, page_table
     kvh = kp.shape[-2]
     g = h // kvh
     n_table = page_table.shape[1]
+    cap = n_table * page_size
     scale = d ** -0.5
+    has_fresh = k_group is not None
     plan = ragged_split_plan(group_lengths.tolist(), n_table, page_size, n_splits)
     depth = torch.arange(td) if tree_pos is None else torch.as_tensor(
         np.asarray(tree_pos), dtype=torch.int64)
@@ -717,28 +800,29 @@ def ragged_split_merge_ref(k_pages, v_pages, page_size: int, q_group, page_table
         length = max(int(group_lengths[si]), 0)
         ks, vs = gather_kv(kp, vp, page_table[si], page_size)
         ks, vs = ks.float(), vs.float()
-        q_pos = length + depth                          # logical query positions
+        q_pos = (length if has_fresh else length - 1) + depth   # logical query positions
+        n_fresh = max(min(td, cap - length), 0) if has_fresh else 0
         parts = []
         for p0, p1, fresh in plan[si]:
             k_pos = torch.arange(p0, p1)
             pool_vis = k_pos[None, :] <= q_pos[:, None]
             if window > 0:
                 pool_vis &= (q_pos[:, None] - k_pos[None, :]) < window
-            f_pos = length + depth if fresh else torch.zeros(0, dtype=torch.int64)
-            if fresh:
-                if tree_mask is None:
-                    f_vis = f_pos[None, :] <= q_pos[:, None]
-                else:
-                    f_vis = torch.as_tensor(np.asarray(tree_mask), dtype=torch.bool).clone()
-                if window > 0:
-                    f_vis &= (q_pos[:, None] - f_pos[None, :]) < window
+            nf = n_fresh if fresh else 0
+            f_pos = length + depth[:nf]
+            if tree_mask is None:
+                f_vis = f_pos[None, :] <= q_pos[:, None]
             else:
-                f_vis = torch.zeros(td, 0, dtype=torch.bool)
+                f_vis = torch.as_tensor(np.asarray(tree_mask), dtype=torch.bool)[:, :nf].clone()
+            if window > 0:
+                f_vis &= (q_pos[:, None] - f_pos[None, :]) < window
             vis = torch.cat([pool_vis, f_vis], dim=1)
             parts_h = []
             for kh in range(kvh):
-                keys = torch.cat([ks[p0:p1, kh], k_group[si, :len(f_pos), kh].float()])
-                vals = torch.cat([vs[p0:p1, kh], v_group[si, :len(f_pos), kh].float()])
+                keys, vals = ks[p0:p1, kh], vs[p0:p1, kh]
+                if nf:
+                    keys = torch.cat([keys, k_group[si, :nf, kh].float()])
+                    vals = torch.cat([vals, v_group[si, :nf, kh].float()])
                 q = q_group[si, :, kh * g:(kh + 1) * g].float().reshape(td * g, d)
                 parts_h.append(_span_partial(q, keys, vals, vis.repeat_interleave(g, dim=0),
                                              scale, softcap))
@@ -802,8 +886,9 @@ def _split_args(dev: torch.device, stream: int, s: int, kvh: int, n_table: int, 
     return args
 
 
-def _pool_map(pool: torch.Tensor, ps: int, kvh: int, d: int, box_rows: int) -> ctypes.Array:
-    """The chunk kernel's TMA map of one bf16 pool [L, P, ps, KVH, D], encoded
+def _pool_map(pool: torch.Tensor, ps: int, kvh: int, d: int, box_rows: int,
+              kernel: str = "ragged_attention") -> ctypes.Array:
+    """The chunk body's TMA map of one bf16 pool [L, P, ps, KVH, D], encoded
     once per (address, shape) and kept: the map holds nothing else."""
     pool_pages = pool.shape[0] * pool.shape[1]
     key = (pool.device, pool.data_ptr(), pool_pages, ps, kvh, d, box_rows)
@@ -811,7 +896,7 @@ def _pool_map(pool: torch.Tensor, ps: int, kvh: int, d: int, box_rows: int) -> c
     if m is None:
         m = (ctypes.c_byte * _MAP_BYTES)()
         _raise_on(_fn("gridllm_ragged_pool_map")(pool.data_ptr(), pool_pages, ps, kvh, d,
-                                                 box_rows, m), "ragged_attention")
+                                                 box_rows, m), kernel)
         if len(_pool_maps) >= 64:
             _pool_maps.clear()
         _pool_maps[key] = m

@@ -55,7 +55,7 @@ KERNELS: tuple[KernelSpec, ...] = (
     ),
     KernelSpec(
         name="paged_decode",
-        source="gridllm_torch/csrc/paged_decode.cu",
+        source="gridllm_torch/csrc/per_phase_attention.cu",
         replaces="gridllm_tpu/ops/pallas_kernels.py:479 paged_decode",
         plain="attention:paged_attention_decode_ref",
         rtol=3e-2, atol=3e-2,
@@ -64,12 +64,24 @@ KERNELS: tuple[KernelSpec, ...] = (
     ),
     KernelSpec(
         name="prefix_chunk",
-        source="gridllm_torch/csrc/prefix_chunk.cu",
+        source="gridllm_torch/csrc/per_phase_attention.cu",
         replaces="gridllm_tpu/ops/pallas_kernels.py:739 prefix_chunk",
         plain="attention:_prefix_chunk_ref",
         rtol=3e-2, atol=3e-2,
         test="tests/test_torch_legacy_attention.py::test_prefix_chunk_matches_jax",
         smoke_phase="kernels, timing, model, serve",
+        legs=(
+            # its routes, each a launch of its own on the card
+            ("chunk", "one chunk of a bf16 q on a bf16 pool: prefix_chunk_wgmma_kernel "
+             "(the wgmma + TMA chunk body), start and total read on the device",
+             "tests/test_torch_per_phase_plan.py::test_chunk_plan_walk_matches_jax_prefix_chunk"),
+            ("chunk_cores", "one chunk of a float32 q or another page size, on the CUDA "
+             "cores (prefix_chunk_kernel)",
+             "tests/test_torch_legacy_attention.py::test_prefix_chunk_matches_jax"),
+            ("slots", "prefix_chunk_slots: the per-phase verify, every slot in one launch "
+             "(plain version paged_attention_verify_ref), the group body split over pages",
+             "tests/test_torch_per_phase_plan.py::test_verify_split_merge_matches_jax"),
+        ),
     ),
     KernelSpec(
         name="ragged_attention",

@@ -12,9 +12,10 @@ Serves llama3:8b (bf16, random weights from seed 0) and measures:
   prefill, one 1024-token mixed step (chunk after 1024 cached tokens, 8
   decode rows), a decode step of 8 slots at 1024 cached tokens through
   ragged_attention and through paged_decode (a second model over the
-  same weights, built with ragged attention off), and a verify step
+  same weights, built with ragged attention off), a verify step
   of K+1 = 5 candidates for 8 slots at 1024 cached tokens in each
-  attention mode;
+  attention mode, and the per-phase model's 1024-token prefill_chunk
+  after 1024 cached tokens (prefix_chunk's tensor-core route);
 - decode with speculative decoding on (the engine's default), on a fresh
   engine serving the same 8 streams: the same steady and profiled
   windows, per verify step, with the acceptance rate;
@@ -57,8 +58,11 @@ FAMILIES = (  # (family, substrings of CUDA kernel names), first match wins
     # from the groups (and the CUDA-core chunk route)
     ("ragged_attention.chunk", ("ragged_chunk_kernel",)),
     ("ragged_attention", ("ragged_attention_kernel",)),
+    # csrc/per_phase_attention.cu: the per-phase entry points of the same
+    # bodies (prefix_chunk_kernel: the verify over slots and the CUDA-core
+    # chunk; prefix_chunk_wgmma_kernel: the tensor-core chunk)
     ("paged_decode", ("paged_decode_kernel",)),
-    ("prefix_chunk", ("prefix_chunk_kernel",)),
+    ("prefix_chunk", ("prefix_chunk_kernel", "prefix_chunk_wgmma_kernel")),
     # csrc/flash_prefill.cu, launched by both prefill wrappers
     ("flash_prefill", ("prefill_wgmma_kernel", "prefill_split_kernel")),
     ("kv_writes", ("write_decode_kernel", "write_chunk_kernel")),
@@ -224,6 +228,8 @@ def profile_steps(engine: InferenceEngine) -> list[dict]:
             st.cand, cache, st.all_active))),
         ("verify_step_per_phase_8x5_after_1024", st.at_1024(lambda: per_phase.verify_step(
             st.cand, cache, st.all_active))),
+        ("prefill_chunk_per_phase_1024_after_1024", st.at_1024(lambda: per_phase.prefill_chunk(
+            st.tokens, 1024, st.c, cache, 0, st.row))),
     ))
 
 

@@ -170,21 +170,28 @@ def test_chunk_route_by_input_type():
     assert [TK.chunk_box_rows(ps) for ps in (8, 16, 64, 128, 256, 48)] == [8, 16, 64, 128, 128, 16]
 
 
-def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, softcap):
+def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, softcap,
+                    fresh=True):
     """The chunk kernel's walk in torch, for every kv head: per query tile of
     the plan, an online softmax over its prefix tiles (each the plan's TMA
     boxes, read from the pool viewed as [L * P, ps, KVH, D] at the boxes'
-    page coordinates, zeros for a box past the prefix) and its fresh tiles
-    (zeros past C), the per-element mask only on the tiles the plan masks.
+    page coordinates, zeros for a box past the pool keys) and its fresh
+    tiles (zeros past C), the per-element mask only on the tiles the plan
+    masks, against the limits the block derives from start and total (pool
+    keys below ctx, fresh keys below min(total, capacity); with `fresh`
+    False the chunk is in the pool and ctx = min(total, capacity)).
     Float32; → [1, C, H, D]."""
     n_layers, num_pages, _, kvh, d = kp.shape
     c, h = q.shape[1], q.shape[2]
     g = h // kvh
     flat_k, flat_v = kp.reshape(-1, ps, kvh, d), vp.reshape(-1, ps, kvh, d)
     box = TK.chunk_box_rows(ps)
-    ctx = min(start, row.shape[0] * ps)
+    cap = row.shape[0] * ps
+    ctx = min(max(start if fresh else total, 0), cap)
+    f_limit = min(total, cap)
     plan = TK.ragged_chunk_tile_plan(c, start, total, row.shape[0], ps, g, window,
-                                     chunk_row=row.numpy(), layer=layer, num_pages=num_pages)
+                                     chunk_row=row.numpy(), layer=layer, num_pages=num_pages,
+                                     fresh=fresh)
     out = torch.zeros(1, c, h, d)
     for kh in range(kvh):
         for tile in plan:
@@ -214,7 +221,7 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
                 vs = torch.zeros(BK, d)
                 n = min(BK, c - j0)
                 ks[:n], vs[:n] = kc[j0:j0 + n, kh].float(), vc[j0:j0 + n, kh].float()
-                tiles.append((start + j0, masked, total, ks, vs))
+                tiles.append((start + j0, masked, f_limit, ks, vs))
             for kt0, masked, limit, ks, vs in tiles:
                 x = (qr @ ks.T) * d ** -0.5
                 if softcap > 0:
