@@ -89,15 +89,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              and held to the row-relative error, per-row scales spanning
              two decades: decode groups S = 8 at 1024 cached, a Td = 5
              group, a 1024-row chunk after 1024, a mixed launch, window
-             4096 with softcap 30, D = 64, groups at 24000-32763 cached on
-             a 512-entry table; timed in turns with the fp leg at its
-             shapes; a 2-layer float32 llama3:8b cut with an int8 pool
-             through the kernels against the same steps through the plain
-             versions; then llama3:8b bf16 with kv_int8=True serving the
-             serve phase's eight requests and a warm prefix-cache repeat:
-             every ragged launch through the int8 leg, flash_prefill, and
-             no write kernel (int8 writes are indexed assignments) nor
-             per-phase kernel; pool bytes per page 0.502x bf16's.
+             4096 with softcap 30, D = 64, a chunk past its table's
+             capacity, a chunk after 16,384 and groups at 24000-32763
+             cached on a 512-entry table; each call held to its leg
+             counters (a bf16 chunk on the tensor cores, `.chunk`, a
+             float32 one on the CUDA cores, every launch `.int8`); a
+             chunk whose staged table row passes the card's shared
+             memory refused with a clear error before any launch; timed
+             in turns with the fp leg at its shapes (decode, the chunk
+             after 1,024 and 16,384 beside SDPA on dequantized K/V, the
+             verify width); a 2-layer float32 llama3:8b cut with an int8
+             pool through the kernels against the same steps through the
+             plain versions; then llama3:8b bf16 with kv_int8=True serving
+             the serve phase's eight requests and a warm prefix-cache
+             repeat: every ragged launch through the int8 leg, one chunk
+             launch per layer of each chunked admission and mixed step and
+             none on the CUDA cores, flash_prefill, and no write kernel
+             (int8 writes are indexed assignments) nor per-phase kernel;
+             pool bytes per page 0.502x bf16's.
 9. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
              the engine's defaults and its runner thread live serving
              eight concurrent requests inside an InferenceEngine.profile()
@@ -147,10 +156,11 @@ kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes), the card's name and power limit, and the result.
 
 Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,profiler,long,tree]
-       python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps]
+       python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
-of tools/profile_step.py, of another checkout of the port and of this one
-in turns on one card; no result line.)
+of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
+int8-pool engine's profile, of another checkout of the port and of this
+one in turns on one card; no result line.)
 Needs one CUDA device; exits non-zero without one. Writes the compiler's
 register report to chiprun_out/ptxas.txt.
 """
@@ -275,6 +285,35 @@ class Inputs:
 # ---------------------------------------------------------------------------
 
 
+def _chunk_sass_counts(lib: Path) -> dict:
+    """`HGMMA` and `UTMALDG` instructions in each instantiation of
+    ragged_chunk_kernel<D, kCap, kDev, kFresh, kQuant> (cuobjdump -sass of
+    the built library), each of which must hold wgmma; {} without
+    cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    pat = re.compile(r"ragged_chunk_kernelILi(\d+)ELb([01])ELb([01])ELb([01])ELb([01])E")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = pat.search(line)
+            name = None if m is None else "D{}_cap{}_dev{}_fresh{}_int8{}".format(*m.groups())
+            if name:
+                counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += op in line
+    check(counts and all(c["HGMMA"] > 0 for c in counts.values()),
+          f"build: a ragged_chunk_kernel instantiation without wgmma: {counts}")
+    return counts
+
+
 def phase_build() -> dict:
     from gridllm_torch.ops import _build
 
@@ -285,7 +324,8 @@ def phase_build() -> dict:
     (out / "ptxas.txt").write_text(
         "\n".join(f"== {src}\n{r['ptxas']}" for src, r in report.items()))
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "sources": {src: round(r["seconds"], 2) for src, r in report.items()}}
+            "sources": {src: round(r["seconds"], 2) for src, r in report.items()},
+            "ragged_chunk_sass": _chunk_sass_counts(_build._lib_path("ragged_attention.cu"))}
 
 
 def _ragged_cases(inp: Inputs, dtype):
@@ -1231,9 +1271,10 @@ def _prompt(rng, n_bytes: int) -> str:
 class Served:
     """One engine behind its runner thread, with every logits tensor its
     model entry points compute checked on the device (one flag, no sync per
-    step) and its shape recorded. While `admissions` is a list, each
-    admission's last-prompt-token logits are appended to it as (entry
-    point, float32 copy, the prompt's tokens for a bucket prefill)."""
+    step) and its shape recorded, and its calls counted (`calls`). While
+    `admissions` is a list, each admission's last-prompt-token logits are
+    appended to it as (entry point, float32 copy, the prompt's tokens for
+    a bucket prefill)."""
 
     def __init__(self, torch, engine):
         self.torch, self.engine = torch, engine
@@ -1241,6 +1282,7 @@ class Served:
         self.finite = torch.ones((), dtype=torch.bool, device=engine.device)
         self.logit_shapes: set[tuple[int, ...]] = set()
         self.admissions: list | None = None
+        self.calls: dict[str, int] = {}
         for name, n_logits in (("prefill", 1), ("prefill_chunk", 1), ("decode_step", 1),
                                ("verify_step", 1), ("mixed_step", 2)):
             self._watch(name, n_logits)
@@ -1250,6 +1292,7 @@ class Served:
 
         def watched(*args, **kwargs):
             out = fn(*args, **kwargs)
+            self.calls[name] = self.calls.get(name, 0) + 1
             for logits in out[:n_logits]:
                 self.logit_shapes.add(tuple(logits.shape))
                 self.finite.logical_and_(self.torch.isfinite(logits).all())
@@ -1708,8 +1751,12 @@ def _int8_cases(torch, inp: Inputs, dtype):
     layer 1 of 2-layer pools, q scaled by LONG_Q_SCALE: decode groups
     S = 8 at 1024 cached, a Td = 5 group over page straddles and an empty
     slot, a 1024-row chunk after 1024, one mixed launch (chunk + decode
-    groups), window 4096 with softcap 30, D = 64, and groups at 24000-32763
-    cached tokens on a 512-entry table."""
+    groups), window 4096 with softcap 30, D = 64, a chunk whose 20-page
+    table ends inside it (its rows past the capacity cut), then on a
+    512-entry table a 1024-row chunk after 16,384 and groups at
+    24000-32763 cached tokens. In bf16 every chunk takes the tensor-core
+    route (the int8 tiles converted in shared memory), in float32 the
+    CUDA-core one."""
     pools = _quant_pools(torch, inp, 2, S * MAXP)
 
     def q_of(*shape, d=D):
@@ -1743,9 +1790,14 @@ def _int8_cases(torch, inp: Inputs, dtype):
     d64 = _quant_pools(torch, inp, 2, S * MAXP, d=64)
     cases.append(("d64_mixed", d64, {**chunk(rows[2], 256, 512, 256, d=64),
                                      **group(straddle, 5, d=64)}, 256))
+    # 20 pages hold 1280 positions: fresh rows from 256 into the chunk are cut
+    cases.append(("chunk_past_capacity", pools,
+                  chunk(rows[4][:20].contiguous(), 512, 1024, 500), 500))
     long_pools = _quant_pools(torch, inp, 2, S * LONG_MAXP)
     table = torch.randperm(S * LONG_MAXP, generator=inp.gen, device="cuda").to(torch.int32)
     table = table.reshape(S, LONG_MAXP).contiguous()
+    cases.append(("chunk_1024_after_16384", long_pools, chunk(table[0], 1024, 16384, 1000),
+                  1000))
     lengths = [24000, 24001, 26000, 28000, 30000, 31000, 32000, LONG_T - 5]
     for td in (1, 5):
         cases.append((f"groups_td{td}_24k_to_32k", long_pools, group(lengths, td, table=table),
@@ -1755,11 +1807,15 @@ def _int8_cases(torch, inp: Inputs, dtype):
 
 def _int8_kernel_cases(torch, inp: Inputs) -> tuple[list, float]:
     """The int8 leg against its plain version in bf16 and float32 compute,
-    each case held to the row-relative error at the kernel's tolerance."""
+    each case held to the row-relative error at the kernel's tolerance and
+    to its route's leg counters: a chunk launches `.chunk` in bf16 (the
+    tensor cores) and `.chunk_cores` in float32, never the other, and
+    every launch counts `.int8`."""
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.attention import ragged_paged_attention_ref
     from gridllm_torch.ops.kernels import F32_TOL, by_name
 
+    legs = ("chunk", "chunk_cores", "group", "int8")
     cases, worst_abs = [], 0.0
     for dtype, tol in ((torch.bfloat16, by_name("ragged_attention").rtol),
                        (torch.float32, F32_TOL)):
@@ -1767,9 +1823,17 @@ def _int8_kernel_cases(torch, inp: Inputs) -> tuple[list, float]:
         for name, (kp, vp), kw, valid in _int8_cases(torch, inp, dtype):
             kw = dict(kw)
             cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
+            legs0 = {leg: ck.LEG_LAUNCHES[f"ragged_attention.{leg}"] for leg in legs}
             oc, og = ck.ragged_attention(kp.data, vp.data, PS, layer=1, softcap=cap,
                                          window=window, k_scale=kp.scale, v_scale=vp.scale,
                                          **kw)
+            ran = {leg: ck.LEG_LAUNCHES[f"ragged_attention.{leg}"] - legs0[leg] for leg in legs}
+            if oc is not None:
+                want = (1, 0) if dtype == torch.bfloat16 else (0, 1)
+                check((ran["chunk"], ran["chunk_cores"]) == want,
+                      f"ragged_attention int8 {dname} {name}: chunk routes {ran}")
+            check(ran["int8"] == ran["chunk"] + (ran["chunk_cores"] or ran["group"]),
+                  f"ragged_attention int8 {dname} {name}: a launch missed the int8 leg {ran}")
             wc, wg = ragged_paged_attention_ref(kp, vp, PS, layer=1, logit_softcap=cap,
                                                 window=window, **kw)
             torch.cuda.synchronize()
@@ -1780,7 +1844,7 @@ def _int8_kernel_cases(torch, inp: Inputs) -> tuple[list, float]:
             if og is not None:
                 rel, err = max(rel, _rel_err(og, wg)), max(err, _max_err(og, wg))
             cases.append({"kernel": "ragged_attention.int8", "dtype": dname, "case": name,
-                          "max_rel_err": rel, "max_abs_err": err})
+                          "launches": ran, "max_rel_err": rel, "max_abs_err": err})
             check(rel <= tol, f"ragged_attention int8 {dname} {name}: relative err {rel} > {tol}")
             if dtype == torch.bfloat16:
                 worst_abs = max(worst_abs, err)
@@ -1789,26 +1853,64 @@ def _int8_kernel_cases(torch, inp: Inputs) -> tuple[list, float]:
     return cases, worst_abs
 
 
+def _int8_smem_refusal(torch, inp: Inputs) -> str:
+    """A chunk on an int8 pool whose staged table row would pass the
+    card's shared memory (8,500 pages of prefix: 34,000 bytes beside the
+    kernel's 199,808) is refused with a clear error and launches nothing."""
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    bf16, c, start = torch.bfloat16, 128, 8500 * PS
+    kp, vp = _quant_pools(torch, inp, 1, 64)
+    kw = dict(q_chunk=inp.randn(1, c, H, D, dtype=bf16),
+              chunk_row=torch.zeros(8600, dtype=torch.int32, device="cuda"),
+              chunk_start=start, chunk_total=start + c, k_chunk=inp.randn(c, KVH, D, dtype=bf16),
+              v_chunk=inp.randn(c, KVH, D, dtype=bf16))
+    before, msg = ck.LAUNCHES["ragged_attention"], ""
+    try:
+        ck.ragged_attention(kp.data, vp.data, PS, k_scale=kp.scale, v_scale=vp.scale, layer=0,
+                            **kw)
+    except RuntimeError as e:
+        msg = str(e)
+    check("shared memory" in msg and ck.LAUNCHES["ragged_attention"] == before,
+          f"int8: a chunk past the shared memory was not refused: {msg!r}")
+    return msg
+
+
 def _int8_timing(torch, inp: Inputs) -> dict:
     """The int8 leg at the fp leg's timing shapes (bf16 compute), each
-    timed in turns with the fp leg on a bf16 pool (fp, int8, int8, fp)."""
+    timed in turns with the fp leg on a bf16 pool (fp, int8, int8, fp):
+    decode groups, the chunk region C = 1,024 after 1,024 and after 16,384
+    cached tokens (the tensor-core route, whose first call runs under
+    torch.cuda.set_sync_debug_mode("error")), the verify width. Beside the
+    chunks, as a yardstick only, SDPA with a causal mask on K/V gathered
+    and dequantized beforehand (no paging, no dequantization in the call)."""
+    import torch.nn.functional as F
+
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.attention import ragged_paged_attention_ref
+    from gridllm_torch.ops.kvcache import gather_kv
 
     bf16 = torch.bfloat16
     (k8, v8), (kf, vf) = _quant_pools(torch, inp, 1, S * MAXP), inp.pools(1, bf16)
     lengths = [1024] * S
     table = inp.page_table(lengths, extra=5)
     glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    start, c = 1024, 1024
+    c = 1024
+    # a 400-entry table row of the pool's pages: 25,600 positions
+    long_row = torch.randperm(S * MAXP, generator=inp.gen, device="cuda")[:400].to(torch.int32)
+
+    def chunk(start, row):
+        return dict(q_chunk=inp.randn(1, c, H, D, dtype=bf16), chunk_row=row,
+                    chunk_start=start, chunk_total=start + c,
+                    k_chunk=inp.randn(c, KVH, D, dtype=bf16),
+                    v_chunk=inp.randn(c, KVH, D, dtype=bf16))
+
     shapes = {
         "decode": dict(q_group=inp.randn(S, 1, H, D, dtype=bf16), page_table=table,
                        group_lengths=glens, k_group=inp.randn(S, 1, KVH, D, dtype=bf16),
                        v_group=inp.randn(S, 1, KVH, D, dtype=bf16)),
-        "chunk": dict(q_chunk=inp.randn(1, c, H, D, dtype=bf16), chunk_row=table[0],
-                      chunk_start=start, chunk_total=start + c,
-                      k_chunk=inp.randn(c, KVH, D, dtype=bf16),
-                      v_chunk=inp.randn(c, KVH, D, dtype=bf16)),
+        "chunk": chunk(1024, table[0]),
+        "chunk_16384": chunk(16384, long_row),
         "verify_td5": dict(q_group=inp.randn(1, 5, H, D, dtype=bf16), page_table=table[:1],
                            group_lengths=glens[:1], k_group=inp.randn(1, 5, KVH, D, dtype=bf16),
                            v_group=inp.randn(1, 5, KVH, D, dtype=bf16)),
@@ -1816,14 +1918,33 @@ def _int8_timing(torch, inp: Inputs) -> dict:
     # bytes: int8 K and V of the cached rows, 4 bytes of scale per row each,
     # fresh K/V and q/out in bf16; operations: 2 products of 2 flops
     row8, row16 = KVH * D * 2, KVH * D * 2 * 2
+
+    def chunk_work(start):
+        return (start * (row8 + 8) + c * row16 + 2 * c * H * D * 2,
+                4 * H * D * c * (start + (c + 1) / 2))
+
     work = {
         "decode": (sum(lengths) * (row8 + 8) + S * row16 + 2 * S * H * D * 2,
                    4 * H * D * (sum(lengths) + S)),
-        "chunk": (start * (row8 + 8) + c * row16 + 2 * c * H * D * 2,
-                  4 * H * D * c * (start + (c + 1) / 2)),
-        "verify_td5": (start * (row8 + 8) + 5 * row16 + 2 * 5 * H * D * 2,
-                       4 * H * D * 5 * (start + 3)),
+        "chunk": chunk_work(1024),
+        "chunk_16384": chunk_work(16384),
+        "verify_td5": (1024 * (row8 + 8) + 5 * row16 + 2 * 5 * H * D * 2,
+                       4 * H * D * 5 * (1024 + 3)),
     }
+
+    def sdpa_chunk(kw):
+        """SDPA over the int8 prefix gathered and dequantized to bf16 plus
+        the fresh rows, with the chunk's causal mask."""
+        start = kw["chunk_start"]
+        k_all, v_all = gather_kv(k8.layer(0), v8.layer(0), kw["chunk_row"], PS)
+        k_all = torch.cat([k_all[:start].to(bf16), kw["k_chunk"]])[None].transpose(1, 2)
+        v_all = torch.cat([v_all[:start].to(bf16), kw["v_chunk"]])[None].transpose(1, 2)
+        mask = (torch.arange(start + c, device="cuda")[None, :]
+                <= start + torch.arange(c, device="cuda")[:, None])
+        qt = kw["q_chunk"].transpose(1, 2)
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, k_all, v_all, attn_mask=mask, enable_gqa=True))
+
     out = {}
     for name, kw in shapes.items():
         def int8():
@@ -1833,17 +1954,29 @@ def _int8_timing(torch, inp: Inputs) -> dict:
         def fp():
             ck.ragged_attention(kf, vf, PS, layer=0, **kw)
 
+        if name.startswith("chunk"):
+            _no_host_sync(torch, int8)
         runs = {"fp": [time_ms(torch, fp)], "int8": []}
         runs["int8"] += [time_ms(torch, int8), time_ms(torch, int8)]
         runs["fp"].append(time_ms(torch, fp))
+        dev_runs = {"fp": [device_ms(torch, fp)], "int8": []}
+        dev_runs["int8"] += [device_ms(torch, int8), device_ms(torch, int8)]
+        dev_runs["fp"].append(device_ms(torch, fp))
         b, op = bound_ms(*work[name])
         ms, fp_ms = statistics.mean(runs["int8"]), statistics.mean(runs["fp"])
         out[name] = {"ms": ms, "fp_ms": fp_ms, "int8_over_fp": ms / fp_ms, "runs_ms": runs,
-                     "device_ms": device_ms(torch, int8), "fp_device_ms": device_ms(torch, fp),
-                     "bound_ms": b, "bound_by": op, "library_ms": None,
-                     "plain_ms": time_ms(torch, lambda: ragged_paged_attention_ref(
-                         k8, v8, PS, layer=0, **kw), iters=3)}
+                     "device_ms": statistics.mean(dev_runs["int8"]),
+                     "fp_device_ms": statistics.mean(dev_runs["fp"]),
+                     "device_runs_ms": dev_runs,
+                     "bound_ms": b, "bound_by": op, "library_ms": None}
+        if name != "chunk_16384":
+            out[name]["plain_ms"] = time_ms(torch, lambda: ragged_paged_attention_ref(
+                k8, v8, PS, layer=0, **kw), iters=3)
+        if name.startswith("chunk"):
+            out[name]["no_host_sync"] = True
+            out[name]["sdpa_gathered_ms"] = sdpa_chunk(kw)
     out["decode"]["shape"] = f"decode group S={S} Td=1 context=1024, int8 pool, bf16 q"
+    out["chunk"]["shape"] = "chunk region C=1024 after 1024 cached, int8 pool, bf16 q"
     del k8, v8, kf, vf
     torch.cuda.empty_cache()
     return out
@@ -1946,11 +2079,20 @@ def _int8_serve(torch) -> dict:
     _, short, _, batch_a = _serve_prompts()
     engine.start()
     ck.reset_launch_counts()
+    srv.calls.clear()
     res_a, wall = srv.run(batch_a)
     (warm,), wall_warm = srv.run([(short[2], 64)])
     counts = ck.launch_counts()
     check(warm.cached_tokens > 0, "int8 serve: the repeat missed the prefix cache")
     layers, steps = engine.cfg.num_layers, engine.spec_stats["steps"]
+    # every chunk region on the tensor cores: one chunk launch per layer of
+    # each chunked admission and mixed step, none on the CUDA cores
+    chunk_steps = srv.calls.get("prefill_chunk", 0) + srv.calls.get("mixed_step", 0)
+    check(counts["ragged_attention.chunk_cores"] == 0,
+          f"int8 serve: a chunk ran on the CUDA cores: {counts}")
+    check(counts["ragged_attention.chunk"] == layers * chunk_steps > 0,
+          f"int8 serve: {counts['ragged_attention.chunk']} chunk launches, {chunk_steps} "
+          f"chunk and mixed steps of {layers} layers")
     check(counts["ragged_attention.int8"] > 0 and counts["flash_prefill"] > 0,
           f"int8 serve: a kernel of its path never launched: {counts}")
     check(counts["ragged_attention.int8"] == counts["ragged_attention"],
@@ -1978,7 +2120,7 @@ def _int8_serve(torch) -> dict:
         "warm_ttft_ms": warm.prompt_eval_duration_ns / 1e6,
         "batched_warm_repeat_tokens_matching_cold": f"{matching}/{len(warm.token_ids)}",
         "pool_bytes_per_page": alloc["bytesPerPage"], "bf16_pool_bytes_per_page": bf16_bpp,
-        "pool_bytes_over_bf16": ratio, "launches": counts,
+        "pool_bytes_over_bf16": ratio, "launches": counts, "chunk_steps": chunk_steps,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     _free(torch, srv)
@@ -1994,10 +2136,11 @@ def phase_int8(torch) -> dict:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "int8_kernel_cases.json").write_text(json.dumps(cases, indent=1))
+    refusal = _int8_smem_refusal(torch, inp)
     timing = _int8_timing(torch, inp)
     model = _int8_model(torch)
     serve = _int8_serve(torch)
-    return {"phase": "int8", "card": card_line(), "cases": len(cases),
+    return {"phase": "int8", "card": card_line(), "cases": len(cases), "smem_refusal": refusal,
             "max_rel_err": max(c["max_rel_err"] for c in cases),
             "max_abs_err_bf16": worst_abs, "timing": timing, "model": model, "serve": serve,
             "launches": serve["launches"]["ragged_attention.int8"]}
@@ -2860,14 +3003,17 @@ def phase_tree(torch) -> dict:
             "launches": serve["tree_launches"]}
 
 
-TURN_PARTS = ("kernels", "steps")
+TURN_PARTS = ("kernels", "steps", "int8")
 
 
 def _turn_child(torch, parts: str) -> dict:
     """One turn of --turns, run in the tree under test (its package first
     on sys.path, its own build/): `kernels`, this file's
     _per_phase_timing through that tree's wrappers; `steps`, that tree's
-    tools.profile_step.profile_steps on a llama3:8b engine (spec off)."""
+    tools.profile_step.profile_steps on a llama3:8b engine (spec off);
+    `int8`, this file's _int8_timing through that tree's wrappers and that
+    tree's tools.profile_step.profile_int8 on a llama3:8b kv_int8 engine
+    (spec off)."""
     from gridllm_torch.ops import _build
 
     report = _build.build_all()
@@ -2876,16 +3022,19 @@ def _turn_child(torch, parts: str) -> dict:
         check(part in TURN_PARTS, f"turns: unknown part {part!r}")
         if part == "kernels":
             res["kernels"] = _per_phase_timing(torch, Inputs(torch, SEED + 1))
-        else:
-            from gridllm_torch.engine import EngineConfig, InferenceEngine
-            from gridllm_torch.tools.profile_step import profile_steps
+            continue
+        from gridllm_torch.engine import EngineConfig, InferenceEngine
+        from gridllm_torch.tools import profile_step
 
-            engine = InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False),
-                                     device="cuda")
-            res["steps"] = profile_steps(engine)
-            del engine
-            gc.collect()
-            torch.cuda.empty_cache()
+        int8 = part == "int8"
+        if int8:
+            res["int8_kernels"] = _int8_timing(torch, Inputs(torch, SEED + 7))
+        engine = InferenceEngine(EngineConfig(model="llama3:8b", spec_decode=False,
+                                              kv_int8=int8), device="cuda")
+        res[part] = (profile_step.profile_int8 if int8 else profile_step.profile_steps)(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 

@@ -12,8 +12,8 @@
 // bounds:
 //
 // `ragged_body` (CUDA cores, float32 math through attention_common.cuh's
-// AttnBlock): the GROUP region, and the CHUNK region for float32 q, an
-// int8 pool or a page size that does not hold whole 8-row boxes.
+// AttnBlock): the GROUP region, and the CHUNK region for float32 q or a
+// page size that does not hold whole 8-row boxes.
 // - Group region: slot s's Td queries attend its pages [0, ctx), ctx =
 //   min(lengths[s], table capacity), then its Td fresh K/V causally. Two
 //   policies, by whether fresh K/V are given: with them the queries sit at
@@ -42,17 +42,17 @@
 //   the pool) the pool rows [0, min(total, capacity)) causally. Keys at
 //   positions >= min(total, capacity) are masked.
 //
-// `chunk_body` (the chunk region on the tensor cores: bf16 q, bf16 pool,
-// D 64 or 128) is flash_prefill's Hopper kernel (hopper_common.cuh)
-// walking two key segments: one producer warpgroup whose single thread
-// issues TMA loads, two consumer warpgroups of 64 query rows each, S =
-// Q K^T and O += P V on wgmma, float32 online softmax. The query tile
-// stacks the G query heads of one kv head over bq = 128 / G chunk tokens
-// (spare rows zeroed when G does not divide 128). It walks the slot's
-// cached prefix in 128-key tiles aligned to absolute positions, each tile
-// 128 / box_rows TMA boxes of box_rows = gcd(ps, 128) pool rows from a map
-// over the pool viewed as {D, KVH, ps, L * P}, at page coordinate layer *
-// P + chunk_row[p] (the block stages its table row in shared memory,
+// `chunk_body` (the chunk region on the tensor cores: bf16 q on a bf16 or
+// an int8 pool, D 64 or 128) is flash_prefill's Hopper kernel
+// (hopper_common.cuh) walking two key segments: one producer warpgroup
+// whose single thread issues TMA loads, two consumer warpgroups of 64 query
+// rows each, S = Q K^T and O += P V on wgmma, float32 online softmax. The
+// query tile stacks the G query heads of one kv head over bq = 128 / G
+// chunk tokens (spare rows zeroed when G does not divide 128). It walks the
+// slot's cached prefix in 128-key tiles aligned to absolute positions, each
+// tile 128 / box_rows TMA boxes of box_rows = gcd(ps, 128) pool rows from a
+// map over the pool viewed as {D, KVH, ps, L * P}, at page coordinate
+// layer * P + chunk_row[p] (the block stages its table row in shared memory,
 // clamped into the pool as PagedRows clamps it; a box past the prefix is
 // loaded from outside the map, which TMA fills with zeros); then the
 // chunk's own K/V from a second map, in 128-key tiles aligned to the
@@ -61,7 +61,12 @@
 // the total or capacity edge, the window edge); tiles wholly outside the
 // window are never loaded; a query tile wholly past total writes zeros
 // (padding rows). Its plan is `ragged_chunk_tile_plan` in
-// ops/cuda_kernels.py, tested on the CPU.
+// ops/cuda_kernels.py, tested on the CPU. On an int8 pool the same boxes
+// land as int8 rows in a staging stage (QuantSmem); the producer
+// warpgroup's 128 threads convert them exactly to bf16 in the stage's
+// swizzled layout and stage the rows' scales, and the consumers apply the
+// scales in float32 (to S after Q K^T, to P before P V): the wgmma path
+// itself is unchanged.
 //
 // ragged_attention's chunk takes start and total by value; the per-phase
 // prefix_chunk (the counterpart of the TPU kernel's scalar prefetch) reads
@@ -388,7 +393,7 @@ cudaError_t by_dim(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// the chunk region on wgmma + TMA (bf16)
+// the chunk region on wgmma + TMA (bf16 q; a bf16 or an int8 pool)
 // ---------------------------------------------------------------------------
 
 namespace chunk {
@@ -404,14 +409,37 @@ struct ChunkArgs {
   int f_limit;               // by-value bounds: min(total, n_table * ps); else unused
   float scale, softcap;
   int window;
+  const float* k_scale;      // an int8 pool: the float32 row scales [L, P, ps]; else null
+  const float* v_scale;
 };
 
-// Dynamic shared memory: the Smem<D> layout, then the table row's pages
-// that hold the pool keys (clamped into the pool); all n_table of them when
-// the bounds live on the device.
+// An int8 pool's room after the barriers (kQuant): kIStages staging
+// stages, each a prefix tile's int8 K and V rows as TMA lands them (kBK
+// rows of D bytes each), then the float32 scales of each bf16 stage's rows
+// (K's kBK, then V's). At D = 128 one staging stage is what fits beside the
+// bf16 ring: 198,784 bytes before the table row (a 512-page table takes
+// 2,048 more of the card's 232,448).
 template <int D>
-__host__ __device__ constexpr int table_offset() { return Smem<D>::kBarOff + 128; }
-template <int D, bool kFresh>
+struct QuantSmem {
+  static constexpr int kIStages = D == 128 ? 1 : 2;
+  static constexpr int kTile = kBK * D;  // bytes of one int8 K or V tile
+  static constexpr int kStageOff = Smem<D>::kBarOff + 128;
+  static constexpr int kScaleOff = kStageOff + kIStages * 2 * kTile;
+  static constexpr int kEnd = kScaleOff + Smem<D>::kStages * 2 * kBK * 4;
+  // the barriers fit their 128 bytes: q, full and empty per stage, one per
+  // staging stage
+  static_assert(8 * (1 + 2 * Smem<D>::kStages + kIStages) <= 128, "chunk barriers");
+};
+
+// Dynamic shared memory: the Smem<D> layout (and an int8 pool's
+// QuantSmem<D>), then the table row's pages that hold the pool keys
+// (clamped into the pool); all n_table of them when the bounds live on the
+// device.
+template <int D, bool kQuant>
+__host__ __device__ constexpr int table_offset() {
+  return kQuant ? QuantSmem<D>::kEnd : Smem<D>::kBarOff + 128;
+}
+template <int D, bool kFresh, bool kQuant>
 int smem_bytes(const ChunkArgs& a) {
   int pages = a.n_table;
   if (!a.bounds.on_device()) {
@@ -419,7 +447,73 @@ int smem_bytes(const ChunkArgs& a) {
     const int ctx = std::min(std::max(kFresh ? a.bounds.start : total, 0), a.n_table * a.ps);
     pages = (ctx + a.ps - 1) / a.ps;
   }
-  return Smem<D>::kBytes + 128 + 4 * pages;
+  return (kQuant ? QuantSmem<D>::kEnd + 1024 : Smem<D>::kBytes + 128) + 4 * pages;
+}
+
+// Four int8 values (one 32-bit word) as four bf16, exactly, two to an
+// instruction: byte b of the word goes into the low byte of a bf16 0x43bb;
+// v = 0x4300 | (b & 0x7F) is 128 + (b & 0x7F) and c = 0x4300 | (b & 0x80)
+// is 128 or 256, so v - c = (b & 0x7F) - (b & 0x80) = x, an integer in
+// [-128, 127] that bf16 holds exactly.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t v, uint32_t c) {
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+              *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
+  const uint32_t lo = __byte_perm(w, 0x43434343u, 0x5140u);  // bytes 0, 1: 0x43b0, 0x43b1
+  const uint32_t hi = __byte_perm(w, 0x43434343u, 0x7362u);  // bytes 2, 3
+  return make_uint2(bf16x2_sub(lo & 0xFF7FFF7Fu, lo & 0xFF80FF80u),
+                    bf16x2_sub(hi & 0xFF7FFF7Fu, hi & 0xFF80FF80u));
+}
+
+// One int8 tile (kBK rows of D bytes at src) as bf16 in a stage's
+// 128-byte-swizzled 64-column blocks at dst, the layout TMA writes for a
+// bf16 pool, by the producer warpgroup's thread t: eight values a row.
+// Thread t keeps one 8-value group g8 of rows r0, r0 + 128 / (D / 8), ...,
+// so its swizzled chunk (g8 % 8) ^ (r0 % 8) is the same in every row and
+// its addresses step by constants; a quarter warp writes the eight 16-byte
+// chunks of one row, a half warp reads 128 contiguous bytes. The loads of
+// kBatch rows are issued before any of their stores (the compiler may not
+// move a load of src above a store to dst, which it cannot tell apart).
+template <int D>
+__device__ __forceinline__ void convert_tile(const unsigned char* src, unsigned char* dst,
+                                             int t) {
+  constexpr int kGroups = D / 8;            // 8-value groups per row
+  constexpr int kRowStep = 128 / kGroups;   // rows between a thread's rows (8 or 16)
+  constexpr int kRows = kBK / kRowStep, kBatch = 8;
+  const int g8 = t % kGroups, r0 = t / kGroups;
+  const unsigned char* s = src + r0 * D + g8 * 8;
+  unsigned char* d =
+      dst + (g8 / 8) * Smem<D>::kKVBlock + r0 * 128 + (((g8 % 8) ^ (r0 % 8)) << 4);
+#pragma unroll 1
+  for (int k0 = 0; k0 < kRows; k0 += kBatch) {
+    uint2 w[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      w[j] = *reinterpret_cast<const uint2*>(s + (k0 + j) * kRowStep * D);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const uint2 lo = int8x4_to_bf16x4(w[j].x), hi = int8x4_to_bf16x4(w[j].y);
+      *reinterpret_cast<uint4*>(d + (k0 + j) * kRowStep * 128) =
+          make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
+}
+
+// S's column of key k times K row k's scale (kBK floats in shared memory),
+// on the m64n128 accumulator layout of softmax_tile.
+__device__ __forceinline__ void scale_keys(float (&s)[64], const float* k_scale, int quad) {
+  const float2* k2 = reinterpret_cast<const float2*>(k_scale);
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const float2 k = k2[4 * n + quad];
+    s[4 * n] *= k.x;
+    s[4 * n + 1] *= k.y;
+    s[4 * n + 2] *= k.x;
+    s[4 * n + 3] *= k.y;
+  }
 }
 
 // kDev: start and total read from device memory (ChunkBounds::read; the
@@ -427,21 +521,34 @@ int smem_bytes(const ChunkArgs& a) {
 // by value, total resolved on the host (ragged_attention's chunk): kernel
 // parameters, read where used. kFresh: the chunk's fresh K/V follow the
 // pool keys; without them the chunk is already in the pool (prefix_chunk
-// alone). ragged_attention's instantiation is <kDev = false, kFresh = true>.
-template <int D, bool kCap, bool kDev, bool kFresh>
+// alone). ragged_attention's instantiations are <kDev = false, kFresh =
+// true>. kQuant: an int8 pool (ragged_attention's int8 leg): kp_map/vp_map
+// read int8 rows (encode_int8_4d) into a staging stage, the producer
+// warpgroup's 128 threads convert each prefix tile exactly into the bf16
+// stage and stage its rows' scales beside it, and the consumers multiply
+// S's columns by the K scales after Q K^T and P's columns by the V scales
+// before P V, in float32, as the TPU kernel dequantizes each row in
+// float32 before its dots. Fresh K/V are bf16 and unscaled.
+template <int D, bool kCap, bool kDev, bool kFresh, bool kQuant>
 __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUtensorMap& kp_map,
                                            const CUtensorMap& vp_map, const CUtensorMap& kc_map,
                                            const CUtensorMap& vc_map, const ChunkArgs& a) {
   using L = Smem<D>;
+  using Q = QuantSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-byte aligned
   unsigned char* smem = smem_raw + (base - raw);
-  int* table = reinterpret_cast<int*>(smem + table_offset<D>());
+  int* table = reinterpret_cast<int*>(smem + table_offset<D, kQuant>());
   const uint32_t q_s = base, kv_s = base + L::kQBytes;
   const uint32_t bar_q = base + L::kBarOff;
   auto full = [&](int s) { return bar_q + 8u * (1 + s); };
   auto empty = [&](int s) { return bar_q + 8u * (1 + L::kStages + s); };
+  auto ifull = [&](int s) { return bar_q + 8u * (1 + 2 * L::kStages + s); };  // staging
+  // an int8 pool's scales of bf16 stage s's rows: K's, then V's
+  auto stage_scales = [&](int s) {
+    return reinterpret_cast<float*>(smem + Q::kScaleOff) + s * 2 * kBK;
+  };
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y;
@@ -492,20 +599,106 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumers * 4);  // one arrival per consumer warp
     }
+    if constexpr (kQuant) {
+      for (int s = 0; s < Q::kIStages; ++s) mbar_init(ifull(s), 1);
+    }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // producer: one thread keeps the ring of K/V stages filled
+    // producer: thread 0 keeps the ring of K/V stages filled (on an int8
+    // pool the warpgroup's other threads convert beside it)
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
+    const int page0 = a.layer * a.num_pages;
+    auto load_q = [&] {
       mbar_expect_tx(bar_q, L::kBlocks * 128 * G * a.bq);
       for (int cb = 0; cb < L::kBlocks; ++cb)
         tma_load(q_s + cb * L::kQBlock, &q_map, bar_q, cb * 64, h * G, tok0, 0);
+    };
+    auto load_fresh = [&](int kt0, uint32_t st, uint32_t bar) {
+      for (int cb = 0; cb < L::kBlocks; ++cb) {
+        tma_load(st + cb * L::kKVBlock, &kc_map, bar, cb * 64, h, kt0 - cs, 0);
+        tma_load(st + (L::kBlocks + cb) * L::kKVBlock, &vc_map, bar, cb * 64, h, kt0 - cs, 0);
+      }
+    };
+    if constexpr (kQuant) {
+      // every producer thread converts: thread 0 issues the loads (Q, the
+      // int8 prefix tiles into staging, the fresh tiles into the bf16
+      // ring); per prefix tile the 128 threads read their row's scales
+      // (thread t row t, zero past the pool keys), wait for the tile's int8
+      // rows and a free bf16 stage, convert K and V into it, stage the
+      // scales beside it, fence the writes for wgmma and release the stage
+      // together (one arrival), and thread 0 loads the next tile into the
+      // staging stage they have read
+      const int t = threadIdx.x;
+      auto load_int8 = [&](int i, int is) {
+        const int kt0 = tile_key(i);
+        const uint32_t dst = base + Q::kStageOff + is * 2 * Q::kTile;
+        mbar_expect_tx(ifull(is), 2 * Q::kTile);
+        for (int b = 0; b < kBK / a.box_rows; ++b) {
+          // a box past the pool keys reads from outside the map: zeros
+          const int pos = kt0 + b * a.box_rows;
+          const bool in = pos < ctx;
+          const int pg = in ? page0 + table[pos / a.ps] : a.pool_pages;
+          const int row = in ? pos % a.ps : 0;
+          tma_load(dst + b * a.box_rows * D, &kp_map, ifull(is), 0, h, row, pg);
+          tma_load(dst + Q::kTile + b * a.box_rows * D, &vp_map, ifull(is), 0, h, row, pg);
+        }
+      };
+      if (t == 0) {
+        load_q();
+        for (int i = 0; i < min(Q::kIStages, n_ptiles); ++i) load_int8(i, i);
+      }
+      int stage = 0, phase = 0, is = 0, iphase = 0;
+      for (int i = 0; i < n_ptiles; ++i) {
+        const int pos = tile_key(i) + t;
+        float ks = 0.f, vs = 0.f;
+        if (pos < ctx) {
+          const int64_t r =
+              static_cast<int64_t>(page0 + table[pos / a.ps]) * a.ps + pos % a.ps;
+          ks = a.k_scale[r];
+          vs = a.v_scale[r];
+        }
+        const unsigned char* src = smem + Q::kStageOff + is * 2 * Q::kTile;
+        unsigned char* dst = smem + L::kQBytes + stage * L::kStageBytes;
+        mbar_wait(ifull(is), iphase);
+        mbar_wait(empty(stage), phase ^ 1);
+        convert_tile<D>(src, dst, t);
+        convert_tile<D>(src + Q::kTile, dst + L::kBlocks * L::kKVBlock, t);
+        stage_scales(stage)[t] = ks;
+        stage_scales(stage)[kBK + t] = vs;
+        fence_proxy_async();  // the converted tiles, before wgmma reads them
+        // every thread done: the stage is written, the staging stage read
+        asm volatile("bar.sync 3, 128;\n" ::: "memory");
+        if (t == 0) {
+          mbar_arrive(full(stage));
+          if (i + Q::kIStages < n_ptiles) load_int8(i + Q::kIStages, is);
+        }
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (++is == Q::kIStages) {
+          is = 0;
+          iphase ^= 1;
+        }
+      }
+      if (t == 0) {
+        for (int i = n_ptiles; i < n_tiles; ++i) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), L::kStageBytes);
+          load_fresh(tile_key(i), kv_s + stage * L::kStageBytes, full(stage));
+          if (++stage == L::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      load_q();
       const int boxes = kBK / a.box_rows, box_bytes = a.box_rows * 128;
-      const int page0 = a.layer * a.num_pages;
       int stage = 0, phase = 0;
       for (int i = 0; i < n_tiles; ++i) {
         const int kt0 = tile_key(i);
@@ -527,11 +720,7 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
             }
           }
         } else {
-          for (int cb = 0; cb < L::kBlocks; ++cb) {
-            tma_load(st + cb * L::kKVBlock, &kc_map, full(stage), cb * 64, h, kt0 - cs, 0);
-            tma_load(st + (L::kBlocks + cb) * L::kKVBlock, &vc_map, full(stage), cb * 64, h,
-                     kt0 - cs, 0);
-          }
+          load_fresh(kt0, st, full(stage));
         }
         if (++stage == L::kStages) {
           stage = 0;
@@ -579,12 +768,30 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
         const bool masked = kt0 + kBK - 1 > q_first || kt0 + kBK > limit ||
                             (a.window > 0 && q_last - kt0 >= a.window);
         uint32_t p[kBK / 16][4];
-        if (masked)
-          softmax_tile<true, kCap>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0, quad, qp0,
-                                   qp1, limit, a.window);
-        else
-          softmax_tile<false, kCap>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0, quad, qp0,
-                                    qp1, limit, a.window);
+        bool scaled = false;  // an int8 pool's prefix tile: S and P dequantized
+        if constexpr (kQuant) {
+          scaled = i < n_ptiles;
+          if (scaled) {
+            const float* sc = stage_scales(stage);
+            scale_keys(s, sc, quad);
+            if (masked)
+              softmax_tile<true, kCap, L::kBlocks, true>(s, p, o, m0, m1, l0, l1, a.scale,
+                                                         a.softcap, kt0, quad, qp0, qp1, limit,
+                                                         a.window, sc + kBK);
+            else
+              softmax_tile<false, kCap, L::kBlocks, true>(s, p, o, m0, m1, l0, l1, a.scale,
+                                                          a.softcap, kt0, quad, qp0, qp1, limit,
+                                                          a.window, sc + kBK);
+          }
+        }
+        if (!scaled) {
+          if (masked)
+            softmax_tile<true, kCap>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0, quad,
+                                     qp0, qp1, limit, a.window);
+          else
+            softmax_tile<false, kCap>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0, quad,
+                                      qp0, qp1, limit, a.window);
+        }
         pv_tile<D>(o, p, st + L::kBlocks * L::kKVBlock);
       }
       if (lane == 0) mbar_arrive(empty(stage));  // this warp is done with the stage
@@ -598,9 +805,11 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
 }
 
 // Launch of the chunk body through an entry point: Entry::chunk_kernel<D,
-// kCap, kDev, kFresh>() names its __global__. Without fresh K/V their maps
-// are not encoded; the q map stands in, never read.
-template <class Entry, int D, bool kCap, bool kDev, bool kFresh>
+// kCap, kDev, kFresh, kQuant>() names its __global__. Without fresh K/V
+// their maps are not encoded; the q map stands in, never read. A block
+// whose shared memory passes the card's opt-in limit (a table row too long
+// to stage) is not launched: kErrSmem.
+template <class Entry, int D, bool kCap, bool kDev, bool kFresh, bool kQuant>
 int launch(const CUtensorMap* kp_map, const CUtensorMap* vp_map, const void* q, const void* kc,
            const void* vc, const ChunkArgs& a, cudaStream_t stream) {
   CUtensorMap qm, kcm, vcm;
@@ -614,8 +823,9 @@ int launch(const CUtensorMap* kp_map, const CUtensorMap* vp_map, const void* q, 
     err = encode_bf16_4d(&vcm, vc, D, a.KVH, a.C, 1, row, row * a.KVH, row * a.KVH * a.C, 1, kBK);
   if (err != 0) return err;
   if (!kFresh) kcm = vcm = qm;
-  auto kernel = Entry::template chunk_kernel<D, kCap, kDev, kFresh>();
-  const int smem = smem_bytes<D, kFresh>(a);
+  auto kernel = Entry::template chunk_kernel<D, kCap, kDev, kFresh, kQuant>();
+  const int smem = smem_bytes<D, kFresh, kQuant>(a);
+  if (smem > max_smem_optin()) return kErrSmem;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
@@ -628,15 +838,18 @@ int launch(const CUtensorMap* kp_map, const CUtensorMap* vp_map, const void* q, 
 // pool maps (host buffers of gridllm_ragged_pool_map) to aligned maps and
 // launch at D 64 or 128, with or without softcap; kDev and kFresh as
 // chunk_body's (without kDev the bounds hold start and a total >= 0, and
-// f_limit its cut at the capacity; kc/vc are given iff kFresh). Returns
-// cudaGetLastError() of the launch, kErrNoEncoder or kErrTensorMap.
-template <class Entry, bool kDev, bool kFresh>
+// f_limit its cut at the capacity; kc/vc are given iff kFresh); kQuant: the
+// maps read an int8 pool and a.k_scale/v_scale are its scales. Returns
+// cudaGetLastError() of the launch, kErrNoEncoder, kErrTensorMap or
+// kErrSmem.
+template <class Entry, bool kDev, bool kFresh, bool kQuant>
 int run(const void* kp_map, const void* vp_map, const void* q, const void* kc, const void* vc,
         const ChunkArgs& a, int D, cudaStream_t stream) {
   if (a.H % a.KVH || a.bq < 1 || a.bq * (a.H / a.KVH) > kRows || a.box_rows < 8 ||
       a.box_rows % 8 || kBK % a.box_rows || a.ps % a.box_rows ||
       (kc != nullptr) != kFresh || (vc != nullptr) != kFresh ||
-      kDev != a.bounds.on_device() || (!kDev && a.bounds.total < 0))
+      kDev != a.bounds.on_device() || (!kDev && a.bounds.total < 0) ||
+      (a.k_scale != nullptr) != kQuant || (a.v_scale != nullptr) != kQuant)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap kpm, vpm;  // 64-byte aligned copies of the caller's maps
   memcpy(&kpm, kp_map, sizeof(CUtensorMap));
@@ -644,11 +857,15 @@ int run(const void* kp_map, const void* vp_map, const void* q, const void* kc, c
   const bool cap = a.softcap > 0.f;
   switch (D) {
     case 64:
-      return cap ? launch<Entry, 64, true, kDev, kFresh>(&kpm, &vpm, q, kc, vc, a, stream)
-                 : launch<Entry, 64, false, kDev, kFresh>(&kpm, &vpm, q, kc, vc, a, stream);
+      return cap ? launch<Entry, 64, true, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
+                                                                 stream)
+                 : launch<Entry, 64, false, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
+                                                                  stream);
     case 128:
-      return cap ? launch<Entry, 128, true, kDev, kFresh>(&kpm, &vpm, q, kc, vc, a, stream)
-                 : launch<Entry, 128, false, kDev, kFresh>(&kpm, &vpm, q, kc, vc, a, stream);
+      return cap ? launch<Entry, 128, true, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
+                                                                  stream)
+                 : launch<Entry, 128, false, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
+                                                                   stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

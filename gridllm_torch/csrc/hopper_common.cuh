@@ -5,14 +5,16 @@
 // - mbarriers (init, expect_tx, arrive, a parity wait that traps after
 //   ~2^34 cycles instead of hanging the card);
 // - TMA 4-D tile loads into shared memory, completion counted in bytes on
-//   an mbarrier, and the host encoder of their tensor maps;
+//   an mbarrier, and the host encoders of their tensor maps (bf16 tiles
+//   128-byte swizzled; int8 rows unswizzled);
 // - wgmma: shared-memory descriptors of 128-byte-swizzled tiles, m64n128k16
 //   with both operands in shared memory (S = Q K^T) and m64n64k16 with A
 //   from registers (O += P V), the fences around them;
 // - setmaxnreg for the producer and consumer warpgroups;
 // - the online-softmax step of one 128-key tile on the m64n128 accumulator
 //   layout, with the per-element mask on absolute positions as a template
-//   flag (`softmax_tile`).
+//   flag (`softmax_tile`), and optionally per-key V scales on P (the int8
+//   pool's chunk).
 // Both kernels share the block shape: one producer warpgroup (one thread
 // issues TMA loads) and two consumer warpgroups of 64 query rows each,
 // over a ring of K/V stages (`Smem<D>`).
@@ -218,13 +220,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 // absolute, the tile's first key at kt0), the online-softmax update of the
 // row statistics and of O, and P as bf16 wgmma A fragments. Thread layout
 // of the m64n128 accumulator: s[i] is row r0 (i % 4 < 2) or r0 + 8, key
-// 8 * (i / 4) + 2 * quad + (i & 1) of the tile.
-template <bool kMask, bool kCap, int NB>
+// 8 * (i / 4) + 2 * quad + (i & 1) of the tile. kVScale: P's columns are
+// multiplied by v_scale[key] (kBK floats in shared memory) before they are
+// packed, and l sums them unscaled (an int8 V tile converted exactly).
+template <bool kMask, bool kCap, int NB, bool kVScale = false>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[kBK / 16][4],
                                              float (&o)[NB][32], float& m0, float& m1,
                                              float& l0, float& l1, float scale, float softcap,
                                              int kt0, int quad, int qp0, int qp1, int seq_len,
-                                             int window) {
+                                             int window, const float* v_scale = nullptr) {
   float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -264,6 +268,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[kBK /
       if (kMask) pe = x > 0.5f * kNegInf ? pe : 0.f;  // a row with no visible key yet
       e[u] = pe;
       if (u & 2) l1 += pe; else l0 += pe;
+    }
+    if constexpr (kVScale) {  // P's column of key k times V row k's scale (l sums P unscaled)
+      const float2 v0 = reinterpret_cast<const float2*>(v_scale)[8 * j + quad];
+      const float2 v1 = reinterpret_cast<const float2*>(v_scale)[8 * j + 4 + quad];
+      e[0] *= v0.x; e[1] *= v0.y; e[2] *= v0.x; e[3] *= v0.y;
+      e[4] *= v1.x; e[5] *= v1.y; e[6] *= v1.x; e[7] *= v1.y;
     }
     p[j][0] = pack_bf16(e[0], e[1]);  // row r0,     keys 16j + 2 quad (+1)
     p[j][1] = pack_bf16(e[2], e[3]);  // row r0 + 8, the same keys
@@ -361,6 +371,7 @@ __device__ __forceinline__ void store_rows(T* ob, const float (&o)[D / 64][32], 
 // Codes the entry points return beside cudaError_t values.
 constexpr int kErrNoEncoder = -1;  // cuTensorMapEncodeTiled not found in the driver
 constexpr int kErrTensorMap = -2;  // the driver refused a tensor map
+constexpr int kErrSmem = -3;       // the block's shared memory exceeds the card's opt-in limit
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -378,26 +389,55 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 4-D map {D, n1, n2, n3} over rows of D contiguous values (strides
-// in bytes of dims 1..3), read in boxes of {64, box1, box2, 1}, 128-byte
-// swizzled, zeros outside. Returns 0, kErrNoEncoder or kErrTensorMap.
-inline int encode_bf16_4d(CUtensorMap* map, const void* ptr, int D, int64_t n1, int64_t n2,
-                          int64_t n3, int64_t stride1, int64_t stride2, int64_t stride3,
-                          int box1, int box2) {
+// A 4-D map {n0, n1, n2, n3} over rows of n0 contiguous elements (strides
+// in bytes of dims 1..3), read in boxes of {box0, box1, box2, 1}, zeros
+// outside. Returns 0, kErrNoEncoder or kErrTensorMap.
+inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                     const void* ptr, int n0, int64_t n1, int64_t n2, int64_t n3,
+                     int64_t stride1, int64_t stride2, int64_t stride3, int box0, int box1,
+                     int box2) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n1),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(n0), static_cast<cuuint64_t>(n1),
                               static_cast<cuuint64_t>(n2), static_cast<cuuint64_t>(n3)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stride1),
                                  static_cast<cuuint64_t>(stride2),
                                  static_cast<cuuint64_t>(stride3)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box1), static_cast<cuuint32_t>(box2), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box0), static_cast<cuuint32_t>(box1),
+                             static_cast<cuuint32_t>(box2), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// A bf16 4-D map read in boxes of {64, box1, box2, 1}, 128-byte swizzled
+// (the layout wgmma reads).
+inline int encode_bf16_4d(CUtensorMap* map, const void* ptr, int D, int64_t n1, int64_t n2,
+                          int64_t n3, int64_t stride1, int64_t stride2, int64_t stride3,
+                          int box1, int box2) {
+  return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, ptr, D,
+                   n1, n2, n3, stride1, stride2, stride3, 64, box1, box2);
+}
+
+// An int8 4-D map read in whole rows, boxes of {D, box1, box2, 1} (D <=
+// 256 bytes), unswizzled: rows land D bytes apart for the threads that
+// convert them.
+inline int encode_int8_4d(CUtensorMap* map, const void* ptr, int D, int64_t n1, int64_t n2,
+                          int64_t n3, int64_t stride1, int64_t stride2, int64_t stride3,
+                          int box1, int box2) {
+  return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE, ptr, D, n1,
+                   n2, n3, stride1, stride2, stride3, D, box1, box2);
+}
+
+// Dynamic shared memory a block of the current device may opt into.
+inline int max_smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return bytes;
 }
 
 }  // namespace hopper

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(hopper::kWgThreads, 1)
                               const __grid_constant__ CUtensorMap kc_map,
                               const __grid_constant__ CUtensorMap vc_map,
                               const chunk::ChunkArgs a) {
-  chunk::chunk_body<D, kCap, kDev, kFresh>(q_map, kp_map, vp_map, kc_map, vc_map, a);
+  chunk::chunk_body<D, kCap, kDev, kFresh, false>(q_map, kp_map, vp_map, kc_map, vc_map, a);
 }
 
 struct DecodeEntry {
@@ -74,8 +74,11 @@ struct DecodeEntry {
 struct PrefixChunkEntry {
   template <typename T, typename P, int D, int RPW>
   static auto kernel() { return prefix_chunk_kernel<T, P, D, RPW>; }
-  template <int D, bool kCap, bool kDev, bool kFresh>
-  static auto chunk_kernel() { return prefix_chunk_wgmma_kernel<D, kCap, kDev, kFresh>; }
+  template <int D, bool kCap, bool kDev, bool kFresh, bool kQuant>
+  static auto chunk_kernel() {
+    static_assert(!kQuant, "prefix_chunk reads an int8 pool through its plain version");
+    return prefix_chunk_wgmma_kernel<D, kCap, kDev, kFresh>;
+  }
 };
 
 template <class Entry>
@@ -174,7 +177,8 @@ extern "C" int gridllm_prefix_chunk(const void* q, const void* k_pool, const voi
 // [C, KVH, D] or null, out like q, the pool maps of gridllm_ragged_pool_map
 // (host buffers, copied into the launch), bq = 128 / (H / KVH). start_ptr:
 // a device int32 scalar; total_ptr: one, or null for start + C. Returns
-// cudaGetLastError() of the launch, -1 or -2.
+// cudaGetLastError() of the launch, -1, -2 or -3 (shared memory past the
+// card's limit).
 extern "C" int gridllm_prefix_chunk_wgmma(const void* kp_map, const void* vp_map, const void* q,
                                           const void* k_cur, const void* v_cur, void* out,
                                           const void* table_row, const void* start_ptr,
@@ -187,12 +191,12 @@ extern "C" int gridllm_prefix_chunk_wgmma(const void* kp_map, const void* vp_map
       static_cast<const int*>(table_row), static_cast<__nv_bfloat16*>(out),
       n_table, num_pages, pool_pages, ps, box_rows, layer, C, bq, H, KVH,
       {static_cast<const int*>(start_ptr), static_cast<const int*>(total_ptr), 0, -1}, 0,
-      scale, softcap, window};
+      scale, softcap, window, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using gridllm::PrefixChunkEntry;
   return k_cur != nullptr
-             ? gridllm::chunk::run<PrefixChunkEntry, true, true>(kp_map, vp_map, q, k_cur, v_cur,
-                                                                 a, D, s)
-             : gridllm::chunk::run<PrefixChunkEntry, true, false>(kp_map, vp_map, q, k_cur,
-                                                                  v_cur, a, D, s);
+             ? gridllm::chunk::run<PrefixChunkEntry, true, true, false>(kp_map, vp_map, q, k_cur,
+                                                                        v_cur, a, D, s)
+             : gridllm::chunk::run<PrefixChunkEntry, true, false, false>(kp_map, vp_map, q, k_cur,
+                                                                         v_cur, a, D, s);
 }

@@ -17,9 +17,12 @@
 //   catch-up chunk: any Td (the block walks its rows NR at a time).
 // Both regions take a sliding window and a tanh softcap.
 // int8 leg (k_scale/v_scale given): the pool holds int8 values and one
-// float32 scale per (layer, page, row); each pool row is multiplied by its
-// scale right after the load (QuantPagedRows), then the math is the fp
-// leg's. The fresh chunk/group K/V stay in the compute dtype, unscaled.
+// float32 scale per (layer, page, row). The groups (and a float32 chunk)
+// multiply each pool row by its scale right after the load
+// (QuantPagedRows), then the math is the fp leg's; a bf16 chunk converts
+// each int8 pool tile exactly to bf16 in shared memory and applies the
+// scales in float32 to S's and P's columns (chunk::chunk_body, kQuant).
+// The fresh chunk/group K/V stay in the compute dtype, unscaled.
 // tree leg (tree_n = Td <= 32 nodes): the group's Td tokens are the nodes
 // of a draft token tree in topological order, shared by all slots. Node i
 // is STORED at length + i (its fresh K/V column i) but sits at LOGICAL
@@ -33,12 +36,12 @@
 // The bodies of both kernels live in attention_bodies.cuh (shared with
 // per_phase_attention.cu's paged_decode and prefix_chunk); this file holds
 // their entry points for the ragged launch:
-// - `ragged_chunk_kernel`: the chunk region for bf16 q on a bf16 pool
-//   (wgmma + TMA, `chunk::chunk_body`), a launch of its own;
+// - `ragged_chunk_kernel`: the chunk region for bf16 q on a bf16 or an
+//   int8 pool (wgmma + TMA, `chunk::chunk_body`; the int8 pool's tiles
+//   converted in shared memory), a launch of its own;
 // - `ragged_attention_kernel`: every group, split over pages, and the
-//   chunk region for float32 q or an int8 pool (CUDA cores,
-//   `ragged_body`; an explicit route by input type, counted apart by the
-//   wrapper).
+//   chunk region for float32 q (CUDA cores, `ragged_body`; an explicit
+//   route by input type, counted apart by the wrapper).
 #include "attention_bodies.cuh"
 
 namespace gridllm {
@@ -48,21 +51,21 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(RaggedArgs a
   ragged_body<T, P, D, RPW>(a);
 }
 
-template <int D, bool kCap, bool kDev, bool kFresh>
+template <int D, bool kCap, bool kDev, bool kFresh, bool kQuant>
 __global__ void __launch_bounds__(hopper::kWgThreads, 1)
     ragged_chunk_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap kp_map,
                         const __grid_constant__ CUtensorMap vp_map,
                         const __grid_constant__ CUtensorMap kc_map,
                         const __grid_constant__ CUtensorMap vc_map, const chunk::ChunkArgs a) {
-  chunk::chunk_body<D, kCap, kDev, kFresh>(q_map, kp_map, vp_map, kc_map, vc_map, a);
+  chunk::chunk_body<D, kCap, kDev, kFresh, kQuant>(q_map, kp_map, vp_map, kc_map, vc_map, a);
 }
 
 struct RaggedEntry {
   template <typename T, typename P, int D, int RPW>
   static auto kernel() { return ragged_attention_kernel<T, P, D, RPW>; }
-  template <int D, bool kCap, bool kDev, bool kFresh>
-  static auto chunk_kernel() { return ragged_chunk_kernel<D, kCap, kDev, kFresh>; }
+  template <int D, bool kCap, bool kDev, bool kFresh, bool kQuant>
+  static auto chunk_kernel() { return ragged_chunk_kernel<D, kCap, kDev, kFresh, kQuant>; }
 };
 
 // the fp pool (P = T) or, with scales, the int8 pool
@@ -120,17 +123,21 @@ extern "C" int gridllm_ragged_attention(
   return static_cast<int>(err);
 }
 
-// The TMA map of one bf16 pool [L, P, ps, KVH, D] viewed as
-// {D, KVH, ps, L * P}, read in boxes {64, 1, box_rows, 1}, written as the
-// 128 bytes of a CUtensorMap into map_out (host memory; the caller keeps it
-// per pool tensor). Returns 0, -1 (no encoder in the driver) or -2 (the
-// driver refused the map).
+// The TMA map of one pool [L, P, ps, KVH, D] viewed as {D, KVH, ps, L * P},
+// written as the 128 bytes of a CUtensorMap into map_out (host memory; the
+// caller keeps it per pool tensor): a bf16 pool (int8 = 0) in boxes
+// {64, 1, box_rows, 1}, 128-byte swizzled; an int8 pool (int8 = 1) in
+// whole rows, boxes {D, 1, box_rows, 1}, unswizzled. Returns 0, -1 (no
+// encoder in the driver) or -2 (the driver refused the map).
 extern "C" int gridllm_ragged_pool_map(const void* pool, long long pool_pages, int ps, int KVH,
-                                       int D, int box_rows, void* map_out) {
-  const int64_t row = static_cast<int64_t>(D) * 2;
+                                       int D, int box_rows, int int8, void* map_out) {
+  const int64_t row = static_cast<int64_t>(D) * (int8 ? 1 : 2);
   CUtensorMap map;
-  const int err = gridllm::hopper::encode_bf16_4d(&map, pool, D, KVH, ps, pool_pages, row,
-                                                  row * KVH, row * KVH * ps, 1, box_rows);
+  const int err =
+      int8 ? gridllm::hopper::encode_int8_4d(&map, pool, D, KVH, ps, pool_pages, row, row * KVH,
+                                             row * KVH * ps, 1, box_rows)
+           : gridllm::hopper::encode_bf16_4d(&map, pool, D, KVH, ps, pool_pages, row, row * KVH,
+                                             row * KVH * ps, 1, box_rows);
   if (err == 0) memcpy(map_out, &map, sizeof(CUtensorMap));
   return err;
 }
@@ -138,10 +145,14 @@ extern "C" int gridllm_ragged_pool_map(const void* pool, long long pool_pages, i
 // The chunk region alone on the tensor cores: bf16 q_chunk [1, C, H, D],
 // k_chunk/v_chunk [C, KVH, D] and out, the pool maps of
 // gridllm_ragged_pool_map (host buffers, copied into the launch), bq =
-// 128 / (H / KVH). Returns cudaGetLastError() of the launch, -1 or -2.
+// 128 / (H / KVH); k_scale/v_scale: null for a bf16 pool, else the
+// float32 [L, P, ps] scales of an int8 pool (whose maps were encoded with
+// int8 = 1). Returns cudaGetLastError() of the launch, -1, -2 or -3 (the
+// block's shared memory with the staged table row past the card's limit).
 extern "C" int gridllm_ragged_chunk(const void* kp_map, const void* vp_map, const void* q_chunk,
                                     const void* k_chunk, const void* v_chunk, void* out,
-                                    const void* chunk_row, int n_table, int num_pages,
+                                    const void* chunk_row, const void* k_scale,
+                                    const void* v_scale, int n_table, int num_pages,
                                     int pool_pages, int ps, int box_rows, int layer, int C,
                                     int bq, int chunk_start, int chunk_total, int H, int KVH,
                                     int D, float scale, float softcap, int window, void* stream) {
@@ -149,7 +160,14 @@ extern "C" int gridllm_ragged_chunk(const void* kp_map, const void* vp_map, cons
                                     static_cast<__nv_bfloat16*>(out),
                                     n_table, num_pages, pool_pages, ps, box_rows, layer, C, bq,
                                     H, KVH, {nullptr, nullptr, chunk_start, chunk_total},
-                                    std::min(chunk_total, n_table * ps), scale, softcap, window};
-  return gridllm::chunk::run<gridllm::RaggedEntry, false, true>(kp_map, vp_map, q_chunk, k_chunk, v_chunk, a,
-                                                   D, static_cast<cudaStream_t>(stream));
+                                    std::min(chunk_total, n_table * ps), scale, softcap, window,
+                                    static_cast<const float*>(k_scale),
+                                    static_cast<const float*>(v_scale)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using gridllm::RaggedEntry;
+  return k_scale != nullptr
+             ? gridllm::chunk::run<RaggedEntry, false, true, true>(kp_map, vp_map, q_chunk,
+                                                                   k_chunk, v_chunk, a, D, s)
+             : gridllm::chunk::run<RaggedEntry, false, true, false>(kp_map, vp_map, q_chunk,
+                                                                    k_chunk, v_chunk, a, D, s);
 }

@@ -13,10 +13,12 @@ a run can prove that its main path went through the kernels; `LEG_LAUNCHES`
 counts, beside them, the launches of one leg of a kernel: for
 ragged_attention the int8 pool leg and the tree-verify leg (one launch may
 take both), and its regions: "chunk" (the chunk region on the tensor
-cores, a launch of its own), "chunk_cores" (the chunk region on the CUDA
-cores, for float32 q or an int8 pool) and "group" (the group region, split
-over pages); for prefix_chunk its routes: "chunk" (tensor cores),
-"chunk_cores" and "slots" (the per-phase verify, all slots in one launch).
+cores, a launch of its own, for bf16 q on a bf16 or an int8 pool),
+"chunk_cores" (the chunk region on the CUDA cores, for float32 q or a page
+size that does not hold whole 8-row boxes) and
+"group" (the group region, split over pages); for prefix_chunk its routes:
+"chunk" (tensor cores), "chunk_cores" and "slots" (the per-phase verify,
+all slots in one launch).
 
 Kernels (gridllm_torch/csrc/), the TPU kernels they replace
 (gridllm_tpu/ops/pallas_kernels.py) and their plain versions:
@@ -125,10 +127,10 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
          _I, _P, _P, _P,                          # n_splits, partials, counters
          _I, _I, _I, _I, _I, _F, _F, _I,          # H, KVH, D, rpw, dtype, ...
          _I, _P, _P, _P]),                        # tree_n, tree_pos, tree_bits, stream
-    "gridllm_ragged_pool_map": ("ragged_attention.cu", [_P, _LL, _I, _I, _I, _I, _P]),
+    "gridllm_ragged_pool_map": ("ragged_attention.cu", [_P, _LL, _I, _I, _I, _I, _I, _P]),
     "gridllm_ragged_chunk": (
         "ragged_attention.cu",
-        [_P, _P, _P, _P, _P, _P, _P,              # pool maps, q, k/v_chunk, out, row
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P,      # pool maps, q, k/v_chunk, out, row, scales
          _I, _I, _I, _I, _I, _I,                  # n_table, P, L * P, ps, box_rows, layer
          _I, _I, _I, _I, _I, _I, _I,              # C, bq, start, total, H, KVH, D
          _F, _F, _I, _P]),                        # scale, softcap, window, stream
@@ -144,7 +146,9 @@ PREFILL_ROWS = 128  # hopper_common.cuh: query rows per block, two m64 slabs
 PREFILL_BK = 128    # hopper_common.cuh: keys per K/V tile (bf16)
 # codes of the TMA kernels' entry points beside cudaError_t values
 _PREFILL_ERRORS = {-1: "cuTensorMapEncodeTiled not found in libcuda.so.1",
-                   -2: "the driver refused a TMA tensor map"}
+                   -2: "the driver refused a TMA tensor map",
+                   -3: "the chunk kernel's shared memory (its staged table row) passes "
+                       "the card's per-block limit"}
 
 
 def _fn(name: str):
@@ -635,10 +639,10 @@ def chunk_box_rows(page_size: int, bk: int = PREFILL_BK) -> int:
 
 def chunk_on_tensor_cores(q_dtype: torch.dtype, pool_dtype: torch.dtype, page_size: int) -> bool:
     """The chunk region's route, by input type: the wgmma + TMA kernel for
-    a bf16 q on a bf16 pool whose page size holds whole 8-row boxes; the
-    CUDA-core kernel ("chunk_cores") for float32 q, an int8 pool, or
-    another page size."""
-    return (q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16
+    a bf16 q on a bf16 or an int8 pool (its tiles converted to bf16 in
+    shared memory) whose page size holds whole 8-row boxes; the CUDA-core
+    kernel ("chunk_cores") for float32 q or another page size."""
+    return (q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8)
             and chunk_box_rows(page_size) % 8 == 0)
 
 
@@ -888,15 +892,17 @@ def _split_args(dev: torch.device, stream: int, s: int, kvh: int, n_table: int, 
 
 def _pool_map(pool: torch.Tensor, ps: int, kvh: int, d: int, box_rows: int,
               kernel: str = "ragged_attention") -> ctypes.Array:
-    """The chunk body's TMA map of one bf16 pool [L, P, ps, KVH, D], encoded
-    once per (address, shape) and kept: the map holds nothing else."""
+    """The chunk body's TMA map of one bf16 or int8 pool [L, P, ps, KVH, D],
+    encoded once per (address, shape, dtype) and kept: the map holds
+    nothing else."""
     pool_pages = pool.shape[0] * pool.shape[1]
-    key = (pool.device, pool.data_ptr(), pool_pages, ps, kvh, d, box_rows)
+    key = (pool.device, pool.data_ptr(), pool.dtype, pool_pages, ps, kvh, d, box_rows)
     m = _pool_maps.get(key)
     if m is None:
         m = (ctypes.c_byte * _MAP_BYTES)()
         _raise_on(_fn("gridllm_ragged_pool_map")(pool.data_ptr(), pool_pages, ps, kvh, d,
-                                                 box_rows, m), kernel)
+                                                 box_rows, int(pool.dtype == torch.int8), m),
+                  kernel)
         if len(_pool_maps) >= 64:
             _pool_maps.clear()
         _pool_maps[key] = m
@@ -919,13 +925,16 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
     are a token tree: the kernel's tree leg, counted in
     LEG_LAUNCHES["ragged_attention.tree"].
 
-    Launches: the chunk region of a bf16 q on a bf16 pool runs the wgmma +
-    TMA chunk kernel ("chunk"); every other chunk region, and the group
-    region, run the CUDA-core kernel, one launch for both ("chunk_cores",
-    "group"). A call with one region launches once; a mixed step on the
-    tensor-core route twice, on one stream. The group region is split over
-    pages into `ragged_split_count` spans, from host shapes only: the
-    wrapper never reads a device value (no host sync)."""
+    Launches: the chunk region of a bf16 q on a bf16 or an int8 pool runs
+    the wgmma + TMA chunk kernel ("chunk"; on an int8 pool also "int8": its
+    tiles converted exactly to bf16 in shared memory, the row scales
+    applied in float32 to the logits and the probabilities); a float32
+    chunk region, and the group region, run the CUDA-core kernel, one
+    launch for both ("chunk_cores", "group"). A call with one region
+    launches once; a mixed step on the tensor-core route twice, on one
+    stream, each launch of an int8 pool counted "int8". The group region is
+    split over pages into `ragged_split_count` spans, from host shapes
+    only: the wrapper never reads a device value (no host sync)."""
     if q_chunk is None and q_group is None:
         raise ValueError("ragged_attention: needs a chunk or a group region")
     quant = k_scale is not None
@@ -990,9 +999,10 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
             box = chunk_box_rows(ps)
             maps = [_pool_map(p, ps, kvh, d, box) for p in (k_pages, v_pages)]
             _launch("gridllm_ragged_chunk", kernel, *maps, _ptr(q_chunk), _ptr(k_chunk),
-                    _ptr(v_chunk), _ptr(out_chunk), _ptr(chunk_row), n_table_c, num_pages,
-                    n_layers * num_pages, ps, box, layer, c, PREFILL_ROWS // g, start, total,
-                    h, kvh, d, scale, cap, win, stream, legs=("chunk",))
+                    _ptr(v_chunk), _ptr(out_chunk), _ptr(chunk_row), _ptr(k_scale),
+                    _ptr(v_scale), n_table_c, num_pages, n_layers * num_pages, ps, box, layer,
+                    c, PREFILL_ROWS // g, start, total, h, kvh, d, scale, cap, win, stream,
+                    legs=("chunk",) + ("int8",) * quant)
     s = td = n_table_g = 0
     n_splits, part_ml, part_acc, counters = 1, None, None, None
     if q_group is not None:

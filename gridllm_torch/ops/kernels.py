@@ -92,19 +92,21 @@ KERNELS: tuple[KernelSpec, ...] = (
         test="tests/test_torch_attention.py::test_ragged_ref_matches_ragged_kernel",
         smoke_phase="kernels, timing, serve, int8, tree",
         legs=(
-            ("int8", "k_scale/v_scale: an int8 pool, each row dequantized by its "
-             "float32 scale after the load",
+            ("int8", "k_scale/v_scale: an int8 pool; the groups dequantize each row by "
+             "its float32 scale after the load, a bf16 chunk converts each int8 tile "
+             "exactly to bf16 in shared memory and scales the logits and "
+             "probabilities by the rows' scales in float32",
              "tests/test_torch_kv_int8.py::test_ragged_on_int8_pool_matches_jax"),
             ("tree", "tree_pos/tree_bits: the group's <= 32 tokens are token-tree "
              "nodes at logical positions length + depth, fresh columns masked by "
              "ancestor bitmasks",
              "tests/test_torch_spec_tree.py::test_tree_attention_matches_jax"),
             # the regions, each a route of its own on the card
-            ("chunk", "the chunk region of a bf16 q on a bf16 pool: ragged_chunk_kernel "
-             "(wgmma + TMA), a launch of its own",
+            ("chunk", "the chunk region of a bf16 q on a bf16 or an int8 pool: "
+             "ragged_chunk_kernel (wgmma + TMA), a launch of its own",
              "tests/test_torch_ragged_plan.py::test_chunk_plan_walk_matches_jax_ref"),
-            ("chunk_cores", "the chunk region of a float32 q or an int8 pool, on the CUDA "
-             "cores in ragged_attention_kernel beside the groups",
+            ("chunk_cores", "the chunk region of a float32 q or another page size, on the "
+             "CUDA cores in ragged_attention_kernel beside the groups",
              "tests/test_torch_attention.py::test_ragged_ref_matches_ragged_kernel"),
             ("group", "the group region, split over pages, partials merged in the launch",
              "tests/test_torch_ragged_plan.py::test_split_merge_ref_matches_jax_ref"),

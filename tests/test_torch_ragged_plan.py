@@ -34,6 +34,7 @@ from gridllm_torch.ops import kvcache as TC
 from gridllm_torch.ops import spec as TSP
 from gridllm_tpu.ops import attention as JA
 from gridllm_tpu.ops import kvcache as JC
+from gridllm_tpu.ops import pallas_kernels as PK
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # float32: the merge and the executed plan
 BK = TK.PREFILL_BK
@@ -41,6 +42,18 @@ BK = TK.PREFILL_BK
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _int8_pool(rng, n_layers, n_pool, ps, kvh, d):
+    """An int8 pool of quantized normal rows, each scaled by 10 ** U(-1, 1)
+    (the row scales span two decades): the JAX package's QuantPages and
+    the port's, the same values."""
+    x = rng.normal(size=(n_layers, n_pool * ps, kvh, d)) * 10.0 ** rng.uniform(
+        -1, 1, size=(n_layers, n_pool * ps, 1, 1))
+    qv, sc = JC.quantize_kv_rows(jnp.asarray(x.astype(np.float32)))
+    qv = np.asarray(qv).reshape(n_layers, n_pool, ps, kvh, d)
+    sc = np.asarray(sc).reshape(n_layers, n_pool, ps)
+    return JC.QuantPages(jnp.asarray(qv), jnp.asarray(sc)), TC.QuantPages(_t(qv), _t(sc))
 
 
 def _table_row(rng, n_table, n_mapped, n_pool):
@@ -157,21 +170,24 @@ def test_chunk_plan_rows_cover_each_token_and_head_once_heaviest_first(g):
 
 
 def test_chunk_route_by_input_type():
-    """The tensor-core chunk kernel takes a bf16 q on a bf16 pool whose
-    pages hold whole 8-row TMA boxes; anything else is the CUDA-core
-    route, chosen by type, never after a failure."""
-    bf16, f32 = torch.bfloat16, torch.float32
+    """The tensor-core chunk kernel takes a bf16 q on a bf16 or an int8
+    pool whose pages hold whole 8-row TMA boxes; anything else is the
+    CUDA-core route, chosen by type, never after a failure."""
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     assert TK.chunk_on_tensor_cores(bf16, bf16, 64)
     assert TK.chunk_on_tensor_cores(bf16, bf16, 16)
     assert TK.chunk_on_tensor_cores(bf16, bf16, 256)
+    assert TK.chunk_on_tensor_cores(bf16, i8, 64)
+    assert TK.chunk_on_tensor_cores(bf16, i8, 8)
     assert not TK.chunk_on_tensor_cores(f32, f32, 64)
-    assert not TK.chunk_on_tensor_cores(bf16, torch.int8, 64)
+    assert not TK.chunk_on_tensor_cores(f32, i8, 64)
     assert not TK.chunk_on_tensor_cores(bf16, bf16, 12)
+    assert not TK.chunk_on_tensor_cores(bf16, i8, 12)
     assert [TK.chunk_box_rows(ps) for ps in (8, 16, 64, 128, 256, 48)] == [8, 16, 64, 128, 128, 16]
 
 
 def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, softcap,
-                    fresh=True):
+                    fresh=True, k_scale=None, v_scale=None, scale_row_shift=0):
     """The chunk kernel's walk in torch, for every kv head: per query tile of
     the plan, an online softmax over its prefix tiles (each the plan's TMA
     boxes, read from the pool viewed as [L * P, ps, KVH, D] at the boxes'
@@ -180,8 +196,19 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
     masks, against the limits the block derives from start and total (pool
     keys below ctx, fresh keys below min(total, capacity); with `fresh`
     False the chunk is in the pool and ctx = min(total, capacity)).
-    Float32; → [1, C, H, D]."""
+
+    With k_scale/v_scale [L, P, ps] the pool is int8 and this is the
+    tensor-core kernel's dequant: each prefix tile's int8 values taken
+    exactly (as the kernel converts them to bf16), the boxes' row scales
+    staged beside them (0 for a box past the pool keys), S's column of key
+    j multiplied by its K scale after Q K^T, and P's column by its V scale
+    before P V, l summing P unscaled; fresh tiles unscaled.
+    `scale_row_shift` reads each row's scales from the row that many rows
+    on in its page (a mutant). Float32; → [1, C, H, D]."""
     n_layers, num_pages, _, kvh, d = kp.shape
+    quant = k_scale is not None
+    if quant:
+        flat_ks, flat_vs = k_scale.reshape(-1, ps).float(), v_scale.reshape(-1, ps).float()
     c, h = q.shape[1], q.shape[2]
     g = h // kvh
     flat_k, flat_v = kp.reshape(-1, ps, kvh, d), vp.reshape(-1, ps, kvh, d)
@@ -206,24 +233,34 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
             acc = torch.zeros(len(toks), d)
             tiles = []
             for kt0, masked, boxes in tile.prefix_tiles:
-                ks, vs = [], []
+                ks, vs, k_sc, v_sc = [], [], [], []
                 for pos, coord in boxes:
                     if coord is None:
                         ks.append(torch.zeros(box, d))
                         vs.append(torch.zeros(box, d))
+                        k_sc.append(torch.zeros(box))
+                        v_sc.append(torch.zeros(box))
                     else:
                         off = pos % ps
                         ks.append(flat_k[coord, off:off + box, kh].float())
                         vs.append(flat_v[coord, off:off + box, kh].float())
-                tiles.append((kt0, masked, ctx, torch.cat(ks), torch.cat(vs)))
+                        if quant:
+                            rows_ = (off + torch.arange(box) + scale_row_shift) % ps
+                            k_sc.append(flat_ks[coord, rows_])
+                            v_sc.append(flat_vs[coord, rows_])
+                scales = (torch.cat(k_sc), torch.cat(v_sc)) if quant else None
+                tiles.append((kt0, masked, ctx, torch.cat(ks), torch.cat(vs), scales))
             for j0, masked in tile.fresh_tiles:
                 ks = torch.zeros(BK, d)
                 vs = torch.zeros(BK, d)
                 n = min(BK, c - j0)
                 ks[:n], vs[:n] = kc[j0:j0 + n, kh].float(), vc[j0:j0 + n, kh].float()
-                tiles.append((start + j0, masked, f_limit, ks, vs))
-            for kt0, masked, limit, ks, vs in tiles:
-                x = (qr @ ks.T) * d ** -0.5
+                tiles.append((start + j0, masked, f_limit, ks, vs, None))
+            for kt0, masked, limit, ks, vs, scales in tiles:
+                x = qr @ ks.T
+                if scales is not None:
+                    x = x * scales[0][None]
+                x = x * d ** -0.5
                 if softcap > 0:
                     x = softcap * torch.tanh(x / softcap)
                 if masked:
@@ -236,6 +273,8 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
                 alpha = torch.exp(m - m_new)
                 p = torch.where(x > -5e29, torch.exp(x - m_new[:, None]), torch.zeros_like(x))
                 l = l * alpha + p.sum(1)
+                if scales is not None:
+                    p = p * scales[1][None]
                 acc = acc * alpha[:, None] + p @ vs
                 m = m_new
             out[0, toks, heads] = acc / l.clamp_min(1e-30)[:, None]
@@ -267,6 +306,111 @@ def test_chunk_plan_walk_matches_jax_ref(h, kvh, d, ps, c, start, valid, window,
     got = _run_chunk_plan(_t(kp), _t(vp), ps, _t(kw["q_chunk"]), _t(kw["k_chunk"]),
                           _t(kw["v_chunk"]), _t(row), start, start + valid, 1, window, softcap)
     np.testing.assert_allclose(got.numpy()[:, :valid], np.asarray(want)[:, :valid], **TOL)
+
+
+INT8_CHUNK_CASES = {  # h, kvh, d, ps, C, chunk_start, valid rows, window, softcap, table pages
+    "start1029_g4_d64": (8, 2, 64, 64, 128, 1029, 128, 0, 0.0, None),
+    "total_inside_chunk_ps16": (8, 2, 64, 16, 256, 1029, 200, 0, 0.0, None),
+    "g7": (14, 2, 64, 64, 128, 320, 128, 0, 0.0, None),
+    "window_softcap": (8, 2, 64, 64, 256, 700, 256, 300, 30.0, None),
+    "past_capacity": (8, 2, 64, 64, 256, 192, 250, 0, 0.0, 5),   # 320 positions
+    "d128": (8, 1, 128, 64, 128, 448, 100, 0, 0.0, None),
+}
+
+
+def _int8_chunk_inputs(h, kvh, d, ps, c, start, valid, table_pages):
+    rng = np.random.default_rng(start + c + h + d)
+    n_table = table_pages or -(-(start + c) // ps) + 2
+    n_pool = n_table + 5
+    (jk, tk), (jv, tv) = (_int8_pool(rng, 2, n_pool, ps, kvh, d) for _ in range(2))
+    row = _table_row(rng, n_table, n_table if table_pages else -(-start // ps), n_pool)
+    kw = dict(q_chunk=(2 * rng.normal(size=(1, c, h, d))).astype(np.float32), chunk_row=row,
+              chunk_start=start, chunk_total=start + valid,
+              k_chunk=rng.normal(size=(c, kvh, d)).astype(np.float32),
+              v_chunk=rng.normal(size=(c, kvh, d)).astype(np.float32))
+    return (jk, jv, tk, tv), kw
+
+
+def _int8_chunk_walk(case, scale_row_shift=0):
+    """(the int8 chunk kernel's walk, the JAX Pallas ragged_attention's
+    quant leg in interpret mode, the JAX package's plain
+    ragged_paged_attention_ref) on one case, float32 [1, valid, H, D]."""
+    h, kvh, d, ps, c, start, valid, window, softcap, table_pages = case
+    (jk, jv, tk, tv), kw = _int8_chunk_inputs(h, kvh, d, ps, c, start, valid, table_pages)
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else jnp.int32(v))
+           for k, v in kw.items()}
+    pallas, _ = PK.ragged_attention(jk.data, jv.data, ps, layer=jnp.int32(1), interpret=True,
+                                    softcap=softcap, window=window, k_scale=jk.scale,
+                                    v_scale=jv.scale, **jkw)
+    ref, _ = JA.ragged_paged_attention_ref(jk, jv, ps, layer=jnp.int32(1),
+                                           logit_softcap=softcap, window=window, **jkw)
+    got = _run_chunk_plan(tk.data, tv.data, ps, _t(kw["q_chunk"]), _t(kw["k_chunk"]),
+                          _t(kw["v_chunk"]), _t(kw["chunk_row"]), start, start + valid, 1,
+                          window, softcap, k_scale=tk.scale, v_scale=tv.scale,
+                          scale_row_shift=scale_row_shift)
+    return got.numpy()[:, :valid], np.asarray(pallas)[:, :valid], np.asarray(ref)[:, :valid]
+
+
+def _int8_close(got, want):
+    """float32 at the file's tolerance, atol relative to the output's
+    largest magnitude: the pools' values reach ~30 (row scales spanning two
+    decades), and the TPU kernel's quant leg differs from its own plain
+    version by up to 1.3e-4 on these cases (float32 in another order)."""
+    np.testing.assert_allclose(got, want, rtol=TOL["rtol"], atol=TOL["atol"] * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", list(INT8_CHUNK_CASES))
+def test_int8_chunk_plan_walk_matches_jax(name):
+    """The tensor-core chunk kernel's int8 route, executed tile by tile on
+    the plan (exact int8 values, the K scales on S's columns, the V scales
+    on P's), against the TPU kernel's quant leg in interpret mode: start
+    1,029 (neither page- nor tile-aligned), a total inside the chunk,
+    G = 7, window with softcap, D = 64 and 128, and a 5-page table that
+    ends inside the chunk (rows past the capacity cut). On the rows past
+    the capacity the TPU kernel departs from its plain version (by up to
+    5e-2 on 7 of those rows here, on an fp pool as on this one), so there
+    the walk is held to the plain version, which the port follows."""
+    case = INT8_CHUNK_CASES[name]
+    got, pallas, ref = _int8_chunk_walk(case)
+    h, kvh, d, ps, c, start, valid, window, softcap, table_pages = case
+    inside = valid if table_pages is None else table_pages * ps - start
+    _int8_close(got[:, :inside], pallas[:, :inside])
+    _int8_close(got, ref)
+
+
+def test_int8_chunk_plan_catches_a_scale_from_the_wrong_row():
+    """The same walk reading every row's scales from the next row of its
+    page misses the TPU kernel by far more than the tolerance: the cases
+    hold the scale placement."""
+    got, pallas, _ = _int8_chunk_walk(INT8_CHUNK_CASES["start1029_g4_d64"], scale_row_shift=1)
+    err = np.abs(got - pallas).max()
+    assert err > 100 * TOL["atol"] * np.abs(pallas).max(), err
+
+
+def test_int8_to_bf16_conversion_is_exact():
+    """csrc/attention_bodies.cuh's `int8x4_to_bf16x4` on every int8 value:
+    each byte b in the low byte of the bf16 bits 0x43bb, v = 0x4300 |
+    (b & 0x7F) and c = 0x4300 | (b & 0x80) as bf16, v - c in bf16 (here
+    in float32, then rounded to bf16: v, c and the difference are exact);
+    equal to bf16(x) bit for bit, and the bytes land low value first."""
+    x = np.arange(-128, 128, dtype=np.int8)
+    b = x.view(np.uint8).astype(np.uint32)
+    v = ((0x4300 | (b & 0x7F)) << 16).astype(np.uint32).view(np.float32)
+    c = ((0x4300 | (b & 0x80)) << 16).astype(np.uint32).view(np.float32)
+    got = torch.from_numpy(v - c).to(torch.bfloat16)
+    want = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # the byte permutes: selector 0x5140 takes bytes 0 and 1 of the word
+    # beside 0x43, 0x7362 bytes 2 and 3
+    word = np.uint32(0x04030201)
+
+    def byte_perm(x, y, sel):
+        pool = [(int(x) >> (8 * i)) & 0xFF for i in range(4)] + [(int(y) >> (8 * i)) & 0xFF
+                                                                 for i in range(4)]
+        return sum(pool[(sel >> (4 * n)) & 0x7] << (8 * n) for n in range(4))
+
+    assert byte_perm(word, 0x43434343, 0x5140) == 0x43024301
+    assert byte_perm(word, 0x43434343, 0x7362) == 0x43044303
 
 
 # ---------------------------------------------------------------------------
@@ -325,16 +469,7 @@ def _group_inputs(rng, td, d=16, quant=False, window=0, softcap=0.0):
     for i, ln in enumerate(lengths):
         table[i, -(-(ln + td) // ps):] = -1
     if quant:
-        pools = []
-        for _ in range(2):
-            x = rng.normal(size=(2, p * ps, kvh, d)) * 10.0 ** rng.uniform(
-                -1, 1, size=(2, p * ps, 1, 1))
-            qv, sc = JC.quantize_kv_rows(jnp.asarray(x.astype(np.float32)))
-            qv = np.asarray(qv).reshape(2, p, ps, kvh, d)
-            sc = np.asarray(sc).reshape(2, p, ps)
-            pools.append((JC.QuantPages(jnp.asarray(qv), jnp.asarray(sc)),
-                          TC.QuantPages(_t(qv), _t(sc))))
-        (jk, tk), (jv, tv) = pools
+        (jk, tk), (jv, tv) = (_int8_pool(rng, 2, p, ps, kvh, d) for _ in range(2))
     else:
         kp = rng.normal(size=(2, p, ps, kvh, d)).astype(np.float32)
         vp = rng.normal(size=(2, p, ps, kvh, d)).astype(np.float32)
