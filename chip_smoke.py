@@ -45,7 +45,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              on K/V gathered beforehand (a yardstick without paging), the
              decode group's first call under
              torch.cuda.set_sync_debug_mode("error"); paged_write_decode
-             and index_put_ in three turns.
+             and index_put_ in three turns, and paged_write_decode's
+             launch floor: its device time at 32 layers x 8 rows and at
+             1 layer x 1 row, in two turns.
 4. model   — llama3:8b cut to 2 layers, full width, float32, against the
              cache-free forward to 1e-3, in both attention modes: ragged
              (bucket prefill, decode steps, mixed steps admitting a second
@@ -72,7 +74,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              layers x verify steps prefix_chunk.slots launches). The
              kernels line reports each kernel's launches from the setting
              that carries it.
-6. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
+6. worker  — llama3:8b bf16 with the engine's defaults behind the port's
+             WorkerService on the port's InMemoryBus, a stand-in for the
+             scheduler on the other side (assignments on
+             worker_job_channel, frames on job_stream_channel, results on
+             job_result_channel and job:failed, snapshots on
+             job:snapshot): eight concurrent generate and chat streams
+             (one prompt longer than a chunk), a ninth assignment NACKed,
+             one stream cancelled (done_reason "cancel", no result),
+             prefix-cache repeats; every stream put together equal to its
+             final text; TTFT p50 and output tokens/s as the stand-in sees
+             them; launch counters from 0 over the main path:
+             flash_prefill, ragged_attention and both KV writes launched,
+             no plain version on the card. Then a worker killed
+             mid-decode (its bus silenced, its generation dropped) and its
+             job resumed from the last snapshot on a second WorkerService:
+             in bf16 a reading, in float32 byte-identical to the
+             undisturbed run with the same eval_count. The output columns
+             of ids the byte tokenizer does not print as ASCII are zeroed
+             (_printable_head), so streams carry text.
+7. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
              in float32 serves a prompt cold, then again from the prefix
              cache, and the greedy streams must be identical; then, in
              bf16, each operation of a replayed prompt row and of a decode
@@ -80,10 +101,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              group region alone vs beside a chunk, norms and projections
              in 8-, 1024- and 1032-row products), to show where bf16
              rounding departs between batch contexts.
-7. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
+8. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
              accepted gives the same greedy stream with speculative
              decoding on and off, with ragged attention on and off.
-8. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
+9. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
              int8 leg against its plain version (the pool dequantized
              through gather_kv) in bf16 and float32 compute, q scaled by 4
              and held to the row-relative error, per-row scales spanning
@@ -107,7 +128,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              none on the CUDA cores, flash_prefill, and no write kernel
              (int8 writes are indexed assignments) nor per-phase kernel;
              pool bytes per page 0.502x bf16's.
-9. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
+10. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
              the engine's defaults and its runner thread live serving
              eight concurrent requests inside an InferenceEngine.profile()
              capture (torch.profiler, CPU and CUDA activity), then eight
@@ -115,7 +136,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              mid-decode, then a capture the engine did not start, which
              must be refused; faulthandler on. Fails if a child dies by a
              signal or fails a check.
-10. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
+11. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
              against its blocked plain version (bf16 at T = 32768 with
              seq_len 24001 and 32768, float32 at T = 16384, D = 64,
              window and softcap, G = 7 at T = 20000), the ported kernels
@@ -132,7 +153,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              serving a 24001-token prompt whole in the 32768 bucket beside
              a short request (32 flash_prefill_streamed launches), and its
              warm repeat as one 32768-row mixed-step chunk.
-11. tree   — draft-model tree speculation: ragged_attention's tree leg
+12. tree   — draft-model tree speculation: ragged_attention's tree leg
              against its plain version (ragged_paged_attention_ref with
              tree_pos/tree_mask), q scaled by 4 and held to the
              row-relative error, in bf16 and float32 compute, fp and int8
@@ -155,7 +176,7 @@ Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,replay,spec,int8,profiler,long,tree]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,int8,profiler,long,tree]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -183,8 +204,8 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
-ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "replay", "spec", "int8",
-              "profiler", "long", "tree")
+ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "replay", "spec",
+              "int8", "profiler", "long", "tree")
 
 
 def emit(obj: dict) -> None:
@@ -1146,6 +1167,20 @@ def phase_timing(torch) -> dict:
         "library_device_ms": device_ms(torch, lib_decode),
         "bound_ms": b, "bound_by": op,
     }
+
+    # its launch floor: the same kernel at 1 layer x 1 row, device time from
+    # the profiler, read in two turns beside the main path's 32 x 8
+    def one_row():
+        ck.paged_write_decode(kp[:1], vp[:1], kn[:1, :1], vn[:1, :1], table[:1],
+                              positions[:1], active[:1], PS)
+
+    floor = [(device_ms(torch, kernel_decode), device_ms(torch, one_row)) for _ in range(2)]
+    res["paged_write_decode"]["launch_floor"] = {
+        "device_ms_32x8": [t for t, _ in floor], "device_ms_1x1": [t for _, t in floor],
+        "ratio_32x8_over_1x1": (statistics.median(t for t, _ in floor)
+                                / statistics.median(t for _, t in floor)),
+        "bound_ms_1x1": bound_ms(2 * 2 * row_bytes, 0)[0],
+    }
     t = 1024
     row = table[0]
     kn, vn = inp.randn(n_layers, t, KVH, D, dtype=bf16), inp.randn(n_layers, t, KVH, D, dtype=bf16)
@@ -1583,6 +1618,461 @@ def phase_serve(torch) -> dict:
         "launches": {k: settings[carrier]["launches"][k] for k, carrier in _CARRIER.items()},
         "launches_from": _CARRIER, "peak_memory_gb": peak_gb,
     }
+
+
+# ---------------------------------------------------------------------------
+# worker: the port's WorkerService on the port's in-memory bus
+# ---------------------------------------------------------------------------
+
+WORKER_MODEL = "llama3:8b"
+WORKER_ID = "smoke-worker"
+# decode progress (snapshot tokens) before the kill
+KILL_AFTER_TOKENS = 24
+
+
+class _DeadableBus:
+    """A worker's view of the bus. Setting `dead` is a SIGKILL as the
+    cluster sees it: every publish, hash write and heartbeat key of this
+    worker vanishes (tests/test_fault_tolerance.py's PartitionableBus)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.dead = False
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    async def publish(self, channel, message):
+        return 0 if self.dead else await self._inner.publish(channel, message)
+
+    async def hset(self, key, field, value):
+        if not self.dead:
+            await self._inner.hset(key, field, value)
+
+    async def set_with_expiry(self, key, value, ttl_s):
+        if not self.dead:
+            await self._inner.set_with_expiry(key, value, ttl_s)
+
+
+class _Job:
+    """One job as the stand-in sees it: the text its stream frames put
+    together (a frame's offset trims what the client already has, as the
+    gateway does), the time to its first frame, and its JobResult."""
+
+    def __init__(self, req, loop):
+        self.req, self.text = req, ""
+        self.t_submit = self.t_first = None
+        self.frames = 0
+        self.result = loop.create_future()
+        self.subs: list = []
+
+    async def on_frame(self, _ch, raw):
+        from gridllm_torch.utils.types import StreamChunk
+
+        chunk = StreamChunk.model_validate_json(raw)
+        if not chunk.response:
+            return
+        self.frames += 1
+        if self.t_first is None:
+            self.t_first = time.perf_counter()
+        off = len(self.text) if chunk.offset is None else chunk.offset
+        check(off <= len(self.text), f"worker: job {self.req.id} stream has a gap "
+                                     f"(frame at {off}, {len(self.text)} chars so far)")
+        self.text += chunk.response[len(self.text) - off:]
+
+    async def on_result(self, _ch, raw):
+        from gridllm_torch.utils.types import JobResult
+
+        if not self.result.done():
+            self.result.set_result(JobResult.model_validate_json(raw))
+
+
+class _StandIn:
+    """The scheduler's part on the bus, as the worker phase needs it (the
+    smoke run may not import the JAX package's scheduler): assignments on
+    `worker_job_channel`, frames from `job_stream_channel`, results from
+    `job_result_channel` and `job:failed` (NACKs included), the newest
+    resume snapshot per job from `job:snapshot`, and cancellations."""
+
+    def __init__(self, bus):
+        self.bus = bus
+        self.jobs: dict[str, _Job] = {}
+        self.snapshots: dict[str, dict] = {}
+
+    async def start(self):
+        from gridllm_torch.bus.base import CH_JOB_FAILED, CH_JOB_SNAPSHOT
+
+        await self.bus.subscribe(CH_JOB_SNAPSHOT, self._on_snapshot)
+        await self.bus.subscribe(CH_JOB_FAILED, self._on_failed)
+
+    async def _on_snapshot(self, _ch, raw):
+        snap = json.loads(raw)
+        prev = self.snapshots.get(snap["jobId"])
+        if prev is None or len(snap["tokens"]) >= len(prev["tokens"]):
+            self.snapshots[snap["jobId"]] = snap
+
+    async def _on_failed(self, _ch, raw):
+        job = self.jobs.get(json.loads(raw)["jobId"])
+        if job is not None:
+            await job.on_result(_ch, raw)
+
+    async def submit(self, worker_id, req, job=None):
+        """Assign `req` to `worker_id`; a resubmission passes its _Job, so
+        the text put together so far carries on."""
+        import asyncio
+
+        from gridllm_torch.bus.base import (
+            job_result_channel,
+            job_stream_channel,
+            worker_job_channel,
+        )
+        from gridllm_torch.utils.types import JobAssignment
+
+        if job is None:
+            job = self.jobs[req.id] = _Job(req, asyncio.get_running_loop())
+            job.subs = [await self.bus.subscribe(job_stream_channel(req.id), job.on_frame),
+                        await self.bus.subscribe(job_result_channel(req.id), job.on_result)]
+        else:
+            job.req, job.result = req, asyncio.get_running_loop().create_future()
+        job.t_submit = time.perf_counter()
+        assignment = JobAssignment(jobId=req.id, workerId=worker_id, request=req)
+        await self.bus.publish(worker_job_channel(worker_id), json.dumps(
+            {"type": "job_assignment", "job": assignment.model_dump()}))
+        return job
+
+    async def cancel(self, worker_id, job_id):
+        from gridllm_torch.bus.base import worker_job_channel
+
+        await self.bus.publish(worker_job_channel(worker_id), json.dumps(
+            {"type": "job_cancellation", "jobId": job_id}))
+
+
+def _worker_request(rid, n, prompt=None, messages=None, resume=None):
+    from gridllm_torch.utils.types import InferenceRequest
+
+    md = {"requestType": "chat" if messages else "inference"}
+    if resume is not None:
+        md["resume"] = resume
+    return InferenceRequest(id=rid, model=WORKER_MODEL, prompt=prompt, messages=messages,
+                            stream=True, options={"temperature": 0, "num_predict": n},
+                            metadata=md)
+
+
+def _final_text(res) -> str:
+    r = res.response
+    return (r.message or {}).get("content", "") if r.message else (r.response or "")
+
+
+class _PlainWatch:
+    """Counts calls of the kernels' plain versions (KERNELS `plain`) with a
+    tensor on the card, wherever the port's modules bind them: the main
+    path runs none of them."""
+
+    def __init__(self, torch):
+        from gridllm_torch.models import llama
+        from gridllm_torch.ops import attention, cuda_kernels, kvcache
+        from gridllm_torch.ops.kernels import KERNELS
+
+        self.torch = torch
+        names = {spec.plain.split(":")[1] for spec in KERNELS} | {"paged_attention_verify_ref"}
+        self.counts = dict.fromkeys(sorted(names), 0)
+        self.patched = [(mod, name, getattr(mod, name))
+                        for mod in (attention, kvcache, cuda_kernels, llama)
+                        for name in names if hasattr(mod, name)]
+
+    def _wrap(self, name, fn):
+        def watched(*args, **kwargs):
+            if any(isinstance(a, self.torch.Tensor) and a.is_cuda
+                   for a in (*args, *kwargs.values())):
+                self.counts[name] += 1
+            return fn(*args, **kwargs)
+        return watched
+
+    def __enter__(self):
+        for mod, name, fn in self.patched:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.patched:
+            setattr(mod, name, fn)
+
+
+def _capture_results(engine) -> dict:
+    """The engine's own result of every request (done_reason, cached tokens)
+    by request id, from a wrapper around its submit."""
+    results: dict = {}
+    submit = engine.submit
+
+    def wrapped(req):
+        user_cb = req.on_chunk
+
+        def cb(delta, done, res):
+            if done and res is not None:
+                results[req.id] = res
+            if user_cb:
+                user_cb(delta, done, res)
+
+        req.on_chunk = cb
+        submit(req)
+
+    engine.submit = wrapped
+    return results
+
+
+async def _wait(cond, what: str, timeout_s: float = 300.0) -> None:
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout_s, f"worker: timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+async def _kill_and_resume(bus, standin, engine, workers, tag, prompt, n):
+    """An undisturbed greedy job alone on the engine, then the same job
+    again, its worker killed (its bus goes dead, and the engine drops the
+    generation, as the killed process would) once its snapshot holds
+    KILL_AFTER_TOKENS tokens; the stand-in resubmits it to a second
+    WorkerService on the same engine with the last snapshot as
+    metadata.resume. Returns the undisturbed and the resumed runs."""
+    import asyncio
+
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    victim = workers[0]
+    ref = await standin.submit(victim.worker_id, _worker_request(f"{tag}-ref", n, prompt))
+    ref_res = await asyncio.wait_for(ref.result, 600)
+    check(ref_res.success and ref.text == _final_text(ref_res),
+          f"worker {tag}: undisturbed run {ref_res.error}")
+    rid = f"{tag}-kill"
+    job = await standin.submit(victim.worker_id, _worker_request(rid, n, prompt))
+    await _wait(lambda: len(standin.snapshots.get(rid, {}).get("tokens", ())) >= KILL_AFTER_TOKENS,
+                f"{tag}: decode progress before the kill")
+    victim.bus.dead = True
+    engine.cancel(rid)
+    await bus.flush()   # frames published before the kill reach the stand-in
+    delivered = len(job.text)
+    snap = standin.snapshots[rid]
+    survivor = WorkerService(bus, {WORKER_MODEL: engine},
+                             WorkerConfig(worker_id=f"{WORKER_ID}-{tag}-2",
+                                          heartbeat_interval_ms=1000), stream_flush_ms=20)
+    await survivor.start()
+    workers.append(survivor)
+    resume = {"tokens": snap["tokens"], "seed": snap["seed"], "sentChars": delivered}
+    await standin.submit(survivor.worker_id, _worker_request(rid, n, prompt, resume=resume),
+                         job=job)
+    res = await asyncio.wait_for(job.result, 600)
+    check(res.success, f"worker {tag}: resumed run failed: {res.error}")
+    return {"undisturbed": ref_res, "undisturbed_text": ref.text, "resumed": res,
+            "resumed_text": job.text, "snapshot_tokens": len(snap["tokens"]),
+            "delivered_chars_at_kill": delivered}
+
+
+async def _worker_serve(torch, engine) -> dict:
+    import asyncio
+    import random
+
+    from gridllm_torch.bus import InMemoryBus
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker import service as wsvc
+    from gridllm_torch.worker.service import WorkerService
+
+    results = _capture_results(engine)
+    bus = InMemoryBus()
+    await bus.connect()
+    standin = _StandIn(bus)
+    await standin.start()
+    worker = WorkerService(_DeadableBus(bus), {WORKER_MODEL: engine},
+                           WorkerConfig(worker_id=WORKER_ID, heartbeat_interval_ms=1000),
+                           stream_flush_ms=20)
+    await worker.start()
+    workers = [worker]
+    rng = random.Random(SEED + 7)
+    try:
+        # eight concurrent streams, generate and chat: a prompt longer than
+        # one chunk (1,500 byte tokens > 1,024: mixed admission), the rest a
+        # few hundred tokens; one long job is cancelled mid-stream
+        prompts = [_prompt(rng, n) for n in (300, 450, 200, 600, 350, 500, 1500)]
+        wave = [_worker_request(f"w{i}", n, prompt=p)
+                for i, (p, n) in enumerate(zip(prompts[:4], (96, 64, 80, 72)))]
+        wave += [_worker_request(f"c{i}", n, messages=[{"role": "user", "content": p}])
+                 for i, (p, n) in enumerate(zip(prompts[4:6], (64, 96)))]
+        wave.append(_worker_request("long", 64, prompt=prompts[6]))
+        wave.append(_worker_request("cancel", 400, prompt=_prompt(rng, 250)))
+        # warm-up, not measured: the first model calls of the process pay
+        # one-time costs (library handles, first launches of each shape)
+        for i, n in enumerate((300, 1500)):
+            warm = await standin.submit(WORKER_ID, _worker_request(f"warm{i}", 8,
+                                                                   prompt=_prompt(rng, n)))
+            res = await asyncio.wait_for(warm.result, 600)
+            check(res.success, f"worker: warm-up {res.error}")
+        ck.reset_launch_counts()
+        with _PlainWatch(torch) as plain:
+            t0 = time.perf_counter()
+            jobs = [await standin.submit(WORKER_ID, req) for req in wave]
+            # the ninth assignment finds every slot taken: NACKed
+            await _wait(lambda: worker.current_jobs == worker.max_concurrent,
+                        "eight jobs executing")
+            over = await standin.submit(WORKER_ID, _worker_request("over", 16, prompt="x"))
+            nack = await asyncio.wait_for(over.result, 60)
+            check(not nack.success and nack.nack and "capacity" in (nack.error or ""),
+                  f"worker: the ninth job was not NACKed: {nack.model_dump()}")
+            cancel_job = jobs[-1]
+            await _wait(lambda: cancel_job.frames >= 3, "the cancel job's stream")
+            await standin.cancel(WORKER_ID, "cancel")
+            await _wait(lambda: "cancel" in results, "the cancelled generation")
+            check(results["cancel"].done_reason == "cancel",
+                  f"worker: cancel ended {results['cancel'].done_reason!r}")
+            served = [await asyncio.wait_for(j.result, 600) for j in jobs[:-1]]
+            wall = time.perf_counter() - t0
+            await _wait(lambda: worker.current_jobs == 0, "the cancelled job's end")
+            check(not cancel_job.result.done(), "worker: the cancelled job published a result")
+            for job, res in zip(jobs, served):
+                n = job.req.options["num_predict"]
+                ev = res.response.eval_count if res.success else None
+                check(res.success and (ev == n or (res.response.done_reason == "stop" and ev < n)),
+                      f"worker: job {job.req.id} {res.error or ''} ({ev} of {n} tokens)")
+                check(job.text == _final_text(res),
+                      f"worker: job {job.req.id} stream differs from its final text")
+            check(results["long"].prompt_eval_count > engine._chunk_len,
+                  "worker: the long prompt fit in one chunk")
+            # a repeat of a generate and of a chat prompt: prefix cache hits
+            repeats = [await standin.submit(WORKER_ID, _worker_request("w0-again", 16,
+                                                                       prompt=prompts[0])),
+                       await standin.submit(WORKER_ID, _worker_request(
+                           "c0-again", 16, messages=[{"role": "user", "content": prompts[4]}]))]
+            for job in repeats:
+                res = await asyncio.wait_for(job.result, 600)
+                check(res.success and results[job.req.id].cached_tokens > 0,
+                      f"worker: repeat {job.req.id} missed the prefix cache")
+            launches = ck.launch_counts()
+            bf16_resume = await _kill_and_resume(bus, standin, engine, workers, "bf16",
+                                                 _prompt(rng, 400), 96)
+        check(not any(plain.counts.values()),
+              f"worker: a plain version ran on the card: {plain.counts}")
+        for name in ("flash_prefill", "ragged_attention", "paged_write_decode",
+                     "paged_write_chunk"):
+            check(launches[name] > 0, f"worker: {name} never launched: {launches}")
+        ttft = [(j.t_first - j.t_submit) * 1e3 for j in jobs[:-1]]
+        tokens = sum(r.response.eval_count for r in served)
+        u, r = bf16_resume["undisturbed"], bf16_resume["resumed"]
+        same = 0
+        for a, b in zip(bf16_resume["resumed_text"], bf16_resume["undisturbed_text"]):
+            if a != b:
+                break
+            same += 1
+        return {
+            "jobs": len(served), "nacked": 1, "cancelled": 1,
+            "ttft_ms_p50": statistics.median(ttft), "ttft_ms": ttft,
+            "output_tokens": tokens, "wall_s": wall, "output_tokens_per_s": tokens / wall,
+            "long_prompt_tokens": results["long"].prompt_eval_count,
+            "repeat_cached_tokens": [results[j.req.id].cached_tokens for j in repeats],
+            "jobs_total": {e: wsvc._JOBS_TOTAL.value(event=e)
+                           for e in ("completed", "nacked", "cancelled")},
+            "launches": launches, "plain_calls_on_card": plain.counts,
+            # bf16, a reading: the resumed admission computes the rows after
+            # its last cached page in a chunk, not in the decode steps that
+            # made them, so bf16 rounding can depart from the undisturbed
+            # stream (as the serve phase's warm repeats do); byte identity
+            # is held in float32 below, as the replay phase holds warm ==
+            # cold
+            "bf16_resume": {
+                "snapshot_tokens": bf16_resume["snapshot_tokens"],
+                "delivered_chars_at_kill": bf16_resume["delivered_chars_at_kill"],
+                "equals_undisturbed": bf16_resume["resumed_text"] ==
+                bf16_resume["undisturbed_text"],
+                "stream_is_final_text": bf16_resume["resumed_text"] == _final_text(r),
+                "chars_matching": f"{same}/{len(bf16_resume['undisturbed_text'])}",
+                "eval_counts": [u.response.eval_count, r.response.eval_count]},
+        }
+    finally:
+        for w in reversed(workers):
+            await w.stop(announce=False)
+        await bus.disconnect()
+
+
+async def _worker_resume_f32(engine) -> dict:
+    from gridllm_torch.bus import InMemoryBus
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    import random
+
+    bus = InMemoryBus()
+    await bus.connect()
+    standin = _StandIn(bus)
+    await standin.start()
+    worker = WorkerService(_DeadableBus(bus), {WORKER_MODEL: engine},
+                           WorkerConfig(worker_id=f"{WORKER_ID}-f32",
+                                        heartbeat_interval_ms=1000), stream_flush_ms=20)
+    await worker.start()
+    workers = [worker]
+    try:
+        out = await _kill_and_resume(bus, standin, engine, workers, "f32",
+                                     _prompt(random.Random(SEED + 8), 400), 96)
+    finally:
+        for w in reversed(workers):
+            await w.stop(announce=False)
+        await bus.disconnect()
+    u, r = out["undisturbed"], out["resumed"]
+    check(out["resumed_text"] == _final_text(r),
+          "worker: the float32 resumed stream is not its final text")
+    check(out["resumed_text"] == out["undisturbed_text"],
+          "worker: the float32 resumed stream differs from the undisturbed run")
+    check(r.response.eval_count == u.response.eval_count,
+          f"worker: eval_count {r.response.eval_count} after the resume, "
+          f"{u.response.eval_count} undisturbed")
+    return {"snapshot_tokens": out["snapshot_tokens"],
+            "delivered_chars_at_kill": out["delivered_chars_at_kill"],
+            "eval_count": r.response.eval_count, "equals_undisturbed": True,
+            "resumed_by": r.workerId}
+
+
+def _printable_head(torch, engine) -> None:
+    """Zero the output columns of every id the byte tokenizer does not print
+    as one ASCII character (bytes 128-255, BOS, EOS and the ids past them):
+    greedy then picks ASCII bytes, so each token streams a character, as a
+    trained model's text does. With all 128,256 columns random, almost
+    every token is an id past the bytes that decodes to nothing, and the
+    streams the worker publishes would be empty."""
+    with torch.no_grad():
+        engine.model.lm_head[:, 128:] = 0
+
+
+def phase_worker(torch) -> dict:
+    """llama3:8b bf16 with the engine's defaults behind the port's
+    WorkerService on the port's InMemoryBus, a stand-in scheduler on the
+    other side: eight concurrent generate and chat streams (one prompt
+    longer than a chunk), a ninth assignment NACKed, a cancel mid-stream,
+    prefix-cache repeats, and a worker killed mid-decode whose job resumes
+    on a second WorkerService from its last snapshot; the same kill in
+    float32, where the resumed stream must equal the undisturbed one byte
+    for byte. The launch counters are 0 before the main path and read
+    after it; no plain version runs on the card."""
+    import asyncio
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model=WORKER_MODEL), device="cuda")
+    _printable_head(torch, engine)
+    out = asyncio.run(_worker_serve(torch, engine))
+    check(not engine.running, "worker: the engine's runner did not stop")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model=WORKER_MODEL, dtype="float32"), device="cuda")
+    _printable_head(torch, engine)
+    out["f32_resume"] = asyncio.run(_worker_resume_f32(engine))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "worker", "model": WORKER_MODEL, "dtype": "bfloat16",
+            "device": torch.cuda.get_device_name(0), "card": card_line(), **out}
 
 
 def _replay_rounding(torch) -> dict:
@@ -2150,7 +2640,7 @@ def phase_int8(torch) -> dict:
 # profiler: the engine's runner thread live under torch.profiler
 # ---------------------------------------------------------------------------
 
-PROFILER_RUNS = 3
+PROFILER_RUNS = 2   # two keep the whole run near half its time limit
 PROFILER_MID_FLIGHT = 4   # captures opened and closed while a batch decodes
 
 
@@ -3105,7 +3595,8 @@ def main() -> int:
             out = phase_build()
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
-                   "serve": phase_serve, "replay": phase_replay, "spec": phase_spec,
+                   "serve": phase_serve, "worker": phase_worker, "replay": phase_replay,
+                   "spec": phase_spec,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
                    "tree": phase_tree}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0

@@ -226,6 +226,22 @@ class GenerationRequest:
     prompt_ids: list[int] | None = None  # pre-tokenized (Ollama `context` path)
     options: dict[str, Any] = dataclasses.field(default_factory=dict)
     raw: bool = False                    # skip BOS when prompt_ids is None
+    # base64 images and disaggregated-prefill export: fields of the JAX
+    # engine's request that this engine refuses, non-retryably, until the
+    # vision path and KV transfer are ported
+    images: list[str] | None = None
+    export_only: bool = False
+    # decode resume: token ids a previous attempt already generated. They
+    # join the prompt for prefill and allocation but seed the slot's
+    # generated state (detokenizer, stops, num_predict, eval_count), and the
+    # sampler's (seed, step) chain restarts at step = len(resume_ids), so a
+    # greedy or seeded stream continues as the undisturbed run would
+    resume_ids: list[int] | None = None
+    # chars of the resumed text already delivered: emission restarts past them
+    resume_sent: int = 0
+    # write the (generated ids, text) resume watermark every N surviving
+    # tokens (0 = never)
+    snapshot_every: int = 0
     # called from the engine loop: (text_delta, done, result|None)
     on_chunk: Callable[[str, bool, "GenerationResult | None"], None] | None = None
 
@@ -250,6 +266,10 @@ class GenerationResult:
     # request's verify steps (both 0 with speculation off)
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # usage attribution: this request's share of the decode steps' device
+    # seconds, and KV page occupancy (pages held x resident wall seconds)
+    decode_device_s: float = 0.0
+    kv_page_s: float = 0.0
 
 
 class _Slot:
@@ -257,7 +277,8 @@ class _Slot:
         "req", "ids", "prompt_len", "generated", "detok", "text", "emitted_len",
         "num_predict", "stop_seqs", "eos_ids", "capacity", "joined_gen",
         "cached_tokens", "t_start", "t_prefill_ns", "t_first_decode",
-        "t_last_ingest", "spec_proposed", "spec_accepted",
+        "t_last_ingest", "spec_proposed", "spec_accepted", "snapshot",
+        "t_admit_wall", "pages_held", "device_s",
     )
 
     def __init__(self, req: GenerationRequest, ids: list[int], capacity: int,
@@ -284,6 +305,14 @@ class _Slot:
         self.t_last_ingest = 0.0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # last consistent (generated ids, text) pair: the resume watermark.
+        # Written only by the engine thread, as one tuple per surviving
+        # token at the request's cadence, so a reader on another thread
+        # always sees a matched pair
+        self.snapshot: tuple[list[int], str] | None = None
+        self.t_admit_wall = time.time()
+        self.pages_held = 0              # KV pages allocated to this slot
+        self.device_s = 0.0              # accumulated decode device-second share
 
     def holdback(self) -> int:
         """Chars at the tail of `text` that could still become a stop
@@ -341,6 +370,10 @@ class InferenceEngine:
         self._tree_width = max(int(config.spec_tree_width), 1)
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0,
                            "draft_ns": 0}
+        self._t_prev_fetch: float | None = None
+        # the JAX engine's flag for its embedding models; this engine
+        # serves generation only
+        self.embedding_only = False
 
         t0 = time.perf_counter_ns()
         self.model = Llama(self.cfg, dtype=self.dtype, device=self.device,
@@ -580,7 +613,20 @@ class InferenceEngine:
             if not self._pending or not self._free_slots:
                 return False
             req = self._pending.popleft()
+        if req.images:
+            self._fail(req, "images are not served by the torch engine yet (the vision "
+                            "path, ROADMAP A 8)", retryable=False)
+            return True
+        if req.export_only:
+            self._fail(req, "export_only admission needs KV transfer, not ported to the "
+                            "torch engine yet (ROADMAP A 4)", retryable=False)
+            return True
         ids = self._tokenize(req)
+        # decode resume: the tokens a previous attempt generated join the
+        # prompt for prefill and allocation (a cached prefix covers them)
+        # but seed the slot's generated state below
+        resume = [int(t) for t in req.resume_ids or []]
+        ids = ids + resume
         opts = req.options or {}
         num_ctx = int(opts.get("num_ctx") or 0)
         eff_ctx = min(num_ctx, self.max_context) if num_ctx > 0 else self.max_context
@@ -588,7 +634,9 @@ class InferenceEngine:
         if len(ids) >= eff_ctx:
             ids = ids[-(eff_ctx - 1):]  # Ollama truncates from the left
         num_predict = int(opts.get("num_predict", -1))
-        want = len(ids) + num_predict if num_predict >= 0 else eff_ctx
+        # resumed tokens are already in `ids`: reserve only the remaining
+        # budget, so a resume reserves what the original admission did
+        want = len(ids) + max(num_predict - len(resume), 0) if num_predict >= 0 else eff_ctx
         want = min(max(want, len(ids) + 1), eff_ctx)
         if not self.alloc.fits_slot_cap(want):
             self._fail(req, f"context {want} exceeds slot capacity")
@@ -607,6 +655,14 @@ class InferenceEngine:
         stop = opts.get("stop") or []
         stop_seqs = [stop] if isinstance(stop, str) else list(stop)
         st = _Slot(req, ids, want, num_predict, stop_seqs, self.tokenizer.eos_ids)
+        if resume:
+            # continue, don't restart: generated, text and the stop checks
+            # pick up where the lost attempt stopped, and emission resumes
+            # past the chars the client already has
+            st.prompt_len = max(len(ids) - len(resume), 0)
+            st.generated = list(resume)
+            st.text = st.detok.delta(self.tokenizer, st.generated)
+            st.emitted_len = max(int(req.resume_sent or 0), 0)
         seed = opts.get("seed")
         if seed is None:
             seed = self._rng.getrandbits(31)
@@ -622,11 +678,17 @@ class InferenceEngine:
             "repeat_penalty": float(opts.get("repeat_penalty", 1.1)),
             "repeat_last_n": min(rl, self.config.repeat_window),
             "seed": int(seed) & 0x7FFFFFFF,
-            "step": 0,
+            # the (seed, step) chain restarts at the draws the lost attempt
+            # consumed
+            "step": len(resume),
         }
-        st.cached_tokens = cached
+        # a warm resume's match can cover resumed tokens too; cached_tokens
+        # counts prompt tokens only
+        st.cached_tokens = min(cached, st.prompt_len)
+        row_list = self.alloc.table_row(slot)
+        st.pages_held = len(row_list)
         t0 = time.perf_counter_ns()
-        self._dispatch_prefill(slot, ids, self.alloc.table_row(slot), upd, cached)
+        self._dispatch_prefill(slot, ids, row_list, upd, cached)
         st.t_prefill_ns = time.perf_counter_ns() - t0
         st.joined_gen = self._gen + 1  # first block dispatched after this
         self._slots[slot] = st
@@ -668,7 +730,7 @@ class InferenceEngine:
             out = out.to("cpu", non_blocking=True)  # pinned, asynchronous
             event = torch.cuda.Event()
             event.record()
-        self._inflight.append((self._gen, out, event, k))
+        self._inflight.append((self._gen, out, event, k, time.perf_counter()))
 
     def _dispatch_block(self, k: int) -> None:
         self._gen += 1
@@ -681,10 +743,25 @@ class InferenceEngine:
 
     def _fetch_oldest(self) -> None:
         """Wait for the oldest in-flight block's tokens and ingest them."""
-        gen, host, event, _k = self._inflight.popleft()
+        gen, host, event, k, t_disp = self._inflight.popleft()
         if event is not None:
             event.synchronize()
+        self._observe_device_step(t_disp, k)
         self._ingest_block(gen, host.numpy())
+
+    def _observe_device_step(self, t_disp: float, k: int) -> None:
+        """Split a fetched block's device time evenly over the slots that
+        shared it (usage attribution, as the JAX engine does). With another
+        block in flight when this fetch completed, the device never idled
+        between blocks, so consecutive fetches pace at the block's time;
+        otherwise dispatch-to-fetch wall is the upper bound."""
+        now = time.perf_counter()
+        prev, self._t_prev_fetch = self._t_prev_fetch, now
+        dev = now - (prev if prev is not None and self._inflight else t_disp)
+        if self._slots:
+            share = max(dev, 0.0) / len(self._slots)
+            for st in self._slots.values():
+                st.device_s += share
 
     def _ingest_block(self, gen: int, tok_np: np.ndarray) -> None:
         """Feed one fetched [k+1, S] block through per-token bookkeeping.
@@ -733,9 +810,11 @@ class InferenceEngine:
                 dlen[slot] = len(prop)
                 drafts[slot, :len(prop)] = prop
         self._gen += 1
+        t_disp = time.perf_counter()
         out = self._verify_block(torch.from_numpy(drafts).to(self.device),
                                  torch.from_numpy(dlen).to(self.device))
         host = out.cpu().numpy()   # the spec path's one fetch per step
+        self._observe_device_step(t_disp, 1)
         self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
 
     def _step_spec_tree(self, k: int) -> None:
@@ -778,9 +857,11 @@ class InferenceEngine:
             # siblings are a second chance, not more proposals)
             dlen[slot] = depth
         self._gen += 1
+        t_disp = time.perf_counter()
         out = self._verify_tree_block(torch.from_numpy(drafts).to(self.device),
                                       torch.from_numpy(valid).to(self.device))
         host = out.cpu().numpy()   # the one fetch per step
+        self._observe_device_step(t_disp, 1)
         self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
 
     def _ingest_spec(self, gen: int, tok_np: np.ndarray, n_emit: np.ndarray,
@@ -845,6 +926,12 @@ class InferenceEngine:
         if done_reason is not None:
             self._finish(slot, st, done_reason)
             return
+        # the token survived (a verify's rejected drafts never reach here):
+        # write the resume watermark at the request's cadence. A finishing
+        # token is left out, so a resume always has a token left to make
+        cadence = st.req.snapshot_every
+        if cadence > 0 and len(st.generated) % cadence == 0:
+            st.snapshot = (list(st.generated), st.text)
         # emit finalized text only: hold back what may become a stop sequence
         safe = len(st.text) - st.holdback()
         if safe > st.emitted_len and st.req.on_chunk:
@@ -864,6 +951,8 @@ class InferenceEngine:
             eval_duration_ns=(now - st.t_first_decode) if st.t_first_decode else 0,
             load_duration_ns=self.load_duration_ns, total_duration_ns=now - st.t_start,
             spec_proposed=st.spec_proposed, spec_accepted=st.spec_accepted,
+            decode_device_s=st.device_s,
+            kv_page_s=max(st.pages_held, 1) * max(time.time() - st.t_admit_wall, 0.0),
         )
         self.active[slot] = False
         # register the full pages of the final context for reuse, minus the
@@ -1116,20 +1205,27 @@ class InferenceEngine:
             n += 1
         return n
 
-    def cancel(self, req_id: str) -> bool:
-        """Cancel a pending or running request; its on_chunk gets a final
-        done with done_reason 'cancel'. A running slot finishes at the
-        driving thread's next block boundary."""
+    def resolve_seed(self) -> int:
+        """A sampler seed from the engine-seeded RNG, the stream admission
+        draws from for unseeded requests: a worker resolves the seed before
+        submitting so its resume watermark can carry it."""
+        return int(self._rng.getrandbits(31))
+
+    def _request_finish(self, req_id: str, op: str) -> bool:
+        """Finish a pending or running request with done_reason `op`. A
+        pending one leaves the queue here; a running slot finishes at the
+        driving thread's next block boundary (only that thread touches
+        device state)."""
         with self._lock:
             for i, r in enumerate(self._pending):
                 if r.id == req_id:
                     del self._pending[i]
                     if r.on_chunk:
-                        r.on_chunk("", True, GenerationResult(id=req_id, done_reason="cancel"))
+                        r.on_chunk("", True, GenerationResult(id=req_id, done_reason=op))
                     return True
         for st in list(self._slots.values()):
             if st.req.id == req_id:
-                self._ctl.append(("cancel", req_id))
+                self._ctl.append((op, req_id))
                 if not self.running:
                     self._drain_ctl()
                 else:
@@ -1138,9 +1234,58 @@ class InferenceEngine:
                 return True
         return False
 
+    def cancel(self, req_id: str) -> bool:
+        """Cancel a pending or running request; its on_chunk gets a final
+        done with done_reason 'cancel'."""
+        return self._request_finish(req_id, "cancel")
+
+    def suspend(self, req_id: str) -> bool:
+        """Suspend a pending or running request for a drain or a preemption:
+        it finishes with done_reason 'suspend' and a result that carries what
+        a resume needs (context, generated ids, text); its pages register in
+        the prefix cache as on a normal finish. A pending request suspends
+        with nothing generated."""
+        return self._request_finish(req_id, "suspend")
+
+    def decode_snapshot(self, req_id: str) -> dict[str, Any] | None:
+        """The last resume watermark of a running request, ``{"tokens":
+        [...generated ids...], "text": "..."}``, or None before the first.
+        A lock-free read of the engine thread's atomic tuple."""
+        for st in list(self._slots.values()):
+            if st.req.id == req_id:
+                snap = st.snapshot
+                if snap is None:
+                    return None
+                toks, text = snap
+                return {"tokens": list(toks), "text": text}
+        return None
+
     @property
     def free_slot_count(self) -> int:
         return len(self._free_slots)
+
+    @property
+    def active_requests(self) -> int:
+        return len(self._slots)
+
+    @property
+    def queued_requests(self) -> int:
+        return len(self._pending)
+
+    def kv_transfer_supported(self) -> bool:
+        """False until KV transfer is ported (ROADMAP A 4): a worker drains
+        and preempts by resume-requeue instead of moving pages."""
+        return False
+
+    def export_prefix_pages(self, token_ids: list[int]) -> dict[str, Any] | None:
+        raise NotImplementedError(
+            "export_prefix_pages: KV transfer is not ported to the torch engine yet "
+            "(ROADMAP A 4)")
+
+    def park_to_host(self, token_ids: list[int]) -> int:
+        raise NotImplementedError(
+            "park_to_host: the host KV tier is not ported to the torch engine yet "
+            "(ROADMAP A 4)")
 
     def memory_arrays(self) -> dict[str, Any]:
         """Device buffers and page-pool accounting for a memory probe: the

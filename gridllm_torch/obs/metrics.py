@@ -1,0 +1,331 @@
+"""Dependency-free metrics: Counter/Gauge/Histogram + Prometheus text encoding.
+
+Pure stdlib. Instruments are safe to update from
+asyncio callbacks and worker/engine threads: every metric guards its sample
+map with a ``threading.Lock`` (updates are dict writes — the lock is cheap
+and uncontended on the hot paths, which are single-writer per thread).
+
+Two registries exist in practice, mirroring the deployment split:
+
+- the process-global default registry (``default_registry()``): engine, ops
+  kernel-dispatch, bus, and worker-service instruments — everything that is
+  per-process no matter how many gateway stacks tests build;
+- per-``JobScheduler`` registries: gateway/scheduler instruments, so each
+  test (and each server instance) gets fresh zeroed counters and
+  ``get_stats()`` stays instance-scoped.
+
+``GET /metrics`` renders both, concatenated (names are disjoint by
+convention: ``gridllm_gateway_*``/``gridllm_scheduler_*``/``gridllm_workers``
+live on the scheduler registry, everything else on the default one).
+
+Exposition format: the Prometheus text format, version 0.0.4
+(https://prometheus.io/docs/instrumenting/exposition_formats/). Histograms
+are fixed-bucket cumulative with ``_bucket``/``_sum``/``_count`` series and
+an implicit ``+Inf`` bucket.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Callable, Iterable
+
+# Default latency buckets (seconds): sub-ms token steps up to multi-minute
+# cold loads. Chosen once, fixed — encoders and tests rely on them.
+LATENCY_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0,
+)
+# Occupancy/size buckets (counts): batch slots, queue depths.
+SIZE_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _format_value(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return repr(v)
+
+
+def _labels_str(names: tuple[str, ...], values: tuple[str, ...],
+                extra: tuple[tuple[str, str], ...] = ()) -> str:
+    pairs = [f'{n}="{_escape_label(v)}"' for n, v in zip(names, values)]
+    pairs += [f'{n}="{_escape_label(v)}"' for n, v in extra]
+    return "{" + ",".join(pairs) + "}" if pairs else ""
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str, labelnames: tuple[str, ...] = ()):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+
+    def _key(self, labels: dict[str, str]) -> tuple[str, ...]:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, "
+                f"got {tuple(labels)}"
+            )
+        return tuple(str(labels[n]) for n in self.labelnames)
+
+    def render(self) -> list[str]:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} {self.kind}"]
+        lines.extend(self._render_samples())
+        return lines
+
+    def _render_samples(self) -> list[str]:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def __init__(self, name: str, help: str, labelnames: tuple[str, ...] = ()):
+        super().__init__(name, help, labelnames)
+        self._values: dict[tuple[str, ...], float] = {}
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: str) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def total(self) -> float:
+        with self._lock:
+            return sum(self._values.values())
+
+    def items(self) -> list[tuple[dict[str, str], float]]:
+        """Point-in-time samples as ({label: value}, count) pairs —
+        the public iteration surface (obs/perf.py recompile_totals)."""
+        with self._lock:
+            snap = list(self._values.items())
+        return [(dict(zip(self.labelnames, key)), v) for key, v in snap]
+
+    def _render_samples(self) -> list[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return [
+            f"{self.name}{_labels_str(self.labelnames, key)} {_format_value(v)}"
+            for key, v in items
+        ]
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def __init__(self, name: str, help: str, labelnames: tuple[str, ...] = ()):
+        super().__init__(name, help, labelnames)
+        self._values: dict[tuple[str, ...], float] = {}
+
+    def set(self, value: float, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
+
+    def value(self, **labels: str) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def _render_samples(self) -> list[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return [
+            f"{self.name}{_labels_str(self.labelnames, key)} {_format_value(v)}"
+            for key, v in items
+        ]
+
+
+class Histogram(_Metric):
+    """Fixed-bucket cumulative histogram (Prometheus semantics)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str,
+                 labelnames: tuple[str, ...] = (),
+                 buckets: tuple[float, ...] = LATENCY_BUCKETS):
+        super().__init__(name, help, labelnames)
+        b = tuple(sorted(float(x) for x in buckets))
+        if not b:
+            raise ValueError("histogram needs at least one bucket")
+        self.buckets = b
+        # per label-set: ([per-bucket counts ..., +Inf count], sum)
+        self._series: dict[tuple[str, ...], tuple[list[int], float]] = {}
+
+    def observe(self, value: float, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            counts, total = self._series.get(
+                key, ([0] * (len(self.buckets) + 1), 0.0)
+            )
+            for i, ub in enumerate(self.buckets):
+                if value <= ub:
+                    counts[i] += 1
+                    break
+            else:
+                counts[-1] += 1
+            self._series[key] = (counts, total + value)
+
+    def count(self, **labels: str) -> int:
+        key = self._key(labels)
+        with self._lock:
+            counts, _ = self._series.get(key, ([], 0.0))
+            return sum(counts)
+
+    def total_count(self) -> int:
+        with self._lock:
+            return sum(sum(c) for c, _ in self._series.values())
+
+    def sum(self, **labels: str) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return self._series.get(key, ([], 0.0))[1]
+
+    def _render_samples(self) -> list[str]:
+        with self._lock:
+            items = sorted(
+                (k, (list(c), s)) for k, (c, s) in self._series.items()
+            )
+        lines: list[str] = []
+        for key, (counts, total) in items:
+            cum = 0
+            for i, ub in enumerate(self.buckets):
+                cum += counts[i]
+                ls = _labels_str(self.labelnames, key,
+                                 extra=(("le", _format_value(ub)),))
+                lines.append(f"{self.name}_bucket{ls} {cum}")
+            cum += counts[-1]
+            ls = _labels_str(self.labelnames, key, extra=(("le", "+Inf"),))
+            lines.append(f"{self.name}_bucket{ls} {cum}")
+            base = _labels_str(self.labelnames, key)
+            lines.append(f"{self.name}_sum{base} {_format_value(total)}")
+            lines.append(f"{self.name}_count{base} {cum}")
+        return lines
+
+
+class MetricsRegistry:
+    """Name-keyed metric store. ``counter()``/``gauge()``/``histogram()``
+    are get-or-create (idempotent across module reloads and repeated
+    subsystem construction); re-registering with a different type or label
+    set raises. Collectors are named callbacks run just before ``render()``
+    so gauges derived from live objects (queue depth, worker counts) are
+    point-in-time-correct without instrumenting every mutation; re-adding a
+    collector under the same name replaces it (latest stack wins in tests)."""
+
+    def __init__(self) -> None:
+        self._metrics: dict[str, _Metric] = {}
+        self._collectors: dict[str, Callable[[], None]] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, cls, name: str, help: str,
+                       labelnames: Iterable[str], **kw) -> _Metric:
+        labelnames = tuple(labelnames)
+        with self._lock:
+            existing = self._metrics.get(name)
+            if existing is not None:
+                if type(existing) is not cls or existing.labelnames != labelnames:
+                    raise ValueError(
+                        f"metric {name!r} re-registered with a different "
+                        "type or label set"
+                    )
+                want = kw.get("buckets")
+                if want is not None and existing.buckets != tuple(
+                        sorted(float(x) for x in want)):
+                    raise ValueError(
+                        f"histogram {name!r} re-registered with different "
+                        "buckets"
+                    )
+                return existing
+            metric = cls(name, help, labelnames, **kw)
+            self._metrics[name] = metric
+            return metric
+
+    def counter(self, name: str, help: str,
+                labelnames: Iterable[str] = ()) -> Counter:
+        return self._get_or_create(Counter, name, help, labelnames)
+
+    def gauge(self, name: str, help: str,
+              labelnames: Iterable[str] = ()) -> Gauge:
+        return self._get_or_create(Gauge, name, help, labelnames)
+
+    def histogram(self, name: str, help: str,
+                  labelnames: Iterable[str] = (),
+                  buckets: tuple[float, ...] = LATENCY_BUCKETS) -> Histogram:
+        return self._get_or_create(Histogram, name, help, labelnames,
+                                   buckets=buckets)
+
+    def add_collector(self, name: str, fn: Callable[[], None]) -> None:
+        with self._lock:
+            self._collectors[name] = fn
+
+    def remove_collector(self, name: str) -> None:
+        with self._lock:
+            self._collectors.pop(name, None)
+
+    def get(self, name: str) -> _Metric | None:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def render(self) -> str:
+        with self._lock:
+            collectors = list(self._collectors.values())
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a dead collector (torn-down
+                pass           # test stack) must not break the scrape
+        lines: list[str] = []
+        for m in metrics:
+            lines.extend(m.render())
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-global registry (engine/ops/bus/worker instruments)."""
+    return _DEFAULT
+
+
+def render_registries(*registries: MetricsRegistry) -> str:
+    """Concatenated exposition across registries (gateway /metrics renders
+    its scheduler's registry plus the process default)."""
+    seen: set[int] = set()
+    parts: list[str] = []
+    for reg in registries:
+        if id(reg) in seen:
+            continue
+        seen.add(id(reg))
+        text = reg.render()
+        if text:
+            parts.append(text)
+    return "".join(parts)

@@ -1,0 +1,312 @@
+"""Prompt assembly + output post-processing for the Ollama option surface.
+
+`system`, `template`, `suffix`, `format:"json"`, `think`, and `tools`
+are accepted by the gateway and stored in job metadata. The reference
+forwarded all of them to Ollama which APPLIED them
+(client/src/services/OllamaService.ts:197-226; option schema
+server/src/routes/ollama.ts:26-56). This module is where they take
+effect in the worker (the JAX package's worker/prompting.py):
+
+- `template`: a minimal Go-template subset covering the placeholders real
+  Ollama Modelfiles use: ``{{ .System }}``, ``{{ .Prompt }}``,
+  ``{{ .Suffix }}``, ``{{ .Response }}`` and conditional blocks
+  ``{{ if .X }}...{{ end }}`` (with ``{{- -}}`` whitespace trimming).
+- `system`: folded into the chat template (generate path: as the system
+  message of a two-message conversation when the tokenizer has a chat
+  template; else a plain prefix block).
+- `suffix`: substituted when the custom template references ``.Suffix``
+  (fill-in-middle models); ignored otherwise — matching Ollama, where a
+  template without suffix support simply never renders it.
+- `format` ("json" or a JSON schema object): instruction injection +
+  final-output extraction of the first balanced JSON value. DIVERGENCE:
+  Ollama enforces JSON with grammar-constrained decoding; here the
+  constraint is soft (instruction) with a hard post-extraction, and
+  streaming is buffered to the final frame so streamed bytes never
+  disagree with the extracted result.
+- `think`: ``<think>...</think>`` blocks are split into the `thinking`
+  field (Ollama: message.thinking / response.thinking). think=False asks
+  chat templates that support it (qwen3) to disable thinking.
+- `tools`: templated through the tokenizer's chat template (HF
+  ``apply_chat_template(tools=...)``); model output is parsed back into
+  structured tool calls — both the llama3 JSON form
+  (``{"name": ..., "parameters": ...}``) and the qwen/hermes
+  ``<tool_call>{...}</tool_call>`` form.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+from typing import Any
+
+from gridllm_torch.engine.tokenizer import Tokenizer
+
+# ---------------------------------------------------------------------------
+# Go-template subset
+# ---------------------------------------------------------------------------
+
+_IF_RE = re.compile(
+    r"\{\{-?\s*if\s+\.(\w+)\s*-?\}\}(.*?)\{\{-?\s*end\s*-?\}\}", re.S
+)
+_VAR_RE = re.compile(r"\{\{-?\s*\.(\w+)\s*-?\}\}")
+
+
+def render_template(template: str, fields: dict[str, str]) -> str:
+    """Render the Go-template subset Ollama Modelfiles rely on. `fields`
+    keys are capitalized placeholder names (System, Prompt, Suffix,
+    Response); missing/empty fields render as empty and fail `if` blocks."""
+
+    def do_if(m: re.Match) -> str:
+        name, body = m.group(1), m.group(2)
+        if fields.get(name):
+            return _render(body)
+        return ""
+
+    def do_var(m: re.Match) -> str:
+        return fields.get(m.group(1), "") or ""
+
+    def _render(s: str) -> str:
+        s = _IF_RE.sub(do_if, s)
+        return _VAR_RE.sub(do_var, s)
+
+    return _render(template)
+
+
+# ---------------------------------------------------------------------------
+# generate-path prompt assembly
+# ---------------------------------------------------------------------------
+
+def build_generate_prompt(
+    prompt: str,
+    tokenizer: Tokenizer,
+    system: str | None = None,
+    template: str | None = None,
+    suffix: str | None = None,
+    raw: bool = False,
+) -> str:
+    """Assemble the final model prompt for /api/generate.
+
+    raw=True bypasses all templating (Ollama: raw mode sends the prompt
+    verbatim). A custom `template` wins over the model's chat template.
+    """
+    if raw:
+        return prompt
+    if template:
+        return render_template(template, {
+            "System": system or "",
+            "Prompt": prompt,
+            "Suffix": suffix or "",
+            "Response": "",
+        })
+    if system:
+        inner = getattr(tokenizer, "_tok", None)
+        if inner is not None and getattr(inner, "chat_template", None):
+            return inner.apply_chat_template(
+                [{"role": "system", "content": system},
+                 {"role": "user", "content": prompt}],
+                tokenize=False, add_generation_prompt=True,
+            )
+        return f"<|system|>\n{system}\n<|user|>\n{prompt}\n<|assistant|>\n"
+    return prompt
+
+
+# ---------------------------------------------------------------------------
+# chat rendering with system/tools/think
+# ---------------------------------------------------------------------------
+
+def render_chat_full(
+    messages: list[dict[str, Any]],
+    tokenizer: Tokenizer,
+    tools: list[dict[str, Any]] | None = None,
+    think: Any = None,
+) -> str:
+    """Chat messages (+ optional tool definitions) → model prompt.
+
+    HF chat templates receive `tools` natively (the model's own trained
+    tool format — llama3.1 JSON, qwen hermes-style, etc.). think=False is
+    forwarded as enable_thinking=False for templates that support it
+    (qwen3); unsupported templates ignore it. The templateless fallback
+    frames tools as a system block with the llama3-style JSON calling
+    convention.
+    """
+    # normalize OpenAI-shaped history: assistant tool_calls carry
+    # arguments as a JSON string; HF templates expect objects
+    norm: list[dict[str, Any]] = []
+    for m in messages:
+        if m.get("tool_calls"):
+            m = dict(m)
+            fixed = []
+            for tc in m["tool_calls"]:
+                fn = dict(tc.get("function") or {})
+                if isinstance(fn.get("arguments"), str):
+                    try:
+                        fn["arguments"] = json.loads(fn["arguments"])
+                    except ValueError:
+                        pass
+                fixed.append({**tc, "function": fn})
+            m["tool_calls"] = fixed
+        norm.append(m)
+    messages = norm
+
+    inner = getattr(tokenizer, "_tok", None)
+    if inner is not None and getattr(inner, "chat_template", None):
+        kwargs: dict[str, Any] = {}
+        if tools:
+            kwargs["tools"] = tools
+        if think is False:
+            kwargs["enable_thinking"] = False
+        try:
+            return inner.apply_chat_template(
+                messages, tokenize=False, add_generation_prompt=True, **kwargs
+            )
+        except TypeError:  # template without tools/enable_thinking support
+            return inner.apply_chat_template(
+                messages, tokenize=False, add_generation_prompt=True
+            )
+    parts = []
+    if tools:
+        parts.append(
+            "<|system|>\nYou have access to these tools:\n"
+            + json.dumps(tools)
+            + '\nTo call a tool respond ONLY with JSON: '
+              '{"name": <tool name>, "parameters": <arguments object>}\n'
+        )
+    for m in messages:
+        role = m.get("role", "user")
+        content = m.get("content", "")
+        if isinstance(content, list):  # OpenAI content-part arrays
+            content = "".join(
+                p.get("text", "") for p in content if isinstance(p, dict)
+            )
+        if role == "tool":
+            content = f"[tool result] {content}"
+        if m.get("tool_calls"):
+            content = (content or "") + "".join(
+                json.dumps(tc.get("function", tc)) for tc in m["tool_calls"]
+            )
+        parts.append(f"<|{role}|>\n{content}\n")
+    parts.append("<|assistant|>\n")
+    return "".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# output post-processing: thinking, tool calls, JSON mode
+# ---------------------------------------------------------------------------
+
+_THINK_RE = re.compile(r"<think>(.*?)</think>\s*", re.S)
+
+
+def split_thinking(text: str) -> tuple[str | None, str]:
+    """Extract ``<think>...</think>`` into (thinking, remaining_text)."""
+    blocks = _THINK_RE.findall(text)
+    if not blocks:
+        return None, text
+    return "\n".join(b.strip() for b in blocks), _THINK_RE.sub("", text)
+
+
+_TOOL_TAG_RE = re.compile(r"<tool_call>\s*(.*?)\s*</tool_call>", re.S)
+
+
+def _normalize_call(obj: Any) -> dict[str, Any] | None:
+    """Accept {"name", "parameters"|"arguments"} (llama3 / hermes) →
+    Ollama tool_call shape {"function": {"name", "arguments"}}."""
+    if not isinstance(obj, dict):
+        return None
+    fn = obj.get("function") if isinstance(obj.get("function"), dict) else obj
+    name = fn.get("name")
+    if not isinstance(name, str) or not name:
+        return None
+    args = fn.get("parameters", fn.get("arguments", {}))
+    if isinstance(args, str):
+        try:
+            args = json.loads(args)
+        except ValueError:
+            args = {"raw": args}
+    if not isinstance(args, dict):
+        args = {"value": args}
+    return {"function": {"name": name, "arguments": args}}
+
+
+def parse_tool_calls(text: str) -> tuple[list[dict[str, Any]], str]:
+    """Parse model output into (tool_calls, remaining_content).
+
+    Handles the qwen/hermes ``<tool_call>{json}</tool_call>`` form and the
+    llama3.1 bare-JSON form (entire output is one JSON object with
+    name+parameters, possibly wrapped in a python-tag-free list).
+    """
+    calls: list[dict[str, Any]] = []
+
+    def tag_sub(m: re.Match) -> str:
+        try:
+            call = _normalize_call(json.loads(m.group(1)))
+        except ValueError:
+            return m.group(0)  # unparseable: leave in content
+        if call:
+            calls.append(call)
+            return ""
+        return m.group(0)
+
+    rest = _TOOL_TAG_RE.sub(tag_sub, text).strip()
+    if calls:
+        return calls, rest
+
+    stripped = text.strip()
+    if stripped.startswith(("{", "[")):
+        val, _, end = _first_json_value(stripped)
+        if val is not None and not stripped[end:].strip():
+            objs = val if isinstance(val, list) else [val]
+            parsed = [_normalize_call(o) for o in objs]
+            if parsed and all(p is not None for p in parsed) and all(
+                isinstance(o, dict) and ("parameters" in o or "arguments" in o
+                                         or "function" in o)
+                for o in objs
+            ):
+                return [p for p in parsed if p], ""
+    return [], text
+
+
+# ---------------------------------------------------------------------------
+# JSON mode
+# ---------------------------------------------------------------------------
+
+def _first_json_value(s: str) -> tuple[Any, int, int]:
+    """Decode the first balanced JSON value in `s`; returns
+    (value, start_index, end_index) or (None, 0, 0)."""
+    dec = json.JSONDecoder()
+    for i, ch in enumerate(s):
+        if ch in "{[":
+            try:
+                val, end = dec.raw_decode(s, i)
+                return val, i, end
+            except ValueError:
+                continue
+    return None, 0, 0
+
+
+def json_instruction(fmt: Any) -> str:
+    """The soft constraint appended for format requests.
+
+    NOTE: this instruction + extract_json below are the ENTIRE
+    ``format:"json"`` enforcement today. engine/jsonmask.py holds an
+    experimental grammar PDA for true per-step constrained decoding, but
+    it is NOT wired — the sampler has no vocabulary-mask hook — so output
+    that parses is best-effort, not guaranteed (see jsonmask's module
+    docstring before assuming otherwise)."""
+    if isinstance(fmt, dict):
+        return (
+            "\nRespond ONLY with JSON matching this JSON schema, with no "
+            "other text:\n" + json.dumps(fmt)
+        )
+    return "\nRespond ONLY with valid JSON, with no other text."
+
+
+def extract_json(text: str) -> str:
+    """Hard post-extraction for format requests: the model's own span of
+    the first balanced JSON value in the output (Ollama guarantees valid
+    JSON via grammar-constrained decoding; this is the soft-constraint
+    analogue's enforcement half). Falls back to the raw text when nothing
+    parses."""
+    val, start, end = _first_json_value(text)
+    if val is None:
+        return text
+    return text[start:end]

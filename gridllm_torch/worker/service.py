@@ -1,0 +1,1327 @@
+"""WorkerService: the active worker runtime of the port.
+
+The JAX package's worker/service.py on the port's InferenceEngine: it
+registers, heartbeats, takes `JobAssignment`s off the bus, runs them, and
+publishes the same stream chunks, results, snapshots, failures and traces
+as the JAX worker, so the JAX package's scheduler drives either worker and
+a fleet can mix them. What the port cannot serve yet fails loudly with a
+non-retryable result that names the missing piece: images (ROADMAP A 8),
+embeddings (A 8), the disaggregated prefill phase and the prefill/decode
+roles (A 4). Until KV transfer is ported (A 4), a drain or a preemption
+hands the job back with its resume snapshot and moves no pages.
+
+Reference analogue: client/src/services/WorkerClientService.ts — connect,
+self-register, heartbeat, execute assigned jobs, stream results back over
+the bus. Deliberate divergences (fix-by-design, SURVEY.md §2.8):
+
+- concurrency: the engine's continuous batch supersedes the reference's
+  1-job gate; over-capacity assignments are NACKed with job:failed (the
+  reference silently DROPPED them, WorkerClientService.ts:500-505, leaving
+  recovery to the 10-minute timeout)
+- chat keeps structured messages end-to-end (requestType "chat" actually
+  reaches the chat path — unreachable in the reference, §2.2)
+- stream frames may batch several tokens inside a flush window (the
+  reference crossed Redis once per token, §3.4)
+- timing fields are real engine measurements (the reference zeroed them on
+  its OpenAI-facade path, §2.8)
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import time
+from collections import OrderedDict
+from typing import Any
+
+from gridllm_torch import faults
+from gridllm_torch.bus.base import (
+    CH_JOB_COMPLETED,
+    CH_JOB_DRAIN,
+    CH_JOB_FAILED,
+    CH_JOB_PREEMPTED,
+    CH_JOB_SNAPSHOT,
+    CH_WORKER_ADMIN,
+    CH_WORKER_HEARTBEAT,
+    CH_WORKER_REGISTERED,
+    CH_WORKER_STATUS_UPDATE,
+    CH_WORKER_UNREGISTERED,
+    MessageBus,
+    Subscription,
+    admin_result_channel,
+    job_result_channel,
+    job_stream_channel,
+    worker_job_channel,
+    worker_reregister_channel,
+)
+from gridllm_torch.engine import GenerationRequest, GenerationResult, InferenceEngine
+from gridllm_torch.obs import (
+    Tracer,
+    account_engine_usage,
+    build_usage,
+    default_flight_recorder,
+    default_registry,
+    register_engine_probe,
+    register_memory_probe,
+    trace_channel,
+    unregister_engine_probe,
+    unregister_memory_probe,
+)
+from gridllm_torch.utils.config import WorkerConfig, env_int_lenient
+from gridllm_torch.utils.events import EventEmitter
+from gridllm_torch.utils.logging import bind_request_id, get_logger
+from gridllm_torch.utils.types import (
+    InferenceResponse,
+    JobAssignment,
+    JobResult,
+    StreamChunk,
+    WorkerInfo,
+    iso_now,
+)
+from gridllm_torch.worker.capabilities import gather_capabilities, total_slots
+from gridllm_torch.worker.chat import collect_images
+from gridllm_torch.worker.prompting import (
+    build_generate_prompt,
+    extract_json,
+    json_instruction,
+    parse_tool_calls,
+    render_chat_full,
+    split_thinking,
+)
+
+log = get_logger("worker")
+
+
+# single source of truth shared with the advertised maxConcurrentTasks
+_capacity = total_slots
+
+# what the port lacks, named in the loud failures
+_NO_EMBED = "embeddings are not served by the torch worker yet (bert_embed, ROADMAP A 8)"
+_NO_DISAGG = ("disaggregated prefill needs KV transfer, not ported to the torch worker "
+              "yet (ROADMAP A 4)")
+
+# Worker-plane job outcomes (process-global registry; the worker's health
+# port serves /metrics from it — worker/main.py)
+_JOBS_TOTAL = default_registry().counter(
+    "gridllm_worker_jobs_total",
+    "Jobs executed by worker services in this process, by outcome "
+    "(completed/failed/cancelled/nacked/duplicate_dropped/handoff/drained/"
+    "preempted — handoff = disagg prefill done, decode handed to another "
+    "worker; drained = decode suspended and migrated out by a graceful "
+    "drain; preempted = decode suspended to the host KV tier for a "
+    "higher-priority job).",
+    ("event",),
+)
+# Worker-plane goodput waste: tokens this process generated and then threw
+# away (a cancelled decode's partial output). The scheduler-plane twin
+# (gridllm_goodput_wasted_tokens_total) counts duplicate EXECUTIONS it can
+# see; only the worker knows how far a cancelled generation got.
+_WASTED_TOKENS = default_registry().counter(
+    "gridllm_worker_wasted_tokens_total",
+    "Tokens generated by this process for requests that were cancelled "
+    "mid-decode, by reason.",
+    ("reason",),
+)
+
+
+class _DrainSuspend(Exception):
+    """Internal control flow: the engine suspended this generation for a
+    graceful drain — _execute turns it into a live migration +
+    ``job:drain`` handoff instead of a failure."""
+
+    def __init__(self, res: GenerationResult, seed: Any):
+        super().__init__("drain suspend")
+        self.res = res
+        self.seed = seed
+
+
+class _PreemptSuspend(Exception):
+    """Internal control flow: the engine suspended this generation on a
+    scheduler ``job_preempt`` ask — _execute parks its KV in
+    the host tier and publishes ``job:preempted`` so the scheduler
+    requeues it behind the higher-priority work."""
+
+    def __init__(self, res: GenerationResult, seed: Any):
+        super().__init__("preempt suspend")
+        self.res = res
+        self.seed = seed
+
+
+class NonRetryableJobError(RuntimeError):
+    """Failure that is permanent cluster-wide (e.g. generation on an
+    embedding-only model) — published with retryable=False so the
+    scheduler fails the job immediately instead of burning the retry
+    ladder on an outcome that cannot change."""
+
+
+class WorkerService(EventEmitter):
+    """Events: registered, job_started, job_completed, job_failed, stopped."""
+
+    def __init__(
+        self,
+        bus: MessageBus,
+        engines: dict[str, InferenceEngine],
+        config: WorkerConfig | None = None,
+        stream_flush_ms: int = 20,
+        engine_factory: Any | None = None,
+    ):
+        super().__init__()
+        self.bus = bus
+        self.engines = engines
+        self.config = config or WorkerConfig()
+        self.worker_id = self.config.worker_id
+        self.stream_flush_s = stream_flush_ms / 1000.0
+        self.current_jobs = 0
+        self.total_processed = 0
+        self.max_concurrent = _capacity(engines)
+        # model management (/api/pull): builds an InferenceEngine for a
+        # model name on demand (worker/main.py passes its config-bound
+        # builder). None → load_model admin ops are rejected.
+        self.engine_factory = engine_factory
+        # multi-host worker groups disable ALL admin ops (load/unload/
+        # copy), not just load: a slice builds identical engines on every
+        # process for plan replay — a liaison-only unload would free the
+        # liaison's HBM, orphan the followers' copies, and leave the
+        # slice asymmetric with no way to reload (worker/main.py).
+        self.admin_ops_enabled = True
+        self._admin_lock = asyncio.Lock()
+        self._admin_tasks: set[asyncio.Task] = set()
+        self._running = False
+        self._subs: list[Subscription] = []
+        self._tasks: list[asyncio.Task] = []
+        self._cancelled: set[str] = set()
+        self._executing: set[str] = set()
+        self._last_status: str | None = None
+        # per-request execution spans; published on trace:{request_id} when
+        # the job resolves so the gateway can stitch its side of the
+        # timeline with ours (obs/tracer.py)
+        self.tracer = Tracer(source=f"worker:{self.worker_id}")
+        self.flightrec = default_flight_recorder()
+        # prefix-affinity digest: gateway-stamped prefixKey of
+        # recently COMPLETED generation jobs — completing a job is what
+        # registers its KV pages in the engine's prefix cache, so this LRU
+        # approximates "prefixes cached on this worker". Shipped with
+        # every heartbeat; the scheduler scores overlap at selection time.
+        self._prefix_keys: OrderedDict[str, float] = OrderedDict()
+        self._prefix_keys_cap = 32
+        # fleet role: a "prefill" worker exports its KV pages to a
+        # "decode" worker, which imports them; "unified" serves whole
+        # requests, the only role without KV transfer
+        self.role = getattr(self.config, "role", "unified") or "unified"
+        if self.role != "unified":
+            # prefill workers export KV and decode workers import it
+            raise NotImplementedError(
+                f"worker role {self.role!r} needs KV transfer, not ported to the "
+                "torch worker yet (ROADMAP A 4); run it as 'unified'")
+        # Graceful drain: once draining, this worker NACKs new
+        # assignments, advertises status "draining", finishes short jobs
+        # within the drain budget, and hands the rest back with their
+        # resume snapshots.
+        self._draining = False
+        # Preemption: job ids the scheduler asked to suspend
+        # for higher-priority work — _run_generation's suspend branch
+        # routes them down the preempt handoff instead of the drain handoff
+        self._preempting: set[str] = set()
+        # crash-resume watermark cadence: publish a decode-state snapshot
+        # on job:snapshot every N generated tokens (0 disables)
+        self._snap_every = env_int_lenient("GRIDLLM_RESUME_SNAPSHOT_TOKENS")
+        # Bus-blip frame buffer: a stream frame whose publish
+        # fails is COALESCED here (jobId → [offset, text, eval_count])
+        # instead of lost — the engine keeps decoding through the blip
+        # and the next flush (or the final one) drains the merged frame
+        # once the bus is back. Adjacent frames are contiguous text, so
+        # coalescing is lossless and the buffer is bounded by the
+        # response size (≤ max_seq_len tokens per slot), not the outage
+        # length.
+        self._frame_buf: dict[str, tuple[int, str, int]] = {}
+        # usage attribution: payload built at generation
+        # finish (obs.usage.build_usage), folded into the JobResult in
+        # _execute, accounted engine-side only once both result
+        # publishes succeed. Popped in _execute's finally — bounded by
+        # in-flight jobs.
+        self._usage_by_job: dict[str, dict[str, Any]] = {}
+
+    def _http_addr(self) -> str:
+        """host:port peers can reach the health HTTP server at — the
+        direct worker-to-worker KV transfer path."""
+        addr = getattr(self.config, "advertise_addr", "")
+        return addr or f"127.0.0.1:{self.config.port}"
+
+    def _decode_slots_free(self) -> int:
+        """Open batch slots across generation engines (deduped by engine
+        identity — copies alias) for the heartbeat's decode headroom."""
+        seen: set[int] = set()
+        total = 0
+        for eng in list(self.engines.values()):
+            if id(eng) in seen or eng.embedding_only:
+                continue
+            seen.add(id(eng))
+            total += getattr(eng, "free_slot_count", 0)
+        return total
+
+    def _model_capacity(self) -> dict[str, dict[str, int]]:
+        """Per-model slot/KV headroom for the heartbeat — the
+        demand tracker behind /admin/capacity sums these across workers.
+        Copy-model aliases share one engine, so alias entries report the
+        same (shared) pool; keyed per served name because routing and
+        autoscaling decisions are per model name."""
+        out: dict[str, dict[str, int]] = {}
+        for name, eng in list(self.engines.items()):
+            if eng.embedding_only:
+                continue
+            try:
+                out[name] = {
+                    "slotsFree": int(getattr(eng, "free_slot_count", 0)),
+                    "slotsTotal": int(eng.config.max_slots),
+                    "kvPagesFree": int(eng.alloc.free_pages),
+                    # engine identity token: alias
+                    # entries carry the same token so fleet aggregates
+                    # can count the shared pool ONCE while still
+                    # attributing headroom per served name
+                    "engine": id(eng) & 0x7FFFFFFF,
+                }
+            except Exception:  # noqa: BLE001 — engine mid-teardown
+                continue
+        return out
+
+    # ---------------------------------------------------------- lifecycle
+
+    async def start(self) -> None:
+        self._running = True
+        self._subs.append(await self.bus.subscribe(
+            worker_job_channel(self.worker_id), self._on_job_message))
+        self._subs.append(await self.bus.subscribe(
+            worker_reregister_channel(self.worker_id), self._on_reregister))
+        self._subs.append(await self.bus.subscribe(
+            CH_WORKER_ADMIN, self._on_admin))
+        await self.register()
+        self._tasks.append(asyncio.create_task(self._heartbeat_loop()))
+        self._tasks.append(asyncio.create_task(self._resource_loop()))
+        # each generation engine owns a dedicated dispatch thread with
+        # pipelined decode blocks (engine.start(), not a per-step
+        # asyncio.to_thread pump)
+        for eng in self.engines.values():
+            if not eng.embedding_only:
+                eng.start()
+        self._tasks.append(asyncio.create_task(self._engine_watchdog()))
+        # one probe per service, resolving the CURRENT engine set at dump
+        # time — admin load/unload and watchdog drops need no re-wiring
+        register_engine_probe(self.worker_id, self._engine_states)
+        # memory probe twin (obs/perf.py): feeds /admin/memory with the
+        # weight and KV tensors of each engine
+        register_memory_probe(self.worker_id, self._memory_states)
+        self.flightrec.record("worker", "started", worker=self.worker_id,
+                              models=list(self.engines))
+        log.info("worker started", workerId=self.worker_id,
+                 models=list(self.engines))
+
+    def _engine_states(self) -> dict[str, Any]:
+        """Point-in-time batch state of every served engine (flight
+        recorder dumps + watchdog hang diagnoses)."""
+        return {name: eng.batch_state()
+                for name, eng in self.engines.items()}
+
+    def _memory_states(self) -> dict[str, Any]:
+        """Live weight/KV arrays + allocator math per served engine
+        (obs/perf.py memory_snapshot). Copy-model aliases serve one
+        engine under several names — deduped by engine identity so shared
+        weights are never double-counted."""
+        out: dict[str, Any] = {}
+        seen: set[int] = set()
+        for name, eng in list(self.engines.items()):
+            if id(eng) in seen:
+                continue
+            seen.add(id(eng))
+            out[name] = eng.memory_arrays()
+        return out
+
+    async def stop(self, announce: bool = True) -> None:
+        self._running = False
+        unregister_engine_probe(self.worker_id)
+        unregister_memory_probe(self.worker_id)
+        self.flightrec.record("worker", "stopped", worker=self.worker_id,
+                              announce=announce)
+        for t in self._tasks:
+            t.cancel()
+        self._tasks.clear()
+        for eng in self.engines.values():
+            if not eng.embedding_only:
+                await asyncio.to_thread(eng.stop)
+        for s in self._subs:
+            await s.unsubscribe()
+        self._subs.clear()
+        if announce:
+            await self.bus.publish(
+                CH_WORKER_UNREGISTERED, json.dumps({"workerId": self.worker_id})
+            )
+        self.emit("stopped")
+
+    def _info(self) -> WorkerInfo:
+        return WorkerInfo(
+            workerId=self.worker_id,
+            capabilities=gather_capabilities(
+                self.worker_id, self.engines,
+                self.config.performance_tier or None,  # type: ignore[arg-type]
+            ),
+            status=self._status(),
+            currentJobs=self.current_jobs,
+            totalJobsProcessed=self.total_processed,
+            role=self.role,  # type: ignore[arg-type]
+            decodeSlotsFree=self._decode_slots_free(),
+            httpAddr=self._http_addr(),
+            modelCapacity=self._model_capacity(),
+        )
+
+    def _status(self) -> str:
+        if self._draining:
+            return "draining"
+        return "busy" if self.current_jobs >= self.max_concurrent else "online"
+
+    async def register(self) -> None:
+        info = self._info()
+        await self.bus.hset("workers", self.worker_id, info.model_dump_json())
+        await self.bus.publish(CH_WORKER_REGISTERED, info.model_dump_json())
+        self.emit("registered", info)
+
+    async def _on_reregister(self, _ch: str, _raw: str) -> None:
+        log.info("re-registration requested", workerId=self.worker_id)
+        await self.register()
+
+    # --------------------------------------------------- model management
+    #
+    # Ollama's pull/delete/copy, reimagined for a cluster: the gateway
+    # broadcasts an admin op on `worker:admin`; every worker answers on
+    # `admin:result:{op id}` with {workerId, ok, detail}. The reference
+    # had client-side pullModel/deleteModel stubs that no route ever
+    # called (client/src/services/OllamaService.ts:286-331) — here the
+    # routes are real and the weights come from the worker's local
+    # checkpoint root ("pull" = load-on-demand; this deployment has no
+    # remote registry to download from).
+
+    async def _on_admin(self, _ch: str, raw: str) -> None:
+        msg = json.loads(raw)
+        op, rid = msg.get("op"), msg.get("id")
+        if not op or not rid:
+            return
+        # targeted op: the placement controller addresses ONE
+        # worker on the broadcast channel; everyone else stays silent (no
+        # ack — the sender waits on exactly the named worker's answer)
+        target = msg.get("workerId")
+        if target and target != self.worker_id:
+            return
+        # immediate ack BEFORE doing the (possibly minutes-long) work:
+        # lets the gateway distinguish "loading a 70B checkpoint" from
+        # "no worker speaks the admin protocol" and bail fast on the
+        # latter instead of waiting out the whole op timeout. The op
+        # itself runs in a SPAWNED task — the bus pump serializes handler
+        # calls, and an op queued behind a long load would otherwise get
+        # no ack within the gateway's grace window and be spuriously
+        # failed. Ops still execute one at a time (self._admin_lock) so
+        # concurrent loads of the same model cannot double-build.
+        await self.bus.publish(admin_result_channel(rid), json.dumps({
+            "workerId": self.worker_id, "op": op, "ack": True,
+        }))
+        if not self.admin_ops_enabled:
+            await self.bus.publish(admin_result_channel(rid), json.dumps({
+                "workerId": self.worker_id, "op": op, "ok": False,
+                "detail": "model management disabled on multi-host "
+                          "worker groups",
+            }))
+            return
+
+        async def run_op() -> None:
+            ok, detail = False, ""
+            try:
+                async with self._admin_lock:
+                    if op == "load_model":
+                        ok, detail = await self._admin_load(msg["model"])
+                    elif op == "unload_model":
+                        ok, detail = await self._admin_unload(
+                            msg["model"], if_idle=bool(msg.get("if_idle"))
+                        )
+                    elif op == "copy_model":
+                        ok, detail = await self._admin_copy(
+                            msg["source"], msg["destination"]
+                        )
+                    else:
+                        detail = f"unknown admin op {op!r}"
+            except Exception as e:  # noqa: BLE001 — always answer the gateway
+                detail = str(e)
+            await self.bus.publish(admin_result_channel(rid), json.dumps({
+                "workerId": self.worker_id, "op": op, "ok": ok,
+                "detail": detail,
+            }))
+
+        task = asyncio.create_task(run_op())
+        self._admin_tasks.add(task)  # strong ref until done (GC hazard)
+        task.add_done_callback(self._admin_tasks.discard)
+
+    async def _admin_load(self, model: str) -> tuple[bool, str]:
+        if self._resolve_engine(model) is not None:
+            return True, "already loaded"
+        if self.engine_factory is None:
+            return False, "model management disabled on this worker"
+        faults.inject("swap.load")
+        eng = await asyncio.to_thread(self.engine_factory, model)
+        try:
+            if not eng.embedding_only:
+                eng.start()
+            self.engines[model] = eng
+            self.max_concurrent = _capacity(self.engines)
+            await self.register()
+        except BaseException:
+            # never leak a half-built engine: it is not in self.engines,
+            # so nothing else will ever stop it or free its device arrays
+            self.engines.pop(model, None)
+            try:
+                if not eng.embedding_only:
+                    eng.abort_all(f"model {model} load failed")
+                    await asyncio.to_thread(eng.stop)
+            finally:
+                eng.model = None
+            raise
+        # random weights until checkpoint loading is ported (ROADMAP A 3):
+        # the engine refuses a checkpoint_path
+        src = "init"
+        log.info("model loaded on demand", model=model, weights=src)
+        return True, f"loaded ({src})"
+
+    async def _admin_unload(self, model: str,
+                            if_idle: bool = False) -> tuple[bool, str]:
+        name = self._resolve_name(model)
+        if name is None:
+            return False, "not loaded here"
+        faults.inject("swap.unload")
+        if if_idle:
+            # keep_alive sweeps must never abort work: the worker is the
+            # ground truth for business — a request admitted in the
+            # gateway's check-to-unload window is visible HERE (engine
+            # slots/pending, or a job executing in this service)
+            eng = self.engines[name]
+            busy = self.current_jobs > 0 or (
+                not eng.embedding_only
+                and (bool(eng._slots) or bool(eng._pending))
+            )
+            if busy:
+                return False, "busy (if_idle unload declined)"
+        eng = self.engines.pop(name)
+        # copies alias the same engine under other names; only stop the
+        # runner when the last name referencing it is gone. Abort first:
+        # stop() alone would leave in-flight/queued requests without their
+        # error callback, hanging their clients until the gateway timeout.
+        if eng not in self.engines.values() and not eng.embedding_only:
+            eng.abort_all(f"model {name} unloaded")
+            await asyncio.to_thread(eng.stop)
+            # the host weight-snapshot tier is not ported (ROADMAP A 3): the
+            # weights go with the engine
+        self.max_concurrent = _capacity(self.engines)
+        await self.register()
+        log.info("model unloaded", model=name)
+        return True, "unloaded"
+
+    async def _admin_copy(self, source: str, dest: str) -> tuple[bool, str]:
+        eng = self._resolve_engine(source)
+        if eng is None:
+            return False, "source not loaded here"
+        if dest in self.engines:
+            return True, "destination already exists"
+        self.engines[dest] = eng  # alias: same engine, second name
+        await self.register()
+        log.info("model copied", source=source, destination=dest)
+        return True, "copied"
+
+    # -------------------------------------------------------------- loops
+
+    async def _heartbeat_loop(self) -> None:
+        interval = self.config.heartbeat_interval_ms / 1000.0
+        while self._running:
+            try:
+                if faults.check("worker.heartbeat"):
+                    # injected silent beat: the TTL key is NOT refreshed,
+                    # so enough consecutive skips look exactly like an
+                    # abruptly dead worker to the registry's probes
+                    await asyncio.sleep(interval)
+                    continue
+                await self.bus.set_with_expiry(
+                    f"heartbeat:{self.worker_id}", str(time.time()), ttl_s=interval * 2
+                )
+                await self.bus.publish(CH_WORKER_HEARTBEAT, json.dumps({
+                    "workerId": self.worker_id,
+                    "status": self._status(),
+                    "currentJobs": self.current_jobs,
+                    # most-recent last; the registry stores it verbatim for
+                    # the scheduler's prefix-affinity scoring
+                    "prefixKeys": list(self._prefix_keys),
+                    # disaggregated serving: pool role, live
+                    # decode headroom, and the worker-to-worker transfer
+                    # address for the scheduler's two-phase placement
+                    "role": self.role,
+                    "decodeSlotsFree": self._decode_slots_free(),
+                    "httpAddr": self._http_addr(),
+                    # per-model headroom for /admin/capacity
+                    "modelCapacity": self._model_capacity(),
+                }))
+            except Exception as e:  # bus hiccup: keep beating
+                log.warning("heartbeat failed", error=str(e))
+            await asyncio.sleep(interval)
+
+    async def _resource_loop(self) -> None:
+        """Refresh capabilities + change-deduped status publishing
+        (reference: WorkerClientService.ts:355-440)."""
+        interval = self.config.resource_monitor_interval_ms / 1000.0
+        while self._running:
+            await asyncio.sleep(interval)
+            try:
+                info = self._info()
+                await self.bus.hset("workers", self.worker_id, info.model_dump_json())
+                await self._publish_status_if_changed()
+            except Exception as e:
+                log.warning("resource refresh failed", error=str(e))
+
+    async def _publish_status_if_changed(self) -> None:
+        status = self._status()
+        if status != self._last_status:
+            self._last_status = status
+            await self.bus.publish(CH_WORKER_STATUS_UPDATE, json.dumps({
+                "workerId": self.worker_id,
+                "status": status,
+                "currentJobs": self.current_jobs,
+            }))
+
+    async def _engine_watchdog(self) -> None:
+        """The engine runner recovers from step failures itself (abort +
+        device-state rebuild, engine/engine.py _run); if a runner dies for
+        good (3 consecutive failures) the worker must stop advertising the
+        model so the scheduler routes elsewhere (reference: worker drops
+        from the registry via missed heartbeats — here the model list
+        shrinks while the worker stays)."""
+        while self._running:
+            await asyncio.sleep(2.0)
+            dead = [
+                m for m, e in self.engines.items()
+                if not e.embedding_only and not e.running
+            ]
+            if not dead:
+                continue
+            for m in dead:
+                log.error("engine runner dead; dropping model", model=m)
+                # the worker-plane fatal path: record it so the post-mortem
+                # dump explains why the model list shrank
+                self.flightrec.record("worker", "engine_dead",
+                                      worker=self.worker_id, model=m)
+            self.engines = {
+                m: e for m, e in self.engines.items() if m not in dead
+            }
+            self.max_concurrent = _capacity(self.engines)
+            try:
+                await self.register()  # advertise the reduced model set
+            except Exception as reg_err:
+                log.warning("re-register after engine drop failed",
+                            error=str(reg_err))
+
+    # ---------------------------------------------------------------- jobs
+
+    async def _on_job_message(self, _ch: str, raw: str) -> None:
+        msg = json.loads(raw)
+        if msg.get("type") == "job_cancellation":
+            job_id = msg.get("jobId", "")
+            self._cancelled.add(job_id)
+            for eng in self.engines.values():
+                if eng.cancel(job_id):
+                    break
+            return
+        if msg.get("type") == "job_preempt":
+            # preemption-based priority: suspend ONE running
+            # generation; its _execute task parks the KV in the host tier
+            # and publishes job:preempted with the resume snapshot
+            job_id = msg.get("jobId", "")
+            if job_id in self._executing and not self._draining:
+                self._preempting.add(job_id)
+                asyncio.ensure_future(self._try_preempt_suspend(job_id))
+            return
+        if msg.get("type") in ("kv_import", "kv_release"):
+            # KV migration is not ported (ROADMAP A 4): an inbound transfer
+            # is never acknowledged, so its sender falls back to serving
+            # the request itself
+            log.warning("KV migration message ignored: KV transfer is not "
+                        "ported to the torch worker", type=msg.get("type"),
+                        jobId=msg.get("jobId", ""))
+            return
+        if msg.get("type") == "drain":
+            # active fleet health: a quarantine verdict drains
+            # this worker through the graceful-drain path — in-flight
+            # decodes hand off or requeue with their resume watermarks,
+            # then the worker stops taking assignments until restarted
+            log.warning("drain requested over worker channel",
+                        reason=msg.get("reason", ""))
+            asyncio.ensure_future(self.drain())
+            return
+        if msg.get("type") != "job_assignment":
+            return
+        assignment = JobAssignment.model_validate(msg["job"])
+        # a FRESH assignment supersedes any stale cancelled mark from a
+        # previous attempt of the same job: the new attempt must run, not
+        # silently report "cancelled"
+        self._cancelled.discard(assignment.jobId)
+        if assignment.jobId in self._executing:
+            # re-dispatch of a job we are ALREADY running: the scheduler's
+            # orphan sweep re-orphans an in-flight job when first-compile
+            # GIL pressure starves our heartbeat past the disconnect
+            # window, then hands it straight back. The in-flight run will
+            # publish the result; running it twice would waste a slot and
+            # double-stream the client.
+            _JOBS_TOTAL.inc(event="duplicate_dropped")
+            self.tracer.event(assignment.jobId, "worker.duplicate_dropped",
+                              worker=self.worker_id)
+            self.flightrec.record("worker", "duplicate_dropped",
+                                  worker=self.worker_id,
+                                  job=assignment.jobId)
+            log.warning("duplicate assignment dropped",
+                        jobId=assignment.jobId)
+            return
+        if self._draining:
+            # a draining worker takes no new work — NACK so the job
+            # requeues without consuming its retry ladder
+            _JOBS_TOTAL.inc(event="nacked")
+            self.tracer.event(assignment.jobId, "worker.nack",
+                              worker=self.worker_id, draining=True)
+            await self._publish_failure(
+                assignment, "worker draining", nack=True
+            )
+            await self._publish_trace(assignment.jobId)
+            return
+        if self.current_jobs >= self.max_concurrent:
+            # NACK instead of the reference's silent drop
+            _JOBS_TOTAL.inc(event="nacked")
+            self.tracer.event(assignment.jobId, "worker.nack",
+                              worker=self.worker_id,
+                              currentJobs=self.current_jobs)
+            await self._publish_failure(
+                assignment, "worker at capacity", nack=True
+            )
+            await self._publish_trace(assignment.jobId)
+            return
+        # marked HERE (not in _execute) so two back-to-back deliveries
+        # can't both pass the dedup check before either task starts
+        self._executing.add(assignment.jobId)
+        asyncio.ensure_future(self._execute(assignment))
+
+    def _resolve_name(self, model: str) -> str | None:
+        """Served-engine key for a requested model name: exact match, plus
+        the one alias Ollama itself applies — a bare model name means the
+        ':latest' tag and vice versa. (A dash heuristic —
+        model.split('-')[0] — could only ever produce wrong or missed
+        lookups, e.g. 'all-minilm' → 'all'.)"""
+        if model in self.engines:
+            return model
+        if model.endswith(":latest") and model[: -len(":latest")] in self.engines:
+            return model[: -len(":latest")]
+        if ":" not in model and f"{model}:latest" in self.engines:
+            return f"{model}:latest"
+        return None
+
+    def _resolve_engine(self, model: str) -> InferenceEngine | None:
+        name = self._resolve_name(model)
+        return None if name is None else self.engines[name]
+
+    async def _execute(self, assignment: JobAssignment) -> None:
+        req = assignment.request
+        self.current_jobs += 1
+        started = time.time()
+        outcome = "failed"
+        # everything that can raise (bus publishes included) sits inside the
+        # try: the finally MUST run, or req.id leaks in _executing and every
+        # future re-dispatch of this job is dropped as a duplicate
+        span = self.tracer.begin(req.id, "worker.execute",
+                                 worker=self.worker_id, model=req.model,
+                                 requestType=req.request_type)
+        try:
+            await self._publish_status_if_changed()
+            self.emit("job_started", assignment)
+            with bind_request_id(req.id):
+                engine = self._resolve_engine(req.model)
+                if engine is None:
+                    raise ValueError(f"model not served here: {req.model}")
+                rtype = req.request_type
+                if rtype == "embedding":
+                    raise NonRetryableJobError(_NO_EMBED)
+                md = req.metadata or {}
+                if md.get("disagg") and md.get("disaggPhase") != "decode":
+                    # disaggregated phase 1: prefill, export the KV pages
+                    # and hand off — refused until KV transfer is ported
+                    raise NonRetryableJobError(_NO_DISAGG)
+                response = await self._run_generation(engine, assignment)
+                if response is None:
+                    # cancelled — scheduler already resolved it
+                    outcome = "cancelled"
+                    return
+                if rtype != "embedding":
+                    self._note_prefix_key(req)
+                usage = self._usage_by_job.pop(req.id, None)
+                result = JobResult(
+                    jobId=req.id, workerId=self.worker_id, success=True,
+                    response=response,
+                    processingTimeMs=(time.time() - started) * 1000,
+                    usage=usage,
+                )
+                await self.bus.publish(CH_JOB_COMPLETED, result.model_dump_json())
+                await self.bus.publish(job_result_channel(req.id), result.model_dump_json())
+                # only after BOTH publishes: a publish failure goes down the
+                # retryable-failure path and must not be recorded completed
+                self.total_processed += 1
+                if usage:
+                    # engine side of the conservation ledger: counted iff
+                    # the result actually left this worker — a killed or
+                    # publish-failed attempt stays invisible on BOTH
+                    # sides, matching the shard ledger exactly
+                    account_engine_usage(usage)
+                outcome = "completed"
+                self.emit("job_completed", result)
+        except _PreemptSuspend as ps:
+            # preemption: park the suspended decode's KV in
+            # the host tier and report; any failure degrades to a NACK so
+            # the job still resolves (this worker keeps heartbeating — no
+            # orphan sweep would save it)
+            outcome = "preempted"
+            span.meta["preempted"] = True
+            try:
+                await self._preempt_handoff(assignment, ps.res, ps.seed)
+            except Exception as pe:  # noqa: BLE001 — never fail the preempt
+                log.warning("preempt handoff publish failed; requeueing "
+                            "via NACK", jobId=req.id, error=str(pe))
+                try:
+                    await self._publish_failure(
+                        assignment, "preempted", nack=True)
+                except Exception as ne:  # noqa: BLE001 — bus is gone
+                    log.warning("preempt NACK failed; orphan machinery "
+                                "must recover", jobId=req.id,
+                                error=str(ne))
+        except _DrainSuspend as ds:
+            # graceful drain: live-migrate this decode to a
+            # peer and hand the job off; any failure inside the handoff
+            # leaves recovery to the scheduler's orphan machinery (the
+            # last published snapshot still makes the resume exact)
+            outcome = "drained"
+            span.meta["drained"] = True
+            try:
+                await self._drain_handoff(assignment, ds.res, ds.seed)
+            except Exception as de:  # noqa: BLE001 — never fail the drain
+                # only the job:drain publish itself can raise (the
+                # migration attempt is guarded inside) — NACK so the job
+                # resolves even on the HTTP-drain path where this worker
+                # keeps heartbeating and no orphan sweep will save it
+                log.warning("drain handoff publish failed; requeueing "
+                            "via NACK", jobId=req.id, error=str(de))
+                try:
+                    await self._publish_failure(
+                        assignment, "worker draining", nack=True)
+                except Exception as ne:  # noqa: BLE001 — bus is gone
+                    log.warning("drain NACK failed; orphan machinery "
+                                "must recover", jobId=req.id,
+                                error=str(ne))
+        except Exception as e:
+            log.warning("job failed", jobId=req.id, error=str(e))
+            span.meta["error"] = str(e)
+            self.flightrec.record("worker", "job_failed",
+                                  worker=self.worker_id, job=req.id,
+                                  tenant=str((req.metadata or {})
+                                             .get("tenant") or ""),
+                                  model=req.model,
+                                  error=str(e)[:200])
+            await self._publish_failure(
+                assignment, str(e),
+                retryable=not isinstance(e, NonRetryableJobError),
+            )
+        finally:
+            # local bookkeeping first — it must survive a dead bus; the
+            # status publish goes last because it can raise on bus loss
+            # (_publish_trace guards internally)
+            self._executing.discard(req.id)
+            self._preempting.discard(req.id)
+            self._frame_buf.pop(req.id, None)
+            self._usage_by_job.pop(req.id, None)
+            self.current_jobs -= 1
+            _JOBS_TOTAL.inc(event=outcome)
+            self.tracer.end(span, outcome=outcome)
+            await self._publish_trace(req.id)
+            await self._publish_status_if_changed()
+
+    def _note_prefix_key(self, req) -> None:
+        """Record a completed generation's prefixKey in the bounded LRU the
+        heartbeat advertises (prefix-affinity routing). Gated on
+        the serving engine actually caching prefixes: with the cache off
+        there are no pages to route toward, and advertising keys anyway
+        would skew scheduling with zero prefill saved — the cache-off
+        system must behave exactly like the pre-cache one."""
+        key = (req.metadata or {}).get("prefixKey")
+        if not key:
+            return
+        engine = self._resolve_engine(req.model)
+        if engine is None or getattr(engine, "_prefix_cache_cap", 0) == 0:
+            return
+        self._prefix_keys.pop(key, None)
+        self._prefix_keys[str(key)] = time.time()
+        while len(self._prefix_keys) > self._prefix_keys_cap:
+            self._prefix_keys.popitem(last=False)
+
+    # ---------------------------------------------- graceful drain
+
+    async def drain(self, budget_ms: int | None = None) -> dict[str, Any]:
+        """Gracefully drain this worker: stop accepting assignments
+        (status "draining" + NACKs), let in-flight jobs finish within the
+        drain budget, then suspend the remaining decodes — each suspended
+        generation hands the job off on ``job:drain`` with a resume
+        snapshot, so the client stream continues with zero lost tokens.
+        Idempotent; returns a report. Callers typically stop() the service
+        after."""
+        report: dict[str, Any] = {"workerId": self.worker_id}
+        if self._draining:
+            report["alreadyDraining"] = True
+            return report
+        self._draining = True
+        budget_s = (budget_ms if budget_ms is not None
+                    else getattr(self.config, "drain_budget_ms", 5000)) / 1000.0
+        self.flightrec.record("worker", "draining", worker=self.worker_id,
+                              jobs=self.current_jobs, budgetS=budget_s)
+        log.info("draining", workerId=self.worker_id,
+                 jobs=self.current_jobs, budget_s=budget_s)
+        # advertise immediately on BOTH planes: the registry hash/register
+        # event (scheduler placement) and the status channel
+        try:
+            await self.register()
+            await self._publish_status_if_changed()
+        except Exception as e:  # noqa: BLE001 — a dead bus must not stop the drain
+            log.warning("drain status publish failed", error=str(e))
+        t0 = time.monotonic()
+        while self._executing and time.monotonic() - t0 < budget_s:
+            await asyncio.sleep(0.05)
+        # budget spent: suspend what's left — each suspended execution
+        # resolves through its own _execute task's drain handoff
+        suspended = 0
+        for req_id in list(self._executing):
+            for eng in list(self.engines.values()):
+                if not eng.embedding_only and eng.suspend(req_id):
+                    suspended += 1
+                    break
+        t1 = time.monotonic()
+        grace = max(budget_s, 10.0)
+        while self._executing and time.monotonic() - t1 < grace:
+            await asyncio.sleep(0.05)
+        report.update(suspended=suspended, remaining=len(self._executing))
+        log.info("drain complete", **{k: v for k, v in report.items()
+                                      if k != "workerId"})
+        return report
+
+    async def _drain_handoff(self, assignment: JobAssignment,
+                             res: GenerationResult, seed: Any) -> None:
+        """Resolve one suspended generation: publish ``job:drain`` with its
+        resume snapshot, so the scheduler requeues the job and the next
+        worker continues the stream where this one stopped. No pages move
+        (``migrated`` is False) until KV transfer is ported (ROADMAP A 4):
+        the replacement re-prefills prompt and snapshot."""
+        req = assignment.request
+        snapshot = None
+        if res.token_ids:
+            snapshot = {"tokens": [int(t) for t in res.token_ids],
+                        "seed": seed}
+        await self.bus.publish(CH_JOB_DRAIN, json.dumps({
+            "jobId": req.id,
+            "fromWorker": self.worker_id,
+            "toWorker": "",
+            "migrated": False,
+            "snapshot": snapshot,
+            "tokens": len(res.token_ids),
+            "bytes": 0,
+        }))
+        self.flightrec.record(
+            "worker", "drain_handoff", worker=self.worker_id, job=req.id,
+            to="", migrated=False, tokens=len(res.token_ids))
+        log.job("decode drained and handed off", req.id, to_worker="",
+                migrated=False, tokens=len(res.token_ids))
+
+    async def _try_preempt_suspend(self, job_id: str) -> None:
+        """Drive one preempt ask into the engine, retrying briefly: a job
+        mid-admission (first-compile prefill dispatch can take seconds)
+        is visible to neither the engine's pending queue nor a slot yet,
+        so a single suspend() call can silently miss it. Gives up after
+        ~10 s (the job either resolved or the scheduler's stale-ask prune
+        re-triggers preemption on a later pass)."""
+        for _ in range(40):
+            if job_id not in self._executing or job_id not in self._preempting:
+                return
+            for eng in self.engines.values():
+                if not eng.embedding_only and eng.suspend(job_id):
+                    return
+            await asyncio.sleep(0.25)
+        self._preempting.discard(job_id)
+
+    async def _preempt_handoff(self, assignment: JobAssignment,
+                               res: GenerationResult, seed: Any) -> None:
+        """Resolve one preempt-suspended generation: publish
+        ``job:preempted`` with the resume snapshot so the scheduler
+        requeues it behind the higher-priority work. The host KV tier is
+        not ported (ROADMAP A 4): nothing is parked, and the suspended
+        pages stay in the prefix cache, so the resume is warm from there."""
+        req = assignment.request
+        snapshot = None
+        if res.token_ids:
+            snapshot = {"tokens": [int(t) for t in res.token_ids],
+                        "seed": seed}
+        parked = 0
+        await self.bus.publish(CH_JOB_PREEMPTED, json.dumps({
+            "jobId": req.id,
+            "fromWorker": self.worker_id,
+            "snapshot": snapshot,
+            "tokens": len(res.token_ids),
+            "parkedTokens": parked,
+        }))
+        self.flightrec.record(
+            "worker", "preempt_handoff", worker=self.worker_id,
+            job=req.id, parkedTokens=parked, tokens=len(res.token_ids))
+        log.job("decode preempted to host tier", req.id,
+                parked_tokens=parked, tokens=len(res.token_ids))
+
+    async def _publish_snapshot(self, req, tokens: list[int],
+                                seed: Any) -> None:
+        """Ship one decode-state watermark; never fails the job. Only
+        token ids + seed travel — the scheduler's merge ignores text, so
+        shipping it would be pure bus weight. A token-free publish at
+        generation start pins the resolved seed so even a pre-first-
+        snapshot death retries with the same rng chain."""
+        try:
+            await self.bus.publish(CH_JOB_SNAPSHOT, json.dumps({
+                "jobId": req.id,
+                "workerId": self.worker_id,
+                "tokens": tokens,
+                "seed": seed,
+            }))
+        except Exception as e:  # noqa: BLE001
+            log.warning("snapshot publish failed", jobId=req.id,
+                        error=str(e))
+
+    async def _publish_trace(self, request_id: str) -> None:
+        """Seal the request's span timeline and ship it to the gateway."""
+        spans = self.tracer.finish(request_id)
+        if not spans:
+            return
+        try:
+            await self.bus.publish(trace_channel(request_id), json.dumps({
+                "requestId": request_id,
+                "workerId": self.worker_id,
+                "spans": spans,
+            }))
+        except Exception as e:  # noqa: BLE001 — tracing must never fail a job
+            log.warning("trace publish failed", request_id=request_id,
+                        error=str(e))
+
+    async def _publish_failure(
+        self, assignment: JobAssignment, error: str, nack: bool = False,
+        retryable: bool = True,
+    ) -> None:
+        result = JobResult(
+            jobId=assignment.jobId, workerId=self.worker_id,
+            success=False, error=error, retryable=retryable, nack=nack,
+        )
+        await self.bus.publish(CH_JOB_FAILED, result.model_dump_json())
+        if not nack:
+            self.emit("job_failed", result)
+
+    def _render_prompt(self, engine: InferenceEngine, req) -> tuple[str, dict]:
+        """Deterministic prompt construction: every worker that sees the
+        request must tokenize the same text (a resume's prefix match and a
+        KV migration rely on it)."""
+        md = req.metadata or {}
+        is_chat = req.request_type == "chat" or (
+            req.messages is not None and req.prompt is None
+        )
+        fmt = req.format if req.format is not None else md.get("format")
+        think = md.get("think")
+        raw = bool(md.get("raw"))
+        if is_chat:
+            messages = list(req.messages or [])
+            if md.get("system") and not any(
+                m.get("role") == "system" for m in messages
+            ):
+                messages = [{"role": "system", "content": md["system"]}] + messages
+            if fmt:
+                messages = messages + [
+                    {"role": "system", "content": json_instruction(fmt)}
+                ]
+            prompt = render_chat_full(
+                messages, engine.tokenizer, tools=req.tools, think=think,
+            )
+        else:
+            base = req.prompt or ""
+            if fmt and not raw:
+                base = base + json_instruction(fmt)
+            prompt = build_generate_prompt(
+                base, engine.tokenizer,
+                system=md.get("system"), template=md.get("template"),
+                suffix=md.get("suffix"), raw=raw,
+            )
+        return prompt, {"is_chat": is_chat, "fmt": fmt, "think": think,
+                        "raw": raw}
+
+    def _make_gen(self, engine: InferenceEngine, req, prompt: str,
+                  raw: bool, on_chunk) -> GenerationRequest:
+        """GenerationRequest construction — the Ollama `context`
+        continuation must tokenize the same way on every worker that sees
+        the request. Images pass through: the engine refuses them."""
+        opts = dict(req.options or {})
+        context = opts.pop("context", None) or getattr(req, "context", None)
+        # resolve an unseeded request's seed HERE so the crash-resume
+        # snapshot can carry it — a replacement worker must replay the
+        # SAME rng chain. Drawn from the ENGINE's seeded RNG,
+        # not the process-global one, so EngineConfig.seed still governs
+        # unseeded-request reproducibility exactly as before.
+        if opts.get("seed") is None:
+            opts["seed"] = engine.resolve_seed()
+        gen = GenerationRequest(
+            id=req.id, prompt=prompt, options=opts,
+            raw=raw or bool(opts.get("raw")), on_chunk=on_chunk,
+            images=collect_images(req) or None,
+        )
+        if context:
+            gen.prompt_ids = list(context) + engine.tokenizer.encode(
+                prompt, add_bos=False
+            )
+        resume = (req.metadata or {}).get("resume")
+        if isinstance(resume, dict):
+            # decode resume. The seed applies even with NO
+            # tokens (a seed-only watermark from the pre-first-snapshot
+            # window): restarting from zero with the SAME seed keeps an
+            # unseeded sampled regeneration byte-identical, which the
+            # gateway's overlap trim depends on.
+            if resume.get("seed") is not None:
+                opts["seed"] = int(resume["seed"])
+            if not gen.images and resume.get("tokens"):
+                # continue from the watermark — the engine folds the
+                # tokens into prompt+generated state and emission
+                # restarts past the chars the client already has
+                gen.resume_ids = [int(t) for t in resume["tokens"]]
+                gen.resume_sent = max(int(resume.get("sentChars") or 0), 0)
+        return gen
+
+    async def _run_generation(
+        self, engine: InferenceEngine, assignment: JobAssignment
+    ) -> InferenceResponse | None:
+        req = assignment.request
+        streaming = bool(req.stream)
+        prompt, flags = self._render_prompt(engine, req)
+        is_chat, fmt, think, raw = (flags["is_chat"], flags["fmt"],
+                                    flags["think"], flags["raw"])
+
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+
+        def on_chunk(delta: str, done: bool, res: GenerationResult | None):
+            loop.call_soon_threadsafe(q.put_nowait, (delta, done, res))
+
+        gen = self._make_gen(engine, req, prompt, raw, on_chunk)
+        # format / tools / think outputs are post-processed from the FULL
+        # text; suppress intermediate stream frames so streamed bytes can
+        # never disagree with the final extracted result (divergence from
+        # Ollama's grammar-constrained streaming, documented in prompting.py)
+        if fmt or req.tools or think:
+            streaming = False
+        # crash-resume watermark cadence: the engine writes its
+        # slot snapshot at this cadence too (set BEFORE submit), so the
+        # hot loop never pays per-token list copies
+        snap_every = 0 if gen.images else self._snap_every
+        gen.snapshot_every = snap_every
+        engine.submit(gen)
+        t_submit = time.time()
+        t_first: float | None = None
+
+        buf = ""
+        eval_count = 0
+        # tokens published so far (resume tokens count — the scheduler's
+        # store is monotonic)
+        snap_len = len(gen.resume_ids or [])
+        snap_mark = 0
+        if snap_every > 0:
+            # seed-only watermark BEFORE the first token: a death in the
+            # pre-snapshot window must retry with the same resolved seed
+            # or an unseeded sampled stream would splice two samples
+            await self._publish_snapshot(req, gen.resume_ids or [],
+                                         gen.options.get("seed"))
+        # absolute char offset of the next stream frame in the FULL
+        # response text: a resumed attempt starts where its emission
+        # does, so the gateway can trim overlap exactly
+        abs_off = gen.resume_sent if gen.resume_ids else 0
+        last_flush = time.monotonic()
+        while True:
+            timeout = self.stream_flush_s if (streaming and buf) else None
+            try:
+                delta, done, res = await asyncio.wait_for(q.get(), timeout)
+            except asyncio.TimeoutError:
+                await self._flush_stream(req, buf, eval_count, abs_off)
+                abs_off += len(buf)
+                buf, last_flush = "", time.monotonic()
+                continue
+            if delta and t_first is None:
+                # only a frame actually carrying a token counts — a bare
+                # done frame (cancel/error/immediate EOS) must not leave a
+                # fake first-token mark on the trace
+                t_first = time.time()
+                self.tracer.event(req.id, "worker.first_token",
+                                  sinceSubmitMs=round(
+                                      (t_first - t_submit) * 1000, 3))
+            buf += delta
+            if done:
+                assert res is not None
+                # engine-stage spans: submit→first-token is the honest
+                # prefill wait (queue + compile + prefill dispatch),
+                # first-token→done the decode stretch; engine-measured ns
+                # ride in meta for exact attribution
+                now = time.time()
+                tf = t_first if t_first is not None else now
+                self.tracer.record(
+                    req.id, "engine.prefill", t_submit, tf,
+                    promptTokens=res.prompt_eval_count,
+                    cachedTokens=res.cached_tokens,
+                    engineNs=res.prompt_eval_duration_ns)
+                if res.eval_count:
+                    # specAccepted/specProposed: this request's speculative
+                    # draft outcomes — 0/0 with speculation off;
+                    # accepted ≈ 0 while proposed grows is the per-request
+                    # view of acceptance collapse
+                    self.tracer.record(
+                        req.id, "engine.decode", tf, now,
+                        tokens=res.eval_count,
+                        engineNs=res.eval_duration_ns,
+                        specAccepted=res.spec_accepted,
+                        specProposed=res.spec_proposed)
+                if res.done_reason == "suspend":
+                    if req.id in self._preempting:
+                        # preemption: park to host, requeue
+                        # behind the higher-priority work
+                        self._preempting.discard(req.id)
+                        raise _PreemptSuspend(res, gen.options.get("seed"))
+                    # graceful drain: nothing is wasted — the partial
+                    # decode migrates out through the drain handoff
+                    raise _DrainSuspend(res, gen.options.get("seed"))
+                if res.done_reason == "cancel":
+                    # partial output of a cancelled decode is thrown-away
+                    # work — the goodput ledger must see it
+                    if res.eval_count:
+                        _WASTED_TOKENS.inc(res.eval_count, reason="cancelled")
+                    return None
+                if res.done_reason == "error":
+                    msg = res.error or res.text or "generation failed"
+                    if not res.retryable:
+                        raise NonRetryableJobError(msg)
+                    raise RuntimeError(msg)
+                return await self._finalize_generation(
+                    req, res, buf, is_chat, streaming,
+                    fmt=fmt, tools=req.tools, think=think,
+                    stream_offset=abs_off,
+                )
+            eval_count += 1
+            if snap_every > 0 and eval_count - snap_mark >= snap_every:
+                snap_mark = eval_count
+                snap = engine.decode_snapshot(req.id)
+                if snap is not None and len(snap["tokens"]) > snap_len:
+                    snap_len = len(snap["tokens"])
+                    await self._publish_snapshot(
+                        req, snap["tokens"], gen.options.get("seed"))
+            if streaming and buf and (
+                time.monotonic() - last_flush >= self.stream_flush_s
+            ):
+                await self._flush_stream(req, buf, eval_count, abs_off)
+                abs_off += len(buf)
+                buf, last_flush = "", time.monotonic()
+
+    async def _flush_stream(self, req, text: str, eval_count: int,
+                            offset: int | None = None) -> None:
+        buffered = self._frame_buf.pop(req.id, None)
+        if buffered is not None:
+            # drain-on-resume: frames buffered through a bus blip are
+            # contiguous with this one — prepend and retry as one frame
+            # at the buffered absolute offset
+            b_off, b_text, b_evals = buffered
+            text = b_text + text
+            offset = b_off
+            eval_count = max(eval_count, b_evals)
+        if not text:
+            return
+        chunk = StreamChunk(
+            id=req.id, model=req.model, created_at=iso_now(),
+            response=text, done=False, eval_count=eval_count,
+            offset=offset,
+        )
+        if req.request_type == "chat":
+            chunk.message = {"role": "assistant", "content": text}
+        try:
+            await self.bus.publish(job_stream_channel(req.id),
+                                   chunk.model_dump_json())
+        except Exception as e:  # noqa: BLE001 — blip: buffer, keep decoding
+            self._frame_buf[req.id] = (int(offset or 0), text, eval_count)
+            log.warning("stream frame buffered (bus degraded)",
+                        jobId=req.id, chars=len(text), error=str(e))
+
+    async def _finalize_generation(
+        self, req, res: GenerationResult, tail: str, is_chat: bool,
+        streaming: bool, fmt=None, tools=None, think=None,
+        stream_offset: int | None = None,
+    ) -> InferenceResponse:
+        if streaming and (tail or req.id in self._frame_buf):
+            await self._flush_stream(req, tail, res.eval_count,
+                                     stream_offset)
+            # the stream is complete except for what a bus blip buffered:
+            # give the drain a couple of quick retries so the client's
+            # byte stream closes out with the result instead of leaning
+            # on the gateway's settle window
+            for _ in range(3):
+                if req.id not in self._frame_buf:
+                    break
+                await asyncio.sleep(0.1)
+                await self._flush_stream(req, "", res.eval_count,
+                                         stream_offset)
+        response = InferenceResponse(
+            id=req.id, model=req.model, created_at=iso_now(),
+            done=True, done_reason=res.done_reason,
+            total_duration=res.total_duration_ns,
+            load_duration=res.load_duration_ns,
+            prompt_eval_count=res.prompt_eval_count,
+            prompt_eval_duration=res.prompt_eval_duration_ns,
+            eval_count=res.eval_count,
+            eval_duration=res.eval_duration_ns,
+        )
+        # usage attribution: cost payload the owning shard
+        # accounts exactly once. A resumed attempt reports the FULL
+        # request (the dead attempt never published a result, so nothing
+        # double-counts); the decode side of a disagg handoff claims the
+        # migrated bytes it imported.
+        self._usage_by_job[req.id] = build_usage(
+            tenant=str((req.metadata or {}).get("tenant") or ""),
+            model=req.model,
+            prompt_tokens=res.prompt_eval_count,
+            output_tokens=res.eval_count,
+            prefix_saved_tokens=res.cached_tokens,
+            spec_wasted_tokens=max(res.spec_proposed - res.spec_accepted, 0),
+            decode_device_s=res.decode_device_s,
+            kv_page_s=res.kv_page_s,
+            migrated_bytes=0,  # no KV import until ROADMAP A 4
+        )
+        text = res.text
+        thinking = None
+        if think:
+            thinking, text = split_thinking(text)
+        tool_calls: list[dict] = []
+        if is_chat and tools:
+            tool_calls, text = parse_tool_calls(text)
+        if fmt:
+            text = extract_json(text)
+        if is_chat:
+            message: dict = {"role": "assistant", "content": text}
+            if thinking:
+                message["thinking"] = thinking
+            if tool_calls:
+                message["tool_calls"] = tool_calls
+            response.message = message
+        else:
+            response.response = text
+            response.thinking = thinking
+            response.context = res.context
+        return response

@@ -275,3 +275,148 @@ def test_model_branches_stream_like_jax_with_chunked_admission(name):
     assert te.model.ragged_attention
     got = _same(je, te, ["hello", LONG, "xyz"])
     assert got[1].prompt_eval_count > TINY["prefill_chunk"]
+
+
+# ---------------------------------------------------------------------------
+# resume, snapshots and suspend (the calls the worker makes)
+# ---------------------------------------------------------------------------
+
+REP = "ab ab ab ab ab ab"
+REP_OPTS = {"temperature": 0.0, "repeat_penalty": 1.0, "num_predict": 24}
+SAMPLED = {"temperature": 0.9, "seed": 1234, "num_predict": 20}
+
+
+@pytest.fixture(scope="module")
+def spec_engines(engines):
+    """Port engines on the shared weights: n-gram speculation (K = 4) and
+    draft-model tree speculation, its tiny-llama draft on weights of its own
+    (so the verify rejects some of its drafts)."""
+    je, _ = engines
+    params = jax.tree_util.tree_map(np.asarray, je.params)
+    ngram = TEngine(TConfig(spec_k=4, **TINY), device="cpu", params=params)
+    tree = TEngine(TConfig(spec_k=4, draft_model="tiny-llama", **TINY), device="cpu",
+                   params=params)
+    return {"ngram": ngram, "tree": tree}
+
+
+def _run(engine, rid, prompt, opts, snapshot_every=0, **kw):
+    """One request through step(); returns (result, deltas, snapshots): the
+    snapshot read at each delta, with the chars delivered by then."""
+    deltas, snaps, box = [], [], []
+
+    def cb(delta, done, res):
+        if done:
+            box.append(res)
+        deltas.append(delta)
+        snap = engine.decode_snapshot(rid)
+        if snap is not None:
+            snaps.append((snap["tokens"], len("".join(deltas))))
+
+    engine.submit(TRequest(id=rid, prompt=prompt, options=dict(opts), on_chunk=cb,
+                           snapshot_every=snapshot_every, **kw))
+    for _ in range(10_000):
+        if box:
+            break
+        engine.step()
+    return box[0], "".join(deltas), snaps
+
+
+@pytest.mark.parametrize("mode,prompt,opts", [
+    ("plain", "resume me please", GREEDY),
+    ("plain", LONG, GREEDY),                 # the resumed context is admitted in chunks
+    ("plain", "seeded sampled resume", SAMPLED),
+    ("ngram", REP, REP_OPTS),
+    ("tree", REP, REP_OPTS),
+])
+def test_resume_streams_equal_the_undisturbed_stream(engines, spec_engines, mode, prompt,
+                                                     opts):
+    """A request resumed from a mid-stream watermark (resume_ids = the
+    snapshot's tokens, resume_sent = the chars the client had) emits exactly
+    the rest of the undisturbed text, and its result equals the undisturbed
+    one: greedy with speculation off, n-gram and tree; and a seeded sampled
+    stream with speculation off, on the same platform (the port's noise is a
+    counter hash, so only greedy streams are byte-identical across
+    platforms). With speculation on, a sampled resume is equal only in
+    distribution, as in the JAX package."""
+    te = engines[1] if mode == "plain" else spec_engines[mode]
+    want, text, snaps = _run(te, f"u-{mode}", prompt, opts, snapshot_every=1)
+    assert want.done_reason == "length" and want.text == text
+    toks, sent = snaps[len(snaps) // 2]
+    assert 0 < len(toks) < want.eval_count
+    got, rest, _ = _run(te, f"r-{mode}", prompt, opts, resume_ids=toks, resume_sent=sent)
+    assert rest == want.text[sent:]
+    assert got.text == want.text and got.token_ids == want.token_ids
+    assert got.eval_count == want.eval_count and got.done_reason == want.done_reason
+    assert got.prompt_eval_count == want.prompt_eval_count
+    if mode == "plain" and opts is GREEDY:
+        # the JAX engine resumes the same watermark to the same stream
+        je = engines[0]
+        box = []
+        je.submit(JRequest(id=f"j-{prompt}", prompt=prompt, options=dict(opts),
+                           resume_ids=toks, resume_sent=sent,
+                           on_chunk=lambda d, fin, r: fin and box.append(r)))
+        while not box:
+            je.step()
+        assert box[0].token_ids == got.token_ids and box[0].text == got.text
+
+
+@pytest.mark.parametrize("mode", ["ngram", "tree"])
+def test_decode_snapshot_never_holds_a_rolled_back_token(spec_engines, mode):
+    """With speculation on, every watermark the engine writes is a prefix of
+    the final stream: a verify's rejected drafts (proposed > accepted here)
+    never reach it, and it only grows."""
+    te = spec_engines[mode]
+    for i, prompt in enumerate((REP, "hello world, here we go", "abc abd abe abf")):
+        res, _, snaps = _run(te, f"s-{mode}{i}", prompt, REP_OPTS, snapshot_every=1)
+        assert snaps and res.spec_proposed > res.spec_accepted
+        for toks, _ in snaps:
+            assert res.token_ids[:len(toks)] == toks
+        lens = [len(t) for t, _ in snaps]
+        assert lens == sorted(lens)
+
+
+def test_suspend_running_and_pending_requests(engines):
+    """suspend() finishes a running request with done_reason "suspend" and
+    what a resume needs; its pages stay in the prefix cache, so the resume
+    admits warm and equals the undisturbed stream. A pending request
+    suspends with nothing generated."""
+    _je, te = engines
+    want, _, _ = _run(te, "sus-ref", "suspend this one", GREEDY)
+    box = []
+    te.submit(TRequest(id="sus", prompt="suspend this one", options=dict(GREEDY),
+                       on_chunk=lambda d, fin, r: fin and box.append(r)))
+    for _ in range(4):
+        te.step()
+    assert te.active_requests == 1 and te.queued_requests == 0
+    assert te.suspend("sus") and box[0].done_reason == "suspend"
+    res = box[0]
+    assert 0 < len(res.token_ids) < want.eval_count
+    assert res.token_ids == want.token_ids[:len(res.token_ids)]
+    assert res.context[-len(res.token_ids):] == res.token_ids
+    got, _, _ = _run(te, "sus-resume", "suspend this one", GREEDY,
+                     resume_ids=res.token_ids, resume_sent=len(res.text))
+    assert got.token_ids == want.token_ids and got.cached_tokens > 0
+    te.submit(TRequest(id="sus-p", prompt="pending", options=dict(GREEDY),
+                       on_chunk=lambda d, fin, r: fin and box.append(r)))
+    assert te.queued_requests == 1 and te.suspend("sus-p")
+    assert box[-1].done_reason == "suspend" and box[-1].token_ids == []
+    assert not te.suspend("sus-p") and te.queued_requests == 0
+
+
+def test_worker_calls_seed_usage_and_refusals():
+    """resolve_seed draws from the engine-seeded RNG; results carry the
+    usage fields; images and export_only fail non-retryably, naming the
+    slice that ports them; KV transfer reports unsupported."""
+    te = TEngine(TConfig(spec_decode=False, seed=7, **TINY), device="cpu")
+    te2 = TEngine(TConfig(spec_decode=False, seed=7, **TINY), device="cpu")
+    assert [te.resolve_seed() for _ in range(3)] == [te2.resolve_seed() for _ in range(3)]
+    res, _, _ = _run(te, "usage", "hello", GREEDY)
+    assert res.decode_device_s > 0 and res.kv_page_s > 0
+    assert not te.embedding_only and not te.kv_transfer_supported()
+    for kw, where in (({"images": ["aGVsbG8="]}, "A 8"), ({"export_only": True}, "A 4")):
+        bad, _, _ = _run(te, f"bad-{where}", "hello", GREEDY, **kw)
+        assert bad.done_reason == "error" and not bad.retryable and where in bad.error
+    with pytest.raises(NotImplementedError, match="A 4"):
+        te.export_prefix_pages([1, 2, 3])
+    with pytest.raises(NotImplementedError, match="A 4"):
+        te.park_to_host([1, 2, 3])
