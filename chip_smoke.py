@@ -92,7 +92,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              in bf16 a reading, in float32 byte-identical to the
              undisturbed run with the same eval_count. The output columns
              of ids the byte tokenizer does not print as ASCII are zeroed
-             (_printable_head), so streams carry text.
+             (_printable_head), so streams carry text. Then a fresh
+             engine that prewarms at construction
+             (GRIDLLM_PREWARM_COMPILES=1) serves the seven streams with no
+             warm-up job: TTFT p50 and tokens/s, a reading.
 7. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
              in float32 serves a prompt cold, then again from the prefix
              cache, and the greedy streams must be identical; then, in
@@ -104,7 +107,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
              accepted gives the same greedy stream with speculative
              decoding on and off, with ragged attention on and off.
-9. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
+9. checkpoint — llama3.2:1b at full width (bf16, tied embeddings): its
+             random weights written with save_checkpoint into a temporary
+             directory (removed after), loaded back through
+             checkpoint_path (every parameter equal bit for bit; load
+             seconds, GB/s and peak host memory growth), four greedy
+             prompts (one past the 1,024-token chunk) served from the file
+             with the random-init engine's streams, the four main-path
+             kernels launched and no plain version on the card; the same
+             directory by an unregistered name (config.json); the weights
+             parked in the snapshot tier (device memory falls by at least
+             their bytes) and restored from it (load_source "snapshot",
+             equal streams); two cold child processes loading with
+             GRIDLLM_PREWARM_COMPILES off and on (a reading: the first
+             request's time to its first token); the port's Prometheus
+             text: every engine, prefix-cache, device-memory and
+             weight-snapshot series defined, no dispatch on the plain
+             path, the memory limit the card's; the sampler's threefry
+             bits on CUDA equal to the CPU's over 64 seeds x 64 steps,
+             its Gumbel draws within 2 ulp.
+10. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
              int8 leg against its plain version (the pool dequantized
              through gather_kv) in bf16 and float32 compute, q scaled by 4
              and held to the row-relative error, per-row scales spanning
@@ -128,7 +150,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              none on the CUDA cores, flash_prefill, and no write kernel
              (int8 writes are indexed assignments) nor per-phase kernel;
              pool bytes per page 0.502x bf16's.
-10. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
+11. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
              the engine's defaults and its runner thread live serving
              eight concurrent requests inside an InferenceEngine.profile()
              capture (torch.profiler, CPU and CUDA activity), then eight
@@ -136,7 +158,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              mid-decode, then a capture the engine did not start, which
              must be refused; faulthandler on. Fails if a child dies by a
              signal or fails a check.
-11. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
+12. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
              against its blocked plain version (bf16 at T = 32768 with
              seq_len 24001 and 32768, float32 at T = 16384, D = 64,
              window and softcap, G = 7 at T = 20000), the ported kernels
@@ -153,7 +175,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              serving a 24001-token prompt whole in the 32768 bucket beside
              a short request (32 flash_prefill_streamed launches), and its
              warm repeat as one 32768-row mixed-step chunk.
-12. tree   — draft-model tree speculation: ragged_attention's tree leg
+13. tree   — draft-model tree speculation: ragged_attention's tree leg
              against its plain version (ragged_paged_attention_ref with
              tree_pos/tree_mask), q scaled by 4 and held to the
              row-relative error, in bf16 and float32 compute, fp and int8
@@ -167,16 +189,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              int8 pool checking a sibling-rescued tree step and its row
              compaction (spec_accept_tree, commit_tree_path) against the
              same tokens one at a time; llama3:8b bf16 with
-             draft_model="llama3.2:1b" serving the serve phase's eight
-             requests and a warm repeat, held to 32 tree launches per
-             verify step, draft launches, and no per-phase kernel; then
+             draft_model="llama3.2:1b", the draft read from a checkpoint
+             of its random weights (draft_checkpoint), serving the serve
+             phase's eight requests and a warm repeat, held to 32 tree
+             launches per verify step, draft launches, and no per-phase
+             kernel, and one more request's stream held to an engine's
+             whose draft weights were made in memory; then
              float32 llama3.2:1b self-drafted greedy streams held to spec
              off with ragged attention on, off, and with kv_int8.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,int8,profiler,long,tree]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -205,7 +230,7 @@ SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "replay", "spec",
-              "int8", "profiler", "long", "tree")
+              "checkpoint", "int8", "profiler", "long", "tree")
 
 
 def emit(obj: dict) -> None:
@@ -1870,6 +1895,57 @@ async def _kill_and_resume(bus, standin, engine, workers, tag, prompt, n):
             "delivered_chars_at_kill": delivered}
 
 
+def _worker_wave(rng) -> tuple[list, list]:
+    """The worker phase's seven streams, generate and chat: a prompt longer
+    than one chunk (1,500 byte tokens > 1,024: mixed admission), the rest a
+    few hundred tokens. (prompts, requests)."""
+    prompts = [_prompt(rng, n) for n in (300, 450, 200, 600, 350, 500, 1500)]
+    wave = [_worker_request(f"w{i}", n, prompt=p)
+            for i, (p, n) in enumerate(zip(prompts[:4], (96, 64, 80, 72)))]
+    wave += [_worker_request(f"c{i}", n, messages=[{"role": "user", "content": p}])
+             for i, (p, n) in enumerate(zip(prompts[4:6], (64, 96)))]
+    wave.append(_worker_request("long", 64, prompt=prompts[6]))
+    return prompts, wave
+
+
+async def _worker_prewarmed(engine) -> dict:
+    """The seven streams through a WorkerService on an engine that
+    prewarmed at construction, with no warm-up job: TTFT and output
+    tokens/s as the stand-in sees them (a reading beside the warmed-up
+    run's)."""
+    import asyncio
+    import random
+
+    from gridllm_torch.bus import InMemoryBus
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    bus = InMemoryBus()
+    await bus.connect()
+    standin = _StandIn(bus)
+    await standin.start()
+    worker = WorkerService(bus, {WORKER_MODEL: engine},
+                           WorkerConfig(worker_id=f"{WORKER_ID}-prewarm",
+                                        heartbeat_interval_ms=1000), stream_flush_ms=20)
+    await worker.start()
+    try:
+        _, wave = _worker_wave(random.Random(SEED + 7))
+        t0 = time.perf_counter()
+        jobs = [await standin.submit(worker.worker_id, req) for req in wave]
+        served = [await asyncio.wait_for(j.result, 600) for j in jobs]
+        wall = time.perf_counter() - t0
+    finally:
+        await worker.stop(announce=False)
+        await bus.disconnect()
+    for job, res in zip(jobs, served):
+        check(res.success and job.t_first is not None,
+              f"worker prewarm: job {job.req.id} {res.error or 'streamed nothing'}")
+    ttft = [(j.t_first - j.t_submit) * 1e3 for j in jobs]
+    tokens = sum(r.response.eval_count for r in served)
+    return {"jobs": len(jobs), "ttft_ms_p50": statistics.median(ttft), "ttft_ms": ttft,
+            "output_tokens": tokens, "wall_s": wall, "output_tokens_per_s": tokens / wall}
+
+
 async def _worker_serve(torch, engine) -> dict:
     import asyncio
     import random
@@ -1895,12 +1971,7 @@ async def _worker_serve(torch, engine) -> dict:
         # eight concurrent streams, generate and chat: a prompt longer than
         # one chunk (1,500 byte tokens > 1,024: mixed admission), the rest a
         # few hundred tokens; one long job is cancelled mid-stream
-        prompts = [_prompt(rng, n) for n in (300, 450, 200, 600, 350, 500, 1500)]
-        wave = [_worker_request(f"w{i}", n, prompt=p)
-                for i, (p, n) in enumerate(zip(prompts[:4], (96, 64, 80, 72)))]
-        wave += [_worker_request(f"c{i}", n, messages=[{"role": "user", "content": p}])
-                 for i, (p, n) in enumerate(zip(prompts[4:6], (64, 96)))]
-        wave.append(_worker_request("long", 64, prompt=prompts[6]))
+        prompts, wave = _worker_wave(rng)
         wave.append(_worker_request("cancel", 400, prompt=_prompt(rng, 250)))
         # warm-up, not measured: the first model calls of the process pay
         # one-time costs (library handles, first launches of each shape)
@@ -2053,6 +2124,7 @@ def phase_worker(torch) -> dict:
     for byte. The launch counters are 0 before the main path and read
     after it; no plain version runs on the card."""
     import asyncio
+    import os
 
     from gridllm_torch.engine import EngineConfig, InferenceEngine
 
@@ -2068,6 +2140,18 @@ def phase_worker(torch) -> dict:
     engine = InferenceEngine(EngineConfig(model=WORKER_MODEL, dtype="float32"), device="cuda")
     _printable_head(torch, engine)
     out["f32_resume"] = asyncio.run(_worker_resume_f32(engine))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["GRIDLLM_PREWARM_COMPILES"] = "1"
+    try:
+        engine = InferenceEngine(EngineConfig(model=WORKER_MODEL), device="cuda")
+    finally:
+        del os.environ["GRIDLLM_PREWARM_COMPILES"]
+    check(engine.prewarm_duration_ns > 0, "worker: the engine did not prewarm")
+    _printable_head(torch, engine)
+    out["prewarm_no_warmup"] = {"prewarm_ms": engine.prewarm_duration_ns / 1e6,
+                                **asyncio.run(_worker_prewarmed(engine))}
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2207,6 +2291,368 @@ def phase_spec(torch) -> dict:
               f"spec: {name} accepted no draft")
     return {"phase": "spec", "model": "llama3:8b", "dtype": "float32",
             "tokens": len(ref), "streams_identical": True, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint: serving from safetensors, the weight snapshot tier, prewarm,
+# the engine's metrics and the sampler's threefry stream on the card
+# ---------------------------------------------------------------------------
+
+CKPT_MODEL = "llama3.2:1b"
+CKPT_TOKENS = 32
+# the engine's series a torch worker exports (the JAX worker's names)
+CKPT_SERIES = (
+    "gridllm_engine_tokens_total", "gridllm_engine_step_duration_seconds",
+    "gridllm_engine_batch_occupancy", "gridllm_engine_kv_pages_used",
+    "gridllm_engine_kv_pages_free", "gridllm_engine_kv_pages_cached",
+    "gridllm_engine_host_sched_seconds", "gridllm_engine_dispatch_seconds",
+    "gridllm_engine_device_step_seconds", "gridllm_prefix_cache_hit_rate",
+    "gridllm_prefix_cache_hits_total", "gridllm_prefix_cache_misses_total",
+    "gridllm_prefix_cache_evictions_total", "gridllm_prefix_cache_cow_copies_total",
+    "gridllm_model_load_seconds", "gridllm_spec_proposed_tokens_total",
+    "gridllm_spec_accepted_tokens_total", "gridllm_spec_rejected_tokens_total",
+    "gridllm_spec_acceptance_rate", "gridllm_kernel_dispatch_total",
+    "gridllm_device_memory_bytes", "gridllm_device_memory_headroom_bytes",
+    "gridllm_device_memory_limit_bytes", "gridllm_weight_snapshot_bytes",
+    "gridllm_weight_snapshot_models", "gridllm_weight_snapshot_events_total")
+MAIN_PATH_KERNELS = ("flash_prefill", "ragged_attention", "paged_write_decode",
+                     "paged_write_chunk")
+
+
+def _ckpt_prompts() -> list[str]:
+    """Four prompts, the last past the 1,024-token chunk (byte tokens)."""
+    import random
+
+    rng = random.Random(SEED + 11)
+    return [_prompt(rng, n) for n in (120, 400, 800, 1500)]
+
+
+def _ckpt_streams(engine) -> list[list[int]]:
+    """The four prompts submitted at once and driven by step() (one
+    admission schedule for every engine): greedy token streams."""
+    from gridllm_torch.engine import GenerationRequest
+
+    results: dict = {}
+
+    def done(i):
+        def cb(_delta, fin, res):
+            if fin:
+                results[i] = res
+        return cb
+
+    for i, p in enumerate(_ckpt_prompts()):
+        engine.submit(GenerationRequest(id=f"ck{i}", prompt=p, on_chunk=done(i), options={
+            "temperature": 0.0, "num_predict": CKPT_TOKENS}))
+    for _ in range(100_000):
+        if len(results) == 4:
+            break
+        engine.step()
+    check(len(results) == 4, "checkpoint: a request never finished")
+    for i in range(4):
+        res = results[i]
+        check(res.done_reason in ("length", "stop") and res.token_ids,
+              f"checkpoint: request {i} finished {res.done_reason!r} ({res.error})")
+    return [results[i].token_ids for i in range(4)]
+
+
+def _scrape() -> tuple[set, dict]:
+    """(metric names, {sample line name and labels: value}) of the port's
+    registry in Prometheus text."""
+    from gridllm_torch.obs import default_registry
+
+    names, samples = set(), {}
+    for line in default_registry().render().splitlines():
+        if line.startswith("# TYPE "):
+            names.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            samples[key] = float(value)
+    return names, samples
+
+
+def _jnp_dispatches(samples: dict) -> float:
+    return sum(v for k, v in samples.items()
+               if k.startswith("gridllm_kernel_dispatch_total{") and 'path="jnp"' in k)
+
+
+def _ckpt_metrics(torch) -> dict:
+    """C 1 on the card, after the phase's serves, park and restore: every
+    series of CKPT_SERIES is defined (those the phase exercises with a
+    sample), the plain path dispatched nothing, and the device-memory
+    limit is the card's."""
+    names, samples = _scrape()
+    missing = [n for n in CKPT_SERIES if n not in names]
+    check(not missing, f"checkpoint metrics: series missing: {missing}")
+    for n in ("gridllm_engine_tokens_total", "gridllm_engine_device_step_seconds_count",
+              "gridllm_prefix_cache_misses_total", "gridllm_model_load_seconds_count",
+              "gridllm_kernel_dispatch_total", "gridllm_device_memory_bytes",
+              "gridllm_weight_snapshot_events_total"):
+        check(any(k.startswith(n + "{") or k == n for k in samples),
+              f"checkpoint metrics: {n} has no sample")
+    jnp = _jnp_dispatches(samples)
+    check(jnp == 0, f"checkpoint metrics: {jnp} dispatches took the plain path")
+    total = torch.cuda.mem_get_info()[1]
+    limit = samples.get('gridllm_device_memory_limit_bytes{device="cuda:0"}')
+    check(limit == total, f"checkpoint metrics: memory limit {limit} != {total}")
+    cuda = {k.split('path="cuda"')[0]: v for k, v in samples.items()
+            if k.startswith("gridllm_kernel_dispatch_total{") and 'path="cuda"' in k}
+    return {"series_present": len(CKPT_SERIES), "jnp_dispatches": jnp,
+            "cuda_dispatch_series": len(cuda), "memory_limit_bytes": limit,
+            "headroom_bytes": samples.get('gridllm_device_memory_headroom_bytes{'
+                                          'device="cuda:0"}')}
+
+
+def _gumbel_ulps(torch, got, want):
+    """|got - want| of two float32 Gumbel draws in units of the rounding the
+    two logs of -log(-log(u)) allow: 1 ulp of the result plus 1 ulp of the
+    inner log's value x carried through the outer log (ulp(x) / x)."""
+    w = want.double()
+    x = torch.exp(-w)
+
+    def ulp(t):
+        t = t.abs().float()
+        return (torch.nextafter(t, torch.full_like(t, float("inf"))) - t).double()
+
+    return ((got.double() - w).abs() / (ulp(w) + ulp(x) / x)).max().item()
+
+
+def _rng_check(torch) -> dict:
+    """C 2 on the card: the sampler's threefry bits, uniforms and key chains
+    on CUDA equal the CPU's exactly over 64 seeds x 64 steps; the Gumbel
+    draws within 2 ulp (`_gumbel_ulps`)."""
+    from gridllm_torch.ops import sampling as smp
+
+    seeds = [0, 1, -1, 7, -7, 12345, -54321, 2**31 - 1, -2**31] + [
+        (i * 2654435761) % 2**32 - 2**31 for i in range(55)]
+    s = torch.tensor(seeds, dtype=torch.int32).repeat_interleave(64)
+    t = torch.tensor([0, 1, 2, 1000, 2**31 - 1] + list(range(3, 62)),
+                     dtype=torch.int32).repeat(64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sd, st = s.to(dev), t.to(dev)
+        key = smp.step_key(sd, st)
+        u, g = smp._spec_keys(sd, st, 128)
+        tu, tg = smp._spec_tree_keys(sd, st, 128, 6)
+        out[dev] = {"key0": key[0], "key1": key[1], "bits": smp.random_bits(key, 128),
+                    "uniform": smp.uniform(key, 128), "spec_u": u, "tree_u": tu,
+                    "gumbel": smp.gumbel(key, 128), "spec_g": g, "tree_g": tg}
+    exact = {k: torch.equal(out["cpu"][k], out["cuda"][k].cpu())
+             for k in ("key0", "key1", "bits", "uniform", "spec_u", "tree_u")}
+    check(all(exact.values()), f"checkpoint rng: CUDA bits differ from the CPU's: {exact}")
+    ulps = {k: _gumbel_ulps(torch, out["cuda"][k].cpu(), out["cpu"][k])
+            for k in ("gumbel", "spec_g", "tree_g")}
+    check(max(ulps.values()) <= 2.0, f"checkpoint rng: Gumbel draws apart: {ulps}")
+    same = {k: (out["cuda"][k].cpu() == out["cpu"][k]).float().mean().item()
+            for k in ("gumbel", "spec_g", "tree_g")}
+    return {"grid": [64, 64], "exact": sorted(exact), "gumbel_max_ulps": ulps,
+            "gumbel_bit_equal_share": same}
+
+
+class _HostMemory:
+    """Host memory over a block: the growth of ru_maxrss (the process's
+    peak RSS), the peak of the current RSS sampled every millisecond above
+    its value at entry (ru_maxrss moves only past the earlier peak), and
+    the bytes the CUDA caching host allocator holds after (pinned
+    blocks)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * 4096
+
+    def __enter__(self):
+        import resource
+
+        self._stop = threading.Event()
+        self.start = self.peak = self._rss()
+        self.maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+        def sample():
+            while not self._stop.wait(0.001):
+                self.peak = max(self.peak, self._rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        stats = getattr(self.torch.cuda, "host_memory_stats", lambda: {})()
+        self.reading = {
+            "ru_maxrss_growth_mb": (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                                    - self.maxrss0) / 1024,
+            "rss_peak_growth_mb": (self.peak - self.start) / 2**20,
+            "pinned_host_allocator_mb": stats.get("allocated_bytes.current", 0) / 2**20,
+        }
+
+
+def _checkpoint_child(torch, path: str, prewarm: bool) -> dict:
+    """One cold process of the checkpoint phase: llama3.2:1b from `path`
+    with GRIDLLM_PREWARM_COMPILES on or off, then one request (its time to
+    the first host-visible token); the load's peak host memory growth."""
+    import os
+
+    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+
+    os.environ["GRIDLLM_PREWARM_COMPILES"] = "1" if prewarm else "0"
+    torch.cuda.init()
+    torch.zeros((), device="cuda")   # the context, before the memory reading
+    t0 = time.perf_counter()
+    with _HostMemory(torch) as mem:
+        engine = InferenceEngine(EngineConfig(model=CKPT_MODEL, checkpoint_path=path),
+                                 device="cuda")
+    ready_s = time.perf_counter() - t0
+    check(engine.load_source == "checkpoint", f"child: weights from {engine.load_source}")
+    check((engine.prewarm_duration_ns > 0) == prewarm, "child: prewarm did not run as set")
+    t1 = time.perf_counter()
+    res = engine.generate(GenerationRequest(id="first", prompt=_ckpt_prompts()[1], options={
+        "temperature": 0.0, "num_predict": 16}))
+    check(res.done_reason in ("length", "stop"), f"child: {res.done_reason} {res.error}")
+    weights = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    return {"prewarm": prewarm, "load_s": engine.load_duration_ns / 1e9,
+            "load_gb_per_s": weights / engine.load_duration_ns,
+            "prewarm_ms": engine.prewarm_duration_ns / 1e6, "ready_s": ready_s,
+            "first_request_ttft_ms": res.prompt_eval_duration_ns / 1e6,
+            "first_request_wall_ms": (time.perf_counter() - t1) * 1e3,
+            "load_host_memory": mem.reading}
+
+
+def _checkpoint_children(path: str) -> list:
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    runs = []
+    for prewarm in (False, True):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--checkpoint-child", path, "--prewarm", str(int(prewarm))],
+                              capture_output=True, text=True, timeout=300, cwd=str(REPO))
+        (out_dir / f"checkpoint_child_prewarm{int(prewarm)}.txt").write_text(
+            f"rc={proc.returncode}\n== stdout\n{proc.stdout}\n== stderr\n{proc.stderr}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        res = json.loads(lines[-1]) if lines else {}
+        check(proc.returncode == 0 and res.get("ok"),
+              f"checkpoint: child (prewarm {prewarm}) failed (rc {proc.returncode}): "
+              f"{proc.stderr[-3000:]}")
+        runs.append(res)
+    return runs
+
+
+def _weight_bytes(engine) -> int:
+    return sum(p.numel() * p.element_size() for p in engine.model.parameters())
+
+
+def phase_checkpoint(torch) -> dict:
+    """llama3.2:1b at full width (bf16, tied embeddings): its random weights
+    written with save_checkpoint into a temporary directory (removed at the
+    end), served from the file (parameters equal bit for bit, the four
+    prompts' streams equal the random-init engine's, the four main-path
+    kernels launched and no plain version run), served again by an
+    unregistered name from its config.json, parked in the weight snapshot
+    tier (device memory falls by the weights' bytes) and restored from it;
+    two cold child processes with prewarm off and on; the port's Prometheus
+    series after the serve; the sampler's threefry stream on CUDA against
+    the CPU."""
+    import os
+    import shutil
+    import tempfile
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.engine import loader
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    out: dict = {"phase": "checkpoint", "model": CKPT_MODEL, "card": card_line()}
+    tmp = tempfile.mkdtemp(prefix="gridllm-ckpt-")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        src = InferenceEngine(EngineConfig(model=CKPT_MODEL), device="cuda")
+        want = _ckpt_streams(src)
+        weights = _weight_bytes(src)
+        t0 = time.perf_counter()
+        nbytes = loader.save_checkpoint(src.model, src.cfg, tmp, torch.bfloat16)
+        write_s = time.perf_counter() - t0
+        out["write"] = {"bytes": nbytes, "seconds": write_s, "gb_per_s": nbytes / write_s / 1e9}
+
+        cfg = EngineConfig(model=CKPT_MODEL, checkpoint_path=tmp)
+        with _HostMemory(torch) as mem:
+            eng = InferenceEngine(cfg, device="cuda")
+        check(eng.load_source == "checkpoint", f"checkpoint: loaded from {eng.load_source}")
+        differ = [n for (n, p), (_, q) in zip(src.model.named_parameters(),
+                                             eng.model.named_parameters())
+                  if not torch.equal(p, q)]
+        check(not differ, f"checkpoint: parameters differ from the written ones: {differ}")
+        load_s = eng.load_duration_ns / 1e9
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        ck.reset_launch_counts()
+        with _PlainWatch(torch) as plain:
+            got = _ckpt_streams(eng)
+        counts = ck.launch_counts()
+        check(got == want, "checkpoint: streams from the file differ from random init's")
+        for name in MAIN_PATH_KERNELS:
+            check(counts[name] > 0, f"checkpoint: {name} never launched: {counts}")
+        check(not any(plain.counts.values()),
+              f"checkpoint: a plain version ran on the card: {plain.counts}")
+        out["load"] = {"seconds": load_s, "gb_per_s": weights / load_s / 1e9,
+                       "weight_bytes": weights, "file_bytes": nbytes,
+                       "host_memory": mem.reading,
+                       "streams_equal_random_init": True, "launches": counts,
+                       "plain_calls_on_card": plain.counts}
+
+        byname = InferenceEngine(EngineConfig(model="local-llama-1b", checkpoint_path=tmp),
+                                 device="cuda")
+        check(byname.cfg.head_dim_ == 64 and byname.cfg.tie_embeddings
+              and byname.cfg.rope_scaling == eng.cfg.rope_scaling,
+              f"checkpoint: config.json read back as {byname.cfg}")
+        check(_ckpt_streams(byname) == want, "checkpoint: streams by name differ")
+        out["by_name"] = {"model": byname.cfg.name, "load_s": byname.load_duration_ns / 1e9,
+                          "streams_equal_random_init": True}
+        del byname
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        os.environ["GRIDLLM_WEIGHT_SNAPSHOT_BYTES"] = str(2 * weights)
+        loader.reset_weight_snapshot_tier()
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            parked = eng.park_weights()
+            park_s = time.perf_counter() - t0
+            freed = before - torch.cuda.memory_allocated()
+            check(parked and freed >= weights,
+                  f"checkpoint: parking freed {freed} bytes of {weights} (parked {parked})")
+            del eng
+            gc.collect()
+            back = InferenceEngine(cfg, device="cuda")
+            check(back.load_source == "snapshot", f"checkpoint: reload from {back.load_source}")
+            restore_s = back.load_duration_ns / 1e9
+            check(_ckpt_streams(back) == want, "checkpoint: streams after the restore differ")
+            out["snapshot"] = {"park_s": park_s, "freed_bytes": freed,
+                               "restore_s": restore_s,
+                               "restore_gb_per_s": weights / restore_s / 1e9,
+                               "tier": loader.weight_snapshot_tier().stats(),
+                               "streams_equal_random_init": True}
+            del back
+        finally:
+            del os.environ["GRIDLLM_WEIGHT_SNAPSHOT_BYTES"]
+            loader.reset_weight_snapshot_tier()
+            gc.collect()
+            torch.cuda.empty_cache()
+        # after the serves, the park and the restore
+        out["metrics"] = _ckpt_metrics(torch)
+        out["prewarm_children"] = _checkpoint_children(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["rng"] = _rng_check(torch)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3383,23 +3829,66 @@ def _tree_model(torch) -> dict:
     return {"config": "llama3:8b, 2 layers, float32", **out}
 
 
+def _tree_draft_checkpoint(torch, path: str) -> int:
+    """The draft's random weights (llama3.2:1b, bf16, seed 0: the weights a
+    draft model without a checkpoint gets) written as a checkpoint."""
+    from gridllm_torch.engine import loader
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.models.llama import Llama
+
+    draft = Llama(get_config("llama3.2:1b"), dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    draft.init_params(gen)
+    n = loader.save_checkpoint(draft, draft.cfg, path, torch.bfloat16)
+    del draft
+    torch.cuda.empty_cache()
+    return n
+
+
+def _tree_one_stream(engine) -> list[int]:
+    """One greedy request, alone on the engine, on a prompt no earlier
+    request shared a page with."""
+    import random
+
+    from gridllm_torch.engine import GenerationRequest
+
+    res = engine.generate(GenerationRequest(
+        id="draft-source", prompt=_prompt(random.Random(SEED + 13), 300),
+        options={"temperature": 0.0, "num_predict": 48}))
+    check(res.done_reason in ("length", "stop") and res.token_ids,
+          f"tree serve: the draft-source request finished {res.done_reason!r} ({res.error})")
+    return res.token_ids
+
+
 def _tree_serve(torch) -> dict:
-    """llama3:8b bf16 with draft_model="llama3.2:1b" (both random weights
-    from seed 0) behind the runner thread: the serve phase's eight
-    concurrent requests, then a prefix-cache repeat; launch counts from 0
-    just before the first and read just after the last."""
+    """llama3:8b bf16 with draft_model="llama3.2:1b" (random weights from
+    seed 0; the draft's read from a checkpoint of them, draft_checkpoint)
+    behind the runner thread: the serve phase's eight concurrent requests,
+    then a prefix-cache repeat; launch counts from 0 just before the first
+    and read just after the last. Then one request's stream against an
+    engine whose draft weights were made in memory."""
+    import shutil
+    import tempfile
+
     from gridllm_torch.engine import EngineConfig, InferenceEngine
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.spec import DraftModelDrafter
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    srv = Served(torch, InferenceEngine(EngineConfig(model="llama3:8b",
-                                                     draft_model="llama3.2:1b"), device="cuda"))
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="gridllm-draft-")
+    try:
+        draft_bytes = _tree_draft_checkpoint(torch, tmp)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = Served(torch, InferenceEngine(EngineConfig(
+            model="llama3:8b", draft_model="llama3.2:1b", draft_checkpoint=tmp),
+            device="cuda"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     engine = srv.engine
     check(isinstance(engine._drafter, DraftModelDrafter), "tree serve: no draft model")
     vocab, slots = srv.vocab, engine.config.max_slots
@@ -3429,8 +3918,19 @@ def _tree_serve(torch) -> dict:
         "tree_launches": tree, "draft_and_mixed_ragged_launches": draft,
         "tree_launches_per_verify_step": tree / max(steps, 1), "launches": counts,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "draft_checkpoint_bytes": draft_bytes,
     }
+    from_file = _tree_one_stream(engine)
     _free(torch, srv)
+    in_memory = InferenceEngine(EngineConfig(model="llama3:8b", draft_model="llama3.2:1b"),
+                                device="cuda")
+    check(_tree_one_stream(in_memory) == from_file,
+          "tree serve: the stream with the draft from its checkpoint differs from the "
+          "stream with the same draft weights made in memory")
+    out["draft_checkpoint_stream_equals_in_memory"] = True
+    del in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3562,6 +4062,8 @@ def main() -> int:
     ap.add_argument("--turn-parts", default="kernels",
                     help="comma-separated subset of " + ",".join(TURN_PARTS))
     ap.add_argument("--profiler-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint-child", help=argparse.SUPPRESS)
+    ap.add_argument("--prewarm", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--turn-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -3578,6 +4080,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if args.profiler_child:
         emit({"ok": True, **_profiler_child(torch)})
+        return 0
+    if args.checkpoint_child:
+        emit({"ok": True, **_checkpoint_child(torch, args.checkpoint_child, bool(args.prewarm))})
         return 0
     if args.turns:
         emit(_turns(Path(args.turns).resolve(), args.turn_parts))
@@ -3596,7 +4101,7 @@ def main() -> int:
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
                    "serve": phase_serve, "worker": phase_worker, "replay": phase_replay,
-                   "spec": phase_spec,
+                   "spec": phase_spec, "checkpoint": phase_checkpoint,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
                    "tree": phase_tree}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0

@@ -72,9 +72,13 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from gridllm_torch import faults
+from gridllm_torch.engine.loader import load_checkpoint, weight_snapshot_tier
 from gridllm_torch.engine.tokenizer import DetokState, Tokenizer, get_tokenizer
-from gridllm_torch.models.configs import get_config
+from gridllm_torch.models.configs import config_from_hf_dir, get_config
 from gridllm_torch.models.llama import Llama
+from gridllm_torch.obs import SIZE_BUCKETS, default_registry
+from gridllm_torch.obs.perf import DEVICE_STEP_SECONDS, DISPATCH_SECONDS, HOST_SCHED_SECONDS
 from gridllm_torch.ops.kvcache import (
     PagedKVCache,
     PageAllocator,
@@ -97,10 +101,90 @@ from gridllm_torch.ops.spec import (
     tree_depths,
     tree_topology,
 )
+from gridllm_torch.utils.config import env_bool
 
 log = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# Engine-plane instruments, the JAX engine's series (names, help, labels
+# and buckets) on the process-global registry (the worker's /metrics).
+# Updated from the driving thread only, once per step at most.
+_OBS = default_registry()
+_TOKENS_TOTAL = _OBS.counter(
+    "gridllm_engine_tokens_total",
+    "Tokens processed, by model and kind (prefill = prompt tokens "
+    "dispatched, decode = tokens sampled and ingested).",
+    ("model", "kind"),
+)
+_STEP_DURATION = _OBS.histogram(
+    "gridllm_engine_step_duration_seconds",
+    "Per-decode-step wall time (fused-block fetch time divided by the "
+    "block's step count), by model.",
+    ("model",),
+)
+_BATCH_OCCUPANCY = _OBS.histogram(
+    "gridllm_engine_batch_occupancy",
+    "Active slots at each decode-block dispatch, by model.",
+    ("model",), buckets=SIZE_BUCKETS,
+)
+_KV_PAGES_USED = _OBS.gauge(
+    "gridllm_engine_kv_pages_used", "KV page-pool pages in use, by model.",
+    ("model",),
+)
+_KV_PAGES_FREE = _OBS.gauge(
+    "gridllm_engine_kv_pages_free", "KV page-pool pages free, by model.",
+    ("model",),
+)
+_KV_PAGES_CACHED = _OBS.gauge(
+    "gridllm_engine_kv_pages_cached",
+    "KV page-pool pages parked in the prefix-cache reuse LRU (refcount 0, "
+    "evictable), by model.",
+    ("model",),
+)
+_PREFIX_HIT_RATE = _OBS.gauge(
+    "gridllm_prefix_cache_hit_rate",
+    "Cumulative prompt-page prefix-cache hit rate (hits / (hits+misses)), "
+    "by model.",
+    ("model",),
+)
+# cold-start cost by how the weights arrived: "snapshot" (host-RAM weight
+# tier hit), "checkpoint" (safetensors read), "init" (random init)
+_MODEL_LOAD_SECONDS = _OBS.histogram(
+    "gridllm_model_load_seconds",
+    "Engine weight-load wall time at (re)construction, by model and "
+    "weight source (snapshot = host-RAM tier hit, checkpoint = disk "
+    "safetensors, init = fresh init).",
+    ("model", "source"),
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
+)
+# speculative decoding: proposed = drafts sent to a verify step, accepted =
+# drafts the model agreed with, rejected = the rest; by drafter kind
+# ("ngram" or "model")
+_SPEC_PROPOSED = _OBS.counter(
+    "gridllm_spec_proposed_tokens_total",
+    "Draft tokens proposed to speculative verify steps, by model and "
+    "drafter kind.",
+    ("model", "drafter"),
+)
+_SPEC_ACCEPTED = _OBS.counter(
+    "gridllm_spec_accepted_tokens_total",
+    "Draft tokens accepted by speculative verify steps, by model and "
+    "drafter kind.",
+    ("model", "drafter"),
+)
+_SPEC_REJECTED = _OBS.counter(
+    "gridllm_spec_rejected_tokens_total",
+    "Draft tokens rejected (or discarded past the first miss) by "
+    "speculative verify steps, by model and drafter kind.",
+    ("model", "drafter"),
+)
+_SPEC_ACCEPT_RATE = _OBS.histogram(
+    "gridllm_spec_acceptance_rate",
+    "Per-verify-step draft acceptance rate (accepted/proposed, over steps "
+    "with at least one proposed draft), by model and drafter kind.",
+    ("model", "drafter"), buckets=(0.0, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+)
 # the families the port's Llama serves (each has verify and decode steps)
 _DRAFT_FAMILIES = ("llama", "qwen2", "qwen3")
 
@@ -160,7 +244,8 @@ _GATE = _ProfileGate()
 @dataclasses.dataclass
 class EngineConfig:
     model: str
-    checkpoint_path: str | None = None   # not ported yet: random weights only
+    # an HF-layout safetensors directory; None = random weights (seed 0)
+    checkpoint_path: str | None = None
     tokenizer: str | None = None         # None/"byte" → ByteTokenizer
     dtype: str = "bfloat16"
     quantize: str | None = None          # not ported
@@ -194,7 +279,7 @@ class EngineConfig:
     draft_model: str | None = None
     spec_tree_width: int = 2
     draft_ingest: int = 64
-    draft_checkpoint: str | None = None  # not ported yet: random draft weights only
+    draft_checkpoint: str | None = None  # the draft model's weights (None: random)
     # attention mode: the unified ragged kernel (True) or the per-phase
     # dispatchers paged_decode / prefix_chunk (False)
     ragged_attention: bool = True
@@ -206,10 +291,8 @@ class EngineConfig:
     def check_ported(self) -> None:
         """Raise for a setting whose feature this package does not have."""
         unported = {
-            "checkpoint_path": bool(self.checkpoint_path),
             "quantize": bool(self.quantize),
             "mesh": self.mesh is not None,
-            "draft_checkpoint": bool(self.draft_checkpoint),
             "kv_host_bytes": bool(self.kv_host_bytes),
         }
         for name, on in unported.items():
@@ -333,19 +416,30 @@ class InferenceEngine:
     def __init__(self, config: EngineConfig, device: str | torch.device = "cuda",
                  params: dict[str, Any] | None = None,
                  draft_params: dict[str, Any] | None = None):
-        """`device`: "cuda" (the default) or "cpu". `params`: a JAX-layout
-        pytree of numpy arrays to serve instead of random weights;
-        `draft_params` the same for the draft model (else random weights
-        drawn as the target's are, so a draft model named like the target
-        gets the target's random weights)."""
+        """`device`: "cuda" (the default) or "cpu". The weights come, in
+        order, from `params` (a JAX-layout pytree of numpy arrays), a
+        snapshot of the same checkpoint identity in the host weight tier
+        (`snapshot_key`), `config.checkpoint_path`, or random init (seed
+        0); `load_source` says which of the last three. `draft_params` is
+        the draft model's pytree (else `config.draft_checkpoint`, else
+        random weights drawn as the target's are, so a draft model named
+        like the target gets the target's random weights). An unregistered
+        `config.model` with a checkpoint_path reads its config.json. With
+        GRIDLLM_PREWARM_COMPILES=1 the engine serves one greedy token
+        before it returns (`prewarm`)."""
         config.check_ported()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("InferenceEngine: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
         self.config = config
-        self.cfg = get_config(config.model)
-        self.tokenizer: Tokenizer = get_tokenizer(config.tokenizer, self.cfg.vocab_size)
+        try:
+            self.cfg = get_config(config.model)
+        except KeyError:
+            if not config.checkpoint_path:
+                raise
+            # an unregistered name with a checkpoint: its HF config.json
+            self.cfg = config_from_hf_dir(config.model, config.checkpoint_path)
         self.dtype = _DTYPES[config.dtype]
         self._rng = random.Random(config.seed)
         self._prefix_cache_cap = (
@@ -354,6 +448,8 @@ class InferenceEngine:
         self._alloc_lock = threading.RLock()
         self._pending: deque[GenerationRequest] = deque()
         self._slots: dict[int, _Slot] = {}
+        # host copy of each live or admitting slot's temperature
+        self._temps: dict[int, float] = {}
         self._free_slots = list(range(config.max_slots - 1, -1, -1))
         self._gen = 0   # generation counter of dispatched blocks
         # (gen, host tokens [k+1, S], copy-done event or None, k)
@@ -370,20 +466,19 @@ class InferenceEngine:
         self._tree_width = max(int(config.spec_tree_width), 1)
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0,
                            "draft_ns": 0}
+        # step-time decomposition state (driving thread only)
         self._t_prev_fetch: float | None = None
+        self._t_ingest_done: float | None = None
         # the JAX engine's flag for its embedding models; this engine
         # serves generation only
         self.embedding_only = False
 
+        self.prewarm_duration_ns = 0
         t0 = time.perf_counter_ns()
-        self.model = Llama(self.cfg, dtype=self.dtype, device=self.device,
-                           ragged_attention=config.ragged_attention)
-        if params is not None:
-            self.model.params_from_jax(params)
-        else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(0)
-            self.model.init_params(gen)
+        self._load_weights(params)
+        # after the weights: a checkpoint directory without them fails on
+        # its safetensors, not on its tokenizer
+        self.tokenizer: Tokenizer = get_tokenizer(config.tokenizer, self.cfg.vocab_size)
         self._init_device_state()
         self.max_context = min(self.cfg.max_seq_len,
                                config.max_pages_per_slot * config.page_size)
@@ -393,12 +488,96 @@ class InferenceEngine:
         parents = tree_topology(self._spec_k, self._tree_width)
         self._tree = (parents, tree_depths(parents), tree_ancestor_mask(parents))
         self.load_duration_ns = time.perf_counter_ns() - t0
+        _MODEL_LOAD_SECONDS.observe(self.load_duration_ns / 1e9, model=self.cfg.name,
+                                    source=self.load_source)
         # every admissible length maps to a fixed padded shape
         self._buckets = sorted(
             {min(b, self.max_context) for b in config.prefill_buckets}
             | {self.max_context})
         ps = config.page_size
         self._chunk_len = max(ps, (min(config.prefill_chunk, self.max_context) // ps) * ps)
+        if env_bool("GRIDLLM_PREWARM_COMPILES"):
+            self.prewarm()
+
+    # ---------------------------------------------------------- weights
+
+    def _load_weights(self, params: dict[str, Any] | None) -> None:
+        """Build the model and fill its weights (see __init__): a restore
+        from the snapshot tier runs under the fault site
+        swap.snapshot_restore, and an injected fault falls through to the
+        checkpoint or init, never a failed load."""
+        c = self.config
+        self.model = Llama(self.cfg, dtype=self.dtype, device=self.device,
+                           ragged_attention=c.ragged_attention)
+        if params is not None:
+            self.model.params_from_jax(params)
+            self.load_source = "init"
+            return
+        snap = None
+        tier = weight_snapshot_tier()
+        if tier.enabled:
+            try:
+                faults.inject("swap.snapshot_restore")
+                snap = tier.restore(self.snapshot_key())
+            except faults.InjectedFault:
+                log.warning("weight snapshot restore fault; loading %s instead",
+                            c.checkpoint_path or "random weights")
+                snap = None
+        if snap is not None:
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    p.copy_(snap[name], non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.load_source = "snapshot"
+        elif c.checkpoint_path:
+            load_checkpoint(self.cfg, c.checkpoint_path, model=self.model)
+            self.load_source = "checkpoint"
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            self.model.init_params(gen)
+            self.load_source = "init"
+
+    def snapshot_key(self) -> str:
+        """Checkpoint identity in the weight snapshot tier: everything that
+        changes the weights (the JAX engine's key, string for string)."""
+        c = self.config
+        return "|".join((self.cfg.name, c.checkpoint_path or "init", str(c.dtype),
+                         c.quantize or "none", str(c.mesh or "")))
+
+    def park_weights(self) -> bool:
+        """Park the weights in the host snapshot tier (call after stop(), on
+        the unload path), then free them on the device: every parameter's
+        storage is dropped and the caching allocator's blocks returned, so
+        the device's used memory falls by the weights' bytes. False (and
+        nothing freed) when the tier is off or the weights exceed it."""
+        model = self.model
+        if model is None or not weight_snapshot_tier().enabled:
+            return False
+        ok = weight_snapshot_tier().park(self.snapshot_key(), dict(model.named_parameters()))
+        if ok:
+            model.free_params()
+            self.model = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        return ok
+
+    def prewarm(self) -> None:
+        """Serve one greedy token through the smallest prefill bucket and a
+        decode (or verify) step before the first real request, so the first
+        request does not pay the process's first launches (the CUDA
+        context's lazy module loads, the allocator's first blocks, cuBLAS
+        handles). Fills `prewarm_duration_ns`."""
+        if self.running:
+            return
+        t0 = time.perf_counter_ns()
+        self.generate(GenerationRequest(
+            id="prewarm", prompt_ids=[1], raw=True,
+            options={"temperature": 0, "seed": 0, "num_predict": 1}))
+        self.prewarm_duration_ns = time.perf_counter_ns() - t0
+        log.info("engine prewarmed: %s in %d ms", self.cfg.name,
+                 self.prewarm_duration_ns // 1_000_000)
 
     # ---------------------------------------------------------- state setup
 
@@ -409,7 +588,7 @@ class InferenceEngine:
             c.max_slots, c.max_pages_per_slot, dtype=self.dtype, device=dev,
             kv_int8=bool(c.kv_int8))
         self.alloc = PageAllocator(c.num_pages, c.page_size, c.max_pages_per_slot,
-                                   cache_pages=self._prefix_cache_cap)
+                                   cache_pages=self._prefix_cache_cap, model=mc.name)
         self.sampling = SamplingParams.defaults(c.max_slots, dev)
         self.counts = torch.zeros((c.max_slots, mc.vocab_size), dtype=torch.int32, device=dev)
         self.window = torch.zeros((c.max_slots, c.repeat_window), dtype=torch.int32, device=dev)
@@ -422,11 +601,15 @@ class InferenceEngine:
         discarded; call abort_all() first). Weights survive."""
         with self._alloc_lock:
             self._slots.clear()
+            self._temps.clear()
             self._inflight.clear()
+            self._t_prev_fetch = None   # recovery wall must not read as
+            self._t_ingest_done = None  # device or host pace
             self._free_slots = list(range(self.config.max_slots - 1, -1, -1))
             self._init_device_state()
             if isinstance(self._drafter, DraftModelDrafter):
                 self._drafter.reset()
+            self._update_kv_gauges()
 
     def _build_model_drafter(self, draft_params) -> DraftModelDrafter | None:
         """The draft-model tree drafter, or None when no draft model is
@@ -456,6 +639,8 @@ class InferenceEngine:
                       ragged_attention=c.ragged_attention)
         if draft_params is not None:
             model.params_from_jax(draft_params)
+        elif c.draft_checkpoint:
+            load_checkpoint(dcfg, c.draft_checkpoint, model=model)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
@@ -466,6 +651,11 @@ class InferenceEngine:
 
     # ---------------------------------------------------------- device steps
 
+    def _noise(self) -> bool:
+        """Whether a live or admitting slot samples (temperature > 0): with
+        none, the sampler draws no noise (the greedy result is the same)."""
+        return any(t > 0 for t in self._temps.values())
+
     def _ids_tensor(self, ids: list[int], width: int) -> torch.Tensor:
         return torch.tensor(ids + [0] * (width - len(ids)), dtype=torch.int32,
                             device=self.device)
@@ -475,7 +665,8 @@ class InferenceEngine:
         and fold it into the device state: tokens[slot], the penalty window,
         active, and the noise counter (the draw consumed step 0)."""
         sp, vocab = self.sampling, self.cfg.vocab_size
-        tok = sample_tokens(logits[None], sp.gather(slot), self.counts[slot][None])[0]
+        tok = sample_tokens(logits[None], sp.gather(slot), self.counts[slot][None],
+                            noise=self._temps.get(slot, 0.0) > 0)[0]
         self.tokens[slot] = tok
         one = torch.zeros_like(self.active)
         one[slot] = True
@@ -515,7 +706,7 @@ class InferenceEngine:
                         sp.repeat_last_n[slot], vocab)
         if is_final:  # intermediate chunks' samples are discarded
             self._activate(slot, chunk_logits)
-        sampled = sample_tokens(dec_logits, sp, self.counts)
+        sampled = sample_tokens(dec_logits, sp, self.counts, noise=self._noise())
         self.tokens = torch.where(active_in, sampled, self.tokens)
         window_push(self.window, self.wlen, self.counts, self.tokens, active_in,
                     sp.repeat_last_n, vocab)
@@ -530,7 +721,7 @@ class InferenceEngine:
         rows = [self.tokens.clone()]
         for _ in range(k):
             logits, _ = self.model.decode_step(self.tokens, self.cache, self.active)
-            sampled = sample_tokens(logits, sp, self.counts)
+            sampled = sample_tokens(logits, sp, self.counts, noise=self._noise())
             self.tokens = torch.where(self.active, sampled, self.tokens)
             window_push(self.window, self.wlen, self.counts, self.tokens, self.active,
                         sp.repeat_last_n, vocab)
@@ -549,7 +740,7 @@ class InferenceEngine:
         cand = torch.cat([self.tokens[:, None], drafts], dim=1)
         logits, _ = self.model.verify_step(cand, self.cache, self.active)
         out, n_emit, last = spec_accept(logits, cand, dlen, sp, self.counts, self.window,
-                                        self.wlen, self.active, vocab)
+                                        self.wlen, self.active, vocab, noise=self._noise())
         self.tokens = torch.where(self.active, last, self.tokens)
         # commit the accepted length: the rejected candidate rows roll back
         rollback_to_length(self.cache, torch.clamp(self.cache.lengths + n_emit,
@@ -570,7 +761,7 @@ class InferenceEngine:
                                            tree_pos=depths, tree_mask=anc)
         out, path, n_emit, last = spec_accept_tree(
             logits, cand, parents, valid, sp, self.counts, self.window, self.wlen,
-            self.active, vocab)
+            self.active, vocab, noise=self._noise())
         self.tokens = torch.where(self.active, last, self.tokens)
         # the accepted path's rows move down over the optimistic rows, then
         # the lengths roll forward: rejected branches never reach host state
@@ -692,7 +883,22 @@ class InferenceEngine:
         st.t_prefill_ns = time.perf_counter_ns() - t0
         st.joined_gen = self._gen + 1  # first block dispatched after this
         self._slots[slot] = st
+        _TOKENS_TOTAL.inc(len(ids) - cached, model=self.cfg.name, kind="prefill")
+        if cached:
+            _TOKENS_TOTAL.inc(cached, model=self.cfg.name, kind="prefill_cached")
+        self._update_kv_gauges()
         return True
+
+    def _update_kv_gauges(self) -> None:
+        """The page-pool gauges (pages used by live requests, free, parked in
+        the reuse LRU) and the cumulative prefix-cache hit rate."""
+        free, cached, name = self.alloc.free_pages, self.alloc.cached_pages, self.cfg.name
+        _KV_PAGES_FREE.set(free, model=name)
+        _KV_PAGES_CACHED.set(cached, model=name)
+        _KV_PAGES_USED.set(self.config.num_pages - free - cached, model=name)
+        total = self.alloc.hits + self.alloc.misses
+        if total:
+            _PREFIX_HIT_RATE.set(self.alloc.hits / total, model=name)
 
     def _dispatch_prefill(self, slot: int, ids: list[int], row_list: list[int],
                           upd: dict[str, Any], cached: int) -> None:
@@ -700,6 +906,7 @@ class InferenceEngine:
         `cached` (page-aligned) prompt tokens already have KV pages in
         `row_list`: they skip the model and only seed the penalty window."""
         self.sampling.set_slot(slot, upd)
+        self._temps[slot] = upd["temperature"]
         row = torch.tensor(row_list, dtype=torch.int32, device=self.device)
         if cached or len(ids) > self._chunk_len:
             c = self._chunk_len
@@ -733,33 +940,46 @@ class InferenceEngine:
         self._inflight.append((self._gen, out, event, k, time.perf_counter()))
 
     def _dispatch_block(self, k: int) -> None:
+        _BATCH_OCCUPANCY.observe(len(self._slots), model=self.cfg.name)
         self._gen += 1
-        self._enqueue(self._decode_block(k), k)
+        t0 = time.perf_counter()
+        out = self._decode_block(k)
+        # the launches' host wall: the device keeps computing after
+        DISPATCH_SECONDS.observe(time.perf_counter() - t0, model=self.cfg.name)
+        self._enqueue(out, k)
 
     def _dispatch_mixed_chunk(self, chunk: torch.Tensor, start: int, length: int,
                               slot: int, row: torch.Tensor, is_final: bool) -> None:
         self._gen += 1
-        self._enqueue(self._mixed_chunk(chunk, start, length, slot, row, is_final), 1)
+        t0 = time.perf_counter()
+        out = self._mixed_chunk(chunk, start, length, slot, row, is_final)
+        DISPATCH_SECONDS.observe(time.perf_counter() - t0, model=self.cfg.name)
+        self._enqueue(out, 1)
 
     def _fetch_oldest(self) -> None:
-        """Wait for the oldest in-flight block's tokens and ingest them."""
+        """Wait for the oldest in-flight block's tokens and ingest them;
+        observes the device pace and the per-step fetch + ingest wall."""
         gen, host, event, k, t_disp = self._inflight.popleft()
+        t0 = time.perf_counter()
         if event is not None:
             event.synchronize()
         self._observe_device_step(t_disp, k)
         self._ingest_block(gen, host.numpy())
+        _STEP_DURATION.observe((time.perf_counter() - t0) / max(k, 1), model=self.cfg.name)
 
     def _observe_device_step(self, t_disp: float, k: int) -> None:
-        """Split a fetched block's device time evenly over the slots that
-        shared it (usage attribution, as the JAX engine does). With another
+        """Per-step device time estimate, the JAX engine's: with another
         block in flight when this fetch completed, the device never idled
         between blocks, so consecutive fetches pace at the block's time;
-        otherwise dispatch-to-fetch wall is the upper bound."""
+        otherwise dispatch-to-fetch wall is the upper bound. The block's
+        time is split evenly over the slots that shared it (usage
+        attribution)."""
         now = time.perf_counter()
         prev, self._t_prev_fetch = self._t_prev_fetch, now
-        dev = now - (prev if prev is not None and self._inflight else t_disp)
+        dev = (now - (prev if prev is not None and self._inflight else t_disp)) / max(k, 1)
+        DEVICE_STEP_SECONDS.observe(dev, model=self.cfg.name)
         if self._slots:
-            share = max(dev, 0.0) / len(self._slots)
+            share = max(dev, 0.0) * max(k, 1) / len(self._slots)
             for st in self._slots.values():
                 st.device_s += share
 
@@ -770,6 +990,7 @@ class InferenceEngine:
         k = tok_np.shape[0] - 1
         now = time.perf_counter_ns()
         wall = time.time()
+        ingested = 0
         for slot, st in list(self._slots.items()):
             if st.joined_gen > gen:
                 continue
@@ -781,8 +1002,11 @@ class InferenceEngine:
             st.t_last_ingest = wall
             for r in range(first_row, k + 1):
                 self._ingest(slot, st, int(tok_np[r, slot]))
+                ingested += 1
                 if slot not in self._slots:
                     break  # finished mid-block; later rows are post-finish junk
+        if ingested:
+            _TOKENS_TOTAL.inc(ingested, model=self.cfg.name, kind="decode")
 
     def _step_spec(self) -> None:
         """One speculative iteration: draft per slot from its host-visible
@@ -809,13 +1033,21 @@ class InferenceEngine:
             if prop:
                 dlen[slot] = len(prop)
                 drafts[slot, :len(prop)] = prop
+        _BATCH_OCCUPANCY.observe(len(self._slots), model=self.cfg.name)
         self._gen += 1
-        t_disp = time.perf_counter()
+        t0 = time.perf_counter()
         out = self._verify_block(torch.from_numpy(drafts).to(self.device),
                                  torch.from_numpy(dlen).to(self.device))
-        host = out.cpu().numpy()   # the spec path's one fetch per step
+        self._fetch_verify(out, t0, dlen)
+
+    def _fetch_verify(self, out: torch.Tensor, t_disp: float, dlen: np.ndarray) -> None:
+        """The spec path's one fetch per step and its ragged ingest."""
+        t0 = time.perf_counter()
+        DISPATCH_SECONDS.observe(t0 - t_disp, model=self.cfg.name)
+        host = out.cpu().numpy()
         self._observe_device_step(t_disp, 1)
         self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
+        _STEP_DURATION.observe(time.perf_counter() - t0, model=self.cfg.name)
 
     def _step_spec_tree(self, k: int) -> None:
         """One draft-model tree iteration: one batched draft pass over every
@@ -856,13 +1088,12 @@ class InferenceEngine:
             # proposed = chain depth, as the chain drafters count it (the
             # siblings are a second chance, not more proposals)
             dlen[slot] = depth
+        _BATCH_OCCUPANCY.observe(len(self._slots), model=self.cfg.name)
         self._gen += 1
-        t_disp = time.perf_counter()
+        t0 = time.perf_counter()
         out = self._verify_tree_block(torch.from_numpy(drafts).to(self.device),
                                       torch.from_numpy(valid).to(self.device))
-        host = out.cpu().numpy()   # the one fetch per step
-        self._observe_device_step(t_disp, 1)
-        self._ingest_spec(self._gen, host[:-1], host[-1], dlen)
+        self._fetch_verify(out, t0, dlen)
 
     def _ingest_spec(self, gen: int, tok_np: np.ndarray, n_emit: np.ndarray,
                      dlen: np.ndarray) -> None:
@@ -874,7 +1105,7 @@ class InferenceEngine:
         sequential path would."""
         now = time.perf_counter_ns()
         wall = time.time()
-        emitted = proposed = accepted = 0
+        emitted = proposed = accepted = ingested = 0
         for slot, st in list(self._slots.items()):
             if st.joined_gen > gen:
                 continue
@@ -892,9 +1123,20 @@ class InferenceEngine:
             accepted += acc
             for r in range(first_row, min(n, tok_np.shape[0] - 1) + 1):
                 self._ingest(slot, st, int(tok_np[r, slot]))
+                ingested += 1
                 emitted += r >= 1  # row 0 is a prefill sample, not verify output
                 if slot not in self._slots:
                     break  # finished mid-span; later rows are post-stop junk
+        m, dk = self.cfg.name, self._drafter.kind
+        if ingested:
+            _TOKENS_TOTAL.inc(ingested, model=m, kind="decode")
+        if proposed:
+            _SPEC_PROPOSED.inc(proposed, model=m, drafter=dk)
+            _SPEC_ACCEPT_RATE.observe(accepted / proposed, model=m, drafter=dk)
+        if accepted:
+            _SPEC_ACCEPTED.inc(accepted, model=m, drafter=dk)
+        if proposed - accepted:
+            _SPEC_REJECTED.inc(proposed - accepted, model=m, drafter=dk)
         stats = self.spec_stats
         stats["steps"] += 1
         stats["proposed"] += proposed
@@ -960,7 +1202,9 @@ class InferenceEngine:
         # may never have been dispatched); an error finish registers nothing
         with self._alloc_lock:
             self.alloc.free(slot, st.ids[:-1] if reason != "error" else None)
+        self._update_kv_gauges()
         del self._slots[slot]
+        self._temps.pop(slot, None)
         self._free_slots.append(slot)
         if isinstance(self._drafter, DraftModelDrafter):
             # the next request in this slot drafts from scratch
@@ -994,6 +1238,7 @@ class InferenceEngine:
         while self._inflight:  # mixed admission steps queued [2, S] blocks
             self._fetch_oldest()
         if not self._slots:
+            self._t_prev_fetch = None
             return bool(self._pending)
         if self._spec_k:
             self._step_spec()
@@ -1057,6 +1302,7 @@ class InferenceEngine:
                         fail_streak = 0
                     except Exception as e:  # noqa: BLE001 — keep serving the others
                         self._inflight.clear()
+                        self._t_prev_fetch = None
                         self.abort_all(f"engine failure: {e!r}")
                         self.reset_device_state()
                         fail_streak += 1
@@ -1155,16 +1401,29 @@ class InferenceEngine:
         admitted = 0
         while admitted < budget and self._try_admit():
             admitted += 1
+        if admitted:
+            # a prefill ran between decode blocks: the next fetch delta would
+            # book its wall as device pace; dispatch-to-fetch it is instead
+            self._t_prev_fetch = None
         if not self._slots:
             while self._inflight:
                 self._fetch_oldest()
+            self._t_prev_fetch = None
+            self._t_ingest_done = None
             return
+        k = 1 if self._spec_k else self.config.decode_block
+        if self._t_ingest_done is not None:
+            # host gap since the previous ingest (control drain, admission,
+            # stream callbacks), per fused step as the device series reads
+            HOST_SCHED_SECONDS.observe((time.perf_counter() - self._t_ingest_done) / k,
+                                       model=self.cfg.name)
         if self._spec_k:  # one verify step per iteration, fetched at once
             self._step_spec()
-            return
-        while len(self._inflight) < max(1, self.config.pipeline_depth):
-            self._dispatch_block(self.config.decode_block)
-        self._fetch_oldest()
+        else:
+            while len(self._inflight) < max(1, self.config.pipeline_depth):
+                self._dispatch_block(k)
+            self._fetch_oldest()
+        self._t_ingest_done = time.perf_counter()
 
     # ---------------------------------------------------------- public API
 
@@ -1303,7 +1562,7 @@ class InferenceEngine:
         live_tokens = sum(len(st.ids) for st in list(self._slots.values()))
         capacity_tokens = used * c.page_size
         return {
-            "weights": list(self.model.parameters()),
+            "weights": list(self.model.parameters()) if self.model is not None else [],
             "kv": kv + [cache.page_table, cache.lengths],
             "alloc": {
                 "numPages": c.num_pages,

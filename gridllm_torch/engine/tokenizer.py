@@ -12,6 +12,7 @@ sequence: text is withheld while it ends in the replacement char.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Protocol, Sequence
 
 
@@ -89,7 +90,16 @@ class HFTokenizer:
 
 
 def get_tokenizer(spec: str | None, vocab_size: int = 258) -> Tokenizer:
-    """spec: None/"byte" → ByteTokenizer; anything else → local HF dir."""
+    """spec: None/"byte" → ByteTokenizer; anything else → local HF dir,
+    read through transformers. Where transformers is not installed the
+    directory's tokenizer cannot be read: the byte tokenizer serves
+    instead, with a warning (the model's ids then stream as bytes)."""
     if spec is None or spec == "byte":
+        return ByteTokenizer(vocab_size)
+    try:
+        import transformers  # noqa: F401 — only whether it is installed
+    except ImportError:
+        logging.getLogger(__name__).warning(
+            "tokenizer %s: transformers is not installed; serving the byte tokenizer", spec)
         return ByteTokenizer(vocab_size)
     return HFTokenizer(spec)

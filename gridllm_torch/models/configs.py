@@ -5,12 +5,18 @@ this package serves (llama, qwen2/qwen3, the llama-skeleton mistral
 entries and the tiny test configs):
 Ollama-style model names map to the public HF architecture dimensions.
 The port keeps its own copy so that it imports nothing of the JAX
-package.
+package. `config_from_hf_dir` builds a config from a local HF
+checkpoint's config.json (an unregistered name served from a checkpoint
+directory), and `ModelConfig.hf_config` is its inverse, the config.json
+that `engine.loader.save_checkpoint` writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from typing import Any
 
 from gridllm_torch.ops.layers import RopeScaling
 
@@ -39,6 +45,47 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    def hf_config(self, torch_dtype: str = "bfloat16") -> dict[str, Any]:
+        """The HF config.json of this config (the inverse of
+        `config_from_hf_dir`, and the JAX package's `hf_config` as a plain
+        dict: transformers is not needed to write or read it)."""
+        out: dict[str, Any] = dict(
+            vocab_size=self.vocab_size,
+            hidden_size=self.hidden_size,
+            intermediate_size=self.intermediate_size,
+            num_hidden_layers=self.num_layers,
+            num_attention_heads=self.num_heads,
+            num_key_value_heads=self.num_kv_heads,
+            head_dim=self.head_dim_,
+            rope_theta=self.rope_theta,
+            rms_norm_eps=self.rms_eps,
+            tie_word_embeddings=self.tie_embeddings,
+            max_position_embeddings=self.max_seq_len,
+            hidden_act="silu",
+            torch_dtype=torch_dtype,
+        )
+        if self.family == "qwen2":
+            # qwen2 hardcodes its q/k/v bias; its window is off
+            return dict(out, model_type="qwen2", architectures=["Qwen2ForCausalLM"],
+                        use_sliding_window=False, sliding_window=None)
+        if self.family == "qwen3":
+            return dict(out, model_type="qwen3", architectures=["Qwen3ForCausalLM"],
+                        attention_bias=False)
+        if self.sliding_window:  # the windowed llama skeleton is mistral v0.1
+            return dict(out, model_type="mistral", architectures=["MistralForCausalLM"],
+                        sliding_window=self.sliding_window)
+        if self.rope_scaling is not None:
+            out["rope_scaling"] = {
+                "rope_type": "llama3",
+                "factor": self.rope_scaling.factor,
+                "low_freq_factor": self.rope_scaling.low_freq_factor,
+                "high_freq_factor": self.rope_scaling.high_freq_factor,
+                "original_max_position_embeddings":
+                    self.rope_scaling.original_max_position_embeddings,
+            }
+        return dict(out, model_type="llama", architectures=["LlamaForCausalLM"],
+                    attention_bias=self.attn_bias)
 
 
 _LLAMA3_SCALING = RopeScaling(
@@ -155,3 +202,74 @@ def get_config(name: str) -> ModelConfig:
         if base in REGISTRY:
             return REGISTRY[base]
     raise KeyError(f"unknown model: {name!r} (known: {sorted(REGISTRY)})")
+
+
+# HF model_type → the family this package serves (mistral is the llama
+# skeleton with an optional sliding window)
+_HF_FAMILY = {
+    "llama": "llama",
+    "mistral": "llama",
+    "qwen2": "qwen2",
+    "qwen3": "qwen3",
+}
+# HF model_types the JAX package serves and this one does not yet: the
+# ROADMAP item that ports each
+_HF_UNPORTED = {
+    "gemma2": "ROADMAP A 5",
+    "mixtral": "ROADMAP A 7",
+    "bert": "ROADMAP A 8",
+    "llava": "ROADMAP A 8",
+}
+
+
+def config_from_hf_dir(name: str, path: str) -> ModelConfig:
+    """A ModelConfig from a local HF checkpoint's config.json, so any
+    HF-layout directory of a served family can be served without a
+    registry entry (the engine does so when `model` is not a registered
+    name but a checkpoint_path is set)."""
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    return _config_from_hf_dict(name, hf, path)
+
+
+def _config_from_hf_dict(name: str, hf: dict, path: str) -> ModelConfig:
+    mt = hf.get("model_type", "llama")
+    if mt in _HF_UNPORTED:
+        raise ValueError(
+            f"HF model_type {mt!r} in {path}: its family is not ported to the torch "
+            f"package yet ({_HF_UNPORTED[mt]})")
+    if mt not in _HF_FAMILY:
+        raise ValueError(f"unsupported HF model_type {mt!r} in {path} "
+                         f"(supported: {sorted(_HF_FAMILY)})")
+    family = _HF_FAMILY[mt]
+    scaling = None
+    rs = hf.get("rope_scaling") or None
+    if rs and rs.get("rope_type", rs.get("type")) == "llama3":
+        scaling = RopeScaling(
+            factor=rs["factor"],
+            low_freq_factor=rs["low_freq_factor"],
+            high_freq_factor=rs["high_freq_factor"],
+            original_max_position_embeddings=rs["original_max_position_embeddings"],
+        )
+    return ModelConfig(
+        name=name, family=family,
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        num_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+        head_dim=hf.get("head_dim"),
+        rope_theta=hf.get("rope_theta", 10_000.0),
+        rope_scaling=scaling,
+        rms_eps=hf.get("rms_norm_eps", 1e-5),
+        tie_embeddings=hf.get("tie_word_embeddings", False),
+        max_seq_len=hf.get("max_position_embeddings", 8192),
+        # qwen2 configs carry sliding_window with use_sliding_window=false:
+        # the family attends to the full context then
+        sliding_window=((hf.get("sliding_window") or 0)
+                        if hf.get("use_sliding_window", True) else 0),
+        attn_bias=family == "qwen2" or bool(hf.get("attention_bias")),
+        qk_norm=family == "qwen3",
+        attn_logit_softcap=hf.get("attn_logit_softcapping") or 0.0,
+    )

@@ -29,7 +29,7 @@ dispatchers (`paged_attention_decode`, `paged_attention_verify`,
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -143,6 +143,48 @@ class Llama(nn.Module):
         if self.lm_head is not None:
             put(self.lm_head, np_params["lm_head"])
         return self
+
+    def params_tree(self) -> dict[str, Any]:
+        """The parameters as the JAX-layout pytree (embed, layers, final_norm
+        and, untied, lm_head), tensors shared with the module."""
+        tree: dict[str, Any] = {"embed": self.embed, "layers": dict(self.layers.items()),
+                                "final_norm": self.final_norm}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
+    @torch.no_grad()
+    def params_from_hf(self, get: Callable[[str], torch.Tensor]) -> "Llama":
+        """Fill the parameters from HF-named tensors (`get`, e.g. a
+        safetensors reader) through `hf_map(cfg)`: each layer's tensor goes
+        to the module's device as stored, is transposed there when the map
+        says so and converted into its slot of the preallocated [L, ...]
+        parameter, so no stacked or transposed copy is made on the host.
+        Tied embeddings read no lm_head.weight."""
+        from gridllm_torch.models import hf_layout
+
+        tree = self.params_tree()
+
+        def place(path, layer, t, transpose):
+            dst = tree[path[0]] if len(path) == 1 else tree[path[0]][path[1]]
+            if layer is not None:
+                dst = dst[layer]
+            src = t.to(dst.device)
+            src = src.T if transpose else src
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
+                                 f"!= {tuple(dst.shape)}")
+            dst.copy_(src)
+
+        hf_layout.to_pytree(self.cfg, get, hf_map(self.cfg), place)
+        return self
+
+    def free_params(self) -> None:
+        """Drop every parameter's storage (the engine's unload after its
+        weights are parked): the tensors become empty, so the module serves
+        nothing after this and the device memory returns to the allocator."""
+        for p in self.parameters():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
 
     # ------------------------------------------------------------ pieces
 
@@ -420,3 +462,37 @@ class Llama(nn.Module):
         cache.lengths.copy_(new_lengths)
         cache.page_table[slot] = table_row
         return chunk_logits, dec_logits, cache
+
+
+# ---------------------------------------------------------------------------
+# HF weight layout (the contract with transformers' LlamaForCausalLM)
+# ---------------------------------------------------------------------------
+
+# The JAX package's HF_MAP: leaf name → (HF tensor name template, transpose?);
+# {} is the layer index. HF stores projections [out, in], this module
+# [in, out], hence transpose on the matmul leaves.
+HF_MAP: dict[str, tuple[str, bool]] = {
+    "attn_norm": ("model.layers.{}.input_layernorm.weight", False),
+    "wq": ("model.layers.{}.self_attn.q_proj.weight", True),
+    "wk": ("model.layers.{}.self_attn.k_proj.weight", True),
+    "wv": ("model.layers.{}.self_attn.v_proj.weight", True),
+    "wo": ("model.layers.{}.self_attn.o_proj.weight", True),
+    "mlp_norm": ("model.layers.{}.post_attention_layernorm.weight", False),
+    "w_gate": ("model.layers.{}.mlp.gate_proj.weight", True),
+    "w_up": ("model.layers.{}.mlp.up_proj.weight", True),
+    "w_down": ("model.layers.{}.mlp.down_proj.weight", True),
+}
+
+
+def hf_map(cfg: ModelConfig) -> dict[str, tuple[str, bool]]:
+    """HF_MAP with the config's family leaves: qwen2's q/k/v bias and
+    qwen3's q/k norms."""
+    m = dict(HF_MAP)
+    if cfg.attn_bias:
+        m["bq"] = ("model.layers.{}.self_attn.q_proj.bias", False)
+        m["bk"] = ("model.layers.{}.self_attn.k_proj.bias", False)
+        m["bv"] = ("model.layers.{}.self_attn.v_proj.bias", False)
+    if cfg.qk_norm:
+        m["q_norm"] = ("model.layers.{}.self_attn.q_norm.weight", False)
+        m["k_norm"] = ("model.layers.{}.self_attn.k_norm.weight", False)
+    return m

@@ -1,11 +1,22 @@
-"""Device-memory accounting of a torch worker (the memory-probe half of the
-JAX package's obs/perf.py).
+"""Device-memory accounting and the step-time series of a torch worker (the
+JAX package's obs/perf.py, less its jit recompile tripwire).
 
 Worker services register a memory probe (one per service) returning, per
 model, the weight and KV tensors plus the page allocator's numbers
 (`InferenceEngine.memory_arrays`). `memory_snapshot` adds them up per
 model and reads each CUDA device's allocator through
-`torch.cuda.memory_stats`, where the JAX package walks `jax.live_arrays()`.
+`torch.cuda.memory_stats` and `torch.cuda.mem_get_info`, where the JAX
+package walks `jax.live_arrays()`. A registry collector turns it into the
+`gridllm_device_memory_*` gauges at scrape time: bytes by kind (weights,
+kv_pool, workspace) on every device, the headroom and limit only on CUDA
+devices (on the CPU they are left out, as the JAX package leaves them out
+on backends without allocator statistics).
+
+The step-time histograms (host scheduling, dispatch, on-device step) are
+registered here and driven by the engine's runner loop. The JAX package's
+`gridllm_recompiles_total` and `gridllm_recompile_storms_total` are not
+defined: they count XLA compiles of jitted programs, and this package runs
+eager PyTorch with kernels built once, so there is nothing to count.
 The profiler half is `InferenceEngine.profile()` (see worker/main.py).
 """
 
@@ -14,6 +25,62 @@ from __future__ import annotations
 import threading
 import time
 from typing import Any, Callable
+
+from gridllm_torch.obs.metrics import default_registry
+
+_OBS = default_registry()
+
+# -- step-time decomposition (the engine's runner drives these) -------------
+STEP_PHASE_BUCKETS = (
+    0.0002, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0,
+)
+HOST_SCHED_SECONDS = _OBS.histogram(
+    "gridllm_engine_host_sched_seconds",
+    "Host-side gap between finishing one decode block's ingest and "
+    "dispatching the next (admission, tokenize, stream callbacks, control "
+    "drain), AMORTIZED PER FUSED STEP so it compares 1:1 with "
+    "gridllm_engine_device_step_seconds, by model. Growth here is a host "
+    "stall, not a device problem.",
+    ("model",), buckets=STEP_PHASE_BUCKETS,
+)
+DISPATCH_SECONDS = _OBS.histogram(
+    "gridllm_engine_dispatch_seconds",
+    "Wall time for a fused decode block's jitted call to RETURN (trace + "
+    "lower + enqueue; the device keeps computing after). A spike here "
+    "usually means a recompile — pair with gridllm_recompiles_total.",
+    ("model",), buckets=STEP_PHASE_BUCKETS,
+)
+DEVICE_STEP_SECONDS = _OBS.histogram(
+    "gridllm_engine_device_step_seconds",
+    "Estimated on-device time per fused decode step, by model. With the "
+    "dispatch pipeline saturated this is the delta between consecutive "
+    "block fetch completions (device-bound pace); otherwise dispatch-to-"
+    "fetch wall time (upper bound including queue wait).",
+    ("model",), buckets=STEP_PHASE_BUCKETS,
+)
+
+# -- device-memory gauges ----------------------------------------------------
+DEVICE_MEMORY_BYTES = _OBS.gauge(
+    "gridllm_device_memory_bytes",
+    "Live device memory by kind: weights (model params), kv_pool (paged "
+    "KV cache + tables), workspace (all other live arrays — activations, "
+    "sampler state, staging buffers). Classified per jax.live_arrays() "
+    "against engine memory probes at scrape time.",
+    ("device", "kind"),
+)
+DEVICE_MEMORY_HEADROOM = _OBS.gauge(
+    "gridllm_device_memory_headroom_bytes",
+    "Allocator-reported free device memory (bytes_limit - bytes_in_use); "
+    "only present on backends exposing memory_stats (TPU/GPU).",
+    ("device",),
+)
+DEVICE_MEMORY_LIMIT = _OBS.gauge(
+    "gridllm_device_memory_limit_bytes",
+    "Allocator-reported device memory limit; only present on backends "
+    "exposing memory_stats (TPU/GPU).",
+    ("device",),
+)
 
 _memory_probes: dict[str, Callable[[], dict[str, Any]]] = {}
 _memory_probes_lock = threading.Lock()
@@ -81,3 +148,21 @@ def memory_snapshot() -> dict[str, Any]:
         devices.setdefault(label, {**owned, "bytesInUse": None, "bytesLimit": None,
                                    "headroomBytes": None})
     return {"generatedAt": time.time(), "devices": devices, "models": models}
+
+
+def _memory_collector() -> None:
+    """Registry collector: refresh the device-memory gauges from a fresh
+    snapshot at scrape time. Headroom and limit come from
+    torch.cuda.mem_get_info, so only CUDA devices carry them."""
+    snap = memory_snapshot()
+    for label, entry in snap["devices"].items():
+        for kind, key in (("weights", "weightsBytes"), ("kv_pool", "kvPoolBytes"),
+                          ("workspace", "workspaceBytes")):
+            DEVICE_MEMORY_BYTES.set(entry.get(key) or 0, device=label, kind=kind)
+        if entry.get("headroomBytes") is not None:
+            DEVICE_MEMORY_HEADROOM.set(entry["headroomBytes"], device=label)
+        if entry.get("bytesLimit"):
+            DEVICE_MEMORY_LIMIT.set(entry["bytesLimit"], device=label)
+
+
+_OBS.add_collector("perf.device_memory", _memory_collector)

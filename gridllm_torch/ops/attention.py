@@ -37,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from gridllm_torch.ops.kvcache import QuantPages, gather_kv
+from gridllm_torch.ops.kvcache import QuantPages, gather_kv, record_kernel_path
 
 # masking value of every softmax here and in the kernels: finite in
 # float32, so exp(x - m) underflows to exactly 0 for masked columns
@@ -393,6 +393,7 @@ def attention_prefill(
     cap (`prefill_kernel`) the `flash_prefill_streamed` kernel."""
     from gridllm_torch.ops import cuda_kernels
 
+    record_kernel_path("attention_prefill", q.is_cuda, q.shape)
     kernel = getattr(cuda_kernels, prefill_kernel(q.shape[1], q.shape[3], q.element_size()))
     return kernel(q, k, v, seq_lens, softcap=logit_softcap, window=window)
 
@@ -445,9 +446,13 @@ def ragged_paged_attention(
     """
     from gridllm_torch.ops.cuda_kernels import MAX_TREE_NODES, ragged_attention
 
+    q_any = q_chunk if q_chunk is not None else q_group
+    shapes = (None if q_chunk is None else q_chunk.shape,
+              None if q_group is None else q_group.shape, tree_pos is not None)
     tree = {}
     if tree_pos is not None and q_group is not None:
         if q_group.shape[1] > MAX_TREE_NODES:
+            record_kernel_path("attention_ragged", False, shapes)
             return ragged_paged_attention_ref(
                 k_pages, v_pages, page_size, q_chunk=q_chunk, chunk_row=chunk_row,
                 chunk_start=chunk_start, chunk_total=chunk_total, k_chunk=k_chunk,
@@ -457,6 +462,7 @@ def ragged_paged_attention(
                 tree_pos=tree_pos, tree_mask=tree_mask)
         tree = dict(tree_pos=np.asarray(tree_pos, np.int32),
                     tree_bits=tree_bits_of(tree_mask))
+    record_kernel_path("attention_ragged", q_any.is_cuda, shapes)
     scales = {}
     if isinstance(k_pages, QuantPages):
         scales = dict(k_scale=k_pages.scale, v_scale=v_pages.scale)
@@ -521,7 +527,9 @@ def paged_attention_decode(
     int8 pool runs the plain version (no kernel reads one)."""
     from gridllm_torch.ops.cuda_kernels import paged_decode
 
-    if isinstance(k_pages, QuantPages):
+    quant = isinstance(k_pages, QuantPages)
+    record_kernel_path("attention_decode", not quant and q.is_cuda, q.shape)
+    if quant:
         return paged_attention_decode_ref(
             q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
             lengths, page_size, k_cur=k_cur, v_cur=v_cur, logit_softcap=logit_softcap,
@@ -560,7 +568,9 @@ def attention_prefix_chunk(
     kernel; an int8 pool runs the plain version (no kernel reads one)."""
     from gridllm_torch.ops.cuda_kernels import prefix_chunk
 
-    if isinstance(k_pages, QuantPages):
+    quant = isinstance(k_pages, QuantPages)
+    record_kernel_path("attention_prefix_chunk", not quant and q.is_cuda, q.shape)
+    if quant:
         st = int(start)
         total = st + q.shape[1] if total_len is None else int(total_len)
         return _prefix_chunk_ref(
@@ -606,7 +616,9 @@ def paged_attention_verify(
     does)."""
     from gridllm_torch.ops.cuda_kernels import prefix_chunk_slots
 
-    if tree_pos is not None or isinstance(k_pages, QuantPages):
+    plain = tree_pos is not None or isinstance(k_pages, QuantPages)
+    record_kernel_path("attention_verify", not plain and q.is_cuda, q.shape)
+    if plain:
         return paged_attention_verify_ref(
             q, _layer_pool(k_pages, layer), _layer_pool(v_pages, layer), page_table,
             lengths, page_size, k_cur, v_cur, logit_softcap=logit_softcap, window=window,

@@ -28,6 +28,61 @@ from typing import Callable
 
 import torch
 
+from gridllm_torch.obs.metrics import default_registry
+
+# Which implementation each dispatch took (the JAX package's
+# gridllm_kernel_dispatch_total, same name, help and labels): path "cuda"
+# for a hand-written kernel of ops/cuda_kernels.py, "jnp" for the plain
+# PyTorch version (a CPU tensor, an int8 pool's indexed writes, a tree past
+# 32 nodes) — the label the JAX package gives its fallback, which the
+# canary runbook's silent-fallback query reads. Counted once per distinct
+# (op, path, shapes), as the JAX package counts once per trace, so a
+# step pays a set lookup; cuda_kernels.launch_counts() stays the
+# per-launch count.
+_KERNEL_DISPATCH = default_registry().counter(
+    "gridllm_kernel_dispatch_total",
+    "Compiled programs by op and implementation path (pallas kernel vs "
+    "jnp fallback). Counted per trace/compile, not per step.",
+    ("op", "path"),
+)
+_dispatch_seen: set[tuple] = set()
+
+
+def record_kernel_path(op: str, kernel: bool, shapes: tuple) -> None:
+    """Count one dispatch of `op` by its path, once per distinct shapes."""
+    key = (op, kernel, shapes)
+    if key not in _dispatch_seen:
+        _dispatch_seen.add(key)
+        _KERNEL_DISPATCH.inc(op=op, path="cuda" if kernel else "jnp")
+
+
+# Automatic prefix caching: page-granular reuse accounting (the JAX
+# package's series): hits/misses in prompt pages at admission, evictions of
+# cached pages for fresh allocations, copy-on-write rebuilds of a cached
+# tail page.
+_PREFIX_HITS = default_registry().counter(
+    "gridllm_prefix_cache_hits_total",
+    "Prompt pages served from the prefix cache (prefill skipped), by model.",
+    ("model",),
+)
+_PREFIX_MISSES = default_registry().counter(
+    "gridllm_prefix_cache_misses_total",
+    "Prompt pages not found in the prefix cache (prefill paid), by model.",
+    ("model",),
+)
+_PREFIX_EVICTIONS = default_registry().counter(
+    "gridllm_prefix_cache_evictions_total",
+    "Cached prefix pages evicted (LRU) to satisfy fresh allocations, "
+    "by model.",
+    ("model",),
+)
+_PREFIX_COW = default_registry().counter(
+    "gridllm_prefix_cache_cow_copies_total",
+    "Cached tail pages privately rebuilt because the request writes into "
+    "them (copy-on-write of the partial tail page), by model.",
+    ("model",),
+)
+
 
 @dataclasses.dataclass
 class QuantPages:
@@ -300,7 +355,9 @@ def write_decode_all(
     quantizes the rows and scatters values and scales instead."""
     from gridllm_torch.ops.cuda_kernels import paged_write_decode
 
-    if isinstance(k_pages, QuantPages):
+    quant = isinstance(k_pages, QuantPages)
+    record_kernel_path("write_decode", not quant and k_new.is_cuda, k_new.shape)
+    if quant:
         return _write_rows(k_pages, v_pages, k_new, v_new, _decode_dest(
             page_table, positions, active, page_size, k_pages.shape[1]))
     return paged_write_decode(k_pages, v_pages, k_new, v_new, page_table,
@@ -330,7 +387,9 @@ def write_multi_all(
     n_layers, s, t = k_new.shape[:3]
     k_flat = k_new.reshape(n_layers, s * t, *k_new.shape[3:])
     v_flat = v_new.reshape(n_layers, s * t, *v_new.shape[3:])
-    if isinstance(k_pages, QuantPages):
+    quant = isinstance(k_pages, QuantPages)
+    record_kernel_path("write_multi", not quant and k_new.is_cuda, k_new.shape)
+    if quant:
         return _write_rows(k_pages, v_pages, k_flat, v_flat, _decode_dest(
             page_table, positions.reshape(-1), active, page_size, k_pages.shape[1],
             rows_per_slot=t))
@@ -434,7 +493,9 @@ def write_prefill_all(
     """
     from gridllm_torch.ops.cuda_kernels import paged_write_chunk
 
-    if isinstance(k_pages, QuantPages):
+    quant = isinstance(k_pages, QuantPages)
+    record_kernel_path("write_prefill", not quant and k_new.is_cuda, k_new.shape)
+    if quant:
         return _write_rows(k_pages, v_pages, k_new, v_new, _prefill_dest(
             table_row, start, length, k_new.shape[1], page_size, k_pages.shape[1],
             k_new.device))
@@ -484,7 +545,9 @@ class PageAllocator:
     """
 
     def __init__(self, num_pages: int, page_size: int,
-                 max_pages_per_slot: int, cache_pages: int = 0):
+                 max_pages_per_slot: int, cache_pages: int = 0,
+                 model: str | None = None):
+        self.model = model or "unknown"   # the prefix-cache series' label
         self.page_size = page_size
         self.max_pages_per_slot = max_pages_per_slot
         self.cache_pages = cache_pages
@@ -527,6 +590,7 @@ class PageAllocator:
             page, _ = self._lru.popitem(last=False)
             self._drop_key(page)
             self.evictions += 1
+            _PREFIX_EVICTIONS.inc(model=self.model)
             return page
         return None
 
@@ -576,8 +640,13 @@ class PageAllocator:
         matched, prompt_pages, cow = staged
         self.hits += matched
         self.misses += prompt_pages - matched
+        if matched:
+            _PREFIX_HITS.inc(matched, model=self.model)
+        if prompt_pages - matched:
+            _PREFIX_MISSES.inc(prompt_pages - matched, model=self.model)
         if cow:
             self.cow_copies += 1
+            _PREFIX_COW.inc(model=self.model)
 
     def alloc(self, slot: int, num_tokens: int) -> list[int] | None:
         """Ensure `slot` owns pages for `num_tokens` tokens. Returns the
@@ -631,6 +700,7 @@ class PageAllocator:
                 old, _ = self._lru.popitem(last=False)
                 self._drop_key(old)
                 self.evictions += 1
+                _PREFIX_EVICTIONS.inc(model=self.model)
                 self._free.append(old)
         else:
             self._free.append(page)

@@ -8,10 +8,19 @@ tensors, so one sampler call serves every slot of the continuous batch.
 Same chain and order as the JAX package's ops/sampling.py.
 
 Determinism: token i of a request with seed s depends only on (s, i). The
-Gumbel noise comes from a counter-based hash of (seed, step, index) computed
-with integer tensor ops, so CPU and CUDA draw the same noise. It is not the
-JAX package's threefry stream: seeded sampled streams match in
-distribution, greedy streams match token for token.
+noise is the JAX package's: threefry-2x32 keyed by
+`fold_in(PRNGKey(seed), step)`, its `random_bits`, the bits-to-float
+uniform and `gumbel`, written here in integer torch ops (uint32 held in
+int64), so the CPU, CUDA and the JAX package draw the same bits. The
+counter layout of `random_bits` is that of JAX 0.9.0 with
+`jax_threefry_partitionable=True` (its default): element i of a draw of
+shape (k,) is the XOR of the two output words of threefry(key, (0, i)).
+Gumbel noise is -log(-log(u)) in float32, so it can differ from the JAX
+package's by the last ulp of `log`; seeded sampled streams are equal
+across the two packages except at a near-tie of two perturbed logits.
+With no slot sampling (every temperature <= 0), callers pass
+`noise=False` and no noise is drawn: the host-bound step skips ~300
+launches, and the greedy result is the same.
 """
 
 from __future__ import annotations
@@ -67,42 +76,99 @@ class SamplingParams:
         })
 
 
+# ---------------------------------------------------------------------------
+# threefry-2x32 and the JAX package's key/bits/uniform/gumbel derivations
+# ---------------------------------------------------------------------------
+
 _MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_FLOAT32_TINY = float(torch.finfo(torch.float32).tiny)
+
+# a key: the two uint32 words of a raw threefry key, int64 tensors of one shape
+Key = tuple[torch.Tensor, torch.Tensor]
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash (xorshift-multiply rounds) on int64 tensors
-    holding values in [0, 2^32). Multipliers stay below 2^31, so no
-    product leaves the int64 range on any device."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _MASK32
-    x = x ^ (x >> 15)
-    x = (x * 0x5BD1E995) & _MASK32
-    return x ^ (x >> 16)
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011, as
+    `jax._src.prng.threefry2x32_p` computes it) on int64 tensors holding
+    uint32 values; the four operands broadcast. Every sum stays below
+    2^34 and every shift below 2^61, inside int64 on any device."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _MASK32
+    x1 = (x1 + k1) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) & _MASK32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
 
 
-def _counter_uniform(seed: torch.Tensor, step: torch.Tensor, k: int,
-                     stream: int | None = None) -> torch.Tensor:
-    """Per-slot uniforms in (0, 1), float64 [S, k], from a counter hash of
-    (seed, step, index); `stream` derives an independent sub-stream of the
-    same (seed, step), as the JAX package's fold_in does."""
-    idx = torch.arange(k, device=seed.device, dtype=torch.int64)
-    s = seed.to(torch.int64)[:, None] & _MASK32
-    t = step.to(torch.int64)[:, None] & _MASK32
-    h = _mix32(s ^ 0x3C6EF372)
-    h = _mix32(h ^ t)
-    if stream is not None:
-        h = _mix32(h ^ (0x2545F491 * stream & _MASK32))
-    h = _mix32(h ^ idx[None, :])
-    return (h.double() + 0.5) / 4294967296.0
+def prng_key(seed: torch.Tensor) -> Key:
+    """`jax.random.PRNGKey` of int32 seeds: the words (seed >> 32, seed &
+    0xFFFFFFFF), which for a 32-bit seed are (0, its two's-complement
+    bits), negative seeds included."""
+    s = seed.to(torch.int64) & _MASK32
+    return torch.zeros_like(s), s
+
+
+def fold_in(key: Key, data) -> Key:
+    """`jax.random.fold_in`: threefry(key, (0, uint32(data)))."""
+    k0, k1 = key
+    d = torch.as_tensor(data, device=k0.device).to(torch.int64) & _MASK32
+    return threefry2x32(k0, k1, torch.zeros_like(d), d)
+
+
+def random_bits(key: Key, k: int | None) -> torch.Tensor:
+    """`jax.random.bits` of 32-bit words, shape (k,) per key ([..., k]),
+    or shape () with k None ([...]): word i is y0 ^ y1 of
+    threefry(key, (0, i)), the partitionable counter layout."""
+    k0, k1 = key
+    if k is None:
+        x = torch.zeros_like(k0)
+    else:
+        x = torch.arange(k, device=k0.device, dtype=torch.int64)
+        k0, k1 = k0[..., None], k1[..., None]
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(x), x)
+    return y0 ^ y1
+
+
+def bits_to_uniform(bits: torch.Tensor, minval: float = 0.0,
+                    maxval: float = 1.0) -> torch.Tensor:
+    """JAX's float32 uniform of 32 random bits: the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1, scaled to [minval, maxval)
+    and clamped below at minval, each step in float32."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def uniform(key: Key, k: int | None = None) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32)` with shape (k,) or ()."""
+    return bits_to_uniform(random_bits(key, k))
+
+
+def gumbel(key: Key, k: int) -> torch.Tensor:
+    """`jax.random.gumbel(key, (k,), float32)` (its default "low" mode):
+    -log(-log(u)) of a uniform on [tiny, 1)."""
+    u = bits_to_uniform(random_bits(key, k), _FLOAT32_TINY, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def step_key(seed: torch.Tensor, step: torch.Tensor) -> Key:
+    """Per-slot key of one emitted-token index:
+    fold_in(PRNGKey(seed), step), the JAX package's chain."""
+    return fold_in(prng_key(seed), step)
 
 
 def slot_gumbel(seed: torch.Tensor, step: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-slot Gumbel noise [S, k] keyed by (seed, step) — the port's
-    counterpart of the JAX package's `_slot_gumbel` (a counter-based
-    stream, not threefry)."""
-    u = _counter_uniform(seed, step, k)
-    return (-torch.log(-torch.log(u))).float()
+    """Per-slot Gumbel noise [S, k] keyed by (seed, step): the JAX
+    package's `_slot_gumbel`."""
+    return gumbel(step_key(seed, step), k)
 
 
 def _sampler_dists(
@@ -150,11 +216,15 @@ def sample_tokens(
     logits: torch.Tensor,
     params: SamplingParams,
     token_counts: torch.Tensor | None = None,
+    noise: bool = True,
 ) -> torch.Tensor:
     """Sample one token per slot. logits: [S, V] → [S] int32.
     token_counts ([S, V], optional): occurrences of each token in the
-    slot's penalty window, for repeat_penalty."""
+    slot's penalty window, for repeat_penalty. `noise=False`: every slot
+    is greedy (the result is the penalized argmax; no noise is drawn)."""
     greedy, idx, keep, scaled = _sampler_dists(logits, params, token_counts)
+    if not noise:
+        return greedy
     gumbel = slot_gumbel(params.seed, params.step, idx.shape[-1])
     noisy = torch.where(keep, scaled + gumbel,
                         torch.full_like(scaled, float("-inf")))
@@ -170,14 +240,22 @@ def sample_tokens(
 
 def _spec_keys(seed: torch.Tensor, step: torch.Tensor,
                topk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-slot (uniform [S], gumbel [S, topk]) for one emitted-token index:
-    two sub-streams of the (seed, step) counter that sample_tokens uses,
-    since the spec path draws twice per emitted token (accept test and
-    fallback sample). Sampled spec-on streams are deterministic per
+    """Per-slot (uniform [...], gumbel [..., topk]) for the emitted-token
+    indices `step` ([S] or [S, n]), the JAX package's `_spec_keys`: the
+    (seed, step) key that sample_tokens
+    uses, folded with 1 for the accept test's uniform and with 2 for the
+    fallback's Gumbel noise. Sampled spec-on streams are deterministic per
     (seed, step) but not equal to spec-off ones; greedy streams are."""
-    u = _counter_uniform(seed, step, 1, stream=1)[:, 0].float()
-    g = -torch.log(-torch.log(_counter_uniform(seed, step, topk, stream=2)))
-    return u, g.float()
+    key = step_key(seed, step)
+    return uniform(fold_in(key, 1)), gumbel(fold_in(key, 2), topk)
+
+
+def _ahead(params: SamplingParams, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seed, step + i) for i in 0..n-1, [S, n] each: the emitted-token
+    indices one verify step can draw at."""
+    ahead = params.step[:, None] + torch.arange(n, device=params.step.device,
+                                                dtype=params.step.dtype)
+    return params.seed[:, None].expand_as(ahead), ahead
 
 
 def spec_accept(
@@ -190,6 +268,7 @@ def spec_accept(
     wlen: torch.Tensor,        # [S] i32
     active: torch.Tensor,      # [S] bool
     vocab: int,
+    noise: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Keep the longest accepted candidate prefix plus one corrected token.
 
@@ -208,7 +287,8 @@ def spec_accept(
 
     Returns (out [K1, S]: row j valid iff j < n_emit[s]; n_emit [S] in
     [1, K1] for active slots, 0 for inactive; last [S]: the last emitted
-    token, the next step's input)."""
+    token, the next step's input). `noise=False`: every slot is greedy and
+    no noise is drawn."""
     s, k1, _ = logits.shape
     logits = logits.float()
     greedy_mode = params.temperature <= 0.0
@@ -217,13 +297,21 @@ def spec_accept(
     drafts_next = torch.cat([candidates[:, 1:], torch.zeros_like(candidates[:, :1])], 1)
     emitted = torch.zeros((s,), dtype=torch.int32, device=logits.device)
     alive = torch.ones((s,), dtype=torch.bool, device=logits.device)
+    rows = torch.arange(s, device=logits.device)
+    if noise:
+        # the draws of every index a step can emit at (step + 0 .. K1 - 1),
+        # in one batch; step j picks its slot's at step + emitted
+        u_all, g_all = _spec_keys(*_ahead(params, k1), min(TOPK, logits.shape[-1]))
     outs = []
     for j in range(k1):
         greedy, idx, keep, scaled = _sampler_dists(logits[:, j], params, counts)
         d = drafts_next[:, j].to(torch.int32)
         has_draft = j < dlen
         # sampled path: rejection sampling against the point-mass proposal
-        u, gum = _spec_keys(params.seed, params.step + emitted, idx.shape[-1])
+        if noise:
+            u, gum = u_all[rows, emitted.long()], g_all[rows, emitted.long()]
+        else:
+            u, gum = torch.ones_like(scaled[:, 0]), torch.zeros_like(scaled)
         neg = torch.full_like(scaled, float("-inf"))
         probs = torch.softmax(torch.where(keep, scaled, neg), dim=-1)
         is_d = keep & (idx == d[:, None])
@@ -253,15 +341,16 @@ def spec_accept(
 
 def _spec_tree_keys(seed: torch.Tensor, step: torch.Tensor, topk: int,
                     rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-slot (uniform [S, rounds], gumbel [S, topk]) for one emitted-token
-    index of the tree accept walk: one uniform per candidate child round
-    (each sibling needs its own accept test) and the residual fallback's
-    Gumbel noise. Sub-streams 3 and 4 of the (seed, step) counter, disjoint
-    from spec_accept's streams 1 and 2, as the JAX package folds its tree
-    draws apart from its chain draws."""
-    u = _counter_uniform(seed, step, rounds, stream=3).float()
-    g = -torch.log(-torch.log(_counter_uniform(seed, step, topk, stream=4)))
-    return u, g.float()
+    """Per-slot (uniform [..., rounds], gumbel [..., topk]) for the
+    emitted-token indices `step` ([S] or [S, n]) of the tree accept walk,
+    the JAX package's `_spec_tree_keys`: one
+    uniform per candidate child round (each sibling needs its own accept
+    test), the (seed, step) key folded with 3 + round, and the residual
+    fallback's Gumbel noise under the key folded with 2."""
+    key = step_key(seed, step)
+    rnd = torch.arange(3, 3 + rounds, device=seed.device, dtype=torch.int64)
+    u = uniform(fold_in((key[0][..., None], key[1][..., None]), rnd))
+    return u, gumbel(fold_in(key, 2), topk)
 
 
 def spec_accept_tree(
@@ -275,6 +364,7 @@ def spec_accept_tree(
     wlen: torch.Tensor,         # [S] i32
     active: torch.Tensor,       # [S] bool
     vocab: int,
+    noise: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Walk the accepted root-to-leaf path of a static-topology draft tree
     (the JAX package's spec_accept_tree).
@@ -298,7 +388,8 @@ def spec_accept_tree(
     Returns (out [N, S]: row j valid iff j < n_emit[s]; path [S, N]:
     path[s, j] is the tree node whose optimistically written row backs
     committed position lengths[s] + 1 + j, 0 for a corrected or bonus token
-    or past n_emit; n_emit [S]; last [S], the last emitted token)."""
+    or past n_emit; n_emit [S]; last [S], the last emitted token).
+    `noise=False`: every slot is greedy and no noise is drawn."""
     s, n, _ = logits.shape
     parents = [int(p) for p in parents]
     if len(parents) != n:
@@ -311,11 +402,17 @@ def spec_accept_tree(
     alive = torch.ones((s,), dtype=torch.bool, device=dev)
     cur = torch.zeros((s,), dtype=torch.int64, device=dev)
     node_tokens = node_tokens.to(torch.int32)
+    if noise:   # every index a step can emit at, in one batch (see spec_accept)
+        u_all, g_all = _spec_tree_keys(*_ahead(params, n), min(TOPK, logits.shape[-1]),
+                                       max(n - 1, 1))
     outs, paths = [], []
     for _ in range(n):
         greedy, idx, keep, scaled = _sampler_dists(logits[rows, cur], params, counts)
-        u, gum = _spec_tree_keys(params.seed, params.step + emitted, idx.shape[-1],
-                                 max(n - 1, 1))
+        if noise:
+            u, gum = u_all[rows, emitted.long()], g_all[rows, emitted.long()]
+        else:
+            u = torch.ones((s, max(n - 1, 1)), dtype=torch.float32, device=dev)
+            gum = torch.zeros_like(scaled)
         neg = torch.full_like(scaled, float("-inf"))
         probs = torch.softmax(torch.where(keep, scaled, neg), dim=-1)
         zero = torch.zeros_like(probs)

@@ -120,6 +120,18 @@ register_env("GRIDLLM_CHECKPOINT_DIR", "",
 register_env("GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS", "0",
              "Serve randomly initialized weights when no checkpoint is found "
              "(test/bench only).")
+register_env("GRIDLLM_WEIGHT_SNAPSHOT_BYTES", "0",
+             "Host-RAM weight snapshot tier capacity (bytes). Unloading "
+             "a model parks its device params as host arrays keyed by "
+             "checkpoint identity; a later load restores via host-to-"
+             "device transfer instead of re-reading the checkpoint. "
+             "LRU-evicted past capacity; 0 disables the tier.")
+register_env("GRIDLLM_PREWARM_COMPILES", "0",
+             "When 1, a freshly loaded engine runs a one-token greedy "
+             "prewarm request before serving, compiling the smallest "
+             "prefill bucket and the decode step so the first real "
+             "request skips warmup compiles (with the compile cache "
+             "this is a disk hit, not an XLA compile).")
 register_env("GRIDLLM_DTYPE", "bfloat16", "Model compute/weight dtype.")
 register_env("GRIDLLM_MAX_BATCH_SLOTS", "8",
              "Continuous-batching slot count per engine.")

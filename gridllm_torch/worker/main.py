@@ -7,10 +7,14 @@ bus), plus the health port (WORKER_PORT) with /health, /metrics,
 /admin/dump, /admin/memory, /admin/drain and POST /admin/profile. The
 environment is the JAX worker's, so one deployment file sets up either.
 
-Refused until later slices, each with an error that names it: a
-checkpoint directory that resolves to weights (ROADMAP A 3: the engines
-serve random weights, and a load-on-demand does so only under
-GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1, as the JAX worker's), a mesh or a
+A model with a directory under GRIDLLM_CHECKPOINT_DIR
+(`resolve_checkpoint`) is served from its safetensors; one without serves
+random weights, and a load-on-demand does so only under
+GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1, as the JAX worker's. The tokenizer
+directory is passed on; where transformers is not installed (the card's
+machine) the engine serves the byte tokenizer. GRIDLLM_PREWARM_COMPILES=1
+makes each engine serve one token before the worker announces it.
+Refused until later slices, each with an error that names it: a mesh or a
 multi-process worker group (GRIDLLM_MESH_SHAPE, GRIDLLM_NUM_PROCS > 1;
 A 9), and the prefill and decode roles (A 4). aiohttp is imported by the
 health port alone.
@@ -65,36 +69,38 @@ def check_single_device(config: Config) -> None:
 
 
 def build_one_engine(config: Config, name: str, device: str = "cuda") -> InferenceEngine:
-    """Engine for one model under this worker's settings (random weights:
-    a checkpoint is refused until loading is ported)."""
-    ckpt, _ = resolve_checkpoint(config.engine.checkpoint_dir, name)
-    if ckpt is not None:
-        raise NotImplementedError(
-            f"checkpoint {ckpt!r} for {name!r}: checkpoint loading is not ported to "
-            "the torch worker yet (ROADMAP A 3)")
+    """Engine for one model under this worker's settings: its checkpoint
+    and tokenizer from `resolve_checkpoint`, else random weights."""
+    ckpt, tok = resolve_checkpoint(config.engine.checkpoint_dir, name)
     buckets = tuple(int(b) for b in config.engine.prefill_buckets.split(",") if b)
     eng = InferenceEngine(EngineConfig(
         model=name,
+        checkpoint_path=ckpt,
+        tokenizer=tok,
         dtype=config.engine.dtype,
         max_slots=config.engine.max_batch_slots,
         page_size=config.engine.kv_page_size,
         prefill_buckets=buckets,
     ), device=device)
-    log.info("engine ready", model=name, checkpoint="random-init")
+    log.info("engine ready", model=name, checkpoint=ckpt or "random-init",
+             weights=eng.load_source)
     return eng
 
 
-def pull_engine_factory(config: Config):
-    """WorkerService.engine_factory for load-on-demand: refuses to serve
-    random weights unless GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1, as the JAX
-    worker's does for a model without a checkpoint."""
+def pull_engine_factory(config: Config, device: str = "cuda"):
+    """WorkerService.engine_factory for load-on-demand: like
+    build_one_engine, but refuses a model whose checkpoint does not resolve
+    unless GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1, as the JAX worker's does."""
 
     def factory(name: str) -> InferenceEngine:
-        if not env_bool("GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS"):
+        ckpt, _ = resolve_checkpoint(config.engine.checkpoint_dir, name)
+        if ckpt is None and not env_bool("GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS"):
             raise ValueError(
-                f"no checkpoint for {name!r} — refusing to serve random weights (set "
-                "GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1 to override)")
-        return build_one_engine(config, name)
+                f"no checkpoint for {name!r} under "
+                f"{config.engine.checkpoint_dir or '$GRIDLLM_CHECKPOINT_DIR'} — refusing "
+                "to serve random weights (set GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1 to "
+                "override)")
+        return build_one_engine(config, name, device=device)
 
     return factory
 

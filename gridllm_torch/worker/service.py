@@ -480,9 +480,7 @@ class WorkerService(EventEmitter):
             finally:
                 eng.model = None
             raise
-        # random weights until checkpoint loading is ported (ROADMAP A 3):
-        # the engine refuses a checkpoint_path
-        src = "init"
+        src = eng.load_source
         log.info("model loaded on demand", model=model, weights=src)
         return True, f"loaded ({src})"
 
@@ -512,8 +510,10 @@ class WorkerService(EventEmitter):
         if eng not in self.engines.values() and not eng.embedding_only:
             eng.abort_all(f"model {name} unloaded")
             await asyncio.to_thread(eng.stop)
-            # the host weight-snapshot tier is not ported (ROADMAP A 3): the
-            # weights go with the engine
+            # park the weights host-side so a reload is a host-to-device
+            # copy, not a disk read (a no-op with the snapshot tier off); on
+            # success the device weights are freed
+            await asyncio.to_thread(eng.park_weights)
         self.max_concurrent = _capacity(self.engines)
         await self.register()
         log.info("model unloaded", model=name)

@@ -334,10 +334,10 @@ def test_resume_streams_equal_the_undisturbed_stream(engines, spec_engines, mode
     snapshot's tokens, resume_sent = the chars the client had) emits exactly
     the rest of the undisturbed text, and its result equals the undisturbed
     one: greedy with speculation off, n-gram and tree; and a seeded sampled
-    stream with speculation off, on the same platform (the port's noise is a
-    counter hash, so only greedy streams are byte-identical across
-    platforms). With speculation on, a sampled resume is equal only in
-    distribution, as in the JAX package."""
+    stream with speculation off (the same stream as the JAX package's, since
+    both draw threefry noise: tests/test_torch_sampling_rng.py). With
+    speculation on, a sampled resume is equal only in distribution, as in
+    the JAX package."""
     te = engines[1] if mode == "plain" else spec_engines[mode]
     want, text, snaps = _run(te, f"u-{mode}", prompt, opts, snapshot_every=1)
     assert want.done_reason == "length" and want.text == text

@@ -1,7 +1,8 @@
 """Import guard of the PyTorch port: gridllm_torch and chip_smoke.py import
-neither JAX nor anything of gridllm_tpu, nor pydantic or aiohttp when a
-module is imported (the card's machine has neither; the worker's health
-port imports aiohttp inside its function), and the engine refuses to run
+neither JAX nor anything of gridllm_tpu, nor pydantic, aiohttp,
+safetensors, transformers or tokenizers when a module is imported (the
+card's machine has none of the last three; the worker's health port
+imports aiohttp inside its function), and the engine refuses to run
 on a missing GPU instead of carrying on on the CPU."""
 
 import ast
@@ -17,8 +18,10 @@ from gridllm_torch.engine import EngineConfig, InferenceEngine
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "gridllm_tpu")
-# never imported while a port module is imported
-IMPORT_TIME_BLOCKED = ("pydantic", "aiohttp")
+# never imported while a port module is imported (the card's machine has
+# none of the last three: the port reads and writes safetensors itself, and
+# transformers is imported only inside HFTokenizer)
+IMPORT_TIME_BLOCKED = ("pydantic", "aiohttp", "safetensors", "transformers", "tokenizers")
 
 _GUARDED_IMPORT = """
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -93,6 +96,15 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
     ("kv_host_bytes", 1 << 20), ("draft_checkpoint", "weights"), ("mesh", object()),
 ])
 def test_unported_engine_features_raise(field, value):
+    """Unported settings raise NotImplementedError naming the field; the
+    checkpoint settings are served since checkpoints were ported, so a
+    missing directory fails its load instead of being refused."""
+    if field in ("checkpoint_path", "draft_checkpoint"):
+        extra = {"draft_model": "tiny-llama"} if field == "draft_checkpoint" else {}
+        cfg = EngineConfig(model="tiny-llama", dtype="float32", **{field: value}, **extra)
+        with pytest.raises(FileNotFoundError, match=value):
+            InferenceEngine(cfg, device="cpu")
+        return
     cfg = EngineConfig(model="tiny-llama", dtype="float32", **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         InferenceEngine(cfg, device="cpu")

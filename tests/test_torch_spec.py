@@ -17,7 +17,8 @@
   accepted span, exact num_predict), plus a prompt longer than one chunk
   and its warm prefix-cache repeat. Greedy streams and speculation counts
   must be identical. Seeded sampled streams are checked for determinism
-  only: the port's noise is a counter hash, not threefry.
+  here; their equality with the JAX package's is in
+  tests/test_torch_sampling_rng.py.
 """
 
 import jax

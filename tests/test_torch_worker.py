@@ -17,9 +17,8 @@ defaults: n-gram speculation, ragged attention and the prefix cache on.
   the cluster) is resumed exactly once from its last snapshot, torch →
   JAX, JAX → torch and from a torch tree-speculation engine: the client's
   stream is byte-identical to the undisturbed run, with the same
-  eval_count. Only greedy streams are byte-identical across the two
-  packages (the port's sampler noise is a counter hash, not threefry);
-  a seeded sampled resume on the port is held in tests/test_torch_engine.py.
+  eval_count (greedy; the seeded sampled resume across the two packages
+  is held in tests/test_torch_sampling_rng.py).
 """
 
 import asyncio
@@ -416,7 +415,8 @@ async def test_drain_mid_decode_hands_off_by_resume(engines, undisturbed):
 
 async def test_worker_process_refusals_and_health_port(engines, tmp_path, monkeypatch):
     """`python -m gridllm_torch.worker`'s pieces: the environment the JAX
-    worker reads, the refusals that name their slice, and the health port
+    worker reads, the refusals that name their slice (and an empty
+    checkpoint directory that fails its load), and the health port
     (health, metrics, dump, memory, drain validation and an on-demand
     profile through InferenceEngine.profile())."""
     from aiohttp import ClientSession
@@ -436,9 +436,12 @@ async def test_worker_process_refusals_and_health_port(engines, tmp_path, monkey
             mp.setenv(key, value)
             with pytest.raises(SystemExit, match="ROADMAP A 9"):
                 wmain.check_single_device(load_config())
+    # a checkpoint directory that resolves is served from, never replaced by
+    # random weights: an empty one fails the load (served checkpoints are
+    # in tests/test_torch_worker_checkpoint.py)
     (tmp_path / "tiny-llama").mkdir()
     cfg.engine.checkpoint_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A 3"):
+    with pytest.raises(FileNotFoundError, match="safetensors"):
         wmain.build_one_engine(cfg, MODEL, device="cpu")
     monkeypatch.delenv("GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS", raising=False)
     with pytest.raises(ValueError, match="random weights"):
