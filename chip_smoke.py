@@ -197,11 +197,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
              whose draft weights were made in memory; then
              float32 llama3.2:1b self-drafted greedy streams held to spec
              off with ragged attention on, off, and with kv_int8.
+14. kvx    — KV movement and the host KV tier (phase_kvx): two port
+             WorkerServices on the port's InMemoryBus, a stand-in
+             scheduler that makes the handoffs; llama3:8b bf16 with the
+             engine's defaults serves a 1,500-byte prompt disaggregated
+             (export_only prefill, export, transfer over bus chunks and
+             over HTTP to the decode worker's /kvx/ route, import,
+             decode), imported pages equal to the exporter's bit for bit,
+             first-token logits within SERVE_WARM_COLD_REL of unified
+             serving; a graceful drain mid-decode moving the pages to the
+             peer, exactly once; an int8-pool engine's pages into a bf16
+             engine and back; the same disaggregated job and drain on an
+             8-layer float32 cut, streams byte-identical to unified and
+             undisturbed serving; the host tier on a 48-page pool (spill
+             and restore ms per page, restored repeat equal to the
+             device-warm one, park frees its pages, float32 streams equal
+             with the tier on and off). Reads export, import, bus and HTTP
+             GB/s and TTFT after an import beside unified TTFT.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree,kvx]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -230,7 +247,7 @@ SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "replay", "spec",
-              "checkpoint", "int8", "profiler", "long", "tree")
+              "checkpoint", "int8", "profiler", "long", "tree", "kvx")
 
 
 def emit(obj: dict) -> None:
@@ -3993,6 +4010,527 @@ def phase_tree(torch) -> dict:
             "launches": serve["tree_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# kvx: KV movement between workers and the host KV tier
+# ---------------------------------------------------------------------------
+
+KVX_PROMPT_BYTES = 1500   # 1,501 byte tokens: 23 full pages of 64 move
+KVX_TOKENS = 64
+KVX_DRAIN_TOKENS = 160    # long enough that the drain lands mid-decode
+KVX_DRAIN_AFTER = 16      # snapshot tokens before the drain
+KVX_F32_LAYERS = 8        # the float32 cut: two engines and their pools fit
+KVX_TIER_PAGES = 48       # the host-tier engine's pool: one long prompt evicts
+
+
+class _KvxStandIn(_StandIn):
+    """The stand-in scheduler plus the two handoffs KV movement adds, as the
+    JAX package's scheduler makes them: `job:handoff` (ok) reassigns the job
+    to the planned decode worker with disaggPhase "decode", and `job:drain`
+    (migrated) reassigns it to the peer that took the pages, with the last
+    snapshot and the chars already delivered as metadata.resume."""
+
+    async def start(self):
+        from gridllm_torch.bus.base import CH_JOB_DRAIN, CH_JOB_HANDOFF
+
+        await super().start()
+        self.handoffs: dict[str, dict] = {}
+        self.drains: dict[str, dict] = {}
+        self.t_handoff: dict[str, float] = {}
+        self.tasks: list = []
+        await self.bus.subscribe(CH_JOB_HANDOFF, self._on_handoff)
+        await self.bus.subscribe(CH_JOB_DRAIN, self._on_drain)
+
+    async def _on_handoff(self, _ch, raw):
+        msg = json.loads(raw)
+        self.handoffs[msg["jobId"]] = msg
+        job = self.jobs.get(msg["jobId"])
+        if job is None or not msg["ok"]:
+            return   # not ok: the prefill worker serves the job itself
+        req = job.req
+        req.metadata = {**(req.metadata or {}), "disaggPhase": "decode",
+                        "kvxTokens": int(msg.get("tokens") or 0)}
+        self.t_handoff[req.id] = time.perf_counter()
+        await self._reassign(msg["toWorker"], job)
+
+    async def _on_drain(self, _ch, raw):
+        import asyncio
+
+        msg = json.loads(raw)
+        self.drains[msg["jobId"]] = msg
+        if msg["jobId"] in self.jobs:
+            # off this handler: the bus's flush waits for every handler
+            self.tasks.append(asyncio.ensure_future(self._resume_drained(msg)))
+
+    async def _resume_drained(self, msg):
+        job = self.jobs[msg["jobId"]]
+        await self.bus.flush()   # frames published before the drain arrive first
+        snap = msg.get("snapshot") or {}
+        req = job.req
+        md = {k: v for k, v in (req.metadata or {}).items() if not k.startswith("disagg")}
+        md["resume"] = {"tokens": snap.get("tokens", []), "seed": snap.get("seed"),
+                        "sentChars": len(job.text)}
+        req.metadata = md
+        if not (msg["migrated"] and msg["toWorker"]):
+            job.result.set_exception(SmokeFailure(
+                f"kvx: the drain did not migrate {msg['jobId']}: {msg}"))
+            return
+        await self._reassign(msg["toWorker"], job)
+
+    async def _reassign(self, worker_id, job):
+        """Assign the job again, to `worker_id`; the caller keeps awaiting the
+        job's result future (the one submit made)."""
+        from gridllm_torch.bus.base import worker_job_channel
+        from gridllm_torch.utils.types import JobAssignment
+
+        assignment = JobAssignment(jobId=job.req.id, workerId=worker_id, request=job.req)
+        await self.bus.publish(worker_job_channel(worker_id), json.dumps(
+            {"type": "job_assignment", "job": assignment.model_dump()}))
+
+
+class _Timed:
+    """Wall time and bytes of an engine method's calls (export, import), the
+    device synchronized at each call's end, until restore()."""
+
+    def __init__(self, torch, engine, name, nbytes):
+        self.engine, self.name, self.calls = engine, name, []
+        fn = getattr(engine, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0, nbytes(args, out)))
+            return out
+
+        setattr(engine, name, timed)
+
+    def restore(self) -> None:
+        delattr(self.engine, self.name)   # the class's method again
+
+    def gbps(self) -> float:
+        s = sum(t for t, _ in self.calls)
+        return sum(b for _, b in self.calls) / s / 1e9 if s else 0.0
+
+    def ms_each(self) -> float:
+        return sum(t for t, _ in self.calls) / max(len(self.calls), 1) * 1e3
+
+
+def _kvx_engine(torch, **kw):
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(**{"model": WORKER_MODEL, **kw}), device="cuda")
+    _printable_head(torch, engine)
+    return engine
+
+
+def _kvx_evict(engine, tokens) -> int:
+    """Drop the cached pages of `tokens` from an engine's prefix cache (no
+    spill), so the next import or admission starts from nothing."""
+    with engine._alloc_lock:
+        pages, _ = engine.alloc.pin_prefix(tokens)
+        engine.alloc.unpin_pages(pages)
+        return engine.alloc.evict_cached(pages)
+
+
+def _kvx_pages(engine, tokens):
+    """The cached prefix pages of `tokens` as the wire carries them."""
+    out = engine.export_prefix_pages(tokens)
+    check(out is not None, "kvx: no cached prefix to read back")
+    return out
+
+
+async def _kvx_disagg(torch, pre, dec, prompt, tag, path) -> dict:
+    """One disaggregated job: the prompt served whole on the decode worker's
+    engine (unified), its pages dropped there, then the same job assigned to
+    a prefill-role worker with the decode worker planned: export_only
+    prefill, export, transfer over `path` ("bus" or "http", the decode
+    worker's /kvx/ route), import, handoff, decode. The imported pages must
+    equal the exporter's bit for bit; returns the streams, the last-token
+    admission logits of both runs and the readings."""
+    import asyncio
+    import os
+
+    from gridllm_torch.bus import InMemoryBus
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.main import start_health_port
+    from gridllm_torch.worker.service import WorkerService
+
+    results = _capture_results(dec)
+    srv = Served(torch, dec)
+    bus = InMemoryBus()
+    await bus.connect()
+    standin = _KvxStandIn(bus)
+    await standin.start()
+    w_pre = WorkerService(bus, {WORKER_MODEL: pre}, WorkerConfig(
+        worker_id=f"kvx-{tag}-prefill", role="prefill", heartbeat_interval_ms=1000),
+        stream_flush_ms=20)
+    w_dec = WorkerService(bus, {WORKER_MODEL: dec}, WorkerConfig(
+        worker_id=f"kvx-{tag}-decode", role="decode", heartbeat_interval_ms=1000),
+        stream_flush_ms=20)
+    http = None
+    os.environ["GRIDLLM_KVX_HTTP_BYTES"] = "1" if path == "http" else "0"
+    os.environ["GRIDLLM_KVX_TIMEOUT_MS"] = "120000"
+    exported = _Timed(torch, pre, "export_prefix_pages",
+                      lambda a, out: out["k"].nbytes + out["v"].nbytes if out else 0)
+    imported = _Timed(torch, dec, "import_prefix_pages",
+                      lambda a, out: a[1].nbytes + a[2].nbytes)
+    try:
+        for w in (w_pre, w_dec):
+            await w.start()
+        addr = ""
+        if path == "http":
+            http = await start_health_port(w_dec, "127.0.0.1", 0)
+            addr = "127.0.0.1:%d" % http.addresses[0][1]
+        # the decode engine starts cold on the prompt: unified serving first,
+        # then its pages dropped, so the disaggregated decode reads only
+        # imported pages
+        ids = dec.tokenizer.encode(prompt, add_bos=True)
+        _kvx_evict(dec, ids)
+        uni = await standin.submit(w_dec.worker_id, _worker_request(f"{tag}-uni", KVX_TOKENS,
+                                                                      prompt))
+        srv.admissions = []
+        uni_res = await asyncio.wait_for(uni.result, 600)
+        check(uni_res.success and results[f"{tag}-uni"].cached_tokens == 0,
+              f"kvx {tag}: unified run {uni_res.error}")
+        check(results[f"{tag}-uni"].context[:len(ids)] == ids, f"kvx {tag}: prompt tokens")
+        uni_logits = srv.admissions[-1][1]
+        _kvx_evict(dec, ids)
+        req = _worker_request(f"{tag}-dis", KVX_TOKENS, prompt)
+        req.metadata["disagg"] = {"decodeWorkerId": w_dec.worker_id, "decodeAddr": addr}
+        srv.admissions = []
+        job = await standin.submit(w_pre.worker_id, req)
+        res = await asyncio.wait_for(job.result, 600)
+        check(res.success, f"kvx {tag}: disaggregated run {res.error}")
+        hand = standin.handoffs.get(req.id)
+        check(hand is not None and hand["ok"] and hand["path"] == path,
+              f"kvx {tag}: handoff {hand}")
+        check(res.workerId == w_dec.worker_id, f"kvx {tag}: served by {res.workerId}")
+        check(job.text == _final_text(res), f"kvx {tag}: the stream is not its final text")
+        dis = results[req.id]
+        check(dis.cached_tokens == hand["tokens"] > 0,
+              f"kvx {tag}: decode admission cached {dis.cached_tokens}, imported "
+              f"{hand['tokens']}")
+        dis_logits = srv.admissions[-1][1]
+        readings = {"export_gbps": exported.gbps(), "import_gbps": imported.gbps(),
+                    "export_ms": exported.ms_each(), "import_ms": imported.ms_each()}
+        a, b = _kvx_pages(pre, ids[:-1]), _kvx_pages(dec, ids[:-1])
+        check(a["tokens"] == b["tokens"] and len(a["tokens"]) == hand["tokens"]
+              and _np_equal(a["k"], b["k"]) and _np_equal(a["v"], b["v"]),
+              f"kvx {tag}: imported pages differ from the exporter's")
+        return {
+            "path": path, "tokens_moved": hand["tokens"], "bytes": hand["bytes"],
+            "transfer_s": hand["seconds"], "transfer_gbps": hand["bytes"] / hand["seconds"] / 1e9,
+            **readings, "ttft_ms_unified": (uni.t_first - uni.t_submit) * 1e3,
+            "ttft_ms_after_import": (job.t_first - standin.t_handoff[req.id]) * 1e3,
+            "ttft_ms_disagg_end_to_end": (job.t_first - job.t_submit) * 1e3,
+            "text_equal": job.text == uni.text, "texts": (uni.text, job.text),
+            "eval_counts": [uni_res.response.eval_count, res.response.eval_count],
+            "logits_rel_err": _rel_err(dis_logits, uni_logits),
+            "migrated_bytes": int((res.usage or {}).get("migratedBytes") or 0),
+        }
+    finally:
+        del os.environ["GRIDLLM_KVX_HTTP_BYTES"], os.environ["GRIDLLM_KVX_TIMEOUT_MS"]
+        exported.restore()
+        imported.restore()
+        if http is not None:
+            await http.cleanup()
+        for w in (w_pre, w_dec):
+            await w.stop(announce=False)
+        await bus.disconnect()
+
+
+def _np_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+async def _kvx_drain(victim_engine, peer_engine, prompt, tag) -> dict:
+    """A job undisturbed on a unified worker, then the same job again,
+    drained mid-decode: the worker suspends it, moves its pages to the peer
+    (the one other worker on the bus) and hands it off; the stand-in resumes
+    it there. Returns both streams and the readings."""
+    import asyncio
+    import os
+
+    from gridllm_torch.bus import InMemoryBus
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    bus = InMemoryBus()
+    await bus.connect()
+    standin = _KvxStandIn(bus)
+    await standin.start()
+    victim = WorkerService(bus, {WORKER_MODEL: victim_engine}, WorkerConfig(
+        worker_id=f"kvx-{tag}-victim", heartbeat_interval_ms=1000), stream_flush_ms=20)
+    peer = WorkerService(bus, {WORKER_MODEL: peer_engine}, WorkerConfig(
+        worker_id=f"kvx-{tag}-peer", role="decode", heartbeat_interval_ms=1000),
+        stream_flush_ms=20)
+    os.environ["GRIDLLM_KVX_HTTP_BYTES"] = "0"
+    os.environ["GRIDLLM_KVX_TIMEOUT_MS"] = "120000"
+    try:
+        for w in (victim, peer):
+            await w.start()
+        ref = await standin.submit(victim.worker_id, _worker_request(
+            f"{tag}-ref", KVX_DRAIN_TOKENS, prompt))
+        ref_res = await asyncio.wait_for(ref.result, 600)
+        check(ref_res.success, f"kvx {tag}: undisturbed run {ref_res.error}")
+        rid = f"{tag}-drain"
+        job = await standin.submit(victim.worker_id, _worker_request(rid, KVX_DRAIN_TOKENS,
+                                                                       prompt))
+        await _wait(lambda: len(standin.snapshots.get(rid, {}).get("tokens", ()))
+                    >= KVX_DRAIN_AFTER, f"{tag}: decode progress before the drain")
+        report = await victim.drain(budget_ms=0)
+        res = await asyncio.wait_for(job.result, 600)
+    finally:
+        del os.environ["GRIDLLM_KVX_HTTP_BYTES"], os.environ["GRIDLLM_KVX_TIMEOUT_MS"]
+        for w in (victim, peer):
+            await w.stop(announce=False)
+        await bus.disconnect()
+    msg = standin.drains.get(rid)
+    check(report["suspended"] == 1 and msg is not None, f"kvx {tag}: drain {report} {msg}")
+    check(res.success and res.workerId == peer.worker_id,
+          f"kvx {tag}: drained job {res.error} on {res.workerId}")
+    check(job.text == _final_text(res), f"kvx {tag}: the drained stream is not exactly once")
+    check(peer.kvx.imported.get(rid, 0) > 0, f"kvx {tag}: the peer imported nothing")
+    return {"text": job.text, "undisturbed_text": ref.text,
+            "eval_counts": [ref_res.response.eval_count, res.response.eval_count],
+            "snapshot_tokens": len((msg.get("snapshot") or {}).get("tokens", [])),
+            "migrated": msg["migrated"], "bytes": msg["bytes"],
+            "tokens_imported": peer.kvx.imported[rid]}
+
+
+def _kvx_mixed_pools(torch, q8, fp, prompt) -> dict:
+    """Engine to engine, no workers: an int8-pool engine's prefix exported
+    (dequantized) into a bf16 engine, and the bf16 engine's copy exported
+    back into the int8 engine (requantized per row): the bf16 pool holds the
+    wire's bf16 pages bit for bit, the int8 pool the JAX package's
+    requantization of them, and both serve the prompt warm."""
+    import numpy as np
+
+    from gridllm_torch.engine import GenerationRequest
+    from gridllm_torch.ops.kvtier import quantize_rows_np
+    from gridllm_torch.transfer.wire import Assembler, build_header
+
+    def wire(src, tokens):
+        out = _kvx_pages(src, tokens)
+        h, p = build_header("mixed", WORKER_MODEL, out["tokens"], out["k"], out["v"],
+                            dtype=out["dtype"], kv_layout=out["kvLayout"])
+        asm = Assembler(dict(h))
+        asm.feed_raw(p)
+        return h, *asm.arrays()
+
+    opts = {"temperature": 0.0, "num_predict": 16}
+    first = q8.generate(GenerationRequest(id="q8", prompt=prompt, options=dict(opts)))
+    ids = first.context[:first.prompt_eval_count]
+    _kvx_evict(fp, ids)
+    h, tokens, k, v = wire(q8, ids[:-1])
+    check(fp.import_prefix_pages(tokens, k, v, h) == len(tokens), "kvx mixed: int8 → bf16")
+    back = _kvx_pages(fp, ids[:-1])
+    check(_np_equal(back["k"], k) and _np_equal(back["v"], v),
+          "kvx mixed: the bf16 pool does not hold the int8 engine's dequantized pages")
+    _kvx_evict(q8, ids)
+    h2, tokens2, k2, v2 = wire(fp, ids[:-1])
+    check(q8.import_prefix_pages(tokens2, k2, v2, h2) == len(tokens2), "kvx mixed: bf16 → int8")
+    with q8._alloc_lock:
+        pages, _ = q8.alloc.pin_prefix(ids)
+        q8.alloc.unpin_pages(pages)
+    idx = torch.tensor(pages, device="cuda")
+    want_k, want_ks = quantize_rows_np(k2, "bfloat16")
+    check(np.array_equal(q8.cache.k.data[:, idx].cpu().numpy(), want_k)
+          and np.array_equal(q8.cache.k.scale[:, idx].cpu().numpy(), want_ks),
+          "kvx mixed: the int8 pool does not hold the per-row requantization")
+    warm = [e.generate(GenerationRequest(id=f"warm-{i}", prompt=prompt, options=dict(opts)))
+            for i, e in enumerate((fp, q8))]
+    for r in warm:
+        check(r.cached_tokens == len(tokens) and r.done_reason in ("length", "stop"),
+              f"kvx mixed: warm run cached {r.cached_tokens} ({r.done_reason})")
+    return {"tokens_moved": len(tokens), "bytes_each_way": k.nbytes + v.nbytes,
+            "int8_first_tokens": first.token_ids[:8],
+            "bf16_warm_first_tokens": warm[0].token_ids[:8]}
+
+
+def _kvx_tier_run(engine, prompts) -> dict:
+    """Warm (cold, then a repeat from the device pool), two long prompts that
+    evict it, the repeat again (restored from the host tier when there is
+    one), then park the prompt's pages and repeat once more."""
+    from gridllm_torch.engine import GenerationRequest
+
+    opts = {"temperature": 0.0, "num_predict": 32}
+
+    def one(rid, p, n=32):
+        r = engine.generate(GenerationRequest(id=rid, prompt=p,
+                                              options={**opts, "num_predict": n}))
+        check(r.done_reason in ("length", "stop"), f"kvx tier: {rid} {r.error}")
+        return r
+
+    short, long1, long2 = prompts
+    cold = one("cold", short)
+    warm = one("warm", short)
+    one("long1", long1, 4)
+    one("long2", long2, 4)
+    post = one("post", short)
+    out = {"cold": cold, "warm": warm, "post": post}
+    if engine.host_tier is not None:
+        ps = engine.config.page_size
+        free = engine.alloc.free_pages
+        parked = engine.park_to_host(post.context[:post.prompt_eval_count - 1])
+        check(parked > 0 and engine.alloc.free_pages == free + parked // ps,
+              f"kvx tier: parked {parked} tokens, free pages {free} → "
+              f"{engine.alloc.free_pages}")
+        out["parked_tokens"] = parked
+        out["resumed"] = one("resumed", short)
+    return out
+
+
+def _kvx_tier(torch, rng) -> dict:
+    """The host tier on a pool of KVX_TIER_PAGES pages: bf16 llama3:8b with
+    raw spills (spill and restore ms per page; the restored repeat equals
+    the device-warm repeat; park frees its pages and the resume restores
+    them), then the float32 cut with the tier on and off, whose greedy
+    streams must be equal."""
+    prompts = (_prompt(rng, 600), _prompt(rng, 1500), _prompt(rng, 1500))
+    tier_kw = dict(num_pages=KVX_TIER_PAGES, kv_host_bytes=1 << 32, kv_spill_int8=False)
+    engine = _kvx_engine(torch, **tier_kw)
+    page_bytes = (engine.cache.k.nbytes + engine.cache.v.nbytes) // KVX_TIER_PAGES
+    tier = engine.host_tier
+    times: dict[str, list] = {"spill": [], "restore": []}
+
+    def timed(kind, fn, count):
+        # the wall of each call that spilled or restored a page (a spill of
+        # a page the tier holds already returns at once), device synchronized
+        def hook(*args):
+            n, t0 = count(), time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            if count() > n:
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return hook
+
+    engine._spill_page_to_host = engine.alloc.spill_sink = timed(
+        "spill", engine._spill_page_to_host, lambda: tier.spills)
+    engine.alloc.restore_source = timed("restore", engine._restore_page_from_host,
+                                        lambda: tier.restores)
+    bf16 = _kvx_tier_run(engine, prompts)
+    st = engine.host_tier.stats()
+    del engine
+    check(st["spills"] > 0 and st["restores"] > 0, f"kvx tier: {st}")
+    check(bf16["post"].cached_tokens == bf16["warm"].cached_tokens > 0,
+          f"kvx tier: restored {bf16['post'].cached_tokens} of {bf16['warm'].cached_tokens}")
+    check(bf16["post"].token_ids == bf16["warm"].token_ids,
+          "kvx tier: the restored repeat differs from the device-warm repeat")
+    check(bf16["resumed"].token_ids == bf16["warm"].token_ids
+          and bf16["resumed"].cached_tokens > 0, "kvx tier: the parked resume differs")
+    f32 = {}
+    for on in (True, False):
+        engine = _kvx_engine(torch, model=_kvx_f32_model(), dtype="float32",
+                             **(tier_kw if on else {"num_pages": KVX_TIER_PAGES}))
+        f32[on] = _kvx_tier_run(engine, prompts)
+        del engine
+    check(f32[False]["post"].cached_tokens == 0 and f32[True]["post"].cached_tokens > 0,
+          "kvx tier: the float32 runs did not evict, or the tier did not restore")
+    check(all(r.token_ids == f32[False]["cold"].token_ids
+              for run in f32.values() for k, r in run.items() if k != "parked_tokens"),
+          "kvx tier: float32 greedy streams differ with the tier on and off")
+    return {"page_bytes": page_bytes,
+            "spill_ms_per_page": statistics.mean(times["spill"]),
+            "spill_ms_per_page_median": statistics.median(times["spill"]),
+            "restore_ms_per_page": statistics.mean(times["restore"]),
+            "restore_ms_per_page_median": statistics.median(times["restore"]),
+            "spills_timed": len(times["spill"]), "restores_timed": len(times["restore"]),
+            "tier_stats": st,
+            "restored_tokens": bf16["post"].cached_tokens,
+            "parked_tokens": bf16["parked_tokens"],
+            "f32_tier_on_off_equal": True}
+
+
+def _kvx_f32_model() -> str:
+    """llama3:8b at full width cut to KVX_F32_LAYERS layers, registered under
+    its own name (two float32 engines and their pools fit on the card)."""
+    import dataclasses
+
+    from gridllm_torch.models.configs import REGISTRY, get_config, register
+
+    name = f"{WORKER_MODEL}-f32-{KVX_F32_LAYERS}l"
+    if name not in REGISTRY:
+        register(dataclasses.replace(get_config(WORKER_MODEL), name=name,
+                                     num_layers=KVX_F32_LAYERS))
+    return name
+
+
+def phase_kvx(torch) -> dict:
+    """KV movement between two port WorkerServices on the port's
+    InMemoryBus (the stand-in scheduler on the other side) and the host KV
+    tier, llama3:8b with the engine's defaults:
+    (a) disaggregated serving of a 1,500-byte prompt: a prefill-role worker
+        prefills with export_only, exports and sends, once over bus chunks
+        and once over HTTP to the decode worker's /kvx/ route (when aiohttp
+        imports); the decode-role worker imports and streams. The imported
+        pages equal the exporter's bit for bit; bf16 first-token logits are
+        held to unified serving on the decode worker within
+        SERVE_WARM_COLD_REL; in float32 (the cut) the stream equals it.
+    (b) a graceful drain mid-decode moves the pages to the peer and the
+        stream stays exactly once (bf16), byte-identical to the undisturbed
+        run in float32;
+    (c) an int8-pool engine's pages into a bf16 engine and back;
+    (d) the host tier (_kvx_tier).
+    The launch counters are 0 before (a) and read after (d); no plain
+    version runs on the card."""
+    import asyncio
+    import importlib.util
+    import random
+
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    rng = random.Random(SEED + 13)
+    prompt, drain_prompt = _prompt(rng, KVX_PROMPT_BYTES), _prompt(rng, 400)
+    paths = ["bus"] + (["http"] if importlib.util.find_spec("aiohttp") else [])
+    ck.reset_launch_counts()
+    out: dict = {"phase": "kvx", "model": WORKER_MODEL, "card": card_line()}
+    with _PlainWatch(torch) as plain:
+        pre, dec = _kvx_engine(torch), _kvx_engine(torch)
+        out["disagg_bf16"] = [asyncio.run(_kvx_disagg(torch, pre, dec, prompt, f"bf16-{p}", p))
+                              for p in paths]
+        for r in out["disagg_bf16"]:
+            check(r["logits_rel_err"] <= SERVE_WARM_COLD_REL,
+                  f"kvx: bf16 first-token logits after import depart {r['logits_rel_err']} "
+                  f"> {SERVE_WARM_COLD_REL}")
+            r["bf16_text_equal_unified"] = r.pop("text_equal")
+            r.pop("texts")
+        drained = asyncio.run(_kvx_drain(pre, dec, drain_prompt, "bf16"))
+        # bf16, a reading: the resumed admission computes the rows after its
+        # last moved page in a chunk (ROADMAP, "Not port faults")
+        drained["equals_undisturbed"] = drained.pop("text") == drained.pop("undisturbed_text")
+        out["drain_bf16"] = drained
+        del pre
+        q8 = _kvx_engine(torch, kv_int8=True)
+        out["mixed_pools"] = _kvx_mixed_pools(torch, q8, dec, _prompt(rng, 900))
+        del q8, dec
+        f32 = [_kvx_engine(torch, model=_kvx_f32_model(), dtype="float32") for _ in range(2)]
+        dis = asyncio.run(_kvx_disagg(torch, *f32, prompt, "f32-bus", "bus"))
+        check(dis["text_equal"], f"kvx: float32 disaggregated stream differs: {dis['texts']}")
+        dis.pop("texts")
+        out["disagg_f32"] = dis
+        drained = asyncio.run(_kvx_drain(*f32, drain_prompt, "f32"))
+        check(drained.pop("text") == drained.pop("undisturbed_text")
+              and len(set(drained["eval_counts"])) == 1,
+              "kvx: the float32 drained stream differs from the undisturbed run")
+        out["drain_f32"] = {**drained, "equals_undisturbed": True}
+        del f32
+        out["tier"] = _kvx_tier(torch, rng)
+        launches = ck.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("ragged_attention", "paged_write_decode"):
+        check(launches[name] > 0, f"kvx: {name} never launched: {launches}")
+    check(not any(plain.counts.values()), f"kvx: a plain version ran on the card: {plain.counts}")
+    out.update(launches=launches, plain_calls_on_card=plain.counts)
+    return out
+
+
 TURN_PARTS = ("kernels", "steps", "int8")
 
 
@@ -4103,7 +4641,7 @@ def main() -> int:
                    "serve": phase_serve, "worker": phase_worker, "replay": phase_replay,
                    "spec": phase_spec, "checkpoint": phase_checkpoint,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
-                   "tree": phase_tree}[phase](torch)
+                   "tree": phase_tree, "kvx": phase_kvx}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out

@@ -47,6 +47,16 @@ serving path:
   quantize each row; decode, verify and mixed steps read the pool through
   the ragged kernel's int8 leg.
 
+- KV movement (the JAX engine's export/import and host tier):
+  `export_prefix_pages` gathers the cached full-page prefix of a prompt to
+  host arrays for the migration wire (transfer/wire.py),
+  `import_prefix_pages` installs migrated pages into the pool and the
+  prefix cache, an `export_only` request (a disaggregated prefill) finishes
+  at its first token with its prompt's pages cached, and with
+  `kv_host_bytes` > 0 pages evicted from the prefix cache spill to a host
+  tier (ops/kvtier.py) and page back in on a prefix match;
+  `park_to_host` moves a suspended request's pages there.
+
 - Profiling a serving engine (the JAX engine's `jax.profiler` capture):
   `profile()` is a torch.profiler capture that starts and stops on the
   engine's runner thread while every runner thread of the process waits
@@ -86,6 +96,12 @@ from gridllm_torch.ops.kvcache import (
     commit_tree_path,
     rollback_to_length,
 )
+from gridllm_torch.ops.kvtier import (
+    HostKVTier,
+    dequantize_page,
+    quantize_rows_np,
+    set_tier_gauges,
+)
 from gridllm_torch.ops.sampling import (
     SamplingParams,
     sample_tokens,
@@ -101,7 +117,7 @@ from gridllm_torch.ops.spec import (
     tree_depths,
     tree_topology,
 )
-from gridllm_torch.utils.config import env_bool
+from gridllm_torch.utils.config import env_bool, env_int
 
 log = logging.getLogger(__name__)
 
@@ -283,7 +299,13 @@ class EngineConfig:
     # attention mode: the unified ragged kernel (True) or the per-phase
     # dispatchers paged_decode / prefix_chunk (False)
     ragged_attention: bool = True
-    kv_host_bytes: int | None = None     # not ported
+    # host KV tier: its capacity in bytes (prefix-cache pages evicted from
+    # the device pool spill there and page back in on a prefix match; 0 =
+    # off; None = GRIDLLM_KV_HOST_BYTES) and whether an fp page is int8-
+    # quantized on spill (one scale per layer and page; False spills raw
+    # bytes, so tier-on streams equal tier-off; None = GRIDLLM_KV_SPILL_INT8)
+    kv_host_bytes: int | None = None
+    kv_spill_int8: bool | None = None
     # resident int8 KV pool (values + per-row float32 scales); None = off,
     # the JAX package's env default
     kv_int8: bool | None = None
@@ -293,7 +315,6 @@ class EngineConfig:
         unported = {
             "quantize": bool(self.quantize),
             "mesh": self.mesh is not None,
-            "kv_host_bytes": bool(self.kv_host_bytes),
         }
         for name, on in unported.items():
             if on:
@@ -309,10 +330,13 @@ class GenerationRequest:
     prompt_ids: list[int] | None = None  # pre-tokenized (Ollama `context` path)
     options: dict[str, Any] = dataclasses.field(default_factory=dict)
     raw: bool = False                    # skip BOS when prompt_ids is None
-    # base64 images and disaggregated-prefill export: fields of the JAX
-    # engine's request that this engine refuses, non-retryably, until the
-    # vision path and KV transfer are ported
+    # base64 images: a field of the JAX engine's request that this engine
+    # refuses, non-retryably, until the vision path is ported
     images: list[str] | None = None
+    # disaggregated prefill: finish at the FIRST host-visible token with
+    # done_reason "export"; the prompt's KV pages land in the prefix cache
+    # (the normal finish path) ready for export_prefix_pages, and no text is
+    # detokenized or streamed
     export_only: bool = False
     # decode resume: token ids a previous attempt already generated. They
     # join the prompt for prefill and allocation but seed the slot's
@@ -361,7 +385,7 @@ class _Slot:
         "num_predict", "stop_seqs", "eos_ids", "capacity", "joined_gen",
         "cached_tokens", "t_start", "t_prefill_ns", "t_first_decode",
         "t_last_ingest", "spec_proposed", "spec_accepted", "snapshot",
-        "t_admit_wall", "pages_held", "device_s",
+        "t_admit_wall", "pages_held", "device_s", "export_only",
     )
 
     def __init__(self, req: GenerationRequest, ids: list[int], capacity: int,
@@ -396,6 +420,7 @@ class _Slot:
         self.t_admit_wall = time.time()
         self.pages_held = 0              # KV pages allocated to this slot
         self.device_s = 0.0              # accumulated decode device-second share
+        self.export_only = req.export_only  # disaggregated prefill: stop at token 1
 
     def holdback(self) -> int:
         """Chars at the tail of `text` that could still become a stop
@@ -444,6 +469,9 @@ class InferenceEngine:
         self._rng = random.Random(config.seed)
         self._prefix_cache_cap = (
             max(config.prefix_cache_pages, -1) if config.prefix_cache else 0)
+        # resolved once: the host tier outlives device-state resets (its
+        # content-addressed pages stay valid)
+        self.host_tier = self._build_host_tier()
         self._lock = threading.Lock()
         self._alloc_lock = threading.RLock()
         self._pending: deque[GenerationRequest] = deque()
@@ -589,6 +617,11 @@ class InferenceEngine:
             kv_int8=bool(c.kv_int8))
         self.alloc = PageAllocator(c.num_pages, c.page_size, c.max_pages_per_slot,
                                    cache_pages=self._prefix_cache_cap, model=mc.name)
+        if self.host_tier is not None:
+            # eviction spills to host memory, a match_prefix miss consults
+            # it: both fire under _alloc_lock from inside the allocator
+            self.alloc.spill_sink = self._spill_page_to_host
+            self.alloc.restore_source = self._restore_page_from_host
         self.sampling = SamplingParams.defaults(c.max_slots, dev)
         self.counts = torch.zeros((c.max_slots, mc.vocab_size), dtype=torch.int32, device=dev)
         self.window = torch.zeros((c.max_slots, c.repeat_window), dtype=torch.int32, device=dev)
@@ -808,10 +841,6 @@ class InferenceEngine:
             self._fail(req, "images are not served by the torch engine yet (the vision "
                             "path, ROADMAP A 8)", retryable=False)
             return True
-        if req.export_only:
-            self._fail(req, "export_only admission needs KV transfer, not ported to the "
-                            "torch engine yet (ROADMAP A 4)", retryable=False)
-            return True
         ids = self._tokenize(req)
         # decode resume: the tokens a previous attempt generated join the
         # prompt for prefill and allocation (a cached prefix covers them)
@@ -895,6 +924,12 @@ class InferenceEngine:
         free, cached, name = self.alloc.free_pages, self.alloc.cached_pages, self.cfg.name
         _KV_PAGES_FREE.set(free, model=name)
         _KV_PAGES_CACHED.set(cached, model=name)
+        # per-tier residency: hbm = reuse-LRU pages at pool bytes per page,
+        # host = the encoded bytes the host tier holds
+        bpp = (self.cache.k.nbytes + self.cache.v.nbytes) / max(self.config.num_pages, 1)
+        tier = self.host_tier
+        set_tier_gauges(name, cached, int(cached * bpp), tier.pages if tier else 0,
+                        tier.bytes_used if tier else 0)
         _KV_PAGES_USED.set(self.config.num_pages - free - cached, model=name)
         total = self.alloc.hits + self.alloc.misses
         if total:
@@ -1145,6 +1180,17 @@ class InferenceEngine:
 
     def _ingest(self, slot: int, st: _Slot, tok: int) -> None:
         """Record one sampled token; emit text; finish the slot if done."""
+        if st.export_only:
+            # disaggregated prefill: the first host-visible token proves the
+            # whole prompt's KV is written. Finish now with reason "export",
+            # so _finish registers the prompt's full pages in the prefix
+            # cache (the export source). The token is not detokenized or
+            # streamed: the decode worker re-prefills the prompt's tail and
+            # samples it itself, which keeps the streams identical
+            st.generated.append(tok)
+            st.ids.append(tok)
+            self._finish(slot, st, "export")
+            return
         st.generated.append(tok)
         st.ids.append(tok)
         done_reason = None
@@ -1531,20 +1577,303 @@ class InferenceEngine:
     def queued_requests(self) -> int:
         return len(self._pending)
 
+    # ------------------------------------------------------ KV movement
+
+    def _build_host_tier(self) -> HostKVTier | None:
+        """The host KV tier behind the prefix cache's reuse LRU, or None
+        (capacity 0, or the prefix cache off: the spill unit is a cached
+        page)."""
+        c = self.config
+        cap = c.kv_host_bytes if c.kv_host_bytes is not None else env_int("GRIDLLM_KV_HOST_BYTES")
+        if cap <= 0:
+            return None
+        if self._prefix_cache_cap == 0:
+            log.info("host KV tier disabled for %s: it needs the prefix cache",
+                     c.model)
+            return None
+        spill_int8 = (c.kv_spill_int8 if c.kv_spill_int8 is not None
+                      else env_bool("GRIDLLM_KV_SPILL_INT8"))
+        log.info("host KV tier enabled for %s: %d bytes, spill %s", c.model, cap,
+                 "int8-page" if spill_int8 else "raw")
+        return HostKVTier(cap, model=self.cfg.name, spill_int8=spill_int8)
+
+    @property
+    def _kv_int8(self) -> bool:
+        return isinstance(self.cache.k, QuantPages)
+
+    def _kv_layout(self) -> str:
+        """The wire's kvLayout label, the one the JAX engine writes for the
+        same attention mode (the port's pools are never lane-padded)."""
+        return "ragged" if self.model.ragged_attention else "legacy"
+
+    def _host_words(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor as a host numpy array in its wire form: bfloat16
+        as its 16-bit words (numpy has no bfloat16)."""
+        t = t.cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    def _device_pages(self, x: np.ndarray, dtype: str) -> torch.Tensor:
+        """Host pages of wire dtype `dtype` (bfloat16 as uint16 words) as a
+        device tensor of the pool's dtype."""
+        x = np.ascontiguousarray(x)
+        if dtype == "bfloat16":
+            t = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(x)
+        return t.to(self.device).to(self.dtype)
+
     def kv_transfer_supported(self) -> bool:
-        """False until KV transfer is ported (ROADMAP A 4): a worker drains
-        and preempts by resume-requeue instead of moving pages."""
-        return False
+        """Export and import need the content-addressed prefix cache: the
+        transfer unit is cached pages."""
+        return self._prefix_cache_cap != 0
 
     def export_prefix_pages(self, token_ids: list[int]) -> dict[str, Any] | None:
-        raise NotImplementedError(
-            "export_prefix_pages: KV transfer is not ported to the torch engine yet "
-            "(ROADMAP A 4)")
+        """Gather the longest cached full-page prefix of `token_ids` as host
+        arrays for the migration wire. Returns {tokens, k, v, dtype, model,
+        kvLayout, quant}, k/v [L, n, ps, KVH, D] in the wire dtype `dtype`
+        (the engine's compute dtype, bfloat16 as uint16 words; an int8
+        pool is dequantized, as the JAX engine does), or None when nothing
+        is cached or transfer is unsupported.
+
+        The pages are refcount-pinned while they are gathered, so no
+        admission can evict or overwrite them. The gather is launched on
+        the device's current stream, the default stream the runner's steps
+        use too (the port sets no other), so it runs after every step
+        launched before it, among them the steps that wrote these pages:
+        a page is registered only after its owner finished, on the host,
+        after those steps were launched."""
+        if not self.kv_transfer_supported():
+            return None
+        alloc = self.alloc
+        with self._alloc_lock:
+            pages, tokens = alloc.pin_prefix(token_ids)
+        if not pages:
+            return None
+        try:
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            k_pool, v_pool = self.cache.k, self.cache.v
+            if self._kv_int8:
+                # the wire carries the compute dtype, so fp and int8 pools
+                # interoperate: dequantize on export, requantize on install
+                k_dev = (k_pool.data[:, idx].float()
+                         * k_pool.scale[:, idx][..., None, None]).to(self.dtype)
+                v_dev = (v_pool.data[:, idx].float()
+                         * v_pool.scale[:, idx][..., None, None]).to(self.dtype)
+            else:
+                k_dev, v_dev = k_pool[:, idx], v_pool[:, idx]
+            k, v = self._host_words(k_dev), self._host_words(v_dev)
+        finally:
+            with self._alloc_lock:
+                alloc.unpin_pages(pages)
+        return {
+            "tokens": [int(t) for t in token_ids[:tokens]],
+            "k": k, "v": v, "dtype": self.config.dtype,
+            "model": self.cfg.name,
+            "kvLayout": self._kv_layout(),
+            "quant": self.config.quantize,
+        }
+
+    def import_prefix_pages(self, token_ids: list[int], k: np.ndarray, v: np.ndarray,
+                            meta: dict[str, Any]) -> int:
+        """Install migrated KV pages (wire dtype `meta["dtype"]`, bfloat16
+        as uint16 words) into the pool and register them in the prefix
+        cache, so the request's admission here shares them through the
+        normal match_prefix warm path. Returns the tokens installed
+        (contiguous from position 0; fewer than offered under pool
+        pressure). Raises on a geometry or dtype mismatch; the sender takes
+        that as a NACK and serves the request itself."""
+        if not self.kv_transfer_supported():
+            raise ValueError(f"{self.cfg.name}: KV import unsupported here (prefix cache off)")
+        mc, c = self.cfg, self.config
+        ps = c.page_size
+        kvh, d = self.cache.k.shape[3], self.cache.k.shape[4]
+        if int(meta["pageSize"]) != ps:
+            raise ValueError(f"page-size mismatch: wire {meta['pageSize']} vs pool {ps}")
+        if (int(meta["numLayers"]) != mc.num_layers or int(meta["kvHeads"]) != kvh
+                or int(meta["headDim"]) != d):
+            raise ValueError(
+                f"pool geometry mismatch: wire L{meta['numLayers']}/H{meta['kvHeads']}/"
+                f"D{meta['headDim']} vs L{mc.num_layers}/H{kvh}/D{d}")
+        # the wire's dtype is the compute dtype on fp and int8 pools alike
+        if str(meta["dtype"]) != c.dtype:
+            raise ValueError(f"dtype mismatch: wire {meta['dtype']} vs pool {c.dtype}")
+        n = min(int(k.shape[1]), len(token_ids) // ps)
+        alloc = self.alloc
+        keys = alloc.chain_keys(token_ids, n_pages=n)
+        # claimed pages come back pinned and unregistered: a chain key
+        # becomes matchable only after its page's data is written
+        writes: list[tuple[int, int, bytes]] = []   # (page, wire index, key)
+        installed = 0
+        with self._alloc_lock:
+            for i, key in enumerate(keys):
+                if alloc.peek_key(key) is not None:
+                    # the same content is cached here already (maybe pinned
+                    # by a live request): keep it, skip the write
+                    installed = i + 1
+                    continue
+                page = alloc.claim_page()
+                if page is None:
+                    break   # pool exhausted: keep the shorter prefix
+                writes.append((page, i, key))
+                installed = i + 1
+        if writes:
+            try:
+                self._write_imported_pages([(p, i) for p, i, _ in writes], k, v, c.dtype)
+                with self._alloc_lock:
+                    for page, _i, key in writes:
+                        alloc.register_claimed(page, key)
+            finally:
+                with self._alloc_lock:
+                    alloc.unpin_pages([p for p, _, _ in writes])
+        self._update_kv_gauges()
+        return installed * ps
+
+    def _write_imported_pages(self, writes: list[tuple[int, int]], k: np.ndarray,
+                              v: np.ndarray, dtype: str,
+                              k_rowscale: np.ndarray | None = None,
+                              v_rowscale: np.ndarray | None = None) -> None:
+        """Write host pages into pool pages with indexed assignment (the
+        JAX engine's `.at[:, idx].set`): `writes` pairs a pool page with
+        the index of its source page along k/v's page axis. `dtype` names
+        k/v's wire dtype ("int8" with per-row scales [L, n, ps] for an int8
+        record). On an int8 pool fp pages requantize per row on the host
+        (the JAX package's numpy arithmetic, so both pools hold the same
+        bytes); on an fp pool int8 rows dequantize and cast to the pool's
+        dtype.
+
+        On the card the copy to the device completes before this returns
+        (a synchronous copy) and the assignment is launched on the current
+        stream, the runner's default stream: a step launched after the
+        caller registers the pages reads them written."""
+        pages = [p for p, _ in writes]
+        src = [i for _, i in writes]
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        k, v = k[:, src], v[:, src]
+        if self._kv_int8:
+            if k_rowscale is None:
+                k, k_rowscale = quantize_rows_np(k, dtype)
+                v, v_rowscale = quantize_rows_np(v, dtype)
+            else:
+                k_rowscale, v_rowscale = k_rowscale[:, src], v_rowscale[:, src]
+            for pool, q, sc in ((self.cache.k, k, k_rowscale), (self.cache.v, v, v_rowscale)):
+                pool.data[:, idx] = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+                pool.scale[:, idx] = torch.from_numpy(
+                    np.ascontiguousarray(sc, np.float32)).to(self.device)
+            return
+        if k_rowscale is not None:
+            k = np.asarray(k, np.float32) * k_rowscale[:, src][..., None, None]
+            v = np.asarray(v, np.float32) * v_rowscale[:, src][..., None, None]
+            dtype = "float32"
+        self.cache.k[:, idx] = self._device_pages(k, dtype)
+        self.cache.v[:, idx] = self._device_pages(v, dtype)
+
+    def _spill_page_to_host(self, page: int, key: bytes) -> None:
+        """Allocator spill hook: copy one about-to-be-evicted prefix-cache
+        page into the host tier (under _alloc_lock, from inside the
+        allocator's eviction). One synchronous device-to-host copy per
+        page not yet in the tier. Best-effort: a failure (or the
+        `kvtier.spill` fault site) loses the page from the tier, and the
+        later match degrades to a cold prefill."""
+        tier = self.host_tier
+        if tier is None or key in tier:
+            return   # content-addressed: an existing host copy is valid
+        if faults.check("kvtier.spill"):
+            return
+        idx = torch.tensor([page], dtype=torch.long, device=self.device)
+        k_pool, v_pool = self.cache.k, self.cache.v
+        if self._kv_int8:
+            tier.put(key, k_pool.data[:, idx].cpu().numpy(), v_pool.data[:, idx].cpu().numpy(),
+                     k_scale=k_pool.scale[:, idx].cpu().numpy(),
+                     v_scale=v_pool.scale[:, idx].cpu().numpy(), quant="int8-rows")
+        else:
+            tier.put(key, self._host_words(k_pool[:, idx]), self._host_words(v_pool[:, idx]),
+                     dtype=self.config.dtype)
+
+    def _restore_page_from_host(self, key: bytes) -> int | None:
+        """Allocator restore hook (match_prefix, under _alloc_lock, on a
+        chain miss): page one spilled page back into a fresh pool page,
+        register it under its chain key at refcount 0 and return its id so
+        the match walks on. None on a tier miss, an injected fault, pool
+        pressure or an integrity failure: the admission degrades to a cold
+        prefill."""
+        tier = self.host_tier
+        if tier is None:
+            return None
+        rec = tier.get(key)
+        if rec is None:
+            return None
+        if faults.check("kvtier.restore"):
+            tier.note_restore_failure()
+            return None
+        alloc = self.alloc
+        with self._alloc_lock:
+            page = alloc.claim_page()
+        if page is None:
+            tier.note_restore_failure()   # pool pressure: nowhere to land
+            return None
+        try:
+            self._install_restored_page(page, *rec)
+        except Exception as e:  # noqa: BLE001 — degrade to a cold prefill
+            log.warning("host-tier restore install failed for %s: %s", self.cfg.name, e)
+            tier.note_restore_failure()
+            with self._alloc_lock:
+                alloc.unpin_pages([page])
+            return None
+        with self._alloc_lock:
+            alloc.register_claimed(page, key)
+            alloc.unpin_pages([page])
+            out = alloc.peek_key(key)
+        tier.mark_restored(key)
+        return out
+
+    def _install_restored_page(self, page: int, k: np.ndarray, v: np.ndarray,
+                               ks: np.ndarray | None, vs: np.ndarray | None,
+                               quant: str | None) -> None:
+        """Decode one spill record to the pool's dtype and layout and write
+        it into `page`. A raw record holds this pool's dtype."""
+        if quant == "int8-rows":
+            # rows and per-row scales [L, 1, ps]: verbatim on an int8 pool,
+            # dequantized on an fp one
+            self._write_imported_pages([(page, 0)], k, v, "int8",
+                                       k_rowscale=np.asarray(ks, np.float32),
+                                       v_rowscale=np.asarray(vs, np.float32))
+        elif quant == "int8-page":
+            self._write_imported_pages([(page, 0)], dequantize_page(k, ks),
+                                       dequantize_page(v, vs), "float32")
+        else:
+            self._write_imported_pages([(page, 0)], k, v, self.config.dtype)
 
     def park_to_host(self, token_ids: list[int]) -> int:
-        raise NotImplementedError(
-            "park_to_host: the host KV tier is not ported to the torch engine yet "
-            "(ROADMAP A 4)")
+        """Suspend to host: move the cached full-page prefix of `token_ids`
+        into the host tier and FREE its device pages, so a suspended decode
+        stops holding device memory. The resume's admission restores the
+        pages through the match_prefix warm path. Pages still shared with a
+        live request are copied but not freed. Returns the tokens whose
+        pages now live in the host tier (contiguous from position 0)."""
+        tier = self.host_tier
+        if tier is None or len(token_ids) < 2:
+            return 0
+        alloc = self.alloc
+        with self._alloc_lock:
+            pages, _covered = alloc.pin_prefix(token_ids)
+        if not pages:
+            return 0
+        keys = alloc.chain_keys(token_ids, n_pages=len(pages))
+        parked = 0
+        try:
+            for pg, key in zip(pages, keys):
+                self._spill_page_to_host(pg, key)
+                if key not in tier:
+                    break   # keep the parked prefix contiguous
+                parked += 1
+        finally:
+            with self._alloc_lock:
+                alloc.unpin_pages(pages)
+                alloc.evict_cached([pg for pg, key in zip(pages, keys) if key in tier])
+        self._update_kv_gauges()
+        return parked * self.config.page_size
 
     def memory_arrays(self) -> dict[str, Any]:
         """Device buffers and page-pool accounting for a memory probe: the
@@ -1576,15 +1905,15 @@ class InferenceEngine:
                 "freeBytes": int(alloc.free_pages * bpp),
                 # the port's pools are never lane-padded
                 "lanePadOverheadBytes": 0,
-                "kvLayout": "ragged" if self.model.ragged_attention else "legacy",
+                "kvLayout": self._kv_layout(),
                 "liveTokens": live_tokens,
                 # capacity reserved at admission not yet holding tokens; a
                 # shared prefix page counts once in pagesUsed but for every
                 # sharer in liveTokens, hence the clamp at 0
                 "fragmentation": (max(0.0, round(1 - live_tokens / capacity_tokens, 4))
                                   if capacity_tokens else 0.0),
-                "kvInt8": isinstance(cache.k, QuantPages),
-                "hostTier": None,
+                "kvInt8": self._kv_int8,
+                "hostTier": self.host_tier.stats() if self.host_tier is not None else None,
             },
         }
 
@@ -1619,6 +1948,7 @@ class InferenceEngine:
             "prefixCache": {"hits": self.alloc.hits, "misses": self.alloc.misses,
                             "evictions": self.alloc.evictions,
                             "cowCopies": self.alloc.cow_copies},
+            "hostTier": self.host_tier.stats() if self.host_tier is not None else None,
             "specDecode": ({"k": self._spec_k, "drafter": self._drafter.kind,
                             "treeWidth": (self._tree_width
                                           if isinstance(self._drafter, DraftModelDrafter)

@@ -29,6 +29,9 @@ from typing import Callable
 import torch
 
 from gridllm_torch.obs.metrics import default_registry
+from gridllm_torch.utils.logging import get_logger
+
+log = get_logger("kvcache")
 
 # Which implementation each dispatch took (the JAX package's
 # gridllm_kernel_dispatch_total, same name, help and labels): path "cuda"
@@ -551,6 +554,16 @@ class PageAllocator:
         self.page_size = page_size
         self.max_pages_per_slot = max_pages_per_slot
         self.cache_pages = cache_pages
+        # host KV tier hooks the engine installs: spill_sink(page, chain_key)
+        # fires right before a REGISTERED page is evicted from the reuse LRU
+        # (the engine copies it to host memory); restore_source(chain_key)
+        # is consulted by match_prefix on a chain miss and returns a freshly
+        # installed, registered, refcount-0 page id (or None). Both run
+        # under the engine's _alloc_lock, which every allocator mutation
+        # holds, so they may call back into claim_page / register_claimed /
+        # unpin_pages (an RLock)
+        self.spill_sink: Callable[[int, bytes], None] | None = None
+        self.restore_source: Callable[[bytes], int | None] | None = None
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
         self._owned: dict[int, list[int]] = {}
         self._refs: dict[int, int] = {}           # page → owners (≥ 1)
@@ -588,11 +601,26 @@ class PageAllocator:
             return self._free.pop()
         if self._lru:  # evict the least-recently-released cached page
             page, _ = self._lru.popitem(last=False)
+            self._spill(page)
             self._drop_key(page)
             self.evictions += 1
             _PREFIX_EVICTIONS.inc(model=self.model)
             return page
         return None
+
+    def _spill(self, page: int) -> None:
+        """Offer an about-to-be-evicted registered page to the host tier
+        (no-op without a sink). A sink failure loses the page from the tier
+        (the later match is a miss), never the eviction."""
+        sink = self.spill_sink
+        key = self._key_of.get(page)
+        if sink is None or key is None:
+            return
+        try:
+            sink(page, key)
+        except Exception as e:  # noqa: BLE001 — spill is best-effort
+            log.warning("host-tier spill failed; page content lost from tier",
+                        model=self.model, page=page, error=str(e))
 
     def _drop_key(self, page: int) -> None:
         key = self._key_of.pop(page, None)
@@ -617,6 +645,16 @@ class PageAllocator:
         for i in range(max_full):
             key = _page_chain_key(key, token_ids[i * ps:(i + 1) * ps])
             page = self._page_by_key.get(key)
+            if page is None and self.restore_source is not None:
+                # the chain misses on the device but the host tier may hold
+                # the spilled page: the engine pages it back in (claim,
+                # write, register) and the walk goes on
+                try:
+                    page = self.restore_source(key)
+                except Exception as e:  # noqa: BLE001 — degrade to cold
+                    log.warning("host-tier restore failed; cold prefill",
+                                model=self.model, error=str(e))
+                    page = None
             if page is None:
                 break
             self._lru.pop(page, None)
@@ -698,6 +736,7 @@ class PageAllocator:
             cap = self.cache_pages
             while cap > 0 and len(self._lru) > cap:
                 old, _ = self._lru.popitem(last=False)
+                self._spill(old)
                 self._drop_key(old)
                 self.evictions += 1
                 _PREFIX_EVICTIONS.inc(model=self.model)
@@ -706,8 +745,10 @@ class PageAllocator:
             self._free.append(page)
 
     def evict_cached(self, pages: list[int]) -> int:
-        """Force refcount-0 cached pages back to the free list. Pages still
-        pinned by a live request are left alone. Returns pages dropped."""
+        """Force refcount-0 cached pages back to the free list WITHOUT the
+        spill hook (the engine's park_to_host has copied them to the host
+        tier already). Pages still pinned by a live request are left alone:
+        a shared page is never freed mid-decode. Returns pages dropped."""
         n = 0
         for page in pages:
             if page in self._lru:
@@ -750,6 +791,36 @@ class PageAllocator:
     def unpin_pages(self, pages: list[int]) -> None:
         for page in pages:
             self._release_page(page)
+
+    def peek_key(self, key: bytes) -> int | None:
+        """The page cached under `key`, if any (no state change)."""
+        return self._page_by_key.get(key)
+
+    def claim_page(self) -> int | None:
+        """Take a pool page for content written from outside (a migration
+        import, a host-tier restore), PINNED at refcount 1 and deliberately
+        UNREGISTERED: its chain key must not become matchable before its
+        data is written (an admission matching an unwritten page would
+        decode over garbage). Callers write the data, then
+        register_claimed() and unpin_pages(). None when nothing is
+        reclaimable or the prefix cache is off."""
+        if self.cache_pages == 0:
+            return None
+        page = self._take_page()
+        if page is None:
+            return None
+        self._refs[page] = 1
+        return page
+
+    def register_claimed(self, page: int, key: bytes) -> None:
+        """Publish a claimed page under its chain key AFTER its data was
+        written. If another page registered the same content first, that
+        one wins and this page stays unregistered (it returns to the free
+        list on unpin, the duplicate rule of free())."""
+        if key in self._page_by_key or page in self._key_of:
+            return
+        self._page_by_key[key] = page
+        self._key_of[page] = key
 
     def table_row(self, slot: int) -> list[int]:
         owned = self._owned.get(slot, [])

@@ -162,6 +162,26 @@ register_env("GRIDLLM_FAULT_SEED", "0",
              "is a pure function of (seed, site, call #).")
 register_env("GRIDLLM_FLIGHTREC_CAPACITY", "256",
              "Flight-recorder ring capacity per subsystem.")
+# KV migration (disaggregated serving, drain by migration)
+register_env("GRIDLLM_KVX_CHUNK_BYTES", "262144",
+             "KV-migration chunk size on the bus path (bytes).")
+register_env("GRIDLLM_KVX_WINDOW", "8",
+             "KV-migration chunks in flight before awaiting receiver "
+             "progress.")
+register_env("GRIDLLM_KVX_TIMEOUT_MS", "15000",
+             "End-to-end KV-transfer deadline (ms).")
+register_env("GRIDLLM_KVX_HTTP_BYTES", "8388608",
+             "Payload size beyond which migration uses one direct "
+             "worker-to-worker HTTP POST instead of bus chunks.")
+# the host KV tier
+register_env("GRIDLLM_KV_HOST_BYTES", "0",
+             "Host-RAM KV tier capacity (bytes): prefix-cache pages evicted "
+             "from device memory spill here and page back in on prefix "
+             "matches; 0 disables the tier.")
+register_env("GRIDLLM_KV_SPILL_INT8", "1",
+             "Int8-quantize fp KV pages on spill to the host tier (one scale "
+             "per layer and page); 0 spills raw bytes (tier-on streams stay "
+             "byte-identical to tier-off).")
 register_env("GRIDLLM_TIMELINE", "1",
              "Fleet-wide causal timeline: arm the HLC-stamped event publisher.")
 register_env("GRIDLLM_TIMELINE_QUEUE", "2048",

@@ -4,7 +4,8 @@ The JAX package's worker/main.py for one process and one device: the
 models of GRIDLLM_MODELS, each an `InferenceEngine` on CUDA, served by a
 `WorkerService` on the bus GRIDLLM_BUS_URL names (empty: an in-process
 bus), plus the health port (WORKER_PORT) with /health, /metrics,
-/admin/dump, /admin/memory, /admin/drain and POST /admin/profile. The
+/admin/dump, /admin/memory, /admin/drain, POST /admin/profile and POST
+/kvx/{request_id} (a KV migration's payload in one request). The
 environment is the JAX worker's, so one deployment file sets up either.
 
 A model with a directory under GRIDLLM_CHECKPOINT_DIR
@@ -14,9 +15,10 @@ GRIDLLM_ALLOW_SYNTHETIC_WEIGHTS=1, as the JAX worker's. The tokenizer
 directory is passed on; where transformers is not installed (the card's
 machine) the engine serves the byte tokenizer. GRIDLLM_PREWARM_COMPILES=1
 makes each engine serve one token before the worker announces it.
-Refused until later slices, each with an error that names it: a mesh or a
+GRIDLLM_WORKER_ROLE sets the fleet role: unified, prefill or decode.
+Refused until a later slice, with an error that names it: a mesh or a
 multi-process worker group (GRIDLLM_MESH_SHAPE, GRIDLLM_NUM_PROCS > 1;
-A 9), and the prefill and decode roles (A 4). aiohttp is imported by the
+A 9). aiohttp is imported by the
 health port alone.
 """
 
@@ -157,12 +159,13 @@ def handle_profile_request(service: WorkerService,
 
 
 async def start_health_port(service: WorkerService, host: str, port: int):
-    """Serve the worker's health port (the JAX worker's routes, less /kvx);
-    returns the aiohttp runner to clean up. The one place that imports
-    aiohttp."""
+    """Serve the worker's health port (the JAX worker's routes); returns the
+    aiohttp runner to clean up. The one place that imports aiohttp."""
     from aiohttp import web
 
-    app = web.Application()
+    # client_max_size: the /kvx/ migration route receives whole KV payloads
+    # in one POST (aiohttp's 1 MB default would refuse any real transfer)
+    app = web.Application(client_max_size=1024**3)
     started = iso_now()
 
     async def health(_):
@@ -232,12 +235,23 @@ async def start_health_port(service: WorkerService, host: str, port: int):
                 {"error": f"budget_ms must be an integer, got {budget!r}"}, status=400)
         return web.json_response(await service.drain(budget_ms))
 
+    async def kvx(request):
+        # direct worker-to-worker KV migration: the whole wire payload in
+        # one POST. The header arrived in the bus prepare message; an
+        # unknown request id means no prepare was seen, and the sender
+        # falls back to bus chunks (or to serving the request itself)
+        rid = request.match_info["request_id"]
+        body = await request.read()
+        result = await service.kvx.feed_http(rid, body)
+        return web.json_response(result, status=200 if result.get("ok") else 409)
+
     app.add_routes([
         web.get("/health", health), web.get("/health/live", live),
         web.get("/health/ready", ready), web.get("/health/system", system),
         web.get("/worker/status", status), web.get("/metrics", metrics),
         web.get("/admin/dump", dump), web.get("/admin/memory", memory),
         web.post("/admin/profile", profile), web.post("/admin/drain", drain),
+        web.post("/kvx/{request_id}", kvx),
     ])
     runner = web.AppRunner(app)
     await runner.setup()

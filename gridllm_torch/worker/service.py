@@ -4,11 +4,13 @@ The JAX package's worker/service.py on the port's InferenceEngine: it
 registers, heartbeats, takes `JobAssignment`s off the bus, runs them, and
 publishes the same stream chunks, results, snapshots, failures and traces
 as the JAX worker, so the JAX package's scheduler drives either worker and
-a fleet can mix them. What the port cannot serve yet fails loudly with a
-non-retryable result that names the missing piece: images (ROADMAP A 8),
-embeddings (A 8), the disaggregated prefill phase and the prefill/decode
-roles (A 4). Until KV transfer is ported (A 4), a drain or a preemption
-hands the job back with its resume snapshot and moves no pages.
+a fleet can mix them. It serves the unified, prefill and decode roles:
+a disaggregated prefill exports its prompt's KV pages to the planned
+decode worker over the migration wire (gridllm_torch/transfer), a decode
+worker imports them, a graceful drain live-migrates its decodes to a peer,
+and a preemption parks the suspended decode's pages in the engine's host
+KV tier. What the port cannot serve yet fails loudly with a non-retryable
+result that names the missing piece: images and embeddings (ROADMAP A 8).
 
 Reference analogue: client/src/services/WorkerClientService.ts — connect,
 self-register, heartbeat, execute assigned jobs, stream results back over
@@ -39,6 +41,7 @@ from gridllm_torch.bus.base import (
     CH_JOB_COMPLETED,
     CH_JOB_DRAIN,
     CH_JOB_FAILED,
+    CH_JOB_HANDOFF,
     CH_JOB_PREEMPTED,
     CH_JOB_SNAPSHOT,
     CH_WORKER_ADMIN,
@@ -67,6 +70,7 @@ from gridllm_torch.obs import (
     unregister_engine_probe,
     unregister_memory_probe,
 )
+from gridllm_torch.transfer import KVImportManager, build_header, kvx_settings, send_kv
 from gridllm_torch.utils.config import WorkerConfig, env_int_lenient
 from gridllm_torch.utils.events import EventEmitter
 from gridllm_torch.utils.logging import bind_request_id, get_logger
@@ -97,8 +101,6 @@ _capacity = total_slots
 
 # what the port lacks, named in the loud failures
 _NO_EMBED = "embeddings are not served by the torch worker yet (bert_embed, ROADMAP A 8)"
-_NO_DISAGG = ("disaggregated prefill needs KV transfer, not ported to the torch worker "
-              "yet (ROADMAP A 4)")
 
 # Worker-plane job outcomes (process-global registry; the worker's health
 # port serves /metrics from it — worker/main.py)
@@ -204,24 +206,31 @@ class WorkerService(EventEmitter):
         # every heartbeat; the scheduler scores overlap at selection time.
         self._prefix_keys: OrderedDict[str, float] = OrderedDict()
         self._prefix_keys_cap = 32
-        # fleet role: a "prefill" worker exports its KV pages to a
-        # "decode" worker, which imports them; "unified" serves whole
-        # requests, the only role without KV transfer
+        # Disaggregated serving: fleet role + KV migration plumbing. As a
+        # prefill worker this service exports finished KV pages and streams
+        # them to the planned decode worker; as a decode worker the import
+        # manager assembles inbound transfers and installs them through the
+        # engine's ref-counted allocator. Any role can do either: the role
+        # is scheduler placement policy, the data plane is symmetric.
         self.role = getattr(self.config, "role", "unified") or "unified"
-        if self.role != "unified":
-            # prefill workers export KV and decode workers import it
-            raise NotImplementedError(
-                f"worker role {self.role!r} needs KV transfer, not ported to the "
-                "torch worker yet (ROADMAP A 4); run it as 'unified'")
+        self.kvx = KVImportManager(bus, self._resolve_engine,
+                                   worker_id=self.worker_id,
+                                   tracer=self.tracer)
+        # job ids whose migration was released by the scheduler (orphaned
+        # mid-migration): the sender loop checks this between chunk windows
+        # and stops streaming promptly. Bounded LRU-style.
+        self._kvx_aborted: OrderedDict[str, None] = OrderedDict()
         # Graceful drain: once draining, this worker NACKs new
         # assignments, advertises status "draining", finishes short jobs
-        # within the drain budget, and hands the rest back with their
-        # resume snapshots.
+        # within the drain budget, and live-migrates the rest.
         self._draining = False
         # Preemption: job ids the scheduler asked to suspend
         # for higher-priority work — _run_generation's suspend branch
         # routes them down the preempt handoff instead of the drain handoff
         self._preempting: set[str] = set()
+        # drain-time peer snapshot (worker hash + fetch time): N
+        # concurrent drain handoffs share one hgetall round-trip
+        self._drain_peer_cache: tuple[float, dict[str, str]] | None = None
         # crash-resume watermark cadence: publish a decode-state snapshot
         # on job:snapshot every N generated tokens (0 disables)
         self._snap_every = env_int_lenient("GRIDLLM_RESUME_SNAPSHOT_TOKENS")
@@ -240,6 +249,12 @@ class WorkerService(EventEmitter):
         # publishes succeed. Popped in _execute's finally — bounded by
         # in-flight jobs.
         self._usage_by_job: dict[str, dict[str, Any]] = {}
+
+    def _mark_kvx_aborted(self, job_id: str) -> None:
+        if job_id:
+            self._kvx_aborted[job_id] = None
+            while len(self._kvx_aborted) > 512:
+                self._kvx_aborted.popitem(last=False)
 
     def _http_addr(self) -> str:
         """host:port peers can reach the health HTTP server at — the
@@ -339,6 +354,7 @@ class WorkerService(EventEmitter):
         self._running = False
         unregister_engine_probe(self.worker_id)
         unregister_memory_probe(self.worker_id)
+        await self.kvx.shutdown()
         self.flightrec.record("worker", "stopped", worker=self.worker_id,
                               announce=announce)
         for t in self._tasks:
@@ -626,6 +642,7 @@ class WorkerService(EventEmitter):
         if msg.get("type") == "job_cancellation":
             job_id = msg.get("jobId", "")
             self._cancelled.add(job_id)
+            self._mark_kvx_aborted(job_id)
             for eng in self.engines.values():
                 if eng.cancel(job_id):
                     break
@@ -639,13 +656,18 @@ class WorkerService(EventEmitter):
                 self._preempting.add(job_id)
                 asyncio.ensure_future(self._try_preempt_suspend(job_id))
             return
-        if msg.get("type") in ("kv_import", "kv_release"):
-            # KV migration is not ported (ROADMAP A 4): an inbound transfer
-            # is never acknowledged, so its sender falls back to serving
-            # the request itself
-            log.warning("KV migration message ignored: KV transfer is not "
-                        "ported to the torch worker", type=msg.get("type"),
-                        jobId=msg.get("jobId", ""))
+        if msg.get("type") == "kv_import":
+            # inbound KV migration: subscribe the chunk channel and
+            # advertise readiness; the import manager installs the pages
+            # into the engine's prefix cache on completion
+            await self.kvx.prepare(msg)
+            return
+        if msg.get("type") == "kv_release":
+            # scheduler orphaned the job mid-migration: drop any inbound
+            # assembly state AND stop any outbound chunk stream
+            job_id = msg.get("jobId", "")
+            self._mark_kvx_aborted(job_id)
+            await self.kvx.release(job_id)
             return
         if msg.get("type") == "drain":
             # active fleet health: a quarantine verdict drains
@@ -659,9 +681,11 @@ class WorkerService(EventEmitter):
         if msg.get("type") != "job_assignment":
             return
         assignment = JobAssignment.model_validate(msg["job"])
-        # a FRESH assignment supersedes any stale cancelled mark from a
-        # previous attempt of the same job: the new attempt must run, not
-        # silently report "cancelled"
+        # a FRESH assignment supersedes any stale released/cancelled mark
+        # from a previous attempt of the same job (orphan mid-migration →
+        # kv_release → front-requeue can land back on this worker): the
+        # new attempt must run, not silently report "cancelled"
+        self._kvx_aborted.pop(assignment.jobId, None)
         self._cancelled.discard(assignment.jobId)
         if assignment.jobId in self._executing:
             # re-dispatch of a job we are ALREADY running: the scheduler's
@@ -747,9 +771,26 @@ class WorkerService(EventEmitter):
                     raise NonRetryableJobError(_NO_EMBED)
                 md = req.metadata or {}
                 if md.get("disagg") and md.get("disaggPhase") != "decode":
-                    # disaggregated phase 1: prefill, export the KV pages
-                    # and hand off — refused until KV transfer is ported
-                    raise NonRetryableJobError(_NO_DISAGG)
+                    # disaggregated phase 1: prefill, export KV pages to the
+                    # planned decode worker, hand off. Any failure degrades
+                    # to serving the request locally: the transfer is never
+                    # load-bearing.
+                    verdict = await self._run_disagg_prefill(engine, assignment)
+                    if verdict == "handoff":
+                        outcome = "handoff"
+                        return
+                    if verdict == "suspended":
+                        # drained mid-prefill: requeue via NACK (no retry-
+                        # ladder burn); this worker stays alive, so nothing
+                        # else would resolve it
+                        outcome = "drained"
+                        await self._publish_failure(
+                            assignment, "worker draining", nack=True)
+                        return
+                    if verdict == "cancelled":
+                        outcome = "cancelled"
+                        return
+                    # "fallback" falls through to local generation
                 response = await self._run_generation(engine, assignment)
                 if response is None:
                     # cancelled — scheduler already resolved it
@@ -871,9 +912,9 @@ class WorkerService(EventEmitter):
         (status "draining" + NACKs), let in-flight jobs finish within the
         drain budget, then suspend the remaining decodes — each suspended
         generation hands the job off on ``job:drain`` with a resume
-        snapshot, so the client stream continues with zero lost tokens.
-        Idempotent; returns a report. Callers typically stop() the service
-        after."""
+        snapshot after live-migrating its KV pages to a peer, so the client
+        stream continues with zero lost tokens. Idempotent; returns a
+        report. Callers typically stop() the service after."""
         report: dict[str, Any] = {"workerId": self.worker_id}
         if self._draining:
             report["alreadyDraining"] = True
@@ -912,32 +953,115 @@ class WorkerService(EventEmitter):
                                       if k != "workerId"})
         return report
 
+    async def _pick_drain_peer(self, model: str) -> WorkerInfo | None:
+        """A live peer that serves `model`, straight from the bus worker
+        hash — the draining worker needs no scheduler round-trip to find
+        a migration target. Decode/unified roles (most decode headroom
+        first) beat prefill-pool workers. The hash fetch is cached for a
+        couple of seconds: a drain suspending N decodes resolves them
+        through N concurrent handoffs, and the peer set cannot
+        meaningfully change inside that window."""
+        now = time.monotonic()
+        cache = self._drain_peer_cache
+        if cache is not None and now - cache[0] < 2.0:
+            stored = cache[1]
+        else:
+            try:
+                stored = await self.bus.hgetall("workers")
+            except Exception as e:  # noqa: BLE001 — no peers → requeue path
+                log.warning("drain peer lookup failed; will requeue",
+                            error=str(e))
+                return None
+            self._drain_peer_cache = (now, stored)
+        best: tuple[tuple[int, int], WorkerInfo] | None = None
+        for wid, raw in stored.items():
+            if wid == self.worker_id:
+                continue
+            try:
+                info = WorkerInfo.model_validate_json(raw)
+            except Exception as e:  # noqa: BLE001
+                log.warning("drain peer entry unparseable", peer=wid,
+                            error=str(e)[:200])
+                continue
+            if info.status not in ("online", "busy"):
+                continue
+            if model not in info.model_names():
+                continue
+            key = (0 if info.role in ("decode", "unified") else 1,
+                   -info.decodeSlotsFree)
+            if best is None or key < best[0]:
+                best = (key, info)
+        return best[1] if best else None
+
     async def _drain_handoff(self, assignment: JobAssignment,
                              res: GenerationResult, seed: Any) -> None:
-        """Resolve one suspended generation: publish ``job:drain`` with its
-        resume snapshot, so the scheduler requeues the job and the next
-        worker continues the stream where this one stopped. No pages move
-        (``migrated`` is False) until KV transfer is ported (ROADMAP A 4):
-        the replacement re-prefills prompt and snapshot."""
+        """Resolve one suspended generation: export its KV pages, stream
+        them to a peer (best-effort — the snapshot alone already makes
+        the resume exact), and publish ``job:drain`` so the scheduler
+        moves the assignment without the stream ever breaking."""
         req = assignment.request
         snapshot = None
         if res.token_ids:
             snapshot = {"tokens": [int(t) for t in res.token_ids],
                         "seed": seed}
+        engine = self._resolve_engine(req.model)
+        peer = None
+        migrated = False
+        stats: dict[str, Any] = {}
+        try:
+            # the migration is best-effort: ANY failure here must still
+            # fall through to the job:drain publish below, or the job
+            # never resolves on the POST /admin/drain path (the worker
+            # keeps heartbeating, so the orphan machinery never fires)
+            peer = await self._pick_drain_peer(req.model)
+            if (peer is not None and engine is not None
+                    and engine.kv_transfer_supported()
+                    and len(res.context) > 1):
+                # context[:-1]: the final token's KV may not be written
+                # yet — same contract as the disagg prefill export
+                export = await asyncio.to_thread(
+                    engine.export_prefix_pages, res.context[:-1])
+                if export is not None:
+                    settings = kvx_settings()
+                    header, payload = build_header(
+                        req.id, req.model, export["tokens"], export["k"],
+                        export["v"], dtype=export["dtype"],
+                        kv_layout=export["kvLayout"],
+                        quant=export["quant"],
+                        chunk_bytes=settings["chunk_bytes"])
+                    t_send = time.time()
+                    ok, reason, stats = await send_kv(
+                        self.bus, req.id, peer.workerId, header, payload,
+                        target_addr=peer.httpAddr or None,
+                        from_worker=self.worker_id,
+                        aborted=self._kvx_aborted, settings=settings)
+                    self.tracer.record(
+                        req.id, "kvx.send", t_send, time.time(), ok=ok,
+                        toWorker=peer.workerId, drain=True,
+                        bytes=stats.get("bytes"),
+                        tokens=stats.get("tokens"),
+                        reason=reason or None)
+                    migrated = ok
+        except Exception as e:  # noqa: BLE001 — snapshot handoff still works
+            log.warning("drain migration failed; handing off with "
+                        "snapshot only", jobId=req.id, error=str(e))
+            migrated = False
         await self.bus.publish(CH_JOB_DRAIN, json.dumps({
             "jobId": req.id,
             "fromWorker": self.worker_id,
-            "toWorker": "",
-            "migrated": False,
+            "toWorker": peer.workerId if peer else "",
+            "migrated": migrated,
             "snapshot": snapshot,
             "tokens": len(res.token_ids),
-            "bytes": 0,
+            "bytes": int(stats.get("bytes") or 0),
         }))
         self.flightrec.record(
             "worker", "drain_handoff", worker=self.worker_id, job=req.id,
-            to="", migrated=False, tokens=len(res.token_ids))
-        log.job("decode drained and handed off", req.id, to_worker="",
-                migrated=False, tokens=len(res.token_ids))
+            to=peer.workerId if peer else "", migrated=migrated,
+            tokens=len(res.token_ids))
+        log.job("decode drained and handed off", req.id,
+                to_worker=peer.workerId if peer else "", migrated=migrated,
+                tokens=len(res.token_ids))
 
     async def _try_preempt_suspend(self, job_id: str) -> None:
         """Drive one preempt ask into the engine, retrying briefly: a job
@@ -957,17 +1081,28 @@ class WorkerService(EventEmitter):
 
     async def _preempt_handoff(self, assignment: JobAssignment,
                                res: GenerationResult, seed: Any) -> None:
-        """Resolve one preempt-suspended generation: publish
-        ``job:preempted`` with the resume snapshot so the scheduler
-        requeues it behind the higher-priority work. The host KV tier is
-        not ported (ROADMAP A 4): nothing is parked, and the suspended
-        pages stay in the prefix cache, so the resume is warm from there."""
+        """Resolve one preempt-suspended generation: park its KV pages in
+        the engine's host tier (freeing the device memory a higher-priority
+        admission needs) and publish ``job:preempted`` with the resume
+        snapshot. The park is best-effort — with the tier off or full, the
+        pages simply stay in the device prefix cache and the resume is
+        warm from there instead."""
         req = assignment.request
         snapshot = None
         if res.token_ids:
             snapshot = {"tokens": [int(t) for t in res.token_ids],
                         "seed": seed}
+        engine = self._resolve_engine(req.model)
         parked = 0
+        try:
+            if engine is not None and len(res.context) > 1:
+                # context[:-1]: the final token's KV may not be written
+                # yet — same contract as the drain/disagg exports
+                parked = await asyncio.to_thread(
+                    engine.park_to_host, res.context[:-1])
+        except Exception as e:  # noqa: BLE001 — snapshot handoff still works
+            log.warning("suspend-to-host park failed; resume stays warm "
+                        "on the device", jobId=req.id, error=str(e))
         await self.bus.publish(CH_JOB_PREEMPTED, json.dumps({
             "jobId": req.id,
             "fromWorker": self.worker_id,
@@ -998,6 +1133,144 @@ class WorkerService(EventEmitter):
         except Exception as e:  # noqa: BLE001
             log.warning("snapshot publish failed", jobId=req.id,
                         error=str(e))
+
+    async def _publish_trace(self, request_id: str) -> None:
+        """Seal the request's span timeline and ship it to the gateway."""
+        spans = self.tracer.finish(request_id)
+        if not spans:
+            return
+        try:
+            await self.bus.publish(trace_channel(request_id), json.dumps({
+                "requestId": request_id,
+                "workerId": self.worker_id,
+                "spans": spans,
+            }))
+        except Exception as e:  # noqa: BLE001 — tracing must never fail a job
+            log.warning("trace publish failed", request_id=request_id,
+                        error=str(e))
+
+    async def _publish_failure(
+        self, assignment: JobAssignment, error: str, nack: bool = False,
+        retryable: bool = True,
+    ) -> None:
+        result = JobResult(
+            jobId=assignment.jobId, workerId=self.worker_id,
+            success=False, error=error, retryable=retryable, nack=nack,
+        )
+        await self.bus.publish(CH_JOB_FAILED, result.model_dump_json())
+        if not nack:
+            self.emit("job_failed", result)
+
+    # ---------------------------------------------- disagg prefill
+
+    async def _run_disagg_prefill(
+        self, engine: InferenceEngine, assignment: JobAssignment
+    ) -> str:
+        """Phase 1 of a disaggregated placement: prefill in export mode
+        (the engine stops at the first token and parks the prompt's KV
+        pages in the prefix cache), gather + serialize the pages, stream
+        them to the planned decode worker, then publish ``job:handoff``.
+
+        Returns "handoff" (the decode worker owns the job now),
+        "fallback" (serve locally — handoff already published with
+        ok=False so the scheduler counts it), or "cancelled"."""
+        req = assignment.request
+        plan = (req.metadata or {}).get("disagg") or {}
+        target = str(plan.get("decodeWorkerId") or "")
+        if (not target or target == self.worker_id
+                or not engine.kv_transfer_supported()
+                or collect_images(req)):
+            await self._publish_handoff(req.id, target, ok=False,
+                                        reason="unsupported")
+            return "fallback"
+        prompt, flags = self._render_prompt(engine, req)
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future[GenerationResult] = loop.create_future()
+
+        def on_chunk(_delta: str, done: bool,
+                     res: GenerationResult | None) -> None:
+            if done and res is not None:
+                def _set() -> None:
+                    if not fut.done():
+                        fut.set_result(res)
+                loop.call_soon_threadsafe(_set)
+
+        gen = self._make_gen(engine, req, prompt, flags["raw"], on_chunk,
+                             export_only=True)
+        t0 = time.time()
+        engine.submit(gen)
+        res = await fut
+        self.tracer.record(req.id, "engine.prefill_export", t0, time.time(),
+                           promptTokens=res.prompt_eval_count,
+                           cachedTokens=res.cached_tokens)
+        if res.done_reason == "suspend":
+            # a drain landing mid-disagg-prefill abandons the plan, but
+            # the job must resolve NOW: on the POST /admin/drain path the
+            # worker keeps heartbeating, so the orphan machinery never
+            # fires — _execute NACKs it back to the queue for a replan
+            return "suspended"
+        if res.done_reason == "cancel":
+            return "cancelled"
+        if res.done_reason == "error":
+            # the normal failure machinery (retry ladder / NACK) applies
+            msg = res.error or "prefill failed"
+            if not res.retryable:
+                raise NonRetryableJobError(msg)
+            raise RuntimeError(msg)
+        export = await asyncio.to_thread(
+            engine.export_prefix_pages, res.context[:-1])
+        if export is None:
+            await self._publish_handoff(req.id, target, ok=False,
+                                        reason="no_pages")
+            return "fallback"
+        settings = kvx_settings()
+        header, payload = build_header(
+            req.id, req.model, export["tokens"], export["k"], export["v"],
+            dtype=export["dtype"], kv_layout=export["kvLayout"],
+            quant=export["quant"],
+            chunk_bytes=settings["chunk_bytes"],
+        )
+        t_send = time.time()
+        ok, reason, stats = await send_kv(
+            self.bus, req.id, target, header, payload,
+            target_addr=str(plan.get("decodeAddr") or "") or None,
+            from_worker=self.worker_id, aborted=self._kvx_aborted,
+            settings=settings,
+        )
+        self.tracer.record(req.id, "kvx.send", t_send, time.time(),
+                           ok=ok, toWorker=target, path=stats.get("path"),
+                           bytes=stats.get("bytes"),
+                           tokens=stats.get("tokens"),
+                           reason=reason or None)
+        self.flightrec.record(
+            "transfer", "kv_sent" if ok else "kv_send_failed",
+            worker=self.worker_id, job=req.id, to=target,
+            bytes=stats.get("bytes"), reason=reason or None)
+        await self._publish_handoff(
+            req.id, target, ok=ok, reason=reason,
+            tokens=int(stats.get("tokens") or 0),
+            bytes=int(stats.get("bytes") or 0),
+            seconds=float(stats.get("seconds") or 0.0),
+            path=str(stats.get("path") or ""))
+        if ok:
+            # completing the prefill cached the prompt's pages HERE too —
+            # advertise the prefix so repeats route warm
+            self._note_prefix_key(req)
+            return "handoff"
+        if req.id in self._cancelled or req.id in self._kvx_aborted:
+            return "cancelled"
+        return "fallback"
+
+    async def _publish_handoff(self, job_id: str, to_worker: str, ok: bool,
+                               reason: str = "", tokens: int = 0,
+                               bytes: int = 0, seconds: float = 0.0,
+                               path: str = "") -> None:
+        await self.bus.publish(CH_JOB_HANDOFF, json.dumps({
+            "jobId": job_id, "fromWorker": self.worker_id,
+            "toWorker": to_worker, "ok": ok, "reason": reason,
+            "tokens": tokens, "bytes": bytes,
+            "seconds": round(seconds, 6), "path": path,
+        }))
 
     async def _publish_trace(self, request_id: str) -> None:
         """Seal the request's span timeline and ship it to the gateway."""
@@ -1063,10 +1336,13 @@ class WorkerService(EventEmitter):
                         "raw": raw}
 
     def _make_gen(self, engine: InferenceEngine, req, prompt: str,
-                  raw: bool, on_chunk) -> GenerationRequest:
-        """GenerationRequest construction — the Ollama `context`
-        continuation must tokenize the same way on every worker that sees
-        the request. Images pass through: the engine refuses them."""
+                  raw: bool, on_chunk, export_only: bool = False
+                  ) -> GenerationRequest:
+        """GenerationRequest construction shared by both generation paths
+        (serving and the disaggregated prefill export) — the Ollama
+        `context` continuation must tokenize the same way on every worker
+        that sees the request. Images pass through: the engine refuses
+        them."""
         opts = dict(req.options or {})
         context = opts.pop("context", None) or getattr(req, "context", None)
         # resolve an unseeded request's seed HERE so the crash-resume
@@ -1080,13 +1356,14 @@ class WorkerService(EventEmitter):
             id=req.id, prompt=prompt, options=opts,
             raw=raw or bool(opts.get("raw")), on_chunk=on_chunk,
             images=collect_images(req) or None,
+            export_only=export_only,
         )
         if context:
             gen.prompt_ids = list(context) + engine.tokenizer.encode(
                 prompt, add_bos=False
             )
         resume = (req.metadata or {}).get("resume")
-        if isinstance(resume, dict):
+        if not export_only and isinstance(resume, dict):
             # decode resume. The seed applies even with NO
             # tokens (a seed-only watermark from the pre-first-snapshot
             # window): restarting from zero with the SAME seed keeps an
@@ -1302,7 +1579,7 @@ class WorkerService(EventEmitter):
             spec_wasted_tokens=max(res.spec_proposed - res.spec_accepted, 0),
             decode_device_s=res.decode_device_s,
             kv_page_s=res.kv_page_s,
-            migrated_bytes=0,  # no KV import until ROADMAP A 4
+            migrated_bytes=self.kvx.take_imported_bytes(req.id),
         )
         text = res.text
         thinking = None

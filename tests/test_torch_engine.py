@@ -405,18 +405,23 @@ def test_suspend_running_and_pending_requests(engines):
 
 def test_worker_calls_seed_usage_and_refusals():
     """resolve_seed draws from the engine-seeded RNG; results carry the
-    usage fields; images and export_only fail non-retryably, naming the
-    slice that ports them; KV transfer reports unsupported."""
+    usage fields; images fail non-retryably, naming the slice that ports
+    them; an export_only request finishes at its first token with reason
+    "export" and its prompt's pages exportable; with the host tier off,
+    park_to_host parks nothing."""
     te = TEngine(TConfig(spec_decode=False, seed=7, **TINY), device="cpu")
     te2 = TEngine(TConfig(spec_decode=False, seed=7, **TINY), device="cpu")
     assert [te.resolve_seed() for _ in range(3)] == [te2.resolve_seed() for _ in range(3)]
     res, _, _ = _run(te, "usage", "hello", GREEDY)
     assert res.decode_device_s > 0 and res.kv_page_s > 0
-    assert not te.embedding_only and not te.kv_transfer_supported()
-    for kw, where in (({"images": ["aGVsbG8="]}, "A 8"), ({"export_only": True}, "A 4")):
-        bad, _, _ = _run(te, f"bad-{where}", "hello", GREEDY, **kw)
-        assert bad.done_reason == "error" and not bad.retryable and where in bad.error
-    with pytest.raises(NotImplementedError, match="A 4"):
-        te.export_prefix_pages([1, 2, 3])
-    with pytest.raises(NotImplementedError, match="A 4"):
-        te.park_to_host([1, 2, 3])
+    assert not te.embedding_only and te.kv_transfer_supported()
+    bad, _, _ = _run(te, "bad-A 8", "hello", GREEDY, images=["aGVsbG8="])
+    assert bad.done_reason == "error" and not bad.retryable and "A 8" in bad.error
+    prompt = "an export only prompt that spans more than one page " * 2
+    exp, text, _ = _run(te, "export", prompt, GREEDY, export_only=True)
+    assert exp.done_reason == "export" and exp.text == "" and len(exp.token_ids) == 1
+    out = te.export_prefix_pages(exp.context[:-1])
+    n = len(out["tokens"])
+    assert n and n % TINY["page_size"] == 0 and out["tokens"] == exp.context[:n]
+    assert out["k"].shape[1] == n // TINY["page_size"] and out["dtype"] == "float32"
+    assert te.host_tier is None and te.park_to_host(exp.context[:-1]) == 0

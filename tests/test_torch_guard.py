@@ -98,7 +98,13 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
 def test_unported_engine_features_raise(field, value):
     """Unported settings raise NotImplementedError naming the field; the
     checkpoint settings are served since checkpoints were ported, so a
-    missing directory fails its load instead of being refused."""
+    missing directory fails its load instead of being refused, and the
+    host KV tier since it was ported, so the engine builds one."""
+    if field == "kv_host_bytes":
+        eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",
+                                           **{field: value}), device="cpu")
+        assert eng.host_tier is not None and eng.host_tier.capacity_bytes == value
+        return
     if field in ("checkpoint_path", "draft_checkpoint"):
         extra = {"draft_model": "tiny-llama"} if field == "draft_checkpoint" else {}
         cfg = EngineConfig(model="tiny-llama", dtype="float32", **{field: value}, **extra)

@@ -5,13 +5,13 @@ scheduler on an in-memory bus (tests/test_torch_worker.py's `Stack`), serve
 the same greedy jobs on the same weights. Both registries are scraped in
 Prometheus text:
 
-- the engine, prefix-cache, kernel-dispatch, step-phase, device-memory and
-  weight-snapshot families carry the same series names, help, types,
-  label names and histogram buckets in both, less the documented
-  exceptions (`UNPORTED`);
+- the engine, prefix-cache, kernel-dispatch, step-phase, device-memory,
+  weight-snapshot, host KV tier and KV migration families carry the same
+  series names, help, types, label names and histogram buckets in both,
+  less the documented exceptions (`UNPORTED`);
 - the token counts, speculation proposals and acceptances, prefix-cache
-  hits and misses, and the KV page gauges the jobs leave are equal (same
-  allocator, same greedy drafts);
+  hits and misses, and the KV page and per-tier gauges the jobs leave are
+  equal (same allocator, same greedy drafts);
 - on the CPU every dispatch takes the plain path (`path="jnp"`), counted
   once per op and shape.
 """
@@ -38,10 +38,9 @@ FAMILIES = ("gridllm_engine_", "gridllm_prefix_cache_", "gridllm_model_load_seco
             "gridllm_weight_snapshot_", "gridllm_recompile", "gridllm_kv_tier_",
             "gridllm_kv_migration", "gridllm_worker_")
 # JAX series the torch worker does not define: the jit recompile tripwire
-# (no jit, nothing compiles per shape) and KV movement and the host KV
-# tier (ROADMAP A 4)
+# (no jit, nothing compiles per shape)
 UNPORTED = {"gridllm_recompiles_total", "gridllm_recompile_storms_total"}
-UNPORTED_PREFIXES = ("gridllm_kv_tier_", "gridllm_kv_migration")
+UNPORTED_PREFIXES = ()
 GREEDY = {"temperature": 0, "num_predict": 12}
 _SAMPLE = re.compile(r"^([a-z_]+?)(_bucket|_sum|_count)?(\{(.*)\})? (\S+)$")
 
@@ -98,27 +97,62 @@ GAUGES = ["gridllm_engine_kv_pages_used", "gridllm_engine_kv_pages_free",
           "gridllm_engine_kv_pages_cached", "gridllm_prefix_cache_hit_rate"]
 
 
+def _runner_idle(engine):
+    """No slot, no pending request, no block in flight and no control entry
+    queued: the runner state both packages' engines keep (`_slots`,
+    `_pending`, `_inflight`, `_ctl`)."""
+    return not (engine._slots or engine._pending or engine._inflight or engine._ctl)
+
+
+async def _until_idle(engine, timeout=60.0):
+    """Wait until the engine is idle and its runner has finished the
+    iteration that emptied it. A slot leaves `_slots` inside the ingest
+    loop, before that iteration adds its decode tokens to the counter, so
+    an empty engine alone does not say the counts are in: a cancel for no
+    request, queued on the runner's control deque, is taken off only at the
+    start of the runner's next iteration, after the last one has ended."""
+    async def until(cond):
+        for _ in range(int(timeout / 0.005)):
+            if cond():
+                return
+            await asyncio.sleep(0.005)
+        raise AssertionError("engine never went idle")
+
+    await until(lambda: _runner_idle(engine))
+    with engine._work:
+        engine._ctl.append(("cancel", ""))
+        engine._work.notify_all()
+    await until(lambda: _runner_idle(engine))
+
+
 async def _serve(kind, engine, registry):
     """Two identical greedy jobs (the second hits the prefix cache) and a
-    short one: the counters' growth and the gauges after."""
+    short one: the counters' growth and the gauges after. Each job starts
+    only once the engine is idle after the previous one (the result reaches
+    the client before the runner has fetched its last block), so each
+    admission meets the same runner state in both packages: whether a
+    prefill sample rides row 0 of a block, and so counts as a decode token,
+    depends on it."""
     before = _parse(registry.render())
     texts = []
     async with Stack(kind, engine) as st:
         for prompt in (LONG, LONG, "hello there"):
+            await _until_idle(engine)
             status, text = await st.post("/ollama/api/generate", {
                 "model": MODEL, "prompt": prompt, "stream": False, "options": GREEDY})
             assert status == 200, text
             body = json.loads(text)
             texts.append((body["response"], body["eval_count"], body["prompt_eval_count"]))
-        for _ in range(500):   # the finish's gauge update lands after the result
-            if not engine.active_requests:
-                break
-            await asyncio.sleep(0.01)
+        # the finish's gauge update lands after the result
+        await _until_idle(engine)
         # scraped while the worker's memory probe is registered
         after = _parse(registry.render())
     grown = {(n, tuple(sorted(lb.items()))): _value(after, n, model=MODEL, **lb)
              - _value(before, n, model=MODEL, **lb) for n, lb in COUNTED}
     gauges = {n: _value(after, n, model=MODEL) for n in GAUGES}
+    gauges.update({(n, t): _value(after, n, model=MODEL, tier=t)
+                   for n in ("gridllm_kv_tier_pages", "gridllm_kv_tier_bytes")
+                   for t in ("hbm", "host")})
     return after, grown, gauges, texts
 
 
@@ -168,6 +202,7 @@ def test_counts_and_page_gauges_equal_jax(scraped):
     assert t_grown[("gridllm_spec_proposed_tokens_total", (("drafter", "ngram"),))] > 0
     assert t_gauges == j_gauges
     assert t_gauges["gridllm_engine_kv_pages_cached"] > 0
+    assert t_gauges[("gridllm_kv_tier_pages", "hbm")] == t_gauges["gridllm_engine_kv_pages_cached"]
 
 
 def test_cpu_dispatch_takes_the_plain_path_once_per_shape(scraped):

@@ -9,8 +9,8 @@ defaults: n-gram speculation, ragged attention and the prefix cache on.
 
 - generate, chat and streams through the gateway equal a JAX worker's;
 - an assignment over capacity is NACKed and a cancel mid-stream resolves;
-- images, embeddings, the disaggregated prefill phase and the prefill
-  role fail loudly, naming the slice that ports them;
+- images and embeddings fail loudly, naming the slice that ports them; a
+  disaggregated prefill with no decode peer falls back to local serving;
 - a fleet of one JAX and one torch worker serves greedy requests with
   either worker's text;
 - a worker killed mid-decode (its bus goes silent, as a SIGKILL looks to
@@ -35,7 +35,7 @@ from gridllm_torch.engine import InferenceEngine as TEngine
 from gridllm_torch.utils.config import WorkerConfig as TWorkerConfig
 from gridllm_torch.worker import service as tservice
 from gridllm_torch.worker.service import WorkerService as TWorker
-from gridllm_tpu.bus.base import CH_JOB_FAILED, worker_job_channel
+from gridllm_tpu.bus.base import CH_JOB_COMPLETED, CH_JOB_HANDOFF, worker_job_channel
 from gridllm_tpu.bus.memory import InMemoryBus
 from gridllm_tpu.engine import EngineConfig as JConfig
 from gridllm_tpu.engine import InferenceEngine as JEngine
@@ -213,9 +213,12 @@ async def test_nack_over_capacity_and_cancel_mid_stream(engines):
 
 
 async def test_unported_requests_fail_loudly(engines):
-    """Images and embeddings (ROADMAP A 8), the disaggregated prefill phase
-    and the prefill/decode roles (A 4): a non-retryable failure that names
-    the slice, never a request served some other way."""
+    """Images and embeddings (ROADMAP A 8): a non-retryable failure that
+    names the slice, never a request served some other way. The
+    disaggregated prefill phase and the prefill/decode roles are served
+    since KV transfer was ported: a disaggregated job whose planned decode
+    worker is this worker itself hands off nothing (ok=False,
+    "unsupported") and is served here, and a worker takes either role."""
     async with Stack("torch", engines["torch"]) as st:
         for path, body in (
             ("/ollama/api/generate", {"model": MODEL, "prompt": "what is this?",
@@ -228,31 +231,36 @@ async def test_unported_requests_fail_loudly(engines):
             assert status >= 400 and "ROADMAP A 8" in text, text
         assert st.scheduler._jobs_total.value(event="retried") == 0
 
-        failed = []
+        seen = {CH_JOB_COMPLETED: [], CH_JOB_HANDOFF: []}
 
-        async def on_failed(_ch, raw):
-            failed.append(json.loads(raw))
+        async def on_msg(ch, raw):
+            seen[ch].append(json.loads(raw))
 
-        await st.bus.subscribe(CH_JOB_FAILED, on_failed)
+        for ch in seen:
+            await st.bus.subscribe(ch, on_msg)
+        wid = st.worker.worker_id
         req = InferenceRequest(id="disagg-1", model=MODEL, prompt="hi",
-                               metadata={"disagg": {"decodeWorkerId": "elsewhere"}})
-        assignment = JobAssignment(jobId=req.id, workerId=st.worker.worker_id, request=req)
-        await st.bus.publish(worker_job_channel(st.worker.worker_id), json.dumps(
+                               options=dict(GREEDY),
+                               metadata={"disagg": {"decodeWorkerId": wid}})
+        assignment = JobAssignment(jobId=req.id, workerId=wid, request=req)
+        await st.bus.publish(worker_job_channel(wid), json.dumps(
             {"type": "job_assignment", "job": json.loads(assignment.model_dump_json())}))
-        for _ in range(500):
-            if failed:
+        for _ in range(3000):
+            if seen[CH_JOB_COMPLETED]:
                 break
             await asyncio.sleep(0.01)
-        (res,) = failed
-        assert res["jobId"] == "disagg-1" and not res["retryable"] and not res["nack"]
-        assert "ROADMAP A 4" in res["error"]
+        (handoff,) = seen[CH_JOB_HANDOFF]
+        assert handoff["jobId"] == "disagg-1" and not handoff["ok"]
+        assert handoff["reason"] == "unsupported"
+        (done,) = seen[CH_JOB_COMPLETED]
+        assert done["jobId"] == "disagg-1" and done["success"] and done["workerId"] == wid
         # the worker still serves
         status, _ = await st.post("/ollama/api/generate", {
             "model": MODEL, "prompt": "still here", "stream": False, "options": GREEDY})
         assert status == 200
     for role in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A 4"):
-            TWorker(InMemoryBus(), {MODEL: engines["torch"]}, TWorkerConfig(role=role))
+        assert TWorker(InMemoryBus(), {MODEL: engines["torch"]},
+                       TWorkerConfig(role=role)).role == role
 
 
 async def test_mixed_fleet_of_a_jax_and_a_torch_worker(engines):
@@ -395,9 +403,10 @@ async def test_kill_mid_decode_resumes_exactly_once(engines, undisturbed, victim
 
 async def test_drain_mid_decode_hands_off_by_resume(engines, undisturbed):
     """A graceful drain of a torch worker mid-decode: the engine suspends
-    the generation, the worker publishes job:drain with its snapshot and no
-    pages (KV transfer is not ported), and the scheduler resumes the job on
-    a JAX worker: the stream is byte-identical to the undisturbed run."""
+    the generation, the worker publishes job:drain with its snapshot (and
+    live-migrates its pages to the peer, tests/test_torch_kv_migration.py),
+    and the scheduler resumes the job on a JAX worker: the stream is
+    byte-identical to the undisturbed run."""
     text_ref, evals_ref = undisturbed
     async with KillFleet() as f:
         victim = await f.add("torch", engines["torch"], "victim")
