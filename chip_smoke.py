@@ -214,11 +214,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
              device-warm one, park frees its pages, float32 streams equal
              with the tier on and off). Reads export, import, bus and HTTP
              GB/s and TTFT after an import beside unified TTFT.
+15. gemma  — gemma2 and head dim 256 (phase_gemma): every kernel at D = 256
+             and gemma2:9b's widths (H 16, KVH 8, pages of 64, 128-entry
+             tables) against its plain version, q scaled by 4 and held to
+             the row-relative error and to its launch counters
+             (_gemma_kernel_cases: flash_prefill at T 1,024, 4,096 and a
+             window of 4,096 with softcap 50 at 8,192, float32 at 1,000;
+             flash_prefill_streamed at 16,384; ragged groups at Td 1 and 5
+             with and without the window, chunks of 1,024 after 1,024 and
+             after 5,000 with the window, a mixed launch, the int8 and
+             tree legs, in bf16 and float32; paged_decode in both modes,
+             prefix_chunk's routes; both writes exact); each timed beside
+             its bound and SDPA for the prefill kernels (_gemma_timing); a
+             2-layer full-width float32 cut with random norms against its
+             cache-free forward in both attention modes on a 5,000-token
+             prompt (layer 0's window drops keys; only the last rows'
+             logits made); gemma2:9b bf16 with the engine's defaults
+             serving the serve phase's eight requests plus a 6,000-byte
+             prompt in chunks of 1,024 and its warm repeat, launch
+             counters from 0 held to the ragged path, every ragged launch
+             at D = 256 (tokens/s, TTFT); float32 spec-on streams equal to
+             spec-off on the cut, ragged attention on and off.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
-routes), the card's name and power limit, and the result.
+routes, each with the head dims compiled; then the same rows at D = 256
+from the gemma phase, named "<kernel>.d256"), the card's name and power
+limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree,kvx]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -247,7 +270,7 @@ SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "replay", "spec",
-              "checkpoint", "int8", "profiler", "long", "tree", "kvx")
+              "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma")
 
 
 def emit(obj: dict) -> None:
@@ -4531,6 +4554,713 @@ def phase_kvx(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# gemma: gemma2 and head dim 256 in every attention kernel
+# ---------------------------------------------------------------------------
+
+# gemma2:9b attention widths (G = 2) and the engine's default pool geometry
+GEMMA_H, GEMMA_KVH, GEMMA_D, GEMMA_MAXP = 16, 8, 256, 128
+GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
+
+
+def _gemma_kernel_cases(torch, inp: Inputs) -> tuple[list, dict]:
+    """Every attention kernel and both KV writes at D = 256 (gemma2:9b's
+    H = 16, KVH = 8, pages of 64, 128-entry tables) against its plain
+    version: q scaled by LONG_Q_SCALE and each attention case held to the
+    row-relative error at the kernel's tolerance (F32_TOL in float32), and
+    to its launch counters (the kernel, and the route's leg, launched once
+    per call). The cases: flash_prefill at T 1,024, 4,096 (seq_len 4,000)
+    and a window of 4,096 with softcap 50 at T 8,192, float32 at T 1,000
+    with a window; flash_prefill_streamed at T 16,384; ragged_attention's
+    groups at Td 1 and 5 with and without the window, the chunk of 1,024
+    after 1,024 and after 5,000 with the window, a mixed launch, the int8
+    leg and the tree leg; paged_decode in both modes, prefix_chunk's three
+    routes; both writes exact."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import (
+        attention_prefill_blocked_ref,
+        prefill_kernel,
+        ragged_paged_attention_ref,
+    )
+    from gridllm_torch.ops.kernels import F32_TOL, by_name
+    from gridllm_torch.ops.kvcache import write_decode, write_prefill
+    from gridllm_torch.ops.spec import tree_topology
+
+    h, kvh, d, maxp = GEMMA_H, GEMMA_KVH, GEMMA_D, GEMMA_MAXP
+    bf16, f32 = torch.bfloat16, torch.float32
+    win, cap = GEMMA_WINDOW, GEMMA_CAP
+    cases, errs = [], {}
+
+    def tol_of(kernel, dtype):
+        return by_name(kernel).rtol if dtype == bf16 else F32_TOL
+
+    def q4(*shape, dtype):
+        return inp.randn(*shape, dtype=dtype) * LONG_Q_SCALE
+
+    def held(kernel, name, dtype, got, want, counts0, expect, err_key=None):
+        """Hold one call: row-relative error within the kernel's tolerance
+        and each counter of `expect` ({counter: launches}) moved by exactly
+        that many launches."""
+        counts = ck.launch_counts()
+        ran = {k: counts[k] - counts0[k] for k in expect}
+        check(ran == expect, f"gemma {kernel} {name}: launches {ran}, expected {expect}")
+        rel, err = _rel_err(got, want), _max_err(got, want)
+        dname = str(dtype).split(".")[-1]
+        tol = tol_of(kernel, dtype)
+        cases.append({"kernel": kernel, "case": name, "dtype": dname, "D": d, "launches": ran,
+                      "max_rel_err": rel, "max_abs_err": err, "bound": tol})
+        check(rel <= tol, f"gemma {kernel} {dname} {name}: relative err {rel} > {tol}")
+        if dtype == bf16:
+            key = err_key or kernel
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    # flash_prefill and flash_prefill_streamed (one kernel)
+    prefill = [("t1024", bf16, 1024, [1024], 0, 0.0, "flash_prefill"),
+               ("t4096_len4000", bf16, 4096, [4000], 0, 0.0, "flash_prefill"),
+               ("t8192_window4096_softcap50", bf16, 8192, [8192], win, cap, "flash_prefill"),
+               ("f32_t1000_window300_softcap50", f32, 1000, [1000], 300, cap, "flash_prefill"),
+               ("t16384_len16000", bf16, 16384, [16000], 0, 0.0, "flash_prefill_streamed"),
+               ("t16384_window4096_softcap50", bf16, 16384, [16384], win, cap,
+                "flash_prefill_streamed")]
+    for name, dtype, t, lens, window, softcap, kernel in prefill:
+        check(prefill_kernel(t, d, torch.tensor([], dtype=dtype).element_size()) == kernel,
+              f"gemma: prefill at T={t} does not route to {kernel}")
+        q = q4(1, t, h, d, dtype=dtype)
+        k, v = inp.randn(1, t, kvh, d, dtype=dtype), inp.randn(1, t, kvh, d, dtype=dtype)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        c0 = ck.launch_counts()
+        got = getattr(ck, kernel)(q, k, v, sl, softcap=softcap, window=window)
+        want = attention_prefill_blocked_ref(q, k, v, sl, logit_softcap=softcap, window=window)
+        torch.cuda.synchronize()
+        held(kernel, name, dtype, got[:, :lens[0]], want[:, :lens[0]], c0, {kernel: 1})
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    # paged attention on one pool layer of 8 x 128 pages, shuffled tables
+    n_pages = S * maxp
+    lengths = [0, 1, 63, 64, 1500, 4095, 5000, maxp * PS - 5]
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages, generator=inp.gen, device="cuda").to(torch.int32)
+    table = perm.reshape(S, maxp).contiguous()
+    topo = tree_topology(4, 2)
+    depths, anc, bits = _tree_operands(topo)
+    for dtype in (bf16, f32):
+        dname = str(dtype).split(".")[-1]
+        kp, vp = (inp.randn(1, n_pages, PS, kvh, d, dtype=dtype) for _ in range(2))
+        quant = _quant_pools(torch, inp, 1, n_pages, d=d) if dtype == bf16 else quant
+        pools = {"fp": (kp, vp, {}, kp, vp),
+                 "int8": (quant[0].data, quant[1].data,
+                          dict(k_scale=quant[0].scale, v_scale=quant[1].scale), *quant)}
+
+        def group(td):
+            return dict(q_group=q4(S, td, h, d, dtype=dtype), page_table=table,
+                        group_lengths=glens, k_group=inp.randn(S, td, kvh, d, dtype=dtype),
+                        v_group=inp.randn(S, td, kvh, d, dtype=dtype))
+
+        def chunk(c, start, valid):
+            return dict(q_chunk=q4(1, c, h, d, dtype=dtype), chunk_row=table[6],
+                        chunk_start=start, chunk_total=start + valid,
+                        k_chunk=inp.randn(c, kvh, d, dtype=dtype),
+                        v_chunk=inp.randn(c, kvh, d, dtype=dtype))
+
+        chunk_leg = "chunk" if dtype == bf16 else "chunk_cores"
+        ragged = [("group_td1", group(1), 0, 0.0, None, ("group",)),
+                  ("group_td5", group(5), 0, 0.0, None, ("group",)),
+                  ("group_td1_window_softcap", group(1), win, cap, None, ("group",)),
+                  ("group_td5_window_softcap", group(5), win, cap, None, ("group",)),
+                  ("chunk_1024_after_1024", chunk(1024, 1024, 1024), 0, 0.0, 1024,
+                   (chunk_leg,)),
+                  ("chunk_1024_after_5000_window_softcap", chunk(1024, 5000, 1000), win, cap,
+                   1000, (chunk_leg,)),
+                  ("mixed_chunk_and_groups", {**chunk(1024, 1024, 1024), **group(1)}, win, cap,
+                   1024, (chunk_leg, "group"))]
+        tree_kw = dict(group(len(topo)), tree_pos=depths)
+        for pool_name, (kd, vd, scales, kref, vref) in pools.items():
+            runs = ragged + [("tree_k4_w2_window_softcap", tree_kw, win, cap, None,
+                              ("group", "tree"))]
+            for name, kw, window, softcap, valid, legs in runs:
+                kw = dict(kw)
+                tree = {}
+                if "tree_pos" in kw:
+                    kw.pop("tree_pos")
+                    tree = dict(tree_pos=depths, tree_bits=bits)
+                c0 = ck.launch_counts()
+                oc, og = ck.ragged_attention(kd, vd, PS, layer=0, softcap=softcap,
+                                             window=window, **scales, **tree, **kw)
+                ref_tree = dict(tree_pos=depths, tree_mask=anc) if tree else {}
+                wc, wg = ragged_paged_attention_ref(kref, vref, PS, layer=0,
+                                                    logit_softcap=softcap, window=window,
+                                                    **ref_tree, **kw)
+                torch.cuda.synchronize()
+                got = [] if oc is None else [oc[:, :valid].flatten(0, 1)]
+                want = [] if wc is None else [wc[:, :valid].flatten(0, 1)]
+                got += [] if og is None else [og.flatten(0, 1)]
+                want += [] if wg is None else [wg.flatten(0, 1)]
+                # a mixed step on the tensor-core route is two launches
+                launches = 2 if (oc is not None and og is not None and dtype == bf16) else 1
+                expect = {"ragged_attention": launches,
+                          **{f"ragged_attention.{x}": 1 for x in legs},
+                          "ragged_attention.int8": launches if scales else 0}
+                key = ("ragged_attention.int8" if scales else
+                       "ragged_attention.tree" if tree else
+                       "ragged_attention.chunk" if oc is not None and og is None
+                       else "ragged_attention")
+                held("ragged_attention", f"{name}_{pool_name}", dtype, torch.cat(got),
+                     torch.cat(want), c0, expect, err_key=key)
+                del kw, oc, og, wc, wg, got, want
+        # per-phase routes: paged_decode in both modes, prefix_chunk's
+        # chunk (tensor cores in bf16, CUDA cores in float32) and slots
+        nonempty = [i for i, ln in enumerate(lengths) if ln > 0]
+        dec = dict(q=q4(S, h, d, dtype=dtype), k_pages=kp, v_pages=vp, page_table=table,
+                   lengths=glens, page_size=PS, layer=0)
+        cur = dict(k_cur=inp.randn(S, kvh, d, dtype=dtype), v_cur=inp.randn(S, kvh, d, dtype=dtype))
+        ver = dict(q=q4(S, 5, h, d, dtype=dtype), k_pages=kp, v_pages=vp, page_table=table,
+                   lengths=glens, page_size=PS, layer=0,
+                   k_cur=inp.randn(S, 5, kvh, d, dtype=dtype),
+                   v_cur=inp.randn(S, 5, kvh, d, dtype=dtype))
+        bounds = torch.tensor([5000, 6000], dtype=torch.int32, device="cuda")
+        pchunk = dict(q=q4(1, 1024, h, d, dtype=dtype), k_pages=kp, v_pages=vp,
+                      table_row=table[6], start=bounds[0:1], total_len=bounds[1:2],
+                      page_size=PS, layer=0)
+        fresh = dict(k_cur=inp.randn(1024, kvh, d, dtype=dtype),
+                     v_cur=inp.randn(1024, kvh, d, dtype=dtype))
+        pchunk_leg = "prefix_chunk.chunk" if dtype == bf16 else "prefix_chunk.chunk_cores"
+        per_phase = [("decode_merge_cur", "paged_decode", {**dec, **cur}, None, ()),
+                     ("decode_in_pool", "paged_decode", dec, nonempty, ()),
+                     ("verify_slots_t5", "prefix_chunk_slots", ver, None,
+                      ("prefix_chunk.slots",)),
+                     ("chunk_1024_after_5000", "prefix_chunk", {**pchunk, **fresh}, 1000,
+                      (pchunk_leg,)),
+                     ("chunk_1024_in_pool_after_5000", "prefix_chunk", pchunk, 1000,
+                      (pchunk_leg,))]
+        for name, wrapper, kw, rows, legs in per_phase:
+            for window, softcap in ((0, 0.0), (win, cap)):
+                c0 = ck.launch_counts()
+                got = getattr(ck, wrapper)(**kw, softcap=softcap, window=window)
+                want = _per_phase_plain(torch, wrapper, {**kw, "softcap": softcap,
+                                                         "window": window})
+                torch.cuda.synchronize()
+                if wrapper == "paged_decode" and rows is not None:
+                    got, want = got[rows], want[rows]
+                elif wrapper == "prefix_chunk":
+                    got, want = got[:, :rows], want[:, :rows]
+                kernel = "prefix_chunk" if wrapper == "prefix_chunk_slots" else wrapper
+                held(kernel, f"{name}_window{window}", dtype, got, want, c0,
+                     {kernel: 1, **{leg: 1 for leg in legs}}, err_key=legs[0] if legs else None)
+                del got, want
+        del kp, vp, pools, dec, cur, ver, pchunk, fresh, ragged, tree_kw
+        torch.cuda.empty_cache()
+    del quant
+
+    # both writes: a decode step's and a verify step's rows, and a chunk
+    n_layers = 4
+    for dtype in (bf16, f32):
+        dname = str(dtype).split(".")[-1]
+        kp = torch.zeros((n_layers, n_pages, PS, kvh, d), dtype=dtype, device="cuda")
+        vp = torch.zeros_like(kp)
+        for t in (1, 5):
+            pos = (glens.clamp(max=maxp * PS - t)[:, None]
+                   + torch.arange(t, device="cuda", dtype=torch.int32)).reshape(-1)
+            active = torch.tensor([True] * (S - 1) + [False], device="cuda")
+            kn = inp.randn(n_layers, S * t, kvh, d, dtype=dtype)
+            vn = inp.randn(n_layers, S * t, kvh, d, dtype=dtype)
+            c0 = ck.launch_counts()
+            ck.paged_write_decode(kp, vp, kn, vn, table, pos, active, PS, rows_per_slot=t)
+            want_k, want_v = write_decode(torch.zeros_like(kp), torch.zeros_like(vp), kn, vn,
+                                          table.repeat_interleave(t, dim=0), pos,
+                                          active.repeat_interleave(t), PS)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(kp, want_k) and torch.equal(vp, want_v))
+            ran = ck.launch_counts()["paged_write_decode"] - c0["paged_write_decode"]
+            cases.append({"kernel": "paged_write_decode", "case": f"rows_per_slot_{t}",
+                          "dtype": dname, "D": d, "exact": exact, "launches": ran})
+            check(exact and ran == 1, f"gemma paged_write_decode {dname} T={t}: exact {exact}, "
+                                      f"{ran} launches")
+            kp.zero_()
+            vp.zero_()
+            del kn, vn, want_k, want_v
+        length, start = 1000, 1024
+        kn = inp.randn(n_layers, 1024, kvh, d, dtype=dtype)
+        vn = inp.randn(n_layers, 1024, kvh, d, dtype=dtype)
+        c0 = ck.launch_counts()
+        ck.paged_write_chunk(kp, vp, kn, vn, table[5], start, length, PS)
+        want_k, want_v = write_prefill(torch.zeros_like(kp), torch.zeros_like(vp), kn, vn,
+                                       table[5], start, length, PS)
+        torch.cuda.synchronize()
+        last = start + length - 1   # the kernel also writes the last page's padded tail
+        kp[:, int(table[5][last // PS]), last % PS + 1:] = 0
+        vp[:, int(table[5][last // PS]), last % PS + 1:] = 0
+        exact = bool(torch.equal(kp, want_k) and torch.equal(vp, want_v))
+        ran = ck.launch_counts()["paged_write_chunk"] - c0["paged_write_chunk"]
+        cases.append({"kernel": "paged_write_chunk", "case": "1000_rows_after_1024",
+                      "dtype": dname, "D": d, "exact": exact, "launches": ran})
+        check(exact and ran == 1, f"gemma paged_write_chunk {dname}: exact {exact}, {ran} launches")
+        if dtype == bf16:
+            errs["paged_write_decode"] = errs["paged_write_chunk"] = 0.0
+        del kp, vp, kn, vn, want_k, want_v
+        torch.cuda.empty_cache()
+    errs["prefix_chunk"] = max(errs["prefix_chunk.slots"], errs["prefix_chunk.chunk"])
+    return cases, errs
+
+
+def _gemma_timing(torch, inp: Inputs) -> dict:
+    """Each kernel at D = 256 at the gemma2:9b serve path's shapes (bf16,
+    CUDA events), with its plain version, one PyTorch call for the same
+    function where there is one (SDPA, causal, GQA, for the prefill
+    kernels; index_put_ for the writes) and the bound from this run's
+    inputs: flash_prefill at T 4,096; flash_prefill_streamed at T 16,384;
+    ragged_attention's decode group (8 slots at 1,024 cached) and its chunk
+    kernel (1,024 after 1,024), on a bf16 pool and (the int8 leg) an int8
+    pool, its tree leg (8 slots of the (4, 2) tree after 1,024);
+    paged_decode at 8 x 1,024; prefix_chunk's chunk (1,024 after 1,024)
+    and its verify over 8 slots x 5 after 1,024; both writes on a 42-layer
+    pool. Keyed by the kernels line's names."""
+    import torch.nn.functional as F
+
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import (
+        _prefix_chunk_ref,
+        attention_prefill_blocked_ref,
+        attention_prefill_ref,
+        paged_attention_decode_ref,
+        paged_attention_verify_ref,
+        ragged_paged_attention_ref,
+    )
+    from gridllm_torch.ops.kvcache import write_decode, write_prefill
+    from gridllm_torch.ops.spec import tree_topology
+
+    h, kvh, d, maxp = GEMMA_H, GEMMA_KVH, GEMMA_D, GEMMA_MAXP
+    bf16, res = torch.bfloat16, {}
+
+    def prefill_row(t, plain, iters):
+        q = inp.randn(1, t, h, d, dtype=bf16)
+        k, v = inp.randn(1, t, kvh, d, dtype=bf16), inp.randn(1, t, kvh, d, dtype=bf16)
+        sl = torch.tensor([t], dtype=torch.int32, device="cuda")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        b, op = bound_ms((2 * q.numel() + k.numel() + v.numel()) * 2, 4 * h * d * t * (t + 1) / 2)
+        kernel = ck.flash_prefill if t <= 8192 else ck.flash_prefill_streamed
+        row = {"shape": f"q[1,{t},{h},{d}] bf16",
+               "ms": time_ms(torch, lambda: kernel(q, k, v, sl), iters=iters),
+               "plain_ms": time_ms(torch, lambda: plain(q, k, v, sl), iters=1, warmup=1),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), iters=iters),
+               "bound_ms": b, "bound_by": op}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+        return row
+
+    res["flash_prefill"] = prefill_row(4096, attention_prefill_ref, 20)
+    res["flash_prefill_streamed"] = prefill_row(16384, attention_prefill_blocked_ref, 10)
+
+    n_pages = S * maxp
+    kp, vp = (inp.randn(1, n_pages, PS, kvh, d, dtype=bf16) for _ in range(2))
+    quant = _quant_pools(torch, inp, 1, n_pages, d=d)
+    perm = torch.randperm(n_pages, generator=inp.gen, device="cuda").to(torch.int32)
+    table = perm.reshape(S, maxp).contiguous()
+    lengths = [1024] * S
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    def row_of(shape, fn, plain, nbytes, flops, library=None):
+        b, op = bound_ms(nbytes, flops)
+        return {"shape": shape, "ms": time_ms(torch, fn),
+                "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+                "library_ms": None if library is None else time_ms(torch, library),
+                "bound_ms": b, "bound_by": op}
+
+    def group(td):
+        return dict(q_group=inp.randn(S, td, h, d, dtype=bf16), page_table=table,
+                    group_lengths=glens, k_group=inp.randn(S, td, kvh, d, dtype=bf16),
+                    v_group=inp.randn(S, td, kvh, d, dtype=bf16))
+
+    gkw = group(1)
+    nb, fl = _group_work(lengths, 1, h, kvh, d, [1])
+    res["ragged_attention"] = row_of(
+        f"decode group S={S} Td=1 context=1024 D={d} bf16",
+        lambda: ck.ragged_attention(kp, vp, PS, layer=0, **gkw),
+        lambda: ragged_paged_attention_ref(kp, vp, PS, layer=0, **gkw), nb, fl)
+    scales = dict(k_scale=quant[0].scale, v_scale=quant[1].scale)
+    nb8 = nb - sum(lengths) * kvh * d * 2 * 2 + sum(lengths) * (kvh * d + 4) * 2
+    res["ragged_attention.int8"] = row_of(
+        f"decode group S={S} Td=1 context=1024 D={d} int8 pool, bf16 compute",
+        lambda: ck.ragged_attention(quant[0].data, quant[1].data, PS, layer=0, **scales, **gkw),
+        lambda: ragged_paged_attention_ref(*quant, PS, layer=0, **gkw), nb8, fl)
+    topo = tree_topology(4, 2)
+    depths, anc, bits = _tree_operands(topo)
+    n = len(topo)
+    tkw = group(n)
+    visible = [int(r.sum()) for r in anc]
+    nb, fl = _group_work(lengths, n, h, kvh, d, visible)
+    res["ragged_attention.tree"] = row_of(
+        f"tree verify S={S} N={n} context=1024 D={d} bf16",
+        lambda: ck.ragged_attention(kp, vp, PS, layer=0, tree_pos=depths, tree_bits=bits,
+                                    **tkw),
+        lambda: ragged_paged_attention_ref(kp, vp, PS, layer=0, tree_pos=depths, tree_mask=anc,
+                                           **tkw), nb, fl)
+    c, start = 1024, 1024
+    ckw = dict(q_chunk=inp.randn(1, c, h, d, dtype=bf16), chunk_row=table[0], chunk_start=start,
+               chunk_total=start + c, k_chunk=inp.randn(c, kvh, d, dtype=bf16),
+               v_chunk=inp.randn(c, kvh, d, dtype=bf16))
+    nb = (2 * c * h * d + (start + c) * kvh * d * 2) * 2
+    fl = 4 * h * d * c * (start + (c + 1) / 2)
+    res["ragged_attention.chunk"] = row_of(
+        f"chunk region C={c} after {start} cached tokens D={d} bf16",
+        lambda: ck.ragged_attention(kp, vp, PS, layer=0, **ckw),
+        lambda: ragged_paged_attention_ref(kp, vp, PS, layer=0, **ckw), nb, fl)
+    res["ragged_attention.chunk"]["int8_pool_ms"] = time_ms(
+        torch, lambda: ck.ragged_attention(quant[0].data, quant[1].data, PS, layer=0, **scales,
+                                           **ckw))
+    # per-phase routes
+    q1, kc1, vc1 = gkw["q_group"][:, 0], gkw["k_group"][:, 0], gkw["v_group"][:, 0]
+    nb, fl = _group_work(lengths, 1, h, kvh, d, [1])
+    res["paged_decode"] = row_of(
+        f"S={S} context=1024 D={d} bf16",
+        lambda: ck.paged_decode(q1, kp, vp, table, glens, PS, kc1, vc1, layer=0),
+        lambda: paged_attention_decode_ref(q1, kp[0], vp[0], table, glens, PS, k_cur=kc1,
+                                           v_cur=vc1), nb, fl)
+    vkw = group(5)
+    nb, fl = _group_work(lengths, 5, h, kvh, d, list(range(1, 6)))
+    res["prefix_chunk.slots"] = row_of(
+        f"verify S={S} T=5 context=1024 D={d} bf16",
+        lambda: ck.prefix_chunk_slots(vkw["q_group"], kp, vp, table, glens, PS,
+                                      vkw["k_group"], vkw["v_group"], layer=0),
+        lambda: paged_attention_verify_ref(vkw["q_group"], kp[0], vp[0], table, glens, PS,
+                                           vkw["k_group"], vkw["v_group"]), nb, fl)
+    bounds = torch.tensor([start, start + c], dtype=torch.int32, device="cuda")
+    nb = (2 * c * h * d + (start + c) * kvh * d * 2) * 2
+    fl = 4 * h * d * c * (start + (c + 1) / 2)
+    res["prefix_chunk.chunk"] = row_of(
+        f"chunk C={c} after {start} cached tokens D={d} bf16",
+        lambda: ck.prefix_chunk(ckw["q_chunk"], kp, vp, table[0], bounds[0:1], bounds[1:2], PS,
+                                ckw["k_chunk"], ckw["v_chunk"], layer=0),
+        lambda: _prefix_chunk_ref(ckw["q_chunk"], kp[0], vp[0], table[0], start, start + c, PS,
+                                  k_cur=ckw["k_chunk"], v_cur=ckw["v_chunk"]), nb, fl)
+    res["prefix_chunk"] = dict(res["prefix_chunk.chunk"])
+    del kp, vp, quant, gkw, tkw, vkw, ckw
+    torch.cuda.empty_cache()
+
+    # the writes on a 42-layer pool (gemma2:9b's layers), 8 decode rows and a
+    # 1,024-row chunk
+    n_layers = 42
+    kp = torch.zeros((n_layers, n_pages, PS, kvh, d), dtype=bf16, device="cuda")
+    vp = torch.zeros_like(kp)
+    row_bytes = kvh * d * 2
+    positions = torch.tensor([1024 + 7 * s for s in range(S)], dtype=torch.int32, device="cuda")
+    active = torch.ones(S, dtype=torch.bool, device="cuda")
+    kn, vn = (inp.randn(n_layers, S, kvh, d, dtype=bf16) for _ in range(2))
+    pidx = table[torch.arange(S, device="cuda"), (positions // PS).long()].long()
+    off = (positions % PS).long()
+
+    def lib_decode():
+        kp[:, pidx, off] = kn
+        vp[:, pidx, off] = vn
+
+    res["paged_write_decode"] = row_of(
+        f"pool[{n_layers},{n_pages},{PS},{kvh},{d}] S={S} bf16",
+        lambda: ck.paged_write_decode(kp, vp, kn, vn, table, positions, active, PS),
+        lambda: write_decode(kp, vp, kn, vn, table, positions, active, PS),
+        2 * 2 * n_layers * S * row_bytes, 0, library=lib_decode)
+    t = 1024
+    kn, vn = (inp.randn(n_layers, t, kvh, d, dtype=bf16) for _ in range(2))
+    cpos = torch.arange(t, device="cuda")
+    cpage, coff = table[0][(cpos // PS).long()].long(), (cpos % PS).long()
+
+    def lib_chunk():
+        kp[:, cpage, coff] = kn
+        vp[:, cpage, coff] = vn
+
+    res["paged_write_chunk"] = row_of(
+        f"chunk[{n_layers},{t},{kvh},{d}] start=0 bf16",
+        lambda: ck.paged_write_chunk(kp, vp, kn, vn, table[0], 0, t, PS),
+        lambda: write_prefill(kp, vp, kn, vn, table[0], 0, t, PS),
+        2 * 2 * n_layers * t * row_bytes, 0, library=lib_chunk)
+    del kp, vp, kn, vn
+    torch.cuda.empty_cache()
+    return res
+
+
+GEMMA_MODEL = "gemma2:9b"
+GEMMA_CUT_LAYERS = 2
+GEMMA_CUT_PROMPT = 5000    # past layer 0's window of 4096: its keys drop
+GEMMA_LONG_BYTES = 6000    # the serve's long prompt: six chunks of 1024 across the window
+
+
+def _gemma_cut(torch, layers: int = GEMMA_CUT_LAYERS) -> str:
+    """gemma2:9b at full width cut to `layers` layers, registered under its
+    own name."""
+    import dataclasses
+
+    from gridllm_torch.models.configs import REGISTRY, get_config, register
+
+    name = f"{GEMMA_MODEL}-f32-{layers}l"
+    if name not in REGISTRY:
+        register(dataclasses.replace(get_config(GEMMA_MODEL), name=name, num_layers=layers))
+    return name
+
+
+def _gemma_model(torch) -> dict:
+    """gemma2:9b cut to 2 layers, full width, float32, against its
+    cache-free forward (whose attention is the blocked plain version), in
+    both attention modes, on a 5,000-token prompt (layer 0's window of
+    4,096 drops keys): ragged (the prompt prefilled whole in the 8,192
+    bucket, 8 decode steps, a verify step of K+1 = 5) and per-phase (the
+    prompt admitted in five prefill_chunk calls of 1,024, 4 decode steps, a
+    verify step). Only the last rows' logits are made: [5016, 256000]
+    float32 would be 5.1 GB."""
+    from unittest import mock
+
+    from gridllm_torch.models import llama
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.models.gemma import Gemma2
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import attention_prefill_blocked_ref
+    from gridllm_torch.ops.kernels import F32_TOL
+    from gridllm_torch.ops.kvcache import PagedKVCache, rollback_to_length
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    cfg = get_config(_gemma_cut(torch))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    model = Gemma2(cfg, dtype=torch.float32, device="cuda").init_params(gen)
+    # random norm weights: the (1 + w) norms with w = 0 would hide a norm
+    # that ignores its weight
+    for name in model.NORMS:
+        model.layers[name].normal_(0.0, 0.3, generator=gen)
+    model.final_norm.data.normal_(0.0, 0.3, generator=gen)
+    n, extra, k1, bucket = GEMMA_CUT_PROMPT, 16, 5, 8192
+    toks = torch.randint(0, cfg.vocab_size, (n + extra,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    rows = extra + 1                                   # positions n - 1 .. n + extra - 1
+    unembed = model._unembed
+    with mock.patch.object(llama, "attention_prefill", attention_prefill_blocked_ref), \
+            mock.patch.object(model, "_unembed", lambda x: unembed(x[:, -rows:])):
+        want = model(toks[None])[0]                    # [rows, V]
+    check(model._window(0) == 4096 and model._window(1) == 0 and n > 4096,
+          "gemma model: layer 0 does not slide past its window")
+    maxp = bucket // PS
+    cache = PagedKVCache.create(cfg.num_layers, 2 * maxp, PS, cfg.num_kv_heads, cfg.head_dim_, 2,
+                                maxp, dtype=torch.float32, device="cuda")
+    table = torch.arange(2 * maxp, device="cuda", dtype=torch.int32).reshape(2, maxp)
+    errs = {"ragged": [], "per_phase": []}
+
+    def err(mode, got, pos):
+        errs[mode].append(float((got - want[pos - (n - 1)]).abs().max()))
+
+    def decode_verify(mode, slot, steps):
+        active = torch.zeros(2, dtype=torch.bool, device="cuda")
+        active[slot] = True
+        cur = torch.zeros(2, dtype=torch.int32, device="cuda")
+        for _ in range(steps):
+            pos = int(cache.lengths[slot])
+            cur[slot] = toks[pos]
+            logits, _ = mdl.decode_step(cur, cache, active)
+            err(mode, logits[slot], pos)
+        base = int(cache.lengths[slot])
+        cand = torch.zeros((2, k1), dtype=torch.int32, device="cuda")
+        cand[slot] = toks[base:base + k1]
+        logits, _ = mdl.verify_step(cand, cache, active)
+        for j in range(k1):
+            err(mode, logits[slot, j], base + j)
+        rollback_to_length(cache, cache.lengths + k1 * active.to(torch.int32))
+
+    counts = {}
+    mdl = model
+    ck.reset_launch_counts()
+    padded = torch.cat([toks[:n], torch.zeros(bucket - n, dtype=torch.int32, device="cuda")])
+    logits, _ = mdl.prefill(padded, n, cache, 0, table[0])
+    err("ragged", logits, n - 1)
+    decode_verify("ragged", 0, 8)
+    counts["ragged"] = ck.launch_counts()
+    mdl = Gemma2(cfg, dtype=torch.float32, device="cuda", ragged_attention=False)
+    mdl.load_state_dict(model.state_dict())
+    del model
+    ck.reset_launch_counts()
+    for start in range(0, n, 1024):
+        length = min(1024, n - start)
+        chunk = torch.zeros(1024, dtype=torch.int32, device="cuda")
+        chunk[:length] = toks[start:start + length]
+        logits, _ = mdl.prefill_chunk(chunk, start, length, cache, 1, table[1])
+    err("per_phase", logits, n - 1)
+    decode_verify("per_phase", 1, 4)
+    counts["per_phase"] = ck.launch_counts()
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    check(counts["ragged"]["flash_prefill_streamed"] == layers
+          and counts["ragged"]["ragged_attention"] == 9 * layers
+          and counts["ragged"]["paged_decode"] + counts["ragged"]["prefix_chunk"] == 0,
+          f"gemma model: ragged launches {counts['ragged']}")
+    check(counts["per_phase"]["prefix_chunk.chunk_cores"] == 5 * layers
+          and counts["per_phase"]["paged_decode"] == 4 * layers
+          and counts["per_phase"]["prefix_chunk.slots"] == layers
+          and counts["per_phase"]["ragged_attention"] == 0,
+          f"gemma model: per-phase launches {counts['per_phase']}")
+    worst = {mode: max(e) for mode, e in errs.items()}
+    check(max(worst.values()) <= F32_TOL, f"gemma model: paged path differs from forward by "
+                                          f"{worst}")
+    del mdl, cache, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": f"{GEMMA_MODEL}, {layers} layers, float32, random norms",
+            "prompt": n, "window_layer0": 4096,
+            "logit_rows_compared": {m: len(e) for m, e in errs.items()},
+            "max_abs_err": worst, "bound": F32_TOL,
+            "launches": {m: {k: v for k, v in c.items() if v} for m, c in counts.items()}}
+
+
+def _gemma_serve(torch) -> dict:
+    """gemma2:9b bf16 at full width with the engine's defaults (speculation
+    and ragged attention on, pages of 64, 1,024 pages, random weights from
+    seed 0): the serve phase's eight concurrent requests plus a
+    6,000-byte prompt admitted in chunks of 1,024 across the window, then
+    its warm repeat from the prefix cache. Launch counters from 0 over the
+    run, held to the ragged path's kernels (_PATHS["spec_ragged"]); every
+    ragged launch at D = 256. Then the same model with the per-phase
+    kernels (ragged attention off, spec on): the long prompt beside a short
+    one and the short one's warm repeat, held to _PATHS["spec_per_phase"]."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model=GEMMA_MODEL), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = srv.engine
+    cfg = engine.cfg
+    check(type(engine.model).__name__ == "Gemma2" and cfg.head_dim_ == GEMMA_D,
+          "gemma serve: the engine did not build Gemma2")
+    vocab, slots, k1 = srv.vocab, engine.config.max_slots, engine.config.spec_k + 1
+    weights_gb = sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 1e9
+    pool_gb = (engine.cache.k.numel() * engine.cache.k.element_size()) * 2 / 1e9
+    dims = []
+    ragged = ck.ragged_attention
+
+    def watched(*args, **kwargs):   # the head dim of every ragged launch
+        dims.append(int((args[0] if args else kwargs["k_pages"]).shape[-1]))
+        return ragged(*args, **kwargs)
+
+    ck.ragged_attention = watched
+    try:
+        engine.start()
+        _, _, _, batch_a = _serve_prompts()
+        long_prompt = _prompt(random.Random(SEED + 14), GEMMA_LONG_BYTES)
+        ck.reset_launch_counts()
+        chunks0 = srv.calls.get("mixed_step", 0) + srv.calls.get("prefill_chunk", 0)
+        res, wall = srv.run(batch_a + [(long_prompt, 48)])
+        long_res = res[-1]
+        check(long_res.prompt_eval_count > GEMMA_WINDOW + 1024,
+              f"gemma serve: the long prompt has {long_res.prompt_eval_count} tokens")
+        (warm,), wall_warm = srv.run([(long_prompt, 48)])
+        check(warm.cached_tokens > GEMMA_WINDOW,
+              f"gemma serve: the warm repeat hit {warm.cached_tokens} cached tokens")
+        summary = srv.summary(res, wall, {(vocab,), (slots, vocab), (slots, k1, vocab)})
+        launches = _path_launches(ck, "spec_ragged", srv)
+    finally:
+        ck.ragged_attention = ragged
+    check(set(dims) == {GEMMA_D}, f"gemma serve: ragged launches at head dims {set(dims)}")
+    steps = engine.spec_stats["steps"]
+    matching = 0
+    for a, b in zip(long_res.token_ids, warm.token_ids):
+        if a != b:
+            break
+        matching += 1
+    out = {
+        "model": GEMMA_MODEL, "dtype": "bfloat16", "load_s": load_s,
+        "weights_gb": weights_gb, "kv_pool_gb": pool_gb,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "long_prompt_tokens": long_res.prompt_eval_count,
+        "long_ttft_ms": long_res.prompt_eval_duration_ns / 1e6,
+        "chunk_and_mixed_steps": srv.calls.get("mixed_step", 0) + srv.calls.get(
+            "prefill_chunk", 0) - chunks0,
+        "warm_cached_tokens": warm.cached_tokens,
+        "warm_ttft_ms": warm.prompt_eval_duration_ns / 1e6, "warm_wall_s": wall_warm,
+        "warm_tokens_matching_cold": f"{matching}/{len(warm.token_ids)}",
+        "verify_steps": steps, "launches": launches, **summary,
+    }
+    _free(torch, srv)
+
+    srv = Served(torch, InferenceEngine(EngineConfig(model=GEMMA_MODEL, ragged_attention=False),
+                                        device="cuda"))
+    srv.engine.start()
+    short = _prompt(random.Random(SEED + 15), 200)
+    ck.reset_launch_counts()
+    res, wall = srv.run([(long_prompt, 32), (short, 32)])
+    (repeat,), _ = srv.run([(short, 32)])
+    check(repeat.cached_tokens > 0, "gemma serve per-phase: the repeat missed the prefix cache")
+    out["per_phase"] = {**srv.summary(res, wall, {(vocab,), (slots, k1, vocab)}),
+                        "long_ttft_ms": res[0].prompt_eval_duration_ns / 1e6,
+                        "repeat_cached_tokens": repeat.cached_tokens,
+                        "launches": _path_launches(ck, "spec_per_phase", srv)}
+    _free(torch, srv)
+    return out
+
+
+def _gemma_spec(torch) -> dict:
+    """The 2-layer float32 gemma2:9b cut behind the engine: a repetitive
+    prompt longer than the window gives the same greedy stream with
+    speculative decoding on and off, with ragged attention on and off."""
+    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+
+    name = _gemma_cut(torch)
+    prompt = "the cat sat on the mat and the dog sat on the log. " * 90   # 4,591 bytes
+    opts = {"temperature": 0.0, "repeat_penalty": 1.0, "num_predict": 64}
+    runs, streams = {}, {}
+    for ragged in (True, False):
+        for spec in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = InferenceEngine(EngineConfig(model=name, dtype="float32", spec_decode=spec,
+                                                  ragged_attention=ragged), device="cuda")
+            res = engine.generate(GenerationRequest(id="gemma-spec", prompt=prompt,
+                                                    options=dict(opts)))
+            check(res.done_reason in ("length", "stop") and res.token_ids,
+                  f"gemma spec: finished {res.done_reason!r} ({res.error})")
+            key = f"spec_{'on' if spec else 'off'}_ragged_{'on' if ragged else 'off'}"
+            streams[key] = res.token_ids
+            runs[key] = {"prompt_tokens": res.prompt_eval_count, "proposed": res.spec_proposed,
+                         "accepted": res.spec_accepted,
+                         "verify_steps": engine.spec_stats["steps"]}
+            del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = streams["spec_off_ragged_on"]
+    same = {key: toks == ref for key, toks in streams.items()}
+    check(all(same.values()), f"gemma spec: greedy streams differ: {same}")
+    check(runs["spec_on_ragged_on"]["prompt_tokens"] > GEMMA_WINDOW,
+          "gemma spec: the prompt does not pass the window")
+    return {"model": name, "dtype": "float32", "tokens": len(ref), "streams_identical": True,
+            "runs": runs}
+
+
+def phase_gemma(torch) -> dict:
+    """gemma2 and head dim 256 (see the module docstring): every kernel at
+    D = 256 against its plain version and timed, the 2-layer float32 cut in
+    both attention modes, gemma2:9b bf16 served with the engine's
+    defaults, and float32 spec parity on the cut."""
+    inp = Inputs(torch, SEED + 14)
+    t0 = time.perf_counter()
+    cases, errs = _gemma_kernel_cases(torch, inp)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "gemma_kernel_cases.json").write_text(json.dumps(cases, indent=1))
+    seconds = {"kernel_cases": time.perf_counter() - t0}
+    parts = {}
+    for part, fn in (("timing", lambda: _gemma_timing(torch, inp)),
+                     ("model", lambda: _gemma_model(torch)),
+                     ("serve", lambda: _gemma_serve(torch)),
+                     ("spec", lambda: _gemma_spec(torch))):
+        t0 = time.perf_counter()
+        parts[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+    return {"phase": "gemma", "card": card_line(), "cases": len(cases),
+            "max_rel_err": max(c.get("max_rel_err", 0.0) for c in cases),
+            "max_abs_err_bf16": errs, **parts, "part_seconds": seconds,
+            "launches": parts["serve"]["launches"]}
+
+
 TURN_PARTS = ("kernels", "steps", "int8")
 
 
@@ -4641,7 +5371,7 @@ def main() -> int:
                    "serve": phase_serve, "worker": phase_worker, "replay": phase_replay,
                    "spec": phase_spec, "checkpoint": phase_checkpoint,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
-                   "tree": phase_tree, "kvx": phase_kvx}[phase](torch)
+                   "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -4669,14 +5399,36 @@ def main() -> int:
     rows += [(f"ragged_attention.{leg}", by_name("ragged_attention"))
              for leg in ("chunk", "int8", "tree")]
     rows += [(leg, by_name("prefix_chunk")) for leg in _PER_PHASE_LEGS]
-    emit({"kernels": [
+    from gridllm_torch.ops.cuda_kernels import _HEAD_DIMS
+
+    line = [
         {"name": name, "route": "cuda", "source": spec.source,
-         "replaces": spec.replaces.split(" ")[0], "launches": launches[name],
+         "replaces": spec.replaces.split(" ")[0], "head_dims": list(_HEAD_DIMS),
+         "launches": launches[name],
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}
-        for name, spec in rows
-    ], "total_seconds": time.perf_counter() - t_run})
+        for name, spec in rows]
+    # the same kernels at D = 256 (the gemma phase): launches from the
+    # gemma2:9b bf16 serve, its per-phase setting, or for a kernel off both
+    # paths (paged_decode under speculation, the streamed prefill) the
+    # float32 cut
+    gemma = results["gemma"]
+    sources = [("gemma serve", gemma["launches"]),
+               ("gemma serve, per-phase", gemma["serve"]["per_phase"]["launches"]),
+               *((f"gemma float32 cut, {mode}", counts)
+                 for mode, counts in gemma["model"]["launches"].items())]
+    for name, spec in rows:
+        t = gemma["timing"][name]
+        src, counts = next(((n, c) for n, c in sources if c.get(name)), sources[0])
+        line.append({
+            "name": f"{name}.d256", "route": "cuda", "source": spec.source,
+            "replaces": spec.replaces.split(" ")[0], "head_dims": [GEMMA_D],
+            "launches": counts.get(name, 0), "launches_from": src,
+            "max_abs_err": gemma["max_abs_err_bf16"][name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    emit({"kernels": line, "total_seconds": time.perf_counter() - t_run})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -43,19 +43,20 @@
 //   positions >= min(total, capacity) are masked.
 //
 // `chunk_body` (the chunk region on the tensor cores: bf16 q on a bf16 or
-// an int8 pool, D 64 or 128) is flash_prefill's Hopper kernel
+// an int8 pool, D 64, 128 or 256) is flash_prefill's Hopper kernel
 // (hopper_common.cuh) walking two key segments: one producer warpgroup
 // whose single thread issues TMA loads, two consumer warpgroups of 64 query
 // rows each, S = Q K^T and O += P V on wgmma, float32 online softmax. The
 // query tile stacks the G query heads of one kv head over bq = 128 / G
 // chunk tokens (spare rows zeroed when G does not divide 128). It walks the
-// slot's cached prefix in 128-key tiles aligned to absolute positions, each
-// tile 128 / box_rows TMA boxes of box_rows = gcd(ps, 128) pool rows from a
+// slot's cached prefix in tiles of kBK keys (128; 64 at D = 256) aligned to
+// absolute positions, each tile kBK / box_rows TMA boxes of box_rows =
+// gcd(ps, kBK) pool rows from a
 // map over the pool viewed as {D, KVH, ps, L * P}, at page coordinate
 // layer * P + chunk_row[p] (the block stages its table row in shared memory,
 // clamped into the pool as PagedRows clamps it; a box past the prefix is
 // loaded from outside the map, which TMA fills with zeros); then the
-// chunk's own K/V from a second map, in 128-key tiles aligned to the
+// chunk's own K/V from a second map, in kBK-key tiles aligned to the
 // chunk, at absolute positions start + j. The per-element mask runs only
 // on tiles that need it (the prefix edge, the fresh segment's diagonal,
 // the total or capacity edge, the window edge); tiles wholly outside the
@@ -372,13 +373,22 @@ cudaError_t launch_body(const RaggedArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Rows per warp compiled at head dim D: at D = 256 eight rows a warp hold
+// 64 accumulator and 64 query floats a lane before the K tile and spill
+// (ptxas), so the wrapper takes at most 4 there (cuda_kernels._rows_per_warp)
+// and 8 is not compiled.
+template <int D>
+constexpr int kMaxRpw = D == 256 ? 4 : 8;
+
 template <class Entry, typename T, typename P, int D>
 cudaError_t by_rpw(int rpw, const RaggedArgs& a, cudaStream_t s) {
   switch (rpw) {
     case 1: return launch_body<Entry, T, P, D, 1>(a, s);
     case 2: return launch_body<Entry, T, P, D, 2>(a, s);
     case 4: return launch_body<Entry, T, P, D, 4>(a, s);
-    case 8: return launch_body<Entry, T, P, D, 8>(a, s);
+    case 8:
+      if constexpr (kMaxRpw<D> >= 8) return launch_body<Entry, T, P, D, 8>(a, s);
+      break;
   }
   return cudaErrorInvalidValue;
 }
@@ -388,6 +398,7 @@ cudaError_t by_dim(int d, int rpw, const RaggedArgs& a, cudaStream_t s) {
   switch (d) {
     case 64: return by_rpw<Entry, T, P, 64>(rpw, a, s);
     case 128: return by_rpw<Entry, T, P, 128>(rpw, a, s);
+    case 256: return by_rpw<Entry, T, P, 256>(rpw, a, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -418,10 +429,12 @@ struct ChunkArgs {
 // rows of D bytes each), then the float32 scales of each bf16 stage's rows
 // (K's kBK, then V's). At D = 128 one staging stage is what fits beside the
 // bf16 ring: 198,784 bytes before the table row (a 512-page table takes
-// 2,048 more of the card's 232,448).
+// 2,048 more of the card's 232,448); at D = 256 (64-key tiles) 231,552, so
+// a table row of up to 224 pages fits (gemma2:9b's default is 128).
 template <int D>
 struct QuantSmem {
-  static constexpr int kIStages = D == 128 ? 1 : 2;
+  static constexpr int kBK = Smem<D>::kBK;
+  static constexpr int kIStages = D == 64 ? 2 : 1;
   static constexpr int kTile = kBK * D;  // bytes of one int8 K or V tile
   static constexpr int kStageOff = Smem<D>::kBarOff + 128;
   static constexpr int kScaleOff = kStageOff + kIStages * 2 * kTile;
@@ -471,9 +484,10 @@ __device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
 // One int8 tile (kBK rows of D bytes at src) as bf16 in a stage's
 // 128-byte-swizzled 64-column blocks at dst, the layout TMA writes for a
 // bf16 pool, by the producer warpgroup's thread t: eight values a row.
-// Thread t keeps one 8-value group g8 of rows r0, r0 + 128 / (D / 8), ...,
-// so its swizzled chunk (g8 % 8) ^ (r0 % 8) is the same in every row and
-// its addresses step by constants; a quarter warp writes the eight 16-byte
+// Thread t keeps one 8-value group g8 of rows r0, r0 + 128 / (D / 8), ...;
+// where that step is a multiple of 8 rows (D 64 and 128) its swizzled
+// chunk (g8 % 8) ^ (row % 8) is the same in every row (at D = 256, a step
+// of 4 rows, it alternates). A quarter warp writes the eight 16-byte
 // chunks of one row, a half warp reads 128 contiguous bytes. The loads of
 // kBatch rows are issued before any of their stores (the compiler may not
 // move a load of src above a store to dst, which it cannot tell apart).
@@ -481,12 +495,12 @@ template <int D>
 __device__ __forceinline__ void convert_tile(const unsigned char* src, unsigned char* dst,
                                              int t) {
   constexpr int kGroups = D / 8;            // 8-value groups per row
-  constexpr int kRowStep = 128 / kGroups;   // rows between a thread's rows (8 or 16)
-  constexpr int kRows = kBK / kRowStep, kBatch = 8;
+  constexpr int kRowStep = 128 / kGroups;   // rows between a thread's rows (16, 8 or 4)
+  constexpr int kRows = Smem<D>::kBK / kRowStep, kBatch = 8;
+  static_assert(kRows % kBatch == 0 && kBatch * kRowStep % 8 == 0, "convert_tile shape");
   const int g8 = t % kGroups, r0 = t / kGroups;
   const unsigned char* s = src + r0 * D + g8 * 8;
-  unsigned char* d =
-      dst + (g8 / 8) * Smem<D>::kKVBlock + r0 * 128 + (((g8 % 8) ^ (r0 % 8)) << 4);
+  unsigned char* d = dst + (g8 / 8) * Smem<D>::kKVBlock;
 #pragma unroll 1
   for (int k0 = 0; k0 < kRows; k0 += kBatch) {
     uint2 w[kBatch];
@@ -496,18 +510,21 @@ __device__ __forceinline__ void convert_tile(const unsigned char* src, unsigned 
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       const uint2 lo = int8x4_to_bf16x4(w[j].x), hi = int8x4_to_bf16x4(w[j].y);
-      *reinterpret_cast<uint4*>(d + (k0 + j) * kRowStep * 128) =
-          make_uint4(lo.x, lo.y, hi.x, hi.y);
+      // row % 8 = (r0 + j * kRowStep) % 8: k0 * kRowStep is a multiple of 8
+      const int row = r0 + (k0 + j) * kRowStep;
+      const int sw = (g8 % 8) ^ ((r0 + j * kRowStep) % 8);
+      *reinterpret_cast<uint4*>(d + row * 128 + (sw << 4)) = make_uint4(lo.x, lo.y, hi.x, hi.y);
     }
   }
 }
 
-// S's column of key k times K row k's scale (kBK floats in shared memory),
-// on the m64n128 accumulator layout of softmax_tile.
-__device__ __forceinline__ void scale_keys(float (&s)[64], const float* k_scale, int quad) {
+// S's column of key k times K row k's scale (2 * NS floats in shared
+// memory), on the m64nBK accumulator layout of softmax_tile.
+template <int NS>
+__device__ __forceinline__ void scale_keys(float (&s)[NS], const float* k_scale, int quad) {
   const float2* k2 = reinterpret_cast<const float2*>(k_scale);
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < NS / 4; ++n) {
     const float2 k = k2[4 * n + quad];
     s[4 * n] *= k.x;
     s[4 * n + 1] *= k.y;
@@ -535,6 +552,7 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
                                            const CUtensorMap& vc_map, const ChunkArgs& a) {
   using L = Smem<D>;
   using Q = QuantSmem<D>;
+  constexpr int kBK = L::kBK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-byte aligned
@@ -567,7 +585,7 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
     return;
   }
   // the tile plan (ragged_chunk_tile_plan): pool keys [p_lo, p_hi) in
-  // 128-key tiles aligned to absolute positions (the prefix, or without
+  // kBK-key tiles aligned to absolute positions (the prefix, or without
   // fresh K/V the chunk's own rows too), then fresh keys [c_lo, c_hi) of
   // the chunk in tiles aligned to the chunk; keys at or past the capacity
   // are cut
@@ -626,8 +644,8 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
     if constexpr (kQuant) {
       // every producer thread converts: thread 0 issues the loads (Q, the
       // int8 prefix tiles into staging, the fresh tiles into the bf16
-      // ring); per prefix tile the 128 threads read their row's scales
-      // (thread t row t, zero past the pool keys), wait for the tile's int8
+      // ring); per prefix tile the first kBK threads read their row's
+      // scales (thread t row t, zero past the pool keys), wait for the tile's int8
       // rows and a free bf16 stage, convert K and V into it, stage the
       // scales beside it, fence the writes for wgmma and release the stage
       // together (one arrival), and thread 0 loads the next tile into the
@@ -655,7 +673,7 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
       for (int i = 0; i < n_ptiles; ++i) {
         const int pos = tile_key(i) + t;
         float ks = 0.f, vs = 0.f;
-        if (pos < ctx) {
+        if (t < kBK && pos < ctx) {
           const int64_t r =
               static_cast<int64_t>(page0 + table[pos / a.ps]) * a.ps + pos % a.ps;
           ks = a.k_scale[r];
@@ -667,8 +685,10 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
         mbar_wait(empty(stage), phase ^ 1);
         convert_tile<D>(src, dst, t);
         convert_tile<D>(src + Q::kTile, dst + L::kBlocks * L::kKVBlock, t);
-        stage_scales(stage)[t] = ks;
-        stage_scales(stage)[kBK + t] = vs;
+        if (t < kBK) {
+          stage_scales(stage)[t] = ks;
+          stage_scales(stage)[kBK + t] = vs;
+        }
         fence_proxy_async();  // the converted tiles, before wgmma reads them
         // every thread done: the stage is written, the staging stage read
         asm volatile("bar.sync 3, 128;\n" ::: "memory");
@@ -760,7 +780,7 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
                         (a.window > 0 && kt0 + kBK - 1 < w_first - a.window + 1);
       if (!skip) {
         const uint32_t st = kv_s + stage * L::kStageBytes;
-        float s[64];
+        float s[kBK / 2];
         qk_tile<D>(s, q_s, st, slab);
         // the per-element mask only where a row of the query tile misses
         // a key of this tile: the diagonal, the pool or total edge, the
@@ -775,13 +795,11 @@ __device__ __forceinline__ void chunk_body(const CUtensorMap& q_map, const CUten
             const float* sc = stage_scales(stage);
             scale_keys(s, sc, quad);
             if (masked)
-              softmax_tile<true, kCap, L::kBlocks, true>(s, p, o, m0, m1, l0, l1, a.scale,
-                                                         a.softcap, kt0, quad, qp0, qp1, limit,
-                                                         a.window, sc + kBK);
+              softmax_tile<true, kCap, true>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0,
+                                             quad, qp0, qp1, limit, a.window, sc + kBK);
             else
-              softmax_tile<false, kCap, L::kBlocks, true>(s, p, o, m0, m1, l0, l1, a.scale,
-                                                          a.softcap, kt0, quad, qp0, qp1, limit,
-                                                          a.window, sc + kBK);
+              softmax_tile<false, kCap, true>(s, p, o, m0, m1, l0, l1, a.scale, a.softcap, kt0,
+                                              quad, qp0, qp1, limit, a.window, sc + kBK);
           }
         }
         if (!scaled) {
@@ -815,7 +833,8 @@ int launch(const CUtensorMap* kp_map, const CUtensorMap* vp_map, const void* q, 
   CUtensorMap qm, kcm, vcm;
   const int64_t row = static_cast<int64_t>(D) * 2;
   const int G = a.H / a.KVH;
-  // q [1, C, H, D] in boxes {64, G, bq}; k/v_chunk [C, KVH, D] in {64, 1, 128}
+  // q [1, C, H, D] in boxes {64, G, bq}; k/v_chunk [C, KVH, D] in {64, 1, kBK}
+  constexpr int kBK = Smem<D>::kBK;
   int err = encode_bf16_4d(&qm, q, D, a.H, a.C, 1, row, row * a.H, row * a.H * a.C, G, a.bq);
   if (err == 0 && kFresh)
     err = encode_bf16_4d(&kcm, kc, D, a.KVH, a.C, 1, row, row * a.KVH, row * a.KVH * a.C, 1, kBK);
@@ -836,7 +855,7 @@ int launch(const CUtensorMap* kp_map, const CUtensorMap* vp_map, const void* q, 
 
 // The chunk entry points' host side: check the shapes, copy the caller's
 // pool maps (host buffers of gridllm_ragged_pool_map) to aligned maps and
-// launch at D 64 or 128, with or without softcap; kDev and kFresh as
+// launch at D 64, 128 or 256, with or without softcap; kDev and kFresh as
 // chunk_body's (without kDev the bounds hold start and a total >= 0, and
 // f_limit its cut at the capacity; kc/vc are given iff kFresh); kQuant: the
 // maps read an int8 pool and a.k_scale/v_scale are its scales. Returns
@@ -846,7 +865,7 @@ template <class Entry, bool kDev, bool kFresh, bool kQuant>
 int run(const void* kp_map, const void* vp_map, const void* q, const void* kc, const void* vc,
         const ChunkArgs& a, int D, cudaStream_t stream) {
   if (a.H % a.KVH || a.bq < 1 || a.bq * (a.H / a.KVH) > kRows || a.box_rows < 8 ||
-      a.box_rows % 8 || kBK % a.box_rows || a.ps % a.box_rows ||
+      a.box_rows % 8 || tile_keys(D) % a.box_rows || a.ps % a.box_rows ||
       (kc != nullptr) != kFresh || (vc != nullptr) != kFresh ||
       kDev != a.bounds.on_device() || (!kDev && a.bounds.total < 0) ||
       (a.k_scale != nullptr) != kQuant || (a.v_scale != nullptr) != kQuant)
@@ -865,6 +884,11 @@ int run(const void* kp_map, const void* vp_map, const void* q, const void* kc, c
       return cap ? launch<Entry, 128, true, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
                                                                   stream)
                  : launch<Entry, 128, false, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
+                                                                   stream);
+    case 256:
+      return cap ? launch<Entry, 256, true, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
+                                                                  stream)
+                 : launch<Entry, 256, false, kDev, kFresh, kQuant>(&kpm, &vpm, q, kc, vc, a,
                                                                    stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);

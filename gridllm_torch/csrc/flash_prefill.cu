@@ -34,13 +34,15 @@
 //   owns one m64 row slab, and every K/V tile in shared memory serves 128
 //   rows. When G does not divide 128 (qwen2.5: G = 7, 126 rows) the spare
 //   rows are zeroed once, so stale shared memory cannot put NaN in a row.
-// - TMA loads Q once and K/V tiles of kBK = 128 keys through a ring of
-//   stages, each with a full and an empty mbarrier, in the 128-byte swizzle
-//   that wgmma descriptors read. A swizzled row is at most 128 bytes, so a
-//   D = 128 row is two 64-column blocks. The tensor maps are encoded on the
+// - TMA loads Q once and K/V tiles of kBK keys (128; 64 at D = 256, see
+//   hopper_common.cuh) through a ring of stages, each with a full and an
+//   empty mbarrier, in the 128-byte swizzle that wgmma descriptors read. A
+//   swizzled row is at most 128 bytes, so a D = 128 row is two 64-column
+//   blocks, a D = 256 row four. The tensor maps are encoded on the
 //   host at each launch and passed as __grid_constant__ parameters; keys
 //   and queries past T are zero-filled by TMA.
-// - S = Q K^T: wgmma m64n128k16 with both operands in shared memory.
+// - S = Q K^T: wgmma m64n128k16 (m64n64k16 at D = 256) with both operands
+//   in shared memory.
 //   Softmax in registers with exp2f on logits prescaled by scale*log2(e);
 //   P rounded to bf16 in registers is wgmma's register A operand for
 //   O += P V (m64n64k16 per 64-column block, V as an MN-major B).
@@ -56,8 +58,9 @@
 // m16n8k16 on bf16 operands, each float32 operand split into bf16 hi + lo
 // and each product hi*hi + hi*lo + lo*hi (about 16 mantissa bits, far
 // inside the 1e-3 float32 tolerance; tf32 would give 10), K/V through a
-// cp.async double buffer, 8 warps of 16 rows over the same 128-row query
-// tile.
+// cp.async double buffer of kSplitBK keys (64; 16 at D = 256, where the
+// 128 padded query rows take 135 KB of float32), 8 warps of 16 rows over
+// the same 128-row query tile.
 //
 // Offsets into q, k, v and out are 64-bit.
 #include "hopper_common.cuh"
@@ -80,6 +83,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                          int t_len, int H, int KVH, int bq, float scale, float softcap,
                          int window) {
   using L = Smem<D>;
+  constexpr int kBK = L::kBK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-byte aligned
@@ -175,7 +179,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                         (window > 0 && kt0 + kBK - 1 < w_first - window + 1);
       if (!skip) {
         const uint32_t st = kv_s + stage * L::kStageBytes;
-        float s[64];
+        float s[kBK / 2];
         qk_tile<D>(s, q_s, st, slab);
         // the tile plan: the per-element mask only where a row of the
         // query tile misses a key of this tile (diagonal, length, window)
@@ -206,7 +210,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 constexpr int kSplitWarps = 8;
 constexpr int kSplitThreads = kSplitWarps * 32;
-constexpr int kSplitBK = 64;  // keys per tile
+// keys per tile: at D = 256 the query tile and two stages of 64 keys would
+// take 405,504 bytes; of 16 keys, 202,752
+template <int D>
+__host__ __device__ constexpr int split_bk() { return D == 256 ? 16 : 64; }
 
 // Shared-memory row stride in elements: 8 elements of padding make the
 // fragment loads below conflict-free.
@@ -215,7 +222,7 @@ __host__ __device__ constexpr int split_ld() { return D + 8; }
 
 template <int D>
 constexpr int split_smem_bytes() {
-  return (kRows + 4 * kSplitBK) * split_ld<D>() * static_cast<int>(sizeof(float));
+  return (kRows + 4 * split_bk<D>()) * split_ld<D>() * static_cast<int>(sizeof(float));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -278,6 +285,7 @@ __global__ void __launch_bounds__(kSplitThreads)
                          float scale, float softcap, int window) {
   constexpr int LD = split_ld<D>();
   constexpr int CH = D / 4;  // 16-byte copies per row
+  constexpr int kSplitBK = split_bk<D>();
   extern __shared__ __align__(16) unsigned char smem_split[];
   float* qs = reinterpret_cast<float*>(smem_split);  // [kRows][LD]
   float* ks = qs + kRows * LD;                       // [2][kSplitBK][LD]
@@ -471,8 +479,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* seq_le
                  int window, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = encode(&qm, q, B, t_len, H, D, H / KVH, bq);
-  if (err == 0) err = encode(&km, k, B, t_len, KVH, D, 1, kBK);
-  if (err == 0) err = encode(&vm, v, B, t_len, KVH, D, 1, kBK);
+  if (err == 0) err = encode(&km, k, B, t_len, KVH, D, 1, Smem<D>::kBK);
+  if (err == 0) err = encode(&vm, v, B, t_len, KVH, D, 1, Smem<D>::kBK);
   if (err != 0) return err;
   auto kernel = prefill_wgmma_kernel<D, kCap>;
   constexpr int smem = Smem<D>::kBytes;
@@ -536,6 +544,9 @@ extern "C" int gridllm_flash_prefill(const void* q, const void* k, const void* v
                                  softcap, window, s);
     case 128:
       return gridllm::launch<128>(dtype, q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale,
+                                  softcap, window, s);
+    case 256:
+      return gridllm::launch<256>(dtype, q, k, v, seq_lens, out, B, t_len, H, KVH, bq, scale,
                                   softcap, window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

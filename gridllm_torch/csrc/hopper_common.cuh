@@ -7,17 +7,23 @@
 // - TMA 4-D tile loads into shared memory, completion counted in bytes on
 //   an mbarrier, and the host encoders of their tensor maps (bf16 tiles
 //   128-byte swizzled; int8 rows unswizzled);
-// - wgmma: shared-memory descriptors of 128-byte-swizzled tiles, m64n128k16
-//   with both operands in shared memory (S = Q K^T) and m64n64k16 with A
-//   from registers (O += P V), the fences around them;
+// - wgmma: shared-memory descriptors of 128-byte-swizzled tiles,
+//   m64n128k16 and m64n64k16 with both operands in shared memory (S = Q K^T
+//   over a 128- or a 64-key tile) and m64n64k16 with A from registers
+//   (O += P V), the fences around them;
 // - setmaxnreg for the producer and consumer warpgroups;
-// - the online-softmax step of one 128-key tile on the m64n128 accumulator
+// - the online-softmax step of one K/V tile on the m64nBK accumulator
 //   layout, with the per-element mask on absolute positions as a template
 //   flag (`softmax_tile`), and optionally per-key V scales on P (the int8
 //   pool's chunk).
 // Both kernels share the block shape: one producer warpgroup (one thread
 // issues TMA loads) and two consumer warpgroups of 64 query rows each,
-// over a ring of K/V stages (`Smem<D>`).
+// over a ring of K/V stages (`Smem<D>`). The keys per tile depend on D
+// (`tile_keys`): 128 at D 64 and 128; 64 at D = 256, where Q alone takes
+// 64 KB and a 128-key stage of K and V 128 KB, so two such stages would
+// pass the 227 KB a block may use, and the consumers' O (m64n256, 128
+// float registers a thread) leaves room for S of 64 keys (32 registers),
+// not 128 (64).
 #pragma once
 
 #include <cuda.h>
@@ -31,7 +37,10 @@ namespace gridllm {
 namespace hopper {
 
 constexpr int kRows = 128;  // query rows per block
-constexpr int kBK = 128;    // keys per K/V tile
+
+// Keys per K/V tile at head dim D (see the note at the top); the host's
+// plans take the same value (ops/cuda_kernels.py `prefill_bk`).
+__host__ __device__ constexpr int tile_keys(int D) { return D == 256 ? 64 : 128; }
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -61,14 +70,15 @@ __device__ __forceinline__ void write_zeros(T* ob, int rows, int G, int64_t tok_
   }
 }
 
-// Shared-memory layout of a block: Q, then kStages K/V stages, then the
-// mbarriers.
+// Shared-memory layout of a block: Q, then kStages K/V stages of kBK keys,
+// then the mbarriers. D = 256: 64 KB of Q and two 64 KB stages.
 template <int D>
 struct Smem {
+  static constexpr int kBK = tile_keys(D);           // keys per K/V tile
   static constexpr int kBlocks = D / 64;             // 64-column (128-byte) blocks
   static constexpr int kQBlock = kRows * 128;        // bytes of one Q column block
   static constexpr int kKVBlock = kBK * 128;         // bytes of one K or V column block
-  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kStages = D == 64 ? 3 : 2;
   static constexpr int kStageBytes = 2 * kBlocks * kKVBlock;  // K blocks, then V blocks
   static constexpr int kQBytes = kBlocks * kQBlock;
   static constexpr int kBarOff = kQBytes + kStages * kStageBytes;
@@ -194,6 +204,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d += A * B, m64n64k16: A (64 x 16) and B (16 x 64) from shared memory, both
+// K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A * B, m64n64k16: A (64 x 16) from registers, B (16 x 64) from
 // shared memory, MN-major (transposed); scale_d = 0 overwrites d
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -219,19 +249,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 // kp <= qp, kp < seq_len and, with a window, qp - kp < window; positions
 // absolute, the tile's first key at kt0), the online-softmax update of the
 // row statistics and of O, and P as bf16 wgmma A fragments. Thread layout
-// of the m64n128 accumulator: s[i] is row r0 (i % 4 < 2) or r0 + 8, key
-// 8 * (i / 4) + 2 * quad + (i & 1) of the tile. kVScale: P's columns are
-// multiplied by v_scale[key] (kBK floats in shared memory) before they are
-// packed, and l sums them unscaled (an int8 V tile converted exactly).
-template <bool kMask, bool kCap, int NB, bool kVScale = false>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[kBK / 16][4],
+// of the m64nBK accumulator (NS = BK / 2 floats a thread): s[i] is row r0
+// (i % 4 < 2) or r0 + 8, key 8 * (i / 4) + 2 * quad + (i & 1) of the tile.
+// kVScale: P's columns are multiplied by v_scale[key] (BK floats in shared
+// memory) before they are packed, and l sums them unscaled (an int8 V tile
+// converted exactly).
+template <bool kMask, bool kCap, bool kVScale = false, int NB, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], uint32_t (&p)[NS / 8][4],
                                              float (&o)[NB][32], float& m0, float& m1,
                                              float& l0, float& l1, float scale, float softcap,
                                              int kt0, int quad, int qp0, int qp1, int seq_len,
                                              int window, const float* v_scale = nullptr) {
   float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     float x = kCap ? softcap * tanhf(s[i] * scale / softcap) * kLog2e : s[i] * (scale * kLog2e);
     if (kMask) {
       const int kp = kt0 + (i / 4) * 8 + quad * 2 + (i & 1);
@@ -259,7 +290,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[kBK /
     for (int i = 0; i < 32; ++i) o[b][i] *= (i & 2) ? al1 : al0;
   }
 #pragma unroll
-  for (int j = 0; j < kBK / 16; ++j) {  // keys 16j .. 16j + 15: s[8j .. 8j + 7]
+  for (int j = 0; j < NS / 8; ++j) {  // keys 16j .. 16j + 15: s[8j .. 8j + 7]
     float e[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -286,16 +317,21 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[kBK /
 // q_s against the K blocks of the stage at k_s, both 128-byte swizzled in
 // 64-column blocks of kRows (Q) and kBK (K) rows.
 template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t q_s, uint32_t k_s, int slab) {
+__device__ __forceinline__ void qk_tile(float (&s)[Smem<D>::kBK / 2], uint32_t q_s, uint32_t k_s,
+                                        int slab) {
 #pragma unroll
-  for (int j = 0; j < 64; ++j) s[j] = 0.f;
+  for (int j = 0; j < Smem<D>::kBK / 2; ++j) s[j] = 0.f;
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {  // column block kk / 4, 32 bytes per step
     const uint32_t col = (kk % 4) * 32;
-    wgmma_ss_n128(s, desc_sw128(q_s + (kk / 4) * Smem<D>::kQBlock + slab * 128 + col),
-                  desc_sw128(k_s + (kk / 4) * Smem<D>::kKVBlock + col), 1);
+    const uint64_t da = desc_sw128(q_s + (kk / 4) * Smem<D>::kQBlock + slab * 128 + col);
+    const uint64_t db = desc_sw128(k_s + (kk / 4) * Smem<D>::kKVBlock + col);
+    if constexpr (Smem<D>::kBK == 128)
+      wgmma_ss_n128(s, da, db, 1);
+    else
+      wgmma_ss_n64(s, da, db, 1);
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -304,13 +340,13 @@ __device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t q_s, uint32_t k
 
 // O += P V for one consumer warpgroup, V the stage's V blocks at v_s.
 template <int D>
-__device__ __forceinline__ void pv_tile(float (&o)[D / 64][32], const uint32_t (&p)[kBK / 16][4],
-                                        uint32_t v_s) {
+__device__ __forceinline__ void pv_tile(float (&o)[D / 64][32],
+                                        const uint32_t (&p)[Smem<D>::kBK / 16][4], uint32_t v_s) {
 #pragma unroll
   for (int cb = 0; cb < D / 64; ++cb) fence_regs(o[cb]);
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kBK / 16; ++j) {  // 16 keys: two 8-row groups of V
+  for (int j = 0; j < Smem<D>::kBK / 16; ++j) {  // 16 keys: two 8-row groups of V
 #pragma unroll
     for (int cb = 0; cb < D / 64; ++cb)
       wgmma_rs_n64(o[cb], p[j], desc_sw128(v_s + cb * Smem<D>::kKVBlock + j * 16 * 128), 1);

@@ -83,10 +83,9 @@ import numpy as np
 import torch
 
 from gridllm_torch import faults
-from gridllm_torch.engine.loader import load_checkpoint, weight_snapshot_tier
+from gridllm_torch.engine.loader import load_checkpoint, model_class, weight_snapshot_tier
 from gridllm_torch.engine.tokenizer import DetokState, Tokenizer, get_tokenizer
 from gridllm_torch.models.configs import config_from_hf_dir, get_config
-from gridllm_torch.models.llama import Llama
 from gridllm_torch.obs import SIZE_BUCKETS, default_registry
 from gridllm_torch.obs.perf import DEVICE_STEP_SECONDS, DISPATCH_SECONDS, HOST_SCHED_SECONDS
 from gridllm_torch.ops.kvcache import (
@@ -201,8 +200,9 @@ _SPEC_ACCEPT_RATE = _OBS.histogram(
     "with at least one proposed draft), by model and drafter kind.",
     ("model", "drafter"), buckets=(0.0, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
 )
-# the families the port's Llama serves (each has verify and decode steps)
-_DRAFT_FAMILIES = ("llama", "qwen2", "qwen3")
+# the families whose torch model can draft (each has verify and decode
+# steps: every family the port serves)
+_DRAFT_FAMILIES = ("llama", "qwen2", "qwen3", "gemma2")
 
 _FOREIGN_CAPTURE = (
     "InferenceEngine: a torch.profiler capture that InferenceEngine.profile() "
@@ -535,8 +535,8 @@ class InferenceEngine:
         swap.snapshot_restore, and an injected fault falls through to the
         checkpoint or init, never a failed load."""
         c = self.config
-        self.model = Llama(self.cfg, dtype=self.dtype, device=self.device,
-                           ragged_attention=c.ragged_attention)
+        self.model = model_class(self.cfg)(self.cfg, dtype=self.dtype, device=self.device,
+                                           ragged_attention=c.ragged_attention)
         if params is not None:
             self.model.params_from_jax(params)
             self.load_source = "init"
@@ -668,8 +668,8 @@ class InferenceEngine:
                         "drafting with n-grams", name, dcfg.family)
             return None
         c = self.config
-        model = Llama(dcfg, dtype=self.dtype, device=self.device,
-                      ragged_attention=c.ragged_attention)
+        model = model_class(dcfg)(dcfg, dtype=self.dtype, device=self.device,
+                                  ragged_attention=c.ragged_attention)
         if draft_params is not None:
             model.params_from_jax(draft_params)
         elif c.draft_checkpoint:

@@ -1,7 +1,8 @@
 """Checkpoint loading and saving, and the host-RAM weight snapshot tier.
 
 The counterpart of the JAX package's engine/loader.py for the families the
-port's `Llama` serves. The safetensors format is read and written here,
+port serves (`model_class`: `Llama` for llama, qwen2 and qwen3, `Gemma2`
+for gemma2). The safetensors format is read and written here,
 with no package for it (the card's machine has none):
 
 - `_open_safetensors`: every ``*.safetensors`` of a directory (a sharded
@@ -15,7 +16,7 @@ with no package for it (the card's machine has none):
   closed, whatever the process advised (PERF.md), so a load held
   the whole checkpoint in host memory. Read this way it holds one tensor
   on the CPU path and the two staging buffers on the CUDA path.
-- `load_checkpoint`: an HF-layout directory into a `Llama`, layer by
+- `load_checkpoint`: an HF-layout directory into the family's model, layer by
   layer through `models.hf_layout` (each tensor to the device as stored,
   transposed and converted there).
 - `save_checkpoint`: a model to ``model.safetensors`` in the dtype asked
@@ -38,7 +39,8 @@ from collections import OrderedDict
 import torch
 
 from gridllm_torch.models.configs import ModelConfig
-from gridllm_torch.models.llama import Llama, hf_map
+from gridllm_torch.models.gemma import Gemma2
+from gridllm_torch.models.llama import Llama
 from gridllm_torch.obs import default_registry
 from gridllm_torch.utils.config import env_int
 from gridllm_torch.utils.logging import get_logger
@@ -206,20 +208,33 @@ def _save_safetensors(fname: str, tensors: dict[str, torch.Tensor],
     return 8 + len(header) + offset
 
 
+# the torch model of each family this package serves
+_FAMILIES = {"llama": Llama, "qwen2": Llama, "qwen3": Llama, "gemma2": Gemma2}
+
+
+def model_class(cfg: ModelConfig) -> type[Llama]:
+    """The torch model of cfg's family (the JAX engine's `_model_module`);
+    raises for a family this package has no model for. Each class owns
+    its HF layout contract (`name_map()`, the JAX loader's `_name_map`)."""
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} has no torch model")
+    return _FAMILIES[cfg.family]
+
+
 def load_checkpoint(cfg: ModelConfig, path: str, dtype: torch.dtype = torch.bfloat16,
                     device: str | torch.device = "cuda", quantize: str | None = None,
                     model: Llama | None = None, ragged_attention: bool = True) -> Llama:
-    """Load an HF-layout safetensors directory into a `Llama` (`model`, or a
-    new one of `dtype` on `device`). Each tensor is read onto the model's
-    device as stored, then transposed and converted there into its slot."""
+    """Load an HF-layout safetensors directory into the family's model
+    (`model`, or a new one of `dtype` on `device`). Each tensor is read onto
+    the model's device as stored, then transposed and converted there into
+    its slot."""
     if quantize:
         raise NotImplementedError(
             f"load_checkpoint(quantize={quantize!r}): int8 weights are not ported to "
             "the torch package yet (ROADMAP A 6)")
-    if cfg.family not in ("llama", "qwen2", "qwen3"):
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} has no torch model")
+    cls = model_class(cfg)
     if model is None:
-        model = Llama(cfg, dtype=dtype, device=device, ragged_attention=ragged_attention)
+        model = cls(cfg, dtype=dtype, device=device, ragged_attention=ragged_attention)
     idx = _open_safetensors(path)
     try:
         model.params_from_hf(lambda name: idx.get(name, model.device))
@@ -238,7 +253,7 @@ def save_checkpoint(model: Llama, cfg: ModelConfig, path: str,
     from gridllm_torch.models import hf_layout
 
     os.makedirs(path, exist_ok=True)
-    tensors = hf_layout.to_hf_tensors(model.params_tree(), cfg, hf_map(cfg))
+    tensors = hf_layout.to_hf_tensors(model.params_tree(), cfg, model.name_map())
     n = _save_safetensors(os.path.join(path, "model.safetensors"), tensors, dtype)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg.hf_config(torch_dtype=str(dtype).removeprefix("torch.")), f, indent=2)

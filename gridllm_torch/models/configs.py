@@ -2,7 +2,7 @@
 
 A copy of the JAX package's ``models/configs.py`` data for the families
 this package serves (llama, qwen2/qwen3, the llama-skeleton mistral
-entries and the tiny test configs):
+entries, gemma2 and the tiny test configs):
 Ollama-style model names map to the public HF architecture dimensions.
 The port keeps its own copy so that it imports nothing of the JAX
 package. `config_from_hf_dir` builds a config from a local HF
@@ -24,7 +24,7 @@ from gridllm_torch.ops.layers import RopeScaling
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str = "llama"            # llama | qwen2 | qwen3
+    family: str = "llama"            # llama | qwen2 | qwen3 | gemma2
     vocab_size: int = 128_256
     hidden_size: int = 4096
     intermediate_size: int = 14_336
@@ -41,6 +41,10 @@ class ModelConfig:
     sliding_window: int = 0          # 0 → full attention
     attn_bias: bool = False          # qwen2: bias on q/k/v projections
     qk_norm: bool = False            # qwen3: per-head RMSNorm on q/k pre-rope
+    # gemma2: logits scale by qpas**-0.5 (None → head_dim), lm-head
+    # logits tanh-capped
+    query_pre_attn_scalar: float | None = None
+    final_logit_softcap: float = 0.0
 
     @property
     def head_dim_(self) -> int:
@@ -65,6 +69,17 @@ class ModelConfig:
             hidden_act="silu",
             torch_dtype=torch_dtype,
         )
+        if self.family == "gemma2":
+            # the transformers Gemma2Config the JAX package builds for its
+            # golden tests (attention_bias False, hidden_activation
+            # gelu_pytorch_tanh; the window on alternate layers)
+            return dict(out, model_type="gemma2", architectures=["Gemma2ForCausalLM"],
+                        hidden_act="gelu_pytorch_tanh",
+                        hidden_activation="gelu_pytorch_tanh", attention_bias=False,
+                        sliding_window=self.sliding_window,
+                        attn_logit_softcapping=self.attn_logit_softcap,
+                        final_logit_softcapping=self.final_logit_softcap,
+                        query_pre_attn_scalar=self.query_pre_attn_scalar or self.head_dim_)
         if self.family == "qwen2":
             # qwen2 hardcodes its q/k/v bias; its window is off
             return dict(out, model_type="qwen2", architectures=["Qwen2ForCausalLM"],
@@ -166,6 +181,29 @@ register(ModelConfig(
     head_dim=128, rope_theta=1_000_000.0, max_seq_len=131_072, rms_eps=1e-5,
 ))
 
+# gemma2 (public HF configs; Ollama's gemma2 tags)
+register(ModelConfig(
+    name="gemma2:2b", family="gemma2", vocab_size=256_000, hidden_size=2304,
+    intermediate_size=9216, num_layers=26, num_heads=8, num_kv_heads=4,
+    head_dim=256, rope_theta=10_000.0, rms_eps=1e-6, tie_embeddings=True,
+    max_seq_len=8192, sliding_window=4096, attn_logit_softcap=50.0,
+    final_logit_softcap=30.0, query_pre_attn_scalar=256,
+))
+register(ModelConfig(
+    name="gemma2:9b", family="gemma2", vocab_size=256_000, hidden_size=3584,
+    intermediate_size=14_336, num_layers=42, num_heads=16, num_kv_heads=8,
+    head_dim=256, rope_theta=10_000.0, rms_eps=1e-6, tie_embeddings=True,
+    max_seq_len=8192, sliding_window=4096, attn_logit_softcap=50.0,
+    final_logit_softcap=30.0, query_pre_attn_scalar=256,
+))
+register(ModelConfig(
+    name="gemma2:27b", family="gemma2", vocab_size=256_000, hidden_size=4608,
+    intermediate_size=36_864, num_layers=46, num_heads=32, num_kv_heads=16,
+    head_dim=128, rope_theta=10_000.0, rms_eps=1e-6, tie_embeddings=True,
+    max_seq_len=8192, sliding_window=4096, attn_logit_softcap=50.0,
+    final_logit_softcap=30.0, query_pre_attn_scalar=144,
+))
+
 # Tiny configs: architecture-faithful, test-sized.
 register(ModelConfig(
     name="tiny-llama", vocab_size=256, hidden_size=64, intermediate_size=128,
@@ -189,6 +227,13 @@ register(ModelConfig(
     intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
     head_dim=16, rope_theta=10_000.0, max_seq_len=256, sliding_window=8,
 ))
+register(ModelConfig(
+    name="tiny-gemma2", family="gemma2", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=16, rope_theta=10_000.0, rms_eps=1e-6, tie_embeddings=True,
+    max_seq_len=256, sliding_window=8, attn_logit_softcap=50.0,
+    final_logit_softcap=30.0, query_pre_attn_scalar=24,
+))
 
 
 def get_config(name: str) -> ModelConfig:
@@ -211,11 +256,11 @@ _HF_FAMILY = {
     "mistral": "llama",
     "qwen2": "qwen2",
     "qwen3": "qwen3",
+    "gemma2": "gemma2",
 }
 # HF model_types the JAX package serves and this one does not yet: the
 # ROADMAP item that ports each
 _HF_UNPORTED = {
-    "gemma2": "ROADMAP A 5",
     "mixtral": "ROADMAP A 7",
     "bert": "ROADMAP A 8",
     "llava": "ROADMAP A 8",
@@ -263,7 +308,8 @@ def _config_from_hf_dict(name: str, hf: dict, path: str) -> ModelConfig:
         rope_theta=hf.get("rope_theta", 10_000.0),
         rope_scaling=scaling,
         rms_eps=hf.get("rms_norm_eps", 1e-5),
-        tie_embeddings=hf.get("tie_word_embeddings", False),
+        # gemma2 checkpoints tie embeddings without always saying so
+        tie_embeddings=hf.get("tie_word_embeddings", family == "gemma2"),
         max_seq_len=hf.get("max_position_embeddings", 8192),
         # qwen2 configs carry sliding_window with use_sliding_window=false:
         # the family attends to the full context then
@@ -272,4 +318,6 @@ def _config_from_hf_dict(name: str, hf: dict, path: str) -> ModelConfig:
         attn_bias=family == "qwen2" or bool(hf.get("attention_bias")),
         qk_norm=family == "qwen3",
         attn_logit_softcap=hf.get("attn_logit_softcapping") or 0.0,
+        final_logit_softcap=hf.get("final_logit_softcapping") or 0.0,
+        query_pre_attn_scalar=hf.get("query_pre_attn_scalar"),
     )

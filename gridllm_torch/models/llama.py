@@ -25,6 +25,11 @@ GRIDLLM_RAGGED_ATTN), fixed when the model is built: on, decode, verify and
 chunks run the unified ragged kernel; off, they run the per-phase
 dispatchers (`paged_attention_decode`, `paged_attention_verify`,
 `attention_prefix_chunk`). `mixed_step` exists only with it on.
+
+Every attention call takes layer li's sliding window (`_window(li)`) and
+the config's logit softcap, so a family whose layers differ only there
+(gemma2, models/gemma.py) shares the entry points and overrides the
+pieces: `_layer_shapes`, `_embed`, `_block`, `_window`, `_unembed`.
 """
 
 from __future__ import annotations
@@ -57,21 +62,36 @@ class Llama(nn.Module):
     """Llama-skeleton decoder; `layers` holds the stacked [L, ...] leaves
     under the JAX pytree's names."""
 
+    # the norm leaves and the value init_params gives them (and final_norm)
+    NORMS: tuple[str, ...] = ("attn_norm", "mlp_norm", "q_norm", "k_norm")
+    NORM_INIT = 1.0
+
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda", ragged_attention: bool = True):
         super().__init__()
-        if cfg.attn_logit_softcap:
-            raise NotImplementedError(f"{cfg.name}: attn_logit_softcap")
         self.cfg = cfg
         self._ragged_attention = ragged_attention
-        e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-        h, kvh, d, n = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
+        e, v, d = cfg.hidden_size, cfg.vocab_size, cfg.head_dim_
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                                 requires_grad=False)
 
         self.embed = p(v, e)
+        self.layers = nn.ParameterDict({k: p(*s) for k, s in self._layer_shapes().items()})
+        self.final_norm = p(e)
+        self.lm_head = None if cfg.tie_embeddings else p(e, v)
+        self.register_buffer(
+            "inv_freq",
+            precompute_rope(d, cfg.rope_theta, cfg.rope_scaling, device=device),
+            persistent=False,
+        )
+
+    def _layer_shapes(self) -> dict[str, tuple[int, ...]]:
+        """The stacked [L, ...] layer leaves by their JAX pytree names."""
+        cfg = self.cfg
+        e, f = cfg.hidden_size, cfg.intermediate_size
+        h, kvh, d, n = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.num_layers
         shapes = {
             "attn_norm": (n, e), "wq": (n, e, h * d), "wk": (n, e, kvh * d),
             "wv": (n, e, kvh * d), "wo": (n, h * d, e), "mlp_norm": (n, e),
@@ -81,14 +101,7 @@ class Llama(nn.Module):
             shapes.update(bq=(n, h * d), bk=(n, kvh * d), bv=(n, kvh * d))
         if cfg.qk_norm:
             shapes.update(q_norm=(n, d), k_norm=(n, d))
-        self.layers = nn.ParameterDict({k: p(*s) for k, s in shapes.items()})
-        self.final_norm = p(e)
-        self.lm_head = None if cfg.tie_embeddings else p(e, v)
-        self.register_buffer(
-            "inv_freq",
-            precompute_rope(d, cfg.rope_theta, cfg.rope_scaling, device=device),
-            persistent=False,
-        )
+        return shapes
 
     @property
     def device(self) -> torch.device:
@@ -104,8 +117,8 @@ class Llama(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Llama":
         """Random weights with the JAX package's scales (normal × fan_in
-        ** -0.5 for projections, 0.02 for embedding/head and biases, ones
-        for norms), drawn in float32 on the module's device."""
+        ** -0.5 for projections, 0.02 for embedding/head and biases,
+        NORM_INIT for norms), drawn in float32 on the module's device."""
 
         def normal_(t: torch.Tensor, scale: float) -> None:
             for i in range(t.shape[0]):  # one leaf slice at a time: bounded memory
@@ -114,13 +127,13 @@ class Llama(nn.Module):
 
         normal_(self.embed, 0.02)
         for name, t in self.layers.items():
-            if name in ("attn_norm", "mlp_norm", "q_norm", "k_norm"):
-                t.fill_(1.0)
+            if name in self.NORMS:
+                t.fill_(self.NORM_INIT)
             elif name in ("bq", "bk", "bv"):
                 normal_(t, 0.02)
             else:
                 normal_(t, t.shape[-2] ** -0.5)
-        self.final_norm.fill_(1.0)
+        self.final_norm.fill_(self.NORM_INIT)
         if self.lm_head is not None:
             normal_(self.lm_head, 0.02)
         return self
@@ -156,7 +169,7 @@ class Llama(nn.Module):
     @torch.no_grad()
     def params_from_hf(self, get: Callable[[str], torch.Tensor]) -> "Llama":
         """Fill the parameters from HF-named tensors (`get`, e.g. a
-        safetensors reader) through `hf_map(cfg)`: each layer's tensor goes
+        safetensors reader) through `name_map()`: each layer's tensor goes
         to the module's device as stored, is transposed there when the map
         says so and converted into its slot of the preallocated [L, ...]
         parameter, so no stacked or transposed copy is made on the host.
@@ -176,8 +189,13 @@ class Llama(nn.Module):
                                  f"!= {tuple(dst.shape)}")
             dst.copy_(src)
 
-        hf_layout.to_pytree(self.cfg, get, hf_map(self.cfg), place)
+        hf_layout.to_pytree(self.cfg, get, self.name_map(), place)
         return self
+
+    def name_map(self) -> dict[str, tuple[str, bool]]:
+        """The family's HF layout contract (leaf → HF name template,
+        transpose?)."""
+        return hf_map(self.cfg)
 
     def free_params(self) -> None:
         """Drop every parameter's storage (the engine's unload after its
@@ -229,6 +247,10 @@ class Llama(nn.Module):
         head = self.embed.T if self.lm_head is None else self.lm_head
         return (x @ head).float()
 
+    def _window(self, li: int) -> int:
+        """Layer li's sliding window (0: full attention)."""
+        return self.cfg.sliding_window
+
     # ------------------------------------------------------------ entry points
 
     @torch.no_grad()
@@ -239,11 +261,13 @@ class Llama(nn.Module):
         pos = torch.arange(t, device=x.device)[None].expand(b, t)
         rope = rope_tables(pos, self.inv_freq)
         seq_lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
-
-        def attend(q, k, v):
-            return attention_prefill(q, k, v, seq_lens, window=self.cfg.sliding_window)
+        cap = self.cfg.attn_logit_softcap
 
         for li in range(self.cfg.num_layers):
+            def attend(q, k, v, li=li):
+                return attention_prefill(q, k, v, seq_lens, logit_softcap=cap,
+                                         window=self._window(li))
+
             x, _, _ = self._block(li, x, rope, attend)
         return self._unembed(x)
 
@@ -265,11 +289,13 @@ class Llama(nn.Module):
         rope = rope_tables(torch.arange(t, device=x.device)[None], self.inv_freq)
         seq_lens = torch.tensor([length], dtype=torch.int32, device=x.device)
         k_new, v_new = self._kv_buffers(t, x)
-
-        def attend(q, k, v):
-            return attention_prefill(q, k, v, seq_lens, window=self.cfg.sliding_window)
+        cap = self.cfg.attn_logit_softcap
 
         for li in range(self.cfg.num_layers):
+            def attend(q, k, v, li=li):
+                return attention_prefill(q, k, v, seq_lens, logit_softcap=cap,
+                                         window=self._window(li))
+
             x, k, v = self._block(li, x, rope, attend)
             k_new[li], v_new[li] = k[0], v[0]
         logits = self._unembed(x[0, max(length - 1, 0)])
@@ -298,17 +324,19 @@ class Llama(nn.Module):
         x = x[None]
         rope = rope_tables(pos[None], self.inv_freq)
         k_new, v_new = self._kv_buffers(x.shape[1], x)
-        ps, window = cache.page_size, self.cfg.sliding_window
+        ps, cap = cache.page_size, self.cfg.attn_logit_softcap
         per_phase = not self.ragged_attention
         if per_phase:  # start and total as device scalars for every layer's kernel
             bounds = torch.tensor([start, total], dtype=torch.int32, device=dev)
 
         for li in range(self.cfg.num_layers):
-            def attend(q, k, v, li=li):
+            window = self._window(li)
+
+            def attend(q, k, v, li=li, window=window):
                 if per_phase:
                     return attention_prefix_chunk(
                         q, cache.k, cache.v, table_row, bounds[0:1], bounds[1:2], ps,
-                        k_cur=k[0], v_cur=v[0], layer=li, window=window)
+                        k_cur=k[0], v_cur=v[0], layer=li, logit_softcap=cap, window=window)
                 kw = {}
                 if group is not None:
                     kw = dict(q_group=q[0, c:][:, None], page_table=cache.page_table,
@@ -317,7 +345,7 @@ class Llama(nn.Module):
                 oc, og = ragged_paged_attention(
                     cache.k, cache.v, ps, q_chunk=q[:, :c], chunk_row=table_row,
                     chunk_start=start, chunk_total=total, k_chunk=k[0, :c],
-                    v_chunk=v[0, :c], layer=li, window=window, **kw)
+                    v_chunk=v[0, :c], layer=li, logit_softcap=cap, window=window, **kw)
                 return oc if og is None else torch.cat([oc, og[:, 0][None]], dim=1)
 
             x, k, v = self._block(li, x, rope, attend)
@@ -352,18 +380,21 @@ class Llama(nn.Module):
         x = self._embed(tokens)
         rope = rope_tables(positions[:, None], self.inv_freq)
         k_new, v_new = self._kv_buffers(s, x)
-        ps, window = cache.page_size, self.cfg.sliding_window
+        ps, cap = cache.page_size, self.cfg.attn_logit_softcap
 
         for li in range(self.cfg.num_layers):
-            def attend(q, k, v, li=li):  # one query row per slot: Td = 1
+            window = self._window(li)
+
+            def attend(q, k, v, li=li, window=window):  # one query row per slot: Td = 1
                 if not self.ragged_attention:
                     return paged_attention_decode(
                         q[:, 0], cache.k, cache.v, cache.page_table, positions, ps,
-                        k_cur=k[:, 0], v_cur=v[:, 0], layer=li, window=window)[:, None]
+                        k_cur=k[:, 0], v_cur=v[:, 0], layer=li, logit_softcap=cap,
+                        window=window)[:, None]
                 _, og = ragged_paged_attention(
                     cache.k, cache.v, ps, q_group=q, page_table=cache.page_table,
                     group_lengths=positions, k_group=k, v_group=v, layer=li,
-                    window=window)
+                    logit_softcap=cap, window=window)
                 return og
 
             x, k, v = self._block(li, x[:, None], rope, attend)
@@ -410,18 +441,20 @@ class Llama(nn.Module):
         shape = (cfg.num_layers, s, t, cfg.num_kv_heads, cfg.head_dim_)
         k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
         v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
-        ps, window = cache.page_size, cfg.sliding_window
+        ps, cap = cache.page_size, cfg.attn_logit_softcap
 
         for li in range(cfg.num_layers):
-            def attend(q, k, v, li=li):
+            window = self._window(li)
+
+            def attend(q, k, v, li=li, window=window):
                 if not self.ragged_attention:
                     return paged_attention_verify(
                         q, cache.k, cache.v, cache.page_table, base, ps, k, v,
-                        layer=li, window=window, **tree)
+                        layer=li, logit_softcap=cap, window=window, **tree)
                 _, og = ragged_paged_attention(
                     cache.k, cache.v, ps, q_group=q, page_table=cache.page_table,
-                    group_lengths=base, k_group=k, v_group=v, layer=li, window=window,
-                    **tree)
+                    group_lengths=base, k_group=k, v_group=v, layer=li, logit_softcap=cap,
+                    window=window, **tree)
                 return og
 
             x, k_new[li], v_new[li] = self._block(li, x, rope, attend)

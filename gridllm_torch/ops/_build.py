@@ -23,8 +23,13 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("paged_write.cu", "flash_prefill.cu", "ragged_attention.cu",
            "per_phase_attention.cu")
+# --split-compile=0: each source's device optimisation on every core (the
+# two attention sources, with their D = 256 instantiations, took 222 s
+# each without it on the card's 8 cores; ragged_attention.cu alone ~100 s
+# with it)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

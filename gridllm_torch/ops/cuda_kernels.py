@@ -139,16 +139,24 @@ _SIGNATURES: dict[str, tuple[str, list]] = {
 _fns: dict[str, Any] = {}
 _fns_lock = threading.Lock()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _MAX_ROWS = 32  # query rows one block holds: kWarps (4) x RPW (<= 8)
 MAX_TREE_NODES = 32  # the tree leg's int32 ancestor bitmask per node
 PREFILL_ROWS = 128  # hopper_common.cuh: query rows per block, two m64 slabs
-PREFILL_BK = 128    # hopper_common.cuh: keys per K/V tile (bf16)
+PREFILL_BK = 128    # hopper_common.cuh: keys per K/V tile (bf16) at D 64 and 128
 # codes of the TMA kernels' entry points beside cudaError_t values
 _PREFILL_ERRORS = {-1: "cuTensorMapEncodeTiled not found in libcuda.so.1",
                    -2: "the driver refused a TMA tensor map",
                    -3: "the chunk kernel's shared memory (its staged table row) passes "
                        "the card's per-block limit"}
+
+
+def prefill_bk(d: int) -> int:
+    """Keys per K/V tile of the tensor-core kernels at head dim `d`
+    (hopper_common.cuh `tile_keys`): PREFILL_BK, and 64 at D = 256, where Q
+    (64 KB) and two stages of 128 keys (256 KB) would pass a block's shared
+    memory. Every host plan of those kernels takes its tile from here."""
+    return 64 if d == 256 else PREFILL_BK
 
 
 def _fn(name: str):
@@ -205,12 +213,16 @@ def _float_dtype(kernel: str, t: torch.Tensor) -> int:
     return _DTYPES[t.dtype]
 
 
-def _rows_per_warp(rows: int) -> int:
-    """Smallest compiled rows-per-warp whose 4 warps hold `rows` (<= 32)."""
+def _rows_per_warp(rows: int, d: int = 128) -> int:
+    """Smallest compiled rows-per-warp whose 4 warps hold `rows` (<= 32),
+    at most 4 at D = 256: 8 rows a warp there need more than 255 registers
+    (the compiler spilled 240 bytes a thread in bf16) and are not compiled
+    (attention_bodies.cuh `kMaxRpw`); more rows take more passes."""
+    cap = 4 if d == 256 else 8
     for rpw in (1, 2, 4, 8):
-        if 4 * rpw >= min(rows, _MAX_ROWS):
+        if rpw == cap or 4 * rpw >= min(rows, _MAX_ROWS):
             return rpw
-    return 8
+    return cap
 
 
 def _kv_heads_and_dim(kernel: str, k_pages: torch.Tensor) -> tuple[int, int]:
@@ -339,10 +351,12 @@ class QueryTile:
 
 
 def prefill_tile_plan(t_len: int, seq_len: int, g: int, window: int = 0,
-                      bk: int = PREFILL_BK, n_rows: int = PREFILL_ROWS) -> list[QueryTile]:
+                      bk: int | None = None, n_rows: int = PREFILL_ROWS,
+                      d: int = 128) -> list[QueryTile]:
     """The tile plan of csrc/flash_prefill.cu for one sequence and kv head,
     in the order the blocks are issued (heaviest first: the last query
-    tokens see the most keys).
+    tokens see the most keys); bk None is the bf16 kernel's tile at head
+    dim `d` (`prefill_bk`).
 
     A block holds bq = n_rows // g query tokens, row r = token tok0 + r // g,
     query head r % g of the group (rows past g * bq are spare, zeroed). It
@@ -353,6 +367,7 @@ def prefill_tile_plan(t_len: int, seq_len: int, g: int, window: int = 0,
     tok0, all below seq_len, and (with a window) the last token within the
     window of the tile's first key. A query tile that starts at or past
     seq_len writes zeros."""
+    bk = prefill_bk(d) if bk is None else bk
     bq = n_rows // g
     n_tiles = -(-t_len // bq)
     plan = []
@@ -469,7 +484,7 @@ def _groups(kernel: str, fn: str, q, k_pages, v_pages, page_table, lengths, page
         split = _split_args(dev, stream, s, kvh, n_table, td * g, d, ps)
         _launch(fn, kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_new), _ptr(v_new),
                 _ptr(out), _ptr(page_table), _ptr(lengths), s, td, n_table, num_pages, ps,
-                layer, *split, h, kvh, d, _rows_per_warp(td * g), code, d ** -0.5,
+                layer, *split, h, kvh, d, _rows_per_warp(td * g, d), code, d ** -0.5,
                 float(softcap), int(window), stream, legs=legs)
     return out
 
@@ -549,8 +564,8 @@ def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: in
     stream = _stream(q)
     chunk = (_ptr(q), _ptr(k_cur), _ptr(v_cur), _ptr(out), _ptr(table_row), _ptr(start),
              _ptr(total), table_row.shape[0], num_pages)
-    if chunk_on_tensor_cores(q.dtype, k_pages.dtype, ps):
-        box = chunk_box_rows(ps)
+    if chunk_on_tensor_cores(q.dtype, k_pages.dtype, ps, d):
+        box = chunk_box_rows(ps, d)
         maps = [_pool_map(p, ps, kvh, d, box, kernel) for p in (k_pages, v_pages)]
         _launch("gridllm_prefix_chunk_wgmma", kernel, *maps, *chunk, n_layers * num_pages,
                 ps, box, layer, c, PREFILL_ROWS // g, h, kvh, d, d ** -0.5, float(softcap),
@@ -558,7 +573,7 @@ def prefix_chunk(q, k_pages, v_pages, table_row, start, total_len, page_size: in
     else:
         bq = max(1, _MAX_ROWS // g)
         _launch("gridllm_prefix_chunk", kernel, _ptr(q), _ptr(k_pages), _ptr(v_pages),
-                *chunk[1:], ps, layer, c, bq, h, kvh, d, _rows_per_warp(min(bq, c) * g), code,
+                *chunk[1:], ps, layer, c, bq, h, kvh, d, _rows_per_warp(min(bq, c) * g, d), code,
                 d ** -0.5, float(softcap), int(window), stream, legs=("chunk_cores",))
     return out
 
@@ -631,25 +646,28 @@ class ChunkTile:
     rows: tuple[tuple[int, int], ...]        # row r -> (chunk token, head within the group)
 
 
-def chunk_box_rows(page_size: int, bk: int = PREFILL_BK) -> int:
-    """Pool rows per TMA box of the chunk kernel: gcd(ps, 128), which must
-    hold whole 8-row swizzle atoms (ps a multiple of 8)."""
-    return int(np.gcd(page_size, bk))
+def chunk_box_rows(page_size: int, d: int = 128) -> int:
+    """Pool rows per TMA box of the chunk kernel at head dim `d`: gcd(ps,
+    prefill_bk(d)), which must hold whole 8-row swizzle atoms (ps a
+    multiple of 8)."""
+    return int(np.gcd(page_size, prefill_bk(d)))
 
 
-def chunk_on_tensor_cores(q_dtype: torch.dtype, pool_dtype: torch.dtype, page_size: int) -> bool:
+def chunk_on_tensor_cores(q_dtype: torch.dtype, pool_dtype: torch.dtype, page_size: int,
+                          d: int = 128) -> bool:
     """The chunk region's route, by input type: the wgmma + TMA kernel for
     a bf16 q on a bf16 or an int8 pool (its tiles converted to bf16 in
     shared memory) whose page size holds whole 8-row boxes; the CUDA-core
     kernel ("chunk_cores") for float32 q or another page size."""
     return (q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8)
-            and chunk_box_rows(page_size) % 8 == 0)
+            and chunk_box_rows(page_size, d) % 8 == 0)
 
 
 def ragged_chunk_tile_plan(c: int, chunk_start: int, chunk_total: int, n_table: int,
                            page_size: int, g: int, window: int = 0, chunk_row=None,
                            layer: int = 0, num_pages: int | None = None, fresh: bool = True,
-                           bk: int = PREFILL_BK, n_rows: int = PREFILL_ROWS) -> list[ChunkTile]:
+                           bk: int | None = None, n_rows: int = PREFILL_ROWS,
+                           d: int = 128) -> list[ChunkTile]:
     """The tile plan of the chunk body (csrc/attention_bodies.cuh, launched
     by ragged_attention's and prefix_chunk's chunk kernels) for one kv head,
     in the order the blocks are issued (heaviest first).
@@ -658,9 +676,10 @@ def ragged_chunk_tile_plan(c: int, chunk_start: int, chunk_total: int, n_table: 
     query head r % g, at absolute position chunk_start + token. It walks
     the slot's pool keys [0, ctx), ctx = min(chunk_start, n_table * ps) (with
     `fresh` False, the chunk already in the pool: min(chunk_total, n_table *
-    ps)), up to its last position, in tiles of bk keys aligned to absolute
-    positions, from the tile of max(first position - window + 1, 0) (0
-    without a window); each tile is bk / box_rows TMA boxes
+    ps)), up to its last position, in tiles of bk keys (None: the kernel's
+    tile at head dim `d`, `prefill_bk`) aligned to absolute positions,
+    from the tile of max(first position - window + 1, 0) (0 without a
+    window); each tile is bk / box_rows TMA boxes
     (`chunk_box_rows`) at page coordinate layer * num_pages +
     clamp(chunk_row[pos // ps], 0, num_pages - 1), a box past ctx read as
     zeros. Then, with `fresh`, the chunk's fresh keys in tiles of bk rows
@@ -672,9 +691,10 @@ def ragged_chunk_tile_plan(c: int, chunk_start: int, chunk_total: int, n_table: 
     below the tile's limit (ctx for pool tiles, f_limit for fresh ones), and
     (with a window) the last position within the window of the tile's first
     key. A query tile that starts at or past chunk_total writes zeros."""
+    bk = prefill_bk(d) if bk is None else bk
     bq = n_rows // g
     ps = page_size
-    box = chunk_box_rows(ps, bk)
+    box = int(np.gcd(ps, bk))
     n_qt = -(-c // bq)
     cap = n_table * ps
     ctx = min(max(chunk_start if fresh else chunk_total, 0), cap)
@@ -982,7 +1002,7 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
     rows = 0
     out_chunk = out_group = None
     c = n_tiles = n_table_c = start = total = 0
-    on_cores = q_chunk is not None and not chunk_on_tensor_cores(cdtype, k_pages.dtype, ps)
+    on_cores = q_chunk is not None and not chunk_on_tensor_cores(cdtype, k_pages.dtype, ps, d)
     if q_chunk is not None:
         c = q_chunk.shape[1]
         _check(kernel, "q_chunk", q_chunk, dev, (1, c, h, d), cdtype)
@@ -996,7 +1016,7 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
             n_tiles = -(-c // bq)
             rows = bq * g
         elif c:
-            box = chunk_box_rows(ps)
+            box = chunk_box_rows(ps, d)
             maps = [_pool_map(p, ps, kvh, d, box) for p in (k_pages, v_pages)]
             _launch("gridllm_ragged_chunk", kernel, *maps, _ptr(q_chunk), _ptr(k_chunk),
                     _ptr(v_chunk), _ptr(out_chunk), _ptr(chunk_row), _ptr(k_scale),
@@ -1030,7 +1050,7 @@ def ragged_attention(k_pages, v_pages, page_size: int, q_chunk=None, chunk_row=N
                 _ptr(q_group), _ptr(k_group), _ptr(v_group), _ptr(out_group),
                 _ptr(page_table), _ptr(group_lengths), n_table_g, s, td,
                 n_splits, part_ml, part_acc, counters,
-                h, kvh, d, _rows_per_warp(rows), code, scale, cap, win,
+                h, kvh, d, _rows_per_warp(rows, d), code, scale, cap, win,
                 tree_n, (ctypes.c_int * max(tree_n, 1))(*t_pos),
                 (ctypes.c_int * max(tree_n, 1))(*t_bits), stream, legs=legs)
     return out_chunk, out_group

@@ -217,8 +217,7 @@ def dataclasses_equal(a, b):
     return da == db
 
 
-@pytest.mark.parametrize("model_type,item", [("gemma2", "ROADMAP A 5"),
-                                             ("mixtral", "ROADMAP A 7"),
+@pytest.mark.parametrize("model_type,item", [("mixtral", "ROADMAP A 7"),
                                              ("bert", "ROADMAP A 8"),
                                              ("llava", "ROADMAP A 8")])
 def test_config_refuses_unported_families(tmp_path, model_type, item):

@@ -139,3 +139,14 @@ def test_rows_per_warp_covers_the_block(rows, rpw):
     from gridllm_torch.ops.cuda_kernels import _rows_per_warp
 
     assert _rows_per_warp(rows) == rpw
+
+
+@pytest.mark.parametrize("rows,rpw", [(1, 1), (2, 1), (5, 2), (10, 4), (12, 4), (20, 4),
+                                      (64, 4)])
+def test_rows_per_warp_at_head_dim_256_stays_at_four(rows, rpw):
+    """gemma2's head dim: at most 4 rows a warp (8 are not compiled there);
+    more rows take more passes of the block."""
+    from gridllm_torch.ops.cuda_kernels import _rows_per_warp
+
+    assert _rows_per_warp(rows, 256) == rpw
+    assert _rows_per_warp(rows, 128) == _rows_per_warp(rows)

@@ -7,7 +7,8 @@ blocks are issued in. The kernel body runs only on the card; this holds its
 plan against what `attention_prefill_ref`'s mask lets each row see, for
 T up to 300, K/V tiles of 64 and 128 keys, windows 0, 1, 8 and 100,
 several valid lengths and the head groupings G = 1, 2, 4, 7 and 8
-(qwen2.5's G = 7 leaves two spare rows of 128).
+(qwen2.5's G = 7 leaves two spare rows of 128); at head dim 256 (gemma2's)
+with the kernel's 64-key tile.
 """
 
 import functools
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from gridllm_torch.ops.attention import attention_prefill_ref
-from gridllm_torch.ops.cuda_kernels import PREFILL_ROWS, prefill_tile_plan
+from gridllm_torch.ops.cuda_kernels import PREFILL_ROWS, prefill_bk, prefill_tile_plan
 
 T_LENS = (1, 17, 64, 127, 128, 129, 200, 300)
 WINDOWS = (0, 1, 8, 100)
@@ -53,6 +54,23 @@ def _cases():
 @pytest.mark.parametrize("bk", [64, 128])
 @pytest.mark.parametrize("g", GROUPS)
 def test_plan_loads_every_visible_key_and_masks_only_where_needed(g, bk):
+    _check_plan(g, bk=bk)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_plan_at_head_dim_256_takes_the_kernel_tile(g):
+    """At gemma2's head dim the bf16 kernel loads 64-key tiles
+    (`prefill_bk`, the kernel's tile_keys): the default plan at D = 256 is
+    that tile's, and holds the same checks."""
+    assert prefill_bk(256) == 64 and prefill_bk(128) == prefill_bk(64) == 128
+    for t, seq_len, window in _cases():
+        assert (prefill_tile_plan(t, seq_len, g, window, d=256)
+                == prefill_tile_plan(t, seq_len, g, window, bk=64))
+    _check_plan(g, d=256)
+
+
+def _check_plan(g, bk=None, d=128):
+    bk = prefill_bk(d) if bk is None else bk
     for t, seq_len, window in _cases():
         vis = _visible(t, seq_len, window)
         for tile in prefill_tile_plan(t, seq_len, g, window, bk=bk):

@@ -18,7 +18,10 @@
 Cases, at small sizes: shuffled page tables with -1 entries, chunk starts
 of 64 and 192 (not multiples of the 128-key tile), page sizes 8, 16 and 64,
 windows, softcap, G = 1, 4 and 7, tree bits, int8 scales spanning two
-decades, and slots from empty to the table's capacity.
+decades, and slots from empty to the table's capacity. At head dim 256
+(gemma2's) the chunk kernel takes tiles of 64 keys (`prefill_bk`): the
+plans at D = 256 are held with that tile, the tile itself against the
+kernel source's.
 """
 
 import functools
@@ -109,16 +112,45 @@ def _chunk_visible(c, start, valid, ps, window):
 @pytest.mark.parametrize("g", [1, 4, 7])
 @pytest.mark.parametrize("case", CHUNK_CASES)
 def test_chunk_plan_loads_every_visible_key_and_masks_only_where_needed(case, g):
+    _check_chunk_plan(case, g)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_chunk_plan_at_head_dim_256_takes_the_64_key_tile(case, g):
+    """gemma2's head dim: every chunk case planned with the kernel's tile
+    at D = 256, G = 1 and 2 (gemma2:9b's grouping)."""
+    _check_chunk_plan(case, g, d=256)
+
+
+def test_host_tiles_follow_the_kernel_source():
+    """prefill_bk, which every host plan takes, is the kernels'
+    tile_keys (csrc/hopper_common.cuh) at each compiled head dim."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TK.__file__).parents[1] / "csrc" / "hopper_common.cuh").read_text()
+    m = re.search(r"constexpr int tile_keys\(int D\) \{ return D == 256 \? (\d+) : (\d+); \}",
+                  src)
+    assert m is not None
+    for d in TK._HEAD_DIMS:
+        assert TK.prefill_bk(d) == int(m[1] if d == 256 else m[2])
+    assert (TK.prefill_bk(64), TK.prefill_bk(128), TK.prefill_bk(256)) == (BK, BK, 64)
+    assert [TK.chunk_box_rows(ps, 256) for ps in (8, 16, 64, 128)] == [8, 16, 64, 64]
+
+
+def _check_chunk_plan(case, g, d=128):
     c, start, valid, ps, window = case
     total = start + valid
+    bk = TK.prefill_bk(d)
     vis = _chunk_visible(c, start, valid, ps, window)
     n_table = -(-(start + c) // ps) + 2
     row = _table_row(np.random.default_rng(g), n_table, -(-start // ps), 40)
     num_pages, layer = 40, 1
-    box = TK.chunk_box_rows(ps)
-    assert box % 8 == 0 and BK % box == 0 and ps % box == 0
+    box = TK.chunk_box_rows(ps, d)
+    assert box % 8 == 0 and bk % box == 0 and ps % box == 0
     plan = TK.ragged_chunk_tile_plan(c, start, total, n_table, ps, g, window, chunk_row=row,
-                                     layer=layer, num_pages=num_pages)
+                                     layer=layer, num_pages=num_pages, d=d)
     for tile in plan:
         toks = range(tile.tok0, tile.tok0 + tile.ntok)
         what = f"C={c} start={start} total={total} ps={ps} window={window} tok0={tile.tok0}"
@@ -128,8 +160,8 @@ def test_chunk_plan_loads_every_visible_key_and_masks_only_where_needed(case, g)
         assert start + tile.tok0 < total, what
         loaded = torch.zeros(start + c, dtype=torch.bool)
         for kt0, masked, boxes in tile.prefix_tiles:
-            assert kt0 % BK == 0 and kt0 < start, what
-            assert [pos for pos, _ in boxes] == list(range(kt0, kt0 + BK, box)), what
+            assert kt0 % bk == 0 and kt0 < start, what
+            assert [pos for pos, _ in boxes] == list(range(kt0, kt0 + bk, box)), what
             for pos, coord in boxes:
                 if pos >= start:   # past the prefix: TMA reads zeros
                     assert coord is None, what
@@ -138,15 +170,15 @@ def test_chunk_plan_loads_every_visible_key_and_masks_only_where_needed(case, g)
                 assert pos // ps == (pos + box - 1) // ps, what
                 assert coord == layer * num_pages + row[pos // ps], what
                 loaded[pos:pos + box] = True
-            keys = slice(kt0, kt0 + BK)
-            whole = kt0 + BK <= start and bool(vis[toks][:, keys].all())
+            keys = slice(kt0, kt0 + bk)
+            whole = kt0 + bk <= start and bool(vis[toks][:, keys].all())
             assert masked != whole, f"{what} prefix kt0={kt0} masked={masked}"
             assert vis[toks][:, keys].any(), f"{what} prefix kt0={kt0} is dead"
         for j0, masked in tile.fresh_tiles:
-            assert j0 % BK == 0 and j0 < c, what
-            keys = slice(start + j0, start + j0 + BK)
+            assert j0 % bk == 0 and j0 < c, what
+            keys = slice(start + j0, start + j0 + bk)
             loaded[keys] = True
-            whole = j0 + BK <= c and bool(vis[toks][:, keys].all())
+            whole = j0 + bk <= c and bool(vis[toks][:, keys].all())
             assert masked != whole, f"{what} fresh j0={j0} masked={masked}"
             assert vis[toks][:, keys].any(), f"{what} fresh j0={j0} is dead"
         for tok in toks:
@@ -212,13 +244,14 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
     c, h = q.shape[1], q.shape[2]
     g = h // kvh
     flat_k, flat_v = kp.reshape(-1, ps, kvh, d), vp.reshape(-1, ps, kvh, d)
-    box = TK.chunk_box_rows(ps)
+    bk = TK.prefill_bk(d)   # the kernel's tile at this head dim
+    box = TK.chunk_box_rows(ps, d)
     cap = row.shape[0] * ps
     ctx = min(max(start if fresh else total, 0), cap)
     f_limit = min(total, cap)
     plan = TK.ragged_chunk_tile_plan(c, start, total, row.shape[0], ps, g, window,
                                      chunk_row=row.numpy(), layer=layer, num_pages=num_pages,
-                                     fresh=fresh)
+                                     fresh=fresh, d=d)
     out = torch.zeros(1, c, h, d)
     for kh in range(kvh):
         for tile in plan:
@@ -251,9 +284,9 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
                 scales = (torch.cat(k_sc), torch.cat(v_sc)) if quant else None
                 tiles.append((kt0, masked, ctx, torch.cat(ks), torch.cat(vs), scales))
             for j0, masked in tile.fresh_tiles:
-                ks = torch.zeros(BK, d)
-                vs = torch.zeros(BK, d)
-                n = min(BK, c - j0)
+                ks = torch.zeros(bk, d)
+                vs = torch.zeros(bk, d)
+                n = min(bk, c - j0)
                 ks[:n], vs[:n] = kc[j0:j0 + n, kh].float(), vc[j0:j0 + n, kh].float()
                 tiles.append((start + j0, masked, f_limit, ks, vs, None))
             for kt0, masked, limit, ks, vs, scales in tiles:
@@ -264,7 +297,7 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
                 if softcap > 0:
                     x = softcap * torch.tanh(x / softcap)
                 if masked:
-                    kpos = kt0 + torch.arange(BK)
+                    kpos = kt0 + torch.arange(bk)
                     ok = (kpos[None] <= qp[:, None]) & (kpos[None] < limit)
                     if window > 0:
                         ok &= (qp[:, None] - kpos[None]) < window
@@ -287,6 +320,8 @@ def _run_chunk_plan(kp, vp, ps, q, kc, vc, row, start, total, layer, window, sof
     (4, 4, 16, 16, 200, 48, 180, 8, 0.0),       # G = 1, eight 16-row boxes per tile
     (8, 2, 32, 8, 130, 320, 100, 0, 30.0),      # 8-row pages, a long prefix
     (8, 2, 16, 64, 64, 384, 10, 1, 0.0),        # window 1: the diagonal only
+    (2, 1, 256, 64, 200, 128, 180, 100, 50.0),  # D = 256 (64-key tiles), gemma2's G = 2
+    (4, 2, 256, 16, 130, 48, 120, 0, 0.0),      # D = 256, 16-row boxes
 ])
 def test_chunk_plan_walk_matches_jax_ref(h, kvh, d, ps, c, start, valid, window, softcap):
     rng = np.random.default_rng(start + c)
@@ -315,6 +350,7 @@ INT8_CHUNK_CASES = {  # h, kvh, d, ps, C, chunk_start, valid rows, window, softc
     "window_softcap": (8, 2, 64, 64, 256, 700, 256, 300, 30.0, None),
     "past_capacity": (8, 2, 64, 64, 256, 192, 250, 0, 0.0, 5),   # 320 positions
     "d128": (8, 1, 128, 64, 128, 448, 100, 0, 0.0, None),
+    "d256_window_softcap50": (2, 1, 256, 64, 128, 320, 120, 200, 50.0, None),
 }
 
 
