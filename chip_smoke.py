@@ -235,13 +235,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
              counters from 0 held to the ragged path, every ragged launch
              at D = 256 (tokens/s, TTFT); float32 spec-on streams equal to
              spec-off on the cut, ragged attention on and off.
+16. quant  — int8 weights (phase_quant): one llama3:70b layer slice
+             ([8192, 28672]) quantized on the card bit-equal to the CPU
+             (quantize_array and the blocked quantize_into); qdot at a
+             decode shape (8 x 8,192 -> 28,672) timed beside the bf16
+             torch.matmul and the bounds of the int8 read and of the plain
+             form's traffic; a 2-layer full-width float32 cut of
+             llama3:70b with int8 weights, its paged path (bucket prefill,
+             decode, mixed and verify steps) against its cache-free
+             forward to 1e-3 and its logits within 0.15 (relative to their
+             largest) of the unquantized model's from the same generator;
+             then llama3:70b with quantize="int8", all 80 layers at full
+             width, bf16 activations, the engine's defaults and the pool
+             sized to the memory the weights leave, serving the serve
+             phase's eight requests plus a 2,000-byte prompt in chunks:
+             weight bytes equal to params_nbytes' count from shapes,
+             tokens/s, TTFT, peak memory, launch counters from 0 held to
+             the ragged path.
+17. mixtral — the mixtral family (phase_mixtral): the dense and ragged MoE
+             forms of one full-width float32 layer against each other
+             (1e-4 relative) at 8, 40 and 1,024 tokens and timed in bf16
+             at 8 and 1,024 beside the expert bytes each reads; a 2-layer
+             full-width float32 cut against its cache-free forward to 1e-3
+             (decode in the dense form, the calls of 16 or more tokens in
+             the ragged form); mixtral:8x7b bf16 at full width cut to 16
+             of its 32 layers (43.7 GiB; 87.0 GiB at full depth) serving
+             the eight requests and the 2,000-byte prompt: tokens/s, TTFT,
+             MoE calls by form, launch counters from 0 held to the ragged
+             path.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
-routes, each with the head dims compiled; then the same rows at D = 256
-from the gemma phase, named "<kernel>.d256"), the card's name and power
-limit, and the result.
+routes, each with the head dims compiled and its launches on the quant
+and mixtral serves; then the same rows at D = 256 from the gemma phase,
+named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -270,7 +298,8 @@ SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "replay", "spec",
-              "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma")
+              "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
+              "mixtral")
 
 
 def emit(obj: dict) -> None:
@@ -4984,16 +5013,16 @@ GEMMA_CUT_PROMPT = 5000    # past layer 0's window of 4096: its keys drop
 GEMMA_LONG_BYTES = 6000    # the serve's long prompt: six chunks of 1024 across the window
 
 
-def _gemma_cut(torch, layers: int = GEMMA_CUT_LAYERS) -> str:
-    """gemma2:9b at full width cut to `layers` layers, registered under its
-    own name."""
+def _cut(base: str, layers: int) -> str:
+    """Model `base` at full width cut to `layers` layers, registered under
+    its own name."""
     import dataclasses
 
     from gridllm_torch.models.configs import REGISTRY, get_config, register
 
-    name = f"{GEMMA_MODEL}-f32-{layers}l"
+    name = f"{base}-{layers}l"
     if name not in REGISTRY:
-        register(dataclasses.replace(get_config(GEMMA_MODEL), name=name, num_layers=layers))
+        register(dataclasses.replace(get_config(base), name=name, num_layers=layers))
     return name
 
 
@@ -5017,7 +5046,7 @@ def _gemma_model(torch) -> dict:
     from gridllm_torch.ops.kvcache import PagedKVCache, rollback_to_length
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
-    cfg = get_config(_gemma_cut(torch))
+    cfg = get_config(_cut(GEMMA_MODEL, GEMMA_CUT_LAYERS))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 14)
     model = Gemma2(cfg, dtype=torch.float32, device="cuda").init_params(gen)
@@ -5204,7 +5233,7 @@ def _gemma_spec(torch) -> dict:
     speculative decoding on and off, with ragged attention on and off."""
     from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
 
-    name = _gemma_cut(torch)
+    name = _cut(GEMMA_MODEL, GEMMA_CUT_LAYERS)
     prompt = "the cat sat on the mat and the dog sat on the log. " * 90   # 4,591 bytes
     opts = {"temperature": 0.0, "repeat_penalty": 1.0, "num_predict": 64}
     runs, streams = {}, {}
@@ -5258,6 +5287,417 @@ def phase_gemma(torch) -> dict:
     return {"phase": "gemma", "card": card_line(), "cases": len(cases),
             "max_rel_err": max(c.get("max_rel_err", 0.0) for c in cases),
             "max_abs_err_bf16": errs, **parts, "part_seconds": seconds,
+            "launches": parts["serve"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# int8 weights: llama3:70b on one card (phase_quant)
+# ---------------------------------------------------------------------------
+
+QUANT_MODEL = "llama3:70b"
+QUANT_RESERVE = 4 << 30     # device bytes left beside the weights and the pool
+QUANT_MIN_PAGES = 128       # 8,192 tokens: the run's nine requests need ~6,100
+QUANT_LONG_BYTES = 2000     # the ninth prompt: two chunks of 1,024
+QUANT_REL_BOUND = 0.15      # int8 against float logits (the JAX test's bound)
+
+
+def _quant_bits(torch) -> dict:
+    """One llama3:70b layer slice (w_gate's [8192, 28672]) quantized on the
+    card bit-equal to the CPU: quantize_array on the card, the blocked
+    quantize_into the loader and init use, and the CPU's quantize_array of
+    the same bf16 values give the same int8 values and scale bits."""
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.ops.quant import QuantizedTensor, quantize_array, quantize_into
+
+    cfg = get_config(QUANT_MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    w = (torch.randn((e, f), generator=gen, device="cuda") * e ** -0.5).to(torch.bfloat16)
+    w[:, 0] = 0                                       # a zero channel: its floor
+    card = quantize_array(w)
+    blocked = QuantizedTensor(torch.empty_like(card.q), torch.empty_like(card.scale))
+    quantize_into(blocked, w)
+    cpu = quantize_array(w.cpu())
+    same = {
+        "q": bool(torch.equal(card.q.cpu(), cpu.q)),
+        "scale_bits": bool(torch.equal(card.scale.cpu().view(torch.int32),
+                                       cpu.scale.view(torch.int32))),
+        "blocked_q": bool(torch.equal(blocked.q, card.q)),
+        "blocked_scale_bits": bool(torch.equal(blocked.scale.view(torch.int32),
+                                               card.scale.view(torch.int32))),
+    }
+    check(all(same.values()), f"quant: the card's quantization differs from the CPU's: {same}")
+    return {"slice": [e, f], "bit_equal": same,
+            "scale_floor_channel": float(card.scale[0])}
+
+
+def _quant_timing(torch, inp: Inputs) -> dict:
+    """qdot at a decode shape (8 rows x 8,192 -> 28,672, llama3:70b's
+    w_gate) against the bf16 torch.matmul on the same shape; the bounds of
+    both, and of the plain qdot's traffic (int8 read, bf16 copy written
+    and read)."""
+    from gridllm_torch.ops.quant import qdot, quantize_array
+
+    rows, e, f = 8, 8192, 28672
+    x = inp.randn(rows, e, dtype=torch.bfloat16)
+    w = (inp.randn(e, f, dtype=torch.float32) * e ** -0.5).to(torch.bfloat16)
+    qw = quantize_array(w)
+    out_bytes, x_bytes = rows * f * 2, rows * e * 2
+    flops = 2 * rows * e * f
+    res = {"shape": [rows, e, f],
+           "qdot_ms": time_ms(torch, lambda: qdot(x, qw)),
+           "qdot_device_ms": device_ms(torch, lambda: qdot(x, qw)),
+           "bf16_matmul_ms": time_ms(torch, lambda: x @ w),
+           "bf16_matmul_device_ms": device_ms(torch, lambda: x @ w)}
+    err = float((qdot(x, qw).float() - (x @ qw.dequantize(torch.bfloat16)).float()).abs().max())
+    check(err <= 3e-2 * float((x @ w).float().abs().max()),
+          f"quant: qdot differs from the dequantized product by {err}")
+    res["int8_read_bound_ms"], _ = bound_ms(e * f + f * 4 + x_bytes + out_bytes, flops)
+    res["plain_traffic_bound_ms"], _ = bound_ms(e * f * (1 + 2 + 2) + f * 4 + x_bytes
+                                                + out_bytes, flops)
+    res["bf16_bound_ms"], res["bound_by"] = bound_ms(e * f * 2 + x_bytes + out_bytes, flops)
+    return res
+
+
+def _paged_vs_forward(torch, model, seed: int) -> dict:
+    """The ragged paged path of a float32 model against its cache-free
+    forward: slot 0 prefills 192 tokens in the 256 bucket and decodes 32,
+    slot 1 admits the sequence in two 64-token mixed steps beside slot 0's
+    decode rows, then two verify steps of K+1 = 5 for both. Max abs logit
+    error by entry point."""
+    from gridllm_torch.ops.kvcache import PagedKVCache, rollback_to_length
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n, k1 = 320, 5
+    toks = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    want = model(toks[None])[0]
+    cache = PagedKVCache.create(cfg.num_layers, 32, PS, cfg.num_kv_heads, cfg.head_dim_, 4, 8,
+                                dtype=torch.float32, device="cuda")
+    rows = torch.arange(32, device="cuda", dtype=torch.int32).reshape(4, 8)
+    errs: dict[str, float] = {}
+    cur = torch.zeros(4, dtype=torch.int32, device="cuda")
+
+    def err(kind, got, pos):
+        errs[kind] = max(errs.get(kind, 0.0), float((got - want[pos]).abs().max()))
+
+    logits, _ = model.prefill(torch.cat([toks[:192], toks[:64] * 0]), 192, cache, 0, rows[0])
+    err("prefill", logits, 191)
+    active = torch.tensor([True, False, False, False], device="cuda")
+    for pos in range(192, 224):
+        cur[0] = toks[pos]
+        logits, _ = model.decode_step(cur, cache, active)
+        err("decode", logits[0], pos)
+    for start, pos in ((0, 224), (64, 225)):
+        cur[0] = toks[pos]
+        chunk_logits, dec_logits, _ = model.mixed_step(
+            toks[start:start + 64], start, 64, 1, rows[1], cur, cache, active)
+        err("mixed_chunk", chunk_logits, start + 63)
+        err("mixed_decode", dec_logits[0], pos)
+    active = torch.tensor([True, True, False, False], device="cuda")
+    for _ in range(2):
+        lens = cache.lengths.tolist()
+        cand = torch.zeros((4, k1), dtype=torch.int32, device="cuda")
+        for s in (0, 1):
+            cand[s] = toks[lens[s]:lens[s] + k1]
+        logits, _ = model.verify_step(cand, cache, active)
+        for s in (0, 1):
+            for j in range(k1):
+                err("verify", logits[s, j], lens[s] + j)
+        rollback_to_length(cache, cache.lengths + k1 * active.to(torch.int32))
+    torch.cuda.synchronize()
+    return errs
+
+
+def _quant_model(torch) -> dict:
+    """llama3:70b cut to 2 layers at full width in float32 with int8
+    weights: the paged path against its own cache-free forward to F32_TOL,
+    and its logits against the unquantized model's (the same generator:
+    the int8 model's weights are the float model's int8 pairs) within
+    QUANT_REL_BOUND of their largest."""
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.models.llama import Llama
+    from gridllm_torch.ops.kernels import F32_TOL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(_cut(QUANT_MODEL, 2))
+    models = {}
+    for quantize in ("int8", None):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 15)
+        models[quantize] = Llama(cfg, dtype=torch.float32, device="cuda",
+                                 quantize=quantize).init_params(gen)
+    check(models["int8"].layers["w_down"].dtype == torch.int8, "quant model: not int8")
+    errs = _paged_vs_forward(torch, models["int8"], SEED + 16)
+    check(max(errs.values()) <= F32_TOL, f"quant model: paged path differs from forward "
+                                          f"by {errs}")
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 17))
+    q_logits, f_logits = models["int8"](toks), models[None](toks)
+    rel = float((q_logits - f_logits).abs().max() / f_logits.abs().max())
+    check(0 < rel < QUANT_REL_BOUND, f"quant model: int8 logits {rel} from the float ones")
+    del models, q_logits, f_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": f"{QUANT_MODEL}, 2 layers, float32, int8 weights",
+            "max_abs_err": errs, "bound": F32_TOL, "int8_vs_float_rel": rel,
+            "rel_bound": QUANT_REL_BOUND}
+
+
+def _meta_nbytes(torch, name: str, quantize) -> int:
+    """A model's parameter bytes from its shapes (meta tensors)."""
+    from gridllm_torch.engine.loader import model_class
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.ops.quant import params_nbytes
+
+    cfg = get_config(name)
+    return params_nbytes(model_class(cfg)(cfg, dtype=torch.bfloat16, device="meta",
+                                          quantize=quantize).params_tree())
+
+
+def _quant_serve(torch) -> dict:
+    """llama3:70b with quantize="int8", all 80 layers at full width, bf16
+    activations, random weights from seed 0, the engine's defaults
+    (speculation, ragged attention and the prefix cache on), the pool
+    sized to the device memory the weights leave (QUANT_RESERVE kept for
+    the activations): the serve phase's eight requests plus a 2,000-byte
+    prompt in chunks of 1,024. Launch counters from 0 over the run, held to
+    the ragged path's kernels."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.quant import params_nbytes
+    from gridllm_torch.tools import profile_step
+
+    cfg = get_config(QUANT_MODEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    predicted = _meta_nbytes(torch, QUANT_MODEL, "int8")
+    page_bytes = 2 * cfg.num_layers * PS * cfg.num_kv_heads * cfg.head_dim_ * 2
+    pages = int((free - predicted - QUANT_RESERVE) // page_bytes)
+    check(pages >= QUANT_MIN_PAGES, f"quant serve: room for {pages} pages only "
+                                    f"({free / 2**30:.2f} GiB free)")
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model=QUANT_MODEL, quantize="int8",
+                                                     num_pages=pages), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = srv.engine
+    weights = params_nbytes(engine.model.params_tree())
+    check(weights == predicted, f"quant serve: {weights} weight bytes, {predicted} predicted")
+    check(all(engine.model.layers[k].dtype == torch.int8 for k in ("wq", "w_down"))
+          and engine.model.lm_head.dtype == torch.int8, "quant serve: weights not int8")
+    vocab, slots, k1 = srv.vocab, engine.config.max_slots, engine.config.spec_k + 1
+    engine.start()
+    _, _, _, batch_a = _serve_prompts()
+    long_prompt = _prompt(random.Random(SEED + 15), QUANT_LONG_BYTES)
+    ck.reset_launch_counts()
+    res, wall = srv.run(batch_a + [(long_prompt, 32)])
+    summary = srv.summary(res, wall, {(vocab,), (slots, vocab), (slots, k1, vocab)})
+    launches = _path_launches(ck, "spec_ragged", srv)
+    check(res[-1].prompt_eval_count > engine.config.prefill_chunk,
+          f"quant serve: the long prompt has {res[-1].prompt_eval_count} tokens")
+    engine.stop()
+    steps = profile_step.profile_weights(engine)
+    out = {"model": QUANT_MODEL, "quantize": "int8", "dtype": "bfloat16",
+           "layers": cfg.num_layers, "load_s": load_s,
+           "weights_bytes": weights, "weights_gib": weights / 2**30,
+           "bf16_weights_gib": _meta_nbytes(torch, QUANT_MODEL, None) / 2**30,
+           "device_total_gib": total / 2**30, "kv_pages": pages,
+           "kv_pool_gib": pages * page_bytes / 2**30,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "long_prompt_tokens": res[-1].prompt_eval_count,
+           "long_ttft_ms": res[-1].prompt_eval_duration_ns / 1e6,
+           "chunk_and_mixed_steps": srv.calls.get("mixed_step", 0)
+           + srv.calls.get("prefill_chunk", 0),
+           "model_calls": dict(srv.calls), "verify_steps": engine.spec_stats["steps"],
+           "launches": launches, **summary, "profiled_steps": steps}
+    _free(torch, srv)
+    return out
+
+
+def phase_quant(torch) -> dict:
+    """int8 weights (see the module docstring): the card's quantization
+    bit-equal to the CPU's, qdot timed beside the bf16 product, the 2-layer
+    float32 cut of llama3:70b against its forward and the unquantized
+    logits, and llama3:70b int8 at all 80 layers served."""
+    inp = Inputs(torch, SEED + 15)
+    parts, seconds = {}, {}
+    for part, fn in (("bits", lambda: _quant_bits(torch)),
+                     ("timing", lambda: _quant_timing(torch, inp)),
+                     ("model", lambda: _quant_model(torch)),
+                     ("serve", lambda: _quant_serve(torch))):
+        t0 = time.perf_counter()
+        parts[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+        print(json.dumps({"quant": part, **parts[part]}), file=sys.stderr, flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"phase": "quant", "card": card_line(), **parts, "part_seconds": seconds,
+            "launches": parts["serve"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the mixtral family: mixtral:8x7b at full width (phase_mixtral)
+# ---------------------------------------------------------------------------
+
+MIXTRAL_MODEL = "mixtral:8x7b"
+MIXTRAL_LAYERS = 16         # of 32: 43.7 GiB in bf16 (32 layers are 87.0 GiB)
+MIXTRAL_FORM_REL = 1e-4     # the dense and ragged forms against each other, float32
+
+
+def _mixtral_forms(torch) -> dict:
+    """The two MoE forms of one full-width float32 mixtral layer against each
+    other (relative to the output's largest) at 8, 40 and 1,024 tokens, and
+    both timed in bf16 at the decode width (8 tokens) and a prefill bucket
+    (1,024), beside the bytes bound of the expert weights each reads."""
+    from gridllm_torch.models import mixtral as mx
+    from gridllm_torch.models.configs import get_config
+
+    cfg = get_config(MIXTRAL_MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 18)
+    e, f, x = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+
+    def leaves(dtype):
+        lp = {"router": torch.randn(e, x, generator=gen, device="cuda") * 0.02,
+              "we_gate": torch.randn(x, e, f, generator=gen, device="cuda") * e ** -0.5,
+              "we_up": torch.randn(x, e, f, generator=gen, device="cuda") * e ** -0.5,
+              "we_down": torch.randn(x, f, e, generator=gen, device="cuda") * f ** -0.5}
+        return {k: v.to(dtype) for k, v in lp.items()}
+
+    lp = leaves(torch.float32)
+    rel = {}
+    for t in (8, 40, 1024):
+        xs = torch.randn(1, t, e, generator=gen, device="cuda")
+        dense = mx._moe_mlp_dense(cfg, lp, xs)
+        ragged = mx._moe_mlp_ragged(cfg, lp, xs)
+        rel[t] = float((dense - ragged).abs().max() / dense.abs().max())
+    check(max(rel.values()) <= MIXTRAL_FORM_REL, f"mixtral: the MoE forms differ by {rel}")
+    del lp
+    lp = leaves(torch.bfloat16)
+    expert_bytes = 3 * e * f * 2
+    timing = {}
+    for t in (8, 1024):
+        xs = torch.randn(1, t, e, generator=gen, device="cuda").to(torch.bfloat16)
+        _, top_i = mx._route(cfg, lp, xs.reshape(-1, e))
+        hit = int(torch.unique(top_i).numel())
+        row = {"dense_ms": time_ms(torch, lambda: mx._moe_mlp_dense(cfg, lp, xs), iters=10),
+               "ragged_ms": time_ms(torch, lambda: mx._moe_mlp_ragged(cfg, lp, xs), iters=10),
+               "experts_hit": hit}
+        flops_k = 2 * t * cfg.experts_per_token * 3 * e * f
+        row["ragged_bound_ms"], row["ragged_bound_by"] = bound_ms(hit * expert_bytes, flops_k)
+        row["dense_bound_ms"], row["dense_bound_by"] = bound_ms(x * expert_bytes,
+                                                                2 * t * x * 3 * e * f)
+        timing[t] = row
+    del lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"form_rel_err": rel, "form_rel_bound": MIXTRAL_FORM_REL, "timing_bf16": timing}
+
+
+def _mixtral_model(torch) -> dict:
+    """mixtral:8x7b cut to 2 layers at full width, float32: the paged path
+    (its 16-token and larger calls in the ragged form, its decode in the
+    dense form) against its cache-free forward to F32_TOL."""
+    from gridllm_torch.models import mixtral as mx
+    from gridllm_torch.models.configs import get_config
+    from gridllm_torch.ops.kernels import F32_TOL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(_cut(MIXTRAL_MODEL, 2))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    model = mx.Mixtral(cfg, dtype=torch.float32, device="cuda").init_params(gen)
+    before = dict(mx.MOE_FORMS)
+    errs = _paged_vs_forward(torch, model, SEED + 20)
+    forms = {k: mx.MOE_FORMS[k] - before[k] for k in before}
+    check(max(errs.values()) <= F32_TOL, f"mixtral model: paged path differs from forward "
+                                          f"by {errs}")
+    check(forms["dense"] > 0 and forms["ragged"] > 0, f"mixtral model: MoE forms {forms}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": f"{MIXTRAL_MODEL}, 2 layers, float32", "max_abs_err": errs,
+            "bound": F32_TOL, "moe_calls": forms}
+
+
+def _mixtral_serve(torch) -> dict:
+    """mixtral:8x7b bf16 at full width cut to MIXTRAL_LAYERS layers, random
+    weights from seed 0, the engine's defaults: the serve phase's eight
+    requests plus a 2,000-byte prompt in chunks of 1,024. Launch counters
+    from 0 over the run, held to the ragged path's kernels; MoE calls by
+    form (the ragged form at 16 or more tokens: GRIDLLM_MOE_RAGGED auto on
+    the card)."""
+    import random
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.models import mixtral as mx
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.quant import params_nbytes
+    from gridllm_torch.tools import profile_step
+
+    name = _cut(MIXTRAL_MODEL, MIXTRAL_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Served(torch, InferenceEngine(EngineConfig(model=name), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = srv.engine
+    check(isinstance(engine.model, mx.Mixtral), "mixtral serve: the engine did not build Mixtral")
+    vocab, slots, k1 = srv.vocab, engine.config.max_slots, engine.config.spec_k + 1
+    engine.start()
+    _, _, _, batch_a = _serve_prompts()
+    long_prompt = _prompt(random.Random(SEED + 18), QUANT_LONG_BYTES)
+    ck.reset_launch_counts()
+    before = dict(mx.MOE_FORMS)
+    res, wall = srv.run(batch_a + [(long_prompt, 32)])
+    forms = {k: mx.MOE_FORMS[k] - before[k] for k in before}
+    summary = srv.summary(res, wall, {(vocab,), (slots, vocab), (slots, k1, vocab)})
+    launches = _path_launches(ck, "spec_ragged", srv)
+    check(forms["ragged"] > 0, f"mixtral serve: no MoE call took the ragged form: {forms}")
+    engine.stop()
+    before = dict(mx.MOE_FORMS)
+    steps = profile_step.profile_weights(engine)
+    check(mx.MOE_FORMS["dense"] > before["dense"] and mx.MOE_FORMS["ragged"] > before["ragged"],
+          "mixtral serve: the profiled decode and verify steps did not take both forms")
+    out = {"model": MIXTRAL_MODEL, "cut": f"{MIXTRAL_LAYERS} of 32 layers, full width",
+           "dtype": "bfloat16", "load_s": load_s,
+           "weights_gib": params_nbytes(engine.model.params_tree()) / 2**30,
+           "full_depth_gib": _meta_nbytes(torch, MIXTRAL_MODEL, None) / 2**30,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "long_prompt_tokens": res[-1].prompt_eval_count,
+           "long_ttft_ms": res[-1].prompt_eval_duration_ns / 1e6,
+           "moe_calls": forms, "moe_calls_per_layer": {
+               k: v / MIXTRAL_LAYERS for k, v in forms.items()},
+           "model_calls": dict(srv.calls), "verify_steps": engine.spec_stats["steps"],
+           "launches": launches, **summary, "profiled_steps": steps}
+    _free(torch, srv)
+    return out
+
+
+def phase_mixtral(torch) -> dict:
+    """The mixtral family (see the module docstring): the two MoE forms
+    against each other and timed, the 2-layer float32 cut against its
+    forward, and mixtral:8x7b at 16 layers served."""
+    parts, seconds = {}, {}
+    for part, fn in (("forms", lambda: _mixtral_forms(torch)),
+                     ("model", lambda: _mixtral_model(torch)),
+                     ("serve", lambda: _mixtral_serve(torch))):
+        t0 = time.perf_counter()
+        parts[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+        print(json.dumps({"mixtral": part, **parts[part]}), file=sys.stderr, flush=True)
+    return {"phase": "mixtral", "card": card_line(), **parts, "part_seconds": seconds,
             "launches": parts["serve"]["launches"]}
 
 
@@ -5371,7 +5811,8 @@ def main() -> int:
                    "serve": phase_serve, "worker": phase_worker, "replay": phase_replay,
                    "spec": phase_spec, "checkpoint": phase_checkpoint,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
-                   "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma}[phase](torch)
+                   "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
+                   "quant": phase_quant, "mixtral": phase_mixtral}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -5405,6 +5846,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "head_dims": list(_HEAD_DIMS),
          "launches": launches[name],
+         # the same kernel's launches on the int8 llama3:70b and mixtral serves
+         "launches_on": {p: results[p]["launches"].get(name, 0) for p in ("quant", "mixtral")},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

@@ -264,7 +264,9 @@ class EngineConfig:
     checkpoint_path: str | None = None
     tokenizer: str | None = None         # None/"byte" → ByteTokenizer
     dtype: str = "bfloat16"
-    quantize: str | None = None          # not ported
+    # "int8": per-out-channel weight-only quantization of the matmul
+    # leaves (ops/quant.py); the draft model stays unquantized
+    quantize: str | None = None
     max_slots: int = 8
     page_size: int = 64
     num_pages: int = 1024
@@ -313,7 +315,6 @@ class EngineConfig:
     def check_ported(self) -> None:
         """Raise for a setting whose feature this package does not have."""
         unported = {
-            "quantize": bool(self.quantize),
             "mesh": self.mesh is not None,
         }
         for name, on in unported.items():
@@ -321,6 +322,8 @@ class EngineConfig:
                 raise NotImplementedError(f"EngineConfig.{name} is not ported")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype {self.dtype!r} (have {sorted(_DTYPES)})")
+        if self.quantize and self.quantize != "int8":
+            raise ValueError(f"unknown quantize mode: {self.quantize!r}")
 
 
 @dataclasses.dataclass
@@ -535,8 +538,12 @@ class InferenceEngine:
         swap.snapshot_restore, and an injected fault falls through to the
         checkpoint or init, never a failed load."""
         c = self.config
+        # int8 leaves are allocated as int8 + scales and filled a layer
+        # slice at a time on every path; a snapshot was parked quantized
+        # and is restored as it is, with no re-quantization
         self.model = model_class(self.cfg)(self.cfg, dtype=self.dtype, device=self.device,
-                                           ragged_attention=c.ragged_attention)
+                                           ragged_attention=c.ragged_attention,
+                                           quantize=c.quantize or None)
         if params is not None:
             self.model.params_from_jax(params)
             self.load_source = "init"
@@ -559,7 +566,8 @@ class InferenceEngine:
                 torch.cuda.synchronize(self.device)
             self.load_source = "snapshot"
         elif c.checkpoint_path:
-            load_checkpoint(self.cfg, c.checkpoint_path, model=self.model)
+            load_checkpoint(self.cfg, c.checkpoint_path, model=self.model,
+                            quantize=c.quantize or None)
             self.load_source = "checkpoint"
         else:
             gen = torch.Generator(device=self.device)

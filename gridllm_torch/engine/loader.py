@@ -2,8 +2,8 @@
 
 The counterpart of the JAX package's engine/loader.py for the families the
 port serves (`model_class`: `Llama` for llama, qwen2 and qwen3, `Gemma2`
-for gemma2). The safetensors format is read and written here,
-with no package for it (the card's machine has none):
+for gemma2, `Mixtral` for mixtral). The safetensors format is read and
+written here, with no package for it (the card's machine has none):
 
 - `_open_safetensors`: every ``*.safetensors`` of a directory (a sharded
   checkpoint is all of them), each file's 8-byte little-endian header
@@ -18,10 +18,13 @@ with no package for it (the card's machine has none):
   on the CPU path and the two staging buffers on the CUDA path.
 - `load_checkpoint`: an HF-layout directory into the family's model, layer by
   layer through `models.hf_layout` (each tensor to the device as stored,
-  transposed and converted there).
+  transposed and converted there; with `quantize="int8"` each layer of a
+  quant leaf is quantized as it is placed, so no whole float copy of the
+  leaf reaches the device).
 - `save_checkpoint`: a model to ``model.safetensors`` in the dtype asked
   for, plus the HF ``config.json`` of `ModelConfig.hf_config`, one tensor
-  materialized on the host at a time.
+  materialized on the host at a time. An int8 model is refused: the
+  format holds float weights, and the JAX package has no int8 format.
 - `WeightSnapshotTier`: an unloaded engine's weights parked as host
   tensors (pinned when the engine is on CUDA) keyed by checkpoint
   identity; a later load of the same identity restores them by a
@@ -41,6 +44,7 @@ import torch
 from gridllm_torch.models.configs import ModelConfig
 from gridllm_torch.models.gemma import Gemma2
 from gridllm_torch.models.llama import Llama
+from gridllm_torch.models.mixtral import Mixtral
 from gridllm_torch.obs import default_registry
 from gridllm_torch.utils.config import env_int
 from gridllm_torch.utils.logging import get_logger
@@ -209,7 +213,8 @@ def _save_safetensors(fname: str, tensors: dict[str, torch.Tensor],
 
 
 # the torch model of each family this package serves
-_FAMILIES = {"llama": Llama, "qwen2": Llama, "qwen3": Llama, "gemma2": Gemma2}
+_FAMILIES = {"llama": Llama, "qwen2": Llama, "qwen3": Llama, "gemma2": Gemma2,
+             "mixtral": Mixtral}
 
 
 def model_class(cfg: ModelConfig) -> type[Llama]:
@@ -225,16 +230,17 @@ def load_checkpoint(cfg: ModelConfig, path: str, dtype: torch.dtype = torch.bflo
                     device: str | torch.device = "cuda", quantize: str | None = None,
                     model: Llama | None = None, ragged_attention: bool = True) -> Llama:
     """Load an HF-layout safetensors directory into the family's model
-    (`model`, or a new one of `dtype` on `device`). Each tensor is read onto
-    the model's device as stored, then transposed and converted there into
-    its slot."""
-    if quantize:
-        raise NotImplementedError(
-            f"load_checkpoint(quantize={quantize!r}): int8 weights are not ported to "
-            "the torch package yet (ROADMAP A 6)")
+    (`model`, or a new one of `dtype` on `device`, int8 weights with
+    `quantize="int8"`). Each tensor is read onto the model's device as
+    stored, then transposed and converted (or, for an int8 leaf,
+    quantized) there into its slot."""
     cls = model_class(cfg)
     if model is None:
-        model = cls(cfg, dtype=dtype, device=device, ragged_attention=ragged_attention)
+        model = cls(cfg, dtype=dtype, device=device, ragged_attention=ragged_attention,
+                    quantize=quantize)
+    elif model.quantize != quantize:
+        raise ValueError(f"load_checkpoint(quantize={quantize!r}) into a model built "
+                         f"with quantize={model.quantize!r}")
     idx = _open_safetensors(path)
     try:
         model.params_from_hf(lambda name: idx.get(name, model.device))
@@ -249,9 +255,15 @@ def save_checkpoint(model: Llama, cfg: ModelConfig, path: str,
     """Write `model` as an HF-layout checkpoint: ``model.safetensors`` in
     `dtype` plus the ``config.json`` of `cfg.hf_config()`, which
     `config_from_hf_dir` (and transformers) read back. Returns the bytes
-    of the weights file."""
+    of the weights file. An int8 model raises: there is no int8 checkpoint
+    format to write (the JAX package has none either), so save the
+    unquantized model and load it with quantize="int8"."""
     from gridllm_torch.models import hf_layout
 
+    if model.quantize:
+        raise ValueError(f"save_checkpoint: {cfg.name} has {model.quantize} weights; a "
+                         "checkpoint holds float weights and there is no int8 format (the "
+                         "JAX package has none): save the unquantized model")
     os.makedirs(path, exist_ok=True)
     tensors = hf_layout.to_hf_tensors(model.params_tree(), cfg, model.name_map())
     n = _save_safetensors(os.path.join(path, "model.safetensors"), tensors, dtype)

@@ -2,7 +2,7 @@
 
 A copy of the JAX package's ``models/configs.py`` data for the families
 this package serves (llama, qwen2/qwen3, the llama-skeleton mistral
-entries, gemma2 and the tiny test configs):
+entries, gemma2, mixtral and the tiny test configs):
 Ollama-style model names map to the public HF architecture dimensions.
 The port keeps its own copy so that it imports nothing of the JAX
 package. `config_from_hf_dir` builds a config from a local HF
@@ -24,7 +24,7 @@ from gridllm_torch.ops.layers import RopeScaling
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str = "llama"            # llama | qwen2 | qwen3 | gemma2
+    family: str = "llama"            # llama | qwen2 | qwen3 | gemma2 | mixtral
     vocab_size: int = 128_256
     hidden_size: int = 4096
     intermediate_size: int = 14_336
@@ -37,6 +37,9 @@ class ModelConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
     max_seq_len: int = 8192
+    # MoE (mixtral family)
+    num_experts: int = 0
+    experts_per_token: int = 2
     attn_logit_softcap: float = 0.0
     sliding_window: int = 0          # 0 → full attention
     attn_bias: bool = False          # qwen2: bias on q/k/v projections
@@ -80,6 +83,12 @@ class ModelConfig:
                         attn_logit_softcapping=self.attn_logit_softcap,
                         final_logit_softcapping=self.final_logit_softcap,
                         query_pre_attn_scalar=self.query_pre_attn_scalar or self.head_dim_)
+        if self.family == "mixtral":
+            # the transformers MixtralConfig the JAX package builds
+            return dict(out, model_type="mixtral", architectures=["MixtralForCausalLM"],
+                        num_local_experts=self.num_experts,
+                        num_experts_per_tok=self.experts_per_token,
+                        sliding_window=self.sliding_window or None, attention_bias=False)
         if self.family == "qwen2":
             # qwen2 hardcodes its q/k/v bias; its window is off
             return dict(out, model_type="qwen2", architectures=["Qwen2ForCausalLM"],
@@ -204,11 +213,24 @@ register(ModelConfig(
     final_logit_softcap=30.0, query_pre_attn_scalar=144,
 ))
 
+register(ModelConfig(
+    name="mixtral:8x7b", family="mixtral", vocab_size=32_000,
+    hidden_size=4096, intermediate_size=14_336, num_layers=32,
+    num_heads=32, num_kv_heads=8, rope_theta=1_000_000.0,
+    num_experts=8, experts_per_token=2, max_seq_len=32_768, rms_eps=1e-5,
+))
+
 # Tiny configs: architecture-faithful, test-sized.
 register(ModelConfig(
     name="tiny-llama", vocab_size=256, hidden_size=64, intermediate_size=128,
     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
     rope_theta=10_000.0, max_seq_len=256, tie_embeddings=False,
+))
+register(ModelConfig(
+    name="tiny-mixtral", family="mixtral", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=16, rope_theta=10_000.0, max_seq_len=256,
+    num_experts=4, experts_per_token=2,
 ))
 register(ModelConfig(
     name="tiny-qwen2", family="qwen2", vocab_size=256, hidden_size=64,
@@ -257,11 +279,11 @@ _HF_FAMILY = {
     "qwen2": "qwen2",
     "qwen3": "qwen3",
     "gemma2": "gemma2",
+    "mixtral": "mixtral",
 }
 # HF model_types the JAX package serves and this one does not yet: the
 # ROADMAP item that ports each
 _HF_UNPORTED = {
-    "mixtral": "ROADMAP A 7",
     "bert": "ROADMAP A 8",
     "llava": "ROADMAP A 8",
 }
@@ -311,6 +333,8 @@ def _config_from_hf_dict(name: str, hf: dict, path: str) -> ModelConfig:
         # gemma2 checkpoints tie embeddings without always saying so
         tie_embeddings=hf.get("tie_word_embeddings", family == "gemma2"),
         max_seq_len=hf.get("max_position_embeddings", 8192),
+        num_experts=hf.get("num_local_experts", 0),
+        experts_per_token=hf.get("num_experts_per_tok", 2),
         # qwen2 configs carry sliding_window with use_sliding_window=false:
         # the family attends to the full context then
         sliding_window=((hf.get("sliding_window") or 0)

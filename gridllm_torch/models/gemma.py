@@ -18,7 +18,9 @@ and this module owns only what gemma2 computes differently:
   rope, so the attention kernels keep their 1/sqrt(d);
 - a sliding window on EVEN layers (HF: layer_idx % 2 == 0), a host int per
   layer's launch (`_window`);
-- tied head, float32 logits, tanh-softcapped by final_logit_softcap.
+- tied head, float32 logits, tanh-softcapped by final_logit_softcap;
+- with int8 weights every projection goes through `qdot`; the tied head
+  stays in the load dtype (embed is not a quant leaf).
 
 Parameters keep the JAX pytree's names and layout (stacked [L] leaves,
 projections [in, out]), so `params_from_jax` copies a JAX gemma2 pytree
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from gridllm_torch.models.configs import ModelConfig
 from gridllm_torch.models.llama import Llama
 from gridllm_torch.ops.layers import rotate
+from gridllm_torch.ops.quant import qdot
 
 
 def gemma_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -83,11 +86,12 @@ class Gemma2(Llama):
         lp, eps = self.layers, self.cfg.rms_eps
         q, k, v = self._qkv(li, gemma_norm(x, lp["attn_norm"][li], eps))
         q, k = rotate(q, *rope), rotate(k, *rope)
-        att = attend(self._q_prescale(q), k, v).reshape(*x.shape[:-1], -1) @ lp["wo"][li]
+        att = qdot(attend(self._q_prescale(q), k, v).reshape(*x.shape[:-1], -1),
+                   self._w("wo", li))
         x = x + gemma_norm(att, lp["post_attn_norm"][li], eps)
         hx = gemma_norm(x, lp["pre_ffn_norm"][li], eps)
-        hx = (F.gelu(hx @ lp["w_gate"][li], approximate="tanh")
-              * (hx @ lp["w_up"][li])) @ lp["w_down"][li]
+        hx = qdot(F.gelu(qdot(hx, self._w("w_gate", li)), approximate="tanh")
+                  * qdot(hx, self._w("w_up", li)), self._w("w_down", li))
         return x + gemma_norm(hx, lp["post_ffn_norm"][li], eps), k, v
 
     def _window(self, li: int) -> int:
@@ -96,7 +100,8 @@ class Gemma2(Llama):
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = gemma_norm(x, self.final_norm, self.cfg.rms_eps)
-        logits = (x @ self.embed.T).float()   # tied head
+        # tied head: embed is no quant leaf, so it stays in the load dtype
+        logits = (x @ self.embed.T).float()
         cap = self.cfg.final_logit_softcap
         return cap * torch.tanh(logits / cap) if cap else logits
 

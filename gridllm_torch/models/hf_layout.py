@@ -11,7 +11,9 @@ places it, the `place` callback here takes one layer at a time —
 `place(path, layer, tensor, transpose)`, `layer` None for the embedding,
 final norm and head — so a loader can write each tensor straight into a
 preallocated [L, ...] parameter on the device: no stacked leaf is ever
-built on the host.
+built on the host. A template with two `{}` slots (layer, expert: the
+mixtral experts) is a [L, X, ...] leaf, placed one expert at a time with
+`layer` the index pair (layer, expert).
 """
 
 from __future__ import annotations
@@ -22,30 +24,47 @@ import torch
 
 from gridllm_torch.models.configs import ModelConfig
 
-# get(hf_name) -> host tensor; place(path, layer or None, tensor, transpose)
+# get(hf_name) -> host tensor; place(path, layer, (layer, expert) or None,
+# tensor, transpose)
 Get = Callable[[str], torch.Tensor]
-Place = Callable[[tuple[str, ...], "int | None", torch.Tensor, bool], None]
+Place = Callable[[tuple[str, ...], "int | tuple[int, int] | None", torch.Tensor, bool], None]
+
+
+def is_expert_leaf(tmpl: str) -> bool:
+    """Templates with two {} slots (layer, expert) stack an extra X axis."""
+    return tmpl.count("{}") == 2
+
+
+def _slots(cfg: ModelConfig, tmpl: str):
+    """The index of every tensor of a template: layers, or (layer, expert)."""
+    if is_expert_leaf(tmpl):
+        return [(i, x) for i in range(cfg.num_layers) for x in range(cfg.num_experts)]
+    return list(range(cfg.num_layers))
+
+
+def _name(tmpl: str, index) -> str:
+    return tmpl.format(*index) if isinstance(index, tuple) else tmpl.format(index)
 
 
 def stack_layer_leaves(cfg: ModelConfig, get: Get, name_map: dict[str, tuple[str, bool]],
                        place: Place) -> None:
-    """Every per-layer HF tensor of `name_map`, layer by layer, to
-    `place` with its leaf path, layer index and transpose flag."""
+    """Every per-layer (and per-expert) HF tensor of `name_map`, one at a
+    time, to `place` with its leaf path, index and transpose flag."""
     for name, (tmpl, transpose) in name_map.items():
-        for i in range(cfg.num_layers):
-            place(("layers", name), i, get(tmpl.format(i)), transpose)
+        for index in _slots(cfg, tmpl):
+            place(("layers", name), index, get(_name(tmpl, index)), transpose)
 
 
 def flatten_layer_leaves(layers: dict[str, torch.Tensor], cfg: ModelConfig,
                          name_map: dict[str, tuple[str, bool]]) -> dict[str, torch.Tensor]:
-    """Inverse of stack_layer_leaves: HF name → one layer's tensor in HF
-    orientation, a view of the stacked leaf (no copy; transposed views are
+    """Inverse of stack_layer_leaves: HF name → one layer's (or expert's)
+    tensor in HF orientation, a view of the stacked leaf (no copy; transposed views are
     not contiguous)."""
     out: dict[str, torch.Tensor] = {}
     for name, (tmpl, transpose) in name_map.items():
         stacked = layers[name]
-        for i in range(cfg.num_layers):
-            out[tmpl.format(i)] = stacked[i].T if transpose else stacked[i]
+        for index in _slots(cfg, tmpl):
+            out[_name(tmpl, index)] = stacked[index].T if transpose else stacked[index]
     return out
 
 

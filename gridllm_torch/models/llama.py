@@ -28,8 +28,19 @@ dispatchers (`paged_attention_decode`, `paged_attention_verify`,
 
 Every attention call takes layer li's sliding window (`_window(li)`) and
 the config's logit softcap, so a family whose layers differ only there
-(gemma2, models/gemma.py) shares the entry points and overrides the
-pieces: `_layer_shapes`, `_embed`, `_block`, `_window`, `_unembed`.
+(gemma2, models/gemma.py; mixtral, models/mixtral.py) shares the entry
+points and overrides the pieces: `_layer_shapes`, `_embed`, `_block`,
+`_mlp`, `_window`, `_unembed`.
+
+Int8 weights (`quantize="int8"`, the JAX package's ops/quant.py scheme):
+the QUANT_LEAVES (the attention and dense-FFN projections and an untied
+lm_head) are int8 parameters in `layers` (and `lm_head`) with float32
+per-out-channel scales in `scales` under the same names, so
+`named_parameters()` carries both halves and a parked snapshot restores
+them as they are. No bf16 copy of a whole quantized leaf is ever
+allocated: weights are quantized a layer slice at a time as they are drawn
+or placed. Every projection goes through `qdot` on the layer's weight
+(`_w`), which is the plain (x @ q) * scale for a quantized leaf.
 """
 
 from __future__ import annotations
@@ -56,6 +67,14 @@ from gridllm_torch.ops.kvcache import (
     write_prefill_all,
 )
 from gridllm_torch.ops.layers import precompute_rope, rms_norm, rope_tables, rotate
+from gridllm_torch.ops.quant import (
+    QUANT_LEAVES,
+    QuantizedTensor,
+    qdot,
+    quantize_into,
+    scale_of,
+    to_int8,
+)
 
 
 class Llama(nn.Module):
@@ -65,22 +84,41 @@ class Llama(nn.Module):
     # the norm leaves and the value init_params gives them (and final_norm)
     NORMS: tuple[str, ...] = ("attn_norm", "mlp_norm", "q_norm", "k_norm")
     NORM_INIT = 1.0
+    # leaves drawn at a fixed scale (the others: fan_in ** -0.5, norms NORM_INIT)
+    FIXED_INIT = {"bq": 0.02, "bk": 0.02, "bv": 0.02}
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cuda", ragged_attention: bool = True):
+                 device: torch.device | str = "cuda", ragged_attention: bool = True,
+                 quantize: str | None = None):
         super().__init__()
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
         self.cfg = cfg
+        self.dtype = dtype
+        self.quantize = quantize
         self._ragged_attention = ragged_attention
         e, v, d = cfg.hidden_size, cfg.vocab_size, cfg.head_dim_
 
-        def p(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+        def p(*shape, dt=dtype):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
                                 requires_grad=False)
 
+        def quantized(name):
+            return quantize is not None and name in QUANT_LEAVES
+
+        shapes = self._layer_shapes()
         self.embed = p(v, e)
-        self.layers = nn.ParameterDict({k: p(*s) for k, s in self._layer_shapes().items()})
+        self.layers = nn.ParameterDict({
+            k: p(*s, dt=torch.int8 if quantized(k) else dtype) for k, s in shapes.items()})
+        # the float32 scales of the int8 leaves, [..., out], by leaf name
+        self.scales = nn.ParameterDict({
+            k: p(*s[:-2], s[-1], dt=torch.float32) for k, s in shapes.items() if quantized(k)})
         self.final_norm = p(e)
-        self.lm_head = None if cfg.tie_embeddings else p(e, v)
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = p(e, v, dt=torch.int8 if quantized("lm_head") else dtype)
+            if quantized("lm_head"):
+                self.scales["lm_head"] = p(v, dt=torch.float32)
         self.register_buffer(
             "inv_freq",
             precompute_rope(d, cfg.rope_theta, cfg.rope_scaling, device=device),
@@ -117,53 +155,99 @@ class Llama(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Llama":
         """Random weights with the JAX package's scales (normal × fan_in
-        ** -0.5 for projections, 0.02 for embedding/head and biases,
-        NORM_INIT for norms), drawn in float32 on the module's device."""
+        ** -0.5 for projections, 0.02 for embedding/head and FIXED_INIT,
+        NORM_INIT for norms), drawn in float32 on the module's device one
+        leaf slice at a time. An int8 leaf draws the same numbers, rounds
+        them to the model dtype and quantizes them, as the JAX package
+        quantizes its initialized weights: an int8 model's weights are the
+        int8 pairs of the unquantized model's from the same generator."""
 
-        def normal_(t: torch.Tensor, scale: float) -> None:
+        def slices(t: torch.Tensor, scale: float):
             for i in range(t.shape[0]):  # one leaf slice at a time: bounded memory
-                t[i].copy_(torch.randn(t.shape[1:], generator=generator,
-                                       device=t.device, dtype=torch.float32) * scale)
+                yield i, torch.randn(t.shape[1:], generator=generator, device=t.device,
+                                     dtype=torch.float32) * scale
 
-        normal_(self.embed, 0.02)
+        def normal_(name: str, t: torch.Tensor, scale: float) -> None:
+            if name not in self.scales:
+                for i, w in slices(t, scale):
+                    t[i].copy_(w)
+            elif t.ndim > 2:      # a stacked leaf: each layer's slice quantizes alone
+                for i, w in slices(t, scale):
+                    quantize_into(QuantizedTensor(t[i], self.scales[name][i]),
+                                  w.to(self.dtype))
+            else:
+                # a 2-D leaf (the head) is drawn by rows, and its scales need
+                # every row: a first pass finds each column's largest
+                # magnitude, a second draws the same rows again and rounds
+                state = generator.get_state()
+                amax = torch.zeros(t.shape[-1], dtype=torch.float32, device=t.device)
+                for _, w in slices(t, scale):
+                    amax = torch.maximum(amax, w.to(self.dtype).float().abs())
+                generator.set_state(state)
+                s = scale_of(amax)
+                self.scales[name].copy_(s)
+                for i, w in slices(t, scale):
+                    t[i].copy_(to_int8(w.to(self.dtype), s))
+
+        normal_("embed", self.embed, 0.02)
         for name, t in self.layers.items():
             if name in self.NORMS:
                 t.fill_(self.NORM_INIT)
-            elif name in ("bq", "bk", "bv"):
-                normal_(t, 0.02)
             else:
-                normal_(t, t.shape[-2] ** -0.5)
+                normal_(name, t, self.FIXED_INIT.get(name, t.shape[-2] ** -0.5))
         self.final_norm.fill_(self.NORM_INIT)
         if self.lm_head is not None:
-            normal_(self.lm_head, 0.02)
+            normal_("lm_head", self.lm_head, 0.02)
         return self
 
     @torch.no_grad()
     def params_from_jax(self, np_params: dict[str, Any]) -> "Llama":
         """Copy a JAX-layout pytree (numpy leaves: stacked [L] layer
-        leaves, [in, out] projections) into this module's parameters."""
+        leaves, [in, out] projections; a quantized leaf as the JAX
+        package's QuantizedTensor of numpy `q` and `scale`) into this
+        module's parameters. A float leaf for an int8 parameter is
+        quantized on the host first (quantize_np_leaf's rule)."""
+        from gridllm_torch.ops.quant import quantize_np_leaf
 
-        def put(dst: torch.Tensor, src) -> None:
-            arr = np.array(src, dtype=np.float32)  # a writable copy
+        def put(dst: torch.Tensor, src, dtype=np.float32) -> None:
+            arr = np.array(src, dtype=dtype)  # a writable copy
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"shape {arr.shape} != {tuple(dst.shape)}")
             dst.copy_(torch.from_numpy(arr))
 
+        def put_leaf(name: str, dst: torch.Tensor, src) -> None:
+            if name not in self.scales:
+                if hasattr(src, "q"):
+                    raise ValueError(f"{name}: an int8 leaf for an unquantized model")
+                put(dst, src)
+                return
+            if not hasattr(src, "q"):
+                src = quantize_np_leaf(name, np.asarray(src, np.float32))
+            put(dst, src.q, np.int8)
+            put(self.scales[name], src.scale)
+
         put(self.embed, np_params["embed"])
         for name, t in self.layers.items():
-            put(t, np_params["layers"][name])
+            put_leaf(name, t, np_params["layers"][name])
         put(self.final_norm, np_params["final_norm"])
         if self.lm_head is not None:
-            put(self.lm_head, np_params["lm_head"])
+            put_leaf("lm_head", self.lm_head, np_params["lm_head"])
         return self
+
+    def _leaf(self, name: str, t: torch.Tensor):
+        """Parameter `t` of leaf `name`, paired with its scales when int8."""
+        return QuantizedTensor(t, self.scales[name]) if name in self.scales else t
 
     def params_tree(self) -> dict[str, Any]:
         """The parameters as the JAX-layout pytree (embed, layers, final_norm
-        and, untied, lm_head), tensors shared with the module."""
-        tree: dict[str, Any] = {"embed": self.embed, "layers": dict(self.layers.items()),
-                                "final_norm": self.final_norm}
+        and, untied, lm_head; int8 leaves as QuantizedTensor), tensors
+        shared with the module."""
+        tree: dict[str, Any] = {
+            "embed": self.embed,
+            "layers": {k: self._leaf(k, t) for k, t in self.layers.items()},
+            "final_norm": self.final_norm}
         if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
+            tree["lm_head"] = self._leaf("lm_head", self.lm_head)
         return tree
 
     @torch.no_grad()
@@ -173,7 +257,10 @@ class Llama(nn.Module):
         to the module's device as stored, is transposed there when the map
         says so and converted into its slot of the preallocated [L, ...]
         parameter, so no stacked or transposed copy is made on the host.
-        Tied embeddings read no lm_head.weight."""
+        An int8 leaf's layer is quantized from the stored values as it is
+        placed (the JAX loader's host-side rule, one layer slice here), so
+        no whole float copy of the leaf is made. Tied embeddings read no
+        lm_head.weight."""
         from gridllm_torch.models import hf_layout
 
         tree = self.params_tree()
@@ -187,7 +274,10 @@ class Llama(nn.Module):
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
                                  f"!= {tuple(dst.shape)}")
-            dst.copy_(src)
+            if isinstance(dst, QuantizedTensor):
+                quantize_into(dst, src)
+            else:
+                dst.copy_(src)
 
         hf_layout.to_pytree(self.cfg, get, self.name_map(), place)
         return self
@@ -211,11 +301,17 @@ class Llama(nn.Module):
         # clamp to the last row, as the JAX package's gather does
         return self.embed[tokens.long().clamp(0, self.cfg.vocab_size - 1)]
 
+    def _w(self, name: str, li: int):
+        """Layer li's slice of projection leaf `name`: a tensor, or for an
+        int8 leaf the QuantizedTensor of its q and scale slices."""
+        return self._leaf(name, self.layers[name])[li]
+
     def _qkv(self, li: int, x: torch.Tensor):
         """x: [..., T, E] → q [..., T, H, D], k/v [..., T, KVH, D]."""
         cfg, lp = self.cfg, self.layers
         d = cfg.head_dim_
-        q, k, v = x @ lp["wq"][li], x @ lp["wk"][li], x @ lp["wv"][li]
+        q, k, v = (qdot(x, self._w("wq", li)), qdot(x, self._w("wk", li)),
+                   qdot(x, self._w("wv", li)))
         if cfg.attn_bias:
             q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
         q = q.reshape(*x.shape[:-1], cfg.num_heads, d)
@@ -227,8 +323,8 @@ class Llama(nn.Module):
         return q, k, v
 
     def _mlp(self, li: int, x: torch.Tensor) -> torch.Tensor:
-        lp = self.layers
-        return (F.silu(x @ lp["w_gate"][li]) * (x @ lp["w_up"][li])) @ lp["w_down"][li]
+        gate, up = qdot(x, self._w("w_gate", li)), qdot(x, self._w("w_up", li))
+        return qdot(F.silu(gate) * up, self._w("w_down", li))
 
     def _block(self, li: int, x: torch.Tensor, rope, attend) -> tuple:
         """One decoder layer: returns (x out, k, v). `attend(q, k, v)`
@@ -238,14 +334,14 @@ class Llama(nn.Module):
         q, k, v = self._qkv(li, hx)
         q, k = rotate(q, *rope), rotate(k, *rope)
         att = attend(q, k, v).reshape(*x.shape[:-1], -1)
-        x = x + att @ lp["wo"][li]
+        x = x + qdot(att, self._w("wo", li))
         hx = rms_norm(x, lp["mlp_norm"][li], cfg.rms_eps)
         return x + self._mlp(li, hx), k, v
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
-        head = self.embed.T if self.lm_head is None else self.lm_head
-        return (x @ head).float()
+        head = self.embed.T if self.lm_head is None else self._leaf("lm_head", self.lm_head)
+        return qdot(x, head, out_dtype=torch.float32)
 
     def _window(self, li: int) -> int:
         """Layer li's sliding window (0: full attention)."""

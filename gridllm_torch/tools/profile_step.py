@@ -35,6 +35,9 @@ Serves llama3:8b (bf16, random weights from seed 0) and measures:
   of csrc/flash_prefill.cu, reported as the "flash_prefill" family), and
   the same prompt admitted in 1024-token chunks (32 mixed steps, the
   default prefill_chunk), each profiled as one window.
+`profile_weights` (called by chip_smoke.py's quant and mixtral phases,
+not by this module's main) profiles a decode and a verify step of an
+int8-weight or mixtral engine.
 Prints one JSON line per measurement (the profiler's overhead slows the
 profiled decode window; the steady window is measured without it).
 Usage: python3 -m gridllm_torch.tools.profile_step
@@ -164,17 +167,20 @@ def profile_decode(engine: InferenceEngine, n_slots: int) -> list[dict]:
 class _Steps:
     """Single model calls of an engine at the main path's shapes: slot 0
     admits a 1024-token chunk (pages 0..127), slots 1.. hold 1024 cached
-    tokens each."""
+    tokens each. With `pages` < 128 each slot's table maps that many pages
+    (the rest -1), for a pool too small for 128 a slot: enough for decode
+    and verify steps at 1024 cached tokens, not for the chunk."""
 
-    def __init__(self, engine: InferenceEngine):
+    def __init__(self, engine: InferenceEngine, pages: int = 128):
         self.model, self.cache, self.c = engine.model, engine.cache, 1024
         dev, s = engine.device, self.cache.max_slots
         self.tokens = torch.randint(0, 32_000, (self.c,), device=dev, dtype=torch.int32)
         self.row = torch.arange(128, device=dev, dtype=torch.int32)
         self.active = torch.zeros(s, dtype=torch.bool, device=dev)
         self.active[1:] = True
-        self.cache.page_table.copy_(
-            torch.arange(128 * s, device=dev, dtype=torch.int32).reshape(s, 128))
+        self.cache.page_table.fill_(-1)
+        self.cache.page_table[:, :pages] = torch.arange(
+            pages * s, device=dev, dtype=torch.int32).reshape(s, pages)
         self.cache.lengths[1:] = 1024
         self.step_tokens = torch.zeros(s, dtype=torch.int32, device=dev)
         self.cand = torch.randint(0, 32_000, (s, engine.config.spec_k + 1), device=dev,
@@ -242,6 +248,23 @@ def profile_int8(engine: InferenceEngine) -> list[dict]:
             st.step_tokens, st.cache, st.all_active))),
         ("mixed_step_int8_1024_after_1024", st.mixed),
     ))]
+
+
+def profile_weights(engine: InferenceEngine) -> list[dict]:
+    """A decode step (8 slots at 1024 cached tokens) and a verify step
+    (8 x K+1 = 5 after 1024) of an engine whose weights are the cost: an
+    int8-weight engine (the plain qdot) or a mixtral engine (the decode
+    step's MoE in the dense form, the verify step's 40 rows in the ragged
+    form on CUDA). Each slot's table maps 17 pages, so the pool needs
+    17 x max_slots."""
+    st = _Steps(engine, pages=17)
+    return [{**rec, "model": engine.cfg.name, "quantize": engine.config.quantize}
+            for rec in _profile_calls((
+                ("decode_step_8x1024", st.at_1024(lambda: st.model.decode_step(
+                    st.step_tokens, st.cache, st.all_active))),
+                ("verify_step_8x5_after_1024", st.at_1024(lambda: st.model.verify_step(
+                    st.cand, st.cache, st.all_active))),
+            ))]
 
 
 def profile_tree(engine: InferenceEngine) -> list[dict]:

@@ -182,6 +182,11 @@ register_env("GRIDLLM_KV_SPILL_INT8", "1",
              "Int8-quantize fp KV pages on spill to the host tier (one scale "
              "per layer and page); 0 spills raw bytes (tier-on streams stay "
              "byte-identical to tier-off).")
+# the models
+register_env("GRIDLLM_MOE_RAGGED", "auto",
+             "MoE feed-forward of 16 or more tokens per call in the sorted "
+             "per-expert (ragged) form: auto (on CUDA only), 1 (force on), "
+             "0 (the dense all-experts form).")
 register_env("GRIDLLM_TIMELINE", "1",
              "Fleet-wide causal timeline: arm the HLC-stamped event publisher.")
 register_env("GRIDLLM_TIMELINE_QUEUE", "2048",

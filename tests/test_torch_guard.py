@@ -98,8 +98,14 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
 def test_unported_engine_features_raise(field, value):
     """Unported settings raise NotImplementedError naming the field; the
     checkpoint settings are served since checkpoints were ported, so a
-    missing directory fails its load instead of being refused, and the
-    host KV tier since it was ported, so the engine builds one."""
+    missing directory fails its load instead of being refused, the host KV
+    tier since it was ported, so the engine builds one, and int8 weights
+    since they were ported, so the engine's projections are int8."""
+    if field == "quantize":
+        eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",
+                                           **{field: value}), device="cpu")
+        assert eng.model.quantize == value and eng.model.layers["wq"].dtype == torch.int8
+        return
     if field == "kv_host_bytes":
         eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",
                                            **{field: value}), device="cpu")
