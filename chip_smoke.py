@@ -96,7 +96,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              engine that prewarms at construction
              (GRIDLLM_PREWARM_COMPILES=1) serves the seven streams with no
              warm-up job: TTFT p50 and tokens/s, a reading.
-7. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
+7. sched   — the port's scheduler (phase_sched): WorkerRegistry and
+             JobScheduler on the port's InMemoryBus over two port
+             WorkerServices, each llama3:8b bf16 with the engine's defaults
+             and SCHED_SLOTS slots; 16 concurrent generate and chat jobs
+             through submit_streaming_job and submit_and_wait (one prompt
+             longer than a chunk; the four past the 12 advertised slots
+             wait in the scheduler's queue), spread over both workers,
+             one cancelled mid-stream through cancel_job, two
+             prefix-affinity repeats landing on the worker whose
+             heartbeat digest holds their prefix, a drain mid-decode the
+             scheduler hands off; launch counters from 0 over that path,
+             no plain version on the card, the usage ledger's two halves
+             equal, both workers healthy; then a worker killed mid-decode
+             on the 8-layer float32 cut, evicted by the registry, its job
+             requeued with its watermark and finished on the survivor
+             byte-identical to the undisturbed run. Reads from the
+             scheduler's own trace TTFT p50/p90 (submit to the first
+             chunk), the queue wait (its queue spans) and its host time
+             (submit to the assignment's publish); output tokens/s.
+8. replay  — the warm prefix-cache replay held to the cold run: llama3:8b
              in float32 serves a prompt cold, then again from the prefix
              cache, and the greedy streams must be identical; then, in
              bf16, each operation of a replayed prompt row and of a decode
@@ -104,10 +123,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              group region alone vs beside a chunk, norms and projections
              in 8-, 1024- and 1032-row products), to show where bf16
              rounding departs between batch contexts.
-8. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
+9. spec    — llama3:8b in float32: a repetitive prompt whose drafts get
              accepted gives the same greedy stream with speculative
              decoding on and off, with ragged attention on and off.
-9. checkpoint — llama3.2:1b at full width (bf16, tied embeddings): its
+10. checkpoint — llama3.2:1b at full width (bf16, tied embeddings): its
              random weights written with save_checkpoint into a temporary
              directory (removed after), loaded back through
              checkpoint_path (every parameter equal bit for bit; load
@@ -126,7 +145,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              path, the memory limit the card's; the sampler's threefry
              bits on CUDA equal to the CPU's over 64 seeds x 64 steps,
              its Gumbel draws within 2 ulp.
-10. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
+11. int8    — the resident int8 KV pool (kv_int8): ragged_attention's
              int8 leg against its plain version (the pool dequantized
              through gather_kv) in bf16 and float32 compute, q scaled by 4
              and held to the row-relative error, per-row scales spanning
@@ -150,7 +169,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              none on the CUDA cores, flash_prefill, and no write kernel
              (int8 writes are indexed assignments) nor per-phase kernel;
              pool bytes per page 0.502x bf16's.
-11. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
+12. profiler — PROFILER_RUNS child processes, each llama3:8b bf16 with
              the engine's defaults and its runner thread live serving
              eight concurrent requests inside an InferenceEngine.profile()
              capture (torch.profiler, CPU and CUDA activity), then eight
@@ -158,7 +177,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              mid-decode, then a capture the engine did not start, which
              must be refused; faulthandler on. Fails if a child dies by a
              signal or fails a check.
-12. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
+13. long   — long-context serving, llama3.1:8b: flash_prefill_streamed
              against its blocked plain version (bf16 at T = 32768 with
              seq_len 24001 and 32768, float32 at T = 16384, D = 64,
              window and softcap, G = 7 at T = 20000), the ported kernels
@@ -175,7 +194,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              serving a 24001-token prompt whole in the 32768 bucket beside
              a short request (32 flash_prefill_streamed launches), and its
              warm repeat as one 32768-row mixed-step chunk.
-13. tree   — draft-model tree speculation: ragged_attention's tree leg
+14. tree   — draft-model tree speculation: ragged_attention's tree leg
              against its plain version (ragged_paged_attention_ref with
              tree_pos/tree_mask), q scaled by 4 and held to the
              row-relative error, in bf16 and float32 compute, fp and int8
@@ -197,7 +216,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              whose draft weights were made in memory; then
              float32 llama3.2:1b self-drafted greedy streams held to spec
              off with ragged attention on, off, and with kv_int8.
-14. kvx    — KV movement and the host KV tier (phase_kvx): two port
+15. kvx    — KV movement and the host KV tier (phase_kvx): two port
              WorkerServices on the port's InMemoryBus, a stand-in
              scheduler that makes the handoffs; llama3:8b bf16 with the
              engine's defaults serves a 1,500-byte prompt disaggregated
@@ -214,7 +233,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              device-warm one, park frees its pages, float32 streams equal
              with the tier on and off). Reads export, import, bus and HTTP
              GB/s and TTFT after an import beside unified TTFT.
-15. gemma  — gemma2 and head dim 256 (phase_gemma): every kernel at D = 256
+16. gemma  — gemma2 and head dim 256 (phase_gemma): every kernel at D = 256
              and gemma2:9b's widths (H 16, KVH 8, pages of 64, 128-entry
              tables) against its plain version, q scaled by 4 and held to
              the row-relative error and to its launch counters
@@ -235,7 +254,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              counters from 0 held to the ragged path, every ragged launch
              at D = 256 (tokens/s, TTFT); float32 spec-on streams equal to
              spec-off on the cut, ragged attention on and off.
-16. quant  — int8 weights (phase_quant): one llama3:70b layer slice
+17. quant  — int8 weights (phase_quant): one llama3:70b layer slice
              ([8192, 28672]) quantized on the card bit-equal to the CPU
              (quantize_array and the blocked quantize_into); qdot at a
              decode shape (8 x 8,192 -> 28,672) timed beside the bf16
@@ -252,7 +271,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              weight bytes equal to params_nbytes' count from shapes,
              tokens/s, TTFT, peak memory, launch counters from 0 held to
              the ragged path.
-17. mixtral — the mixtral family (phase_mixtral): the dense and ragged MoE
+18. mixtral — the mixtral family (phase_mixtral): the dense and ragged MoE
              forms of one full-width float32 layer against each other
              (1e-4 relative) at 8, 40 and 1,024 tokens and timed in bf16
              at 8 and 1,024 beside the expert bytes each reads; a 2-layer
@@ -265,11 +284,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              path.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
-routes, each with the head dims compiled and its launches on the quant
-and mixtral serves; then the same rows at D = 256 from the gemma phase,
+routes, each with the head dims compiled and its launches under the
+scheduler and on the quant and mixtral serves; then the same rows at D = 256 from the gemma phase,
 named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -297,8 +316,8 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # llama3:8b attention widths and the engine's default pool geometry
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
-ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "replay", "spec",
-              "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
+ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "sched", "replay",
+              "spec", "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
               "mixtral")
 
 
@@ -2228,6 +2247,378 @@ def phase_worker(torch) -> dict:
             "device": torch.cuda.get_device_name(0), "card": card_line(), **out}
 
 
+# ---------------------------------------------------------------------------
+# sched: the port's scheduler over port workers on the card
+# ---------------------------------------------------------------------------
+
+SCHED_WORKERS = ("sched-a", "sched-b")
+SCHED_SLOTS = 6            # per worker: 12 slots in all, so 4 of the 16 jobs queue
+SCHED_DRAIN_TOKENS = 160   # long enough that the drain lands mid-decode
+SCHED_DRAIN_AFTER = 16     # snapshot tokens before the drain
+
+
+def _prefix_key(model: str, prompt: str) -> str:
+    """The gateway's prefix-affinity key of a generate request (the hash of
+    the model and the prompt's first KiB), which the gateway stamps as
+    metadata.prefixKey."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=8)
+    h.update(model.encode())
+    h.update(b"\x1f")
+    h.update(prompt[:1024].encode())
+    return h.hexdigest()
+
+
+def _sched_request(rid, n, prompt=None, messages=None, stream=True):
+    req = _worker_request(rid, n, prompt=prompt, messages=messages)
+    req.stream = stream
+    if prompt is not None:
+        req.metadata["prefixKey"] = _prefix_key(WORKER_MODEL, prompt)
+    return req
+
+
+class _SchedStack:
+    """The port's WorkerRegistry and JobScheduler on the port's InMemoryBus
+    with port WorkerServices, each on its own engine behind a _DeadableBus."""
+
+    def __init__(self, config):
+        self.config = config
+        self.workers: dict = {}
+
+    async def __aenter__(self):
+        from gridllm_torch.bus import InMemoryBus
+        from gridllm_torch.scheduler import JobScheduler, WorkerRegistry
+
+        self.bus = InMemoryBus()
+        await self.bus.connect()
+        self.registry = WorkerRegistry(self.bus, self.config)
+        self.scheduler = JobScheduler(self.bus, self.registry, self.config)
+        await self.registry.initialize()
+        await self.scheduler.initialize()
+        return self
+
+    async def add(self, wid, engine, heartbeat_ms=300):
+        from gridllm_torch.utils.config import WorkerConfig
+        from gridllm_torch.worker.service import WorkerService
+
+        svc = WorkerService(_DeadableBus(self.bus), {WORKER_MODEL: engine},
+                            WorkerConfig(worker_id=wid, heartbeat_interval_ms=heartbeat_ms),
+                            stream_flush_ms=20)
+        await svc.start()
+        self.workers[wid] = svc
+        await _wait(lambda: self.registry.get_worker(wid) is not None, f"sched: {wid} registered")
+        return svc
+
+    async def __aexit__(self, *exc):
+        for svc in self.workers.values():
+            await svc.stop(announce=False)
+        await self.scheduler.shutdown()
+        await self.registry.shutdown()
+        await self.bus.disconnect()
+
+    async def run(self, req):
+        """One job through submit_streaming_job (stream) or submit_and_wait:
+        (result or the exception, the text its chunks put together)."""
+        chunks: list[str] = []
+
+        async def on_chunk(c):
+            chunks.append(c.response or (c.message or {}).get("content", ""))
+
+        try:
+            if req.stream:
+                res = await self.scheduler.submit_streaming_job(req, on_chunk, timeout_ms=600_000)
+            else:
+                res = await self.scheduler.submit_and_wait(req, timeout_ms=600_000)
+        except Exception as e:  # noqa: BLE001 — the caller checks what it expects
+            res = e
+        return res, "".join(chunks)
+
+    def spans(self, job_id) -> dict:
+        """The scheduler's trace of a job, by span name: the first span of
+        each name."""
+        out: dict = {}
+        for s in self.scheduler.tracer.export(job_id) or []:
+            out.setdefault(s["name"], s)
+        return out
+
+    def queue_wait_ms(self, job_id) -> float:
+        spans = self.scheduler.tracer.export(job_id) or []
+        return sum((s["end"] - s["start"]) * 1e3 for s in spans
+                   if s["name"] == "queue.wait" and s.get("end") is not None)
+
+    def host_ms(self, job_id) -> float:
+        """The scheduler's own host time for a job: from its submit (the
+        gateway.request span's start) to its first assignment's publish
+        (the scheduler.dispatch event)."""
+        sp = self.spans(job_id)
+        return (sp["scheduler.dispatch"]["start"] - sp["gateway.request"]["start"]) * 1e3
+
+    def ttft_ms(self, job_id) -> float:
+        """Submit to the first chunk, as the scheduler's stream handler
+        stamps it (the gateway.first_token event)."""
+        return float(self.spans(job_id)["gateway.first_token"]["meta"]["ttftMs"])
+
+
+def _pct(xs, q) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+async def _sched_serve(torch, engines) -> dict:
+    """The bf16 part: warm-up, then with the launch counters from 0 the
+    16-job wave (one cancelled mid-stream), two prefix-affinity repeats and
+    a drain mid-decode; the usage ledger, the SLO and health views."""
+    import asyncio
+    import os
+    import random
+
+    from gridllm_torch.obs.usage import engine_usage_totals
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.utils.config import SchedulerConfig
+
+    results = {wid: _capture_results(e) for wid, e in zip(SCHED_WORKERS, engines)}
+    rng = random.Random(SEED + 17)
+    usage0 = engine_usage_totals()
+    async with _SchedStack(SchedulerConfig(sweep_interval_ms=200)) as st:
+        for wid, engine in zip(SCHED_WORKERS, engines):
+            await st.add(wid, engine)
+        # warm-up, not measured: one short and one chunked prompt per worker
+        warm = [_sched_request(f"warm{i}", 8, prompt=_prompt(rng, n))
+                for i, n in enumerate((300, 1500, 320, 1480))]
+        for req in warm:
+            res, _ = await st.run(req)
+            check(not isinstance(res, Exception) and res.success, f"sched: warm-up {res!r}")
+        prompts = [_prompt(rng, n) for n in
+                   (300, 450, 200, 600, 350, 500, 250, 400, 1500, 320, 280, 380, 420, 360)]
+        wave = [_sched_request(f"g{i}", n, prompt=p) for i, (p, n) in
+                enumerate(zip(prompts[:9], (64, 48, 56, 64, 48, 64, 56, 48, 48)))]
+        wave.append(_sched_request("cancel", 400, prompt=prompts[9]))
+        wave += [_sched_request(f"c{i}", n, messages=[{"role": "user", "content": p}])
+                 for i, (p, n) in enumerate(zip(prompts[10:13], (64, 48, 56)))]
+        wave += [_sched_request("b0", 48, prompt=prompts[13], stream=False),
+                 _sched_request("b1", 56, prompt=_prompt(rng, 330), stream=False),
+                 _sched_request("b2", 48, messages=[{"role": "user", "content": _prompt(rng, 300)}],
+                                stream=False)]
+        check(len(wave) == 16, "sched: the wave is 16 jobs")
+        depth: list[int] = []
+        ck.reset_launch_counts()
+        with _PlainWatch(torch) as plain:
+            t0 = time.perf_counter()
+
+            async def watch_queue():
+                while True:
+                    depth.append(st.scheduler.get_stats()["queuedJobs"])
+                    await asyncio.sleep(0.005)
+
+            watcher = asyncio.create_task(watch_queue())
+            tasks = {req.id: asyncio.create_task(st.run(req)) for req in wave}
+            # the cancel once the queue has drained, so the slot it frees
+            # is not offered to a queued job while the worker still runs
+            # the cancelled generation (that assignment would be NACKed)
+            await _wait(lambda: st.scheduler.get_stats()["queuedJobs"] == 0 and len(
+                st.scheduler._resume_snap.get("cancel", {}).get("tokens", ())) >= 8,
+                "sched: the queue drained and the cancel job decoding")
+            check(await st.scheduler.cancel_job("cancel"), "sched: cancel_job refused")
+            # the client goes away, as the gateway's does on a cancel
+            tasks.pop("cancel").cancel()
+            done = {rid: await t for rid, t in tasks.items()}
+            wall = time.perf_counter() - t0
+            watcher.cancel()
+            await _wait(lambda: any(r.get("cancel") is not None for r in results.values()),
+                        "sched: the cancelled generation's end")
+            check(all(r["cancel"].done_reason == "cancel" for r in results.values()
+                      if "cancel" in r), "sched: the cancelled generation was not cancelled")
+            served_by: dict[str, str] = {}
+            for req in wave:
+                if req.id == "cancel":
+                    continue
+                res, text = done[req.id]
+                check(not isinstance(res, Exception) and res.success,
+                      f"sched: job {req.id} failed: {res!r}")
+                n, ev = req.options["num_predict"], res.response.eval_count
+                check(ev == n or (res.response.done_reason == "stop" and ev < n),
+                      f"sched: job {req.id} {ev} of {n} tokens")
+                if req.stream:
+                    check(text == _final_text(res), f"sched: job {req.id} stream != final text")
+                served_by[req.id] = res.workerId
+            check(set(served_by.values()) == set(SCHED_WORKERS),
+                  f"sched: the wave did not spread over both workers: {served_by}")
+            check(max(depth) > 0, "sched: no job waited in the scheduler's queue")
+            check(any(results[w].get("g8") is not None and
+                      results[w]["g8"].prompt_eval_count > engines[0]._chunk_len
+                      for w in SCHED_WORKERS), "sched: the long prompt fit in one chunk")
+            # prefix affinity: a prompt served by each worker, repeated, lands
+            # on the worker whose heartbeat digest holds its prefix key
+            affinity = {}
+            for wid in SCHED_WORKERS:
+                rid = next(r.id for r in wave if served_by.get(r.id) == wid and r.prompt
+                           and r.stream)
+                req0 = next(r for r in wave if r.id == rid)
+                key = req0.metadata["prefixKey"]
+                await _wait(lambda: key in st.registry.get_worker(wid).cachedPrefixes,
+                            f"sched: {wid}'s digest")
+                res, _ = await st.run(_sched_request(f"{rid}-again", 16, prompt=req0.prompt))
+                check(not isinstance(res, Exception) and res.success and res.workerId == wid,
+                      f"sched: the repeat of {rid} went to {getattr(res, 'workerId', res)}")
+                cached = results[wid][f"{rid}-again"].cached_tokens
+                check(cached > 0, f"sched: the repeat of {rid} missed the prefix cache")
+                affinity[rid] = {"worker": wid, "cached_tokens": cached}
+            # drain the worker that holds a long job mid-decode
+            os.environ["GRIDLLM_KVX_TIMEOUT_MS"] = "120000"
+            try:
+                req = _sched_request("drain", SCHED_DRAIN_TOKENS, prompt=_prompt(rng, 400))
+                task = asyncio.create_task(st.run(req))
+                await _wait(lambda: len(st.scheduler._resume_snap.get("drain", {}).get(
+                    "tokens", ())) >= SCHED_DRAIN_AFTER, "sched: decode before the drain")
+                victim = st.scheduler.active_jobs["drain"].workerId
+                snap_tokens = len(st.scheduler._resume_snap["drain"]["tokens"])
+                report = await st.workers[victim].drain(budget_ms=0)
+                res, text = await task
+            finally:
+                del os.environ["GRIDLLM_KVX_TIMEOUT_MS"]
+            check(report.get("suspended") == 1, f"sched: drain report {report}")
+            check(not isinstance(res, Exception) and res.success and res.workerId != victim,
+                  f"sched: the drained job {res!r}")
+            check(text == _final_text(res), "sched: the drained stream is not exactly once")
+            handoff = {e: st.scheduler._resume_total.value(event=e)
+                       for e in ("drain_handoff", "drain_requeued", "stamped")}
+            check(handoff["drain_handoff"] + handoff["drain_requeued"] >= 1,
+                  f"sched: the scheduler took no drain handoff: {handoff}")
+            launches = ck.launch_counts()
+        check(not any(plain.counts.values()), f"sched: a plain version ran on the card: "
+                                              f"{plain.counts}")
+        for name in ("flash_prefill", "ragged_attention", "ragged_attention.chunk",
+                     "ragged_attention.group", "paged_write_decode", "paged_write_chunk"):
+            check(launches[name] > 0, f"sched: {name} never launched: {launches}")
+        # the usage ledger: the engine half (process-global) grew by what the
+        # scheduler's half accounted
+        await st.bus.flush()
+        usage1 = engine_usage_totals()
+        engine_half = {k: usage1.get(k, 0.0) - usage0.get(k, 0.0) for k in usage1}
+        engine_half = {k: v for k, v in engine_half.items() if v}
+        sched_half = st.scheduler.usage.token_totals()
+        check(engine_half == sched_half,
+              f"sched: usage ledger {sched_half} != the engines' {engine_half}")
+        health = {wid: (st.scheduler.health.state_of(wid),
+                        st.registry.get_worker(wid).healthState) for wid in SCHED_WORKERS}
+        check(all(h == ("online", "online") for h in health.values()),
+              f"sched: health {health}")
+        slo = st.scheduler.slo.snapshot()
+        judged = sum(c["requests"] for c in slo["classes"].values())
+        # the readings a client of the scheduler sees
+        streamed = [r for r in wave if r.stream and r.id != "cancel"]
+        ttft = [st.ttft_ms(r.id) for r in streamed]
+        tokens = sum(done[r.id][0].response.eval_count for r in wave if r.id != "cancel")
+        waits = [st.queue_wait_ms(r.id) for r in wave if r.id != "cancel"]
+        # the scheduler's own host time, submit to the assignment's publish,
+        # of the jobs placed at once (the first 12 dispatched, one a slot)
+        placed = sorted(wave, key=lambda r: st.spans(r.id)["scheduler.dispatch"]["start"])
+        host = [st.host_ms(r.id) for r in placed[:2 * SCHED_SLOTS]]
+        return {
+            "jobs": len(wave), "cancelled": 1, "served_by": served_by,
+            "cancelled_jobs": st.scheduler.get_stats()["totalJobsCancelled"],
+            "max_queue_depth": max(depth),
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p90": _pct(ttft, 0.9), "ttft_ms": ttft,
+            "output_tokens": tokens, "wall_s": wall, "output_tokens_per_s": tokens / wall,
+            "queue_wait_ms_p50": _pct(waits, 0.5), "queue_wait_ms_max": max(waits),
+            "sched_host_ms_p50": _pct(host, 0.5), "sched_host_ms_p90": _pct(host, 0.9),
+            "sched_host_ms_max": max(host), "sched_host_jobs": len(host),
+            "affinity": affinity,
+            "drain": {"victim": victim, "served_by": res.workerId, **handoff,
+                      "snapshot_tokens_at_drain": snap_tokens},
+            "usage_tokens": sched_half, "slo_judged": judged,
+            "slo_attainment": {k: c["attainment"] for k, c in slo["classes"].items()},
+            "health": {k: v[0] for k, v in health.items()},
+            "stats": {k: v for k, v in st.scheduler.get_stats().items() if k != "shard"},
+            "launches": launches, "plain_calls_on_card": plain.counts,
+        }
+
+
+async def _sched_kill(torch, engines, prompt) -> dict:
+    """The float32 cut: an undisturbed job on the victim alone, then the
+    same job again, the victim killed (its bus silenced and its generation
+    dropped, as the killed process's) once the scheduler holds
+    KILL_AFTER_TOKENS snapshot tokens, after a survivor joined. The port's
+    registry must evict the victim and the port's scheduler requeue the job
+    with its watermark; the survivor finishes it exactly once, its stream
+    byte-identical to the undisturbed one."""
+    import asyncio
+
+    from gridllm_torch.utils.config import SchedulerConfig
+
+    config = SchedulerConfig(worker_heartbeat_timeout_ms=1500, worker_cleanup_interval_ms=200,
+                             connection_monitor_interval_ms=200, quick_disconnect_window_ms=1500,
+                             orphan_assign_threshold_ms=1000, retry_delay_ms=100,
+                             sweep_interval_ms=200)
+    survivor_results = _capture_results(engines[1])
+    async with _SchedStack(config) as st:
+        victim = await st.add("victim", engines[0], heartbeat_ms=200)
+        ref, ref_text = await st.run(_sched_request("f32-ref", 96, prompt=prompt))
+        check(not isinstance(ref, Exception) and ref.success and ref_text == _final_text(ref),
+              f"sched f32: undisturbed run {ref!r}")
+        task = asyncio.create_task(st.run(_sched_request("f32-kill", 96, prompt=prompt)))
+        await _wait(lambda: len(st.scheduler._resume_snap.get("f32-kill", {}).get("tokens", ()))
+                    >= KILL_AFTER_TOKENS, "sched f32: decode progress before the kill")
+        await st.add("survivor", engines[1], heartbeat_ms=200)
+        victim.bus.dead = True
+        engines[0].cancel("f32-kill")
+        res, text = await task
+        check(not isinstance(res, Exception) and res.success, f"sched f32: resumed run {res!r}")
+        evicted = st.registry.get_worker("victim") is None
+        orphaned = st.scheduler._jobs_total.value(event="orphaned")
+        stamped = st.scheduler._resume_total.value(event="stamped")
+        completed = st.scheduler.total_completed
+    check(res.workerId == "survivor" and evicted, f"sched f32: served by {res.workerId}, "
+                                                  f"victim evicted {evicted}")
+    check(orphaned >= 1 and stamped >= 1, f"sched f32: orphaned {orphaned}, stamped {stamped}")
+    check(text == _final_text(res) == ref_text,
+          "sched f32: the resumed stream differs from the undisturbed run")
+    check(res.response.eval_count == ref.response.eval_count and completed == 2,
+          f"sched f32: eval_count {res.response.eval_count} of {ref.response.eval_count}, "
+          f"{completed} completions")
+    check("f32-kill" in survivor_results, "sched f32: the survivor never served the job")
+    return {"resumed_by": res.workerId, "victim_evicted": evicted, "orphaned": orphaned,
+            "stamped": stamped, "equals_undisturbed": True, "eval_count": res.response.eval_count,
+            "resume_cached_tokens": survivor_results["f32-kill"].cached_tokens}
+
+
+def phase_sched(torch) -> dict:
+    """The port's scheduler (registry, JobScheduler, placement, SLO,
+    health, usage ledger) on the port's InMemoryBus over two port
+    WorkerServices, each llama3:8b bf16 on the card with the engine's
+    defaults and SCHED_SLOTS slots: 16 concurrent generate and chat jobs
+    through submit_streaming_job and submit_and_wait (one prompt longer
+    than a chunk; those past the 12 advertised slots wait in the
+    scheduler's queue), one cancelled mid-stream through cancel_job,
+    prefix-affinity repeats, a drain mid-decode the scheduler hands off;
+    launch counters from 0 over that path, no plain version on the card,
+    the usage ledger's two halves equal, both workers healthy. Then a
+    worker killed mid-decode on the 8-layer float32 cut, evicted by the
+    registry and its job resumed by the scheduler on the survivor,
+    byte-identical to the undisturbed run. Reads from the scheduler's own
+    trace TTFT (submit to the first chunk), the queue wait (its queue
+    spans) and its host time (submit to the assignment's publish); output
+    tokens/s."""
+    import asyncio
+    import random
+
+    engines = [_kvx_engine(torch, max_slots=SCHED_SLOTS) for _ in SCHED_WORKERS]
+    out = asyncio.run(_sched_serve(torch, engines))
+    check(not any(e.running for e in engines), "sched: an engine's runner did not stop")
+    del engines
+    f32 = [_kvx_engine(torch, model=_kvx_f32_model(), dtype="float32") for _ in range(2)]
+    with _PlainWatch(torch) as plain:
+        out["kill_f32"] = asyncio.run(_sched_kill(torch, f32,
+                                                  _prompt(random.Random(SEED + 18), 400)))
+    check(not any(plain.counts.values()), f"sched f32: a plain version ran: {plain.counts}")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "sched", "model": WORKER_MODEL, "dtype": "bfloat16",
+            "slots_per_worker": SCHED_SLOTS, "card": card_line(), **out}
+
+
 def _replay_rounding(torch) -> dict:
     """bf16, one operation at a time: (a) a prompt's uncached rows as the
     warm replay computes them (ragged chunk region, 1032-row mixed-step
@@ -3155,7 +3546,9 @@ def phase_int8(torch) -> dict:
 # profiler: the engine's runner thread live under torch.profiler
 # ---------------------------------------------------------------------------
 
-PROFILER_RUNS = 2   # two keep the whole run near half its time limit
+# one child: two took 119 s of a 1,030 s run with the sched phase on a
+# slow host, near the 1,200 s limit
+PROFILER_RUNS = 2
 PROFILER_MID_FLIGHT = 4   # captures opened and closed while a batch decodes
 
 
@@ -5808,7 +6201,8 @@ def main() -> int:
             out = phase_build()
         else:
             out = {"kernels": phase_kernels, "timing": phase_timing, "model": phase_model,
-                   "serve": phase_serve, "worker": phase_worker, "replay": phase_replay,
+                   "serve": phase_serve, "worker": phase_worker, "sched": phase_sched,
+                   "replay": phase_replay,
                    "spec": phase_spec, "checkpoint": phase_checkpoint,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
                    "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
@@ -5846,8 +6240,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "head_dims": list(_HEAD_DIMS),
          "launches": launches[name],
-         # the same kernel's launches on the int8 llama3:70b and mixtral serves
-         "launches_on": {p: results[p]["launches"].get(name, 0) for p in ("quant", "mixtral")},
+         # the same kernel's launches under the port's scheduler and on the
+         # int8 llama3:70b and mixtral serves
+         "launches_on": {p: results[p]["launches"].get(name, 0)
+                         for p in ("sched", "quant", "mixtral")},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

@@ -17,6 +17,10 @@ serving path:
 - Admission never synchronizes: the prefill samples the first token on
   the device; the host first sees it in row 0 of the next block it
   fetches, matched by a per-slot dispatch-generation tag.
+- `EngineConfig`'s serving knobs (prefix cache, speculation, draft model,
+  attention mode, int8 pool) left None read their GRIDLLM_* names at
+  construction with the JAX package's defaults, so one fleet environment
+  sets torch and JAX engines alike (`EngineConfig.resolved`).
 - Prompts longer than `prefill_chunk`, and prompts whose prefix is in the
   prefix cache, prefill in page-aligned chunks. With ragged attention on
   (the default) each chunk is a `mixed_step`: ONE ragged attention launch
@@ -116,7 +120,7 @@ from gridllm_torch.ops.spec import (
     tree_depths,
     tree_topology,
 )
-from gridllm_torch.utils.config import env_bool, env_int
+from gridllm_torch.utils.config import env_bool, env_int, env_str
 
 log = logging.getLogger(__name__)
 
@@ -240,12 +244,23 @@ class _ProfileGate:
                 self._cv.notify_all()
 
     @contextlib.contextmanager
-    def switch(self) -> Iterator[None]:
+    def switch(self, deadline: float | None = None) -> Iterator[None]:
+        """Hold every runner between its steps; past `deadline` (a
+        time.monotonic() instant; None waits for ever) raise TimeoutError
+        instead, the runners released."""
         me = threading.get_ident()
+
+        def left():
+            return None if deadline is None else max(0.0, deadline - time.monotonic())
+
         with self._cv:
-            self._cv.wait_for(lambda: not self._switching)
+            if not self._cv.wait_for(lambda: not self._switching, left()):
+                raise TimeoutError("InferenceEngine.profile(): another capture kept the gate")
             self._switching = True
-            self._cv.wait_for(lambda: self._stepping <= {me})
+            if not self._cv.wait_for(lambda: self._stepping <= {me}, left()):
+                self._switching = False
+                self._cv.notify_all()
+                raise TimeoutError("InferenceEngine.profile(): a runner stayed inside its step")
         try:
             yield
         finally:
@@ -255,7 +270,6 @@ class _ProfileGate:
 
 
 _GATE = _ProfileGate()
-
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -282,25 +296,32 @@ class EngineConfig:
     pipeline_depth: int = 2              # blocks in flight ahead of the host
     admit_per_block: int = 2             # admissions per block while busy
     repeat_window: int = 256             # width of the repeat-penalty window
+    # The knobs below default to None: the engine reads each from its
+    # GRIDLLM_* name at construction (`resolved`), as the JAX engine does,
+    # and an explicit value wins.
     # prefix cache: completed requests park their full KV pages in a
     # content-addressed reuse LRU; prefix_cache_pages bounds it (-1 = whole
-    # pool, 0 = off)
-    prefix_cache: bool = True
-    prefix_cache_pages: int = -1
+    # pool, 0 = off). GRIDLLM_PREFIX_CACHE, GRIDLLM_PREFIX_CACHE_PAGES.
+    prefix_cache: bool | None = None
+    prefix_cache_pages: int | None = None
     # speculative decoding (n-gram drafting + batched verify): spec_k is
-    # the drafted tokens verified per step (a [S, K+1] verify block)
-    spec_decode: bool = True
-    spec_k: int = 4
-    # draft-model tree speculation: the draft model's config name (None =
+    # the drafted tokens verified per step (a [S, K+1] verify block).
+    # GRIDLLM_SPEC_DECODE, GRIDLLM_SPEC_K.
+    spec_decode: bool | None = None
+    spec_k: int | None = None
+    # draft-model tree speculation: the draft model's config name ("" =
     # n-gram drafting), the first-level fan-out of its token tree (1 = a
-    # pure chain) and the tokens per catch-up chunk of its ingest
+    # pure chain), the tokens per catch-up chunk of its ingest and its
+    # weights ("" = random). GRIDLLM_SPEC_DRAFT_MODEL,
+    # GRIDLLM_SPEC_TREE_WIDTH, GRIDLLM_SPEC_DRAFT_INGEST,
+    # GRIDLLM_SPEC_DRAFT_CHECKPOINT.
     draft_model: str | None = None
-    spec_tree_width: int = 2
-    draft_ingest: int = 64
-    draft_checkpoint: str | None = None  # the draft model's weights (None: random)
+    spec_tree_width: int | None = None
+    draft_ingest: int | None = None
+    draft_checkpoint: str | None = None
     # attention mode: the unified ragged kernel (True) or the per-phase
-    # dispatchers paged_decode / prefix_chunk (False)
-    ragged_attention: bool = True
+    # dispatchers paged_decode / prefix_chunk (False). GRIDLLM_RAGGED_ATTN.
+    ragged_attention: bool | None = None
     # host KV tier: its capacity in bytes (prefix-cache pages evicted from
     # the device pool spill there and page back in on a prefix match; 0 =
     # off; None = GRIDLLM_KV_HOST_BYTES) and whether an fp page is int8-
@@ -308,9 +329,36 @@ class EngineConfig:
     # bytes, so tier-on streams equal tier-off; None = GRIDLLM_KV_SPILL_INT8)
     kv_host_bytes: int | None = None
     kv_spill_int8: bool | None = None
-    # resident int8 KV pool (values + per-row float32 scales); None = off,
-    # the JAX package's env default
+    # resident int8 KV pool (values + per-row float32 scales).
+    # GRIDLLM_KV_INT8.
     kv_int8: bool | None = None
+
+    def resolved(self) -> EngineConfig:
+        """This config with each knob left None read from the environment
+        (the JAX engine's `_resolve_*` reads, with the same defaults)."""
+        def pick(value, read):
+            return read() if value is None else value
+
+        return dataclasses.replace(
+            self,
+            prefix_cache=bool(pick(self.prefix_cache, lambda: env_bool("GRIDLLM_PREFIX_CACHE"))),
+            prefix_cache_pages=int(pick(self.prefix_cache_pages,
+                                        lambda: env_int("GRIDLLM_PREFIX_CACHE_PAGES"))),
+            spec_decode=bool(pick(self.spec_decode, lambda: env_bool("GRIDLLM_SPEC_DECODE"))),
+            spec_k=int(pick(self.spec_k, lambda: env_int("GRIDLLM_SPEC_K"))),
+            draft_model=(pick(self.draft_model, lambda: env_str("GRIDLLM_SPEC_DRAFT_MODEL"))
+                         or "").strip() or None,
+            spec_tree_width=int(pick(self.spec_tree_width,
+                                     lambda: env_int("GRIDLLM_SPEC_TREE_WIDTH"))),
+            draft_ingest=int(pick(self.draft_ingest,
+                                  lambda: env_int("GRIDLLM_SPEC_DRAFT_INGEST"))),
+            draft_checkpoint=(pick(self.draft_checkpoint,
+                                   lambda: env_str("GRIDLLM_SPEC_DRAFT_CHECKPOINT"))
+                              or "").strip() or None,
+            ragged_attention=bool(pick(self.ragged_attention,
+                                       lambda: env_bool("GRIDLLM_RAGGED_ATTN"))),
+            kv_int8=bool(pick(self.kv_int8, lambda: env_bool("GRIDLLM_KV_INT8"))),
+        )
 
     def check_ported(self) -> None:
         """Raise for a setting whose feature this package does not have."""
@@ -456,6 +504,7 @@ class InferenceEngine:
         GRIDLLM_PREWARM_COMPILES=1 the engine serves one greedy token
         before it returns (`prewarm`)."""
         config.check_ported()
+        config = config.resolved()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("InferenceEngine: CUDA is not available; pass "
@@ -1371,13 +1420,15 @@ class InferenceEngine:
         """A torch profiler is active that no engine's profile() started."""
         return _GATE.owner is None and torch.autograd.profiler._is_profiler_enabled
 
-    def _between_steps(self, fn: Callable[[], None]) -> None:
+    def _between_steps(self, fn: Callable[[], None], deadline: float | None = None) -> None:
         """Run fn between two steps of this engine's runner thread (on this
         thread when no runner is live), with every runner of the process
         held between its steps and this engine's device idle, and wait for
-        it; fn's exception is raised here."""
+        it; fn's exception is raised here. Past `deadline` (time.monotonic();
+        None waits for ever) with fn not yet begun, TimeoutError: a runner
+        stuck inside a step holds the gate's switch back."""
         def call():
-            with _GATE.switch():
+            with _GATE.switch(deadline):
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 fn()
@@ -1393,6 +1444,14 @@ class InferenceEngine:
             self._work.notify_all()
         while not done.wait(0.5):
             if runner.is_alive():
+                if deadline is not None and time.monotonic() > deadline:
+                    with self._work:
+                        queued = entry in self._ctl
+                        if queued:
+                            self._ctl.remove(entry)
+                    if queued:   # the runner never came out of its step
+                        raise TimeoutError("InferenceEngine.profile(): the runner "
+                                           "stayed inside its step")
                 continue
             with self._work:
                 queued = entry in self._ctl
@@ -1407,7 +1466,8 @@ class InferenceEngine:
             raise err[0]
 
     @contextlib.contextmanager
-    def profile(self, **kwargs) -> Iterator[torch.profiler.profile]:
+    def profile(self, start_timeout_s: float | None = None,
+                **kwargs) -> Iterator[torch.profiler.profile]:
         """A torch.profiler capture (`torch.profiler.profile(**kwargs)`) of
         the process while this engine serves, its runner thread live. The
         capture starts and stops on this engine's runner thread between two
@@ -1416,7 +1476,9 @@ class InferenceEngine:
         thread segfaulted (a bad free) when a capture started or stopped on
         one thread while another launched kernels. Other engines keep
         serving under the capture. One capture at a time in the process: a
-        second profile() raises.
+        second profile() raises. With `start_timeout_s`, a capture that
+        cannot start within it (a runner of the process stuck inside a step)
+        raises TimeoutError and leaves the runners serving.
 
         Runners refuse to serve under a torch.profiler capture that no
         engine's profile() started: each sees it at the start of its next
@@ -1439,7 +1501,8 @@ class InferenceEngine:
                 _GATE.owner = None
                 prof.stop()
 
-            self._between_steps(begin)
+            self._between_steps(begin, None if start_timeout_s is None
+                                else time.monotonic() + start_timeout_s)
             try:
                 yield prof
             finally:

@@ -76,6 +76,9 @@ from gridllm_torch.ops.quant import (
     to_int8,
 )
 
+# the most values a random draw of init_params fills at once (64 MB in float32)
+_DRAW_NUMEL = 1 << 24
+
 
 class Llama(nn.Module):
     """Llama-skeleton decoder; `layers` holds the stacked [L, ...] leaves
@@ -157,23 +160,29 @@ class Llama(nn.Module):
         """Random weights with the JAX package's scales (normal × fan_in
         ** -0.5 for projections, 0.02 for embedding/head and FIXED_INIT,
         NORM_INIT for norms), drawn in float32 on the module's device one
-        leaf slice at a time. An int8 leaf draws the same numbers, rounds
+        layer of a stacked leaf, or one block of rows of a 2-D leaf, at a
+        time. An int8 leaf draws the same numbers, rounds
         them to the model dtype and quantizes them, as the JAX package
         quantizes its initialized weights: an int8 model's weights are the
         int8 pairs of the unquantized model's from the same generator."""
 
         def slices(t: torch.Tensor, scale: float):
-            for i in range(t.shape[0]):  # one leaf slice at a time: bounded memory
-                yield i, torch.randn(t.shape[1:], generator=generator, device=t.device,
-                                     dtype=torch.float32) * scale
+            # bounded memory: a stacked leaf one layer at a time, a 2-D leaf
+            # in blocks of rows of at most _DRAW_NUMEL values, one draw a
+            # block (a draw a row is ~400k launches for a 128k-row embedding)
+            step = max(1, _DRAW_NUMEL // t.shape[-1]) if t.ndim == 2 else 1
+            for i in range(0, t.shape[0], step):
+                part = t[i:i + step] if t.ndim == 2 else t[i]
+                yield i, part, torch.randn(part.shape, generator=generator, device=t.device,
+                                           dtype=torch.float32) * scale
 
         def normal_(name: str, t: torch.Tensor, scale: float) -> None:
             if name not in self.scales:
-                for i, w in slices(t, scale):
-                    t[i].copy_(w)
+                for _, part, w in slices(t, scale):
+                    part.copy_(w)
             elif t.ndim > 2:      # a stacked leaf: each layer's slice quantizes alone
-                for i, w in slices(t, scale):
-                    quantize_into(QuantizedTensor(t[i], self.scales[name][i]),
+                for i, part, w in slices(t, scale):
+                    quantize_into(QuantizedTensor(part, self.scales[name][i]),
                                   w.to(self.dtype))
             else:
                 # a 2-D leaf (the head) is drawn by rows, and its scales need
@@ -181,13 +190,13 @@ class Llama(nn.Module):
                 # magnitude, a second draws the same rows again and rounds
                 state = generator.get_state()
                 amax = torch.zeros(t.shape[-1], dtype=torch.float32, device=t.device)
-                for _, w in slices(t, scale):
-                    amax = torch.maximum(amax, w.to(self.dtype).float().abs())
+                for _, _, w in slices(t, scale):
+                    amax = torch.maximum(amax, w.to(self.dtype).float().abs().amax(dim=0))
                 generator.set_state(state)
                 s = scale_of(amax)
                 self.scales[name].copy_(s)
-                for i, w in slices(t, scale):
-                    t[i].copy_(to_int8(w.to(self.dtype), s))
+                for _, part, w in slices(t, scale):
+                    part.copy_(to_int8(w.to(self.dtype), s))
 
         normal_("embed", self.embed, 0.02)
         for name, t in self.layers.items():

@@ -17,7 +17,10 @@ registered here and driven by the engine's runner loop. The JAX package's
 `gridllm_recompiles_total` and `gridllm_recompile_storms_total` are not
 defined: they count XLA compiles of jitted programs, and this package runs
 eager PyTorch with kernels built once, so there is nothing to count.
-The profiler half is `InferenceEngine.profile()` (see worker/main.py).
+The profiler half is `InferenceEngine.profile()`: `capture_profile`
+takes a capture through it, for the worker's POST /admin/profile and for a
+scheduler's hang watchdog in a process that hosts an engine (its
+`capture` callable).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import time
 from typing import Any, Callable
 
 from gridllm_torch.obs.metrics import default_registry
+from gridllm_torch.utils.types import iso_now
 
 _OBS = default_registry()
 
@@ -166,3 +170,29 @@ def _memory_collector() -> None:
 
 
 _OBS.add_collector("perf.device_memory", _memory_collector)
+
+
+def capture_profile(engine: Any, seconds: float, reason: str,
+                    start_timeout_s: float | None = None) -> dict[str, Any]:
+    """A torch.profiler capture of `seconds` while `engine` serves, taken
+    through `InferenceEngine.profile()` (started and stopped between the
+    runner's steps): the kernels with the most device time. Raises
+    RuntimeError while another capture is active, and TimeoutError when it
+    cannot start within `start_timeout_s` (None: no limit)."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if engine.device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    started = iso_now()
+    with engine.profile(start_timeout_s=start_timeout_s, activities=activities) as prof:
+        time.sleep(seconds)
+    rows = sorted(prof.key_averages(),
+                  key=lambda e: getattr(e, "device_time_total", 0.0), reverse=True)
+    return {
+        "seconds": seconds, "reason": reason, "startedAt": started,
+        "model": engine.cfg.name,
+        "top": [{"name": e.key, "count": e.count,
+                 "deviceUs": getattr(e, "device_time_total", 0.0),
+                 "cpuUs": e.cpu_time_total} for e in rows[:20]],
+    }

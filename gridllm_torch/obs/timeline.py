@@ -560,3 +560,97 @@ class TimelinePublisher:
     def pending(self) -> int:
         with self._lock:
             return len(self._q)
+
+
+# -- critical-path decomposition ---------------------------------------------
+
+CRITICAL_PATH_SEGMENTS = (
+    "queue_wait", "dispatch", "prefill", "decode_device",
+    "decode_host_stall", "migration", "suspend_resume",
+)
+
+# span name → segment, in descending precedence when intervals overlap:
+# KV migration work wins over the prefill/decode it interrupts, compute
+# wins over the queue span that may straddle a requeue.
+_MIGRATION_SPANS = ("kvx.send", "kvx.import", "engine.prefill_export")
+
+
+def critical_path(spans: list[dict[str, Any]]) -> dict[str, float] | None:
+    """Decompose a stitched trace into additive latency segments.
+
+    Sweeps the root ``gateway.request`` interval: every elementary
+    sub-interval is attributed to exactly ONE segment by precedence
+    (migration > prefill > decode > queue-wait), uncovered time inside
+    the worker-execution hull but between execute spans is
+    ``suspend_resume`` (preemption/handoff gaps), and all other
+    uncovered time is ``dispatch`` (control-plane transit). Decode time
+    splits into device compute (the engine-measured ``engineNs`` share)
+    vs host stall. The segments sum to the e2e latency exactly, so the
+    ``gridllm_critical_path_seconds`` histogram is an additive
+    decomposition, not a set of overlapping timers. Returns None until
+    the root span is sealed."""
+    root = next((s for s in spans
+                 if s.get("name") == "gateway.request"
+                 and s.get("end") is not None), None)
+    if root is None:
+        return None
+    t0, t1 = float(root["start"]), float(root["end"])
+    if t1 <= t0:
+        return None
+
+    def clipped(names: tuple[str, ...] | str) -> list[tuple[float, float]]:
+        wanted = (names,) if isinstance(names, str) else names
+        out = []
+        for s in spans:
+            if s.get("name") not in wanted or s.get("end") is None:
+                continue
+            a = max(t0, float(s["start"]))
+            b = min(t1, float(s["end"]))
+            if b > a:
+                out.append((a, b))
+        return out
+
+    migration = clipped(_MIGRATION_SPANS)
+    prefill = clipped("engine.prefill")
+    decode = clipped("engine.decode")
+    queue = clipped("queue.wait")
+    execs = clipped("worker.execute")
+    exec_hull = ((min(a for a, _ in execs), max(b for _, b in execs))
+                 if execs else None)
+
+    def covers(ivs: list[tuple[float, float]], x: float) -> bool:
+        return any(a <= x < b for a, b in ivs)
+
+    points = sorted({t0, t1,
+                     *(p for iv in (*migration, *prefill, *decode,
+                                    *queue, *execs) for p in iv)})
+    seg = dict.fromkeys(CRITICAL_PATH_SEGMENTS, 0.0)
+    decode_cov = 0.0
+    for a, b in zip(points, points[1:]):
+        if b <= t0 or a >= t1:
+            continue
+        mid = (a + b) / 2
+        dur = b - a
+        if covers(migration, mid):
+            seg["migration"] += dur
+        elif covers(prefill, mid):
+            seg["prefill"] += dur
+        elif covers(decode, mid):
+            decode_cov += dur
+        elif covers(queue, mid):
+            seg["queue_wait"] += dur
+        elif (exec_hull is not None
+              and exec_hull[0] <= mid < exec_hull[1]
+              and not covers(execs, mid)):
+            seg["suspend_resume"] += dur
+        else:
+            seg["dispatch"] += dur
+    # engine-measured device time bounds the device share of decode; the
+    # remainder is host stall (python step loop, transfers, GIL)
+    engine_s = sum(
+        float((s.get("meta") or {}).get("engineNs") or 0.0) / 1e9
+        for s in spans if s.get("name") == "engine.decode")
+    seg["decode_device"] = min(decode_cov, engine_s)
+    seg["decode_host_stall"] = decode_cov - seg["decode_device"]
+    seg["e2e"] = t1 - t0
+    return seg

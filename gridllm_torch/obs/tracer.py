@@ -41,6 +41,11 @@ def trace_channel(request_id: str) -> str:
     return f"{TRACE_CHANNEL_PREFIX}{request_id}"
 
 
+def trace_pattern() -> str:
+    """Glob pattern covering every trace channel (psubscribe)."""
+    return f"{TRACE_CHANNEL_PREFIX}*"
+
+
 class Span:
     __slots__ = ("request_id", "name", "source", "start", "end", "meta")
 

@@ -1,0 +1,275 @@
+"""Hang watchdog: detects requests silently wedged in one phase.
+
+The failure mode this closes (BENCH_r0x): a request sits between scheduler
+and engine for minutes and nothing says so — the job timeout eventually
+fires (10 minutes by default) and the evidence is one unstructured error
+string. The watchdog sweeps the scheduler's live state on an interval and
+flags any request stuck in a phase past that phase's deadline
+(utils/config.py ``WatchdogConfig``):
+
+- **queue**: an open ``queue.wait`` span older than the queue deadline
+  (no worker serves the model, or dispatch is starved);
+- **dispatch**: assigned to a worker, no sign of life past the dispatch
+  deadline — the assignment publish landed nowhere;
+- **prefill**: still no first token far past that (a cold compile is
+  minutes; a wedged one is forever). Gateway-side the two differ only by
+  age — stream progress is the only worker signal before completion;
+- **decode-step**: the stream produced tokens and then stopped — the
+  engine wedged mid-decode without exiting (the chaos-test scenario).
+
+On detection the watchdog increments ``gridllm_hangs_total{phase}``,
+attaches a diagnosis event to the request's trace (last span, worker id,
+engine batch state from registered probes), records + auto-dumps a flight
+recorder artifact (obs/flightrec.py), and — when ``requeue`` is on — aborts
+the assignment (cancellation published to the worker) and requeues the job
+at the front with reason ``hang`` through the scheduler's orphan machinery.
+Only ``prefill`` and ``decode-step`` hangs requeue: ``queue`` has nothing
+to requeue, and ``dispatch`` is gateway-indistinguishable from a slow
+first compile — both are diagnosis-only.
+
+Worker crashes (registry removals for heartbeat_timeout / aliveness_probe /
+disconnected) also trigger an auto dump, so a SIGKILLed worker leaves a
+readable post-mortem without anyone asking for one.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Any, Callable
+
+from gridllm_torch.obs.flightrec import (
+    FlightRecorder,
+    build_dump,
+    default_flight_recorder,
+    engine_states,
+)
+from gridllm_torch.utils.config import WatchdogConfig
+from gridllm_torch.utils.logging import get_logger
+
+log = get_logger("obs.watchdog")
+
+# registry-removal reasons that mean "the worker died", not "it left"
+CRASH_REASONS = ("heartbeat_timeout", "aliveness_probe", "disconnected")
+
+
+class HangWatchdog:
+    """Sweeps one JobScheduler's tracer spans + assignments. Owned and
+    lifecycled by the scheduler (initialize/shutdown) so every stack —
+    gateway, bench, tests — gets hang detection without extra wiring."""
+
+    # past `profile_on_hang_s` plus this, a capture is given up (its
+    # thread left to finish) and the hang handled without it
+    capture_grace_s = 30.0
+
+    def __init__(self, scheduler: Any, config: WatchdogConfig | None = None,
+                 recorder: FlightRecorder | None = None,
+                 capture: Callable[[float, str], dict[str, Any]] | None = None):
+        self.scheduler = scheduler
+        self.config = config or WatchdogConfig()
+        self.recorder = recorder or default_flight_recorder()
+        # (seconds, reason) -> a profiler capture of an engine in this
+        # process (obs.perf.capture_profile), given by whoever hosts one
+        # beside the scheduler; None in a control-plane process, where the
+        # worker's POST /admin/profile takes the engine-side capture
+        self.capture = capture
+        self._task: asyncio.Task | None = None
+        self._flagged: dict[str, str] = {}  # job_id → phase already handled
+        self.hangs: list[dict[str, Any]] = []  # detection log (bounded)
+        self._hangs_total = scheduler.metrics.counter(
+            "gridllm_hangs_total",
+            "Requests detected stuck in one phase past its deadline, by "
+            "phase (queue/dispatch/prefill/decode-step).", ("phase",))
+        self._sweeps_total = scheduler.metrics.counter(
+            "gridllm_watchdog_sweeps_total", "Watchdog sweep passes run.")
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> None:
+        if not self.config.enabled or self._task is not None:
+            return
+        self.scheduler.registry.on("worker_removed", self._on_worker_removed)
+        self._task = asyncio.create_task(self._loop())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+        self.scheduler.registry.off("worker_removed", self._on_worker_removed)
+
+    async def _loop(self) -> None:
+        interval = self.config.interval_ms / 1000
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await self.sweep()
+            except Exception as e:  # noqa: BLE001 — the watchdog must outlive
+                log.error("watchdog sweep failed", error=str(e))
+
+    # -- crash dumps --------------------------------------------------------
+    def _on_worker_removed(self, worker_id: str, _info: Any,
+                           reason: str) -> None:
+        if reason not in CRASH_REASONS:
+            return
+        self.recorder.record("registry", "worker_crash",
+                             worker=worker_id, reason=reason)
+        self._auto_dump(f"worker_crash:{worker_id}",
+                        crash={"worker": worker_id, "reason": reason})
+
+    def _auto_dump(self, reason: str, **extra: Any) -> None:
+        artifact = build_dump(self.scheduler, reason=reason,
+                              recorder=self.recorder,
+                              include_auto_dumps=False, **extra)
+        self.recorder.add_auto_dump(artifact)
+        log.error("flight recorder auto dump", reason=reason)
+
+    # -- detection ----------------------------------------------------------
+    @staticmethod
+    def _streams_frames(request: Any) -> bool:
+        """Whether this request is expected to produce job:stream frames —
+        the only pre-completion progress signal. Non-streaming requests,
+        and streaming ones the worker force-buffers (format/tools/think,
+        worker/service.py), run silently until completion; for them silence
+        is NOT evidence of a hang."""
+        if not getattr(request, "stream", False):
+            return False
+        md = getattr(request, "metadata", None) or {}
+        return not (getattr(request, "format", None)
+                    or getattr(request, "tools", None)
+                    or md.get("format") or md.get("think"))
+
+    def _detect(self, now: float) -> list[dict[str, Any]]:
+        cfg = self.config
+        sched = self.scheduler
+        hangs: list[dict[str, Any]] = []
+        for job_id, span in list(sched._queue_spans.items()):
+            age = now - span.start
+            if age * 1000 > cfg.queue_deadline_ms:
+                hangs.append({"requestId": job_id, "phase": "queue",
+                              "ageS": round(age, 3), "worker": None})
+        for job_id, assignment in list(sched.active_jobs.items()):
+            age = now - assignment.assignedAt
+            progress = sched._stream_progress.get(job_id)
+            if progress is None:
+                # a request that will never stream gives no progress signal
+                # at all — a long healthy generation is indistinguishable
+                # from a wedge, so it can only ever reach the diagnosis-only
+                # "dispatch" phase, never the requeueing "prefill" one
+                frames = self._streams_frames(assignment.request)
+                if frames and age * 1000 > cfg.prefill_deadline_ms:
+                    phase = "prefill"
+                elif age * 1000 > cfg.dispatch_deadline_ms:
+                    phase = "dispatch"
+                else:
+                    continue
+                hangs.append({"requestId": job_id, "phase": phase,
+                              "ageS": round(age, 3),
+                              "worker": assignment.workerId})
+            else:
+                _first, last = progress
+                stall = now - last
+                if stall * 1000 > cfg.decode_stall_ms:
+                    hangs.append({"requestId": job_id, "phase": "decode-step",
+                                  "ageS": round(age, 3),
+                                  "stallS": round(stall, 3),
+                                  "worker": assignment.workerId})
+        return hangs
+
+    def _diagnose(self, hang: dict[str, Any]) -> dict[str, Any]:
+        spans = self.scheduler.tracer.export(hang["requestId"]) or []
+        last = spans[-1] if spans else None
+        return {
+            "lastSpan": ({"name": last["name"], "source": last["source"],
+                          "start": last["start"], "end": last.get("end")}
+                         if last else None),
+            "engines": engine_states(),
+        }
+
+    async def sweep(self) -> list[dict[str, Any]]:
+        """One detection pass. Returns the hangs acted on this pass."""
+        self._sweeps_total.inc()
+        now = time.time()
+        sched = self.scheduler
+        hangs = self._detect(now)
+        live = {h["requestId"] for h in hangs}
+        # a request that recovered (or resolved) may hang again later in a
+        # DIFFERENT phase — only an identical (id, phase) repeat is skipped
+        for job_id in list(self._flagged):
+            if job_id not in live:
+                del self._flagged[job_id]
+        acted: list[dict[str, Any]] = []
+        for hang in hangs:
+            job_id, phase = hang["requestId"], hang["phase"]
+            if self._flagged.get(job_id) == phase:
+                continue
+            self._flagged[job_id] = phase
+            self._hangs_total.inc(phase=phase)
+            diagnosis = self._diagnose(hang)
+            if phase == "decode-step":
+                # a stream that stalled mid-decode means the engine is
+                # wedged RIGHT NOW — a short profiler capture of the next
+                # few seconds shows what the device (or the host hold-up)
+                # is doing, which no post-hoc dump can.
+                profile = await self._profile_hang(phase)
+                if profile is not None:
+                    diagnosis["profile"] = profile
+            hang["diagnosis"] = diagnosis
+            sched.tracer.event(
+                job_id, "watchdog.hang", phase=phase,
+                worker=hang.get("worker"), ageS=hang["ageS"],
+                lastSpan=(diagnosis["lastSpan"] or {}).get("name"))
+            self.recorder.record("scheduler", "hang", job=job_id,
+                                 phase=phase, worker=hang.get("worker"),
+                                 ageS=hang["ageS"])
+            log.error("hang detected", job_id=job_id, phase=phase,
+                      worker=hang.get("worker"), age_s=hang["ageS"])
+            self._auto_dump(f"hang:{phase}:{job_id}", hang=hang)
+            acted.append(hang)
+            self.hangs.append(hang)
+            del self.hangs[:-64]  # bounded detection log
+            # requeue only on phases the gateway can be SURE about:
+            # decode-step (the stream demonstrably stalled) and prefill
+            # (far past even a cold compile). "dispatch" is diagnosis-only
+            # — gateway-side it is indistinguishable from a slow prefill,
+            # and requeueing a job mid-first-compile would waste minutes
+            # of real work on a false positive.
+            if self.config.requeue and phase in ("prefill", "decode-step"):
+                await self._abort_and_requeue(job_id)
+        return acted
+
+    async def _profile_hang(self, phase: str) -> dict[str, Any] | None:
+        """Best-effort short profiler capture on a decode-step hang
+        (config.profile_on_hang_s; 0 disables) through the `capture`
+        callable; None without one. On a thread, bounded: a capture held up
+        by the wedged engine itself must not stall the sweep loop or the
+        requeue. Busy/failed/late captures are swallowed — profiling is
+        evidence-gathering, never a reason the hang handling itself
+        fails."""
+        seconds = self.config.profile_on_hang_s
+        if not seconds or self.capture is None:
+            return None
+        try:
+            return await asyncio.wait_for(
+                asyncio.to_thread(self.capture, seconds, f"hang-{phase}"),
+                seconds + self.capture_grace_s)
+        except Exception as e:  # noqa: BLE001
+            log.warning("hang profiler capture skipped", error=repr(e))
+            return None
+
+    async def _abort_and_requeue(self, job_id: str) -> None:
+        """Cancel the wedged assignment on its worker (best-effort — a
+        truly dead worker hears nothing) and requeue the job at the front
+        via the orphan machinery with reason ``hang``. The scheduler's
+        at-least-once hygiene (duplicate drop + resolved-copy purge)
+        absorbs the case where the worker was merely slow and answers."""
+        sched = self.scheduler
+        assignment = sched.active_jobs.get(job_id)
+        if assignment is None:
+            return  # resolved between detection and action — nothing to do
+        try:
+            await sched.publish_cancellation(assignment.workerId, job_id,
+                                             "hang")
+        except Exception as e:  # noqa: BLE001 — requeue must still happen
+            log.warning("hang cancellation publish failed", job_id=job_id,
+                        error=str(e))
+        await sched._orphan_job(assignment, reason="hang")
+        sched.request_dispatch()

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from gridllm_torch.ops.kvcache import PagedKVCache
+from gridllm_torch.utils.config import env_int, env_str
 
 
 class Drafter(Protocol):
@@ -81,12 +82,18 @@ class NgramDrafter:
         return []
 
 
-def make_drafter(kind: str = "ngram") -> Drafter:
-    """The host-only drafter named by `kind` ("ngram", with the
-    reference's default settings). The draft-model drafter needs the
-    engine's device and pool geometry: the engine builds it itself."""
+def make_drafter(kind: str | None = None) -> Drafter:
+    """The host-only drafter named by `kind`, else by GRIDLLM_SPEC_DRAFTER
+    ("ngram"), its matcher set by GRIDLLM_SPEC_NGRAM_MAX / _MIN and
+    GRIDLLM_SPEC_LOOKBACK. The draft-model drafter needs the engine's
+    device and pool geometry: the engine builds it itself."""
+    kind = kind or env_str("GRIDLLM_SPEC_DRAFTER")
     if kind == "ngram":
-        return NgramDrafter()
+        return NgramDrafter(
+            max_n=env_int("GRIDLLM_SPEC_NGRAM_MAX"),
+            min_n=env_int("GRIDLLM_SPEC_NGRAM_MIN"),
+            lookback=env_int("GRIDLLM_SPEC_LOOKBACK"),
+        )
     raise ValueError(f"unknown drafter: {kind!r}")
 
 

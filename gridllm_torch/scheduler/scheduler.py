@@ -1,0 +1,2135 @@
+"""Job scheduler: priority queue, worker selection, failure machinery.
+
+Reference analogue: server/src/services/JobScheduler.ts (909 LoC). Behavioral
+surface preserved:
+
+- priority queue (high > medium > low, FIFO within a class,
+  JobScheduler.ts:144-151) mirrored to the bus for crash recovery
+- least-loaded worker selection with performance-tier tiebreak (:317-360)
+- assignment via ``worker:{id}:job`` publish with a staleness re-check
+  (:362-432); per-job timeout; cancellation via the same channel (:530-536)
+- orphan machinery: assignments older than the threshold whose worker is
+  gone/silent are promoted to high priority and requeued at the FRONT with
+  audit metadata (orphaned/originalWorkerId/orphanedAt/requeueCount,
+  :219-315); worker disconnection requeues all its active jobs (:553-630)
+- failed jobs retried ≤ retry_attempts with retry_delay (:463-514)
+- ``submit_and_wait`` / ``submit_streaming_job`` / ``cancel_job`` (:666-856)
+
+Deliberate divergences (fix-by-design, SURVEY.md §2.8 + BASELINE.md):
+- event-driven dispatch instead of the 1 s polling tick — a queued job is
+  dispatched the moment it's added or a worker frees up; the sweep loop
+  remains only as the orphan/retry safety net
+- per-job timeout timers are cancelled on completion (the reference leaked
+  a live setTimeout per job)
+- the queue persists as a bus hash entry per job (jobId → record with a
+  sequence number), not one O(queue²) JSON blob
+- on worker failure with retries remaining, the waiter on ``job:result:{id}``
+  is NOT failed — the retry is transparent; only the final failure is
+  delivered (the reference rejected the waiter on first failure yet retried
+  anyway in the background)
+
+Events: job_queued/assigned/completed/failed/timeout/orphaned
+(reference wiring: server/src/index.ts:140-191).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import random
+import time
+from typing import Any, Awaitable, Callable
+
+from gridllm_torch.bus.base import (
+    CH_JOB_COMPLETED,
+    CH_JOB_DRAIN,
+    CH_JOB_FAILED,
+    CH_JOB_HANDOFF,
+    CH_JOB_PREEMPTED,
+    CH_JOB_SNAPSHOT,
+    MessageBus,
+    Subscription,
+    job_result_channel,
+    job_stream_channel,
+    liveness_suspended,
+    worker_job_channel,
+)
+from gridllm_torch.obs import (
+    CANARY_TENANT,
+    CanaryProber,
+    DemandTracker,
+    HangWatchdog,
+    HealthMonitor,
+    MetricsRegistry,
+    SLOEngine,
+    Tracer,
+    UsageAccountant,
+    aggregate_worker_capacity,
+    classify_request,
+    dedup_capacity_totals,
+    default_flight_recorder,
+)
+from gridllm_torch.obs.timeline import CRITICAL_PATH_SEGMENTS, critical_path
+from gridllm_torch.obs.tracer import TRACE_CHANNEL_PREFIX, trace_pattern
+from gridllm_torch.scheduler.registry import WorkerRegistry
+from gridllm_torch.utils.config import (
+    SchedulerConfig,
+    SLOConfig,
+    WatchdogConfig,
+    env_float,
+)
+from gridllm_torch.utils.events import EventEmitter
+from gridllm_torch.utils.logging import bind_request_id, get_logger
+from gridllm_torch.utils.types import (
+    InferenceRequest,
+    JobAssignment,
+    JobResult,
+    Priority,
+    StreamChunk,
+    WorkerInfo,
+)
+
+log = get_logger("scheduler.jobs")
+
+ACTIVE_JOBS_KEY = "active_jobs"
+JOB_QUEUE_KEY = "job_queue"
+
+_TIER_RANK = {"high": 0, "medium": 1, "low": 2}
+
+
+def shard_queue_key(shard_idx: int) -> str:
+    """Bus hash holding one shard's queued-job records. The
+    unsharded scheduler keeps the legacy ``job_queue`` key, so a 1-shard
+    control plane and the single-box layout share crash-recovery state."""
+    return f"{JOB_QUEUE_KEY}:{shard_idx}"
+
+
+def shard_active_key(shard_idx: int) -> str:
+    """Bus hash holding one shard's active-assignment records."""
+    return f"{ACTIVE_JOBS_KEY}:{shard_idx}"
+
+
+class JobTimeoutError(TimeoutError):
+    pass
+
+
+class JobCancelledError(RuntimeError):
+    pass
+
+
+class _QueuedJob:
+    __slots__ = ("request", "seq", "enqueued_at")
+
+    def __init__(self, request: InferenceRequest, seq: int):
+        self.request = request
+        self.seq = seq
+        self.enqueued_at = time.time()
+
+    def sort_key(self) -> tuple[int, int]:
+        return (self.request.priority.rank, self.seq)
+
+
+class JobScheduler(EventEmitter):
+    def __init__(self, bus: MessageBus, registry: WorkerRegistry,
+                 config: SchedulerConfig | None = None,
+                 metrics: MetricsRegistry | None = None,
+                 slo_config: SLOConfig | None = None,
+                 watchdog_config: WatchdogConfig | None = None,
+                 shard: Any | None = None,
+                 hang_capture: Callable[[float, str], dict[str, Any]] | None = None):
+        super().__init__()
+        self.bus = bus
+        self.registry = registry
+        self.config = config or SchedulerConfig()
+        # Scaled control plane: an optional ShardContext
+        # (controlplane/partition.py, duck-typed to keep this module
+        # import-free of controlplane/) restricting this scheduler to a
+        # leased partition of the job-id space. None = the single-box
+        # layout: this scheduler owns every job, is never fenced, and
+        # persists under the legacy bus keys — behavior is bit-identical
+        # to the unsharded scheduler.
+        self.shard = shard
+        self.job_queue: list[_QueuedJob] = []
+        self.active_jobs: dict[str, JobAssignment] = {}
+        self._timeout_handles: dict[str, asyncio.TimerHandle] = {}
+        self._retry_handles: dict[str, asyncio.TimerHandle] = {}
+        self._seq = 0           # back-of-queue counter (grows)
+        self._front_seq = 0     # front-of-queue counter (shrinks; orphans)
+        self._subs: list[Subscription] = []
+        self._sweep_task: asyncio.Task | None = None
+        self._dispatch_scheduled = False
+        self._dispatch_lock = asyncio.Lock()
+        self._no_owner_warned: dict[str, float] = {}  # model → last warn time
+        self._cancelled: dict[str, float] = {}        # jobId → cancel time
+        self._running = False
+        # observability (obs/): per-instance registry so each server (and
+        # each test stack) starts from zeroed counters; cumulative stats in
+        # get_stats() are sourced from HERE, so /health/* and /metrics can
+        # never disagree. The tracer holds gateway-side span timelines and
+        # ingests worker-side ones published on trace:{request_id}.
+        self.metrics = metrics or MetricsRegistry()
+        self.tracer = Tracer(source="gateway")
+        self._jobs_total = self.metrics.counter(
+            "gridllm_scheduler_jobs_total",
+            "Job lifecycle events (queued/dispatched/completed/failed/"
+            "timeout/cancelled/retried/orphaned/nacked/deadline_exceeded/"
+            "retry_budget_exhausted/preempt_requested/preempted).",
+            ("event",),
+        )
+        self._queue_wait = self.metrics.histogram(
+            "gridllm_scheduler_queue_wait_seconds",
+            "Time jobs spend queued before assignment to a worker.",
+        )
+        self._assignments = self.metrics.counter(
+            "gridllm_scheduler_worker_assignments_total",
+            "Jobs assigned, by worker.",
+            ("worker",),
+        )
+        self._ttft = self.metrics.histogram(
+            "gridllm_request_ttft_seconds",
+            "Time from streaming-job submission to the first streamed "
+            "token frame, by model.",
+            ("model",),
+        )
+        self._queue_depth = self.metrics.gauge(
+            "gridllm_scheduler_queue_depth", "Jobs currently queued.")
+        # critical-path decomposition: each sealed request's
+        # e2e latency split into additive segments by obs/timeline.py's
+        # interval sweep over the stitched trace
+        self._critical_path = self.metrics.histogram(
+            "gridllm_critical_path_seconds",
+            "Per-request e2e latency decomposed into additive "
+            "critical-path segments (queue_wait/dispatch/prefill/"
+            "decode_device/decode_host_stall/migration/suspend_resume); "
+            "segments of one request sum to its traced e2e latency.",
+            ("segment",),
+        )
+        self._cp_observed: dict[str, float] = {}  # rid → observed-at (bounded)
+        self._active_gauge = self.metrics.gauge(
+            "gridllm_scheduler_active_jobs",
+            "Jobs currently assigned to workers.")
+        self.metrics.add_collector("scheduler", self._collect_gauges)
+        registry.attach_metrics(self.metrics)
+        self._queue_spans: dict[str, Any] = {}  # jobId → open queue span
+        # Disaggregated serving: jobs placed with a planned
+        # prefill→decode handoff, jobId → {"from", "to", "at"}. Entries
+        # clear on handoff/fallback/terminal events; a job orphaned while
+        # still here died MID-MIGRATION and takes the migration_lost path
+        # (KV release on both workers + front requeue).
+        self._migrations: dict[str, dict[str, Any]] = {}
+        self._disagg_total = self.metrics.counter(
+            "gridllm_disagg_jobs_total",
+            "Disaggregated-placement lifecycle events (planned/handoff/"
+            "fallback/migration_lost/handoff_worker_lost/cross_role).",
+            ("event",),
+        )
+        # Mid-stream fault tolerance: per-job decode-resume
+        # watermarks. _resume_snap holds the latest worker-published
+        # snapshot (generated token ids + text + resolved seed) for every
+        # LIVE job — on orphan/retry/drain the snapshot is stamped into
+        # metadata.resume so the replacement worker continues the decode
+        # instead of restarting it. _stream_chars counts the chars this
+        # gateway actually forwarded to the client, so a resumed stream
+        # re-emits nothing the client already saw (exactly-once).
+        self._resume_snap: dict[str, dict[str, Any]] = {}
+        self._stream_chars: dict[str, int] = {}
+        # Sharded control plane: recently-terminal job ids
+        # (completions seen on the global channel — owned or not — plus
+        # local failures/timeouts/cancels/sheds), bounded. A partition
+        # can be owner-less for up to a lease TTL; a job that resolves
+        # inside that window would otherwise be replayed as "active"
+        # from the durable record at adoption, and the queue-hash
+        # reconcile needs the same memory to tell a parked-submit ghost
+        # from genuinely pending work.
+        self._recent_done: dict[str, float] = {}
+        # Preemption-based priority: victim jobId → request
+        # time of an in-flight suspend-to-host ask. One preemption in
+        # flight fleet-wide (a burst must not suspend the whole fleet);
+        # stale entries (victim finished / worker never answered) prune
+        # on the next trigger pass.
+        self._preempting: dict[str, float] = {}
+        self._resume_total = self.metrics.counter(
+            "gridllm_resume_jobs_total",
+            "Decode-resume lifecycle events (stamped = a requeue carried "
+            "a resume watermark; drain_handoff = live migration moved the "
+            "assignment; drain_requeued = drained job went back to the "
+            "queue with its snapshot).",
+            ("event",),
+        )
+        # Lease fencing: mutating operations a deposed or
+        # partitioned shard REFUSED because its ownership lease was no
+        # longer provably valid — nonzero here during a failover is the
+        # fencing machinery working; nonzero in steady state means lease
+        # renewals are not keeping up with the TTL.
+        self._shard_fenced = self.metrics.counter(
+            "gridllm_shard_fenced_ops_total",
+            "Mutating scheduler operations refused because the shard's "
+            "ownership lease was lost or stale, by operation "
+            "(assign/timeout/orphan/failure/cancel/drain/preempt).",
+            ("op",),
+        )
+        self._ctrl_submits = self.metrics.counter(
+            "gridllm_ctrl_submits_total",
+            "Control-plane submission fan-out events: "
+            "published (gateway replica → ctrl:submit), accepted (owning "
+            "shard enqueued), ignored (park of a non-owned submit "
+            "failed), parked (non-owned submit written straight to its "
+            "partition's durable queue record), reconciled (the owner's "
+            "sweep found a durable queued record it never saw — a "
+            "parked submit from an owner-less or missed-delivery "
+            "window — and enqueued it).",
+            ("event",),
+        )
+        # fleet-wide retry budget (token bucket, retries/min): a degraded
+        # fleet burning retries faster than the refill sheds to immediate
+        # failure instead of melting under a retry storm
+        self._retry_tokens = float(self.config.retry_budget_per_min)
+        self._retry_refill_t = time.monotonic()
+        # interpretation layer: SLO judgments on the same
+        # registry, the hang watchdog sweeping this scheduler's state
+        # (started in initialize), and the process flight recorder
+        self.slo = SLOEngine(slo_config, self.metrics)
+        # hang_capture: the watchdog's profiler capture of an engine that
+        # shares this process (obs.perf.capture_profile); None otherwise
+        self.watchdog = HangWatchdog(self, watchdog_config, capture=hang_capture)
+        self.flightrec = default_flight_recorder()
+        # fleet economics: per-tenant/per-model usage ledger
+        # (exactly-once, folded from result payloads by the OWNING
+        # shard) and the per-model demand/capacity model behind
+        # /admin/capacity — both on this scheduler's instance registry
+        self.usage = UsageAccountant(self.metrics)
+        self.capacity = DemandTracker(
+            self.metrics,
+            queue_depths=self._queue_depth_by_model,
+            worker_capacity=lambda: aggregate_worker_capacity(
+                self.registry.get_online_workers()),
+            pool_totals=lambda: dedup_capacity_totals(
+                self.registry.get_online_workers()),
+        )
+        # elastic serving: the demand-driven model placement
+        # loop — armed only when GRIDLLM_PLACEMENT_INTERVAL_MS > 0
+        from gridllm_torch.scheduler.placement import ModelPlacementController
+
+        self.placement = ModelPlacementController(
+            self, self.registry, self.bus, self.metrics)
+        # active fleet health: per-worker regression baselines
+        # driving the online/degraded/quarantined/probation state machine,
+        # and the canary prober that feeds it golden-hash verdicts. The
+        # prober is armed only when GRIDLLM_PROBE_INTERVAL_MS > 0.
+        self.health = HealthMonitor(
+            self.bus, self.registry, self.metrics,
+            member=lambda: str(self.identity().get("member") or ""))
+        self.prober = CanaryProber(self, self.registry, self.health,
+                                   self.metrics)
+        self._health_penalty = env_float("GRIDLLM_HEALTH_DEGRADED_PENALTY")
+        # jobId → (first stream frame ts, last stream frame ts): the only
+        # pre-completion sign of life a worker gives the gateway; feeds
+        # the watchdog's decode-stall detection
+        self._stream_progress: dict[str, tuple[float, float]] = {}
+
+    # -- lifecycle ----------------------------------------------------------
+    async def initialize(self) -> None:
+        self._running = True
+        # The JAX package's shared-state sanitizer hook (analysis/
+        # statecheck tracking the job tables) arrives with the port of
+        # analysis/, ROADMAP A 11.
+        for channel, handler in [
+            (CH_JOB_COMPLETED, self._on_job_completed),
+            (CH_JOB_FAILED, self._on_job_failed),
+            (CH_JOB_HANDOFF, self._on_handoff),
+            (CH_JOB_SNAPSHOT, self._on_snapshot),
+            (CH_JOB_DRAIN, self._on_drain),
+            (CH_JOB_PREEMPTED, self._on_preempted),
+        ]:
+            self._subs.append(await self.bus.subscribe(channel, handler))
+        # worker-side span timelines arrive on trace:{request_id}; merging
+        # them here is what stitches one end-to-end timeline per request
+        self._subs.append(
+            await self.bus.psubscribe(trace_pattern(), self._on_trace))
+        await self._load_existing_jobs()
+        self._sweep_task = asyncio.create_task(self._sweep_loop())
+        self.watchdog.start()
+        # new capacity → dispatch; lost worker → requeue its jobs
+        self.registry.on("worker_registered", lambda *_: self.request_dispatch())
+        self.registry.on("worker_status_changed", lambda *_: self.request_dispatch())
+        self.registry.on("worker_removed", self._on_worker_removed)
+        # active fleet health: registry signals feed the
+        # baselines (heartbeat jitter is measured receiver-side from
+        # arrival times); a re-registration is a quarantined worker's
+        # only road back (→ probation). The prober no-ops unless armed.
+        self.registry.on(
+            "worker_heartbeat",
+            lambda wid, *_: self.health.note_heartbeat(wid))
+        self.registry.on(
+            "worker_registered",
+            lambda info, *_: self.health.note_registered(
+                info.workerId, getattr(info, "status", "online") or "online"))
+        self.registry.on(
+            "worker_health_changed",
+            lambda *_: self.request_dispatch())
+        self.prober.start()
+        self.placement.start()
+        log.info("job scheduler initialized",
+                 queued=len(self.job_queue), active=len(self.active_jobs))
+
+    async def shutdown(self) -> None:
+        self._running = False
+        await self.placement.stop()
+        await self.prober.stop()
+        await self.watchdog.stop()
+        if self._sweep_task:
+            self._sweep_task.cancel()
+            self._sweep_task = None
+        for h in (*self._timeout_handles.values(), *self._retry_handles.values()):
+            h.cancel()
+        self._timeout_handles.clear()
+        self._retry_handles.clear()
+        for s in self._subs:
+            await s.unsubscribe()
+        self._subs.clear()
+
+    async def _load_existing_jobs(self) -> None:
+        """Crash recovery from the bus (reference: JobScheduler.ts:82-126).
+        Queued jobs reload in sequence order; active jobs whose assignment
+        outlived the server restart are orphan-requeued immediately. A
+        sharded scheduler loads only the partitions it holds
+        leases for — adopted partitions replay later via adopt_shard."""
+        if self.shard is None:
+            await self._load_jobs_from(JOB_QUEUE_KEY, ACTIVE_JOBS_KEY)
+            return
+        for idx in self.shard.held():
+            await self._load_jobs_from(shard_queue_key(idx),
+                                       shard_active_key(idx))
+
+    async def _load_jobs_from(self, qkey: str, akey: str) -> dict[str, int]:
+        """Replay one (queue hash, active hash) pair into local state —
+        the shared body of boot-time crash recovery and shard adoption.
+        Actives load FIRST so a stale queued record of a job that is
+        actually running (e.g. an orphaned-partition park that raced the
+        previous owner's dispatch) is recognized and dropped instead of
+        re-dispatching a live job."""
+        stored_active = await self.bus.hgetall(akey)
+        n_active = 0
+        for job_id, raw in stored_active.items():
+            if job_id in self.active_jobs:
+                continue
+            if job_id in self._recent_done:
+                # resolved while the partition was owner-less:
+                # the worker's completion landed on the global channel
+                # with no owner to account it — the durable record is
+                # stale, not a live assignment
+                await self.bus.hdel(akey, job_id)
+                self._jobs_total.inc(event="completed")
+                log.job("adopted job already resolved; record dropped",
+                        job_id)
+                continue
+            try:
+                assignment = JobAssignment.model_validate_json(raw)
+            except Exception:
+                await self.bus.hdel(akey, job_id)
+                continue
+            age_ms = (time.time() - assignment.assignedAt) * 1000
+            if age_ms > assignment.timeout:
+                await self.bus.hdel(akey, job_id)
+                continue
+            self.active_jobs[job_id] = assignment
+            self._arm_timeout(assignment, remaining_ms=assignment.timeout - age_ms)
+            n_active += 1
+
+        stored_queue = await self.bus.hgetall(qkey)
+        entries = []
+        for job_id, raw in stored_queue.items():
+            if job_id in self.active_jobs or job_id in self._recent_done:
+                # the job is live (or already resolved) — the queued
+                # record is a stale duplicate, not pending work
+                await self.bus.hdel(qkey, job_id)
+                continue
+            try:
+                rec = json.loads(raw)
+                req = InferenceRequest.model_validate(rec["request"])
+                entries.append(_QueuedJob(req, int(rec.get("seq", 0))))
+            except Exception:
+                await self.bus.hdel(qkey, job_id)
+        entries.sort(key=_QueuedJob.sort_key)
+        # merge (adoption joins a live queue): dedupe by id, keep sorted
+        have = {qj.request.id for qj in self.job_queue}
+        entries = [e for e in entries if e.request.id not in have]
+        self.job_queue = sorted(self.job_queue + entries,
+                                key=_QueuedJob.sort_key)
+        if entries:
+            self._seq = max(self._seq,
+                            max(0, max(e.seq for e in entries)) + 1)
+            self._front_seq = min(self._front_seq,
+                                  min(0, min(e.seq for e in entries)))
+        return {"queued": len(entries), "active": n_active}
+
+    # -- shard ownership & lease fencing --------------------------
+    def _owns(self, job_id: str) -> bool:
+        """Whether this scheduler's partition set covers the job. The
+        unsharded scheduler owns everything; a sharded one consumes the
+        global lifecycle channels (completed/failed/snapshot/handoff/
+        drain/preempted) but acts only on jobs in its leased shards."""
+        return self.shard is None or self.shard.owns(job_id)
+
+    def _fence(self, op: str, job_id: str) -> bool:
+        """Lease fence on every MUTATING path: True = proceed. A shard
+        whose ownership lease for the job's partition is lost or stale
+        (renewals not landing within the TTL) must refuse to assign,
+        requeue, time out, or cancel — the partition's new owner replays
+        the durable job state and owns those decisions now. Refusals are
+        counted so a fencing storm is visible."""
+        if self.shard is None or self.shard.fenced_job(job_id):
+            return True
+        self._shard_fenced.inc(op=op)
+        log.warning("shard lease lost/stale; mutating op refused",
+                    op=op, job_id=job_id)
+        return False
+
+    def _qkey(self, job_id: str) -> str:
+        """Bus hash key holding this job's queued record."""
+        if self.shard is None:
+            return JOB_QUEUE_KEY
+        return shard_queue_key(self.shard.shard_for(job_id))
+
+    def _akey(self, job_id: str) -> str:
+        """Bus hash key holding this job's active-assignment record."""
+        if self.shard is None:
+            return ACTIVE_JOBS_KEY
+        return shard_active_key(self.shard.shard_for(job_id))
+
+    def identity(self) -> dict[str, Any]:
+        """Control-plane identity stamped into get_stats()/admin views so
+        per-member numbers are never silently aggregated without their
+        origin (health and scrapes agree per shard)."""
+        if self.shard is None:
+            return {"role": "local", "member": "local", "shards": [0],
+                    "numShards": 1}
+        return self.shard.identity()
+
+    async def adopt_shard(self, shard_idx: int) -> dict[str, int]:
+        """Failover adoption: after this member acquired the
+        lease for a dead shard's partition (epoch bump), replay that
+        shard's durable job state from the bus — queued records rejoin
+        the local queue, live assignments are installed with their
+        REMAINING timeout (the worker kept decoding through the shard
+        death; its stream flows straight to the gateway replicas, so
+        adoption is bookkeeping, not a restart). Jobs whose assignment
+        outlived its timeout are dropped exactly as in crash recovery."""
+        loaded = await self._load_jobs_from(
+            shard_queue_key(shard_idx), shard_active_key(shard_idx))
+        self.flightrec.record("scheduler", "shard_adopted",
+                              shard=shard_idx, member=self.identity().get(
+                                  "member"), **loaded)
+        log.info("shard partition adopted", shard=shard_idx, **loaded)
+        self.request_dispatch()
+        return loaded
+
+    def release_shard(self, shard_idx: int) -> dict[str, int]:
+        """Deposition cleanup: drop every locally held job of
+        a partition whose lease this member lost — WITHOUT touching the
+        bus-persisted records (the new owner replays them) and without
+        publishing cancellations or failures (the jobs are alive and now
+        someone else's). Timers are disarmed so a deposed shard can never
+        fire a timeout for a job it no longer owns."""
+        if self.shard is None:
+            return {"queued": 0, "active": 0}
+        dropped_q = 0
+        keep: list[_QueuedJob] = []
+        for qj in self.job_queue:
+            if self.shard.shard_for(qj.request.id) == shard_idx:
+                dropped_q += 1
+                self._end_queue_span(qj.request.id, released=True)
+            else:
+                keep.append(qj)
+        self.job_queue = keep
+        dropped_a = 0
+        for job_id in list(self.active_jobs):
+            if self.shard.shard_for(job_id) != shard_idx:
+                continue
+            self.active_jobs.pop(job_id, None)
+            dropped_a += 1
+            for handles in (self._timeout_handles, self._retry_handles):
+                h = handles.pop(job_id, None)
+                if h is not None:
+                    h.cancel()
+            self._migrations.pop(job_id, None)
+            self._drop_resume_state(job_id)
+            self._stream_progress.pop(job_id, None)
+            self._preempting.pop(job_id, None)
+        self.flightrec.record("scheduler", "shard_released",
+                              shard=shard_idx, queued=dropped_q,
+                              active=dropped_a)
+        log.warning("shard partition released (lease lost)",
+                    shard=shard_idx, queued=dropped_q, active=dropped_a)
+        return {"queued": dropped_q, "active": dropped_a}
+
+    # -- observability ------------------------------------------------------
+    def _collect_gauges(self) -> None:
+        """Render-time collector: point-in-time gauges from live state."""
+        self._queue_depth.set(len(self.job_queue))
+        self._active_gauge.set(len(self.active_jobs))
+
+    async def _on_trace(self, channel: str, raw: str) -> None:
+        """Ingest a worker-published span timeline (obs/tracer.py)."""
+        try:
+            data = json.loads(raw)
+            rid = data.get("requestId") or channel[len(TRACE_CHANNEL_PREFIX):]
+            spans = data.get("spans") or []
+        except Exception:
+            return
+        if rid and isinstance(spans, list):
+            self.tracer.ingest(rid, spans)
+            # the worker half may land before OR after the gateway seals
+            # the root span — both paths try, the guard keeps it to one
+            # observation per request
+            self._observe_critical_path(rid)
+
+    def _observe_critical_path(self, request_id: str) -> None:
+        """Decompose a sealed request's e2e latency into the additive
+        ``gridllm_critical_path_seconds{segment}`` observations. No-op
+        until the root span is sealed; at most once per request."""
+        if request_id in self._cp_observed:
+            return
+        spans = self.tracer.export(request_id)
+        if not spans:
+            return
+        seg = critical_path(spans)
+        if seg is None:
+            return
+        self._cp_observed[request_id] = time.monotonic()
+        if len(self._cp_observed) > 2048:  # bounded like _recent_done
+            cutoff = sorted(self._cp_observed.values())[1024]
+            self._cp_observed = {k: v for k, v in self._cp_observed.items()
+                                 if v > cutoff}
+        for name in CRITICAL_PATH_SEGMENTS:
+            self._critical_path.observe(seg[name], segment=name)
+
+    def _begin_queue_span(self, request: InferenceRequest, **meta: Any) -> None:
+        """Open a queue.wait span for a (re)queued job; closed at dispatch
+        or cancellation. Requeues (retry/orphan/nack) open a fresh one."""
+        old = self._queue_spans.pop(request.id, None)
+        if old is not None:
+            self.tracer.end(old)
+        self._queue_spans[request.id] = self.tracer.begin(
+            request.id, "queue.wait",
+            priority=request.priority.value, **meta)
+
+    def _end_queue_span(self, job_id: str, **meta: Any) -> None:
+        span = self._queue_spans.pop(job_id, None)
+        if span is not None:
+            self.tracer.end(span, **meta)
+
+    def _queue_depth_by_model(self) -> dict[str, int]:
+        """Live queued-job count per model (capacity snapshot input)."""
+        out: dict[str, int] = {}
+        for qj in list(self.job_queue):
+            m = qj.request.model
+            out[m] = out.get(m, 0) + 1
+        return out
+
+    # -- public API ---------------------------------------------------------
+    async def add_job(self, request: InferenceRequest,
+                      requeue: bool = False) -> str:
+        """Queue a job and trigger dispatch (reference: JobScheduler.ts:651-664).
+        ``requeue=True`` (the retry ladder) skips the ``queued`` counter so
+        requeues are counted only by their own event (retried/nacked/
+        orphaned) and ``queued`` balances against terminal events."""
+        if self.shard is not None and not self.shard.owns(request.id):
+            # safety net: a retry timer that fired after this
+            # member lost the job's partition lease must not resurrect
+            # the job here — its new owner replays the durable state
+            log.warning("add_job for unowned partition dropped",
+                        job_id=request.id)
+            return request.id
+        # per-class request deadline, stamped ONCE at first
+        # submission so retries/orphans measure from the original submit
+        md = request.metadata
+        if "deadlineAt" not in md:
+            deadline_ms = self._deadline_for(request)
+            if deadline_ms > 0:
+                md["deadlineAt"] = time.time() + deadline_ms / 1000
+        qj = _QueuedJob(request, self._seq)
+        self._seq += 1
+        self.job_queue.append(qj)
+        await self._persist_queued(qj)
+        if not requeue:
+            self._jobs_total.inc(event="queued")
+            # demand signal: first submissions only — a requeue
+            # is the same unit of demand still waiting, not new arrival
+            self.capacity.note_arrival(request.model)
+        self._begin_queue_span(request)
+        log.job("job queued", request.id, model=request.model,
+                priority=request.priority.value)
+        self.emit("job_queued", request)
+        self.request_dispatch()
+        return request.id
+
+    async def _submit_and_await(self, request: InferenceRequest,
+                                timeout_ms: int | None,
+                                extra_subs: list[tuple[str, Any]] | None = None,
+                                ttft_ref: list | None = None,
+                                settle: Callable[[JobResult],
+                                                 Awaitable[None]] | None = None
+                                ) -> JobResult:
+        """Shared body of the synchronous submit APIs: subscribe the per-job
+        result channel (plus any extras), queue, await with timeout+cancel.
+        ``ttft_ref`` is the streaming path's one-slot TTFT holder (filled by
+        its stream handler) so the SLO judgment sees the first-token time."""
+        timeout_ms = timeout_ms or request.timeout or self.config.job_timeout_ms
+        t_submit = time.time()
+        slo_class = classify_request(request)
+        loop = asyncio.get_running_loop()
+        future: asyncio.Future[JobResult] = loop.create_future()
+
+        async def on_result(_ch: str, raw: str) -> None:
+            if not future.done():
+                try:
+                    future.set_result(JobResult.model_validate_json(raw))
+                except Exception as e:
+                    future.set_exception(e)
+
+        md = request.metadata or {}
+        endpoint = (md.get("openaiEndpoint") or md.get("ollamaEndpoint")
+                    or md.get("endpoint") or "")
+        subs: list[Subscription] = []
+        outcome = "error"
+        with bind_request_id(request.id):
+            # begin() directly before the try whose finally ends it — a
+            # raise in between would leak the span open (span-pairing rule)
+            root = self.tracer.begin(request.id, "gateway.request",
+                                     endpoint=endpoint, model=request.model,
+                                     tenant=str(md.get("tenant") or ""))
+            try:
+                for channel, handler in extra_subs or []:
+                    subs.append(await self.bus.subscribe(channel, handler))
+                subs.append(await self.bus.subscribe(
+                    job_result_channel(request.id), on_result))
+                await self.add_job(request)
+                try:
+                    result = await asyncio.wait_for(future, timeout_ms / 1000)
+                    if settle is not None:
+                        # let trailing stream frames land BEFORE the
+                        # finally unsubscribes (the result channel rides
+                        # a separate pump and can beat queued frames)
+                        await settle(result)
+                    outcome = "success" if result.success else "failed"
+                    self._judge_slo(slo_class, request, result,
+                                    e2e_s=time.time() - t_submit,
+                                    ttft_ref=ttft_ref)
+                    return result
+                except asyncio.TimeoutError:
+                    outcome = "timeout"
+                    if str(md.get("tenant") or "") != CANARY_TENANT:
+                        # a timed-out canary is the prober's verdict to
+                        # record, not an SLO miss
+                        self.slo.record(slo_class, ok=False,
+                                        e2e_s=timeout_ms / 1000,
+                                        model=request.model)
+                    # end the root BEFORE cancel_job's tracer.abort seals
+                    # the timeline, so the outcome lands on the span
+                    self.tracer.end(root, outcome=outcome)
+                    await self.cancel_job(request.id, reason="timeout")
+                    raise JobTimeoutError(
+                        f"Job {request.id} timed out after {timeout_ms} ms"
+                    ) from None
+            finally:
+                # seal the trace BEFORE the awaited unsubscribes: a bus
+                # error there must not leak the open root span
+                self._stream_progress.pop(request.id, None)
+                self._drop_resume_state(request.id)
+                self.tracer.end(root, outcome=outcome)
+                self.tracer.finish(request.id)
+                self._observe_critical_path(request.id)
+                for sub in subs:
+                    await sub.unsubscribe()
+
+    def _judge_slo(self, slo_class: str, request: InferenceRequest,
+                   result: JobResult, e2e_s: float,
+                   ttft_ref: list | None) -> None:
+        """SLO judgment for a resolved submit: measurements come from the
+        result's engine-measured timing fields plus the streaming TTFT."""
+        tokens = 0
+        itl_s = None
+        resp = result.response
+        if resp is not None:
+            tokens = int(resp.eval_count or 0)
+            if tokens > 1 and resp.eval_duration:
+                itl_s = (resp.eval_duration / 1e9) / (tokens - 1)
+        # health baselines: engine-measured decode cadence
+        # feeds the serving worker's ITL baseline — canaries included
+        # (they exercise the same decode path)
+        if itl_s is not None and result.workerId:
+            self.health.note_itl(result.workerId, itl_s)
+        if str((request.metadata or {}).get("tenant") or "") == CANARY_TENANT:
+            # canary traffic is a measurement instrument, not served
+            # demand: it must never move SLO attainment
+            return
+        self.slo.record(
+            slo_class, ok=result.success,
+            ttft_s=(ttft_ref[0] if ttft_ref else None),
+            itl_s=itl_s, e2e_s=e2e_s, tokens=tokens,
+            model=request.model,
+        )
+
+    async def submit_and_wait(self, request: InferenceRequest,
+                              timeout_ms: int | None = None) -> JobResult:
+        """Synchronous submit: queue, await the per-job result channel
+        (reference: JobScheduler.ts:666-711)."""
+        return await self._submit_and_await(request, timeout_ms)
+
+    async def submit_streaming_job(
+        self,
+        request: InferenceRequest,
+        on_chunk: Callable[[StreamChunk], Awaitable[None]],
+        timeout_ms: int | None = None,
+    ) -> JobResult:
+        """Streaming submit: forward ``job:stream:{id}`` frames to on_chunk,
+        return the final result (reference: JobScheduler.ts:713-856)."""
+        t_submit = time.time()
+        first = [True]
+        ttft_ref: list = [None]
+        # chars DELIVERED to the client so far — the closure owns the
+        # authoritative count (terminal cleanup can race the map entry);
+        # _stream_chars mirrors it for the orphan path's resume stamp
+        delivered_ref = [0]
+
+        async def on_stream(_ch: str, raw: str) -> None:
+            try:
+                chunk = StreamChunk.model_validate_json(raw)
+            except Exception:
+                return
+            # exactly-once trim: frames carry the absolute char
+            # offset of their text in the full response, so overlap
+            # between a dying attempt's in-flight frames and the resumed
+            # attempt's re-emission is cut HERE — the client never sees a
+            # duplicate char, no matter how the handoff raced the stream
+            if chunk.offset is not None and chunk.response:
+                delivered = delivered_ref[0]
+                off = int(chunk.offset)
+                if off + len(chunk.response) <= delivered:
+                    return  # wholly duplicate frame
+                if off < delivered:
+                    chunk.response = chunk.response[delivered - off:]
+                    if chunk.message and "content" in chunk.message:
+                        chunk.message = {**chunk.message,
+                                        "content": chunk.response}
+            now = time.time()
+            if first[0]:
+                first[0] = False
+                ttft = now - t_submit
+                ttft_ref[0] = ttft
+                self._ttft.observe(ttft, model=request.model)
+                self.tracer.event(request.id, "gateway.first_token",
+                                  ttftMs=round(ttft * 1000, 3))
+            # progress only while the job is live: a trailing frame
+            # delivered after the result resolved (separate pump queues)
+            # must not re-insert an entry the finally block just popped
+            if request.id in self.active_jobs:
+                first_ts = self._stream_progress.get(request.id,
+                                                     (now, now))[0]
+                self._stream_progress[request.id] = (first_ts, now)
+            await on_chunk(chunk)
+            # chars DELIVERED to the client (counted after on_chunk
+            # returns): the resume watermark's exactly-once offset — a
+            # resumed attempt starts emitting past this point.
+            # The map mirror is gated on the job being live so a trailing
+            # frame delivered after terminal cleanup cannot re-insert an
+            # entry nothing would ever remove.
+            if chunk.response:
+                delivered_ref[0] += len(chunk.response)
+                if request.id in self.active_jobs:
+                    self._stream_chars[request.id] = delivered_ref[0]
+
+        async def settle(result: JobResult) -> None:
+            """Exactly-once stream completion: the final result
+            can overtake queued stream frames (separate handler pumps) —
+            wait briefly until the delivered chars reach the final text
+            length, so the client's byte stream is complete before the
+            subscription tears down. Only applies when frames were seen
+            (format/tool/think requests suppress worker streaming)."""
+            resp = result.response
+            if resp is None or not result.success:
+                return
+            if delivered_ref[0] == 0:
+                return  # nothing was ever streamed — nothing to settle
+            text = resp.response
+            if text is None and isinstance(resp.message, dict):
+                text = resp.message.get("content")
+            target = len(text or "")
+            t0 = time.monotonic()
+            while (delivered_ref[0] < target
+                   and time.monotonic() - t0 < 2.0):
+                await asyncio.sleep(0.005)
+
+        return await self._submit_and_await(
+            request, timeout_ms,
+            extra_subs=[(job_stream_channel(request.id), on_stream)],
+            ttft_ref=ttft_ref, settle=settle)
+
+    async def publish_cancellation(self, worker_id: str, job_id: str,
+                                   reason: str) -> None:
+        """The one place the job_cancellation message is built — the
+        waiter-cancel, timeout, and watchdog-hang paths all send the same
+        shape to ``worker:{id}:job``."""
+        await self.bus.publish(
+            worker_job_channel(worker_id),
+            json.dumps({"type": "job_cancellation", "jobId": job_id,
+                        "reason": reason}),
+        )
+
+    async def cancel_job(self, job_id: str, reason: str = "cancelled") -> bool:
+        """Cancel a queued, retrying, or active job (reference:
+        JobScheduler.ts:874-908). The cancelled-set guards the race where a
+        dispatch pass already snapshotted the queued job."""
+        if not self._fence("cancel", job_id):
+            return False
+        self._cancelled[job_id] = time.time()
+        self._migrations.pop(job_id, None)
+
+        def account() -> None:
+            # a cancel with reason="timeout" is the waiter-side timeout
+            # path — count it as a timeout, not a user cancellation
+            event = "timeout" if reason == "timeout" else "cancelled"
+            self._jobs_total.inc(event=event)
+            self._mark_done(job_id)
+            self._drop_resume_state(job_id)
+            self.flightrec.record("scheduler", event, job=job_id,
+                                  reason=reason)
+            self._end_queue_span(job_id, cancelled=True, reason=reason)
+            self.tracer.abort(job_id, reason=reason)
+
+        retry = self._retry_handles.pop(job_id, None)
+        if retry is not None:
+            retry.cancel()
+            account()
+            log.job("retrying job cancelled", job_id, reason=reason)
+            return True
+        for i, qj in enumerate(self.job_queue):
+            if qj.request.id == job_id:
+                self.job_queue.pop(i)
+                await self.bus.hdel(self._qkey(job_id), job_id)
+                account()
+                log.job("queued job cancelled", job_id, reason=reason)
+                return True
+        # claim synchronously before the publish await — the armed
+        # _handle_job_timeout can interleave there and the job must be
+        # accounted (timeout vs cancelled) exactly once
+        assignment = self.active_jobs.pop(job_id, None)
+        if assignment is not None:
+            try:
+                await self.publish_cancellation(assignment.workerId, job_id,
+                                                reason)
+            finally:
+                # the job is already claimed — even a dead bus must not
+                # skip the terminal accounting and cleanup
+                account()
+                await self._clear_active(job_id, free_worker=True,
+                                         assignment=assignment)
+            log.job("active job cancelled", job_id,
+                    worker_id=assignment.workerId, reason=reason)
+            return True
+        return False
+
+    def get_active_jobs(self) -> list[JobAssignment]:
+        return list(self.active_jobs.values())
+
+    def get_job_queue(self) -> list[InferenceRequest]:
+        return [qj.request for qj in sorted(self.job_queue, key=_QueuedJob.sort_key)]
+
+    def get_queue_position(self, job_id: str) -> int | None:
+        for pos, qj in enumerate(self.get_job_queue()):
+            if qj.id == job_id:
+                return pos
+        return None
+
+    def get_stats(self) -> dict[str, Any]:
+        """Instantaneous queue/active sizes plus cumulative lifecycle
+        counters sourced from the metrics registry — the same series
+        /metrics exports, so health snapshots and scrapes cannot disagree."""
+        jt = self._jobs_total
+        completed = int(jt.value(event="completed"))
+        failed = int(jt.value(event="failed"))
+        timed_out = int(jt.value(event="timeout"))
+        return {
+            # shard identity: with a sharded control
+            # plane these numbers are PER-PARTITION — any aggregation
+            # must key by this block instead of silently summing unlabeled
+            # snapshots from different members
+            "shard": self.identity(),
+            "queuedJobs": len(self.job_queue),
+            "activeJobs": len(self.active_jobs),
+            "totalJobsProcessed": completed,
+            "totalJobsFailed": failed + timed_out,
+            "totalJobsCompleted": completed,
+            "totalJobsTimedOut": timed_out,
+            "totalJobsCancelled": int(jt.value(event="cancelled")),
+            "totalJobsRetried": int(jt.value(event="retried")),
+            "totalJobsOrphaned": int(jt.value(event="orphaned")),
+        }
+
+    @property
+    def total_completed(self) -> int:
+        return int(self._jobs_total.value(event="completed"))
+
+    @property
+    def total_failed(self) -> int:
+        # permanent failures + timeouts, matching the pre-obs attribute
+        return (int(self._jobs_total.value(event="failed"))
+                + int(self._jobs_total.value(event="timeout")))
+
+    # -- dispatch -----------------------------------------------------------
+    def request_dispatch(self) -> None:
+        """Debounced event-driven dispatch: coalesce triggers into one task."""
+        if self._dispatch_scheduled or not self._running:
+            return
+        self._dispatch_scheduled = True
+
+        async def run() -> None:
+            self._dispatch_scheduled = False
+            try:
+                await self._process_job_queue()
+            except Exception as e:
+                log.error("dispatch failed", error=str(e))
+
+        asyncio.ensure_future(run())
+
+    async def _process_job_queue(self) -> None:
+        """Assign every queued job that has an available worker
+        (reference: JobScheduler.ts:137-217). Serialized by a lock — dispatch
+        triggers may overlap and double-assignment must be impossible."""
+        async with self._dispatch_lock:
+            if not self.job_queue:
+                return
+            assigned_ids: set[str] = set()
+            now = time.time()
+            for qj in sorted(list(self.job_queue), key=_QueuedJob.sort_key):
+                if qj.request.id in self._cancelled:
+                    assigned_ids.add(qj.request.id)  # drop from queue below
+                    await self.bus.hdel(self._qkey(qj.request.id), qj.request.id)
+                    self._end_queue_span(qj.request.id, cancelled=True)
+                    continue
+                md = qj.request.metadata or {}
+                deadline_at = md.get("deadlineAt")
+                if (deadline_at and now > float(deadline_at)
+                        # a job that already RAN (orphan/drain/resume/
+                        # preempt requeue) is past admission: the client
+                        # may hold half a stream, so the resume machinery
+                        # finishes it — the deadline only sheds work that
+                        # never started
+                        and not (md.get("resume") or md.get("orphaned")
+                                 or md.get("drained")
+                                 or md.get("preempted"))):
+                    # past its class deadline while still queued: shed
+                    # instead of occupying the queue; the
+                    # gateway maps the failure to HTTP 504
+                    assigned_ids.add(qj.request.id)
+                    await self.bus.hdel(self._qkey(qj.request.id), qj.request.id)
+                    await self._shed_deadline(qj.request)
+                    continue
+                worker, disagg = self._plan_placement(qj.request)
+                if worker is None:
+                    owners = self.registry.get_workers_with_model(qj.request.model)
+                    if owners:
+                        # preemption-based priority: the model
+                        # is served but every worker is saturated — a
+                        # waiting higher-priority job may suspend a
+                        # lower-priority running one to the host KV tier
+                        await self._maybe_preempt(qj, now)
+                    if not owners:
+                        # scale-to-zero and back: the job stays
+                        # QUEUED (never rejected) and the placement
+                        # controller is asked for an immediate swap-in
+                        self.placement.note_unserved(qj.request.model)
+                        # loud no-owner log (reference: JobScheduler.ts:176-204),
+                        # rate-limited to once per model per 5 s
+                        now = time.time()
+                        if now - self._no_owner_warned.get(qj.request.model, 0) > 5:
+                            self._no_owner_warned[qj.request.model] = now
+                            log.warning("no worker serves model; job held",
+                                        job_id=qj.request.id, model=qj.request.model)
+                    continue
+                if await self._assign_job(qj, worker, disagg=disagg):
+                    assigned_ids.add(qj.request.id)
+            if assigned_ids:
+                # jobs added during assignment awaits stay for the next pass
+                self.job_queue = [qj for qj in self.job_queue
+                                  if qj.request.id not in assigned_ids]
+
+    def _plan_placement(
+        self, request: InferenceRequest
+    ) -> tuple[WorkerInfo | None, dict[str, Any] | None]:
+        """(worker, disagg-plan) for one queued job.
+
+        Two-phase placement: when the fleet has BOTH a prefill pool and a
+        decode pool for the model and the job is a plain generation, the
+        job goes to a prefill worker with a pre-planned decode target
+        stamped in the plan — the prefill worker migrates the finished KV
+        pages there and the scheduler hands the assignment off on
+        ``job:handoff``. Anything else (embeddings, image requests,
+        homogeneous fleets, disagg disabled) takes whole-request
+        placement; a requeued copy of a decode-phase job replans from
+        scratch (its imported pages may be anywhere by now)."""
+        md = request.metadata or {}
+        md.pop("disagg", None)       # requeue hygiene: stale plans never
+        md.pop("disaggPhase", None)  # survive a fresh placement pass
+        # pinned placement: a canary probe measures ONE worker —
+        # rerouting it elsewhere would grade the wrong machine, so a pin
+        # either lands on its target or waits (and times out as a failed
+        # probe, which is itself the verdict)
+        pin = md.get("pinWorkerId")
+        if pin:
+            w = self.registry.get_worker(str(pin))
+            if (w is not None and w.status == "online"
+                    and request.model in w.model_names()
+                    and w.currentJobs < max(
+                        w.capabilities.maxConcurrentTasks, 1)):
+                return w, None
+            return None, None
+        # same image collection the worker's collect_images() applies:
+        # top-level (generate path) AND per-message (chat path) — a
+        # vision request can never migrate, so it must not be planned
+        has_images = bool(request.images) or any(
+            m.get("images") for m in request.messages or [])
+        generation = (request.request_type in ("inference", "chat", "generate")
+                      and not has_images)
+        # a resume-stamped job is already mid-decode: a two-phase
+        # prefill→decode plan would re-split work the watermark makes
+        # whole-request-cheap (the re-prefill rides the prefix cache)
+        if self.config.disagg_enabled and generation and not md.get("resume"):
+            pre = self._select_worker(request, role="prefill")
+            dec = self._select_worker(request, role="decode")
+            if pre is not None and dec is not None:
+                return pre, {
+                    "decodeWorkerId": dec.workerId,
+                    "decodeAddr": dec.httpAddr or "",
+                }
+        return self._select_worker(request), None
+
+    def _select_worker(self, request: InferenceRequest,
+                       role: str | None = None) -> WorkerInfo | None:
+        """Topology-aware selection (reference baseline: least-loaded then
+        tier, JobScheduler.ts:317-360; accelerator extension per SURVEY.md §2.6).
+
+        Role strictness: candidates are filtered to the asked
+        pool BEFORE scoring — cross-role placement is refused, never
+        silently scored. ``role=None`` (whole-request placement) serves
+        from the unified pool; when no unified worker exists the prefill
+        pool substitutes (a prefill worker can always finish a request
+        locally — that is the disagg fallback contract), and a
+        decode-only fleet substitutes last, both counted under
+        ``gridllm_disagg_jobs_total{event="cross_role"}`` so a
+        misconfigured fleet is visible rather than wedged.
+
+        Order of discrimination:
+        1. context fit — a worker whose layout for this model cannot hold
+           the request's `num_ctx` loses to one that can;
+        2. proportional load — currentJobs / maxConcurrentTasks (absolute
+           job counts are unfair between differently-sized workers) —
+           minus the prefix-affinity bonus when the worker's heartbeat
+           digest contains the job's prefixKey: cached-prefix
+           overlap breaks load ties and outweighs load gaps up to
+           prefix_affinity_weight, but never the availability cap, so a
+           hot worker still sheds;
+        3. layout headroom — more batch slots on the serving layout wins
+           (a v5e-8 TP worker with 16 slots beats a single-chip 4-slot
+           worker at equal relative load);
+        4. performance tier.
+        """
+        candidates = self.registry.get_available_workers_by_model(request.model)
+        # health gating: quarantined workers never serve (the
+        # registry already drops them from availability; this guards
+        # stale lists); probation workers serve only when nothing
+        # healthier exists — canaries, not tenants, should prove them out
+        candidates = [w for w in candidates
+                      if w.healthState != "quarantined"]
+        non_prob = [w for w in candidates if w.healthState != "probation"]
+        if non_prob:
+            candidates = non_prob
+        if role in ("prefill", "decode"):
+            candidates = [w for w in candidates if w.role == role]
+        else:
+            by_role: dict[str, list[WorkerInfo]] = {}
+            for w in candidates:
+                by_role.setdefault(w.role, []).append(w)
+            if by_role.get("unified"):
+                candidates = by_role["unified"]
+            elif by_role.get("prefill") or by_role.get("decode"):
+                candidates = (by_role.get("prefill")
+                              or by_role.get("decode") or [])
+                self._disagg_total.inc(event="cross_role")
+            else:
+                candidates = []
+        if not candidates:
+            return None
+        opts = request.options or {}
+        try:  # options is unvalidated client input — never let a bad
+            # num_ctx abort the dispatch pass (head-of-line blocking)
+            num_ctx = int(opts.get("num_ctx") or 0)
+        except (TypeError, ValueError):
+            num_ctx = 0
+        prefix_key = (request.metadata or {}).get("prefixKey")
+        affinity_w = self.config.prefix_affinity_weight
+
+        def score(w: WorkerInfo) -> tuple[int, float, int, int, int]:
+            caps = w.capabilities
+            layout = next(
+                (l for l in caps.shardLayouts if l.name == request.model), None
+            )
+            ctx_ok = layout is None or num_ctx <= 0 or num_ctx <= layout.maxSeqLen
+            slots = layout.maxBatchSlots if layout is not None else 1
+            load = w.currentJobs / max(caps.maxConcurrentTasks, 1)
+            if prefix_key and affinity_w and prefix_key in w.cachedPrefixes:
+                load -= affinity_w
+            # health penalty: a degraded/probation worker
+            # competes as if it carried extra load — traffic shifts to
+            # healthy peers but the worker stays reachable (mirrors the
+            # prefix-affinity bonus, opposite sign)
+            if w.healthState in ("degraded", "probation"):
+                load += self._health_penalty
+            # decode-pool placement prefers the worker with the most open
+            # batch slots (heartbeat-advertised headroom) — the
+            # prefill pool orders purely by queue depth via `load`
+            headroom = w.decodeSlotsFree if role == "decode" else 0
+            return (
+                0 if ctx_ok else 1,
+                load,
+                -headroom,
+                -slots,
+                _TIER_RANK.get(caps.performanceTier, 1),
+            )
+
+        return min(candidates, key=score)
+
+    async def _assign_job(self, qj: _QueuedJob, worker: WorkerInfo,
+                          disagg: dict[str, Any] | None = None) -> bool:
+        """reference: JobScheduler.ts:362-432."""
+        # staleness re-check right before assignment (:368-386)
+        fresh = self.registry.get_worker(worker.workerId)
+        if fresh is None or fresh.status != "online":
+            return False
+        silent_s = time.time() - fresh.lastHeartbeat
+        if silent_s * 1000 > self.config.worker_heartbeat_timeout_ms:
+            return False
+        if not self._fence("assign", qj.request.id):
+            # the double-assign gate: a deposed or partitioned
+            # shard must NEVER publish an assignment — the partition's
+            # new owner replays this job from the durable queue record
+            # and assigns it itself
+            return False
+
+        request = qj.request
+        if disagg is not None:
+            # two-phase placement: the prefill worker reads the
+            # decode target from metadata; the migration record makes the
+            # orphan path release KV state on BOTH workers if the job dies
+            # before the handoff resolves
+            request.metadata["disagg"] = dict(disagg)
+            self._migrations[request.id] = {
+                "from": worker.workerId,
+                "to": disagg["decodeWorkerId"],
+                "at": time.time(),
+            }
+            self._disagg_total.inc(event="planned")
+        timeout_ms = request.timeout or self.config.job_timeout_ms
+        assignment = JobAssignment(
+            jobId=request.id, workerId=worker.workerId,
+            request=request, timeout=timeout_ms,
+        )
+        self.active_jobs[request.id] = assignment
+        await self.bus.hset(self._akey(request.id), request.id,
+                            assignment.model_dump_json())
+        await self.bus.hdel(self._qkey(request.id), request.id)
+        await self.registry.mark_worker_busy(worker.workerId)
+        await self.bus.publish(
+            worker_job_channel(worker.workerId),
+            json.dumps({"type": "job_assignment", "job": assignment.model_dump(mode="json")}),
+        )
+        self._arm_timeout(assignment, remaining_ms=timeout_ms)
+        self._jobs_total.inc(event="dispatched")
+        self._assignments.inc(worker=worker.workerId)
+        wait_s = max(0.0, time.time() - qj.enqueued_at)
+        self._queue_wait.observe(wait_s)
+        self.capacity.note_dispatch(request.model, wait_s)
+        self._end_queue_span(request.id, worker=worker.workerId)
+        self.tracer.event(request.id, "scheduler.dispatch",
+                          worker=worker.workerId)
+        log.job("job assigned", request.id, worker_id=worker.workerId)
+        self.emit("job_assigned", assignment)
+        return True
+
+    def _arm_timeout(self, assignment: JobAssignment, remaining_ms: float) -> None:
+        loop = asyncio.get_running_loop()
+        job_id = assignment.jobId
+
+        def fire() -> None:
+            self._timeout_handles.pop(job_id, None)
+            asyncio.ensure_future(self._handle_job_timeout(job_id))
+
+        self._timeout_handles[job_id] = loop.call_later(remaining_ms / 1000, fire)
+
+    # -- completion/failure handlers ---------------------------------------
+    async def _on_job_completed(self, _ch: str, raw: str) -> None:
+        """reference: JobScheduler.ts:434-461."""
+        try:
+            result = JobResult.model_validate_json(raw)
+        except Exception:
+            return
+        self._mark_done(result.jobId)
+        if not self._owns(result.jobId):
+            # sharded control plane: lifecycle channels fan
+            # out to every shard; only the partition owner accounts the
+            # job (a non-owner counting "duplicate execution" here would
+            # multiply every completion by M-1 shards)
+            return
+        if result.jobId not in self.active_jobs:
+            # stale/duplicate completion — but in the race window where the
+            # orphan sweep requeued this job just before its (successful)
+            # result arrived, a copy of an already-answered request is still
+            # sitting in the queue or on the retry ladder; purge it so it is
+            # never executed again. Purging IS this job's completion (the
+            # orphaned copy was its only live record), so count it.
+            if await self._drop_resolved(result.jobId):
+                self._jobs_total.inc(event="completed")
+                self._drop_resume_state(result.jobId)
+                # orphan-race completion still resolves the request — fold
+                # its usage exactly as the normal path would (conservation:
+                # every published usage payload is accounted once)
+                self.usage.account(result.usage, "completed")
+                if result.usage:
+                    self.capacity.note_completion(
+                        str(result.usage.get("model") or ""),
+                        result.processingTimeMs / 1000)
+                self.emit("job_completed", result)
+                self.request_dispatch()
+            else:
+                # no pending copy either → the job already resolved through
+                # another worker and THIS execution's tokens were wasted
+                # work (the at-least-once cost goodput accounting exists
+                # to surface)
+                wasted = int(getattr(result.response, "eval_count", 0) or 0)
+                self.slo.record_waste(wasted, reason="duplicate_execution")
+                # the engine really spent these tokens and counted them on
+                # its side of the ledger — account them under an explicit
+                # "duplicate" outcome so per-tenant sums stay conserved
+                self.usage.account(result.usage, "duplicate")
+                self.flightrec.record(
+                    "scheduler", "duplicate_completion",
+                    job=result.jobId, worker=result.workerId, tokens=wasted)
+            return
+        assignment = self.active_jobs.get(result.jobId)
+        self._migrations.pop(result.jobId, None)
+        self._drop_resume_state(result.jobId)
+        await self._clear_active(result.jobId, free_worker=True)
+        self._jobs_total.inc(event="completed")
+        # usage ledger + demand model: the owning shard folds
+        # the result's cost payload exactly once
+        self.usage.account(result.usage, "completed")
+        model = (assignment.request.model if assignment is not None
+                 else str((result.usage or {}).get("model") or ""))
+        if model:
+            self.capacity.note_completion(model,
+                                          result.processingTimeMs / 1000)
+        log.job("job completed", result.jobId, worker_id=result.workerId,
+                ms=round(result.processingTimeMs, 1))
+        self.emit("job_completed", result)
+        self.request_dispatch()
+
+    async def _on_job_failed(self, _ch: str, raw: str) -> None:
+        """Retry with delay while attempts remain; deliver the final failure
+        to the waiter only when they run out (reference: JobScheduler.ts:463-514,
+        minus the waiter-rejects-on-first-failure defect)."""
+        try:
+            result = JobResult.model_validate_json(raw)
+        except Exception:
+            return
+        if not self._owns(result.jobId) \
+                or not self._fence("failure", result.jobId):
+            return
+        assignment = self.active_jobs.get(result.jobId)
+        if assignment is None:
+            return
+        self._migrations.pop(result.jobId, None)
+        await self._clear_active(result.jobId, free_worker=True)
+        request = assignment.request
+        if result.nack:
+            # capacity NACK: the job never ran — requeue at the front
+            # WITHOUT touching the retry ladder. Bounded by nackCount so a
+            # pathological nack-storm still terminates via the real ladder.
+            nacks = int(request.metadata.get("nackCount", 0)) + 1
+            request.metadata["nackCount"] = nacks
+            if nacks <= self.config.max_nacks:
+                self._front_seq -= 1
+                qj = _QueuedJob(request, self._front_seq)
+                self.job_queue.insert(0, qj)
+                await self._persist_queued(qj)
+                self._jobs_total.inc(event="nacked")
+                self.flightrec.record("scheduler", "nacked",
+                                      job=result.jobId,
+                                      worker=result.workerId, nacks=nacks)
+                self._begin_queue_span(request, nacked=True)
+                log.job("assignment NACKed; requeued (no retry consumed)",
+                        result.jobId, worker_id=result.workerId, nacks=nacks)
+                self.request_dispatch()
+                return
+            log.warning("nack storm; entering retry ladder",
+                        job_id=result.jobId, nacks=nacks)
+        retry_count = int(request.metadata.get("retryCount", 0))
+        allow_retry = (retry_count < self.config.retry_attempts
+                       and result.retryable)
+        if allow_retry and not self._take_retry_token():
+            # fleet-wide retry budget burning: shed to
+            # immediate failure — a degraded fleet must not melt under
+            # its own retry storm
+            allow_retry = False
+            self._jobs_total.inc(event="retry_budget_exhausted")
+            self.flightrec.record("scheduler", "retry_budget_exhausted",
+                                  job=result.jobId,
+                                  error=str(result.error)[:200])
+            result = result.model_copy(update={
+                "error": f"retry_budget_exhausted: {result.error}",
+                "retryable": False,
+            })
+        if allow_retry:
+            request.metadata["retryCount"] = retry_count + 1
+            request.metadata["lastError"] = result.error
+            # capped exponential backoff with FULL jitter:
+            # delay ~ U[0, min(cap, base·2^attempt)] — decorrelated
+            # retries spread a thundering herd instead of re-spiking it
+            delay_s = self._retry_backoff_ms(retry_count) / 1000 \
+                * random.random()
+            # a failed attempt may have streamed tokens already — resume
+            # from the watermark so the retry never double-streams
+            self._stamp_resume(request)
+            self._jobs_total.inc(event="retried")
+            self.tracer.event(result.jobId, "scheduler.retry",
+                              attempt=retry_count + 1, error=result.error)
+            self.flightrec.record("scheduler", "retry", job=result.jobId,
+                                  attempt=retry_count + 1,
+                                  error=str(result.error)[:200])
+            log.job("job failed; retry scheduled", result.jobId,
+                    attempt=retry_count + 1, delay_s=delay_s, error=result.error)
+
+            def do_retry() -> None:
+                self._retry_handles.pop(result.jobId, None)
+                if self._running:
+                    asyncio.ensure_future(self.add_job(request, requeue=True))
+
+            loop = asyncio.get_running_loop()
+            self._retry_handles[result.jobId] = loop.call_later(delay_s, do_retry)
+        else:
+            self._jobs_total.inc(event="failed")
+            self._mark_done(result.jobId)
+            self._drop_resume_state(result.jobId)
+            self.usage.note_outcome(
+                str(request.metadata.get("tenant") or ""),
+                request.model, "failed")
+            self.flightrec.record("scheduler", "failed", job=result.jobId,
+                                  worker=result.workerId,
+                                  tenant=str(request.metadata
+                                             .get("tenant") or ""),
+                                  model=request.model,
+                                  error=str(result.error)[:200])
+            self.tracer.abort(result.jobId, reason="failed")
+            log.job("job failed permanently", result.jobId, error=result.error)
+            await self.bus.publish(job_result_channel(result.jobId), result.model_dump_json())
+            self.emit("job_failed", result)
+        self.request_dispatch()
+
+    async def _handle_job_timeout(self, job_id: str) -> None:
+        """Server-side job timeout (reference: JobScheduler.ts:516-551)."""
+        if not self._fence("timeout", job_id):
+            # deposed shard: the partition's new owner re-armed
+            # this job's timeout from the durable assignment — firing it
+            # here would publish a cancellation + failure for a job that
+            # is alive and someone else's
+            return
+        # claim the assignment synchronously BEFORE any await: the
+        # waiter-side cancel_job(reason="timeout") can interleave during a
+        # bus suspension and this timeout must be accounted exactly once
+        assignment = self.active_jobs.pop(job_id, None)
+        if assignment is None:
+            return  # already completed/cancelled — benign
+        self._migrations.pop(job_id, None)
+        self._mark_done(job_id)
+        self._drop_resume_state(job_id)
+        self._jobs_total.inc(event="timeout")
+        self.usage.note_outcome(
+            str(assignment.request.metadata.get("tenant") or ""),
+            assignment.request.model, "timeout")
+        self.flightrec.record("scheduler", "timeout", job=job_id,
+                              worker=assignment.workerId,
+                              tenant=str(assignment.request.metadata
+                                         .get("tenant") or ""),
+                              model=assignment.request.model)
+        # close any still-open spans for the job so a timeout storm cannot
+        # leak tracer state (asserted by the chaos tests)
+        self._end_queue_span(job_id, timeout=True)
+        self.tracer.abort(job_id, reason="timeout")
+        log.job("job timed out", job_id, worker_id=assignment.workerId)
+        try:
+            await self.publish_cancellation(assignment.workerId, job_id,
+                                            "timeout")
+        finally:
+            # already claimed + accounted above — a dead bus must not skip
+            # the persisted-record/timer/worker cleanup
+            await self._clear_active(job_id, free_worker=True,
+                                     assignment=assignment)
+        result = JobResult(jobId=job_id, workerId=assignment.workerId,
+                           success=False, error="Job timed out")
+        await self.bus.publish(job_result_channel(job_id), result.model_dump_json())
+        self.emit("job_timeout", result)
+        self.request_dispatch()
+
+    # -- disaggregated handoff ------------------------------------
+    async def _on_handoff(self, _ch: str, raw: str) -> None:
+        """``job:handoff`` from a prefill worker after its KV migration
+        resolved. ok=True → move the live assignment to the planned
+        decode worker and dispatch the decode phase (the request now
+        carries ``disaggPhase=decode``; the decode engine admits warm
+        from the imported pages). ok=False → the prefill worker is
+        already serving the request locally (graceful degradation) and
+        this message only accounts the fallback."""
+        try:
+            data = json.loads(raw)
+            job_id = data["jobId"]
+        except Exception:
+            return
+        if not self._owns(job_id):
+            return
+        from_worker = str(data.get("fromWorker") or "")
+        mig = self._migrations.get(job_id)
+        if mig is not None and mig.get("from") != from_worker:
+            # stale handoff from a PREVIOUS placement (the job was
+            # orphaned and replanned meanwhile): the live migration
+            # record belongs to the new placement and must survive
+            return
+        ok = bool(data.get("ok"))
+        if not ok:
+            self._migrations.pop(job_id, None)
+            self._disagg_total.inc(event="fallback")
+            self.flightrec.record(
+                "scheduler", "disagg_fallback", job=job_id,
+                worker=from_worker,
+                reason=str(data.get("reason") or "")[:120])
+            self.tracer.event(job_id, "scheduler.disagg_fallback",
+                              reason=str(data.get("reason") or ""))
+            # the decode worker prepared a receiver that will never see
+            # (the rest of) the stream — release its assembly state so a
+            # failed transfer cannot leak buffers there
+            to_worker = str(data.get("toWorker")
+                            or (mig or {}).get("to") or "")
+            if to_worker:
+                try:
+                    await self.bus.publish(
+                        worker_job_channel(to_worker),
+                        json.dumps({"type": "kv_release", "jobId": job_id}))
+                except Exception as e:  # noqa: BLE001 — best-effort
+                    log.warning("kv_release publish failed", job_id=job_id,
+                                worker=to_worker, error=str(e))
+            return
+        assignment = self.active_jobs.get(job_id)
+        if assignment is None or assignment.workerId != from_worker:
+            return  # resolved/cancelled meanwhile — stale handoff
+        self._migrations.pop(job_id, None)
+        to_worker = str(data.get("toWorker")
+                        or (mig or {}).get("to") or "")
+        self._disagg_total.inc(event="handoff")
+        self.tracer.event(
+            job_id, "scheduler.handoff",
+            fromWorker=assignment.workerId, toWorker=to_worker,
+            migratedTokens=int(data.get("tokens") or 0),
+            bytes=int(data.get("bytes") or 0),
+            transferMs=round(float(data.get("seconds") or 0) * 1000, 2),
+            path=str(data.get("path") or ""))
+        # release the prefill half: worker freed, timeout disarmed; the
+        # decode assignment below re-arms with the job's full budget
+        await self._clear_active(job_id, free_worker=True,
+                                 assignment=assignment)
+        if job_id in self._cancelled:
+            # cancelled during the await above: cancel_job found the job
+            # in no collection (we had just popped it) and accounted the
+            # cancellation — re-adding would resurrect a dead job onto
+            # the decode pool with nobody listening
+            return
+        target = self.registry.get_worker(to_worker)
+        if target is None or target.status not in ("online", "busy"):
+            # decode worker vanished after acking the import: its copy of
+            # the pages died with it — requeue through the migration_lost
+            # path (the prefill worker still holds a cached copy, so a
+            # re-placement there is warm)
+            self._disagg_total.inc(event="handoff_worker_lost")
+            await self._orphan_job(assignment, reason="migration_lost")
+            self.request_dispatch()
+            return
+        request = assignment.request
+        request.metadata["disaggPhase"] = "decode"
+        request.metadata["kvxTokens"] = int(data.get("tokens") or 0)
+        handoff = JobAssignment(
+            jobId=job_id, workerId=to_worker, request=request,
+            timeout=assignment.timeout,
+        )
+        self.active_jobs[job_id] = handoff
+        await self.bus.hset(self._akey(job_id), job_id,
+                            handoff.model_dump_json())
+        await self.registry.mark_worker_busy(to_worker)
+        await self.bus.publish(
+            worker_job_channel(to_worker),
+            json.dumps({"type": "job_assignment",
+                        "job": handoff.model_dump(mode="json")}),
+        )
+        self._arm_timeout(handoff, remaining_ms=handoff.timeout)
+        self._assignments.inc(worker=to_worker)
+        self.flightrec.record("scheduler", "handoff", job=job_id,
+                              fromWorker=data.get("fromWorker"),
+                              toWorker=to_worker,
+                              tokens=int(data.get("tokens") or 0))
+        log.job("job handed off to decode worker", job_id,
+                from_worker=str(data.get("fromWorker")),
+                worker_id=to_worker)
+        self.emit("job_assigned", handoff)
+
+    async def _drop_resolved(self, job_id: str) -> bool:
+        """Remove every pending copy of a job whose result has already been
+        delivered (queued entry, persisted queue record, retry timer).
+        Returns True if a pending copy existed."""
+        retry = self._retry_handles.pop(job_id, None)
+        if retry is not None:
+            retry.cancel()
+        dropped = retry is not None
+        for i, qj in enumerate(self.job_queue):
+            if qj.request.id == job_id:
+                self.job_queue.pop(i)
+                await self.bus.hdel(self._qkey(job_id), job_id)
+                dropped = True
+                break
+        if dropped:
+            self._end_queue_span(job_id, resolved_elsewhere=True)
+            log.job("already-resolved job purged from queue", job_id)
+        return dropped
+
+    # -- fault tolerance: resume watermarks + graceful drain ------
+
+    def _merge_snapshot(self, job_id: str, snap: dict[str, Any]) -> None:
+        """Monotonic merge: a snapshot only replaces the stored one when
+        it covers MORE generated tokens — late/out-of-order deliveries
+        (and empty drain snapshots) can never roll the watermark back.
+        A token-free snapshot still creates the entry when it carries a
+        seed: workers publish one at generation start so an UNSEEDED
+        sampled request that dies before its first token snapshot retries
+        with the SAME resolved seed — a fresh seed would regenerate
+        different text and the gateway's offset trim would splice two
+        divergent samples into one corrupt stream."""
+        try:
+            tokens = [int(t) for t in snap.get("tokens") or []]
+        except (TypeError, ValueError):
+            return
+        cur = self._resume_snap.get(job_id)
+        if cur is None:
+            if tokens or snap.get("seed") is not None:
+                self._resume_snap[job_id] = {"tokens": tokens,
+                                             "seed": snap.get("seed")}
+            return
+        if len(cur["tokens"]) >= len(tokens):
+            return
+        seed = snap.get("seed")
+        self._resume_snap[job_id] = {
+            "tokens": tokens,
+            "seed": seed if seed is not None else cur.get("seed")}
+
+    async def _on_snapshot(self, _ch: str, raw: str) -> None:
+        """Worker-published decode-state watermark on ``job:snapshot``:
+        the generated token ids (and resolved sampler seed) as of some
+        point mid-decode. Stored per live job; orphan/retry/drain stamp
+        it into the requeue so the replacement continues the decode."""
+        try:
+            data = json.loads(raw)
+            job_id = data["jobId"]
+        except Exception:
+            return
+        if not self._owns(job_id):
+            return
+        if job_id in self.active_jobs and isinstance(data.get("tokens"), list):
+            self._merge_snapshot(job_id, data)
+            if self.shard is not None:
+                # sharded mode: stream frames flow worker →
+                # gateway replicas, so the snapshot cadence is the only
+                # per-job sign of life a shard sees — feed it to the
+                # watchdog's progress map or every healthy long decode
+                # would read as a dispatch/prefill hang
+                now = time.time()
+                first = self._stream_progress.get(job_id, (now, now))[0]
+                self._stream_progress[job_id] = (first, now)
+
+    def _stamp_resume(self, request: InferenceRequest) -> bool:
+        """Attach the job's resume watermark to its metadata before a
+        requeue/handoff: generated token ids, the resolved sampler seed,
+        and the chars this gateway already delivered to the client (the
+        exactly-once emission offset). No watermark → no stamp — the job
+        restarts from zero. A token-free
+        (seed-only) watermark still stamps: replaying the same seed makes
+        an unseeded sampled restart byte-identical, which the gateway's
+        overlap trim depends on."""
+        snap = self._resume_snap.get(request.id)
+        if snap is None:
+            return False
+        request.metadata["resume"] = {
+            "tokens": list(snap["tokens"]),
+            "seed": snap.get("seed"),
+            "sentChars": int(self._stream_chars.get(request.id, 0)),
+        }
+        self._resume_total.inc(event="stamped")
+        return True
+
+    def _drop_resume_state(self, job_id: str) -> None:
+        self._resume_snap.pop(job_id, None)
+        self._stream_chars.pop(job_id, None)
+
+    def _mark_done(self, job_id: str) -> None:
+        """Record a terminal outcome for the sharded-mode resolved-job
+        memory (adoption replay + queue-hash reconcile read it). No-op
+        in local mode — nothing consults it there."""
+        if self.shard is None:
+            return
+        self._recent_done[job_id] = time.time()
+        while len(self._recent_done) > 1024:
+            self._recent_done.pop(next(iter(self._recent_done)))
+
+    async def _on_drain(self, _ch: str, raw: str) -> None:
+        """``job:drain`` from a draining worker that suspended an active
+        decode. migrated=True with a live target → move the assignment
+        there (its KV pages were just imported — the resume admission is
+        warm); otherwise front-requeue WITH the snapshot. Either way the
+        gateway stream continues with no duplicate and no lost token."""
+        try:
+            data = json.loads(raw)
+            job_id = data["jobId"]
+        except Exception:
+            return
+        if not self._owns(job_id) or not self._fence("drain", job_id):
+            return
+        from_worker = str(data.get("fromWorker") or "")
+        assignment = self.active_jobs.get(job_id)
+        if assignment is None or assignment.workerId != from_worker:
+            return  # resolved/reassigned meanwhile — stale drain report
+        snap = data.get("snapshot")
+        if isinstance(snap, dict):
+            self._merge_snapshot(job_id, snap)
+        self._migrations.pop(job_id, None)
+        await self._clear_active(job_id, free_worker=True,
+                                 assignment=assignment)
+        if job_id in self._cancelled:
+            # cancelled during the await — stay dead, and drop the
+            # watermark _merge_snapshot above may have just re-created
+            self._drop_resume_state(job_id)
+            return
+        request = assignment.request
+        request.metadata.pop("disagg", None)
+        request.metadata.pop("disaggPhase", None)
+        self._stamp_resume(request)
+        self._stream_progress.pop(job_id, None)
+        to_worker = str(data.get("toWorker") or "")
+        target = self.registry.get_worker(to_worker) if to_worker else None
+        if (bool(data.get("migrated")) and target is not None
+                and target.status in ("online", "busy")):
+            handoff = JobAssignment(
+                jobId=job_id, workerId=to_worker, request=request,
+                timeout=assignment.timeout,
+            )
+            self.active_jobs[job_id] = handoff
+            await self.bus.hset(self._akey(job_id), job_id,
+                                handoff.model_dump_json())
+            await self.registry.mark_worker_busy(to_worker)
+            await self.bus.publish(
+                worker_job_channel(to_worker),
+                json.dumps({"type": "job_assignment",
+                            "job": handoff.model_dump(mode="json")}),
+            )
+            self._arm_timeout(handoff, remaining_ms=handoff.timeout)
+            self._assignments.inc(worker=to_worker)
+            self._resume_total.inc(event="drain_handoff")
+            self.tracer.event(job_id, "scheduler.drain_handoff",
+                              fromWorker=from_worker, toWorker=to_worker,
+                              tokens=int(data.get("tokens") or 0),
+                              bytes=int(data.get("bytes") or 0))
+            self.flightrec.record("scheduler", "drain_handoff", job=job_id,
+                                  fromWorker=from_worker,
+                                  toWorker=to_worker,
+                                  tokens=int(data.get("tokens") or 0))
+            log.job("job moved off draining worker", job_id,
+                    from_worker=from_worker, worker_id=to_worker)
+            self.emit("job_assigned", handoff)
+        else:
+            # mark the requeue as already-ran work: the deadline shed in
+            # the dispatch pass exempts drained/orphaned/resumed jobs
+            request.metadata["drained"] = True
+            request.priority = Priority.high
+            self._front_seq -= 1
+            qj = _QueuedJob(request, self._front_seq)
+            self.job_queue.insert(0, qj)
+            await self._persist_queued(qj)
+            self._resume_total.inc(event="drain_requeued")
+            self.flightrec.record("scheduler", "drain_requeued",
+                                  job=job_id, fromWorker=from_worker)
+            self._begin_queue_span(request, drained=True)
+            self.tracer.event(job_id, "scheduler.drain_requeued",
+                              fromWorker=from_worker)
+            log.job("drained job requeued with resume snapshot", job_id,
+                    from_worker=from_worker)
+            self.request_dispatch()
+
+    # -- preemption-based priority --------------------------------
+
+    async def _maybe_preempt(self, qj: _QueuedJob, now: float) -> None:
+        """Suspend-to-host trigger: a queued generation of a strictly
+        higher priority class, unplaceable for preempt_after_ms while the
+        model's workers are saturated, asks ONE worker to suspend its
+        lowest-priority running generation (``job_preempt``). The victim
+        parks its KV in the host tier, requeues at the BACK of its own
+        class with its resume watermark (exactly-once via the drain/
+        resume machinery), and pages back in when pressure clears."""
+        cfg_ms = self.config.preempt_after_ms
+        if cfg_ms <= 0:
+            return
+        req = qj.request
+        if not self._fence("preempt", req.id):
+            return
+        if (now - qj.enqueued_at) * 1000 < cfg_ms:
+            return
+        # prune stale asks (victim resolved meanwhile / worker never
+        # answered) so a lost publish cannot wedge preemption forever
+        for jid, t in list(self._preempting.items()):
+            if jid not in self.active_jobs or now - t > 15.0:
+                self._preempting.pop(jid, None)
+        if self._preempting:
+            return  # one suspend-to-host in flight fleet-wide
+        rank = req.priority.rank
+
+        def preemptible(a: JobAssignment) -> bool:
+            if (a.request.model != req.model
+                    or a.request.priority.rank <= rank
+                    or a.request.request_type not in ("inference", "chat",
+                                                      "generate")):
+                return False
+            # a draining worker NACKs/ignores preempt asks (its jobs are
+            # already being suspended out) — asking it would silently
+            # stall the one-in-flight gate until the stale prune
+            w = self.registry.get_worker(a.workerId)
+            return w is not None and w.status in ("online", "busy")
+
+        victims = [a for a in self.active_jobs.values() if preemptible(a)]
+        if not victims:
+            return
+        # lowest priority first; among equals the most recently assigned
+        # (least progress lost to the suspend/resume round trip)
+        victim = max(victims,
+                     key=lambda a: (a.request.priority.rank, a.assignedAt))
+        self._preempting[victim.jobId] = now
+        self._jobs_total.inc(event="preempt_requested")
+        self.flightrec.record("scheduler", "preempt_requested",
+                              job=victim.jobId, worker=victim.workerId,
+                              waiting=req.id)
+        self.tracer.event(victim.jobId, "scheduler.preempt_requested",
+                          waitingJob=req.id, worker=victim.workerId)
+        log.job("preempting lower-priority job for queued work",
+                victim.jobId, worker_id=victim.workerId, waiting=req.id)
+        try:
+            await self.bus.publish(
+                worker_job_channel(victim.workerId),
+                json.dumps({"type": "job_preempt", "jobId": victim.jobId,
+                            "reason": f"priority:{req.id}"}))
+        except Exception as e:  # noqa: BLE001 — retried next dispatch pass
+            self._preempting.pop(victim.jobId, None)
+            log.warning("preempt publish failed", job_id=victim.jobId,
+                        error=str(e))
+
+    async def _on_preempted(self, _ch: str, raw: str) -> None:
+        """``job:preempted`` from a worker that suspended a generation to
+        the host KV tier. Requeue the victim at the BACK of its own
+        priority class (the waiting higher-priority job must dispatch
+        into the freed slot first) with its resume watermark stamped —
+        when pressure clears it re-dispatches and its warm admission
+        restores the parked pages from host."""
+        try:
+            data = json.loads(raw)
+            job_id = data["jobId"]
+        except Exception:
+            return
+        if not self._owns(job_id) or not self._fence("preempt", job_id):
+            return
+        from_worker = str(data.get("fromWorker") or "")
+        self._preempting.pop(job_id, None)
+        assignment = self.active_jobs.get(job_id)
+        if assignment is None or assignment.workerId != from_worker:
+            return  # resolved/reassigned meanwhile — stale report
+        snap = data.get("snapshot")
+        if isinstance(snap, dict):
+            self._merge_snapshot(job_id, snap)
+        self._migrations.pop(job_id, None)
+        await self._clear_active(job_id, free_worker=True,
+                                 assignment=assignment)
+        if job_id in self._cancelled:
+            self._drop_resume_state(job_id)
+            return
+        request = assignment.request
+        request.metadata.pop("disagg", None)
+        request.metadata.pop("disaggPhase", None)
+        self._stamp_resume(request)
+        self._stream_progress.pop(job_id, None)
+        # already-ran marker: deadline shed exempts it, and the priority
+        # deliberately stays the victim's own — back of ITS class, so the
+        # preemptor (higher class) sorts first regardless of seq
+        request.metadata["preempted"] = True
+        qj = _QueuedJob(request, self._seq)
+        self._seq += 1
+        self.job_queue.append(qj)
+        await self._persist_queued(qj)
+        self._jobs_total.inc(event="preempted")
+        self.flightrec.record("scheduler", "preempted", job=job_id,
+                              fromWorker=from_worker,
+                              parkedTokens=int(data.get("parkedTokens")
+                                               or 0))
+        self._begin_queue_span(request, preempted=True)
+        self.tracer.event(job_id, "scheduler.preempted",
+                          fromWorker=from_worker,
+                          parkedTokens=int(data.get("parkedTokens") or 0))
+        log.job("preempted job requeued with resume snapshot", job_id,
+                from_worker=from_worker)
+        self.request_dispatch()
+
+    def _deadline_for(self, request: InferenceRequest) -> int:
+        """Effective deadline (ms) for a request's SLO class; the class
+        dict overrides the global default, 0 disables."""
+        cls = classify_request(request)
+        classes = self.config.request_deadline_classes or {}
+        return int(classes.get(cls, self.config.request_deadline_ms))
+
+    async def _shed_deadline(self, request: InferenceRequest) -> None:
+        """Fail a queued job that outlived its class deadline: the waiter
+        gets a non-retryable ``deadline_exceeded`` result (gateway → 504)
+        and the queue slot frees immediately."""
+        job_id = request.id
+        self._mark_done(job_id)
+        self._jobs_total.inc(event="deadline_exceeded")
+        self.flightrec.record("scheduler", "deadline_exceeded", job=job_id,
+                              model=request.model)
+        self._end_queue_span(job_id, deadline_exceeded=True)
+        self.tracer.abort(job_id, reason="deadline_exceeded")
+        self._drop_resume_state(job_id)
+        result = JobResult(jobId=job_id, workerId="", success=False,
+                           error="deadline_exceeded", retryable=False)
+        log.job("queued job shed past deadline", job_id,
+                model=request.model)
+        await self.bus.publish(job_result_channel(job_id),
+                               result.model_dump_json())
+        self.emit("job_failed", result)
+
+    def _retry_backoff_ms(self, attempt: int) -> float:
+        """Backoff ceiling for the Nth retry (0-based): base·2^N capped
+        at retry_backoff_max_ms. The caller multiplies by U[0,1) (full
+        jitter)."""
+        base = max(self.config.retry_delay_ms, 0)
+        cap = max(self.config.retry_backoff_max_ms, base)
+        return float(min(cap, base * (2 ** max(attempt, 0))))
+
+    def _take_retry_token(self) -> bool:
+        """Token-bucket retry budget: refills at retry_budget_per_min,
+        caps at one minute's worth. 0 = unlimited."""
+        per_min = self.config.retry_budget_per_min
+        if per_min <= 0:
+            return True
+        now = time.monotonic()
+        self._retry_tokens = min(
+            float(per_min),
+            self._retry_tokens
+            + (now - self._retry_refill_t) * per_min / 60.0)
+        self._retry_refill_t = now
+        if self._retry_tokens >= 1.0:
+            self._retry_tokens -= 1.0
+            return True
+        return False
+
+    # -- orphan machinery ---------------------------------------------------
+    async def _on_worker_removed(self, worker_id: str, _info: WorkerInfo, reason: str) -> None:
+        """Requeue all active jobs of a dead worker at the front with high
+        priority (reference: JobScheduler.ts:553-630)."""
+        doomed = [a for a in self.active_jobs.values() if a.workerId == worker_id]
+        for assignment in doomed:
+            await self._orphan_job(assignment, reason=f"worker_removed:{reason}")
+        if doomed:
+            self.request_dispatch()
+
+    async def _orphan_job(self, assignment: JobAssignment, reason: str) -> None:
+        """Promote to high priority, requeue at the FRONT, record audit
+        metadata (reference: JobScheduler.ts:259-315).
+
+        Mid-migration deaths: a job still carrying a live
+        migration record died between its prefill placement and the
+        handoff. Both ends must drop their KV-transfer state — the
+        prefill worker's in-flight send, the decode worker's partially
+        assembled import — BEFORE the requeue, or a late chunk stream
+        could ghost into the retried job's transfer. The requeue reason
+        becomes ``migration_lost`` and the stale plan is stripped so the
+        fresh placement replans from live registry state."""
+        job_id = assignment.jobId
+        if not self._fence("orphan", job_id):
+            return
+        mig = self._migrations.pop(job_id, None)
+        if mig is not None:
+            reason = "migration_lost"
+            self._disagg_total.inc(event="migration_lost")
+            self.flightrec.record("scheduler", "migration_lost", job=job_id,
+                                  fromWorker=mig["from"], toWorker=mig["to"])
+            for wid in {mig["from"], mig["to"]}:
+                try:
+                    await self.bus.publish(
+                        worker_job_channel(wid),
+                        json.dumps({"type": "kv_release", "jobId": job_id}))
+                except Exception as e:  # noqa: BLE001 — best-effort release
+                    log.warning("kv_release publish failed", job_id=job_id,
+                                worker=wid, error=str(e))
+        await self._clear_active(job_id, free_worker=False)
+        # mark the loss on the trace BEFORE the requeue opens fresh spans:
+        # the dead worker will never publish its half of the timeline, and
+        # /admin/trace must say so instead of showing an unexplained gap
+        self.tracer.event(job_id, "scheduler.worker_lost",
+                          worker=assignment.workerId, reason=reason)
+        self._stream_progress.pop(job_id, None)
+        self.flightrec.record("scheduler", "orphaned", job=job_id,
+                              worker=assignment.workerId, reason=reason)
+        request = assignment.request
+        request.priority = Priority.high
+        md = request.metadata
+        md.pop("disagg", None)       # stale plan: the fresh dispatch pass
+        md.pop("disaggPhase", None)  # replans against live pools
+        # requeue hygiene: stripping the stale disagg plan must
+        # NOT drop the resume watermark — a resume-eligible orphan
+        # continues its decode on the replacement worker (any already-
+        # stamped metadata.resume survives; a fresher snapshot wins)
+        if self._stamp_resume(request):
+            self.tracer.event(job_id, "scheduler.resume_stamped",
+                              tokens=len(md["resume"]["tokens"]),
+                              sentChars=md["resume"]["sentChars"])
+        md["orphaned"] = True
+        md["originalWorkerId"] = assignment.workerId
+        md["orphanedAt"] = time.time()
+        md["requeueCount"] = int(md.get("requeueCount", 0)) + 1
+        # Front of queue: dedicated shrinking counter, so front inserts
+        # survive crash-reload (concurrent orphans end up LIFO at the front,
+        # matching the reference's unshift loop, JobScheduler.ts:585-618).
+        self._front_seq -= 1
+        qj = _QueuedJob(request, self._front_seq)
+        self.job_queue.insert(0, qj)
+        await self._persist_queued(qj)
+        self._jobs_total.inc(event="orphaned")
+        self._begin_queue_span(request, orphaned=True,
+                               original_worker=assignment.workerId)
+        log.job("job orphaned and requeued", job_id,
+                original_worker=assignment.workerId, reason=reason,
+                requeue_count=md["requeueCount"])
+        self.emit("job_orphaned", request)
+
+    async def _sweep_loop(self) -> None:
+        """Safety-net sweep (reference: the 1 s tick, JobScheduler.ts:128-135
+        — here only orphan detection + a dispatch fallback, plus the
+        sharded queue-hash reconcile every few ticks)."""
+        interval = self.config.sweep_interval_ms / 1000
+        tick = 0
+        while self._running:
+            await asyncio.sleep(interval)
+            tick += 1
+            try:
+                await self._check_for_orphaned_jobs()
+                if self.shard is not None and tick % 5 == 0:
+                    await self._reconcile_shard_queues()
+                now = time.time()
+                for job_id, at in list(self._cancelled.items()):
+                    if now - at > 60:
+                        del self._cancelled[job_id]
+                if self.job_queue:
+                    self.request_dispatch()
+            except Exception as e:
+                log.error("sweep failed", error=str(e))
+
+    async def _reconcile_shard_queues(self) -> None:
+        """Sharded-mode repair + garbage collection: walk the
+        durable queue hash of every HELD partition and resolve records
+        this scheduler does not have locally. Two sources produce them:
+        non-owners park every submit they ignore (so an owner-less or
+        missed-delivery window cannot lose the job), and a park racing
+        past the owner's dispatch/cancel hdel leaves a ghost. Unknown
+        records of live/resolved jobs are ghosts — collected; genuinely
+        unknown requests are ADOPTED into the queue (the parked-submit
+        recovery path)."""
+        local = {qj.request.id for qj in self.job_queue}
+        picked = 0
+        for idx in self.shard.held():
+            if not self.shard.lease.fenced(idx):
+                continue  # stale lease: neither collect nor adopt
+            qkey = shard_queue_key(idx)
+            for job_id, raw in (await self.bus.hgetall(qkey)).items():
+                if job_id in local:
+                    continue
+                if job_id in self.active_jobs                         or job_id in self._recent_done                         or job_id in self._retry_handles                         or job_id in self._cancelled:
+                    # ghost of a dispatched/resolved/cancelled job
+                    await self.bus.hdel(qkey, job_id)
+                    continue
+                try:
+                    rec = json.loads(raw)
+                    req = InferenceRequest.model_validate(rec["request"])
+                except Exception:
+                    await self.bus.hdel(qkey, job_id)
+                    continue
+                qj = _QueuedJob(req, self._seq)
+                self._seq += 1
+                self.job_queue.append(qj)
+                self._begin_queue_span(req, reconciled=True)
+                self._ctrl_submits.inc(event="reconciled")
+                picked += 1
+                log.job("parked submission reconciled into queue", job_id,
+                        shard=idx)
+        if picked:
+            self.request_dispatch()
+
+    async def _check_for_orphaned_jobs(self) -> None:
+        """reference: JobScheduler.ts:219-257 — assignment older than the
+        threshold AND worker gone or silent beyond the window."""
+        if liveness_suspended(self.bus,
+                              self.config.bus_rejoin_grace_ms):
+            # partition-aware liveness: while our own bus
+            # session is degraded (or within the rejoin grace) every
+            # worker looks silent — orphaning their jobs would duplicate
+            # work that is still streaming fine on the other side of the
+            # partition. The registry holds its death verdicts on the
+            # same signal; organic orphans are caught on the first sweep
+            # after the grace expires.
+            return
+        now = time.time()
+        threshold_s = self.config.orphan_assign_threshold_ms / 1000
+        window_s = self.config.quick_disconnect_window_ms / 1000
+        for assignment in list(self.active_jobs.values()):
+            if now - assignment.assignedAt < threshold_s:
+                continue
+            worker = self.registry.get_worker(assignment.workerId)
+            if worker is None or now - worker.lastHeartbeat > window_s:
+                await self._orphan_job(assignment, reason="orphan_sweep")
+        self.request_dispatch()
+
+    # -- internals ----------------------------------------------------------
+    async def _persist_queued(self, qj: _QueuedJob) -> None:
+        await self.bus.hset(
+            self._qkey(qj.request.id), qj.request.id,
+            json.dumps({"seq": qj.seq, "request": qj.request.model_dump(mode="json")}),
+        )
+
+    async def _clear_active(self, job_id: str, free_worker: bool,
+                            assignment: JobAssignment | None = None) -> None:
+        """``assignment`` carries a pre-popped entry: callers that must claim
+        the job synchronously before their first await pass it here so the
+        worker is still released."""
+        assignment = self.active_jobs.pop(job_id, None) or assignment
+        await self.bus.hdel(self._akey(job_id), job_id)
+        handle = self._timeout_handles.pop(job_id, None)
+        if handle is not None:
+            handle.cancel()
+        if assignment is not None and free_worker:
+            await self.registry.mark_worker_available(assignment.workerId)

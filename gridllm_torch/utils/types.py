@@ -3,10 +3,11 @@
 The JAX package's utils/types.py declares these as pydantic models; the
 port declares the same fields, in the same order and with the same
 defaults, as dataclasses behind a small `_Model` base with the methods the
-worker calls (`model_validate`, `model_validate_json`, `model_dump`,
-`model_dump_json`). The JSON is pydantic's: compact, declared fields in
-order, enums as their values, nested models as objects, and unknown keys
-kept and written after the declared ones (`extra="allow"`). Validation
+worker and the scheduler call (`model_validate`, `model_validate_json`,
+`model_dump`, `model_dump_json`, `model_copy`). The JSON is pydantic's:
+compact, declared fields in order, float fields as floats, enums as
+their values, nested models as objects, and unknown keys kept and
+written after the declared ones (`extra="allow"`). Validation
 converts nested models, enums and numbers, and checks Literal fields.
 
 `TpuTopology` keeps its name: it is the wire contract the scheduler
@@ -15,6 +16,7 @@ reads. A torch worker fills it with `platform="gpu"`.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import enum
 import json
@@ -126,6 +128,14 @@ def _jsonable(value: Any) -> Any:
     return value
 
 
+def _drop_none(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {k: _drop_none(v) for k, v in value.items() if v is not None}
+    if isinstance(value, list):
+        return [_drop_none(v) for v in value]
+    return value
+
+
 class _Model:
     """Base of the wire models: a dataclass with pydantic's method names.
     Unknown keys live in `model_extra` and read as attributes."""
@@ -172,12 +182,35 @@ class _Model:
     def model_validate_json(cls, data: str | bytes):
         return cls.model_validate(json.loads(data))
 
-    def model_dump(self) -> dict[str, Any]:
-        """Declared fields in order, then the unknown keys, as JSON values."""
-        out = {f.name: _jsonable(getattr(self, f.name)) for f in dataclasses.fields(self)}
+    def model_dump(self, *, mode: str = "json", exclude_none: bool = False) -> dict[str, Any]:
+        """Declared fields in order, then the unknown keys, as JSON values
+        (pydantic's ``mode="json"``, the one mode the callers use);
+        ``exclude_none`` drops None values at every depth, as pydantic's."""
+        if mode != "json":
+            raise ValueError(f"model_dump(mode={mode!r}): only 'json' is supported")
+        hints = _hints(type(self))
+        out = {}
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if hints[f.name] is float and type(value) is int:
+                value = float(value)  # an int default of a float field: 0 → 0.0
+            out[f.name] = _jsonable(value)
         for k, v in self.model_extra.items():
             out.setdefault(k, _jsonable(v))
-        return out
+        return _drop_none(out) if exclude_none else out
+
+    def model_copy(self, *, update: dict[str, Any] | None = None):
+        """A shallow copy with `update` applied unvalidated, as pydantic's:
+        a declared field is set, any other key joins the unknown keys."""
+        names = {f.name for f in dataclasses.fields(self)}
+        new = copy.copy(self)
+        object.__setattr__(new, "model_extra", dict(self.model_extra))
+        for k, v in (update or {}).items():
+            if k in names:
+                object.__setattr__(new, k, v)
+            else:
+                new.model_extra[k] = v
+        return new
 
     def model_dump_json(self) -> str:
         return json.dumps(self.model_dump(), separators=(",", ":"), ensure_ascii=False)

@@ -27,11 +27,11 @@ from __future__ import annotations
 import asyncio
 import os
 import platform
-import time
 from typing import Any
 
 from gridllm_torch.bus import create_bus
 from gridllm_torch.engine import EngineConfig, InferenceEngine
+from gridllm_torch.obs.perf import capture_profile
 from gridllm_torch.utils.config import Config, env_bool, load_config
 from gridllm_torch.utils.logging import get_logger
 from gridllm_torch.utils.types import iso_now
@@ -113,30 +113,13 @@ def build_engines(config: Config) -> dict[str, InferenceEngine]:
 
 
 def profile_capture(service: WorkerService, seconds: float) -> dict[str, Any]:
-    """An on-demand capture of `seconds` while the worker serves: a
-    torch.profiler capture through `InferenceEngine.profile()`, which
-    starts and stops it between the runner's steps. Returns the kernels
-    with the most device time."""
-    import torch
-
+    """An on-demand capture of `seconds` while the worker serves
+    (`obs.perf.capture_profile` through its first engine). Returns the
+    kernels with the most device time."""
     engines = [e for e in service.engines.values() if not e.embedding_only]
     if not engines:
         raise RuntimeError("no engine to profile")
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if engines[0].device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    started = iso_now()
-    with engines[0].profile(activities=activities) as prof:
-        time.sleep(seconds)
-    rows = sorted(prof.key_averages(),
-                  key=lambda e: getattr(e, "device_time_total", 0.0), reverse=True)
-    return {
-        "seconds": seconds, "reason": "on_demand", "startedAt": started,
-        "model": engines[0].cfg.name,
-        "top": [{"name": e.key, "count": e.count,
-                 "deviceUs": getattr(e, "device_time_total", 0.0),
-                 "cpuUs": e.cpu_time_total} for e in rows[:20]],
-    }
+    return capture_profile(engines[0], seconds, "on_demand")
 
 
 def handle_profile_request(service: WorkerService,
@@ -266,7 +249,7 @@ async def run(config: Config | None = None) -> None:
     check_single_device(config)
     from gridllm_torch.obs import TimelinePublisher, default_flight_recorder
 
-    default_flight_recorder().set_capacity(config.flightrec_capacity)
+    default_flight_recorder().set_capacity(config.obs.flightrec_capacity)
     engines = build_engines(config)
     if not engines:
         raise SystemExit("no models configured: set GRIDLLM_MODELS")
@@ -275,7 +258,7 @@ async def run(config: Config | None = None) -> None:
                      endpoints=config.bus.endpoints)
     await bus.connect()
     timeline_pub = None
-    tl = config.timeline
+    tl = config.obs.timeline
     if tl.enabled:
         timeline_pub = TimelinePublisher(
             config.worker.worker_id, queue_capacity=tl.queue_capacity,

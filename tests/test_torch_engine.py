@@ -7,7 +7,8 @@ token streams, texts, finish reasons and prefix-cache hits must be
 identical: solo requests, continuous batching, a prompt longer than the
 prefill chunk (mixed steps), a warm prefix-cache repeat, stop sequences
 and num_predict. Both are driven through step(); the port's runner thread
-is checked against its own synchronous path.
+is checked against its own synchronous path. Engines that each worker's
+`build_one_engine` builds read the fleet's engine knobs alike.
 """
 
 import threading
@@ -19,9 +20,15 @@ import pytest
 from gridllm_torch.engine import EngineConfig as TConfig
 from gridllm_torch.engine import GenerationRequest as TRequest
 from gridllm_torch.engine import InferenceEngine as TEngine
+from gridllm_torch.ops.spec import NgramDrafter as TNgram
+from gridllm_torch.utils.config import load_config as t_load_config
+from gridllm_torch.worker.main import build_one_engine as t_build
 from gridllm_tpu.engine import EngineConfig as JConfig
 from gridllm_tpu.engine import GenerationRequest as JRequest
 from gridllm_tpu.engine import InferenceEngine as JEngine
+from gridllm_tpu.ops.spec import NgramDrafter as JNgram
+from gridllm_tpu.utils.config import load_config as j_load_config
+from gridllm_tpu.worker.main import build_one_engine as j_build
 
 TINY = dict(model="tiny-llama", max_slots=4, page_size=8, num_pages=64,
             max_pages_per_slot=8, prefill_buckets=(16, 32), prefill_chunk=16,
@@ -425,3 +432,57 @@ def test_worker_calls_seed_usage_and_refusals():
     assert n and n % TINY["page_size"] == 0 and out["tokens"] == exp.context[:n]
     assert out["k"].shape[1] == n // TINY["page_size"] and out["dtype"] == "float32"
     assert te.host_tier is None and te.park_to_host(exp.context[:-1]) == 0
+
+
+# -- the fleet's engine knobs ----------------------------------------------------
+# A torch engine built by gridllm_torch.worker.main.build_one_engine and a JAX
+# engine built by gridllm_tpu.worker.main.build_one_engine, each from its
+# package's load_config() under the same environment, on tiny-llama, report
+# the same speculation depth and tree width, drafter kind and settings, KV
+# pool dtype, prefix-cache cap and attention mode. Each case sets its knobs
+# with monkeypatch; "defaults" sets none.
+
+KNOB_CASES = {
+    "defaults": {},
+    "all_off": {"GRIDLLM_SPEC_DECODE": "0", "GRIDLLM_PREFIX_CACHE": "0",
+                "GRIDLLM_RAGGED_ATTN": "0"},
+    "tuned": {"GRIDLLM_SPEC_K": "2", "GRIDLLM_SPEC_NGRAM_MAX": "3",
+              "GRIDLLM_SPEC_NGRAM_MIN": "2", "GRIDLLM_SPEC_LOOKBACK": "16",
+              "GRIDLLM_PREFIX_CACHE_PAGES": "32", "GRIDLLM_KV_INT8": "1"},
+    "draft_model": {"GRIDLLM_SPEC_DRAFT_MODEL": "tiny-llama", "GRIDLLM_SPEC_TREE_WIDTH": "3",
+                    "GRIDLLM_SPEC_DRAFT_INGEST": "32", "GRIDLLM_SPEC_K": "3"},
+}
+
+
+def _knob_report(engine, *, ngram_cls, int8, ragged) -> dict:
+    spec = engine.batch_state()["specDecode"]
+    d = engine._drafter
+    drafter = None
+    if isinstance(d, ngram_cls):
+        drafter = ("ngram", d.max_n, d.min_n, d.lookback)
+    elif d is not None:  # the draft model's tree drafter: its ingest width
+        drafter = (d.kind, d._w)
+    return {
+        "spec": (spec["k"], spec["drafter"], spec["treeWidth"]) if spec else None,
+        "drafter": drafter,
+        "kv_int8": int8,
+        "prefix_cap": engine._prefix_cache_cap,
+        "ragged": ragged,
+    }
+
+
+@pytest.mark.parametrize("case", list(KNOB_CASES))
+def test_build_one_engine_reads_the_fleet_knobs(case, monkeypatch):
+    for name, value in KNOB_CASES[case].items():
+        monkeypatch.setenv(name, value)
+    je = j_build(j_load_config(), "tiny-llama")
+    te = t_build(t_load_config(), "tiny-llama", device="cpu")
+    want = _knob_report(je, ngram_cls=JNgram, int8=je._kv_int8,
+                   ragged=je._ragged)
+    got = _knob_report(te, ngram_cls=TNgram, int8=te._kv_int8,
+                  ragged=te.model.ragged_attention)
+    assert got == want
+    if case == "defaults":
+        # the values the port's engine served before it read the knobs
+        assert got == {"spec": (4, "ngram", 1), "drafter": ("ngram", 4, 1, 0),
+                       "kv_int8": False, "prefix_cap": -1, "ragged": True}

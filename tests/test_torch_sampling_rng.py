@@ -256,8 +256,10 @@ async def test_seeded_sampled_kill_resumes_byte_identical(fleet_engines, victim,
         dead = await f.add(victim, engines[victim], "victim")
 
         async def kill():
-            await f.add(survivor, engines[survivor], "survivor")
+            # silenced before the survivor joins: the victim decodes on
+            # while the survivor registers and could finish the job first
             dead.bus.dead = True
+            await f.add(survivor, engines[survivor], "survivor")
 
         text, evals, served_by = await _sampled_run(f, chaos=kill)
         assert served_by == "survivor"

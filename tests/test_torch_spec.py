@@ -377,7 +377,10 @@ def pair(request):
 
 def test_engine_defaults_match_jax_resolution(pair):
     cfg = TConfig(model="tiny-llama")
-    assert (cfg.spec_decode, cfg.spec_k, cfg.ragged_attention) == (True, 4, True)
+    # left None, the knobs resolve from the environment as the JAX engine's
+    assert (cfg.spec_decode, cfg.spec_k, cfg.ragged_attention) == (None, None, None)
+    r = cfg.resolved()
+    assert (r.spec_decode, r.spec_k, r.ragged_attention) == (True, 4, True)
     assert pair.te._spec_k == pair.je._spec_k == 4
     assert TEngine(TConfig(spec_decode=False, **TINY), device="cpu")._spec_k == 0
     assert TEngine(TConfig(spec_k=2, **TINY), device="cpu")._spec_k == 2
