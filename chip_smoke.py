@@ -282,13 +282,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the eight requests and the 2,000-byte prompt: tokens/s, TTFT,
              MoE calls by form, launch counters from 0 held to the ragged
              path.
+19. gateway — HTTP through the port's gateway (phase_gateway):
+             GatewayServer in local control-plane mode on the port's
+             InMemoryBus at 127.0.0.1:0, in front of the port's scheduler
+             and one WorkerService on llama3:8b bf16 (all 32 layers, the
+             engine's defaults); every surface once (Ollama, OpenAI over
+             SSE, /inference with a DELETE mid-generation, health, tags,
+             models, /metrics, /admin/trace, a 404 and a 400), then eight
+             streamed generations three ways in turns: (a) a bus client
+             straight to a worker, (b) the scheduler's
+             submit_streaming_job, (c) HTTP (TTFT p50/p90, tokens/s per
+             way, on a line of their own); launch counters from 0 held to
+             the ragged path; the 8-layer float32 cut's greedy text through
+             HTTP equal to the scheduler's.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes, each with the head dims compiled and its launches under the
-scheduler and on the quant and mixtral serves; then the same rows at D = 256 from the gemma phase,
+scheduler, on the quant and mixtral serves and behind the gateway; then the same rows at D = 256 from the gemma phase,
 named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -318,7 +331,7 @@ SEED = 0
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "sched", "replay",
               "spec", "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
-              "mixtral")
+              "mixtral", "gateway")
 
 
 def emit(obj: dict) -> None:
@@ -6094,6 +6107,375 @@ def phase_mixtral(torch) -> dict:
             "launches": parts["serve"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# gateway: HTTP through the port's gateway in front of the port's scheduler
+# ---------------------------------------------------------------------------
+
+GATEWAY_WAVE_BYTES = (300, 450, 200, 600, 350, 500, 250, 400)
+GATEWAY_WAVE_TOKENS = (64, 48, 56, 64, 48, 64, 56, 48)
+GATEWAY_WAYS = ("a", "b", "c", "c", "b", "a")   # turns: each way twice, mirrored
+
+
+class _GatewayStack:
+    """The port's GatewayServer (local control plane) on the port's
+    InMemoryBus, bound to 127.0.0.1:0, with one port WorkerService on
+    `engine` behind it and an aiohttp client session."""
+
+    def __init__(self, engine, worker_id):
+        self.engine, self.worker_id = engine, worker_id
+
+    async def __aenter__(self):
+        import aiohttp
+
+        from gridllm_torch.bus import InMemoryBus
+        from gridllm_torch.gateway import GatewayServer
+        from gridllm_torch.utils.config import Config, SchedulerConfig, WorkerConfig
+        from gridllm_torch.worker.service import WorkerService
+
+        config = Config(scheduler=SchedulerConfig(sweep_interval_ms=200))
+        config.gateway.host = "127.0.0.1"
+        config.gateway.rate_limit_max_requests = 100_000
+        self.server = GatewayServer(config, bus=InMemoryBus())
+        self.port = await self.server.start(0)
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.worker = WorkerService(self.server.bus, {WORKER_MODEL: self.engine},
+                                    WorkerConfig(worker_id=self.worker_id,
+                                                 heartbeat_interval_ms=1000),
+                                    stream_flush_ms=20)
+        await self.worker.start()
+        await _wait(lambda: self.server.registry.get_worker(self.worker_id) is not None,
+                    "gateway: the worker registered")
+        self.http = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+        return self
+
+    async def __aexit__(self, *exc):
+        await self.http.close()
+        await self.worker.stop(announce=False)
+        await self.server.shutdown()
+
+    async def call(self, method, path, body=None, data=None):
+        """(status, content type, body): JSON parsed, NDJSON and SSE as lists
+        of frames, anything else as text."""
+        kw = {"json": body} if data is None else {"data": data}
+        async with self.http.request(method, self.base + path, **kw) as r:
+            text = await r.text()
+            ctype = r.headers.get("Content-Type", "")
+        if ctype.startswith("application/json"):
+            return r.status, ctype, json.loads(text)
+        if ctype.startswith("application/x-ndjson"):
+            return r.status, ctype, [json.loads(ln) for ln in text.splitlines() if ln]
+        if ctype.startswith("text/event-stream"):
+            frames = [f[len("data: "):] for f in text.split("\n\n") if f]
+            return r.status, ctype, [f if f == "[DONE]" else json.loads(f) for f in frames]
+        return r.status, ctype, text
+
+    async def stream_generate(self, prompt, n):
+        """One streamed /api/generate: (seconds to the first NDJSON frame,
+        the text its frames put together, the final frame)."""
+        t0 = time.perf_counter()
+        t_first, parts, last = None, [], None
+        async with self.http.post(self.base + "/api/generate", json={
+                "model": WORKER_MODEL, "prompt": prompt,
+                "options": {"temperature": 0, "num_predict": n}}) as r:
+            check(r.status == 200, f"gateway: stream status {r.status}")
+            async for line in r.content:
+                if not line.strip():
+                    continue
+                frame = json.loads(line)
+                if t_first is None:
+                    t_first = time.perf_counter()
+                if frame.get("done"):
+                    last = frame
+                else:
+                    parts.append(frame.get("response") or "")
+        check(last is not None and "error" not in last, f"gateway: stream ended {last}")
+        return t_first - t0, "".join(parts), last
+
+
+def _gateway_req(rid, prompt, n):
+    from gridllm_torch.utils.types import InferenceRequest
+
+    return InferenceRequest(id=rid, model=WORKER_MODEL, prompt=prompt, stream=True,
+                            options={"temperature": 0, "num_predict": n},
+                            metadata={"requestType": "inference"})
+
+
+async def _gateway_way(way, st, standin, direct_id, prompts, tag) -> dict:
+    """The eight streams one way: (a) a bus client straight to a worker,
+    (b) the port's JobScheduler.submit_streaming_job, (c) HTTP through the
+    port's gateway. TTFT is the client's submit to its first frame."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    if way == "a":
+        jobs = [await standin.submit(direct_id, _worker_request(f"{tag}-{i}", n, prompt=p))
+                for i, (p, n) in enumerate(zip(prompts, GATEWAY_WAVE_TOKENS))]
+        served = [await asyncio.wait_for(j.result, 600) for j in jobs]
+        for j, res in zip(jobs, served):
+            check(res.success and j.t_first is not None, f"gateway (a): {res.error}")
+        ttft = [j.t_first - j.t_submit for j in jobs]
+        tokens = [r.response.eval_count for r in served]
+    elif way == "b":
+        async def one(i, p, n):
+            first: list[float] = []
+
+            async def on_chunk(c):
+                if not first and (c.response or (c.message or {}).get("content")):
+                    first.append(time.perf_counter())
+
+            t = time.perf_counter()
+            res = await st.server.scheduler.submit_streaming_job(
+                _gateway_req(f"{tag}-{i}", p, n), on_chunk, timeout_ms=600_000)
+            check(res.success and first, f"gateway (b): {res.error}")
+            return first[0] - t, res.response.eval_count
+
+        got = await asyncio.gather(*[one(i, p, n) for i, (p, n)
+                                     in enumerate(zip(prompts, GATEWAY_WAVE_TOKENS))])
+        ttft, tokens = [g[0] for g in got], [g[1] for g in got]
+    else:
+        got = await asyncio.gather(*[st.stream_generate(p, n)
+                                     for p, n in zip(prompts, GATEWAY_WAVE_TOKENS)])
+        ttft, tokens = [g[0] for g in got], [g[2]["eval_count"] for g in got]
+    wall = time.perf_counter() - t0
+    return {"ttft_s": ttft, "tokens": sum(tokens), "wall_s": wall}
+
+
+async def _gateway_serve(torch, engine) -> dict:
+    """The bf16 part: warm-up, then with the launch counters from 0 every
+    surface once and the wave three ways in turns."""
+    import asyncio
+    import random
+
+    from gridllm_torch.bus import InMemoryBus
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    rng = random.Random(SEED + 21)
+    # way (a): a second WorkerService on the same engine, on a bus of its
+    # own with the stand-in scheduler of the worker phase
+    abus = InMemoryBus()
+    await abus.connect()
+    standin = _StandIn(abus)
+    await standin.start()
+    direct = WorkerService(abus, {WORKER_MODEL: engine},
+                           WorkerConfig(worker_id=f"{WORKER_ID}-direct",
+                                        heartbeat_interval_ms=1000), stream_flush_ms=20)
+    await direct.start()
+    try:
+        async with _GatewayStack(engine, f"{WORKER_ID}-gw") as st:
+            gen = {"model": WORKER_MODEL, "stream": False,
+                   "options": {"temperature": 0, "num_predict": 8}}
+            for n in (300, 1500):   # warm-up, not measured
+                s, _, b = await st.call("POST", "/api/generate", {**gen, "prompt": _prompt(rng, n)})
+                check(s == 200 and b.get("done"), f"gateway: warm-up {s} {b}")
+            ck.reset_launch_counts()
+            with _PlainWatch(torch) as plain:
+                surfaces = await _gateway_surfaces(st, rng)
+                ways: dict[str, list] = {w: [] for w in "abc"}
+                for turn, way in enumerate(GATEWAY_WAYS):
+                    prompts = [_prompt(rng, n) for n in GATEWAY_WAVE_BYTES]
+                    ways[way].append(await _gateway_way(way, st, standin, direct.worker_id,
+                                                        prompts, f"{way}{turn}"))
+                s, _, b = await surfaces.pop("cancelled_inference")
+                check(s == 504 and b["error"]["code"] == "JOB_TIMEOUT",
+                      f"gateway: the cancelled /inference answered {s} {b}")
+                await _wait(lambda: not engine.active_requests and not engine.queued_requests,
+                            "gateway: the engine idle")
+                launches = ck.launch_counts()
+            _, _, metrics = await st.call("GET", "/metrics")
+    finally:
+        await direct.stop(announce=False)
+        await abus.disconnect()
+    check(not any(plain.counts.values()), f"gateway: a plain version ran: {plain.counts}")
+    for name in ("flash_prefill", "ragged_attention", "ragged_attention.chunk",
+                 "ragged_attention.group", "paged_write_decode", "paged_write_chunk"):
+        check(launches.get(name, 0) > 0, f"gateway: {name} never launched: {launches}")
+    for route, status in surfaces.pop("routes_hit"):
+        check(f'route="{route}"' in metrics and any(
+            f'route="{route}"' in ln and f'status="{status}"' in ln
+            for ln in metrics.splitlines() if ln.startswith("gridllm_gateway_requests_total{")),
+            f"gateway: /metrics has no request count for {route} {status}")
+    out = {}
+    for way, runs in ways.items():
+        ttft = [t * 1e3 for r in runs for t in r["ttft_s"]]
+        tokens = sum(r["tokens"] for r in runs)
+        wall = sum(r["wall_s"] for r in runs)
+        out[way] = {"jobs": len(ttft), "ttft_ms_p50": _pct(ttft, 0.5),
+                    "ttft_ms_p90": _pct(ttft, 0.9), "output_tokens": tokens, "wall_s": wall,
+                    "output_tokens_per_s": tokens / wall}
+    return {"ways": out, "surfaces": surfaces, "launches": launches,
+            "plain_calls_on_card": plain.counts}
+
+
+async def _gateway_surfaces(st, rng) -> dict:
+    """Every surface once, status codes and bodies checked; returns what
+    was read, the (route, status) pairs /metrics must count, and the task
+    of the /inference job cancelled mid-generation (its waiter times out
+    with 504 while the wave runs)."""
+    import asyncio
+
+    m = WORKER_MODEL
+    greedy = {"temperature": 0, "num_predict": 16}
+    hit: list[tuple[str, str]] = []
+    out: dict = {}
+
+    async def call(route, method, path, body=None, status=200, data=None):
+        s, ctype, b = await st.call(method, path, body, data=data)
+        check(s == status, f"gateway: {method} {path} answered {s}, want {status}: {b}")
+        hit.append((route, str(s)))
+        return ctype, b
+
+    for prefix in ("/api", "/ollama/api"):
+        _, b = await call(f"{prefix}/generate", "POST", f"{prefix}/generate",
+                          {"model": m, "prompt": _prompt(rng, 1500), "stream": False,
+                           "options": greedy})
+        check(b["done"] and b["eval_count"] == 16 and b["done_reason"] == "length",
+              f"gateway: {prefix}/generate {b}")
+        ctype, frames = await call(f"{prefix}/generate", "POST", f"{prefix}/generate",
+                                   {"model": m, "prompt": _prompt(rng, 300), "options": greedy})
+        check(ctype.startswith("application/x-ndjson") and frames[-1]["done"]
+              and frames[-1]["eval_count"] == 16 and not any(f["done"] for f in frames[:-1]),
+              f"gateway: {prefix}/generate stream {frames[-1]}")
+    ctype, frames = await call("/api/chat", "POST", "/api/chat", {
+        "model": m, "options": greedy, "messages": [{"role": "user", "content": "hi there"}]})
+    check(frames[-1]["done"] and all(f["message"]["role"] == "assistant" for f in frames),
+          f"gateway: /api/chat stream {frames[-1]}")
+    chat = {"model": m, "max_tokens": 16, "temperature": 0,
+            "messages": [{"role": "user", "content": _prompt(rng, 200)}]}
+    ctype, frames = await call("/v1/chat/completions", "POST", "/v1/chat/completions",
+                               {**chat, "stream": True})
+    check(ctype.startswith("text/event-stream") and frames[-1] == "[DONE]"
+          and frames[-2]["choices"][0]["finish_reason"] == "length"
+          and frames[0]["choices"][0]["delta"].get("role") == "assistant",
+          f"gateway: /v1/chat/completions stream {frames[-3:]}")
+    _, b = await call("/v1/chat/completions", "POST", "/v1/chat/completions", chat)
+    check(b["object"] == "chat.completion" and b["usage"]["completion_tokens"] == 16,
+          f"gateway: /v1/chat/completions {b}")
+    _, b = await call("/v1/completions", "POST", "/v1/completions",
+                      {"model": m, "prompt": _prompt(rng, 200), "max_tokens": 16,
+                       "temperature": 0})
+    check(b["object"] == "text_completion" and b["usage"]["completion_tokens"] == 16,
+          f"gateway: /v1/completions {b}")
+    # the native API: a short job for its trace, then one cancelled mid-generation
+    _, b = await call("/inference", "POST", "/inference",
+                      {"model": m, "prompt": _prompt(rng, 250), "options": greedy})
+    traced = b["id"]
+    check(b["done"] and b["eval_count"] == 16, f"gateway: /inference {b}")
+    task = asyncio.ensure_future(st.call("POST", "/inference", {
+        "model": m, "prompt": _prompt(rng, 250), "timeout": 10_000,
+        "options": {"temperature": 0, "num_predict": 400}}))
+    await _wait(lambda: any(a.request.metadata.get("endpoint") == "/inference"
+                            for a in st.server.scheduler.get_active_jobs()),
+                "gateway: the /inference job assigned")
+    (job,) = [a.jobId for a in st.server.scheduler.get_active_jobs()
+              if a.request.metadata.get("endpoint") == "/inference"]
+    # mid-generation: the worker's snapshots hold decoded tokens (a cancel
+    # that beats the assignment to the engine would find nothing to stop)
+    await _wait(lambda: len(st.server.scheduler._resume_snap.get(job, {}).get("tokens", ()))
+                >= 8, "gateway: the /inference job decoding")
+    _, b = await call("/inference/{job_id}/status", "GET", f"/inference/{job}/status")
+    check(b["status"] == "processing", f"gateway: /inference status {b}")
+    _, b = await call("/inference/{job_id}", "DELETE", f"/inference/{job}")
+    check(b == {"id": job, "status": "cancelled"}, f"gateway: DELETE /inference {b}")
+    out["cancelled_inference"] = task
+    _, b = await call("/health", "GET", "/health")
+    check(b["status"] == "healthy", f"gateway: /health {b}")
+    _, b = await call("/health/workers", "GET", "/health/workers")
+    check([(w["workerId"], w["status"], m in w["models"]) for w in b["workers"]]
+          == [(st.worker_id, "online", True)], f"gateway: /health/workers {b}")
+    _, b = await call("/api/tags", "GET", "/api/tags")
+    check(m in [t["name"] for t in b["models"]], f"gateway: /api/tags {b}")
+    _, b = await call("/v1/models", "GET", "/v1/models")
+    check(m in [d["id"] for d in b["data"]], f"gateway: /v1/models {b}")
+    _, b = await call("/api/generate", "POST", "/api/generate",
+                      {"model": "no-such-model", "prompt": "x", "stream": False}, status=404)
+    check(b["error"]["code"] == "MODEL_NOT_FOUND", f"gateway: unknown model {b}")
+    _, b = await call("/api/generate", "POST", "/api/generate", data=b"{not json", status=400)
+    check(b["error"]["code"] == "BAD_JSON", f"gateway: malformed body {b}")
+    # the trace: gateway.request through scheduler.dispatch to the worker's spans
+    names: set = set()
+    for _ in range(200):
+        _, b = await call("/admin/trace/{request_id}", "GET", f"/admin/trace/{traced}")
+        names = {s["name"] for s in b["spans"]}
+        if {"worker.execute", "engine.decode"} <= names:
+            break
+        await asyncio.sleep(0.05)
+    check({"gateway.request", "scheduler.dispatch", "worker.execute", "engine.prefill",
+           "engine.decode"} <= names and "gateway" in b["sources"]
+          and any(src.startswith("worker:") for src in b["sources"]),
+          f"gateway: /admin/trace spans {sorted(names)} from {b['sources']}")
+    out["trace_spans"] = sorted(names)
+    out["routes_hit"] = sorted(set(hit))
+    return out
+
+
+async def _gateway_f32(engine) -> dict:
+    """The 8-layer float32 cut: greedy /api/generate through the gateway,
+    then the same request through the scheduler's submit_and_wait on the
+    same engine (a warm prefix-cache replay, exact in float32): the same
+    text and eval count."""
+    import random
+
+    from gridllm_torch.utils.types import InferenceRequest
+
+    prompt = _prompt(random.Random(SEED + 22), 400)
+    async with _GatewayStack(engine, f"{WORKER_ID}-f32") as st:
+        s, _, http = await st.call("POST", "/api/generate", {
+            "model": WORKER_MODEL, "prompt": prompt, "stream": False,
+            "options": {"temperature": 0, "num_predict": 48}})
+        check(s == 200, f"gateway f32: /api/generate {s} {http}")
+        res = await st.server.scheduler.submit_and_wait(InferenceRequest(
+            id="f32-sched", model=WORKER_MODEL, prompt=prompt, stream=False,
+            options={"temperature": 0, "num_predict": 48},
+            metadata={"requestType": "inference"}), timeout_ms=600_000)
+        check(res.success, f"gateway f32: submit_and_wait {res.error}")
+    check(http["response"] == res.response.response
+          and http["eval_count"] == res.response.eval_count == 48,
+          "gateway f32: the HTTP text differs from the scheduler's")
+    return {"equal": True, "eval_count": http["eval_count"], "chars": len(http["response"])}
+
+
+def phase_gateway(torch) -> dict:
+    """HTTP through the port's gateway (GatewayServer, local control plane,
+    on the port's InMemoryBus at 127.0.0.1:0) in front of the port's
+    scheduler and one port WorkerService on llama3:8b bf16, all 32 layers,
+    the engine's defaults: after two warm-up jobs, with the launch counters
+    from 0, every surface once (Ollama generate under /api and
+    /ollama/api, streamed and not, chat streamed, /v1/chat/completions
+    over SSE and not, /v1/completions, /inference with its status and a
+    DELETE mid-generation, /health, /health/workers, /api/tags, /v1/models,
+    /metrics counting each route and status, /admin/trace from
+    gateway.request through scheduler.dispatch to the worker's spans, an
+    unknown model 404, a malformed body 400), then eight concurrent
+    streamed generations of 48-64 tokens three ways in turns (a, b, c, c,
+    b, a), each turn with fresh prompts of the same lengths: (a) a bus
+    client straight to a WorkerService on the same engine, (b) the
+    scheduler's submit_streaming_job, (c) streamed /api/generate over HTTP;
+    TTFT p50/p90 and output tokens/s per way; the main kernels launched, no
+    plain version. Then on the 8-layer float32 cut, greedy /api/generate
+    byte-identical to the scheduler's submit_and_wait."""
+    import asyncio
+
+    engine = _kvx_engine(torch)
+    out = asyncio.run(_gateway_serve(torch, engine))
+    check(not engine.running, "gateway: the engine's runner did not stop")
+    del engine
+    engine = _kvx_engine(torch, model=_kvx_f32_model(), dtype="float32")
+    with _PlainWatch(torch) as plain:
+        out["f32_http_equals_scheduler"] = asyncio.run(_gateway_f32(engine))
+    check(not any(plain.counts.values()), f"gateway f32: a plain version ran: {plain.counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    print(json.dumps({"gateway_ways": {w: {k: v[k] for k in ("ttft_ms_p50", "ttft_ms_p90",
+                                                             "output_tokens_per_s")}
+                                       for w, v in out["ways"].items()}, "card": card}),
+          flush=True)
+    return {"phase": "gateway", "model": WORKER_MODEL, "dtype": "bfloat16", "card": card, **out}
+
+
 TURN_PARTS = ("kernels", "steps", "int8")
 
 
@@ -6206,7 +6588,8 @@ def main() -> int:
                    "spec": phase_spec, "checkpoint": phase_checkpoint,
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
                    "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
-                   "quant": phase_quant, "mixtral": phase_mixtral}[phase](torch)
+                   "quant": phase_quant, "mixtral": phase_mixtral,
+                   "gateway": phase_gateway}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -6240,10 +6623,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": spec.source,
          "replaces": spec.replaces.split(" ")[0], "head_dims": list(_HEAD_DIMS),
          "launches": launches[name],
-         # the same kernel's launches under the port's scheduler and on the
-         # int8 llama3:70b and mixtral serves
+         # the same kernel's launches under the port's scheduler, on the
+         # int8 llama3:70b and mixtral serves, and behind the port's gateway
          "launches_on": {p: results[p]["launches"].get(name, 0)
-                         for p in ("sched", "quant", "mixtral")},
+                         for p in ("sched", "quant", "mixtral", "gateway")},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

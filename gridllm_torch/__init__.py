@@ -5,3 +5,5 @@ The JAX package `gridllm_tpu` is the reference this package is held
 against in tests/test_torch_*.py; this package imports none of it (and no
 JAX). Entry points run on CUDA unless the caller passes device="cpu".
 """
+
+__version__ = "0.1.0"

@@ -3,15 +3,16 @@
 Raw telemetry: metrics.py (instruments and the Prometheus text
 encoding), tracer.py (per-request span timelines), flightrec.py (event
 rings and post-mortem dumps), timeline.py (the HLC-stamped event
-publisher and the critical-path decomposition) and perf.py (device-memory
-probes and the in-process profiler capture).
+publisher, the fleet-merged store and the critical-path decomposition) and
+perf.py (device-memory probes and the in-process profiler capture).
 What the scheduler builds on them: slo.py (per-class objectives,
 attainment, burn rates, goodput), watchdog.py (per-phase hang detection),
 usage.py (both halves of the per-tenant usage ledger), capacity.py
 (per-model demand rates, headroom and scale hints), probe.py (the
 golden-hash canary prober) and health.py (per-worker regression baselines
 and the degraded/quarantined/probation state machine).
-The gateway's forensics and the timeline store arrive with the gateway.
+What the gateway builds on them: forensics.py (incident reports assembled
+from the timeline store).
 Pure stdlib apart from perf.py's function-level torch import.
 """
 
@@ -28,6 +29,7 @@ from gridllm_torch.obs.flightrec import (
     register_engine_probe,
     unregister_engine_probe,
 )
+from gridllm_torch.obs.forensics import TRIGGERS, IncidentCollector
 from gridllm_torch.obs.health import HEALTH_STATES, STATE_CODES, HealthMonitor
 from gridllm_torch.obs.metrics import (
     LATENCY_BUCKETS,
@@ -55,6 +57,7 @@ from gridllm_torch.obs.timeline import (
     EventSpec,
     HLCStamp,
     TimelinePublisher,
+    TimelineStore,
     default_clock,
     emit_event,
     encode_hlc,
@@ -101,6 +104,7 @@ __all__ = [
     "HangWatchdog",
     "HealthMonitor",
     "Histogram",
+    "IncidentCollector",
     "LATENCY_BUCKETS",
     "MetricsRegistry",
     "PROMETHEUS_CONTENT_TYPE",
@@ -110,7 +114,9 @@ __all__ = [
     "Span",
     "TRACE_CHANNEL_PREFIX",
     "TenantLRU",
+    "TRIGGERS",
     "TimelinePublisher",
+    "TimelineStore",
     "Tracer",
     "UsageAccountant",
     "account_engine_usage",

@@ -20,7 +20,8 @@ eager PyTorch with kernels built once, so there is nothing to count.
 The profiler half is `InferenceEngine.profile()`: `capture_profile`
 takes a capture through it, for the worker's POST /admin/profile and for a
 scheduler's hang watchdog in a process that hosts an engine (its
-`capture` callable).
+`capture` callable). The gateway's POST /admin/profile
+(`handle_profile_request`) refuses and points to the worker's.
 """
 
 from __future__ import annotations
@@ -196,3 +197,14 @@ def capture_profile(engine: Any, seconds: float, reason: str,
                  "deviceUs": getattr(e, "device_time_total", 0.0),
                  "cpuUs": e.cpu_time_total} for e in rows[:20]],
     }
+
+
+def handle_profile_request() -> tuple[int, dict[str, Any]]:
+    """The gateway's ``POST /admin/profile?seconds=N``: (http_status,
+    json_payload). A capture runs through an engine (`capture_profile`), and
+    a gateway process holds none, so it refuses with 501 and names the
+    worker health port, whose route (worker/main.py) takes the capture: the
+    JAX gateway's answer in a process without a device runtime."""
+    return 501, {"error": "no engine in this process — POST the worker health "
+                          "port's /admin/profile for an engine-side capture",
+                 "code": "NO_ENGINE"}

@@ -1,13 +1,15 @@
-"""The worker's half of the fleet-wide causal event timeline (the JAX
-package's obs/timeline.py up to its publisher).
+"""The fleet-wide causal event timeline (the JAX package's obs/timeline.py).
 
 Every member stamps its flight-recorder lifecycle events, plus bus send
 and receive edges, with a hybrid logical clock (HLC: physical milliseconds
 plus a logical counter, merged on every bus message received), batches
 them on a bounded queue, and publishes them on the durable ``obs:event``
-channel. The stores that answer timeline queries live on control-plane
-members; a worker only publishes. The HLC framing of bus payloads is the
-JAX package's byte for byte, so JAX and torch members share one bus.
+channel. A member running a `TimelineStore` (the gateway) subscribes that
+channel and answers ``GET /admin/timeline/{request_id}`` with the causal
+slice of one request stitched across members; obs/forensics.py assembles
+incident reports from the same store. A worker only publishes. The HLC
+framing of bus payloads is the JAX package's byte for byte, so JAX and
+torch members share one bus.
 
 The publisher never blocks an emitter: events land in a lock-guarded
 deque; when the flush task cannot drain it, the oldest events are dropped
@@ -560,6 +562,87 @@ class TimelinePublisher:
     def pending(self) -> int:
         with self._lock:
             return len(self._q)
+
+
+class TimelineStore:
+    """Fleet-merged event store: subscribes ``obs:event``, keeps a global
+    ring plus a bounded per-request index, and serves HLC-ordered slices.
+    Ingesting also merges every event's stamp into the local clock, so
+    anything this member emits afterwards (incident reports) is causally
+    after everything it has seen."""
+
+    def __init__(self, *, capacity: int = 4096, max_requests: int = 512):
+        self.capacity = capacity
+        self.max_requests = max_requests
+        self._ring: deque[dict[str, Any]] = deque(maxlen=capacity)
+        self._by_request: OrderedDict[str, list[dict[str, Any]]] = (
+            OrderedDict())
+        self._listeners: list[Callable[[dict[str, Any]], None]] = []
+        self._sub = None
+
+    async def attach(self, bus) -> None:
+        from gridllm_torch.bus.base import CH_OBS_EVENT
+
+        self._sub = await bus.subscribe(CH_OBS_EVENT, self._on_batch)
+
+    async def detach(self) -> None:
+        if self._sub is not None:
+            await self._sub.unsubscribe()
+            self._sub = None
+
+    async def _on_batch(self, channel: str, raw: str) -> None:
+        try:
+            data = json.loads(raw)
+        except (ValueError, TypeError):
+            return
+        events = data.get("events") if isinstance(data, dict) else None
+        if not isinstance(events, list):
+            return
+        for ev in events:
+            if isinstance(ev, dict) and isinstance(ev.get("name"), str):
+                self.ingest(ev)
+
+    def ingest(self, ev: dict[str, Any]) -> None:
+        stamp = HLCStamp.from_list(ev.get("stamp"))
+        if stamp is not None:
+            default_clock().update(stamp)
+        self._ring.append(ev)
+        rid = ev.get("requestId")
+        if isinstance(rid, str) and rid:
+            bucket = self._by_request.get(rid)
+            if bucket is None:
+                bucket = self._by_request[rid] = []
+                while len(self._by_request) > self.max_requests:
+                    self._by_request.popitem(last=False)
+            else:
+                self._by_request.move_to_end(rid)
+            bucket.append(ev)
+            # per-request bound: a runaway stream cannot pin the index
+            if len(bucket) > self.capacity:
+                del bucket[0]
+        for fn in list(self._listeners):
+            try:
+                fn(ev)
+            except Exception as e:  # noqa: BLE001 — listeners are best-effort
+                log.warning("timeline listener failed", error=str(e))
+
+    def add_listener(self, fn: Callable[[dict[str, Any]], None]) -> None:
+        self._listeners.append(fn)
+
+    def slice(self, request_id: str) -> list[dict[str, Any]]:
+        """All events for one request in HLC (causal) order."""
+        return sorted(self._by_request.get(request_id, ()), key=stamp_key)
+
+    def window(self, wall_lo_ms: int, wall_hi_ms: int) -> list[dict[str, Any]]:
+        """Events whose physical component falls in [lo, hi], HLC-ordered
+        — the incident collector's causal-window query."""
+        out = [ev for ev in self._ring
+               if wall_lo_ms <= stamp_key(ev)[0] <= wall_hi_ms]
+        out.sort(key=stamp_key)
+        return out
+
+    def events(self) -> list[dict[str, Any]]:
+        return list(self._ring)
 
 
 # -- critical-path decomposition ---------------------------------------------

@@ -1,14 +1,16 @@
-"""Env-driven configuration of the port's worker and scheduler.
+"""Env-driven configuration of the port's worker, scheduler and gateway.
 
-The JAX package's utils/config.py, cut to what the worker and the
-scheduler read: the registry of ``GRIDLLM_*`` names with the typed
-accessors, the `WorkerConfig`, `SchedulerConfig`, `SLOConfig` and
-`WatchdogConfig` sections, and `load_config`. The names, defaults, parsing
+The JAX package's utils/config.py, cut to what the worker, the scheduler
+and the gateway read: the registry of ``GRIDLLM_*`` names with the typed
+accessors, the `WorkerConfig`, `SchedulerConfig`, `GatewayConfig`,
+`SLOConfig`, `WatchdogConfig` and `TimelineConfig` sections, and
+`load_config`. The names, defaults, parsing
 and validation are the JAX package's (its pydantic models are dataclasses
 here; a value the JAX package refuses raises ValueError), so one
 deployment file sets up JAX and torch members alike. Knobs of the port
-alone would be ``GRIDTORCH_*``; none exists. The gateway's and the scaled
-control plane's sections arrive with their slices.
+alone would be ``GRIDTORCH_*``; none exists. The gateway's section is
+here; of the scaled control plane's only its mode, which the gateway reads
+to refuse ``gateway`` (not ported).
 """
 
 from __future__ import annotations
@@ -117,6 +119,8 @@ def env_bool(name: str) -> bool:
 # The names the worker reads, with the JAX package's defaults.
 register_env("GRIDLLM_LOG_LEVEL", "info",
              "Log level for the structured logger (debug/info/warning/error).")
+register_env("GRIDLLM_ENV", "development",
+             "Deployment environment name (NODE_ENV also honored).")
 register_env("GRIDLLM_BUS_URL", "",
              "Message-bus endpoint; empty = in-memory bus, resp://host:port = "
              "wire broker/Redis.")
@@ -362,6 +366,30 @@ register_env("GRIDLLM_TIMELINE_FLUSH_MS", "200",
              "Timeline publisher flush interval (ms).")
 register_env("GRIDLLM_TIMELINE_BATCH", "256",
              "Max events per obs:event batch message.")
+register_env("GRIDLLM_TIMELINE_STORE", "4096",
+             "TimelineStore global event ring capacity (per member "
+             "running a store).")
+register_env("GRIDLLM_TIMELINE_REQUESTS", "512",
+             "TimelineStore per-request index: max distinct request ids "
+             "(LRU).")
+register_env("GRIDLLM_TIMELINE_INCIDENT_WINDOW_MS", "5000",
+             "Causal window (± ms around the trigger event) an incident "
+             "report snapshots from the fleet timeline.")
+register_env("GRIDLLM_TIMELINE_INCIDENTS", "32",
+             "Max retained incident reports (oldest evicted).")
+# the gateway
+register_env("GRIDLLM_ENFORCE_KEEP_ALIVE", "0",
+             "Unload models whose keep_alive window lapses (Ollama "
+             "semantics); off by default — reloads cost minutes.")
+register_env("GRIDLLM_RATELIMIT_SCOPE", "replica",
+             "Gateway rate-limit bucket scope: replica (per-process "
+             "buckets — N replicas multiply every limit by N) or fleet "
+             "(bucket state shared through the bus so the limit is "
+             "fleet-wide).")
+register_env("GRIDLLM_CONTROLPLANE", "local",
+             "Control-plane mode: local (scheduler in-process, the "
+             "default single-box layout) or gateway (a stateless replica "
+             "in front of scheduler shards; not ported, see ROADMAP A 10 3).")
 
 
 def _env(name: str, default: Any) -> Any:
@@ -613,16 +641,32 @@ class WatchdogConfig:
 
 @dataclasses.dataclass
 class TimelineConfig:
+    """The HLC-stamped event publisher every member arms, plus the
+    store/collector sizes on members that serve /admin/timeline and
+    /admin/incidents."""
+
     enabled: bool = True
     queue_capacity: int = 2048
     flush_ms: float = 200.0
     batch_max: int = 256
+    store_capacity: int = 4096
+    store_requests: int = 512
+    incident_window_ms: float = 5000.0
+    max_incidents: int = 32
+
+    def __post_init__(self) -> None:
+        for f in dataclasses.fields(self):
+            if f.type == "int":
+                _as_int(self, f.name)
+            elif f.type == "float":
+                _as_float(self, f.name)
+        _check_bounds(self, tuple((f.name, "gt", 0) for f in dataclasses.fields(self)
+                                  if f.type in ("int", "float")))
 
 
 @dataclasses.dataclass
 class ObsConfig:
-    """The JAX package's ObsConfig without the timeline store's sizes,
-    which arrive with the gateway."""
+    """The JAX package's ObsConfig."""
 
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
     watchdog: WatchdogConfig = dataclasses.field(default_factory=WatchdogConfig)
@@ -630,10 +674,62 @@ class ObsConfig:
     timeline: TimelineConfig = dataclasses.field(default_factory=TimelineConfig)
 
 
+_RATELIMIT_SCOPES = ("replica", "fleet")
+
+
+@dataclasses.dataclass
+class GatewayConfig:
+    """The JAX package's GatewayConfig (same fields and defaults)."""
+
+    host: str = "0.0.0.0"
+    port: int = 4000
+    max_body_bytes: int = 10 * 1024 * 1024
+    rate_limit_window_ms: int = 900_000
+    rate_limit_max_requests: int = 100
+    rate_limit_enabled: bool = True
+    # "replica": per-process fixed-window buckets, so N gateway replicas
+    # multiply every limit by N; "fleet": bucket state shared through the
+    # bus, so the limit holds fleet-wide
+    rate_limit_scope: str = "replica"
+    default_request_timeout_ms: int = 300_000
+    # Ollama-exact idle residency: unload a model when its keep_alive
+    # window passes with no requests; off by default (a reload of a large
+    # checkpoint costs minutes), keep_alive is then only the /api/ps expiry
+    enforce_keep_alive: bool = False
+
+    def __post_init__(self) -> None:
+        for f in dataclasses.fields(self):
+            if f.type == "int":
+                _as_int(self, f.name)
+        if self.rate_limit_scope not in _RATELIMIT_SCOPES:
+            raise ValueError(f"GatewayConfig.rate_limit_scope={self.rate_limit_scope!r}: "
+                             f"must be one of {_RATELIMIT_SCOPES}")
+
+
+_CONTROLPLANE_MODES = ("local", "gateway")
+
+
+@dataclasses.dataclass
+class ControlPlaneConfig:
+    """The mode of the JAX package's ControlPlaneConfig. Only ``local`` is
+    served: the gateway refuses ``gateway`` (the scaled control plane is
+    not ported)."""
+
+    mode: str = "local"
+
+    def __post_init__(self) -> None:
+        if self.mode not in _CONTROLPLANE_MODES:
+            raise ValueError(f"ControlPlaneConfig.mode={self.mode!r}: "
+                             f"must be one of {_CONTROLPLANE_MODES}")
+
+
 @dataclasses.dataclass
 class Config:
+    env: str = "development"
     bus: BusConfig = dataclasses.field(default_factory=BusConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    gateway: GatewayConfig = dataclasses.field(default_factory=GatewayConfig)
+    controlplane: ControlPlaneConfig = dataclasses.field(default_factory=ControlPlaneConfig)
     worker: WorkerConfig = dataclasses.field(default_factory=WorkerConfig)
     engine: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
@@ -662,10 +758,11 @@ def _deadline_classes_from_env() -> dict[str, int]:
 
 
 def load_config() -> Config:
-    """The Config of a worker or scheduler process from the environment;
-    invalid values raise SystemExit."""
+    """The Config of a worker, scheduler or gateway process from the
+    environment; invalid values raise SystemExit."""
     try:
         return Config(
+            env=_env("NODE_ENV", env_str("GRIDLLM_ENV")),
             bus=BusConfig(
                 url=env_str("GRIDLLM_BUS_URL"),
                 key_prefix=_env("REDIS_KEY_PREFIX", "GridLLM:"),
@@ -691,6 +788,16 @@ def load_config() -> Config:
                 bus_rejoin_grace_ms=env_int("GRIDLLM_BUS_REJOIN_GRACE_MS"),
                 preempt_after_ms=env_int("GRIDLLM_PREEMPT_AFTER_MS"),
             ),
+            gateway=GatewayConfig(
+                host=_env("HOST", "0.0.0.0"),
+                port=_env("PORT", 4000),
+                rate_limit_window_ms=_env("RATE_LIMIT_WINDOW_MS", 900_000),
+                rate_limit_max_requests=_env("RATE_LIMIT_MAX_REQUESTS", 100),
+                rate_limit_enabled=_env("RATE_LIMIT_ENABLED", True),
+                rate_limit_scope=env_str("GRIDLLM_RATELIMIT_SCOPE"),
+                enforce_keep_alive=env_bool("GRIDLLM_ENFORCE_KEEP_ALIVE"),
+            ),
+            controlplane=ControlPlaneConfig(mode=env_str("GRIDLLM_CONTROLPLANE")),
             worker=WorkerConfig(
                 worker_id=_env("WORKER_ID", f"worker-{uuid.uuid4().hex[:12]}"),
                 host=_env("WORKER_HOST", "0.0.0.0"),
@@ -732,6 +839,10 @@ def load_config() -> Config:
                     queue_capacity=env_int("GRIDLLM_TIMELINE_QUEUE"),
                     flush_ms=env_float("GRIDLLM_TIMELINE_FLUSH_MS"),
                     batch_max=env_int("GRIDLLM_TIMELINE_BATCH"),
+                    store_capacity=env_int("GRIDLLM_TIMELINE_STORE"),
+                    store_requests=env_int("GRIDLLM_TIMELINE_REQUESTS"),
+                    incident_window_ms=env_float("GRIDLLM_TIMELINE_INCIDENT_WINDOW_MS"),
+                    max_incidents=env_int("GRIDLLM_TIMELINE_INCIDENTS"),
                 ),
             ),
         )

@@ -56,64 +56,98 @@ def _hints(cls: type) -> dict[str, Any]:
     return hints
 
 
-def _convert(tp: Any, value: Any, where: str) -> Any:
+class ValidationError(ValueError):
+    """A value that fails its field's annotation. `loc` is the path to it
+    (field name, list index, union member) and `msg` pydantic's wording,
+    so the gateway answers a malformed body as the JAX gateway does."""
+
+    def __init__(self, model: str, loc: tuple[Any, ...], msg: str, value: Any = None):
+        self.model, self.loc, self.msg = model, loc, msg
+        super().__init__(f"{model}.{'.'.join(map(str, loc))}: {msg} (got {value!r})")
+
+
+def _tag(tp: Any) -> str:
+    """pydantic's name of a union member, as it appears in an error's loc."""
+    if tp is Any:
+        return "any"
+    origin = typing.get_origin(tp)
+    if origin in (list, dict):
+        return f"{origin.__name__}[{','.join(_tag(a) for a in typing.get_args(tp))}]"
+    return getattr(tp, "__name__", str(tp))
+
+
+def _choices(values: Any) -> str:
+    names = [repr(v.value if isinstance(v, enum.Enum) else v) for v in values]
+    return names[0] if len(names) == 1 else f"{', '.join(names[:-1])} or {names[-1]}"
+
+
+def _convert(tp: Any, value: Any, model: str, loc: tuple[Any, ...]) -> Any:
     """`value` validated against the annotation `tp` (pydantic's lax mode
-    for the types these models use)."""
+    for the types these models use); a failure raises ValidationError."""
+
+    def fail(msg: str):
+        raise ValidationError(model, loc, msg, value)
+
     if tp is Any:
         return value
     origin = typing.get_origin(tp)
     if origin in (typing.Union, types.UnionType):
-        args = typing.get_args(tp)
-        if value is None and type(None) in args:
+        members = [a for a in typing.get_args(tp) if a is not type(None)]
+        if value is None and len(members) < len(typing.get_args(tp)):
             return None
+        if len(members) == 1:
+            return _convert(members[0], value, model, loc)
         errors = []
-        for arg in args:
-            if arg is type(None):
-                continue
+        for arg in members:
             try:
-                return _convert(arg, value, where)
-            except (TypeError, ValueError) as e:
-                errors.append(str(e))
-        raise ValueError(f"{where}: {value!r} matches no member of {tp} ({errors})")
+                return _convert(arg, value, model, loc + (_tag(arg),))
+            except ValidationError as e:
+                errors.append(e)
+        raise errors[0]
     if origin is Literal:
         if value not in typing.get_args(tp):
-            raise ValueError(f"{where}: {value!r} is not one of {typing.get_args(tp)}")
+            fail(f"Input should be {_choices(typing.get_args(tp))}")
         return value
     if origin is list:
         if not isinstance(value, (list, tuple)):
-            raise TypeError(f"{where}: expected a list, got {type(value).__name__}")
+            fail("Input should be a valid list")
         (arg,) = typing.get_args(tp)
-        return [_convert(arg, v, where) for v in value]
+        return [_convert(arg, v, model, loc + (i,)) for i, v in enumerate(value)]
     if origin is dict:
         if not isinstance(value, dict):
-            raise TypeError(f"{where}: expected an object, got {type(value).__name__}")
+            fail("Input should be a valid dictionary")
         _, arg = typing.get_args(tp)
-        return {str(k): _convert(arg, v, where) for k, v in value.items()}
+        return {str(k): _convert(arg, v, model, loc + (k,)) for k, v in value.items()}
     if isinstance(tp, type) and issubclass(tp, _Model):
+        if not isinstance(value, (dict, _Model)):
+            fail(f"Input should be a valid dictionary or instance of {tp.__name__}")
         return tp.model_validate(value)
     if isinstance(tp, type) and issubclass(tp, enum.Enum):
-        return tp(value)
+        try:
+            return tp(value)
+        except ValueError:
+            fail(f"Input should be {_choices(list(tp))}")
     if tp is bool:
-        if isinstance(value, bool):
-            return value
-        raise TypeError(f"{where}: expected a bool, got {value!r}")
+        if not isinstance(value, bool):
+            fail("Input should be a valid boolean")
+        return value
     if tp is int:
         if isinstance(value, bool) or not isinstance(value, (int, float)):
-            raise TypeError(f"{where}: expected an int, got {value!r}")
+            fail("Input should be a valid integer")
         if isinstance(value, float):
             if not value.is_integer():
-                raise ValueError(f"{where}: {value!r} has a fractional part")
+                fail("Input should be a valid integer, got a number with a fractional part")
             return int(value)
         return value
     if tp is float:
         if isinstance(value, bool) or not isinstance(value, (int, float)):
-            raise TypeError(f"{where}: expected a number, got {value!r}")
+            fail("Input should be a valid number")
         return float(value)
     if tp is str:
         if not isinstance(value, str):
-            raise TypeError(f"{where}: expected a string, got {value!r}")
+            fail("Input should be a valid string")
         return value
-    raise TypeError(f"{where}: unsupported annotation {tp!r}")
+    raise TypeError(f"{model}.{'.'.join(map(str, loc))}: unsupported annotation {tp!r}")
 
 
 def _jsonable(value: Any) -> Any:
@@ -158,22 +192,25 @@ class _Model:
         if isinstance(obj, _Model):
             obj = obj.model_dump()
         if not isinstance(obj, dict):
-            raise TypeError(f"{cls.__name__}: expected an object, got {type(obj).__name__}")
+            raise ValidationError(cls.__name__, (), "Input should be a valid dictionary", obj)
         hints = _hints(cls)
         kwargs: dict[str, Any] = {}
         extra: dict[str, Any] = {}
         names = {f.name for f in dataclasses.fields(cls) if f.init}
+        # declared fields in their order (pydantic reports the first field
+        # that fails in declaration order), then the unknown keys
+        for f in dataclasses.fields(cls):
+            if f.init and f.name in obj:
+                kwargs[f.name] = _convert(hints[f.name], obj[f.name], cls.__name__, (f.name,))
         for key, value in obj.items():
-            if key in names:
-                kwargs[key] = _convert(hints[key], value, f"{cls.__name__}.{key}")
-            else:
+            if key not in names:
                 extra[key] = value
         missing = [f.name for f in dataclasses.fields(cls)
                    if f.init and f.name not in kwargs
                    and f.default is dataclasses.MISSING
                    and f.default_factory is dataclasses.MISSING]
         if missing:
-            raise ValueError(f"{cls.__name__}: missing field(s) {missing}")
+            raise ValidationError(cls.__name__, (missing[0],), "Field required")
         inst = cls(**kwargs)
         inst.model_extra.update(extra)
         return inst

@@ -59,6 +59,17 @@ def t_sched_config(**kw) -> tconfig.SchedulerConfig:
     return tconfig.SchedulerConfig(**base)
 
 
+# The comparison runs no failure path: liveness windows and job timeouts a
+# slowed process cannot trip, and callers that wait as long. Under
+# fast_config() an event loop stalled past its 400 ms quick-disconnect
+# window marks the worker disconnected, and the orphan sweep re-orphans
+# every job assigned more than 200 ms before: how many depends on where the
+# stalls fall, so the two sides' totalJobsOrphaned differed.
+CALM = dict(worker_heartbeat_timeout_ms=120_000, quick_disconnect_window_ms=120_000,
+            orphan_assign_threshold_ms=120_000, job_timeout_ms=600_000)
+CALM_WAIT_MS = 600_000
+
+
 @pytest.fixture(scope="module")
 def engines():
     """Two torch engines on the same random weights (seed 0)."""
@@ -106,7 +117,8 @@ async def _serve(kind, engine):
     submit_streaming_job: (text, eval_count, done_reason) per request."""
     bus_mod, sched_mod, types = ((tbus, tsched, ttypes) if kind == "torch"
                                  else (jbus, jsched, jtypes))
-    cfg = t_sched_config() if kind == "torch" else fast_config()
+    cfg = (t_sched_config(**CALM) if kind == "torch"
+           else fast_config().model_copy(update=CALM))
     bus = bus_mod.InMemoryBus()
     await bus.connect()
     registry = sched_mod.WorkerRegistry(bus, cfg)
@@ -127,10 +139,11 @@ async def _serve(kind, engine):
                 async def on_chunk(c, chunks=chunks):
                     chunks.append(c.response or (c.message or {}).get("content", ""))
 
-                res = await scheduler.submit_streaming_job(req, on_chunk, timeout_ms=60_000)
+                res = await scheduler.submit_streaming_job(req, on_chunk,
+                                                           timeout_ms=CALM_WAIT_MS)
                 assert "".join(chunks)
             else:
-                res = await scheduler.submit_and_wait(req, timeout_ms=60_000)
+                res = await scheduler.submit_and_wait(req, timeout_ms=CALM_WAIT_MS)
             assert res.success, res.error
             r = res.response
             text = r.response if r.response is not None else (r.message or {}).get("content")
@@ -145,7 +158,11 @@ async def _serve(kind, engine):
     return out
 
 
-async def test_port_scheduler_serves_a_torch_worker_like_the_jax_scheduler(engines):
+async def test_port_scheduler_serves_a_torch_worker_like_the_jax_scheduler(engines, monkeypatch):
+    # both schedulers read GRIDLLM_* names at construction (probe, placement,
+    # health): none set by an earlier test in the process reaches either
+    for name in [k for k in os.environ if k.startswith("GRIDLLM_")]:
+        monkeypatch.delenv(name)
     want = await _serve("jax", engines[0])
     got = await _serve("torch", engines[0])
     assert got == want

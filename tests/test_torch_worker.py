@@ -7,7 +7,8 @@ wires a JAX worker. Both packages' engines serve the same weights (the
 JAX engine's parameters carried across as numpy), with both packages'
 defaults: n-gram speculation, ragged attention and the prefix cache on.
 
-- generate, chat and streams through the gateway equal a JAX worker's;
+- generate, chat and streams through the gateway equal a JAX worker's,
+  through the JAX package's gateway stack and through the port's;
 - an assignment over capacity is NACKed and a cancel mid-stream resolves;
 - images and embeddings fail loudly, naming the slice that ports them; a
   disaggregated prefill with no decode peer falls back to local serving;
@@ -30,8 +31,14 @@ import numpy as np
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
+from gridllm_torch.bus import InMemoryBus as TInMemoryBus
 from gridllm_torch.engine import EngineConfig as TConfig
 from gridllm_torch.engine import InferenceEngine as TEngine
+from gridllm_torch.gateway.app import create_app as t_create_app
+from gridllm_torch.scheduler import JobScheduler as TJobScheduler
+from gridllm_torch.scheduler import WorkerRegistry as TWorkerRegistry
+from gridllm_torch.utils.config import Config as TGatewayConfig
+from gridllm_torch.utils.config import SchedulerConfig as TSchedulerConfig
 from gridllm_torch.utils.config import WorkerConfig as TWorkerConfig
 from gridllm_torch.worker import service as tservice
 from gridllm_torch.worker.service import WorkerService as TWorker
@@ -84,28 +91,34 @@ async def _settle(engine, timeout=30.0):
 
 
 class Stack:
-    """Gateway + registry + scheduler on one JAX InMemoryBus, with one
-    worker (test_e2e.py's `_stack`)."""
+    """Gateway + registry + scheduler on one InMemoryBus, with one worker
+    (test_e2e.py's `_stack`): the JAX package's gateway stack, or with
+    gateway="torch" the port's (its bus, registry, scheduler and app)."""
 
-    def __init__(self, kind, engine, sched_cfg=None):
-        self.kind, self.engine = kind, engine
+    def __init__(self, kind, engine, sched_cfg=None, gateway="jax"):
+        self.kind, self.engine, self.gateway = kind, engine, gateway
         self.sched_cfg = sched_cfg or fast_config()
+        if gateway == "torch":
+            self.sched_cfg = TSchedulerConfig(**{
+                f: getattr(self.sched_cfg, f) for f in type(self.sched_cfg).model_fields})
 
     async def __aenter__(self):
-        self.bus = InMemoryBus()
+        port = self.gateway == "torch"
+        self.bus = (TInMemoryBus if port else InMemoryBus)()
         await self.bus.connect()
-        self.registry = WorkerRegistry(self.bus, self.sched_cfg)
-        self.scheduler = JobScheduler(self.bus, self.registry, self.sched_cfg)
+        self.registry = (TWorkerRegistry if port else WorkerRegistry)(self.bus, self.sched_cfg)
+        self.scheduler = (TJobScheduler if port else JobScheduler)(
+            self.bus, self.registry, self.sched_cfg)
         await self.registry.initialize()
         await self.scheduler.initialize()
-        config = Config()
+        config = (TGatewayConfig if port else Config)()
         config.scheduler = self.sched_cfg
         self.worker = _worker(self.kind, self.engine, self.bus, f"{self.kind}-w",
                               heartbeat_interval_ms=150, resource_monitor_interval_ms=500)
         await self.worker.start()
         await asyncio.sleep(0.05)
-        self.client = TestClient(TestServer(create_app(self.bus, self.registry,
-                                                       self.scheduler, config)))
+        self.client = TestClient(TestServer((t_create_app if port else create_app)(
+            self.bus, self.registry, self.scheduler, config)))
         await self.client.start_server()
         return self
 
@@ -164,15 +177,18 @@ async def _serve_api(stack):
     return out
 
 
-async def test_gateway_serves_generate_chat_and_streams_like_a_jax_worker(engines):
-    async with Stack("torch", engines["torch"]) as st:
+@pytest.mark.parametrize("gateway", ["jax", "torch"])
+async def test_gateway_serves_generate_chat_and_streams_like_a_jax_worker(engines, gateway):
+    """Through either package's gateway stack, the torch worker's texts
+    equal the JAX worker's."""
+    async with Stack("torch", engines["torch"], gateway=gateway) as st:
         (info,) = st.registry.get_all_workers()
         assert info.capabilities.topology.platform == "cpu"
         assert info.capabilities.maxConcurrentTasks == TINY["max_slots"]
         t_hash = info.capabilities.availableModels[0].details["engineConfigHash"]
         got = await _serve_api(st)
         assert st.worker.total_processed == len(got)
-    async with Stack("jax", engines["jax"]) as st:
+    async with Stack("jax", engines["jax"], gateway=gateway) as st:
         (info,) = st.registry.get_all_workers()
         j_hash = info.capabilities.availableModels[0].details["engineConfigHash"]
         want = await _serve_api(st)
