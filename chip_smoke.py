@@ -295,13 +295,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
              way, on a line of their own); launch counters from 0 held to
              the ragged path; the 8-layer float32 cut's greedy text through
              HTTP equal to the scheduler's.
+20. controlplane — the scaled control plane through the port's own entry
+             points (phase_controlplane), each a process: two brokers
+             (python -m gridllm_torch.bus.broker --aof), two scheduler
+             shards (python -m gridllm_torch.controlplane, 2,000 ms leases
+             renewed every 400 ms) and two gateway replicas
+             (GRIDLLM_CONTROLPLANE=gateway python -m gridllm_torch.gateway)
+             on the first; in this process the port's WorkerService on
+             llama3:8b bf16 (all 32 layers, the engine's defaults) on that
+             broker and a local-mode GatewayServer with a worker of its own
+             on the same engine on the second broker. Every fleet surface
+             once (/health/workers, /admin/slo, /admin/capacity,
+             /admin/dump?fleet=1, gridllm_shard_lease_held, /api/generate
+             through each replica), eight concurrent streams two ways in
+             turns, (d) the local gateway and (e) the fleet (TTFT p50/p90,
+             tokens/s per way, on a line of their own with the adoption's
+             seconds); launch counters from 0 held to the ragged path; on
+             the 8-layer float32 cut the owning shard SIGKILLed after the
+             5th frame of a stream: byte-identical to the undisturbed
+             stream, the survivor at epoch 2, one assignment, nothing
+             orphaned, a second request on the adopted partition served.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes, each with the head dims compiled and its launches under the
-scheduler, on the quant and mixtral serves and behind the gateway; then the same rows at D = 256 from the gemma phase,
+scheduler, on the quant and mixtral serves, behind the gateway and behind
+the scaled control plane; then the same rows at D = 256 from the gemma phase,
 named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -331,7 +352,7 @@ SEED = 0
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "sched", "replay",
               "spec", "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
-              "mixtral", "gateway")
+              "mixtral", "gateway", "controlplane")
 
 
 def emit(obj: dict) -> None:
@@ -6116,6 +6137,33 @@ GATEWAY_WAVE_TOKENS = (64, 48, 56, 64, 48, 64, 56, 48)
 GATEWAY_WAYS = ("a", "b", "c", "c", "b", "a")   # turns: each way twice, mirrored
 
 
+async def _ndjson_stream(http, base, prompt, n, on_frame=None):
+    """One streamed greedy /api/generate: (seconds to the first NDJSON
+    frame, the text its frames put together, the final frame);
+    `on_frame(count)` is awaited after each frame."""
+    t0 = time.perf_counter()
+    t_first, parts, last, frames = None, [], None, 0
+    async with http.post(base + "/api/generate", json={
+            "model": WORKER_MODEL, "prompt": prompt,
+            "options": {"temperature": 0, "num_predict": n}}) as r:
+        check(r.status == 200, f"{base}: stream status {r.status}")
+        async for line in r.content:
+            if not line.strip():
+                continue
+            frame = json.loads(line)
+            frames += 1
+            if t_first is None:
+                t_first = time.perf_counter()
+            if frame.get("done"):
+                last = frame
+            else:
+                parts.append(frame.get("response") or "")
+            if on_frame is not None:
+                await on_frame(frames)
+    check(last is not None and "error" not in last, f"{base}: stream ended {last}")
+    return t_first - t0, "".join(parts), last
+
+
 class _GatewayStack:
     """The port's GatewayServer (local control plane) on the port's
     InMemoryBus, bound to 127.0.0.1:0, with one port WorkerService on
@@ -6170,26 +6218,7 @@ class _GatewayStack:
         return r.status, ctype, text
 
     async def stream_generate(self, prompt, n):
-        """One streamed /api/generate: (seconds to the first NDJSON frame,
-        the text its frames put together, the final frame)."""
-        t0 = time.perf_counter()
-        t_first, parts, last = None, [], None
-        async with self.http.post(self.base + "/api/generate", json={
-                "model": WORKER_MODEL, "prompt": prompt,
-                "options": {"temperature": 0, "num_predict": n}}) as r:
-            check(r.status == 200, f"gateway: stream status {r.status}")
-            async for line in r.content:
-                if not line.strip():
-                    continue
-                frame = json.loads(line)
-                if t_first is None:
-                    t_first = time.perf_counter()
-                if frame.get("done"):
-                    last = frame
-                else:
-                    parts.append(frame.get("response") or "")
-        check(last is not None and "error" not in last, f"gateway: stream ended {last}")
-        return t_first - t0, "".join(parts), last
+        return await _ndjson_stream(self.http, self.base, prompt, n)
 
 
 def _gateway_req(rid, prompt, n):
@@ -6476,6 +6505,474 @@ def phase_gateway(torch) -> dict:
     return {"phase": "gateway", "model": WORKER_MODEL, "dtype": "bfloat16", "card": card, **out}
 
 
+# ---------------------------------------------------------------------------
+# controlplane: the scaled control plane, each member a process of its own
+# ---------------------------------------------------------------------------
+
+CP_TTL_MS, CP_RENEW_MS, CP_STATUS_MS = 2000, 400, 200
+CP_WAYS = ("d", "e", "e", "d")   # turns: each way twice, mirrored
+CP_KILL_AFTER_FRAMES = 5
+CP_F32_TOKENS = 320   # ~6 s on the float32 cut: still decoding when the adoption lands
+CP_MEMBERS = ["gw-0", "gw-1", "shard-0", "shard-1"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Procs:
+    """The control plane's processes, each `python -m <entry point>` from
+    this checkout with its output in chiprun_out/controlplane_<name>.txt;
+    every one still running is stopped (SIGTERM, then SIGKILL) on exit."""
+
+    def __init__(self):
+        self.procs: dict = {}
+        self.out = REPO / "chiprun_out"
+        self.out.mkdir(exist_ok=True)
+
+    def start(self, name, module, *args, env=None):
+        import os
+
+        log = open(self.out / f"controlplane_{name}.txt", "w")
+        proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=REPO,
+                                env={**os.environ, "PYTHONPATH": str(REPO), **(env or {})},
+                                stdout=log, stderr=subprocess.STDOUT)
+        self.procs[name] = (proc, log)
+
+    def check_alive(self, *names) -> None:
+        for name in names or self.procs:
+            proc, _ = self.procs[name]
+            check(proc.poll() is None, f"controlplane: {name} exited with {proc.returncode}: "
+                                       f"see chiprun_out/controlplane_{name}.txt")
+
+    def kill(self, name) -> None:
+        import signal
+
+        proc, _ = self.procs[name]
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc, log in self.procs.values():
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=15)
+            log.close()
+
+
+def _wait_listening(port: int, what: str, timeout_s: float = 30.0) -> None:
+    import socket
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            check(time.perf_counter() - t0 < timeout_s, f"controlplane: {what} never listened")
+            time.sleep(0.05)
+
+
+async def _http_json(http, url, body=None):
+    """(status, JSON body or None) of a GET (or a POST of `body`)."""
+    import aiohttp
+
+    try:
+        call = http.get(url) if body is None else http.post(url, json=body)
+        async with call as r:
+            return r.status, (await r.json() if r.content_type == "application/json" else
+                              await r.text())
+    except aiohttp.ClientError:
+        return None, None
+
+
+class _Assignments:
+    """Every job_assignment published to a worker's job channel, by job id,
+    read by a subscriber of its own on the broker."""
+
+    def __init__(self, bus, worker_id):
+        self.bus, self.worker_id, self.jobs = bus, worker_id, []
+
+    async def start(self):
+        from gridllm_torch.bus.base import worker_job_channel
+
+        async def on_job(_ch, raw):
+            msg = json.loads(raw)
+            if msg.get("type") == "job_assignment":
+                self.jobs.append(msg["job"]["jobId"])
+
+        self.sub = await self.bus.subscribe(worker_job_channel(self.worker_id), on_job)
+
+
+async def _cp_surfaces(http, replicas, shard_ports, rng) -> dict:
+    """Every fleet surface once through a replica, and /api/generate
+    through each (prompts longer than a prefill chunk: mixed steps)."""
+    out: dict = {}
+    for i, base in enumerate(replicas):
+        s, b = await _http_json(http, base + "/api/generate", {
+            "model": WORKER_MODEL, "prompt": _prompt(rng, 1500), "stream": False,
+            "options": {"temperature": 0, "num_predict": 16}})
+        check(s == 200 and b["done"] and b["eval_count"] == 16,
+              f"controlplane: /api/generate through replica {i}: {s} {b}")
+    base = replicas[0]
+    s, b = await _http_json(http, base + "/health/workers")
+    cp = (b or {}).get("controlPlane") or {}
+    check(s == 200 and cp.get("numShards") == 2 and sorted(cp.get("members", {})) == CP_MEMBERS
+          and [w["workerId"] for w in b["workers"]] == ["cp-worker"],
+          f"controlplane: /health/workers {s} {b}")
+    out["health_workers"] = {"numShards": cp["numShards"], "members": sorted(cp["members"]),
+                             "shards": {m: e["shards"] for m, e in cp["members"].items()}}
+    s, b = await _http_json(http, base + "/admin/slo")
+    check(s == 200 and sorted(b.get("fleet", {})) == CP_MEMBERS,
+          f"controlplane: /admin/slo {s} {b}")
+    s, b = await _http_json(http, base + "/admin/capacity")
+    check(s == 200 and sorted(b.get("fleet", {}).get("perMember", {})) == CP_MEMBERS
+          and b["fleet"]["numShards"] == 2, f"controlplane: /admin/capacity {s} {b}")
+    s, b = await _http_json(http, base + "/admin/dump?fleet=1")
+    check(s == 200 and b["fleet"]["requested"] == CP_MEMBERS and not b["fleet"]["missing"]
+          and sorted(b["fleet"]["members"]) == CP_MEMBERS,
+          f"controlplane: /admin/dump?fleet=1 {s} {b.get('fleet', {}).get('requested')}")
+    out["dump_members"] = sorted(b["fleet"]["members"])
+    async with http.get(base + "/metrics") as r:
+        text = await r.text()
+    held = {ln.split('shard="')[1].split('"')[0]: float(ln.rsplit(" ", 1)[1])
+            for ln in text.splitlines() if ln.startswith("gridllm_shard_lease_held{")}
+    check(held == {"0": 1.0, "1": 1.0}, f"controlplane: gridllm_shard_lease_held {held}")
+    out["lease_held"] = held
+    for i, port in enumerate(shard_ports):
+        s, b = await _http_json(http, f"http://127.0.0.1:{port}/health/live")
+        check(s == 200 and b["shards"] == [i], f"controlplane: shard {i} /health/live {b}")
+    return out
+
+
+async def _cp_way(way, http, local_base, replicas, prompts) -> dict:
+    """Eight concurrent streamed /api/generate one way: (d) the local-mode
+    gateway in this process, (e) the scaled fleet, split across its two
+    replicas."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    bases = [local_base] * len(prompts) if way == "d" else \
+        [replicas[i % len(replicas)] for i in range(len(prompts))]
+    got = await asyncio.gather(*[_ndjson_stream(http, b, p, n) for b, p, n
+                                 in zip(bases, prompts, GATEWAY_WAVE_TOKENS)])
+    return {"ttft_s": [g[0] for g in got], "tokens": sum(g[2]["eval_count"] for g in got),
+            "wall_s": time.perf_counter() - t0}
+
+
+async def _cp_serve(torch, engine, procs, ports) -> dict:
+    """The bf16 part: both ways' stacks on the engine, warm-up, then with
+    the launch counters from 0 every fleet surface and the waves in turns."""
+    import asyncio
+    import random
+
+    import aiohttp
+
+    from gridllm_torch.bus import create_bus
+    from gridllm_torch.gateway import GatewayServer
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.utils.config import Config, SchedulerConfig, WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    rng = random.Random(SEED + 23)
+    replicas = [f"http://127.0.0.1:{p}" for p in ports["replicas"]]
+    # (e): the fleet's worker on the fleet's broker
+    ebus = create_bus(f"resp://127.0.0.1:{ports['broker_e']}")
+    await ebus.connect()
+    fleet_worker = WorkerService(ebus, {WORKER_MODEL: engine},
+                                 WorkerConfig(worker_id="cp-worker", heartbeat_interval_ms=1000),
+                                 stream_flush_ms=20)
+    # (d): a local-mode gateway and a worker of its own on the same engine,
+    # on the second broker (channels carry no key prefix: on one broker the
+    # two stacks would see each other's workers)
+    config = Config(scheduler=SchedulerConfig(sweep_interval_ms=200))
+    config.gateway.host = "127.0.0.1"
+    config.gateway.rate_limit_max_requests = 100_000
+    local = GatewayServer(config, bus=create_bus(f"resp://127.0.0.1:{ports['broker_d']}"))
+    local_port = await local.start(0)
+    local_base = f"http://127.0.0.1:{local_port}"
+    local_worker = WorkerService(local.bus, {WORKER_MODEL: engine},
+                                 WorkerConfig(worker_id="cp-local", heartbeat_interval_ms=1000),
+                                 stream_flush_ms=20)
+    out: dict = {}
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+            t0 = time.perf_counter()
+            for i, port in enumerate(ports["shard_health"]):
+                while (await _http_json(http, f"http://127.0.0.1:{port}/health/live"))[0] != 200:
+                    procs.check_alive()
+                    check(time.perf_counter() - t0 < 60, f"controlplane: shard {i} never up")
+                    await asyncio.sleep(0.05)
+            await fleet_worker.start()
+            await local_worker.start()
+            await _wait(lambda: local.registry.get_worker("cp-local") is not None,
+                        "controlplane: the local worker registered")
+            for base in replicas:
+                while True:
+                    procs.check_alive()
+                    s, b = await _http_json(http, base + "/health/workers")
+                    if s == 200 and [w["workerId"] for w in b["workers"]] == ["cp-worker"] and \
+                            sorted((b.get("controlPlane") or {}).get("members", {})) == CP_MEMBERS:
+                        break
+                    check(time.perf_counter() - t0 < 60, f"controlplane: {base} never saw "
+                                                         f"the fleet: {b}")
+                    await asyncio.sleep(0.05)
+            out["ready_s"] = time.perf_counter() - t0
+            for base in (local_base, *replicas):   # warm-up, not measured
+                await _ndjson_stream(http, base, _prompt(rng, 1500), 8)
+            await _wait(lambda: not engine.active_requests and not engine.queued_requests,
+                        "controlplane: the engine idle after the warm-up")
+            ck.reset_launch_counts()
+            with _PlainWatch(torch) as plain:
+                out["surfaces"] = await _cp_surfaces(http, replicas, ports["shard_health"], rng)
+                ways: dict[str, list] = {"d": [], "e": []}
+                for way in CP_WAYS:
+                    prompts = [_prompt(rng, n) for n in GATEWAY_WAVE_BYTES]
+                    ways[way].append(await _cp_way(way, http, local_base, replicas, prompts))
+                await _wait(lambda: not engine.active_requests and not engine.queued_requests,
+                            "controlplane: the engine idle")
+                launches = ck.launch_counts()
+            procs.check_alive()
+    finally:
+        await local_worker.stop(announce=False)
+        await local.shutdown()
+        await fleet_worker.stop()
+        await ebus.disconnect()
+    check(not any(plain.counts.values()), f"controlplane: a plain version ran: {plain.counts}")
+    for name in ("flash_prefill", "ragged_attention", "ragged_attention.chunk",
+                 "ragged_attention.group", "paged_write_decode", "paged_write_chunk"):
+        check(launches.get(name, 0) > 0, f"controlplane: {name} never launched: {launches}")
+    out["ways"] = {}
+    for way, runs in ways.items():
+        ttft = [t * 1e3 for r in runs for t in r["ttft_s"]]
+        tokens = sum(r["tokens"] for r in runs)
+        wall = sum(r["wall_s"] for r in runs)
+        out["ways"][way] = {"jobs": len(ttft), "ttft_ms_p50": _pct(ttft, 0.5),
+                            "ttft_ms_p90": _pct(ttft, 0.9), "output_tokens": tokens,
+                            "wall_s": wall, "output_tokens_per_s": tokens / wall}
+    out["launches"] = launches
+    out["plain_calls_on_card"] = plain.counts
+    return out
+
+
+async def _cp_kill(engine, procs, ports) -> dict:
+    """The float32 cut behind the fleet: an undisturbed greedy stream
+    through replica 1, then the same request again with the shard that owns
+    its job (read from the shards' /admin/dump) SIGKILLed after the 5th
+    frame. The stream must equal the undisturbed one byte for byte, the
+    survivor adopt the partition at epoch 2, the worker be assigned the job
+    once with nothing orphaned, and a second request on the adopted
+    partition be served through replica 0."""
+    import asyncio
+    import random
+
+    import aiohttp
+
+    from gridllm_torch.bus import create_bus
+    from gridllm_torch.controlplane.partition import shard_of
+    from gridllm_torch.utils.config import WorkerConfig
+    from gridllm_torch.worker.service import WorkerService
+
+    replicas = [f"http://127.0.0.1:{p}" for p in ports["replicas"]]
+    shard_urls = [f"http://127.0.0.1:{p}" for p in ports["shard_health"]]
+    prompt = _prompt(random.Random(SEED + 24), 400)
+    wbus = create_bus(f"resp://127.0.0.1:{ports['broker_e']}")
+    sbus = create_bus(f"resp://127.0.0.1:{ports['broker_e']}")
+    await wbus.connect()
+    await sbus.connect()
+    assigned = _Assignments(sbus, "cp-f32")
+    await assigned.start()
+    worker = WorkerService(wbus, {WORKER_MODEL: engine},
+                           WorkerConfig(worker_id="cp-f32", heartbeat_interval_ms=500),
+                           stream_flush_ms=20)
+    out: dict = {}
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+            await worker.start()
+            t0 = time.perf_counter()
+            for base in replicas:
+                while True:
+                    s, b = await _http_json(http, base + "/health/workers")
+                    if s == 200 and "cp-f32" in [w["workerId"] for w in b["workers"]]:
+                        break
+                    check(time.perf_counter() - t0 < 30, f"controlplane f32: {base} {b}")
+                    await asyncio.sleep(0.05)
+            _, ref_text, ref_last = await _ndjson_stream(http, replicas[1], prompt,
+                                                         CP_F32_TOKENS)
+            kill: dict = {}
+            adopted = asyncio.get_running_loop().create_future()
+
+            async def survivor_holds_both(url):
+                while True:
+                    s, b = await _http_json(http, url + "/health/live")
+                    if s == 200 and b["shards"] == [0, 1]:
+                        adopted.set_result(time.perf_counter())
+                        # the adopter replayed the live assignment
+                        _, dump = await _http_json(http, url + "/admin/dump")
+                        kill["active_at_adoption"] = kill["job"] in dump["scheduler"]["active"]
+                        return
+                    check(time.perf_counter() - kill["t"] < 30,
+                          f"controlplane f32: no adoption, survivor {b}")
+                    await asyncio.sleep(0.01)
+
+            async def on_frame(n):
+                if n != CP_KILL_AFTER_FRAMES:
+                    return
+                job = assigned.jobs[-1]
+                owners = []
+                for i, url in enumerate(shard_urls):
+                    _, dump = await _http_json(http, url + "/admin/dump")
+                    if job in dump["scheduler"]["active"]:
+                        owners.append(i)
+                check(owners == [shard_of(job, 2)], f"controlplane f32: owners {owners} of "
+                                                    f"{job} (shard_of {shard_of(job, 2)})")
+                kill.update(job=job, owner=owners[0], t=time.perf_counter())
+                procs.kill(f"shard-{owners[0]}")
+                kill["task"] = asyncio.ensure_future(
+                    survivor_holds_both(shard_urls[1 - owners[0]]))
+
+            _, text, last = await _ndjson_stream(http, replicas[1], prompt, CP_F32_TOKENS,
+                                                 on_frame=on_frame)
+            check("job" in kill, "controlplane f32: the stream ended before the kill")
+            t_adopt = await asyncio.wait_for(adopted, 60)
+            await kill["task"]
+            check(kill["active_at_adoption"], "controlplane f32: the job was not live on the "
+                                              "survivor when it adopted the partition")
+            check(text == ref_text and last["eval_count"] == ref_last["eval_count"],
+                  "controlplane f32: the stream through the killed shard differs from the "
+                  "undisturbed one")
+            survivor = shard_urls[1 - kill["owner"]]
+            _, dump = await _http_json(http, survivor + "/admin/dump")
+            epochs = dump["scheduler"]["stats"]["shard"]["epochs"]
+            check(epochs == {str(kill["owner"]): 2, str(1 - kill["owner"]): 1},
+                  f"controlplane f32: survivor epochs {epochs}")
+            async with http.get(survivor + "/metrics") as r:
+                metrics = await r.text()
+            orphaned = sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+                           if ln.startswith("gridllm_jobs_total{") and 'event="orphaned"' in ln)
+            runs = assigned.jobs.count(kill["job"])
+            check(runs == 1 and orphaned == 0,
+                  f"controlplane f32: {runs} assignments of the job, {orphaned} orphaned")
+            second = None
+            for attempt in range(12):   # until a job id lands on the adopted partition
+                s, b = await _http_json(http, replicas[0] + "/api/generate", {
+                    "model": WORKER_MODEL, "prompt": f"adopted {attempt}", "stream": False,
+                    "options": {"temperature": 0, "num_predict": 8}})
+                check(s == 200 and b["eval_count"] == 8,
+                      f"controlplane f32: replica 0 after the kill {s} {b}")
+                if shard_of(assigned.jobs[-1], 2) == kill["owner"]:
+                    second = {"attempts": attempt + 1, "job": assigned.jobs[-1]}
+                    break
+            check(second is not None, "controlplane f32: no job landed on the adopted partition")
+            async with http.get(survivor + "/metrics") as r:
+                metrics = await r.text()
+            fenced = sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+                         if ln.startswith("gridllm_shard_fenced_ops_total{"))
+            check(fenced == 0, f"controlplane f32: the survivor refused {fenced} operations "
+                               "on a stale lease")
+            out = {"equals_undisturbed": True, "eval_count": last["eval_count"],
+                   "killed_shard": kill["owner"], "job": kill["job"],
+                   "adoption_s": t_adopt - kill["t"], "epochs": epochs,
+                   "active_at_adoption": True, "assignments": runs, "orphaned": orphaned,
+                   "fenced_ops": fenced,
+                   "second_on_adopted_partition": second}
+    finally:
+        await worker.stop(announce=False)
+        await wbus.disconnect()
+        await sbus.disconnect()
+    return out
+
+
+def phase_controlplane(torch) -> dict:
+    """The scaled control plane through the port's own entry points, each a
+    process: two brokers (python -m gridllm_torch.bus.broker with --aof),
+    two scheduler shards (python -m gridllm_torch.controlplane,
+    GRIDLLM_SHARD_COUNT=2, leases of CP_TTL_MS renewed every CP_RENEW_MS)
+    and two gateway replicas (GRIDLLM_CONTROLPLANE=gateway python -m
+    gridllm_torch.gateway) on the first broker; in this process the port's
+    WorkerService on llama3:8b bf16 (all 32 layers, the engine's defaults)
+    on that broker, and a local-mode GatewayServer with a WorkerService of
+    its own on the same engine on the second broker. Every fleet surface
+    once through a replica, then eight concurrent streamed /api/generate
+    of 48-64 tokens two ways in turns (d, e, e, d), fresh prompts each
+    turn: (d) the local gateway, (e) the fleet, split across its replicas
+    (TTFT p50/p90, output tokens/s per way); launch counters from 0 held to
+    the ragged path, no plain version. Then on the 8-layer float32 cut a
+    greedy stream through replica 1 with its owning shard SIGKILLed after
+    the 5th frame: byte-identical to the undisturbed stream, the survivor
+    at epoch 2 on the killed partition with the job live there, one
+    assignment, nothing orphaned, a second request on the adopted
+    partition through replica 0, no operation refused on a stale lease;
+    the adoption's seconds from the kill."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="gridbus-"))
+    ports = {"broker_e": _free_port(), "broker_d": _free_port(),
+             "shard_health": [_free_port(), _free_port()],
+             "replicas": [_free_port(), _free_port()]}
+    fleet_env = {"GRIDLLM_BUS_URL": f"resp://127.0.0.1:{ports['broker_e']}",
+                 "GRIDLLM_SHARD_COUNT": "2", "GRIDLLM_SHARD_LEASE_TTL_MS": str(CP_TTL_MS),
+                 "GRIDLLM_SHARD_RENEW_MS": str(CP_RENEW_MS),
+                 "GRIDLLM_SHARD_STATUS_MS": str(CP_STATUS_MS),
+                 "SCHEDULER_SWEEP_INTERVAL": "200", "RATE_LIMIT_MAX_REQUESTS": "100000"}
+    try:
+        with _Procs() as procs:
+            for name in ("broker_e", "broker_d"):
+                procs.start(name, "gridllm_torch.bus.broker", "--host", "127.0.0.1",
+                            "--port", str(ports[name]), "--aof", str(tmp / f"{name}.aof"))
+            for name in ("broker_e", "broker_d"):
+                _wait_listening(ports[name], name)
+            for i in range(2):
+                procs.start(f"shard-{i}", "gridllm_torch.controlplane", env={
+                    **fleet_env, "GRIDLLM_SHARD_ID": str(i), "GRIDLLM_CONTROLPLANE_ID": f"shard-{i}",
+                    "GRIDLLM_SHARD_HEALTH_PORT": str(ports["shard_health"][i])})
+                procs.start(f"gw-{i}", "gridllm_torch.gateway", env={
+                    **fleet_env, "GRIDLLM_CONTROLPLANE": "gateway",
+                    "GRIDLLM_CONTROLPLANE_ID": f"gw-{i}", "HOST": "127.0.0.1",
+                    "PORT": str(ports["replicas"][i])})
+            engine = _kvx_engine(torch)   # the processes start meanwhile
+            out = asyncio.run(_cp_serve(torch, engine, procs, ports))
+            check(not engine.running, "controlplane: the engine's runner did not stop")
+            del engine
+            engine = _kvx_engine(torch, model=_kvx_f32_model(), dtype="float32")
+            with _PlainWatch(torch) as plain:
+                out["kill_f32"] = asyncio.run(_cp_kill(engine, procs, ports))
+            check(not any(plain.counts.values()),
+                  f"controlplane f32: a plain version ran: {plain.counts}")
+            procs.check_alive("broker_e", "broker_d", "gw-0", "gw-1",
+                              f"shard-{1 - out['kill_f32']['killed_shard']}")
+            del engine
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    print(json.dumps({"controlplane_ways": {w: {k: v[k] for k in ("ttft_ms_p50", "ttft_ms_p90",
+                                                                  "output_tokens_per_s")}
+                                            for w, v in out["ways"].items()},
+                      "adoption_s": out["kill_f32"]["adoption_s"],
+                      "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    return {"phase": "controlplane", "model": WORKER_MODEL, "dtype": "bfloat16", "card": card,
+            "lease_ttl_ms": CP_TTL_MS, "renew_ms": CP_RENEW_MS, **out}
+
+
 TURN_PARTS = ("kernels", "steps", "int8")
 
 
@@ -6589,7 +7086,7 @@ def main() -> int:
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
                    "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
                    "quant": phase_quant, "mixtral": phase_mixtral,
-                   "gateway": phase_gateway}[phase](torch)
+                   "gateway": phase_gateway, "controlplane": phase_controlplane}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -6624,9 +7121,10 @@ def main() -> int:
          "replaces": spec.replaces.split(" ")[0], "head_dims": list(_HEAD_DIMS),
          "launches": launches[name],
          # the same kernel's launches under the port's scheduler, on the
-         # int8 llama3:70b and mixtral serves, and behind the port's gateway
+         # int8 llama3:70b and mixtral serves, behind the port's gateway and
+         # behind the scaled control plane
          "launches_on": {p: results[p]["launches"].get(name, 0)
-                         for p in ("sched", "quant", "mixtral", "gateway")},
+                         for p in ("sched", "quant", "mixtral", "gateway", "controlplane")},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

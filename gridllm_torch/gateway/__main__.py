@@ -1,6 +1,7 @@
-"""``python -m gridllm_torch.gateway``: the gateway server (local control
-plane; the bus, host and port come from the environment, see
-utils/config.py load_config)."""
+"""``python -m gridllm_torch.gateway``: the gateway server, a local
+scheduler or, with ``GRIDLLM_CONTROLPLANE=gateway``, a stateless replica
+in front of the scheduler shards (the bus, host and port come from the
+environment, see utils/config.py load_config)."""
 
 from gridllm_torch.gateway.app import main
 

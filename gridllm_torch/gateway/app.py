@@ -1,5 +1,5 @@
-"""Gateway server assembly (the JAX package's gateway/app.py, local
-control-plane mode).
+"""Gateway server assembly (the JAX package's gateway/app.py): a local
+scheduler, or a stateless replica in front of scheduler shards.
 
 Reference analogue: server/src/index.ts (GridLLMServer, 330 LoC): middleware
 stack, route mounting (/ollama, /v1, /inference, /health, root summary),
@@ -35,11 +35,10 @@ log = get_logger("gateway.app")
 
 
 def create_app(bus: MessageBus, registry: WorkerRegistry, scheduler: JobScheduler,
-               config: Config | None = None,
+               config: Config | None = None, fleet=None,
                timeline=None, incidents=None) -> web.Application:
-    """The JAX package's create_app in local control-plane mode (its
-    ``fleet``, a FleetView on scaled-control-plane replicas, comes with
-    that control plane).
+    """``fleet``: a FleetView on scaled-control-plane gateway replicas —
+    the admin/health surfaces then answer fleet-wide.
     ``timeline``/``incidents``: this member's TimelineStore +
     IncidentCollector behind /admin/timeline and /admin/incidents."""
     config = config or load_config()
@@ -85,8 +84,10 @@ def create_app(bus: MessageBus, registry: WorkerRegistry, scheduler: JobSchedule
     app.add_routes(openai_routes.build_routes(registry, scheduler, timeout_ms,
                                               admin=admin))
     app.add_routes(inference_routes.build_routes(registry, scheduler))
-    app.add_routes(health_routes.build_routes(bus, registry, scheduler, version))
-    app.add_routes(obs_routes.build_routes(scheduler, timeline=timeline,
+    app.add_routes(health_routes.build_routes(bus, registry, scheduler,
+                                              version, fleet=fleet))
+    app.add_routes(obs_routes.build_routes(scheduler, fleet=fleet,
+                                           timeline=timeline,
                                            incidents=incidents))
 
     async def root(request: web.Request) -> web.Response:
@@ -113,19 +114,20 @@ def create_app(bus: MessageBus, registry: WorkerRegistry, scheduler: JobSchedule
 class GatewayServer:
     """Full server lifecycle: bus + registry + scheduler + HTTP.
 
-    Control-plane mode ``local`` (``GRIDLLM_CONTROLPLANE``, the default):
-    the scheduler lives in this process, the single-box layout. The JAX
-    package's ``gateway`` mode, a stateless replica in front of scheduler
-    shards, is refused: the scaled control plane is not ported.
+    Control-plane modes (``GRIDLLM_CONTROLPLANE``):
+
+    - ``local`` (default): the scheduler lives in this process — the
+      single-box layout.
+    - ``gateway``: this process is one of N stateless replicas. The
+      scheduler is a GatewaySubmitter (submissions fan out to the
+      scheduler shards on ``ctrl:submit``; results/streams arrive on
+      the durable per-job channels), the registry runs in observer mode
+      (shards own the worker-death verdicts), and a FleetView +
+      StatusPublisher serve the fleet-wide admin/health surface.
     """
 
     def __init__(self, config: Config | None = None, bus: MessageBus | None = None):
         self.config = config or load_config()
-        if self.config.controlplane.mode != "local":
-            raise NotImplementedError(
-                f"GRIDLLM_CONTROLPLANE={self.config.controlplane.mode}: gateway "
-                "replicas in front of scheduler shards are not ported to the torch "
-                "gateway yet (ROADMAP A 10 3); run it in local mode")
         from gridllm_torch.obs import default_flight_recorder
 
         default_flight_recorder().set_capacity(
@@ -135,14 +137,37 @@ class GatewayServer:
                                      password=self.config.bus.password,
                                      db=self.config.bus.db,
                                      endpoints=self.config.bus.endpoints)
-        self.registry = WorkerRegistry(self.bus, self.config.scheduler)
-        self.scheduler = JobScheduler(
-            self.bus, self.registry, self.config.scheduler,
-            slo_config=self.config.obs.slo,
-            watchdog_config=self.config.obs.watchdog)
-        # fleet timeline & incident forensics: the gateway arms the event
-        # publisher plus a store + collector behind /admin/timeline and
-        # /admin/incidents
+        cp = self.config.controlplane
+        self.fleet = None
+        self._status_pub = None
+        if cp.mode == "gateway":
+            from gridllm_torch.controlplane.client import GatewaySubmitter
+            from gridllm_torch.controlplane.status import (
+                FleetView,
+                StatusPublisher,
+            )
+
+            self.registry = WorkerRegistry(self.bus, self.config.scheduler,
+                                           observer=True)
+            self.scheduler = GatewaySubmitter(
+                self.bus, self.registry, self.config.scheduler,
+                slo_config=self.config.obs.slo,
+                member_id=cp.member_id)
+            self.fleet = FleetView(
+                self.bus, self.scheduler.metrics,
+                stale_after_ms=3 * cp.status_interval_ms)
+            self._status_pub = StatusPublisher(
+                self.bus, self.scheduler, "gateway",
+                self.scheduler.member_id, cp.status_interval_ms)
+        else:
+            self.registry = WorkerRegistry(self.bus, self.config.scheduler)
+            self.scheduler = JobScheduler(
+                self.bus, self.registry, self.config.scheduler,
+                slo_config=self.config.obs.slo,
+                watchdog_config=self.config.obs.watchdog)
+        # fleet timeline & incident forensics: every gateway — local or
+        # replica — arms the event publisher plus a store + collector, so
+        # any member answers /admin/timeline + /admin/incidents
         self.timeline_store = None
         self.incidents = None
         self._timeline_pub = None
@@ -166,7 +191,8 @@ class GatewayServer:
                 window_ms=tl.incident_window_ms,
                 max_incidents=tl.max_incidents)
         self.app = create_app(self.bus, self.registry, self.scheduler,
-                              self.config, timeline=self.timeline_store,
+                              self.config, fleet=self.fleet,
+                              timeline=self.timeline_store,
                               incidents=self.incidents)
         self._runner: web.AppRunner | None = None
         self._status_task: asyncio.Task | None = None
@@ -197,6 +223,10 @@ class GatewayServer:
             await self.timeline_store.attach(self.bus)
         await self.registry.initialize()
         await self.scheduler.initialize()
+        if self.fleet is not None:
+            await self.fleet.start()
+        if self._status_pub is not None:
+            await self._status_pub.start()
         self._runner = web.AppRunner(self.app)
         await self._runner.setup()
         site = web.TCPSite(self._runner, self.config.gateway.host,
@@ -222,6 +252,10 @@ class GatewayServer:
         if self._runner is not None:
             await self._runner.cleanup()
             self._runner = None
+        if self._status_pub is not None:
+            await self._status_pub.stop()
+        if self.fleet is not None:
+            await self.fleet.stop()
         await self.scheduler.shutdown()
         await self.registry.shutdown()
         if self._timeline_pub is not None:
@@ -236,12 +270,14 @@ def main() -> None:  # pragma: no cover
     import signal
 
     async def run() -> None:
-        server = GatewayServer()
-        await server.start()
+        # signals first: a SIGTERM that lands while the server starts still
+        # shuts it down cleanly
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
+        server = GatewayServer()
+        await server.start()
         await stop.wait()
         await server.shutdown()
 

@@ -19,7 +19,8 @@ _START = time.time()
 
 
 def build_routes(bus: MessageBus, registry: WorkerRegistry,
-                 scheduler: JobScheduler, version: str) -> list[web.RouteDef]:
+                 scheduler: JobScheduler, version: str,
+                 fleet=None) -> list[web.RouteDef]:
 
     async def health(request: web.Request) -> web.Response:
         return web.json_response({
@@ -87,6 +88,14 @@ def build_routes(bus: MessageBus, registry: WorkerRegistry,
         body = {"workers": detail,
                 "counts": registry.get_worker_count(),
                 "roles": registry.role_counts()}
+        if fleet is not None:
+            # scaled control plane: the worker table above is already
+            # fleet-wide (heartbeats fan out to every member); attach the
+            # control-plane members so one call shows both planes
+            # regardless of which replica answered
+            body["controlPlane"] = {"member": scheduler.identity(),
+                                    "members": fleet.members(),
+                                    "numShards": fleet.num_shards()}
         return web.json_response(body)
 
     async def jobs(request: web.Request) -> web.Response:

@@ -14,7 +14,8 @@ gateway/obs_routes.py).
   from obs/slo.py — the same state the ``gridllm_slo_*`` gauges render.
 - ``GET /admin/capacity``: per-model demand/utilization/headroom and the
   derived scale hint from obs/capacity.py (plus the per-tenant usage
-  ledger) — the same state the ``gridllm_capacity_*`` gauges render.
+  ledger), fleet-merged across shards on scaled control planes — the
+  same state the ``gridllm_capacity_*`` gauges render.
 - ``GET /admin/dump``: the flight-recorder post-mortem artifact
   (obs/flightrec.py): event rings, active traces, SLO snapshot, registry
   and engine state, plus any retained auto dumps from hang/crash detection.
@@ -35,10 +36,13 @@ gateway/obs_routes.py).
 from __future__ import annotations
 
 import asyncio
+import json
 import time
+import uuid
 
 from aiohttp import web
 
+from gridllm_torch.bus.base import CH_OBS_DUMP, obs_dump_reply_channel
 from gridllm_torch.obs import (
     PROMETHEUS_CONTENT_TYPE,
     build_dump,
@@ -49,6 +53,11 @@ from gridllm_torch.obs import (
     timeline_emitter,
 )
 from gridllm_torch.scheduler import JobScheduler
+
+# how long /admin/dump?fleet=1 waits for member replies before reporting
+# the silent ones as missing (never silently merged, never hung)
+FLEET_DUMP_TIMEOUT_S = 2.0
+
 
 def metrics_middleware(scheduler: JobScheduler):
     requests_total = scheduler.metrics.counter(
@@ -101,12 +110,16 @@ def metrics_middleware(scheduler: JobScheduler):
     return middleware
 
 
-def build_routes(scheduler: JobScheduler, timeline=None,
+def build_routes(scheduler: JobScheduler,
+                 fleet=None, timeline=None,
                  incidents=None) -> list[web.RouteDef]:
-    """The JAX package's routes in its local control-plane mode (its
-    FleetView's fleet-wide additions to /admin/slo, /admin/capacity,
-    /admin/health/fleet and /admin/dump come with the scaled control
-    plane).
+    """``fleet`` (controlplane/status.py FleetView) is present on
+    scaled-control-plane gateway replicas: /admin/slo, /admin/capacity,
+    /admin/health/fleet and /admin/dump then attach the fleet-wide
+    aggregation — keyed by member/shard identity, never silently summed —
+    so any replica answers for the whole control plane. /metrics serves
+    the same view through the FleetView's collector gauges
+    (gridllm_shard_*).
 
     ``timeline`` / ``incidents`` (obs/timeline.py TimelineStore +
     obs/forensics.py IncidentCollector) arm the
@@ -180,6 +193,43 @@ def build_routes(scheduler: JobScheduler, timeline=None,
             "incidents": incidents.reports(),
         })
 
+    async def _collect_fleet_dumps() -> dict:
+        """Broadcast a dump op and gather per-member replies through the
+        bus (every StatusPublisher answers); silent members are listed
+        as missing rather than merged away."""
+        op_id = uuid.uuid4().hex[:12]
+        expected = set(fleet.members())
+        replies: dict[str, object] = {}
+        done = asyncio.Event()
+
+        async def on_reply(_ch: str, raw: str) -> None:
+            try:
+                data = json.loads(raw)
+                member = str(data["member"])
+            except Exception:
+                return
+            replies[member] = data.get("dump")
+            if expected <= set(replies):
+                done.set()
+
+        sub = await scheduler.bus.subscribe(
+            obs_dump_reply_channel(op_id), on_reply)
+        try:
+            await scheduler.bus.publish(CH_OBS_DUMP, json.dumps({
+                "opId": op_id, "requester": scheduler.identity().get(
+                    "member")}))
+            try:
+                await asyncio.wait_for(done.wait(), FLEET_DUMP_TIMEOUT_S)
+            except asyncio.TimeoutError:
+                pass
+        finally:
+            await sub.unsubscribe()
+        return {
+            "requested": sorted(expected),
+            "missing": sorted(expected - set(replies)),
+            "members": replies,
+        }
+
     async def metrics(request: web.Request) -> web.Response:
         text = render_registries(scheduler.metrics, default_registry())
         return web.Response(text=text,
@@ -205,6 +255,8 @@ def build_routes(scheduler: JobScheduler, timeline=None,
         # says WHOSE judgments these are, so sharded deployments cannot
         # silently aggregate per-member numbers into one unlabeled view
         snap["shard"] = scheduler.identity()
+        if fleet is not None:
+            snap["fleet"] = fleet.merged_slo()
         return web.json_response(snap)
 
     async def capacity(request: web.Request) -> web.Response:
@@ -215,6 +267,8 @@ def build_routes(scheduler: JobScheduler, timeline=None,
         snap = scheduler.capacity.snapshot()
         snap["shard"] = scheduler.identity()
         snap["usage"] = scheduler.usage.snapshot()
+        if fleet is not None:
+            snap["fleet"] = fleet.merged_capacity()
         return web.json_response(snap)
 
     async def health_fleet(request: web.Request) -> web.Response:
@@ -231,10 +285,24 @@ def build_routes(scheduler: JobScheduler, timeline=None,
                        if getattr(scheduler, "prober", None) is not None
                        else None),
         }
+        if fleet is not None:
+            snap["fleet"] = fleet.merged_health()
         return web.json_response(snap)
 
     async def dump(request: web.Request) -> web.Response:
-        return web.json_response(build_dump(scheduler, reason="on_demand"))
+        artifact = build_dump(scheduler, reason="on_demand")
+        if fleet is not None:
+            artifact["controlPlane"] = {
+                "member": scheduler.identity(),
+                "members": fleet.members(),
+                "stats": fleet.merged_stats(),
+            }
+            if request.query.get("fleet"):
+                # fleet-merged dump: every live member's own artifact,
+                # keyed by member identity — one call captures the whole
+                # control plane post-incident
+                artifact["fleet"] = await _collect_fleet_dumps()
+        return web.json_response(artifact)
 
     async def memory(request: web.Request) -> web.Response:
         from gridllm_torch.obs import memory_snapshot

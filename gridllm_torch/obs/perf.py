@@ -109,7 +109,19 @@ def memory_snapshot() -> dict[str, Any]:
     """Point-in-time memory breakdown: per model, the weight and KV-pool
     bytes and the allocator's page accounting; per CUDA device, the bytes
     the caching allocator holds (weights, KV pool, and the rest as
-    workspace), its peak and the device's free memory."""
+    workspace), its peak and the device's free memory.
+
+    Only a process that already initialized CUDA reads the devices; one
+    that never imported torch (a gateway replica or a scheduler shard)
+    gets an empty snapshot with a note, as the JAX package's does without
+    jax. Importing torch and creating a CUDA context there would stall the
+    scrape's event loop for seconds, past a shard's lease TTL."""
+    import sys
+
+    if "torch" not in sys.modules:
+        return {"generatedAt": time.time(), "devices": {}, "models": {},
+                "note": "torch not initialized in this process — query the "
+                        "worker health port for the engine-side view"}
     with _memory_probes_lock:
         probes = dict(_memory_probes)
     models: dict[str, Any] = {}
@@ -133,7 +145,7 @@ def memory_snapshot() -> dict[str, Any]:
     import torch
 
     devices: dict[str, dict[str, Any]] = {}
-    if torch.cuda.is_available():
+    if torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             label = f"cuda:{i}"
             stats = torch.cuda.memory_stats(i)

@@ -131,6 +131,10 @@ register_env("GRIDLLM_BUS_REJOIN_GRACE_MS", "10000",
              "After this process's bus session reconnects, hold worker-"
              "death verdicts and orphan sweeps this long (ms) so a "
              "broker bounce is not misread as a fleet-wide worker loss.")
+register_env("GRIDLLM_BUS_RING_CAP", "512",
+             "Broker replay-ring capacity per durable channel (messages)"
+             " — the RESUME window a reconnecting subscriber can recover"
+             " after an outage.")
 register_env("GRIDLLM_MODELS", "",
              "Comma-separated model registry names this worker serves.")
 register_env("GRIDLLM_CHECKPOINT_DIR", "",
@@ -386,10 +390,36 @@ register_env("GRIDLLM_RATELIMIT_SCOPE", "replica",
              "buckets — N replicas multiply every limit by N) or fleet "
              "(bucket state shared through the bus so the limit is "
              "fleet-wide).")
+# the scaled control plane: scheduler shards and gateway replicas
 register_env("GRIDLLM_CONTROLPLANE", "local",
              "Control-plane mode: local (scheduler in-process, the "
-             "default single-box layout) or gateway (a stateless replica "
-             "in front of scheduler shards; not ported, see ROADMAP A 10 3).")
+             "default single-box layout) or gateway (stateless replica "
+             "that publishes submissions to scheduler shards over the "
+             "bus; run shards with python -m gridllm_torch.controlplane).")
+register_env("GRIDLLM_CONTROLPLANE_ID", "",
+             "Stable member id of this control-plane process (gateway "
+             "replica or scheduler shard); empty = generated cp-<hex>.")
+register_env("GRIDLLM_SHARD_COUNT", "1",
+             "Scheduler shard count M: the job-id space is partitioned "
+             "deterministically over M shards (every member must agree).")
+register_env("GRIDLLM_SHARD_ID", "0",
+             "Home shard index of this scheduler-shard process (0..M-1);"
+             " the shard also adopts orphaned partitions whose lease "
+             "expires.")
+register_env("GRIDLLM_SHARD_LEASE_TTL_MS", "6000",
+             "Shard-ownership lease TTL (ms): a shard silent past this "
+             "is presumed dead and its partition is adopted (epoch "
+             "bump) by a surviving shard.")
+register_env("GRIDLLM_SHARD_RENEW_MS", "2000",
+             "Shard lease renew/sweep interval (ms); must be well under "
+             "the lease TTL.")
+register_env("GRIDLLM_SHARD_STATUS_MS", "2000",
+             "Control-plane status-envelope publish interval (ms) — "
+             "feeds the gateway replicas' fleet-wide /metrics, "
+             "/admin/slo, and /health/workers aggregation.")
+register_env("GRIDLLM_SHARD_HEALTH_PORT", "4100",
+             "HTTP port a scheduler-shard process serves /metrics, "
+             "/admin/slo, and /admin/dump on; 0 disables the listener.")
 
 
 def _env(name: str, default: Any) -> Any:
@@ -711,16 +741,41 @@ _CONTROLPLANE_MODES = ("local", "gateway")
 
 @dataclasses.dataclass
 class ControlPlaneConfig:
-    """The mode of the JAX package's ControlPlaneConfig. Only ``local`` is
-    served: the gateway refuses ``gateway`` (the scaled control plane is
-    not ported)."""
+    """The JAX package's ControlPlaneConfig: N stateless gateway replicas
+    in front of M scheduler shards, each owning a deterministic partition
+    of the job-id space through bus-backed leases fenced by epoch.
+
+    ``mode`` selects what THIS process is: ``local`` (default) keeps the
+    scheduler in the gateway process, the single-box layout; ``gateway``
+    runs a stateless replica that publishes submissions on ``ctrl:submit``
+    and rebuilds streaming state from the durable result/stream channels
+    (any replica can serve any request). Shard processes run ``python -m
+    gridllm_torch.controlplane`` and are configured by
+    ``shard_id``/``num_shards`` plus the lease timers."""
 
     mode: str = "local"
+    member_id: str = ""                # "" -> generated <role>-<hex>
+    num_shards: int = 1
+    shard_id: int = 0
+    lease_ttl_ms: int = 6_000
+    renew_interval_ms: int = 2_000
+    status_interval_ms: int = 2_000
+    shard_health_port: int = 4_100
+
+    _BOUNDS = (
+        ("num_shards", "ge", 1), ("shard_id", "ge", 0), ("lease_ttl_ms", "gt", 0),
+        ("renew_interval_ms", "gt", 0), ("status_interval_ms", "gt", 0),
+        ("shard_health_port", "ge", 0),
+    )
 
     def __post_init__(self) -> None:
         if self.mode not in _CONTROLPLANE_MODES:
             raise ValueError(f"ControlPlaneConfig.mode={self.mode!r}: "
                              f"must be one of {_CONTROLPLANE_MODES}")
+        for f in dataclasses.fields(self):
+            if f.type == "int":
+                _as_int(self, f.name)
+        _check_bounds(self, self._BOUNDS)
 
 
 @dataclasses.dataclass
@@ -797,7 +852,16 @@ def load_config() -> Config:
                 rate_limit_scope=env_str("GRIDLLM_RATELIMIT_SCOPE"),
                 enforce_keep_alive=env_bool("GRIDLLM_ENFORCE_KEEP_ALIVE"),
             ),
-            controlplane=ControlPlaneConfig(mode=env_str("GRIDLLM_CONTROLPLANE")),
+            controlplane=ControlPlaneConfig(
+                mode=env_str("GRIDLLM_CONTROLPLANE"),
+                member_id=env_str("GRIDLLM_CONTROLPLANE_ID"),
+                num_shards=env_int("GRIDLLM_SHARD_COUNT"),
+                shard_id=env_int("GRIDLLM_SHARD_ID"),
+                lease_ttl_ms=env_int("GRIDLLM_SHARD_LEASE_TTL_MS"),
+                renew_interval_ms=env_int("GRIDLLM_SHARD_RENEW_MS"),
+                status_interval_ms=env_int("GRIDLLM_SHARD_STATUS_MS"),
+                shard_health_port=env_int("GRIDLLM_SHARD_HEALTH_PORT"),
+            ),
             worker=WorkerConfig(
                 worker_id=_env("WORKER_ID", f"worker-{uuid.uuid4().hex[:12]}"),
                 host=_env("WORKER_HOST", "0.0.0.0"),

@@ -19,21 +19,28 @@ same status, content type and body apart from the fields named in
 - a tiny-llama float32 port engine behind both gateways: byte-identical
   texts and eval counts for generate, chat, their streams and the two
   OpenAI routes;
-- load_config's gateway names and refusals, the refusal of
-  GRIDLLM_CONTROLPLANE=gateway, and a process in which jax, jaxlib,
-  gridllm_tpu and pydantic cannot be imported serving /health and a greedy
-  /api/generate through the port's GatewayServer on port 0.
+- GRIDLLM_CONTROLPLANE=gateway: two port GatewayServer replicas in front
+  of two port scheduler shards, held route by route against two JAX
+  replicas on /health/workers, /admin/slo, /admin/capacity,
+  /admin/health/fleet and /admin/dump?fleet=1;
+- load_config's gateway and control-plane names and refusals, and a
+  process in which jax, jaxlib, gridllm_tpu and pydantic cannot be
+  imported serving /health and a greedy /api/generate through the port's
+  GatewayServer on port 0.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
@@ -479,6 +486,9 @@ _GATEWAY_ENV = {
     "GRIDLLM_TIMELINE_STORE": "99", "GRIDLLM_TIMELINE_REQUESTS": "12",
     "GRIDLLM_TIMELINE_INCIDENT_WINDOW_MS": "2500", "GRIDLLM_TIMELINE_INCIDENTS": "5",
     "GRIDLLM_CONTROLPLANE": "gateway", "NODE_ENV": "production",
+    "GRIDLLM_CONTROLPLANE_ID": "gw-7", "GRIDLLM_SHARD_COUNT": "3", "GRIDLLM_SHARD_ID": "2",
+    "GRIDLLM_SHARD_LEASE_TTL_MS": "2000", "GRIDLLM_SHARD_RENEW_MS": "400",
+    "GRIDLLM_SHARD_STATUS_MS": "250", "GRIDLLM_SHARD_HEALTH_PORT": "0",
 }
 
 
@@ -489,13 +499,17 @@ def test_load_config_gateway_names_match(env, monkeypatch):
     j, t = jconfig.load_config(), tconfig.load_config()
     assert dataclasses.asdict(t.gateway) == j.gateway.model_dump()
     assert dataclasses.asdict(t.obs.timeline) == j.obs.timeline.model_dump()
-    assert (t.controlplane.mode, t.env) == (j.controlplane.mode, j.env)
+    assert dataclasses.asdict(t.controlplane) == j.controlplane.model_dump()
+    assert t.env == j.env
 
 
 @pytest.mark.parametrize("name,value", [
     ("PORT", "http"), ("RATE_LIMIT_MAX_REQUESTS", "1.5"), ("GRIDLLM_RATELIMIT_SCOPE", "global"),
     ("GRIDLLM_TIMELINE_STORE", "0"), ("GRIDLLM_TIMELINE_INCIDENT_WINDOW_MS", "-1"),
     ("GRIDLLM_ENFORCE_KEEP_ALIVE", "maybe"), ("GRIDLLM_CONTROLPLANE", "mesh"),
+    ("GRIDLLM_SHARD_COUNT", "0"), ("GRIDLLM_SHARD_ID", "-1"), ("GRIDLLM_SHARD_LEASE_TTL_MS", "0"),
+    ("GRIDLLM_SHARD_RENEW_MS", "-5"), ("GRIDLLM_SHARD_STATUS_MS", "0"),
+    ("GRIDLLM_SHARD_HEALTH_PORT", "-1"), ("GRIDLLM_SHARD_COUNT", "two"),
 ])
 def test_load_config_refuses_what_jax_refuses(name, value, monkeypatch):
     monkeypatch.setenv(name, value)
@@ -505,10 +519,146 @@ def test_load_config_refuses_what_jax_refuses(name, value, monkeypatch):
         tconfig.load_config()
 
 
-def test_gateway_controlplane_mode_is_refused(monkeypatch):
-    monkeypatch.setenv("GRIDLLM_CONTROLPLANE", "gateway")
-    with pytest.raises(NotImplementedError, match="ROADMAP A 10 3"):
-        tapp.GatewayServer(bus=tbus.InMemoryBus())
+# -- the scaled control plane: two gateway replicas in front of two shards
+
+FLEET_ROUTES = [("health_workers", "/health/workers"), ("admin_slo", "/admin/slo"),
+                ("admin_capacity", "/admin/capacity"),
+                ("admin_health_fleet", "/admin/health/fleet"),
+                ("admin_dump_fleet", "/admin/dump?fleet=1")]
+# besides VOLATILE: envelope clocks, the trace ids a dump lists, rates over
+# the time elapsed, and the heartbeat-cadence baselines (how many heartbeats
+# landed before the read)
+FLEET_VOLATILE = frozenset({"ts", "receivedAt", "ageS", "recentTraceIds", "activeTraces",
+                            "arrivalRate", "serviceRate", "waitEwmaS", "serviceEwmaS",
+                            "baselines"})
+FLEET_JOB_IDS = ("fleet-job-0", "fleet-job-1")   # shard_of at M = 2: 0, then 1
+_FLEET: dict = {}
+
+
+def fleet_scrub(obj):
+    if isinstance(obj, dict):
+        return {k: ("<v>" if k in VOLATILE | FLEET_VOLATILE else fleet_scrub(v))
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [fleet_scrub(v) for v in obj]
+    return obj
+
+
+async def _fleet_run(kind: str) -> dict:
+    """One package's scaled control plane on one in-memory bus: two
+    SchedulerShards (leases that cannot lapse inside the run) with status
+    publishers, a fake worker, and two GatewayServers started with
+    ``controlplane.mode = "gateway"`` on 127.0.0.1:0. One generate through
+    each replica, then every fleet route through each replica."""
+    import aiohttp
+
+    jax = kind == "jax"
+    bus_mod, sched_mod, cfg_mod, app_mod = ((jbus, jsched, jconfig, japp) if jax else
+                                            (tbus, tsched, tconfig, tapp))
+    pkg = "gridllm_tpu" if jax else "gridllm_torch"
+    shard_mod = importlib.import_module(f"{pkg}.controlplane.shard")
+    status_mod = importlib.import_module(f"{pkg}.controlplane.status")
+    # the two generates' request ids, one on each shard, the same on both sides
+    routes = importlib.import_module(f"{pkg}.gateway.ollama_routes")
+    ids = iter(FLEET_JOB_IDS)
+    real_uuid, routes.uuid = routes.uuid, SimpleNamespace(uuid4=lambda: next(ids))
+    bus = bus_mod.InMemoryBus(key_prefix="G:")
+    await bus.connect()
+    cfg = sched_config(kind)
+    shards, pubs, servers = [], [], []
+    for i in range(2):
+        reg = sched_mod.WorkerRegistry(bus, cfg)
+        sh = shard_mod.SchedulerShard(bus, reg, cfg, cfg_mod.ControlPlaneConfig(
+            mode="gateway", num_shards=2, shard_id=i, lease_ttl_ms=10_000,
+            renew_interval_ms=200, status_interval_ms=100), member_id=f"shard-{i}")
+        await reg.initialize()
+        await sh.start()
+        pub = status_mod.StatusPublisher(bus, sh.scheduler, "shard", sh.member_id, 100,
+                                         lease=sh.lease)
+        await pub.start()
+        shards.append(sh)
+        pubs.append(pub)
+    fake = (FakeWorker if jax else TFakeWorker)(bus, "w1", ["m1"], max_concurrent=4)
+    await fake.start()
+    out: dict = {}
+    try:
+        for i in range(2):
+            config = cfg_mod.Config(scheduler=cfg, controlplane=cfg_mod.ControlPlaneConfig(
+                mode="gateway", member_id=f"gw-{i}", status_interval_ms=100))
+            config.gateway.host = "127.0.0.1"
+            config.obs.timeline.enabled = False
+            server = app_mod.GatewayServer(config, bus=bus)
+            servers.append((server, await server.start(0)))
+        members = ["gw-0", "gw-1", "shard-0", "shard-1"]
+        for _ in range(500):
+            if all(sorted(s.fleet.members()) == members and s.registry.get_online_workers()
+                   for s, _ in servers):
+                break
+            await asyncio.sleep(0.01)
+        async with aiohttp.ClientSession() as http:
+            for i, (server, port) in enumerate(servers):
+                async with http.post(f"http://127.0.0.1:{port}/api/generate", json=GEN) as r:
+                    out[f"generate_{i}"] = (r.status, scrub(await r.json()))
+            for _ in range(500):   # the shards' envelopes carry both jobs
+                if all(s.fleet.merged_stats()["shardTotals"].get("totalJobsProcessed") == 2
+                       for s, _ in servers):
+                    break
+                await asyncio.sleep(0.01)
+            # every state is final now: wait for an envelope of every member
+            # and a worker heartbeat sent after this moment, in both replicas
+            final, final_wall = time.monotonic(), time.time()
+            for _ in range(500):
+                if all(env["receivedAt"] > final for s, _ in servers
+                       for env in s.fleet._members.values()) and all(
+                        s.registry.get_worker("w1").lastHeartbeat > final_wall
+                        for s, _ in servers):
+                    break
+                await asyncio.sleep(0.01)
+            for name, path in FLEET_ROUTES:
+                for i, (_, port) in enumerate(servers):
+                    async with http.get(f"http://127.0.0.1:{port}{path}") as r:
+                        out[f"{name}_{i}"] = (r.status, r.headers["Content-Type"],
+                                              await r.json())
+    finally:
+        routes.uuid = real_uuid
+        for server, _ in servers:
+            await server.shutdown()
+        await fake.stop(announce=False)
+        for pub, sh in zip(pubs, shards):
+            await pub.stop()
+            await sh.stop()
+            await sh.registry.shutdown()
+        await bus.disconnect()
+    return out
+
+
+@pytest.mark.parametrize("name,path", FLEET_ROUTES, ids=[n for n, _ in FLEET_ROUTES])
+async def test_fleet_route_matches_the_jax_replicas(name, path):
+    """GRIDLLM_CONTROLPLANE=gateway: each fleet route through each of two
+    port replicas against the same route through two JAX replicas, every
+    body equal apart from clocks and ids, and each carrying the fleet."""
+    if not _FLEET:
+        _FLEET["jax"] = await _fleet_run("jax")
+        _FLEET["torch"] = await _fleet_run("torch")
+    want, got = _FLEET["jax"], _FLEET["torch"]
+    for i in range(2):
+        assert got[f"generate_{i}"] == want[f"generate_{i}"]
+        assert got[f"generate_{i}"][0] == 200
+        (ts, tt, tb), (js, jt, jb) = got[f"{name}_{i}"], want[f"{name}_{i}"]
+        assert (ts, tt) == (js, jt) and ts == 200
+        assert fleet_scrub(tb) == fleet_scrub(jb)
+        members = ["gw-0", "gw-1", "shard-0", "shard-1"]
+        if name == "health_workers":
+            assert tb["controlPlane"]["numShards"] == 2
+            assert sorted(tb["controlPlane"]["members"]) == members
+            assert tb["controlPlane"]["member"]["member"] == f"gw-{i}"
+        elif name == "admin_dump_fleet":
+            assert tb["fleet"]["requested"] == members and tb["fleet"]["missing"] == []
+            assert sorted(tb["fleet"]["members"]) == members
+            assert tb["controlPlane"]["stats"]["shardTotals"]["totalJobsProcessed"] == 2
+        else:
+            assert sorted(tb["fleet"]["perMember"] if name == "admin_capacity"
+                          else tb["fleet"]) == members
 
 
 _NO_JAX = """

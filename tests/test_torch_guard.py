@@ -7,7 +7,10 @@ on a missing GPU instead of carrying on on the CPU. The gateway package,
 an aiohttp server, is the one part of the port that imports aiohttp at
 module level: it is imported on its own with everything else blocked, and
 no module outside it imports it at module level, so the engine and the
-worker still import where aiohttp is missing."""
+worker still import where aiohttp is missing. The entry points of the control plane
+run with jax, jaxlib, gridllm_tpu and pydantic blocked: the broker
+(``--help``), a scheduler shard and a gateway replica on the in-memory
+bus, each stopped by SIGTERM."""
 
 import ast
 import os
@@ -78,6 +81,109 @@ def test_gateway_imports_with_jax_and_pydantic_blocked():
     blocked = BLOCKED + tuple(m for m in IMPORT_TIME_BLOCKED if m != "aiohttp")
     out = _guarded_import(blocked, inside_gateway=True)
     assert int(out.split("IMPORTED")[1]) >= 14, out
+
+
+_RUN_MODULE = """
+import importlib.abc, runpy, sys
+BLOCKED = {blocked!r}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+module, sys.argv = sys.argv[1], sys.argv[1:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def test_broker_entry_point_runs_with_jax_and_pydantic_blocked():
+    """``python -m gridllm_torch.bus.broker --help`` with jax, jaxlib,
+    gridllm_tpu and pydantic unimportable (aiohttp too: the broker is
+    pure asyncio)."""
+    code = _RUN_MODULE.format(blocked=BLOCKED + IMPORT_TIME_BLOCKED)
+    proc = subprocess.run([sys.executable, "-c", code, "gridllm_torch.bus.broker", "--help"],
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--replicaof" in proc.stdout and "--ring-cap" in proc.stdout
+
+
+@pytest.mark.parametrize("module,env,ready", [
+    ("gridllm_torch.controlplane", {"GRIDLLM_SHARD_HEALTH_PORT": "0"}, "scheduler shard serving"),
+    ("gridllm_torch.gateway", {"GRIDLLM_CONTROLPLANE": "gateway", "HOST": "127.0.0.1",
+                               "PORT": "0"}, "gateway started"),
+], ids=["shard", "gateway_replica"])
+def test_control_plane_entry_points_run_with_jax_and_pydantic_blocked(module, env, ready):
+    """A scheduler shard (``python -m gridllm_torch.controlplane``) and a
+    gateway replica (``GRIDLLM_CONTROLPLANE=gateway python -m
+    gridllm_torch.gateway``) on the in-memory bus start with jax, jaxlib,
+    gridllm_tpu and pydantic unimportable and stop cleanly on SIGTERM."""
+    import signal
+    import time
+
+    code = _RUN_MODULE.format(blocked=BLOCKED + ("pydantic",))
+    proc = subprocess.Popen([sys.executable, "-c", code, module], cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=str(REPO), GRIDLLM_BUS_URL="", **env),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    deadline = time.monotonic() + 60
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if ready in line or time.monotonic() > deadline:
+                break
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=60)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    out = "".join(lines) + rest
+    assert any(ready in ln for ln in lines), out
+    assert proc.returncode == 0 and "blocked import" not in out, out
+
+
+_SCRAPE = """
+import asyncio, sys
+from gridllm_torch.bus import InMemoryBus
+from gridllm_torch.controlplane.shard import SchedulerShard
+from gridllm_torch.obs import build_dump, default_registry, memory_snapshot, render_registries
+from gridllm_torch.scheduler import WorkerRegistry
+from gridllm_torch.utils.config import ControlPlaneConfig
+
+async def main():
+    bus = InMemoryBus()
+    await bus.connect()
+    registry = WorkerRegistry(bus)
+    shard = SchedulerShard(bus, registry, cp=ControlPlaneConfig(mode="gateway"),
+                           member_id="s", settle_s=0.01)
+    await registry.initialize()
+    await shard.start()
+    text = render_registries(shard.scheduler.metrics, default_registry())
+    dump = build_dump(shard.scheduler)
+    snap = memory_snapshot()
+    await shard.stop()
+    await registry.shutdown()
+    assert "gridllm_shard_lease_epoch" in text and dump["scheduler"]
+    assert snap["devices"] == {} and "note" in snap, snap
+    assert "torch" not in sys.modules, "a scrape imported torch"
+    print("SCRAPED")
+
+asyncio.run(main())
+"""
+
+
+def test_control_plane_scrapes_leave_torch_unimported():
+    """A scheduler shard's /metrics, /admin/dump and /admin/memory content
+    imports no torch, so a scrape of an engine-less process never creates a
+    CUDA context (seconds of a stalled event loop on the card, past a
+    shard's lease TTL)."""
+    proc = subprocess.run([sys.executable, "-c", _SCRAPE], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "SCRAPED" in proc.stdout, proc.stdout + proc.stderr
 
 
 def _port_files() -> list[Path]:
