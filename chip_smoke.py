@@ -12,9 +12,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              catch-up chunk, and Td = 33 at D = 128) on fp and int8
              pools, held to the row-relative error; both prefill wrappers
              (one kernel, csrc/flash_prefill.cu) at the edges of its tile
-             plan (PREFILL_CASES: head groupings G = 2, 7 and 8, D = 64,
-             T not a multiple of the 128-key tile, seq_len inside a tile
-             and at its edge, a window across tiles with softcap), q
+             plan (PREFILL_CASES: head groupings G = 1 (llava:7b), 2, 7
+             and 8, D = 64, T not a multiple of the 128-key tile, seq_len
+             inside a tile and at its edge, a window across tiles with
+             softcap, B = 32 with a length per row and rows of length 1
+             (an embedding batch)), q
              scaled by 4 and held to the row-relative error; the
              per-phase routes (csrc/per_phase_attention.cu): paged_decode
              in both modes (_decode_cases), prefix_chunk's chunk
@@ -27,7 +29,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              in bf16);
              ragged_attention at the edges of its chunk kernel's tile
              plan and of its group split (_ragged_cases: chunk starts
-             of 48, 64 and 192, G = 7 at D = 64 and 128, page size 16,
+             of 48, 64 and 192, G = 7 at D = 64 and 128, G = 1 at KVH = 32
+             (llava:7b: chunks at 0 and after 1,024, groups at Td = 1 and
+             5 on a 64-page table), page size 16,
              a chunk after 16,384 cached tokens beside eight groups, one
              slot at 24,000, on shuffled tables with -1 entries).
 3. timing  — each kernel at the main path's shapes (CUDA events, warm-up):
@@ -315,14 +319,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
              5th frame of a stream: byte-identical to the undisturbed
              stream, the survivor at epoch 2, one assignment, nothing
              orphaned, a second request on the adopted partition served.
+21. embed  — embeddings through the port's gateway (phase_embed): one
+             WorkerService serving mxbai-embed-large (bf16, 24 layers, cls
+             pooling, an embedding-only engine) and llama3:8b (bf16, 32
+             layers, mean pooling over flash_prefill at B up to 32, a
+             length per row); /api/embed batches of 32 texts of 0-511
+             bytes (ms per batch, texts/s), unit norms, each of eight
+             texts alone within EMBED_BF16_L2 of its batched vector,
+             launches from 0 (flash_prefill alone for llama3:8b, none for
+             the encoder, whose attention is plain torch as in the JAX
+             package), no plain version; float32 cuts at 2 layers: llama3:8b
+             through the kernel against the plain attention, mxbai batched
+             against alone.
+22. vision — llava:7b bf16 through the port's gateway (phase_vision): the
+             32-layer multi-head stack (G = 1) and the CLIP-L/336 tower;
+             PNGs this script writes (zlib and struct, every row filter)
+             of seeded 640 x 480 pictures, decoded by the port's own
+             decoder (checked against the pixels); solo one-image,
+             same-length text and two-image requests (TTFT p50 each), two
+             waves of eight concurrent generate and chat streams with one
+             and two images (TTFT p50, tokens/s), launches from 0 of every
+             kernel of the ragged path, no plain version; the host's
+             preprocessing ms per picture and encode_images' ms and
+             device ms for one and two images; a 2-layer float32 cut whose
+             greedy streams with one image (bucket) and two (chunks with
+             splice offsets) equal the cache-free forward over the spliced
+             embeddings with the plain attention.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes, each with the head dims compiled and its launches under the
-scheduler, on the quant and mixtral serves, behind the gateway and behind
-the scaled control plane; then the same rows at D = 256 from the gemma phase,
+scheduler, on the quant and mixtral serves, behind the gateway, behind
+the scaled control plane, on the embeddings and on llava; then the same rows at D = 256 from the gemma phase,
 named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane,embed,vision]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -352,7 +382,7 @@ SEED = 0
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "sched", "replay",
               "spec", "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
-              "mixtral", "gateway", "controlplane")
+              "mixtral", "gateway", "controlplane", "embed", "vision")
 
 
 def emit(obj: dict) -> None:
@@ -559,6 +589,10 @@ def _ragged_cases(inp: Inputs, dtype):
         return (name, kw, valid, True)
 
     cases += [
+        # llava:7b's multi-head stack, G = 1 at KVH = 32: the first chunk of
+        # a two-image prompt and the chunk after it
+        edge_chunk("chunk_mha_g1_start0", 32, 32, D, PS, 1024, 0, 1024, 48),
+        edge_chunk("chunk_mha_g1_after_1024", 32, 32, D, PS, 1024, 1024, 170, 48),
         edge_chunk("chunk_start64_g7_d64", 14, 2, 64, PS, 300, 64, 290, 64),
         edge_chunk("chunk_start192_g7_window_softcap", 28, 4, D, PS, 256, 192, 256, 64,
                    window=200, cap=30.0),
@@ -590,6 +624,25 @@ def _ragged_cases(inp: Inputs, dtype):
           "k_group": inp.randn(1, 1, KVH, D, dtype=dtype),
           "v_group": inp.randn(1, 1, KVH, D, dtype=dtype)}, None, True),
     ]
+    # G = 1 groups at KVH = 32 (llava:7b): decode and a verify of K+1 = 5
+    # on a shuffled table of 64 pages a slot (llava's 4,096 tokens), an
+    # empty slot and a slot at the capacity's edge
+    mha, maxp = 32, 64
+    n_pool = S * maxp
+    kp, vp = (inp.randn(1, n_pool, PS, mha, D, dtype=dtype) for _ in range(2))
+    lengths = [0, 1, 63, 583, 1200, 1729, 3000, 4090]
+    table = torch.randperm(n_pool, generator=inp.gen, device="cuda").to(torch.int32)
+    table = table.reshape(S, maxp).contiguous()
+    for s, ln in enumerate(lengths):
+        table[s, -(-(ln + 5) // PS):] = -1
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for td in (1, 5):
+        cases.append((f"group_mha_g1_td{td}",
+                      {"k_pages": kp, "v_pages": vp, "page_size": PS, "layer": 0,
+                       "q_group": q4(S, td, mha, D), "page_table": table,
+                       "group_lengths": glens,
+                       "k_group": inp.randn(S, td, mha, D, dtype=dtype),
+                       "v_group": inp.randn(S, td, mha, D, dtype=dtype)}, None, True))
     return cases
 
 
@@ -825,13 +878,21 @@ def _rel_err(a, b) -> float:
     return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max())
 
 
+# a batch of 32 embedding rows in one length bucket: 20 texts of mixed
+# lengths and 12 padding rows of length 1 (engine.embed's batch of 32)
+EMBED_B32_LENS = [1000, 1, 513, 257, 777, 1024, 300, 1, 999, 640, 258, 1, 700, 512, 1,
+                  900, 333, 1, 1023, 450, 1, 600, 1, 800, 1, 260, 1, 1, 950, 1, 555, 1]
+
 # The prefill kernel (csrc/flash_prefill.cu, both prefill wrappers) at the
 # edges of its tile plan: (name, (T, H, KVH, D), seq_lens, window, softcap).
-# Head groupings G = 2 (qwen3:0.6b), 7 at D = 128 (qwen2.5:7b), 7 at D = 64
-# (qwen2.5:0.5b) and 8 (llama3:70b); T not a multiple of the 128-key tile;
-# seq_len inside a tile and exactly at a tile edge; a window across tile
-# edges with softcap.
+# Head groupings G = 1 (llava:7b's multi-head stack), 2 (qwen3:0.6b), 7 at
+# D = 128 (qwen2.5:7b), 7 at D = 64 (qwen2.5:0.5b) and 8 (llama3:70b); T
+# not a multiple of the 128-key tile; seq_len inside a tile and exactly at
+# a tile edge; a window across tile edges with softcap; B = 32 with a
+# length per row, rows of length 1 among them (decoder embeddings).
 PREFILL_CASES = (
+    ("llava_7b_mha_g1_t600", (600, 32, 32, 128), [583], 0, 0.0),
+    ("embed_b32_ragged_lens", (1024, H, KVH, D), EMBED_B32_LENS, 0, 0.0),
     ("qwen3_0.6b_g2_t1000", (1000, 16, 8, 128), [1000], 0, 0.0),
     ("qwen2.5_7b_g7_len_at_tile_edge", (700, 28, 4, 128), [640], 0, 0.0),
     ("qwen2.5_0.5b_g7_d64_len_inside_tile", (900, 14, 2, 64), [777], 0, 0.0),
@@ -6137,16 +6198,18 @@ GATEWAY_WAVE_TOKENS = (64, 48, 56, 64, 48, 64, 56, 48)
 GATEWAY_WAYS = ("a", "b", "c", "c", "b", "a")   # turns: each way twice, mirrored
 
 
-async def _ndjson_stream(http, base, prompt, n, on_frame=None):
-    """One streamed greedy /api/generate: (seconds to the first NDJSON
-    frame, the text its frames put together, the final frame);
-    `on_frame(count)` is awaited after each frame."""
+async def _ndjson_stream(http, base, prompt, n, on_frame=None, model=WORKER_MODEL,
+                         path="/api/generate", body=None):
+    """One streamed greedy /api/generate of `prompt` (or `path` with `body`,
+    /api/chat with its messages): (seconds to the first NDJSON frame, the
+    text its frames put together, the final frame); `on_frame(count)` is
+    awaited after each frame."""
     t0 = time.perf_counter()
     t_first, parts, last, frames = None, [], None, 0
-    async with http.post(base + "/api/generate", json={
-            "model": WORKER_MODEL, "prompt": prompt,
+    async with http.post(base + path, json={
+            "model": model, **(body or {"prompt": prompt}),
             "options": {"temperature": 0, "num_predict": n}}) as r:
-        check(r.status == 200, f"{base}: stream status {r.status}")
+        check(r.status == 200, f"{base}{path}: stream status {r.status}")
         async for line in r.content:
             if not line.strip():
                 continue
@@ -6157,20 +6220,23 @@ async def _ndjson_stream(http, base, prompt, n, on_frame=None):
             if frame.get("done"):
                 last = frame
             else:
-                parts.append(frame.get("response") or "")
+                parts.append(frame.get("response")
+                             or (frame.get("message") or {}).get("content") or "")
             if on_frame is not None:
                 await on_frame(frames)
-    check(last is not None and "error" not in last, f"{base}: stream ended {last}")
+    check(last is not None and "error" not in last, f"{base}{path}: stream ended {last}")
     return t_first - t0, "".join(parts), last
 
 
 class _GatewayStack:
     """The port's GatewayServer (local control plane) on the port's
     InMemoryBus, bound to 127.0.0.1:0, with one port WorkerService on
-    `engine` behind it and an aiohttp client session."""
+    `engine` (as WORKER_MODEL, or the engines of `models` by name) behind
+    it and an aiohttp client session."""
 
-    def __init__(self, engine, worker_id):
+    def __init__(self, engine, worker_id, models=None):
         self.engine, self.worker_id = engine, worker_id
+        self.models = models or {WORKER_MODEL: engine}
 
     async def __aenter__(self):
         import aiohttp
@@ -6186,7 +6252,7 @@ class _GatewayStack:
         self.server = GatewayServer(config, bus=InMemoryBus())
         self.port = await self.server.start(0)
         self.base = f"http://127.0.0.1:{self.port}"
-        self.worker = WorkerService(self.server.bus, {WORKER_MODEL: self.engine},
+        self.worker = WorkerService(self.server.bus, self.models,
                                     WorkerConfig(worker_id=self.worker_id,
                                                  heartbeat_interval_ms=1000),
                                     stream_flush_ms=20)
@@ -6973,6 +7039,428 @@ def phase_controlplane(torch) -> dict:
             "lease_ttl_ms": CP_TTL_MS, "renew_ms": CP_RENEW_MS, **out}
 
 
+# ---------------------------------------------------------------------------
+# embed: embeddings through the port's gateway
+# ---------------------------------------------------------------------------
+
+EMBED_MODELS = ("mxbai-embed-large", "llama3:8b")
+EMBED_BATCHES = 4        # timed /api/embed requests of 32 texts, per model
+EMBED_ALONE = 8          # texts of the first batch embedded one at a time too
+# bf16: the largest L2 distance of a batched unit vector from its text's
+# vector embedded alone (the bf16 attention tolerance)
+EMBED_BF16_L2 = 3e-2
+EMBED_CUT_LAYERS = 2
+
+
+def _embed_texts(rng) -> list[str]:
+    """32 texts of mixed lengths up to 512 tokens (byte tokenizer: a text of
+    n bytes is n + 1 tokens): 20 of 256-511 bytes, one batch of 32 rows in
+    the longest bucket with 12 padding rows of length 1, and 12 of 0-255
+    bytes for the shorter buckets."""
+    return ([_prompt(rng, rng.randrange(256, 512)) for _ in range(20)]
+            + [_prompt(rng, rng.randrange(0, 256)) for _ in range(12)])
+
+
+async def _embed_serve(torch, engines) -> dict:
+    """Per model, after a warm-up request: with the launch counters from 0,
+    EMBED_BATCHES /api/embed requests of 32 texts through the gateway, one
+    after another (ms per batch, texts/s); unit norms; the first batch's
+    texts 16-23 embedded alone, each within EMBED_BF16_L2 of its batched
+    vector; the launches held to the path (flash_prefill alone for a
+    decoder model, nothing for the encoder, whose attention is plain
+    torch as in the JAX package); no plain version of a kernel."""
+    import asyncio
+    import random
+
+    import numpy as np
+
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    rng = random.Random(SEED + 31)
+    out = {}
+    async with _GatewayStack(None, f"{WORKER_ID}-embed", models=engines) as st:
+        for name, engine in engines.items():
+            s, _, b = await st.call("POST", "/api/embed",
+                                    {"model": name, "input": _embed_texts(rng)})
+            check(s == 200 and len(b["embeddings"]) == 32, f"embed {name}: warm-up {s} {b}")
+            batches = [_embed_texts(rng) for _ in range(EMBED_BATCHES)]
+            ck.reset_launch_counts()
+            walls, vecs = [], []
+            with _PlainWatch(torch) as plain:
+                for texts in batches:
+                    t0 = time.perf_counter()
+                    s, _, b = await st.call("POST", "/api/embed", {"model": name, "input": texts})
+                    walls.append(time.perf_counter() - t0)
+                    check(s == 200 and len(b["embeddings"]) == len(texts),
+                          f"embed {name}: /api/embed {s} {str(b)[:300]}")
+                    vecs.append(b["embeddings"])
+                launches = {k: v for k, v in ck.launch_counts().items() if v}
+            check(not any(plain.counts.values()), f"embed {name}: a plain version ran: "
+                  f"{plain.counts}")
+            if engine.embedding_only:
+                check(not launches, f"embed {name}: kernels launched: {launches}")
+            else:
+                check(launches.get("flash_prefill", 0) > 0 and set(launches) == {"flash_prefill"},
+                      f"embed {name}: launches {launches}")
+            arr = np.asarray(vecs, np.float32)                # [batches, 32, E]
+            norm_err = float(np.abs(np.linalg.norm(arr, axis=-1) - 1.0).max())
+            check(norm_err <= 1e-3, f"embed {name}: a vector's norm is off 1 by {norm_err}")
+            check(bool(np.isfinite(arr).all()), f"embed {name}: a vector is not finite")
+            alone_texts = batches[0][16:16 + EMBED_ALONE]
+            alone = np.asarray([(await asyncio.to_thread(engine.embed, [t]))[0]
+                                for t in alone_texts], np.float32)
+            l2 = float(np.linalg.norm(alone - arr[0, 16:16 + EMBED_ALONE], axis=-1).max())
+            check(l2 <= EMBED_BF16_L2, f"embed {name}: batched against alone L2 {l2} > "
+                  f"{EMBED_BF16_L2}")
+            t0 = time.perf_counter()
+            await asyncio.to_thread(engine.embed, batches[0])
+            engine_ms = (time.perf_counter() - t0) * 1e3
+            out[name] = {"dim": arr.shape[-1], "batches": len(batches),
+                         "ms_per_batch_of_32": sum(walls) / len(walls) * 1e3,
+                         "engine_ms_per_batch_of_32": engine_ms,
+                         "texts_per_s": len(batches) * 32 / sum(walls),
+                         "max_norm_err": norm_err, "batched_vs_alone_l2": l2,
+                         "launches": launches}
+    return out
+
+
+def _embed_f32_cuts(torch) -> dict:
+    """Float32 cuts at EMBED_CUT_LAYERS layers, full width: llama3:8b's
+    embeddings through flash_prefill against the same engine with the plain
+    attention (attention_prefill_ref), within F32_TOL; mxbai-embed-large's
+    batched vectors against each text alone (its padding masked)."""
+    import random
+
+    import numpy as np
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.models import llama as llama_mod
+    from gridllm_torch.ops.attention import attention_prefill_ref
+    from gridllm_torch.ops.kernels import F32_TOL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    texts = _embed_texts(random.Random(SEED + 32))
+    out = {}
+    engine = InferenceEngine(EngineConfig(model=_cut("llama3:8b", EMBED_CUT_LAYERS),
+                                          dtype="float32"), device="cuda")
+    with _PlainWatch(torch) as plain:
+        got = np.asarray(engine.embed(texts))
+    check(not any(plain.counts.values()), f"embed f32: a plain version ran: {plain.counts}")
+    kernel = llama_mod.attention_prefill
+    llama_mod.attention_prefill = attention_prefill_ref
+    try:
+        want = np.asarray(engine.embed(texts))
+    finally:
+        llama_mod.attention_prefill = kernel
+    err = float(np.abs(got - want).max())
+    check(err <= F32_TOL, f"embed f32 llama3:8b cut: kernel against plain {err} > {F32_TOL}")
+    out["llama3:8b"] = {"max_abs_err_vs_plain": err}
+    del engine
+    engine = InferenceEngine(EngineConfig(model=_cut("mxbai-embed-large", EMBED_CUT_LAYERS),
+                                          dtype="float32"), device="cuda")
+    got = np.asarray(engine.embed(texts))
+    alone = np.asarray([engine.embed([t])[0] for t in texts[16:16 + EMBED_ALONE]])
+    err = float(np.abs(alone - got[16:16 + EMBED_ALONE]).max())
+    check(err <= 1e-5, f"embed f32 mxbai cut: batched against alone {err}")
+    out["mxbai-embed-large"] = {"max_abs_err_batched_vs_alone": err}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_embed(torch) -> dict:
+    """Embeddings through the port's gateway (phase_embed): one port
+    WorkerService serving mxbai-embed-large (bf16, 24 layers, E 1,024, cls
+    pooling, an embedding-only engine) and llama3:8b (bf16, all 32 layers,
+    its runner live, mean pooling over flash_prefill at B up to 32 with a
+    length per row) behind a local-mode GatewayServer: /api/embed batches
+    of 32 texts of mixed lengths up to 512 tokens (_embed_serve), then the
+    float32 cuts (_embed_f32_cuts)."""
+    import asyncio
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines = {"mxbai-embed-large": InferenceEngine(EngineConfig(model="mxbai-embed-large"),
+                                                    device="cuda"),
+               "llama3:8b": InferenceEngine(EngineConfig(model="llama3:8b"), device="cuda")}
+    check(engines["mxbai-embed-large"].embedding_only, "embed: mxbai is not embedding-only")
+    out = {"models": asyncio.run(_embed_serve(torch, engines))}
+    check(not engines["llama3:8b"].running, "embed: the llama3:8b runner did not stop")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32_cuts"] = _embed_f32_cuts(torch)
+    card = card_line()
+    print(json.dumps({"embed": {m: {k: v[k] for k in ("texts_per_s", "ms_per_batch_of_32")}
+                                for m, v in out["models"].items()},
+                      "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    launches = {}
+    for v in out["models"].values():
+        for k, n in v["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"phase": "embed", "dtype": "bfloat16", "card": card, "launches": launches, **out}
+
+
+# ---------------------------------------------------------------------------
+# vision: llava:7b through the port's gateway
+# ---------------------------------------------------------------------------
+
+VISION_MODEL = "llava:7b"
+# 512 KiB of pool a token at 32 KV heads: 320 pages of 64 are 20,480 tokens
+# (10 GiB), five requests at llava's 4,096 each
+VISION_ENGINE = dict(model=VISION_MODEL, page_size=64, num_pages=320, max_pages_per_slot=64)
+VISION_TOKENS = 32
+VISION_RUNS = 3          # solo runs of each kind, for TTFT
+VISION_WAVES = 2         # waves of eight concurrent image streams
+VISION_CUT_LAYERS = 2
+VISION_PICTURE = (480, 640)
+
+
+def _picture(seed: int):
+    """A seeded 8-bit RGB picture of VISION_PICTURE: color gradients plus
+    noise."""
+    import numpy as np
+
+    h, w = VISION_PICTURE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([xx * 255 / w, yy * 255 / h, (xx + yy) * 255 / (w + h)], axis=-1)
+    noise = np.random.default_rng(seed).normal(0, 24, (h, w, 3))
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def _png(arr) -> bytes:
+    """[H, W, 3] uint8 → a PNG file written here with zlib and struct (no
+    PIL): the rows take the five filters in turn (None, Sub, Up, Average,
+    Paeth), so the port's decoder undoes each of them."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = arr.shape
+    x = arr.reshape(h, w * 3).astype(np.int32)
+    up = np.vstack([np.zeros((1, w * 3), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int32), x[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int32), up[:, :-3]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    kinds = np.arange(h) % 5
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) // 2, paeth])[kinds, np.arange(h)]
+    rows = np.hstack([kinds[:, None], (x - pred) % 256]).astype(np.uint8)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+async def _vision_stream(http, base, path, body, n) -> tuple[float, str, dict]:
+    """One streamed greedy /api/generate or /api/chat of VISION_MODEL."""
+    return await _ndjson_stream(http, base, None, n, model=VISION_MODEL, path=path, body=body)
+
+
+async def _vision_serve(torch, engine, images) -> dict:
+    """After a one- and a two-image warm-up, with the launch counters from
+    0: VISION_RUNS solo runs each of a one-image /api/generate (the bucket
+    prefill), a text-only prompt of the same expanded length, and a
+    two-image /api/generate (over the 1,024-token chunk: mixed steps whose
+    chunk region splices each chunk's image rows), then VISION_WAVES waves
+    of eight concurrent streams, /api/generate and /api/chat with images in
+    a message, one and two images each; TTFT p50 per kind, TTFT p50 and
+    tokens/s of the waves; every kernel of the ragged path launched, no
+    plain version."""
+    import asyncio
+    import random
+
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    rng = random.Random(SEED + 41)
+    n_img = engine.cfg.vision_cfg.num_patches
+    async with _GatewayStack(None, f"{WORKER_ID}-vision",
+                             models={VISION_MODEL: engine}) as st:
+        for imgs in (images[:1], images[:2]):
+            s, _, b = await st.call("POST", "/api/generate", {
+                "model": VISION_MODEL, "prompt": "warm up", "images": imgs, "stream": False,
+                "options": {"temperature": 0, "num_predict": 4}})
+            check(s == 200 and b.get("done"), f"vision: warm-up {s} {b}")
+        ck.reset_launch_counts()
+        ttft: dict[str, list] = {"one_image": [], "text_same_length": [], "two_images": []}
+        with _PlainWatch(torch) as plain:
+            for i in range(VISION_RUNS):
+                text = "describe this picture"
+                # a text prompt as long as the one-image request expanded
+                same = (_prompt(rng, n_img + len(text)) + " " * (n_img + len(text)))
+                counts = {}
+                for kind, body in (
+                        ("one_image", {"prompt": text, "images": images[i:i + 1]}),
+                        ("text_same_length", {"prompt": same[:n_img + len(text)]}),
+                        ("two_images", {"prompt": text, "images": images[i:i + 2]})):
+                    t, _, last = await _vision_stream(st.http, st.base, "/api/generate", body,
+                                                      VISION_TOKENS)
+                    check(last["eval_count"] == VISION_TOKENS, f"vision {kind}: {last}")
+                    counts[kind] = last["prompt_eval_count"]
+                    ttft[kind].append(t * 1e3)
+                check(counts["one_image"] == counts["text_same_length"] > n_img
+                      and counts["two_images"] == counts["one_image"] + n_img,
+                      f"vision: prompt token counts {counts}")
+            wave = []
+            for i in range(4):
+                imgs = images[i % len(images):i % len(images) + 1 + i % 2]
+                wave.append(("/api/generate", {"prompt": f"picture {i}", "images": imgs}))
+                wave.append(("/api/chat", {"messages": [
+                    {"role": "user", "content": f"what is in picture {i}?", "images": imgs}]}))
+            runs = []
+            for _ in range(VISION_WAVES):
+                t0 = time.perf_counter()
+                got = await asyncio.gather(*[_vision_stream(st.http, st.base, path, body,
+                                                            VISION_TOKENS)
+                                             for path, body in wave])
+                wall = time.perf_counter() - t0
+                check(all(g[2]["eval_count"] == VISION_TOKENS for g in got),
+                      "vision: a wave stream short")
+                runs.append((wall, [g[0] * 1e3 for g in got]))
+                await _wait(lambda: not engine.active_requests and not engine.queued_requests,
+                            "vision: the engine idle")
+            launches = {k: v for k, v in ck.launch_counts().items() if v}
+    check(not any(plain.counts.values()), f"vision: a plain version ran: {plain.counts}")
+    for name in ("flash_prefill", "ragged_attention", "ragged_attention.chunk",
+                 "ragged_attention.group", "paged_write_decode", "paged_write_chunk"):
+        check(launches.get(name, 0) > 0, f"vision: {name} never launched: {launches}")
+    tokens = len(wave) * VISION_TOKENS
+    return {"ttft_ms_p50": {k: _pct(v, 0.5) for k, v in ttft.items()}, "ttft_ms": ttft,
+            "waves": {"streams": len(wave), "waves": len(runs),
+                      "output_tokens_per_s": tokens * len(runs) / sum(r[0] for r in runs),
+                      "ttft_ms_p50": _pct([t for r in runs for t in r[1]], 0.5),
+                      "wall_s": [r[0] for r in runs]},
+            "launches": launches}
+
+
+def _vision_encode_timing(torch, engine, images) -> dict:
+    """The host preprocessing of one picture (PNG decode, bicubic resize,
+    crop, normalize) and the tower + projector's device time
+    (encode_images) for one and two images."""
+    from gridllm_torch.engine.images import preprocess_images
+
+    size = engine.cfg.vision_cfg.image_size
+    t0 = time.perf_counter()
+    px = preprocess_images(images[:2], size)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 2
+    out = {"preprocess_host_ms_per_image": host_ms}
+    for n in (1, 2):
+        x = torch.from_numpy(px[:n]).to("cuda", engine.dtype)
+        out[f"encode_images_ms_{n}"] = time_ms(torch, lambda: engine.model.encode_images(x),
+                                               iters=10)
+        out[f"encode_images_device_ms_{n}"] = device_ms(
+            torch, lambda: engine.model.encode_images(x), iters=10)
+    return out
+
+
+def _vision_f32_cut(torch, images) -> dict:
+    """llava:7b's text stack cut to VISION_CUT_LAYERS layers (the tower at
+    its 24), float32: greedy streams of one image (bucket prefill) and two
+    images (chunks with splice offsets, mixed steps) through the engine
+    equal the cache-free forward over the spliced embeddings with the
+    plain attention: every generated token is the reference's argmax, or
+    within F32_TOL of it."""
+    from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
+    from gridllm_torch.engine.images import preprocess_images
+    from gridllm_torch.models import llama as llama_mod
+    from gridllm_torch.ops.attention import attention_prefill_ref
+    from gridllm_torch.ops.kernels import F32_TOL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = InferenceEngine(EngineConfig(**dict(
+        VISION_ENGINE, model=_cut(VISION_MODEL, VISION_CUT_LAYERS), num_pages=64,
+        dtype="float32")), device="cuda")
+    _printable_head(torch, engine)
+    model, vc = engine.model, engine.cfg.vision_cfg
+    out = {}
+    for name, imgs in (("one_image", images[:1]), ("two_images", images[:2])):
+        with _PlainWatch(torch) as plain:
+            res = engine.generate(GenerationRequest(
+                id=f"f32-{name}", prompt="what do you see?", images=imgs,
+                options={"temperature": 0, "num_predict": 24, "repeat_penalty": 1.0}))
+        check(not any(plain.counts.values()), f"vision f32: a plain version ran: {plain.counts}")
+        check(res.done_reason in ("stop", "length") and res.token_ids,
+              f"vision f32 {name}: {res.done_reason} {res.error}")
+        ids = torch.tensor(res.context, dtype=torch.int32, device="cuda")
+        px = torch.from_numpy(preprocess_images(imgs, vc.image_size)).to("cuda", torch.float32)
+        flat = model.encode_images(px).reshape(-1, engine.cfg.hidden_size)
+        kernel = llama_mod.attention_prefill
+        llama_mod.attention_prefill = attention_prefill_ref
+        try:
+            ref = model.forward(ids[None], embeds=model.splice_embeds(ids, flat)[None])[0]
+        finally:
+            llama_mod.attention_prefill = kernel
+        n_prompt = res.prompt_eval_count
+        gaps = []
+        for j, tok in enumerate(res.token_ids[:-1] if res.done_reason == "stop"
+                                else res.token_ids):
+            row = ref[n_prompt - 1 + j]
+            gaps.append(float(row.max() - row[tok]))
+        worst = max(gaps)
+        check(worst <= F32_TOL, f"vision f32 {name}: a generated token is {worst} below the "
+              "reference's argmax logit")
+        out[name] = {"prompt_tokens": n_prompt, "tokens": len(res.token_ids),
+                     "argmax_equal": sum(g == 0.0 for g in gaps), "max_gap": worst}
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vision(torch) -> dict:
+    """llava:7b bf16 through the port's gateway (phase_vision): the 32-layer
+    multi-head text stack (32 KV heads at D = 128, G = 1) and the
+    CLIP-L/336 tower (576 patches an image), the engine's defaults with a
+    pool of VISION_ENGINE; images are PNGs this script writes (_png, no
+    PIL) of seeded pictures, decoded by the port's own decoder (checked
+    here bit for bit against the pixels written). _vision_serve, then
+    _vision_encode_timing, then the float32 cut (_vision_f32_cut)."""
+    import asyncio
+    import base64
+
+    import numpy as np
+
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.engine.images import decode_png
+
+    t_phase = time.perf_counter()
+    pictures = [_picture(SEED + i) for i in range(4)]
+    pngs = [_png(p) for p in pictures]
+    for p, raw in zip(pictures, pngs):
+        check(bool(np.array_equal(decode_png(raw), p)), "vision: the PNG decoder differs")
+    images = [base64.b64encode(raw).decode() for raw in pngs]
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(**VISION_ENGINE), device="cuda")
+    _printable_head(torch, engine)
+    out = asyncio.run(_vision_serve(torch, engine, images))
+    check(not engine.running, "vision: the engine's runner did not stop")
+    out["encode"] = _vision_encode_timing(torch, engine, images)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32_cut"] = _vision_f32_cut(torch, images)
+    card = card_line()
+    print(json.dumps({"vision": {"ttft_ms_p50": out["ttft_ms_p50"],
+                                 "waves": {k: out["waves"][k] for k in ("ttft_ms_p50",
+                                                                         "output_tokens_per_s")},
+                                 "encode_images_device_ms_1":
+                                     out["encode"]["encode_images_device_ms_1"]},
+                      "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    return {"phase": "vision", "model": VISION_MODEL, "dtype": "bfloat16", "card": card,
+            "picture": list(VISION_PICTURE), **out}
+
+
 TURN_PARTS = ("kernels", "steps", "int8")
 
 
@@ -7086,7 +7574,8 @@ def main() -> int:
                    "int8": phase_int8, "profiler": phase_profiler, "long": phase_long,
                    "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
                    "quant": phase_quant, "mixtral": phase_mixtral,
-                   "gateway": phase_gateway, "controlplane": phase_controlplane}[phase](torch)
+                   "gateway": phase_gateway, "controlplane": phase_controlplane,
+                   "embed": phase_embed, "vision": phase_vision}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -7121,10 +7610,11 @@ def main() -> int:
          "replaces": spec.replaces.split(" ")[0], "head_dims": list(_HEAD_DIMS),
          "launches": launches[name],
          # the same kernel's launches under the port's scheduler, on the
-         # int8 llama3:70b and mixtral serves, behind the port's gateway and
-         # behind the scaled control plane
+         # int8 llama3:70b and mixtral serves, behind the port's gateway,
+         # behind the scaled control plane, on the embeddings and on llava
          "launches_on": {p: results[p]["launches"].get(name, 0)
-                         for p in ("sched", "quant", "mixtral", "gateway", "controlplane")},
+                         for p in ("sched", "quant", "mixtral", "gateway", "controlplane",
+                                   "embed", "vision")},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

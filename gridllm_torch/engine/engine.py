@@ -61,6 +61,27 @@ serving path:
   tier (ops/kvtier.py) and page back in on a prefix match;
   `park_to_host` moves a suspended request's pages there.
 
+- Embeddings (`embed`): texts grouped by prefill bucket and by batch
+  bucket (1, 4, 16, 32; at most `embed_batch` rows), one cache-free
+  `hidden_states` forward per batch with a valid length per row, pooled
+  and L2-normalized (`bert_embed.pool`: the config's `pooling`, mean for
+  every decoder family). A bert_embed model makes an `embedding_only`
+  engine: no pool, sampler, runner or drafter, and generation is refused.
+  On an engine whose runner is live each batch runs on the runner thread
+  between two of its steps, so it never interleaves with a step's
+  launches and never starts or stops inside a profiler capture.
+- Images (the llava family): each request's base64 images are decoded and
+  preprocessed on the host at admission (engine/images.py), on the runner
+  thread as in the JAX engine (the PNG decode and resize are numpy steps
+  driven by Python loops: threads beside the runner would contend with it
+  for the interpreter lock, PERF.md); each image
+  placeholder expands to `num_patches` image tokens, the tower and
+  projector encode the images once (`encode_images`) and the prefill —
+  bucket, chunk or mixed step — takes the spliced embeddings in place of
+  the token lookup (`splice_embeds`, each chunk with the image tokens
+  before it as its offset). Image requests never match or register in the
+  prefix cache and never resume: token ids do not address pixels.
+
 - Profiling a serving engine (the JAX engine's `jax.profiler` capture):
   `profile()` is a torch.profiler capture that starts and stops on the
   engine's runner thread while every runner thread of the process waits
@@ -87,6 +108,7 @@ import numpy as np
 import torch
 
 from gridllm_torch import faults
+from gridllm_torch.engine.images import preprocess_images
 from gridllm_torch.engine.loader import load_checkpoint, model_class, weight_snapshot_tier
 from gridllm_torch.engine.tokenizer import DetokState, Tokenizer, get_tokenizer
 from gridllm_torch.models.configs import config_from_hf_dir, get_config
@@ -289,6 +311,7 @@ class EngineConfig:
     mesh: Any = None                     # not ported
     max_queue: int = 512
     seed: int | None = None              # engine-level seed for unseeded requests
+    embed_batch: int = 32                # most texts per embedding forward
     # prompts longer than this prefill in chunks against the cached prefix;
     # rounded down to a multiple of page_size (page-aligned chunk starts)
     prefill_chunk: int = 1024
@@ -381,8 +404,8 @@ class GenerationRequest:
     prompt_ids: list[int] | None = None  # pre-tokenized (Ollama `context` path)
     options: dict[str, Any] = dataclasses.field(default_factory=dict)
     raw: bool = False                    # skip BOS when prompt_ids is None
-    # base64 images: a field of the JAX engine's request that this engine
-    # refuses, non-retryably, until the vision path is ported
+    # base64 images (vision models): one placeholder per image in the
+    # prompt, or none (the images then go first, after BOS)
     images: list[str] | None = None
     # disaggregated prefill: finish at the FIRST host-visible token with
     # done_reason "export"; the prompt's KV pages land in the prefix cache
@@ -519,13 +542,18 @@ class InferenceEngine:
             self.cfg = config_from_hf_dir(config.model, config.checkpoint_path)
         self.dtype = _DTYPES[config.dtype]
         self._rng = random.Random(config.seed)
+        # an encoder family: embeddings only, no generation state
+        self.embedding_only = self.cfg.family == "bert_embed"
         self._prefix_cache_cap = (
-            max(config.prefix_cache_pages, -1) if config.prefix_cache else 0)
+            max(config.prefix_cache_pages, -1)
+            if config.prefix_cache and not self.embedding_only else 0)
         # resolved once: the host tier outlives device-state resets (its
         # content-addressed pages stay valid)
-        self.host_tier = self._build_host_tier()
+        self.host_tier = None if self.embedding_only else self._build_host_tier()
         self._lock = threading.Lock()
         self._alloc_lock = threading.RLock()
+        # serializes embed batches run on the calling thread (no live runner)
+        self._embed_lock = threading.Lock()
         self._pending: deque[GenerationRequest] = deque()
         self._slots: dict[int, _Slot] = {}
         # host copy of each live or admitting slot's temperature
@@ -541,7 +569,8 @@ class InferenceEngine:
         self._runner: threading.Thread | None = None
         self._runner_stop = threading.Event()
         # speculation depth K (0 = off) and cumulative verify-step totals
-        self._spec_k = max(int(config.spec_k), 0) if config.spec_decode else 0
+        self._spec_k = (max(int(config.spec_k), 0)
+                        if config.spec_decode and not self.embedding_only else 0)
         self._drafter = None
         self._tree_width = max(int(config.spec_tree_width), 1)
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0,
@@ -549,9 +578,6 @@ class InferenceEngine:
         # step-time decomposition state (driving thread only)
         self._t_prev_fetch: float | None = None
         self._t_ingest_done: float | None = None
-        # the JAX engine's flag for its embedding models; this engine
-        # serves generation only
-        self.embedding_only = False
 
         self.prewarm_duration_ns = 0
         t0 = time.perf_counter_ns()
@@ -559,9 +585,13 @@ class InferenceEngine:
         # after the weights: a checkpoint directory without them fails on
         # its safetensors, not on its tokenizer
         self.tokenizer: Tokenizer = get_tokenizer(config.tokenizer, self.cfg.vocab_size)
-        self._init_device_state()
-        self.max_context = min(self.cfg.max_seq_len,
-                               config.max_pages_per_slot * config.page_size)
+        if self.embedding_only:
+            # no KV pool: a text's length is bounded by the model alone
+            self.max_context = self.cfg.max_seq_len
+        else:
+            self._init_device_state()
+            self.max_context = min(self.cfg.max_seq_len,
+                                   config.max_pages_per_slot * config.page_size)
         if self._spec_k:
             self._drafter = self._build_model_drafter(draft_params) or make_drafter()
         # the draft tree's static topology, its node depths and ancestor mask
@@ -576,7 +606,7 @@ class InferenceEngine:
             | {self.max_context})
         ps = config.page_size
         self._chunk_len = max(ps, (min(config.prefill_chunk, self.max_context) // ps) * ps)
-        if env_bool("GRIDLLM_PREWARM_COMPILES"):
+        if env_bool("GRIDLLM_PREWARM_COMPILES") and not self.embedding_only:
             self.prewarm()
 
     # ---------------------------------------------------------- weights
@@ -654,7 +684,7 @@ class InferenceEngine:
         request does not pay the process's first launches (the CUDA
         context's lazy module loads, the allocator's first blocks, cuBLAS
         handles). Fills `prewarm_duration_ns`."""
-        if self.running:
+        if self.embedding_only or self.running:
             return
         t0 = time.perf_counter_ns()
         self.generate(GenerationRequest(
@@ -689,6 +719,8 @@ class InferenceEngine:
     def reset_device_state(self) -> None:
         """Rebuild the device state after a failed step (slot state is
         discarded; call abort_all() first). Weights survive."""
+        if self.embedding_only:
+            return
         with self._alloc_lock:
             self._slots.clear()
             self._temps.clear()
@@ -766,24 +798,27 @@ class InferenceEngine:
         sp.step[slot] += 1
 
     def _prefill(self, prompt: torch.Tensor, length: int, slot: int,
-                 row: torch.Tensor) -> None:
-        logits, _ = self.model.prefill(prompt, length, self.cache, slot, row)
+                 row: torch.Tensor, embeds: torch.Tensor | None = None) -> None:
+        logits, _ = self.model.prefill(prompt, length, self.cache, slot, row, embeds=embeds)
         window_set_slot(self.window, self.wlen, self.counts, slot, prompt, 0, length,
                         self.sampling.repeat_last_n[slot], self.cfg.vocab_size)
         self._activate(slot, logits)
 
     def _prefill_chunk(self, chunk: torch.Tensor, start: int, length: int, slot: int,
-                       row: torch.Tensor, is_final: bool) -> None:
+                       row: torch.Tensor, is_final: bool,
+                       embeds: torch.Tensor | None = None) -> None:
         """One chunk of an admitting slot on its own (ragged attention off);
         the final chunk samples the slot's first token and activates it."""
-        logits, _ = self.model.prefill_chunk(chunk, start, length, self.cache, slot, row)
+        logits, _ = self.model.prefill_chunk(chunk, start, length, self.cache, slot, row,
+                                             embeds=embeds)
         window_set_slot(self.window, self.wlen, self.counts, slot, chunk, start, length,
                         self.sampling.repeat_last_n[slot], self.cfg.vocab_size)
         if is_final:  # intermediate chunks' samples are discarded
             self._activate(slot, logits)
 
     def _mixed_chunk(self, chunk: torch.Tensor, start: int, length: int, slot: int,
-                     row: torch.Tensor, is_final: bool) -> torch.Tensor:
+                     row: torch.Tensor, is_final: bool,
+                     embeds: torch.Tensor | None = None) -> torch.Tensor:
         """One mixed step: the admitting slot's chunk plus a decode token for
         every slot active at entry. Returns the [2, S] block (row 0 = input
         tokens, row 1 = this step's decode samples)."""
@@ -791,7 +826,7 @@ class InferenceEngine:
         tokens_in = self.tokens.clone()
         active_in = self.active.clone()
         chunk_logits, dec_logits, _ = self.model.mixed_step(
-            chunk, start, length, slot, row, tokens_in, self.cache, active_in)
+            chunk, start, length, slot, row, tokens_in, self.cache, active_in, embeds=embeds)
         window_set_slot(self.window, self.wlen, self.counts, slot, chunk, start, length,
                         sp.repeat_last_n[slot], vocab)
         if is_final:  # intermediate chunks' samples are discarded
@@ -863,6 +898,15 @@ class InferenceEngine:
     # ------------------------------------------------------------ admission
 
     def submit(self, req: GenerationRequest) -> None:
+        if self.embedding_only:
+            self._fail(req, f"{self.cfg.name} is an embedding model; "
+                            "it does not support generation", retryable=False)
+            return
+        if req.images and not self.cfg.vision:
+            # the capability is per model: a loud refusal, never pixels ignored
+            self._fail(req, f"{self.cfg.name} does not support image inputs",
+                       retryable=False)
+            return
         with self._lock:
             if len(self._pending) >= self.config.max_queue:
                 raise RuntimeError("engine queue full")
@@ -894,22 +938,42 @@ class InferenceEngine:
             if not self._pending or not self._free_slots:
                 return False
             req = self._pending.popleft()
-        if req.images:
-            self._fail(req, "images are not served by the torch engine yet (the vision "
-                            "path, ROADMAP A 8)", retryable=False)
-            return True
         ids = self._tokenize(req)
+        images = list(req.images or [])
+        vc = self.cfg.vision_cfg
         # decode resume: the tokens a previous attempt generated join the
         # prompt for prefill and allocation (a cached prefix covers them)
-        # but seed the slot's generated state below
-        resume = [int(t) for t in req.resume_ids or []]
+        # but seed the slot's generated state below. Image requests never
+        # resume: their KV holds spliced pixels that token ids do not address
+        resume = [] if images else [int(t) for t in req.resume_ids or []]
         ids = ids + resume
+        pixels = None
+        if images:
+            try:
+                ids = self._expand_image_tokens(ids, len(images))
+                pixels = preprocess_images(images, vc.image_size)
+            except ValueError as e:
+                self._fail(req, str(e), retryable=False)
+                return True
+        elif self.cfg.vision and req.prompt_ids is not None and vc and vc.image_token in ids:
+            # an Ollama `context` of an image turn carries the expanded
+            # image-token runs but not the pixels: prefilling placeholder
+            # embeddings would answer about an image the model cannot see
+            self._fail(req, "context contains image tokens; follow-ups on "
+                            "image conversations must re-send the images", retryable=False)
+            return True
         opts = req.options or {}
         num_ctx = int(opts.get("num_ctx") or 0)
         eff_ctx = min(num_ctx, self.max_context) if num_ctx > 0 else self.max_context
         eff_ctx = max(eff_ctx, 2)
         if len(ids) >= eff_ctx:
             ids = ids[-(eff_ctx - 1):]  # Ollama truncates from the left
+            if images and ids.count(vc.image_token) != len(images) * vc.num_patches:
+                # truncation cut into an image span: the splice would
+                # misalign the patch rows
+                self._fail(req, "context window too small for image inputs",
+                           retryable=False)
+                return True
         num_predict = int(opts.get("num_predict", -1))
         # resumed tokens are already in `ids`: reserve only the remaining
         # budget, so a resume reserves what the original admission did
@@ -919,9 +983,11 @@ class InferenceEngine:
             self._fail(req, f"context {want} exceeds slot capacity")
             return True
         slot = self._free_slots[-1]
-        # longest cached prefix first (pins the matched pages), then the rest
+        # longest cached prefix first (pins the matched pages), then the rest;
+        # image requests match nothing (token ids do not address pixels)
         with self._alloc_lock:
-            cached = self.alloc.match_prefix(slot, ids) if self._prefix_cache_cap else 0
+            cached = (self.alloc.match_prefix(slot, ids)
+                      if self._prefix_cache_cap and not images else 0)
             if self.alloc.alloc(slot, want) is None:
                 # pool exhausted: unpin, requeue at the front, wait for pages
                 self.alloc.free(slot)
@@ -965,7 +1031,7 @@ class InferenceEngine:
         row_list = self.alloc.table_row(slot)
         st.pages_held = len(row_list)
         t0 = time.perf_counter_ns()
-        self._dispatch_prefill(slot, ids, row_list, upd, cached)
+        self._dispatch_prefill(slot, ids, row_list, upd, cached, pixels=pixels)
         st.t_prefill_ns = time.perf_counter_ns() - t0
         st.joined_gen = self._gen + 1  # first block dispatched after this
         self._slots[slot] = st
@@ -992,14 +1058,55 @@ class InferenceEngine:
         if total:
             _PREFIX_HIT_RATE.set(self.alloc.hits / total, model=name)
 
+    def _expand_image_tokens(self, ids: list[int], n_images: int) -> list[int]:
+        """Expand the image placeholders to num_patches image tokens each
+        (the splice's contract, models/llava.py). A prompt with explicit
+        placeholders (HF-style `<image>`) must hold one per image; a prompt
+        without any (the Ollama API: images in a list beside the prompt)
+        gets every image span first, after BOS; an already expanded prompt
+        (an Ollama `context` of an image turn, images re-sent) is kept."""
+        vc = self.cfg.vision_cfg
+        if vc is None:
+            raise ValueError(f"{self.cfg.name}: vision model without vision_cfg")
+        tok, n = vc.image_token, vc.num_patches
+        count = ids.count(tok)
+        if count == 0:
+            at = 1 if (ids and ids[0] == self.tokenizer.bos_id) else 0
+            return ids[:at] + [tok] * (n * n_images) + ids[at:]
+        if count == n_images * n:
+            return list(ids)
+        if count != n_images:
+            raise ValueError(f"prompt has {count} image placeholder(s) for "
+                             f"{n_images} image(s)")
+        out: list[int] = []
+        for t in ids:
+            out.extend([tok] * n if t == tok else [t])
+        return out
+
+    def _image_embeds(self, pixels: np.ndarray) -> torch.Tensor:
+        """Preprocessed images [n, 3, S, S] → their projected patch rows,
+        flattened in prompt order [n·N, E]."""
+        emb = self.model.encode_images(torch.from_numpy(pixels).to(self.device, self.dtype))
+        return emb.reshape(-1, emb.shape[-1])
+
     def _dispatch_prefill(self, slot: int, ids: list[int], row_list: list[int],
-                          upd: dict[str, Any], cached: int) -> None:
+                          upd: dict[str, Any], cached: int,
+                          pixels: np.ndarray | None = None) -> None:
         """The device half of admission: sampler row update and prefill.
         `cached` (page-aligned) prompt tokens already have KV pages in
-        `row_list`: they skip the model and only seed the penalty window."""
+        `row_list`: they skip the model and only seed the penalty window.
+        With `pixels` the images are encoded once and every prefill call
+        takes its span's spliced embeddings."""
         self.sampling.set_slot(slot, upd)
         self._temps[slot] = upd["temperature"]
         row = torch.tensor(row_list, dtype=torch.int32, device=self.device)
+        img_flat = self._image_embeds(pixels) if pixels is not None else None
+
+        def spliced(tokens: torch.Tensor, offset: int) -> torch.Tensor | None:
+            if img_flat is None:
+                return None
+            return self.model.splice_embeds(tokens, img_flat, offset)
+
         if cached or len(ids) > self._chunk_len:
             c = self._chunk_len
             rl = self.sampling.repeat_last_n[slot]
@@ -1008,17 +1115,20 @@ class InferenceEngine:
                 window_set_slot(self.window, self.wlen, self.counts, slot,
                                 self._ids_tensor(part, c), s0, len(part), rl,
                                 self.cfg.vocab_size)
+            img_tok = self.cfg.vision_cfg.image_token if img_flat is not None else None
             for s0 in range(cached, len(ids), c):
                 part = ids[s0:s0 + c]
-                args = (self._ids_tensor(part, c), s0, len(part), slot, row,
-                        s0 + c >= len(ids))
+                chunk = self._ids_tensor(part, c)
+                # the chunk's splice starts past the image tokens before it
+                embeds = spliced(chunk, ids[:s0].count(img_tok))
+                args = (chunk, s0, len(part), slot, row, s0 + c >= len(ids), embeds)
                 if self.model.ragged_attention:
                     self._dispatch_mixed_chunk(*args)
                 else:
                     self._prefill_chunk(*args)
         else:
             padded = self._ids_tensor(ids, self._bucket_for(len(ids)))
-            self._prefill(padded, len(ids), slot, row)
+            self._prefill(padded, len(ids), slot, row, embeds=spliced(padded, 0))
 
     # ------------------------------------------------------------ stepping
 
@@ -1041,10 +1151,11 @@ class InferenceEngine:
         self._enqueue(out, k)
 
     def _dispatch_mixed_chunk(self, chunk: torch.Tensor, start: int, length: int,
-                              slot: int, row: torch.Tensor, is_final: bool) -> None:
+                              slot: int, row: torch.Tensor, is_final: bool,
+                              embeds: torch.Tensor | None = None) -> None:
         self._gen += 1
         t0 = time.perf_counter()
-        out = self._mixed_chunk(chunk, start, length, slot, row, is_final)
+        out = self._mixed_chunk(chunk, start, length, slot, row, is_final, embeds)
         DISPATCH_SECONDS.observe(time.perf_counter() - t0, model=self.cfg.name)
         self._enqueue(out, 1)
 
@@ -1302,9 +1413,12 @@ class InferenceEngine:
         self.active[slot] = False
         # register the full pages of the final context for reuse, minus the
         # last token (its KV is written only when it is input to a step that
-        # may never have been dispatched); an error finish registers nothing
+        # may never have been dispatched); an error finish registers nothing,
+        # nor does an image request (its KV holds spliced pixels that the
+        # image-token ids do not address)
+        register = reason != "error" and not st.req.images
         with self._alloc_lock:
-            self.alloc.free(slot, st.ids[:-1] if reason != "error" else None)
+            self.alloc.free(slot, st.ids[:-1] if register else None)
         self._update_kv_gauges()
         del self._slots[slot]
         self._temps.pop(slot, None)
@@ -1356,8 +1470,8 @@ class InferenceEngine:
         """Start the engine thread, which owns all device dispatch from then
         on; submit() and cancel() are the cross-thread entry points. Refuses
         while a profiler capture that profile() did not start is active."""
-        if self._runner is not None:
-            return
+        if self._runner is not None or self.embedding_only:
+            return   # an embedding-only engine runs each embed on its caller
         if self._foreign_capture():
             raise RuntimeError(_FOREIGN_CAPTURE)
         self._runner_stop.clear()
@@ -1433,10 +1547,24 @@ class InferenceEngine:
                     torch.cuda.synchronize(self.device)
                 fn()
 
+        self._on_runner(call, deadline)
+
+    def _on_runner(self, fn: Callable[[], Any], deadline: float | None = None,
+                   inline: Callable[[], Any] | None = None) -> Any:
+        """fn() run on this engine's runner thread between two of its steps
+        (inside the runner's shared hold of the profile gate), waited for:
+        its result returned, its exception raised here. With no live runner,
+        or one that stopped before it, `inline` (default fn) runs on this
+        thread instead. Past `deadline` (time.monotonic(); None waits for
+        ever) with fn not yet begun, TimeoutError."""
         runner = self._runner
         if runner is None or not runner.is_alive():
-            call()
-            return
+            return (inline or fn)()
+        box: list[Any] = []
+
+        def call():
+            box.append(fn())
+
         entry = ("call", (call, threading.Event(), []))
         _, (_, done, err) = entry
         with self._work:
@@ -1458,12 +1586,12 @@ class InferenceEngine:
                 if queued:   # never run it at a later start()
                     self._ctl.remove(entry)
             if queued:   # the runner stopped before it: run it here
-                call()
-                return
+                return (inline or fn)()
             if not done.is_set():
                 raise RuntimeError("InferenceEngine: the runner thread stopped")
         if err:
             raise err[0]
+        return box[0]
 
     @contextlib.contextmanager
     def profile(self, start_timeout_s: float | None = None,
@@ -1581,6 +1709,67 @@ class InferenceEngine:
             n += 1
         return n
 
+    # batch-size buckets of the embeddings path: a bounded set of shapes
+    _EMBED_BATCH_BUCKETS = (1, 4, 16, 32)
+
+    def _batch_bucket(self, n: int) -> int:
+        for b in self._EMBED_BATCH_BUCKETS:
+            if n <= b:
+                return b
+        return self._EMBED_BATCH_BUCKETS[-1]
+
+    def embed(self, texts: list[str]) -> list[list[float]]:
+        """Pooled, L2-normalized embeddings of `texts` (callable from any
+        thread). bert_embed models run the bidirectional encoder with their
+        configured pooling (mean or cls); decoder families mean-pool their
+        final hidden states. The texts are grouped by length bucket and run
+        up to `embed_batch` per forward, each row with its own valid length
+        (attention and pooling mask the padding); padding rows get length 1
+        and their outputs are dropped. Each batch runs on the runner thread
+        between two of its steps when the runner is live, else on this
+        thread holding the profile gate as a step does; under a profiler
+        capture that no engine's profile() started it raises."""
+        enc = [self.tokenizer.encode_for_embedding(t, self.max_context) for t in texts]
+        out: list[list[float] | None] = [None] * len(texts)
+        by_bucket: dict[int, list[int]] = {}
+        for i, ids in enumerate(enc):
+            by_bucket.setdefault(self._bucket_for(max(len(ids), 1)), []).append(i)
+        cap = max(1, self.config.embed_batch)
+        for blen, idxs in sorted(by_bucket.items()):
+            for start in range(0, len(idxs), cap):
+                group = idxs[start:start + cap]
+                bsz = min(self._batch_bucket(len(group)), cap)
+                tok = np.zeros((bsz, blen), np.int32)
+                lens = np.ones((bsz,), np.int32)
+                for j, i in enumerate(group):
+                    tok[j, :len(enc[i])] = enc[i]
+                    lens[j] = max(len(enc[i]), 1)
+                vecs = self._embed_call(tok, lens)
+                for j, i in enumerate(group):
+                    out[i] = vecs[j].tolist()
+        return out  # type: ignore[return-value]
+
+    def _embed_batch(self, tok: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """One embedding forward: [B, T] ids, [B] lengths → [B, E] float32
+        unit vectors on the host."""
+        from gridllm_torch.models.bert_embed import pool
+
+        lens_t = torch.from_numpy(lens).to(self.device)
+        h = self.model.hidden_states(torch.from_numpy(tok).to(self.device), lens_t)
+        return pool(h, lens_t, self.cfg.pooling).cpu().numpy()
+
+    def _embed_call(self, tok: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        def guarded():
+            if self._foreign_capture():
+                raise RuntimeError(_FOREIGN_CAPTURE)
+            return self._embed_batch(tok, lens)
+
+        def inline():
+            with self._embed_lock, _GATE.step():
+                return guarded()
+
+        return self._on_runner(guarded, inline=inline)
+
     def resolve_seed(self) -> int:
         """A sampler seed from the engine-seeded RNG, the stream admission
         draws from for unseeded requests: a worker resolves the seed before
@@ -1638,7 +1827,7 @@ class InferenceEngine:
 
     @property
     def free_slot_count(self) -> int:
-        return len(self._free_slots)
+        return 0 if self.embedding_only else len(self._free_slots)
 
     @property
     def active_requests(self) -> int:
@@ -1698,7 +1887,7 @@ class InferenceEngine:
     def kv_transfer_supported(self) -> bool:
         """Export and import need the content-addressed prefix cache: the
         transfer unit is cached pages."""
-        return self._prefix_cache_cap != 0
+        return not self.embedding_only and self._prefix_cache_cap != 0
 
     def export_prefix_pages(self, token_ids: list[int]) -> dict[str, Any] | None:
         """Gather the longest cached full-page prefix of `token_ids` as host
@@ -1951,6 +2140,9 @@ class InferenceEngine:
         weight and KV-pool tensors by identity, plus JSON-safe allocator
         numbers (the JAX engine's `memory_arrays`). Reads mutable state
         without locks, as batch_state() does."""
+        if self.embedding_only:
+            return {"weights": list(self.model.parameters()) if self.model is not None else [],
+                    "kv": [], "alloc": None}
         cache, c = self.cache, self.config
         kv: list[torch.Tensor] = []
         for pool in (cache.k, cache.v):
@@ -1993,6 +2185,12 @@ class InferenceEngine:
         cosmetic, a blocked diagnosis is not)."""
         now_ns = time.perf_counter_ns()
         wall = time.time()
+        if self.embedding_only:
+            return {"model": self.cfg.name, "device": str(self.device), "running": False,
+                    "embeddingOnly": True, "slots": {}, "pending": 0, "inflightBlocks": 0,
+                    "dispatchGen": 0, "freeSlots": 0, "kvPagesFree": None,
+                    "kvPagesCached": None, "prefixCache": None, "hostTier": None,
+                    "specDecode": None}
         slots = {
             str(slot): {
                 "request": st.req.id,
@@ -2009,6 +2207,7 @@ class InferenceEngine:
             "model": self.cfg.name,
             "device": str(self.device),
             "running": self.running,
+            "embeddingOnly": False,
             "slots": slots,
             "pending": len(self._pending),
             "inflightBlocks": len(self._inflight),

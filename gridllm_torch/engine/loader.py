@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's engine/loader.py for the families the
 port serves (`model_class`: `Llama` for llama, qwen2 and qwen3, `Gemma2`
-for gemma2, `Mixtral` for mixtral). The safetensors format is read and
+for gemma2, `Mixtral` for mixtral, `BertEmbed` for bert_embed, `Llava`
+for llava). The safetensors format is read and
 written here, with no package for it (the card's machine has none):
 
 - `_open_safetensors`: every ``*.safetensors`` of a directory (a sharded
@@ -22,7 +23,9 @@ written here, with no package for it (the card's machine has none):
   quant leaf is quantized as it is placed, so no whole float copy of the
   leaf reaches the device).
 - `save_checkpoint`: a model to ``model.safetensors`` in the dtype asked
-  for, plus the HF ``config.json`` of `ModelConfig.hf_config`, one tensor
+  for (its `hf_tensors()`: a llava model's tower and projector too, in
+  the published llava-hf naming), plus the HF ``config.json`` of
+  `ModelConfig.hf_config`, one tensor
   materialized on the host at a time. An int8 model is refused: the
   format holds float weights, and the JAX package has no int8 format.
 - `WeightSnapshotTier`: an unloaded engine's weights parked as host
@@ -41,9 +44,11 @@ from collections import OrderedDict
 
 import torch
 
+from gridllm_torch.models.bert_embed import BertEmbed
 from gridllm_torch.models.configs import ModelConfig
 from gridllm_torch.models.gemma import Gemma2
 from gridllm_torch.models.llama import Llama
+from gridllm_torch.models.llava import Llava
 from gridllm_torch.models.mixtral import Mixtral
 from gridllm_torch.obs import default_registry
 from gridllm_torch.utils.config import env_int
@@ -214,10 +219,10 @@ def _save_safetensors(fname: str, tensors: dict[str, torch.Tensor],
 
 # the torch model of each family this package serves
 _FAMILIES = {"llama": Llama, "qwen2": Llama, "qwen3": Llama, "gemma2": Gemma2,
-             "mixtral": Mixtral}
+             "mixtral": Mixtral, "bert_embed": BertEmbed, "llava": Llava}
 
 
-def model_class(cfg: ModelConfig) -> type[Llama]:
+def model_class(cfg: ModelConfig) -> type[Llama | BertEmbed]:
     """The torch model of cfg's family (the JAX engine's `_model_module`);
     raises for a family this package has no model for. Each class owns
     its HF layout contract (`name_map()`, the JAX loader's `_name_map`)."""
@@ -228,7 +233,8 @@ def model_class(cfg: ModelConfig) -> type[Llama]:
 
 def load_checkpoint(cfg: ModelConfig, path: str, dtype: torch.dtype = torch.bfloat16,
                     device: str | torch.device = "cuda", quantize: str | None = None,
-                    model: Llama | None = None, ragged_attention: bool = True) -> Llama:
+                    model: Llama | BertEmbed | None = None,
+                    ragged_attention: bool = True) -> Llama | BertEmbed:
     """Load an HF-layout safetensors directory into the family's model
     (`model`, or a new one of `dtype` on `device`, int8 weights with
     `quantize="int8"`). Each tensor is read onto the model's device as
@@ -250,7 +256,7 @@ def load_checkpoint(cfg: ModelConfig, path: str, dtype: torch.dtype = torch.bflo
     return model
 
 
-def save_checkpoint(model: Llama, cfg: ModelConfig, path: str,
+def save_checkpoint(model: Llama | BertEmbed, cfg: ModelConfig, path: str,
                     dtype: torch.dtype = torch.bfloat16) -> int:
     """Write `model` as an HF-layout checkpoint: ``model.safetensors`` in
     `dtype` plus the ``config.json`` of `cfg.hf_config()`, which
@@ -258,14 +264,12 @@ def save_checkpoint(model: Llama, cfg: ModelConfig, path: str,
     of the weights file. An int8 model raises: there is no int8 checkpoint
     format to write (the JAX package has none either), so save the
     unquantized model and load it with quantize="int8"."""
-    from gridllm_torch.models import hf_layout
-
     if model.quantize:
         raise ValueError(f"save_checkpoint: {cfg.name} has {model.quantize} weights; a "
                          "checkpoint holds float weights and there is no int8 format (the "
                          "JAX package has none): save the unquantized model")
     os.makedirs(path, exist_ok=True)
-    tensors = hf_layout.to_hf_tensors(model.params_tree(), cfg, model.name_map())
+    tensors = model.hf_tensors()
     n = _save_safetensors(os.path.join(path, "model.safetensors"), tensors, dtype)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg.hf_config(torch_dtype=str(dtype).removeprefix("torch.")), f, indent=2)

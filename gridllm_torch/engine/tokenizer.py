@@ -22,6 +22,7 @@ class Tokenizer(Protocol):
     vocab_size: int
 
     def encode(self, text: str, add_bos: bool = True) -> list[int]: ...
+    def encode_for_embedding(self, text: str, max_len: int | None = None) -> list[int]: ...
     def decode(self, ids: Sequence[int]) -> str: ...
 
 
@@ -57,6 +58,10 @@ class ByteTokenizer:
         ids = list(text.encode("utf-8"))
         return ([self.bos_id] + ids) if add_bos and self.bos_id is not None else ids
 
+    def encode_for_embedding(self, text: str, max_len: int | None = None) -> list[int]:
+        ids = self.encode(text, add_bos=True)
+        return ids[:max_len] if max_len is not None else ids
+
     def decode(self, ids: Sequence[int]) -> str:
         data = bytes(i for i in ids if 0 <= i < 256)
         return data.decode("utf-8", errors="replace")
@@ -84,6 +89,16 @@ class HFTokenizer:
         if add_bos and self.bos_id is not None:
             ids = [self.bos_id] + ids
         return ids
+
+    def encode_for_embedding(self, text: str, max_len: int | None = None) -> list[int]:
+        """The full special-token template: BERT-family tokenizers wrap the
+        text in [CLS] ... [SEP], and cls pooling (models/bert_embed.pool)
+        reads position 0. Truncation happens inside the tokenizer, so the
+        trailing [SEP] survives (slicing afterwards would cut it)."""
+        if max_len is not None:
+            return self._tok.encode(text, add_special_tokens=True, truncation=True,
+                                    max_length=max_len)
+        return self._tok.encode(text, add_special_tokens=True)
 
     def decode(self, ids: Sequence[int]) -> str:
         return self._tok.decode(ids, skip_special_tokens=True)

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``models/configs.py`` data for the families
 this package serves (llama, qwen2/qwen3, the llama-skeleton mistral
-entries, gemma2, mixtral and the tiny test configs):
+entries, gemma2, mixtral, the bert_embed encoders, llava with its CLIP
+tower's `VisionConfig`, and the tiny test configs):
 Ollama-style model names map to the public HF architecture dimensions.
 The port keeps its own copy so that it imports nothing of the JAX
 package. `config_from_hf_dir` builds a config from a local HF
@@ -22,9 +23,38 @@ from gridllm_torch.ops.layers import RopeScaling
 
 
 @dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    """CLIP-style vision tower (llava family). Defaults = CLIP-ViT-L/14-336,
+    the tower every llava-1.5 checkpoint ships."""
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    image_size: int = 336
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-5
+    # HF semantics: the hidden_states index fed to the projector (-2 = the
+    # output of the penultimate encoder layer; llava-1.5's default)
+    feature_layer: int = -2
+    # id of the per-image placeholder token in the TEXT vocab; the engine
+    # expands each to num_patches copies and the prefill splices projected
+    # patch embeddings over them
+    image_token: int = 32_000
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str = "llama"            # llama | qwen2 | qwen3 | gemma2 | mixtral
+    # llama | qwen2 | qwen3 | gemma2 | mixtral | bert_embed | llava
+    family: str = "llama"
     vocab_size: int = 128_256
     hidden_size: int = 4096
     intermediate_size: int = 14_336
@@ -48,6 +78,12 @@ class ModelConfig:
     # logits tanh-capped
     query_pre_attn_scalar: float | None = None
     final_logit_softcap: float = 0.0
+    # embeddings (bert_embed family)
+    pooling: str = "mean"            # "mean" | "cls"
+    # multimodal: accepts image inputs (the per-model capability gate the
+    # engine refuses on); the llava family carries its tower config here
+    vision: bool = False
+    vision_cfg: VisionConfig | None = None
 
     @property
     def head_dim_(self) -> int:
@@ -57,6 +93,36 @@ class ModelConfig:
         """The HF config.json of this config (the inverse of
         `config_from_hf_dir`, and the JAX package's `hf_config` as a plain
         dict: transformers is not needed to write or read it)."""
+        if self.family == "bert_embed":
+            # the transformers BertConfig the JAX package builds
+            return dict(model_type="bert", architectures=["BertModel"],
+                        vocab_size=self.vocab_size, hidden_size=self.hidden_size,
+                        num_hidden_layers=self.num_layers,
+                        num_attention_heads=self.num_heads,
+                        intermediate_size=self.intermediate_size,
+                        max_position_embeddings=self.max_seq_len,
+                        layer_norm_eps=self.rms_eps, hidden_act="gelu",
+                        type_vocab_size=2, torch_dtype=torch_dtype)
+        if self.family == "llava":
+            # the transformers LlavaConfig the JAX package builds: a llama
+            # text config and a CLIP vision config
+            vc = self.vision_cfg or VisionConfig()
+            text = dataclasses.replace(self, family="llama", vision=False,
+                                       vision_cfg=None).hf_config(torch_dtype)
+            return dict(model_type="llava",
+                        architectures=["LlavaForConditionalGeneration"],
+                        text_config=text,
+                        vision_config=dict(
+                            model_type="clip_vision_model", hidden_size=vc.hidden_size,
+                            intermediate_size=vc.intermediate_size,
+                            num_hidden_layers=vc.num_layers,
+                            num_attention_heads=vc.num_heads, image_size=vc.image_size,
+                            patch_size=vc.patch_size, layer_norm_eps=vc.layer_norm_eps,
+                            hidden_act="quick_gelu", projection_dim=768),
+                        image_token_index=vc.image_token,
+                        vision_feature_layer=vc.feature_layer,
+                        vision_feature_select_strategy="default",
+                        projector_hidden_act="gelu", torch_dtype=torch_dtype)
         out: dict[str, Any] = dict(
             vocab_size=self.vocab_size,
             hidden_size=self.hidden_size,
@@ -177,6 +243,22 @@ register(ModelConfig(
     max_seq_len=40_960, qk_norm=True,
 ))
 
+# llava-1.5: a vicuna/llama2 text stack and the CLIP-L/14-336 tower. vocab
+# 32064 = llama2's 32000 padded with the <image>/<pad> extras the llava-hf
+# checkpoints ship
+register(ModelConfig(
+    name="llava:7b", family="llava", vocab_size=32_064, hidden_size=4096,
+    intermediate_size=11_008, num_layers=32, num_heads=32, num_kv_heads=32,
+    rope_theta=10_000.0, max_seq_len=4096, rms_eps=1e-5,
+    vision=True, vision_cfg=VisionConfig(),
+))
+register(ModelConfig(
+    name="llava:13b", family="llava", vocab_size=32_064, hidden_size=5120,
+    intermediate_size=13_824, num_layers=40, num_heads=40, num_kv_heads=40,
+    rope_theta=10_000.0, max_seq_len=4096, rms_eps=1e-5,
+    vision=True, vision_cfg=VisionConfig(),
+))
+
 # mistral (llama skeleton; v0.3 dropped the sliding window). Long-context
 # configs: mistral-nemo's explicit head_dim 128 differs from hidden/heads.
 register(ModelConfig(
@@ -220,6 +302,19 @@ register(ModelConfig(
     num_experts=8, experts_per_token=2, max_seq_len=32_768, rms_eps=1e-5,
 ))
 
+# BERT-architecture embedding models (Ollama's all-minilm and
+# mxbai-embed-large)
+register(ModelConfig(
+    name="all-minilm", family="bert_embed", vocab_size=30_522,
+    hidden_size=384, intermediate_size=1536, num_layers=6, num_heads=12,
+    num_kv_heads=12, rms_eps=1e-12, max_seq_len=512, pooling="mean",
+))
+register(ModelConfig(
+    name="mxbai-embed-large", family="bert_embed", vocab_size=30_522,
+    hidden_size=1024, intermediate_size=4096, num_layers=24, num_heads=16,
+    num_kv_heads=16, rms_eps=1e-12, max_seq_len=512, pooling="cls",
+))
+
 # Tiny configs: architecture-faithful, test-sized.
 register(ModelConfig(
     name="tiny-llama", vocab_size=256, hidden_size=64, intermediate_size=128,
@@ -245,6 +340,11 @@ register(ModelConfig(
     qk_norm=True,
 ))
 register(ModelConfig(
+    name="tiny-bert", family="bert_embed", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=4,
+    rms_eps=1e-12, max_seq_len=128,
+))
+register(ModelConfig(
     name="tiny-mistral", vocab_size=256, hidden_size=64,
     intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
     head_dim=16, rope_theta=10_000.0, max_seq_len=256, sliding_window=8,
@@ -255,6 +355,15 @@ register(ModelConfig(
     head_dim=16, rope_theta=10_000.0, rms_eps=1e-6, tie_embeddings=True,
     max_seq_len=256, sliding_window=8, attn_logit_softcap=50.0,
     final_logit_softcap=30.0, query_pre_attn_scalar=24,
+))
+register(ModelConfig(
+    name="tiny-llava", family="llava", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=16, rope_theta=10_000.0, max_seq_len=512,
+    vision=True, vision_cfg=VisionConfig(
+        hidden_size=32, intermediate_size=64, num_layers=3, num_heads=2,
+        image_size=28, patch_size=14, image_token=250,
+    ),
 ))
 
 
@@ -272,7 +381,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 # HF model_type → the family this package serves (mistral is the llama
-# skeleton with an optional sliding window)
+# skeleton with an optional sliding window; llava nests a llama text config)
 _HF_FAMILY = {
     "llama": "llama",
     "mistral": "llama",
@@ -280,12 +389,7 @@ _HF_FAMILY = {
     "qwen3": "qwen3",
     "gemma2": "gemma2",
     "mixtral": "mixtral",
-}
-# HF model_types the JAX package serves and this one does not yet: the
-# ROADMAP item that ports each
-_HF_UNPORTED = {
-    "bert": "ROADMAP A 8",
-    "llava": "ROADMAP A 8",
+    "bert": "bert_embed",
 }
 
 
@@ -301,14 +405,47 @@ def config_from_hf_dir(name: str, path: str) -> ModelConfig:
 
 def _config_from_hf_dict(name: str, hf: dict, path: str) -> ModelConfig:
     mt = hf.get("model_type", "llama")
-    if mt in _HF_UNPORTED:
-        raise ValueError(
-            f"HF model_type {mt!r} in {path}: its family is not ported to the torch "
-            f"package yet ({_HF_UNPORTED[mt]})")
+    if mt == "llava":
+        vc = hf.get("vision_config") or {}
+        text = dict(hf.get("text_config") or {})
+        text.setdefault("model_type", "llama")
+        # llava text configs may be sparse (LlamaConfig's defaults implied)
+        for k, v in (("vocab_size", 32_064), ("hidden_size", 4096),
+                     ("intermediate_size", 11_008), ("num_hidden_layers", 32),
+                     ("num_attention_heads", 32), ("max_position_embeddings", 4096)):
+            text.setdefault(k, v)
+        # only the keys the HF config carries: VisionConfig's defaults fill
+        # the rest
+        vkeys = {
+            "hidden_size": vc.get("hidden_size"),
+            "intermediate_size": vc.get("intermediate_size"),
+            "num_layers": vc.get("num_hidden_layers"),
+            "num_heads": vc.get("num_attention_heads"),
+            "image_size": vc.get("image_size"),
+            "patch_size": vc.get("patch_size"),
+            "layer_norm_eps": vc.get("layer_norm_eps"),
+            "feature_layer": hf.get("vision_feature_layer"),
+            "image_token": hf.get("image_token_index"),
+        }
+        return dataclasses.replace(
+            _config_from_hf_dict(name, text, path), family="llava", vision=True,
+            vision_cfg=VisionConfig(**{k: v for k, v in vkeys.items() if v is not None}))
     if mt not in _HF_FAMILY:
         raise ValueError(f"unsupported HF model_type {mt!r} in {path} "
-                         f"(supported: {sorted(_HF_FAMILY)})")
+                         f"(supported: {sorted(_HF_FAMILY)} + llava)")
     family = _HF_FAMILY[mt]
+    if family == "bert_embed":
+        return ModelConfig(
+            name=name, family=family,
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            num_kv_heads=hf["num_attention_heads"],
+            rms_eps=hf.get("layer_norm_eps", 1e-12),
+            max_seq_len=hf.get("max_position_embeddings", 512),
+        )
     scaling = None
     rs = hf.get("rope_scaling") or None
     if rs and rs.get("rope_type", rs.get("type")) == "llama3":

@@ -73,6 +73,13 @@ class Gemma2(Llama):
         # HF casts the sqrt(E) normalizer to the hidden dtype BEFORE the multiply
         return x * torch.tensor(math.sqrt(self.cfg.hidden_size), dtype=x.dtype)
 
+    def _embed_in(self, tokens: torch.Tensor, embeds: torch.Tensor | None) -> torch.Tensor:
+        if embeds is None:
+            return self._embed(tokens)
+        # given rows take the sqrt(E) normalizer too (the JAX `_embed_in`)
+        x = embeds.to(self.dtype)
+        return x * torch.tensor(math.sqrt(self.cfg.hidden_size), dtype=x.dtype)
+
     def _q_prescale(self, q: torch.Tensor) -> torch.Tensor:
         """Make the kernels' 1/sqrt(d) scale equal gemma's 1/sqrt(qpas)."""
         d = self.cfg.head_dim_
@@ -98,8 +105,11 @@ class Gemma2(Llama):
         """The sliding window on even layers, full attention on odd ones."""
         return self.cfg.sliding_window if li % 2 == 0 else 0
 
+    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return gemma_norm(x, self.final_norm, self.cfg.rms_eps)
+
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        x = gemma_norm(x, self.final_norm, self.cfg.rms_eps)
+        x = self._final_norm(x)
         # tied head: embed is no quant leaf, so it stays in the load dtype
         logits = (x @ self.embed.T).float()
         cap = self.cfg.final_logit_softcap

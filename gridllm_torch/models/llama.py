@@ -7,6 +7,8 @@ compute the same function.
 
 Entry points, all taking host scalars for lengths and positions:
 - `forward`: cache-free full logits (the oracle the paged paths match);
+- `hidden_states`: cache-free final-norm hidden states of a [B, T] batch
+  with a valid length per row (the embeddings path; no head);
 - `prefill`: one slot's whole prompt bucket, writes the paged cache;
 - `prefill_chunk`: one chunk of a slot against its cached prefix;
 - `decode_step`: one token for every slot;
@@ -29,8 +31,12 @@ dispatchers (`paged_attention_decode`, `paged_attention_verify`,
 Every attention call takes layer li's sliding window (`_window(li)`) and
 the config's logit softcap, so a family whose layers differ only there
 (gemma2, models/gemma.py; mixtral, models/mixtral.py) shares the entry
-points and overrides the pieces: `_layer_shapes`, `_embed`, `_block`,
-`_mlp`, `_window`, `_unembed`.
+points and overrides the pieces: `_layer_shapes`, `_embed`, `_embed_in`,
+`_block`, `_mlp`, `_window`, `_final_norm`, `_unembed`.
+
+`prefill`, `prefill_chunk`, `mixed_step`, `forward` and `hidden_states`
+take `embeds`, rows that replace the token-embedding lookup of the prompt
+(the vision splice of models/llava.py); the tokens still give the shapes.
 
 Int8 weights (`quantize="int8"`, the JAX package's ops/quant.py scheme):
 the QUANT_LEAVES (the attention and dense-FFN projections and an untied
@@ -296,6 +302,13 @@ class Llama(nn.Module):
         transpose?)."""
         return hf_map(self.cfg)
 
+    def hf_tensors(self) -> dict[str, torch.Tensor]:
+        """Inverse of params_from_hf: HF name → tensor view in HF
+        orientation (the checkpoint writer materializes one at a time)."""
+        from gridllm_torch.models import hf_layout
+
+        return hf_layout.to_hf_tensors(self.params_tree(), self.cfg, self.name_map())
+
     def free_params(self) -> None:
         """Drop every parameter's storage (the engine's unload after its
         weights are parked): the tensors become empty, so the module serves
@@ -309,6 +322,11 @@ class Llama(nn.Module):
         # out-of-vocab ids (the byte tokenizer's BOS on a 256-token vocab)
         # clamp to the last row, as the JAX package's gather does
         return self.embed[tokens.long().clamp(0, self.cfg.vocab_size - 1)]
+
+    def _embed_in(self, tokens: torch.Tensor, embeds: torch.Tensor | None) -> torch.Tensor:
+        """The input rows: the tokens' embeddings, or `embeds` (rows shaped
+        like them) in the model's dtype."""
+        return self._embed(tokens) if embeds is None else embeds.to(self.dtype)
 
     def _w(self, name: str, li: int):
         """Layer li's slice of projection leaf `name`: a tensor, or for an
@@ -347,8 +365,11 @@ class Llama(nn.Module):
         hx = rms_norm(x, lp["mlp_norm"][li], cfg.rms_eps)
         return x + self._mlp(li, hx), k, v
 
+    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.final_norm, self.cfg.rms_eps)
+
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
+        x = self._final_norm(x)
         head = self.embed.T if self.lm_head is None else self._leaf("lm_head", self.lm_head)
         return qdot(x, head, out_dtype=torch.float32)
 
@@ -358,14 +379,16 @@ class Llama(nn.Module):
 
     # ------------------------------------------------------------ entry points
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Cache-free full forward: tokens [B, T] → logits [B, T, V] f32."""
-        b, t = tokens.shape
-        x = self._embed(tokens)
+    def _bucket_layers(self, x: torch.Tensor, seq_lens: torch.Tensor | None) -> torch.Tensor:
+        """The layer loop over a cache-free batch x [B, T, E] at positions
+        0..T-1, the keys of row b at seq_lens[b] and past masked (None: all
+        valid); one attention_prefill per layer."""
+        b, t = x.shape[:2]
         pos = torch.arange(t, device=x.device)[None].expand(b, t)
         rope = rope_tables(pos, self.inv_freq)
-        seq_lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        if seq_lens is None:
+            seq_lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        seq_lens = seq_lens.to(device=x.device, dtype=torch.int32)
         cap = self.cfg.attn_logit_softcap
 
         for li in range(self.cfg.num_layers):
@@ -374,7 +397,22 @@ class Llama(nn.Module):
                                          window=self._window(li))
 
             x, _, _ = self._block(li, x, rope, attend)
-        return self._unembed(x)
+        return x
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Cache-free full forward: tokens [B, T] (or `embeds` [B, T, E] in
+        their place) → logits [B, T, V] f32."""
+        return self._unembed(self._bucket_layers(self._embed_in(tokens, embeds), None))
+
+    @torch.no_grad()
+    def hidden_states(self, tokens: torch.Tensor, seq_lens: torch.Tensor | None = None,
+                      embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Final-norm hidden states [B, T, E] of tokens [B, T] (the
+        embeddings path; no head). seq_lens [B] masks each row's padding
+        keys out of attention (None: all valid); `embeds` [B, T, E]
+        replaces the embedding lookup."""
+        return self._final_norm(self._bucket_layers(self._embed_in(tokens, embeds), seq_lens))
 
     def _kv_buffers(self, n: int, like: torch.Tensor):
         cfg = self.cfg
@@ -384,13 +422,15 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, length: int, cache: PagedKVCache,
-                slot: int, table_row: torch.Tensor) -> tuple[torch.Tensor, PagedKVCache]:
+                slot: int, table_row: torch.Tensor,
+                embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, PagedKVCache]:
         """Prefill ONE slot. tokens: [T] (padded bucket), length: valid
-        count, table_row: [max_pages] the slot's pages. Returns
+        count, table_row: [max_pages] the slot's pages, embeds: [T, E] rows
+        in place of the tokens' embeddings (the vision splice). Returns
         (last-valid-token logits [V] f32, cache with lengths[slot] =
         length)."""
         t = tokens.shape[0]
-        x = self._embed(tokens)[None]                        # [1, T, E]
+        x = self._embed_in(tokens, embeds)[None]             # [1, T, E]
         rope = rope_tables(torch.arange(t, device=x.device)[None], self.inv_freq)
         seq_lens = torch.tensor([length], dtype=torch.int32, device=x.device)
         k_new, v_new = self._kv_buffers(t, x)
@@ -411,17 +451,19 @@ class Llama(nn.Module):
         return logits, cache
 
     def _chunk_rows(self, cache: PagedKVCache, tokens: torch.Tensor, start: int,
-                    total: int, table_row: torch.Tensor, group=None):
+                    total: int, table_row: torch.Tensor, group=None,
+                    embeds: torch.Tensor | None = None):
         """Layer loop of a chunk: the chunk rows (one slot's prefill chunk at
         positions start + i) plus, with `group` = (tokens [S], positions
         [S]), one decode row per slot, in one ragged launch per layer; with
         ragged attention off (never with a group), through
-        attention_prefix_chunk.
+        attention_prefix_chunk. `embeds` [C, E] replaces the chunk rows'
+        embeddings (never the decode rows').
         Returns (hidden rows [1, C+S, E], k_new, v_new [L, C+S, KVH, D])."""
         c = tokens.shape[0]
         dev = cache.k.device
         pos = start + torch.arange(c, device=dev, dtype=torch.int32)
-        x = self._embed(tokens)
+        x = self._embed_in(tokens, embeds)
         if group is not None:
             g_tokens, g_pos = group
             x = torch.cat([x, self._embed(g_tokens)])
@@ -459,14 +501,15 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, start: int, length: int,
-                      cache: PagedKVCache, slot: int,
-                      table_row: torch.Tensor) -> tuple[torch.Tensor, PagedKVCache]:
+                      cache: PagedKVCache, slot: int, table_row: torch.Tensor,
+                      embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, PagedKVCache]:
         """Prefill ONE chunk of one slot against its cached prefix. tokens:
         [C] (padded chunk), start: absolute position of tokens[0] (page-
-        aligned), length: valid tokens in this chunk. Returns (last-valid-
-        token logits [V] f32, cache with lengths[slot] = start + length)."""
+        aligned), length: valid tokens in this chunk, embeds: [C, E] rows in
+        place of the tokens' embeddings. Returns (last-valid-token logits
+        [V] f32, cache with lengths[slot] = start + length)."""
         x, k_new, v_new = self._chunk_rows(cache, tokens, start, start + length,
-                                           table_row)
+                                           table_row, embeds=embeds)
         logits = self._unembed(x[0, max(length - 1, 0)])
         write_prefill_all(cache.k, cache.v, k_new, v_new, table_row, start, length,
                           cache.page_size)
@@ -571,19 +614,22 @@ class Llama(nn.Module):
     @torch.no_grad()
     def mixed_step(self, chunk_tokens: torch.Tensor, chunk_start: int, chunk_len: int,
                    slot: int, table_row: torch.Tensor, tokens: torch.Tensor,
-                   cache: PagedKVCache, active: torch.Tensor):
+                   cache: PagedKVCache, active: torch.Tensor,
+                   embeds: torch.Tensor | None = None):
         """One fused chunked-prefill + decode step: the prefill chunk of ONE
         admitting slot plus one decode token for every active slot, one
-        ragged attention launch per layer. Returns (chunk last-valid-token
-        logits [V], decode logits [S, V], cache with the chunk written and
-        active slots advanced by one). Needs ragged attention."""
+        ragged attention launch per layer; `embeds` [C, E] replaces the
+        chunk rows' embeddings. Returns (chunk last-valid-token logits [V],
+        decode logits [S, V], cache with the chunk written and active slots
+        advanced by one). Needs ragged attention."""
         if not self.ragged_attention:
             raise ValueError("mixed_step needs a model built with ragged_attention=True")
         c = chunk_tokens.shape[0]
         positions = cache.lengths.clone()
         total = chunk_start + chunk_len
         x, k_new, v_new = self._chunk_rows(cache, chunk_tokens, chunk_start, total,
-                                           table_row, group=(tokens, positions))
+                                           table_row, group=(tokens, positions),
+                                           embeds=embeds)
         chunk_logits = self._unembed(x[0, max(chunk_len - 1, 0)])
         dec_logits = self._unembed(x[0, c:])
         # the two regions write disjoint pages (the admitting slot is not

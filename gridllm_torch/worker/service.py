@@ -9,8 +9,9 @@ a disaggregated prefill exports its prompt's KV pages to the planned
 decode worker over the migration wire (gridllm_torch/transfer), a decode
 worker imports them, a graceful drain live-migrates its decodes to a peer,
 and a preemption parks the suspended decode's pages in the engine's host
-KV tier. What the port cannot serve yet fails loudly with a non-retryable
-result that names the missing piece: images and embeddings (ROADMAP A 8).
+KV tier. Embedding jobs run the engine's `embed` off the event loop;
+image requests reach the engine on `GenerationRequest.images`, and a model
+without vision refuses them non-retryably.
 
 Reference analogue: client/src/services/WorkerClientService.ts — connect,
 self-register, heartbeat, execute assigned jobs, stream results back over
@@ -98,9 +99,6 @@ log = get_logger("worker")
 
 # single source of truth shared with the advertised maxConcurrentTasks
 _capacity = total_slots
-
-# what the port lacks, named in the loud failures
-_NO_EMBED = "embeddings are not served by the torch worker yet (bert_embed, ROADMAP A 8)"
 
 # Worker-plane job outcomes (process-global registry; the worker's health
 # port serves /metrics from it — worker/main.py)
@@ -768,34 +766,35 @@ class WorkerService(EventEmitter):
                     raise ValueError(f"model not served here: {req.model}")
                 rtype = req.request_type
                 if rtype == "embedding":
-                    raise NonRetryableJobError(_NO_EMBED)
-                md = req.metadata or {}
-                if md.get("disagg") and md.get("disaggPhase") != "decode":
-                    # disaggregated phase 1: prefill, export KV pages to the
-                    # planned decode worker, hand off. Any failure degrades
-                    # to serving the request locally: the transfer is never
-                    # load-bearing.
-                    verdict = await self._run_disagg_prefill(engine, assignment)
-                    if verdict == "handoff":
-                        outcome = "handoff"
-                        return
-                    if verdict == "suspended":
-                        # drained mid-prefill: requeue via NACK (no retry-
-                        # ladder burn); this worker stays alive, so nothing
-                        # else would resolve it
-                        outcome = "drained"
-                        await self._publish_failure(
-                            assignment, "worker draining", nack=True)
-                        return
-                    if verdict == "cancelled":
+                    response = await self._run_embedding(engine, req)
+                else:
+                    md = req.metadata or {}
+                    if md.get("disagg") and md.get("disaggPhase") != "decode":
+                        # disaggregated phase 1: prefill, export KV pages to
+                        # the planned decode worker, hand off. Any failure
+                        # degrades to serving the request locally: the
+                        # transfer is never load-bearing.
+                        verdict = await self._run_disagg_prefill(engine, assignment)
+                        if verdict == "handoff":
+                            outcome = "handoff"
+                            return
+                        if verdict == "suspended":
+                            # drained mid-prefill: requeue via NACK (no
+                            # retry-ladder burn); this worker stays alive,
+                            # so nothing else would resolve it
+                            outcome = "drained"
+                            await self._publish_failure(
+                                assignment, "worker draining", nack=True)
+                            return
+                        if verdict == "cancelled":
+                            outcome = "cancelled"
+                            return
+                        # "fallback" falls through to local generation
+                    response = await self._run_generation(engine, assignment)
+                    if response is None:
+                        # cancelled — scheduler already resolved it
                         outcome = "cancelled"
                         return
-                    # "fallback" falls through to local generation
-                response = await self._run_generation(engine, assignment)
-                if response is None:
-                    # cancelled — scheduler already resolved it
-                    outcome = "cancelled"
-                    return
                 if rtype != "embedding":
                     self._note_prefix_key(req)
                 usage = self._usage_by_job.pop(req.id, None)
@@ -1378,6 +1377,22 @@ class WorkerService(EventEmitter):
                 gen.resume_ids = [int(t) for t in resume["tokens"]]
                 gen.resume_sent = max(int(resume.get("sentChars") or 0), 0)
         return gen
+
+    async def _run_embedding(self, engine: InferenceEngine, req) -> InferenceResponse:
+        """An embedding job: `input` (or `prompt`), one text or a list,
+        through engine.embed off the event loop. prompt_eval_count counts
+        the input's characters, as the JAX worker does."""
+        texts = req.input if req.input is not None else req.prompt
+        single = isinstance(texts, str)
+        texts = [texts] if single else list(texts or [])
+        t0 = time.perf_counter_ns()
+        with self.tracer.span(req.id, "engine.embed", texts=len(texts)):
+            vecs = await asyncio.to_thread(engine.embed, texts)
+        dur = time.perf_counter_ns() - t0
+        return InferenceResponse(
+            id=req.id, model=req.model, created_at=iso_now(), done=True,
+            embeddings=vecs, embedding=vecs[0] if single and vecs else None,
+            total_duration=dur, prompt_eval_count=sum(len(t) for t in texts))
 
     async def _run_generation(
         self, engine: InferenceEngine, assignment: JobAssignment

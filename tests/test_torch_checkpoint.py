@@ -24,6 +24,7 @@
   prewarm leaves the stream unchanged.
 """
 
+import dataclasses
 import json
 import os
 import struct
@@ -218,13 +219,33 @@ def dataclasses_equal(a, b):
     return da == db
 
 
-@pytest.mark.parametrize("model_type,item", [("bert", "ROADMAP A 8"),
-                                             ("llava", "ROADMAP A 8")])
-def test_config_refuses_unported_families(tmp_path, model_type, item):
-    (tmp_path / "config.json").write_text(json.dumps(dict(HF_DICTS["llama3"],
-                                                          model_type=model_type)))
-    with pytest.raises(ValueError, match=item):
-        TCFG.config_from_hf_dir("x", str(tmp_path))
+# the bert and llava config.json shapes (llava: a sparse text config, the
+# CLIP vision config, the image token and feature layer at the top)
+SERVED_SINCE = {
+    "bert": {"model_type": "bert", "vocab_size": 30522, "hidden_size": 1024,
+             "intermediate_size": 4096, "num_hidden_layers": 24,
+             "num_attention_heads": 16, "layer_norm_eps": 1e-12,
+             "max_position_embeddings": 512},
+    "llava": {"model_type": "llava", "image_token_index": 32000,
+              "vision_feature_layer": -2,
+              "text_config": {"model_type": "llama", "vocab_size": 32064,
+                              "rms_norm_eps": 1e-5},
+              "vision_config": {"hidden_size": 1024, "image_size": 336, "patch_size": 14,
+                                "num_hidden_layers": 24}},
+}
+
+
+@pytest.mark.parametrize("model_type", sorted(SERVED_SINCE))
+def test_config_refuses_unported_families(tmp_path, model_type):
+    """The bert and llava families, refused until the embeddings and vision
+    slice was ported, now load: their config.json gives the JAX package's
+    config, field for field."""
+    (tmp_path / "config.json").write_text(json.dumps(SERVED_SINCE[model_type]))
+    got = dataclasses.asdict(TCFG.config_from_hf_dir("x", str(tmp_path)))
+    want = dataclasses.asdict(JCFG.config_from_hf_dir("x", str(tmp_path)))
+    want.pop("use_pallas")
+    assert got == want
+    assert got["family"] == {"bert": "bert_embed", "llava": "llava"}[model_type]
 
 
 def test_registered_configs_round_trip_through_hf_config(tmp_path):

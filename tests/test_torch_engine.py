@@ -412,8 +412,8 @@ def test_suspend_running_and_pending_requests(engines):
 
 def test_worker_calls_seed_usage_and_refusals():
     """resolve_seed draws from the engine-seeded RNG; results carry the
-    usage fields; images fail non-retryably, naming the slice that ports
-    them; an export_only request finishes at its first token with reason
+    usage fields; images on a model without vision fail non-retryably with
+    the JAX engine's wording; an export_only request finishes at its first token with reason
     "export" and its prompt's pages exportable; with the host tier off,
     park_to_host parks nothing."""
     te = TEngine(TConfig(spec_decode=False, seed=7, **TINY), device="cpu")
@@ -422,8 +422,9 @@ def test_worker_calls_seed_usage_and_refusals():
     res, _, _ = _run(te, "usage", "hello", GREEDY)
     assert res.decode_device_s > 0 and res.kv_page_s > 0
     assert not te.embedding_only and te.kv_transfer_supported()
-    bad, _, _ = _run(te, "bad-A 8", "hello", GREEDY, images=["aGVsbG8="])
-    assert bad.done_reason == "error" and not bad.retryable and "A 8" in bad.error
+    bad, _, _ = _run(te, "bad-image", "hello", GREEDY, images=["aGVsbG8="])
+    assert bad.done_reason == "error" and not bad.retryable
+    assert bad.error == "tiny-llama does not support image inputs"
     prompt = "an export only prompt that spans more than one page " * 2
     exp, text, _ = _run(te, "export", prompt, GREEDY, export_only=True)
     assert exp.done_reason == "export" and exp.text == "" and len(exp.token_ids) == 1

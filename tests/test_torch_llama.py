@@ -122,6 +122,8 @@ def test_configs_match_jax():
             want = getattr(j, field)
             if field == "rope_scaling":
                 want = want and dataclasses.astuple(want)
+            if field == "vision_cfg":
+                want = want and dataclasses.asdict(want)
             assert value == want, (name, field)
         assert t.head_dim_ == j.head_dim_
     assert TCFG.get_config("llama3:8b-instruct-q4") is TCFG.REGISTRY["llama3:8b"]

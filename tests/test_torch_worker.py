@@ -10,8 +10,12 @@ defaults: n-gram speculation, ragged attention and the prefix cache on.
 - generate, chat and streams through the gateway equal a JAX worker's,
   through the JAX package's gateway stack and through the port's;
 - an assignment over capacity is NACKed and a cancel mid-stream resolves;
-- images and embeddings fail loudly, naming the slice that ports them; a
-  disaggregated prefill with no decode peer falls back to local serving;
+- embeddings are served with a JAX worker's vectors, images on a model
+  without vision fail non-retryably with the JAX wording, a tiny-llava
+  worker answers image requests (generate and chat) with a JAX worker's
+  text and an embed-only tiny-bert worker answers /api/embed and
+  /api/embeddings as a JAX one; a disaggregated prefill with no decode
+  peer falls back to local serving;
 - a fleet of one JAX and one torch worker serves greedy requests with
   either worker's text;
 - a worker killed mid-decode (its bus goes silent, as a SIGKILL looks to
@@ -75,9 +79,9 @@ def engines():
     return {"jax": je, "torch": te, "torch-tree": tree}
 
 
-def _worker(kind, engine, bus, wid, **cfg):
+def _worker(kind, engine, bus, wid, model=MODEL, **cfg):
     cls, wcfg = (JWorker, JWorkerConfig) if kind == "jax" else (TWorker, TWorkerConfig)
-    return cls(bus, {MODEL: engine}, wcfg(worker_id=wid, **cfg), stream_flush_ms=5)
+    return cls(bus, {model: engine}, wcfg(worker_id=wid, **cfg), stream_flush_ms=5)
 
 
 async def _settle(engine, timeout=30.0):
@@ -95,8 +99,8 @@ class Stack:
     (test_e2e.py's `_stack`): the JAX package's gateway stack, or with
     gateway="torch" the port's (its bus, registry, scheduler and app)."""
 
-    def __init__(self, kind, engine, sched_cfg=None, gateway="jax"):
-        self.kind, self.engine, self.gateway = kind, engine, gateway
+    def __init__(self, kind, engine, sched_cfg=None, gateway="jax", model=MODEL):
+        self.kind, self.engine, self.gateway, self.model = kind, engine, gateway, model
         self.sched_cfg = sched_cfg or fast_config()
         if gateway == "torch":
             self.sched_cfg = TSchedulerConfig(**{
@@ -114,7 +118,8 @@ class Stack:
         config = (TGatewayConfig if port else Config)()
         config.scheduler = self.sched_cfg
         self.worker = _worker(self.kind, self.engine, self.bus, f"{self.kind}-w",
-                              heartbeat_interval_ms=150, resource_monitor_interval_ms=500)
+                              model=self.model, heartbeat_interval_ms=150,
+                              resource_monitor_interval_ms=500)
         await self.worker.start()
         await asyncio.sleep(0.05)
         self.client = TestClient(TestServer((t_create_app if port else create_app)(
@@ -229,22 +234,33 @@ async def test_nack_over_capacity_and_cancel_mid_stream(engines):
 
 
 async def test_unported_requests_fail_loudly(engines):
-    """Images and embeddings (ROADMAP A 8): a non-retryable failure that
-    names the slice, never a request served some other way. The
-    disaggregated prefill phase and the prefill/decode roles are served
-    since KV transfer was ported: a disaggregated job whose planned decode
-    worker is this worker itself hands off nothing (ok=False,
-    "unsupported") and is served here, and a worker takes either role."""
+    """What the port once refused: /api/embed on tiny-llama is served, with
+    the JAX worker's vectors; an image request to tiny-llama, which has no
+    vision, fails non-retryably with the JAX engine's wording (never
+    served some other way). The disaggregated prefill phase and the
+    prefill/decode roles are served since KV transfer was ported: a
+    disaggregated job whose planned decode worker is this worker itself
+    hands off nothing (ok=False, "unsupported") and is served here, and a
+    worker takes either role."""
+    embed = {"model": MODEL, "input": ["alpha", "beta", "a longer third input " * 4]}
+    async with Stack("jax", engines["jax"]) as st:
+        status, text = await st.post("/ollama/api/embed", embed)
+        assert status == 200, text
+        want = json.loads(text)["embeddings"]
     async with Stack("torch", engines["torch"]) as st:
+        status, text = await st.post("/ollama/api/embed", embed)
+        assert status == 200, text
+        got = json.loads(text)
+        np.testing.assert_allclose(got["embeddings"], want, rtol=0, atol=1e-4)
+        assert got["prompt_eval_count"] == sum(len(t) for t in embed["input"])
         for path, body in (
             ("/ollama/api/generate", {"model": MODEL, "prompt": "what is this?",
                                       "stream": False, "images": ["aGVsbG8="]}),
             ("/ollama/api/chat", {"model": MODEL, "stream": False, "messages": [
                 {"role": "user", "content": "describe", "images": ["aGVsbG8="]}]}),
-            ("/ollama/api/embed", {"model": MODEL, "input": ["alpha", "beta"]}),
         ):
             status, text = await st.post(path, body)
-            assert status >= 400 and "ROADMAP A 8" in text, text
+            assert status >= 400 and f"{MODEL} does not support image inputs" in text, text
         assert st.scheduler._jobs_total.value(event="retried") == 0
 
         seen = {CH_JOB_COMPLETED: [], CH_JOB_HANDOFF: []}
@@ -500,3 +516,74 @@ async def test_worker_process_refusals_and_health_port(engines, tmp_path, monkey
         await runner.cleanup()
         await svc.stop(announce=False)
         await bus.disconnect()
+
+
+def _png_b64(seed: int) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(0, 256, (40, 30, 3), np.uint8)).save(
+        buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+async def test_vision_worker_serves_images_like_a_jax_worker():
+    """A torch worker serving tiny-llava (the JAX engine's weights) answers
+    /api/generate with `images` and /api/chat with an image in a message
+    through the gateway with the JAX worker's text and eval count."""
+    cfg = dict(TINY, model="tiny-llava")
+    je = JEngine(JConfig(**cfg))
+    te = TEngine(TConfig(**cfg), device="cpu", params=jax.tree_util.tree_map(np.asarray,
+                                                                             je.params))
+    greedy = {"temperature": 0, "num_predict": 8}
+    bodies = {
+        "/ollama/api/generate": {"model": "tiny-llava", "prompt": "what is in the picture?",
+                                 "stream": False, "images": [_png_b64(1)], "options": greedy},
+        "/ollama/api/chat": {"model": "tiny-llava", "stream": False, "options": greedy,
+                             "messages": [{"role": "user", "content": "and here?",
+                                           "images": [_png_b64(2), _png_b64(3)]}]},
+    }
+    out = {}
+    for kind, engine in (("jax", je), ("torch", te)):
+        async with Stack(kind, engine, model="tiny-llava") as st:
+            for path, body in bodies.items():
+                status, text = await st.post(path, body)
+                assert status == 200, text
+                b = json.loads(text)
+                out[(kind, path)] = ((b.get("response") or b["message"]["content"]),
+                                     b["eval_count"], b["prompt_eval_count"])
+    for path in bodies:
+        assert out[("torch", path)] == out[("jax", path)], path
+        assert out[("torch", path)][1] == 8
+
+
+async def test_embed_only_worker_serves_like_a_jax_worker():
+    """An embed-only tiny-bert worker (no runner, no pool): /api/embed and
+    the legacy /api/embeddings with the JAX worker's vectors; a generate
+    request fails non-retryably with the JAX wording."""
+    cfg = dict(TINY, model="tiny-bert")
+    je = JEngine(JConfig(**cfg))
+    te = TEngine(TConfig(**cfg), device="cpu", params=jax.tree_util.tree_map(np.asarray,
+                                                                             je.params))
+    out = {}
+    for kind, engine in (("jax", je), ("torch", te)):
+        async with Stack(kind, engine, model="tiny-bert") as st:
+            status, text = await st.post("/ollama/api/embed", {
+                "model": "tiny-bert", "input": ["one", "two words", "three words here"]})
+            assert status == 200, text
+            out[kind, "embed"] = json.loads(text)["embeddings"]
+            status, text = await st.post("/ollama/api/embeddings",
+                                         {"model": "tiny-bert", "prompt": "legacy"})
+            assert status == 200, text
+            out[kind, "legacy"] = [json.loads(text)["embedding"]]
+            status, text = await st.post("/ollama/api/generate", {
+                "model": "tiny-bert", "prompt": "x", "stream": False})
+            assert status >= 400, text
+            out[kind, "generate"] = "tiny-bert is an embedding model" in text
+            assert st.scheduler._jobs_total.value(event="retried") == 0
+    for what in ("embed", "legacy"):
+        np.testing.assert_allclose(out["torch", what], out["jax", what], rtol=0, atol=1e-4)
+    assert out["torch", "generate"] and out["jax", "generate"]
