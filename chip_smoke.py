@@ -345,14 +345,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
              greedy streams with one image (bucket) and two (chunks with
              splice offsets) equal the cache-free forward over the spliced
              embeddings with the plain attention.
+23. tp     — tensor parallelism (phase_tp): an NCCL group of world size 1
+             initializes and all-reduces a CUDA tensor (one card holds
+             no two ranks of an NCCL group); two ranks on gloo, both on
+             cuda:0 (child processes), report which collectives gloo runs
+             on CUDA tensors and serve a float32 cut of llama3:8b (2
+             layers, full width, tp = 2: H 16 and KVH 4 a rank) whose
+             greedy streams, a bucket prefill and a chunked prompt with
+             speculation on, equal the unmeshed engine's in this process;
+             then llama3:8b bf16 at full width and depth served through the
+             port's broker and scheduler by a two-rank group of
+             worker/main.py processes (the liaison registers one logical
+             worker, the follower replays its plan), then by one unmeshed
+             worker process, each a warm-up and an eight-job wave (one
+             prompt past the chunk): TTFT p50 and output tokens/s (gloo
+             puts a host round trip in every all-reduce: a correctness
+             run), each member's launch counters from 0 over the wave
+             (every main-path kernel on both ranks, the same counts on
+             each) and its all-reduces. The kernels phase holds every
+             main-path kernel and the streamed prefill at the per-rank
+             shapes of tp = 2 and 4 (TP_DEGREES).
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes, each with the head dims compiled and its launches under the
 scheduler, on the quant and mixtral serves, behind the gateway, behind
-the scaled control plane, on the embeddings and on llava; then the same rows at D = 256 from the gemma phase,
+the scaled control plane, on the embeddings, on llava and on each rank of
+the tp phase's group; then the same rows at D = 256 from the gemma phase,
 named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane,embed,vision]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane,embed,vision,tp]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -382,7 +403,7 @@ SEED = 0
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "sched", "replay",
               "spec", "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
-              "mixtral", "gateway", "controlplane", "embed", "vision")
+              "mixtral", "gateway", "controlplane", "embed", "vision", "tp")
 
 
 def emit(obj: dict) -> None:
@@ -624,6 +645,7 @@ def _ragged_cases(inp: Inputs, dtype):
           "k_group": inp.randn(1, 1, KVH, D, dtype=dtype),
           "v_group": inp.randn(1, 1, KVH, D, dtype=dtype)}, None, True),
     ]
+    cases += [c for tp in TP_DEGREES for c in _tp_rank_ragged_cases(inp, dtype, tp)]
     # G = 1 groups at KVH = 32 (llava:7b): decode and a verify of K+1 = 5
     # on a shuffled table of 64 pages a slot (llava's 4,096 tokens), an
     # empty slot and a slot at the capacity's edge
@@ -644,6 +666,36 @@ def _ragged_cases(inp: Inputs, dtype):
                        "k_group": inp.randn(S, td, mha, D, dtype=dtype),
                        "v_group": inp.randn(S, td, mha, D, dtype=dtype)}, None, True))
     return cases
+
+
+def _tp_rank_ragged_cases(inp: Inputs, dtype, tp: int):
+    """ragged_attention at llama3:8b's per-rank shapes under `tp` (H/tp q
+    heads over KVH/tp kv heads, the rank's own pool): a 1024-row chunk
+    after 1024 cached tokens beside eight decode groups (a mixed step), and
+    verify groups of K+1 = 5, on a shuffled table with -1 past each slot's
+    pages; q scaled by LONG_Q_SCALE, held to the row-relative error."""
+    torch = inp.torch
+    h, kvh = H // tp, KVH // tp
+    lengths = [0, 1, 63, 700, 1500, 2047, 3000, 4000]
+    n_pool = S * MAXP
+    kp, vp = (inp.randn(2, n_pool, PS, kvh, D, dtype=dtype) for _ in range(2))
+    table = inp.page_table(lengths, extra=5)
+    glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    base = dict(k_pages=kp, v_pages=vp, page_size=PS, layer=1, page_table=table,
+                group_lengths=glens)
+
+    def group(td):
+        return dict(q_group=inp.randn(S, td, h, D, dtype=dtype) * LONG_Q_SCALE,
+                    k_group=inp.randn(S, td, kvh, D, dtype=dtype),
+                    v_group=inp.randn(S, td, kvh, D, dtype=dtype))
+
+    chunk = dict(q_chunk=inp.randn(1, 1024, h, D, dtype=dtype) * LONG_Q_SCALE,
+                 chunk_row=table[5], chunk_start=1024, chunk_total=2048,
+                 k_chunk=inp.randn(1024, kvh, D, dtype=dtype),
+                 v_chunk=inp.randn(1024, kvh, D, dtype=dtype))
+    return [(f"tp{tp}_rank_chunk_after_1024_with_groups", {**base, **chunk, **group(1)},
+             1024, True),
+            (f"tp{tp}_rank_group_td5", {**base, **group(5)}, None, True)]
 
 
 def _decode_cases(inp: Inputs, dtype):
@@ -865,6 +917,43 @@ def _wide_group_cases(torch, inp: Inputs, dtype):
     return cases
 
 
+def _tp_rank_writes(torch, inp: Inputs, dtype, tp: int) -> list[dict]:
+    """Both KV writes into one rank's pool under `tp` (KVH/tp kv heads):
+    a decode step's rows (an inactive slot, the capacity edge) and a
+    page-aligned chunk, exact on the valid region."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.kvcache import write_decode, write_prefill
+
+    kvh, dname = KVH // tp, str(dtype).split(".")[-1]
+    shape = (2, S * MAXP, PS, kvh, D)
+    kp, vp = inp.randn(*shape, dtype=dtype), inp.randn(*shape, dtype=dtype)
+    positions = torch.tensor([0, 63, 64, 700, 8191, 8192, 100, 5000],
+                             dtype=torch.int32, device="cuda")
+    table = inp.page_table([int(p) for p in positions.tolist()], extra=1)
+    active = torch.tensor([True] * 6 + [False, True], device="cuda")
+    kn, vn = inp.randn(2, S, kvh, D, dtype=dtype), inp.randn(2, S, kvh, D, dtype=dtype)
+    want = write_decode(kp.clone(), vp.clone(), kn, vn, table, positions, active, PS)
+    got = ck.paged_write_decode(kp.clone(), vp.clone(), kn, vn, table, positions, active, PS)
+    torch.cuda.synchronize()
+    out = [{"kernel": "paged_write_decode", "dtype": dname, "tp_rank_of": tp, "KVH": kvh,
+            "exact": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))}]
+    t, start, length = 1024, 128, 1000
+    row = table[3]
+    kn, vn = inp.randn(2, t, kvh, D, dtype=dtype), inp.randn(2, t, kvh, D, dtype=dtype)
+    want = write_prefill(kp.clone(), vp.clone(), kn, vn, row, start, length, PS)
+    got = ck.paged_write_chunk(kp.clone(), vp.clone(), kn, vn, row, start, length, PS)
+    torch.cuda.synchronize()
+    last = start + length - 1
+    keep = torch.ones(kp.shape[1:3], dtype=torch.bool, device="cuda")
+    keep[int(row[last // PS]), last % PS + 1:] = False
+    out.append({"kernel": "paged_write_chunk", "dtype": dname, "tp_rank_of": tp, "KVH": kvh,
+                "exact": bool(torch.equal(got[0][:, keep], want[0][:, keep])
+                              and torch.equal(got[1][:, keep], want[1][:, keep]))})
+    for c in out:
+        check(c["exact"], f"{c['kernel']} {dname} tp{tp} rank: pools differ")
+    return out
+
+
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -899,7 +988,13 @@ PREFILL_CASES = (
     ("llama3_70b_g8_batch_of_two", (520, 64, 8, 128), [520, 300], 0, 0.0),
     ("window_across_tiles_softcap", (1100, H, KVH, D), [1100], 200, 30.0),
     ("t129_len128", (129, H, KVH, D), [128], 0, 0.0),
+    # llama3:8b's share of one rank under tp = 2 (H 16, KVH 4) and tp = 4
+    # (H 8, KVH 2): the tp phase's prompt buckets
+    ("llama3_8b_tp2_rank_t1024", (1024, H // 2, KVH // 2, D), [1000], 0, 0.0),
+    ("llama3_8b_tp4_rank_t600", (600, H // 4, KVH // 4, D), [583], 0, 0.0),
 )
+# the tensor-parallel degrees whose per-rank shapes the kernels phase holds
+TP_DEGREES = (2, 4)
 
 
 def phase_kernels(torch) -> dict:
@@ -1043,6 +1138,8 @@ def phase_kernels(torch) -> dict:
         cases.append({"kernel": "paged_write_chunk", "dtype": dname, "exact": exact})
         check(exact, f"paged_write_chunk {dname}: valid region differs")
         del kp, vp, want_k, want_v, got_k, got_v
+        for tp in TP_DEGREES:
+            cases += _tp_rank_writes(torch, inp, dtype, tp)
     torch.cuda.empty_cache()
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2291,9 +2388,14 @@ def _printable_head(torch, engine) -> None:
     greedy then picks ASCII bytes, so each token streams a character, as a
     trained model's text does. With all 128,256 columns random, almost
     every token is an id past the bytes that decodes to nothing, and the
-    streams the worker publishes would be empty."""
+    streams the worker publishes would be empty. A rank of a tensor-parallel
+    engine holds its slice of the columns, in rank order."""
+    head = engine.model.lm_head
+    lo = 0
+    if head.shape[1] != engine.cfg.vocab_size:   # a vocab-split head
+        lo = engine.mesh.axis_rank("tp") * head.shape[1]
     with torch.no_grad():
-        engine.model.lm_head[:, 128:] = 0
+        head[:, max(128 - lo, 0):] = 0
 
 
 def phase_worker(torch) -> dict:
@@ -7461,6 +7563,436 @@ def phase_vision(torch) -> dict:
             "picture": list(VISION_PICTURE), **out}
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor parallelism over a two-rank worker group on the one card
+# ---------------------------------------------------------------------------
+
+TP_MODEL = "llama3:8b"
+TP_WORLD = 2
+TP_CTL = "chip_smoke:tp:ctl"          # bus channels of the members' launch counters
+TP_COUNTS = "chip_smoke:tp:counts"
+# the wave: (prompt bytes, tokens), eight at once, one past the 1,024-token chunk
+TP_WAVE = ((300, 48), (450, 40), (200, 48), (600, 32), (1500, 32), (350, 40), (250, 48),
+           (400, 32))
+TP_F32_LAYERS = 2
+TP_F32_TOKENS = 24
+TP_MAIN_PATH = ("flash_prefill", "ragged_attention", "ragged_attention.chunk",
+                "paged_write_decode", "paged_write_chunk")
+# float32 chunks run on the CUDA cores
+TP_CUT_PATH = tuple(k.replace(".chunk", ".chunk_cores") for k in TP_MAIN_PATH)
+TP_GLOO_OPS = ("all_reduce", "all_gather_into_tensor")
+
+
+def _tp_gloo_ops(torch, device: str = "cuda:0") -> dict:
+    """Which collectives gloo runs on CUDA tensors (the ops
+    parallel/collectives.py uses), in float32 and bfloat16, checked
+    against their sums and concatenations."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ops = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for op in TP_GLOO_OPS:
+            x = torch.full((4,), rank + 1.0, dtype=dt, device=device)
+            try:
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                    ok = x.tolist() == [world * (world + 1) / 2] * 4
+                else:
+                    y = torch.empty(4 * world, dtype=dt, device=device)
+                    dist.all_gather_into_tensor(y, x)
+                    ok = y.tolist() == [float(r + 1) for r in range(world) for _ in range(4)]
+                ops[f"{op}.{str(dt).split('.')[-1]}"] = "ok" if ok else "wrong result"
+            except Exception as e:  # noqa: BLE001 — reported, and checked by the caller
+                ops[f"{op}.{str(dt).split('.')[-1]}"] = f"{type(e).__name__}: {e}"[:200]
+    return ops
+
+
+# the collectives of a llama3:8b rank under tp = 2: (name, kind, shape, dtype)
+TP_GLOO_SHAPES = (("decode_all_reduce", "all_reduce", (S, 4096), "bfloat16"),
+                  ("prefill_all_reduce", "all_reduce", (1024, 4096), "bfloat16"),
+                  ("logits_gather", "all_gather", (S, 128256 // TP_WORLD), "float32"))
+
+
+def _tp_gloo_ms(torch, device: str = "cuda:0", iters: int = 20) -> dict:
+    """Host ms of one gloo collective on CUDA tensors at the shapes a
+    llama3:8b rank sends (a decode step's all-reduce, a 1,024-token
+    prefill's, a decode step's logits gather), two ranks in lockstep; a
+    collective returns when its result is on the device."""
+    from gridllm_torch.parallel import collectives
+
+    mesh = _tp_mesh()
+    out = {}
+    for name, kind, shape, dt in TP_GLOO_SHAPES:
+        x = torch.ones(shape, dtype=getattr(torch, dt), device=device)
+        fn = (lambda: collectives.all_reduce_sum(x, mesh)) if kind == "all_reduce" else \
+            (lambda: collectives.gather_last(x, mesh))
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        out[name] = {"shape": list(shape), "dtype": dt, "bytes": x.numel() * x.element_size(),
+                     "ms": (time.perf_counter() - t0) * 1e3 / iters}
+    collectives.reset_counts()
+    return out
+
+
+def _tp_mesh():
+    from gridllm_torch.parallel import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(tp=TP_WORLD))
+
+
+def _tp_cut_prompts() -> list[str]:
+    import random
+
+    rng = random.Random(SEED + 20)
+    return [_prompt(rng, 300), _prompt(rng, 1500)]   # a bucket prefill; mixed steps
+
+
+def _tp_cut_engine(model: str, mesh):
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    return InferenceEngine(EngineConfig(
+        model=model, dtype="float32", max_slots=4, page_size=PS, num_pages=256,
+        max_pages_per_slot=64, mesh=mesh), device="cuda:0")
+
+
+def _tp_cut_streams(engine) -> list[list[int]]:
+    from gridllm_torch.engine import GenerationRequest
+
+    return [engine.generate(GenerationRequest(
+        id=f"cut{i}", prompt=p, options={"temperature": 0, "num_predict": TP_F32_TOKENS})
+    ).token_ids for i, p in enumerate(_tp_cut_prompts())]
+
+
+def _tp_child(torch, args: list[str]) -> dict:
+    """A member of the tp phase's groups. `cut RANK PORT`: a rank of the
+    float32 cut's two-rank gloo group on cuda:0, reporting the gloo ops on
+    CUDA tensors and its greedy streams (both ranks run the same requests);
+    `worker LABEL BUS_URL`: worker/main.py's `run` on gloo on cuda:0 (a
+    group member where the environment says so, else a plain worker),
+    beside a task that zeroes and reports its launch and collective
+    counters on bus messages."""
+    import asyncio
+
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.parallel import GroupConfig, MeshConfig, collectives, distributed
+
+    if args[0] == "cut":
+        rank, port = int(args[1]), args[2]
+        group = GroupConfig(coordinator=f"127.0.0.1:{port}", num_processes=TP_WORLD,
+                            process_id=rank)
+        distributed.initialize_group(group, backend="gloo", device="cuda:0", timeout_s=300)
+        ops = _tp_gloo_ops(torch)
+        gloo_ms = _tp_gloo_ms(torch)
+        engine = _tp_cut_engine(_cut(TP_MODEL, TP_F32_LAYERS), MeshConfig(tp=TP_WORLD))
+        ck.reset_launch_counts()
+        streams = _tp_cut_streams(engine)
+        out = {"rank": rank, "gloo_cuda_ops": ops, "gloo_ms": gloo_ms, "streams": streams,
+               "launches": ck.launch_counts(), "collectives": dict(collectives.CALLS),
+               "heads": [engine.model.n_heads, engine.model.n_kv_heads]}
+        distributed.shutdown_group(group)
+        return out
+
+    label, url = args[1], args[2]
+    from gridllm_torch.bus import create_bus
+    from gridllm_torch.worker import main as wmain
+
+    build = wmain.build_engines
+
+    def printable_engines(config, device="cuda"):
+        # streams that carry text, as the worker phase's (_printable_head)
+        engines = build(config, device=device)
+        for engine in engines.values():
+            _printable_head(torch, engine)
+        return engines
+
+    wmain.build_engines = printable_engines
+
+    async def control() -> None:
+        bus = create_bus(url)
+        await bus.connect()
+
+        async def on_cmd(_ch: str, raw: str) -> None:
+            if raw == "reset":
+                ck.reset_launch_counts()
+                collectives.reset_counts()
+            await bus.publish(TP_COUNTS, json.dumps({
+                "member": label, "cmd": raw, "launches": ck.launch_counts(),
+                "collectives": dict(collectives.CALLS)}))
+
+        await bus.subscribe(TP_CTL, on_cmd)
+        await asyncio.Event().wait()
+
+    async def main() -> None:
+        ctl = asyncio.create_task(control())
+        try:
+            await wmain.run(backend="gloo", device="cuda:0")
+        finally:
+            ctl.cancel()
+
+    asyncio.run(main())
+    return {"member": label}
+
+
+def _tp_spawn(log_name: str, args: list[str], env: dict | None = None):
+    import os
+
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    log = open(out / f"tp_{log_name}.txt", "w")
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--tp-child", *args],
+                            cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO), **(env or {})},
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def _tp_stop(procs, timeout_s: float = 60.0) -> list:
+    """SIGTERM every process, then SIGKILL what is left; their exit codes."""
+    import signal
+
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    codes = []
+    for proc, log in procs:
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+        codes.append(proc.returncode)
+    return codes
+
+
+def _tp_nccl_world_one(torch) -> dict:
+    """An NCCL group of world size 1 on cuda:0: it initializes and
+    all-reduces a CUDA tensor (the only NCCL group one card allows: NCCL
+    puts no two ranks of a group on one device)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda:0"))
+    try:
+        x = torch.arange(8, dtype=torch.bfloat16, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        ok = x.tolist() == [float(i) for i in range(8)]
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    check(ok and backend == "nccl", "tp: the NCCL world-size-1 all-reduce")
+    return {"backend": backend, "all_reduce_ok": ok}
+
+
+def _tp_f32_cut(torch) -> dict:
+    """The float32 cut: two ranks (gloo, both on cuda:0) serve its greedy
+    streams over tp = 2 while this process serves them unmeshed; the
+    streams must be equal token for token."""
+    import os
+
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    port = _free_port()
+    out = REPO / "chiprun_out"
+    procs = [_tp_spawn(f"cut_rank{r}", ["cut", str(r), str(port)]) for r in range(TP_WORLD)]
+    try:
+        ck.reset_launch_counts()
+        engine = _tp_cut_engine(_cut(TP_MODEL, TP_F32_LAYERS), None)
+        want = _tp_cut_streams(engine)
+        unmeshed_launches = ck.launch_counts()
+        del engine
+        torch.cuda.empty_cache()
+        for proc, _ in procs:
+            proc.wait(timeout=600)
+    finally:
+        codes = _tp_stop(procs)
+    check(codes == [0] * TP_WORLD, f"tp: a cut rank failed ({codes}): see chiprun_out/tp_cut_*")
+    ranks = []
+    for r in range(TP_WORLD):
+        lines = (out / f"tp_cut_rank{r}.txt").read_text().splitlines()
+        ranks.append(json.loads(next(ln for ln in reversed(lines) if ln.startswith('{"ok"'))))
+    for r in ranks:
+        bad = {k: v for k, v in r["gloo_cuda_ops"].items() if v != "ok"}
+        check(not bad, f"tp: gloo ops on CUDA tensors failed: {bad}")
+        check(r["streams"] == want, f"tp: rank {r['rank']}'s float32 stream differs from "
+              f"the unmeshed engine's: {r['streams']} vs {want}")
+        check(all(r["launches"][k] > 0 for k in TP_CUT_PATH),
+              f"tp: a cut rank skipped a kernel: {r['launches']}")
+    check(ranks[0]["launches"] == ranks[1]["launches"], "tp: the cut ranks' launches differ")
+    return {"layers": TP_F32_LAYERS, "tokens": [len(x) for x in want], "streams_equal": True,
+            "gloo_cuda_ops": ranks[0]["gloo_cuda_ops"], "gloo_ms": ranks[0]["gloo_ms"],
+            "heads_per_rank": ranks[0]["heads"],
+            "launches_per_rank": {k: ranks[0]["launches"][k] for k in TP_CUT_PATH},
+            "launches_unmeshed": {k: unmeshed_launches[k] for k in TP_CUT_PATH},
+            "collectives_per_rank": ranks[0]["collectives"]}
+
+
+async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of) -> dict:
+    """One way of serving the wave (the two-rank group, or one unmeshed
+    worker): its processes start, register, take two warm-up jobs, then
+    the eight-job wave with every member's counters from 0; TTFT p50 and
+    output tokens/s as the scheduler's client sees them."""
+    import asyncio
+    import random
+
+    from gridllm_torch.utils.types import InferenceRequest
+
+    members = env_of()
+    procs = [_tp_spawn(f"{name}_{label}", ["worker", label, members[label]["url"]],
+                       env=members[label]["env"]) for label in members]
+    wid = next(iter(members.values()))["env"]["WORKER_ID"]
+    t_start = time.perf_counter()
+
+    def req(rid, prompt, n):
+        return InferenceRequest(id=f"{name}-{rid}", model=TP_MODEL, prompt=prompt, stream=True,
+                                options={"temperature": 0, "num_predict": n},
+                                metadata={"requestType": "inference"})
+
+    async def run(r):
+        chunks, first = [], []
+        t0 = time.perf_counter()
+
+        async def on_chunk(c):
+            if not first:
+                first.append(time.perf_counter() - t0)
+            chunks.append(c.response or "")
+
+        res = await scheduler.submit_streaming_job(r, on_chunk, timeout_ms=600_000)
+        return res, "".join(chunks), (first[0] if first else None)
+
+    async def tally(cmd: str) -> dict:
+        counts.clear()
+        await bus.publish(TP_CTL, cmd)
+        await _wait(lambda: len({c["member"] for c in counts if c["cmd"] == cmd}) == len(members),
+                    f"tp: {name} counters ({cmd})", 60)
+        return {c["member"]: c for c in counts if c["cmd"] == cmd}
+
+    try:
+        def alive():
+            for proc, _ in procs:
+                check(proc.poll() is None, f"tp: a {name} member exited ({proc.returncode}): "
+                      f"see chiprun_out/tp_{name}_*")
+            return registry.get_worker(wid) is not None
+
+        await _wait(alive, f"tp: {name} registered", 600)
+        ready_s = time.perf_counter() - t_start
+        check(list(await bus.hgetall("workers")) == [wid], f"tp: {name} is not one worker")
+        rng = random.Random(SEED + 21)
+        for i, n in enumerate((300, 1500)):   # warm-up, not measured
+            res, _, _ = await run(req(f"warm{i}", _prompt(rng, n), 8))
+            check(res.success, f"tp: {name} warm-up: {res.error}")
+        await tally("reset")
+        wave = [req(f"w{i}", _prompt(rng, b), n) for i, (b, n) in enumerate(TP_WAVE)]
+        t0 = time.perf_counter()
+        done = await asyncio.gather(*(run(r) for r in wave))
+        wall = time.perf_counter() - t0
+        read = await tally("read")
+    finally:
+        # off the event loop: the members drain through the broker it serves
+        codes = await asyncio.to_thread(_tp_stop, procs)
+    tokens, ttft, texts = 0, [], []
+    for r, (res, text, first) in zip(wave, done):
+        check(res.success, f"tp: {name} job {r.id}: {res.error}")
+        n, ev = r.options["num_predict"], res.response.eval_count
+        check(ev == n or (res.response.done_reason == "stop" and ev < n),
+              f"tp: {name} job {r.id}: {ev} of {n} tokens")
+        check(text == _final_text(res), f"tp: {name} job {r.id}: stream != final text")
+        check(res.workerId == wid, f"tp: {name} job {r.id} served by {res.workerId}")
+        check(first is not None, f"tp: {name} job {r.id} streamed no chunk")
+        tokens += ev
+        ttft.append(first * 1e3)
+        texts.append(text)
+    launches = {m: {k: c["launches"].get(k, 0) for k in TP_MAIN_PATH} for m, c in read.items()}
+    for m, c in launches.items():
+        check(all(v > 0 for v in c.values()), f"tp: {name} {m} skipped a kernel: {c}")
+    check(len({json.dumps(c, sort_keys=True) for c in launches.values()}) == 1,
+          f"tp: {name} members launched differently: {launches}")
+    return {"members": len(procs), "ready_s": ready_s, "ttft_ms_p50": statistics.median(ttft),
+            "ttft_ms": ttft, "output_tokens": tokens, "wall_s": wall,
+            "output_tokens_per_s": tokens / wall, "launches": launches,
+            "collectives": {m: c["collectives"] for m, c in read.items()},
+            "exit_codes": codes, "texts": texts}
+
+
+async def _tp_serve() -> dict:
+    """llama3:8b bf16 at full width and depth: the two-rank group (gloo,
+    both ranks on cuda:0) as one logical worker behind the port's
+    scheduler on the port's broker, then one unmeshed worker process on the
+    same broker, each serving the same wave."""
+    from gridllm_torch.bus import create_bus
+    from gridllm_torch.bus.broker import GridBusBroker
+    from gridllm_torch.scheduler import JobScheduler, WorkerRegistry
+    from gridllm_torch.utils.config import SchedulerConfig
+
+    broker = GridBusBroker()
+    await broker.start(port=0)
+    url = f"resp://127.0.0.1:{broker.port}"
+    bus = create_bus(url)
+    await bus.connect()
+    registry = WorkerRegistry(bus, SchedulerConfig())
+    scheduler = JobScheduler(bus, registry, SchedulerConfig())
+    await registry.initialize()
+    await scheduler.initialize()
+    counts: list = []
+
+    async def on_counts(_ch, raw):
+        counts.append(json.loads(raw))
+
+    sub = await bus.subscribe(TP_COUNTS, on_counts)
+    base = {"GRIDLLM_BUS_URL": url, "GRIDLLM_MODELS": TP_MODEL, "GRIDLLM_KV_PAGE_SIZE": str(PS),
+            "GRIDLLM_MAX_BATCH_SLOTS": str(S), "HEARTBEAT_INTERVAL": "1000"}
+
+    def group_env():
+        coord = f"127.0.0.1:{_free_port()}"
+        return {f"rank{r}": {"url": url, "env": {
+            **base, "WORKER_ID": "tp-group", "GRIDLLM_MESH_SHAPE": f"tp:{TP_WORLD}",
+            "GRIDLLM_NUM_PROCS": str(TP_WORLD), "GRIDLLM_PROC_ID": str(r),
+            "GRIDLLM_COORD_ADDR": coord, "WORKER_PORT": str(_free_port())}}
+            for r in range(TP_WORLD)}
+
+    def plain_env():
+        return {"plain": {"url": url, "env": {**base, "WORKER_ID": "tp-plain",
+                                              "WORKER_PORT": str(_free_port())}}}
+
+    try:
+        group = await _tp_way("group", bus, registry, scheduler, counts, group_env)
+        await _wait(lambda: registry.get_worker("tp-group") is None, "tp: the group left", 120)
+        plain = await _tp_way("plain", bus, registry, scheduler, counts, plain_env)
+    finally:
+        await sub.unsubscribe()
+        await scheduler.shutdown()
+        await registry.shutdown()
+        await bus.disconnect()
+        await broker.stop()
+    same = sum(a == b for a, b in zip(group.pop("texts"), plain.pop("texts")))
+    return {"group": group, "unmeshed": plain,
+            # bf16 sums run in another order over tp: a reading, not a check
+            "bf16_streams_equal_to_unmeshed": f"{same}/{len(TP_WAVE)}",
+            "note": "two ranks on one card over gloo: every all-reduce is a round trip "
+                    "through host memory; a correctness run, not a TP speed"}
+
+
+def phase_tp(torch) -> dict:
+    """Tensor parallelism: an NCCL group of world size 1; the float32 cut
+    whose tp = 2 streams equal the unmeshed engine's (and the gloo ops on
+    CUDA tensors); llama3:8b bf16 served by a two-rank group through the
+    port's bus worker beside an unmeshed worker."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    out = {"phase": "tp", "nccl_world_1": _tp_nccl_world_one(torch)}
+    out["f32_cut"] = _tp_f32_cut(torch)
+    out["serve"] = asyncio.run(_tp_serve())
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
 TURN_PARTS = ("kernels", "steps", "int8")
 
 
@@ -7533,6 +8065,7 @@ def main() -> int:
     ap.add_argument("--checkpoint-child", help=argparse.SUPPRESS)
     ap.add_argument("--prewarm", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--turn-child", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-child", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -7548,6 +8081,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if args.profiler_child:
         emit({"ok": True, **_profiler_child(torch)})
+        return 0
+    if args.tp_child:
+        emit({"ok": True, **_tp_child(torch, args.tp_child)})
         return 0
     if args.checkpoint_child:
         emit({"ok": True, **_checkpoint_child(torch, args.checkpoint_child, bool(args.prewarm))})
@@ -7575,7 +8111,7 @@ def main() -> int:
                    "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
                    "quant": phase_quant, "mixtral": phase_mixtral,
                    "gateway": phase_gateway, "controlplane": phase_controlplane,
-                   "embed": phase_embed, "vision": phase_vision}[phase](torch)
+                   "embed": phase_embed, "vision": phase_vision, "tp": phase_tp}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -7615,6 +8151,9 @@ def main() -> int:
          "launches_on": {p: results[p]["launches"].get(name, 0)
                          for p in ("sched", "quant", "mixtral", "gateway", "controlplane",
                                    "embed", "vision")},
+         # each rank's launches in the two-rank group's serve (tp phase)
+         "launches_tp_ranks": {m: c.get(name, 0) for m, c in
+                               results["tp"]["serve"]["group"]["launches"].items()},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

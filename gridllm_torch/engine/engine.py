@@ -82,6 +82,29 @@ serving path:
   before it as its offset). Image requests never match or register in the
   prefix cache and never resume: token ids do not address pixels.
 
+- Tensor parallelism (`EngineConfig.mesh`, a tp-only MeshConfig; the
+  llama, qwen2/3 and mistral configs): the engine runs on one rank of an
+  initialized torch.distributed group (parallel/distributed.py), its model
+  holds the rank's weight slices and its pool the rank's kv heads
+  (`pool_kv_heads`), and the collectives join the ranks inside every
+  model call. Under a mesh the int8 KV pool and the prefix cache are off
+  (logged), as in the JAX engine, and a draft model, int8 weights and
+  ragged attention off are refused (ROADMAP A 9). The group's ranks must
+  issue the same model calls in the same order: the liaison's engine
+  records each device-dispatching action through `plan_sink` (admit,
+  block, verify, deact, embed, reset: plain host data) and a follower's
+  engine replays them with `apply_plan_op`. Records go out BEFORE their
+  dispatch, unlike the JAX engine's: a torch collective blocks the host
+  until every rank has reached it, so the liaison would wait in its first
+  all-reduce for a follower still waiting for the record. `dispatch_lock`
+  makes (record, dispatch) atomic, so record order is dispatch order
+  across threads (an embed batch run on the calling thread) and, shared
+  across a worker's engines, across models. Followers never read results
+  back, but they sample: the logits are gathered on every rank and the
+  sampler's threefry stream is the same everywhere, so their device state
+  evolves as the liaison's. With a `plan_sink` the host KV tier neither
+  spills nor restores, and KV export and import are off.
+
 - Profiling a serving engine (the JAX engine's `jax.profiler` capture):
   `profile()` is a torch.profiler capture that starts and stops on the
   engine's runner thread while every runner thread of the process waits
@@ -142,6 +165,8 @@ from gridllm_torch.ops.spec import (
     tree_depths,
     tree_topology,
 )
+from gridllm_torch.parallel.mesh import build_mesh
+from gridllm_torch.parallel.sharding import pool_kv_heads
 from gridllm_torch.utils.config import env_bool, env_int, env_str
 
 log = logging.getLogger(__name__)
@@ -308,7 +333,9 @@ class EngineConfig:
     num_pages: int = 1024
     max_pages_per_slot: int = 128
     prefill_buckets: tuple[int, ...] = (64, 256, 1024, 4096)
-    mesh: Any = None                     # not ported
+    # a parallel.mesh.MeshConfig: tensor parallelism over the initialized
+    # torch.distributed group this process is a rank of (tp only)
+    mesh: Any = None
     max_queue: int = 512
     seed: int | None = None              # engine-level seed for unseeded requests
     embed_batch: int = 32                # most texts per embedding forward
@@ -385,12 +412,6 @@ class EngineConfig:
 
     def check_ported(self) -> None:
         """Raise for a setting whose feature this package does not have."""
-        unported = {
-            "mesh": self.mesh is not None,
-        }
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"EngineConfig.{name} is not ported")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype {self.dtype!r} (have {sorted(_DTYPES)})")
         if self.quantize and self.quantize != "int8":
@@ -544,6 +565,10 @@ class InferenceEngine:
         self._rng = random.Random(config.seed)
         # an encoder family: embeddings only, no generation state
         self.embedding_only = self.cfg.family == "bert_embed"
+        self.mesh = build_mesh(config.mesh) if config.mesh is not None else None
+        if self.mesh is not None:
+            config = self._check_mesh(config)
+            self.config = config
         self._prefix_cache_cap = (
             max(config.prefix_cache_pages, -1)
             if config.prefix_cache and not self.embedding_only else 0)
@@ -575,6 +600,10 @@ class InferenceEngine:
         self._tree_width = max(int(config.spec_tree_width), 1)
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0, "emitted": 0,
                            "draft_ns": 0}
+        # worker-group lockstep (see the module docstring): the liaison's
+        # record sink, and the lock that keeps record and dispatch together
+        self.plan_sink: Callable[[dict[str, Any]], None] | None = None
+        self.dispatch_lock: threading.RLock = threading.RLock()
         # step-time decomposition state (driving thread only)
         self._t_prev_fetch: float | None = None
         self._t_ingest_done: float | None = None
@@ -609,6 +638,27 @@ class InferenceEngine:
         if env_bool("GRIDLLM_PREWARM_COMPILES") and not self.embedding_only:
             self.prewarm()
 
+    def _check_mesh(self, config: EngineConfig) -> EngineConfig:
+        """The refusals and the settings switched off under a mesh (the JAX
+        engine's, plus what this package has not ported: ROADMAP A 9)."""
+        from gridllm_torch.models.llama import validate_mesh
+
+        validate_mesh(self.cfg, self.mesh)
+        refused = {
+            "draft-model speculation (verify_tree)": bool(config.draft_model),
+            "int8 weights": bool(config.quantize),
+            "per-phase attention (ragged_attention off)": not config.ragged_attention,
+        }
+        for what, on in refused.items():
+            if on:
+                raise ValueError(f"{what} under a mesh is not ported to the torch "
+                                 "package yet (ROADMAP A 9)")
+        if config.kv_int8:
+            log.info("int8 KV pool disabled: meshed pools keep the fp layout")
+        if config.prefix_cache:
+            log.info("prefix cache disabled under a mesh")
+        return dataclasses.replace(config, kv_int8=False, prefix_cache=False)
+
     # ---------------------------------------------------------- weights
 
     def _load_weights(self, params: dict[str, Any] | None) -> None:
@@ -620,9 +670,10 @@ class InferenceEngine:
         # int8 leaves are allocated as int8 + scales and filled a layer
         # slice at a time on every path; a snapshot was parked quantized
         # and is restored as it is, with no re-quantization
+        meshed = {"mesh": self.mesh} if self.mesh is not None else {}
         self.model = model_class(self.cfg)(self.cfg, dtype=self.dtype, device=self.device,
                                            ragged_attention=c.ragged_attention,
-                                           quantize=c.quantize or None)
+                                           quantize=c.quantize or None, **meshed)
         if params is not None:
             self.model.params_from_jax(params)
             self.load_source = "init"
@@ -699,7 +750,7 @@ class InferenceEngine:
     def _init_device_state(self) -> None:
         c, mc, dev = self.config, self.cfg, self.device
         self.cache = PagedKVCache.create(
-            mc.num_layers, c.num_pages, c.page_size, mc.num_kv_heads, mc.head_dim_,
+            mc.num_layers, c.num_pages, c.page_size, pool_kv_heads(mc, self.mesh), mc.head_dim_,
             c.max_slots, c.max_pages_per_slot, dtype=self.dtype, device=dev,
             kv_int8=bool(c.kv_int8))
         self.alloc = PageAllocator(c.num_pages, c.page_size, c.max_pages_per_slot,
@@ -721,7 +772,8 @@ class InferenceEngine:
         discarded; call abort_all() first). Weights survive."""
         if self.embedding_only:
             return
-        with self._alloc_lock:
+        with self._alloc_lock, self.dispatch_lock:
+            self._record({"op": "reset"})
             self._slots.clear()
             self._temps.clear()
             self._inflight.clear()
@@ -1031,7 +1083,8 @@ class InferenceEngine:
         row_list = self.alloc.table_row(slot)
         st.pages_held = len(row_list)
         t0 = time.perf_counter_ns()
-        self._dispatch_prefill(slot, ids, row_list, upd, cached, pixels=pixels)
+        self._dispatch_prefill(slot, ids, row_list, upd, cached, pixels=pixels,
+                               images=images or None)
         st.t_prefill_ns = time.perf_counter_ns() - t0
         st.joined_gen = self._gen + 1  # first block dispatched after this
         self._slots[slot] = st
@@ -1089,14 +1142,34 @@ class InferenceEngine:
         emb = self.model.encode_images(torch.from_numpy(pixels).to(self.device, self.dtype))
         return emb.reshape(-1, emb.shape[-1])
 
+    def _record(self, rec: dict[str, Any]) -> None:
+        """Hand one plan record to the sink (a worker group's liaison), under
+        dispatch_lock, before the dispatch it describes."""
+        if self.plan_sink is not None:
+            self.plan_sink(rec)
+
     def _dispatch_prefill(self, slot: int, ids: list[int], row_list: list[int],
                           upd: dict[str, Any], cached: int,
-                          pixels: np.ndarray | None = None) -> None:
+                          pixels: np.ndarray | None = None,
+                          images: list[str] | None = None) -> None:
         """The device half of admission: sampler row update and prefill.
         `cached` (page-aligned) prompt tokens already have KV pages in
         `row_list`: they skip the model and only seed the penalty window.
-        With `pixels` the images are encoded once and every prefill call
-        takes its span's spliced embeddings."""
+        With `pixels` (preprocessed from `images`) the images are encoded
+        once and every prefill call takes its span's spliced embeddings.
+        A long prompt's chunks (mixed steps or prefill_chunk calls) are all
+        part of this one dispatch, and of its one plan record."""
+        with self.dispatch_lock:
+            # snapshot the ids: the list is also _Slot.ids, which grows
+            rec = {"op": "admit", "slot": slot, "ids": list(ids), "row": list(row_list),
+                   "sp": dict(upd), "cached": cached}
+            if images:  # the follower preprocesses the same bytes itself
+                rec["images"] = list(images)
+            self._record(rec)
+            self._prefill_slot(slot, ids, row_list, upd, cached, pixels)
+
+    def _prefill_slot(self, slot: int, ids: list[int], row_list: list[int],
+                      upd: dict[str, Any], cached: int, pixels: np.ndarray | None) -> None:
         self.sampling.set_slot(slot, upd)
         self._temps[slot] = upd["temperature"]
         row = torch.tensor(row_list, dtype=torch.int32, device=self.device)
@@ -1145,7 +1218,9 @@ class InferenceEngine:
         _BATCH_OCCUPANCY.observe(len(self._slots), model=self.cfg.name)
         self._gen += 1
         t0 = time.perf_counter()
-        out = self._decode_block(k)
+        with self.dispatch_lock:
+            self._record({"op": "block", "k": k})
+            out = self._decode_block(k)
         # the launches' host wall: the device keeps computing after
         DISPATCH_SECONDS.observe(time.perf_counter() - t0, model=self.cfg.name)
         self._enqueue(out, k)
@@ -1239,9 +1314,15 @@ class InferenceEngine:
         _BATCH_OCCUPANCY.observe(len(self._slots), model=self.cfg.name)
         self._gen += 1
         t0 = time.perf_counter()
-        out = self._verify_block(torch.from_numpy(drafts).to(self.device),
-                                 torch.from_numpy(dlen).to(self.device))
+        out = self._dispatch_verify(drafts, dlen)
         self._fetch_verify(out, t0, dlen)
+
+    def _dispatch_verify(self, drafts: np.ndarray, dlen: np.ndarray) -> torch.Tensor:
+        """One verify step of host drafts [S, K] (dlen [S] valid each)."""
+        with self.dispatch_lock:
+            self._record({"op": "verify", "drafts": drafts.tolist(), "dlen": dlen.tolist()})
+            return self._verify_block(torch.from_numpy(drafts).to(self.device),
+                                      torch.from_numpy(dlen).to(self.device))
 
     def _fetch_verify(self, out: torch.Tensor, t_disp: float, dlen: np.ndarray) -> None:
         """The spec path's one fetch per step and its ragged ingest."""
@@ -1257,6 +1338,9 @@ class InferenceEngine:
         live slot, one tree verify step, its fetch and the ragged ingest.
         The per-slot budgets are the JAX engine's: no chain past
         num_predict, and siblings only where a depth-1 chain would fit."""
+        if self.plan_sink is not None:
+            raise RuntimeError("draft-model speculation in a worker group is not ported "
+                               "to the torch package yet (ROADMAP A 9)")
         width = self._tree_width
         n, n_slots = len(self._tree[0]), self.config.max_slots
         drafts = np.zeros((n_slots, n - 1), np.int32)
@@ -1410,7 +1494,7 @@ class InferenceEngine:
             decode_device_s=st.device_s,
             kv_page_s=max(st.pages_held, 1) * max(time.time() - st.t_admit_wall, 0.0),
         )
-        self.active[slot] = False
+        self._deactivate(slot)
         # register the full pages of the final context for reuse, minus the
         # last token (its KV is written only when it is input to a step that
         # may never have been dispatched); an error finish registers nothing,
@@ -1421,13 +1505,19 @@ class InferenceEngine:
             self.alloc.free(slot, st.ids[:-1] if register else None)
         self._update_kv_gauges()
         del self._slots[slot]
-        self._temps.pop(slot, None)
         self._free_slots.append(slot)
         if isinstance(self._drafter, DraftModelDrafter):
             # the next request in this slot drafts from scratch
             self._drafter.reset_slot(slot)
         if st.req.on_chunk:
             st.req.on_chunk(last_delta, True, res)
+
+    def _deactivate(self, slot: int) -> None:
+        """A finished slot leaves the device batch."""
+        with self.dispatch_lock:
+            self._record({"op": "deact", "slot": slot})
+            self.active[slot] = False
+            self._temps.pop(slot, None)
 
     def _drain_ctl(self) -> None:
         while self._ctl:
@@ -1754,9 +1844,41 @@ class InferenceEngine:
         unit vectors on the host."""
         from gridllm_torch.models.bert_embed import pool
 
-        lens_t = torch.from_numpy(lens).to(self.device)
-        h = self.model.hidden_states(torch.from_numpy(tok).to(self.device), lens_t)
-        return pool(h, lens_t, self.cfg.pooling).cpu().numpy()
+        with self.dispatch_lock:
+            self._record({"op": "embed", "tok": tok.tolist(), "lens": lens.tolist()})
+            lens_t = torch.from_numpy(lens).to(self.device)
+            h = self.model.hidden_states(torch.from_numpy(tok).to(self.device), lens_t)
+            vecs = pool(h, lens_t, self.cfg.pooling)
+        return vecs.cpu().numpy()
+
+    def apply_plan_op(self, rec: dict[str, Any]) -> None:
+        """A follower's replay of one liaison plan record (see the module
+        docstring). Call in record order from ONE thread; the follower's
+        runner is never started, and it never reads a result back."""
+        op = rec["op"]
+        if op == "admit":
+            images = list(rec.get("images") or [])
+            pixels = (preprocess_images(images, self.cfg.vision_cfg.image_size)
+                      if images else None)
+            self._dispatch_prefill(int(rec["slot"]), [int(i) for i in rec["ids"]],
+                                   [int(p) for p in rec["row"]], dict(rec["sp"]),
+                                   int(rec.get("cached", 0)), pixels=pixels)
+            self._inflight.clear()   # a long prompt's mixed steps: never fetched
+        elif op == "block":
+            self._dispatch_block(int(rec["k"]))
+            self._inflight.clear()
+        elif op == "verify":
+            # drafts are plain host ints in the record: the same program
+            self._dispatch_verify(np.asarray(rec["drafts"], np.int32),
+                                  np.asarray(rec["dlen"], np.int32))
+        elif op == "deact":
+            self._deactivate(int(rec["slot"]))
+        elif op == "embed":
+            self._embed_batch(np.asarray(rec["tok"], np.int32), np.asarray(rec["lens"], np.int32))
+        elif op == "reset":
+            self.reset_device_state()
+        else:
+            raise ValueError(f"unknown plan op: {op!r}")
 
     def _embed_call(self, tok: np.ndarray, lens: np.ndarray) -> np.ndarray:
         def guarded():
@@ -1887,7 +2009,8 @@ class InferenceEngine:
     def kv_transfer_supported(self) -> bool:
         """Export and import need the content-addressed prefix cache: the
         transfer unit is cached pages."""
-        return not self.embedding_only and self._prefix_cache_cap != 0
+        return (not self.embedding_only and self._prefix_cache_cap != 0
+                and self.mesh is None and self.plan_sink is None)
 
     def export_prefix_pages(self, token_ids: list[int]) -> dict[str, Any] | None:
         """Gather the longest cached full-page prefix of `token_ids` as host
@@ -2037,7 +2160,7 @@ class InferenceEngine:
         `kvtier.spill` fault site) loses the page from the tier, and the
         later match degrades to a cold prefill."""
         tier = self.host_tier
-        if tier is None or key in tier:
+        if tier is None or self.plan_sink is not None or key in tier:
             return   # content-addressed: an existing host copy is valid
         if faults.check("kvtier.spill"):
             return
@@ -2059,8 +2182,8 @@ class InferenceEngine:
         pressure or an integrity failure: the admission degrades to a cold
         prefill."""
         tier = self.host_tier
-        if tier is None:
-            return None
+        if tier is None or self.plan_sink is not None:
+            return None   # a restore writes the pool: the followers' would not
         rec = tier.get(key)
         if rec is None:
             return None
@@ -2113,7 +2236,7 @@ class InferenceEngine:
         live request are copied but not freed. Returns the tokens whose
         pages now live in the host tier (contiguous from position 0)."""
         tier = self.host_tier
-        if tier is None or len(token_ids) < 2:
+        if tier is None or self.plan_sink is not None or len(token_ids) < 2:
             return 0
         alloc = self.alloc
         with self._alloc_lock:

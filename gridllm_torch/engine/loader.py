@@ -37,6 +37,7 @@ written here, with no package for it (the card's machine has none):
 from __future__ import annotations
 
 import json
+import math
 import os
 import struct
 import threading
@@ -144,10 +145,14 @@ class SafetensorsIndex:
                 raise OSError(f"short read at byte {offset + done}")
             done += got
 
-    def get(self, name: str, device: str | torch.device = "cpu") -> torch.Tensor:
-        """The tensor `name`, read from its file onto `device`."""
+    def get(self, name: str, device: str | torch.device = "cpu",
+            shard: tuple[int, int, int] | None = None) -> torch.Tensor:
+        """The tensor `name`, read from its file onto `device`; with `shard`
+        = (dim, lo, hi) only that slice of a 2-D tensor (`get_slice`)."""
         if name not in self._entries:
             raise KeyError(f"tensor {name!r} not in the checkpoint")
+        if shard is not None:
+            return self.get_slice(name, *shard, device=device)
         i, off, nbytes, torch_dt, read_dt, shape = self._entries[name]
         device = torch.device(device)
         raw = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -156,6 +161,34 @@ class SafetensorsIndex:
         elif nbytes:
             self._staged_read(self._fds[i], raw, off)
         return raw.view(read_dt).view(torch_dt).reshape(shape)
+
+    def get_slice(self, name: str, dim: int, lo: int, hi: int,
+                  device: str | torch.device = "cpu") -> torch.Tensor:
+        """Rows (dim 0, any rank) or columns (dim 1 of a 2-D tensor) [lo,
+        hi) of tensor `name` (a tensor-parallel rank's share), read without
+        the rest: rows are one contiguous range of the file; columns are
+        read a block of at most STAGE_BYTES of whole rows at a time on the
+        host, and only the columns kept."""
+        i, off, nbytes, torch_dt, read_dt, shape = self._entries[name]
+        ok = (dim == 0 and len(shape) >= 1) or (dim == 1 and len(shape) == 2)
+        if not ok or not 0 <= lo < hi <= shape[dim]:
+            raise ValueError(f"{name!r} {tuple(shape)}: no slice [{lo}, {hi}) of dim {dim}")
+        rows, cols = shape[0], math.prod(shape[1:])
+        item = nbytes // max(rows * cols, 1)
+        device = torch.device(device)
+        if dim == 0:
+            raw = torch.empty((hi - lo) * cols * item, dtype=torch.uint8)
+            self._pread(self._fds[i], raw, off + lo * cols * item)
+            out = raw.view(read_dt).view(torch_dt).reshape(hi - lo, *shape[1:])
+        else:
+            out = torch.empty(rows, hi - lo, dtype=torch_dt)
+            step = max(1, STAGE_BYTES // max(cols * item, 1))
+            for r0 in range(0, rows, step):
+                n = min(step, rows - r0)
+                raw = torch.empty(n * cols * item, dtype=torch.uint8)
+                self._pread(self._fds[i], raw, off + r0 * cols * item)
+                out[r0:r0 + n] = raw.view(read_dt).view(torch_dt).reshape(n, cols)[:, lo:hi]
+        return out.to(device)
 
     def _staged_read(self, fd: int, raw: torch.Tensor, off: int) -> None:
         """Read into the device tensor `raw` through the two pinned staging
@@ -239,7 +272,8 @@ def load_checkpoint(cfg: ModelConfig, path: str, dtype: torch.dtype = torch.bflo
     (`model`, or a new one of `dtype` on `device`, int8 weights with
     `quantize="int8"`). Each tensor is read onto the model's device as
     stored, then transposed and converted (or, for an int8 leaf,
-    quantized) there into its slot."""
+    quantized) there into its slot. A model built under a mesh reads only
+    its rank's slices (`hf_slices`), so no rank holds the whole model."""
     cls = model_class(cfg)
     if model is None:
         model = cls(cfg, dtype=dtype, device=device, ragged_attention=ragged_attention,
@@ -248,8 +282,10 @@ def load_checkpoint(cfg: ModelConfig, path: str, dtype: torch.dtype = torch.bflo
         raise ValueError(f"load_checkpoint(quantize={quantize!r}) into a model built "
                          f"with quantize={model.quantize!r}")
     idx = _open_safetensors(path)
+    # a tensor-parallel rank reads only its slices of the split tensors
+    shards = model.hf_slices() if getattr(model, "mesh", None) is not None else {}
     try:
-        model.params_from_hf(lambda name: idx.get(name, model.device))
+        model.params_from_hf(lambda name: idx.get(name, model.device, shards.get(name)))
     finally:
         idx.close()
     log.debug("checkpoint loaded", model=cfg.name, path=path)

@@ -79,6 +79,18 @@ def to_pytree(cfg: ModelConfig, get: Get, name_map: dict[str, tuple[str, bool]],
         place(("lm_head",), None, get("lm_head.weight"), True)
 
 
+def hf_names(cfg: ModelConfig, name_map: dict[str, tuple[str, bool]]):
+    """(leaf, HF name, transpose?, stacked?) of every tensor to_pytree
+    places, in its order."""
+    yield "embed", "model.embed_tokens.weight", False, False
+    for name, (tmpl, transpose) in name_map.items():
+        for index in _slots(cfg, tmpl):
+            yield name, _name(tmpl, index), transpose, True
+    yield "final_norm", "model.norm.weight", False, False
+    if not cfg.tie_embeddings:
+        yield "lm_head", "lm_head.weight", True, False
+
+
 def to_hf_tensors(params: dict[str, Any], cfg: ModelConfig,
                   name_map: dict[str, tuple[str, bool]]) -> dict[str, torch.Tensor]:
     """Inverse of to_pytree: HF name → tensor view of `params` (a pytree of

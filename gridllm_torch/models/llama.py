@@ -47,6 +47,19 @@ them as they are. No bf16 copy of a whole quantized leaf is ever
 allocated: weights are quantized a layer slice at a time as they are drawn
 or placed. Every projection goes through `qdot` on the layer's weight
 (`_w`), which is the plain (x @ q) * scale for a quantized leaf.
+
+Tensor parallelism (`mesh`, a parallel.mesh.Mesh with tp > 1; the llama,
+qwen2/3 and mistral configs): each rank holds its slices of the leaves
+(parallel/sharding.py: attention by whole heads where the heads divide by
+tp, the MLP by its hidden dim, embed and lm_head by vocab), runs attention
+on its heads against a pool of its kv heads, and the sums of
+parallel/collectives.py join the ranks: after wo and w_down, in the
+embedding lookup, and the logits are gathered, so every rank ends each
+entry point with the same hidden states and the full logits. Weights
+arrive whole and each rank keeps its slices: `init_params` draws the full
+tensors from the seed (a layer, or a block of rows, at a time),
+`params_from_jax` cuts a full pytree, and `params_from_hf` takes slices
+(`hf_slices` names them, so a reader reads only those).
 """
 
 from __future__ import annotations
@@ -59,6 +72,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gridllm_torch.models.configs import ModelConfig
+from gridllm_torch.parallel import collectives
+from gridllm_torch.parallel.sharding import attention_split, param_shardings, shard_range
 from gridllm_torch.ops.attention import (
     attention_prefill,
     attention_prefix_chunk,
@@ -84,6 +99,22 @@ from gridllm_torch.ops.quant import (
 
 # the most values a random draw of init_params fills at once (64 MB in float32)
 _DRAW_NUMEL = 1 << 24
+# the families whose model runs under a tensor-parallel mesh
+MESH_FAMILIES = ("llama", "qwen2", "qwen3")
+
+
+def validate_mesh(cfg: ModelConfig, mesh) -> None:
+    """Engine-init mesh check: ring-attention (sp) prefill has no
+    sliding-window variant (the JAX package's rule; sp itself waits for
+    ROADMAP A 9), and only the llama-skeleton families run under a mesh."""
+    if cfg.sliding_window and mesh is not None and mesh.shape.get("sp", 1) > 1:
+        raise ValueError(
+            f"{cfg.name}: sliding-window attention cannot combine with sp "
+            "(ring-attention prefill) yet — shape the mesh without sp"
+        )
+    if mesh is not None and cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family under a mesh is not "
+                         "ported to the torch package yet (ROADMAP A 9)")
 
 
 class Llama(nn.Module):
@@ -98,15 +129,32 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda", ragged_attention: bool = True,
-                 quantize: str | None = None):
+                 quantize: str | None = None, mesh=None):
         super().__init__()
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode: {quantize!r}")
+        if mesh is not None and mesh.shape.get("tp", 1) == 1:
+            mesh = None
+        if mesh is not None:
+            validate_mesh(cfg, mesh)
+            if quantize:
+                raise ValueError("int8 weights under a mesh are not ported to the torch "
+                                 "package yet (ROADMAP A 9)")
         self.cfg = cfg
         self.dtype = dtype
         self.quantize = quantize
+        self.mesh = mesh
         self._ragged_attention = ragged_attention
         e, v, d = cfg.hidden_size, cfg.vocab_size, cfg.head_dim_
+        # this rank's heads, and the split dim of every leaf (None: whole)
+        tp = 1 if mesh is None else mesh.shape["tp"]
+        heads_split = mesh is not None and attention_split(cfg, mesh)
+        self.n_heads = cfg.num_heads // tp if heads_split else cfg.num_heads
+        self.n_kv_heads = cfg.num_kv_heads // tp if heads_split else cfg.num_kv_heads
+        self._full = {"embed": (v, e), "layers": self._layer_shapes(), "final_norm": (e,)}
+        if not cfg.tie_embeddings:
+            self._full["lm_head"] = (e, v)
+        self._split = param_shardings(self._full, cfg, mesh)
 
         def p(*shape, dt=dtype):
             return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
@@ -115,8 +163,9 @@ class Llama(nn.Module):
         def quantized(name):
             return quantize is not None and name in QUANT_LEAVES
 
-        shapes = self._layer_shapes()
-        self.embed = p(v, e)
+        shapes = {k: self._local_shape(s, self._split["layers"][k])
+                  for k, s in self._full["layers"].items()}
+        self.embed = p(*self._local_shape((v, e), self._split["embed"]))
         self.layers = nn.ParameterDict({
             k: p(*s, dt=torch.int8 if quantized(k) else dtype) for k, s in shapes.items()})
         # the float32 scales of the int8 leaves, [..., out], by leaf name
@@ -125,7 +174,8 @@ class Llama(nn.Module):
         self.final_norm = p(e)
         self.lm_head = None
         if not cfg.tie_embeddings:
-            self.lm_head = p(e, v, dt=torch.int8 if quantized("lm_head") else dtype)
+            self.lm_head = p(*self._local_shape((e, v), self._split["lm_head"]),
+                             dt=torch.int8 if quantized("lm_head") else dtype)
             if quantized("lm_head"):
                 self.scales["lm_head"] = p(v, dt=torch.float32)
         self.register_buffer(
@@ -150,6 +200,39 @@ class Llama(nn.Module):
             shapes.update(q_norm=(n, d), k_norm=(n, d))
         return shapes
 
+    def _local_shape(self, shape: tuple[int, ...], dim: int | None) -> tuple[int, ...]:
+        """A leaf's shape on this rank: `dim` cut to its tp share."""
+        if dim is None:
+            return tuple(shape)
+        return tuple(n // self.mesh.shape["tp"] if i == dim else n for i, n in enumerate(shape))
+
+    def _full_shape(self, name: str) -> tuple[int, ...]:
+        """The unsplit shape of leaf `name` (a layer leaf or a top-level one)."""
+        layers = self._full["layers"]
+        return layers[name] if name in layers else self._full[name]
+
+    def _leaf_split(self, name: str) -> int | None:
+        """The split dim of leaf `name` (None: every rank holds it whole)."""
+        layers = self._split["layers"]
+        return layers[name] if name in layers else self._split.get(name)
+
+    def _range(self, name: str) -> tuple[int, int] | None:
+        """[lo, hi) of leaf `name`'s split dim on this rank, or None."""
+        dim = self._leaf_split(name)
+        return None if dim is None else shard_range(self._full_shape(name)[dim], self.mesh)
+
+    def _cut(self, name: str, x, layer_slice: bool = False):
+        """This rank's share of a full tensor of leaf `name` (or, with
+        layer_slice, of one layer of a stacked leaf)."""
+        dim = self._leaf_split(name)
+        if dim is None:
+            return x
+        if layer_slice:
+            dim -= 1
+        lo, hi = self._range(name)
+        return x.narrow(dim, lo, hi - lo) if isinstance(x, torch.Tensor) \
+            else x[(slice(None),) * dim + (slice(lo, hi),)]
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -172,22 +255,35 @@ class Llama(nn.Module):
         quantizes its initialized weights: an int8 model's weights are the
         int8 pairs of the unquantized model's from the same generator."""
 
-        def slices(t: torch.Tensor, scale: float):
+        def slices(name: str, t: torch.Tensor, scale: float):
             # bounded memory: a stacked leaf one layer at a time, a 2-D leaf
             # in blocks of rows of at most _DRAW_NUMEL values, one draw a
-            # block (a draw a row is ~400k launches for a 128k-row embedding)
-            step = max(1, _DRAW_NUMEL // t.shape[-1]) if t.ndim == 2 else 1
-            for i in range(0, t.shape[0], step):
-                part = t[i:i + step] if t.ndim == 2 else t[i]
-                yield i, part, torch.randn(part.shape, generator=generator, device=t.device,
-                                           dtype=torch.float32) * scale
+            # block (a draw a row is ~400k launches for a 128k-row embedding).
+            # The draws are of the FULL leaf, so every rank of a mesh draws
+            # the same numbers as an unmeshed model; each keeps its share
+            full = self._full_shape(name)
+            dim = self._leaf_split(name)
+            rows = self._range(name) if dim == 0 and len(full) == 2 else None
+            step = max(1, _DRAW_NUMEL // full[-1]) if len(full) == 2 else 1
+            for i in range(0, full[0], step):
+                shape = (min(step, full[0] - i), full[1]) if len(full) == 2 else full[1:]
+                w = torch.randn(shape, generator=generator, device=t.device,
+                                dtype=torch.float32) * scale
+                if rows is not None:      # a vocab-split embed: the rows it holds
+                    lo, hi = max(i, rows[0]), min(i + shape[0], rows[1])
+                    if lo < hi:
+                        yield i, t[lo - rows[0]:hi - rows[0]], w[lo - i:hi - i]
+                elif len(full) == 2:
+                    yield i, t[i:i + step], self._cut(name, w)
+                else:
+                    yield i, t[i], self._cut(name, w, layer_slice=True)
 
         def normal_(name: str, t: torch.Tensor, scale: float) -> None:
             if name not in self.scales:
-                for _, part, w in slices(t, scale):
+                for _, part, w in slices(name, t, scale):
                     part.copy_(w)
             elif t.ndim > 2:      # a stacked leaf: each layer's slice quantizes alone
-                for i, part, w in slices(t, scale):
+                for i, part, w in slices(name, t, scale):
                     quantize_into(QuantizedTensor(part, self.scales[name][i]),
                                   w.to(self.dtype))
             else:
@@ -196,12 +292,12 @@ class Llama(nn.Module):
                 # magnitude, a second draws the same rows again and rounds
                 state = generator.get_state()
                 amax = torch.zeros(t.shape[-1], dtype=torch.float32, device=t.device)
-                for _, _, w in slices(t, scale):
+                for _, _, w in slices(name, t, scale):
                     amax = torch.maximum(amax, w.to(self.dtype).float().abs().amax(dim=0))
                 generator.set_state(state)
                 s = scale_of(amax)
                 self.scales[name].copy_(s)
-                for _, part, w in slices(t, scale):
+                for _, part, w in slices(name, t, scale):
                     part.copy_(to_int8(w.to(self.dtype), s))
 
         normal_("embed", self.embed, 0.02)
@@ -209,7 +305,9 @@ class Llama(nn.Module):
             if name in self.NORMS:
                 t.fill_(self.NORM_INIT)
             else:
-                normal_(name, t, self.FIXED_INIT.get(name, t.shape[-2] ** -0.5))
+                # the fan-in of the full leaf (a rank's row-split share is smaller)
+                fan_in = self._full_shape(name)[-2]
+                normal_(name, t, self.FIXED_INIT.get(name, fan_in ** -0.5))
         self.final_norm.fill_(self.NORM_INIT)
         if self.lm_head is not None:
             normal_("lm_head", self.lm_head, 0.02)
@@ -221,10 +319,13 @@ class Llama(nn.Module):
         leaves, [in, out] projections; a quantized leaf as the JAX
         package's QuantizedTensor of numpy `q` and `scale`) into this
         module's parameters. A float leaf for an int8 parameter is
-        quantized on the host first (quantize_np_leaf's rule)."""
+        quantized on the host first (quantize_np_leaf's rule). Under a mesh
+        the leaves are whole and each keeps this rank's slice."""
         from gridllm_torch.ops.quant import quantize_np_leaf
 
-        def put(dst: torch.Tensor, src, dtype=np.float32) -> None:
+        def put(dst: torch.Tensor, src, dtype=np.float32, name: str | None = None) -> None:
+            if name is not None:
+                src = self._cut(name, np.asarray(src))
             arr = np.array(src, dtype=dtype)  # a writable copy
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"shape {arr.shape} != {tuple(dst.shape)}")
@@ -234,14 +335,14 @@ class Llama(nn.Module):
             if name not in self.scales:
                 if hasattr(src, "q"):
                     raise ValueError(f"{name}: an int8 leaf for an unquantized model")
-                put(dst, src)
+                put(dst, src, name=name)
                 return
             if not hasattr(src, "q"):
                 src = quantize_np_leaf(name, np.asarray(src, np.float32))
             put(dst, src.q, np.int8)
             put(self.scales[name], src.scale)
 
-        put(self.embed, np_params["embed"])
+        put(self.embed, np_params["embed"], name="embed")
         for name, t in self.layers.items():
             put_leaf(name, t, np_params["layers"][name])
         put(self.final_norm, np_params["final_norm"])
@@ -275,7 +376,8 @@ class Llama(nn.Module):
         An int8 leaf's layer is quantized from the stored values as it is
         placed (the JAX loader's host-side rule, one layer slice here), so
         no whole float copy of the leaf is made. Tied embeddings read no
-        lm_head.weight."""
+        lm_head.weight. Under a mesh a tensor may come whole or as this
+        rank's slice (`hf_slices`); a whole one is cut here."""
         from gridllm_torch.models import hf_layout
 
         tree = self.params_tree()
@@ -287,6 +389,8 @@ class Llama(nn.Module):
             src = t.to(dst.device)
             src = src.T if transpose else src
             if tuple(src.shape) != tuple(dst.shape):
+                src = self._cut(path[-1], src, layer_slice=layer is not None)
+            if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
                                  f"!= {tuple(dst.shape)}")
             if isinstance(dst, QuantizedTensor):
@@ -296,6 +400,22 @@ class Llama(nn.Module):
 
         hf_layout.to_pytree(self.cfg, get, self.name_map(), place)
         return self
+
+    def hf_slices(self) -> dict[str, tuple[int, int, int]]:
+        """The HF tensors this rank keeps a slice of: name → (dim in the
+        stored HF orientation, lo, hi). Empty without a mesh."""
+        from gridllm_torch.models.hf_layout import hf_names
+
+        out: dict[str, tuple[int, int, int]] = {}
+        for leaf, name, transpose, stacked in hf_names(self.cfg, self.name_map()):
+            dim = self._leaf_split(leaf)
+            if dim is None:
+                continue
+            dim -= stacked                        # one layer of a stacked leaf
+            if transpose:
+                dim = 1 - dim                     # HF stores [out, in]
+            out[name] = (dim, *self._range(leaf))
+        return out
 
     def name_map(self) -> dict[str, tuple[str, bool]]:
         """The family's HF layout contract (leaf → HF name template,
@@ -321,7 +441,11 @@ class Llama(nn.Module):
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # out-of-vocab ids (the byte tokenizer's BOS on a 256-token vocab)
         # clamp to the last row, as the JAX package's gather does
-        return self.embed[tokens.long().clamp(0, self.cfg.vocab_size - 1)]
+        ids = tokens.long().clamp(0, self.cfg.vocab_size - 1)
+        rows = self._range("embed")
+        if rows is None:
+            return self.embed[ids]
+        return collectives.embed_lookup(self.embed, ids, rows[0], self.mesh)
 
     def _embed_in(self, tokens: torch.Tensor, embeds: torch.Tensor | None) -> torch.Tensor:
         """The input rows: the tokens' embeddings, or `embeds` (rows shaped
@@ -341,9 +465,9 @@ class Llama(nn.Module):
                    qdot(x, self._w("wv", li)))
         if cfg.attn_bias:
             q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
-        q = q.reshape(*x.shape[:-1], cfg.num_heads, d)
-        k = k.reshape(*x.shape[:-1], cfg.num_kv_heads, d)
-        v = v.reshape(*x.shape[:-1], cfg.num_kv_heads, d)
+        q = q.reshape(*x.shape[:-1], self.n_heads, d)
+        k = k.reshape(*x.shape[:-1], self.n_kv_heads, d)
+        v = v.reshape(*x.shape[:-1], self.n_kv_heads, d)
         if cfg.qk_norm:
             q = rms_norm(q, lp["q_norm"][li], cfg.rms_eps)
             k = rms_norm(k, lp["k_norm"][li], cfg.rms_eps)
@@ -351,7 +475,12 @@ class Llama(nn.Module):
 
     def _mlp(self, li: int, x: torch.Tensor) -> torch.Tensor:
         gate, up = qdot(x, self._w("w_gate", li)), qdot(x, self._w("w_up", li))
-        return qdot(F.silu(gate) * up, self._w("w_down", li))
+        return self._row_sum("w_down", qdot(F.silu(gate) * up, self._w("w_down", li)))
+
+    def _row_sum(self, name: str, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial y summed over tp where leaf
+        `name` is split (y as it is otherwise)."""
+        return y if self._leaf_split(name) is None else collectives.all_reduce_sum(y, self.mesh)
 
     def _block(self, li: int, x: torch.Tensor, rope, attend) -> tuple:
         """One decoder layer: returns (x out, k, v). `attend(q, k, v)`
@@ -361,7 +490,7 @@ class Llama(nn.Module):
         q, k, v = self._qkv(li, hx)
         q, k = rotate(q, *rope), rotate(k, *rope)
         att = attend(q, k, v).reshape(*x.shape[:-1], -1)
-        x = x + qdot(att, self._w("wo", li))
+        x = x + self._row_sum("wo", qdot(att, self._w("wo", li)))
         hx = rms_norm(x, lp["mlp_norm"][li], cfg.rms_eps)
         return x + self._mlp(li, hx), k, v
 
@@ -371,7 +500,9 @@ class Llama(nn.Module):
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = self._final_norm(x)
         head = self.embed.T if self.lm_head is None else self._leaf("lm_head", self.lm_head)
-        return qdot(x, head, out_dtype=torch.float32)
+        logits = qdot(x, head, out_dtype=torch.float32)
+        split = self._leaf_split("embed" if self.lm_head is None else "lm_head")
+        return logits if split is None else collectives.gather_last(logits, self.mesh)
 
     def _window(self, li: int) -> int:
         """Layer li's sliding window (0: full attention)."""
@@ -416,7 +547,7 @@ class Llama(nn.Module):
 
     def _kv_buffers(self, n: int, like: torch.Tensor):
         cfg = self.cfg
-        shape = (cfg.num_layers, n, cfg.num_kv_heads, cfg.head_dim_)
+        shape = (cfg.num_layers, n, self.n_kv_heads, cfg.head_dim_)
         return (torch.empty(shape, dtype=like.dtype, device=like.device),
                 torch.empty(shape, dtype=like.dtype, device=like.device))
 
@@ -586,7 +717,7 @@ class Llama(nn.Module):
                                                       device=base.device)
         x = self._embed(tokens)                                  # [S, T, E]
         rope = rope_tables(logical, self.inv_freq)
-        shape = (cfg.num_layers, s, t, cfg.num_kv_heads, cfg.head_dim_)
+        shape = (cfg.num_layers, s, t, self.n_kv_heads, cfg.head_dim_)
         k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
         v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
         ps, cap = cache.page_size, cfg.attn_logit_softcap

@@ -87,6 +87,42 @@ _PREFIX_COW = default_registry().counter(
 )
 
 
+
+def kernel_mesh_axis(mesh, kvh: int, h: int | None = None):
+    """(mode, axis) for running the kernels under `mesh` (the JAX package's
+    meshed dispatch). There a Pallas kernel sits inside a full-manual
+    shard_map at its boundary; here each rank is a process with its own
+    heads' pool, so a rank launches the same CUDA kernels on its shard and
+    the wrappers read the head counts from the shapes they are given:
+
+    - ("direct", None): no mesh;
+    - ("wrap", "tp"): kv heads (and q heads) divide by tp — every rank
+      holds KVH/tp kv heads and H/tp q heads (parallel/sharding.py splits
+      attention the same way);
+    - ("wrap", None): a mesh whose heads do not divide — every rank holds
+      all the heads;
+    - ("ref", None): pp > 1 (the pool's layer axis split), which this
+      package refuses with pp itself (ROADMAP A 9).
+    """
+    if mesh is None:
+        return "direct", None
+    if mesh.shape.get("pp", 1) > 1:
+        return "ref", None
+    tp = mesh.shape.get("tp", 1)
+    if tp > 1 and kvh % tp == 0 and (h is None or h % tp == 0):
+        return "wrap", "tp"
+    return "wrap", None
+
+
+def local_kv_heads(kvh: int, mesh) -> int:
+    """KV heads per rank: kvh/tp when tp splits the heads (the rule of
+    kernel_mesh_axis), otherwise the full count (no mesh, or indivisible
+    heads, which every rank keeps whole)."""
+    if mesh is None:
+        return kvh
+    tp = mesh.shape.get("tp", 1)
+    return kvh // tp if tp > 1 and kvh % tp == 0 else kvh
+
 @dataclasses.dataclass
 class QuantPages:
     """An int8 page pool with one float32 symmetric scale per (layer, page,

@@ -165,6 +165,10 @@ register_env("GRIDLLM_PREFILL_BUCKETS", "512,1024,2048,4096,8192",
 register_env("GRIDLLM_MESH_SHAPE", "",
              'Device-mesh axes, e.g. "tp:8"; empty = single device.')
 register_env("GRIDLLM_NUM_PROCS", "1", "Total processes in the worker slice.")
+register_env("GRIDLLM_COORD_ADDR", "",
+             "host:port of process 0 (jax distributed coordinator).")
+register_env("GRIDLLM_PROC_ID", "0",
+             "This process's id in the slice (0 = liaison).")
 register_env("GRIDLLM_WORKER_ROLE", "unified",
              "Fleet role of this worker: unified, prefill, or decode.")
 register_env("GRIDLLM_WORKER_ADVERTISE_ADDR", "",

@@ -16,15 +16,31 @@ directory is passed on; where transformers is not installed (the card's
 machine) the engine serves the byte tokenizer. GRIDLLM_PREWARM_COMPILES=1
 makes each engine serve one token before the worker announces it.
 GRIDLLM_WORKER_ROLE sets the fleet role: unified, prefill or decode.
-Refused until a later slice, with an error that names it: a mesh or a
-multi-process worker group (GRIDLLM_MESH_SHAPE, GRIDLLM_NUM_PROCS > 1;
-A 9). aiohttp is imported by the
-health port alone.
+aiohttp is imported by the health port alone.
+
+A tensor-parallel worker group (the JAX worker's multi-host slice): one
+process per device, GRIDLLM_NUM_PROCS of them, each with its
+GRIDLLM_PROC_ID and the liaison's GRIDLLM_COORD_ADDR, and
+GRIDLLM_MESH_SHAPE="tp:N" with N the process count. Every process joins
+the torch.distributed group (NCCL, rank r on cuda:{r % device_count},
+unless `run` is given another backend), builds the same engines on its
+shard, and then:
+  - process 0, the liaison, runs the WorkerService as ONE logical worker
+    (no load-on-demand, no admin ops: every rank's engines must be built in
+    lockstep) and publishes its engines' step plan (worker/plan.py);
+  - the followers replay the plan, so every rank issues the same model
+    calls and collectives;
+  - any member's death fails the whole logical worker (worker/group.py):
+    the liaison announces worker:disconnected and every process exits.
+Refused, naming ROADMAP A 9: any mesh axis but tp, and (in the engine)
+what a mesh does not run yet. A mesh whose size is not GRIDLLM_NUM_PROCS
+is refused: the torch worker drives one device per process.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import os
 import platform
 from typing import Any
@@ -32,6 +48,7 @@ from typing import Any
 from gridllm_torch.bus import create_bus
 from gridllm_torch.engine import EngineConfig, InferenceEngine
 from gridllm_torch.obs.perf import capture_profile
+from gridllm_torch.parallel.mesh import AXES, MeshConfig, unported_axes
 from gridllm_torch.utils.config import Config, env_bool, load_config
 from gridllm_torch.utils.logging import get_logger
 from gridllm_torch.utils.types import iso_now
@@ -58,16 +75,37 @@ def resolve_checkpoint(root: str | None, model: str) -> tuple[str | None, str | 
     return cand, tok_sub if os.path.isdir(tok_sub) else cand
 
 
+def _mesh_config(config: Config) -> MeshConfig | None:
+    """GRIDLLM_MESH_SHAPE ("tp:2", "pp:2,tp:4", ...) as a MeshConfig."""
+    if not config.engine.mesh_shape:
+        return None
+    axes = dict(kv.split(":") for kv in config.engine.mesh_shape.split(",") if kv)
+    return MeshConfig(**{k: int(v) for k, v in axes.items()})
+
+
 def check_single_device(config: Config) -> None:
-    """Refuse what needs more than one device (ROADMAP A 9)."""
-    if config.engine.num_procs > 1:
+    """Refuse a group shape the torch worker cannot run: a mesh axis other
+    than tp (ROADMAP A 9), a group without a mesh, and a mesh whose size is
+    not the process count (one process per device)."""
+    mesh, n = _mesh_config(config), config.engine.num_procs
+    shape = config.engine.mesh_shape
+    if mesh is None:
+        if n > 1:
+            raise SystemExit(
+                f"GRIDLLM_NUM_PROCS={n} without GRIDLLM_MESH_SHAPE: a torch worker group "
+                f"shards its models over tp, one process per device (GRIDLLM_MESH_SHAPE=tp:{n})")
+        return
+    try:
+        dims = mesh.resolve(n)
+    except ValueError as e:
         raise SystemExit(
-            f"GRIDLLM_NUM_PROCS={config.engine.num_procs}: multi-host worker groups "
-            "are not ported to the torch worker yet (ROADMAP A 9)")
-    if config.engine.mesh_shape:
-        raise SystemExit(
-            f"GRIDLLM_MESH_SHAPE={config.engine.mesh_shape!r}: meshes are not ported "
-            "to the torch worker yet (ROADMAP A 9)")
+            f"GRIDLLM_MESH_SHAPE={shape!r} over GRIDLLM_NUM_PROCS={n}: the torch worker "
+            f"drives one device per process, so the mesh's size must be the process "
+            f"count ({e})") from None
+    bad = unported_axes(dict(zip(AXES, dims)))
+    if bad:
+        raise SystemExit(f"GRIDLLM_MESH_SHAPE={shape!r}: mesh axes {', '.join(bad)} are not "
+                         "ported to the torch worker yet (ROADMAP A 9)")
 
 
 def build_one_engine(config: Config, name: str, device: str = "cuda") -> InferenceEngine:
@@ -83,6 +121,7 @@ def build_one_engine(config: Config, name: str, device: str = "cuda") -> Inferen
         max_slots=config.engine.max_batch_slots,
         page_size=config.engine.kv_page_size,
         prefill_buckets=buckets,
+        mesh=_mesh_config(config),
     ), device=device)
     log.info("engine ready", model=name, checkpoint=ckpt or "random-init",
              weights=eng.load_source)
@@ -107,9 +146,9 @@ def pull_engine_factory(config: Config, device: str = "cuda"):
     return factory
 
 
-def build_engines(config: Config) -> dict[str, InferenceEngine]:
+def build_engines(config: Config, device: str = "cuda") -> dict[str, InferenceEngine]:
     names = [m.strip() for m in config.engine.models.split(",") if m.strip()]
-    return {name: build_one_engine(config, name) for name in names}
+    return {name: build_one_engine(config, name, device=device) for name in names}
 
 
 def profile_capture(service: WorkerService, seconds: float) -> dict[str, Any]:
@@ -242,15 +281,39 @@ async def start_health_port(service: WorkerService, host: str, port: int):
     return runner
 
 
-async def run(config: Config | None = None) -> None:
+async def run(config: Config | None = None, backend: str = "nccl",
+              device: str | None = None) -> None:
     """One torch worker process: bus, engines, WorkerService and health
-    port, until SIGTERM, which drains first."""
+    port, until SIGTERM, which drains first. In a worker group
+    (GRIDLLM_NUM_PROCS > 1) the process first joins the group on `backend`
+    (parallel.distributed.initialize_group; `device` is gloo's), then runs
+    as the liaison or as a follower (see the module docstring). `device`
+    is the engines' device outside a group (default "cuda")."""
+    import hashlib
+
+    from gridllm_torch.parallel.distributed import (
+        initialize_group,
+        rank_device,
+        shutdown_group,
+    )
+
     config = config or load_config()
     check_single_device(config)
     from gridllm_torch.obs import TimelinePublisher, default_flight_recorder
 
     default_flight_recorder().set_capacity(config.obs.flightrec_capacity)
-    engines = build_engines(config)
+    group = initialize_group(backend=backend, device=device)
+    if group.is_group:
+        dev = str(rank_device(backend, group.process_id, device))
+        if not os.environ.get("WORKER_ID"):
+            # every process must agree on the logical worker id, or the
+            # member keys never match: derive it from the coordinator
+            wid = "worker-slice-" + hashlib.sha1(
+                (group.coordinator or "").encode()).hexdigest()[:12]
+            config.worker = dataclasses.replace(config.worker, worker_id=wid)
+    else:
+        dev = device or "cuda"
+    engines = build_engines(config, device=dev)
     if not engines:
         raise SystemExit("no models configured: set GRIDLLM_MODELS")
     bus = create_bus(config.bus.url, key_prefix=config.bus.key_prefix,
@@ -265,16 +328,79 @@ async def run(config: Config | None = None) -> None:
             flush_ms=tl.flush_ms, batch_max=tl.batch_max)
         timeline_pub.install()
         await timeline_pub.start(bus)
+    stop = asyncio.Event()
+    slice_broken: list[str] = []
+    try:
+        if group.is_liaison:
+            await _run_liaison(config, group, engines, bus, stop, slice_broken)
+        else:
+            await _run_follower(config, group, engines, bus, stop, slice_broken)
+    finally:
+        if timeline_pub is not None:
+            await timeline_pub.stop()
+        await bus.disconnect()
+        if slice_broken:
+            # a collective with a dead peer never returns: exit now, so the
+            # supervisor restarts the group together
+            default_flight_recorder().record("worker", "fatal_exit",
+                                             worker=config.worker.worker_id,
+                                             reason=slice_broken[0])
+            log.error("worker group broken; exiting", reason=slice_broken[0])
+            os._exit(1)
+        shutdown_group(group)
+
+
+async def _run_liaison(config: Config, group, engines: dict[str, InferenceEngine], bus,
+                       stop: asyncio.Event, slice_broken: list[str]) -> None:
+    """Process 0 (or the only process): the WorkerService and health port;
+    in a group also the membership beacon, the plan publisher and the
+    barrier on every follower's plan subscription."""
+    import signal
+    import threading
+
+    from gridllm_torch.worker.group import GroupMembership, fail_logical_worker
+    from gridllm_torch.worker.plan import PlanPublisher, plan_channel, ready_key
+
     service = WorkerService(
         bus, engines, config.worker, stream_flush_ms=config.engine.stream_flush_ms,
-        engine_factory=pull_engine_factory(config))
+        # a group's engines must be built and torn down on every rank in
+        # lockstep: the plan has no engine-construction op
+        engine_factory=None if group.is_group else pull_engine_factory(config))
+    if group.is_group:
+        service.admin_ops_enabled = False
+
+    async def on_slice_failure(reason: str) -> None:
+        await fail_logical_worker(bus, service.worker_id, reason)
+        await service.stop(announce=False)
+        slice_broken.append(reason)
+        stop.set()
+
+    membership = GroupMembership(
+        bus, service.worker_id, group,
+        heartbeat_interval_s=config.worker.heartbeat_interval_ms / 1000.0,
+        on_slice_failure=on_slice_failure)
+    await membership.start()
+    pub = None
+    if group.is_group:
+        pub = PlanPublisher(bus, plan_channel(service.worker_id), asyncio.get_running_loop())
+        pub.start()
+        # ONE dispatch lock across every engine: the liaison's cross-engine
+        # dispatch order is the plan order the followers replay
+        shared_lock = threading.RLock()
+        for model, eng in engines.items():
+            eng.dispatch_lock = shared_lock
+            eng.plan_sink = lambda rec, m=model: pub.sink({**rec, "model": m})
+        for pid in range(1, group.num_processes):
+            for _ in range(1200):
+                if await bus.get(ready_key(service.worker_id, pid)):
+                    break
+                await asyncio.sleep(0.1)
+            else:
+                raise SystemExit(f"worker group follower {pid} never became plan-ready")
+            membership.saw(pid)
     await service.start()
     runner = await start_health_port(service, config.worker.host, config.worker.port)
     log.info("worker http listening", port=config.worker.port)
-
-    import signal
-
-    stop = asyncio.Event()
     drain_tasks: list[asyncio.Task] = []
 
     def on_sigterm() -> None:
@@ -294,11 +420,58 @@ async def run(config: Config | None = None) -> None:
     try:
         await stop.wait()
     finally:
+        await membership.stop()
         await service.stop()
+        if pub is not None:
+            await pub.stop()
         await runner.cleanup()
-        if timeline_pub is not None:
-            await timeline_pub.stop()
-        await bus.disconnect()
+
+
+async def _run_follower(config: Config, group, engines: dict[str, InferenceEngine], bus,
+                        stop: asyncio.Event, slice_broken: list[str]) -> None:
+    """A follower: replay the liaison's plan on the same engines until the
+    group breaks or SIGTERM."""
+    import signal
+
+    from gridllm_torch.worker.group import GroupMembership
+    from gridllm_torch.worker.plan import PlanFollower, plan_channel, ready_key
+
+    wid = config.worker.worker_id
+
+    async def on_slice_failure(reason: str) -> None:
+        slice_broken.append(reason)
+        stop.set()
+
+    membership = GroupMembership(
+        bus, wid, group, heartbeat_interval_s=config.worker.heartbeat_interval_ms / 1000.0,
+        on_slice_failure=on_slice_failure)
+    await membership.start()
+    follower = PlanFollower(bus, plan_channel(wid), engines, on_divergence=on_slice_failure)
+    await follower.start()
+    rk = ready_key(wid, group.process_id)
+
+    async def refresh_ready() -> None:
+        # a TTL key, refreshed: a key left by an earlier incarnation of the
+        # group must not pass a restarted liaison's barrier
+        while True:
+            try:
+                await bus.set_with_expiry(rk, "1", ttl_s=10.0)
+            except Exception as e:  # noqa: BLE001 — keep refreshing
+                log.warning("ready-key refresh failed; retrying", key=rk, error=str(e))
+            await asyncio.sleep(3.0)
+
+    ready_task = asyncio.create_task(refresh_ready())
+    try:
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+    except (NotImplementedError, RuntimeError):  # non-unix platforms
+        pass
+    log.info("follower replaying step plan", models=list(engines))
+    try:
+        await stop.wait()
+    finally:
+        ready_task.cancel()
+        await follower.stop()
+        await membership.stop()
 
 
 def main() -> None:  # pragma: no cover

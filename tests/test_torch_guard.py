@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from gridllm_torch.engine import EngineConfig, InferenceEngine
+from gridllm_torch.parallel import MeshConfig
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "gridllm_tpu")
@@ -186,6 +187,27 @@ def test_control_plane_scrapes_leave_torch_unimported():
     assert proc.returncode == 0 and "SCRAPED" in proc.stdout, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "gridllm_torch.parallel", "gridllm_torch.parallel.distributed",
+    "gridllm_torch.parallel.mesh", "gridllm_torch.parallel.sharding",
+    "gridllm_torch.parallel.collectives", "gridllm_torch.worker.plan",
+    "gridllm_torch.worker.group"])
+def test_worker_group_modules_are_guarded(module):
+    """The tensor-parallel modules are among those the guarded import walks
+    (and so import with jax, gridllm_tpu and the rest blocked) and those
+    the source scan reads."""
+    import pkgutil
+
+    import gridllm_torch
+
+    walked = {"gridllm_torch"} | {m.name for m in pkgutil.walk_packages(
+        gridllm_torch.__path__, "gridllm_torch.")}
+    assert module in walked
+    rel = Path(*module.split("."))
+    assert (REPO / rel.with_suffix(".py")) in _port_files() or \
+        (REPO / rel / "__init__.py") in _port_files()
+
+
 def _port_files() -> list[Path]:
     return sorted((REPO / "gridllm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -224,14 +246,21 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("checkpoint_path", "weights"), ("quantize", "int8"),
-    ("kv_host_bytes", 1 << 20), ("draft_checkpoint", "weights"), ("mesh", object()),
+    ("kv_host_bytes", 1 << 20), ("draft_checkpoint", "weights"), ("mesh", MeshConfig(tp=-1)),
 ])
 def test_unported_engine_features_raise(field, value):
     """Unported settings raise NotImplementedError naming the field; the
     checkpoint settings are served since checkpoints were ported, so a
     missing directory fails its load instead of being refused, the host KV
-    tier since it was ported, so the engine builds one, and int8 weights
-    since they were ported, so the engine's projections are int8."""
+    tier since it was ported, so the engine builds one, int8 weights
+    since they were ported, so the engine's projections are int8, and a
+    mesh since tensor parallelism was ported, so a one-process tp mesh
+    builds an engine with the prefix cache off, as under any mesh."""
+    if field == "mesh":
+        eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",
+                                           mesh=value), device="cpu")
+        assert eng.mesh.shape["tp"] == 1 and not eng.kv_transfer_supported()
+        return
     if field == "quantize":
         eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",
                                            **{field: value}), device="cpu")

@@ -454,6 +454,25 @@ async def test_drain_mid_decode_hands_off_by_resume(engines, undisturbed):
         assert tservice._JOBS_TOTAL.value(event="drained") >= 1
 
 
+@pytest.mark.parametrize("shape,procs,match", [
+    ("pp:2", "2", "ROADMAP A 9"),
+    ("ep:2", "2", "ROADMAP A 9"),
+    ("sp:2", "2", "ROADMAP A 9"),
+    ("tp:2", "1", "size must be the process count"),
+])
+def test_worker_group_refusals(monkeypatch, shape, procs, match):
+    """What `python -m gridllm_torch.worker` still refuses of a worker
+    group: every mesh axis but tp (ROADMAP A 9), and a mesh whose size is
+    not GRIDLLM_NUM_PROCS (one process per device)."""
+    from gridllm_torch.utils.config import load_config
+    from gridllm_torch.worker import main as wmain
+
+    monkeypatch.setenv("GRIDLLM_MESH_SHAPE", shape)
+    monkeypatch.setenv("GRIDLLM_NUM_PROCS", procs)
+    with pytest.raises(SystemExit, match=match):
+        wmain.check_single_device(load_config())
+
+
 async def test_worker_process_refusals_and_health_port(engines, tmp_path, monkeypatch):
     """`python -m gridllm_torch.worker`'s pieces: the environment the JAX
     worker reads, the refusals that name their slice (and an empty
@@ -472,11 +491,13 @@ async def test_worker_process_refusals_and_health_port(engines, tmp_path, monkey
     assert (cfg.worker.worker_id, cfg.engine.models, cfg.engine.kv_page_size) == \
         ("torch-proc", "tiny-llama", 8)
     wmain.check_single_device(cfg)
-    for key, value in (("GRIDLLM_MESH_SHAPE", "tp:2"), ("GRIDLLM_NUM_PROCS", "2")):
-        with monkeypatch.context() as mp:
-            mp.setenv(key, value)
-            with pytest.raises(SystemExit, match="ROADMAP A 9"):
-                wmain.check_single_device(load_config())
+    # a tp group of one process per device passes (the refusals that stay
+    # are test_worker_group_refusals)
+    monkeypatch.setenv("GRIDLLM_MESH_SHAPE", "tp:2")
+    monkeypatch.setenv("GRIDLLM_NUM_PROCS", "2")
+    wmain.check_single_device(load_config())
+    monkeypatch.delenv("GRIDLLM_MESH_SHAPE")
+    monkeypatch.delenv("GRIDLLM_NUM_PROCS")
     # a checkpoint directory that resolves is served from, never replaced by
     # random weights: an empty one fails the load (served checkpoints are
     # in tests/test_torch_worker_checkpoint.py)
