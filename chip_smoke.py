@@ -362,9 +362,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
              puts a host round trip in every all-reduce: a correctness
              run), each member's launch counters from 0 over the wave
              (every main-path kernel on both ranks, the same counts on
-             each) and its all-reduces. The kernels phase holds every
-             main-path kernel and the streamed prefill at the per-rank
-             shapes of tp = 2 and 4 (TP_DEGREES).
+             each) and its all-reduces. Then the float32 cut modes
+             (TP_CUT_MODES, 2 layers, full width), each served as a worker
+             group serves: rank 0 with its plan records going through the
+             group's TCP store, rank 1 replaying them; rank 0's streams
+             equal the unmeshed engine's, rank 1 holds the same replicated
+             state: gemma2:9b, llava:7b with a picture, llama3:8b with int8
+             weights, with ragged attention off (speculation off and on),
+             with llama3.2:1b's trees (the draft model on rank 0 alone, cut
+             to 2 layers) and with a warm prefix hit (cached > 0 on both
+             ranks); mxbai-embed-large's float32 embeddings on both ranks
+             within 1e-5 of the unmeshed engine's. Then bf16 serves of
+             TP_SERVES through the bus worker, each a two-rank group and an
+             unmeshed worker with the same models and jobs: llama3:8b with
+             llama3.2:1b's trees beside mxbai-embed-large's embedding job;
+             gemma2:9b, llama3:8b with int8 weights and llava:7b with a
+             picture. The kernels phase holds every main-path kernel and
+             the streamed prefill at the per-rank shapes of tp = 2 and 4
+             (TP_DEGREES), and at tp = 2 gemma2:9b's (H 8, KVH 4, D 256,
+             its window and softcap on the ragged legs) and llava:7b's
+             (G = 1), the per-phase routes and the tree leg at
+             llama3:8b's (H 16, KVH 4).
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes, each with the head dims compiled and its launches under the
@@ -646,6 +664,8 @@ def _ragged_cases(inp: Inputs, dtype):
           "v_group": inp.randn(1, 1, KVH, D, dtype=dtype)}, None, True),
     ]
     cases += [c for tp in TP_DEGREES for c in _tp_rank_ragged_cases(inp, dtype, tp)]
+    for model, shape in TP_RANK_MODELS.items():
+        cases += _tp_rank_ragged_cases(inp, dtype, 2, model, *shape)
     # G = 1 groups at KVH = 32 (llava:7b): decode and a verify of K+1 = 5
     # on a shuffled table of 64 pages a slot (llava's 4,096 tokens), an
     # empty slot and a slot at the capacity's edge
@@ -668,34 +688,112 @@ def _ragged_cases(inp: Inputs, dtype):
     return cases
 
 
-def _tp_rank_ragged_cases(inp: Inputs, dtype, tp: int):
-    """ragged_attention at llama3:8b's per-rank shapes under `tp` (H/tp q
-    heads over KVH/tp kv heads, the rank's own pool): a 1024-row chunk
-    after 1024 cached tokens beside eight decode groups (a mixed step), and
-    verify groups of K+1 = 5, on a shuffled table with -1 past each slot's
-    pages; q scaled by LONG_Q_SCALE, held to the row-relative error."""
+# a rank's attention under tp = 2 for the families a group serves beside
+# llama3:8b: (H, KVH, D, window, softcap, slot lengths) of the whole model.
+# gemma2:9b's ragged legs take its window and softcap, its slots reaching
+# past the window; llava:7b's multi-head stack (G = 1)
+TP_RANK_MODELS = {
+    "gemma2_9b": (16, 8, 256, 4096, 50.0, [0, 1, 63, 700, 4095, 4097, 6000, 8000]),
+    "llava_7b": (32, 32, 128, 0, 0.0, [0, 1, 63, 700, 1500, 2047, 3000, 4000]),
+}
+
+
+def _tp_rank_ragged_cases(inp: Inputs, dtype, tp: int, model: str = "llama3_8b",
+                          n_heads: int = H, n_kv: int = KVH, d: int = D, window: int = 0,
+                          softcap: float = 0.0, lengths=(0, 1, 63, 700, 1500, 2047, 3000, 4000)):
+    """ragged_attention at a model's per-rank shapes under `tp` (H/tp q
+    heads over KVH/tp kv heads, the rank's own pool; llama3:8b's by
+    default, TP_RANK_MODELS'): a 1024-row chunk after 1024 cached tokens
+    beside eight decode groups (a mixed step), and verify groups of K+1 =
+    5, on a shuffled table with -1 past each slot's pages; q scaled by
+    LONG_Q_SCALE, held to the row-relative error."""
     torch = inp.torch
-    h, kvh = H // tp, KVH // tp
-    lengths = [0, 1, 63, 700, 1500, 2047, 3000, 4000]
+    h, kvh = n_heads // tp, n_kv // tp
+    lengths = list(lengths)
     n_pool = S * MAXP
-    kp, vp = (inp.randn(2, n_pool, PS, kvh, D, dtype=dtype) for _ in range(2))
+    kp, vp = (inp.randn(2, n_pool, PS, kvh, d, dtype=dtype) for _ in range(2))
     table = inp.page_table(lengths, extra=5)
     glens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     base = dict(k_pages=kp, v_pages=vp, page_size=PS, layer=1, page_table=table,
-                group_lengths=glens)
+                group_lengths=glens, softcap=softcap, window=window)
 
     def group(td):
-        return dict(q_group=inp.randn(S, td, h, D, dtype=dtype) * LONG_Q_SCALE,
-                    k_group=inp.randn(S, td, kvh, D, dtype=dtype),
-                    v_group=inp.randn(S, td, kvh, D, dtype=dtype))
+        return dict(q_group=inp.randn(S, td, h, d, dtype=dtype) * LONG_Q_SCALE,
+                    k_group=inp.randn(S, td, kvh, d, dtype=dtype),
+                    v_group=inp.randn(S, td, kvh, d, dtype=dtype))
 
-    chunk = dict(q_chunk=inp.randn(1, 1024, h, D, dtype=dtype) * LONG_Q_SCALE,
+    chunk = dict(q_chunk=inp.randn(1, 1024, h, d, dtype=dtype) * LONG_Q_SCALE,
                  chunk_row=table[5], chunk_start=1024, chunk_total=2048,
-                 k_chunk=inp.randn(1024, kvh, D, dtype=dtype),
-                 v_chunk=inp.randn(1024, kvh, D, dtype=dtype))
-    return [(f"tp{tp}_rank_chunk_after_1024_with_groups", {**base, **chunk, **group(1)},
+                 k_chunk=inp.randn(1024, kvh, d, dtype=dtype),
+                 v_chunk=inp.randn(1024, kvh, d, dtype=dtype))
+    tag = f"tp{tp}_rank" if model == "llama3_8b" else f"{model}_tp{tp}_rank"
+    return [(f"{tag}_chunk_after_1024_with_groups", {**base, **chunk, **group(1)},
              1024, True),
-            (f"tp{tp}_rank_group_td5", {**base, **group(5)}, None, True)]
+            (f"{tag}_group_td5", {**base, **group(5)}, None, True)]
+
+
+def _tp_rank_per_phase_cases(inp: Inputs, dtype, tp: int = 2):
+    """(name, wrapper, kwargs, rows) of the per-phase routes at llama3:8b's
+    per-rank heads under `tp` (H 16, KVH 4 at tp = 2), q scaled by
+    LONG_Q_SCALE: paged_decode of eight slots after 1,024 cached tokens
+    (the current token merged), a 1,024-row chunk after 1,024 with fresh
+    K/V, and the 8 × 5 verify over slots after 1,024."""
+    torch = inp.torch
+    h, kvh = H // tp, KVH // tp
+    kp, vp = (inp.randn(2, S * MAXP, PS, kvh, D, dtype=dtype) for _ in range(2))
+    lengths = [1024] * S
+    table = inp.page_table(lengths, extra=1024)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    base = dict(k_pages=kp, v_pages=vp, page_size=PS, layer=1)
+
+    def q4(*shape):
+        return inp.randn(*shape, dtype=dtype) * LONG_Q_SCALE
+
+    start = torch.tensor([1024, 2048], dtype=torch.int32, device="cuda")
+    return [
+        (f"tp{tp}_rank_decode_after_1024", "paged_decode",
+         dict(base, q=q4(S, h, D), page_table=table, lengths=lens,
+              k_cur=inp.randn(S, kvh, D, dtype=dtype), v_cur=inp.randn(S, kvh, D, dtype=dtype)),
+         list(range(S))),
+        (f"tp{tp}_rank_chunk_1024_after_1024", "prefix_chunk",
+         dict(base, q=q4(1, 1024, h, D), table_row=table[3], start=start[0:1],
+              total_len=start[1:2], k_cur=inp.randn(1024, kvh, D, dtype=dtype),
+              v_cur=inp.randn(1024, kvh, D, dtype=dtype)), 1024),
+        (f"tp{tp}_rank_verify_8x5_after_1024", "prefix_chunk_slots",
+         dict(base, q=q4(S, 5, h, D), page_table=table, lengths=lens,
+              k_cur=inp.randn(S, 5, kvh, D, dtype=dtype),
+              v_cur=inp.randn(S, 5, kvh, D, dtype=dtype)), None),
+    ]
+
+
+def _tp_rank_tree_cases(torch, inp: Inputs, dtype, tol: float, tp: int = 2) -> list:
+    """The tree leg at llama3:8b's per-rank heads under `tp` against its
+    plain version: S 8, N 6 (the default topology, K 4 and width 2), slots
+    from 0 to 4,000 cached tokens, q scaled by LONG_Q_SCALE and held to the
+    row-relative error."""
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.attention import ragged_paged_attention_ref
+    from gridllm_torch.ops.spec import tree_topology
+
+    h, kvh, dname = H // tp, KVH // tp, str(dtype).split(".")[-1]
+    parents = tree_topology(4, 2)
+    n = len(parents)
+    depths, anc, bits = _tree_operands(parents)
+    lengths = [0, 5, 63, 64, 1024, 1024, 2000, 4000]
+    kp, vp = (inp.randn(1, S * MAXP, PS, kvh, D, dtype=dtype) for _ in range(2))
+    kw = dict(q_group=inp.randn(S, n, h, D, dtype=dtype) * LONG_Q_SCALE,
+              page_table=inp.page_table(lengths, extra=n),
+              group_lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+              k_group=inp.randn(S, n, kvh, D, dtype=dtype),
+              v_group=inp.randn(S, n, kvh, D, dtype=dtype))
+    _, og = ck.ragged_attention(kp, vp, PS, layer=0, tree_pos=depths, tree_bits=bits, **kw)
+    _, wg = ragged_paged_attention_ref(kp, vp, PS, layer=0, tree_pos=depths, tree_mask=anc,
+                                       **kw)
+    torch.cuda.synchronize()
+    rel, err = _rel_err(og, wg), _max_err(og, wg)
+    check(rel <= tol, f"ragged_attention tree {dname} tp{tp} rank: relative err {rel} > {tol}")
+    return [{"kernel": "ragged_attention.tree", "dtype": dname, "case": f"tp{tp}_rank_s8_n{n}",
+             "H": h, "KVH": kvh, "max_rel_err": rel, "max_abs_err": err}]
 
 
 def _decode_cases(inp: Inputs, dtype):
@@ -861,7 +959,8 @@ def _per_phase_kernel_cases(torch, inp: Inputs, dtype, tol: float, cases: list,
                for name, kw, valid in _chunk_cases(inp, dtype)]
             + [(name, "prefix_chunk_slots", kw, None, False)
                for name, kw in _verify_cases(inp, dtype)]
-            + [(*case, True) for case in _per_phase_long_cases(inp, dtype)])
+            + [(*case, True) for case in _per_phase_long_cases(inp, dtype)]
+            + [(*case, True) for case in _tp_rank_per_phase_cases(inp, dtype)])
     for name, wrapper, kw, rows, relative in runs:
         kw = dict(kw)
         cap, window = kw.pop("softcap", 0.0), kw.pop("window", 0)
@@ -917,36 +1016,38 @@ def _wide_group_cases(torch, inp: Inputs, dtype):
     return cases
 
 
-def _tp_rank_writes(torch, inp: Inputs, dtype, tp: int) -> list[dict]:
-    """Both KV writes into one rank's pool under `tp` (KVH/tp kv heads):
-    a decode step's rows (an inactive slot, the capacity edge) and a
-    page-aligned chunk, exact on the valid region."""
+def _tp_rank_writes(torch, inp: Inputs, dtype, tp: int, n_kv: int = KVH,
+                    d: int = D) -> list[dict]:
+    """Both KV writes into one rank's pool under `tp` (n_kv/tp kv heads of
+    dim d; llama3:8b's by default): a decode step's rows (an inactive
+    slot, the capacity edge) and a page-aligned chunk, exact on the valid
+    region."""
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.ops.kvcache import write_decode, write_prefill
 
-    kvh, dname = KVH // tp, str(dtype).split(".")[-1]
-    shape = (2, S * MAXP, PS, kvh, D)
+    kvh, dname = n_kv // tp, str(dtype).split(".")[-1]
+    shape = (2, S * MAXP, PS, kvh, d)
     kp, vp = inp.randn(*shape, dtype=dtype), inp.randn(*shape, dtype=dtype)
     positions = torch.tensor([0, 63, 64, 700, 8191, 8192, 100, 5000],
                              dtype=torch.int32, device="cuda")
     table = inp.page_table([int(p) for p in positions.tolist()], extra=1)
     active = torch.tensor([True] * 6 + [False, True], device="cuda")
-    kn, vn = inp.randn(2, S, kvh, D, dtype=dtype), inp.randn(2, S, kvh, D, dtype=dtype)
+    kn, vn = inp.randn(2, S, kvh, d, dtype=dtype), inp.randn(2, S, kvh, d, dtype=dtype)
     want = write_decode(kp.clone(), vp.clone(), kn, vn, table, positions, active, PS)
     got = ck.paged_write_decode(kp.clone(), vp.clone(), kn, vn, table, positions, active, PS)
     torch.cuda.synchronize()
-    out = [{"kernel": "paged_write_decode", "dtype": dname, "tp_rank_of": tp, "KVH": kvh,
+    out = [{"kernel": "paged_write_decode", "dtype": dname, "tp_rank_of": tp, "KVH": kvh, "D": d,
             "exact": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))}]
     t, start, length = 1024, 128, 1000
     row = table[3]
-    kn, vn = inp.randn(2, t, kvh, D, dtype=dtype), inp.randn(2, t, kvh, D, dtype=dtype)
+    kn, vn = inp.randn(2, t, kvh, d, dtype=dtype), inp.randn(2, t, kvh, d, dtype=dtype)
     want = write_prefill(kp.clone(), vp.clone(), kn, vn, row, start, length, PS)
     got = ck.paged_write_chunk(kp.clone(), vp.clone(), kn, vn, row, start, length, PS)
     torch.cuda.synchronize()
     last = start + length - 1
     keep = torch.ones(kp.shape[1:3], dtype=torch.bool, device="cuda")
     keep[int(row[last // PS]), last % PS + 1:] = False
-    out.append({"kernel": "paged_write_chunk", "dtype": dname, "tp_rank_of": tp, "KVH": kvh,
+    out.append({"kernel": "paged_write_chunk", "dtype": dname, "tp_rank_of": tp, "KVH": kvh, "D": d,
                 "exact": bool(torch.equal(got[0][:, keep], want[0][:, keep])
                               and torch.equal(got[1][:, keep], want[1][:, keep]))})
     for c in out:
@@ -992,6 +1093,10 @@ PREFILL_CASES = (
     # (H 8, KVH 2): the tp phase's prompt buckets
     ("llama3_8b_tp2_rank_t1024", (1024, H // 2, KVH // 2, D), [1000], 0, 0.0),
     ("llama3_8b_tp4_rank_t600", (600, H // 4, KVH // 4, D), [583], 0, 0.0),
+    # a rank of gemma2:9b (H 8, KVH 4, D 256, its window and softcap) and
+    # of llava:7b (H 16, KVH 16: G = 1) under tp = 2
+    ("gemma2_9b_tp2_rank_t1024", (1024, 8, 4, 256), [1000], 4096, 50.0),
+    ("llava_7b_tp2_rank_g1_t600", (600, 16, 16, D), [583], 0, 0.0),
 )
 # the tensor-parallel degrees whose per-rank shapes the kernels phase holds
 TP_DEGREES = (2, 4)
@@ -1140,6 +1245,9 @@ def phase_kernels(torch) -> dict:
         del kp, vp, want_k, want_v, got_k, got_v
         for tp in TP_DEGREES:
             cases += _tp_rank_writes(torch, inp, dtype, tp)
+        cases += _tp_rank_writes(torch, inp, dtype, 2, *TP_RANK_MODELS["gemma2_9b"][1:3])
+        cases += _tp_rank_tree_cases(torch, inp, dtype,
+                                     bf16_tol if dtype == torch.bfloat16 else F32_TOL)
     torch.cuda.empty_cache()
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2389,12 +2497,23 @@ def _printable_head(torch, engine) -> None:
     trained model's text does. With all 128,256 columns random, almost
     every token is an id past the bytes that decodes to nothing, and the
     streams the worker publishes would be empty. A rank of a tensor-parallel
-    engine holds its slice of the columns, in rank order."""
-    head = engine.model.lm_head
-    lo = 0
-    if head.shape[1] != engine.cfg.vocab_size:   # a vocab-split head
-        lo = engine.mesh.axis_rank("tp") * head.shape[1]
+    engine holds its slice of the columns, in rank order. A tied head
+    (gemma2) zeroes those embedding rows; an embedding model is left as
+    it is."""
+    if engine.embedding_only:
+        return
+    model = engine.model
     with torch.no_grad():
+        if model.lm_head is None:   # a tied head: the embedding rows are its columns
+            rows = model.embed
+            lo = 0 if rows.shape[0] == engine.cfg.vocab_size else \
+                engine.mesh.axis_rank("tp") * rows.shape[0]
+            rows[max(128 - lo, 0):] = 0
+            return
+        head = model.lm_head
+        lo = 0
+        if head.shape[1] != engine.cfg.vocab_size:   # a vocab-split head
+            lo = engine.mesh.axis_rank("tp") * head.shape[1]
         head[:, max(128 - lo, 0):] = 0
 
 
@@ -7668,24 +7787,161 @@ def _tp_cut_streams(engine) -> list[list[int]]:
     ).token_ids for i, p in enumerate(_tp_cut_prompts())]
 
 
+# the float32 cut modes of the tp phase beyond the llama3:8b default path:
+# mode → (model, its engine settings). Each runs as a worker group does:
+# rank 0 serves and hands its plan records to the group's TCP store before
+# each dispatch, rank 1 replays them; this process serves them unmeshed
+TP_CUT_DRAFT = "llama3.2:1b"
+TP_CUT_MODES = {
+    "gemma2": ("gemma2:9b", {}),
+    "llava": ("llava:7b", {}),
+    "int8": ("llama3:8b", {"quantize": "int8"}),
+    "per_phase": ("llama3:8b", {"ragged_attention": False, "spec_decode": False}),
+    "per_phase_spec": ("llama3:8b", {"ragged_attention": False}),
+    "draft": ("llama3:8b", {"draft": TP_CUT_DRAFT}),
+    "prefix": ("llama3:8b", {"prefix_cache": True}),
+}
+TP_CUT_EMBED = "mxbai-embed-large"    # full depth, float32, both ranks embedding
+TP_EMBED_REL = 1e-5
+TP_END = {"op": "end"}
+TP_STATE = ("tokens", "active", "counts", "window", "wlen")
+
+
+def _tp_mode_engine(mode: str, mesh):
+    """The float32 cut engine of a tp cut mode (its draft model cut too)."""
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    base, extra = TP_CUT_MODES[mode]
+    extra = dict(extra)
+    if "draft" in extra:
+        extra["draft_model"] = _cut(extra.pop("draft"), TP_F32_LAYERS)
+    return InferenceEngine(EngineConfig(
+        model=_cut(base, TP_F32_LAYERS), dtype="float32", max_slots=4, page_size=PS,
+        num_pages=256, max_pages_per_slot=64, mesh=mesh, **extra), device="cuda:0")
+
+
+def _tp_mode_requests(mode: str) -> list[dict]:
+    """A mode's greedy requests: the cut's two prompts (a bucket prefill,
+    a chunked one); llava one picture; prefix a prompt past the chunk and
+    the same prompt extended (its warm hit)."""
+    import base64
+
+    if mode == "llava":
+        img = base64.b64encode(_png(_picture(SEED + 22))).decode()
+        return [dict(prompt="what do you see?", images=[img])]
+    prompts = _tp_cut_prompts()
+    if mode == "prefix":
+        prompts = [prompts[1], prompts[1] + " and then some more"]
+    return [dict(prompt=p) for p in prompts]
+
+
+def _tp_mode_results(engine, mode: str, sink=None) -> list[dict]:
+    from gridllm_torch.engine import GenerationRequest
+
+    engine.plan_sink = sink
+    out = []
+    for i, req in enumerate(_tp_mode_requests(mode)):
+        res = engine.generate(GenerationRequest(
+            id=f"{mode}{i}", options={"temperature": 0, "num_predict": TP_F32_TOKENS}, **req))
+        check(res.done_reason in ("stop", "length"), f"tp {mode}: {res.error}")
+        out.append({"tokens": list(res.token_ids), "cached": res.cached_tokens})
+    return out
+
+
+def _tp_state_digest(engine) -> dict:
+    """sha256 of each device-state tensor every rank holds whole."""
+    import hashlib
+
+    tensors = {k: getattr(engine, k) for k in TP_STATE}
+    tensors.update(lengths=engine.cache.lengths, page_table=engine.cache.page_table,
+                   step=engine.sampling.step)
+    return {k: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+            for k, t in tensors.items()}
+
+
+def _tp_cut_modes(torch, rank: int, store) -> dict:
+    """A rank's float32 cut modes (TP_CUT_MODES, then the embeddings):
+    rank 0 serves each mode's requests with its plan going to `store`,
+    rank 1 replays it; each reports what it dispatched and its launches."""
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.parallel import MeshConfig, collectives
+
+    out = {}
+    for mode in TP_CUT_MODES:
+        engine = _tp_mode_engine(mode, MeshConfig(tp=TP_WORLD))
+        ck.reset_launch_counts()
+        collectives.reset_counts()
+        got: dict = {"admits": [], "ops": []}
+        if rank == 0:
+            seq = iter(range(1, 1 << 30))
+
+            def sink(rec, got=got, seq=seq, mode=mode):
+                got["ops"].append(rec["op"])
+                if rec["op"] == "admit":
+                    got["admits"].append(int(rec["cached"]))
+                store.set(f"{mode}/{next(seq)}", json.dumps(rec))
+
+            got["results"] = _tp_mode_results(engine, mode, sink)
+            sink(TP_END)
+        else:
+            for i in range(1, 1 << 30):
+                rec = json.loads(store.get(f"{mode}/{i}"))
+                if rec == TP_END:
+                    break
+                got["ops"].append(rec["op"])
+                if rec["op"] == "admit":
+                    got["admits"].append(int(rec["cached"]))
+                engine.apply_plan_op(rec)
+        got["ops"] = sorted(set(got["ops"]) - {"end"})
+        got.update(state=_tp_state_digest(engine), launches=ck.launch_counts(),
+                   collectives=dict(collectives.CALLS),
+                   drafter=getattr(engine._drafter, "kind", None),
+                   heads=[engine.model.n_heads, engine.model.n_kv_heads])
+        out[mode] = got
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model=TP_CUT_EMBED, dtype="float32",
+                                          mesh=MeshConfig(tp=TP_WORLD)), device="cuda:0")
+    collectives.reset_counts()
+    out["embed"] = {"vectors": engine.embed(_tp_embed_texts()),
+                    "collectives": dict(collectives.CALLS)}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_embed_texts() -> list[str]:
+    import random
+
+    return _embed_texts(random.Random(SEED + 23))[14:22]   # 8 texts, two buckets
+
+
 def _tp_child(torch, args: list[str]) -> dict:
-    """A member of the tp phase's groups. `cut RANK PORT`: a rank of the
-    float32 cut's two-rank gloo group on cuda:0, reporting the gloo ops on
-    CUDA tensors and its greedy streams (both ranks run the same requests);
-    `worker LABEL BUS_URL`: worker/main.py's `run` on gloo on cuda:0 (a
-    group member where the environment says so, else a plain worker),
-    beside a task that zeroes and reports its launch and collective
-    counters on bus messages."""
+    """A member of the tp phase's groups. `cut RANK PORT STORE_PORT`: a rank
+    of the float32 cut's two-rank gloo group on cuda:0, reporting the gloo
+    ops on CUDA tensors and its greedy streams (both ranks run the same
+    requests), then the cut modes (_tp_cut_modes: rank 0 serves, rank 1
+    replays its plan through the TCP store at STORE_PORT); `worker LABEL
+    BUS_URL`: worker/main.py's `run` on gloo on cuda:0 (a group member
+    where the environment says so, else a plain worker; SMOKE_TP_ENGINES
+    holds per-model engine settings as JSON), beside a task that zeroes
+    and reports its launch and collective counters on bus messages."""
     import asyncio
+    import datetime
+    import os
 
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.parallel import GroupConfig, MeshConfig, collectives, distributed
 
     if args[0] == "cut":
-        rank, port = int(args[1]), args[2]
+        rank, port, store_port = int(args[1]), args[2], int(args[3])
         group = GroupConfig(coordinator=f"127.0.0.1:{port}", num_processes=TP_WORLD,
                             process_id=rank)
         distributed.initialize_group(group, backend="gloo", device="cuda:0", timeout_s=300)
+        store = torch.distributed.TCPStore("127.0.0.1", store_port, TP_WORLD, rank == 0,
+                                           timeout=datetime.timedelta(seconds=300))
         ops = _tp_gloo_ops(torch)
         gloo_ms = _tp_gloo_ms(torch)
         engine = _tp_cut_engine(_cut(TP_MODEL, TP_F32_LAYERS), MeshConfig(tp=TP_WORLD))
@@ -7694,6 +7950,9 @@ def _tp_child(torch, args: list[str]) -> dict:
         out = {"rank": rank, "gloo_cuda_ops": ops, "gloo_ms": gloo_ms, "streams": streams,
                "launches": ck.launch_counts(), "collectives": dict(collectives.CALLS),
                "heads": [engine.model.n_heads, engine.model.n_kv_heads]}
+        del engine
+        torch.cuda.empty_cache()
+        out["modes"] = _tp_cut_modes(torch, rank, store)
         distributed.shutdown_group(group)
         return out
 
@@ -7701,7 +7960,12 @@ def _tp_child(torch, args: list[str]) -> dict:
     from gridllm_torch.bus import create_bus
     from gridllm_torch.worker import main as wmain
 
-    build = wmain.build_engines
+    build, config_cls = wmain.build_engines, wmain.EngineConfig
+    extras = json.loads(os.environ.get("SMOKE_TP_ENGINES", "{}"))
+
+    def config_of(**kw):
+        # each model's settings of this serve (int8, a draft model, its pool)
+        return config_cls(**{**kw, **extras.get(kw["model"], {})})
 
     def printable_engines(config, device="cuda"):
         # streams that carry text, as the worker phase's (_printable_head)
@@ -7710,6 +7974,7 @@ def _tp_child(torch, args: list[str]) -> dict:
             _printable_head(torch, engine)
         return engines
 
+    wmain.EngineConfig = config_of
     wmain.build_engines = printable_engines
 
     async def control() -> None:
@@ -7789,17 +8054,97 @@ def _tp_nccl_world_one(torch) -> dict:
     return {"backend": backend, "all_reduce_ok": ok}
 
 
+def _tp_unmeshed_modes(torch) -> dict:
+    """Each cut mode and the embeddings served unmeshed in this process:
+    the references of the ranks'."""
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    out = {}
+    for mode in TP_CUT_MODES:
+        engine = _tp_mode_engine(mode, None)
+        ck.reset_launch_counts()
+        out[mode] = {"results": _tp_mode_results(engine, mode), "launches": ck.launch_counts()}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine = InferenceEngine(EngineConfig(model=TP_CUT_EMBED, dtype="float32"), device="cuda:0")
+    out["embed"] = {"vectors": engine.embed(_tp_embed_texts())}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# the kernels each cut mode must launch on both ranks (float32 chunks run
+# on the CUDA cores; the draft model launches on the liaison alone)
+TP_MODE_KERNELS = {
+    "gemma2": TP_CUT_PATH, "int8": TP_CUT_PATH,
+    # both prompts past the chunk: no bucket prefill
+    "prefix": tuple(k for k in TP_CUT_PATH if k != "flash_prefill"),
+    "llava": ("flash_prefill", "ragged_attention", "paged_write_decode", "paged_write_chunk"),
+    "per_phase": ("flash_prefill", "paged_decode", "prefix_chunk.chunk_cores",
+                  "paged_write_decode", "paged_write_chunk"),
+    "per_phase_spec": ("flash_prefill", "prefix_chunk.slots", "prefix_chunk.chunk_cores",
+                       "paged_write_decode", "paged_write_chunk"),
+    "draft": ("flash_prefill", "ragged_attention.tree", "ragged_attention.chunk_cores",
+              "paged_write_decode", "paged_write_chunk"),
+}
+
+
+def _tp_check_modes(ranks: list, want: dict) -> dict:
+    """The cut modes' checks: rank 0's streams (and cached counts) equal the
+    unmeshed engine's; rank 1 dispatched the same admits and holds the
+    same replicated state; each mode's kernels launched on both ranks; the
+    warm prefix hit replayed with cached > 0 on both; the draft model on
+    the liaison alone, its trees replayed as verify_tree records; the
+    embeddings within TP_EMBED_REL of the unmeshed engine's."""
+    import numpy as np
+
+    out = {}
+    for mode in TP_CUT_MODES:
+        lead, follow = (r["modes"][mode] for r in ranks)
+        check(lead["results"] == want[mode]["results"],
+              f"tp {mode}: the float32 tp = 2 streams differ from the unmeshed engine's: "
+              f"{lead['results']} vs {want[mode]['results']}")
+        check(follow["admits"] == lead["admits"], f"tp {mode}: the follower's admits differ")
+        check(follow["state"] == lead["state"], f"tp {mode}: the follower's state differs: "
+              f"{follow['state']} vs {lead['state']}")
+        for r, got in enumerate((lead, follow)):
+            missing = [k for k in TP_MODE_KERNELS[mode] if not got["launches"].get(k)]
+            check(not missing, f"tp {mode}: rank {r} launched no {missing}")
+        out[mode] = {"tokens": [len(x["tokens"]) for x in lead["results"]],
+                     "streams_equal": True, "admits_cached": lead["admits"],
+                     "heads_per_rank": lead["heads"],
+                     "launches_per_rank": [{k: v for k, v in g["launches"].items() if v}
+                                           for g in (lead, follow)],
+                     "launches_unmeshed": {k: v for k, v in want[mode]["launches"].items()
+                                           if v},
+                     "collectives_per_rank": [g["collectives"] for g in (lead, follow)]}
+    for r in ranks:
+        check(r["modes"]["prefix"]["admits"][1] > 0, "tp prefix: no warm hit")
+    lead, follow = (r["modes"]["draft"] for r in ranks)
+    check(lead["drafter"] == "model" and follow["drafter"] != "model",
+          f"tp draft: drafters {lead['drafter']}, {follow['drafter']}")
+    check("verify_tree" in follow["ops"], f"tp draft: no verify_tree replayed: {follow['ops']}")
+    ref = np.asarray(want["embed"]["vectors"])
+    errs = [float(np.abs(np.asarray(r["modes"]["embed"]["vectors"]) - ref).max()) for r in ranks]
+    check(max(errs) <= TP_EMBED_REL, f"tp embed: {errs} > {TP_EMBED_REL}")
+    out["embed"] = {"model": TP_CUT_EMBED, "texts": len(ref), "max_abs_err_per_rank": errs,
+                    "collectives_per_rank": [r["modes"]["embed"]["collectives"] for r in ranks]}
+    return out
+
+
 def _tp_f32_cut(torch) -> dict:
     """The float32 cut: two ranks (gloo, both on cuda:0) serve its greedy
     streams over tp = 2 while this process serves them unmeshed; the
-    streams must be equal token for token."""
-    import os
-
+    streams must be equal token for token. Then the cut modes, each held
+    against this process's unmeshed engine (_tp_check_modes)."""
     from gridllm_torch.ops import cuda_kernels as ck
 
-    port = _free_port()
+    port, store_port = _free_port(), _free_port()
     out = REPO / "chiprun_out"
-    procs = [_tp_spawn(f"cut_rank{r}", ["cut", str(r), str(port)]) for r in range(TP_WORLD)]
+    procs = [_tp_spawn(f"cut_rank{r}", ["cut", str(r), str(port), str(store_port)])
+             for r in range(TP_WORLD)]
     try:
         ck.reset_launch_counts()
         engine = _tp_cut_engine(_cut(TP_MODEL, TP_F32_LAYERS), None)
@@ -7807,8 +8152,9 @@ def _tp_f32_cut(torch) -> dict:
         unmeshed_launches = ck.launch_counts()
         del engine
         torch.cuda.empty_cache()
+        want_modes = _tp_unmeshed_modes(torch)
         for proc, _ in procs:
-            proc.wait(timeout=600)
+            proc.wait(timeout=900)
     finally:
         codes = _tp_stop(procs)
     check(codes == [0] * TP_WORLD, f"tp: a cut rank failed ({codes}): see chiprun_out/tp_cut_*")
@@ -7829,14 +8175,26 @@ def _tp_f32_cut(torch) -> dict:
             "heads_per_rank": ranks[0]["heads"],
             "launches_per_rank": {k: ranks[0]["launches"][k] for k in TP_CUT_PATH},
             "launches_unmeshed": {k: unmeshed_launches[k] for k in TP_CUT_PATH},
-            "collectives_per_rank": ranks[0]["collectives"]}
+            "collectives_per_rank": ranks[0]["collectives"],
+            "modes": _tp_check_modes(ranks, want_modes)}
 
 
-async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of) -> dict:
-    """One way of serving the wave (the two-rank group, or one unmeshed
-    worker): its processes start, register, take two warm-up jobs, then
-    the eight-job wave with every member's counters from 0; TTFT p50 and
-    output tokens/s as the scheduler's client sees them."""
+def _tp_wave_jobs(rng) -> list[dict]:
+    """The llama3:8b wave of the first serve: eight jobs at once."""
+    return [{"model": TP_MODEL, "prompt": _prompt(rng, b), "tokens": n} for b, n in TP_WAVE]
+
+
+async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of, jobs_of,
+                  main_path=TP_MAIN_PATH, same_launches: bool = True) -> dict:
+    """One way of serving a wave (a two-rank group, or one unmeshed
+    worker): its processes start and register, each generation model takes
+    a warm-up job, then the wave's jobs (`jobs_of(rng)`: generations with
+    their model, prompt, tokens and images, or embedding jobs of texts) run
+    at once with every member's counters from 0; per model TTFT p50 and
+    output tokens/s as the scheduler's client sees them. Every member must
+    launch each kernel of `main_path`, the same counts on each member
+    unless `same_launches` is off (a draft model drafts on the liaison
+    alone)."""
     import asyncio
     import random
 
@@ -7848,12 +8206,20 @@ async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of) -> 
     wid = next(iter(members.values()))["env"]["WORKER_ID"]
     t_start = time.perf_counter()
 
-    def req(rid, prompt, n):
-        return InferenceRequest(id=f"{name}-{rid}", model=TP_MODEL, prompt=prompt, stream=True,
-                                options={"temperature": 0, "num_predict": n},
+    def req(rid, job):
+        if "texts" in job:
+            return InferenceRequest(id=f"{name}-{rid}", model=job["model"], input=job["texts"],
+                                    metadata={"requestType": "embedding"})
+        return InferenceRequest(id=f"{name}-{rid}", model=job["model"], prompt=job["prompt"],
+                                images=job.get("images"), stream=True,
+                                options={"temperature": 0, "num_predict": job["tokens"]},
                                 metadata={"requestType": "inference"})
 
     async def run(r):
+        if r.metadata["requestType"] == "embedding":
+            t0 = time.perf_counter()
+            res = await scheduler.submit_and_wait(r, timeout_ms=600_000)
+            return res, None, time.perf_counter() - t0
         chunks, first = [], []
         t0 = time.perf_counter()
 
@@ -7872,6 +8238,8 @@ async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of) -> 
                     f"tp: {name} counters ({cmd})", 60)
         return {c["member"]: c for c in counts if c["cmd"] == cmd}
 
+    rng = random.Random(SEED + 21)
+    jobs = jobs_of(rng)
     try:
         def alive():
             for proc, _ in procs:
@@ -7882,12 +8250,13 @@ async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of) -> 
         await _wait(alive, f"tp: {name} registered", 600)
         ready_s = time.perf_counter() - t_start
         check(list(await bus.hgetall("workers")) == [wid], f"tp: {name} is not one worker")
-        rng = random.Random(SEED + 21)
-        for i, n in enumerate((300, 1500)):   # warm-up, not measured
-            res, _, _ = await run(req(f"warm{i}", _prompt(rng, n), 8))
+        warm = {j["model"]: j for j in jobs if "texts" not in j}
+        done = await asyncio.gather(*(run(req(f"warm-{i}", dict(j, tokens=8)))
+                                      for i, j in enumerate(warm.values())))
+        for res, _, _ in done:   # warm-up, not measured
             check(res.success, f"tp: {name} warm-up: {res.error}")
         await tally("reset")
-        wave = [req(f"w{i}", _prompt(rng, b), n) for i, (b, n) in enumerate(TP_WAVE)]
+        wave = [req(f"w{i}", j) for i, j in enumerate(jobs)]
         t0 = time.perf_counter()
         done = await asyncio.gather(*(run(r) for r in wave))
         wall = time.perf_counter() - t0
@@ -7895,35 +8264,98 @@ async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of) -> 
     finally:
         # off the event loop: the members drain through the broker it serves
         codes = await asyncio.to_thread(_tp_stop, procs)
-    tokens, ttft, texts = 0, [], []
-    for r, (res, text, first) in zip(wave, done):
+    per_model: dict = {}
+    texts = []
+    for r, job, (res, text, first) in zip(wave, jobs, done):
         check(res.success, f"tp: {name} job {r.id}: {res.error}")
-        n, ev = r.options["num_predict"], res.response.eval_count
+        check(res.workerId == wid, f"tp: {name} job {r.id} served by {res.workerId}")
+        m = per_model.setdefault(job["model"], {"jobs": 0, "output_tokens": 0, "ttft_ms": []})
+        m["jobs"] += 1
+        if "texts" in job:
+            vecs = res.response.embeddings or []
+            check(len(vecs) == len(job["texts"]), f"tp: {name} job {r.id}: {len(vecs)} vectors")
+            m["ms"] = first * 1e3
+            texts.append(json.dumps([round(x, 3) for x in vecs[0][:8]]))
+            continue
+        n, ev = job["tokens"], res.response.eval_count
         check(ev == n or (res.response.done_reason == "stop" and ev < n),
               f"tp: {name} job {r.id}: {ev} of {n} tokens")
         check(text == _final_text(res), f"tp: {name} job {r.id}: stream != final text")
-        check(res.workerId == wid, f"tp: {name} job {r.id} served by {res.workerId}")
         check(first is not None, f"tp: {name} job {r.id} streamed no chunk")
-        tokens += ev
-        ttft.append(first * 1e3)
+        m["output_tokens"] += ev
+        m["ttft_ms"].append(first * 1e3)
         texts.append(text)
-    launches = {m: {k: c["launches"].get(k, 0) for k in TP_MAIN_PATH} for m, c in read.items()}
+    for m in per_model.values():
+        if m["ttft_ms"]:
+            m["ttft_ms_p50"] = statistics.median(m["ttft_ms"])
+            m["output_tokens_per_s"] = m["output_tokens"] / wall
+    launches = {m: {k: v for k, v in c["launches"].items() if v} for m, c in read.items()}
     for m, c in launches.items():
-        check(all(v > 0 for v in c.values()), f"tp: {name} {m} skipped a kernel: {c}")
-    check(len({json.dumps(c, sort_keys=True) for c in launches.values()}) == 1,
-          f"tp: {name} members launched differently: {launches}")
-    return {"members": len(procs), "ready_s": ready_s, "ttft_ms_p50": statistics.median(ttft),
-            "ttft_ms": ttft, "output_tokens": tokens, "wall_s": wall,
-            "output_tokens_per_s": tokens / wall, "launches": launches,
-            "collectives": {m: c["collectives"] for m, c in read.items()},
-            "exit_codes": codes, "texts": texts}
+        missing = [k for k in main_path if not c.get(k)]
+        check(not missing, f"tp: {name} {m} launched no {missing}: {c}")
+    if same_launches:
+        check(len({json.dumps(c, sort_keys=True) for c in launches.values()}) == 1,
+              f"tp: {name} members launched differently: {launches}")
+    out = {"members": len(procs), "ready_s": ready_s, "wall_s": wall, "models": per_model,
+           "launches": launches, "collectives": {m: c["collectives"] for m, c in read.items()},
+           "exit_codes": codes, "texts": texts}
+    if len(per_model) == 1:   # the first serve's keys, as they were
+        (m,) = per_model.values()
+        out.update(ttft_ms_p50=m["ttft_ms_p50"], ttft_ms=m["ttft_ms"],
+                   output_tokens=m["output_tokens"],
+                   output_tokens_per_s=m["output_tokens_per_s"])
+    return out
+
+
+# the bf16 serves of the modes, each a two-rank group of worker/main.py
+# processes and then one unmeshed worker with the same models: (models,
+# per-model engine settings, the wave's jobs, the kernels every member
+# launches, whether the members launch alike)
+TP_DRAFT = "llama3.2:1b"
+TP_SERVE_PAGES = 256          # each engine's pool: the wave needs < 120 pages a model
+TP_MODE_TOKENS = 32
+
+
+def _tp_jobs_tree(rng) -> list[dict]:
+    texts = _tp_embed_texts()
+    return ([{"model": TP_MODEL, "prompt": _prompt(rng, b), "tokens": TP_MODE_TOKENS}
+             for b in (300, 450, 1500)]
+            + [{"model": "mxbai-embed-large", "texts": texts}])
+
+
+def _tp_jobs_families(rng) -> list[dict]:
+    import base64
+
+    img = base64.b64encode(_png(_picture(SEED + 24))).decode()
+    return ([{"model": m, "prompt": _prompt(rng, b), "tokens": TP_MODE_TOKENS}
+             for m in ("gemma2:9b", TP_MODEL) for b in (300, 1500)]
+            + [{"model": "llava:7b", "prompt": "what do you see?", "images": [img],
+                "tokens": TP_MODE_TOKENS},
+               {"model": "llava:7b", "prompt": _prompt(rng, 400), "tokens": TP_MODE_TOKENS}])
+
+
+TP_SERVES = {
+    # llama3:8b with llama3.2:1b's trees, beside mxbai-embed-large's jobs
+    "tree": ((TP_MODEL, "mxbai-embed-large"),
+             {TP_MODEL: {"draft_model": TP_DRAFT, "num_pages": TP_SERVE_PAGES}},
+             _tp_jobs_tree,
+             ("flash_prefill", "ragged_attention", "ragged_attention.tree",
+              "paged_write_decode", "paged_write_chunk"), False),
+    # gemma2:9b, llama3:8b with int8 weights, llava:7b with a picture
+    "families": (("gemma2:9b", TP_MODEL, "llava:7b"),
+                 {"gemma2:9b": {"num_pages": TP_SERVE_PAGES},
+                  TP_MODEL: {"quantize": "int8", "num_pages": TP_SERVE_PAGES},
+                  "llava:7b": {"num_pages": TP_SERVE_PAGES}},
+                 _tp_jobs_families, TP_MAIN_PATH, True),
+}
 
 
 async def _tp_serve() -> dict:
-    """llama3:8b bf16 at full width and depth: the two-rank group (gloo,
-    both ranks on cuda:0) as one logical worker behind the port's
-    scheduler on the port's broker, then one unmeshed worker process on the
-    same broker, each serving the same wave."""
+    """bf16 at full width and depth: llama3:8b's wave, then each of
+    TP_SERVES, served by a two-rank group (gloo, both ranks on cuda:0) as
+    one logical worker behind the port's scheduler on the port's broker,
+    then by one unmeshed worker process on the same broker with the same
+    models and the same jobs."""
     from gridllm_torch.bus import create_bus
     from gridllm_torch.bus.broker import GridBusBroker
     from gridllm_torch.scheduler import JobScheduler, WorkerRegistry
@@ -7944,48 +8376,69 @@ async def _tp_serve() -> dict:
         counts.append(json.loads(raw))
 
     sub = await bus.subscribe(TP_COUNTS, on_counts)
-    base = {"GRIDLLM_BUS_URL": url, "GRIDLLM_MODELS": TP_MODEL, "GRIDLLM_KV_PAGE_SIZE": str(PS),
-            "GRIDLLM_MAX_BATCH_SLOTS": str(S), "HEARTBEAT_INTERVAL": "1000"}
 
-    def group_env():
-        coord = f"127.0.0.1:{_free_port()}"
-        return {f"rank{r}": {"url": url, "env": {
-            **base, "WORKER_ID": "tp-group", "GRIDLLM_MESH_SHAPE": f"tp:{TP_WORLD}",
-            "GRIDLLM_NUM_PROCS": str(TP_WORLD), "GRIDLLM_PROC_ID": str(r),
-            "GRIDLLM_COORD_ADDR": coord, "WORKER_PORT": str(_free_port())}}
-            for r in range(TP_WORLD)}
+    def base(models, engines):
+        return {"GRIDLLM_BUS_URL": url, "GRIDLLM_MODELS": ",".join(models),
+                "GRIDLLM_KV_PAGE_SIZE": str(PS), "GRIDLLM_MAX_BATCH_SLOTS": str(S),
+                "HEARTBEAT_INTERVAL": "1000", "SMOKE_TP_ENGINES": json.dumps(engines)}
 
-    def plain_env():
-        return {"plain": {"url": url, "env": {**base, "WORKER_ID": "tp-plain",
-                                              "WORKER_PORT": str(_free_port())}}}
+    def group_env(wid, env):
+        def members():
+            coord = f"127.0.0.1:{_free_port()}"
+            return {f"rank{r}": {"url": url, "env": {
+                **env, "WORKER_ID": wid, "GRIDLLM_MESH_SHAPE": f"tp:{TP_WORLD}",
+                "GRIDLLM_NUM_PROCS": str(TP_WORLD), "GRIDLLM_PROC_ID": str(r),
+                "GRIDLLM_COORD_ADDR": coord, "WORKER_PORT": str(_free_port())}}
+                for r in range(TP_WORLD)}
+        return members
 
+    def plain_env(wid, env):
+        return lambda: {"plain": {"url": url, "env": {**env, "WORKER_ID": wid,
+                                                      "WORKER_PORT": str(_free_port())}}}
+
+    out = {}
     try:
-        group = await _tp_way("group", bus, registry, scheduler, counts, group_env)
-        await _wait(lambda: registry.get_worker("tp-group") is None, "tp: the group left", 120)
-        plain = await _tp_way("plain", bus, registry, scheduler, counts, plain_env)
+        env = base((TP_MODEL,), {})
+        ways = [("", env, _tp_wave_jobs, TP_MAIN_PATH, True)]
+        ways += [(f"{k}_", base(models, engines), jobs, path, same)
+                 for k, (models, engines, jobs, path, same) in TP_SERVES.items()]
+        for prefix, env, jobs, path, same in ways:
+            gid, pid = f"tp-{prefix}group", f"tp-{prefix}plain"
+            group = await _tp_way(f"{prefix}group", bus, registry, scheduler, counts,
+                                  group_env(gid, env), jobs, path, same)
+            await _wait(lambda: registry.get_worker(gid) is None, "tp: the group left", 120)
+            plain = await _tp_way(f"{prefix}plain", bus, registry, scheduler, counts,
+                                  plain_env(pid, env), jobs, path)
+            await _wait(lambda: registry.get_worker(pid) is None, "tp: the worker left", 120)
+            g_texts, p_texts = group.pop("texts"), plain.pop("texts")
+            same_n = sum(a == b for a, b in zip(g_texts, p_texts))
+            out[prefix.rstrip("_") or "llama"] = {
+                "group": group, "unmeshed": plain,
+                # bf16 sums run in another order over tp: a reading, not a check
+                "bf16_streams_equal_to_unmeshed": f"{same_n}/{len(g_texts)}"}
     finally:
         await sub.unsubscribe()
         await scheduler.shutdown()
         await registry.shutdown()
         await bus.disconnect()
         await broker.stop()
-    same = sum(a == b for a, b in zip(group.pop("texts"), plain.pop("texts")))
-    return {"group": group, "unmeshed": plain,
-            # bf16 sums run in another order over tp: a reading, not a check
-            "bf16_streams_equal_to_unmeshed": f"{same}/{len(TP_WAVE)}",
-            "note": "two ranks on one card over gloo: every all-reduce is a round trip "
-                    "through host memory; a correctness run, not a TP speed"}
+    first = out.pop("llama")
+    first["modes"] = out
+    first["note"] = ("two ranks on one card over gloo: every all-reduce is a round trip "
+                     "through host memory; a correctness run, not a TP speed")
+    return first
 
 
 def phase_tp(torch) -> dict:
-    """Tensor parallelism: an NCCL group of world size 1; the float32 cut
+    """Tensor parallelism: an NCCL group of world size 1; the float32 cuts
     whose tp = 2 streams equal the unmeshed engine's (and the gloo ops on
-    CUDA tensors); llama3:8b bf16 served by a two-rank group through the
-    port's bus worker beside an unmeshed worker."""
+    CUDA tensors), for llama3:8b and then every family and mode a group
+    serves; bf16 serves through the port's bus worker by two-rank groups,
+    each beside an unmeshed worker."""
     import asyncio
 
     t0 = time.perf_counter()
-    out = {"phase": "tp", "nccl_world_1": _tp_nccl_world_one(torch)}
+    out = {"phase": "tp", "card": card_line(), "nccl_world_1": _tp_nccl_world_one(torch)}
     out["f32_cut"] = _tp_f32_cut(torch)
     out["serve"] = asyncio.run(_tp_serve())
     out["seconds"] = time.perf_counter() - t0
@@ -8151,9 +8604,17 @@ def main() -> int:
          "launches_on": {p: results[p]["launches"].get(name, 0)
                          for p in ("sched", "quant", "mixtral", "gateway", "controlplane",
                                    "embed", "vision")},
-         # each rank's launches in the two-rank group's serve (tp phase)
+         # each rank's launches in the two-rank group's serve (tp phase),
+         # in its serves of the other families and modes, and in its
+         # float32 cut modes (rank 0, rank 1)
          "launches_tp_ranks": {m: c.get(name, 0) for m, c in
                                results["tp"]["serve"]["group"]["launches"].items()},
+         "launches_tp_serves": {
+             serve: {m: c.get(name, 0) for m, c in v["group"]["launches"].items()}
+             for serve, v in results["tp"]["serve"]["modes"].items()},
+         "launches_tp_f32_modes": {
+             mode: [r.get(name, 0) for r in v["launches_per_rank"]]
+             for mode, v in results["tp"]["f32_cut"]["modes"].items() if mode != "embed"},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

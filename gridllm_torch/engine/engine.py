@@ -82,18 +82,26 @@ serving path:
   before it as its offset). Image requests never match or register in the
   prefix cache and never resume: token ids do not address pixels.
 
-- Tensor parallelism (`EngineConfig.mesh`, a tp-only MeshConfig; the
-  llama, qwen2/3 and mistral configs): the engine runs on one rank of an
-  initialized torch.distributed group (parallel/distributed.py), its model
-  holds the rank's weight slices and its pool the rank's kv heads
-  (`pool_kv_heads`), and the collectives join the ranks inside every
-  model call. Under a mesh the int8 KV pool and the prefix cache are off
-  (logged), as in the JAX engine, and a draft model, int8 weights and
-  ragged attention off are refused (ROADMAP A 9). The group's ranks must
-  issue the same model calls in the same order: the liaison's engine
-  records each device-dispatching action through `plan_sink` (admit,
-  block, verify, deact, embed, reset: plain host data) and a follower's
-  engine replays them with `apply_plan_op`. Records go out BEFORE their
+- Tensor parallelism (`EngineConfig.mesh`, a tp-only MeshConfig; every
+  family but mixtral, which waits for ep, ROADMAP A 9): the engine runs on
+  one rank of an initialized torch.distributed group
+  (parallel/distributed.py), its model holds the rank's weight slices and
+  its pool the rank's kv heads (`pool_kv_heads`), and the collectives join
+  the ranks inside every model call. Int8 weights, both attention modes,
+  images, embeddings, the prefix cache and draft-model trees run under a
+  mesh; the int8 KV pool, the host KV tier and KV transfer are off
+  (logged), as in the JAX engine. The group's ranks must issue the same
+  model calls in the same order: the liaison's engine records each
+  device-dispatching action through `plan_sink` (admit, block, verify,
+  verify_tree, deact, embed, reset: plain host data) and a follower's
+  engine replays them with `apply_plan_op`. The liaison's allocator alone
+  decides prefix hits and evictions: an admit record carries the slot's
+  page row and its `cached` length, and a follower never looks up or
+  evicts. The draft model of a tree runs whole (unmeshed) on rank 0, the
+  liaison, alone: its drafts reach the followers only in the verify_tree
+  records (the JAX engine shards the draft over the target's mesh; it
+  too has no record for the draft pass), so a group with a draft model
+  runs through plan replay. Records go out BEFORE their
   dispatch, unlike the JAX engine's: a torch collective blocks the host
   until every rank has reached it, so the liaison would wait in its first
   all-reduce for a follower still waiting for the record. `dispatch_lock`
@@ -621,8 +629,14 @@ class InferenceEngine:
             self._init_device_state()
             self.max_context = min(self.cfg.max_seq_len,
                                    config.max_pages_per_slot * config.page_size)
+        # a group's follower replays the liaison's verify_tree records and
+        # never drafts (the draft model lives on the liaison only)
+        self._replays_drafts = bool(
+            self._spec_k and config.draft_model and self.mesh is not None
+            and self.mesh.rank != 0)
         if self._spec_k:
-            self._drafter = self._build_model_drafter(draft_params) or make_drafter()
+            self._drafter = (None if self._replays_drafts
+                             else self._build_model_drafter(draft_params)) or make_drafter()
         # the draft tree's static topology, its node depths and ancestor mask
         parents = tree_topology(self._spec_k, self._tree_width)
         self._tree = (parents, tree_depths(parents), tree_ancestor_mask(parents))
@@ -639,25 +653,16 @@ class InferenceEngine:
             self.prewarm()
 
     def _check_mesh(self, config: EngineConfig) -> EngineConfig:
-        """The refusals and the settings switched off under a mesh (the JAX
-        engine's, plus what this package has not ported: ROADMAP A 9)."""
+        """The refusals (a family that does not run under a mesh: ROADMAP A
+        9) and the settings switched off under a mesh, as in the JAX
+        engine: the int8 KV pool (the host tier and KV transfer are off in
+        `_build_host_tier` and `kv_transfer_supported`)."""
         from gridllm_torch.models.llama import validate_mesh
 
         validate_mesh(self.cfg, self.mesh)
-        refused = {
-            "draft-model speculation (verify_tree)": bool(config.draft_model),
-            "int8 weights": bool(config.quantize),
-            "per-phase attention (ragged_attention off)": not config.ragged_attention,
-        }
-        for what, on in refused.items():
-            if on:
-                raise ValueError(f"{what} under a mesh is not ported to the torch "
-                                 "package yet (ROADMAP A 9)")
         if config.kv_int8:
             log.info("int8 KV pool disabled: meshed pools keep the fp layout")
-        if config.prefix_cache:
-            log.info("prefix cache disabled under a mesh")
-        return dataclasses.replace(config, kv_int8=False, prefix_cache=False)
+        return dataclasses.replace(config, kv_int8=False)
 
     # ---------------------------------------------------------- weights
 
@@ -707,10 +712,16 @@ class InferenceEngine:
 
     def snapshot_key(self) -> str:
         """Checkpoint identity in the weight snapshot tier: everything that
-        changes the weights (the JAX engine's key, string for string)."""
+        changes the weights (the JAX engine's key, string for string), and
+        under a mesh the rank whose slices they are."""
         c = self.config
-        return "|".join((self.cfg.name, c.checkpoint_path or "init", str(c.dtype),
-                         c.quantize or "none", str(c.mesh or "")))
+        key = "|".join((self.cfg.name, c.checkpoint_path or "init", str(c.dtype),
+                        c.quantize or "none", str(c.mesh or "")))
+        if c.mesh is None:
+            return key
+        import torch.distributed as dist
+
+        return f"{key}|rank {dist.get_rank() if dist.is_initialized() else 0}"
 
     def park_weights(self) -> bool:
         """Park the weights in the host snapshot tier (call after stop(), on
@@ -924,15 +935,17 @@ class InferenceEngine:
                                                    max=self.cache.max_context))
         return torch.cat([cand[:, :1].T, out, n_emit[None].to(out.dtype)])
 
-    def _verify_tree_block(self, drafts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def _verify_tree_block(self, drafts: torch.Tensor, valid: torch.Tensor,
+                           tree: tuple | None = None) -> torch.Tensor:
         """One tree verify step for all slots: [S, N-1] drafted node tokens
         (topological order after each slot's committed last token, the
         root) and [S, N] node validity, one tree-masked forward, the accept
         walk, the compaction of each accepted path's K/V rows and the length
-        commit. Returns [N+2, S]: row 0 the input tokens, rows 1..N the
+        commit. `tree`: (parents, depths, ancestor mask), default the
+        engine's. Returns [N+2, S]: row 0 the input tokens, rows 1..N the
         emitted tokens (valid up to n_emit per slot), the last row n_emit."""
         sp, vocab = self.sampling, self.cfg.vocab_size
-        parents, depths, anc = self._tree
+        parents, depths, anc = tree or self._tree
         cand = torch.cat([self.tokens[:, None], drafts], dim=1)
         logits, _ = self.model.verify_step(cand, self.cache, self.active,
                                            tree_pos=depths, tree_mask=anc)
@@ -1296,6 +1309,9 @@ class InferenceEngine:
             # host-visible before drafting
             self._fetch_oldest()
         k, n_slots = self._spec_k, self.config.max_slots
+        if self._replays_drafts:
+            raise RuntimeError("this rank replays the liaison's verify_tree records: a "
+                               "group with a draft model runs through plan replay")
         if isinstance(self._drafter, DraftModelDrafter):
             self._step_spec_tree(k)
             return
@@ -1338,9 +1354,6 @@ class InferenceEngine:
         live slot, one tree verify step, its fetch and the ragged ingest.
         The per-slot budgets are the JAX engine's: no chain past
         num_predict, and siblings only where a depth-1 chain would fit."""
-        if self.plan_sink is not None:
-            raise RuntimeError("draft-model speculation in a worker group is not ported "
-                               "to the torch package yet (ROADMAP A 9)")
         width = self._tree_width
         n, n_slots = len(self._tree[0]), self.config.max_slots
         drafts = np.zeros((n_slots, n - 1), np.int32)
@@ -1378,9 +1391,23 @@ class InferenceEngine:
         _BATCH_OCCUPANCY.observe(len(self._slots), model=self.cfg.name)
         self._gen += 1
         t0 = time.perf_counter()
-        out = self._verify_tree_block(torch.from_numpy(drafts).to(self.device),
-                                      torch.from_numpy(valid).to(self.device))
+        out = self._dispatch_verify_tree(drafts, valid, self._tree[0])
         self._fetch_verify(out, t0, dlen)
+
+    def _dispatch_verify_tree(self, drafts: np.ndarray, valid: np.ndarray,
+                              parents) -> torch.Tensor:
+        """One tree verify step of host drafts [S, N-1] and validity [S, N]
+        over the topology `parents`; the record carries the topology, so a
+        follower replays the same program whatever its own settings (the
+        JAX engine's verify_tree record)."""
+        parents = np.asarray(parents, np.int32)
+        tree = self._tree if np.array_equal(parents, self._tree[0]) else (
+            parents, tree_depths(parents), tree_ancestor_mask(parents))
+        with self.dispatch_lock:
+            self._record({"op": "verify_tree", "drafts": drafts.tolist(),
+                          "valid": valid.tolist(), "parents": parents.tolist()})
+            return self._verify_tree_block(torch.from_numpy(drafts).to(self.device),
+                                           torch.from_numpy(valid).to(self.device), tree)
 
     def _ingest_spec(self, gen: int, tok_np: np.ndarray, n_emit: np.ndarray,
                      dlen: np.ndarray) -> None:
@@ -1871,6 +1898,9 @@ class InferenceEngine:
             # drafts are plain host ints in the record: the same program
             self._dispatch_verify(np.asarray(rec["drafts"], np.int32),
                                   np.asarray(rec["dlen"], np.int32))
+        elif op == "verify_tree":
+            self._dispatch_verify_tree(np.asarray(rec["drafts"], np.int32),
+                                       np.asarray(rec["valid"], bool), rec["parents"])
         elif op == "deact":
             self._deactivate(int(rec["slot"]))
         elif op == "embed":
@@ -1969,9 +1999,10 @@ class InferenceEngine:
         cap = c.kv_host_bytes if c.kv_host_bytes is not None else env_int("GRIDLLM_KV_HOST_BYTES")
         if cap <= 0:
             return None
-        if self._prefix_cache_cap == 0:
-            log.info("host KV tier disabled for %s: it needs the prefix cache",
-                     c.model)
+        if self._prefix_cache_cap == 0 or self.mesh is not None:
+            log.info("host KV tier disabled for %s: needs the prefix cache and an "
+                     "unsharded pool (prefix cache %s, meshed %s)", c.model,
+                     self._prefix_cache_cap != 0, self.mesh is not None)
             return None
         spill_int8 = (c.kv_spill_int8 if c.kv_spill_int8 is not None
                       else env_bool("GRIDLLM_KV_SPILL_INT8"))

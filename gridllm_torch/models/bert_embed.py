@@ -13,6 +13,12 @@ leaves, projections [in, out]), so `params_from_jax` copies a JAX pytree
 leaf for leaf. Weight layout contract: HF `BertModel` (`HF_MAP`,
 `_TOP_MAP`; names with or without the "bert." prefix are read, the pooler
 head is ignored).
+
+Under a tensor-parallel mesh (the JAX package's param_shardings on this
+tree) wq/wk/wv and bq/bk/bv split by heads and wo by rows: each rank
+attends with its heads, the partial wo products are summed over tp and bo
+is added once after the sum. w_in/w_out, bo, the norms and the embeddings
+stay whole; every leaf arrives whole and each rank keeps its share.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from torch import nn
 
 from gridllm_torch.models.configs import ModelConfig
 from gridllm_torch.ops.layers import layer_norm
+from gridllm_torch.parallel import collectives
+from gridllm_torch.parallel.sharding import param_shardings, shard_leaf
 
 _NEG_INF = -1e30
 
@@ -37,7 +45,7 @@ class BertEmbed(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda", ragged_attention: bool = True,
-                 quantize: str | None = None):
+                 quantize: str | None = None, mesh=None):
         super().__init__()
         del ragged_attention  # no paged attention: a family-API argument only
         if quantize:
@@ -46,6 +54,7 @@ class BertEmbed(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.quantize = None
+        self.mesh = mesh if mesh is not None and mesh.shape.get("tp", 1) > 1 else None
         e, f, v, n = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
 
         def p(*shape):
@@ -64,7 +73,14 @@ class BertEmbed(nn.Module):
             "w_in": (n, e, f), "b_in": (n, f), "w_out": (n, f, e), "b_out": (n, e),
             "mlp_ln_w": (n, e), "mlp_ln_b": (n, e),
         }
-        self.layers = nn.ParameterDict({k: p(*s) for k, s in shapes.items()})
+        # the whole shape and split dim (None: whole) of each layer leaf
+        self._full = shapes
+        self._dims = param_shardings({"layers": shapes}, cfg, self.mesh)["layers"]
+        tp = 1 if self.mesh is None else self.mesh.shape["tp"]
+        self.n_heads = cfg.num_heads // tp if self._dims["wq"] is not None else cfg.num_heads
+        self.layers = nn.ParameterDict({
+            k: p(*(n_ // tp if i == self._dims[k] else n_ for i, n_ in enumerate(s)))
+            for k, s in shapes.items()})
 
     @property
     def device(self) -> torch.device:
@@ -77,11 +93,17 @@ class BertEmbed(nn.Module):
         """Random weights with the JAX package's scheme: every matrix and
         embedding normal × 0.02, biases 0, LayerNorm weights 1 (drawn in
         float32 on the module's device, one layer of a stacked leaf at a
-        time)."""
-        def normal_(t: torch.Tensor) -> None:
-            for part in (t if t.ndim == 3 else [t]):
-                part.copy_(torch.randn(part.shape, generator=generator, device=t.device,
-                                       dtype=torch.float32) * 0.02)
+        time; a split leaf's layers drawn whole and cut)."""
+        def normal_(t: torch.Tensor, name: str | None = None) -> None:
+            if t.ndim < 3:
+                t.copy_(torch.randn(t.shape, generator=generator, device=t.device,
+                                    dtype=torch.float32) * 0.02)
+                return
+            for part in t:
+                w = torch.randn(self._full[name][1:], generator=generator, device=t.device,
+                                dtype=torch.float32) * 0.02
+                dim = self._dims[name]
+                part.copy_(w if dim is None else shard_leaf(w, dim - 1, self.mesh))
 
         for t in (self.word_embed, self.pos_embed, self.type_embed):
             normal_(t)
@@ -93,7 +115,7 @@ class BertEmbed(nn.Module):
             elif t.ndim == 2:
                 t.zero_()
             else:
-                normal_(t)
+                normal_(t, name)
         return self
 
     def params_tree(self) -> dict[str, Any]:
@@ -105,10 +127,12 @@ class BertEmbed(nn.Module):
 
     @torch.no_grad()
     def params_from_jax(self, np_params: dict[str, Any]) -> "BertEmbed":
-        """Copy a JAX-layout pytree (numpy leaves) into the parameters."""
+        """Copy a JAX-layout pytree (numpy leaves; whole, each rank keeping
+        its share) into the parameters."""
         tree = self.params_tree()
         pairs = [(tree[k], np_params[k]) for k in _TOP_MAP]
-        pairs += [(t, np_params["layers"][k]) for k, t in tree["layers"].items()]
+        pairs += [(t, shard_leaf(np.asarray(np_params["layers"][k]), self._dims[k], self.mesh))
+                  for k, t in tree["layers"].items()]
         for dst, src in pairs:
             arr = np.array(src, dtype=np.float32)
             if tuple(arr.shape) != tuple(dst.shape):
@@ -137,6 +161,9 @@ class BertEmbed(nn.Module):
                 dst = dst[layer]
             src = t.to(dst.device)
             src = src.T if transpose else src
+            dim = self._dims.get(path[-1]) if len(path) > 1 else None
+            if dim is not None and tuple(src.shape) != tuple(dst.shape):
+                src = shard_leaf(src, dim - (layer is not None), self.mesh)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
                                  f"!= {tuple(dst.shape)}")
@@ -146,6 +173,11 @@ class BertEmbed(nn.Module):
             place((k,), None, get_any(name), False)
         hf_layout.stack_layer_leaves(self.cfg, get_any, HF_MAP, place)
         return self
+
+    def hf_slices(self) -> dict[str, tuple[int, int, int]]:
+        """No tensor is read in slices: the encoder is small, a rank reads
+        each whole and keeps its share (`params_from_hf`)."""
+        return {}
 
     def hf_tensors(self) -> dict[str, torch.Tensor]:
         """Inverse of params_from_hf: HF name → tensor view in HF
@@ -171,8 +203,8 @@ class BertEmbed(nn.Module):
         never leaks into the valid tokens' attention."""
         cfg, lp = self.cfg, self.layers
         b, t = tokens.shape
-        h = cfg.num_heads
-        d = cfg.hidden_size // h
+        h = self.n_heads
+        d = cfg.hidden_size // cfg.num_heads
         eps = cfg.rms_eps
         dev = self.device
         if seq_lens is None:
@@ -193,7 +225,10 @@ class BertEmbed(nn.Module):
             logits = logits.masked_fill(~key_valid, _NEG_INF)
             probs = torch.softmax(logits, dim=-1)
             attn = torch.einsum("bhts,bshd->bthd", probs, v.float()).to(x.dtype)
-            attn = attn.reshape(b, t, -1) @ lp["wo"][li] + lp["bo"][li]
+            attn = attn.reshape(b, t, -1) @ lp["wo"][li]
+            if self._dims["wo"] is not None:   # the rank's heads: a partial sum
+                attn = collectives.all_reduce_sum(attn, self.mesh)
+            attn = attn + lp["bo"][li]
             x = layer_norm(x + attn, lp["attn_ln_w"][li], lp["attn_ln_b"][li], eps)
             ff = F.gelu(x @ lp["w_in"][li] + lp["b_in"][li], approximate="none")
             ff = ff @ lp["w_out"][li] + lp["b_out"][li]

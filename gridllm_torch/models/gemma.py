@@ -20,7 +20,11 @@ and this module owns only what gemma2 computes differently:
   layer's launch (`_window`);
 - tied head, float32 logits, tanh-softcapped by final_logit_softcap;
 - with int8 weights every projection goes through `qdot`; the tied head
-  stays in the load dtype (embed is not a quant leaf).
+  stays in the load dtype (embed is not a quant leaf);
+- under a tensor-parallel mesh the row-parallel partial sums of wo and
+  w_down are summed over tp BEFORE their post-norms (an RMSNorm is not
+  linear), and the vocab-split tied head's logits are gathered (the
+  final softcap is elementwise: it goes on after the gather).
 
 Parameters keep the JAX pytree's names and layout (stacked [L] leaves,
 projections [in, out]), so `params_from_jax` copies a JAX gemma2 pytree
@@ -38,6 +42,7 @@ from gridllm_torch.models.configs import ModelConfig
 from gridllm_torch.models.llama import Llama
 from gridllm_torch.ops.layers import rotate
 from gridllm_torch.ops.quant import qdot
+from gridllm_torch.parallel import collectives
 
 
 def gemma_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -95,11 +100,11 @@ class Gemma2(Llama):
         q, k = rotate(q, *rope), rotate(k, *rope)
         att = qdot(attend(self._q_prescale(q), k, v).reshape(*x.shape[:-1], -1),
                    self._w("wo", li))
-        x = x + gemma_norm(att, lp["post_attn_norm"][li], eps)
+        x = x + gemma_norm(self._row_sum("wo", att), lp["post_attn_norm"][li], eps)
         hx = gemma_norm(x, lp["pre_ffn_norm"][li], eps)
         hx = qdot(F.gelu(qdot(hx, self._w("w_gate", li)), approximate="tanh")
                   * qdot(hx, self._w("w_up", li)), self._w("w_down", li))
-        return x + gemma_norm(hx, lp["post_ffn_norm"][li], eps), k, v
+        return x + gemma_norm(self._row_sum("w_down", hx), lp["post_ffn_norm"][li], eps), k, v
 
     def _window(self, li: int) -> int:
         """The sliding window on even layers, full attention on odd ones."""
@@ -112,6 +117,8 @@ class Gemma2(Llama):
         x = self._final_norm(x)
         # tied head: embed is no quant leaf, so it stays in the load dtype
         logits = (x @ self.embed.T).float()
+        if self._leaf_split("embed") is not None:   # a vocab-split head's columns
+            logits = collectives.gather_last(logits, self.mesh)
         cap = self.cfg.final_logit_softcap
         return cap * torch.tanh(logits / cap) if cap else logits
 

@@ -48,8 +48,8 @@ allocated: weights are quantized a layer slice at a time as they are drawn
 or placed. Every projection goes through `qdot` on the layer's weight
 (`_w`), which is the plain (x @ q) * scale for a quantized leaf.
 
-Tensor parallelism (`mesh`, a parallel.mesh.Mesh with tp > 1; the llama,
-qwen2/3 and mistral configs): each rank holds its slices of the leaves
+Tensor parallelism (`mesh`, a parallel.mesh.Mesh with tp > 1; every
+family but mixtral, MESH_FAMILIES): each rank holds its slices of the leaves
 (parallel/sharding.py: attention by whole heads where the heads divide by
 tp, the MLP by its hidden dim, embed and lm_head by vocab), runs attention
 on its heads against a pool of its kv heads, and the sums of
@@ -59,7 +59,12 @@ entry point with the same hidden states and the full logits. Weights
 arrive whole and each rank keeps its slices: `init_params` draws the full
 tensors from the seed (a layer, or a block of rows, at a time),
 `params_from_jax` cuts a full pytree, and `params_from_hf` takes slices
-(`hf_slices` names them, so a reader reads only those).
+(`hf_slices` names them, so a reader reads only those). An int8 leaf's
+pair is the slice of the whole leaf's quantization: a column-split leaf
+keeps its columns of q and scale; a row-split one (wo, w_down) keeps its
+rows of q and the whole scale, each scale the amax over ALL rows, so its
+layer is quantized whole and cut (`_quantize_layer`) and a checkpoint
+reader reads it whole.
 """
 
 from __future__ import annotations
@@ -73,7 +78,13 @@ from torch import nn
 
 from gridllm_torch.models.configs import ModelConfig
 from gridllm_torch.parallel import collectives
-from gridllm_torch.parallel.sharding import attention_split, param_shardings, shard_range
+from gridllm_torch.parallel.sharding import (
+    attention_split,
+    param_shardings,
+    scale_split,
+    shard_leaf,
+    shard_range,
+)
 from gridllm_torch.ops.attention import (
     attention_prefill,
     attention_prefix_chunk,
@@ -99,14 +110,15 @@ from gridllm_torch.ops.quant import (
 
 # the most values a random draw of init_params fills at once (64 MB in float32)
 _DRAW_NUMEL = 1 << 24
-# the families whose model runs under a tensor-parallel mesh
-MESH_FAMILIES = ("llama", "qwen2", "qwen3")
+# the families whose model runs under a tensor-parallel mesh (mixtral's
+# experts wait for ep, ROADMAP A 9)
+MESH_FAMILIES = ("llama", "qwen2", "qwen3", "gemma2", "llava", "bert_embed")
 
 
 def validate_mesh(cfg: ModelConfig, mesh) -> None:
     """Engine-init mesh check: ring-attention (sp) prefill has no
     sliding-window variant (the JAX package's rule; sp itself waits for
-    ROADMAP A 9), and only the llama-skeleton families run under a mesh."""
+    ROADMAP A 9), and only MESH_FAMILIES run under a mesh."""
     if cfg.sliding_window and mesh is not None and mesh.shape.get("sp", 1) > 1:
         raise ValueError(
             f"{cfg.name}: sliding-window attention cannot combine with sp "
@@ -137,9 +149,6 @@ class Llama(nn.Module):
             mesh = None
         if mesh is not None:
             validate_mesh(cfg, mesh)
-            if quantize:
-                raise ValueError("int8 weights under a mesh are not ported to the torch "
-                                 "package yet (ROADMAP A 9)")
         self.cfg = cfg
         self.dtype = dtype
         self.quantize = quantize
@@ -174,10 +183,10 @@ class Llama(nn.Module):
         self.final_norm = p(e)
         self.lm_head = None
         if not cfg.tie_embeddings:
-            self.lm_head = p(*self._local_shape((e, v), self._split["lm_head"]),
-                             dt=torch.int8 if quantized("lm_head") else dtype)
+            head = self._local_shape((e, v), self._split["lm_head"])
+            self.lm_head = p(*head, dt=torch.int8 if quantized("lm_head") else dtype)
             if quantized("lm_head"):
-                self.scales["lm_head"] = p(v, dt=torch.float32)
+                self.scales["lm_head"] = p(head[-1], dt=torch.float32)
         self.register_buffer(
             "inv_freq",
             precompute_rope(d, cfg.rope_theta, cfg.rope_scaling, device=device),
@@ -255,12 +264,13 @@ class Llama(nn.Module):
         quantizes its initialized weights: an int8 model's weights are the
         int8 pairs of the unquantized model's from the same generator."""
 
-        def slices(name: str, t: torch.Tensor, scale: float):
+        def slices(name: str, t: torch.Tensor, scale: float, cut: bool = True):
             # bounded memory: a stacked leaf one layer at a time, a 2-D leaf
             # in blocks of rows of at most _DRAW_NUMEL values, one draw a
             # block (a draw a row is ~400k launches for a 128k-row embedding).
             # The draws are of the FULL leaf, so every rank of a mesh draws
             # the same numbers as an unmeshed model; each keeps its share
+            # (a stacked layer's whole draw with cut=False)
             full = self._full_shape(name)
             dim = self._leaf_split(name)
             rows = self._range(name) if dim == 0 and len(full) == 2 else None
@@ -276,16 +286,16 @@ class Llama(nn.Module):
                 elif len(full) == 2:
                     yield i, t[i:i + step], self._cut(name, w)
                 else:
-                    yield i, t[i], self._cut(name, w, layer_slice=True)
+                    yield i, t[i], self._cut(name, w, layer_slice=True) if cut else w
 
         def normal_(name: str, t: torch.Tensor, scale: float) -> None:
             if name not in self.scales:
                 for _, part, w in slices(name, t, scale):
                     part.copy_(w)
             elif t.ndim > 2:      # a stacked leaf: each layer's slice quantizes alone
-                for i, part, w in slices(name, t, scale):
-                    quantize_into(QuantizedTensor(part, self.scales[name][i]),
-                                  w.to(self.dtype))
+                for i, part, w in slices(name, t, scale, cut=False):
+                    self._quantize_layer(name, QuantizedTensor(part, self.scales[name][i]),
+                                         w.to(self.dtype))
             else:
                 # a 2-D leaf (the head) is drawn by rows, and its scales need
                 # every row: a first pass finds each column's largest
@@ -337,10 +347,12 @@ class Llama(nn.Module):
                     raise ValueError(f"{name}: an int8 leaf for an unquantized model")
                 put(dst, src, name=name)
                 return
-            if not hasattr(src, "q"):
+            if not hasattr(src, "q"):   # the whole leaf's quantization, then the cut
                 src = quantize_np_leaf(name, np.asarray(src, np.float32))
-            put(dst, src.q, np.int8)
-            put(self.scales[name], src.scale)
+            dim = self._leaf_split(name)
+            q, scale = np.asarray(src.q), np.asarray(src.scale)
+            put(dst, shard_leaf(q, dim, self.mesh), np.int8)
+            put(self.scales[name], shard_leaf(scale, scale_split(dim, q.ndim), self.mesh))
 
         put(self.embed, np_params["embed"], name="embed")
         for name, t in self.layers.items():
@@ -349,6 +361,21 @@ class Llama(nn.Module):
         if self.lm_head is not None:
             put_leaf("lm_head", self.lm_head, np_params["lm_head"])
         return self
+
+    def _row_split(self, name: str) -> bool:
+        """Whether leaf `name` is split on its contracted `in` axis (wo,
+        w_down: row parallel), the axis an int8 scale spans."""
+        dim = self._leaf_split(name)
+        return dim is not None and dim == len(self._full_shape(name)) - 2
+
+    def _quantize_layer(self, name: str, dst: QuantizedTensor, w: torch.Tensor) -> None:
+        """Quantize one whole layer `w` [in, out] of int8 leaf `name` into
+        this rank's pair `dst`: a row-split leaf's scales from all of w's
+        rows, its q from the rank's rows; otherwise the rank's columns."""
+        if self._row_split(name):
+            quantize_into(dst, w, rows=self._range(name))
+        else:
+            quantize_into(dst, self._cut(name, w, layer_slice=True))
 
     def _leaf(self, name: str, t: torch.Tensor):
         """Parameter `t` of leaf `name`, paired with its scales when int8."""
@@ -377,7 +404,8 @@ class Llama(nn.Module):
         placed (the JAX loader's host-side rule, one layer slice here), so
         no whole float copy of the leaf is made. Tied embeddings read no
         lm_head.weight. Under a mesh a tensor may come whole or as this
-        rank's slice (`hf_slices`); a whole one is cut here."""
+        rank's slice (`hf_slices`); a whole one is cut here (an int8
+        row-split leaf arrives whole and is quantized whole, then cut)."""
         from gridllm_torch.models import hf_layout
 
         tree = self.params_tree()
@@ -388,12 +416,17 @@ class Llama(nn.Module):
                 dst = dst[layer]
             src = t.to(dst.device)
             src = src.T if transpose else src
-            if tuple(src.shape) != tuple(dst.shape):
+            # an int8 row-split layer (wo, w_down) stays whole until quantized
+            whole = isinstance(dst, QuantizedTensor) and self._row_split(path[-1])
+            want = self._full_shape(path[-1])[1:] if whole else tuple(dst.shape)
+            if tuple(src.shape) != tuple(want):
                 src = self._cut(path[-1], src, layer_slice=layer is not None)
-            if tuple(src.shape) != tuple(dst.shape):
+            if tuple(src.shape) != tuple(want):
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
-                                 f"!= {tuple(dst.shape)}")
-            if isinstance(dst, QuantizedTensor):
+                                 f"!= {tuple(want)}")
+            if whole:
+                self._quantize_layer(path[-1], dst, src)
+            elif isinstance(dst, QuantizedTensor):
                 quantize_into(dst, src)
             else:
                 dst.copy_(src)
@@ -403,13 +436,14 @@ class Llama(nn.Module):
 
     def hf_slices(self) -> dict[str, tuple[int, int, int]]:
         """The HF tensors this rank keeps a slice of: name → (dim in the
-        stored HF orientation, lo, hi). Empty without a mesh."""
+        stored HF orientation, lo, hi). Empty without a mesh. An int8
+        row-split leaf is read whole: its scales span every row."""
         from gridllm_torch.models.hf_layout import hf_names
 
         out: dict[str, tuple[int, int, int]] = {}
         for leaf, name, transpose, stacked in hf_names(self.cfg, self.name_map()):
             dim = self._leaf_split(leaf)
-            if dim is None:
+            if dim is None or (leaf in self.scales and self._row_split(leaf)):
                 continue
             dim -= stacked                        # one layer of a stacked leaf
             if transpose:

@@ -19,6 +19,13 @@ of `prefill`, `prefill_chunk` and `mixed_step`. This module owns:
   overlaid by projected patch rows; `offset` counts the image tokens before
   the span, so a chunked prefill splices chunk by chunk.
 
+Under a tensor-parallel mesh the text stack is the skeleton's, and the
+tower's attention splits as the JAX package's param_shardings splits it:
+wq/wk/wv and bq/bk/bv by the tower's heads, wo by rows, the partial
+products summed over tp before bo is added once; fc1/fc2, the norms, the
+tower's top leaves and the projector stay whole (`_vdims`). Every rank
+encodes the images itself.
+
 Parameters: the text leaves are Llama's; the tower's are `vision` (cls,
 patch_embed, pos_embed, pre_ln_w/b) and `vision_layers` (stacked [Lv]
 leaves), the projector's `projector`, under the JAX pytree's names, so
@@ -43,6 +50,8 @@ from torch import nn
 from gridllm_torch.models.configs import ModelConfig, VisionConfig
 from gridllm_torch.models.llama import Llama
 from gridllm_torch.ops.layers import layer_norm
+from gridllm_torch.parallel import collectives
+from gridllm_torch.parallel.sharding import leaf_split, shard_leaf, vision_heads
 
 
 def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -55,9 +64,9 @@ class Llava(Llama):
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda", ragged_attention: bool = True,
-                 quantize: str | None = None):
+                 quantize: str | None = None, mesh=None):
         super().__init__(cfg, dtype=dtype, device=device, ragged_attention=ragged_attention,
-                         quantize=quantize)
+                         quantize=quantize, mesh=mesh)
         vc = self.vc = cfg.vision_cfg or VisionConfig()
         dv, fv, lv, e = vc.hidden_size, vc.intermediate_size, vc.num_layers, cfg.hidden_size
         pdim = 3 * vc.patch_size * vc.patch_size
@@ -69,11 +78,20 @@ class Llava(Llama):
         self.vision = nn.ParameterDict({
             "cls": p(dv), "patch_embed": p(pdim, dv), "pos_embed": p(vc.num_patches + 1, dv),
             "pre_ln_w": p(dv), "pre_ln_b": p(dv)})
+        full = {
+            "ln1_w": (lv, dv), "ln1_b": (lv, dv), "wq": (lv, dv, dv), "bq": (lv, dv),
+            "wk": (lv, dv, dv), "bk": (lv, dv), "wv": (lv, dv, dv), "bv": (lv, dv),
+            "wo": (lv, dv, dv), "bo": (lv, dv), "ln2_w": (lv, dv), "ln2_b": (lv, dv),
+            "fc1": (lv, dv, fv), "b1": (lv, fv), "fc2": (lv, fv, dv), "b2": (lv, dv)}
+        # the whole shape and split dim (None: whole) of each tower layer
+        # leaf, and the tower's heads on this rank
+        self._vfull = full
+        self._vdims = {k: leaf_split(k, s, cfg, self.mesh, heads=vision_heads(cfg))
+                       for k, s in full.items()}
+        split = self._vdims["wq"] is not None
+        self.v_heads = vc.num_heads // self.mesh.shape["tp"] if split else vc.num_heads
         self.vision_layers = nn.ParameterDict({
-            "ln1_w": p(lv, dv), "ln1_b": p(lv, dv), "wq": p(lv, dv, dv), "bq": p(lv, dv),
-            "wk": p(lv, dv, dv), "bk": p(lv, dv), "wv": p(lv, dv, dv), "bv": p(lv, dv),
-            "wo": p(lv, dv, dv), "bo": p(lv, dv), "ln2_w": p(lv, dv), "ln2_b": p(lv, dv),
-            "fc1": p(lv, dv, fv), "b1": p(lv, fv), "fc2": p(lv, fv, dv), "b2": p(lv, dv)})
+            k: p(*self._local_shape(s, self._vdims[k])) for k, s in full.items()})
         self.projector = nn.ParameterDict({
             "w1": p(dv, e), "b1": p(e), "w2": p(e, e), "b2": p(e)})
 
@@ -85,11 +103,18 @@ class Llava(Llama):
         yield from ((("vision", "layers", k), t) for k, t in self.vision_layers.items())
         yield from ((("projector", k), t) for k, t in self.projector.items())
 
+    def _vcut(self, path: tuple[str, ...], x, layer_slice: bool = False):
+        """This rank's share of a full tensor of tower leaf `path` (or,
+        with layer_slice, of one layer of it); other leaves whole."""
+        dim = self._vdims.get(path[-1]) if path[:2] == ("vision", "layers") else None
+        return shard_leaf(x, None if dim is None else dim - layer_slice, self.mesh)
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Llava":
         """The text stack's random weights (Llama.init_params), then the
         tower's and the projector's with the JAX package's scheme: matrices
-        and embeddings normal × 0.02, biases 0, LayerNorm weights 1."""
+        and embeddings normal × 0.02, biases 0, LayerNorm weights 1; a
+        split leaf's layers drawn whole and cut, as the text stack's."""
         super().init_params(generator)
         for path, t in self._vision_leaves():
             name = path[-1]
@@ -97,10 +122,15 @@ class Llava(Llama):
                 t.fill_(1.0)
             elif name.startswith("b") or name.endswith("_b"):
                 t.zero_()
+            elif t.ndim == 3:
+                shape = self._vfull[name][1:]
+                for part in t:
+                    part.copy_(self._vcut(path, torch.randn(
+                        shape, generator=generator, device=t.device,
+                        dtype=torch.float32) * 0.02, layer_slice=True))
             else:
-                for part in (t if t.ndim == 3 else [t]):
-                    part.copy_(torch.randn(part.shape, generator=generator, device=t.device,
-                                           dtype=torch.float32) * 0.02)
+                t.copy_(torch.randn(t.shape, generator=generator, device=t.device,
+                                    dtype=torch.float32) * 0.02)
         return self
 
     def params_tree(self) -> dict[str, Any]:
@@ -119,7 +149,7 @@ class Llava(Llama):
             src = np_params
             for k in path:
                 src = src[k]
-            arr = np.array(src, dtype=np.float32)
+            arr = np.array(self._vcut(path, np.asarray(src)), dtype=np.float32)
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != {tuple(t.shape)}")
             t.copy_(torch.from_numpy(arr))
@@ -150,7 +180,9 @@ class Llava(Llama):
             for i in range(vc.num_layers):
                 name = tmpl.format(i)
                 w = rget(name).to(dev)
-                put(self.vision_layers[leaf][i], w.T if tr else w, name)
+                put(self.vision_layers[leaf][i],
+                    self._vcut(("vision", "layers", leaf), w.T if tr else w, layer_slice=True),
+                    name)
         for leaf, (name, tr) in _PROJ_MAP.items():
             w = rget(name).to(dev)
             put(self.projector[leaf], w.T if tr else w, name)
@@ -192,7 +224,7 @@ class Llava(Llama):
         (llava-1.5's "default" select strategy)."""
         vc, vp, lp = self.vc, self.vision, self.vision_layers
         b = pixel_values.shape[0]
-        dv, heads, dh, eps = vc.hidden_size, vc.num_heads, vc.head_dim, vc.layer_norm_eps
+        dv, heads, dh, eps = vc.hidden_size, self.v_heads, vc.head_dim, vc.layer_norm_eps
         x = self._patchify(pixel_values.to(self.device, vp["patch_embed"].dtype)) \
             @ vp["patch_embed"]                                           # [B, N, Dv]
         cls = vp["cls"].expand(b, 1, dv).to(x.dtype)
@@ -213,8 +245,11 @@ class Llava(Llama):
             v = (h @ lp["wv"][li] + lp["bv"][li]).reshape(b, t, heads, dh)
             logits = torch.einsum("bthd,bshd->bhts", q, k).float()
             probs = torch.softmax(logits / math.sqrt(dh), dim=-1).to(v.dtype)
-            att = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, dv)
-            x = x + (att @ lp["wo"][li] + lp["bo"][li])
+            att = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, heads * dh)
+            o = att @ lp["wo"][li]
+            if self._vdims["wo"] is not None:   # the rank's heads: a partial sum
+                o = collectives.all_reduce_sum(o, self.mesh)
+            x = x + (o + lp["bo"][li])
             h = layer_norm(x, lp["ln2_w"][li], lp["ln2_b"][li], eps)
             x = x + (_quick_gelu(h @ lp["fc1"][li] + lp["b1"][li]) @ lp["fc2"][li]
                      + lp["b2"][li])

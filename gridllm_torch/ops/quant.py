@@ -86,15 +86,20 @@ def quantize_array(w, contract_axis: int = -2) -> QuantizedTensor:
     return QuantizedTensor(to_int8(w, scale.unsqueeze(contract_axis)), scale)
 
 
-def quantize_into(dst: QuantizedTensor, w: torch.Tensor, block: int = 8192) -> None:
+def quantize_into(dst: QuantizedTensor, w: torch.Tensor, block: int = 8192,
+                  rows: tuple[int, int] | None = None) -> None:
     """Quantize the [in, out] weight `w` into `dst` (its q and scale
     tensors, on any device) block of `block` output channels by block: the
     scale is per channel, so the blocks give quantize_array's bits while
     the float32 temporaries stay one block (a llama3:70b head is 4.2 GB in
-    float32)."""
+    float32). With `rows` = [lo, hi), `dst.q` holds only those rows of the
+    `in` axis (a tensor-parallel rank's share of a row-split leaf) while
+    each scale still spans all of `w`'s rows, so the pair is the slice of
+    the whole leaf's quantization, bit for bit."""
     for c0 in range(0, w.shape[-1], block):
         part = quantize_array(w[..., c0:c0 + block].to(dst.q.device))
-        dst.q[..., c0:c0 + block].copy_(part.q)
+        q = part.q if rows is None else part.q[..., rows[0]:rows[1], :]
+        dst.q[..., c0:c0 + block].copy_(q)
         dst.scale[..., c0:c0 + block].copy_(part.scale)
 
 

@@ -25,6 +25,18 @@ divide by tp); otherwise every rank keeps all of attention, computes it
 whole and sums nothing after wo. The MLP splits by its hidden dim where F
 divides by tp, embed and lm_head by vocab where V does; each falls back to
 replicated on its own.
+
+The same specs cut the other families' trees, as the JAX package's do (it
+resolves a leaf's spec by its nearest dict key, `layers` anywhere on the
+path selecting the layer table): llava's vision tower (`vision.layers`:
+wq/wk/wv and bq/bk/bv by the tower's heads, wo by rows; bo, fc1/fc2, the
+norms, the tower's top leaves and the projector whole) and bert_embed's
+encoder (the same attention split; w_in/w_out, bo and word_embed whole).
+An int8 leaf (a QuantizedTensor) splits its `q` as the float leaf; its
+`scale [..., out]` follows a column split and stays whole under a row
+split (`scale_split`). JAX's `_fit` keeps every scale whole (its rank
+differs from the spec's); a rank here multiplies only its own output
+channels, so it keeps only their scales.
 """
 
 from __future__ import annotations
@@ -71,17 +83,28 @@ _TOP_SPECS: dict[str, tuple[str | None, ...]] = {
 ATTENTION_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv"})
 
 
-def attention_split(cfg, mesh) -> bool:
-    """Whether attention is split over tp: whole heads on every rank."""
-    return kernel_mesh_axis(mesh, cfg.num_kv_heads, cfg.num_heads) == ("wrap", "tp")
+def attention_split(cfg, mesh, heads: tuple[int, int] | None = None) -> bool:
+    """Whether attention is split over tp: whole heads on every rank.
+    `heads` = (kv heads, q heads), default the config's (the text stack)."""
+    kvh, h = heads or (cfg.num_kv_heads, cfg.num_heads)
+    return kernel_mesh_axis(mesh, kvh, h) == ("wrap", "tp")
+
+
+def vision_heads(cfg) -> tuple[int, int]:
+    """(kv heads, q heads) of llava's vision tower: multi-head attention."""
+    return cfg.vision_cfg.num_heads, cfg.vision_cfg.num_heads
 
 
 def _shape(leaf) -> tuple[int, ...]:
-    return tuple(leaf) if isinstance(leaf, tuple) else tuple(np.shape(leaf))
+    if isinstance(leaf, tuple):
+        return leaf
+    return tuple((leaf.q if hasattr(leaf, "q") else leaf).shape)
 
 
-def leaf_split(name: str, shape: tuple[int, ...], cfg, mesh, top: bool = False) -> int | None:
-    """The dim of leaf `name` (full shape `shape`) that tp splits, or None."""
+def leaf_split(name: str, shape: tuple[int, ...], cfg, mesh, top: bool = False,
+               heads: tuple[int, int] | None = None) -> int | None:
+    """The dim of leaf `name` (full shape `shape`) that tp splits, or None;
+    an attention leaf splits only where `heads` (attention_split's) do."""
     tp = 1 if mesh is None else mesh.shape.get("tp", 1)
     spec = (_TOP_SPECS if top else _LAYER_SPECS).get(name)
     if tp == 1 or spec is None or len(spec) != len(shape):
@@ -90,19 +113,35 @@ def leaf_split(name: str, shape: tuple[int, ...], cfg, mesh, top: bool = False) 
         if ax != "tp":
             continue
         if name in ATTENTION_LEAVES and not top:
-            return dim if attention_split(cfg, mesh) else None
+            return dim if attention_split(cfg, mesh, heads) else None
         return dim if size % tp == 0 else None
     return None
 
 
+def scale_split(dim: int | None, ndim: int) -> int | None:
+    """The split dim of an int8 leaf's scale [..., out] given its q's
+    (`dim` of `ndim`): a column split (out) cuts the scale with it; a row
+    split (in, the axis the scale spans) leaves it whole."""
+    return dim - 1 if dim is not None and dim == ndim - 1 else None
+
+
 def param_shardings(params: dict[str, Any], cfg, mesh) -> dict[str, Any]:
     """The split dim (None: replicated) of every leaf of a params tree
-    (embed, layers, final_norm, lm_head; leaves arrays or shape tuples),
-    congruent with it."""
+    (leaves arrays, QuantizedTensors, whose q's dim is given, or shape
+    tuples), congruent with it: `layers` by the layer table, llava's
+    `vision.layers` by it at the tower's heads, every other leaf of a
+    subtree (the tower's top leaves, the projector) whole, and the top
+    leaves by the top table."""
+    def layer_dims(layers, heads=None):
+        return {k: leaf_split(k, _shape(v), cfg, mesh, heads=heads) for k, v in layers.items()}
+
     out: dict[str, Any] = {}
     for name, leaf in params.items():
         if name == "layers":
-            out[name] = {k: leaf_split(k, _shape(v), cfg, mesh) for k, v in leaf.items()}
+            out[name] = layer_dims(leaf)
+        elif isinstance(leaf, dict):
+            out[name] = {k: layer_dims(v, vision_heads(cfg)) if k == "layers" else None
+                         for k, v in leaf.items()}
         else:
             out[name] = leaf_split(name, _shape(leaf), cfg, mesh, top=True)
     return out
@@ -117,7 +156,11 @@ def shard_range(size: int, mesh) -> tuple[int, int]:
 
 
 def shard_leaf(x, dim: int | None, mesh):
-    """This rank's slice of a full leaf (numpy or torch) along `dim`."""
+    """This rank's slice of a full leaf (numpy or torch, or an int8 pair,
+    its q and scale cut by `scale_split`) along `dim`."""
+    if hasattr(x, "q"):
+        return type(x)(shard_leaf(x.q, dim, mesh),
+                       shard_leaf(x.scale, scale_split(dim, x.q.ndim), mesh))
     if dim is None:
         return x
     lo, hi = shard_range(x.shape[dim], mesh)
@@ -128,14 +171,13 @@ def shard_leaf(x, dim: int | None, mesh):
 
 def shard_params(params: dict[str, Any], cfg, mesh) -> dict[str, Any]:
     """Cut a full params tree down to this rank's slices (views)."""
-    dims = param_shardings(params, cfg, mesh)
-    out: dict[str, Any] = {}
-    for name, leaf in params.items():
-        if name == "layers":
-            out[name] = {k: shard_leaf(v, dims[name][k], mesh) for k, v in leaf.items()}
-        else:
-            out[name] = shard_leaf(leaf, dims[name], mesh)
-    return out
+    def cut(tree, dims):
+        if isinstance(tree, dict):
+            return {k: cut(v, dims[k] if isinstance(dims, dict) else dims)
+                    for k, v in tree.items()}
+        return shard_leaf(tree, dims, mesh)
+
+    return cut(params, param_shardings(params, cfg, mesh))
 
 
 def pool_kv_heads(cfg, mesh) -> int:

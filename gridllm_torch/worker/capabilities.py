@@ -149,11 +149,13 @@ def gather_capabilities(
                 }, sort_keys=True).encode()).hexdigest()[:16],
             }
         models.append(ModelInfo(name=name, model=name, details=details))
-        # one device per engine until meshes are ported
+        # the JAX worker's layout of a meshed engine (tp only is ported)
+        mesh = getattr(eng, "mesh", None)
+        tp = mesh is not None and mesh.shape.get("tp", 1) > 1
         layouts.append(ModelShardLayout(
             name=name,
-            strategy="replicated",
-            meshAxes={},
+            strategy="tensor" if tp else "replicated",
+            meshAxes=dict(mesh.shape) if mesh is not None else {},
             dtype=str(getattr(c, "dtype", "bfloat16")),
             maxSeqLen=getattr(eng, "max_context", 8192),
             maxBatchSlots=getattr(c, "max_slots", 1),

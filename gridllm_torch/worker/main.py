@@ -32,9 +32,12 @@ shard, and then:
     calls and collectives;
   - any member's death fails the whole logical worker (worker/group.py):
     the liaison announces worker:disconnected and every process exits.
-Refused, naming ROADMAP A 9: any mesh axis but tp, and (in the engine)
-what a mesh does not run yet. A mesh whose size is not GRIDLLM_NUM_PROCS
-is refused: the torch worker drives one device per process.
+A group serves every family and mode one card serves (int8 weights,
+either attention mode, images, embedding jobs, the prefix cache, a draft
+model's trees) but mixtral. Refused, naming ROADMAP A 9: any mesh axis but
+tp, and (in the engine) mixtral under a mesh. A mesh whose size is not
+GRIDLLM_NUM_PROCS is refused: the torch worker drives one device per
+process.
 """
 
 from __future__ import annotations

@@ -255,11 +255,13 @@ def test_unported_engine_features_raise(field, value):
     tier since it was ported, so the engine builds one, int8 weights
     since they were ported, so the engine's projections are int8, and a
     mesh since tensor parallelism was ported, so a one-process tp mesh
-    builds an engine with the prefix cache off, as under any mesh."""
+    builds an engine with the prefix cache on and KV transfer and the host
+    KV tier off, as under any mesh."""
     if field == "mesh":
         eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",
-                                           mesh=value), device="cpu")
+                                           mesh=value, kv_host_bytes=1 << 20), device="cpu")
         assert eng.mesh.shape["tp"] == 1 and not eng.kv_transfer_supported()
+        assert eng._prefix_cache_cap != 0 and eng.host_tier is None
         return
     if field == "quantize":
         eng = InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32",

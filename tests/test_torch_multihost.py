@@ -4,8 +4,9 @@
   `apply_plan_op` by a follower engine that never serves, leave the same
   pool, lengths, tokens and sampler state (tests/test_llava.py's replay
   check for the JAX engine), long prompts in chunks, speculation and an
-  embedding batch included; an unknown op is refused; the tree path is
-  refused in a worker group.
+  embedding batch included; an unknown op is refused; a follower that
+  replays a draft-model tree's verify_tree records (it has no draft model
+  of its own) ends in the liaison's state too.
 - Two processes (tests/torch_slice_child.py: worker/main.py's `run` on
   gloo, tiny-llama over tp=2) on the port's broker: the counterparts of
   tests/test_multihost.py's two tests. The group registers ONE logical
@@ -91,15 +92,31 @@ def test_plan_replay_leaves_the_same_state(spec):
 def test_apply_plan_op_refuses_unknown_op():
     eng = InferenceEngine(EngineConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="unknown plan op"):
-        eng.apply_plan_op({"op": "verify_tree"})
+        eng.apply_plan_op({"op": "no_such_op"})
 
 
 def test_tree_speculation_refused_in_a_group():
-    eng = InferenceEngine(EngineConfig(draft_model="tiny-llama", **TINY), device="cpu")
-    eng.plan_sink = lambda rec: None
-    with pytest.raises(RuntimeError, match="ROADMAP A 9"):
-        eng.generate(GenerationRequest(id="t", prompt="hello", options={
-            "temperature": 0, "num_predict": 4}))
+    """Draft-model tree speculation in a group: the liaison drafts and
+    records each tree verify (drafts, validity, topology); a follower
+    built with the n-gram drafter replays them into the same pool, tokens
+    and lengths, the greedy streams of the liaison equal to a plain
+    engine's."""
+    cfg = dict(TINY, draft_model="tiny-llama", spec_k=3)
+    liaison = InferenceEngine(EngineConfig(**cfg), device="cpu")
+    follower = InferenceEngine(EngineConfig(**dict(cfg, draft_model="")), device="cpu")
+    plain = InferenceEngine(EngineConfig(**cfg), device="cpu")
+    records: list[dict] = []
+    liaison.plan_sink = records.append
+    opts = {"temperature": 0, "num_predict": 8, "repeat_penalty": 1.0}
+    for i, prompt in enumerate(["abc abc abc abc", LONG]):
+        req = dict(id=f"t{i}", prompt=prompt, options=dict(opts))
+        assert (liaison.generate(GenerationRequest(**req)).token_ids
+                == plain.generate(GenerationRequest(**req)).token_ids)
+    trees = [r for r in records if r["op"] == "verify_tree"]
+    assert trees and all(r["parents"] == liaison._tree[0].tolist() for r in trees)
+    assert "verify" not in {r["op"] for r in records}
+    assert follower._drafter.kind == "ngram"
+    _replay(liaison, follower, records)
 
 
 def _free_port() -> int:

@@ -4,10 +4,17 @@ engine) held against the JAX package's parallel/ on the CPU.
 - `MeshConfig.resolve` against the JAX one, errors included, and the
   refusal of every axis but tp (ROADMAP A 9);
 - the shard cut (parallel/sharding.py) against
-  `gridllm_tpu.parallel.sharding.param_shardings` on tiny-llama and
-  tiny-qwen2: the same split dims, and where the heads do not divide by tp
-  the port's whole-head fallback (attention replicated, the MLP and vocab
-  still split);
+  `gridllm_tpu.parallel.sharding.param_shardings` on tiny-llama,
+  tiny-qwen2, tiny-gemma2, tiny-llava (its vision tower's leaves),
+  tiny-bert and tiny-llama's int8 leaves: the same split dims, and where
+  the heads do not divide by tp the port's whole-head fallback (attention
+  replicated, the MLP and vocab still split); an int8 scale follows a
+  column split and stays whole under a row split (JAX keeps every scale
+  whole);
+- a rank's int8 q and scale of a row-split and of a column-split leaf
+  are slices of the unmeshed quantization, bit for bit, however the
+  weights arrive (the scale is the amax over the WHOLE contracted axis);
+- mixtral under a mesh still refused, naming ROADMAP A 9;
 - a two-process gloo group (tests/torch_tp_child.py, tp=2, float32): each
   rank's cache-free forward within 1e-5 of `gridllm_tpu.models.llama.forward`,
   the paged prefill-plus-decode tokens of the JAX package's
@@ -36,17 +43,24 @@ import torch
 from gridllm_tpu.engine import EngineConfig as JConfig
 from gridllm_tpu.engine import GenerationRequest as JRequest
 from gridllm_tpu.engine import InferenceEngine as JEngine
+from gridllm_tpu.models import bert_embed as jbert
+from gridllm_tpu.models import gemma as jgemma
 from gridllm_tpu.models import llama as jllama
+from gridllm_tpu.models import llava as jllava
 from gridllm_tpu.models.configs import get_config as jget_config
 from gridllm_tpu.ops.kvcache import PageAllocator as JAllocator
 from gridllm_tpu.ops.kvcache import PagedKVCache as JCache
 from gridllm_tpu.parallel import MeshConfig as JMesh
 from gridllm_tpu.parallel import build_mesh as jbuild_mesh
+from gridllm_tpu.ops.quant import quantize_params as jquantize_params
 from gridllm_tpu.parallel import param_shardings as jparam_shardings
 from gridllm_torch.engine import EngineConfig, GenerationRequest, InferenceEngine
 from gridllm_torch.models.configs import get_config
-from gridllm_torch.models.llama import Llama
+from gridllm_torch.engine.loader import model_class
+from gridllm_torch.models.llama import Llama, validate_mesh
+from gridllm_torch.models.mixtral import Mixtral
 from gridllm_torch.parallel import Mesh, MeshConfig, build_mesh, param_shardings, shard_params
+from gridllm_torch.parallel.sharding import ATTENTION_LEAVES, scale_split
 from gridllm_torch.parallel.mesh import AXES
 
 CHILD = Path(__file__).with_name("torch_tp_child.py")
@@ -95,38 +109,129 @@ def _jax_dim(spec) -> int | None:
     return dims[0] if dims else None
 
 
-@pytest.mark.parametrize("model", ["tiny-llama", "tiny-qwen2"])
+_JAX_INIT = {"llama": jllama, "qwen2": jllama, "gemma2": jgemma, "llava": jllava,
+             "bert_embed": jbert}
+
+
+def _shapes(tree):
+    """Shapes of a params tree's leaves, an int8 pair as (q's, scale's)."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if hasattr(tree, "q"):
+        return (tuple(tree.q.shape), tuple(tree.scale.shape))
+    return tuple(tree.shape)
+
+
+@pytest.mark.parametrize("model", ["tiny-llama", "tiny-qwen2", "tiny-gemma2", "tiny-llava",
+                                   "tiny-bert", "tiny-llama:int8"])
 @pytest.mark.parametrize("tp,jmesh", [(2, dict(dp=4, tp=2)), (4, dict(dp=2, tp=4))])
 def test_shard_dims_match_jax(model, tp, jmesh):
-    """The same split dims as the JAX package's param_shardings; at tp=4 the
-    kv heads (2) do not divide, and the port keeps attention whole (JAX
-    splits wk/wv's flattened out dim there and re-shards around the
-    kernels) while the MLP, embed and lm_head still split."""
-    jcfg = jget_config(model)
-    params = jax.tree_util.tree_map(
-        np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32))
+    """The same split dims as the JAX package's param_shardings, for every
+    leaf of the family's tree (llava's vision tower and projector, the
+    encoder's leaves, an int8 leaf's q); where the heads (of the text
+    stack, or the tower's) do not divide by tp (tiny-llama's 2 kv heads,
+    tiny-llava's 2 tower heads at tp = 4) the port keeps attention whole
+    (JAX splits the flattened out dim there and re-shards around the
+    kernels) while the MLP, embed and lm_head still split. An int8 scale:
+    JAX keeps it whole; the port cuts it with a column split's q."""
+    name, _, quant = model.partition(":")
+    jcfg, cfg = jget_config(name), get_config(name)
+    params = _JAX_INIT[cfg.family].init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    if quant:
+        params = jquantize_params(params)
+    params = jax.tree_util.tree_map(np.asarray, params)
     jsh = jparam_shardings(params, jbuild_mesh(JMesh(**jmesh)))
-    cfg = get_config(model)
     mesh = _fake_mesh(tp, 1)
     got = param_shardings(params, cfg, mesh)
-    heads_divide = cfg.num_kv_heads % tp == 0
-    for name, dim in got["layers"].items():
-        want = _jax_dim(jsh["layers"][name].spec)
-        if name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv") and not heads_divide:
-            assert dim is None, name
-        else:
-            assert dim == want, name
-    for name in ("embed", "lm_head", "final_norm"):
-        if name in params:
-            assert got[name] == _jax_dim(jsh[name].spec), name
+
+    def compare(got, jsh, leaves, heads):
+        for key, dim in got.items():
+            if isinstance(dim, dict):
+                vc = cfg.vision_cfg
+                compare(dim, jsh[key], leaves[key], (vc.num_heads, vc.num_heads))
+                continue
+            leaf, want = leaves[key], jsh[key]
+            if hasattr(leaf, "q"):   # an int8 pair: q as the float leaf
+                assert _jax_dim(want.scale.spec) is None, key
+                # the scale [..., out]: cut on its last dim with a column split
+                column = dim is not None and dim == leaf.q.ndim - 1
+                assert scale_split(dim, leaf.q.ndim) == (leaf.q.ndim - 2 if column else None)
+                want = want.q
+            if key in ATTENTION_LEAVES and heads and any(n % tp for n in heads):
+                assert dim is None, key
+            else:
+                assert dim == _jax_dim(want.spec), key
+
+    compare({k: v for k, v in got.items() if k != "layers"},
+            {k: v for k, v in jsh.items() if k != "layers"}, params, None)
+    compare(got["layers"], jsh["layers"], params["layers"], (cfg.num_kv_heads, cfg.num_heads))
     # the model's parameters are the cut's shapes
-    m = Llama(cfg, dtype=torch.float32, device="cpu", mesh=mesh)
-    cut = shard_params(params, cfg, mesh)
-    for name, t in m.layers.items():
-        assert tuple(t.shape) == cut["layers"][name].shape, name
-    assert tuple(m.embed.shape) == cut["embed"].shape
-    assert (m.n_kv_heads, m.n_heads) == ((cfg.num_kv_heads // tp, cfg.num_heads // tp)
-                                         if heads_divide else (cfg.num_kv_heads, cfg.num_heads))
+    m = model_class(cfg)(cfg, dtype=torch.float32, device="cpu", mesh=mesh,
+                         quantize=quant or None)
+    assert _shapes(m.params_tree()) == _shapes(shard_params(params, cfg, mesh))
+    heads_divide = cfg.num_kv_heads % tp == 0
+    if hasattr(m, "n_kv_heads"):
+        assert (m.n_kv_heads, m.n_heads) == (
+            (cfg.num_kv_heads // tp, cfg.num_heads // tp) if heads_divide
+            else (cfg.num_kv_heads, cfg.num_heads))
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_int8_rank_pairs_are_slices_of_the_unmeshed_quantization(rank, tmp_path):
+    """A rank's int8 q and scale of the row-split wo and w_down and the
+    column-split wq and lm_head equal slices of the unmeshed model's
+    quantization bit for bit, whether the rank draws its weights
+    (init_params), takes a float or an already quantized JAX-layout tree
+    (params_from_jax) or reads a float checkpoint (load_checkpoint): the
+    scale of a row-split leaf is the amax over ALL its rows, not the
+    rank's."""
+    from gridllm_torch.engine import loader
+
+    cfg, mesh = get_config("tiny-llama"), _fake_mesh(2, rank)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    whole = Llama(cfg, dtype=torch.float32, device="cpu", quantize="int8").init_params(gen)
+    want = shard_params(whole.params_tree(), cfg, mesh)
+
+    def same(m: Llama) -> None:
+        got = m.params_tree()
+        for leaf, dim in (("wo", 1), ("w_down", 1), ("wq", 2), ("w_up", 2)):
+            assert m._leaf_split(leaf) == dim
+            pair, ref = got["layers"][leaf], want["layers"][leaf]
+            assert torch.equal(pair.q, ref.q) and torch.equal(pair.scale, ref.scale), leaf
+            if dim == 1:    # row split: the whole scale, not the rank's rows' amax
+                assert torch.equal(pair.scale, whole.params_tree()["layers"][leaf].scale)
+        assert torch.equal(got["lm_head"].q, want["lm_head"].q)
+        assert torch.equal(got["lm_head"].scale, want["lm_head"].scale)
+
+    def meshed() -> Llama:
+        return Llama(cfg, dtype=torch.float32, device="cpu", quantize="int8", mesh=mesh)
+
+    gen.manual_seed(5)
+    same(meshed().init_params(gen))
+    gen.manual_seed(5)
+    fp = Llama(cfg, dtype=torch.float32, device="cpu").init_params(gen)
+    np_float = {k: v.numpy() if isinstance(v, torch.Tensor) else
+                {n: t.numpy() for n, t in v.items()} for k, v in fp.params_tree().items()}
+    same(meshed().params_from_jax(np_float))
+    np_int8 = jax.tree_util.tree_map(np.asarray, jquantize_params(np_float))
+    same(meshed().params_from_jax(np_int8))
+    loader.save_checkpoint(fp, cfg, str(tmp_path), dtype=torch.float32)
+    m = meshed()
+    assert not any(".o_proj." in n or ".down_proj." in n for n in m.hf_slices())
+    loader.load_checkpoint(cfg, str(tmp_path), model=m, quantize="int8")
+    same(m)
+
+
+def test_mixtral_under_a_mesh_is_refused():
+    """Mixtral's experts wait for the ep axis: refused under a tp mesh,
+    naming ROADMAP A 9, at the model and at the family check the engine
+    runs."""
+    cfg = get_config("tiny-mixtral")
+    with pytest.raises(ValueError, match="ROADMAP A 9"):
+        validate_mesh(cfg, _fake_mesh(2, 0))
+    with pytest.raises(ValueError, match="ROADMAP A 9"):
+        Mixtral(cfg, dtype=torch.float32, device="cpu", mesh=_fake_mesh(2, 0))
 
 
 def _full_model(model: str) -> Llama:
