@@ -383,15 +383,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
              its window and softcap on the ragged legs) and llava:7b's
              (G = 1), the per-phase routes and the tree leg at
              llama3:8b's (H 16, KVH 4).
+24. ep     — expert parallelism and dp replicas (phase_ep): four ranks
+             of one gloo world, all on cuda:0 (child processes), build
+             the meshes in turn and serve float32 2-layer full-width cuts
+             (EP_CUTS, speculation off so decode steps take the dense MoE
+             form) as a worker group does, rank 0 serving, the others
+             replaying its plan: mixtral:8x7b under ep 2 x tp 2 (X/2
+             experts on F/2 a rank, H 16 and KVH 4) and dp 2 x ep 2 (two
+             ep = 2 pairs, attention whole), llama3:8b under dp 2 x tp 2;
+             rank 0's streams equal the unmeshed engine's in this
+             process, every follower holds the same replicated state,
+             every mixtral rank takes both meshed MoE forms with one
+             all-reduce per meshed MoE call. Then mixtral:8x7b bf16 at
+             MIXTRAL_LAYERS layers served through the port's broker and
+             scheduler by an ep = 2 group of worker/main.py processes,
+             then (both at once exceed the card) by one unmeshed worker:
+             TTFT p50, tokens/s, each member's peak allocated GiB,
+             launches, collectives and MoE calls by form.
 Then the kernels line (the seven kernels, ragged_attention's chunk
 kernel, its int8 and tree legs, and prefix_chunk's slots and chunk
 routes, each with the head dims compiled and its launches under the
 scheduler, on the quant and mixtral serves, behind the gateway, behind
-the scaled control plane, on the embeddings, on llava and on each rank of
-the tp phase's group; then the same rows at D = 256 from the gemma phase,
+the scaled control plane, on the embeddings, on llava, on each rank of
+the tp phase's group and of the ep phase's groups; then the same rows at D = 256 from the gemma phase,
 named "<kernel>.d256"), the card's name and power limit, and the result.
 
-Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane,embed,vision,tp]
+Usage: python3 chip_smoke.py [--phases build,kernels,timing,model,serve,worker,sched,replay,spec,checkpoint,int8,profiler,long,tree,kvx,gemma,quant,mixtral,gateway,controlplane,embed,vision,tp,ep]
        python3 chip_smoke.py --turns OTHER_TREE [--turn-parts kernels,steps,int8]
 (--turns: the per-phase timing rows, with `steps` the single-call profile
 of tools/profile_step.py, with `int8` the int8 leg's timing rows and the
@@ -421,7 +438,7 @@ SEED = 0
 H, KVH, D, PS, S, MAXP = 32, 8, 128, 64, 8, 128
 ALL_PHASES = ("build", "kernels", "timing", "model", "serve", "worker", "sched", "replay",
               "spec", "checkpoint", "int8", "profiler", "long", "tree", "kvx", "gemma", "quant",
-              "mixtral", "gateway", "controlplane", "embed", "vision", "tp")
+              "mixtral", "gateway", "controlplane", "embed", "vision", "tp", "ep")
 
 
 def emit(obj: dict) -> None:
@@ -7872,29 +7889,9 @@ def _tp_cut_modes(torch, rank: int, store) -> dict:
         engine = _tp_mode_engine(mode, MeshConfig(tp=TP_WORLD))
         ck.reset_launch_counts()
         collectives.reset_counts()
-        got: dict = {"admits": [], "ops": []}
-        if rank == 0:
-            seq = iter(range(1, 1 << 30))
-
-            def sink(rec, got=got, seq=seq, mode=mode):
-                got["ops"].append(rec["op"])
-                if rec["op"] == "admit":
-                    got["admits"].append(int(rec["cached"]))
-                store.set(f"{mode}/{next(seq)}", json.dumps(rec))
-
-            got["results"] = _tp_mode_results(engine, mode, sink)
-            sink(TP_END)
-        else:
-            for i in range(1, 1 << 30):
-                rec = json.loads(store.get(f"{mode}/{i}"))
-                if rec == TP_END:
-                    break
-                got["ops"].append(rec["op"])
-                if rec["op"] == "admit":
-                    got["admits"].append(int(rec["cached"]))
-                engine.apply_plan_op(rec)
-        got["ops"] = sorted(set(got["ops"]) - {"end"})
-        got.update(state=_tp_state_digest(engine), launches=ck.launch_counts(),
+        got = _group_lockstep(engine, rank, store, mode,
+                              lambda sink, e=engine, m=mode: _tp_mode_results(e, m, sink))
+        got.update(launches=ck.launch_counts(),
                    collectives=dict(collectives.CALLS),
                    drafter=getattr(engine._drafter, "kind", None),
                    heads=[engine.model.n_heads, engine.model.n_kv_heads])
@@ -7935,6 +7932,8 @@ def _tp_child(torch, args: list[str]) -> dict:
     from gridllm_torch.ops import cuda_kernels as ck
     from gridllm_torch.parallel import GroupConfig, MeshConfig, collectives, distributed
 
+    if args[0] == "ep":
+        return _ep_cut_child(torch, int(args[1]), args[2], int(args[3]))
     if args[0] == "cut":
         rank, port, store_port = int(args[1]), args[2], int(args[3])
         group = GroupConfig(coordinator=f"127.0.0.1:{port}", num_processes=TP_WORLD,
@@ -7958,10 +7957,13 @@ def _tp_child(torch, args: list[str]) -> dict:
 
     label, url = args[1], args[2]
     from gridllm_torch.bus import create_bus
+    from gridllm_torch.models import mixtral as mx
     from gridllm_torch.worker import main as wmain
 
     build, config_cls = wmain.build_engines, wmain.EngineConfig
     extras = json.loads(os.environ.get("SMOKE_TP_ENGINES", "{}"))
+    for base_model, layers in json.loads(os.environ.get("SMOKE_CUTS", "[]")):
+        _cut(base_model, layers)   # the cut models this member serves, registered
 
     def config_of(**kw):
         # each model's settings of this serve (int8, a draft model, its pool)
@@ -7985,9 +7987,14 @@ def _tp_child(torch, args: list[str]) -> dict:
             if raw == "reset":
                 ck.reset_launch_counts()
                 collectives.reset_counts()
+                for k in mx.MOE_FORMS:
+                    mx.MOE_FORMS[k] = 0
             await bus.publish(TP_COUNTS, json.dumps({
                 "member": label, "cmd": raw, "launches": ck.launch_counts(),
-                "collectives": dict(collectives.CALLS)}))
+                "collectives": dict(collectives.CALLS), "moe_forms": dict(mx.MOE_FORMS),
+                # since the process started: the weights' load included
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "allocated_gib": torch.cuda.memory_allocated() / 2**30}))
 
         await bus.subscribe(TP_CTL, on_cmd)
         await asyncio.Event().wait()
@@ -8298,6 +8305,10 @@ async def _tp_way(name: str, bus, registry, scheduler, counts: list, env_of, job
               f"tp: {name} members launched differently: {launches}")
     out = {"members": len(procs), "ready_s": ready_s, "wall_s": wall, "models": per_model,
            "launches": launches, "collectives": {m: c["collectives"] for m, c in read.items()},
+           "moe_forms": {m: {k: v for k, v in c["moe_forms"].items() if v}
+                         for m, c in read.items()},
+           "peak_gib": {m: c["peak_gib"] for m, c in read.items()},
+           "allocated_gib": {m: c["allocated_gib"] for m, c in read.items()},
            "exit_codes": codes, "texts": texts}
     if len(per_model) == 1:   # the first serve's keys, as they were
         (m,) = per_model.values()
@@ -8350,12 +8361,16 @@ TP_SERVES = {
 }
 
 
-async def _tp_serve() -> dict:
-    """bf16 at full width and depth: llama3:8b's wave, then each of
-    TP_SERVES, served by a two-rank group (gloo, both ranks on cuda:0) as
-    one logical worker behind the port's scheduler on the port's broker,
-    then by one unmeshed worker process on the same broker with the same
-    models and the same jobs."""
+async def _group_serves(ways: list, mesh_shape: str, world: int, tag: str,
+                        cuts: tuple = ()) -> dict:
+    """Each way of `ways` ((key, models, per-model engine settings, the
+    wave's jobs, the kernels every member launches, whether the members
+    launch alike)) served bf16 by a group of `world` worker/main.py
+    processes over GRIDLLM_MESH_SHAPE=`mesh_shape` (gloo, every rank on
+    cuda:0) as one logical worker behind the port's scheduler on the
+    port's broker, then, once the group is torn down, by one unmeshed
+    worker process on the same broker with the same models and jobs.
+    `cuts` ((base, layers) pairs) are registered in every member."""
     from gridllm_torch.bus import create_bus
     from gridllm_torch.bus.broker import GridBusBroker
     from gridllm_torch.scheduler import JobScheduler, WorkerRegistry
@@ -8380,16 +8395,17 @@ async def _tp_serve() -> dict:
     def base(models, engines):
         return {"GRIDLLM_BUS_URL": url, "GRIDLLM_MODELS": ",".join(models),
                 "GRIDLLM_KV_PAGE_SIZE": str(PS), "GRIDLLM_MAX_BATCH_SLOTS": str(S),
-                "HEARTBEAT_INTERVAL": "1000", "SMOKE_TP_ENGINES": json.dumps(engines)}
+                "HEARTBEAT_INTERVAL": "1000", "SMOKE_TP_ENGINES": json.dumps(engines),
+                "SMOKE_CUTS": json.dumps(cuts)}
 
     def group_env(wid, env):
         def members():
             coord = f"127.0.0.1:{_free_port()}"
             return {f"rank{r}": {"url": url, "env": {
-                **env, "WORKER_ID": wid, "GRIDLLM_MESH_SHAPE": f"tp:{TP_WORLD}",
-                "GRIDLLM_NUM_PROCS": str(TP_WORLD), "GRIDLLM_PROC_ID": str(r),
+                **env, "WORKER_ID": wid, "GRIDLLM_MESH_SHAPE": mesh_shape,
+                "GRIDLLM_NUM_PROCS": str(world), "GRIDLLM_PROC_ID": str(r),
                 "GRIDLLM_COORD_ADDR": coord, "WORKER_PORT": str(_free_port())}}
-                for r in range(TP_WORLD)}
+                for r in range(world)}
         return members
 
     def plain_env(wid, env):
@@ -8398,23 +8414,21 @@ async def _tp_serve() -> dict:
 
     out = {}
     try:
-        env = base((TP_MODEL,), {})
-        ways = [("", env, _tp_wave_jobs, TP_MAIN_PATH, True)]
-        ways += [(f"{k}_", base(models, engines), jobs, path, same)
-                 for k, (models, engines, jobs, path, same) in TP_SERVES.items()]
-        for prefix, env, jobs, path, same in ways:
-            gid, pid = f"tp-{prefix}group", f"tp-{prefix}plain"
+        for key, models, engines, jobs, path, same in ways:
+            env = base(models, engines)
+            prefix = "" if key == "llama" else f"{key}_"
+            gid, pid = f"{tag}-{prefix}group", f"{tag}-{prefix}plain"
             group = await _tp_way(f"{prefix}group", bus, registry, scheduler, counts,
                                   group_env(gid, env), jobs, path, same)
-            await _wait(lambda: registry.get_worker(gid) is None, "tp: the group left", 120)
+            await _wait(lambda: registry.get_worker(gid) is None, f"{tag}: the group left", 120)
             plain = await _tp_way(f"{prefix}plain", bus, registry, scheduler, counts,
                                   plain_env(pid, env), jobs, path)
-            await _wait(lambda: registry.get_worker(pid) is None, "tp: the worker left", 120)
+            await _wait(lambda: registry.get_worker(pid) is None, f"{tag}: the worker left", 120)
             g_texts, p_texts = group.pop("texts"), plain.pop("texts")
             same_n = sum(a == b for a, b in zip(g_texts, p_texts))
-            out[prefix.rstrip("_") or "llama"] = {
+            out[key] = {
                 "group": group, "unmeshed": plain,
-                # bf16 sums run in another order over tp: a reading, not a check
+                # bf16 sums run in another order: a reading, not a check
                 "bf16_streams_equal_to_unmeshed": f"{same_n}/{len(g_texts)}"}
     finally:
         await sub.unsubscribe()
@@ -8422,6 +8436,16 @@ async def _tp_serve() -> dict:
         await registry.shutdown()
         await bus.disconnect()
         await broker.stop()
+    return out
+
+
+async def _tp_serve() -> dict:
+    """bf16 at full width and depth: llama3:8b's wave, then each of
+    TP_SERVES, served by a two-rank tp group and by one unmeshed worker
+    (_group_serves)."""
+    ways = [("llama", (TP_MODEL,), {}, _tp_wave_jobs, TP_MAIN_PATH, True)]
+    ways += [(k, *v) for k, v in TP_SERVES.items()]
+    out = await _group_serves(ways, f"tp:{TP_WORLD}", TP_WORLD, "tp")
     first = out.pop("llama")
     first["modes"] = out
     first["note"] = ("two ranks on one card over gloo: every all-reduce is a round trip "
@@ -8441,6 +8465,225 @@ def phase_tp(torch) -> dict:
     out = {"phase": "tp", "card": card_line(), "nccl_world_1": _tp_nccl_world_one(torch)}
     out["f32_cut"] = _tp_f32_cut(torch)
     out["serve"] = asyncio.run(_tp_serve())
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ep: mixtral's experts over ep and ep × tp, and dp replicas (phase_ep)
+# ---------------------------------------------------------------------------
+
+EP_WORLD = 4
+EP_F32_LAYERS = 2
+# the float32 cuts of one four-rank world, each mesh built in turn: name →
+# (base model, mesh). dp × ep holds two ep = 2 pairs, each rank the share
+# of a two-rank ep group
+EP_CUTS = {
+    "mixtral_ep_tp": (MIXTRAL_MODEL, dict(dp=1, ep=2, tp=2)),
+    "mixtral_dp_ep": (MIXTRAL_MODEL, dict(dp=2, ep=2, tp=1)),
+    "llama_dp_tp": (TP_MODEL, dict(dp=2, ep=1, tp=2)),
+}
+# the heads a rank holds (H, KVH): tp splits them, ep and dp do not
+EP_CUT_HEADS = {"mixtral_ep_tp": [H // 2, KVH // 2], "mixtral_dp_ep": [H, KVH],
+                "llama_dp_tp": [H // 2, KVH // 2]}
+EP_WORLD_BF16 = 2     # the bf16 serve's ep = 2 group
+
+
+def _ep_cut_engine(base: str, mesh):
+    """A float32 cut with speculation off, so its decode steps take the
+    (meshed) dense MoE form and its prefills and mixed steps the ragged."""
+    from gridllm_torch.engine import EngineConfig, InferenceEngine
+
+    return InferenceEngine(EngineConfig(
+        model=_cut(base, EP_F32_LAYERS), dtype="float32", max_slots=4, page_size=PS,
+        num_pages=256, max_pages_per_slot=64, spec_decode=False, mesh=mesh), device="cuda:0")
+
+
+def _group_lockstep(engine, rank: int, store, key: str, serve) -> dict:
+    """Generation as a worker group runs it: rank 0 serves (`serve(sink)`)
+    and hands each plan record to the group's TCP store before its
+    dispatch, the other ranks replay them in order. What the rank
+    dispatched, its results (rank 0) and its replicated state."""
+    got: dict = {"admits": [], "ops": []}
+
+    def note(rec):
+        got["ops"].append(rec["op"])
+        if rec["op"] == "admit":
+            got["admits"].append(int(rec["cached"]))
+
+    if rank == 0:
+        seq = iter(range(1, 1 << 30))
+
+        def sink(rec):
+            note(rec)
+            store.set(f"{key}/{next(seq)}", json.dumps(rec))
+
+        got["results"] = serve(sink)
+        sink(TP_END)
+    else:
+        for i in range(1, 1 << 30):
+            rec = json.loads(store.get(f"{key}/{i}"))
+            if rec == TP_END:
+                break
+            note(rec)
+            engine.apply_plan_op(rec)
+    got["ops"] = sorted(set(got["ops"]) - {"end"})
+    got["state"] = _tp_state_digest(engine)
+    return got
+
+
+def _ep_cut_child(torch, rank: int, port: str, store_port: int) -> dict:
+    """A rank of the ep phase's four-rank gloo world on cuda:0: each cut of
+    EP_CUTS under its mesh, rank 0 serving the cut's two greedy prompts,
+    the others replaying its plan; per cut the rank's launches,
+    collectives, MoE calls by form, heads, expert range and memory."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from gridllm_torch.models import mixtral as mx
+    from gridllm_torch.ops import cuda_kernels as ck
+    from gridllm_torch.ops.quant import params_nbytes
+    from gridllm_torch.parallel import GroupConfig, MeshConfig, collectives, distributed
+
+    group = GroupConfig(coordinator=f"127.0.0.1:{port}", num_processes=EP_WORLD,
+                        process_id=rank)
+    distributed.initialize_group(group, backend="gloo", device="cuda:0", timeout_s=300)
+    store = torch.distributed.TCPStore("127.0.0.1", store_port, EP_WORLD, rank == 0,
+                                       timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank, "cuts": {}}
+    for name, (base, shape) in EP_CUTS.items():
+        torch.cuda.reset_peak_memory_stats()
+        engine = _ep_cut_engine(base, MeshConfig(**shape))
+        ck.reset_launch_counts()
+        collectives.reset_counts()
+        before = dict(mx.MOE_FORMS)
+        got = _group_lockstep(engine, rank, store, name,
+                              lambda sink, e=engine, n=name: _tp_mode_results(e, n, sink))
+        model = engine.model
+        got.update(launches=ck.launch_counts(), collectives=dict(collectives.CALLS),
+                   moe_forms={k: v - before[k] for k, v in mx.MOE_FORMS.items()},
+                   heads=[model.n_heads, model.n_kv_heads],
+                   experts=model._expert_range(),
+                   coords=dict(engine.mesh.coords),
+                   weights_gib=params_nbytes(model.params_tree()) / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        out["cuts"][name] = got
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # rank 0 holds the store: it leaves once every rank has read its last record
+    dist.barrier()
+    distributed.shutdown_group(group)
+    return out
+
+
+def _ep_f32_cuts(torch) -> dict:
+    """The float32 cuts: four ranks (gloo, all on cuda:0) serve each cut of
+    EP_CUTS while this process serves it unmeshed; rank 0's streams must
+    equal the unmeshed engine's, every follower hold the liaison's state,
+    every rank launch the cut's kernels, and every rank of a mixtral cut
+    take both meshed MoE forms with one all-reduce per meshed MoE call."""
+    from gridllm_torch.models import mixtral as mx
+    from gridllm_torch.ops import cuda_kernels as ck
+
+    port, store_port = _free_port(), _free_port()
+    log_dir = REPO / "chiprun_out"
+    procs = [_tp_spawn(f"ep_cut_rank{r}", ["ep", str(r), str(port), str(store_port)])
+             for r in range(EP_WORLD)]
+    try:
+        want = {}
+        for name, (base, _) in EP_CUTS.items():
+            engine = _ep_cut_engine(base, None)
+            ck.reset_launch_counts()
+            before = dict(mx.MOE_FORMS)
+            want[name] = {"results": _tp_mode_results(engine, name),
+                          "launches": ck.launch_counts(),
+                          "moe_forms": {k: v - before[k] for k, v in mx.MOE_FORMS.items()}}
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        for proc, _ in procs:
+            proc.wait(timeout=900)
+    finally:
+        codes = _tp_stop(procs)
+    check(codes == [0] * EP_WORLD, f"ep: a cut rank failed ({codes}): see chiprun_out/tp_ep_cut_*")
+    ranks = []
+    for r in range(EP_WORLD):
+        lines = (log_dir / f"tp_ep_cut_rank{r}.txt").read_text().splitlines()
+        ranks.append(json.loads(next(ln for ln in reversed(lines) if ln.startswith('{"ok"'))))
+    out = {}
+    for name in EP_CUTS:
+        per = [r["cuts"][name] for r in ranks]
+        lead = per[0]
+        check(lead["results"] == want[name]["results"],
+              f"ep {name}: the float32 streams differ from the unmeshed engine's: "
+              f"{lead['results']} vs {want[name]['results']}")
+        for r, got in enumerate(per):
+            check(got["admits"] == lead["admits"], f"ep {name}: rank {r}'s admits differ")
+            check(got["state"] == lead["state"], f"ep {name}: rank {r}'s state differs: "
+                  f"{got['state']} vs {lead['state']}")
+            missing = [k for k in TP_CUT_PATH if not got["launches"].get(k)]
+            check(not missing, f"ep {name}: rank {r} launched no {missing}")
+            check(got["heads"] == EP_CUT_HEADS[name], f"ep {name}: rank {r} heads {got['heads']}")
+            forms, calls = got["moe_forms"], got["collectives"]
+            meshed = forms["dense_ep"] + forms["ragged_ep"]
+            check(calls["all_reduce.moe"] == meshed,
+                  f"ep {name}: rank {r} made {calls['all_reduce.moe']} MoE sums for {meshed} calls")
+            if name.startswith("mixtral"):
+                check(forms["dense_ep"] > 0 and forms["ragged_ep"] > 0,
+                      f"ep {name}: rank {r} took the MoE forms {forms}")
+        out[name] = {
+            "mesh": EP_CUTS[name][1], "layers": EP_F32_LAYERS, "streams_equal": True,
+            "tokens": [len(x["tokens"]) for x in lead["results"]],
+            "heads_per_rank": lead["heads"],
+            "experts_per_rank": [g["experts"] for g in per],
+            "moe_forms_per_rank": [{k: v for k, v in g["moe_forms"].items() if v} for g in per],
+            "moe_forms_unmeshed": {k: v for k, v in want[name]["moe_forms"].items() if v},
+            "collectives_per_rank": [g["collectives"] for g in per],
+            "launches_per_rank": [{k: v for k, v in g["launches"].items() if v} for g in per],
+            "launches_unmeshed": {k: v for k, v in want[name]["launches"].items() if v},
+            "weights_gib_per_rank": [g["weights_gib"] for g in per],
+            "peak_gib_per_rank": [g["peak_gib"] for g in per]}
+    return out
+
+
+def _ep_wave_jobs(rng) -> list[dict]:
+    """The tp phase's wave of eight jobs, on the MIXTRAL_LAYERS cut."""
+    model = _cut(MIXTRAL_MODEL, MIXTRAL_LAYERS)
+    return [{"model": model, "prompt": _prompt(rng, b), "tokens": n} for b, n in TP_WAVE]
+
+
+async def _ep_serve() -> dict:
+    """mixtral:8x7b bf16 at full width cut to MIXTRAL_LAYERS layers, the
+    engine's defaults: the wave served by an ep = 2 group (each rank half
+    the experts, attention whole) through the port's bus worker, then by
+    one unmeshed worker once the group is gone (both at once exceed the
+    card)."""
+    model = _cut(MIXTRAL_MODEL, MIXTRAL_LAYERS)
+    ways = [("mixtral", (model,), {model: {"num_pages": TP_SERVE_PAGES}}, _ep_wave_jobs,
+             TP_MAIN_PATH, True)]
+    out = (await _group_serves(ways, f"ep:{EP_WORLD_BF16}", EP_WORLD_BF16, "ep",
+                               cuts=((MIXTRAL_MODEL, MIXTRAL_LAYERS),)))["mixtral"]
+    for member, forms in out["group"]["moe_forms"].items():
+        check(forms.get("ragged_ep", 0) > 0 and not forms.get("ragged"),
+              f"ep serve: {member} took the MoE forms {forms}")
+    out["note"] = ("two ranks on one card over gloo: each MoE all-reduce is a round trip "
+                   "through host memory; a correctness run, not an EP speed")
+    return out
+
+
+def phase_ep(torch) -> dict:
+    """Expert parallelism and dp replicas: the float32 cuts of one four-rank
+    world (mixtral:8x7b under ep × tp and dp × ep, llama3:8b under dp × tp)
+    against unmeshed engines, then mixtral:8x7b bf16 at MIXTRAL_LAYERS
+    layers served by an ep = 2 group beside an unmeshed worker."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    out = {"phase": "ep", "card": card_line(), "f32_cuts": _ep_f32_cuts(torch)}
+    out["serve"] = asyncio.run(_ep_serve())
     out["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     return out
@@ -8564,7 +8807,8 @@ def main() -> int:
                    "tree": phase_tree, "kvx": phase_kvx, "gemma": phase_gemma,
                    "quant": phase_quant, "mixtral": phase_mixtral,
                    "gateway": phase_gateway, "controlplane": phase_controlplane,
-                   "embed": phase_embed, "vision": phase_vision, "tp": phase_tp}[phase](torch)
+                   "embed": phase_embed, "vision": phase_vision, "tp": phase_tp,
+                   "ep": phase_ep}[phase](torch)
         out["phase_seconds"] = time.perf_counter() - t0
         emit(out)
         results[phase] = out
@@ -8615,6 +8859,13 @@ def main() -> int:
          "launches_tp_f32_modes": {
              mode: [r.get(name, 0) for r in v["launches_per_rank"]]
              for mode, v in results["tp"]["f32_cut"]["modes"].items() if mode != "embed"},
+         # each rank's launches in the ep phase: the ep = 2 group's bf16
+         # mixtral serve, and the float32 cuts of the four-rank world
+         "launches_ep_ranks": {m: c.get(name, 0) for m, c in
+                               results["ep"]["serve"]["group"]["launches"].items()},
+         "launches_ep_f32_cuts": {
+             cut: [r.get(name, 0) for r in v["launches_per_rank"]]
+             for cut, v in results["ep"]["f32_cuts"].items()},
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": timing[name]["library_ms"]}

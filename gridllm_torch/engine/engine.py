@@ -82,12 +82,14 @@ serving path:
   before it as its offset). Image requests never match or register in the
   prefix cache and never resume: token ids do not address pixels.
 
-- Tensor parallelism (`EngineConfig.mesh`, a tp-only MeshConfig; every
-  family but mixtral, which waits for ep, ROADMAP A 9): the engine runs on
-  one rank of an initialized torch.distributed group
-  (parallel/distributed.py), its model holds the rank's weight slices and
-  its pool the rank's kv heads (`pool_kv_heads`), and the collectives join
-  the ranks inside every model call. Int8 weights, both attention modes,
+- Parallelism (`EngineConfig.mesh`, a MeshConfig over dp, ep and tp; every
+  family; pp and sp wait for ROADMAP A 9): the engine runs on one rank of
+  an initialized torch.distributed group (parallel/distributed.py), its
+  model holds the rank's weight slices (tp: attention heads, the MLP, the
+  vocabulary; ep and tp: mixtral's experts) and its pool the rank's kv
+  heads (`pool_kv_heads`), and the collectives join the ranks inside every
+  model call. A dp line replicates the model and the pool, as in the JAX
+  engine, and runs no collective; its ranks replay the plan all the same. Int8 weights, both attention modes,
   images, embeddings, the prefix cache and draft-model trees run under a
   mesh; the int8 KV pool, the host KV tier and KV transfer are off
   (logged), as in the JAX engine. The group's ranks must issue the same
@@ -341,8 +343,8 @@ class EngineConfig:
     num_pages: int = 1024
     max_pages_per_slot: int = 128
     prefill_buckets: tuple[int, ...] = (64, 256, 1024, 4096)
-    # a parallel.mesh.MeshConfig: tensor parallelism over the initialized
-    # torch.distributed group this process is a rank of (tp only)
+    # a parallel.mesh.MeshConfig: dp, ep and tp over the initialized
+    # torch.distributed group this process is a rank of
     mesh: Any = None
     max_queue: int = 512
     seed: int | None = None              # engine-level seed for unseeded requests
@@ -653,8 +655,9 @@ class InferenceEngine:
             self.prewarm()
 
     def _check_mesh(self, config: EngineConfig) -> EngineConfig:
-        """The refusals (a family that does not run under a mesh: ROADMAP A
-        9) and the settings switched off under a mesh, as in the JAX
+        """The refusals (`validate_mesh`: sp with a sliding window; pp and
+        sp themselves are refused by `build_mesh`, ROADMAP A 9) and the
+        settings switched off under any mesh (dp, ep or tp), as in the JAX
         engine: the int8 KV pool (the host tier and KV transfer are off in
         `_build_host_tier` and `kv_transfer_supported`)."""
         from gridllm_torch.models.llama import validate_mesh

@@ -73,13 +73,13 @@ class BertEmbed(nn.Module):
             "w_in": (n, e, f), "b_in": (n, f), "w_out": (n, f, e), "b_out": (n, e),
             "mlp_ln_w": (n, e), "mlp_ln_b": (n, e),
         }
-        # the whole shape and split dim (None: whole) of each layer leaf
+        # the whole shape and split ({dim: "tp"}; empty: whole) of each layer leaf
         self._full = shapes
         self._dims = param_shardings({"layers": shapes}, cfg, self.mesh)["layers"]
         tp = 1 if self.mesh is None else self.mesh.shape["tp"]
-        self.n_heads = cfg.num_heads // tp if self._dims["wq"] is not None else cfg.num_heads
+        self.n_heads = cfg.num_heads // tp if self._dims["wq"] else cfg.num_heads
         self.layers = nn.ParameterDict({
-            k: p(*(n_ // tp if i == self._dims[k] else n_ for i, n_ in enumerate(s)))
+            k: p(*(n_ // tp if i in self._dims[k] else n_ for i, n_ in enumerate(s)))
             for k, s in shapes.items()})
 
     @property
@@ -102,8 +102,7 @@ class BertEmbed(nn.Module):
             for part in t:
                 w = torch.randn(self._full[name][1:], generator=generator, device=t.device,
                                 dtype=torch.float32) * 0.02
-                dim = self._dims[name]
-                part.copy_(w if dim is None else shard_leaf(w, dim - 1, self.mesh))
+                part.copy_(shard_leaf(w, self._dims[name], self.mesh, lead=1))
 
         for t in (self.word_embed, self.pos_embed, self.type_embed):
             normal_(t)
@@ -161,9 +160,9 @@ class BertEmbed(nn.Module):
                 dst = dst[layer]
             src = t.to(dst.device)
             src = src.T if transpose else src
-            dim = self._dims.get(path[-1]) if len(path) > 1 else None
-            if dim is not None and tuple(src.shape) != tuple(dst.shape):
-                src = shard_leaf(src, dim - (layer is not None), self.mesh)
+            split = self._dims.get(path[-1]) if len(path) > 1 else None
+            if split and tuple(src.shape) != tuple(dst.shape):
+                src = shard_leaf(src, split, self.mesh, lead=int(layer is not None))
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
                                  f"!= {tuple(dst.shape)}")
@@ -226,7 +225,7 @@ class BertEmbed(nn.Module):
             probs = torch.softmax(logits, dim=-1)
             attn = torch.einsum("bhts,bshd->bthd", probs, v.float()).to(x.dtype)
             attn = attn.reshape(b, t, -1) @ lp["wo"][li]
-            if self._dims["wo"] is not None:   # the rank's heads: a partial sum
+            if self._dims["wo"]:   # the rank's heads: a partial sum
                 attn = collectives.all_reduce_sum(attn, self.mesh)
             attn = attn + lp["bo"][li]
             x = layer_norm(x + attn, lp["attn_ln_w"][li], lp["attn_ln_b"][li], eps)

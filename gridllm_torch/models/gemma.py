@@ -117,7 +117,7 @@ class Gemma2(Llama):
         x = self._final_norm(x)
         # tied head: embed is no quant leaf, so it stays in the load dtype
         logits = (x @ self.embed.T).float()
-        if self._leaf_split("embed") is not None:   # a vocab-split head's columns
+        if self._leaf_split("embed"):   # a vocab-split head's columns
             logits = collectives.gather_last(logits, self.mesh)
         cap = self.cfg.final_logit_softcap
         return cap * torch.tanh(logits / cap) if cap else logits

@@ -13,7 +13,9 @@ final norm and head — so a loader can write each tensor straight into a
 preallocated [L, ...] parameter on the device: no stacked leaf is ever
 built on the host. A template with two `{}` slots (layer, expert: the
 mixtral experts) is a [L, X, ...] leaf, placed one expert at a time with
-`layer` the index pair (layer, expert).
+`layer` the index pair (layer, expert). Given `experts` = [lo, hi) (an
+expert-parallel rank's range), only those experts are walked: a rank
+never reads another rank's expert tensors.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ def is_expert_leaf(tmpl: str) -> bool:
     return tmpl.count("{}") == 2
 
 
-def _slots(cfg: ModelConfig, tmpl: str):
-    """The index of every tensor of a template: layers, or (layer, expert)."""
+def _slots(cfg: ModelConfig, tmpl: str, experts: tuple[int, int] | None = None):
+    """The index of every tensor of a template: layers, or (layer, expert)
+    for the experts in `experts` (None: all)."""
     if is_expert_leaf(tmpl):
-        return [(i, x) for i in range(cfg.num_layers) for x in range(cfg.num_experts)]
+        lo, hi = experts or (0, cfg.num_experts)
+        return [(i, x) for i in range(cfg.num_layers) for x in range(lo, hi)]
     return list(range(cfg.num_layers))
 
 
@@ -47,11 +51,12 @@ def _name(tmpl: str, index) -> str:
 
 
 def stack_layer_leaves(cfg: ModelConfig, get: Get, name_map: dict[str, tuple[str, bool]],
-                       place: Place) -> None:
-    """Every per-layer (and per-expert) HF tensor of `name_map`, one at a
-    time, to `place` with its leaf path, index and transpose flag."""
+                       place: Place, experts: tuple[int, int] | None = None) -> None:
+    """Every per-layer (and per-expert, of `experts`) HF tensor of
+    `name_map`, one at a time, to `place` with its leaf path, index and
+    transpose flag."""
     for name, (tmpl, transpose) in name_map.items():
-        for index in _slots(cfg, tmpl):
+        for index in _slots(cfg, tmpl, experts):
             place(("layers", name), index, get(_name(tmpl, index)), transpose)
 
 
@@ -69,26 +74,30 @@ def flatten_layer_leaves(layers: dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def to_pytree(cfg: ModelConfig, get: Get, name_map: dict[str, tuple[str, bool]],
-              place: Place) -> None:
+              place: Place, experts: tuple[int, int] | None = None) -> None:
     """Place a decoder-family checkpoint (embed, layers, final norm and,
-    untied, the head) through `place`, tensor by tensor."""
+    untied, the head; the experts of `experts`) through `place`, tensor by
+    tensor."""
     place(("embed",), None, get("model.embed_tokens.weight"), False)
-    stack_layer_leaves(cfg, get, name_map, place)
+    stack_layer_leaves(cfg, get, name_map, place, experts)
     place(("final_norm",), None, get("model.norm.weight"), False)
     if not cfg.tie_embeddings:
         place(("lm_head",), None, get("lm_head.weight"), True)
 
 
-def hf_names(cfg: ModelConfig, name_map: dict[str, tuple[str, bool]]):
-    """(leaf, HF name, transpose?, stacked?) of every tensor to_pytree
-    places, in its order."""
-    yield "embed", "model.embed_tokens.weight", False, False
+def hf_names(cfg: ModelConfig, name_map: dict[str, tuple[str, bool]],
+             experts: tuple[int, int] | None = None):
+    """(leaf, HF name, transpose?, lead) of every tensor to_pytree places
+    (with `experts`), in its order; `lead` is the number of the leaf's
+    leading dims one tensor is an index of (0: the whole leaf, 1: a layer,
+    2: a layer's expert)."""
+    yield "embed", "model.embed_tokens.weight", False, 0
     for name, (tmpl, transpose) in name_map.items():
-        for index in _slots(cfg, tmpl):
-            yield name, _name(tmpl, index), transpose, True
-    yield "final_norm", "model.norm.weight", False, False
+        for index in _slots(cfg, tmpl, experts):
+            yield name, _name(tmpl, index), transpose, 1 + is_expert_leaf(tmpl)
+    yield "final_norm", "model.norm.weight", False, 0
     if not cfg.tie_embeddings:
-        yield "lm_head", "lm_head.weight", True, False
+        yield "lm_head", "lm_head.weight", True, 0
 
 
 def to_hf_tensors(params: dict[str, Any], cfg: ModelConfig,

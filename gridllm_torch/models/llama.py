@@ -49,7 +49,8 @@ or placed. Every projection goes through `qdot` on the layer's weight
 (`_w`), which is the plain (x @ q) * scale for a quantized leaf.
 
 Tensor parallelism (`mesh`, a parallel.mesh.Mesh with tp > 1; every
-family but mixtral, MESH_FAMILIES): each rank holds its slices of the leaves
+family, MESH_FAMILIES; mixtral's experts also split over ep,
+models/mixtral.py): each rank holds its slices of the leaves
 (parallel/sharding.py: attention by whole heads where the heads divide by
 tp, the MLP by its hidden dim, embed and lm_head by vocab), runs attention
 on its heads against a pool of its kv heads, and the sums of
@@ -59,7 +60,12 @@ entry point with the same hidden states and the full logits. Weights
 arrive whole and each rank keeps its slices: `init_params` draws the full
 tensors from the seed (a layer, or a block of rows, at a time),
 `params_from_jax` cuts a full pytree, and `params_from_hf` takes slices
-(`hf_slices` names them, so a reader reads only those). An int8 leaf's
+(`hf_slices` names them, so a reader reads only those; a rank reads only
+the experts of its ep range). A leaf's split is a map {dim: axis}
+(parallel/sharding.py), so the experts split on two dims at once. A mesh
+whose axes split nothing of the family (dp alone; ep for a family without
+experts) is dropped: every rank holds the model whole, as in the JAX
+package. An int8 leaf's
 pair is the slice of the whole leaf's quantization: a column-split leaf
 keeps its columns of q and scale; a row-split one (wo, w_down) keeps its
 rows of q and the whole scale, each scale the amax over ALL rows, so its
@@ -110,9 +116,8 @@ from gridllm_torch.ops.quant import (
 
 # the most values a random draw of init_params fills at once (64 MB in float32)
 _DRAW_NUMEL = 1 << 24
-# the families whose model runs under a tensor-parallel mesh (mixtral's
-# experts wait for ep, ROADMAP A 9)
-MESH_FAMILIES = ("llama", "qwen2", "qwen3", "gemma2", "llava", "bert_embed")
+# the families whose model runs under a mesh
+MESH_FAMILIES = ("llama", "qwen2", "qwen3", "gemma2", "llava", "bert_embed", "mixtral")
 
 
 def validate_mesh(cfg: ModelConfig, mesh) -> None:
@@ -138,6 +143,9 @@ class Llama(nn.Module):
     NORM_INIT = 1.0
     # leaves drawn at a fixed scale (the others: fan_in ** -0.5, norms NORM_INIT)
     FIXED_INIT = {"bq": 0.02, "bk": 0.02, "bv": 0.02}
+    # the mesh axes that split the family's leaves (a mesh without them is
+    # dropped: every rank holds the model whole)
+    MESH_AXES: tuple[str, ...] = ("tp",)
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda", ragged_attention: bool = True,
@@ -145,7 +153,7 @@ class Llama(nn.Module):
         super().__init__()
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode: {quantize!r}")
-        if mesh is not None and mesh.shape.get("tp", 1) == 1:
+        if mesh is not None and all(mesh.shape.get(ax, 1) == 1 for ax in self.MESH_AXES):
             mesh = None
         if mesh is not None:
             validate_mesh(cfg, mesh)
@@ -209,38 +217,33 @@ class Llama(nn.Module):
             shapes.update(q_norm=(n, d), k_norm=(n, d))
         return shapes
 
-    def _local_shape(self, shape: tuple[int, ...], dim: int | None) -> tuple[int, ...]:
-        """A leaf's shape on this rank: `dim` cut to its tp share."""
-        if dim is None:
-            return tuple(shape)
-        return tuple(n // self.mesh.shape["tp"] if i == dim else n for i, n in enumerate(shape))
+    def _local_shape(self, shape: tuple[int, ...], split: dict[int, str]) -> tuple[int, ...]:
+        """A leaf's shape on this rank: each dim of `split` cut to its
+        axis's share."""
+        return tuple(n // self.mesh.shape[split[i]] if i in split else n
+                     for i, n in enumerate(shape))
 
     def _full_shape(self, name: str) -> tuple[int, ...]:
         """The unsplit shape of leaf `name` (a layer leaf or a top-level one)."""
         layers = self._full["layers"]
         return layers[name] if name in layers else self._full[name]
 
-    def _leaf_split(self, name: str) -> int | None:
-        """The split dim of leaf `name` (None: every rank holds it whole)."""
+    def _leaf_split(self, name: str) -> dict[int, str]:
+        """The split of leaf `name`, {dim: axis} (empty: every rank holds
+        it whole)."""
         layers = self._split["layers"]
-        return layers[name] if name in layers else self._split.get(name)
+        return layers[name] if name in layers else self._split.get(name, {})
 
-    def _range(self, name: str) -> tuple[int, int] | None:
-        """[lo, hi) of leaf `name`'s split dim on this rank, or None."""
-        dim = self._leaf_split(name)
-        return None if dim is None else shard_range(self._full_shape(name)[dim], self.mesh)
+    def _ranges(self, name: str) -> dict[int, tuple[int, int]]:
+        """[lo, hi) of each split dim of leaf `name` on this rank."""
+        full = self._full_shape(name)
+        return {d: shard_range(full[d], self.mesh, ax) for d, ax in self._leaf_split(name).items()}
 
-    def _cut(self, name: str, x, layer_slice: bool = False):
-        """This rank's share of a full tensor of leaf `name` (or, with
-        layer_slice, of one layer of a stacked leaf)."""
-        dim = self._leaf_split(name)
-        if dim is None:
-            return x
-        if layer_slice:
-            dim -= 1
-        lo, hi = self._range(name)
-        return x.narrow(dim, lo, hi - lo) if isinstance(x, torch.Tensor) \
-            else x[(slice(None),) * dim + (slice(lo, hi),)]
+    def _cut(self, name: str, x, lead: int = 0):
+        """This rank's share of a full tensor of leaf `name`, or with
+        `lead` of one index of its first `lead` dims (1: a layer of a
+        stacked leaf; 2: one expert of a layer)."""
+        return shard_leaf(x, self._leaf_split(name), self.mesh, lead)
 
     @property
     def device(self) -> torch.device:
@@ -272,8 +275,7 @@ class Llama(nn.Module):
             # the same numbers as an unmeshed model; each keeps its share
             # (a stacked layer's whole draw with cut=False)
             full = self._full_shape(name)
-            dim = self._leaf_split(name)
-            rows = self._range(name) if dim == 0 and len(full) == 2 else None
+            rows = self._ranges(name).get(0) if len(full) == 2 else None
             step = max(1, _DRAW_NUMEL // full[-1]) if len(full) == 2 else 1
             for i in range(0, full[0], step):
                 shape = (min(step, full[0] - i), full[1]) if len(full) == 2 else full[1:]
@@ -286,7 +288,7 @@ class Llama(nn.Module):
                 elif len(full) == 2:
                     yield i, t[i:i + step], self._cut(name, w)
                 else:
-                    yield i, t[i], self._cut(name, w, layer_slice=True) if cut else w
+                    yield i, t[i], self._cut(name, w, lead=1) if cut else w
 
         def normal_(name: str, t: torch.Tensor, scale: float) -> None:
             if name not in self.scales:
@@ -349,10 +351,10 @@ class Llama(nn.Module):
                 return
             if not hasattr(src, "q"):   # the whole leaf's quantization, then the cut
                 src = quantize_np_leaf(name, np.asarray(src, np.float32))
-            dim = self._leaf_split(name)
+            split = self._leaf_split(name)
             q, scale = np.asarray(src.q), np.asarray(src.scale)
-            put(dst, shard_leaf(q, dim, self.mesh), np.int8)
-            put(self.scales[name], shard_leaf(scale, scale_split(dim, q.ndim), self.mesh))
+            put(dst, shard_leaf(q, split, self.mesh), np.int8)
+            put(self.scales[name], shard_leaf(scale, scale_split(split, q.ndim), self.mesh))
 
         put(self.embed, np_params["embed"], name="embed")
         for name, t in self.layers.items():
@@ -365,17 +367,16 @@ class Llama(nn.Module):
     def _row_split(self, name: str) -> bool:
         """Whether leaf `name` is split on its contracted `in` axis (wo,
         w_down: row parallel), the axis an int8 scale spans."""
-        dim = self._leaf_split(name)
-        return dim is not None and dim == len(self._full_shape(name)) - 2
+        return len(self._full_shape(name)) - 2 in self._leaf_split(name)
 
     def _quantize_layer(self, name: str, dst: QuantizedTensor, w: torch.Tensor) -> None:
         """Quantize one whole layer `w` [in, out] of int8 leaf `name` into
         this rank's pair `dst`: a row-split leaf's scales from all of w's
         rows, its q from the rank's rows; otherwise the rank's columns."""
         if self._row_split(name):
-            quantize_into(dst, w, rows=self._range(name))
+            quantize_into(dst, w, rows=self._ranges(name)[len(self._full_shape(name)) - 2])
         else:
-            quantize_into(dst, self._cut(name, w, layer_slice=True))
+            quantize_into(dst, self._cut(name, w, lead=1))
 
     def _leaf(self, name: str, t: torch.Tensor):
         """Parameter `t` of leaf `name`, paired with its scales when int8."""
@@ -405,13 +406,18 @@ class Llama(nn.Module):
         no whole float copy of the leaf is made. Tied embeddings read no
         lm_head.weight. Under a mesh a tensor may come whole or as this
         rank's slice (`hf_slices`); a whole one is cut here (an int8
-        row-split leaf arrives whole and is quantized whole, then cut)."""
+        row-split leaf arrives whole and is quantized whole, then cut).
+        Only the experts of this rank's ep range are asked for."""
         from gridllm_torch.models import hf_layout
 
         tree = self.params_tree()
+        experts = self._expert_range()
 
         def place(path, layer, t, transpose):
             dst = tree[path[0]] if len(path) == 1 else tree[path[0]][path[1]]
+            lead = 0 if layer is None else 1 if isinstance(layer, int) else 2
+            if lead == 2 and experts is not None:   # the expert's local index
+                layer = (layer[0], layer[1] - experts[0])
             if layer is not None:
                 dst = dst[layer]
             src = t.to(dst.device)
@@ -420,7 +426,7 @@ class Llama(nn.Module):
             whole = isinstance(dst, QuantizedTensor) and self._row_split(path[-1])
             want = self._full_shape(path[-1])[1:] if whole else tuple(dst.shape)
             if tuple(src.shape) != tuple(want):
-                src = self._cut(path[-1], src, layer_slice=layer is not None)
+                src = self._cut(path[-1], src, lead=lead)
             if tuple(src.shape) != tuple(want):
                 raise ValueError(f"{'/'.join(path)}: checkpoint shape {tuple(src.shape)} "
                                  f"!= {tuple(want)}")
@@ -431,24 +437,31 @@ class Llama(nn.Module):
             else:
                 dst.copy_(src)
 
-        hf_layout.to_pytree(self.cfg, get, self.name_map(), place)
+        hf_layout.to_pytree(self.cfg, get, self.name_map(), place, experts)
         return self
 
+    def _expert_range(self) -> tuple[int, int] | None:
+        """[lo, hi) of the experts this rank holds (None: all of them, or a
+        family without experts)."""
+        return None
+
     def hf_slices(self) -> dict[str, tuple[int, int, int]]:
-        """The HF tensors this rank keeps a slice of: name → (dim in the
-        stored HF orientation, lo, hi). Empty without a mesh. An int8
-        row-split leaf is read whole: its scales span every row."""
+        """The HF tensors this rank reads and keeps a slice of: name → (dim
+        in the stored HF orientation, lo, hi). Empty without a mesh. An
+        int8 row-split leaf is read whole: its scales span every row. An
+        expert outside the rank's ep range is not read at all, so it is
+        not named; one inside keeps its F slice."""
         from gridllm_torch.models.hf_layout import hf_names
 
         out: dict[str, tuple[int, int, int]] = {}
-        for leaf, name, transpose, stacked in hf_names(self.cfg, self.name_map()):
-            dim = self._leaf_split(leaf)
-            if dim is None or (leaf in self.scales and self._row_split(leaf)):
+        names = hf_names(self.cfg, self.name_map(), self._expert_range())
+        for leaf, name, transpose, lead in names:
+            if leaf in self.scales and self._row_split(leaf):
                 continue
-            dim -= stacked                        # one layer of a stacked leaf
-            if transpose:
-                dim = 1 - dim                     # HF stores [out, in]
-            out[name] = (dim, *self._range(leaf))
+            for dim, (lo, hi) in self._ranges(leaf).items():
+                if dim >= lead:                   # a dim of the tensor itself
+                    dim -= lead
+                    out[name] = (1 - dim if transpose else dim, lo, hi)  # HF: [out, in]
         return out
 
     def name_map(self) -> dict[str, tuple[str, bool]]:
@@ -476,7 +489,7 @@ class Llama(nn.Module):
         # out-of-vocab ids (the byte tokenizer's BOS on a 256-token vocab)
         # clamp to the last row, as the JAX package's gather does
         ids = tokens.long().clamp(0, self.cfg.vocab_size - 1)
-        rows = self._range("embed")
+        rows = self._ranges("embed").get(0)
         if rows is None:
             return self.embed[ids]
         return collectives.embed_lookup(self.embed, ids, rows[0], self.mesh)
@@ -514,7 +527,7 @@ class Llama(nn.Module):
     def _row_sum(self, name: str, y: torch.Tensor) -> torch.Tensor:
         """A row-parallel product's partial y summed over tp where leaf
         `name` is split (y as it is otherwise)."""
-        return y if self._leaf_split(name) is None else collectives.all_reduce_sum(y, self.mesh)
+        return collectives.all_reduce_sum(y, self.mesh) if self._leaf_split(name) else y
 
     def _block(self, li: int, x: torch.Tensor, rope, attend) -> tuple:
         """One decoder layer: returns (x out, k, v). `attend(q, k, v)`
@@ -536,7 +549,7 @@ class Llama(nn.Module):
         head = self.embed.T if self.lm_head is None else self._leaf("lm_head", self.lm_head)
         logits = qdot(x, head, out_dtype=torch.float32)
         split = self._leaf_split("embed" if self.lm_head is None else "lm_head")
-        return logits if split is None else collectives.gather_last(logits, self.mesh)
+        return collectives.gather_last(logits, self.mesh) if split else logits
 
     def _window(self, li: int) -> int:
         """Layer li's sliding window (0: full attention)."""

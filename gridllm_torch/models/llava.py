@@ -83,12 +83,12 @@ class Llava(Llama):
             "wk": (lv, dv, dv), "bk": (lv, dv), "wv": (lv, dv, dv), "bv": (lv, dv),
             "wo": (lv, dv, dv), "bo": (lv, dv), "ln2_w": (lv, dv), "ln2_b": (lv, dv),
             "fc1": (lv, dv, fv), "b1": (lv, fv), "fc2": (lv, fv, dv), "b2": (lv, dv)}
-        # the whole shape and split dim (None: whole) of each tower layer
+        # the whole shape and split ({dim: axis}) of each tower layer
         # leaf, and the tower's heads on this rank
         self._vfull = full
         self._vdims = {k: leaf_split(k, s, cfg, self.mesh, heads=vision_heads(cfg))
                        for k, s in full.items()}
-        split = self._vdims["wq"] is not None
+        split = bool(self._vdims["wq"])
         self.v_heads = vc.num_heads // self.mesh.shape["tp"] if split else vc.num_heads
         self.vision_layers = nn.ParameterDict({
             k: p(*self._local_shape(s, self._vdims[k])) for k, s in full.items()})
@@ -106,8 +106,8 @@ class Llava(Llama):
     def _vcut(self, path: tuple[str, ...], x, layer_slice: bool = False):
         """This rank's share of a full tensor of tower leaf `path` (or,
         with layer_slice, of one layer of it); other leaves whole."""
-        dim = self._vdims.get(path[-1]) if path[:2] == ("vision", "layers") else None
-        return shard_leaf(x, None if dim is None else dim - layer_slice, self.mesh)
+        split = self._vdims.get(path[-1]) if path[:2] == ("vision", "layers") else None
+        return shard_leaf(x, split, self.mesh, lead=int(layer_slice))
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Llava":
@@ -247,7 +247,7 @@ class Llava(Llama):
             probs = torch.softmax(logits / math.sqrt(dh), dim=-1).to(v.dtype)
             att = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, heads * dh)
             o = att @ lp["wo"][li]
-            if self._vdims["wo"] is not None:   # the rank's heads: a partial sum
+            if self._vdims["wo"]:   # the rank's heads: a partial sum
                 o = collectives.all_reduce_sum(o, self.mesh)
             x = x + (o + lp["bo"][li])
             h = layer_norm(x, lp["ln2_w"][li], lp["ln2_b"][li], eps)

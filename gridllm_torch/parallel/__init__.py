@@ -1,9 +1,9 @@
 """Parallelism layer: the worker group's process group, its mesh, the
 parameter shards and the collectives (the JAX package's parallel/, for
-tensor parallelism).
+its dp, ep and tp axes).
 
 In the JAX package one process drives a mesh of devices and GSPMD inserts
-the collectives; here one process drives one device, so a tensor-parallel
+the collectives; here one process drives one device, so a meshed
 logical worker is a group of processes in SPMD lockstep (worker/group.py,
 worker/plan.py), and the model code calls parallel/collectives.py itself.
 """

@@ -1,18 +1,23 @@
-"""The tensor-parallel collectives of the model code.
+"""The collectives of the model code, over the tp and ep axes.
 
 The JAX package has no such module: GSPMD inserts its collectives from the
-shardings (parallel/sharding.py). Here each rank is a process and the model
-code calls these at the three places a tp split needs one:
+shardings (parallel/sharding.py), and its expert-parallel MoE ends in a
+`psum` over ("ep", "tp"). Here each rank is a process and the model code
+calls these at the places a split needs one:
 
 - `all_reduce_sum` after the row-parallel products (wo, w_down): each
-  rank's product is a partial sum over its slice of the inner dim;
+  rank's product is a partial sum over its slice of the inner dim; and,
+  over the axes that split mixtral's experts (`axes=("ep", "tp")`, or
+  one of them), after the MoE: each rank's output is the sum over its
+  experts and its slice of their hidden dim (`kind="all_reduce.moe"`);
 - `embed_lookup`, the vocab-split embedding: each rank looks up the ids in
   its rows, zeroes the others, and the ranks sum (exactly one rank holds
   each id, so the sum adds zeros and is exact);
 - `gather_last`, lm_head's vocab-split logits concatenated on every rank
   for the sampler, so every rank samples the same tokens.
 
-With no mesh, or tp of 1, each is the identity and launches nothing.
+With no mesh, or where the axes are all 1, each is the identity and
+launches nothing. No collective runs over dp.
 
 Backends: NCCL, and gloo (the CPU, and CUDA tensors where several ranks
 share one device). On the card's torch (2.11, CUDA 12.8) gloo has
@@ -21,14 +26,16 @@ bfloat16, so no op is built from others; chip_smoke.py's tp phase checks
 this on the card. Gloo moves a CUDA tensor through host memory: each call
 is a round trip to the host.
 
-`CALLS` counts the collectives issued, by kind (never at tp 1).
+`CALLS` counts the collectives issued, by kind: "all_reduce" (the tp
+sums), "all_reduce.moe" (the MoE's sums, one a meshed MoE layer call) and
+"all_gather"; never where the axes are all 1.
 """
 
 from __future__ import annotations
 
 import torch
 
-CALLS: dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+CALLS: dict[str, int] = {"all_reduce": 0, "all_reduce.moe": 0, "all_gather": 0}
 
 
 def reset_counts() -> None:
@@ -38,21 +45,22 @@ def reset_counts() -> None:
 
 def tp_group(mesh):
     """The tp axis's process group, or None (no mesh, or tp of 1)."""
-    if mesh is None or mesh.shape.get("tp", 1) == 1:
-        return None
-    return mesh.group("tp")
+    return None if mesh is None else mesh.group("tp")
 
 
-def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """x summed over the tp ranks, in place; x at tp 1."""
-    g = tp_group(mesh)
+def all_reduce_sum(x: torch.Tensor, mesh, axes: tuple[str, ...] = ("tp",),
+                   kind: str = "all_reduce") -> torch.Tensor:
+    """x summed over the ranks of this rank's line (one axis) or plane
+    (several) of `axes`, in place, counted under CALLS[kind];
+    x where the axes hold one rank."""
+    g = None if mesh is None else mesh.group(axes)
     if g is None:
         return x
     import torch.distributed as dist
 
     x = x.contiguous()
     dist.all_reduce(x, group=g)
-    CALLS["all_reduce"] += 1
+    CALLS[kind] += 1
     return x
 
 

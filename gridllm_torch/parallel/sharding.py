@@ -1,7 +1,9 @@
-"""Which dim of each parameter a rank keeps a slice of, and the slice.
+"""Which dims of each parameter a rank keeps a slice of, and the slice.
 
 The counterpart of the JAX package's parallel/sharding.py, with its leaf
-names and Megatron layout on the "tp" axis (_LAYER_SPECS, _TOP_SPECS):
+names, its Megatron layout on the "tp" axis and its expert layout on the
+"ep" axis (_LAYER_SPECS, _TOP_SPECS). A leaf's split is a map {dim: axis}
+(empty: whole on every rank), so a leaf may split on two dims:
 
   wq/wk/wv, w_gate/w_up   [L, E, out]   out split        (column parallel)
   wo, w_down              [L, in, E]    in  split        (row parallel: the
@@ -11,9 +13,17 @@ names and Megatron layout on the "tp" axis (_LAYER_SPECS, _TOP_SPECS):
   bq/bk/bv                [L, out]      out split with their projection
   embed                   [V, E]        vocab split      (masked lookup + sum)
   lm_head                 [E, V]        vocab split      (logits gathered)
-  norms                   replicated
+  norms, router           replicated
+  we_gate/we_up           [L, X, E, F]  X split over ep, F over tp
+  we_down                 [L, X, F, E]  X split over ep, F over tp (a
+                                        rank's MoE output is a partial sum
+                                        over its experts and its F slice,
+                                        summed over ep × tp in one
+                                        all-reduce)
   kv page pools  [L, P, ps, KVH, D]     KVH split: each rank's pool holds
                                         its own kv heads
+
+dp names no dim, as in the JAX package: a dp > 1 mesh replicates.
 
 The split rule differs from the JAX package's in one place. JAX's `_fit`
 checks divisibility on the FLATTENED out dim, so wk [L, E, KVH·D] splits
@@ -23,8 +33,9 @@ heads. So attention (wq, wk, wv, wo and their biases) is split by whole
 heads, and only where `ops.kvcache.kernel_mesh_axis` gives "tp" (KVH and H
 divide by tp); otherwise every rank keeps all of attention, computes it
 whole and sums nothing after wo. The MLP splits by its hidden dim where F
-divides by tp, embed and lm_head by vocab where V does; each falls back to
-replicated on its own.
+divides by tp, embed and lm_head by vocab where V does, the experts' X
+where it divides by ep and their F where it divides by tp; each dim falls
+back to whole on its own, as JAX `_fit` does.
 
 The same specs cut the other families' trees, as the JAX package's do (it
 resolves a leaf's spec by its nearest dict key, `layers` anywhere on the
@@ -46,6 +57,7 @@ from typing import Any
 import numpy as np
 
 from gridllm_torch.ops.kvcache import kernel_mesh_axis, local_kv_heads
+from gridllm_torch.parallel.mesh import GROUP_AXES
 
 _LAYER_SPECS: dict[str, tuple[str | None, ...]] = {
     "wq": ("pp", None, "tp"),
@@ -102,33 +114,41 @@ def _shape(leaf) -> tuple[int, ...]:
 
 
 def leaf_split(name: str, shape: tuple[int, ...], cfg, mesh, top: bool = False,
-               heads: tuple[int, int] | None = None) -> int | None:
-    """The dim of leaf `name` (full shape `shape`) that tp splits, or None;
-    an attention leaf splits only where `heads` (attention_split's) do."""
-    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+               heads: tuple[int, int] | None = None) -> dict[int, str]:
+    """The dims of leaf `name` (full shape `shape`) that the mesh splits,
+    {dim: axis} (empty: whole on every rank). Each dim splits on its own
+    where its size divides by its axis (JAX `_fit`); an attention leaf
+    splits over tp only where `heads` (attention_split's) do."""
     spec = (_TOP_SPECS if top else _LAYER_SPECS).get(name)
-    if tp == 1 or spec is None or len(spec) != len(shape):
-        return None
+    if mesh is None or spec is None or len(spec) != len(shape):
+        return {}
+    out = {}
     for dim, (size, ax) in enumerate(zip(shape, spec)):
-        if ax != "tp":
+        # dp names no dim; pp and sp are refused with the mesh
+        n = mesh.shape.get(ax, 1) if ax in GROUP_AXES else 1
+        if n == 1:
             continue
         if name in ATTENTION_LEAVES and not top:
-            return dim if attention_split(cfg, mesh, heads) else None
-        return dim if size % tp == 0 else None
-    return None
+            ok = attention_split(cfg, mesh, heads)
+        else:
+            ok = size % n == 0
+        if ok:
+            out[dim] = ax
+    return out
 
 
-def scale_split(dim: int | None, ndim: int) -> int | None:
-    """The split dim of an int8 leaf's scale [..., out] given its q's
-    (`dim` of `ndim`): a column split (out) cuts the scale with it; a row
-    split (in, the axis the scale spans) leaves it whole."""
-    return dim - 1 if dim is not None and dim == ndim - 1 else None
+def scale_split(split: dict[int, str], ndim: int) -> dict[int, str]:
+    """The split of an int8 leaf's scale [..., out] given its q's (`split`
+    of an `ndim`-dim q): a column split (out) cuts the scale with it, a
+    leading dim keeps its index; a row split (in, the axis the scale
+    spans) leaves it whole."""
+    return {d if d < ndim - 2 else d - 1: ax for d, ax in split.items() if d != ndim - 2}
 
 
 def param_shardings(params: dict[str, Any], cfg, mesh) -> dict[str, Any]:
-    """The split dim (None: replicated) of every leaf of a params tree
-    (leaves arrays, QuantizedTensors, whose q's dim is given, or shape
-    tuples), congruent with it: `layers` by the layer table, llava's
+    """The split ({dim: axis}; empty: replicated) of every leaf of a params
+    tree (leaves arrays, QuantizedTensors, whose q's split is given, or
+    shape tuples), congruent with it: `layers` by the layer table, llava's
     `vision.layers` by it at the tower's heads, every other leaf of a
     subtree (the tower's top leaves, the projector) whole, and the top
     leaves by the top table."""
@@ -140,32 +160,34 @@ def param_shardings(params: dict[str, Any], cfg, mesh) -> dict[str, Any]:
         if name == "layers":
             out[name] = layer_dims(leaf)
         elif isinstance(leaf, dict):
-            out[name] = {k: layer_dims(v, vision_heads(cfg)) if k == "layers" else None
+            out[name] = {k: layer_dims(v, vision_heads(cfg)) if k == "layers" else {}
                          for k, v in leaf.items()}
         else:
             out[name] = leaf_split(name, _shape(leaf), cfg, mesh, top=True)
     return out
 
 
-def shard_range(size: int, mesh) -> tuple[int, int]:
-    """[lo, hi) of a tp-split dim of `size` on this rank."""
-    tp = mesh.shape.get("tp", 1)
-    n = size // tp
-    r = mesh.axis_rank("tp")
+def shard_range(size: int, mesh, axis: str) -> tuple[int, int]:
+    """[lo, hi) of a dim of `size` split over `axis` on this rank."""
+    n = size // mesh.shape.get(axis, 1)
+    r = mesh.axis_rank(axis)
     return r * n, (r + 1) * n
 
 
-def shard_leaf(x, dim: int | None, mesh):
+def shard_leaf(x, split: dict[int, str] | None, mesh, lead: int = 0):
     """This rank's slice of a full leaf (numpy or torch, or an int8 pair,
-    its q and scale cut by `scale_split`) along `dim`."""
+    its q and scale cut by `scale_split`) on every dim of `split`; with
+    `lead`, x is one index of the leaf's first `lead` dims (a layer, or a
+    layer's expert), whose splits it no longer has."""
     if hasattr(x, "q"):
-        return type(x)(shard_leaf(x.q, dim, mesh),
-                       shard_leaf(x.scale, scale_split(dim, x.q.ndim), mesh))
-    if dim is None:
-        return x
-    lo, hi = shard_range(x.shape[dim], mesh)
+        return type(x)(shard_leaf(x.q, split, mesh, lead),
+                       shard_leaf(x.scale, scale_split(split or {}, x.q.ndim + lead), mesh,
+                                  lead))
     index = [slice(None)] * x.ndim
-    index[dim] = slice(lo, hi)
+    for dim, ax in (split or {}).items():
+        if dim >= lead:
+            lo, hi = shard_range(x.shape[dim - lead], mesh, ax)
+            index[dim - lead] = slice(lo, hi)
     return x[tuple(index)]
 
 
@@ -173,7 +195,7 @@ def shard_params(params: dict[str, Any], cfg, mesh) -> dict[str, Any]:
     """Cut a full params tree down to this rank's slices (views)."""
     def cut(tree, dims):
         if isinstance(tree, dict):
-            return {k: cut(v, dims[k] if isinstance(dims, dict) else dims)
+            return {k: cut(v, dims[k] if isinstance(dims, dict) and k in dims else {})
                     for k, v in tree.items()}
         return shard_leaf(tree, dims, mesh)
 

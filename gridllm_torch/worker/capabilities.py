@@ -149,12 +149,14 @@ def gather_capabilities(
                 }, sort_keys=True).encode()).hexdigest()[:16],
             }
         models.append(ModelInfo(name=name, model=name, details=details))
-        # the JAX worker's layout of a meshed engine (tp only is ported)
+        # the JAX worker's layout of a meshed engine, in its order (pp,
+        # which the port refuses, would come first)
         mesh = getattr(eng, "mesh", None)
-        tp = mesh is not None and mesh.shape.get("tp", 1) > 1
+        axes = mesh.shape if mesh is not None else {}
         layouts.append(ModelShardLayout(
             name=name,
-            strategy="tensor" if tp else "replicated",
+            strategy="tensor" if axes.get("tp", 1) > 1
+            else "expert" if axes.get("ep", 1) > 1 else "replicated",
             meshAxes=dict(mesh.shape) if mesh is not None else {},
             dtype=str(getattr(c, "dtype", "bfloat16")),
             maxSeqLen=getattr(eng, "max_context", 8192),

@@ -18,10 +18,12 @@ makes each engine serve one token before the worker announces it.
 GRIDLLM_WORKER_ROLE sets the fleet role: unified, prefill or decode.
 aiohttp is imported by the health port alone.
 
-A tensor-parallel worker group (the JAX worker's multi-host slice): one
-process per device, GRIDLLM_NUM_PROCS of them, each with its
-GRIDLLM_PROC_ID and the liaison's GRIDLLM_COORD_ADDR, and
-GRIDLLM_MESH_SHAPE="tp:N" with N the process count. Every process joins
+A worker group (the JAX worker's multi-host slice): one process per
+device, GRIDLLM_NUM_PROCS of them, each with its GRIDLLM_PROC_ID and the
+liaison's GRIDLLM_COORD_ADDR, and GRIDLLM_MESH_SHAPE over the dp, ep and
+tp axes whose product is the process count ("tp:2", "ep:2", "ep:2,tp:2",
+"dp:2,tp:2", ...): tp splits every family's attention, MLP and vocabulary,
+ep mixtral's experts, and dp replicates. Every process joins
 the torch.distributed group (NCCL, rank r on cuda:{r % device_count},
 unless `run` is given another backend), builds the same engines on its
 shard, and then:
@@ -34,10 +36,9 @@ shard, and then:
     the liaison announces worker:disconnected and every process exits.
 A group serves every family and mode one card serves (int8 weights,
 either attention mode, images, embedding jobs, the prefix cache, a draft
-model's trees) but mixtral. Refused, naming ROADMAP A 9: any mesh axis but
-tp, and (in the engine) mixtral under a mesh. A mesh whose size is not
-GRIDLLM_NUM_PROCS is refused: the torch worker drives one device per
-process.
+model's trees, mixtral). Refused, naming ROADMAP A 9: the pp and sp axes.
+A mesh whose size is not GRIDLLM_NUM_PROCS is refused: the torch worker
+drives one device per process.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def resolve_checkpoint(root: str | None, model: str) -> tuple[str | None, str | 
 
 
 def _mesh_config(config: Config) -> MeshConfig | None:
-    """GRIDLLM_MESH_SHAPE ("tp:2", "pp:2,tp:4", ...) as a MeshConfig."""
+    """GRIDLLM_MESH_SHAPE ("tp:2", "ep:2,tp:2", ...) as a MeshConfig."""
     if not config.engine.mesh_shape:
         return None
     axes = dict(kv.split(":") for kv in config.engine.mesh_shape.split(",") if kv)
@@ -87,16 +88,17 @@ def _mesh_config(config: Config) -> MeshConfig | None:
 
 
 def check_single_device(config: Config) -> None:
-    """Refuse a group shape the torch worker cannot run: a mesh axis other
-    than tp (ROADMAP A 9), a group without a mesh, and a mesh whose size is
-    not the process count (one process per device)."""
+    """Refuse a group shape the torch worker cannot run: a pp or sp axis
+    (ROADMAP A 9), a group without a mesh, and a mesh whose size is not the
+    process count (one process per device)."""
     mesh, n = _mesh_config(config), config.engine.num_procs
     shape = config.engine.mesh_shape
     if mesh is None:
         if n > 1:
             raise SystemExit(
                 f"GRIDLLM_NUM_PROCS={n} without GRIDLLM_MESH_SHAPE: a torch worker group "
-                f"shards its models over tp, one process per device (GRIDLLM_MESH_SHAPE=tp:{n})")
+                f"spans a mesh of dp, ep and tp, one process per device (e.g. "
+                f"GRIDLLM_MESH_SHAPE=tp:{n})")
         return
     try:
         dims = mesh.resolve(n)

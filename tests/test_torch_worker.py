@@ -456,19 +456,26 @@ async def test_drain_mid_decode_hands_off_by_resume(engines, undisturbed):
 
 @pytest.mark.parametrize("shape,procs,match", [
     ("pp:2", "2", "ROADMAP A 9"),
-    ("ep:2", "2", "ROADMAP A 9"),
+    ("ep:2", "2", None),
     ("sp:2", "2", "ROADMAP A 9"),
     ("tp:2", "1", "size must be the process count"),
+    ("dp:2", "2", None),
+    ("ep:2,tp:2", "4", None),
+    ("dp:2,ep:2", "2", "size must be the process count"),
 ])
 def test_worker_group_refusals(monkeypatch, shape, procs, match):
     """What `python -m gridllm_torch.worker` still refuses of a worker
-    group: every mesh axis but tp (ROADMAP A 9), and a mesh whose size is
-    not GRIDLLM_NUM_PROCS (one process per device)."""
+    group: the pp and sp axes (ROADMAP A 9), and a mesh whose size is not
+    GRIDLLM_NUM_PROCS (one process per device); groups over dp, ep and
+    their products with tp (match None) pass."""
     from gridllm_torch.utils.config import load_config
     from gridllm_torch.worker import main as wmain
 
     monkeypatch.setenv("GRIDLLM_MESH_SHAPE", shape)
     monkeypatch.setenv("GRIDLLM_NUM_PROCS", procs)
+    if match is None:
+        wmain.check_single_device(load_config())
+        return
     with pytest.raises(SystemExit, match=match):
         wmain.check_single_device(load_config())
 
